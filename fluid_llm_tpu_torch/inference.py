@@ -1,0 +1,121 @@
+"""Inference entry point: the 251-step rollout protocol on the card.
+
+Counterpart of ``fluid_llm_tpu/inference.py`` (``src/inference.py:27-191``):
+build the test dataset at ``seq_len=253``, autoregressively generate
+``pred_steps=251`` from 1 context state (bs=1), report per-step and mean
+N-RMSE.
+
+The JAX entry restores an Orbax checkpoint, which cannot be read without
+jax; a torch checkpoint format arrives with the training port.  Until then
+``main`` builds the model from ``--config_path`` with random weights drawn
+from ``--seed``.
+
+    python -m fluid_llm_tpu_torch.inference --config_path configs/training1.yaml \\
+        --load_dir synthetic:1
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import logging
+import os
+import sys
+
+import numpy as np
+import torch
+
+from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.data import get_dataset, make_batches
+from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+from fluid_llm_tpu_torch.ops.patching import patch_to_img
+from fluid_llm_tpu_torch.rollout.generate import gen_seq
+from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
+from fluid_llm_tpu_torch.utils import get_device, set_seed
+
+logger = logging.getLogger("fluid_llm_tpu_torch.inference")
+
+
+@torch.inference_mode()
+def test_generate(
+    model: FluidLLM,
+    dataset,
+    batch_size: int = 1,
+    pred_steps: int = 251,
+    ctx_states: int = 1,
+) -> tuple[np.ndarray, float]:
+    """``src/inference.py:82-147``; returns (per-step N-RMSE, mean).
+
+    Batches go to the device of the model's parameters.
+    """
+    device = next(model.parameters()).device
+    end_state = pred_steps + ctx_states - 1
+    n_rmses = []
+    for i, batch in enumerate(make_batches(dataset, batch_size, shuffle=False, device=device)):
+        states, _, _, bc_mask, _ = batch
+        pred_states, _ = gen_seq(model, batch, pred_steps, start_state=ctx_states)
+        pred_states = pred_states[:, :-1]  # last state has no diff
+        true_states = patch_to_img(states, model.ds_props)[:, :end_state]
+        mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()[:, :end_state]
+        n_rmses.append(calc_n_rmse(pred_states, true_states, mask_img).cpu().numpy())
+        logger.info("trajectory batch %d done", i)
+
+    n_rmses = np.concatenate(n_rmses, axis=0)
+    per_step = n_rmses.mean(axis=0)[ctx_states - 1:]
+    mean = float(per_step.mean())
+    logger.info("Standard N_RMSE: %s, Mean: %.4g", np.array2string(per_step, precision=4), mean)
+    return per_step, mean
+
+
+def build_seeded_model(cfg: Config, seed: int, device: torch.device) -> FluidLLM:
+    """The model for ``cfg`` with random weights from ``seed``, prepared for
+    inference on ``device``.  Geometry comes from the train-time dataset
+    config (``inference.py:173-174``)."""
+    probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
+    model = FluidLLM.build(cfg, probe_ds.ds_props())
+    model.init_weights(set_seed(seed))
+    model.to(device)
+    model.prepare_inference_params()
+    return model.eval()
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="251-step rollout of a FluidLLM on the card. Weights are random, drawn "
+        "from --seed: a torch checkpoint format arrives with training (the JAX package's "
+        "Orbax checkpoints cannot be read without jax)."
+    )
+    parser.add_argument("--config_path", default="configs/training1.yaml")
+    parser.add_argument("--load_dir", default=None,
+                        help="override the config's dataset (only synthetic[:<n>] is ported)")
+    parser.add_argument("--seed", type=int, default=1234, help="weight-init seed")
+    parser.add_argument("--seq_len", type=int, default=253)
+    parser.add_argument("--pred_steps", type=int, default=251)
+    parser.add_argument("--batch_size", type=int, default=1)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--csv", default=None, help="write per-step N-RMSE CSV")
+    args = parser.parse_args(argv)
+    logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
+
+    cfg = Config.from_yaml(args.config_path)
+    if args.load_dir is not None:
+        cfg = cfg.replace(load_dir=args.load_dir)
+    model = build_seeded_model(cfg, args.seed, get_device(args.device))
+    test_ds = get_dataset(cfg.replace(seq_len=args.seq_len), mode="test")
+    per_step, mean = test_generate(
+        model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps
+    )
+    if args.csv:
+        if os.path.dirname(args.csv):
+            os.makedirs(os.path.dirname(args.csv), exist_ok=True)
+        with open(args.csv, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["step", "n_rmse"])
+            for s, v in enumerate(per_step):
+                w.writerow([s, float(v)])
+        logger.info("wrote %s", args.csv)
+    return mean
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

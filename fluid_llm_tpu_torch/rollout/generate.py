@@ -1,0 +1,90 @@
+"""Autoregressive rollout over a fixed-shape, right-aligned window.
+
+Counterpart of ``fluid_llm_tpu/rollout/generate.py`` (``generate``,
+``gen_seq``), as a Python loop.  The reference generates with a deque of at
+most ``max_ctx_len`` states, re-encoding the whole window every step
+(``src/models/model.py:168-216``).  Semantics kept:
+
+- the window buffer has ``W = max_ctx_len`` frame slots and is RIGHT-aligned:
+  the newest frame always sits at ``W-1``, not-yet-filled slots occupy the
+  front and are masked out of attention (cumsum positions in the backbone
+  keep the learned-position indices equal to the dense computation);
+- time position ids are re-zeroed per window (``model.py:196-199``): valid
+  slot j carries ``t = j - start``;
+- see-init duplicates the first *valid* frame (``model.py:118-126``) with
+  ``t = 0``;
+- boundary-condition pixels are forced to zero diff with the mask of the
+  last available state (``model.py:202,206``).
+
+No KV cache, like the reference: the re-zeroed time ids change every
+token's embedding as the window slides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
+
+
+@torch.inference_mode()
+def generate(
+    model: FluidLLM,
+    init_states: torch.Tensor,
+    bc_mask: torch.Tensor,
+    position_ids: torch.Tensor,
+    n_steps: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """init_states: (bs, init_len, N_patch, 3, px, py); bc_mask:
+    (bs, seq, N_patch, 3, px, py) bool; position_ids: (bs, seq, N_patch, 3).
+
+    Returns (all_states, all_diffs) as patch tensors of
+    (bs, init_len + n_steps, ...) and (bs, n_steps, ...).
+    """
+    bs, init_len, n_patch = init_states.shape[:3]
+    W = model.max_ctx_len
+    dev = init_states.device
+    buffer = init_states.new_zeros((bs, W) + init_states.shape[2:])
+    buffer[:, W - init_len:] = init_states
+    spatial = position_ids[:, :1, :, :2].expand(bs, W, n_patch, 2)
+    # the see-init duplicated frame always carries t=0
+    dup_pos = torch.cat([spatial[:, 0], spatial.new_zeros(bs, n_patch, 1)], dim=-1)
+    slot = torch.arange(W, device=dev)[None, :]
+
+    next_states, all_diffs = [], []
+    for i in range(n_steps):
+        start = W - min(init_len + i, W)  # first valid slot
+        frame_valid = (slot >= start).expand(bs, W)
+        t_ids = (slot - start).clamp_min(0).expand(bs, W)
+        wpos = torch.cat([spatial, t_ids[:, :, None, None].expand(bs, W, n_patch, 1)], dim=-1)
+        last_img = model.predict_frame_diff(
+            buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dup_pos)
+        )
+        diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
+        step_idx = min(init_len + i - 1, bc_mask.shape[1] - 1)
+        diffs = torch.where(bc_mask[:, step_idx], 0.0, diffs)
+        next_state = buffer[:, W - 1] + diffs
+        buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
+        next_states.append(next_state)
+        all_diffs.append(diffs)
+    all_states = torch.cat([init_states, torch.stack(next_states, dim=1)], dim=1)
+    return all_states, torch.stack(all_diffs, dim=1)
+
+
+def gen_seq(
+    model: FluidLLM, batch: tuple, pred_steps: int, start_state: int = 1
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``model.py:218-233``: generate from the first ``start_state`` states
+    and return (states, diffs) as images."""
+    states, _, _, bc_mask, position_ids = batch
+    seq_len = states.shape[1]
+    if pred_steps + start_state - 1 > seq_len:
+        raise ValueError(
+            f"Prediction steps ({pred_steps}) + start state ({start_state}) "
+            f"must be less than total sequence length {seq_len}!"
+        )
+    all_states, all_diffs = generate(
+        model, states[:, :start_state], bc_mask, position_ids, pred_steps
+    )
+    return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)
