@@ -1,7 +1,13 @@
 // Causal, key-valid multi-head attention over PACKED q/k/v, forward only.
 //
 // Replaces the TPU kernel fluid_llm_tpu/ops/exact_attention.py:_kernel
-// (Pallas, one program per (batch, 128-lane head group), whole-L VMEM tiles).
+// (Pallas, one program per (batch, 128-lane head group), whole-L VMEM tiles)
+// through exact_attention_fwd, and the training forward
+// fluid_llm_tpu/ops/flash_attention.py:_fwd_kernel through
+// flash_attention_fwd: the same tile loop, which then also writes each
+// row's logsumexp lse[b, h, i] = m_i + log(l_i) (f32, (bs, H, L)) for the
+// backward kernels in flash_attention.cu.  The mask of both TPU kernels is
+// the same (flash_attention.py:_mask == backbone.make_masks).
 //
 // Semantics (backbone.make_masks, exactly):
 //   allowed[i, j] = (j <= i && valid[j]) || j == i     (forced diagonal)
@@ -33,22 +39,16 @@
 #include <math.h>
 #include <mma.h>
 
+#include "attention_tiles.cuh"
+
 using namespace nvcuda;
+using namespace attn;
 
 namespace {
 
-constexpr int BQ = 64;             // query rows per block
-constexpr int BK = 64;             // keys per tile
-constexpr int WARPS = BQ / 16;     // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-constexpr int SLD = BK + 8;        // f32 score tile row stride (elements)
-constexpr int PLD = BK + 8;        // bf16 probability tile row stride
-
-constexpr size_t round128(size_t n) { return (n + 127) / 128 * 128; }
-
 template <int HD>
 struct Layout {
-  static constexpr int QLD = HD + 8;  // bf16 q/k/v tile row stride
+  static constexpr int QLD = qld<HD>();
   static constexpr int OLD = HD + 4;  // f32 accumulator row stride
   static constexpr size_t q = 0;
   static constexpr size_t k = q + round128(sizeof(__nv_bfloat16) * BQ * QLD);
@@ -62,23 +62,6 @@ struct Layout {
   static constexpr size_t kvalid = alpha + round128(sizeof(float) * BQ);
   static constexpr size_t bytes = kvalid + round128(sizeof(int) * BK);
 };
-
-// Copy `rows` rows of HD bf16 (16 bytes per thread-step) into a shared tile,
-// zero-filling rows at or past L.
-template <int HD>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int t0, int L) {
-  constexpr int CH = HD / 8;
-  constexpr int LD = Layout<HD>::QLD;
-  for (int c = threadIdx.x; c < 64 * CH; c += THREADS) {
-    const int r = c / CH;
-    const int cc = (c % CH) * 8;
-    const int t = t0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < L) val = *reinterpret_cast<const uint4*>(src + (long long)t * row_stride + cc);
-    *reinterpret_cast<uint4*>(dst + r * LD + cc) = val;
-  }
-}
 
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
@@ -94,8 +77,9 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid,
-                       __nv_bfloat16* __restrict__ out, int L, long long q_rs, long long k_rs,
-                       long long v_rs, long long o_rs, float scale) {
+                       __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int L,
+                       long long q_rs, long long k_rs, long long v_rs, long long o_rs,
+                       float scale) {
   using Lay = Layout<HD>;
   constexpr int QLD = Lay::QLD;
   constexpr int OLD = Lay::OLD;
@@ -172,8 +156,8 @@ exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       const int j1 = j0 + 32;
       const float s0 = s_w[r * SLD + lane] * scale;
       const float s1 = s_w[r * SLD + lane + 32] * scale;
-      const bool a0 = (j0 <= i && skv[lane] != 0) || j0 == i;
-      const bool a1 = (j1 <= i && skv[lane + 32] != 0) || j1 == i;
+      const bool a0 = allowed(i, j0, skv[lane]);
+      const bool a1 = allowed(i, j1, skv[lane + 32]);
       const float tile_max = warp_max(fmaxf(a0 ? s0 : -INFINITY, a1 ? s1 : -INFINITY));
       const float m_old = sm[row];
       const float m_new = fmaxf(m_old, tile_max);
@@ -221,11 +205,14 @@ exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
     const int t = q0 + r;
     if (t < L) ob[(long long)t * o_rs + e % HD] = __float2bfloat16(so[r * OLD + e % HD] / sl[r]);
   }
+  // every row has its diagonal, so l > 0 and the logsumexp is finite
+  if (lse != nullptr && tid < BQ && q0 + tid < L)
+    lse[((long long)b * gridDim.y + h) * L + q0 + tid] = sm[tid] + logf(sl[tid]);
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, const void* valid, void* out, int bs,
-           int L, int n_heads, long long q_rs, long long k_rs, long long v_rs, long long o_rs,
+int launch(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse,
+           int bs, int L, int n_heads, long long q_rs, long long k_rs, long long v_rs, long long o_rs,
            float scale, cudaStream_t stream) {
   constexpr size_t smem = Layout<HD>::bytes;
   static bool attr_set = false;
@@ -239,8 +226,25 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
   exact_attention_kernel<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(valid),
-      static_cast<__nv_bfloat16*>(out), L, q_rs, k_rs, v_rs, o_rs, scale);
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, q_rs, k_rs, v_rs, o_rs, scale);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse,
+             int bs, int L, int n_heads, int head_dim, long long q_rs, long long k_rs,
+             long long v_rs, long long o_rs, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, valid, out, lse, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale, s);
+    case 64:
+      return launch<64>(q, k, v, valid, out, lse, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale, s);
+    case 128:
+      return launch<128>(q, k, v, valid, out, lse, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale,
+                         s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -252,15 +256,16 @@ extern "C" int exact_attention_fwd(const void* q, const void* k, const void* v, 
                                    void* out, int bs, int L, int n_heads, int head_dim,
                                    long long q_rs, long long k_rs, long long v_rs,
                                    long long o_rs, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch<32>(q, k, v, valid, out, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale, s);
-    case 64:
-      return launch<64>(q, k, v, valid, out, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale, s);
-    case 128:
-      return launch<128>(q, k, v, valid, out, bs, L, n_heads, q_rs, k_rs, v_rs, o_rs, scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, valid, out, nullptr, bs, L, n_heads, head_dim, q_rs, k_rs, v_rs, o_rs,
+                  scale, stream);
+}
+
+// As exact_attention_fwd, and also writes lse: f32 (bs, n_heads, L), each
+// row's logsumexp of its scaled, masked scores.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* valid,
+                                   void* out, void* lse, int bs, int L, int n_heads,
+                                   int head_dim, long long q_rs, long long k_rs, long long v_rs,
+                                   long long o_rs, float scale, void* stream) {
+  return dispatch(q, k, v, valid, out, lse, bs, L, n_heads, head_dim, q_rs, k_rs, v_rs, o_rs,
+                  scale, stream);
 }

@@ -5,11 +5,13 @@ build the test dataset at ``seq_len=253``, autoregressively generate
 ``pred_steps=251`` from 1 context state (bs=1), report per-step and mean
 N-RMSE.
 
-The JAX entry restores an Orbax checkpoint, which cannot be read without
-jax; a torch checkpoint format arrives with the training port.  Until then
-``main`` builds the model from ``--config_path`` with random weights drawn
-from ``--seed``.
+With ``--checkpoint_dir`` the model comes from a run folder written by
+``main``/``continue_train`` (torch checkpoints, ``train/checkpoint.py``):
+its ``config.yaml`` and ``step_N`` (latest by default), as the JAX entry
+point restores its Orbax ones.  Without it, the model is built from
+``--config_path`` with random weights drawn from ``--seed``.
 
+    python -m fluid_llm_tpu_torch.inference --checkpoint_dir model_checkpoints --load_no -1
     python -m fluid_llm_tpu_torch.inference --config_path configs/training1.yaml \\
         --load_dir synthetic:1
 """
@@ -30,6 +32,7 @@ from fluid_llm_tpu_torch.data import get_dataset, make_batches
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import patch_to_img
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
+from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
 from fluid_llm_tpu_torch.utils import get_device, set_seed
 
@@ -79,12 +82,26 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device) -> FluidLLM
     return model.eval()
 
 
+def load_checkpoint_model(load_path: str, step: int, device: torch.device) -> FluidLLM:
+    """The model of run folder ``load_path`` at ``step_<step>``, prepared
+    for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``)."""
+    cfg = ckpt.load_config(load_path)
+    probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
+    model = FluidLLM.build(cfg, probe_ds.ds_props()).to(device)
+    ckpt.restore_checkpoint(load_path, step, model)
+    model.prepare_inference_params()
+    return model.eval()
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="251-step rollout of a FluidLLM on the card. Weights are random, drawn "
-        "from --seed: a torch checkpoint format arrives with training (the JAX package's "
-        "Orbax checkpoints cannot be read without jax)."
+        description="251-step rollout of a FluidLLM on the card, from a checkpoint "
+        "(--checkpoint_dir) or with random weights drawn from --seed (--config_path)."
     )
+    parser.add_argument("--checkpoint_dir", default=None,
+                        help="folder of training runs; omit for seeded random weights")
+    parser.add_argument("--load_no", type=int, default=-1, help="run folder index")
+    parser.add_argument("--step", type=int, default=None, help="checkpoint step (default: latest)")
     parser.add_argument("--config_path", default="configs/training1.yaml")
     parser.add_argument("--load_dir", default=None,
                         help="override the config's dataset (only synthetic[:<n>] is ported)")
@@ -97,10 +114,21 @@ def main(argv=None):
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
 
-    cfg = Config.from_yaml(args.config_path)
-    if args.load_dir is not None:
-        cfg = cfg.replace(load_dir=args.load_dir)
-    model = build_seeded_model(cfg, args.seed, get_device(args.device))
+    device = get_device(args.device)
+    if args.checkpoint_dir is not None:
+        set_seed()
+        load_path = ckpt.get_save_folder(args.checkpoint_dir, args.load_no)
+        step = args.step if args.step is not None else ckpt.latest_step(load_path)
+        logger.info("Loading checkpoint from: %s step_%s", load_path, step)
+        model = load_checkpoint_model(load_path, step, device)
+        cfg = model.cfg
+        if args.load_dir is not None:
+            cfg = cfg.replace(load_dir=args.load_dir)
+    else:
+        cfg = Config.from_yaml(args.config_path)
+        if args.load_dir is not None:
+            cfg = cfg.replace(load_dir=args.load_dir)
+        model = build_seeded_model(cfg, args.seed, device)
     test_ds = get_dataset(cfg.replace(seq_len=args.seq_len), mode="test")
     per_step, mean = test_generate(
         model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps

@@ -1,4 +1,4 @@
-"""Decoder-only transformer backbone (OPT / GPT-2 layouts), inference only.
+"""Decoder-only transformer backbone (OPT / GPT-2 layouts).
 
 Counterpart of ``fluid_llm_tpu/models/backbone.py``.  The reference feeds
 pre-computed patch embeddings via ``inputs_embeds`` (token embeddings nulled,
@@ -14,11 +14,20 @@ Fidelity notes, as in the JAX package:
 - Pre-LN (default) or post-LN (OPT-350m), with ``project_in``/``project_out``
   where the embedding width differs (OPT-350m).
 
-Layers ``0..n-2`` run attention through the hand-written kernel
-(``ops/exact_attention.py``) when ``kernels`` is set and the kernel takes the
-shape; ``decode_slice`` computes the final block for one token range only
-(``_final_block_sliced``, plain PyTorch).  LLaMA/rope, MoE, streaming, the
-stacked-layer layout, ring attention and tensor parallelism come later.
+Attention, with ``kernels`` set and where the kernels take the shape:
+without gradients (rollout, inference) it runs the exact-window kernel
+(``ops/exact_attention.py``); with gradients and ``flash_attention``
+(training) it runs ``ops/flash_attention.FlashAttention``, whose backward
+is the dq and dk/dv kernels.  Otherwise the plain twin, under autograd.
+``decode_slice`` computes the final block for one token range only
+(``_final_block_sliced``, plain PyTorch).
+
+Training (``backbone.py:769-948``): LoRA/DoRA adapters are applied unmerged
+(``models/lora.lora_linear``) on their target projections, and dropout
+draws from a ``torch.Generator`` at the HF placement: the embedding stream,
+after the attention out-projection and after the MLP.  ``pack_qkv_params``
+and ``cast_matmul_params`` are inference-only.  LLaMA/rope, MoE, streaming,
+the stacked-layer layout, ring attention and tensor parallelism come later.
 """
 
 from __future__ import annotations
@@ -31,8 +40,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fluid_llm_tpu_torch.models.common import linear
+from fluid_llm_tpu_torch.models.common import dropout, linear
+from fluid_llm_tpu_torch.models.lora import lora_linear
 from fluid_llm_tpu_torch.ops import exact_attention as xa
+from fluid_llm_tpu_torch.ops import flash_attention as fa
 
 
 @dataclass(frozen=True)
@@ -51,8 +62,10 @@ class BackboneConfig:
     act: str = "relu"  # "relu" | "gelu_new" | "gelu"
     pos_offset: int = 0  # OPT uses 2
     ln_eps: float = 1e-5
-    dropout: float = 0.1  # training only; kept for config parity
+    dropout: float = 0.1  # training only
     dtype: torch.dtype = torch.float32  # activation dtype
+    # training attention through the flash kernels (``cfg.flash_attention``)
+    flash_attention: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -161,21 +174,42 @@ class Block(nn.Module):
         self.ln2 = nn.LayerNorm(d, eps=cfg.ln_eps)
         self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
 
-    def qkv(self, h: torch.Tensor, d: int):
+    def proj(self, h, group: str, name: str, adapters=None, lora_cfg=None, generator=None):
+        """``group.name`` applied to ``h``, through its adapter if it has one
+        (unmerged; adapter dropout when ``generator`` is given)."""
+        lin = getattr(self, group)[name]
+        ad = adapters[group][name] if adapters is not None and group in adapters \
+            and name in adapters[group] else None
+        if ad is None:
+            return linear(h, lin)
+        return lora_linear(h, lin, ad, lora_cfg, generator)
+
+    def qkv(self, h: torch.Tensor, d: int, adapters=None, lora_cfg=None, generator=None):
         """q, k, v of ``h``: column slices of the fused projection when packed."""
         if "qkv" in self.attn:
+            if adapters is not None and "attn" in adapters \
+                    and any(n in adapters["attn"] for n in "qkv"):
+                raise ValueError("packed qkv weights cannot apply q/k/v adapters: merge them "
+                                 "first (FluidLLM.prepare_inference_params)")
             qkv = linear(h, self.attn["qkv"])
             return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-        return tuple(linear(h, self.attn[n]) for n in ("q", "k", "v"))
+        return tuple(self.proj(h, "attn", n, adapters, lora_cfg, generator)
+                     for n in ("q", "k", "v"))
 
-    def forward(self, x, cfg: BackboneConfig, valid_i32, attend) -> torch.Tensor:
+    def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
+                generator=None) -> torch.Tensor:
+        """``generator``: training (adapter and residual dropout draw from
+        it); None runs without dropout."""
+        lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator)
+        drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
+            else (lambda h: h)
         h = _norm(x, self.ln1) if cfg.pre_ln else x
-        q, k, v = self.qkv(h, cfg.d_model)
-        x = x + linear(attend(q, k, v, valid_i32, cfg.n_heads, cfg.head_dim), self.attn["o"])
+        q, k, v = self.qkv(h, cfg.d_model, adapters, lora_cfg, generator)
+        x = x + drop(lin(attend(q, k, v, valid_i32, cfg.n_heads, cfg.head_dim), "attn", "o"))
         if not cfg.pre_ln:
             x = _norm(x, self.ln1)
         h = _norm(x, self.ln2) if cfg.pre_ln else x
-        x = x + linear(_act(linear(h, self.mlp["fc1"]), cfg.act), self.mlp["fc2"])
+        x = x + drop(lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2"))
         if not cfg.pre_ln:
             x = _norm(x, self.ln2)
         return x
@@ -216,6 +250,8 @@ class Backbone(nn.Module):
         *,
         decode_slice: Optional[tuple[int, int]] = None,
         kernels: bool = True,
+        lora=None,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """(bs, L, d) -> (bs, L, d), or (bs, length, d) with ``decode_slice``.
 
@@ -223,9 +259,12 @@ class Backbone(nn.Module):
         decode_slice: optional (start, length): the final block computes
         queries and FFN for that token range only -- exact under causal
         attention, since later layers' other outputs are never read.
-        kernels: run layers 0..n-2's attention through the CUDA kernel where
-        it takes the shape (CPU tensors use its plain twin either way);
-        False selects the plain twin explicitly.
+        kernels: run attention through the CUDA kernels where they take the
+        shape (CPU tensors use the plain twins either way); False selects
+        the plain twin explicitly.
+        lora: optional ``models.lora.Lora`` applied unmerged.
+        generator: training mode: dropout (embedding stream, residual
+        branches, adapter inputs) draws from it; None means no dropout.
         """
         cfg = self.cfg
         bs, L = inputs_embeds.shape[:2]
@@ -236,15 +275,25 @@ class Backbone(nn.Module):
         if self.project_in is not None:
             x = linear(x, self.project_in)
         x = x + self.pos_embed[positions + cfg.pos_offset].to(cfg.dtype)
+        if generator is not None:
+            x = dropout(x, cfg.dropout, generator)
 
-        use_kernel = kernels and xa.supported(cfg.head_dim, cfg.dtype)
-        attend = xa.causal_attention if use_kernel else xa.causal_attention_ref
+        if torch.is_grad_enabled():
+            # the exact-window kernel has no backward; training attention is
+            # the flash Function (its twins on CPU tensors) or the plain twin
+            use_flash = kernels and cfg.flash_attention and fa.supported(cfg.head_dim, cfg.dtype)
+            attend = fa.flash_attention if use_flash else xa.causal_attention_ref
+        else:
+            use_kernel = kernels and xa.supported(cfg.head_dim, cfg.dtype)
+            attend = xa.causal_attention if use_kernel else xa.causal_attention_ref
         valid_i32 = valid.to(torch.int32).contiguous()
+        adapters = lora.layers if lora is not None else [None] * cfg.n_layers
+        lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
-        for layer in self.layers[:n_full]:
-            x = layer(x, cfg, valid_i32, attend)
+        for layer, ad in zip(self.layers[:n_full], adapters):
+            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator)
         if decode_slice is not None:
-            x = self._final_block_sliced(x, allowed, decode_slice)
+            x = self._final_block_sliced(x, allowed, decode_slice, adapters[-1], lora_cfg)
 
         if self.final_norm is not None:
             x = _norm(x, self.final_norm)
@@ -252,11 +301,14 @@ class Backbone(nn.Module):
             x = linear(x, self.project_out)
         return x
 
-    def _final_block_sliced(self, x, allowed, decode_slice) -> torch.Tensor:
+    def _final_block_sliced(self, x, allowed, decode_slice, adapters=None,
+                            lora_cfg=None) -> torch.Tensor:
         """Final block for queries ``start:start+length`` only (exact under
-        causal attention; ``backbone.py:951-1029``).  Plain PyTorch."""
+        causal attention; ``backbone.py:951-1029``), adapters unmerged if
+        given.  Plain PyTorch, no dropout."""
         cfg = self.cfg
         layer = self.layers[-1]
+        lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg)
         start, ln = decode_slice
         bs, L, d = x.shape
         H, hd = cfg.n_heads, cfg.head_dim
@@ -273,20 +325,20 @@ class Backbone(nn.Module):
             kv = F.linear(h, w[d:], b[d:])
             k, v = kv[..., :d], kv[..., d:]
         else:
-            q = linear(h_q, layer.attn["q"])
-            k = linear(h, layer.attn["k"])
-            v = linear(h, layer.attn["v"])
+            q = lin(h_q, "attn", "q")
+            k = lin(h, "attn", "k")
+            v = lin(h, "attn", "v")
         q = q.reshape(bs, ln, H, hd)
         k = k.reshape(bs, L, H, hd)
         v = v.reshape(bs, L, H, hd)
 
         attn_out = _attention(q, k, v, allowed[:, :, start:start + ln], cfg.dtype)
-        x_s = x_s + linear(attn_out.reshape(bs, ln, d), layer.attn["o"])
+        x_s = x_s + lin(attn_out.reshape(bs, ln, d), "attn", "o")
         if not cfg.pre_ln:
             x_s = _norm(x_s, layer.ln1)
 
         h2 = _norm(x_s, layer.ln2) if cfg.pre_ln else x_s
-        x_s = x_s + linear(_act(linear(h2, layer.mlp["fc1"]), cfg.act), layer.mlp["fc2"])
+        x_s = x_s + lin(_act(lin(h2, "mlp", "fc1"), cfg.act), "mlp", "fc2")
         if not cfg.pre_ln:
             x_s = _norm(x_s, layer.ln2)
         return x_s

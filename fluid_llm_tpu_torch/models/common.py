@@ -1,4 +1,4 @@
-"""Shared building blocks: the MLP stack.
+"""Shared building blocks: the MLP stack, the linear and dropout helpers.
 
 Counterpart of ``fluid_llm_tpu/models/common.py`` (``mlp_init``/``mlp_apply``;
 the CNN stacks come with the CNN encoder/decoder).  Mirrors
@@ -30,6 +30,16 @@ def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
     JAX package's ``p["w"].astype(x.dtype)``; a no-op once cast)."""
     b = lin.bias.to(x.dtype) if lin.bias is not None else None
     return F.linear(x, lin.weight.to(x.dtype), b)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (on x's
+    device): keep with probability ``1 - rate``, scale kept values by
+    ``1 / (1 - rate)`` (the JAX package's ``bernoulli`` + ``where``)."""
+    if rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class MLP(nn.ModuleList):

@@ -45,8 +45,12 @@ class PatchDecoder(nn.Module):
         if self.gnn is not None:
             self.gnn.reset_parameters(generator)
 
-    def forward(self, tokens: torch.Tensor, kernels: bool = True) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, kernels: bool = True,
+                train: bool = False) -> torch.Tensor:
         """tokens: (bs, seq, N_patch, llm_dim) -> image (bs, seq, X, Y, 3)."""
+        if train and self.gnn is not None and self.cfg.dropout > 0:
+            raise NotImplementedError("MLPGNN attention dropout in training is not ported "
+                                      "(decoder_params.dropout must be 0)")
         bs, seq = tokens.shape[:2]
         X, Y = self.ds_props.out_tot_size
         h = self.mlp(tokens)

@@ -2,8 +2,8 @@
 
 Counterpart of ``fluid_llm_tpu/models/embeddings.py`` (``patch_encoder``,
 ``pos_embed`` :48-66, ``input_embeddings``); the rope variants and the CNN
-encoder come later.  Inference only: the embedding dropout is a training
-concern.
+encoder come later.  In training, ``input_emb_layer_dropout`` acts on the
+result, drawn from a ``torch.Generator`` (``embeddings.py:185-189``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu.config import EncoderConfig, PosEmbeddingConfig
-from fluid_llm_tpu_torch.models.common import MLP
+from fluid_llm_tpu_torch.models.common import MLP, dropout
 
 
 class PatchEncoder(nn.Module):
@@ -70,6 +70,7 @@ class InputEmbeddings(nn.Module):
         self.pos = PosEmbed(llm_dim, max_embeds, emb_cfg.init_pos_embed)
         self.ln = nn.LayerNorm(llm_dim, eps=emb_cfg.in_emb_ln_eps) \
             if emb_cfg.in_emb_ln_eps is not None else None
+        self.dropout = emb_cfg.input_emb_layer_dropout or 0.0
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -78,9 +79,13 @@ class InputEmbeddings(nn.Module):
         if self.ln is not None:
             self.ln.reset_parameters()
 
-    def forward(self, x: torch.Tensor, position_ids: torch.Tensor) -> torch.Tensor:
-        """(bs, seq, N_patch, C, px, py) -> (bs, seq, N_patch, llm_dim)."""
+    def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """(bs, seq, N_patch, C, px, py) -> (bs, seq, N_patch, llm_dim);
+        ``generator``: training, with the layer's dropout drawn from it."""
         h = self.pos(self.patch(x), position_ids)
         if self.ln is not None:
             h = F.layer_norm(h, self.ln.normalized_shape, self.ln.weight, self.ln.bias, self.ln.eps)
+        if generator is not None:
+            h = dropout(h, self.dropout, generator)
         return h

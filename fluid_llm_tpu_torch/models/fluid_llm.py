@@ -11,10 +11,16 @@ Counterpart of ``fluid_llm_tpu/models/fluid_llm.py`` (``MultivariateTimeLLM``,
 - the patch decoder to per-pixel (Vx, Vy, P) diffs, cast to f32 and scaled
   by ``diff_scale_factor`` (``model.py:148-152``, ``fluid_llm.py:517-518``).
 
-Unlike the JAX package the parameters live in the module.  The ported
-surface is inference: ``forward`` (every frame decoded), the rollout's
-``predict_frame_diff`` (non-CNN, non-MoE branch) and
-``prepare_inference_params`` (merge adapters -> pack qkv -> cast).
+Unlike the JAX package the parameters live in the module, and which of
+them train follows ``trainable_mask`` (``fluid_llm.py:170-182``): under
+LoRA or ``freeze_llm`` the backbone is frozen (``requires_grad=False``, so
+the optimizer holds no state for it); adapters, encoder, decoder and BOS
+train.  The ported surface: ``forward`` (every frame decoded; in training
+with dropout drawn from a ``torch.Generator``), ``forward_see_init`` and
+``predict_diffs`` (the training forwards), the rollout's
+``predict_frame_diff`` (non-CNN, non-MoE branch), all with unmerged
+adapters, and ``prepare_inference_params`` (merge adapters -> pack qkv ->
+cast) for serving.
 """
 
 from __future__ import annotations
@@ -54,6 +60,8 @@ class FluidLLM(nn.Module):
         self.bos = nn.Parameter(torch.empty(d)) if cfg.use_bos_token else None
         self.lora = Lora(self.backbone, cfg.lora_config) \
             if cfg.use_lora and not cfg.freeze_llm else None
+        # ``trainable_mask``: the backbone trains only in full fine-tuning
+        self.backbone.requires_grad_(not cfg.freeze_llm and not cfg.use_lora)
 
     @classmethod
     def build(cls, cfg: Config, ds_props: DSProps, *, kernels: bool = True,
@@ -61,8 +69,12 @@ class FluidLLM(nn.Module):
         """Model from the YAML config; ``half_precision`` picks a bf16 backbone."""
         if cfg.moe.experts > 0 or cfg.parallel.pipe_axis > 1:
             raise ValueError("MoE and pipeline-parallel backbones are not ported yet")
+        if cfg.frozen_bf16:
+            raise NotImplementedError("frozen_bf16 (bf16 storage of the frozen backbone) "
+                                      "is not ported")
         dtype = torch.bfloat16 if cfg.half_precision else torch.float32
-        bcfg = bb.preset(cfg.llm_backbone, cfg.llm_layers).replace(dtype=dtype)
+        bcfg = bb.preset(cfg.llm_backbone, cfg.llm_layers).replace(
+            dtype=dtype, flash_attention=cfg.flash_attention)
         if backbone_overrides:
             bcfg = bcfg.replace(**backbone_overrides)
         return cls(cfg, ds_props, bcfg, kernels=kernels)
@@ -101,10 +113,10 @@ class FluidLLM(nn.Module):
         bb.pack_qkv_params(self.backbone)
         bb.cast_matmul_params(self.backbone, self.backbone_cfg.dtype)
 
-    def _embed(self, states, position_ids, frame_valid):
+    def _embed(self, states, position_ids, frame_valid, generator=None):
         """Embeddings (f32) -> backbone dtype, flattened, BOS prepended."""
         bs, seq_len, n_patch = states.shape[:3]
-        h = self.input_emb(states, position_ids)
+        h = self.input_emb(states, position_ids, generator)
         h = h.to(self.backbone_cfg.dtype).reshape(bs, seq_len * n_patch, -1)
         token_valid = frame_valid.repeat_interleave(n_patch, dim=1)
         if self.bos is not None:
@@ -114,29 +126,47 @@ class FluidLLM(nn.Module):
             token_valid = torch.cat([ones, token_valid], dim=1)
         return h, token_valid
 
-    def _check_merged(self) -> None:
-        if self.lora is not None:
-            raise RuntimeError("unmerged adapters: call prepare_inference_params() first "
-                               "(the unmerged LoRA forward comes with training)")
-
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor, *,
-                frame_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                frame_valid: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``model.py:128-152``: every frame decoded.
 
         x: (bs, seq, N_patch, 3, px, py); position_ids: (bs, seq, N_patch, 3);
-        frame_valid: optional (bs, seq) bool.  Returns diffs as images
+        frame_valid: optional (bs, seq) bool.  ``train``: dropout (input
+        embeddings, backbone stream and residuals, adapter inputs) drawn from
+        ``generator``, which it then needs.  Returns diffs as images
         (bs, seq, 3, tot_px, tot_py), f32.
         """
-        self._check_merged()
+        if train and generator is None:
+            raise ValueError("training forward needs a generator for its dropout")
+        gen = generator if train else None
         bs, seq_len, n_patch = x.shape[:3]
         if frame_valid is None:
             frame_valid = torch.ones(bs, seq_len, dtype=torch.bool, device=x.device)
-        h, token_valid = self._embed(x, position_ids, frame_valid)
-        out = self.backbone(h, token_valid, kernels=self.kernels)
+        h, token_valid = self._embed(x, position_ids, frame_valid, gen)
+        out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen)
         if self.bos is not None:
             out = out[:, 1:]
-        preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels)
+        preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, train)
         return preds.permute(0, 1, 4, 2, 3).float() * self.cfg.diff_scale_factor
+
+    def forward_see_init(self, states: torch.Tensor, position_ids: torch.Tensor,
+                         **kw) -> torch.Tensor:
+        """Duplicate the first frame, run ``forward``, drop its prediction
+        (``model.py:118-126``)."""
+        states = torch.cat([states[:, :1], states], dim=1)
+        position_ids = torch.cat([position_ids[:, :1], position_ids], dim=1)
+        fv = kw.get("frame_valid")
+        if fv is not None:
+            kw["frame_valid"] = torch.cat([fv[:, :1], fv], dim=1)
+        return self.forward(states, position_ids, **kw)[:, 1:]
+
+    def predict_diffs(self, states: torch.Tensor, position_ids: torch.Tensor,
+                      **kw) -> torch.Tensor:
+        """Dispatch on ``see_init_state`` (``trainer.py:89-92``)."""
+        if self.cfg.see_init_state:
+            return self.forward_see_init(states, position_ids, **kw)
+        return self.forward(states, position_ids, **kw)
 
     def predict_frame_diff(
         self,
@@ -156,7 +186,6 @@ class FluidLLM(nn.Module):
         frame).  Returns the diff image of window frame ``frame_idx``:
         (bs, 3, X, Y), f32.
         """
-        self._check_merged()
         bs, seq_len, n_patch = states.shape[:3]
         out_idx = frame_idx
         if self.cfg.see_init_state:
@@ -170,6 +199,6 @@ class FluidLLM(nn.Module):
         h, token_valid = self._embed(states, position_ids, frame_valid)
         tok_start = out_idx * n_patch + (1 if self.bos is not None else 0)
         out = self.backbone(h, token_valid, decode_slice=(tok_start, n_patch),
-                            kernels=self.kernels)
+                            kernels=self.kernels, lora=self.lora)
         preds = self.decoder(out[:, None], self.kernels)
         return preds[:, 0].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor

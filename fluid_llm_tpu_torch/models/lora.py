@@ -9,18 +9,22 @@ backbone's layers, with the JAX layout (``A`` (in, r), ``B`` (r, out), ``m``
     LoRA:  W_eff = W + (alpha/r) * A @ B
     DoRA:  W_eff = m * (W + dW) / ||W + dW||_col
 
-Serving needs only ``merge_lora``; ``lora_linear`` (the unmerged forward,
-with adapter dropout) comes with training.
+``lora_linear`` is the unmerged forward (training, and the validation
+rollout of a model in training); serving folds the adapters in with
+``merge_lora``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu.config import LoraConfig
+from fluid_llm_tpu_torch.models.common import dropout
 
 # peft target-module names -> backbone (group, name)
 _NAME_MAP = {
@@ -74,6 +78,36 @@ class Lora(nn.Module):
                     ad.B.zero_()
                     if ad.m is not None:
                         ad.m.copy_(getattr(layer, group)[name].weight.norm(dim=1))
+
+
+def lora_linear(x: torch.Tensor, lin: nn.Linear, ad: LoraAdapter, cfg: LoraConfig,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``lin`` applied to ``x`` with its adapter unmerged
+    (``fluid_llm_tpu/models/lora.py:82-138``).
+
+    Masters (base weight, ``A``/``B``/``m``) are cast to the activation dtype
+    at use.  With ``generator`` (training) the adapter branch's input goes
+    through ``lora_dropout``, as peft places it.  DoRA's column norm of
+    ``W + s*A@B`` is taken in closed form, without materialising the
+    update, and detached (the reference's weight-norm detach):
+    ``||w_j||^2 + 2s <w_j, (AB)_j> + s^2 ||(AB)_j||^2``.
+    """
+    dtype = x.dtype
+    scaling = cfg.lora_alpha / cfg.r
+    x_drop = dropout(x, cfg.lora_dropout, generator) if generator is not None else x
+    y = F.linear(x, lin.weight.to(dtype)) + (x_drop @ ad.A.to(dtype)) @ ad.B.to(dtype) * scaling
+    if ad.m is not None:
+        with torch.no_grad():
+            w32 = lin.weight.float()  # (out, in): the JAX w transposed
+            a32, b32 = ad.A.float(), ad.B.float()
+            wn2 = (w32 * w32).sum(1)
+            cross = ((w32 @ a32) * b32.T).sum(1)
+            ab2 = torch.einsum("rs,rj,sj->j", a32.T @ a32, b32, b32)
+            norm = torch.sqrt(wn2 + 2.0 * scaling * cross + scaling ** 2 * ab2)
+        y = y * (ad.m / norm).to(dtype)
+    if lin.bias is not None:
+        y = y + lin.bias.to(dtype)
+    return y
 
 
 @torch.no_grad()

@@ -1,7 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
-At first use the sources are compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, under
+At first use the sources (``*.cu``; shared ``*.cuh`` headers are included
+by them) are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
+library with a plain C interface, under
 ``fluid_llm_tpu_torch/_build/`` and keyed by a hash of the sources and
 flags, then loaded with ``ctypes``.  A later process with the same sources
 reuses the library.  A failed build raises; nothing is downloaded and
@@ -22,7 +23,7 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -32,7 +33,11 @@ _LL = ctypes.c_longlong
 SIGNATURES = {
     "exact_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                             ctypes.c_float, _P],
+    "flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _P],
+    "flash_attention_dq": [_P] * 8 + [_I] * 4 + [_LL] * 5 + [ctypes.c_float, _P],
+    "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _P],
     "grid_slot_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "grid_slot_attention_bwd": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -51,8 +56,9 @@ def _sources() -> list[Path]:
 
 
 def library_path() -> Path:
+    """Keyed by the flags and every source, headers (``*.cuh``) included."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfluid_kernels-{h.hexdigest()[:16]}.so"
@@ -61,20 +67,37 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for these sources exists.
 
-    Writes the compiler's output (``-Xptxas -v``: registers, shared memory,
+    One ``nvcc -c`` per source, all started together, then one link.
+    Writes the compilers' output (``-Xptxas -v``: registers, shared memory,
     spills per kernel) beside the library as ``<name>.log``.
     """
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
+    link = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(proc.returncode == 0 for proc in procs):
+        res = subprocess.run(link, capture_output=True, text=True)
+        cmds.append(link)
+        logs.append(res.stdout + res.stderr)
+        failed = res.returncode != 0
+    else:
+        failed = True
+    text = "".join(" ".join(cmd) + "\n" + log for cmd, log in zip(cmds, logs))
+    out.with_suffix(".log").write_text(text)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc failed:\n{text}")
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out
 

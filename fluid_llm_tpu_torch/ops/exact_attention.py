@@ -12,6 +12,10 @@ to the diagonal with an online softmax in f32, and reads q/k/v in place in
 the packed ``(bs, L, H*hd)`` layout through row strides, so the column
 slices of a fused qkv projection need no copy and no transpose.
 
+Forward only: the rollout and inference run it without gradients; the
+training forward goes through ``ops/flash_attention.py``, whose forward is
+this kernel's tile loop writing the row logsumexp as well.
+
 The mask reproduces ``backbone.make_masks`` exactly:
 ``allowed[i, j] = (j <= i and valid[j]) or j == i`` (the forced diagonal
 keeps rows of invalid queries finite; their outputs are unused).
@@ -61,7 +65,7 @@ def supported(head_dim: int, dtype: torch.dtype) -> bool:
     return head_dim in HEAD_DIMS and dtype == torch.bfloat16
 
 
-def _rows(t: torch.Tensor, name: str, bs: int, L: int, D: int) -> int:
+def row_stride(t: torch.Tensor, name: str, bs: int, L: int, D: int) -> int:
     """Row stride of a (bs, L, D) tensor the kernel can read in place."""
     if t.shape != (bs, L, D):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {(bs, L, D)}")
@@ -80,11 +84,19 @@ def causal_attention(q, k, v, valid, n_heads: int, head_dim: int) -> torch.Tenso
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`causal_attention_ref`.  ``q``/``k``/``v`` may be column slices of
     one fused projection output (any row stride); ``valid`` is int32.
+
+    The kernel has no backward: on CUDA it raises when autograd would need
+    one (grad enabled and an input that requires grad) rather than return an
+    output the gradient silently stops at.  Training attention goes through
+    ``ops/flash_attention.FlashAttention``.
     """
     if q.device.type == "cpu":
         return causal_attention_ref(q, k, v, valid, n_heads, head_dim)
     if q.device.type != "cuda":
         raise ValueError(f"causal_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("causal_attention: the exact-window kernel is forward only; "
+                           "under autograd use ops.flash_attention.flash_attention")
     bs, L, D = q.shape
     if D != n_heads * head_dim or head_dim not in HEAD_DIMS:
         raise ValueError(f"causal_attention: D {D}, heads {n_heads} x {head_dim}")
@@ -94,7 +106,7 @@ def causal_attention(q, k, v, valid, n_heads: int, head_dim: int) -> torch.Tenso
         raise ValueError("causal_attention: all inputs must be on one device")
     if valid.dtype != torch.int32 or valid.shape != (bs, L) or not valid.is_contiguous():
         raise ValueError("causal_attention: valid must be contiguous int32 (bs, L)")
-    strides = [_rows(t, n, bs, L, D) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
+    strides = [row_stride(t, n, bs, L, D) for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     out = torch.empty((bs, L, D), dtype=q.dtype, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):

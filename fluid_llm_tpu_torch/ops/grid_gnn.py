@@ -10,10 +10,12 @@ makes each conv two dense linears and a five-slot attention per pixel:
     alpha_i = softmax_j(e_ij)   over j in N(i) u {i}
     out_i   = sum_j alpha_ij * lin_l(x_j)   (+ bias)
 
-The slot attention runs in the hand-written kernel
-(``ops/grid_gnn_fused.py``) on every CUDA call; ``lin_l``/``lin_r``, the
+The slot attention runs in the hand-written kernels
+(``ops/grid_gnn_fused.py``, forward and backward through its
+``SlotAttention`` Function) on every CUDA call; ``lin_l``/``lin_r``, the
 bias and the softplus between convs stay outside it, as in the JAX package.
-The attention-dropout path is training only and comes later.
+The attention-dropout path (``grid_gnn.py:122-139``, explicit alphas) is not
+ported: the decoder raises for dropout > 0 in training.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu_torch.models.common import linear
-from fluid_llm_tpu_torch.ops.grid_gnn_fused import fused_slot_attention, slot_attention_ref
+from fluid_llm_tpu_torch.ops.grid_gnn_fused import slot_attention, slot_attention_ref
 
 
 class GATv2Conv(nn.Module):
@@ -59,7 +61,7 @@ class GATv2Conv(nn.Module):
         xr = linear(x, self.lin_r)  # target transform
         lead = x.shape[:-1]
         frames = (-1,) + xl.shape[-3:]
-        attend = fused_slot_attention if kernels else slot_attention_ref
+        attend = slot_attention if kernels else slot_attention_ref
         out = attend(xl.reshape(frames), xr.reshape(frames), self.att.to(x.dtype),
                      self.heads, self.out_dim)
         out = out.reshape(*lead, self.heads * self.out_dim)

@@ -1,8 +1,10 @@
-"""Fused five-slot grid GATv2 attention, forward only.
+"""Fused five-slot grid GATv2 attention, forward and backward.
 
-Counterpart of ``fluid_llm_tpu/ops/grid_gnn_pallas.py``.  The kernel is
-``csrc/grid_slot_attention.cu`` (CUDA C++ for ``sm_90a``); it replaces the
-TPU kernel ``fluid_llm_tpu/ops/grid_gnn_pallas.py:_fwd_kernel``.
+Counterpart of ``fluid_llm_tpu/ops/grid_gnn_pallas.py``.  The kernels are
+in ``csrc/grid_slot_attention.cu`` (CUDA C++ for ``sm_90a``); they replace
+the TPU kernels ``fluid_llm_tpu/ops/grid_gnn_pallas.py:_fwd_kernel`` and
+``:_bwd_kernel``.  :class:`SlotAttention` is the ``torch.autograd.Function``
+over the two (the JAX package's ``custom_vjp``, :318-337).
 
 Math (per frame, pixel p and head; slots s in {self, -x, +x, -y, +y};
 v_s = x_l[n_s(p)]):
@@ -19,8 +21,19 @@ output is the floor -- and the plain formulation makes ~25 passes over
 head) in the public channels-last layout, keeps logits, softmax and
 accumulator in registers and writes once.  The TPU kernel's channels-first
 transpose, 128-lane padding and F-chunk loops have no purpose on the card
-and are not carried over.  The backward (``_bwd_kernel``) comes with
-training.
+and are not carried over.
+
+Backward (``grid_gnn_pallas.py:17-21``; g = dL/dout):
+
+    dlogit_s = a_s (g.v_s - sum_t a_t g.v_t)
+    dxr[p]   = sum_s dlogit_s att * lrelu'(u_s)
+    dxl[q]  += a_s g + dlogit_s att * lrelu'(u_s)   for every (p, s) reading q
+    datt     = sum over frames, pixels and slots of dlogit_s leaky_relu(u_s)
+
+On the card it is four launches, all gathers: per-pixel alpha/dlogit
+(f32 scratch) and dxr; dxl gathered from the <= 5 pixels that read each
+pixel; datt as per-block f32 partials summed in a fixed order.  No atomics,
+so the result is the same from run to run.
 """
 
 from __future__ import annotations
@@ -77,34 +90,24 @@ def fused_slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
 
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`slot_attention_ref`.  bf16 or f32; ``att`` in the same dtype.
+    On CUDA it raises when autograd would need a backward (grad enabled and
+    an input that requires grad): that goes through :func:`slot_attention`.
     """
     if xl.device.type == "cpu":
         return slot_attention_ref(xl, xr, att, heads, cdim)
-    if xl.device.type != "cuda":
-        raise ValueError(f"fused_slot_attention: unsupported device {xl.device}")
-    if xl.dim() != 4 or xl.shape[-1] != heads * cdim or xr.shape != xl.shape:
-        raise ValueError(
-            f"fused_slot_attention: xl {tuple(xl.shape)}, xr {tuple(xr.shape)}, "
-            f"heads {heads} x {cdim}"
-        )
-    if att.shape != (heads, cdim):
-        raise ValueError(f"fused_slot_attention: att {tuple(att.shape)}, expected {(heads, cdim)}")
-    if xl.dtype not in (torch.bfloat16, torch.float32) or xr.dtype != xl.dtype or att.dtype != xl.dtype:
-        raise ValueError(f"fused_slot_attention: bf16 or f32, got {xl.dtype}/{xr.dtype}/{att.dtype}")
-    if not (xr.device == att.device == xl.device):
-        raise ValueError("fused_slot_attention: all inputs must be on one device")
-    if not (xl.is_contiguous() and xr.is_contiguous()):
-        raise ValueError("fused_slot_attention: xl and xr must be contiguous")
+    _check_cuda("fused_slot_attention", xl, xr, att, heads, cdim)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xl, xr, att)):
+        raise RuntimeError("fused_slot_attention: forward only; under autograd use "
+                           "ops.grid_gnn_fused.slot_attention")
     Bf, X, Y, _ = xl.shape
     att32 = att.float().contiguous()
     out = torch.empty_like(xl)
-    vec = 16 // xl.element_size()
-    vectorized = cdim % vec == 0 and all(t.data_ptr() % 16 == 0 for t in (xl, xr, out, att32))
     lib = _build.load()
     with torch.cuda.device(xl.device):
         err = lib.grid_slot_attention_fwd(
             xl.data_ptr(), xr.data_ptr(), att32.data_ptr(), out.data_ptr(),
-            Bf, X, Y, heads, cdim, int(xl.dtype == torch.bfloat16), int(vectorized),
+            Bf, X, Y, heads, cdim, int(xl.dtype == torch.bfloat16),
+            int(_vectorized(cdim, xl, xr, out, att32)),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "grid_slot_attention_fwd")
@@ -112,4 +115,130 @@ def fused_slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
     return out
 
 
+def _vectorized(cdim: int, *tensors) -> bool:
+    """16-byte channel loads: C a multiple of 16 bytes' worth, every pointer
+    16-byte aligned."""
+    return cdim % (16 // tensors[0].element_size()) == 0 and \
+        all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _check_cuda(name: str, xl, xr, att, heads: int, cdim: int) -> None:
+    if xl.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {xl.device}")
+    if xl.dim() != 4 or xl.shape[-1] != heads * cdim or xr.shape != xl.shape:
+        raise ValueError(
+            f"{name}: xl {tuple(xl.shape)}, xr {tuple(xr.shape)}, heads {heads} x {cdim}"
+        )
+    if att.shape != (heads, cdim):
+        raise ValueError(f"{name}: att {tuple(att.shape)}, expected {(heads, cdim)}")
+    if xl.dtype not in (torch.bfloat16, torch.float32) or xr.dtype != xl.dtype or att.dtype != xl.dtype:
+        raise ValueError(f"{name}: bf16 or f32, got {xl.dtype}/{xr.dtype}/{att.dtype}")
+    if not (xr.device == att.device == xl.device):
+        raise ValueError(f"{name}: all inputs must be on one device")
+    if not (xl.is_contiguous() and xr.is_contiguous()):
+        raise ValueError(f"{name}: xl and xr must be contiguous")
+
+
+def slot_attention_bwd_ref(xl, xr, att, g, heads: int, cdim: int):
+    """Plain twin of the backward: the math of ``grid_gnn_pallas.py:17-21``
+    written out, in f32.
+
+    xl/xr/g: (..., X, Y, heads*cdim); att: (heads, cdim).  Returns (dxl like
+    xl, dxr like xr, datt f32 (heads, cdim) summed over every leading dim).
+    """
+    lead = xl.shape[:-1]
+    X, Y = xl.shape[-3], xl.shape[-2]
+    xl32 = xl.float()
+    xr_h = xr.float().reshape(*lead, heads, cdim)
+    g_h = g.float().reshape(*lead, heads, cdim)
+    att32 = att.float()
+    vs, us, logits, gvs, masks = [], [], [], [], []
+    for dx, dy in SHIFTS:
+        vh = torch.roll(xl32, (-dx, -dy), dims=(-3, -2)).reshape(*lead, heads, cdim)
+        u = xr_h + vh
+        e = torch.where(u > 0, u, NEG_SLOPE * u)
+        vs.append(vh)
+        us.append(u)
+        logits.append((e * att32).sum(-1))  # (..., X, Y, H)
+        gvs.append((g_h * vh).sum(-1))
+        masks.append(_slot_mask(X, Y, dx, dy, xl.device)[:, :, None])
+    logits = torch.stack([torch.where(m, lg, -torch.inf) for lg, m in zip(logits, masks)])
+    alpha = torch.softmax(logits, dim=0)  # (S, ..., X, Y, H); 0 on masked slots
+    gbar = (alpha * torch.stack(gvs)).sum(0)
+    dxr = torch.zeros_like(xr_h)
+    dxl = torch.zeros_like(xl32)
+    datt = torch.zeros_like(att32)
+    for s, (dx, dy) in enumerate(SHIFTS):
+        dl = (alpha[s] * (gvs[s] - gbar))[..., None]  # (..., X, Y, H, 1)
+        du = torch.where(us[s] > 0, 1.0, NEG_SLOPE)
+        chain = dl * att32 * du
+        dxr = dxr + chain
+        contrib = (alpha[s][..., None] * g_h + chain).reshape(*lead, heads * cdim)
+        dxl = dxl + torch.roll(contrib, (dx, dy), dims=(-3, -2))  # back to the source pixel
+        e = torch.where(us[s] > 0, us[s], NEG_SLOPE * us[s])
+        datt = datt + (dl * e).reshape(-1, heads, cdim).sum(0)
+    return dxl.to(xl.dtype), dxr.reshape(*lead, heads * cdim).to(xr.dtype), datt
+
+
+_DATT_PIXELS_PER_BLOCK = 2048  # pixels per block of the datt partial sums
+
+
+def slot_attention_bwd(xl, xr, att, g, heads: int, cdim: int):
+    """(dxl, dxr, datt f32 (heads, cdim)) for ``g = dL/dout``.
+
+    CUDA tensors launch the backward kernels (or raise); CPU tensors take
+    :func:`slot_attention_bwd_ref`.  Shapes and dtypes as
+    :func:`fused_slot_attention`; needs heads*cdim <= 256 on the card.
+    """
+    if xl.device.type == "cpu":
+        return slot_attention_bwd_ref(xl, xr, att, g, heads, cdim)
+    _check_cuda("slot_attention_bwd", xl, xr, att, heads, cdim)
+    if heads * cdim > 256:
+        raise ValueError(f"slot_attention_bwd: heads*cdim {heads * cdim} > 256")
+    g = g.to(xl.dtype).contiguous()
+    Bf, X, Y, F = xl.shape
+    att32 = att.float().contiguous()
+    dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
+    datt = torch.empty(heads, cdim, dtype=torch.float32, device=xl.device)
+    alpha = torch.empty(Bf, X, Y, heads, 5, dtype=torch.float32, device=xl.device)
+    dlogit = torch.empty_like(alpha)
+    n_blocks = -(-Bf * X * Y // _DATT_PIXELS_PER_BLOCK)
+    partial = torch.empty(n_blocks, F, dtype=torch.float32, device=xl.device)
+    lib = _build.load()
+    with torch.cuda.device(xl.device):
+        err = lib.grid_slot_attention_bwd(
+            xl.data_ptr(), xr.data_ptr(), att32.data_ptr(), g.data_ptr(), dxl.data_ptr(),
+            dxr.data_ptr(), datt.data_ptr(), alpha.data_ptr(), dlogit.data_ptr(),
+            partial.data_ptr(), Bf, X, Y, heads, cdim, _DATT_PIXELS_PER_BLOCK,
+            int(xl.dtype == torch.bfloat16), int(_vectorized(cdim, xl, xr, g, dxl, dxr, att32)),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "grid_slot_attention_bwd")
+    slot_attention_bwd.launches += 1
+    return dxl, dxr, datt
+
+
+class SlotAttention(torch.autograd.Function):
+    """Slot attention whose backward is the backward kernels
+    (``grid_gnn_pallas.py:318-337``).  Saves (xl, xr, att)."""
+
+    @staticmethod
+    def forward(ctx, xl, xr, att, heads: int, cdim: int):
+        ctx.save_for_backward(xl, xr, att)
+        ctx.heads = (heads, cdim)
+        return fused_slot_attention(xl, xr, att, heads, cdim)
+
+    @staticmethod
+    def backward(ctx, g):
+        xl, xr, att = ctx.saved_tensors
+        dxl, dxr, datt = slot_attention_bwd(xl, xr, att, g, *ctx.heads)
+        return dxl, dxr, datt.to(att.dtype), None, None
+
+
+def slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
+    """:func:`fused_slot_attention` with a gradient."""
+    return SlotAttention.apply(xl, xr, att, heads, cdim)
+
+
 fused_slot_attention.launches = 0  # kernel launches in this process
+slot_attention_bwd.launches = 0

@@ -1,8 +1,10 @@
-"""Device selection and seeding (counterpart of ``fluid_llm_tpu/utils``)."""
+"""Device selection, seeding, metric aggregation (counterpart of
+``fluid_llm_tpu/utils``, without jax)."""
 
 from __future__ import annotations
 
 import random
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -26,3 +28,29 @@ def set_seed(seed: int = 1234) -> torch.Generator:
     random.seed(seed)
     np.random.seed(seed)
     return torch.Generator(device="cpu").manual_seed(seed)
+
+
+def process_metrics(
+    metrics_per_epoch: list[dict[str, Any]], run_mode: str, prefix: str
+) -> tuple[dict[str, float], float, float]:
+    """Aggregate per-batch metric dicts (``src/utils.py:163-183``): scalar
+    losses are averaged; N_RMSE is concatenated over batches, averaged per
+    rollout step, then overall."""
+    if not metrics_per_epoch:
+        return {}, 0.0, 0.0
+    out: dict[str, float] = {}
+    loss = 0.0
+    for key in metrics_per_epoch[0]:
+        if key == "N_RMSE":
+            continue
+        out[f"{prefix}/{run_mode}/{key}"] = float(np.mean([float(m[key]) for m in metrics_per_epoch]))
+        if key == "loss":
+            loss = out[f"{prefix}/{run_mode}/{key}"]
+    n_rmse = np.concatenate([np.asarray(m["N_RMSE"]) for m in metrics_per_epoch], axis=0)
+    overall = float(n_rmse.mean(axis=0).mean())
+    out[f"{prefix}/{run_mode}/N_RMSE"] = overall
+    return out, loss, overall
+
+
+def count_params(params: Iterable[torch.Tensor]) -> int:
+    return sum(p.numel() for p in params)

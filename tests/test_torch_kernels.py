@@ -1,4 +1,4 @@
-"""Plain twins of the port's two CUDA kernels against the Pallas kernels.
+"""Plain twins of the port's CUDA kernels against the Pallas kernels.
 
 The Pallas kernels run in interpret mode on the CPU (as in
 ``tests/test_exact_attention.py`` and ``tests/test_grid_gnn.py``); the
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from fluid_llm_tpu.ops import exact_attention as jxa
+from fluid_llm_tpu.ops.grid_gnn_pallas import _call_bwd as jax_slot_bwd
 from fluid_llm_tpu.ops.grid_gnn_pallas import fused_slot_attention as jax_fused_slot_attention
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
@@ -79,6 +80,38 @@ def test_fused_slot_attention_cpu_takes_twin(rng, C):
     torch.testing.assert_close(got, gf.slot_attention_ref(xl, xr, att, 1, C), rtol=0, atol=0)
 
 
+def test_slot_attention_bwd_ref_matches_pallas_interpret(rng):
+    """Backward twin == the fused Pallas backward (interpret) at
+    (2, 8, 8, 2x4), f32: dxl, dxr and datt (summed over frames).  atol
+    2e-5 as ``tests/test_grid_gnn.py``."""
+    Bf, X, Y, H, C = 2, 8, 8, 2, 4
+    xl, xr, g = (rng.normal(size=(Bf, X, Y, H * C)).astype(np.float32) for _ in range(3))
+    att = rng.normal(size=(H, C)).astype(np.float32)
+    ref = jax_slot_bwd(*map(jnp.asarray, (xl, xr, att, g)), H, C, True)
+    got = gf.slot_attention_bwd_ref(*map(torch.from_numpy, (xl, xr, att, g)), H, C)
+    for t, j, name in zip(got, ref, ("dxl", "dxr", "datt")):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("Bf,X,Y,H,C", [(2, 7, 5, 2, 3), (1, 12, 6, 1, 48)])
+def test_slot_attention_function_matches_autograd_through_twin(rng, Bf, X, Y, H, C):
+    """``SlotAttention`` on CPU tensors (forward twin, explicit backward
+    twin) == autograd through ``slot_attention_ref``, f32, odd grid sizes,
+    multi-head and the decoder's C 48; atol 1e-5 (sums of five slots in
+    another order).  Launches nothing."""
+    arrays = [rng.normal(size=(Bf, X, Y, H * C)).astype(np.float32) for _ in range(3)]
+    att = rng.normal(size=(H, C)).astype(np.float32)
+    grads = []
+    counts = (gf.fused_slot_attention.launches, gf.slot_attention_bwd.launches)
+    for fn in (gf.slot_attention, gf.slot_attention_ref):
+        xl, xr, a = (torch.from_numpy(x).requires_grad_() for x in (arrays[0], arrays[1], att))
+        (fn(xl, xr, a, H, C) * torch.from_numpy(arrays[2])).sum().backward()
+        grads.append([xl.grad, xr.grad, a.grad])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+    assert (gf.fused_slot_attention.launches, gf.slot_attention_bwd.launches) == counts
+
+
 def test_wrappers_reject_unsupported_devices():
     """No silent fallback: a non-CPU, non-CUDA tensor raises."""
     q = torch.zeros(1, 4, 64, device="meta")
@@ -87,3 +120,5 @@ def test_wrappers_reject_unsupported_devices():
     x = torch.zeros(1, 4, 4, 8, device="meta")
     with pytest.raises(ValueError):
         gf.fused_slot_attention(x, x, torch.zeros(1, 8, device="meta"), 1, 8)
+    with pytest.raises(ValueError):
+        gf.slot_attention_bwd(x, x, torch.zeros(1, 8, device="meta"), x, 1, 8)
