@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, roll out, train.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, roll out, train, stream.
 
     python3 chip_smoke.py [--seed 1234] [--out results.json]
 
@@ -8,10 +8,13 @@ Phases, each printing one line per result; any failure exits nonzero:
                name and power limit, nvcc's and torch's versions;
 2. build    -- compiles the CUDA kernels from ``fluid_llm_tpu_torch/csrc``;
 3. kernels  -- each kernel against its plain PyTorch twin in bf16, at the
-               rollout's shapes (exact attention, slot attention) and the
+               rollout's shapes (exact attention, slot attention), the
                training step's (flash forward, dq, dk/dv at (8, 601, 768);
-               slot-attention backward at 80 frames): relative L2 error
-               (bound REL_TOL) and device time per call, kernel and plain;
+               slot-attention backward at 80 frames) and the streaming
+               step's (slab decode attention over 11 slots of 64 rows,
+               H 12: a wrapped ring, the first decode with 9 slots
+               unwritten, the 61-token prefill): relative L2 error (bound
+               REL_TOL) and device time per call, kernel and plain;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -19,10 +22,11 @@ Phases, each printing one line per result; any failure exits nonzero:
                counters must read 11x251 (exact attention, layers 0..10)
                and 3x251 (slot attention, 3 GATv2 convs); outputs finite;
                prints mean N-RMSE, wall time, peak device memory and
-               rollout steps/s;
+               rollout steps/s through the kernels and the twins in turns;
 5. agreement -- a 10-step rollout through the kernels against the same
                rollout through the plain twins (selected explicitly):
                relative error of the diffs per step, step 1 <= REL_TOL;
+               then the device profile of a 20-step rollout (idle share);
 6. train    -- the same configuration as published (DoRA unmerged, every
                configured dropout) on ``synthetic:8``, seed 1234: autoreg
                steps through ``Trainer`` on one repeated batch of 8, in
@@ -38,7 +42,20 @@ Phases, each printing one line per result; any failure exits nonzero:
 8. entry points -- ``main`` for 2 epochs (checkpoints in a temporary
                folder), ``continue_train`` for 1 more, ``inference.main
                --checkpoint_dir`` rolls out from the last checkpoint:
-               finite N-RMSE.
+               finite N-RMSE;
+9. streaming -- phases 4 and 5 for ``configs/flagship_llama.yaml`` as
+               published (the ``fluid/llama-125m`` backbone, 12 layers at
+               d 768, rope_abs, absolute time, DoRA r16 merged, MLPGNN,
+               bf16) through ``test_generate(streaming=True)``: 251 steps of
+               the KV-cache rollout.  Launches must read 12x251 + 12 (slab
+               decode attention, every layer of every step and of the
+               prefill), 3x251 (slot attention) and 0 (exact attention);
+10. flagship entry points -- ``main`` trains a copy of
+               ``flagship_llama.yaml`` for 1 epoch on ``synthetic:8``;
+               ``inference.main --streaming --checkpoint_dir`` serves 25
+               steps from its checkpoint, then the exact ``inference.main``
+               from the same checkpoint (LLaMA through the exact-window
+               kernel), launches of each shown and checked.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernel
@@ -141,7 +158,37 @@ def phase_build() -> float:
     return secs
 
 
+def _slab_case(dev, state: str, g: torch.Generator):
+    """Queries and a random 12-layer bf16 slab cache at the flagship's
+    streaming shapes (R 10 frames of 60 tokens + 61 sinks: 11 slots of 64
+    rows, H 12 x hd 64), read at layer 5.  ``wrapped``: 14 frames written,
+    slot order != position order; ``first``: the first decode, ring slot 0
+    and the sinks written; ``prefill``: the 61 sinks querying themselves,
+    every ring slot unwritten."""
+    from fluid_llm_tpu_torch.models import backbone as bb
+    from fluid_llm_tpu_torch.ops import decode_attention as da
+
+    cfg = bb.preset("fluid/llama-125m").replace(dtype=torch.bfloat16)
+    R, frame, n_sink = 10, 60, 61
+    cache = bb.init_streaming_cache(cfg, 1, n_sink, R, frame, device=dev)
+    for name in ("k", "v"):
+        cache[name].copy_((torch.randn(cache[name].shape, generator=g) * 0.5))
+    base = lambda f: n_sink + f * frame  # noqa: E731
+    ring = [-1] * R
+    n_written = {"wrapped": R + 4, "first": 1, "prefill": 0}[state]
+    for f in range(n_written):
+        ring[f % R] = base(f)
+    q0, P = (base(n_written - 1), frame) if n_written else (0, n_sink)
+    cache["ring_pos"].copy_(torch.tensor(ring, dtype=torch.int32))
+    cache["sink_pos"].copy_(torch.arange(n_sink, dtype=torch.int32))
+    key_pos = da.pad_key_pos(bb.slab_key_positions(cache, frame))
+    # q as the streaming step hands it over: rope'd heads, contiguous
+    q = (torch.randn(1, P, cfg.d_model, generator=g) * 0.5).to(dev, torch.bfloat16)
+    return q, cache, key_pos, torch.tensor([q0], dtype=torch.int32, device=dev), 5
+
+
 def phase_kernels(dev, failures: list) -> list[dict]:
+    from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
@@ -230,8 +277,23 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             ms=device_ms(lambda: gf.slot_attention_bwd(xl, xr, att, gout, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)),
         ))
+    for state in ("wrapped", "first", "prefill"):
+        q, cache, key_pos, q0, li = _slab_case(dev, state, g)
+        out = da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)
+        ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel="slab_decode_attention",
+            shape=f"{state}: q {tuple(q.shape)}, cache {tuple(cache['k'].shape)} layer {li}",
+            main_path=True, rel=rel_err(out, ref),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            finite=bool(torch.isfinite(out).all()),
+            ms=device_ms(lambda: da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
+            plain_ms=device_ms(
+                lambda: da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
+        ))
     for r in rows:
-        ok = r["rel"] <= REL_TOL
+        ok = r["rel"] <= REL_TOL and r.get("finite", True)
         print(f"[kernels] {r['kernel']} {r['shape']}: rel {r['rel']:.3e} "
               f"max_abs {r['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
@@ -243,9 +305,11 @@ def phase_kernels(dev, failures: list) -> list[dict]:
 
 
 CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", "training1.yaml")
+FLAGSHIP = os.path.join(os.path.dirname(CONFIG), "flagship_llama.yaml")
 
 
 def _counters():
+    from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
@@ -253,7 +317,7 @@ def _counters():
     return {"exact_attention": xa.causal_attention, "grid_slot_attention": gf.fused_slot_attention,
             "grid_slot_attention_bwd": gf.slot_attention_bwd,
             "flash_attention_fwd": fa.flash_forward, "flash_attention_dq": fa.flash_dq,
-            "flash_attention_dkv": fa.flash_dkv}
+            "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode}
 
 
 def reset_launches() -> None:
@@ -265,13 +329,21 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def phase_slice(dev, seed: int, failures: list):
-    from fluid_llm_tpu.config import Config
+def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
+    """A 251-step rollout of one configuration with seeded random weights on
+    ``synthetic:1`` at seq_len 253: the main path through the entry point
+    (launch counts), steps/s through the kernels and the twins in turns, a
+    10-step agreement and a device profile.  ``streaming``: the flagship's
+    KV-cache rollout; otherwise the OPT-125m exact rollout."""
+    from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch import inference
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
-    from fluid_llm_tpu_torch.rollout.generate import gen_seq
+    from fluid_llm_tpu_torch.rollout.generate import gen_seq, generate
+    from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming, generate_streaming
 
-    cfg = Config.from_yaml(CONFIG).replace(load_dir="synthetic:1")
+    tag = "streaming" if streaming else "slice"
+    roll, gen = (gen_seq_streaming, generate_streaming) if streaming else (gen_seq, generate)
+    cfg = Config.from_yaml(FLAGSHIP if streaming else CONFIG).replace(load_dir="synthetic:1")
     t0 = time.perf_counter()
     model = inference.build_seeded_model(cfg, seed, dev)
     test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
@@ -279,69 +351,77 @@ def phase_slice(dev, seed: int, failures: list):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     bcfg = model.backbone_cfg
-    print(f"[slice] {cfg.llm_backbone}: {bcfg.n_layers} layers, d {bcfg.d_model}, "
-          f"{bcfg.n_heads} heads, {bcfg.dtype}; window {ROLLOUT_TOKENS} tokens; "
+    print(f"[{tag}] {cfg.llm_backbone}: {bcfg.n_layers} layers, d {bcfg.d_model}, "
+          f"{bcfg.n_heads} heads, {bcfg.norm}, {bcfg.pos} positions, {bcfg.dtype}; "
+          f"{cfg.pos_embedding_params.pos_embedding_type} embeddings, absolute time "
+          f"{cfg.absolute_time_ids}; window or ring of {model.max_ctx_len} frames; "
           f"set-up {setup_s:.1f} s")
 
     # the main path, through the entry point a user calls
     reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    per_step, mean = inference.test_generate(model, test_ds, batch_size=1, pred_steps=STEPS)
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=1, pred_steps=STEPS,
+                                             streaming=streaming)
     wall = time.perf_counter() - t0
     launches = read_launches()
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     want = dict.fromkeys(launches, 0)  # no gradient: no training kernel runs
-    want.update(exact_attention=(bcfg.n_layers - 1) * STEPS,
-                grid_slot_attention=cfg.decoder_params.gnn_layers * STEPS)
-    print(f"[slice] test_generate: {STEPS} steps in {wall:.3f} s (incl. batch build); "
-          f"mean N-RMSE {mean:.5f}; peak device memory {peak_mib:.1f} MiB; "
+    want["grid_slot_attention"] = cfg.decoder_params.gnn_layers * STEPS
+    if streaming:  # every layer of every step, and of the prefill
+        want["slab_decode_attention"] = bcfg.n_layers * (STEPS + 1)
+    else:  # layers 0..10; the sliced last block is plain
+        want["exact_attention"] = (bcfg.n_layers - 1) * STEPS
+    print(f"[{tag}] test_generate(streaming={streaming}): {STEPS} steps in {wall:.3f} s (incl. "
+          f"batch build); mean N-RMSE {mean:.5f}; peak device memory {peak_mib:.1f} MiB; "
           f"launches {launches} (want {want})")
     if launches != want:
-        failures.append(f"launch counts {launches} != {want}")
+        failures.append(f"{tag} launch counts {launches} != {want}")
     if per_step.shape != (STEPS,) or not bool(torch.isfinite(torch.from_numpy(per_step)).all()):
-        failures.append("N-RMSE not finite or wrong length")
+        failures.append(f"{tag} N-RMSE not finite or wrong length")
 
-    # steady-state rollout rate on a prepared batch (gen_seq alone), through
-    # the kernels and through the plain twins, in turns
+    # steady-state rate on a prepared batch, kernels and plain twins in turns
     rates = {True: [], False: []}
     want_shape = (1, STEPS + 1, 3, *model.ds_props.out_tot_size)
     for kernels in (True, False, False, True, True, False):
         model.kernels = kernels
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states, _ = gen_seq(model, batch, STEPS)
+        states, _ = roll(model, batch, STEPS)
         torch.cuda.synchronize()
         rates[kernels].append(STEPS / (time.perf_counter() - t0))
-        if kernels and (tuple(states.shape) != want_shape or not bool(torch.isfinite(states).all())):
-            failures.append(f"rollout states {tuple(states.shape)} (want {want_shape}) or not finite")
-    model.kernels = True
-    steps_per_s = statistics.median(rates[True])
-    print(f"[slice] gen_seq: {steps_per_s:.2f} rollout steps/s through the kernels (median; "
+        if tuple(states.shape) != want_shape or not bool(torch.isfinite(states).all()):
+            failures.append(f"{tag} states {tuple(states.shape)} (want {want_shape}) or not "
+                            f"finite (kernels {kernels})")
+    steps_per_s, plain_steps_per_s = (statistics.median(rates[k]) for k in (True, False))
+    print(f"[{tag}] {roll.__name__}: {steps_per_s:.2f} steps/s through the kernels (median; "
           f"runs {', '.join(f'{r:.2f}' for r in rates[True])}); plain twins "
-          f"{', '.join(f'{r:.2f}' for r in rates[False])}; states {tuple(states.shape)} finite")
-    return model, batch, dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean,
-                              peak_mem_mib=peak_mib,
-                              steps_per_s=steps_per_s, steps_per_s_runs=rates[True],
-                              plain_steps_per_s_runs=rates[False], launches=launches)
-
-
-def phase_agreement(model, batch, failures: list) -> list[float]:
-    from fluid_llm_tpu_torch.rollout.generate import generate
+          f"{plain_steps_per_s:.2f} (median; runs {', '.join(f'{r:.2f}' for r in rates[False])})")
 
     states, _, _, bc_mask, position_ids = batch
     out = {}
     for kernels in (True, False):
         model.kernels = kernels
-        out[kernels] = generate(model, states[:, :1], bc_mask, position_ids, 10)[1]
+        out[kernels] = gen(model, states[:, :1], bc_mask, position_ids, 10)[1]
     model.kernels = True
     errs = [rel_err(out[True][:, i], out[False][:, i]) for i in range(10)]
     ok = errs[0] <= REL_TOL
-    print(f"[agreement] diffs rel err per step, kernels vs plain twins: "
+    print(f"[{tag} agreement] diffs rel err per step, kernels vs plain twins: "
           f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 {'ok' if ok else 'FAIL'})")
     if not ok:
-        failures.append(f"slice agreement step 1 rel {errs[0]}")
-    return errs
+        failures.append(f"{tag} agreement step 1 rel {errs[0]}")
+
+    # device time of a 20-step rollout against its unprofiled wall time
+    n_prof = 20
+    busy_ms, n_ops, idle, top = device_profile(
+        lambda: gen(model, states[:, :1], bc_mask, position_ids, n_prof), 1,
+        n_prof * 1e3 / steps_per_s, f"{tag} 20 steps")
+    return dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean, peak_mem_mib=peak_mib,
+                steps_per_s=steps_per_s, steps_per_s_runs=rates[True],
+                plain_steps_per_s=plain_steps_per_s, plain_steps_per_s_runs=rates[False],
+                launches=launches, agreement_rel_err=errs,
+                profile=dict(steps=n_prof, device_busy_ms=busy_ms, device_ops=n_ops,
+                             idle_share=idle, top_device_ms=top))
 
 
 TRAINABLE_PROBES = ("lora.layers.0.attn.q.A", "lora.layers.0.attn.q.B", "lora.layers.0.attn.v.m",
@@ -352,7 +432,7 @@ TRAINABLE_PROBES = ("lora.layers.0.attn.q.A", "lora.layers.0.attn.q.B", "lora.la
 def phase_train(dev, seed: int, failures: list):
     """Autoreg steps through ``Trainer`` on one repeated batch, in turns
     through the kernels and the twins; the training path's launch counts."""
-    from fluid_llm_tpu.config import Config
+    from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
     from fluid_llm_tpu_torch.main import build_model_and_trainer
 
@@ -395,7 +475,7 @@ def phase_train(dev, seed: int, failures: list):
     convs = cfg.decoder_params.gnn_layers
     per_step = dict(exact_attention=0, grid_slot_attention=convs, grid_slot_attention_bwd=convs,
                     flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
-                    flash_attention_dkv=bcfg.n_layers)
+                    flash_attention_dkv=bcfg.n_layers, slab_decode_attention=0)
     want = {k: v * n_kernel_steps for k, v in per_step.items()}
     med_k, med_t = statistics.median(step_ms[True]), statistics.median(step_ms[False])
     print(f"[train] {len(losses)} autoreg steps on one batch (turns kernels/twins "
@@ -419,26 +499,36 @@ def phase_train(dev, seed: int, failures: list):
           f"{'ok' if not no_grad else 'FAIL ' + str(no_grad)}")
 
     # device busy time per kernel step (profiler), against the unprofiled step
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(2):
-            trainer.train_step(batch)["loss"].item()
-    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / 2
-    n_ops = sum(e.count for e in device) / 2
-    idle = 1.0 - busy_ms / med_k if busy_ms > 0 else None
-    top = [(_short(e.key), e.self_device_time_total / 2e3)
-           for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]]
-    print(f"[train] device busy {busy_ms:.2f} ms per step in {n_ops:.0f} device ops (profiler, "
-          f"2 steps) of {med_k:.2f} ms: idle share "
-          f"{'not measured' if idle is None else f'{idle:.3f}'}; top: "
-          + "; ".join(f"{k} {t:.2f} ms" for k, t in top))
+    busy_ms, n_ops, idle, top = device_profile(
+        lambda: trainer.train_step(batch)["loss"].item(), 2, med_k, "train")
     return trainer, batch, dict(
         setup_s=setup_s, losses=losses, step_ms=step_ms[True], plain_step_ms=step_ms[False],
         median_step_ms=med_k, plain_median_step_ms=med_t, peak_mem_mib=peak_mib,
         launches=launches, launches_per_step=per_step, device_busy_ms=busy_ms,
         device_ops_per_step=n_ops, idle_share=idle, top_device_ms=top,
     )
+
+
+def device_profile(fn, n: int, wall_ms: float, tag: str):
+    """Device busy ms per call of ``fn`` (profiler over ``n`` calls), device
+    ops per call, the idle share against the unprofiled ``wall_ms`` per
+    call, and the 8 largest device-time entries; printed under ``tag``."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
+    n_ops = sum(e.count for e in device) / n
+    idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
+    top = [(_short(e.key), e.self_device_time_total / 1e3 / n)
+           for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]]
+    print(f"[{tag}] device busy {busy_ms:.3f} ms per call in {n_ops:.0f} device ops (profiler, "
+          f"{n} calls) of {wall_ms:.3f} ms: idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}; top: "
+          + "; ".join(f"{k} {t:.3f} ms" for k, t in top))
+    return busy_ms, n_ops, idle, top
 
 
 def _short(key: str) -> str:
@@ -484,7 +574,7 @@ def phase_entry_points(dev, seed: int, failures: list) -> dict:
     --checkpoint_dir``, on the card, checkpoints in a temporary folder."""
     import tempfile
 
-    from fluid_llm_tpu.config import Config
+    from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch import continue_train, inference
     from fluid_llm_tpu_torch import main as train_main
     from fluid_llm_tpu_torch.train import checkpoint as ckpt
@@ -530,6 +620,60 @@ def phase_entry_points(dev, seed: int, failures: list) -> dict:
     return res
 
 
+def phase_flagship_entry_points(dev, seed: int, failures: list) -> dict:
+    """``main`` trains a copy of the flagship config for 1 epoch; from its
+    checkpoint ``inference.main --streaming`` and the exact ``inference.main``
+    each roll out 25 steps; the launches of each run."""
+    import tempfile
+
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch import main as train_main
+
+    cfg = Config.from_yaml(FLAGSHIP)
+    n_layers, convs, n_steps = 12, cfg.decoder_params.gnn_layers, 25
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = os.path.join(tmp, "runs")
+        cfg_path = os.path.join(tmp, "flagship.yaml")
+        cfg.replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, num_epochs=1,
+                    checkpoint_save_path=runs).to_yaml(cfg_path)
+        reset_launches()
+        t0 = time.perf_counter()
+        train_main.main(["--config_path", cfg_path, "--device", str(dev)])
+        res["main_s"] = time.perf_counter() - t0
+        res["main_launches"] = read_launches()
+        for streaming in (True, False):
+            reset_launches()
+            t0 = time.perf_counter()
+            mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
+                                   "synthetic:1", "--seq_len", str(n_steps + 2), "--pred_steps",
+                                   str(n_steps)] + (["--streaming"] if streaming else []))
+            key = "streaming" if streaming else "exact"
+            res[f"{key}_s"], res[f"{key}_n_rmse"] = time.perf_counter() - t0, mean
+            res[f"{key}_launches"] = read_launches()
+    want_stream = dict.fromkeys(res["streaming_launches"], 0)
+    want_stream.update(slab_decode_attention=n_layers * (n_steps + 1),
+                       grid_slot_attention=convs * n_steps)
+    want_exact = dict.fromkeys(res["exact_launches"], 0)
+    want_exact.update(exact_attention=(n_layers - 1) * n_steps, grid_slot_attention=convs * n_steps)
+    trained = res["main_launches"]
+    ok = (res["streaming_launches"] == want_stream and res["exact_launches"] == want_exact
+          and trained["flash_attention_fwd"] > 0 and trained["flash_attention_dkv"] > 0
+          and trained["slab_decode_attention"] == 0
+          and math.isfinite(res["streaming_n_rmse"]) and math.isfinite(res["exact_n_rmse"]))
+    print(f"[flagship entry points] main 1 epoch of flagship_llama.yaml on synthetic:{TRAIN_BS} "
+          f"in {res['main_s']:.1f} s, launches {trained}; inference --streaming from its "
+          f"checkpoint, {n_steps} steps in {res['streaming_s']:.1f} s: N-RMSE "
+          f"{res['streaming_n_rmse']:.5f}, launches {res['streaming_launches']} (want "
+          f"{want_stream}); exact inference, {n_steps} steps in {res['exact_s']:.1f} s: N-RMSE "
+          f"{res['exact_n_rmse']:.5f}, launches {res['exact_launches']} (want {want_exact}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"flagship entry points: {res}")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -547,13 +691,13 @@ def main(argv=None) -> int:
     device = phase_device()
     build_s = phase_build()
     rows = phase_kernels(dev, failures)
-    model, batch, slice_res = phase_slice(dev, args.seed, failures)
-    errs = phase_agreement(model, batch, failures)
-    del model, batch
+    slice_res = phase_rollout(dev, args.seed, failures, streaming=False)
     trainer, train_batch, train_res = phase_train(dev, args.seed, failures)
     train_agree = phase_train_agreement(trainer, train_batch, args.seed, failures)
     del trainer, train_batch
     entry_res = phase_entry_points(dev, args.seed, failures)
+    stream_res = phase_rollout(dev, args.seed, failures, streaming=True)
+    flagship_res = phase_flagship_entry_points(dev, args.seed, failures)
 
     # (source, TPU kernel it replaces, the main path whose run counts it)
     sources = {
@@ -569,6 +713,8 @@ def main(argv=None) -> int:
                                "fluid_llm_tpu/ops/flash_attention.py:190", train_res),
         "flash_attention_dkv": ("fluid_llm_tpu_torch/csrc/flash_attention.cu",
                                 "fluid_llm_tpu/ops/flash_attention.py:230", train_res),
+        "slab_decode_attention": ("fluid_llm_tpu_torch/csrc/decode_attention.cu",
+                                  "fluid_llm_tpu/ops/decode_attention.py:50", stream_res),
     }
     kernels = []
     for name, (source, replaces, path_res) in sources.items():
@@ -583,8 +729,9 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(dict(device=device, build_s=build_s, kernel_checks=rows,
-                           slice=slice_res, agreement_rel_err=errs, train=train_res,
+                           slice=slice_res, train=train_res,
                            train_agreement=train_agree, entry_points=entry_res,
+                           streaming=stream_res, flagship_entry_points=flagship_res,
                            failures=failures), f, indent=1, default=str)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -1,6 +1,7 @@
 // Tile geometry and helpers shared by the attention kernels
 // (exact_attention.cu: forward, with or without the row logsumexp;
-// flash_attention.cu: the dq and dk/dv backward kernels).
+// flash_attention.cu: the dq and dk/dv backward kernels;
+// decode_attention.cu: new queries against the streaming slab cache).
 //
 // q/k/v/dO are (bs, L, H*hd) bf16 with a row stride per tensor: element
 // (b, t, h, d) sits at (b*L + t)*row_stride + h*hd + d.  A block works on
@@ -10,6 +11,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
 
 namespace attn {
 
@@ -45,6 +48,163 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
 // causal AND key-valid, with the diagonal always allowed.
 __device__ __forceinline__ bool allowed(int i, int j, int key_valid) {
   return j <= i && (key_valid != 0 || j == i);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Shared memory of the online-softmax forward (exact and decode kernels):
+// the q, k and v tiles, the f32 score tile, the bf16 probability tile, the
+// f32 accumulator, and per query row its running max m, sum l and the
+// rescale alpha of the last tile; then `extra` bytes for the caller's
+// per-key data (validity or positions).
+template <int HD>
+struct FwdLayout {
+  static constexpr int QLD = qld<HD>();
+  static constexpr int OLD = HD + 4;  // f32 accumulator row stride
+  static constexpr size_t q = 0;
+  static constexpr size_t k = q + round128(sizeof(__nv_bfloat16) * BQ * QLD);
+  static constexpr size_t v = k + round128(sizeof(__nv_bfloat16) * BK * QLD);
+  static constexpr size_t s = v + round128(sizeof(__nv_bfloat16) * BK * QLD);
+  static constexpr size_t p = s + round128(sizeof(float) * BQ * SLD);
+  static constexpr size_t o = p + round128(sizeof(__nv_bfloat16) * BQ * PLD);
+  static constexpr size_t m = o + round128(sizeof(float) * BQ * OLD);
+  static constexpr size_t l = m + round128(sizeof(float) * BQ);
+  static constexpr size_t alpha = l + round128(sizeof(float) * BQ);
+  static constexpr size_t extra = alpha + round128(sizeof(float) * BQ);
+  static constexpr size_t bytes = extra + round128(sizeof(int) * BK);
+};
+
+// Pointers into FwdLayout's shared memory.
+template <int HD>
+struct FwdSmem {
+  __nv_bfloat16 *q, *k, *v, *p;
+  float *s, *o, *m, *l, *alpha;
+  int* extra;
+  __device__ explicit FwdSmem(unsigned char* base) {
+    using Lay = FwdLayout<HD>;
+    q = reinterpret_cast<__nv_bfloat16*>(base + Lay::q);
+    k = reinterpret_cast<__nv_bfloat16*>(base + Lay::k);
+    v = reinterpret_cast<__nv_bfloat16*>(base + Lay::v);
+    s = reinterpret_cast<float*>(base + Lay::s);
+    p = reinterpret_cast<__nv_bfloat16*>(base + Lay::p);
+    o = reinterpret_cast<float*>(base + Lay::o);
+    m = reinterpret_cast<float*>(base + Lay::m);
+    l = reinterpret_cast<float*>(base + Lay::l);
+    alpha = reinterpret_cast<float*>(base + Lay::alpha);
+    extra = reinterpret_cast<int*>(base + Lay::extra);
+  }
+};
+
+template <int HD>
+using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                                     nvcuda::wmma::row_major>;
+
+// Before the tile loop: the q tile is in shared memory (load_tile) and
+// synchronised.  Zeroes the accumulator and the row statistics, then loads
+// this warp's 16 query rows as A fragments; the caller synchronises after.
+template <int HD>
+__device__ __forceinline__ void fwd_begin(const FwdSmem<HD>& sh, QFrag<HD> (&qf)[HD / 16]) {
+  using Lay = FwdLayout<HD>;
+  for (int i = threadIdx.x; i < BQ * Lay::OLD; i += THREADS) sh.o[i] = 0.f;
+  if (threadIdx.x < BQ) {
+    sh.m[threadIdx.x] = -INFINITY;
+    sh.l[threadIdx.x] = 0.f;
+  }
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    nvcuda::wmma::load_matrix_sync(qf[kk], sh.q + warp * 16 * Lay::QLD + kk * 16, Lay::QLD);
+}
+
+// One 64-key tile of the online-softmax forward, for the calling warp's 16
+// query rows (tile rows warp*16 ..): S = Q K^T on the tensor cores, the
+// masked online softmax in f32 (allowed(row, col) over tile rows and the
+// tile's key columns), p rounded to bf16, then O = alpha O + P V.  A row
+// with no allowed key in the tile keeps its m, l and accumulator (p is 0
+// and exp is never taken of a masked score, so no NaN).  The K/V tiles
+// must be in shared memory and synchronised; the caller synchronises
+// before overwriting them.
+template <int HD, class Allowed>
+__device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> (&qf)[HD / 16],
+                                         float scale, Allowed is_allowed) {
+  namespace wmma = nvcuda::wmma;
+  using Lay = FwdLayout<HD>;
+  constexpr int QLD = Lay::QLD;
+  constexpr int OLD = Lay::OLD;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float* s_w = sh.s + warp * 16 * SLD;
+  __nv_bfloat16* p_w = sh.p + warp * 16 * PLD;
+  float* o_w = sh.o + warp * 16 * OLD;
+
+  // S = Q K^T over this warp's rows: 16 x 64 f32
+#pragma unroll
+  for (int n = 0; n < BK / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
+      wmma::load_matrix_sync(kf, sh.k + n * 16 * QLD + kk * 16, QLD);
+      wmma::mma_sync(acc, qf[kk], kf, acc);
+    }
+    wmma::store_matrix_sync(s_w + n * 16, acc, SLD, wmma::mem_row_major);
+  }
+  __syncwarp();
+
+  // online softmax: each lane takes 2 of the tile's 64 keys per row
+  for (int r = 0; r < 16; ++r) {
+    const int row = warp * 16 + r;
+    const float s0 = s_w[r * SLD + lane] * scale;
+    const float s1 = s_w[r * SLD + lane + 32] * scale;
+    const bool a0 = is_allowed(row, lane);
+    const bool a1 = is_allowed(row, lane + 32);
+    const float tile_max = warp_max(fmaxf(a0 ? s0 : -INFINITY, a1 ? s1 : -INFINITY));
+    const float m_old = sh.m[row];
+    const float m_new = fmaxf(m_old, tile_max);
+    const float p0 = a0 ? __expf(s0 - m_new) : 0.f;
+    const float p1 = a1 ? __expf(s1 - m_new) : 0.f;
+    const float psum = warp_sum(p0 + p1);
+    p_w[r * PLD + lane] = __float2bfloat16(p0);
+    p_w[r * PLD + lane + 32] = __float2bfloat16(p1);
+    __syncwarp();
+    if (lane == 0) {
+      const float alpha = (m_old == -INFINITY) ? 0.f : __expf(m_old - m_new);
+      sh.m[row] = m_new;
+      sh.l[row] = sh.l[row] * alpha + psum;
+      sh.alpha[row] = alpha;
+    }
+  }
+  __syncwarp();
+
+  // rescale this warp's accumulator rows, then O += P V on the tensor cores
+  for (int e = lane; e < 16 * HD; e += 32) {
+    const int r = e / HD;
+    o_w[r * OLD + e % HD] *= sh.alpha[warp * 16 + r];
+  }
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < HD / 16; ++n) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::load_matrix_sync(acc, o_w + n * 16, OLD, wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
+      wmma::load_matrix_sync(pf, p_w + kk * 16, PLD);
+      wmma::load_matrix_sync(vf, sh.v + kk * 16 * QLD + n * 16, QLD);
+      wmma::mma_sync(acc, pf, vf, acc);
+    }
+    wmma::store_matrix_sync(o_w + n * 16, acc, OLD, wmma::mem_row_major);
+  }
 }
 
 }  // namespace attn

@@ -47,60 +47,21 @@ using namespace attn;
 namespace {
 
 template <int HD>
-struct Layout {
-  static constexpr int QLD = qld<HD>();
-  static constexpr int OLD = HD + 4;  // f32 accumulator row stride
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + round128(sizeof(__nv_bfloat16) * BQ * QLD);
-  static constexpr size_t v = k + round128(sizeof(__nv_bfloat16) * BK * QLD);
-  static constexpr size_t s = v + round128(sizeof(__nv_bfloat16) * BK * QLD);
-  static constexpr size_t p = s + round128(sizeof(float) * BQ * SLD);
-  static constexpr size_t o = p + round128(sizeof(__nv_bfloat16) * BQ * PLD);
-  static constexpr size_t m = o + round128(sizeof(float) * BQ * OLD);
-  static constexpr size_t l = m + round128(sizeof(float) * BQ);
-  static constexpr size_t alpha = l + round128(sizeof(float) * BQ);
-  static constexpr size_t kvalid = alpha + round128(sizeof(float) * BQ);
-  static constexpr size_t bytes = kvalid + round128(sizeof(int) * BK);
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int HD>
 __global__ void __launch_bounds__(THREADS)
 exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v, const int* __restrict__ valid,
                        __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int L,
                        long long q_rs, long long k_rs, long long v_rs, long long o_rs,
                        float scale) {
-  using Lay = Layout<HD>;
-  constexpr int QLD = Lay::QLD;
-  constexpr int OLD = Lay::OLD;
+  constexpr int OLD = FwdLayout<HD>::OLD;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + Lay::q);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::k);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + Lay::v);
-  float* ss = reinterpret_cast<float*>(smem + Lay::s);
-  __nv_bfloat16* sp = reinterpret_cast<__nv_bfloat16*>(smem + Lay::p);
-  float* so = reinterpret_cast<float*>(smem + Lay::o);
-  float* sm = reinterpret_cast<float*>(smem + Lay::m);
-  float* sl = reinterpret_cast<float*>(smem + Lay::l);
-  float* salpha = reinterpret_cast<float*>(smem + Lay::alpha);
-  int* skv = reinterpret_cast<int*>(smem + Lay::kvalid);
+  const FwdSmem<HD> sh(smem);
+  int* skv = sh.extra;  // the key tile's validity
 
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
   const int q0 = qt * BQ;
 
   const __nv_bfloat16* qb = q + (long long)b * L * q_rs + h * HD;
@@ -108,94 +69,20 @@ exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   const __nv_bfloat16* vb = v + (long long)b * L * v_rs + h * HD;
   const int* validb = valid + (long long)b * L;
 
-  load_tile<HD>(sq, qb, q_rs, q0, L);
-  for (int i = tid; i < BQ * OLD; i += THREADS) so[i] = 0.f;
-  if (tid < BQ) {
-    sm[tid] = -INFINITY;
-    sl[tid] = 0.f;
-  }
+  load_tile<HD>(sh.q, qb, q_rs, q0, L);
   __syncthreads();
-
-  // this warp's 16 query rows stay in registers as A fragments
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> qf[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], sq + warp * 16 * QLD + kk * 16, QLD);
-
-  float* s_w = ss + warp * 16 * SLD;
-  __nv_bfloat16* p_w = sp + warp * 16 * PLD;
-  float* o_w = so + warp * 16 * OLD;
+  QFrag<HD> qf[HD / 16];  // this warp's 16 query rows stay in registers
+  fwd_begin<HD>(sh, qf);
+  __syncthreads();
 
   for (int kt = 0; kt <= qt; ++kt) {  // key tiles up to the diagonal only
     const int k0 = kt * BK;
-    load_tile<HD>(sk, kb, k_rs, k0, L);
-    load_tile<HD>(sv, vb, v_rs, k0, L);
+    load_tile<HD>(sh.k, kb, k_rs, k0, L);
+    load_tile<HD>(sh.v, vb, v_rs, k0, L);
     if (tid < BK) skv[tid] = (k0 + tid < L) ? validb[k0 + tid] : 0;
     __syncthreads();
-
-    // S = Q K^T over this warp's rows: 16 x 64 f32
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sk + n * 16 * QLD + kk * 16, QLD);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(s_w + n * 16, acc, SLD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax: each lane takes 2 of the tile's 64 keys per row
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const int i = q0 + row;
-      const int j0 = k0 + lane;
-      const int j1 = j0 + 32;
-      const float s0 = s_w[r * SLD + lane] * scale;
-      const float s1 = s_w[r * SLD + lane + 32] * scale;
-      const bool a0 = allowed(i, j0, skv[lane]);
-      const bool a1 = allowed(i, j1, skv[lane + 32]);
-      const float tile_max = warp_max(fmaxf(a0 ? s0 : -INFINITY, a1 ? s1 : -INFINITY));
-      const float m_old = sm[row];
-      const float m_new = fmaxf(m_old, tile_max);
-      const float p0 = a0 ? __expf(s0 - m_new) : 0.f;
-      const float p1 = a1 ? __expf(s1 - m_new) : 0.f;
-      const float psum = warp_sum(p0 + p1);
-      p_w[r * PLD + lane] = __float2bfloat16(p0);
-      p_w[r * PLD + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = (m_old == -INFINITY) ? 0.f : __expf(m_old - m_new);
-        sm[row] = m_new;
-        sl[row] = sl[row] * alpha + psum;
-        salpha[row] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // rescale this warp's accumulator rows, then O += P V on the tensor cores
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e / HD;
-      o_w[r * OLD + e % HD] *= salpha[warp * 16 + r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, o_w + n * 16, OLD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, p_w + kk * 16, PLD);
-        wmma::load_matrix_sync(vf, sv + kk * 16 * QLD + n * 16, QLD);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(o_w + n * 16, acc, OLD, wmma::mem_row_major);
-    }
+    fwd_tile<HD>(sh, qf, scale,
+                 [&](int row, int col) { return allowed(q0 + row, k0 + col, skv[col]); });
     __syncthreads();  // K/V tiles are overwritten next
   }
 
@@ -203,18 +90,18 @@ exact_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int r = e / HD;
     const int t = q0 + r;
-    if (t < L) ob[(long long)t * o_rs + e % HD] = __float2bfloat16(so[r * OLD + e % HD] / sl[r]);
+    if (t < L) ob[(long long)t * o_rs + e % HD] = __float2bfloat16(sh.o[r * OLD + e % HD] / sh.l[r]);
   }
   // every row has its diagonal, so l > 0 and the logsumexp is finite
   if (lse != nullptr && tid < BQ && q0 + tid < L)
-    lse[((long long)b * gridDim.y + h) * L + q0 + tid] = sm[tid] + logf(sl[tid]);
+    lse[((long long)b * gridDim.y + h) * L + q0 + tid] = sh.m[tid] + logf(sh.l[tid]);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse,
            int bs, int L, int n_heads, long long q_rs, long long k_rs, long long v_rs, long long o_rs,
            float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<HD>::bytes;
+  constexpr size_t smem = FwdLayout<HD>::bytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(exact_attention_kernel<HD>,

@@ -6,7 +6,7 @@ is ported so far (the cylinder/airfoil pickles and EAGLE come later).
 
 from __future__ import annotations
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.data.pipeline import PatchDataset, make_batches
 from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
@@ -17,8 +17,6 @@ def get_dataset(cfg: Config, mode: str = "train") -> PatchDataset:
     name = cfg.load_dir
     if not name.startswith("synthetic"):
         raise ValueError(f"dataset {name!r}: only synthetic[:<n>] is ported")
-    if cfg.absolute_time_ids:
-        raise ValueError("absolute_time_ids comes with the streaming rollout")
     seq_len = cfg.seq_len if cfg.seq_len is not None else cfg.autoreg_seq_len
     n_traj = int(name.split(":", 1)[1]) if ":" in name else 4
     return SyntheticCylinderDataset(
@@ -29,6 +27,7 @@ def get_dataset(cfg: Config, mode: str = "train") -> PatchDataset:
         seq_interval=cfg.seq_interval,
         mode=mode,
         normalize=cfg.normalize_ds,
+        absolute_time=cfg.absolute_time_ids,
     )
 
 

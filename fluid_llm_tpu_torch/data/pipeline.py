@@ -69,15 +69,21 @@ def window_to_patches(
     return input_states, next_state, diffs, bc_mask
 
 
-def position_ids(seq_len_m1: int, nx_patch: int, ny_patch: int) -> torch.Tensor:
+def position_ids(seq_len_m1: int, nx_patch: int, ny_patch: int, t_base: int = 0,
+                 t_step: int = 1) -> torch.Tensor:
     """``simple_dataloader.py:218-226``, reproduced exactly, including the
     quirky x-fastest labelling that doesn't match the y-fastest patch order
-    (harmless: the embeddings are learned per index).  int64 (seq, N, 3)."""
+    (harmless: the embeddings are learned per index).  int64 (seq, N, 3).
+
+    ``t_base``/``t_step``: (0, 1) gives the reference's window-relative time
+    ids; the absolute-time variant (``Config.absolute_time_ids``) passes the
+    window's trajectory step and ``seq_interval``, so every frame carries
+    its raw trajectory step (``fluid_llm_tpu/data/pipeline.py:101-119``)."""
     n_patch = nx_patch * ny_patch
     arange = torch.arange(seq_len_m1 * n_patch)
     x_idx = arange % nx_patch
     y_idx = (arange // nx_patch) % ny_patch
-    t_idx = arange // n_patch
+    t_idx = (arange // n_patch) * t_step + t_base
     return torch.stack([x_idx, y_idx, t_idx], dim=1).reshape(seq_len_m1, n_patch, 3)
 
 
@@ -111,10 +117,12 @@ class PatchDataset:
         stds: Sequence[float] = (1.0, 1.0, 1.0),
         max_steps: int = 600,
         seed: int = 1234,
+        absolute_time: bool = False,
     ):
         if mode not in ("train", "valid", "test"):
             raise ValueError(f"mode {mode!r}")
         self.mode = mode
+        self.absolute_time = absolute_time
         self.resolution = resolution
         self.patch_size = tuple(patch_size)
         self.seq_len = seq_len
@@ -185,7 +193,11 @@ class PatchDataset:
             grid, mask, self.means, self.stds,
             patch=self.patch_size, pad_x=pad_x, pad_y=pad_y,
         )
-        pos = position_ids(self.seq_len - 1, nx, ny)
+        pos = position_ids(
+            self.seq_len - 1, nx, ny,
+            t_base=step_num if self.absolute_time else 0,
+            t_step=self.seq_interval if self.absolute_time else 1,
+        )
         return input_states, next_state, diffs, bc_mask, pos
 
     def __getitem__(self, idx: int):

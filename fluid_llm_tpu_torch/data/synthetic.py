@@ -74,6 +74,7 @@ class SyntheticCylinderDataset(PatchDataset):
         max_steps: int = 600,
         mesh_nodes: tuple[int, int] = (40, 16),
         seed: int = 1234,
+        absolute_time: bool = False,
     ):
         super().__init__(
             resolution=resolution,
@@ -88,6 +89,7 @@ class SyntheticCylinderDataset(PatchDataset):
             stds=(0.275, 0.275, 0.275),
             max_steps=max_steps,
             seed=seed,
+            absolute_time=absolute_time,
         )
         self.n_trajectories = n_trajectories
         self.mesh_nodes = mesh_nodes

@@ -5,6 +5,10 @@ build the test dataset at ``seq_len=253``, autoregressively generate
 ``pred_steps=251`` from 1 context state (bs=1), report per-step and mean
 N-RMSE.
 
+With ``--streaming`` the rollout is the KV-cache streaming one
+(``rollout/streaming.py``; rope backbones with ``rope_abs`` embeddings and
+absolute time, as ``configs/flagship_llama.yaml``).
+
 With ``--checkpoint_dir`` the model comes from a run folder written by
 ``main``/``continue_train`` (torch checkpoints, ``train/checkpoint.py``):
 its ``config.yaml`` and ``step_N`` (latest by default), as the JAX entry
@@ -14,6 +18,8 @@ point restores its Orbax ones.  Without it, the model is built from
     python -m fluid_llm_tpu_torch.inference --checkpoint_dir model_checkpoints --load_no -1
     python -m fluid_llm_tpu_torch.inference --config_path configs/training1.yaml \\
         --load_dir synthetic:1
+    python -m fluid_llm_tpu_torch.inference --config_path configs/flagship_llama.yaml \\
+        --load_dir synthetic:1 --streaming
 """
 
 from __future__ import annotations
@@ -27,11 +33,12 @@ import sys
 import numpy as np
 import torch
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data import get_dataset, make_batches
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import patch_to_img
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
+from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
 from fluid_llm_tpu_torch.utils import get_device, set_seed
@@ -46,17 +53,20 @@ def test_generate(
     batch_size: int = 1,
     pred_steps: int = 251,
     ctx_states: int = 1,
+    streaming: bool = False,
 ) -> tuple[np.ndarray, float]:
     """``src/inference.py:82-147``; returns (per-step N-RMSE, mean).
 
-    Batches go to the device of the model's parameters.
+    Batches go to the device of the model's parameters.  ``streaming``
+    serves through the KV-cache rollout (``rollout/streaming.py``).
     """
     device = next(model.parameters()).device
+    roll = gen_seq_streaming if streaming else gen_seq
     end_state = pred_steps + ctx_states - 1
     n_rmses = []
     for i, batch in enumerate(make_batches(dataset, batch_size, shuffle=False, device=device)):
         states, _, _, bc_mask, _ = batch
-        pred_states, _ = gen_seq(model, batch, pred_steps, start_state=ctx_states)
+        pred_states, _ = roll(model, batch, pred_steps, start_state=ctx_states)
         pred_states = pred_states[:, :-1]  # last state has no diff
         true_states = patch_to_img(states, model.ds_props)[:, :end_state]
         mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()[:, :end_state]
@@ -111,6 +121,8 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--csv", default=None, help="write per-step N-RMSE CSV")
+    parser.add_argument("--streaming", action="store_true",
+                        help="serve via the KV-cache streaming rollout (rope backbones only)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
 
@@ -131,7 +143,8 @@ def main(argv=None):
         model = build_seeded_model(cfg, args.seed, device)
     test_ds = get_dataset(cfg.replace(seq_len=args.seq_len), mode="test")
     per_step, mean = test_generate(
-        model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps
+        model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps,
+        streaming=args.streaming,
     )
     if args.csv:
         if os.path.dirname(args.csv):

@@ -18,7 +18,7 @@ import sys
 
 import torch
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data import get_dataset
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.train import checkpoint as ckpt

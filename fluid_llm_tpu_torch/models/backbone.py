@@ -1,4 +1,4 @@
-"""Decoder-only transformer backbone (OPT / GPT-2 layouts).
+"""Decoder-only transformer backbone (OPT / GPT-2 / LLaMA layouts).
 
 Counterpart of ``fluid_llm_tpu/models/backbone.py``.  The reference feeds
 pre-computed patch embeddings via ``inputs_embeds`` (token embeddings nulled,
@@ -7,27 +7,35 @@ no token table.
 
 Fidelity notes, as in the JAX package:
 - OPT/GPT-2 add their own learned 1-D position embedding on top of
-  ``inputs_embeds``, with OPT's offset-2 indexing.
+  ``inputs_embeds``, with OPT's offset-2 indexing; LLaMA rotates q and k
+  (``_rope``, split halves) and has no position table.
 - Positions are ``cumsum(valid) - 1`` (clipped at 0), which equals
   ``arange(L)`` for dense inputs and stays right for the rollout's
   right-aligned window, whose invalid frames sit at the front.
 - Pre-LN (default) or post-LN (OPT-350m), with ``project_in``/``project_out``
-  where the embedding width differs (OPT-350m).
+  where the embedding width differs (OPT-350m).  LLaMA: RMSNorm, SwiGLU,
+  no biases, grouped-query attention (``n_kv_heads``).
 
 Attention, with ``kernels`` set and where the kernels take the shape:
 without gradients (rollout, inference) it runs the exact-window kernel
 (``ops/exact_attention.py``); with gradients and ``flash_attention``
 (training) it runs ``ops/flash_attention.FlashAttention``, whose backward
 is the dq and dk/dv kernels.  Otherwise the plain twin, under autograd.
-``decode_slice`` computes the final block for one token range only
-(``_final_block_sliced``, plain PyTorch).
+Rope'd heads (and grouped k/v heads, repeated) go to either in the packed
+``(bs, L, H*hd)`` layout.  ``decode_slice`` computes the final block for
+one token range only (``_final_block_sliced``, plain PyTorch).
 
 Training (``backbone.py:769-948``): LoRA/DoRA adapters are applied unmerged
 (``models/lora.lora_linear``) on their target projections, and dropout
 draws from a ``torch.Generator`` at the HF placement: the embedding stream,
 after the attention out-projection and after the MLP.  ``pack_qkv_params``
-and ``cast_matmul_params`` are inference-only.  LLaMA/rope, MoE, streaming,
-the stacked-layer layout, ring attention and tensor parallelism come later.
+and ``cast_matmul_params`` are inference-only.
+
+Streaming (``backbone.py:1032-1402``, rope backbones): ``apply_streaming``
+runs new tokens through every block once against the slab KV cache of
+``init_streaming_cache``; its attention is ``ops/decode_attention.py``.
+MoE, the stacked-layer layout, ring attention and tensor parallelism come
+later.
 """
 
 from __future__ import annotations
@@ -42,25 +50,30 @@ from torch import nn
 
 from fluid_llm_tpu_torch.models.common import dropout, linear
 from fluid_llm_tpu_torch.models.lora import lora_linear
+from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 
 
 @dataclass(frozen=True)
 class BackboneConfig:
-    family: str  # "opt" | "gpt2"
+    family: str  # "opt" | "gpt2" | "llama"
     n_layers: int
     d_model: int
     n_heads: int
     d_ff: int
+    n_kv_heads: Optional[int] = None  # grouped-query attention; None -> n_heads
     max_pos: int = 2048
     # OPT-350m: embeddings at ``word_embed_proj_dim`` with project_in/out,
     # post-LN blocks and no final norm (HF ``OPTConfig``)
     d_embed: Optional[int] = None
     pre_ln: bool = True
     final_ln: bool = True
-    act: str = "relu"  # "relu" | "gelu_new" | "gelu"
+    act: str = "relu"  # "relu" | "gelu_new" | "gelu" | "silu" (LLaMA's SwiGLU)
+    norm: str = "layernorm"  # "layernorm" | "rmsnorm"
+    pos: str = "learned"  # "learned" | "rope"
     pos_offset: int = 0  # OPT uses 2
+    rope_theta: float = 10000.0
     ln_eps: float = 1e-5
     dropout: float = 0.1  # training only
     dtype: torch.dtype = torch.float32  # activation dtype
@@ -68,8 +81,16 @@ class BackboneConfig:
     flash_attention: bool = False
 
     @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
     def head_dim(self) -> int:
         return self.d_model // self.n_heads
+
+    @property
+    def kv_dim(self) -> int:
+        return self.kv_heads * self.head_dim
 
     @property
     def embed_dim(self) -> int:
@@ -102,6 +123,20 @@ PRESETS: dict[str, BackboneConfig] = {
         family="gpt2", n_layers=12, d_model=768, n_heads=12, d_ff=3072,
         act="gelu_new", max_pos=1024,
     ),
+    "huggyllama/llama-7b": BackboneConfig(
+        family="llama", n_layers=32, d_model=4096, n_heads=32, d_ff=11008,
+        act="silu", norm="rmsnorm", pos="rope", ln_eps=1e-6, max_pos=2048, dropout=0.0,
+    ),
+    # the JAX package's own LLaMA-style backbones (no HF counterpart): rotary
+    # positions make them servable by the streaming KV-cache rollout
+    "fluid/llama-125m": BackboneConfig(
+        family="llama", n_layers=12, d_model=768, n_heads=12, d_ff=2048,
+        act="silu", norm="rmsnorm", pos="rope", ln_eps=1e-6, max_pos=32768, dropout=0.0,
+    ),
+    "fluid/llama-350m": BackboneConfig(
+        family="llama", n_layers=24, d_model=1024, n_heads=16, d_ff=2816,
+        act="silu", norm="rmsnorm", pos="rope", ln_eps=1e-6, max_pos=32768, dropout=0.0,
+    ),
 }
 
 
@@ -130,9 +165,20 @@ def _act(x: torch.Tensor, name: str) -> torch.Tensor:
     raise ValueError(name)
 
 
-def _norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm computed in f32, returned in the activation dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps).to(x.dtype)
+def _make_norm(cfg: BackboneConfig, d: int) -> nn.Module:
+    if cfg.norm == "rmsnorm":
+        return nn.RMSNorm(d, eps=cfg.ln_eps)
+    return nn.LayerNorm(d, eps=cfg.ln_eps)
+
+
+def _norm(x: torch.Tensor, ln: nn.Module) -> torch.Tensor:
+    """LayerNorm or RMSNorm computed in f32, returned in the activation
+    dtype (``backbone.py:383-393``; RMSNorm with the config's eps)."""
+    if isinstance(ln, nn.RMSNorm):
+        out = F.rms_norm(x.float(), ln.normalized_shape, ln.weight, ln.eps)
+    else:
+        out = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    return out.to(x.dtype)
 
 
 def make_masks(valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -150,6 +196,43 @@ def make_masks(valid: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return positions, allowed[:, None]
 
 
+def rope_tables(positions: torch.Tensor, cfg: BackboneConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) factors of the rotary embedding for (bs, L) positions,
+    each (bs, L, 1, hd) f32, laid out for :func:`apply_rope`.
+
+    The angles are computed in f32 from the integer positions (a streamed
+    rollout reaches ~15k tokens: bf16 would lose them).  Computed once per
+    forward and shared by every layer."""
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=positions.device) / hd))
+    angles = positions[..., None].float() * inv_freq  # (bs, L, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    return torch.cat([cos, cos], -1)[:, :, None], torch.cat([-sin, sin], -1)[:, :, None]
+
+
+def apply_rope(x: torch.Tensor, tables, n_heads: int) -> torch.Tensor:
+    """LLaMA rotary embedding (``backbone.py:576-589``, split halves, not
+    interleaved) of packed heads ``(bs, L, n_heads*hd)``, computed in f32:
+    ``[x1 cos - x2 sin, x2 cos + x1 sin]``.  Returns the packed layout."""
+    cos, sin = tables
+    bs, L, D = x.shape
+    xf = x.reshape(bs, L, n_heads, D // n_heads).float()
+    half = xf.shape[-1] // 2
+    out = xf * cos + torch.cat([xf[..., half:], xf[..., :half]], -1) * sin
+    return out.to(x.dtype).reshape(bs, L, D)
+
+
+def _repeat_kv(t: torch.Tensor, cfg: BackboneConfig) -> torch.Tensor:
+    """Grouped k/v heads repeated to the query heads, packed layout
+    (``jnp.repeat(k, n_heads // kv_heads, axis=2)``)."""
+    if cfg.kv_heads == cfg.n_heads:
+        return t
+    bs, L, _ = t.shape
+    t = t.reshape(bs, L, cfg.kv_heads, cfg.head_dim)
+    return t.repeat_interleave(cfg.n_heads // cfg.kv_heads, dim=2).reshape(bs, L, cfg.d_model)
+
+
 def _attention(q, k, v, allowed, dtype) -> torch.Tensor:
     """Masked attention, f32 scores and softmax, probabilities in ``dtype``.
 
@@ -164,15 +247,23 @@ def _attention(q, k, v, allowed, dtype) -> torch.Tensor:
 
 class Block(nn.Module):
     """One transformer block; ``attn``/``mlp`` are ModuleDicts so the keys
-    follow the JAX pytree (``attn.q``..., ``attn.qkv`` once packed)."""
+    follow the JAX pytree (``attn.q``..., ``attn.qkv`` once packed;
+    ``mlp.fc1``/``fc2``, or LLaMA's ``mlp.gate``/``up``/``down``)."""
 
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
-        d, ff = cfg.d_model, cfg.d_ff
-        self.ln1 = nn.LayerNorm(d, eps=cfg.ln_eps)
-        self.attn = nn.ModuleDict({n: nn.Linear(d, d) for n in ("q", "k", "v", "o")})
-        self.ln2 = nn.LayerNorm(d, eps=cfg.ln_eps)
-        self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
+        d, ff, kv = cfg.d_model, cfg.d_ff, cfg.kv_dim
+        bias = cfg.family != "llama"
+        self.ln1 = _make_norm(cfg, d)
+        self.attn = nn.ModuleDict({"q": nn.Linear(d, d, bias=bias), "k": nn.Linear(d, kv, bias=bias),
+                                   "v": nn.Linear(d, kv, bias=bias), "o": nn.Linear(d, d, bias=bias)})
+        self.ln2 = _make_norm(cfg, d)
+        if cfg.family == "llama":
+            self.mlp = nn.ModuleDict({"gate": nn.Linear(d, ff, bias=False),
+                                      "up": nn.Linear(d, ff, bias=False),
+                                      "down": nn.Linear(ff, d, bias=False)})
+        else:
+            self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
 
     def proj(self, h, group: str, name: str, adapters=None, lora_cfg=None, generator=None):
         """``group.name`` applied to ``h``, through its adapter if it has one
@@ -184,32 +275,50 @@ class Block(nn.Module):
             return linear(h, lin)
         return lora_linear(h, lin, ad, lora_cfg, generator)
 
-    def qkv(self, h: torch.Tensor, d: int, adapters=None, lora_cfg=None, generator=None):
-        """q, k, v of ``h``: column slices of the fused projection when packed."""
+    def qkv(self, h: torch.Tensor, cfg: BackboneConfig, adapters=None, lora_cfg=None,
+            generator=None, rope=None):
+        """q, k, v of ``h``, q and k rotated when ``rope`` tables are given:
+        column slices of the fused projection when packed (whose adjacent q
+        and k columns rotate in one pass)."""
         if "qkv" in self.attn:
             if adapters is not None and "attn" in adapters \
                     and any(n in adapters["attn"] for n in "qkv"):
                 raise ValueError("packed qkv weights cannot apply q/k/v adapters: merge them "
                                  "first (FluidLLM.prepare_inference_params)")
+            d, kv = cfg.d_model, cfg.kv_dim
             qkv = linear(h, self.attn["qkv"])
-            return qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
-        return tuple(self.proj(h, "attn", n, adapters, lora_cfg, generator)
-                     for n in ("q", "k", "v"))
+            qk = qkv[..., :d + kv]
+            if rope is not None:
+                qk = apply_rope(qk, rope, cfg.n_heads + cfg.kv_heads)
+            return qk[..., :d], qk[..., d:], qkv[..., d + kv:]
+        q, k, v = (self.proj(h, "attn", n, adapters, lora_cfg, generator) for n in ("q", "k", "v"))
+        if rope is not None:
+            q, k = apply_rope(q, rope, cfg.n_heads), apply_rope(k, rope, cfg.kv_heads)
+        return q, k, v
+
+    def mlp_out(self, h, cfg: BackboneConfig, lin) -> torch.Tensor:
+        """The MLP branch: LLaMA's SwiGLU ``down(silu(gate h) * up h)``, or
+        ``fc2(act(fc1 h))``; ``lin(h, group, name)`` applies a projection."""
+        if "gate" in self.mlp:
+            return lin(F.silu(lin(h, "mlp", "gate")) * lin(h, "mlp", "up"), "mlp", "down")
+        return lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2")
 
     def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
-                generator=None) -> torch.Tensor:
+                generator=None, rope=None) -> torch.Tensor:
         """``generator``: training (adapter and residual dropout draw from
-        it); None runs without dropout."""
+        it); None runs without dropout.  ``rope``: the (cos, sin) tables of
+        a rotary backbone."""
         lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator)
         drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
             else (lambda h: h)
         h = _norm(x, self.ln1) if cfg.pre_ln else x
-        q, k, v = self.qkv(h, cfg.d_model, adapters, lora_cfg, generator)
+        q, k, v = self.qkv(h, cfg, adapters, lora_cfg, generator, rope)
+        k, v = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
         x = x + drop(lin(attend(q, k, v, valid_i32, cfg.n_heads, cfg.head_dim), "attn", "o"))
         if not cfg.pre_ln:
             x = _norm(x, self.ln1)
         h = _norm(x, self.ln2) if cfg.pre_ln else x
-        x = x + drop(lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2"))
+        x = x + drop(self.mlp_out(h, cfg, lin))
         if not cfg.pre_ln:
             x = _norm(x, self.ln2)
         return x
@@ -218,18 +327,19 @@ class Block(nn.Module):
 class Backbone(nn.Module):
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
-        if cfg.family not in ("opt", "gpt2"):
-            raise ValueError(f"backbone family {cfg.family!r}: only opt/gpt2 are ported")
+        if cfg.family not in ("opt", "gpt2", "llama"):
+            raise ValueError(f"backbone family {cfg.family!r}: only opt/gpt2/llama are ported")
         self.cfg = cfg
         d = cfg.d_model
         self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
-        self.final_norm = nn.LayerNorm(d, eps=cfg.ln_eps) if cfg.final_ln else None
+        self.final_norm = _make_norm(cfg, d) if cfg.final_ln else None
         if cfg.d_embed is not None and cfg.d_embed != d:
             self.project_in = nn.Linear(cfg.d_embed, d, bias=False)
             self.project_out = nn.Linear(d, cfg.d_embed, bias=False)
         else:
             self.project_in = self.project_out = None
-        self.pos_embed = nn.Parameter(torch.empty(cfg.max_pos + cfg.pos_offset, d))
+        self.pos_embed = nn.Parameter(torch.empty(cfg.max_pos + cfg.pos_offset, d)) \
+            if cfg.pos == "learned" else None
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -239,9 +349,10 @@ class Backbone(nn.Module):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, (nn.LayerNorm, nn.RMSNorm)):
                 mod.reset_parameters()
-        self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        if self.pos_embed is not None:
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
     def forward(
         self,
@@ -274,7 +385,9 @@ class Backbone(nn.Module):
         positions, allowed = make_masks(valid)
         if self.project_in is not None:
             x = linear(x, self.project_in)
-        x = x + self.pos_embed[positions + cfg.pos_offset].to(cfg.dtype)
+        if self.pos_embed is not None:
+            x = x + self.pos_embed[positions + cfg.pos_offset].to(cfg.dtype)
+        rope = rope_tables(positions, cfg) if cfg.pos == "rope" else None
         if generator is not None:
             x = dropout(x, cfg.dropout, generator)
 
@@ -291,21 +404,24 @@ class Backbone(nn.Module):
         lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
         for layer, ad in zip(self.layers[:n_full], adapters):
-            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator)
+            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator, rope)
         if decode_slice is not None:
-            x = self._final_block_sliced(x, allowed, decode_slice, adapters[-1], lora_cfg)
+            x = self._final_block_sliced(x, allowed, rope, decode_slice, adapters[-1], lora_cfg)
+        return self._out(x)
 
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
         if self.final_norm is not None:
             x = _norm(x, self.final_norm)
         if self.project_out is not None:
             x = linear(x, self.project_out)
         return x
 
-    def _final_block_sliced(self, x, allowed, decode_slice, adapters=None,
+    def _final_block_sliced(self, x, allowed, rope, decode_slice, adapters=None,
                             lora_cfg=None) -> torch.Tensor:
         """Final block for queries ``start:start+length`` only (exact under
         causal attention; ``backbone.py:951-1029``), adapters unmerged if
-        given.  Plain PyTorch, no dropout."""
+        given.  Rope rotates the q slice at its own positions and k over
+        the whole window.  Plain PyTorch, no dropout."""
         cfg = self.cfg
         layer = self.layers[-1]
         lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg)
@@ -320,17 +436,20 @@ class Backbone(nn.Module):
             # packed weights: q over the slice, fused k|v over the full window
             p = layer.attn["qkv"]
             w = p.weight.to(h.dtype)
-            b = p.bias.to(h.dtype)
-            q = F.linear(h_q, w[:d], b[:d])
-            kv = F.linear(h, w[d:], b[d:])
-            k, v = kv[..., :d], kv[..., d:]
+            b = p.bias.to(h.dtype) if p.bias is not None else None
+            q = F.linear(h_q, w[:d], b[:d] if b is not None else None)
+            kv = F.linear(h, w[d:], b[d:] if b is not None else None)
+            k, v = kv[..., :cfg.kv_dim], kv[..., cfg.kv_dim:]
         else:
             q = lin(h_q, "attn", "q")
             k = lin(h, "attn", "k")
             v = lin(h, "attn", "v")
+        if rope is not None:
+            q = apply_rope(q, tuple(t[:, start:start + ln] for t in rope), H)
+            k = apply_rope(k, rope, cfg.kv_heads)
         q = q.reshape(bs, ln, H, hd)
-        k = k.reshape(bs, L, H, hd)
-        v = v.reshape(bs, L, H, hd)
+        k = _repeat_kv(k, cfg).reshape(bs, L, H, hd)
+        v = _repeat_kv(v, cfg).reshape(bs, L, H, hd)
 
         attn_out = _attention(q, k, v, allowed[:, :, start:start + ln], cfg.dtype)
         x_s = x_s + lin(attn_out.reshape(bs, ln, d), "attn", "o")
@@ -338,7 +457,7 @@ class Backbone(nn.Module):
             x_s = _norm(x_s, layer.ln1)
 
         h2 = _norm(x_s, layer.ln2) if cfg.pre_ln else x_s
-        x_s = x_s + lin(_act(lin(h2, "mlp", "fc1"), cfg.act), "mlp", "fc2")
+        x_s = x_s + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
             x_s = _norm(x_s, layer.ln2)
         return x_s
@@ -346,7 +465,9 @@ class Backbone(nn.Module):
 
 @torch.no_grad()
 def pack_qkv_params(backbone: Backbone) -> None:
-    """Fuse each layer's q/k/v projections into one ``qkv`` linear, in place.
+    """Fuse each layer's q/k/v projections into one ``qkv`` linear of
+    ``d + 2 kv_dim`` outputs, in place (with biases where the layer has
+    them).
 
     Exact (same math, one matmul instead of three).  Apply AFTER
     ``merge_lora``: adapters target the unpacked names.
@@ -356,10 +477,12 @@ def pack_qkv_params(backbone: Backbone) -> None:
         if "qkv" in attn:
             continue
         parts = [attn[n] for n in ("q", "k", "v")]
-        qkv = nn.Linear(parts[0].in_features, sum(p.out_features for p in parts),
+        bias = parts[0].bias is not None
+        qkv = nn.Linear(parts[0].in_features, sum(p.out_features for p in parts), bias=bias,
                         device=parts[0].weight.device, dtype=parts[0].weight.dtype)
         qkv.weight.copy_(torch.cat([p.weight for p in parts], dim=0))
-        qkv.bias.copy_(torch.cat([p.bias for p in parts]))
+        if bias:
+            qkv.bias.copy_(torch.cat([p.bias for p in parts]))
         for n in ("q", "k", "v"):
             del attn[n]
         attn["qkv"] = qkv
@@ -380,3 +503,185 @@ def cast_matmul_params(backbone: Backbone, dtype: torch.dtype) -> None:
     for lin in (backbone.project_in, backbone.project_out):
         if lin is not None:
             lin.to(dtype)
+
+
+# --------------------------------------------------------------------------
+# streaming KV-cache decode (``backbone.py:1032-1402``): each frame is
+# encoded once against a cache of the pinned sinks and the last R frames
+# --------------------------------------------------------------------------
+
+
+def _slab_tokens(frame_tokens: int, n_sink: int) -> int:
+    """Tokens per cache slab: the frame size (and the sink count, which
+    shares the buffer) rounded up to 16."""
+    return max(-(-frame_tokens // 16) * 16, -(-max(n_sink, 1) // 16) * 16)
+
+
+def init_streaming_cache(cfg: BackboneConfig, bs: int, n_sink: int, n_frames: int,
+                         frame_tokens: int, device=None) -> dict[str, torch.Tensor]:
+    """The slab KV cache of ``backbone.py:1045-1090``, in its layout.
+
+    ``k``/``v``: ``(L, bs, n_frames + 1, P̂, kvh*hd)`` zeros in the
+    activation dtype, ``P̂ = _slab_tokens(frame_tokens, n_sink)``.  Slots
+    ``0..n_frames-1`` are the frame ring, one whole frame per slab (rows
+    past the frame stay zero and are masked); slot ``n_frames`` holds the
+    pinned attention sinks.  Heads are folded on the last dim (head ``h``
+    at columns ``[h*hd, (h+1)*hd)``), so a slab reads as rows of the
+    packed projection output.  ``sink_pos`` holds each sink token's
+    absolute position, ``ring_pos`` each ring slot's first-token position
+    (-1: never written); int32.
+    """
+    pp = _slab_tokens(frame_tokens, n_sink)
+    if n_sink > pp:
+        raise ValueError(f"n_sink={n_sink} exceeds the slab size {pp}")
+    shape = (cfg.n_layers, bs, n_frames + 1, pp, cfg.kv_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+        "sink_pos": torch.full((n_sink,), -1, dtype=torch.int32, device=device),
+        "ring_pos": torch.full((n_frames,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def slab_key_positions(cache: dict[str, torch.Tensor], frame_tokens: int) -> torch.Tensor:
+    """Every cached key's absolute position, in slab order (ring slots, then
+    the sink slot): (slots*P̂,) int32, INT32_MAX for unwritten slots and
+    slab pad rows.  Every resident token precedes (or is) each new query,
+    so causality, also among the new tokens, is ``key_pos <= q_pos``
+    (``backbone.py:1199-1216``); frames' tokens are consecutive, so a ring
+    slot's keys are its first-token position plus the row."""
+    big = torch.iinfo(torch.int32).max
+    ring_pos, sink_pos = cache["ring_pos"], cache["sink_pos"]
+    pp = cache["k"].shape[3]
+    row = torch.arange(pp, dtype=torch.int32, device=ring_pos.device)
+    ring_kp = torch.where((ring_pos >= 0)[:, None] & (row < frame_tokens)[None, :],
+                          ring_pos[:, None] + row[None, :], big)
+    sink_kp = torch.full((pp,), big, dtype=torch.int32, device=ring_pos.device)
+    sink_kp[:sink_pos.shape[0]] = torch.where(sink_pos >= 0, sink_pos, big)
+    return torch.cat([ring_kp.reshape(-1), sink_kp])
+
+
+def _attention_slabs(q, k_slabs, v_slabs, allowed, cfg: BackboneConfig) -> torch.Tensor:
+    """Plain attention over one layer's slab cache (``backbone.py:1093-1115``).
+
+    q: (bs, Ln, H, hd); slabs: (bs, slots, P̂, kvh*hd); allowed:
+    (1, 1, Ln, slots*P̂) -- pad rows and unwritten slots already masked off
+    by the key-position row.  Returns (bs, Ln, H, hd).
+    """
+    bs = q.shape[0]
+    slots, pp = k_slabs.shape[1:3]
+    kk = _repeat_kv(k_slabs.reshape(bs, slots * pp, cfg.kv_dim), cfg)
+    vv = _repeat_kv(v_slabs.reshape(bs, slots * pp, cfg.kv_dim), cfg)
+    shape = (bs, slots * pp, cfg.n_heads, cfg.head_dim)
+    return _attention(q, kk.reshape(shape), vv.reshape(shape), allowed, cfg.dtype)
+
+
+@torch.no_grad()
+def apply_streaming(
+    backbone: Backbone,
+    x_new: torch.Tensor,
+    new_positions: torch.Tensor,
+    cache: dict[str, torch.Tensor],
+    write_slot: int,
+    *,
+    prefill: bool = False,
+    frame_tokens: Optional[int] = None,
+    kernels: bool = True,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Run every block over ``x_new`` (bs, Ln, d) against the cached K/V
+    (``backbone.py:1118-1320``, the unrolled layer list).
+
+    Each token is encoded once: its rope'd K/V enter the cache and are never
+    recomputed, which is sliding-window LLM serving (dense attention under
+    a banded mask), not the reference's re-encoding.  Needs rotary
+    positions; learned positions are re-based per window and would make the
+    cache wrong.
+
+    ``new_positions``: (Ln,) int absolute positions, shared across the
+    batch and consecutive over ``x_new`` (a frame's tokens by contract; the
+    prefill of ``rollout/streaming.py`` is ``0..Ln-1``).  Decode (default):
+    ``x_new`` is one frame, written as a whole slab at ring slot
+    ``write_slot``.  ``prefill=True``: the sinks followed by zero or more
+    whole frames of ``frame_tokens`` tokens, written to the sink slot and
+    ring slots ``0..``; ``write_slot`` is ignored.
+
+    Unlike the functional JAX version the cache is updated IN PLACE (its
+    tensors are written, not copied; ``write_slot`` is a host int) and
+    returned.  Attention is ``ops/decode_attention.slab_decode`` where it
+    takes the shape and ``kernels`` is set (its plain twin on CPU tensors),
+    otherwise :func:`_attention_slabs`; prefill goes through the same
+    kernel.  Inference only: merged adapters, no dropout.
+    """
+    cfg = backbone.cfg
+    if cfg.pos != "rope":
+        raise ValueError("streaming decode requires rotary positions (llama family); "
+                         f"backbone family {cfg.family!r} uses {cfg.pos!r} positions")
+    bs, Ln = x_new.shape[:2]
+    H, hd, kv_dim = cfg.n_heads, cfg.head_dim, cfg.kv_dim
+    n_sink = cache["sink_pos"].shape[0]
+    slots, pp = cache["k"].shape[2:4]
+    F_ = slots - 1  # ring slots; slot F_ holds the sinks
+    x = x_new.to(cfg.dtype)
+    if backbone.project_in is not None:
+        x = linear(x, backbone.project_in)
+    pos = new_positions.to(device=x.device, dtype=torch.int32)
+
+    if prefill:
+        if frame_tokens is None:
+            if Ln != n_sink:
+                raise ValueError("prefill with frames needs frame_tokens= (the padded "
+                                 "cache slabs don't pin the frame size)")
+            frame_tokens = pp  # sinks only; any value works
+        P = frame_tokens
+        n_fr = (Ln - n_sink) // P
+        if n_sink + n_fr * P != Ln:
+            raise ValueError(f"prefill must be sinks ({n_sink}) + whole frames of {P} "
+                             f"tokens; got {Ln} tokens")
+        cache["sink_pos"].copy_(pos[:n_sink])
+        if n_fr:
+            cache["ring_pos"][:n_fr] = pos[n_sink::P]
+    else:
+        P = Ln  # decode appends exactly one frame
+        if frame_tokens is not None and frame_tokens != P:
+            raise ValueError(f"decode appends exactly one frame of {frame_tokens} tokens; got {P}")
+        if P > pp:
+            raise ValueError(f"frame of {P} tokens exceeds the {pp}-token slab")
+        n_fr = 0
+        cache["ring_pos"][write_slot] = pos[0]
+
+    kp_row = slab_key_positions(cache, P)
+    use_kernel = kernels and da.supported(cfg)
+    if use_kernel:
+        key_pos, q0 = da.pad_key_pos(kp_row), pos[:1]
+    else:
+        allowed = (kp_row[None, :] <= pos[:, None])[None, None]  # (1, 1, Ln, slots*P̂)
+    rope = rope_tables(pos[None], cfg)
+    ck, cv = cache["k"], cache["v"]
+
+    for li, layer in enumerate(backbone.layers):
+        lin = lambda h, group, name, layer=layer: linear(h, getattr(layer, group)[name])
+        h = _norm(x, layer.ln1) if cfg.pre_ln else x
+        q, k, v = layer.qkv(h, cfg, rope=rope)
+        if prefill:
+            ck[li, :, F_, :n_sink] = k[:, :n_sink]
+            cv[li, :, F_, :n_sink] = v[:, :n_sink]
+            if n_fr:
+                ck[li, :, :n_fr, :P] = k[:, n_sink:].reshape(bs, n_fr, P, kv_dim)
+                cv[li, :, :n_fr, :P] = v[:, n_sink:].reshape(bs, n_fr, P, kv_dim)
+        else:
+            # rows P..P̂ of the slab stay zero from init (always masked)
+            ck[li, :, write_slot, :P] = k
+            cv[li, :, write_slot, :P] = v
+        if use_kernel:
+            attn_flat = da.slab_decode(q, ck, cv, key_pos, q0, li, hd)
+        else:
+            attn_flat = _attention_slabs(q.reshape(bs, Ln, H, hd), ck[li], cv[li], allowed,
+                                         cfg).reshape(bs, Ln, cfg.d_model)
+        x = x + lin(attn_flat, "attn", "o")
+        if not cfg.pre_ln:
+            x = _norm(x, layer.ln1)
+        h2 = _norm(x, layer.ln2) if cfg.pre_ln else x
+        x = x + layer.mlp_out(h2, cfg, lin)
+        if not cfg.pre_ln:
+            x = _norm(x, layer.ln2)
+    return backbone._out(x), cache

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fluid_llm_tpu.config import DecoderConfig
+from fluid_llm_tpu_torch.config import DecoderConfig
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.models.common import MLP
 from fluid_llm_tpu_torch.ops.grid_gnn import GridGATStack

@@ -19,8 +19,9 @@ train.  The ported surface: ``forward`` (every frame decoded; in training
 with dropout drawn from a ``torch.Generator``), ``forward_see_init`` and
 ``predict_diffs`` (the training forwards), the rollout's
 ``predict_frame_diff`` (non-CNN, non-MoE branch), all with unmerged
-adapters, and ``prepare_inference_params`` (merge adapters -> pack qkv ->
-cast) for serving.
+adapters, ``prepare_inference_params`` (merge adapters -> pack qkv ->
+cast) for serving, and the streaming rollout's ``embed_frames`` and
+``decode_frame_tokens``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.models import backbone as bb
 from fluid_llm_tpu_torch.models.decoders import PatchDecoder
@@ -116,8 +117,7 @@ class FluidLLM(nn.Module):
     def _embed(self, states, position_ids, frame_valid, generator=None):
         """Embeddings (f32) -> backbone dtype, flattened, BOS prepended."""
         bs, seq_len, n_patch = states.shape[:3]
-        h = self.input_emb(states, position_ids, generator)
-        h = h.to(self.backbone_cfg.dtype).reshape(bs, seq_len * n_patch, -1)
+        h = self.embed_frames(states, position_ids, generator)
         token_valid = frame_valid.repeat_interleave(n_patch, dim=1)
         if self.bos is not None:
             bos = self.bos.to(h.dtype).expand(bs, 1, h.shape[-1])
@@ -125,6 +125,23 @@ class FluidLLM(nn.Module):
             ones = torch.ones(bs, 1, dtype=torch.bool, device=h.device)
             token_valid = torch.cat([ones, token_valid], dim=1)
         return h, token_valid
+
+    def embed_frames(self, states, position_ids, generator=None) -> torch.Tensor:
+        """Input embeddings of whole frames (``fluid_llm.py:363-376``):
+        states (bs, f, N_patch, C, px, py), position_ids (bs, f, N_patch, 3)
+        -> (bs, f*N_patch, d) in the backbone dtype.  ``rope_abs`` reads the
+        static patch-grid extent (``fluid_llm.py:227-231``).  The streaming
+        rollout encodes each new frame once with it."""
+        bs, f, n = states.shape[:3]
+        h = self.input_emb(states, position_ids, generator,
+                           spatial_scale=(self.ds_props.Nx_patch, self.ds_props.Ny_patch))
+        return h.to(self.backbone_cfg.dtype).reshape(bs, f * n, -1)
+
+    def decode_frame_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Backbone output tokens of one frame (bs, N_patch, d) -> diff
+        image (bs, 3, X, Y), f32, scaled (``fluid_llm.py:378-385``)."""
+        preds = self.decoder(tokens[:, None], self.kernels)
+        return preds[:, 0].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor, *,
                 frame_valid: Optional[torch.Tensor] = None, train: bool = False,
@@ -200,5 +217,4 @@ class FluidLLM(nn.Module):
         tok_start = out_idx * n_patch + (1 if self.bos is not None else 0)
         out = self.backbone(h, token_valid, decode_slice=(tok_start, n_patch),
                             kernels=self.kernels, lora=self.lora)
-        preds = self.decoder(out[:, None], self.kernels)
-        return preds[:, 0].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
+        return self.decode_frame_tokens(out)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fluid_llm_tpu.config import LoraConfig
+from fluid_llm_tpu_torch.config import LoraConfig
 from fluid_llm_tpu_torch.models.common import dropout
 
 # peft target-module names -> backbone (group, name)
@@ -35,6 +35,9 @@ _NAME_MAP = {
     "out_proj": ("attn", "o"),
     "fc1": ("mlp", "fc1"),
     "fc2": ("mlp", "fc2"),
+    "gate_proj": ("mlp", "gate"),
+    "up_proj": ("mlp", "up"),
+    "down_proj": ("mlp", "down"),
 }
 
 

@@ -38,6 +38,7 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _P],
     "grid_slot_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grid_slot_attention_bwd": [_P] * 10 + [_I] * 8 + [_P],
+    "slab_decode_attention": [_P] * 6 + [_I] * 6 + [_LL, _I, ctypes.c_float, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -10,14 +10,17 @@ most ``max_ctx_len`` states, re-encoding the whole window every step
   front and are masked out of attention (cumsum positions in the backbone
   keep the learned-position indices equal to the dense computation);
 - time position ids are re-zeroed per window (``model.py:196-199``): valid
-  slot j carries ``t = j - start``;
-- see-init duplicates the first *valid* frame (``model.py:118-126``) with
-  ``t = 0``;
+  slot j carries ``t = j - start``, and see-init duplicates the first
+  *valid* frame (``model.py:118-126``) with ``t = 0``; with
+  ``absolute_time_ids`` (``generate.py:77-100``) every frame keeps its raw
+  trajectory step instead, ``seq_interval`` steps apart from the window's
+  base step;
 - boundary-condition pixels are forced to zero diff with the mask of the
   last available state (``model.py:202,206``).
 
 No KV cache, like the reference: the re-zeroed time ids change every
-token's embedding as the window slides.
+token's embedding as the window slides (``rollout/streaming.py`` serves
+absolute-time rope models from a cache).
 """
 
 from __future__ import annotations
@@ -51,15 +54,24 @@ def generate(
     # the see-init duplicated frame always carries t=0
     dup_pos = torch.cat([spatial[:, 0], spatial.new_zeros(bs, n_patch, 1)], dim=-1)
     slot = torch.arange(W, device=dev)[None, :]
+    abs_t, ival = model.cfg.absolute_time_ids, model.cfg.seq_interval
+    t0 = position_ids[:, 0, 0, 2]  # the window's base step
 
     next_states, all_diffs = [], []
     for i in range(n_steps):
         start = W - min(init_len + i, W)  # first valid slot
         frame_valid = (slot >= start).expand(bs, W)
-        t_ids = (slot - start).clamp_min(0).expand(bs, W)
+        if abs_t:
+            # valid slot j holds raw step t0 + (init_len + i - W + j) * ival
+            t_ids = (t0[:, None] + (init_len + i - W + slot) * ival).clamp_min(0)
+            dup_t = t0 + max(init_len + i - W, 0) * ival
+            dpos = torch.cat([spatial[:, 0], dup_t[:, None, None].expand(bs, n_patch, 1)], dim=-1)
+        else:
+            t_ids = (slot - start).clamp_min(0).expand(bs, W)
+            dpos = dup_pos
         wpos = torch.cat([spatial, t_ids[:, :, None, None].expand(bs, W, n_patch, 1)], dim=-1)
         last_img = model.predict_frame_diff(
-            buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dup_pos)
+            buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos)
         )
         diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
         step_idx = min(init_len + i - 1, bc_mask.shape[1] - 1)

@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 
 STATE_FILE = "state.pt"
 

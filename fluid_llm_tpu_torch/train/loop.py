@@ -26,7 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data.pipeline import PatchDataset, make_batches
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.optim import set_learning_rate, steplr

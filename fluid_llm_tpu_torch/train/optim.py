@@ -21,7 +21,7 @@ from typing import Iterable
 
 import torch
 
-from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import Config
 
 
 def steplr(base_lr: float, step_size: int, gamma: float):

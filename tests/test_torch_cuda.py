@@ -14,11 +14,16 @@ flash backward rounds p and ds to bf16 once each as tensor-core operands
 and its outputs once (each ~2^-9 relative); the backward twins compute in
 f32 and round their outputs only.  Autograd through the Functions is held
 against autograd through the forward twins on f32 copies of the inputs.
+The slab decode kernel is held to the same bound in the streaming cache's
+states (first decode, wrapped ring, prefill), and a short streaming
+rollout through the kernels against the same rollout through the twins.
 """
 
 import pytest
 import torch
 
+from fluid_llm_tpu_torch.models import backbone as bb
+from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
@@ -177,7 +182,7 @@ def test_train_steps_on_card(dev, mode):
     two train steps of each mode on the card: the loss is finite, every
     training kernel launched, and ``gen``'s guide rollout (no grad) ran
     through the forward-only kernels."""
-    from fluid_llm_tpu.config import Config
+    from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch.data import make_batches
     from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
     from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
@@ -204,3 +209,100 @@ def test_train_steps_on_card(dev, mode):
     assert ran[:3] == [4, 4, 4] and ran[4] == 4  # 2 layers, 2 convs, 2 steps
     # gen: 3-step guide rollouts through the exact kernel (layer 0 of 2)
     assert ran[5] == (6 if mode == "gen" else 0)
+
+
+def _slab_case(dev, state: str, H: int = 12, hd: int = 64, bs: int = 1, R: int = 10,
+               n_sink: int = 61, frame: int = 60):
+    """A random bf16 slab cache of 3 layers in one streaming state, its
+    key-position row, and queries as a column slice of a fused projection.
+    ``first``: the first decode (ring slot 0 and the sinks written);
+    ``wrapped``: R + 4 frames written, slot order != position order;
+    ``prefill``: the sinks querying themselves (every ring slot unwritten,
+    masked slabs before the only visible one); ``prefill_frame``: sinks and
+    one frame, so the first query tile meets a slab only some rows see."""
+    cfg = bb.BackboneConfig(family="llama", n_layers=3, d_model=H * hd, n_heads=H, d_ff=64,
+                            norm="rmsnorm", pos="rope", dtype=torch.bfloat16)
+    g = torch.Generator().manual_seed(len(state) + hd)
+    cache = bb.init_streaming_cache(cfg, bs, n_sink, R, frame, device=dev)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=g))
+    base = lambda f: n_sink + f * frame  # noqa: E731
+    ring = [-1] * R
+    if state in ("first", "prefill_frame"):
+        ring[0] = base(0)
+    elif state == "wrapped":
+        for f in range(R + 4):
+            ring[f % R] = base(f)
+    q0, P = {"first": (base(0), frame), "wrapped": (base(R + 3), frame),
+             "prefill": (0, n_sink), "prefill_frame": (0, n_sink + frame)}[state]
+    cache["ring_pos"].copy_(torch.tensor(ring, dtype=torch.int32))
+    cache["sink_pos"].copy_(torch.arange(n_sink, dtype=torch.int32))
+    key_pos = da.pad_key_pos(bb.slab_key_positions(cache, frame))
+    D = H * hd
+    q = (torch.randn(bs, P, 3 * D, generator=g)).to(dev, torch.bfloat16)[..., :D]
+    return q, cache, key_pos, torch.tensor([q0], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("state,H,hd,bs", [
+    ("first", 12, 64, 1), ("wrapped", 12, 64, 1), ("prefill", 12, 64, 1),
+    ("prefill_frame", 12, 64, 1), ("wrapped", 4, 32, 2), ("first", 4, 128, 2),
+])
+def test_slab_decode_kernel_matches_twin(dev, state, H, hd, bs):
+    """The flagship's streaming shapes (11 slots of 64 rows, 60-token
+    frames, 61 sinks) read at layer 1 of 3, and other head widths: no NaN
+    where whole slabs are masked, one launch per call."""
+    q, cache, key_pos, q0 = _slab_case(dev, state, H, hd, bs)
+    before = da.slab_decode.launches
+    out = da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, 1, hd)
+    torch.cuda.synchronize()
+    assert da.slab_decode.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, 1, hd)
+    assert _rel(out, ref) <= REL_TOL
+
+
+def test_slab_decode_kernel_raises_under_autograd(dev):
+    q, cache, key_pos, q0 = _slab_case(dev, "first")
+    q = q.detach().requires_grad_()
+    with pytest.raises(RuntimeError, match="forward only"):
+        da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, 1, 64)
+    with torch.no_grad():
+        da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, 1, 64)
+    with pytest.raises(ValueError):
+        da.slab_decode(q.detach().float(), cache["k"], cache["v"], key_pos, q0, 1, 64)
+
+
+def test_streaming_rollout_kernels_match_twins(dev):
+    """A small bf16 flagship-shaped model (LLaMA 2 layers of 2 heads of 64,
+    rope_abs, absolute time, MLPGNN) streams 12 steps from one context
+    state (the ring of 5 wraps), through the kernels and through the twins:
+    every decode-attention launch counted (2 per step, 2 for the prefill),
+    no exact-window launch, step 1 within REL_TOL."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import make_batches
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.rollout.streaming import generate_streaming
+
+    cfg = Config(llm_backbone="fluid/llama-125m", llm_layers=2, half_precision=True,
+                 autoreg_seq_len=5, resolution=64, absolute_time_ids=True,
+                 pos_embedding_params={"pos_embedding_type": "rope_abs"},
+                 decoder_params={"type": "MLPGNN", "gnn_dim": 8, "gnn_hid_dim": 16,
+                                 "gnn_layers": 2, "mlp_hid_dim": 32},
+                 encoder_params={"type": "MLP", "num_layers": 2, "hidden_dim": 32})
+    ds = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=5, mode="valid",
+                                  absolute_time=True)
+    model = FluidLLM.build(cfg, ds.ds_props(), d_model=128, n_heads=2, d_ff=256)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).prepare_inference_params()
+    states, _, _, bc_mask, pos = next(make_batches(ds, 1, shuffle=False, device=dev))
+    out = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        before = (da.slab_decode.launches, xa.causal_attention.launches)
+        out[kernels] = generate_streaming(model, states[:, :1], bc_mask, pos, 12)[1]
+        torch.cuda.synchronize()
+        ran = (da.slab_decode.launches - before[0], xa.causal_attention.launches - before[1])
+        assert ran == ((2 * 12 + 2, 0) if kernels else (0, 0))
+    assert bool(torch.isfinite(out[True]).all())
+    assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
