@@ -10,11 +10,19 @@ Phases, each printing one line per result; any failure exits nonzero:
 3. kernels  -- each kernel against its plain PyTorch twin in bf16, at the
                rollout's shapes (exact attention, slot attention), the
                training step's (flash forward, dq, dk/dv at (8, 601, 768);
-               slot-attention backward at 80 frames) and the streaming
+               slot-attention backward at 80 frames), the streaming
                step's (slab decode attention over 11 slots of 64 rows,
                H 12: a wrapped ring, the first decode with 9 slots
-               unwritten, the 61-token prefill): relative L2 error (bound
-               REL_TOL) and device time per call, kernel and plain;
+               unwritten, the 61-token prefill) and the serving linears'
+               (int8 matmul w8a8 and w8a16 at 60 and 661 rows): relative
+               L2 error (bound REL_TOL) and device time per call, kernel,
+               plain and the PyTorch library call that computes the same
+               function (``library_ms``: ``scaled_dot_product_attention``
+               with the same mask, its backward; ``torch._int_mm`` on the
+               quantised activations; bf16 ``F.linear`` on the weight
+               already dequantised), beside ``bound_ms``: the larger of the
+               bytes moved over 3.35 TB/s and the operations over the peak
+               of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -55,7 +63,28 @@ Phases, each printing one line per result; any failure exits nonzero:
                ``inference.main --streaming --checkpoint_dir`` serves 25
                steps from its checkpoint, then the exact ``inference.main``
                from the same checkpoint (LLaMA through the exact-window
-               kernel), launches of each shown and checked.
+               kernel), launches of each shown and checked;
+11. serve   -- ``tools.serve.load_engine(quant="int8")`` on phase 10's
+               checkpoint (adapters merged, every backbone linear int8,
+               w8a8, streaming auto-selected), ``serve`` on 127.0.0.1 in a
+               thread, ``warmup``; three 251-step ``POST /v1/rollout`` and
+               one of 50 steps from 3 context frames, ``GET /v1/stats``.
+               Launches over one 251-step request must read 7x12x252
+               (w8a8: q, k, v, o, gate, up, down of every layer of every
+               step and of the prefill), 12x252 (slab decode), 3x251 (slot
+               attention), 0 elsewhere; outputs finite, in physical units;
+               10 steps kernels vs twins on the same int8 weights (step 1
+               <= REL_TOL); int8 vs dense engines of the checkpoint over 3
+               steps (mean |diff| / mean |dense| < 0.05); prints latency,
+               steps/s, p50, the device idle share of a 50-step request,
+               peak memory and the backbone's weight bytes dense vs int8;
+12. serve exact -- ``load_engine(quant="int8", qmm_mode="w8a16",
+               streaming="off")`` on phase 8's ``training1.yaml``
+               checkpoint (DoRA unmerged there): one 25-step request; w8a16
+               launches 72 a step (6 linears x 12 layers), exact attention
+               11 a step, w8a8 0; finite.
+
+Phases 8 to 12 share one temporary folder, removed at the end.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernel
@@ -72,6 +101,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -124,6 +154,47 @@ def device_ms(fn, inner: int = 10, n: int = 25) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, n: int = 10) -> float:
+    """Device time of one call between CUDA events, averaged over ``n``
+    calls after a warm-up; for calls a CUDA graph cannot capture (autograd's
+    backward), launch gaps included."""
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+# H100 SXM (NVIDIA data sheet, dense rates): HBM bytes/s and peak operations/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(n_bytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: the larger of ``n_bytes`` (each
+    input read once, each output written once) over the memory rate and
+    ``ops`` over the peak rate of their type; which of the two bounds it."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[kind]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sdpa(q, k, v, mask, n_heads: int):
+    """The library call beside the attention kernels: packed (bs, L, H*hd)
+    heads as (bs, H, L, hd) views, a boolean mask broadcast over heads."""
+    heads = lambda t: t.unflatten(-1, (n_heads, -1)).transpose(1, 2)  # noqa: E731
+    return torch.nn.functional.scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                                            attn_mask=mask)
+
+
 def run(cmd: list[str]) -> str:
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
     return (res.stdout + res.stderr).strip()
@@ -150,12 +221,24 @@ def phase_build() -> float:
     print(f"[build] {path.name} in {secs:.2f} s")
     name = "?"
     for line in path.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d([a-z_]+_kernel)I(\w+?)EE", line)
+        m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
+            name = _kernel_name(m.group(1))
         elif "spill" in line or "registers" in line:
             print(f"[build] ptxas {name}: {line.split(':', 1)[-1].strip()}")
     return secs
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<template args>`` of a mangled ``*_kernel`` entry: the source
+    name that its length prefix spells out."""
+    for d in re.finditer(r"\d+", mangled):
+        for j in range(len(d.group())):  # "118slab...": the length may be "18"
+            name = mangled[d.end():d.end() + int(d.group()[j:])]
+            if name.endswith("_kernel"):
+                args = re.match(r"I(\w+?)EE", mangled[d.end() + len(name):])
+                return f"{name}<{args.group(1)}>" if args else name
+    return mangled
 
 
 def _slab_case(dev, state: str, g: torch.Generator):
@@ -187,11 +270,30 @@ def _slab_case(dev, state: str, g: torch.Generator):
     return q, cache, key_pos, torch.tensor([q0], dtype=torch.int32, device=dev), 5
 
 
+def _allowed_causal(valid: torch.Tensor) -> torch.Tensor:
+    """(bs, L, L) bool: ``backbone.make_masks``' rule, the kernels' mask."""
+    L = valid.shape[1]
+    causal = torch.ones(L, L, dtype=torch.bool, device=valid.device).tril()
+    eye = torch.eye(L, dtype=torch.bool, device=valid.device)
+    return (causal[None] & (valid != 0)[:, None, :]) | eye[None]
+
+
+# the serving linears: (M, K, N) at the streaming step's 60 rows and the
+# exact rollout's 661 (q/k/v/o 768x768, gate/up 768->2048 or fc1 768->3072,
+# down 2048->768 or fc2 3072->768)
+QMM_SHAPES = [(60, 768, 768), (60, 768, 2048), (60, 2048, 768),
+              (661, 768, 768), (661, 768, 3072), (661, 3072, 768)]
+
+
 def phase_kernels(dev, failures: list) -> list[dict]:
+    import torch.nn.functional as F
+
     from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+    from fluid_llm_tpu_torch.ops import quant
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
 
     g = torch.Generator().manual_seed(0)
     rows = []
@@ -204,6 +306,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         valid = (torch.arange(L)[None] >= n_invalid).int().to(dev)
         out = xa.causal_attention(q, k, v, valid, H, hd)
         ref = xa.causal_attention_ref(q, k, v, valid, H, hd)
+        allowed = _allowed_causal(valid)
         torch.cuda.synchronize()
         rows.append(dict(
             kernel="exact_attention", shape=f"(1,{L},{D}) H{H} hd{hd} invalid{n_invalid}",
@@ -211,6 +314,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             ms=device_ms(lambda: xa.causal_attention(q, k, v, valid, H, hd)),
             plain_ms=device_ms(lambda: xa.causal_attention_ref(q, k, v, valid, H, hd)),
+            library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
+            **bound(nbytes(q, k, v, valid, out), 4 * D * allowed.sum().item(), "bf16"),
         ))
     for Bf, H, C in [(1, 1, 48), (1, 1, 3), (4, 2, 24)]:
         xl, xr = (torch.randn(Bf, 240, 64, H * C, generator=g).to(dev, torch.bfloat16)
@@ -225,6 +330,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             ms=device_ms(lambda: gf.fused_slot_attention(xl, xr, att, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_ref(xl, xr, att, H, C)),
+            # per (pixel, channel): 5 slots of add, leaky relu, logit, weight
+            library_ms=None, **bound(nbytes(xl, xr, att, out), 35 * xl.numel(), "f32"),
         ))
     for bs, L, n_invalid in [(TRAIN_BS, TRAIN_TOKENS, 0), (TRAIN_BS, TRAIN_TOKENS, 181)]:
         H, hd = 12, 64
@@ -242,18 +349,30 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         delta = (dout.float() * out.float()).reshape(bs, L, H, hd).sum(-1)
         shape = f"({bs},{L},{D}) H{H} hd{hd} invalid{n_invalid}"
         plain_bwd = device_ms(lambda: fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd))
+        allowed = _allowed_causal(valid)[:, None]
+        pairs = allowed.sum().item()
+        # the library's backward: autograd through one SDPA call
+        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        lib_out = sdpa(lq, lk, lv, allowed, H)
+        lib_dout = dout.unflatten(-1, (H, hd)).transpose(1, 2)
+        lib_bwd = event_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_dout,
+                                                       retain_graph=True))
+        del lib_out
         rows.append(dict(
             kernel="flash_attention_fwd", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(out, ref_out), max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
             lse_max_abs_err=(lse - ref_lse).abs().max().item(),
             ms=device_ms(lambda: fa.flash_forward(q, k, v, valid, H, hd)),
             plain_ms=device_ms(lambda: fa.flash_forward_ref(q, k, v, valid, H, hd)),
+            library_ms=device_ms(lambda: sdpa(q, k, v, allowed, H)),
+            **bound(nbytes(q, k, v, valid, out, lse), 4 * D * pairs, "bf16"),
         ))
         rows.append(dict(
             kernel="flash_attention_dq", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(dq, rq), max_abs_err=(dq.float() - rq.float()).abs().max().item(),
             ms=device_ms(lambda: fa.flash_dq(q, k, v, dout, lse, delta, valid, H, hd)),
-            plain_ms=plain_bwd,
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            **bound(nbytes(q, k, v, dout, lse, delta, valid, dq), 6 * D * pairs, "bf16"),
         ))
         rows.append(dict(
             kernel="flash_attention_dkv", shape=shape, main_path=(n_invalid == 0),
@@ -261,7 +380,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             max_abs_err=max((dk.float() - rk.float()).abs().max().item(),
                             (dv.float() - rv.float()).abs().max().item()),
             ms=device_ms(lambda: fa.flash_dkv(q, k, v, dout, lse, delta, valid, H, hd)),
-            plain_ms=plain_bwd,
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            **bound(nbytes(q, k, v, dout, lse, delta, valid, dk, dv), 8 * D * pairs, "bf16"),
         ))
     for Bf, H, C in [(TRAIN_BS * 10, 1, 48), (TRAIN_BS * 10, 1, 3)]:
         xl, xr, gout = (torch.randn(Bf, 240, 64, H * C, generator=g).to(dev, torch.bfloat16)
@@ -276,11 +396,18 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)),
             ms=device_ms(lambda: gf.slot_attention_bwd(xl, xr, att, gout, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)),
+            library_ms=None,  # twice the forward's work per (pixel, channel)
+            **bound(nbytes(xl, xr, att, gout, *got), 70 * xl.numel(), "f32"),
         ))
     for state in ("wrapped", "first", "prefill"):
         q, cache, key_pos, q0, li = _slab_case(dev, state, g)
         out = da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)
         ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)
+        P, D = q.shape[1:]
+        tot = cache["k"].shape[2] * cache["k"].shape[3]
+        allowed = key_pos[0, :tot][None] <= q0 + torch.arange(P, device=dev)[:, None]
+        n_visible = allowed.any(0).sum().item()  # keys some query may see
+        k_l, v_l = (cache[n][li].reshape(1, tot, D) for n in ("k", "v"))
         torch.cuda.synchronize()
         rows.append(dict(
             kernel="slab_decode_attention",
@@ -291,16 +418,49 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             ms=device_ms(lambda: da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
             plain_ms=device_ms(
                 lambda: da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
+            library_ms=device_ms(lambda: sdpa(q, k_l, v_l, allowed[None, None], 12)),
+            **bound(nbytes(q, out, key_pos[0, :tot]) + 2 * n_visible * D * 2,
+                    4 * D * allowed.sum().item(), "bf16"),
         ))
+    for mode in ("w8a8", "w8a16"):
+        for M, K, N in QMM_SHAPES:
+            qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+            q, scale = qp["q"].to(dev), qp["scale"].to(dev)
+            x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+            out = qmm.int8_matmul(x, q, scale, None, mode)
+            ref = qmm.int8_matmul_ref(x, q, scale, None, mode)
+            if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
+                xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
+                library = lambda: torch._int_mm(xq, qt)  # noqa: E731
+            else:  # bf16 F.linear on the weight already dequantised
+                w = quant.dequantize_weight(q, scale, torch.bfloat16)
+                library = lambda: F.linear(x, w)  # noqa: E731
+            torch.cuda.synchronize()
+            rows.append(dict(
+                kernel=f"quant_matmul_{mode}", shape=f"M {M} K {K} N {N}",
+                main_path=(M == 60) if mode == "w8a8" else (M == ROLLOUT_TOKENS),
+                rel=rel_err(out, ref), max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                finite=bool(torch.isfinite(out).all()),
+                exact=bool(torch.equal(out, ref)) if mode == "w8a8" else None,
+                ms=device_ms(lambda: qmm.int8_matmul(x, q, scale, None, mode)),
+                plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, None, mode)),
+                library_ms=device_ms(library),
+                **bound(nbytes(x, q, scale, out), 2 * M * N * K,
+                        "int8" if mode == "w8a8" else "bf16"),
+            ))
     for r in rows:
-        ok = r["rel"] <= REL_TOL and r.get("finite", True)
+        ok = r["rel"] <= REL_TOL and r.get("finite", True) and r.get("exact") is not False
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         print(f"[kernels] {r['kernel']} {r['shape']}: rel {r['rel']:.3e} "
-              f"max_abs {r['max_abs_err']:.3e} {'ok' if ok else 'FAIL'}; "
-              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms "
-              "(device time per call, median of 25 graph replays of 10 calls; the plain "
-              "time of dq and dk/dv is the whole plain backward's)")
+              f"max_abs {r['max_abs_err']:.3e}"
+              f"{'' if r.get('exact') is None else ', equal to the twin ' + str(r['exact'])} "
+              f"{'ok' if ok else 'FAIL'}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) (device time per "
+              "call, median of 25 graph replays of 10 calls; the plain and library times of dq "
+              "and dk/dv are the whole backward's, the library's between events)")
         if not ok:
-            failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']}")
+            failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']} "
+                            f"exact {r.get('exact')}")
     return rows
 
 
@@ -313,11 +473,13 @@ def _counters():
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
 
     return {"exact_attention": xa.causal_attention, "grid_slot_attention": gf.fused_slot_attention,
             "grid_slot_attention_bwd": gf.slot_attention_bwd,
             "flash_attention_fwd": fa.flash_forward, "flash_attention_dq": fa.flash_dq,
-            "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode}
+            "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode,
+            "quant_matmul_w8a8": qmm.qmm_w8a8, "quant_matmul_w8a16": qmm.qmm_w8a16}
 
 
 def reset_launches() -> None:
@@ -475,7 +637,8 @@ def phase_train(dev, seed: int, failures: list):
     convs = cfg.decoder_params.gnn_layers
     per_step = dict(exact_attention=0, grid_slot_attention=convs, grid_slot_attention_bwd=convs,
                     flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
-                    flash_attention_dkv=bcfg.n_layers, slab_decode_attention=0)
+                    flash_attention_dkv=bcfg.n_layers, slab_decode_attention=0,
+                    quant_matmul_w8a8=0, quant_matmul_w8a16=0)
     want = {k: v * n_kernel_steps for k, v in per_step.items()}
     med_k, med_t = statistics.median(step_ms[True]), statistics.median(step_ms[False])
     print(f"[train] {len(losses)} autoreg steps on one batch (turns kernels/twins "
@@ -569,39 +732,37 @@ def phase_train_agreement(trainer, batch, seed: int, failures: list) -> dict:
                 grad_rel_by_group=groups)
 
 
-def phase_entry_points(dev, seed: int, failures: list) -> dict:
+def phase_entry_points(dev, seed: int, failures: list, tmp: str) -> dict:
     """``main`` (2 epochs) -> ``continue_train`` (1 epoch) -> ``inference.main
-    --checkpoint_dir``, on the card, checkpoints in a temporary folder."""
-    import tempfile
-
+    --checkpoint_dir``, on the card, checkpoints under ``tmp/runs``."""
     from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch import continue_train, inference
     from fluid_llm_tpu_torch import main as train_main
     from fluid_llm_tpu_torch.train import checkpoint as ckpt
 
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = os.path.join(tmp, "runs")
-        cfg_path = os.path.join(tmp, "training.yaml")
-        Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, num_epochs=2,
-                                         checkpoint_save_path=runs).to_yaml(cfg_path)
-        jl = os.path.join(tmp, "metrics.jsonl")
-        t0 = time.perf_counter()
-        train_main.main(["--config_path", cfg_path, "--device", str(dev), "--metrics_jsonl", jl])
-        res["main_s"] = time.perf_counter() - t0
-        run = ckpt.get_save_folder(runs, -1)
-        res["steps_after_main"] = sorted(d for d in os.listdir(run)
-                                         if os.path.isdir(os.path.join(run, d)))
-        ckpt.load_config(run).replace(num_epochs=1).to_yaml(os.path.join(run, "config.yaml"))
-        t0 = time.perf_counter()
-        continue_train.main(["--checkpoint_dir", runs, "--device", str(dev), "--metrics_jsonl", jl])
-        res["continue_s"] = time.perf_counter() - t0
-        with open(jl) as f:
-            logs = [json.loads(line) for line in f]
-        t0 = time.perf_counter()
-        mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
-                               "synthetic:1", "--seq_len", "27", "--pred_steps", "25"])
-        res["inference_s"] = time.perf_counter() - t0
+    os.makedirs(tmp, exist_ok=True)
+    runs = os.path.join(tmp, "runs")
+    cfg_path = os.path.join(tmp, "training.yaml")
+    Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, num_epochs=2,
+                                     checkpoint_save_path=runs).to_yaml(cfg_path)
+    jl = os.path.join(tmp, "metrics.jsonl")
+    t0 = time.perf_counter()
+    train_main.main(["--config_path", cfg_path, "--device", str(dev), "--metrics_jsonl", jl])
+    res["main_s"] = time.perf_counter() - t0
+    run = ckpt.get_save_folder(runs, -1)
+    res["steps_after_main"] = sorted(d for d in os.listdir(run)
+                                     if os.path.isdir(os.path.join(run, d)))
+    ckpt.load_config(run).replace(num_epochs=1).to_yaml(os.path.join(run, "config.yaml"))
+    t0 = time.perf_counter()
+    continue_train.main(["--checkpoint_dir", runs, "--device", str(dev), "--metrics_jsonl", jl])
+    res["continue_s"] = time.perf_counter() - t0
+    with open(jl) as f:
+        logs = [json.loads(line) for line in f]
+    t0 = time.perf_counter()
+    mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
+                           "synthetic:1", "--seq_len", "27", "--pred_steps", "25"])
+    res["inference_s"] = time.perf_counter() - t0
     res.update(epochs=[m["epoch"] for m in logs],
                train_loss=[m["train/Autoreg/loss"] for m in logs],
                val_n_rmse=[m.get("val/Gen/N_RMSE") for m in logs], inference_mean_n_rmse=mean)
@@ -620,12 +781,11 @@ def phase_entry_points(dev, seed: int, failures: list) -> dict:
     return res
 
 
-def phase_flagship_entry_points(dev, seed: int, failures: list) -> dict:
-    """``main`` trains a copy of the flagship config for 1 epoch; from its
-    checkpoint ``inference.main --streaming`` and the exact ``inference.main``
-    each roll out 25 steps; the launches of each run."""
-    import tempfile
-
+def phase_flagship_entry_points(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``main`` trains a copy of the flagship config for 1 epoch
+    (checkpoints under ``tmp/runs``); from its checkpoint ``inference.main
+    --streaming`` and the exact ``inference.main`` each roll out 25 steps;
+    the launches of each run."""
     from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch import inference
     from fluid_llm_tpu_torch import main as train_main
@@ -633,25 +793,25 @@ def phase_flagship_entry_points(dev, seed: int, failures: list) -> dict:
     cfg = Config.from_yaml(FLAGSHIP)
     n_layers, convs, n_steps = 12, cfg.decoder_params.gnn_layers, 25
     res = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        runs = os.path.join(tmp, "runs")
-        cfg_path = os.path.join(tmp, "flagship.yaml")
-        cfg.replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, num_epochs=1,
-                    checkpoint_save_path=runs).to_yaml(cfg_path)
+    os.makedirs(tmp, exist_ok=True)
+    runs = os.path.join(tmp, "runs")
+    cfg_path = os.path.join(tmp, "flagship.yaml")
+    cfg.replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, num_epochs=1,
+                checkpoint_save_path=runs).to_yaml(cfg_path)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_main.main(["--config_path", cfg_path, "--device", str(dev)])
+    res["main_s"] = time.perf_counter() - t0
+    res["main_launches"] = read_launches()
+    for streaming in (True, False):
         reset_launches()
         t0 = time.perf_counter()
-        train_main.main(["--config_path", cfg_path, "--device", str(dev)])
-        res["main_s"] = time.perf_counter() - t0
-        res["main_launches"] = read_launches()
-        for streaming in (True, False):
-            reset_launches()
-            t0 = time.perf_counter()
-            mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
-                                   "synthetic:1", "--seq_len", str(n_steps + 2), "--pred_steps",
-                                   str(n_steps)] + (["--streaming"] if streaming else []))
-            key = "streaming" if streaming else "exact"
-            res[f"{key}_s"], res[f"{key}_n_rmse"] = time.perf_counter() - t0, mean
-            res[f"{key}_launches"] = read_launches()
+        mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
+                               "synthetic:1", "--seq_len", str(n_steps + 2), "--pred_steps",
+                               str(n_steps)] + (["--streaming"] if streaming else []))
+        key = "streaming" if streaming else "exact"
+        res[f"{key}_s"], res[f"{key}_n_rmse"] = time.perf_counter() - t0, mean
+        res[f"{key}_launches"] = read_launches()
     want_stream = dict.fromkeys(res["streaming_launches"], 0)
     want_stream.update(slab_decode_attention=n_layers * (n_steps + 1),
                        grid_slot_attention=convs * n_steps)
@@ -672,6 +832,190 @@ def phase_flagship_entry_points(dev, seed: int, failures: list) -> dict:
     if not ok:
         failures.append(f"flagship entry points: {res}")
     return res
+
+
+def _client_frames(ds, n: int):
+    """The first ``n`` raw grid frames and the mask of test trajectory 0, as
+    a client holds them (physical units, the dataset's own grid)."""
+    import numpy as np
+
+    from fluid_llm_tpu_torch.core.interp import resample_to_grid
+
+    src = ds.get_trajectory(0)
+    grid = resample_to_grid(torch.from_numpy(src.node_states[:n]), torch.from_numpy(src.vert_idx),
+                            torch.from_numpy(src.weights), torch.from_numpy(src.mask))
+    return grid.numpy(), np.asarray(src.mask, np.uint8)
+
+
+def _post(base: str, states, mask, pred_steps: int):
+    """One ``POST /v1/rollout``: (prediction, response, wall seconds)."""
+    import urllib.request
+
+    from fluid_llm_tpu_torch.tools import serve as srv
+
+    body = json.dumps({"states": srv._b64(states), "shape": list(states.shape),
+                       "mask": srv._b64(mask), "pred_steps": pred_steps}).encode()
+    req = urllib.request.Request(f"{base}/v1/rollout", data=body,
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.load(r)
+    wall = time.perf_counter() - t0
+    return srv._unb64(out["states"], out["shape"], "float32"), out, wall
+
+
+def _linear_bytes(backbone) -> int:
+    """Bytes of the backbone's stored linear weights (int8 q and f32 scales,
+    or the float weights)."""
+    from fluid_llm_tpu_torch.ops.quant import QuantLinear
+
+    return sum(nbytes(m.q, m.scale) if isinstance(m, QuantLinear) else nbytes(m.weight)
+               for m in backbone.modules() if isinstance(m, (QuantLinear, torch.nn.Linear)))
+
+
+def phase_serve(dev, failures: list, runs: str) -> dict:
+    """The int8 serving daemon on the flagship checkpoint of phase 10, over
+    HTTP on 127.0.0.1: launches of one 251-step request, agreement of the
+    int8 kernels with their twins, int8 against dense, latency and memory."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from fluid_llm_tpu_torch.rollout.streaming import generate_streaming
+    from fluid_llm_tpu_torch.tools import serve as srv
+
+    res = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = srv.load_engine(runs, buckets=(50, STEPS), quant="int8", qmm_mode="w8a8",
+                          device=str(dev))
+    res["load_s"] = time.perf_counter() - t0
+    bcfg, model = eng.model.backbone_cfg, eng.model
+    httpd = srv.serve(eng, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        res["warmup_s"] = time.perf_counter() - t0
+        grid, mask = _client_frames(eng.dataset, 3)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        pred, out, wall = _post(base, grid[:1], mask, STEPS)
+        launches = read_launches()
+        res["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        lat = [wall]
+        for _ in range(2):
+            lat.append(_post(base, grid[:1], mask, STEPS)[2])
+        pred3, _, wall3 = _post(base, grid, mask, 50)
+        with urllib.request.urlopen(f"{base}/v1/stats", timeout=60) as r:
+            stats = json.load(r)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    convs = eng.cfg.decoder_params.gnn_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(quant_matmul_w8a8=7 * bcfg.n_layers * (STEPS + 1),
+                slab_decode_attention=bcfg.n_layers * (STEPS + 1),
+                grid_slot_attention=convs * STEPS)
+    inside = ~mask.astype(bool)
+    in_units = abs(pred[0, 0][inside].mean() - grid[0, 0][inside].mean()) < 10 * (
+        abs(grid[0, 0][inside].mean()) + 1)
+    ok = (launches == want and pred.shape == (STEPS, 3, *grid.shape[-2:])
+          and pred3.shape == (50, 3, *grid.shape[-2:]) and bool(np.isfinite(pred).all())
+          and bool(np.isfinite(pred3).all()) and in_units and eng.streaming
+          and stats["requests"] == 4 and stats["errors"] == 0)
+    print(f"[serve] load_engine(quant=int8, w8a8) of {runs}: streaming {eng.streaming}, "
+          f"{bcfg.n_layers} layers at d {bcfg.d_model}, loaded in {res['load_s']:.1f} s, warm-up "
+          f"(buckets 50 and {STEPS}) {res['warmup_s']:.1f} s; 3 requests of {STEPS} steps in "
+          f"{', '.join(f'{x:.3f}' for x in lat)} s ({', '.join(f'{STEPS / x:.2f}' for x in lat)} "
+          f"steps/s, over HTTP incl. the response); 50 steps from 3 context frames in "
+          f"{wall3:.3f} s; /v1/stats latency {stats.get('latency_ms')}, by program "
+          f"{stats['by_program']}; launches over one {STEPS}-step request {launches} (want "
+          f"{want}); peak device memory {res['peak_mem_mib']:.1f} MiB; outputs "
+          f"{pred.shape} finite and in physical units {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"serve: launches {launches} (want {want}), shapes {pred.shape} "
+                        f"{pred3.shape}, in units {in_units}, stats {stats}")
+
+    # kernels against twins on the same int8 weights, 10 steps
+    batch = eng.build_batch(grid[:1], mask.astype(bool), 10)
+    diffs = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        diffs[kernels] = generate_streaming(model, *batch, 10)[1]
+    model.kernels = True
+    errs = [rel_err(diffs[True][:, i], diffs[False][:, i]) for i in range(10)]
+    agree = errs[0] <= REL_TOL
+
+    # the device idle share of one 50-step request, against its wall time
+    t0 = time.perf_counter()
+    eng.request(grid[:1], mask, 50)
+    wall50 = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_ops, idle, top = device_profile(lambda: eng.request(grid[:1], mask, 50), 1,
+                                               wall50, "serve 50-step request")
+
+    # int8 against dense serving of the same checkpoint, 3 steps
+    quant_pred = eng.predict(grid[:1], mask, 3)
+    int8_bytes = _linear_bytes(model.backbone)
+    del eng, model, httpd
+    dense = srv.load_engine(runs, buckets=(3,), device=str(dev))
+    dense_pred = dense.predict(grid[:1], mask, 3)
+    dense_bytes = _linear_bytes(dense.model.backbone)
+    del dense
+    q_vs_d = float(np.abs(quant_pred - dense_pred).mean() / (np.abs(dense_pred).mean() + 1e-6))
+    close = q_vs_d < 0.05
+    print(f"[serve agreement] diffs rel err per step, int8 kernels vs twins: "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 {'ok' if agree else 'FAIL'}); int8 vs "
+          f"dense engines, 3 steps: mean |diff| / mean |dense| {q_vs_d:.4e} (bound 0.05) "
+          f"{'ok' if close else 'FAIL'}; backbone linear weights {dense_bytes} bytes dense (bf16) "
+          f"vs {int8_bytes} int8 (q + f32 scales)")
+    if not agree or not close:
+        failures.append(f"serve agreement step 1 {errs[0]}, int8 vs dense {q_vs_d}")
+    res.update(launches=launches, request_s=lat, steps_per_s=[STEPS / x for x in lat],
+               ctx3_50_steps_s=wall3, stats=stats, agreement_rel_err=errs,
+               int8_vs_dense=q_vs_d, weight_bytes_dense=dense_bytes, weight_bytes_int8=int8_bytes,
+               profile=dict(steps=50, wall_ms=wall50, device_busy_ms=busy_ms, device_ops=n_ops,
+                            idle_share=idle, top_device_ms=top))
+    return res
+
+
+def phase_serve_exact(dev, failures: list, runs: str) -> dict:
+    """The daemon's exact rollout with int8 weights in w8a16, on phase 8's
+    ``training1.yaml`` checkpoint (OPT-125m, DoRA merged at load): one
+    25-step request and its launches."""
+    import numpy as np
+
+    from fluid_llm_tpu_torch.tools import serve as srv
+
+    n_steps = 25
+    t0 = time.perf_counter()
+    eng = srv.load_engine(runs, buckets=(n_steps,), streaming="off", quant="int8",
+                          qmm_mode="w8a16", device=str(dev))
+    load_s = time.perf_counter() - t0
+    grid, mask = _client_frames(eng.dataset, 1)
+    eng.warmup()
+    reset_launches()
+    t0 = time.perf_counter()
+    pred = eng.request(grid, mask, n_steps)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_layers, convs = eng.model.backbone_cfg.n_layers, eng.cfg.decoder_params.gnn_layers
+    want = dict.fromkeys(launches, 0)
+    want.update(quant_matmul_w8a16=6 * n_layers * n_steps,
+                exact_attention=(n_layers - 1) * n_steps, grid_slot_attention=convs * n_steps)
+    ok = (launches == want and not eng.streaming and pred.shape == (n_steps, 3, *grid.shape[-2:])
+          and bool(np.isfinite(pred).all()))
+    print(f"[serve exact] load_engine(quant=int8, w8a16, streaming off) of {runs}: "
+          f"{eng.cfg.llm_backbone}, loaded in {load_s:.1f} s; one {n_steps}-step request in "
+          f"{wall:.3f} s ({n_steps / wall:.2f} steps/s); launches {launches} (want {want}); "
+          f"output {pred.shape} finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"serve exact: launches {launches} (want {want}), shape {pred.shape}")
+    return dict(load_s=load_s, request_s=wall, launches=launches)
 
 
 def main(argv=None) -> int:
@@ -695,9 +1039,13 @@ def main(argv=None) -> int:
     trainer, train_batch, train_res = phase_train(dev, args.seed, failures)
     train_agree = phase_train_agreement(trainer, train_batch, args.seed, failures)
     del trainer, train_batch
-    entry_res = phase_entry_points(dev, args.seed, failures)
-    stream_res = phase_rollout(dev, args.seed, failures, streaming=True)
-    flagship_res = phase_flagship_entry_points(dev, args.seed, failures)
+    with tempfile.TemporaryDirectory() as tmp:  # phases 8-12: checkpoints, served again
+        opt_dir, flagship_dir = os.path.join(tmp, "training1"), os.path.join(tmp, "flagship")
+        entry_res = phase_entry_points(dev, args.seed, failures, opt_dir)
+        stream_res = phase_rollout(dev, args.seed, failures, streaming=True)
+        flagship_res = phase_flagship_entry_points(dev, args.seed, failures, flagship_dir)
+        serve_res = phase_serve(dev, failures, os.path.join(flagship_dir, "runs"))
+        serve_exact_res = phase_serve_exact(dev, failures, os.path.join(opt_dir, "runs"))
 
     # (source, TPU kernel it replaces, the main path whose run counts it)
     sources = {
@@ -715,6 +1063,10 @@ def main(argv=None) -> int:
                                 "fluid_llm_tpu/ops/flash_attention.py:230", train_res),
         "slab_decode_attention": ("fluid_llm_tpu_torch/csrc/decode_attention.cu",
                                   "fluid_llm_tpu/ops/decode_attention.py:50", stream_res),
+        "quant_matmul_w8a8": ("fluid_llm_tpu_torch/csrc/quant_matmul.cu",
+                              "fluid_llm_tpu/ops/quant_matmul.py:113", serve_res),
+        "quant_matmul_w8a16": ("fluid_llm_tpu_torch/csrc/quant_matmul.cu",
+                               "fluid_llm_tpu/ops/quant_matmul.py:91", serve_exact_res),
     }
     kernels = []
     for name, (source, replaces, path_res) in sources.items():
@@ -724,6 +1076,8 @@ def main(argv=None) -> int:
             launches=path_res["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in main_rows),
             ms=main_rows[0]["ms"], plain_ms=main_rows[0]["plain_ms"],
+            bound_ms=main_rows[0]["bound_ms"], bound_by=main_rows[0]["bound_by"],
+            library_ms=main_rows[0]["library_ms"],
         ))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -732,6 +1086,7 @@ def main(argv=None) -> int:
                            slice=slice_res, train=train_res,
                            train_agreement=train_agree, entry_points=entry_res,
                            streaming=stream_res, flagship_entry_points=flagship_res,
+                           serve=serve_res, serve_exact=serve_exact_res,
                            failures=failures), f, indent=1, default=str)
     if failures:
         print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -92,14 +92,17 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device) -> FluidLLM
     return model.eval()
 
 
-def load_checkpoint_model(load_path: str, step: int, device: torch.device) -> FluidLLM:
+def load_checkpoint_model(load_path: str, step: int, device: torch.device,
+                          quant: str | None = None, qmm_mode: str = "w8a8") -> FluidLLM:
     """The model of run folder ``load_path`` at ``step_<step>``, prepared
-    for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``)."""
+    for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``);
+    ``quant``/``qmm_mode``: quantized backbone storage (serving,
+    ``FluidLLM.prepare_inference_params``)."""
     cfg = ckpt.load_config(load_path)
     probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
     model = FluidLLM.build(cfg, probe_ds.ds_props()).to(device)
     ckpt.restore_checkpoint(load_path, step, model)
-    model.prepare_inference_params()
+    model.prepare_inference_params(quant, qmm_mode)
     return model.eval()
 
 

@@ -23,7 +23,11 @@ without gradients (rollout, inference) it runs the exact-window kernel
 is the dq and dk/dv kernels.  Otherwise the plain twin, under autograd.
 Rope'd heads (and grouped k/v heads, repeated) go to either in the packed
 ``(bs, L, H*hd)`` layout.  ``decode_slice`` computes the final block for
-one token range only (``_final_block_sliced``, plain PyTorch).
+one token range only (``_final_block_sliced``, plain PyTorch attention).
+
+Every projection goes through ``models.common.linear``: a linear stored as
+int8 (``ops/quant.quantize_backbone``, serving) runs the int8-matmul kernel
+of ``ops/quant_matmul.py`` on the card, in the mode it was stored with.
 
 Training (``backbone.py:769-948``): LoRA/DoRA adapters are applied unmerged
 (``models/lora.lora_linear``) on their target projections, and dropout
@@ -265,18 +269,20 @@ class Block(nn.Module):
         else:
             self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
 
-    def proj(self, h, group: str, name: str, adapters=None, lora_cfg=None, generator=None):
+    def proj(self, h, group: str, name: str, adapters=None, lora_cfg=None, generator=None,
+             kernels: bool = True):
         """``group.name`` applied to ``h``, through its adapter if it has one
-        (unmerged; adapter dropout when ``generator`` is given)."""
+        (unmerged; adapter dropout when ``generator`` is given).  ``kernels``:
+        an int8 projection through the int8-matmul kernel (False: its twin)."""
         lin = getattr(self, group)[name]
         ad = adapters[group][name] if adapters is not None and group in adapters \
             and name in adapters[group] else None
         if ad is None:
-            return linear(h, lin)
+            return linear(h, lin, kernels)
         return lora_linear(h, lin, ad, lora_cfg, generator)
 
     def qkv(self, h: torch.Tensor, cfg: BackboneConfig, adapters=None, lora_cfg=None,
-            generator=None, rope=None):
+            generator=None, rope=None, kernels: bool = True):
         """q, k, v of ``h``, q and k rotated when ``rope`` tables are given:
         column slices of the fused projection when packed (whose adjacent q
         and k columns rotate in one pass)."""
@@ -286,12 +292,13 @@ class Block(nn.Module):
                 raise ValueError("packed qkv weights cannot apply q/k/v adapters: merge them "
                                  "first (FluidLLM.prepare_inference_params)")
             d, kv = cfg.d_model, cfg.kv_dim
-            qkv = linear(h, self.attn["qkv"])
+            qkv = linear(h, self.attn["qkv"], kernels)
             qk = qkv[..., :d + kv]
             if rope is not None:
                 qk = apply_rope(qk, rope, cfg.n_heads + cfg.kv_heads)
             return qk[..., :d], qk[..., d:], qkv[..., d + kv:]
-        q, k, v = (self.proj(h, "attn", n, adapters, lora_cfg, generator) for n in ("q", "k", "v"))
+        q, k, v = (self.proj(h, "attn", n, adapters, lora_cfg, generator, kernels)
+                   for n in ("q", "k", "v"))
         if rope is not None:
             q, k = apply_rope(q, rope, cfg.n_heads), apply_rope(k, rope, cfg.kv_heads)
         return q, k, v
@@ -304,15 +311,16 @@ class Block(nn.Module):
         return lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2")
 
     def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
-                generator=None, rope=None) -> torch.Tensor:
+                generator=None, rope=None, kernels: bool = True) -> torch.Tensor:
         """``generator``: training (adapter and residual dropout draw from
         it); None runs without dropout.  ``rope``: the (cos, sin) tables of
         a rotary backbone."""
-        lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator)
+        lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator,
+                                               kernels)
         drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
             else (lambda h: h)
         h = _norm(x, self.ln1) if cfg.pre_ln else x
-        q, k, v = self.qkv(h, cfg, adapters, lora_cfg, generator, rope)
+        q, k, v = self.qkv(h, cfg, adapters, lora_cfg, generator, rope, kernels)
         k, v = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
         x = x + drop(lin(attend(q, k, v, valid_i32, cfg.n_heads, cfg.head_dim), "attn", "o"))
         if not cfg.pre_ln:
@@ -384,7 +392,7 @@ class Backbone(nn.Module):
             valid = torch.ones(bs, L, dtype=torch.bool, device=x.device)
         positions, allowed = make_masks(valid)
         if self.project_in is not None:
-            x = linear(x, self.project_in)
+            x = linear(x, self.project_in, kernels)
         if self.pos_embed is not None:
             x = x + self.pos_embed[positions + cfg.pos_offset].to(cfg.dtype)
         rope = rope_tables(positions, cfg) if cfg.pos == "rope" else None
@@ -404,27 +412,30 @@ class Backbone(nn.Module):
         lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
         for layer, ad in zip(self.layers[:n_full], adapters):
-            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator, rope)
+            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator, rope, kernels)
         if decode_slice is not None:
-            x = self._final_block_sliced(x, allowed, rope, decode_slice, adapters[-1], lora_cfg)
-        return self._out(x)
+            x = self._final_block_sliced(x, allowed, rope, decode_slice, adapters[-1], lora_cfg,
+                                         kernels)
+        return self._out(x, kernels)
 
-    def _out(self, x: torch.Tensor) -> torch.Tensor:
+    def _out(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         if self.final_norm is not None:
             x = _norm(x, self.final_norm)
         if self.project_out is not None:
-            x = linear(x, self.project_out)
+            x = linear(x, self.project_out, kernels)
         return x
 
     def _final_block_sliced(self, x, allowed, rope, decode_slice, adapters=None,
-                            lora_cfg=None) -> torch.Tensor:
+                            lora_cfg=None, kernels: bool = True) -> torch.Tensor:
         """Final block for queries ``start:start+length`` only (exact under
         causal attention; ``backbone.py:951-1029``), adapters unmerged if
         given.  Rope rotates the q slice at its own positions and k over
-        the whole window.  Plain PyTorch, no dropout."""
+        the whole window.  Attention is plain PyTorch, no dropout; weights
+        are read only through ``linear`` (int8 ones through its kernel)."""
         cfg = self.cfg
         layer = self.layers[-1]
-        lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg)
+        lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg,
+                                                kernels=kernels)
         start, ln = decode_slice
         bs, L, d = x.shape
         H, hd = cfg.n_heads, cfg.head_dim
@@ -434,11 +445,8 @@ class Backbone(nn.Module):
         h_q = h[:, start:start + ln]
         if "qkv" in layer.attn:
             # packed weights: q over the slice, fused k|v over the full window
-            p = layer.attn["qkv"]
-            w = p.weight.to(h.dtype)
-            b = p.bias.to(h.dtype) if p.bias is not None else None
-            q = F.linear(h_q, w[:d], b[:d] if b is not None else None)
-            kv = F.linear(h, w[d:], b[d:] if b is not None else None)
+            q = linear(h_q, layer.attn["qkv"], kernels, cols=slice(0, d))
+            kv = linear(h, layer.attn["qkv"], kernels, cols=slice(d, None))
             k, v = kv[..., :cfg.kv_dim], kv[..., cfg.kv_dim:]
         else:
             q = lin(h_q, "attn", "q")
@@ -470,11 +478,12 @@ def pack_qkv_params(backbone: Backbone) -> None:
     them).
 
     Exact (same math, one matmul instead of three).  Apply AFTER
-    ``merge_lora``: adapters target the unpacked names.
+    ``merge_lora``: adapters target the unpacked names.  Quantized q/k/v
+    stay unpacked (``backbone.py:368``).
     """
     for layer in backbone.layers:
         attn = layer.attn
-        if "qkv" in attn:
+        if "qkv" in attn or not all(isinstance(attn[n], nn.Linear) for n in ("q", "k", "v")):
             continue
         parts = [attn[n] for n in ("q", "k", "v")]
         bias = parts[0].bias is not None
@@ -494,14 +503,13 @@ def cast_matmul_params(backbone: Backbone, dtype: torch.dtype) -> None:
 
     Exact for inference: every matmul casts its weight to the activation
     dtype anyway.  Norms and the position table stay f32 (computed in f32 /
-    cast at use, as in the JAX package).
+    cast at use, as in the JAX package).  Quantized linears are left as they
+    are (``Module.to`` would cast their f32 scales; ``backbone.py:284``).
     """
-    for layer in backbone.layers:
-        for group in (layer.attn, layer.mlp):
-            for lin in group.values():
-                lin.to(dtype)
-    for lin in (backbone.project_in, backbone.project_out):
-        if lin is not None:
+    lins = [lin for layer in backbone.layers for group in (layer.attn, layer.mlp)
+            for lin in group.values()] + [backbone.project_in, backbone.project_out]
+    for lin in lins:
+        if isinstance(lin, nn.Linear):
             lin.to(dtype)
 
 
@@ -623,7 +631,7 @@ def apply_streaming(
     F_ = slots - 1  # ring slots; slot F_ holds the sinks
     x = x_new.to(cfg.dtype)
     if backbone.project_in is not None:
-        x = linear(x, backbone.project_in)
+        x = linear(x, backbone.project_in, kernels)
     pos = new_positions.to(device=x.device, dtype=torch.int32)
 
     if prefill:
@@ -659,9 +667,9 @@ def apply_streaming(
     ck, cv = cache["k"], cache["v"]
 
     for li, layer in enumerate(backbone.layers):
-        lin = lambda h, group, name, layer=layer: linear(h, getattr(layer, group)[name])
+        lin = lambda h, group, name, layer=layer: linear(h, getattr(layer, group)[name], kernels)
         h = _norm(x, layer.ln1) if cfg.pre_ln else x
-        q, k, v = layer.qkv(h, cfg, rope=rope)
+        q, k, v = layer.qkv(h, cfg, rope=rope, kernels=kernels)
         if prefill:
             ck[li, :, F_, :n_sink] = k[:, :n_sink]
             cv[li, :, F_, :n_sink] = v[:, :n_sink]
@@ -684,4 +692,4 @@ def apply_streaming(
         x = x + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
             x = _norm(x, layer.ln2)
-    return backbone._out(x), cache
+    return backbone._out(x, kernels), cache

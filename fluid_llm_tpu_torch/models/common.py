@@ -9,10 +9,14 @@ the last layer, activation between (not after) layers.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+from fluid_llm_tpu_torch.ops.quant import NF4Linear, QuantLinear
 
 ACTS = {
     "relu": F.relu,
@@ -25,11 +29,28 @@ ACTS = {
 }
 
 
-def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """``x @ w + b`` in the activation dtype (weights cast at use, as the
-    JAX package's ``p["w"].astype(x.dtype)``; a no-op once cast)."""
-    b = lin.bias.to(x.dtype) if lin.bias is not None else None
-    return F.linear(x, lin.weight.to(x.dtype), b)
+def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
+           cols: Optional[slice] = None) -> torch.Tensor:
+    """``x @ w + b`` in the activation dtype (``backbone._linear`` with
+    ``materialize_w``); ``cols`` computes those output columns only.
+
+    An ``nn.Linear``'s weight is cast at use, as the JAX package's
+    ``p["w"].astype(x.dtype)`` (a no-op once cast).  An int8
+    ``QuantLinear`` whose shape the kernels take goes to
+    ``quant_matmul.int8_matmul`` in its mode (the kernel on CUDA tensors,
+    the twin on CPU ones; ``kernels=False`` selects the twin explicitly);
+    one they do not take, and an ``NF4Linear``, are dequantised and go
+    through ``F.linear``, as ``use_kernel`` and ``materialize_w`` rule."""
+    if isinstance(lin, QuantLinear) and cols is None \
+            and qmm.supported(lin.in_features, lin.out_features):
+        mm = qmm.int8_matmul if kernels else qmm.int8_matmul_ref
+        return mm(x, lin.q, lin.scale, lin.bias, lin.mode)
+    w = lin.dequantize(x.dtype) if isinstance(lin, (QuantLinear, NF4Linear)) \
+        else lin.weight.to(x.dtype)
+    b = lin.bias
+    if cols is not None:
+        w, b = w[cols], (b[cols] if b is not None else None)
+    return F.linear(x, w, b.to(x.dtype) if b is not None else None)
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:

@@ -19,8 +19,8 @@ train.  The ported surface: ``forward`` (every frame decoded; in training
 with dropout drawn from a ``torch.Generator``), ``forward_see_init`` and
 ``predict_diffs`` (the training forwards), the rollout's
 ``predict_frame_diff`` (non-CNN, non-MoE branch), all with unmerged
-adapters, ``prepare_inference_params`` (merge adapters -> pack qkv ->
-cast) for serving, and the streaming rollout's ``embed_frames`` and
+adapters, ``prepare_inference_params`` (merge adapters -> quantize, for
+serving -> pack qkv -> cast), and the streaming rollout's ``embed_frames`` and
 ``decode_frame_tokens``.
 """
 
@@ -37,6 +37,7 @@ from fluid_llm_tpu_torch.models import backbone as bb
 from fluid_llm_tpu_torch.models.decoders import PatchDecoder
 from fluid_llm_tpu_torch.models.embeddings import InputEmbeddings
 from fluid_llm_tpu_torch.models.lora import Lora, merge_lora
+from fluid_llm_tpu_torch.ops.quant import quantize_backbone
 
 
 class FluidLLM(nn.Module):
@@ -103,14 +104,21 @@ class FluidLLM(nn.Module):
             self.lora.reset_parameters(self.backbone, generator)
 
     @torch.no_grad()
-    def prepare_inference_params(self) -> None:
-        """Exact inference-time transform, in place: fold the LoRA/DoRA
-        adapters into the backbone (``lora.merge_lora``), fuse each layer's
-        q/k/v (``backbone.pack_qkv_params``) and store the matmul weights in
-        the activation dtype (``backbone.cast_matmul_params``)."""
+    def prepare_inference_params(self, quant: Optional[str] = None,
+                                 qmm_mode: str = "w8a8") -> None:
+        """Inference-time transform, in place: fold the LoRA/DoRA adapters
+        into the backbone (``lora.merge_lora``) and drop them; with
+        ``quant`` ("int8" | "nf4") store the backbone's linears quantized
+        (``ops/quant.quantize_backbone``, int8 ones applied in
+        ``qmm_mode``); fuse each layer's float q/k/v
+        (``backbone.pack_qkv_params``) and store the float matmul weights in
+        the activation dtype (``backbone.cast_matmul_params``).  The order
+        of ``tools/serve.py:442-457``; exact without ``quant``."""
         if self.lora is not None:
             merge_lora(self.backbone, self.lora)
             self.lora = None
+        if quant is not None:
+            quantize_backbone(self.backbone, quant, qmm_mode)
         bb.pack_qkv_params(self.backbone)
         bb.cast_matmul_params(self.backbone, self.backbone_cfg.dtype)
 

@@ -39,6 +39,8 @@ SIGNATURES = {
     "grid_slot_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grid_slot_attention_bwd": [_P] * 10 + [_I] * 8 + [_P],
     "slab_decode_attention": [_P] * 6 + [_I] * 6 + [_LL, _I, ctypes.c_float, _P],
+    "quant_matmul_w8a8": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
+    "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

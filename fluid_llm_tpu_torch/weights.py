@@ -8,6 +8,10 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
 - ``w`` -> ``weight``, transposed: JAX linears are ``x @ w`` with ``w`` of
   shape (in, out), ``nn.Linear`` stores (out, in);
 - ``b`` -> ``bias``; a norm's ``scale`` -> ``weight``;
+- a quantized linear's ``w`` is a dict (``ops/quant.py``): its leaves land
+  on the module itself (``ops/quant.QuantLinear``, ``NF4Linear``), the
+  int8 ``q`` transposed to (out, in), ``scale`` and the nf4 leaves as
+  they are (``…attn.q.w.q`` -> ``…attn.q.q``);
 - every other leaf (position tables, ``att``, LoRA ``A``/``B``/``m``,
   ``bos``) keeps its name and layout.
 
@@ -19,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+QUANT_LEAVES = ("q", "scale", "codes", "absmax_q", "absmax_scale", "absmax_offset")
 
 
 def _tensor(leaf) -> torch.Tensor:
@@ -42,7 +48,11 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
         else:
             *prefix, name = path
             t = _tensor(node)
-            if name == "w":
+            if prefix and prefix[-1] == "w" and name in QUANT_LEAVES:
+                prefix = prefix[:-1]  # the quantized weight's leaves
+                if name == "q":
+                    t = t.T.contiguous()
+            elif name == "w":
                 name, t = "weight", t.T.contiguous()
             elif name == "b":
                 name = "bias"

@@ -17,6 +17,9 @@ against autograd through the forward twins on f32 copies of the inputs.
 The slab decode kernel is held to the same bound in the streaming cache's
 states (first decode, wrapped ring, prefill), and a short streaming
 rollout through the kernels against the same rollout through the twins.
+The int8 matmul kernels are held to the same bound at the serving shapes;
+w8a8's int32 sum must equal its twin's exactly, and with it the output
+(the same f32 scale products and roundings).
 """
 
 import pytest
@@ -27,6 +30,8 @@ from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+from fluid_llm_tpu_torch.ops import quant
+from fluid_llm_tpu_torch.ops import quant_matmul as qmm
 
 torch.set_num_threads(2)
 
@@ -304,5 +309,136 @@ def test_streaming_rollout_kernels_match_twins(dev):
         torch.cuda.synchronize()
         ran = (da.slab_decode.launches - before[0], xa.causal_attention.launches - before[1])
         assert ran == ((2 * 12 + 2, 0) if kernels else (0, 0))
+    assert bool(torch.isfinite(out[True]).all())
+    assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
+
+
+def _qmm_case(dev, M, K, N, bias: bool, seed: int = 0):
+    g = torch.Generator().manual_seed(seed + M + K + N)
+    qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    b = (torch.randn(N, generator=g) * 0.1).to(dev) if bias else None
+    return x, qp["q"].to(dev), qp["scale"].to(dev), b
+
+
+@pytest.mark.parametrize("mode", ["w8a8", "w8a16"])
+@pytest.mark.parametrize("M,K,N,bias", [
+    (60, 768, 768, False), (60, 768, 2048, False), (60, 2048, 768, False),
+    (661, 768, 768, True), (661, 768, 3072, True), (661, 3072, 768, True),
+    (61, 768, 2048, False), (5, 768, 3072, True),
+])
+def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
+    """The streaming step's (60 rows; 61 in the prefill), the exact
+    rollout's (661) and a ragged 5 rows: one launch, finite, within
+    REL_TOL of the twin; w8a8 equal to it."""
+    x, q, scale, b = _qmm_case(dev, M, K, N, bias)
+    fn = qmm.qmm_w8a8 if mode == "w8a8" else qmm.qmm_w8a16
+    before = fn.launches
+    out = qmm.int8_matmul(x, q, scale, b, mode)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = qmm.int8_matmul_ref(x, q, scale, b, mode)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, ref) <= REL_TOL
+    if mode == "w8a8":
+        assert torch.equal(out, ref)
+
+
+def test_quant_matmul_w8a8_rounds_ties_like_its_twin(dev):
+    """Activations on the int8 grid's half points (every row's absmax 127,
+    so x / sx lands exactly on k + 0.5) round half to even, as the twin's
+    ``torch.round``: the kernel's reciprocal shortcut must defer to the
+    division there."""
+    x = (torch.arange(60 * 768) % 254 - 126.5).reshape(60, 768)
+    x[:, 0] = 127.0
+    x = x.to(dev, torch.bfloat16)
+    _, q, scale, _ = _qmm_case(dev, 60, 768, 768, False)
+    assert torch.equal(qmm.int8_matmul(x, q, scale, mode="w8a8"),
+                       qmm.int8_matmul_ref(x, q, scale, mode="w8a8"))
+
+
+def test_quant_matmul_leading_axes_and_row_stride(dev):
+    """(bs, L, K) input and a column slice of a wider tensor (row stride
+    != K): both give the contiguous 2-D result."""
+    x, q, scale, _ = _qmm_case(dev, 60, 768, 768, False)
+    wide = torch.cat([x, x], dim=1)[:, :768]
+    for mode in qmm.QMM_MODES:
+        flat = qmm.int8_matmul(x, q, scale, mode=mode)
+        assert torch.equal(qmm.int8_matmul(x.reshape(2, 30, 768), q, scale, mode=mode),
+                           flat.reshape(2, 30, 768))
+        assert torch.equal(qmm.int8_matmul(wide, q, scale, mode=mode), flat)
+
+
+def test_quant_matmul_raises(dev):
+    """Forward only: raises under autograd; a shape ``supported`` refuses,
+    f32 activations and bf16 scales raise in the wrapper, nothing falls
+    back."""
+    x, q, scale, _ = _qmm_case(dev, 60, 768, 768, False)
+    xg = x.detach().requires_grad_()
+    for mode in ("w8a8", "w8a16"):
+        with pytest.raises(RuntimeError, match="forward only"):
+            qmm.int8_matmul(xg, q, scale, mode=mode)
+        with torch.no_grad():
+            qmm.int8_matmul(xg, q, scale, mode=mode)
+        with pytest.raises(ValueError, match="not supported"):
+            qmm.int8_matmul(x[:, :100], q[:, :100].contiguous(), scale, mode=mode)
+        with pytest.raises(ValueError, match="bf16"):
+            qmm.int8_matmul(x.float(), q, scale, mode=mode)
+        with pytest.raises(ValueError, match="f32"):
+            qmm.int8_matmul(x, q, scale.bfloat16(), mode=mode)
+
+
+def test_cast_matmul_params_keeps_quantized_scales_f32(dev):
+    """On the card, ``prepare_inference_params`` with int8 storage: q/k/v
+    stay unpacked, scales and biases f32, float linears bf16."""
+    cfg = bb.BackboneConfig(family="opt", n_layers=2, d_model=128, n_heads=2, d_ff=256,
+                            pos_offset=2, dtype=torch.bfloat16)
+    model = bb.Backbone(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev)
+    quant.quantize_backbone(model, "int8")
+    model.layers[1].mlp["fc2"] = torch.nn.Linear(256, 128, device=dev)  # one stays float
+    bb.pack_qkv_params(model)
+    bb.cast_matmul_params(model, torch.bfloat16)
+    for layer in model.layers:
+        assert "qkv" not in layer.attn
+        for lin in list(layer.attn.values()) + [layer.mlp["fc1"]]:
+            assert lin.scale.dtype == torch.float32 and lin.bias.dtype == torch.float32
+            assert lin.q.device.type == "cuda"
+    assert model.layers[1].mlp["fc2"].weight.dtype == torch.bfloat16
+
+
+def test_quantized_streaming_rollout_kernels_match_twins(dev):
+    """A small bf16 flagship-shaped model stored as int8 streams 6 steps
+    through the kernels and through the twins: every int8 linear of every
+    step and of the prefill launches the w8a8 kernel (7 a layer), step 1
+    within REL_TOL."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import make_batches
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.rollout.streaming import generate_streaming
+
+    cfg = Config(llm_backbone="fluid/llama-125m", llm_layers=2, half_precision=True,
+                 autoreg_seq_len=5, resolution=64, absolute_time_ids=True,
+                 pos_embedding_params={"pos_embedding_type": "rope_abs"},
+                 decoder_params={"type": "MLPGNN", "gnn_dim": 8, "gnn_hid_dim": 16,
+                                 "gnn_layers": 2, "mlp_hid_dim": 32},
+                 encoder_params={"type": "MLP", "num_layers": 2, "hidden_dim": 32})
+    ds = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=5, mode="valid",
+                                  absolute_time=True)
+    model = FluidLLM.build(cfg, ds.ds_props(), d_model=128, n_heads=2, d_ff=256)
+    model.init_weights(torch.Generator().manual_seed(0))
+    model.to(dev).prepare_inference_params("int8", "w8a8")
+    states, _, _, bc_mask, pos = next(make_batches(ds, 1, shuffle=False, device=dev))
+    out = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        before = (qmm.qmm_w8a8.launches, qmm.qmm_w8a16.launches)
+        out[kernels] = generate_streaming(model, states[:, :1], bc_mask, pos, 6)[1]
+        torch.cuda.synchronize()
+        ran = (qmm.qmm_w8a8.launches - before[0], qmm.qmm_w8a16.launches - before[1])
+        assert ran == ((7 * 2 * 7, 0) if kernels else (0, 0))
     assert bool(torch.isfinite(out[True]).all())
     assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
