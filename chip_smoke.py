@@ -14,7 +14,9 @@ Phases, each printing one line per result; any failure exits nonzero:
                step's (slab decode attention over 11 slots of 64 rows,
                H 12: a wrapped ring, the first decode with 9 slots
                unwritten, the 61-token prefill) and the serving linears'
-               (int8 matmul w8a8 and w8a16 at 60 and 661 rows): relative
+               (int8 matmul w8a8 at the flagship's 60 and 61 rows and
+               OPT's 661, w8a16 at OPT's 661 and 60 with its biases and at
+               the flagship's 60): relative
                L2 error (bound REL_TOL) and device time per call, kernel,
                plain and the PyTorch library call that computes the same
                function (``library_ms``: ``scaled_dot_product_attention``
@@ -76,13 +78,16 @@ Phases, each printing one line per result; any failure exits nonzero:
                10 steps kernels vs twins on the same int8 weights (step 1
                <= REL_TOL); int8 vs dense engines of the checkpoint over 3
                steps (mean |diff| / mean |dense| < 0.05); prints latency,
-               steps/s, p50, the device idle share of a 50-step request,
-               peak memory and the backbone's weight bytes dense vs int8;
+               steps/s, p50, peak memory, the backbone's weight bytes dense
+               vs int8, and for 50-step requests of the int8 and the dense
+               engine in turns the wall time, device time, device ops and
+               idle share of each;
 12. serve exact -- ``load_engine(quant="int8", qmm_mode="w8a16",
                streaming="off")`` on phase 8's ``training1.yaml``
                checkpoint (DoRA unmerged there): one 25-step request; w8a16
                launches 72 a step (6 linears x 12 layers), exact attention
-               11 a step, w8a8 0; finite.
+               11 a step, w8a8 0; finite; 10 steps kernels vs twins on the
+               same int8 weights (step 1 <= REL_TOL).
 
 Phases 8 to 12 share one temporary folder, removed at the end.
 
@@ -278,11 +283,22 @@ def _allowed_causal(valid: torch.Tensor) -> torch.Tensor:
     return (causal[None] & (valid != 0)[:, None, :]) | eye[None]
 
 
-# the serving linears: (M, K, N) at the streaming step's 60 rows and the
-# exact rollout's 661 (q/k/v/o 768x768, gate/up 768->2048 or fc1 768->3072,
-# down 2048->768 or fc2 3072->768)
-QMM_SHAPES = [(60, 768, 768), (60, 768, 2048), (60, 2048, 768),
-              (661, 768, 768), (661, 768, 3072), (661, 3072, 768)]
+# the serving linears (mode, M, K, N, bias, on the mode's main path): the
+# flagship's bias-free LLaMA linears (q/k/v/o 768x768, gate/up 768->2048,
+# down 2048->768) at the streaming step's 60 rows and the prefill's 61;
+# OPT-125m's biased ones (768x768, fc1 768->3072, fc2 3072->768) at the
+# exact rollout's 661 rows and the sliced last block's 60 (q, o, fc1, fc2)
+QMM_CASES = [
+    ("w8a8", 60, 768, 768, False, True), ("w8a8", 60, 768, 2048, False, True),
+    ("w8a8", 60, 2048, 768, False, True), ("w8a8", 61, 768, 768, False, True),
+    ("w8a8", 61, 768, 2048, False, True), ("w8a8", 61, 2048, 768, False, True),
+    ("w8a8", 661, 768, 768, True, False), ("w8a8", 661, 768, 3072, True, False),
+    ("w8a8", 661, 3072, 768, True, False),
+    ("w8a16", 661, 768, 768, True, True), ("w8a16", 661, 768, 3072, True, True),
+    ("w8a16", 661, 3072, 768, True, True), ("w8a16", 60, 768, 768, True, True),
+    ("w8a16", 60, 768, 3072, True, True), ("w8a16", 60, 3072, 768, True, True),
+    ("w8a16", 60, 768, 2048, False, False), ("w8a16", 60, 2048, 768, False, False),
+]
 
 
 def phase_kernels(dev, failures: list) -> list[dict]:
@@ -422,32 +438,33 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             **bound(nbytes(q, out, key_pos[0, :tot]) + 2 * n_visible * D * 2,
                     4 * D * allowed.sum().item(), "bf16"),
         ))
-    for mode in ("w8a8", "w8a16"):
-        for M, K, N in QMM_SHAPES:
-            qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
-            q, scale = qp["q"].to(dev), qp["scale"].to(dev)
-            x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
-            out = qmm.int8_matmul(x, q, scale, None, mode)
-            ref = qmm.int8_matmul_ref(x, q, scale, None, mode)
-            if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
-                xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
-                library = lambda: torch._int_mm(xq, qt)  # noqa: E731
-            else:  # bf16 F.linear on the weight already dequantised
-                w = quant.dequantize_weight(q, scale, torch.bfloat16)
-                library = lambda: F.linear(x, w)  # noqa: E731
-            torch.cuda.synchronize()
-            rows.append(dict(
-                kernel=f"quant_matmul_{mode}", shape=f"M {M} K {K} N {N}",
-                main_path=(M == 60) if mode == "w8a8" else (M == ROLLOUT_TOKENS),
-                rel=rel_err(out, ref), max_abs_err=(out.float() - ref.float()).abs().max().item(),
-                finite=bool(torch.isfinite(out).all()),
-                exact=bool(torch.equal(out, ref)) if mode == "w8a8" else None,
-                ms=device_ms(lambda: qmm.int8_matmul(x, q, scale, None, mode)),
-                plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, None, mode)),
-                library_ms=device_ms(library),
-                **bound(nbytes(x, q, scale, out), 2 * M * N * K,
-                        "int8" if mode == "w8a8" else "bf16"),
-            ))
+    for mode, M, K, N, has_bias, main in QMM_CASES:
+        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+        q, scale = qp["q"].to(dev), qp["scale"].to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        b = (torch.randn(N, generator=g) * 0.1).to(dev) if has_bias else None
+        out = qmm.int8_matmul(x, q, scale, b, mode)
+        ref = qmm.int8_matmul_ref(x, q, scale, b, mode)
+        if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
+            xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
+            library = lambda: torch._int_mm(xq, qt)  # noqa: E731
+        else:  # bf16 F.linear on the weight already dequantised
+            w = quant.dequantize_weight(q, scale, torch.bfloat16)
+            b16 = b.to(torch.bfloat16) if has_bias else None
+            library = lambda: F.linear(x, w, b16)  # noqa: E731
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel=f"quant_matmul_{mode}",
+            shape=f"M {M} K {K} N {N} {'bias' if has_bias else 'no bias'}", main_path=main,
+            rel=rel_err(out, ref), max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            finite=bool(torch.isfinite(out).all()),
+            exact=bool(torch.equal(out, ref)) if mode == "w8a8" else None,
+            ms=device_ms(lambda: qmm.int8_matmul(x, q, scale, b, mode)),
+            plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, b, mode)),
+            library_ms=device_ms(library),
+            **bound(nbytes(x, q, scale, b, out), 2 * M * N * K,
+                    "int8" if mode == "w8a8" else "bf16"),
+        ))
     for r in rows:
         ok = r["rel"] <= REL_TOL and r.get("finite", True) and r.get("exact") is not False
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
@@ -951,21 +968,37 @@ def phase_serve(dev, failures: list, runs: str) -> dict:
     errs = [rel_err(diffs[True][:, i], diffs[False][:, i]) for i in range(10)]
     agree = errs[0] <= REL_TOL
 
-    # the device idle share of one 50-step request, against its wall time
-    t0 = time.perf_counter()
-    eng.request(grid[:1], mask, 50)
-    wall50 = (time.perf_counter() - t0) * 1e3
-    busy_ms, n_ops, idle, top = device_profile(lambda: eng.request(grid[:1], mask, 50), 1,
-                                               wall50, "serve 50-step request")
-
-    # int8 against dense serving of the same checkpoint, 3 steps
+    # int8 against dense serving of the same checkpoint: 50-step requests in
+    # turns (wall time, then one profiled request each: device time, ops,
+    # idle share), and the outputs over 3 steps
+    dense = srv.load_engine(runs, buckets=(3, 50), device=str(dev))
+    dense.warmup()
+    engines = {"int8": eng, "dense": dense}
+    walls = {k: [] for k in engines}
+    for _ in range(3):
+        for k, e in engines.items():
+            t0 = time.perf_counter()
+            e.request(grid[:1], mask, 50)
+            walls[k].append((time.perf_counter() - t0) * 1e3)
+    prof = {}
+    for k, e in engines.items():
+        wall50 = statistics.median(walls[k])
+        busy_ms, n_ops, idle, top = device_profile(lambda: e.request(grid[:1], mask, 50), 1,
+                                                   wall50, f"serve 50-step request, {k}")
+        prof[k] = dict(steps=50, wall_ms=wall50, wall_ms_runs=walls[k], device_busy_ms=busy_ms,
+                       device_ops=n_ops, idle_share=idle, top_device_ms=top)
+    print(f"[serve] 50-step requests in turns, median wall ms per step: int8 "
+          f"{prof['int8']['wall_ms'] / 50:.3f} (runs {', '.join(f'{x:.2f}' for x in walls['int8'])} "
+          f"ms), dense {prof['dense']['wall_ms'] / 50:.3f} (runs "
+          f"{', '.join(f'{x:.2f}' for x in walls['dense'])} ms); device ops a step int8 "
+          f"{prof['int8']['device_ops'] / 50:.1f}, dense {prof['dense']['device_ops'] / 50:.1f}; "
+          f"device busy ms a step int8 {prof['int8']['device_busy_ms'] / 50:.4f}, dense "
+          f"{prof['dense']['device_busy_ms'] / 50:.4f}")
     quant_pred = eng.predict(grid[:1], mask, 3)
-    int8_bytes = _linear_bytes(model.backbone)
-    del eng, model, httpd
-    dense = srv.load_engine(runs, buckets=(3,), device=str(dev))
     dense_pred = dense.predict(grid[:1], mask, 3)
+    int8_bytes = _linear_bytes(model.backbone)
     dense_bytes = _linear_bytes(dense.model.backbone)
-    del dense
+    del eng, model, httpd, dense, engines
     q_vs_d = float(np.abs(quant_pred - dense_pred).mean() / (np.abs(dense_pred).mean() + 1e-6))
     close = q_vs_d < 0.05
     print(f"[serve agreement] diffs rel err per step, int8 kernels vs twins: "
@@ -978,17 +1011,18 @@ def phase_serve(dev, failures: list, runs: str) -> dict:
     res.update(launches=launches, request_s=lat, steps_per_s=[STEPS / x for x in lat],
                ctx3_50_steps_s=wall3, stats=stats, agreement_rel_err=errs,
                int8_vs_dense=q_vs_d, weight_bytes_dense=dense_bytes, weight_bytes_int8=int8_bytes,
-               profile=dict(steps=50, wall_ms=wall50, device_busy_ms=busy_ms, device_ops=n_ops,
-                            idle_share=idle, top_device_ms=top))
+               profile=prof["int8"], dense_profile=prof["dense"])
     return res
 
 
 def phase_serve_exact(dev, failures: list, runs: str) -> dict:
     """The daemon's exact rollout with int8 weights in w8a16, on phase 8's
     ``training1.yaml`` checkpoint (OPT-125m, DoRA merged at load): one
-    25-step request and its launches."""
+    25-step request and its launches; 10 steps kernels vs twins on the same
+    int8 weights."""
     import numpy as np
 
+    from fluid_llm_tpu_torch.rollout.generate import generate
     from fluid_llm_tpu_torch.tools import serve as srv
 
     n_steps = 25
@@ -1007,15 +1041,28 @@ def phase_serve_exact(dev, failures: list, runs: str) -> dict:
     want = dict.fromkeys(launches, 0)
     want.update(quant_matmul_w8a16=6 * n_layers * n_steps,
                 exact_attention=(n_layers - 1) * n_steps, grid_slot_attention=convs * n_steps)
+
+    # kernels against twins on the same int8 weights, 10 steps
+    model = eng.model
+    batch = eng.build_batch(grid, mask.astype(bool), 10)
+    diffs = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        diffs[kernels] = generate(model, *batch, 10)[1]
+    model.kernels = True
+    errs = [rel_err(diffs[True][:, i], diffs[False][:, i]) for i in range(10)]
     ok = (launches == want and not eng.streaming and pred.shape == (n_steps, 3, *grid.shape[-2:])
-          and bool(np.isfinite(pred).all()))
+          and bool(np.isfinite(pred).all()) and errs[0] <= REL_TOL)
     print(f"[serve exact] load_engine(quant=int8, w8a16, streaming off) of {runs}: "
           f"{eng.cfg.llm_backbone}, loaded in {load_s:.1f} s; one {n_steps}-step request in "
           f"{wall:.3f} s ({n_steps / wall:.2f} steps/s); launches {launches} (want {want}); "
-          f"output {pred.shape} finite {'ok' if ok else 'FAIL'}")
+          f"output {pred.shape} finite; diffs rel err per step, kernels vs twins: "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 bound {REL_TOL}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"serve exact: launches {launches} (want {want}), shape {pred.shape}")
-    return dict(load_s=load_s, request_s=wall, launches=launches)
+        failures.append(f"serve exact: launches {launches} (want {want}), shape {pred.shape}, "
+                        f"agreement step 1 {errs[0]}")
+    return dict(load_s=load_s, request_s=wall, launches=launches, agreement_rel_err=errs)
 
 
 def main(argv=None) -> int:

@@ -32,7 +32,8 @@ ACTS = {
 def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
            cols: Optional[slice] = None) -> torch.Tensor:
     """``x @ w + b`` in the activation dtype (``backbone._linear`` with
-    ``materialize_w``); ``cols`` computes those output columns only.
+    ``materialize_w``); ``cols`` computes those output columns only, for an
+    ``nn.Linear`` (the packed qkv, which is never quantized).
 
     An ``nn.Linear``'s weight is cast at use, as the JAX package's
     ``p["w"].astype(x.dtype)`` (a no-op once cast).  An int8
@@ -41,15 +42,17 @@ def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
     the twin on CPU ones; ``kernels=False`` selects the twin explicitly);
     one they do not take, and an ``NF4Linear``, are dequantised and go
     through ``F.linear``, as ``use_kernel`` and ``materialize_w`` rule."""
-    if isinstance(lin, QuantLinear) and cols is None \
-            and qmm.supported(lin.in_features, lin.out_features):
+    quantized = isinstance(lin, (QuantLinear, NF4Linear))
+    if cols is not None:
+        if quantized:
+            raise ValueError(f"linear: cols= takes an nn.Linear, not {type(lin).__name__}")
+        b = lin.bias[cols] if lin.bias is not None else None
+        return F.linear(x, lin.weight[cols].to(x.dtype), b.to(x.dtype) if b is not None else None)
+    if isinstance(lin, QuantLinear) and qmm.supported(lin.in_features, lin.out_features):
         mm = qmm.int8_matmul if kernels else qmm.int8_matmul_ref
         return mm(x, lin.q, lin.scale, lin.bias, lin.mode)
-    w = lin.dequantize(x.dtype) if isinstance(lin, (QuantLinear, NF4Linear)) \
-        else lin.weight.to(x.dtype)
+    w = lin.dequantize(x.dtype) if quantized else lin.weight.to(x.dtype)
     b = lin.bias
-    if cols is not None:
-        w, b = w[cols], (b[cols] if b is not None else None)
     return F.linear(x, w, b.to(x.dtype) if b is not None else None)
 
 

@@ -31,7 +31,8 @@ launch; at the exact rollout's 661 rows by the tensor cores.  One launch
 per linear quantises the activation tile on its way into shared memory and
 applies both scales in the epilogue; the output tile is 16 columns wide at
 decode (48 blocks for N = 768) and 64 wide where 64 makes at least one
-block per SM.
+block per SM (the 661-row rollout, where it re-reads and re-quantises
+the activation tile a quarter as often).
 """
 
 from __future__ import annotations

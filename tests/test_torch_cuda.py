@@ -326,11 +326,13 @@ def _qmm_case(dev, M, K, N, bias: bool, seed: int = 0):
     (60, 768, 768, False), (60, 768, 2048, False), (60, 2048, 768, False),
     (661, 768, 768, True), (661, 768, 3072, True), (661, 3072, 768, True),
     (61, 768, 2048, False), (5, 768, 3072, True),
+    (60, 768, 3072, True), (60, 3072, 768, True),
 ])
 def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     """The streaming step's (60 rows; 61 in the prefill), the exact
-    rollout's (661) and a ragged 5 rows: one launch, finite, within
-    REL_TOL of the twin; w8a8 equal to it."""
+    rollout's (661; 60 in its sliced last block, with OPT's biases) and a
+    ragged 5 rows: one launch, finite, within REL_TOL of the twin; w8a8
+    equal to it."""
     x, q, scale, b = _qmm_case(dev, M, K, N, bias)
     fn = qmm.qmm_w8a8 if mode == "w8a8" else qmm.qmm_w8a16
     before = fn.launches

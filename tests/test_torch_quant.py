@@ -229,6 +229,20 @@ def test_linear_routes_by_supported_shape():
     assert not qmm.supported(768, 100) and not qmm.supported(100, 768)
 
 
+def test_linear_cols_takes_float_linears_only():
+    """``cols`` (the packed qkv's q or k|v) computes those output columns
+    of an ``nn.Linear`` exactly; a quantized module refuses it."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 128, generator=g)
+    lin = torch.nn.Linear(128, 384)
+    full = linear(x, lin)
+    for cols in (slice(0, 128), slice(128, None)):
+        assert torch.equal(linear(x, lin, cols=cols), full[:, cols])
+    for qlin in (quant.QuantLinear.from_linear(lin, "w8a8"), quant.NF4Linear.from_linear(lin)):
+        with pytest.raises(ValueError, match="cols"):
+            linear(x, qlin, cols=slice(0, 128))
+
+
 # -- backbone storage ------------------------------------------------------------
 
 
