@@ -1,4 +1,4 @@
-"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, roll out, train, stream.
+"""Smoke run of the PyTorch port on one NVIDIA GPU: build, check, roll out, train, stream, serve.
 
     python3 chip_smoke.py [--seed 1234] [--out results.json]
 
@@ -87,9 +87,27 @@ Phases, each printing one line per result; any failure exits nonzero:
                checkpoint (DoRA unmerged there): one 25-step request; w8a16
                launches 72 a step (6 linears x 12 layers), exact attention
                11 a step, w8a8 0; finite; 10 steps kernels vs twins on the
-               same int8 weights (step 1 <= REL_TOL).
+               same int8 weights (step 1 <= REL_TOL);
+13. graph baselines -- ``baselines_cli.main`` at the EAGLE geometry
+               (synthetic 84x42 mesh: 3 529 node rows and 20 480 edge rows a
+               graph, batch 4, 15 blocks at width 128): MeshGraphNet for 2
+               epochs of one step, validation, the 101-step eval of 4 test
+               trajectories (N-RMSE, CSV, checkpoint), then GAT (4 heads) for
+               1 epoch.  The segment gather and sum launches of each run
+               must equal the count from the code (MeshGraphNet: 188 and 180
+               a train step, 3 200 and 1 500 a 101-step trajectory); on one
+               batch, a step's launches, step ms through the kernels and the
+               twins in turns, the device profile, one step's loss and
+               gradient kernels vs twins (f32, TF32 off; GRAPH_LOSS_TOL,
+               GRAPH_GRAD_TOL) and the twins against themselves, and the
+               segment sum repeated bit for bit (the kernels' whole step
+               too, shown).  Phase 3 holds both kernels
+               to their twins at these shapes (the gather bit for bit).
 
-Phases 8 to 12 share one temporary folder, removed at the end.
+Phases 8 to 13 share one temporary folder, removed at the end.  An
+exception inside a phase is recorded as a failure of that phase and the
+run goes on; every failure is printed on stdout and stderr at the end, and
+the run then exits 1 without a result.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernel
@@ -108,6 +126,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 import torch
 
@@ -465,19 +484,99 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             **bound(nbytes(x, q, scale, b, out), 2 * M * N * K,
                     "int8" if mode == "w8a8" else "bf16"),
         ))
+    rows += _segment_rows(dev, g)
     for r in rows:
-        ok = r["rel"] <= REL_TOL and r.get("finite", True) and r.get("exact") is not False
+        ok = (r["rel"] <= r.get("rel_tol", REL_TOL) and r.get("finite", True)
+              and r.get("exact") is not False and r.get("deterministic") is not False)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        notes = "" if r.get("exact") is None else f", equal to the twin {r['exact']}"
+        if r.get("deterministic") is not None:
+            notes += (f", repeat bit-equal {r['deterministic']} (twin "
+                      f"{r['twin_deterministic']})")
         print(f"[kernels] {r['kernel']} {r['shape']}: rel {r['rel']:.3e} "
-              f"max_abs {r['max_abs_err']:.3e}"
-              f"{'' if r.get('exact') is None else ', equal to the twin ' + str(r['exact'])} "
+              f"max_abs {r['max_abs_err']:.3e}{notes} "
               f"{'ok' if ok else 'FAIL'}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) (device time per "
               "call, median of 25 graph replays of 10 calls; the plain and library times of dq "
               "and dk/dv are the whole backward's, the library's between events)")
         if not ok:
             failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']} "
-                            f"exact {r.get('exact')}")
+                            f"exact {r.get('exact')} deterministic {r.get('deterministic')}")
+    return rows
+
+
+# the EAGLE geometry of the graph baselines (BENCHMARKS.md:676-680): a
+# synthetic 84x42 mesh has 3 528 nodes and 20 348 directed edges, collated
+# to 3 529 and 20 480; batch 4
+EAGLE_MESH, EAGLE_BS, EAGLE_BLOCKS = "84x42", 4, 15
+# f32 sums in another order than the twin's atomics (observed: a few 1e-8)
+SEGMENT_REL_TOL = 1e-6
+# (kernel, edge column, F, on MeshGraphNet's path): MGN sums edge rows into
+# the senders (forward) and into the receivers (backward of the receivers
+# gather) at F 128 and gathers node rows (F 128) and positions (F 2); GAT
+# sums a head's 32 channels and its attention weights (F 1)
+SEGMENT_CASES = [
+    ("segment_sum", 0, 128, True), ("segment_sum", 1, 128, True),
+    ("segment_sum", 0, 32, False), ("segment_sum", 0, 1, False),
+    ("segment_gather", 0, 128, True), ("segment_gather", 1, 128, True),
+    ("segment_gather", 0, 2, True), ("segment_gather", 0, 1, False),
+]
+
+
+def eagle_edges(dev) -> torch.Tensor:
+    """(4, 20480, 2) int32 edge ids of one collated batch at the EAGLE
+    geometry, RCM-relabeled as ``baselines_cli`` does."""
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.reorder import reorder_sample
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+
+    ds = SyntheticGraphDataset(n_trajectories=EAGLE_BS, mode="train", window_length=2,
+                               mesh_nodes=tuple(int(v) for v in EAGLE_MESH.split("x")))
+    samples = [reorder_sample(ds[i], "rcm") for i in range(EAGLE_BS)]
+    batch = collate_graphs(samples, max(s.mesh_pos.shape[1] for s in samples),
+                           max(s.edges.shape[0] for s in samples))
+    return torch.from_numpy(batch["edges"][:, 0]).to(dev)
+
+
+def _segment_rows(dev, g: torch.Generator) -> list[dict]:
+    """The segment sum and row gather against their twins at MeshGraphNet's
+    and GAT's shapes; the library calls are ``index_add`` and
+    ``index_select`` on the same ids (all in range here)."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    edges = eagle_edges(dev)
+    B, E = edges.shape[:2]
+    n = int(edges.max()) + 1  # the ghost slot is the last node row
+    rows = []
+    for kernel, col, F, main in SEGMENT_CASES:
+        index = so.SegmentIndex(edges[..., col], n)
+        index.csr()
+        ids = index.ids.long()
+        if kernel == "segment_sum":
+            x = torch.randn(B * E, F, generator=g).to(dev)
+            zeros = torch.zeros(index.n_rows, F, device=dev)
+            fn, twin = (lambda: so.segment_sum(x, index)), (lambda: so.segment_sum_ref(x, index))
+            library = lambda: torch.index_add(zeros, 0, ids, x)  # noqa: E731
+            n_out, ops = index.n_rows * F, x.numel()
+        else:
+            x = torch.randn(B * n, F, generator=g).to(dev)
+            fn, twin = (lambda: so.segment_gather(x, index)), (lambda: so.gather_ref(x, index))
+            library = lambda: torch.index_select(x, 0, ids)  # noqa: E731
+            n_out, ops = B * E * F, 0
+        out, ref = fn(), twin()
+        again, twin_again = fn(), twin()
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel=kernel, shape=f"{'edges' if kernel == 'segment_sum' else 'nodes'} "
+            f"{tuple(x.shape)} by edges[..., {col}] -> {tuple(out.shape)}", main_path=main,
+            rel=rel_err(out, ref), rel_tol=SEGMENT_REL_TOL,
+            max_abs_err=(out - ref).abs().max().item(),
+            exact=bool(torch.equal(out, ref)) if kernel == "segment_gather" else None,
+            deterministic=bool(torch.equal(again, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)),
+            ms=device_ms(fn), plain_ms=device_ms(twin), library_ms=device_ms(library),
+            **bound(nbytes(x, index.ids) + 4 * n_out, ops, "f32"),
+        ))
     return rows
 
 
@@ -491,12 +590,14 @@ def _counters():
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
     from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+    from fluid_llm_tpu_torch.ops import segment_ops as so
 
     return {"exact_attention": xa.causal_attention, "grid_slot_attention": gf.fused_slot_attention,
             "grid_slot_attention_bwd": gf.slot_attention_bwd,
             "flash_attention_fwd": fa.flash_forward, "flash_attention_dq": fa.flash_dq,
             "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode,
-            "quant_matmul_w8a8": qmm.qmm_w8a8, "quant_matmul_w8a16": qmm.qmm_w8a16}
+            "quant_matmul_w8a8": qmm.qmm_w8a8, "quant_matmul_w8a16": qmm.qmm_w8a16,
+            "segment_sum": so.segment_sum, "segment_gather": so.segment_gather}
 
 
 def reset_launches() -> None:
@@ -655,7 +756,8 @@ def phase_train(dev, seed: int, failures: list):
     per_step = dict(exact_attention=0, grid_slot_attention=convs, grid_slot_attention_bwd=convs,
                     flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
                     flash_attention_dkv=bcfg.n_layers, slab_decode_attention=0,
-                    quant_matmul_w8a8=0, quant_matmul_w8a16=0)
+                    quant_matmul_w8a8=0, quant_matmul_w8a16=0, segment_sum=0,
+                    segment_gather=0)
     want = {k: v * n_kernel_steps for k, v in per_step.items()}
     med_k, med_t = statistics.median(step_ms[True]), statistics.median(step_ms[False])
     print(f"[train] {len(losses)} autoreg steps on one batch (turns kernels/twins "
@@ -689,10 +791,11 @@ def phase_train(dev, seed: int, failures: list):
     )
 
 
-def device_profile(fn, n: int, wall_ms: float, tag: str):
+def device_profile(fn, n: int, wall_ms: float, tag: str, track: tuple[str, ...] = ()):
     """Device busy ms per call of ``fn`` (profiler over ``n`` calls), device
     ops per call, the idle share against the unprofiled ``wall_ms`` per
-    call, and the 8 largest device-time entries; printed under ``tag``."""
+    call, and the 8 largest device-time entries, then any other entry whose
+    name contains one of ``track``; printed under ``tag``."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -702,8 +805,9 @@ def device_profile(fn, n: int, wall_ms: float, tag: str):
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
     n_ops = sum(e.count for e in device) / n
     idle = 1.0 - busy_ms / wall_ms if busy_ms > 0 else None
-    top = [(_short(e.key), e.self_device_time_total / 1e3 / n)
-           for e in sorted(device, key=lambda e: -e.self_device_time_total)[:8]]
+    ranked = sorted(device, key=lambda e: -e.self_device_time_total)
+    ranked = ranked[:8] + [e for e in ranked[8:] if any(t in e.key for t in track)]
+    top = [(_short(e.key), e.self_device_time_total / 1e3 / n) for e in ranked]
     print(f"[{tag}] device busy {busy_ms:.3f} ms per call in {n_ops:.0f} device ops (profiler, "
           f"{n} calls) of {wall_ms:.3f} ms: idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'}; top: "
@@ -1065,6 +1169,174 @@ def phase_serve_exact(dev, failures: list, runs: str) -> dict:
     return dict(load_s=load_s, request_s=wall, launches=launches, agreement_rel_err=errs)
 
 
+# per rollout step of a window: (gathers, sums) forward, and what the
+# backward adds (each gather of the blocks' node rows is summed back, each
+# sum gathered back; the mesh-position gathers take no gradient)
+def graph_launches_per_step(model: str, n_processor: int, n_heads: int):
+    P, HP = n_processor, n_heads * n_processor
+    if model == "mgn":  # 2 position gathers; senders, receivers, one sum a block
+        return (2 + 2 * P, P), (P, 2 * P)
+    return (2 + 2 * HP, 2 * HP), (2 * HP, 2 * HP)  # GAT: per head of each block
+
+
+# One f32 MeshGraphNet step, kernels vs twins: the loss within 1e-5; the
+# gradient within 1e-3 rel L2.  The twins' index_add_ adds with atomics in
+# another order each run, which moves the forward's last bits and with
+# them ReLUs whose pre-activation lies within rounding of 0: two runs of
+# the twins themselves differed by up to 1.7e-4 (H100), the kernels and
+# the twins by 2.5e-5 - 8.8e-5.  The kernels repeat bit for bit.
+GRAPH_LOSS_TOL, GRAPH_GRAD_TOL = 1e-5, 1e-3
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``baselines_cli.main`` at the EAGLE geometry (synthetic 84x42 mesh,
+    batch 4, 15 blocks at width 128): MeshGraphNet for 2 epochs of one
+    step on 4 trajectories, validation, the 101-step eval of 4 test
+    trajectories, checkpoint and CSV; GAT (4 heads) for 1 epoch.  The
+    segment launches of each run must match the count from the code.  Then,
+    on one MeshGraphNet batch: the launches of one train step, step ms
+    through the kernels and the twins in turns, the device profile, and one
+    step's loss and gradient kernels vs twins; the segment sum kernel
+    repeated bit for bit on the batch's receivers."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+    from fluid_llm_tpu_torch.data.eagle_mesh import iterate_graph_batches
+    from fluid_llm_tpu_torch.models.baselines.mgn import mgn_loss
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    common = ["--dataset_path", "synthetic", "--mesh_nodes", EAGLE_MESH,
+              "--batch_size", str(EAGLE_BS), "--n_processor", str(EAGLE_BLOCKS),
+              "--n_traj", "4", "--device", str(dev), "--save_dir", os.path.join(tmp, "baselines")]
+    res = {}
+    for name, epochs in (("mgn", 2), ("gat", 1)):
+        argv = ["--model", name, "--epoch", str(epochs)] + common
+        args = cli.parse_args(argv)
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        fwd, bwd = graph_launches_per_step(name, args.n_processor, args.n_heads)
+        train = out["train_steps"] * (args.horizon_train - 1)
+        val = math.ceil(args.n_traj / args.batch_size) * args.epoch * (args.horizon_val - 1)
+        evals = out["n_test"] * (args.horizon_eval - 1)
+        want = dict.fromkeys(launches, 0)
+        want.update(segment_gather=train * (fwd[0] + bwd[0]) + (val + evals) * fwd[0],
+                    segment_sum=train * (fwd[1] + bwd[1]) + (val + evals) * fwd[1])
+        with open(out["csv"]) as f:
+            csv_rows = f.read().splitlines()
+        n_rmse = out["n_rmse"]
+        ok = (launches == want and os.path.exists(out["checkpoint"])
+              and len(csv_rows) == args.horizon_eval + 1 and n_rmse.shape == (args.horizon_eval,)
+              and bool(torch.isfinite(torch.from_numpy(n_rmse)).all())
+              and all(math.isfinite(x) for x in out["val_loss"] + out["train_loss"]))
+        eval_rate = out["eval_steps"] / out["eval_s"]
+        print(f"[graph baselines] baselines_cli --model {name} --mesh_nodes {EAGLE_MESH} "
+              f"--batch_size {EAGLE_BS} --n_processor {EAGLE_BLOCKS} --epoch {epochs} in "
+              f"{wall:.1f} s: "
+              f"{out['train_steps']} train steps (loss {out['train_loss']}; epochs "
+              f"{', '.join(f'{x:.2f}' for x in out['epoch_s'])} s), val loss {out['val_loss']}; "
+              f"eval of {out['n_test']} trajectories x {args.horizon_eval - 1} steps at "
+              f"{eval_rate:.1f} steps/s, N-RMSE mean {float(n_rmse.mean()):.5f}, CSV "
+              f"{len(csv_rows) - 1} rows; peak device memory {peak_mib:.1f} MiB; launches "
+              f"{_nonzero(launches)} (want {_nonzero(want)}, every other kernel 0: per "
+              f"rollout step forward {fwd}, backward {bwd} (gathers, sums)) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"graph baselines {name}: launches {launches} (want {want}), "
+                            f"summary {out}")
+        res[name] = dict(wall_s=wall, peak_mem_mib=peak_mib, launches=launches,
+                         eval_steps_per_s=eval_rate, mean_n_rmse=float(n_rmse.mean()),
+                         **{k: v for k, v in out.items() if k != "n_rmse"})
+
+    # one MeshGraphNet batch: a step's launches, step ms, profile, agreement
+    args = cli.parse_args(["--model", "mgn"] + common)
+    model, norm = cli.build_model(args, dev)
+    ds = cli.build_dataset(args, "train", args.horizon_train)
+    batch = cli.to_device(next(iterate_graph_batches(ds, args.batch_size, shuffle=False,
+                                                     reorder=cli.ORDER)), dev)
+    opt = cli.make_optimizer(model, args.lr)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+
+    def step():
+        return cli.train_step(args, model, norm, opt, batch, args.lr, noise)[1].item()
+
+    reset_launches()
+    step()
+    step_launches = read_launches()
+    fwd, bwd = graph_launches_per_step("mgn", args.n_processor, args.n_heads)
+    n_steps = args.horizon_train - 1
+    want = dict.fromkeys(step_launches, 0)
+    want.update(segment_gather=n_steps * (fwd[0] + bwd[0]), segment_sum=n_steps * (fwd[1] + bwd[1]))
+    step_ms = {True: [], False: []}
+    for kernels in (True, False, False, True):
+        model.kernels = kernels
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            step_ms[kernels].append((time.perf_counter() - t0) * 1e3)
+    model.kernels = True
+    med_k, med_t = (statistics.median(step_ms[k]) for k in (True, False))
+    print(f"[graph baselines] MeshGraphNet train step (batch {tuple(batch['state'].shape)}, "
+          f"edges {tuple(batch['edges'].shape)}): launches {_nonzero(step_launches)} (want "
+          f"{_nonzero(want)}, every other kernel 0); step ms through the kernels median "
+          f"{med_k:.2f} (runs {', '.join(f'{x:.2f}' for x in step_ms[True])}), through the "
+          f"twins median {med_t:.2f} (runs {', '.join(f'{x:.2f}' for x in step_ms[False])})")
+    if step_launches != want:
+        failures.append(f"graph baselines step launches {step_launches} != {want}")
+    busy_ms, n_ops, idle, top = device_profile(step, 2, med_k, "graph baselines train step",
+                                               track=("segment_",))
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for kernels in (True, False, True, False):
+        model.load_state_dict(state)
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        noise.manual_seed(seed)
+        _, oh, tgt, _ = cli.apply_model(args, model, norm, batch, train=True, generator=noise)
+        loss = mgn_loss(oh, tgt, batch["mask"], w_pressure=args.w_pressure)
+        loss.backward()
+        runs.append((loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()])))
+    model.kernels = True
+    (lk, gk), (lt, gt), (lk2, gk2), (_, gt2) = runs
+    loss_rel, grad_rel = abs(lk - lt) / abs(lt), rel_err(gk, gt)
+    step_repeat = lk == lk2 and bool(torch.equal(gk, gk2))
+    twin_repeat_rel = rel_err(gt2, gt)  # the twins' atomics add in another order each run
+    n = batch["mesh_pos"].shape[2]
+    receivers = batch["edges"][:, 0, :, 1]
+    index = so.SegmentIndex(receivers, n)
+    values = torch.randn(index.ids.shape[0], 128, device=dev, generator=noise)
+    sum_repeat = bool(torch.equal(so.segment_sum(values, index), so.segment_sum(values, index)))
+    index_ms = event_ms(lambda: so.SegmentIndex(receivers, n).csr())
+    ok = loss_rel <= GRAPH_LOSS_TOL and grad_rel <= GRAPH_GRAD_TOL and sum_repeat
+    print(f"[graph baselines agreement] one step, kernels vs twins: loss {lk:.7f} vs {lt:.7f} "
+          f"(rel {loss_rel:.3e}, bound {GRAPH_LOSS_TOL}), gradient rel L2 {grad_rel:.3e} "
+          f"(bound {GRAPH_GRAD_TOL}; the "
+          f"twins against themselves {twin_repeat_rel:.3e}); the "
+          f"kernels' step repeated bit for bit: {step_repeat}; segment sum on the receivers "
+          f"(F 128) repeated bit for bit: {sum_repeat}; one segment index (flatten, stable "
+          f"sort, search) {index_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"graph baselines agreement: loss rel {loss_rel}, gradient rel "
+                        f"{grad_rel}, step repeat {step_repeat}, segment sum repeat "
+                        f"{sum_repeat}")
+    res.update(launches=res["mgn"]["launches"], step_launches=step_launches,
+               step_ms=step_ms[True], plain_step_ms=step_ms[False], median_step_ms=med_k,
+               plain_median_step_ms=med_t, device_busy_ms=busy_ms, device_ops_per_step=n_ops,
+               idle_share=idle, top_device_ms=top, loss_rel=loss_rel, grad_rel=grad_rel,
+               twin_repeat_grad_rel=twin_repeat_rel,
+               step_repeat_bit_equal=step_repeat, sum_repeat_bit_equal=sum_repeat,
+               index_ms=index_ms)
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -1079,20 +1351,55 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     failures: list[str] = []
 
-    device = phase_device()
-    build_s = phase_build()
-    rows = phase_kernels(dev, failures)
-    slice_res = phase_rollout(dev, args.seed, failures, streaming=False)
-    trainer, train_batch, train_res = phase_train(dev, args.seed, failures)
-    train_agree = phase_train_agreement(trainer, train_batch, args.seed, failures)
-    del trainer, train_batch
-    with tempfile.TemporaryDirectory() as tmp:  # phases 8-12: checkpoints, served again
+    def phase(name: str, fn, *a, **kw):
+        """``fn``'s result, or None after recording its exception as a
+        failure of the phase (the run goes on, and exits 1)."""
+        try:
+            return fn(*a, **kw)
+        except Exception as e:  # noqa: BLE001 -- each phase reports, the run goes on
+            traceback.print_exc()
+            failures.append(f"phase {name} raised {type(e).__name__}: {e}")
+            print(f"[{name}] FAIL: raised {type(e).__name__}: {e}")
+            return None
+
+    device = phase("device", phase_device)
+    build_s = phase("build", phase_build)
+    rows = phase("kernels", phase_kernels, dev, failures) or []
+    slice_res = phase("slice", phase_rollout, dev, args.seed, failures, streaming=False)
+    trained = phase("train", phase_train, dev, args.seed, failures)
+    train_res = train_agree = None
+    if trained is not None:
+        trainer, train_batch, train_res = trained
+        train_agree = phase("train agreement", phase_train_agreement, trainer, train_batch,
+                            args.seed, failures)
+        del trainer, train_batch, trained
+    with tempfile.TemporaryDirectory() as tmp:  # phases 8-13: checkpoints, served again
         opt_dir, flagship_dir = os.path.join(tmp, "training1"), os.path.join(tmp, "flagship")
-        entry_res = phase_entry_points(dev, args.seed, failures, opt_dir)
-        stream_res = phase_rollout(dev, args.seed, failures, streaming=True)
-        flagship_res = phase_flagship_entry_points(dev, args.seed, failures, flagship_dir)
-        serve_res = phase_serve(dev, failures, os.path.join(flagship_dir, "runs"))
-        serve_exact_res = phase_serve_exact(dev, failures, os.path.join(opt_dir, "runs"))
+        entry_res = phase("entry points", phase_entry_points, dev, args.seed, failures, opt_dir)
+        stream_res = phase("streaming", phase_rollout, dev, args.seed, failures, streaming=True)
+        flagship_res = phase("flagship entry points", phase_flagship_entry_points, dev,
+                             args.seed, failures, flagship_dir)
+        serve_res = phase("serve", phase_serve, dev, failures, os.path.join(flagship_dir, "runs"))
+        serve_exact_res = phase("serve exact", phase_serve_exact, dev, failures,
+                                os.path.join(opt_dir, "runs"))
+        graph_res = phase("graph baselines", phase_graph_baselines, dev, args.seed, failures,
+                          tmp)
+
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows,
+                           slice=slice_res, train=train_res,
+                           train_agreement=train_agree, entry_points=entry_res,
+                           streaming=stream_res, flagship_entry_points=flagship_res,
+                           serve=serve_res, serve_exact=serve_exact_res,
+                           graph_baselines=graph_res, failures=failures),
+                      f, indent=1, default=str)
+    if failures:
+        for failure in failures:
+            print(f"chip_smoke FAILED: {failure}")
+        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
+        return 1
 
     # (source, TPU kernel it replaces, the main path whose run counts it)
     sources = {
@@ -1114,6 +1421,10 @@ def main(argv=None) -> int:
                               "fluid_llm_tpu/ops/quant_matmul.py:113", serve_res),
         "quant_matmul_w8a16": ("fluid_llm_tpu_torch/csrc/quant_matmul.cu",
                                "fluid_llm_tpu/ops/quant_matmul.py:91", serve_exact_res),
+        "segment_sum": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
+                        "fluid_llm_tpu/ops/segment_sum_pallas.py:123", graph_res),
+        "segment_gather": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
+                           "fluid_llm_tpu/ops/segment_sum_pallas.py:142", graph_res),
     }
     kernels = []
     for name, (source, replaces, path_res) in sources.items():
@@ -1126,18 +1437,6 @@ def main(argv=None) -> int:
             bound_ms=main_rows[0]["bound_ms"], bound_by=main_rows[0]["bound_by"],
             library_ms=main_rows[0]["library_ms"],
         ))
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows,
-                           slice=slice_res, train=train_res,
-                           train_agreement=train_agree, entry_points=entry_res,
-                           streaming=stream_res, flagship_entry_points=flagship_res,
-                           serve=serve_res, serve_exact=serve_exact_res,
-                           failures=failures), f, indent=1, default=str)
-    if failures:
-        print("chip_smoke FAILED: " + "; ".join(failures), file=sys.stderr)
-        return 1
     print(json.dumps({"kernels": kernels}))
     print(device["smi"])
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["name"],

@@ -1,7 +1,7 @@
 """Synthetic cylinder-flow-like dataset for tests and benchmarks.
 
-Counterpart of ``fluid_llm_tpu/data/synthetic.py`` (cylinder part; the
-graph-format EAGLE variant comes with the graph baselines).  The reference
+Counterpart of ``fluid_llm_tpu/data/synthetic.py``: the cylinder patch
+dataset and the graph-format EAGLE variant of the graph baselines.  The reference
 expects the DeepMind MeshGraphNets ``cylinder_flow`` pickles on disk, which
 are not vendored; this generates trajectories of the same structure -- an
 irregular triangular mesh with a circular obstacle and a smooth unsteady
@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from fluid_llm_tpu_torch.core.triangulation import get_mesh_interpolation
+from fluid_llm_tpu_torch.data.eagle_mesh import (
+    NODE_INPUT, NODE_NORMAL, NODE_OUTPUT, NODE_WALL, GraphSample, faces_to_edges, one_hot9)
 from fluid_llm_tpu_torch.data.pipeline import PatchDataset, TrajectorySource
 
 
@@ -57,6 +59,74 @@ def analytic_flow(pos: np.ndarray, n_steps: int, seed: int) -> np.ndarray:
     vy = 0.15 * np.sin(6.0 * y[None] - 1.7 * t + ph[1]) * np.cos(3.0 * x[None])
     p = 0.05 + 0.2 * np.cos(3.0 * x[None] + 5.0 * y[None] - 2.1 * t + ph[2])
     return np.stack([vx, vy, p], axis=1).astype(np.float32)  # (T, 3, N)
+
+
+class SyntheticGraphDataset:
+    """Graph-format synthetic trajectories for the EAGLE-baseline pipeline
+    (``fluid_llm_tpu/data/synthetic.py:61-152``): ``EagleMGNDataset``'s
+    sample structure (state = [Vx, Vy, P, P], one-hot node types,
+    bidirectional edges) on the generated meshes and analytic flow of
+    :class:`SyntheticCylinderDataset`.  Everything but the window start is
+    computed once per trajectory and cached.  Cluster tables (``n_cluster >
+    0``, GraphViT's) come with GraphViT."""
+
+    def __init__(
+        self,
+        n_trajectories: int = 4,
+        mode: str = "train",
+        window_length: int = 5,
+        mesh_nodes: tuple[int, int] = (24, 10),
+        max_steps: int = 200,
+        n_cluster: int = 0,
+        seed: int = 1234,
+    ):
+        if n_cluster > 0:
+            raise NotImplementedError("SyntheticGraphDataset(n_cluster > 0): cluster tables come "
+                                      "with GraphViT (ROADMAP Queue 1 item 11)")
+        self.n_trajectories = n_trajectories
+        self.mode = mode
+        self.window_length = window_length
+        self.mesh_nodes = mesh_nodes
+        self.max_steps = max_steps
+        self.n_cluster = n_cluster
+        self.base_seed = seed + {"train": 0, "valid": 10_000, "test": 20_000}[mode]
+        self._rng = np.random.default_rng(seed)
+        self._traj_cache: dict[int, tuple] = {}
+
+    def __len__(self):
+        return self.n_trajectories
+
+    def _trajectory(self, item: int):
+        """Mesh, the full analytic trajectory, edges and one-hot types."""
+        if item not in self._traj_cache:
+            pos, faces = make_cylinder_mesh(self.base_seed + item, *self.mesh_nodes)
+            states = np.ascontiguousarray(
+                analytic_flow(pos, self.max_steps, self.base_seed + item), np.float32)
+            node_type = np.full(len(pos), NODE_NORMAL, np.int64)
+            node_type[pos[:, 0] <= pos[:, 0].min()] = NODE_INPUT
+            node_type[pos[:, 0] >= pos[:, 0].max()] = NODE_OUTPUT
+            node_type[(pos[:, 1] <= pos[:, 1].min()) | (pos[:, 1] >= pos[:, 1].max())] = NODE_WALL
+            self._traj_cache[item] = (pos.astype(np.float32), faces, states,
+                                      faces_to_edges(faces.astype(np.int64)), one_hot9(node_type))
+        return self._traj_cache[item]
+
+    def __getitem__(self, item: int) -> GraphSample:
+        pos, faces, states, edges, nt9 = self._trajectory(item)
+        T = self.window_length
+        t0 = 100 if self.mode != "train" else int(
+            self._rng.integers(0, self.max_steps - T + 1)
+        )
+        t0 = min(t0, self.max_steps - T)
+        window = states[t0:t0 + T].transpose(0, 2, 1)  # (T, N, 3)
+        press = np.repeat(window[..., 2:], 2, axis=-1)
+        state = np.concatenate([window[..., :2], press], axis=-1).astype(np.float32)
+        return GraphSample(
+            mesh_pos=np.repeat(pos[None], T, axis=0),
+            edges=edges,
+            state=state,
+            node_type=np.repeat(nt9[None], T, axis=0),
+            faces=faces,
+        )
 
 
 class SyntheticCylinderDataset(PatchDataset):

@@ -41,6 +41,8 @@ SIGNATURES = {
     "slab_decode_attention": [_P] * 6 + [_I] * 6 + [_LL, _I, ctypes.c_float, _P],
     "quant_matmul_w8a8": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
     "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
+    "segment_sum_f32": [_P] * 4 + [_I] * 3 + [_P],
+    "segment_gather_f32": [_P] * 3 + [_LL] + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

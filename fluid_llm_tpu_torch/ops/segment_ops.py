@@ -1,0 +1,232 @@
+"""Batched segment sum and row gather for mesh-graph message passing.
+
+Counterpart of ``fluid_llm_tpu/ops/segment_ops.py`` and
+``ops/segment_sum_pallas.py``.  The kernels are in ``csrc/segment_ops.cu``
+(CUDA C++ for ``sm_90a``); they replace the TPU kernels
+``fluid_llm_tpu/ops/segment_sum_pallas.py:_scatter_kernel`` (through
+``_scatter_call``) and ``:_expand_kernel`` (through ``_expand_call``).
+
+- :func:`segment_sum_nodes` ``(values (..., E, *F), idx (..., E), N) ->
+  (..., N, *F)``: each node row is the sum of the edge rows whose id names
+  it; ids outside ``[0, N)`` are dropped (``jax.ops.segment_sum``).
+- :func:`gather_nodes` ``(V (..., N, F), idx (..., E)) -> (..., E, F)``:
+  ``torch.gather`` along the node axis, except that an id outside
+  ``[0, N)`` gives a zero row (the transpose of the sum's dropping).
+
+Ids flatten batch-major with per-element offsets, and an id outside its
+own element's range maps to -1, never into the next element's row 0
+(``segment_sum_pallas.py:270-282``).  :class:`SegmentIndex` holds that
+flattening, and for the sum kernel a CSR of it (a stable sort of the ids),
+so that one index serves every call by the same ids: the gathers and sums
+of all message-passing blocks, and the backward of each.
+
+Each operation is a ``torch.autograd.Function`` whose backward is the other
+one by the same ids, as the JAX package's ``custom_vjp`` pair
+(``segment_ops.py:107-155``): d(segment sum)/dvalues is a gather, d(gather)/
+dnodes a segment sum.  No double backward, as there.
+
+CUDA tensors launch the kernels (:func:`segment_sum`, :func:`segment_gather`)
+or raise; CPU tensors, and ``kernels=False``, take the plain twins
+:func:`segment_sum_ref` (``index_add_`` into zeros) and :func:`gather_ref`
+(``index_select`` and a mask).  The kernels take f32 values and int32 ids;
+the sum is deterministic (no atomics; the twin's ``index_add_`` on CUDA is
+not).  The TPU kernels' window machinery (``windowed``, ``window``,
+``WINDOW_CHOICES``, ``_chunk_row0``, ``host_kernel_ok``, ``min_window``, the
+``lax.cond`` predicate, the bf16 value limbs) answers the TPU's serialized
+scatter and is not carried over: the CUDA kernels take any ids.
+
+Bound and design, in short (the source's header has the detail): both are
+bytes bound (~50 MB a call at the MeshGraphNet step, one add per element);
+the sum runs F/VEC threads per node row over that row's edges in ascending
+order and writes the row once, the gather F/VEC threads per edge row.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from fluid_llm_tpu_torch.ops import _build
+
+
+class SegmentIndex:
+    """The ids of one ``(..., E)`` id tensor over ``num_nodes`` rows per
+    batch element, flattened: ``ids`` int32 ``(M,)`` with ``M = prod(...) *
+    E``, ``idx + b * num_nodes`` for an id in ``[0, num_nodes)`` and -1
+    otherwise.  :meth:`csr` sorts them once for the sum kernel."""
+
+    def __init__(self, idx: torch.Tensor, num_nodes: int):
+        if idx.dim() < 1 or idx.is_floating_point():
+            raise ValueError(f"SegmentIndex: integer ids (..., E), got {idx.dtype} "
+                             f"{tuple(idx.shape)}")
+        self.batch_shape = tuple(idx.shape[:-1])
+        self.n_edges = idx.shape[-1]
+        self.num_nodes = int(num_nodes)
+        b = math.prod(self.batch_shape)
+        self.n_rows = b * self.num_nodes
+        if max(self.n_rows, b * self.n_edges) >= 2**31:
+            raise ValueError("SegmentIndex: more than 2**31 rows or edges")
+        idx2 = idx.reshape(b, self.n_edges).long()
+        ok = (idx2 >= 0) & (idx2 < self.num_nodes)
+        off = torch.arange(b, device=idx.device)[:, None] * self.num_nodes
+        self.ids = torch.where(ok, idx2 + off, -1).to(torch.int32).reshape(-1)
+        self._csr: tuple[torch.Tensor, torch.Tensor] | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.ids.device
+
+    def csr(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(perm, row_ptr)``, int32: node row r's edges, ascending, are
+        ``perm[row_ptr[r]:row_ptr[r + 1]]``; dropped ids sort past the last
+        row.  Built on the first call (a stable sort and a search, outside
+        the kernel, as the TPU package computes ``_chunk_row0`` in XLA)."""
+        if self._csr is None:
+            key = torch.where(self.ids >= 0, self.ids, self.n_rows)
+            sorted_key, perm = torch.sort(key, stable=True)
+            bounds = torch.arange(self.n_rows + 1, dtype=key.dtype, device=key.device)
+            row_ptr = torch.searchsorted(sorted_key, bounds, out_int32=True)
+            self._csr = (perm.to(torch.int32), row_ptr)
+        return self._csr
+
+
+def segment_sum_ref(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """Plain twin of the sum kernel: values (M, F) -> (n_rows, F); dropped
+    ids land in an extra row that is cut off."""
+    rows = torch.where(index.ids >= 0, index.ids, index.n_rows).long()
+    out = values2.new_zeros(index.n_rows + 1, values2.shape[1])
+    return out.index_add_(0, rows, values2)[:index.n_rows]
+
+
+def gather_ref(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """Plain twin of the gather kernel: nodes (n_rows, F) -> (M, F), zero
+    rows for dropped ids."""
+    rows = nodes2.index_select(0, index.ids.clamp(min=0).long())
+    return torch.where((index.ids >= 0)[:, None], rows, 0.0)
+
+
+def _check(name: str, x: torch.Tensor, index: SegmentIndex, rows: int) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"{name}: f32 ({rows}, F) expected, got {x.dtype} {tuple(x.shape)}")
+    if index.device != x.device:
+        raise ValueError(f"{name}: ids on {index.device}, values on {x.device}")
+    return x.contiguous()
+
+
+def _vectorized(*tensors) -> int:
+    """16-byte rows: F a multiple of 4 and every pointer 16-byte aligned."""
+    return int(all(t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def segment_sum(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The sum kernel on CUDA tensors: values f32 (M, F) -> (n_rows, F)."""
+    values2 = _check("segment_sum", values2, index, index.ids.shape[0])
+    perm, row_ptr = index.csr()
+    out = torch.empty(index.n_rows, values2.shape[1], dtype=torch.float32, device=values2.device)
+    with torch.cuda.device(values2.device):
+        err = _build.load().segment_sum_f32(
+            values2.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
+            index.n_rows, values2.shape[1], _vectorized(values2, out),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "segment_sum_f32")
+    segment_sum.launches += 1
+    return out
+
+
+def segment_gather(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The gather kernel on CUDA tensors: nodes f32 (n_rows, F) -> (M, F)."""
+    nodes2 = _check("segment_gather", nodes2, index, index.n_rows)
+    M = index.ids.shape[0]
+    out = torch.empty(M, nodes2.shape[1], dtype=torch.float32, device=nodes2.device)
+    with torch.cuda.device(nodes2.device):
+        err = _build.load().segment_gather_f32(
+            nodes2.data_ptr(), index.ids.data_ptr(), out.data_ptr(), M, index.n_rows,
+            nodes2.shape[1], _vectorized(nodes2, out),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "segment_gather_f32")
+    segment_gather.launches += 1
+    return out
+
+
+segment_sum.launches = 0  # kernel launches in this process
+segment_gather.launches = 0
+
+
+def _route(x: torch.Tensor, kernels: bool, kernel, twin):
+    if x.device.type == "cpu" or not kernels:
+        return twin
+    if x.device.type != "cuda":
+        raise ValueError(f"segment ops: unsupported device {x.device}")
+    return kernel
+
+
+def _sum2d(values2, index, kernels: bool):
+    return _route(values2, kernels, segment_sum, segment_sum_ref)(values2, index)
+
+
+def _gather2d(nodes2, index, kernels: bool):
+    return _route(nodes2, kernels, segment_gather, gather_ref)(nodes2, index)
+
+
+class SegmentSum(torch.autograd.Function):
+    """values (M, F) -> (n_rows, F); backward: a gather by the same ids."""
+
+    @staticmethod
+    def forward(ctx, values2, index: SegmentIndex, kernels: bool):
+        ctx.index, ctx.kernels = index, kernels
+        return _sum2d(values2, index, kernels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather2d(g.contiguous(), ctx.index, ctx.kernels), None, None
+
+
+class GatherNodes(torch.autograd.Function):
+    """nodes (n_rows, F) -> (M, F); backward: a segment sum by the same ids."""
+
+    @staticmethod
+    def forward(ctx, nodes2, index: SegmentIndex, kernels: bool):
+        ctx.index, ctx.kernels = index, kernels
+        return _gather2d(nodes2, index, kernels)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum2d(g.contiguous(), ctx.index, ctx.kernels), None, None
+
+
+def as_index(idx, num_nodes: int) -> SegmentIndex:
+    """``idx`` itself if it is a :class:`SegmentIndex` over ``num_nodes``,
+    else a new one over the id tensor."""
+    if isinstance(idx, SegmentIndex):
+        if idx.num_nodes != num_nodes:
+            raise ValueError(f"SegmentIndex over {idx.num_nodes} nodes, {num_nodes} given")
+        return idx
+    return SegmentIndex(idx, num_nodes)
+
+
+def segment_sum_nodes(values: torch.Tensor, idx, num_nodes: int,
+                      kernels: bool = True) -> torch.Tensor:
+    """values (..., E, *F); idx (..., E) ids or their :class:`SegmentIndex`
+    -> (..., N, *F) summed per node."""
+    index = as_index(idx, num_nodes)
+    lead = index.batch_shape + (index.n_edges,)
+    if tuple(values.shape[:len(lead)]) != lead:
+        raise ValueError(f"segment_sum_nodes: values {tuple(values.shape)} against ids {lead}")
+    feat = values.shape[len(lead):]
+    out = SegmentSum.apply(values.reshape(-1, math.prod(feat)), index, kernels)
+    return out.reshape(*index.batch_shape, index.num_nodes, *feat)
+
+
+def gather_nodes(V: torch.Tensor, idx, kernels: bool = True) -> torch.Tensor:
+    """V (..., N, F); idx (..., E) ids or their :class:`SegmentIndex` ->
+    (..., E, F); zero rows for ids outside ``[0, N)``."""
+    index = as_index(idx, V.shape[-2])
+    if tuple(V.shape[:-2]) != index.batch_shape:
+        raise ValueError(f"gather_nodes: V {tuple(V.shape)} against ids {index.batch_shape}")
+    out = GatherNodes.apply(V.reshape(-1, V.shape[-1]), index, kernels)
+    return out.reshape(*index.batch_shape, index.n_edges, V.shape[-1])

@@ -13,7 +13,13 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
   int8 ``q`` transposed to (out, in), ``scale`` and the nf4 leaves as
   they are (``…attn.q.w.q`` -> ``…attn.q.q``);
 - every other leaf (position tables, ``att``, LoRA ``A``/``B``/``m``,
-  ``bos``) keeps its name and layout.
+  ``bos``) keeps its name and layout;
+- a ``None`` leaf (an MLP without LayerNorm, ``"ln": None``) has no
+  parameter.
+
+The same bridge takes the graph baselines' ``mgn_init`` / ``gat_init``
+trees (``models/baselines``); ``from_jax_norm`` takes their normalizer
+trees.
 
 Loading the reference's ``.pt`` checkpoints (``tools/reference_ckpt.py``)
 comes later.
@@ -45,7 +51,7 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
         elif isinstance(node, (list, tuple)):
             for i, val in enumerate(node):
                 walk(val, path + [str(i)])
-        else:
+        elif node is not None:
             *prefix, name = path
             t = _tensor(node)
             if prefix and prefix[-1] == "w" and name in QUANT_LEAVES:
@@ -62,3 +68,11 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def from_jax_norm(tree) -> dict[str, dict[str, torch.Tensor]]:
+    """A graph baseline's normalizer tree (``{"nodes": {"acc", "acc_sq",
+    "count", "mean", "std"}, ...}``, numpy leaves) -> the same nesting of f32
+    tensors (``models.baselines.base.load_norm`` checks it)."""
+    return {name: {k: _tensor(v).float() for k, v in state.items()}
+            for name, state in tree.items()}

@@ -444,3 +444,134 @@ def test_quantized_streaming_rollout_kernels_match_twins(dev):
         assert ran == ((7 * 2 * 7, 0) if kernels else (0, 0))
     assert bool(torch.isfinite(out[True]).all())
     assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
+
+
+# -- segment sum and row gather (graph baselines) --------------------------------
+# f32.  The gather is a copy: equal to its twin bit for bit.  The sum is held
+# to atol 1e-5 + rtol 1e-5: the twin's index_add_ adds with atomics in
+# another order, and the ghost node's row sums the 132 ghost edges of each
+# EAGLE-sized graph.  Two calls of the sum kernel must be bit-equal.
+
+
+@pytest.fixture(scope="module")
+def eagle_edges():
+    """(4, 20480, 2) int32 edge ids of one collated MeshGraphNet batch at the
+    EAGLE geometry (synthetic mesh 84x42: 3 528 nodes, 20 348 edges, padded
+    to 3 529 and 20 480), RCM-relabeled as baselines_cli does."""
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.reorder import reorder_sample
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+
+    ds = SyntheticGraphDataset(n_trajectories=4, mode="train", window_length=2,
+                               mesh_nodes=(84, 42))
+    samples = [reorder_sample(ds[i], "rcm") for i in range(4)]
+    n = max(s.mesh_pos.shape[1] for s in samples)
+    e = max(s.edges.shape[0] for s in samples)
+    return torch.from_numpy(collate_graphs(samples, n, e, 1)["edges"][:, 0])
+
+
+@pytest.mark.parametrize("F", [1, 2, 32, 128])
+@pytest.mark.parametrize("col", [0, 1])
+def test_segment_kernels_match_twins_at_eagle_shapes(dev, eagle_edges, F, col):
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    B, E = eagle_edges.shape[:2]
+    N = 3529
+    g = torch.Generator().manual_seed(F + col)
+    index = so.SegmentIndex(eagle_edges[..., col].to(dev), N)
+    vals = torch.randn(B * E, F, generator=g).to(dev)
+    nodes = torch.randn(B * N, F, generator=g).to(dev)
+    before = (so.segment_sum.launches, so.segment_gather.launches)
+    got_sum = so.segment_sum(vals, index)
+    got_gather = so.segment_gather(nodes, index)
+    torch.cuda.synchronize()
+    assert (so.segment_sum.launches, so.segment_gather.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(got_sum, so.segment_sum_ref(vals, index), atol=1e-5, rtol=1e-5)
+    assert torch.equal(got_gather, so.gather_ref(nodes, index))
+    assert torch.equal(so.segment_sum(vals, index), got_sum)  # deterministic
+
+
+@pytest.mark.parametrize("F", [1, 128])
+def test_segment_kernels_drop_out_of_range_ids(dev, F):
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(3)
+    B, E, N = 3, 1000, 257
+    ids = torch.sort(torch.randint(0, N, (B, E), generator=g), dim=1).values
+    ids[:, -40:] = N
+    ids[0, 3:9] = N + 11
+    ids[2, 100] = -5
+    index = so.SegmentIndex(ids.to(dev), N)
+    vals = torch.randn(B * E, F, generator=g).to(dev)
+    nodes = torch.randn(B * N, F, generator=g).to(dev)
+    got = so.segment_gather(nodes, index)
+    dropped = ((ids < 0) | (ids >= N)).reshape(-1).to(dev)
+    assert torch.equal(got, so.gather_ref(nodes, index))
+    assert bool((got[dropped] == 0).all())
+    torch.testing.assert_close(so.segment_sum(vals, index), so.segment_sum_ref(vals, index),
+                               atol=1e-5, rtol=1e-5)
+    # nothing of batch element 0's ghosts lands in element 1's row 0
+    kept = torch.where(dropped[:, None], 0.0, vals)
+    want_row = kept.reshape(B, E, F)[1][ids[1].to(dev) == 0].sum(0)
+    torch.testing.assert_close(so.segment_sum(vals, index)[N], want_row, atol=1e-5, rtol=1e-5)
+
+
+def test_segment_functions_gradients_match_twins(dev, eagle_edges):
+    """Autograd through SegmentSum / GatherNodes on the kernels against the
+    same Functions on the twins (``kernels=False``)."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(5)
+    B, E = eagle_edges.shape[:2]
+    N, F = 3529, 32
+    edges = eagle_edges.to(dev)
+    vals = torch.randn(B, E, F, generator=g).to(dev)
+    V = torch.randn(B, N, F, generator=g).to(dev)
+    w = torch.randn(B, N, F, generator=g).to(dev)
+    grads = {}
+    for kernels in (True, False):
+        tv, tV = vals.clone().requires_grad_(), V.clone().requires_grad_()
+        s = so.segment_sum_nodes(tv, edges[..., 1], N, kernels)
+        out = so.gather_nodes(tV + s, edges[..., 0], kernels)
+        before = (so.segment_sum.launches, so.segment_gather.launches)
+        (out.square().sum() + (s * w).sum()).backward()
+        ran = (so.segment_sum.launches - before[0], so.segment_gather.launches - before[1])
+        assert ran == ((1, 1) if kernels else (0, 0))
+        grads[kernels] = (tv.grad, tV.grad)
+    for a, b in zip(grads[True], grads[False]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+def test_mgn_step_launches_and_agreement_on_card(dev):
+    """A small MeshGraphNet (2 blocks) train-mode loss and gradient through
+    the kernels against the twins, and the launch counts of one step: per
+    rollout step 2 + 2P gathers and P sums forward; backward 2P sums (the
+    blocks' gathers) and P gathers (their sums)."""
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+    from fluid_llm_tpu_torch.models.baselines.mgn import MGN, mgn_loss
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    ds = SyntheticGraphDataset(n_trajectories=2, mode="valid", window_length=4)
+    samples = [ds[i] for i in range(2)]
+    b = collate_graphs(samples, max(s.mesh_pos.shape[1] for s in samples),
+                       max(s.edges.shape[0] for s in samples))
+    inputs = [torch.from_numpy(b[k]).to(dev) for k in ("mesh_pos", "edges", "state", "node_type")]
+    P, steps = 2, 3
+    model = MGN(4, P, generator=torch.Generator().manual_seed(0)).to(dev)
+    res = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        before = (so.segment_sum.launches, so.segment_gather.launches)
+        _, oh, tgt, _ = model.apply(model.init_norm(dev), *inputs, train=True)
+        loss = mgn_loss(oh, tgt, torch.from_numpy(b["mask"]).to(dev))
+        loss.backward()
+        ran = (so.segment_sum.launches - before[0], so.segment_gather.launches - before[1])
+        want = (steps * (P + 2 * P), steps * (2 + 2 * P + P)) if kernels else (0, 0)
+        assert ran == want
+        res[kernels] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
+    # the twins' atomics move the forward's last bits and with them ReLUs
+    # within rounding of 0: the gradient bound is chip_smoke's GRAPH_GRAD_TOL
+    assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
+    assert _rel(res[True][1], res[False][1]) <= 1e-3
