@@ -16,13 +16,18 @@ Phases, each printing one line per result; any failure exits nonzero:
                unwritten, the 61-token prefill) and the serving linears'
                (int8 matmul w8a8 at the flagship's 60 and 61 rows and
                OPT's 661, w8a16 at OPT's 661 and 60 with its biases and at
-               the flagship's 60): relative
+               the flagship's 60), the stacked streaming step's (indexed
+               linear at its five (M, K, N), M 60 and 61, layers 0 and 11
+               of 12) and ``attn_impl="short"``'s (short attention at the
+               training step's (8, 601, 768) and the rollout's (1, 661,
+               768) with 7 of 10 window frames invalid): relative
                L2 error (bound REL_TOL) and device time per call, kernel,
                plain and the PyTorch library call that computes the same
                function (``library_ms``: ``scaled_dot_product_attention``
                with the same mask, its backward; ``torch._int_mm`` on the
                quantised activations; bf16 ``F.linear`` on the weight
-               already dequantised), beside ``bound_ms``: the larger of the
+               already dequantised, or on the host-indexed view ``w[li]``),
+               beside ``bound_ms``: the larger of the
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
@@ -102,9 +107,24 @@ Phases, each printing one line per result; any failure exits nonzero:
                GRAPH_GRAD_TOL) and the twins against themselves, and the
                segment sum repeated bit for bit (the kernels' whole step
                too, shown).  Phase 3 holds both kernels
-               to their twins at these shapes (the gather bit for bit).
+               to their twins at these shapes (the gather bit for bit);
+14. stacked streaming -- phase 9 with the weights prepared in the
+               stacked-layer layout (``FLUID_SCAN_LAYERS=1``): launches must
+               read 5x12x252 (indexed linear: qkv, o, gate, up, down of
+               every layer of every step and of the prefill), 12x252 (slab
+               decode), 3x251 (slot attention), 0 elsewhere; step 1 against
+               the twins and against the unrolled layout of the same
+               weights, each <= REL_TOL;
+15. short train -- phases 6 and 7 with the backbone built with
+               ``attn_impl="short"``: 12 short-attention launches a step (the
+               backward recomputes the twin), 0 flash, 3 and 3 slot;
+16. short rollout -- phase 4 with ``attn_impl="short"`` on the stacked
+               layout: 11x251 short-attention launches, 0 exact, 0 indexed
+               linear (the stacked forward reads weight slices); step 1
+               against the twins and the unrolled layout.
 
-Phases 8 to 13 share one temporary folder, removed at the end.  An
+Phases 8 to 13 share one temporary folder, removed at the end.  Phases 14
+to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
 the run then exits 1 without a result.
@@ -127,6 +147,7 @@ import sys
 import tempfile
 import time
 import traceback
+from unittest import mock
 
 import torch
 
@@ -484,6 +505,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             **bound(nbytes(x, q, scale, b, out), 2 * M * N * K,
                     "int8" if mode == "w8a8" else "bf16"),
         ))
+    rows += _indexed_linear_rows(dev, g) + _short_attention_rows(dev, g)
     rows += _segment_rows(dev, g)
     for r in rows:
         ok = (r["rel"] <= r.get("rel_tol", REL_TOL) and r.get("finite", True)
@@ -502,6 +524,94 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         if not ok:
             failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']} "
                             f"exact {r.get('exact')} deterministic {r.get('deterministic')}")
+    return rows
+
+
+# (M, K, N) of the stacked streaming step's linears (fluid/llama-125m, q/k/v
+# packed): qkv, o, gate and up, down at the decode's 60 rows, and the
+# prefill's 61 (the sinks and no frame, 61 tokens)
+INDEXED_CASES = [(60, 768, 2304), (60, 768, 768), (60, 768, 2048), (60, 2048, 768),
+                 (61, 768, 2304), (61, 768, 768), (61, 768, 2048), (61, 2048, 768)]
+
+
+def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
+    """The indexed linear against its twin at the stacked streaming step's
+    shapes, at the first and the last of 12 layers; the library call is
+    ``F.linear`` on the host-indexed view ``w[li]`` (cuBLAS, no copy)."""
+    import torch.nn.functional as F
+
+    from fluid_llm_tpu_torch.ops import indexed_linear as il
+
+    rows, index = [], torch.arange(12, dtype=torch.int32, device=dev)
+    weights = {}
+    for M, K, N in INDEXED_CASES:
+        if (K, N) not in weights:
+            weights[K, N] = (torch.randn(12, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
+        w = weights[K, N]
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        for li in (0, 11):
+            out = il.indexed_linear(x, w, None, index[li])
+            ref = il.indexed_linear_ref(x, w, None, index[li])
+            wl = w[li]
+            torch.cuda.synchronize()
+            rows.append(dict(
+                kernel="indexed_linear", shape=f"M {M} K {K} N {N}, layer {li} of 12",
+                main_path=True, rel=rel_err(out, ref),
+                max_abs_err=(out.float() - ref.float()).abs().max().item(),
+                finite=bool(torch.isfinite(out).all()),
+                ms=device_ms(lambda: il.indexed_linear(x, w, None, index[li])),
+                plain_ms=device_ms(lambda: il.indexed_linear_ref(x, w, None, index[li])),
+                library_ms=device_ms(lambda: F.linear(x, wl)),
+                **bound(nbytes(x, wl, out), 2 * M * N * K, "bf16"),
+            ))
+    return rows
+
+
+def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:
+    """(1, 661) int32 validity of the exact rollout's window with
+    ``n_valid_frames`` frames filled: BOS and the see-init frame, then the
+    window's invalid frames at the front, then its valid ones."""
+    n_invalid = (window - n_valid_frames) * frame
+    t = torch.arange(1 + (window + 1) * frame)
+    return ((t < 1 + frame) | (t >= 1 + frame + n_invalid)).int()[None]
+
+
+def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
+    """The short-attention kernel against its twin at the training step's
+    (8, 601, 768), every token valid, q/k/v three projection outputs, and
+    the rollout's (1, 661, 768) with 7 of 10 window frames invalid, q/k/v
+    column slices of one fused projection; the error over valid query rows
+    (the forced-diagonal rows are checked finite).  The library call is
+    ``scaled_dot_product_attention`` with the same mask."""
+    from fluid_llm_tpu_torch.ops import short_attention as sa
+
+    rows, H, hd = [], 12, 64
+    D = H * hd
+    for bs, L in [(TRAIN_BS, TRAIN_TOKENS), (1, ROLLOUT_TOKENS)]:
+        if L == TRAIN_TOKENS:
+            q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16)
+                       for _ in range(3))
+            valid = torch.ones(bs, L, dtype=torch.int32, device=dev)
+        else:
+            qkv = (torch.randn(bs, L, 3 * D, generator=g) * 0.5).to(dev, torch.bfloat16)
+            q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+            valid = rollout_valid(3).to(dev)
+        out = sa.short_attention_fwd(q, k, v, valid, H, hd)
+        ref = sa.short_attention_ref(q, k, v, valid, H, hd)
+        allowed = _allowed_causal(valid)
+        keep = valid[0].bool()
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel="short_attention",
+            shape=f"({bs},{L},{D}) H{H} hd{hd}, {int((valid == 0).sum()) // bs} invalid tokens",
+            main_path=True, rel=rel_err(out[:, keep], ref[:, keep]),
+            max_abs_err=(out[:, keep].float() - ref[:, keep].float()).abs().max().item(),
+            finite=bool(torch.isfinite(out).all()),
+            ms=device_ms(lambda: sa.short_attention_fwd(q, k, v, valid, H, hd)),
+            plain_ms=device_ms(lambda: sa.short_attention_ref(q, k, v, valid, H, hd)),
+            library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
+            **bound(nbytes(q, k, v, valid, out), 4 * D * allowed.sum().item(), "bf16"),
+        ))
     return rows
 
 
@@ -589,15 +699,18 @@ def _counters():
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
     from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+    from fluid_llm_tpu_torch.ops import indexed_linear as il
     from fluid_llm_tpu_torch.ops import quant_matmul as qmm
     from fluid_llm_tpu_torch.ops import segment_ops as so
+    from fluid_llm_tpu_torch.ops import short_attention as sa
 
     return {"exact_attention": xa.causal_attention, "grid_slot_attention": gf.fused_slot_attention,
             "grid_slot_attention_bwd": gf.slot_attention_bwd,
             "flash_attention_fwd": fa.flash_forward, "flash_attention_dq": fa.flash_dq,
             "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode,
             "quant_matmul_w8a8": qmm.qmm_w8a8, "quant_matmul_w8a16": qmm.qmm_w8a16,
-            "segment_sum": so.segment_sum, "segment_gather": so.segment_gather}
+            "segment_sum": so.segment_sum, "segment_gather": so.segment_gather,
+            "indexed_linear": il.indexed_linear, "short_attention": sa.short_attention_fwd}
 
 
 def reset_launches() -> None:
@@ -609,30 +722,41 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
+def phase_rollout(dev, seed: int, failures: list, *, streaming: bool, stacked: bool = False,
+                  attn_impl: str = "auto", tag: str = "",
+                  turns: tuple = (True, False, False, True, True, False)) -> dict:
     """A 251-step rollout of one configuration with seeded random weights on
     ``synthetic:1`` at seq_len 253: the main path through the entry point
-    (launch counts), steps/s through the kernels and the twins in turns, a
-    10-step agreement and a device profile.  ``streaming``: the flagship's
-    KV-cache rollout; otherwise the OPT-125m exact rollout."""
+    (launch counts), steps/s through the kernels and the twins in ``turns``,
+    a 10-step agreement and a device profile.  ``streaming``: the flagship's
+    KV-cache rollout; otherwise the OPT-125m exact rollout.  ``stacked``:
+    the weights prepared in the stacked-layer layout (``FLUID_SCAN_LAYERS=1``),
+    also held against the unrolled layout of the same weights;
+    ``attn_impl``: the backbone's (``"short"``: the short-attention kernel)."""
     from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch import inference
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.models.backbone import StackedLayers
     from fluid_llm_tpu_torch.rollout.generate import gen_seq, generate
     from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming, generate_streaming
 
-    tag = "streaming" if streaming else "slice"
+    tag = tag or ("streaming" if streaming else "slice")
     roll, gen = (gen_seq_streaming, generate_streaming) if streaming else (gen_seq, generate)
     cfg = Config.from_yaml(FLAGSHIP if streaming else CONFIG).replace(load_dir="synthetic:1")
+    overrides = {} if attn_impl == "auto" else {"attn_impl": attn_impl}
     t0 = time.perf_counter()
-    model = inference.build_seeded_model(cfg, seed, dev)
+    with mock.patch.dict(os.environ, {"FLUID_SCAN_LAYERS": "1" if stacked else "0"}):
+        model = inference.build_seeded_model(cfg, seed, dev, **overrides)
+    if isinstance(model.backbone.layers, StackedLayers) != stacked:
+        failures.append(f"{tag}: layers {type(model.backbone.layers).__name__}, stacked {stacked}")
     test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
     batch = next(make_batches(test_ds, 1, shuffle=False, device=dev))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     bcfg = model.backbone_cfg
     print(f"[{tag}] {cfg.llm_backbone}: {bcfg.n_layers} layers, d {bcfg.d_model}, "
-          f"{bcfg.n_heads} heads, {bcfg.norm}, {bcfg.pos} positions, {bcfg.dtype}; "
+          f"{bcfg.n_heads} heads, {bcfg.norm}, {bcfg.pos} positions, {bcfg.dtype}, attn_impl "
+          f"{bcfg.attn_impl}, layers {type(model.backbone.layers).__name__}; "
           f"{cfg.pos_embedding_params.pos_embedding_type} embeddings, absolute time "
           f"{cfg.absolute_time_ids}; window or ring of {model.max_ctx_len} frames; "
           f"set-up {setup_s:.1f} s")
@@ -650,8 +774,12 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
     want["grid_slot_attention"] = cfg.decoder_params.gnn_layers * STEPS
     if streaming:  # every layer of every step, and of the prefill
         want["slab_decode_attention"] = bcfg.n_layers * (STEPS + 1)
+        if stacked:  # and each of its linears (qkv, o, gate, up, down)
+            lys = model.backbone.layers
+            want["indexed_linear"] = (len(lys.attn) + len(lys.mlp)) * bcfg.n_layers * (STEPS + 1)
     else:  # layers 0..10; the sliced last block is plain
-        want["exact_attention"] = (bcfg.n_layers - 1) * STEPS
+        attention = "short_attention" if attn_impl == "short" else "exact_attention"
+        want[attention] = (bcfg.n_layers - 1) * STEPS
     print(f"[{tag}] test_generate(streaming={streaming}): {STEPS} steps in {wall:.3f} s (incl. "
           f"batch build); mean N-RMSE {mean:.5f}; peak device memory {peak_mib:.1f} MiB; "
           f"launches {launches} (want {want})")
@@ -663,7 +791,7 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
     # steady-state rate on a prepared batch, kernels and plain twins in turns
     rates = {True: [], False: []}
     want_shape = (1, STEPS + 1, 3, *model.ds_props.out_tot_size)
-    for kernels in (True, False, False, True, True, False):
+    for kernels in turns:
         model.kernels = kernels
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -690,6 +818,17 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
           f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 {'ok' if ok else 'FAIL'})")
     if not ok:
         failures.append(f"{tag} agreement step 1 rel {errs[0]}")
+    layout_errs = None
+    if stacked:  # the same weights in the unrolled layout, through its own kernels
+        unrolled = inference.build_seeded_model(cfg, seed, dev, **overrides)
+        ref = gen(unrolled, states[:, :1], bc_mask, position_ids, 10)[1]
+        del unrolled
+        layout_errs = [rel_err(out[True][:, i], ref[:, i]) for i in range(10)]
+        ok = layout_errs[0] <= REL_TOL
+        print(f"[{tag} agreement] diffs rel err per step, stacked vs unrolled layout: "
+              f"{', '.join(f'{e:.3e}' for e in layout_errs)} (step 1 {'ok' if ok else 'FAIL'})")
+        if not ok:
+            failures.append(f"{tag} stacked vs unrolled step 1 rel {layout_errs[0]}")
 
     # device time of a 20-step rollout against its unprofiled wall time
     n_prof = 20
@@ -699,7 +838,7 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool) -> dict:
     return dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean, peak_mem_mib=peak_mib,
                 steps_per_s=steps_per_s, steps_per_s_runs=rates[True],
                 plain_steps_per_s=plain_steps_per_s, plain_steps_per_s_runs=rates[False],
-                launches=launches, agreement_rel_err=errs,
+                launches=launches, agreement_rel_err=errs, layout_rel_err=layout_errs,
                 profile=dict(steps=n_prof, device_busy_ms=busy_ms, device_ops=n_ops,
                              idle_share=idle, top_device_ms=top))
 
@@ -709,17 +848,21 @@ TRAINABLE_PROBES = ("lora.layers.0.attn.q.A", "lora.layers.0.attn.q.B", "lora.la
                     "decoder.gnn.out.att", "bos")
 
 
-def phase_train(dev, seed: int, failures: list):
+def phase_train(dev, seed: int, failures: list, attn_impl: str = "auto", per_turn: int = 3):
     """Autoreg steps through ``Trainer`` on one repeated batch, in turns
-    through the kernels and the twins; the training path's launch counts."""
+    through the kernels and the twins; the training path's launch counts.
+    ``attn_impl="short"``: the backbone's attention forward through the
+    short-attention kernel (its backward the twin, recomputed)."""
     from fluid_llm_tpu_torch.config import Config
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
     from fluid_llm_tpu_torch.main import build_model_and_trainer
 
+    tag = "train" if attn_impl == "auto" else f"{attn_impl} train"
+    overrides = {} if attn_impl == "auto" else {"attn_impl": attn_impl}
     cfg = Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed)
     t0 = time.perf_counter()
     train_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
-    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), dev)
+    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), dev, **overrides)
     model = trainer.model
     batch = next(make_batches(train_ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
     torch.cuda.synchronize()
@@ -728,13 +871,14 @@ def phase_train(dev, seed: int, failures: list):
     n_train = sum(p.numel() for p in params.values() if p.requires_grad)
     n_frozen = sum(p.numel() for p in params.values() if not p.requires_grad)
     bcfg = model.backbone_cfg
-    print(f"[train] {cfg.llm_backbone}: {bcfg.n_layers} layers, {bcfg.dtype}, DoRA r"
+    print(f"[{tag}] {cfg.llm_backbone}: {bcfg.n_layers} layers, {bcfg.dtype}, attn_impl "
+          f"{bcfg.attn_impl}, DoRA r"
           f"{cfg.lora_config.r} unmerged, dropout {bcfg.dropout}/{cfg.lora_config.lora_dropout}/"
           f"{cfg.pos_embedding_params.input_emb_layer_dropout} (backbone/adapter/embedding); "
           f"batch {tuple(batch[0].shape)}, {TRAIN_TOKENS} tokens; {n_train} trainable, "
           f"{n_frozen} frozen parameters; set-up {setup_s:.1f} s")
 
-    turns, per_turn = (True, False, False, True), 3
+    turns = (True, False, False, True)
     step_ms = {True: [], False: []}
     losses, peak_mib = [], 0.0
     reset_launches()  # the training path, driven from here
@@ -753,36 +897,38 @@ def phase_train(dev, seed: int, failures: list):
     model.kernels = True
     n_kernel_steps = per_turn * turns.count(True)
     convs = cfg.decoder_params.gnn_layers
-    per_step = dict(exact_attention=0, grid_slot_attention=convs, grid_slot_attention_bwd=convs,
-                    flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
-                    flash_attention_dkv=bcfg.n_layers, slab_decode_attention=0,
-                    quant_matmul_w8a8=0, quant_matmul_w8a16=0, segment_sum=0,
-                    segment_gather=0)
+    per_step = dict.fromkeys(launches, 0)
+    per_step.update(grid_slot_attention=convs, grid_slot_attention_bwd=convs)
+    if attn_impl == "short":  # the forward only: the backward is the twin
+        per_step.update(short_attention=bcfg.n_layers)
+    else:
+        per_step.update(flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
+                        flash_attention_dkv=bcfg.n_layers)
     want = {k: v * n_kernel_steps for k, v in per_step.items()}
     med_k, med_t = statistics.median(step_ms[True]), statistics.median(step_ms[False])
-    print(f"[train] {len(losses)} autoreg steps on one batch (turns kernels/twins "
+    print(f"[{tag}] {len(losses)} autoreg steps on one batch (turns kernels/twins "
           f"{'/'.join('k' if t else 't' for t in turns)}, {per_turn} each): loss "
           f"{', '.join(f'{x:.5f}' for x in losses)}")
-    print(f"[train] step ms through the kernels: median {med_k:.2f} (runs "
+    print(f"[{tag}] step ms through the kernels: median {med_k:.2f} (runs "
           f"{', '.join(f'{x:.2f}' for x in step_ms[True])}); through the twins: median "
           f"{med_t:.2f} (runs {', '.join(f'{x:.2f}' for x in step_ms[False])}); peak device "
           f"memory over the kernel steps {peak_mib:.1f} MiB")
-    print(f"[train] launches over {n_kernel_steps} kernel steps {launches} (want {want}; "
+    print(f"[{tag}] launches over {n_kernel_steps} kernel steps {launches} (want {want}; "
           f"per step {per_step})")
     if launches != want:
-        failures.append(f"train launch counts {launches} != {want}")
+        failures.append(f"{tag} launch counts {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        failures.append(f"train losses not finite or not falling: {losses}")
+        failures.append(f"{tag} losses not finite or not falling: {losses}")
     no_grad = [n for n in TRAINABLE_PROBES
                if params[n].grad is None or not bool(params[n].grad.abs().sum() > 0)]
     if no_grad or any(p.grad is not None for p in params.values() if not p.requires_grad):
         failures.append(f"trainable parameters without gradient {no_grad}, or frozen with one")
-    print(f"[train] non-zero gradient on {', '.join(TRAINABLE_PROBES)}: "
+    print(f"[{tag}] non-zero gradient on {', '.join(TRAINABLE_PROBES)}: "
           f"{'ok' if not no_grad else 'FAIL ' + str(no_grad)}")
 
     # device busy time per kernel step (profiler), against the unprofiled step
     busy_ms, n_ops, idle, top = device_profile(
-        lambda: trainer.train_step(batch)["loss"].item(), 2, med_k, "train")
+        lambda: trainer.train_step(batch)["loss"].item(), 2, med_k, tag)
     return trainer, batch, dict(
         setup_s=setup_s, losses=losses, step_ms=step_ms[True], plain_step_ms=step_ms[False],
         median_step_ms=med_k, plain_median_step_ms=med_t, peak_mem_mib=peak_mib,
@@ -820,7 +966,8 @@ def _short(key: str) -> str:
     return re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", key).split("(")[0][:60]
 
 
-def phase_train_agreement(trainer, batch, seed: int, failures: list) -> dict:
+def phase_train_agreement(trainer, batch, seed: int, failures: list,
+                          tag: str = "train agreement") -> dict:
     """One step's loss and trainable gradient, kernels vs twins, from the
     same weights, batch and dropout seed (no optimizer step)."""
     model = trainer.model
@@ -843,12 +990,12 @@ def phase_train_agreement(trainer, batch, seed: int, failures: list) -> dict:
         names = [n for n in gk if n.split(".")[0] == prefix]
         groups[prefix] = rel_err(torch.cat([gk[n] for n in names]), torch.cat([gt[n] for n in names]))
     ok = loss_rel <= REL_TOL and grad_rel <= GRAD_TOL
-    print(f"[train agreement] loss {lk:.6f} (kernels) vs {lt:.6f} (twins): rel {loss_rel:.3e} "
+    print(f"[{tag}] loss {lk:.6f} (kernels) vs {lt:.6f} (twins): rel {loss_rel:.3e} "
           f"(bound {REL_TOL}); trainable gradient rel L2 {grad_rel:.3e} (bound {GRAD_TOL}); by "
           f"group {', '.join(f'{k} {v:.3e}' for k, v in groups.items())} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"train agreement loss rel {loss_rel}, gradient rel {grad_rel}")
+        failures.append(f"{tag} loss rel {loss_rel}, gradient rel {grad_rel}")
     return dict(loss_kernels=lk, loss_twins=lt, loss_rel=loss_rel, grad_rel=grad_rel,
                 grad_rel_by_group=groups)
 
@@ -1384,6 +1531,20 @@ def main(argv=None) -> int:
                                 os.path.join(opt_dir, "runs"))
         graph_res = phase("graph baselines", phase_graph_baselines, dev, args.seed, failures,
                           tmp)
+    stacked_res = phase("stacked streaming", phase_rollout, dev, args.seed, failures,
+                        streaming=True, stacked=True, tag="stacked streaming",
+                        turns=(True, False, True))
+    short_train = short_agree = None
+    trained = phase("short train", phase_train, dev, args.seed, failures, attn_impl="short",
+                    per_turn=2)
+    if trained is not None:
+        trainer, train_batch, short_train = trained
+        short_agree = phase("short train agreement", phase_train_agreement, trainer, train_batch,
+                            args.seed, failures, "short train agreement")
+        del trainer, train_batch, trained
+    short_res = phase("short rollout", phase_rollout, dev, args.seed, failures, streaming=False,
+                      stacked=True, attn_impl="short", tag="short rollout",
+                      turns=(True, False, True))
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -1393,7 +1554,9 @@ def main(argv=None) -> int:
                            train_agreement=train_agree, entry_points=entry_res,
                            streaming=stream_res, flagship_entry_points=flagship_res,
                            serve=serve_res, serve_exact=serve_exact_res,
-                           graph_baselines=graph_res, failures=failures),
+                           graph_baselines=graph_res, stacked_streaming=stacked_res,
+                           short_train=short_train, short_train_agreement=short_agree,
+                           short_rollout=short_res, failures=failures),
                       f, indent=1, default=str)
     if failures:
         for failure in failures:
@@ -1425,6 +1588,10 @@ def main(argv=None) -> int:
                         "fluid_llm_tpu/ops/segment_sum_pallas.py:123", graph_res),
         "segment_gather": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
                            "fluid_llm_tpu/ops/segment_sum_pallas.py:142", graph_res),
+        "indexed_linear": ("fluid_llm_tpu_torch/csrc/indexed_linear.cu",
+                           "fluid_llm_tpu/ops/indexed_linear.py:35", stacked_res),
+        "short_attention": ("fluid_llm_tpu_torch/csrc/short_attention.cu",
+                            "fluid_llm_tpu/ops/short_attention.py:38", short_res),
     }
     kernels = []
     for name, (source, replaces, path_res) in sources.items():

@@ -7,7 +7,9 @@ N-RMSE.
 
 With ``--streaming`` the rollout is the KV-cache streaming one
 (``rollout/streaming.py``; rope backbones with ``rope_abs`` embeddings and
-absolute time, as ``configs/flagship_llama.yaml``).
+absolute time, as ``configs/flagship_llama.yaml``).  ``FLUID_SCAN_LAYERS=1``
+in the environment serves either from the stacked-layer layout
+(``FluidLLM.prepare_inference_params``).
 
 With ``--checkpoint_dir`` the model comes from a run folder written by
 ``main``/``continue_train`` (torch checkpoints, ``train/checkpoint.py``):
@@ -80,12 +82,15 @@ def test_generate(
     return per_step, mean
 
 
-def build_seeded_model(cfg: Config, seed: int, device: torch.device) -> FluidLLM:
+def build_seeded_model(cfg: Config, seed: int, device: torch.device,
+                       **backbone_overrides) -> FluidLLM:
     """The model for ``cfg`` with random weights from ``seed``, prepared for
-    inference on ``device``.  Geometry comes from the train-time dataset
-    config (``inference.py:173-174``)."""
+    inference on ``device`` (stacked with ``FLUID_SCAN_LAYERS=1``).
+    Geometry comes from the train-time dataset config
+    (``inference.py:173-174``); ``backbone_overrides`` go to
+    ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""
     probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
-    model = FluidLLM.build(cfg, probe_ds.ds_props())
+    model = FluidLLM.build(cfg, probe_ds.ds_props(), **backbone_overrides)
     model.init_weights(set_seed(seed))
     model.to(device)
     model.prepare_inference_params()

@@ -29,10 +29,12 @@ from fluid_llm_tpu_torch.utils import count_params, get_device, set_seed
 logger = logging.getLogger("fluid_llm_tpu_torch.main")
 
 
-def build_model_and_trainer(cfg: Config, ds_props, device: torch.device) -> Trainer:
+def build_model_and_trainer(cfg: Config, ds_props, device: torch.device,
+                            **backbone_overrides) -> Trainer:
     """Model with weights drawn from ``cfg.seed`` on ``device``, and its
-    trainer (optimizer over the trainable parameters)."""
-    model = FluidLLM.build(cfg, ds_props)
+    trainer (optimizer over the trainable parameters).  ``backbone_overrides``
+    go to ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""
+    model = FluidLLM.build(cfg, ds_props, **backbone_overrides)
     model.init_weights(set_seed(cfg.seed))
     model.to(device)
     return Trainer(model)

@@ -21,9 +21,13 @@ without gradients (rollout, inference) it runs the exact-window kernel
 (``ops/exact_attention.py``); with gradients and ``flash_attention``
 (training) it runs ``ops/flash_attention.FlashAttention``, whose backward
 is the dq and dk/dv kernels.  Otherwise the plain twin, under autograd.
-Rope'd heads (and grouped k/v heads, repeated) go to either in the packed
-``(bs, L, H*hd)`` layout.  ``decode_slice`` computes the final block for
-one token range only (``_final_block_sliced``, plain PyTorch attention).
+``attn_impl="short"`` (``backbone.py:1433-1445``) sends every attention,
+with or without gradients, through ``ops/short_attention.ShortAttention``
+(its kernel forward, a recomputed plain backward); on CUDA a length or head
+width the kernel refuses raises, never falls back.  Rope'd heads (and
+grouped k/v heads, repeated) go to each in the packed ``(bs, L, H*hd)``
+layout.  ``decode_slice`` computes the final block for one token range
+only (``_final_block_sliced``, plain PyTorch attention).
 
 Every projection goes through ``models.common.linear``: a linear stored as
 int8 (``ops/quant.quantize_backbone``, serving) runs the int8-matmul kernel
@@ -38,8 +42,15 @@ and ``cast_matmul_params`` are inference-only.
 Streaming (``backbone.py:1032-1402``, rope backbones): ``apply_streaming``
 runs new tokens through every block once against the slab KV cache of
 ``init_streaming_cache``; its attention is ``ops/decode_attention.py``.
-MoE, the stacked-layer layout, ring attention and tensor parallelism come
-later.
+
+The stacked-layer layout (``backbone.py:308-352``): ``stack_layers``
+replaces the layer list by one :class:`StackedLayers` whose parameters
+carry a leading ``n_layers`` axis, under the JAX leaf names.  ``forward``
+then reads layer ``li``'s weights as the slices ``w[li]`` (the JAX
+``_block_stacked`` with ``kernel_ok=False``); ``apply_streaming`` runs every
+linear through the indexed-linear kernel (``ops/indexed_linear.py``) with
+the layer index on the device, as the JAX stacked scan does.  MoE, ring
+attention and tensor parallelism come later.
 """
 
 from __future__ import annotations
@@ -57,6 +68,12 @@ from fluid_llm_tpu_torch.models.lora import lora_linear
 from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
+from fluid_llm_tpu_torch.ops import indexed_linear as il
+from fluid_llm_tpu_torch.ops import short_attention as sa
+from fluid_llm_tpu_torch.ops.quant import NF4Linear, QuantLinear
+
+
+ATTN_IMPLS = ("auto", "short")
 
 
 @dataclass(frozen=True)
@@ -83,6 +100,12 @@ class BackboneConfig:
     dtype: torch.dtype = torch.float32  # activation dtype
     # training attention through the flash kernels (``cfg.flash_attention``)
     flash_attention: bool = False
+    # "auto" (the choice above) or "short" (``ops/short_attention.py``)
+    attn_impl: str = "auto"
+
+    def __post_init__(self):
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {self.attn_impl!r}: one of {ATTN_IMPLS}")
 
     @property
     def kv_heads(self) -> int:
@@ -175,13 +198,16 @@ def _make_norm(cfg: BackboneConfig, d: int) -> nn.Module:
     return nn.LayerNorm(d, eps=cfg.ln_eps)
 
 
-def _norm(x: torch.Tensor, ln: nn.Module) -> torch.Tensor:
+def _norm(x: torch.Tensor, ln) -> torch.Tensor:
     """LayerNorm or RMSNorm computed in f32, returned in the activation
-    dtype (``backbone.py:383-393``; RMSNorm with the config's eps)."""
-    if isinstance(ln, nn.RMSNorm):
-        out = F.rms_norm(x.float(), ln.normalized_shape, ln.weight, ln.eps)
+    dtype (``backbone.py:383-393``; RMSNorm with the config's eps).  ``ln``:
+    an ``nn.LayerNorm``/``nn.RMSNorm`` or one layer of a :class:`StackedNorm`."""
+    shape = x.shape[-1:]
+    rms = ln.rms if isinstance(ln, _SliceNorm) else isinstance(ln, nn.RMSNorm)
+    if rms:
+        out = F.rms_norm(x.float(), shape, ln.weight, ln.eps)
     else:
-        out = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+        out = F.layer_norm(x.float(), shape, ln.weight, ln.bias, ln.eps)
     return out.to(x.dtype)
 
 
@@ -249,25 +275,16 @@ def _attention(q, k, v, allowed, dtype) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-class Block(nn.Module):
-    """One transformer block; ``attn``/``mlp`` are ModuleDicts so the keys
-    follow the JAX pytree (``attn.q``..., ``attn.qkv`` once packed;
-    ``mlp.fc1``/``fc2``, or LLaMA's ``mlp.gate``/``up``/``down``)."""
+class _LayerOps:
+    """The computations of one transformer block, over the parameters its
+    subclass holds: ``ln1``/``ln2`` and the ``attn``/``mlp`` maps of
+    linears (``attn.q``..., ``attn.qkv`` once packed; ``mlp.fc1``/``fc2``,
+    or LLaMA's ``mlp.gate``/``up``/``down``).  :class:`Block` holds its own;
+    :class:`LayerView` reads one layer of a :class:`StackedLayers`."""
 
-    def __init__(self, cfg: BackboneConfig):
-        super().__init__()
-        d, ff, kv = cfg.d_model, cfg.d_ff, cfg.kv_dim
-        bias = cfg.family != "llama"
-        self.ln1 = _make_norm(cfg, d)
-        self.attn = nn.ModuleDict({"q": nn.Linear(d, d, bias=bias), "k": nn.Linear(d, kv, bias=bias),
-                                   "v": nn.Linear(d, kv, bias=bias), "o": nn.Linear(d, d, bias=bias)})
-        self.ln2 = _make_norm(cfg, d)
-        if cfg.family == "llama":
-            self.mlp = nn.ModuleDict({"gate": nn.Linear(d, ff, bias=False),
-                                      "up": nn.Linear(d, ff, bias=False),
-                                      "down": nn.Linear(ff, d, bias=False)})
-        else:
-            self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
+    def apply_linear(self, h, lin, kernels: bool = True, cols: Optional[slice] = None):
+        """``lin`` applied to ``h`` (``models.common.linear``)."""
+        return linear(h, lin, kernels, cols)
 
     def proj(self, h, group: str, name: str, adapters=None, lora_cfg=None, generator=None,
              kernels: bool = True):
@@ -278,7 +295,7 @@ class Block(nn.Module):
         ad = adapters[group][name] if adapters is not None and group in adapters \
             and name in adapters[group] else None
         if ad is None:
-            return linear(h, lin, kernels)
+            return self.apply_linear(h, lin, kernels)
         return lora_linear(h, lin, ad, lora_cfg, generator)
 
     def qkv(self, h: torch.Tensor, cfg: BackboneConfig, adapters=None, lora_cfg=None,
@@ -292,7 +309,7 @@ class Block(nn.Module):
                 raise ValueError("packed qkv weights cannot apply q/k/v adapters: merge them "
                                  "first (FluidLLM.prepare_inference_params)")
             d, kv = cfg.d_model, cfg.kv_dim
-            qkv = linear(h, self.attn["qkv"], kernels)
+            qkv = self.apply_linear(h, self.attn["qkv"], kernels)
             qk = qkv[..., :d + kv]
             if rope is not None:
                 qk = apply_rope(qk, rope, cfg.n_heads + cfg.kv_heads)
@@ -330,6 +347,171 @@ class Block(nn.Module):
         if not cfg.pre_ln:
             x = _norm(x, self.ln2)
         return x
+
+
+class Block(_LayerOps, nn.Module):
+    """One transformer block; ``attn``/``mlp`` are ModuleDicts so the keys
+    follow the JAX pytree."""
+
+    def __init__(self, cfg: BackboneConfig):
+        super().__init__()
+        d, ff, kv = cfg.d_model, cfg.d_ff, cfg.kv_dim
+        bias = cfg.family != "llama"
+        self.ln1 = _make_norm(cfg, d)
+        self.attn = nn.ModuleDict({"q": nn.Linear(d, d, bias=bias), "k": nn.Linear(d, kv, bias=bias),
+                                   "v": nn.Linear(d, kv, bias=bias), "o": nn.Linear(d, d, bias=bias)})
+        self.ln2 = _make_norm(cfg, d)
+        if cfg.family == "llama":
+            self.mlp = nn.ModuleDict({"gate": nn.Linear(d, ff, bias=False),
+                                      "up": nn.Linear(d, ff, bias=False),
+                                      "down": nn.Linear(ff, d, bias=False)})
+        else:
+            self.mlp = nn.ModuleDict({"fc1": nn.Linear(d, ff), "fc2": nn.Linear(ff, d)})
+
+
+# --------------------------------------------------------------------------
+# the stacked-layer layout (``backbone.py:308-352``): one module whose
+# parameters carry a leading ``n_layers`` axis
+# --------------------------------------------------------------------------
+
+
+def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=like.requires_grad)
+
+
+class StackedLinear(nn.Module):
+    """The linears of every layer at one place of the block: ``weight``
+    ``(n_layers, N, K)`` (the ``nn.Linear`` orientation), ``bias``
+    ``(n_layers, N)`` or None."""
+
+    def __init__(self, lins: list[nn.Linear]):
+        super().__init__()
+        self.weight = _param(torch.stack([m.weight for m in lins]), lins[0].weight)
+        bias = lins[0].bias
+        self.register_parameter(
+            "bias", None if bias is None else _param(torch.stack([m.bias for m in lins]), bias))
+
+    def unstack(self, li: int) -> nn.Linear:
+        n_out, n_in = self.weight.shape[1:]
+        with torch.device("meta"):
+            lin = nn.Linear(n_in, n_out, bias=self.bias is not None)
+        lin.weight = _param(self.weight[li].clone(), self.weight)
+        if self.bias is not None:
+            lin.bias = _param(self.bias[li].clone(), self.bias)
+        return lin
+
+
+class StackedNorm(nn.Module):
+    """The norms of every layer at one place of the block: ``weight`` (and a
+    LayerNorm's ``bias``) ``(n_layers, d)``."""
+
+    def __init__(self, norms: list[nn.Module]):
+        super().__init__()
+        self.rms, self.eps = isinstance(norms[0], nn.RMSNorm), norms[0].eps
+        self.weight = _param(torch.stack([m.weight for m in norms]), norms[0].weight)
+        self.register_parameter(
+            "bias", None if self.rms else _param(torch.stack([m.bias for m in norms]),
+                                                 norms[0].bias))
+
+    def unstack(self, li: int) -> nn.Module:
+        d = self.weight.shape[1]
+        with torch.device("meta"):
+            norm = nn.RMSNorm(d, eps=self.eps) if self.rms else nn.LayerNorm(d, eps=self.eps)
+        norm.weight = _param(self.weight[li].clone(), self.weight)
+        if not self.rms:
+            norm.bias = _param(self.bias[li].clone(), self.bias)
+        return norm
+
+
+class _SliceLinear:
+    """Layer ``li`` of a :class:`StackedLinear`, as ``models.common.linear``
+    reads an ``nn.Linear``: the views ``weight[li]`` and ``bias[li]``."""
+
+    def __init__(self, stacked: StackedLinear, li: int):
+        self.stacked, self.li = stacked, li
+
+    @property
+    def weight(self) -> torch.Tensor:
+        return self.stacked.weight[self.li]
+
+    @property
+    def bias(self) -> Optional[torch.Tensor]:
+        b = self.stacked.bias
+        return None if b is None else b[self.li]
+
+
+class _SliceNorm(_SliceLinear):
+    """Layer ``li`` of a :class:`StackedNorm`, as :func:`_norm` reads it."""
+
+    def __init__(self, stacked: StackedNorm, li: int):
+        super().__init__(stacked, li)
+        self.rms, self.eps = stacked.rms, stacked.eps
+
+
+class StackedLayers(nn.Module):
+    """Every block's parameters with a leading ``n_layers`` axis, under the
+    JAX leaf names (``ln1``, ``attn.qkv``, ``mlp.gate``, ...), and
+    ``index``: ``arange(n_layers)`` int32, kept on the parameters' device,
+    whose elements are the layer indices the indexed-linear kernel reads."""
+
+    def __init__(self, layers: list[Block]):
+        super().__init__()
+        self.ln1 = StackedNorm([m.ln1 for m in layers])
+        self.attn = nn.ModuleDict({n: StackedLinear([m.attn[n] for m in layers])
+                                   for n in layers[0].attn})
+        self.ln2 = StackedNorm([m.ln2 for m in layers])
+        self.mlp = nn.ModuleDict({n: StackedLinear([m.mlp[n] for m in layers])
+                                  for n in layers[0].mlp})
+        self.register_buffer("index", torch.arange(len(layers), dtype=torch.int32,
+                                                   device=self.ln1.weight.device),
+                             persistent=False)
+
+    def __len__(self) -> int:
+        return self.index.shape[0]
+
+    def layer(self, li: int, indexed: bool = False) -> "LayerView":
+        """Layer ``li``: its linears read as slices, or (``indexed``) through
+        the indexed-linear kernel at the device index ``index[li]``."""
+        return LayerView(self, li, self.index[li] if indexed else None)
+
+    def unstack(self, cfg: BackboneConfig) -> list[Block]:
+        blocks = []
+        for li in range(len(self)):
+            with torch.device("meta"):
+                block = Block(cfg)
+            block.ln1, block.ln2 = self.ln1.unstack(li), self.ln2.unstack(li)
+            block.attn = nn.ModuleDict({n: m.unstack(li) for n, m in self.attn.items()})
+            block.mlp = nn.ModuleDict({n: m.unstack(li) for n, m in self.mlp.items()})
+            blocks.append(block)
+        return blocks
+
+
+class LayerView(_LayerOps):
+    """One layer of a :class:`StackedLayers`, computed as a :class:`Block`.
+
+    ``index`` None: the linears read the slices ``w[li]``, ``b[li]`` (JAX
+    ``_block_stacked``'s ``kernel_ok=False``: the rollout's stacked
+    forward).  ``index`` a device int32 scalar: every linear goes through
+    ``ops/indexed_linear.indexed_linear`` (its twin when ``kernels`` is
+    False) at that index, as the JAX stacked streaming scan's
+    ``_stacked_linear``.  Norms read their slice either way."""
+
+    def __init__(self, stacked: StackedLayers, li: int, index: Optional[torch.Tensor] = None):
+        self.index = index
+        self.ln1, self.ln2 = _SliceNorm(stacked.ln1, li), _SliceNorm(stacked.ln2, li)
+        self.attn = {n: _SliceLinear(m, li) for n, m in stacked.attn.items()}
+        self.mlp = {n: _SliceLinear(m, li) for n, m in stacked.mlp.items()}
+
+    def apply_linear(self, h, lin, kernels: bool = True, cols: Optional[slice] = None):
+        if self.index is None:
+            return linear(h, lin, kernels, cols)
+        if cols is not None:
+            raise ValueError("indexed stacked linears compute every output column")
+        fn = il.indexed_linear if kernels else il.indexed_linear_ref
+        return fn(h, lin.stacked.weight, lin.stacked.bias, self.index)
+
+    def __call__(self, *args, **kwargs) -> torch.Tensor:
+        return self.forward(*args, **kwargs)
 
 
 class Backbone(nn.Module):
@@ -399,24 +581,47 @@ class Backbone(nn.Module):
         if generator is not None:
             x = dropout(x, cfg.dropout, generator)
 
-        if torch.is_grad_enabled():
-            # the exact-window kernel has no backward; training attention is
-            # the flash Function (its twins on CPU tensors) or the plain twin
-            use_flash = kernels and cfg.flash_attention and fa.supported(cfg.head_dim, cfg.dtype)
-            attend = fa.flash_attention if use_flash else xa.causal_attention_ref
+        attend = self._attend(L, kernels, x.device)
+        if isinstance(self.layers, StackedLayers):
+            # the stacked layout is made for inference, adapters merged
+            # (``backbone.py:907-915``)
+            if lora is not None:
+                raise ValueError("stacked layer params cannot apply a LoRA tree: merge the "
+                                 "adapters before stack_layers")
+            if generator is not None:
+                raise ValueError("stacked layer params are inference-only (no dropout)")
+            layers = [self.layers.layer(li) for li in range(cfg.n_layers)]
         else:
-            use_kernel = kernels and xa.supported(cfg.head_dim, cfg.dtype)
-            attend = xa.causal_attention if use_kernel else xa.causal_attention_ref
+            layers = list(self.layers)
         valid_i32 = valid.to(torch.int32).contiguous()
         adapters = lora.layers if lora is not None else [None] * cfg.n_layers
         lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
-        for layer, ad in zip(self.layers[:n_full], adapters):
+        for layer, ad in zip(layers[:n_full], adapters):
             x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator, rope, kernels)
         if decode_slice is not None:
-            x = self._final_block_sliced(x, allowed, rope, decode_slice, adapters[-1], lora_cfg,
-                                         kernels)
+            x = self._final_block_sliced(x, layers[-1], allowed, rope, decode_slice, adapters[-1],
+                                         lora_cfg, kernels)
         return self._out(x, kernels)
+
+    def _attend(self, L: int, kernels: bool, device: torch.device):
+        """The attention of every full block at length ``L``."""
+        cfg = self.cfg
+        if cfg.attn_impl == "short":
+            if not kernels:
+                return sa.short_attention_ref
+            if device.type == "cuda" and not sa.supported(L, cfg.head_dim):
+                raise ValueError(f"attn_impl='short': the kernel does not take L {L} with heads "
+                                 f"of {cfg.head_dim} (L <= {sa.MAX_TOKENS}, head_dim in "
+                                 f"{sa.HEAD_DIMS})")
+            return sa.short_attention
+        if torch.is_grad_enabled():
+            # the exact-window kernel has no backward; training attention is
+            # the flash Function (its twins on CPU tensors) or the plain twin
+            use_flash = kernels and cfg.flash_attention and fa.supported(cfg.head_dim, cfg.dtype)
+            return fa.flash_attention if use_flash else xa.causal_attention_ref
+        use_kernel = kernels and xa.supported(cfg.head_dim, cfg.dtype)
+        return xa.causal_attention if use_kernel else xa.causal_attention_ref
 
     def _out(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         if self.final_norm is not None:
@@ -425,15 +630,15 @@ class Backbone(nn.Module):
             x = linear(x, self.project_out, kernels)
         return x
 
-    def _final_block_sliced(self, x, allowed, rope, decode_slice, adapters=None,
-                            lora_cfg=None, kernels: bool = True) -> torch.Tensor:
-        """Final block for queries ``start:start+length`` only (exact under
-        causal attention; ``backbone.py:951-1029``), adapters unmerged if
-        given.  Rope rotates the q slice at its own positions and k over
-        the whole window.  Attention is plain PyTorch, no dropout; weights
-        are read only through ``linear`` (int8 ones through its kernel)."""
+    def _final_block_sliced(self, x, layer: _LayerOps, allowed, rope, decode_slice,
+                            adapters=None, lora_cfg=None, kernels: bool = True) -> torch.Tensor:
+        """Final block (``layer``) for queries ``start:start+length`` only
+        (exact under causal attention; ``backbone.py:951-1029``), adapters
+        unmerged if given.  Rope rotates the q slice at its own positions
+        and k over the whole window.  Attention is plain PyTorch, no
+        dropout; weights are read only through ``layer.apply_linear`` (int8
+        ones through their kernel)."""
         cfg = self.cfg
-        layer = self.layers[-1]
         lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg,
                                                 kernels=kernels)
         start, ln = decode_slice
@@ -445,8 +650,8 @@ class Backbone(nn.Module):
         h_q = h[:, start:start + ln]
         if "qkv" in layer.attn:
             # packed weights: q over the slice, fused k|v over the full window
-            q = linear(h_q, layer.attn["qkv"], kernels, cols=slice(0, d))
-            kv = linear(h, layer.attn["qkv"], kernels, cols=slice(d, None))
+            q = layer.apply_linear(h_q, layer.attn["qkv"], kernels, cols=slice(0, d))
+            kv = layer.apply_linear(h, layer.attn["qkv"], kernels, cols=slice(d, None))
             k, v = kv[..., :cfg.kv_dim], kv[..., cfg.kv_dim:]
         else:
             q = lin(h_q, "attn", "q")
@@ -469,6 +674,39 @@ class Backbone(nn.Module):
         if not cfg.pre_ln:
             x_s = _norm(x_s, layer.ln2)
         return x_s
+
+
+@torch.no_grad()
+def stack_layers(backbone: Backbone) -> None:
+    """The layer list becomes one :class:`StackedLayers`, in place
+    (``backbone.py:308-336``).  Exact: layer ``li`` reads the same weights.
+
+    A no-op on a stacked backbone and on layers that differ in structure
+    (names, types, shapes or dtypes of their parameters: e.g. qkv packed in
+    some only), which keep the list, as JAX's treedef check.  Quantized
+    linears raise: stacking them is not ported."""
+    layers = backbone.layers
+    if isinstance(layers, StackedLayers):
+        return
+    if any(isinstance(m, (QuantLinear, NF4Linear)) for m in layers.modules()):
+        raise NotImplementedError("stack_layers: stacking quantized linears is not ported; "
+                                  "serve a quantized backbone with the layer list")
+
+    def structure(layer: Block):
+        return ([(n, type(m)) for n, m in layer.named_modules()],
+                [(n, p.shape, p.dtype, p.device) for n, p in layer.named_parameters()])
+
+    if any(structure(m) != structure(layers[0]) for m in layers[1:]):
+        return
+    backbone.layers = StackedLayers(list(layers))
+
+
+@torch.no_grad()
+def unstack_layers(backbone: Backbone) -> None:
+    """Inverse of :func:`stack_layers`, in place: the ``nn.Linear`` list
+    back, bit for bit (``backbone.py:339-352``).  A no-op on a list."""
+    if isinstance(backbone.layers, StackedLayers):
+        backbone.layers = nn.ModuleList(backbone.layers.unstack(backbone.cfg))
 
 
 @torch.no_grad()
@@ -597,7 +835,8 @@ def apply_streaming(
     kernels: bool = True,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Run every block over ``x_new`` (bs, Ln, d) against the cached K/V
-    (``backbone.py:1118-1320``, the unrolled layer list).
+    (``backbone.py:1118-1393``; stacked layers: every linear through
+    ``ops/indexed_linear.py`` with the layer index on the device).
 
     Each token is encoded once: its rope'd K/V enter the cache and are never
     recomputed, which is sliding-window LLM serving (dense attention under
@@ -666,8 +905,15 @@ def apply_streaming(
     rope = rope_tables(pos[None], cfg)
     ck, cv = cache["k"], cache["v"]
 
-    for li, layer in enumerate(backbone.layers):
-        lin = lambda h, group, name, layer=layer: linear(h, getattr(layer, group)[name], kernels)
+    if isinstance(backbone.layers, StackedLayers):
+        # the stacked scan (``backbone.py:1324-1393``): every linear through
+        # the indexed-linear kernel at a device layer index
+        layers = [backbone.layers.layer(li, indexed=True) for li in range(cfg.n_layers)]
+    else:
+        layers = backbone.layers
+    for li, layer in enumerate(layers):
+        lin = lambda h, group, name, layer=layer: layer.apply_linear(
+            h, getattr(layer, group)[name], kernels)
         h = _norm(x, layer.ln1) if cfg.pre_ln else x
         q, k, v = layer.qkv(h, cfg, rope=rope, kernels=kernels)
         if prefill:

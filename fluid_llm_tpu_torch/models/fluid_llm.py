@@ -19,13 +19,15 @@ train.  The ported surface: ``forward`` (every frame decoded; in training
 with dropout drawn from a ``torch.Generator``), ``forward_see_init`` and
 ``predict_diffs`` (the training forwards), the rollout's
 ``predict_frame_diff`` (non-CNN, non-MoE branch), all with unmerged
-adapters, ``prepare_inference_params`` (merge adapters -> quantize, for
-serving -> pack qkv -> cast), and the streaming rollout's ``embed_frames`` and
+adapters, ``prepare_inference_params`` (unstack -> merge adapters ->
+quantize, for serving -> pack qkv -> cast -> stack, with
+``FLUID_SCAN_LAYERS=1``), and the streaming rollout's ``embed_frames`` and
 ``decode_frame_tokens``.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -68,12 +70,17 @@ class FluidLLM(nn.Module):
     @classmethod
     def build(cls, cfg: Config, ds_props: DSProps, *, kernels: bool = True,
               **backbone_overrides) -> "FluidLLM":
-        """Model from the YAML config; ``half_precision`` picks a bf16 backbone."""
+        """Model from the YAML config; ``half_precision`` picks a bf16 backbone.
+        ``backbone_overrides`` replace fields of the backbone config (e.g.
+        ``attn_impl="short"``, as the JAX package's ``FLUID_BENCH_ATTN``)."""
         if cfg.moe.experts > 0 or cfg.parallel.pipe_axis > 1:
             raise ValueError("MoE and pipeline-parallel backbones are not ported yet")
         if cfg.frozen_bf16:
             raise NotImplementedError("frozen_bf16 (bf16 storage of the frozen backbone) "
                                       "is not ported")
+        if cfg.llm_4bit_loading and (cfg.use_lora or cfg.freeze_llm):
+            raise NotImplementedError("llm_4bit_loading (training over a packed-nf4 frozen "
+                                      "backbone, fluid_llm_tpu/main.py:103-110) is not ported")
         dtype = torch.bfloat16 if cfg.half_precision else torch.float32
         bcfg = bb.preset(cfg.llm_backbone, cfg.llm_layers).replace(
             dtype=dtype, flash_attention=cfg.flash_attention)
@@ -104,16 +111,20 @@ class FluidLLM(nn.Module):
             self.lora.reset_parameters(self.backbone, generator)
 
     @torch.no_grad()
-    def prepare_inference_params(self, quant: Optional[str] = None,
-                                 qmm_mode: str = "w8a8") -> None:
-        """Inference-time transform, in place: fold the LoRA/DoRA adapters
-        into the backbone (``lora.merge_lora``) and drop them; with
-        ``quant`` ("int8" | "nf4") store the backbone's linears quantized
-        (``ops/quant.quantize_backbone``, int8 ones applied in
-        ``qmm_mode``); fuse each layer's float q/k/v
+    def prepare_inference_params(self, quant: Optional[str] = None, qmm_mode: str = "w8a8",
+                                 stack_layers: bool = False) -> None:
+        """Inference-time transform, in place (``fluid_llm.py:114-135``): the
+        layer list back if it is stacked (``backbone.unstack_layers``); fold
+        the LoRA/DoRA adapters into the backbone (``lora.merge_lora``) and
+        drop them; with ``quant`` ("int8" | "nf4") store the backbone's
+        linears quantized (``ops/quant.quantize_backbone``, int8 ones applied
+        in ``qmm_mode``); fuse each layer's float q/k/v
         (``backbone.pack_qkv_params``) and store the float matmul weights in
-        the activation dtype (``backbone.cast_matmul_params``).  The order
-        of ``tools/serve.py:442-457``; exact without ``quant``."""
+        the activation dtype (``backbone.cast_matmul_params``); last, with
+        ``stack_layers`` or ``FLUID_SCAN_LAYERS=1`` in the environment, the
+        stacked layout (``backbone.stack_layers``).  The order of
+        ``tools/serve.py:442-457``; exact without ``quant``."""
+        bb.unstack_layers(self.backbone)
         if self.lora is not None:
             merge_lora(self.backbone, self.lora)
             self.lora = None
@@ -121,6 +132,8 @@ class FluidLLM(nn.Module):
             quantize_backbone(self.backbone, quant, qmm_mode)
         bb.pack_qkv_params(self.backbone)
         bb.cast_matmul_params(self.backbone, self.backbone_cfg.dtype)
+        if stack_layers or os.environ.get("FLUID_SCAN_LAYERS", "0") == "1":
+            bb.stack_layers(self.backbone)
 
     def _embed(self, states, position_ids, frame_valid, generator=None):
         """Embeddings (f32) -> backbone dtype, flattened, BOS prepended."""

@@ -6,7 +6,10 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
 (``backbone.layers.3.attn.q.w`` -> ``backbone.layers.3.attn.q.weight``):
 
 - ``w`` -> ``weight``, transposed: JAX linears are ``x @ w`` with ``w`` of
-  shape (in, out), ``nn.Linear`` stores (out, in);
+  shape (in, out), ``nn.Linear`` stores (out, in); a stacked tree
+  (``backbone.stack_layers``: ``backbone.layers`` a dict whose leaves lead
+  with ``n_layers``) keeps that axis (``…layers.attn.qkv.w`` (n, in, out)
+  -> ``…layers.attn.qkv.weight`` (n, out, in)), for a stacked port backbone;
 - ``b`` -> ``bias``; a norm's ``scale`` -> ``weight``;
 - a quantized linear's ``w`` is a dict (``ops/quant.py``): its leaves land
   on the module itself (``ops/quant.QuantLinear``, ``NF4Linear``), the
@@ -57,9 +60,9 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
             if prefix and prefix[-1] == "w" and name in QUANT_LEAVES:
                 prefix = prefix[:-1]  # the quantized weight's leaves
                 if name == "q":
-                    t = t.T.contiguous()
+                    t = t.transpose(-1, -2).contiguous()
             elif name == "w":
-                name, t = "weight", t.T.contiguous()
+                name, t = "weight", t.transpose(-1, -2).contiguous()
             elif name == "b":
                 name = "bias"
             elif name == "scale":

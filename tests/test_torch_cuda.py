@@ -19,7 +19,13 @@ states (first decode, wrapped ring, prefill), and a short streaming
 rollout through the kernels against the same rollout through the twins.
 The int8 matmul kernels are held to the same bound at the serving shapes;
 w8a8's int32 sum must equal its twin's exactly, and with it the output
-(the same f32 scale products and roundings).
+(the same f32 scale products and roundings).  The indexed linear is held
+to the same bound at the stacked streaming step's five shapes, at the
+first and the last layer of 12 (an off-by-one-layer offset would read
+another layer's weights: relative error ~1.4); the short-attention kernel
+at the training step's and the rollout's shapes, valid rows only (the
+forced-diagonal rows are checked finite), and a short stacked streaming
+rollout through the kernels against the twins.
 """
 
 import pytest
@@ -30,8 +36,10 @@ from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+from fluid_llm_tpu_torch.ops import indexed_linear as il
 from fluid_llm_tpu_torch.ops import quant
 from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+from fluid_llm_tpu_torch.ops import short_attention as sa
 
 torch.set_num_threads(2)
 
@@ -575,3 +583,149 @@ def test_mgn_step_launches_and_agreement_on_card(dev):
     # within rounding of 0: the gradient bound is chip_smoke's GRAPH_GRAD_TOL
     assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
     assert _rel(res[True][1], res[False][1]) <= 1e-3
+
+
+# -- the indexed linear and short attention ------------------------------------
+
+# (M, K, N) of the stacked streaming step: packed qkv, o, gate and up, down
+INDEXED_SHAPES = [(60, 768, 2304), (60, 768, 768), (60, 768, 2048), (60, 2048, 768),
+                  (61, 768, 2304), (61, 2048, 768)]
+
+
+@pytest.mark.parametrize("li", [0, 11])
+@pytest.mark.parametrize("M,K,N", INDEXED_SHAPES)
+def test_indexed_linear_kernel_matches_twin(dev, M, K, N, li):
+    g = torch.Generator().manual_seed(M + K + N + li)
+    w = (torch.randn(12, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    index = torch.arange(12, dtype=torch.int32, device=dev)[li]
+    before = il.indexed_linear.launches
+    out = il.indexed_linear(x, w, None, index)
+    torch.cuda.synchronize()
+    assert il.indexed_linear.launches == before + 1
+    assert _rel(out, il.indexed_linear_ref(x, w, None, index)) <= REL_TOL
+    assert _rel(out, x @ w[li].T) <= REL_TOL
+
+
+def test_indexed_linear_bias_leading_axes_and_raises(dev):
+    """A bias added after the kernel, (bs, L, K) in; under autograd, on
+    shapes ``supported`` refuses and on f32 it raises; an index out of range
+    gives NaN, not a fault."""
+    g = torch.Generator().manual_seed(3)
+    w = (torch.randn(3, 256, 128, generator=g) * 0.05).to(dev, torch.bfloat16)
+    b = torch.randn(3, 256, generator=g).to(dev, torch.bfloat16)
+    x = torch.randn(2, 5, 128, generator=g).to(dev, torch.bfloat16)
+    index = torch.arange(4, dtype=torch.int32, device=dev)
+    out = il.indexed_linear(x, w, b, index[2])
+    assert out.shape == (2, 5, 256)
+    assert _rel(out, il.indexed_linear_ref(x, w, b, index[2])) <= REL_TOL
+    with pytest.raises(RuntimeError, match="forward only"):
+        il.indexed_linear(x.clone().requires_grad_(), w, b, index[0])
+    with pytest.raises(ValueError):
+        il.indexed_linear(x[..., :64], w[..., :64].contiguous(), None, index[0])
+    with pytest.raises(ValueError):
+        il.indexed_linear(x.float(), w.float(), None, index[0])
+    assert bool(torch.isnan(il.indexed_linear(x, w, None, index[3])).all())
+
+
+@pytest.mark.parametrize("bs,L,H,hd,n_invalid", [
+    (8, 601, 12, 64, 0), (1, 661, 12, 64, 181), (2, 1536, 2, 128, 37), (1, 5, 1, 64, 2),
+    (2, 130, 4, 64, 40),
+])
+def test_short_attention_kernel_matches_twin(dev, bs, L, H, hd, n_invalid):
+    D = H * hd
+    g = torch.Generator().manual_seed(L + hd)
+    qkv = (torch.randn(bs, L, 3 * D, generator=g) * 0.5).to(dev, torch.bfloat16)
+    q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    valid = (torch.arange(L)[None] >= n_invalid).expand(bs, L).int().contiguous().to(dev)
+    before = sa.short_attention_fwd.launches
+    out = sa.short_attention_fwd(q, k, v, valid, H, hd)
+    torch.cuda.synchronize()
+    assert sa.short_attention_fwd.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    rows = valid[0].bool()
+    ref = sa.short_attention_ref(q, k, v, valid, H, hd)
+    assert _rel(out[:, rows], ref[:, rows]) <= REL_TOL
+    assert _rel(out[:, ~rows], ref[:, ~rows]) <= REL_TOL if n_invalid else True
+
+
+def test_short_attention_function_and_refusals(dev):
+    """The gradient through ``ShortAttention`` (kernel forward, the twin
+    recomputed) against autograd through the twin in f32; the wrapper
+    refuses autograd, L past 1536 and head width 32."""
+    g = torch.Generator().manual_seed(9)
+    bs, L, H, hd = 2, 130, 4, 64
+    base = [(torch.randn(bs, L, H * hd, generator=g) * 0.5).to(dev, torch.bfloat16)
+            for _ in range(3)]
+    valid = (torch.arange(L)[None] >= torch.tensor([[0], [40]])).int().contiguous().to(dev)
+    w = torch.randn(bs, L, H * hd, generator=g).to(dev)
+    ts = [t.clone().requires_grad_() for t in base]
+    before = sa.short_attention_fwd.launches
+    (sa.short_attention(*ts, valid, H, hd).float() * w).sum().backward()
+    assert sa.short_attention_fwd.launches == before + 1
+    refs = [t.float().requires_grad_() for t in base]
+    (sa.short_attention_ref(*refs, valid, H, hd) * w).sum().backward()
+    for t, r in zip(ts, refs):
+        assert _rel(t.grad, r.grad) <= REL_TOL
+    with pytest.raises(RuntimeError, match="forward only"):
+        sa.short_attention_fwd(*ts, valid, H, hd)
+    long = torch.zeros(1, 1537, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        sa.short_attention_fwd(long, long, long, torch.ones(1, 1537, dtype=torch.int32,
+                                                            device=dev), 1, 64)
+    with pytest.raises(ValueError):
+        sa.short_attention_fwd(*base, valid, 8, 32)
+
+
+def test_stacked_streaming_and_short_rollouts_kernels_match_twins(dev):
+    """A small bf16 flagship-shaped model (LLaMA 2 layers, d 128) stacked
+    streams 6 steps: every linear through the indexed linear (5 a layer, a
+    step and the prefill), no other matmul kernel, step 1 within REL_TOL of
+    the twins and of the unrolled layout; the same weights built with
+    ``attn_impl="short"`` roll out exactly (layer 0 of 2 through the short
+    kernel) within REL_TOL of the twins."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import make_batches
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.rollout.generate import generate
+    from fluid_llm_tpu_torch.rollout.streaming import generate_streaming
+
+    cfg = Config(llm_backbone="fluid/llama-125m", llm_layers=2, half_precision=True,
+                 autoreg_seq_len=5, resolution=64, absolute_time_ids=True,
+                 pos_embedding_params={"pos_embedding_type": "rope_abs"},
+                 decoder_params={"type": "MLPGNN", "gnn_dim": 8, "gnn_hid_dim": 16,
+                                 "gnn_layers": 2, "mlp_hid_dim": 32},
+                 encoder_params={"type": "MLP", "num_layers": 2, "hidden_dim": 32})
+    ds = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=5, mode="valid",
+                                  absolute_time=True)
+    models = {}
+    for name, kw in (("unrolled", {}), ("stacked", {}), ("short", {"attn_impl": "short"})):
+        model = FluidLLM.build(cfg, ds.ds_props(), d_model=128, n_heads=2, d_ff=256, **kw)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.to(dev).prepare_inference_params(stack_layers=name != "unrolled")
+        models[name] = model
+    states, _, _, bc_mask, pos = next(make_batches(ds, 1, shuffle=False, device=dev))
+    out = {}
+    for kernels in (True, False):
+        model = models["stacked"]
+        model.kernels = kernels
+        before = il.indexed_linear.launches
+        out[kernels] = generate_streaming(model, states[:, :1], bc_mask, pos, 6)[1]
+        torch.cuda.synchronize()
+        assert il.indexed_linear.launches - before == (5 * 2 * 7 if kernels else 0)
+    unrolled = generate_streaming(models["unrolled"], states[:, :1], bc_mask, pos, 6)[1]
+    assert bool(torch.isfinite(out[True]).all())
+    assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
+    assert _rel(out[True][:, 0], unrolled[:, 0]) <= REL_TOL
+    short = {}
+    for kernels in (True, False):
+        model = models["short"]
+        model.kernels = kernels
+        before = (sa.short_attention_fwd.launches, xa.causal_attention.launches)
+        short[kernels] = generate(model, states[:, :1], bc_mask, pos, 3)[1]
+        torch.cuda.synchronize()
+        ran = (sa.short_attention_fwd.launches - before[0],
+               xa.causal_attention.launches - before[1])
+        assert ran == ((3, 0) if kernels else (0, 0))
+    assert _rel(short[True][:, 0], short[False][:, 0]) <= REL_TOL
