@@ -114,14 +114,16 @@ Phases, each printing one line per result; any failure exits nonzero:
                every layer of every step and of the prefill), 12x252 (slab
                decode), 3x251 (slot attention), 0 elsewhere; step 1 against
                the twins and against the unrolled layout of the same
-               weights, each <= REL_TOL;
+               weights, each <= REL_TOL; the two layouts' steps/s in turns
+               and each one's device and host profile;
 15. short train -- phases 6 and 7 with the backbone built with
                ``attn_impl="short"``: 12 short-attention launches a step (the
                backward recomputes the twin), 0 flash, 3 and 3 slot;
 16. short rollout -- phase 4 with ``attn_impl="short"`` on the stacked
                layout: 11x251 short-attention launches, 0 exact, 0 indexed
                linear (the stacked forward reads weight slices); step 1
-               against the twins and the unrolled layout.
+               against the twins and the unrolled layout, the layouts timed
+               in turns as in phase 14.
 
 Phases 8 to 13 share one temporary folder, removed at the end.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
@@ -818,27 +820,46 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool, stacked: b
           f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 {'ok' if ok else 'FAIL'})")
     if not ok:
         failures.append(f"{tag} agreement step 1 rel {errs[0]}")
-    layout_errs = None
+    # device time of a 20-step rollout against its unprofiled wall time
+    n_prof = 20
+    busy_ms, n_ops, idle, top = device_profile(
+        lambda: gen(model, states[:, :1], bc_mask, position_ids, n_prof), 1,
+        n_prof * 1e3 / steps_per_s, f"{tag} 20 steps")
+
+    layout = None
     if stacked:  # the same weights in the unrolled layout, through its own kernels
         unrolled = inference.build_seeded_model(cfg, seed, dev, **overrides)
         ref = gen(unrolled, states[:, :1], bc_mask, position_ids, 10)[1]
-        del unrolled
         layout_errs = [rel_err(out[True][:, i], ref[:, i]) for i in range(10)]
         ok = layout_errs[0] <= REL_TOL
         print(f"[{tag} agreement] diffs rel err per step, stacked vs unrolled layout: "
               f"{', '.join(f'{e:.3e}' for e in layout_errs)} (step 1 {'ok' if ok else 'FAIL'})")
         if not ok:
             failures.append(f"{tag} stacked vs unrolled step 1 rel {layout_errs[0]}")
-
-    # device time of a 20-step rollout against its unprofiled wall time
-    n_prof = 20
-    busy_ms, n_ops, idle, top = device_profile(
-        lambda: gen(model, states[:, :1], bc_mask, position_ids, n_prof), 1,
-        n_prof * 1e3 / steps_per_s, f"{tag} 20 steps")
+        # the layouts' wall time in turns, kernels on: the stacked views' host cost
+        rates_by = {"stacked": [], "unrolled": []}
+        for name in ("stacked", "unrolled", "unrolled", "stacked"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            roll(model if name == "stacked" else unrolled, batch, STEPS)
+            torch.cuda.synchronize()
+            rates_by[name].append(STEPS / (time.perf_counter() - t0))
+        med = {k: statistics.median(v) for k, v in rates_by.items()}
+        print(f"[{tag} layouts] {roll.__name__} in turns: stacked {med['stacked']:.2f} steps/s "
+              f"(runs {', '.join(f'{r:.2f}' for r in rates_by['stacked'])}); unrolled "
+              f"{med['unrolled']:.2f} (runs {', '.join(f'{r:.2f}' for r in rates_by['unrolled'])})")
+        u_busy, u_ops, u_idle, u_top = device_profile(
+            lambda: gen(unrolled, states[:, :1], bc_mask, position_ids, n_prof), 1,
+            n_prof * 1e3 / med["unrolled"], f"{tag} unrolled layout 20 steps")
+        del unrolled
+        layout = dict(rel_err=layout_errs, steps_per_s_runs=rates_by, steps_per_s=med,
+                      unrolled_profile=dict(steps=n_prof, device_busy_ms=u_busy,
+                                            device_ops=u_ops, idle_share=u_idle,
+                                            top_device_ms=u_top))
     return dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean, peak_mem_mib=peak_mib,
                 steps_per_s=steps_per_s, steps_per_s_runs=rates[True],
                 plain_steps_per_s=plain_steps_per_s, plain_steps_per_s_runs=rates[False],
-                launches=launches, agreement_rel_err=errs, layout_rel_err=layout_errs,
+                launches=launches, agreement_rel_err=errs, layout=layout,
                 profile=dict(steps=n_prof, device_busy_ms=busy_ms, device_ops=n_ops,
                              idle_share=idle, top_device_ms=top))
 
@@ -941,7 +962,9 @@ def device_profile(fn, n: int, wall_ms: float, tag: str, track: tuple[str, ...] 
     """Device busy ms per call of ``fn`` (profiler over ``n`` calls), device
     ops per call, the idle share against the unprofiled ``wall_ms`` per
     call, and the 8 largest device-time entries, then any other entry whose
-    name contains one of ``track``; printed under ``tag``."""
+    name contains one of ``track``; printed under ``tag``, with the host's
+    side: the operators' self CPU time and count per call (the rest of the
+    wall time is Python between them) and the 5 largest."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
@@ -954,10 +977,17 @@ def device_profile(fn, n: int, wall_ms: float, tag: str, track: tuple[str, ...] 
     ranked = sorted(device, key=lambda e: -e.self_device_time_total)
     ranked = ranked[:8] + [e for e in ranked[8:] if any(t in e.key for t in track)]
     top = [(_short(e.key), e.self_device_time_total / 1e3 / n) for e in ranked]
+    host = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CPU]
+    host_ms = sum(e.self_cpu_time_total for e in host) / 1e3 / n
+    host_top = sorted(host, key=lambda e: -e.self_cpu_time_total)[:5]
     print(f"[{tag}] device busy {busy_ms:.3f} ms per call in {n_ops:.0f} device ops (profiler, "
           f"{n} calls) of {wall_ms:.3f} ms: idle share "
           f"{'not measured' if idle is None else f'{idle:.3f}'}; top: "
           + "; ".join(f"{k} {t:.3f} ms" for k, t in top))
+    print(f"[{tag}] host (profiled): operators' self CPU {host_ms:.3f} ms in "
+          f"{sum(e.count for e in host) / n:.0f} operators per call; top: "
+          + "; ".join(f"{e.key} {e.self_cpu_time_total / 1e3 / n:.3f} ms ({e.count / n:.0f})"
+                      for e in host_top))
     return busy_ms, n_ops, idle, top
 
 

@@ -29,9 +29,9 @@
 // rows each, with mma.sync m16n8k16 bf16 (f32 accumulation) on tiles
 // staged in shared memory, rows padded by 16 bytes so the fragment loads
 // hit 32 distinct banks; rows past M load as zeros and are not stored.
-// BN is 16 where 64 would leave SMs idle (M 60: N 768 gives 48 blocks for
-// 132 SMs, where 64 would give 12) and 64 where 64 still gives a block per
-// SM.  Each K step issues all its 16-byte loads before any is used.  The
+// BN is 16: at the streaming step's 60 rows wider tiles would leave SMs
+// idle (N 768 gives 48 blocks of 16 columns for 132 SMs, 12 of 64).  Each
+// K step issues all its 16-byte loads before any is used.  The
 // layer offset li*N*K is a 64-bit product: it passes 2^31 for a stacked
 // LLaMA-7B weight.  No wgmma, TMA, split-K or multi-stage pipeline yet.
 
@@ -43,11 +43,12 @@
 namespace {
 
 constexpr int BM = 64;        // rows of a block tile: 4 warps x 16
+constexpr int BN = 16;        // columns of a block tile: 2 x n8
 constexpr int THREADS = 128;
-constexpr int SMS = 132;      // H100 SXM
 constexpr int BK = 128;       // K step: 8 x k16
 constexpr int LD = BK + 8;    // bf16 per shared row (68 words: conflict-free)
-constexpr int A_LOADS = BM * BK / 8 / THREADS;  // 16-byte loads per thread
+constexpr int A_LOADS = BM * BK / 8 / THREADS;  // 16-byte loads per thread: 8
+constexpr int B_LOADS = BN * BK / 8 / THREADS;  // 2
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -67,13 +68,11 @@ __device__ __forceinline__ uint4 ld128(const void* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <int BN>
 __global__ void __launch_bounds__(THREADS)
 indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
                       const __nv_bfloat16* __restrict__ w, const int* __restrict__ li_ptr,
                       int n_layers, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
   constexpr int NT = BN / 8;  // n8 tiles of each warp
-  constexpr int B_LOADS = (BN * BK / 8 + THREADS - 1) / THREADS;
   __shared__ __align__(16) __nv_bfloat16 sa[BM * LD];
   __shared__ __align__(16) __nv_bfloat16 sb[BN * LD];
 
@@ -109,7 +108,7 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
 #pragma unroll
     for (int i = 0; i < B_LOADS; ++i) {
       const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      if (c < BN * BK / 8) vb[i] = ld128(wl + (long long)(n0 + r) * K + k0 + kc, true);
+      vb[i] = ld128(wl + (long long)(n0 + r) * K + k0 + kc, true);
     }
 #pragma unroll
     for (int i = 0; i < A_LOADS; ++i) {
@@ -119,7 +118,7 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
 #pragma unroll
     for (int i = 0; i < B_LOADS; ++i) {
       const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      if (c < BN * BK / 8) *reinterpret_cast<uint4*>(sb + r * LD + kc) = vb[i];
+      *reinterpret_cast<uint4*>(sb + r * LD + kc) = vb[i];
     }
     __syncthreads();
 #pragma unroll
@@ -151,22 +150,6 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
   }
 }
 
-// BN 64 where that still gives one block per SM, else 16 (see the header)
-bool wide(int M, int N) {
-  const int m_tiles = (M + BM - 1) / BM;
-  return m_tiles * (N / 64) >= SMS;
-}
-
-template <int BN>
-int launch(const void* x, long long x_rs, const void* w, const void* li, int n_layers, void* out,
-           int M, int N, int K, cudaStream_t stream) {
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  indexed_linear_kernel<BN><<<grid, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), x_rs, static_cast<const __nv_bfloat16*>(w),
-      static_cast<const int*>(li), n_layers, static_cast<__nv_bfloat16*>(out), M, N, K);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x: bf16 (M, K) with row stride x_rs (elements, a multiple of 8; 16-byte
@@ -176,7 +159,9 @@ int launch(const void* x, long long x_rs, const void* w, const void* li, int n_l
 extern "C" int indexed_linear_bf16(const void* x, long long x_rs, const void* w, const void* li,
                                    int n_layers, void* out, int M, int N, int K, void* stream) {
   if (K % 128 || N % 128 || M <= 0 || n_layers <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(M, N)) return launch<64>(x, x_rs, w, li, n_layers, out, M, N, K, s);
-  return launch<16>(x, x_rs, w, li, n_layers, out, M, N, K, s);
+  dim3 grid(N / BN, (M + BM - 1) / BM);
+  indexed_linear_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), x_rs, static_cast<const __nv_bfloat16*>(w),
+      static_cast<const int*>(li), n_layers, static_cast<__nv_bfloat16*>(out), M, N, K);
+  return (int)cudaGetLastError();
 }

@@ -198,16 +198,16 @@ def _make_norm(cfg: BackboneConfig, d: int) -> nn.Module:
     return nn.LayerNorm(d, eps=cfg.ln_eps)
 
 
-def _norm(x: torch.Tensor, ln) -> torch.Tensor:
-    """LayerNorm or RMSNorm computed in f32, returned in the activation
-    dtype (``backbone.py:383-393``; RMSNorm with the config's eps).  ``ln``:
-    an ``nn.LayerNorm``/``nn.RMSNorm`` or one layer of a :class:`StackedNorm`."""
+def _norm(x: torch.Tensor, ln, cfg: BackboneConfig) -> torch.Tensor:
+    """``cfg.norm`` (LayerNorm or RMSNorm, eps ``cfg.ln_eps``) computed in
+    f32, returned in the activation dtype (``backbone.py:383-393``).  ``ln``
+    holds the norm's ``weight`` (and a LayerNorm's ``bias``): an
+    ``nn.LayerNorm``/``nn.RMSNorm``, or one layer of a :class:`StackedNorm`."""
     shape = x.shape[-1:]
-    rms = ln.rms if isinstance(ln, _SliceNorm) else isinstance(ln, nn.RMSNorm)
-    if rms:
-        out = F.rms_norm(x.float(), shape, ln.weight, ln.eps)
+    if cfg.norm == "rmsnorm":
+        out = F.rms_norm(x.float(), shape, ln.weight, cfg.ln_eps)
     else:
-        out = F.layer_norm(x.float(), shape, ln.weight, ln.bias, ln.eps)
+        out = F.layer_norm(x.float(), shape, ln.weight, ln.bias, cfg.ln_eps)
     return out.to(x.dtype)
 
 
@@ -336,16 +336,16 @@ class _LayerOps:
                                                kernels)
         drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
             else (lambda h: h)
-        h = _norm(x, self.ln1) if cfg.pre_ln else x
+        h = _norm(x, self.ln1, cfg) if cfg.pre_ln else x
         q, k, v = self.qkv(h, cfg, adapters, lora_cfg, generator, rope, kernels)
         k, v = _repeat_kv(k, cfg), _repeat_kv(v, cfg)
         x = x + drop(lin(attend(q, k, v, valid_i32, cfg.n_heads, cfg.head_dim), "attn", "o"))
         if not cfg.pre_ln:
-            x = _norm(x, self.ln1)
-        h = _norm(x, self.ln2) if cfg.pre_ln else x
+            x = _norm(x, self.ln1, cfg)
+        h = _norm(x, self.ln2, cfg) if cfg.pre_ln else x
         x = x + drop(self.mlp_out(h, cfg, lin))
         if not cfg.pre_ln:
-            x = _norm(x, self.ln2)
+            x = _norm(x, self.ln2, cfg)
         return x
 
 
@@ -379,80 +379,73 @@ def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=like.requires_grad)
 
 
-class StackedLinear(nn.Module):
+class _Stacked(nn.Module):
+    """One place of the block in every layer: ``weight`` and ``bias`` (or
+    None) with a leading ``n_layers`` axis."""
+
+    def __init__(self, mods: list[nn.Module]):
+        super().__init__()
+        self.weight = _param(torch.stack([m.weight for m in mods]), mods[0].weight)
+        bias = getattr(mods[0], "bias", None)  # an RMSNorm has none
+        self.register_parameter(
+            "bias", None if bias is None else _param(torch.stack([m.bias for m in mods]), bias))
+
+    def _fill(self, mod: nn.Module, li: int) -> nn.Module:
+        """``mod`` (made on the meta device) given layer ``li``'s parameters."""
+        mod.weight = _param(self.weight[li].clone(), self.weight)
+        if self.bias is not None:
+            mod.bias = _param(self.bias[li].clone(), self.bias)
+        return mod
+
+
+class StackedLinear(_Stacked):
     """The linears of every layer at one place of the block: ``weight``
     ``(n_layers, N, K)`` (the ``nn.Linear`` orientation), ``bias``
     ``(n_layers, N)`` or None."""
-
-    def __init__(self, lins: list[nn.Linear]):
-        super().__init__()
-        self.weight = _param(torch.stack([m.weight for m in lins]), lins[0].weight)
-        bias = lins[0].bias
-        self.register_parameter(
-            "bias", None if bias is None else _param(torch.stack([m.bias for m in lins]), bias))
 
     def unstack(self, li: int) -> nn.Linear:
         n_out, n_in = self.weight.shape[1:]
         with torch.device("meta"):
             lin = nn.Linear(n_in, n_out, bias=self.bias is not None)
-        lin.weight = _param(self.weight[li].clone(), self.weight)
-        if self.bias is not None:
-            lin.bias = _param(self.bias[li].clone(), self.bias)
-        return lin
+        return self._fill(lin, li)
 
 
-class StackedNorm(nn.Module):
+class StackedNorm(_Stacked):
     """The norms of every layer at one place of the block: ``weight`` (and a
     LayerNorm's ``bias``) ``(n_layers, d)``."""
 
-    def __init__(self, norms: list[nn.Module]):
-        super().__init__()
-        self.rms, self.eps = isinstance(norms[0], nn.RMSNorm), norms[0].eps
-        self.weight = _param(torch.stack([m.weight for m in norms]), norms[0].weight)
-        self.register_parameter(
-            "bias", None if self.rms else _param(torch.stack([m.bias for m in norms]),
-                                                 norms[0].bias))
-
-    def unstack(self, li: int) -> nn.Module:
-        d = self.weight.shape[1]
+    def unstack(self, li: int, cfg: BackboneConfig) -> nn.Module:
         with torch.device("meta"):
-            norm = nn.RMSNorm(d, eps=self.eps) if self.rms else nn.LayerNorm(d, eps=self.eps)
-        norm.weight = _param(self.weight[li].clone(), self.weight)
-        if not self.rms:
-            norm.bias = _param(self.bias[li].clone(), self.bias)
-        return norm
+            norm = _make_norm(cfg, self.weight.shape[1])
+        return self._fill(norm, li)
 
 
-class _SliceLinear:
-    """Layer ``li`` of a :class:`StackedLinear`, as ``models.common.linear``
-    reads an ``nn.Linear``: the views ``weight[li]`` and ``bias[li]``."""
+class _Slice:
+    """Layer ``li`` of a :class:`StackedLinear` or :class:`StackedNorm`, as
+    ``models.common.linear`` and :func:`_norm` read an ``nn.Linear`` or a
+    norm: ``weight`` and ``bias`` are the views ``[li]``; ``stacked`` the
+    whole ``(weight, bias)``, which the indexed linear reads."""
 
-    def __init__(self, stacked: StackedLinear, li: int):
-        self.stacked, self.li = stacked, li
+    __slots__ = ("weight", "bias", "stacked")
 
-    @property
-    def weight(self) -> torch.Tensor:
-        return self.stacked.weight[self.li]
-
-    @property
-    def bias(self) -> Optional[torch.Tensor]:
-        b = self.stacked.bias
-        return None if b is None else b[self.li]
-
-
-class _SliceNorm(_SliceLinear):
-    """Layer ``li`` of a :class:`StackedNorm`, as :func:`_norm` reads it."""
-
-    def __init__(self, stacked: StackedNorm, li: int):
-        super().__init__(stacked, li)
-        self.rms, self.eps = stacked.rms, stacked.eps
+    def __init__(self, stacked: _Stacked, li: int):
+        self.stacked = (stacked.weight, stacked.bias)
+        self.weight = stacked.weight[li]
+        self.bias = None if stacked.bias is None else stacked.bias[li]
 
 
 class StackedLayers(nn.Module):
     """Every block's parameters with a leading ``n_layers`` axis, under the
     JAX leaf names (``ln1``, ``attn.qkv``, ``mlp.gate``, ...), and
     ``index``: ``arange(n_layers)`` int32, kept on the parameters' device,
-    whose elements are the layer indices the indexed-linear kernel reads."""
+    whose elements are the layer indices the indexed-linear kernel reads.
+
+    ``views[False][li]`` computes layer ``li`` from slices of the
+    parameters, ``views[True][li]`` through the indexed-linear kernel at
+    ``index[li]`` (:class:`LayerView`).  They are made once, without
+    gradient (the layout is inference-only): they share the parameters'
+    storage, so in-place writes (``load_state_dict``) reach them, and are
+    made anew after ``Module.to`` and its kin, which may move it."""
 
     def __init__(self, layers: list[Block]):
         super().__init__()
@@ -465,21 +458,27 @@ class StackedLayers(nn.Module):
         self.register_buffer("index", torch.arange(len(layers), dtype=torch.int32,
                                                    device=self.ln1.weight.device),
                              persistent=False)
+        self._make_views()
+
+    def _make_views(self) -> None:
+        with torch.no_grad():
+            self.views = {indexed: [LayerView(self, li, self.index[li] if indexed else None)
+                                    for li in range(len(self))] for indexed in (False, True)}
+
+    def _apply(self, fn, *args, **kwargs):
+        out = super()._apply(fn, *args, **kwargs)
+        self._make_views()
+        return out
 
     def __len__(self) -> int:
         return self.index.shape[0]
-
-    def layer(self, li: int, indexed: bool = False) -> "LayerView":
-        """Layer ``li``: its linears read as slices, or (``indexed``) through
-        the indexed-linear kernel at the device index ``index[li]``."""
-        return LayerView(self, li, self.index[li] if indexed else None)
 
     def unstack(self, cfg: BackboneConfig) -> list[Block]:
         blocks = []
         for li in range(len(self)):
             with torch.device("meta"):
                 block = Block(cfg)
-            block.ln1, block.ln2 = self.ln1.unstack(li), self.ln2.unstack(li)
+            block.ln1, block.ln2 = self.ln1.unstack(li, cfg), self.ln2.unstack(li, cfg)
             block.attn = nn.ModuleDict({n: m.unstack(li) for n, m in self.attn.items()})
             block.mlp = nn.ModuleDict({n: m.unstack(li) for n, m in self.mlp.items()})
             blocks.append(block)
@@ -498,9 +497,9 @@ class LayerView(_LayerOps):
 
     def __init__(self, stacked: StackedLayers, li: int, index: Optional[torch.Tensor] = None):
         self.index = index
-        self.ln1, self.ln2 = _SliceNorm(stacked.ln1, li), _SliceNorm(stacked.ln2, li)
-        self.attn = {n: _SliceLinear(m, li) for n, m in stacked.attn.items()}
-        self.mlp = {n: _SliceLinear(m, li) for n, m in stacked.mlp.items()}
+        self.ln1, self.ln2 = _Slice(stacked.ln1, li), _Slice(stacked.ln2, li)
+        self.attn = {n: _Slice(m, li) for n, m in stacked.attn.items()}
+        self.mlp = {n: _Slice(m, li) for n, m in stacked.mlp.items()}
 
     def apply_linear(self, h, lin, kernels: bool = True, cols: Optional[slice] = None):
         if self.index is None:
@@ -508,7 +507,7 @@ class LayerView(_LayerOps):
         if cols is not None:
             raise ValueError("indexed stacked linears compute every output column")
         fn = il.indexed_linear if kernels else il.indexed_linear_ref
-        return fn(h, lin.stacked.weight, lin.stacked.bias, self.index)
+        return fn(h, *lin.stacked, self.index)
 
     def __call__(self, *args, **kwargs) -> torch.Tensor:
         return self.forward(*args, **kwargs)
@@ -590,7 +589,10 @@ class Backbone(nn.Module):
                                  "adapters before stack_layers")
             if generator is not None:
                 raise ValueError("stacked layer params are inference-only (no dropout)")
-            layers = [self.layers.layer(li) for li in range(cfg.n_layers)]
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.layers.parameters()):
+                raise ValueError("stacked layer params are inference-only: no gradient reaches "
+                                 "them (run under torch.no_grad, or unstack_layers first)")
+            layers = self.layers.views[False]
         else:
             layers = list(self.layers)
         valid_i32 = valid.to(torch.int32).contiguous()
@@ -625,7 +627,7 @@ class Backbone(nn.Module):
 
     def _out(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
         if self.final_norm is not None:
-            x = _norm(x, self.final_norm)
+            x = _norm(x, self.final_norm, self.cfg)
         if self.project_out is not None:
             x = linear(x, self.project_out, kernels)
         return x
@@ -645,7 +647,7 @@ class Backbone(nn.Module):
         bs, L, d = x.shape
         H, hd = cfg.n_heads, cfg.head_dim
 
-        h = _norm(x, layer.ln1) if cfg.pre_ln else x
+        h = _norm(x, layer.ln1, cfg) if cfg.pre_ln else x
         x_s = x[:, start:start + ln]
         h_q = h[:, start:start + ln]
         if "qkv" in layer.attn:
@@ -667,12 +669,12 @@ class Backbone(nn.Module):
         attn_out = _attention(q, k, v, allowed[:, :, start:start + ln], cfg.dtype)
         x_s = x_s + lin(attn_out.reshape(bs, ln, d), "attn", "o")
         if not cfg.pre_ln:
-            x_s = _norm(x_s, layer.ln1)
+            x_s = _norm(x_s, layer.ln1, cfg)
 
-        h2 = _norm(x_s, layer.ln2) if cfg.pre_ln else x_s
+        h2 = _norm(x_s, layer.ln2, cfg) if cfg.pre_ln else x_s
         x_s = x_s + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
-            x_s = _norm(x_s, layer.ln2)
+            x_s = _norm(x_s, layer.ln2, cfg)
         return x_s
 
 
@@ -908,13 +910,13 @@ def apply_streaming(
     if isinstance(backbone.layers, StackedLayers):
         # the stacked scan (``backbone.py:1324-1393``): every linear through
         # the indexed-linear kernel at a device layer index
-        layers = [backbone.layers.layer(li, indexed=True) for li in range(cfg.n_layers)]
+        layers = backbone.layers.views[True]
     else:
         layers = backbone.layers
     for li, layer in enumerate(layers):
         lin = lambda h, group, name, layer=layer: layer.apply_linear(
             h, getattr(layer, group)[name], kernels)
-        h = _norm(x, layer.ln1) if cfg.pre_ln else x
+        h = _norm(x, layer.ln1, cfg) if cfg.pre_ln else x
         q, k, v = layer.qkv(h, cfg, rope=rope, kernels=kernels)
         if prefill:
             ck[li, :, F_, :n_sink] = k[:, :n_sink]
@@ -933,9 +935,9 @@ def apply_streaming(
                                          cfg).reshape(bs, Ln, cfg.d_model)
         x = x + lin(attn_flat, "attn", "o")
         if not cfg.pre_ln:
-            x = _norm(x, layer.ln1)
-        h2 = _norm(x, layer.ln2) if cfg.pre_ln else x
+            x = _norm(x, layer.ln1, cfg)
+        h2 = _norm(x, layer.ln2, cfg) if cfg.pre_ln else x
         x = x + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
-            x = _norm(x, layer.ln2)
+            x = _norm(x, layer.ln2, cfg)
     return backbone._out(x, kernels), cache

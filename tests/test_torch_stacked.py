@@ -231,6 +231,9 @@ def test_stacked_forward_matches_jax(family):
 
 
 def test_stacked_forward_refuses_adapters_and_dropout():
+    """Inference-only, as JAX's stacked branch: a LoRA tree, a dropout
+    generator and, under autograd, parameters that want a gradient (the
+    layer views carry none) raise."""
     _, _, model = _bb_pair("opt")
     bb.stack_layers(model)
     x = torch.zeros(1, 4, 128)
@@ -238,6 +241,34 @@ def test_stacked_forward_refuses_adapters_and_dropout():
         model(x, lora=object())
     with pytest.raises(ValueError, match="inference-only"):
         model(x, generator=torch.Generator())
+    with pytest.raises(ValueError, match="no gradient"):
+        model(x)
+    model.requires_grad_(False)
+    assert model(x).shape == (1, 4, 128)
+
+
+def test_stacked_views_follow_the_parameters():
+    """The layer views are made once: ``load_state_dict`` (in place) reaches
+    them, and so does a ``Module.to`` that moves the parameters (the views
+    are made anew); the stacked forward equals the unrolled one of the
+    weights loaded last, bit for bit."""
+    _, _, model = _bb_pair("llama")
+    _, _, weights_a = _bb_pair("llama")
+    weights_b = bb.Backbone(model.cfg)
+    weights_b.reset_parameters(torch.Generator().manual_seed(7))
+    x, valid = _window(128, L=37, n_invalid=5)
+    tx, tv = torch.from_numpy(x), torch.from_numpy(valid)
+    with torch.no_grad():
+        bb.stack_layers(model)
+        for ref in (weights_b, weights_a):
+            bb.stack_layers(ref)
+            model.load_state_dict(ref.state_dict())
+            bb.unstack_layers(ref)
+            assert torch.equal(model(tx, tv), ref(tx, tv))
+            model.to(torch.float64).to(torch.float32)  # new storage, the same values
+    view = model.layers.views[True][2]
+    assert view.mlp["up"].weight.data_ptr() == model.layers.mlp["up"].weight[2].data_ptr()
+    assert view.index.data_ptr() == model.layers.index[2].data_ptr()
 
 
 N_SINK, FRAME, R = 11, 10, 3
