@@ -30,6 +30,9 @@ Phases, each printing one line per result; any failure exits nonzero:
                beside ``bound_ms``: the larger of the
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
+               the slab decode, the indexed linear and the segment kernels
+               also repeated bit for bit, the first two with their launch
+               geometry (key splits; column tiles and K split);
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -346,6 +349,7 @@ QMM_CASES = [
 def phase_kernels(dev, failures: list) -> list[dict]:
     import torch.nn.functional as F
 
+    from fluid_llm_tpu_torch.ops import _build
     from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
@@ -461,8 +465,12 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         q, cache, key_pos, q0, li = _slab_case(dev, state, g)
         out = da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)
         ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)
+        again = da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)
+        twin_again = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)
         P, D = q.shape[1:]
         tot = cache["k"].shape[2] * cache["k"].shape[3]
+        n_splits, split_keys = da.split_plan(tot, D // 64, -(-P // da.QUERY_TILE), 1,
+                                             _build.sm_count(q.device))
         allowed = key_pos[0, :tot][None] <= q0 + torch.arange(P, device=dev)[:, None]
         n_visible = allowed.any(0).sum().item()  # keys some query may see
         k_l, v_l = (cache[n][li].reshape(1, tot, D) for n in ("k", "v"))
@@ -473,6 +481,10 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             main_path=True, rel=rel_err(out, ref),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             finite=bool(torch.isfinite(out).all()),
+            deterministic=bool(torch.equal(again, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)),
+            geometry=f"{n_splits} key splits of {split_keys} keys x {D // 64} heads x "
+                     f"{-(-P // da.QUERY_TILE)} query tile = {n_splits * D // 64} blocks",
             ms=device_ms(lambda: da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
             plain_ms=device_ms(
                 lambda: da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, li, 64)),
@@ -517,6 +529,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         if r.get("deterministic") is not None:
             notes += (f", repeat bit-equal {r['deterministic']} (twin "
                       f"{r['twin_deterministic']})")
+        if r.get("geometry"):
+            notes += f", launch: {r['geometry']}"
         print(f"[kernels] {r['kernel']} {r['shape']}: rel {r['rel']:.3e} "
               f"max_abs {r['max_abs_err']:.3e}{notes} "
               f"{'ok' if ok else 'FAIL'}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -542,6 +556,7 @@ def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
     ``F.linear`` on the host-indexed view ``w[li]`` (cuBLAS, no copy)."""
     import torch.nn.functional as F
 
+    from fluid_llm_tpu_torch.ops import _build
     from fluid_llm_tpu_torch.ops import indexed_linear as il
 
     rows, index = [], torch.arange(12, dtype=torch.int32, device=dev)
@@ -551,9 +566,12 @@ def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
             weights[K, N] = (torch.randn(12, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
         w = weights[K, N]
         x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        block_n, k_split = il.plan(M, K, N, _build.sm_count(x.device))
         for li in (0, 11):
             out = il.indexed_linear(x, w, None, index[li])
             ref = il.indexed_linear_ref(x, w, None, index[li])
+            again = il.indexed_linear(x, w, None, index[li])
+            twin_again = il.indexed_linear_ref(x, w, None, index[li])
             wl = w[li]
             torch.cuda.synchronize()
             rows.append(dict(
@@ -561,6 +579,11 @@ def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
                 main_path=True, rel=rel_err(out, ref),
                 max_abs_err=(out.float() - ref.float()).abs().max().item(),
                 finite=bool(torch.isfinite(out).all()),
+                deterministic=bool(torch.equal(again, out)),
+                twin_deterministic=bool(torch.equal(twin_again, ref)),
+                geometry=f"{-(-M // il.ROW_TILE)} row x {N // block_n} column tiles of "
+                         f"{block_n} x K split {k_split} (clusters of {k_split}) = "
+                         f"{-(-M // il.ROW_TILE) * N // block_n * k_split} blocks",
                 ms=device_ms(lambda: il.indexed_linear(x, w, None, index[li])),
                 plain_ms=device_ms(lambda: il.indexed_linear_ref(x, w, None, index[li])),
                 library_ms=device_ms(lambda: F.linear(x, wl)),

@@ -113,7 +113,8 @@ using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16, __nv_bf
 template <int HD>
 __device__ __forceinline__ void fwd_begin(const FwdSmem<HD>& sh, QFrag<HD> (&qf)[HD / 16]) {
   using Lay = FwdLayout<HD>;
-  for (int i = threadIdx.x; i < BQ * Lay::OLD; i += THREADS) sh.o[i] = 0.f;
+  for (int i = threadIdx.x; i < BQ * Lay::OLD / 4; i += THREADS)
+    reinterpret_cast<float4*>(sh.o)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   if (threadIdx.x < BQ) {
     sh.m[threadIdx.x] = -INFINITY;
     sh.l[threadIdx.x] = 0.f;
@@ -125,26 +126,18 @@ __device__ __forceinline__ void fwd_begin(const FwdSmem<HD>& sh, QFrag<HD> (&qf)
 }
 
 // One 64-key tile of the online-softmax forward, for the calling warp's 16
-// query rows (tile rows warp*16 ..): S = Q K^T on the tensor cores, the
-// masked online softmax in f32 (allowed(row, col) over tile rows and the
-// tile's key columns), p rounded to bf16, then O = alpha O + P V.  A row
-// with no allowed key in the tile keeps its m, l and accumulator (p is 0
-// and exp is never taken of a masked score, so no NaN).  The K/V tiles
-// must be in shared memory and synchronised; the caller synchronises
-// before overwriting them.
-template <int HD, class Allowed>
-__device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> (&qf)[HD / 16],
-                                         float scale, Allowed is_allowed) {
+// query rows (tile rows warp*16 ..), in three stages: fwd_scores, S = Q K^T
+// on the tensor cores; fwd_softmax, the masked online softmax in f32
+// (allowed(row, col) over tile rows and the tile's key columns), p rounded
+// to bf16; fwd_pv, O = alpha O + P V.  A row with no allowed key in the
+// tile keeps its m, l and accumulator (p is 0 and exp is never taken of a
+// masked score, so no NaN).  The K/V tiles must be in shared memory and
+// synchronised; the caller synchronises before overwriting them.
+template <int HD>
+__device__ __forceinline__ void fwd_scores(const FwdSmem<HD>& sh, const QFrag<HD> (&qf)[HD / 16]) {
   namespace wmma = nvcuda::wmma;
-  using Lay = FwdLayout<HD>;
-  constexpr int QLD = Lay::QLD;
-  constexpr int OLD = Lay::OLD;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* s_w = sh.s + warp * 16 * SLD;
-  __nv_bfloat16* p_w = sh.p + warp * 16 * PLD;
-  float* o_w = sh.o + warp * 16 * OLD;
-
+  constexpr int QLD = FwdLayout<HD>::QLD;
+  float* s_w = sh.s + threadIdx.x / 32 * 16 * SLD;
   // S = Q K^T over this warp's rows: 16 x 64 f32
 #pragma unroll
   for (int n = 0; n < BK / 16; ++n) {
@@ -159,8 +152,16 @@ __device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> 
     wmma::store_matrix_sync(s_w + n * 16, acc, SLD, wmma::mem_row_major);
   }
   __syncwarp();
+}
 
-  // online softmax: each lane takes 2 of the tile's 64 keys per row
+// The online softmax one row at a time: each lane takes 2 of the tile's 64
+// keys per row.
+template <int HD, class Allowed>
+__device__ __forceinline__ void fwd_softmax(const FwdSmem<HD>& sh, float scale, Allowed is_allowed) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const float* s_w = sh.s + warp * 16 * SLD;
+  __nv_bfloat16* p_w = sh.p + warp * 16 * PLD;
   for (int r = 0; r < 16; ++r) {
     const int row = warp * 16 + r;
     const float s0 = s_w[r * SLD + lane] * scale;
@@ -184,11 +185,34 @@ __device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> 
     }
   }
   __syncwarp();
+}
 
-  // rescale this warp's accumulator rows, then O += P V on the tensor cores
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e / HD;
-    o_w[r * OLD + e % HD] *= sh.alpha[warp * 16 + r];
+template <int HD>
+__device__ __forceinline__ void fwd_pv(const FwdSmem<HD>& sh) {
+  namespace wmma = nvcuda::wmma;
+  using Lay = FwdLayout<HD>;
+  constexpr int QLD = Lay::QLD;
+  constexpr int OLD = Lay::OLD;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const __nv_bfloat16* p_w = sh.p + warp * 16 * PLD;
+  float* o_w = sh.o + warp * 16 * OLD;
+  // rescale this warp's accumulator rows (every load before any store, so
+  // they overlap), then O += P V on the tensor cores
+  constexpr int V = 16 * HD / 4 / 32;  // float4s of the warp's 16 rows a lane
+  float4 o4[V];
+  float a4[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int e = (lane + i * 32) * 4;
+    o4[i] = *reinterpret_cast<const float4*>(o_w + e / HD * OLD + e % HD);
+    a4[i] = sh.alpha[warp * 16 + e / HD];
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const int e = (lane + i * 32) * 4;
+    *reinterpret_cast<float4*>(o_w + e / HD * OLD + e % HD) =
+        make_float4(o4[i].x * a4[i], o4[i].y * a4[i], o4[i].z * a4[i], o4[i].w * a4[i]);
   }
   __syncwarp();
 #pragma unroll
@@ -205,6 +229,14 @@ __device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> 
     }
     wmma::store_matrix_sync(o_w + n * 16, acc, OLD, wmma::mem_row_major);
   }
+}
+
+template <int HD, class Allowed>
+__device__ __forceinline__ void fwd_tile(const FwdSmem<HD>& sh, const QFrag<HD> (&qf)[HD / 16],
+                                         float scale, Allowed is_allowed) {
+  fwd_scores<HD>(sh, qf);
+  fwd_softmax<HD>(sh, scale, is_allowed);
+  fwd_pv<HD>(sh);
 }
 
 }  // namespace attn

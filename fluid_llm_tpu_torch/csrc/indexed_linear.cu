@@ -20,35 +20,68 @@
 // What bounds it on an H100 (3.35 TB/s, 989 bf16 TFLOP/s): at the
 // streaming step (M 60) a layer's (768, 2304) qkv weight is 3.5 MB read
 // for 2 x 60 operations a weight, 60 operations a byte, far below the 295
-// a byte where the tensor cores would bound it: bytes bound (>= 1.1 us),
-// and at these sizes bound in practice by the launch and the latency of
-// the K loop.
+// a byte where the tensor cores would bound it: bytes bound (>= 1.1 us).
+// In practice each block is bound by a chain: the issue of its 16-byte
+// copies, the products of each 64-deep step, and the cluster barrier,
+// which waits for the rank that started last.
 //
-// Design: the tile of the w8a16 kernel (quant_matmul.cu) without the int8
-// conversion.  A block computes a 64-row x BN output tile, 4 warps of 16
-// rows each, with mma.sync m16n8k16 bf16 (f32 accumulation) on tiles
-// staged in shared memory, rows padded by 16 bytes so the fragment loads
-// hit 32 distinct banks; rows past M load as zeros and are not stored.
-// BN is 16: at the streaming step's 60 rows wider tiles would leave SMs
-// idle (N 768 gives 48 blocks of 16 columns for 132 SMs, 12 of 64).  Each
-// K step issues all its 16-byte loads before any is used.  The
-// layer offset li*N*K is a 64-bit product: it passes 2^31 for a stacked
-// LLaMA-7B weight.  No wgmma, TMA, split-K or multi-stage pipeline yet.
+// Design:
+// - A block computes a 64-row x BN output tile (BN 64, 32 or 16), 8 warps
+//   of 16 rows x BN / 2 columns (two warps a sub-core, so one's shared
+//   loads overlap the other's products), with mma.sync m16n8k16 bf16 (f32
+//   sums) on tiles staged in shared memory, rows padded by 16 bytes so the
+//   fragment loads hit 32 distinct banks; rows past M load as zeros
+//   (cp.async zero-fill) and are not stored.  mma.sync and not wgmma: at
+//   M 60 the tensor cores are under 1 % busy, the time is the copies', and
+//   a wgmma tile would need the swizzled shared layouts of its descriptors
+//   for no gain here.
+// - Copies in flight: a ring of STAGES = 4 stages of 64-deep K steps (the
+//   x tile and the weight tile), filled with cp.async; step k + 3's bytes
+//   arrive while step k's products run.  At the decode shapes a block's
+//   whole K run fits in the ring, so every copy is issued at once.
+// - Split K across the blocks of a thread-block cluster (up to 8, the
+//   portable size): cluster rank r sums K run r.  Each rank owns a share
+//   of the output tile; every rank writes its f32 partial sums of a share
+//   into a slot of the owner's shared memory (distributed shared memory
+//   stores, no round trip), then after one cluster barrier each owner
+//   sums its slots in rank order (no atomics: deterministic) and writes.
+// - ops/indexed_linear.plan picks (BN, C) per shape: the most blocks that
+//   do not pass the SM count, the wider column tile on a tie (fewer
+//   re-reads of x).  A block's time here is mostly the issue of its
+//   16-byte copies, so an SM running two blocks finishes last: on the
+//   H100, grids of 144 or 192 blocks took longer than 96 or 108.  At the
+//   streaming step: qkv (64, 3) 108 blocks, o (32, 4) 96, gate/up (64, 4)
+//   128, down (64, 8) 96; one 16-column tile per block gave 48-144.
+// The layer offset li*N*K is a 64-bit product: it passes 2^31 for a
+// stacked LLaMA-7B weight.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int BM = 64;        // rows of a block tile: 4 warps x 16
-constexpr int BN = 16;        // columns of a block tile: 2 x n8
-constexpr int THREADS = 128;
-constexpr int BK = 128;       // K step: 8 x k16
-constexpr int LD = BK + 8;    // bf16 per shared row (68 words: conflict-free)
-constexpr int A_LOADS = BM * BK / 8 / THREADS;  // 16-byte loads per thread: 8
-constexpr int B_LOADS = BN * BK / 8 / THREADS;  // 2
+constexpr int BM = 64;       // rows of a block tile: 4 row groups of 16
+constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 column halves
+constexpr int BK = 64;       // K step: 4 x k16
+constexpr int LD = BK + 8;   // bf16 per shared row (36 words: conflict-free fragments)
+constexpr int STAGES = 4;    // K steps in flight
+constexpr int MAX_CLUSTER = 8;
+
+template <int BN>
+struct Ring {
+  static constexpr int stage = (BM + BN) * LD;  // bf16: the x tile, then the weight tile
+  static constexpr size_t ring = sizeof(__nv_bfloat16) * STAGES * stage;
+  // after the ring, the rank's share of the tile from every rank: at most
+  // BM x BN f32, plus the rounding of the shares to float4s
+  static constexpr size_t bytes = ring + sizeof(float) * (BM * BN + 4 * MAX_CLUSTER);
+};
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -63,33 +96,74 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// 16 bytes at p if ok, else zeros (rows past M contract to 0)
-__device__ __forceinline__ uint4 ld128(const void* p, bool ok) {
-  return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
 
+template <int BN>
 __global__ void __launch_bounds__(THREADS)
 indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
                       const __nv_bfloat16* __restrict__ w, const int* __restrict__ li_ptr,
                       int n_layers, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  constexpr int NT = BN / 8;  // n8 tiles of each warp
-  __shared__ __align__(16) __nv_bfloat16 sa[BM * LD];
-  __shared__ __align__(16) __nv_bfloat16 sb[BN * LD];
+  constexpr int NT = BN / 16;  // n8 tiles of each warp: half the tile's columns
+  extern __shared__ __align__(128) unsigned char smem[];
+  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
 
-  const int n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x / n_ranks * BN;  // a cluster's blocks are consecutive in x
   const int m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int li = *li_ptr;  // one word, the same for every thread of the grid
-
-  if (li < 0 || li >= n_layers) {  // no layer to read: the tile is NaN
-    for (int e = tid; e < BM * BN; e += THREADS) {
-      const int r = e / BN;
-      if (m0 + r < M) out[(long long)(m0 + r) * N + n0 + e % BN] = __float2bfloat16(NAN);
+  const int wr = warp & 3;               // the warp's 16 rows
+  const int wc = (warp >> 2) * (BN / 2);  // and its first column
+  const int steps = K / BK / n_ranks;  // this rank's K run, from k_begin
+  const int k_begin = rank * steps * BK;
+  auto load_x = [&](int step) {
+    __nv_bfloat16* sa = ring + (step % STAGES) * Ring<BN>::stage;
+    const int k0 = k_begin + step * BK;
+#pragma unroll
+    for (int c = tid; c < BM * BK / 8; c += THREADS) {
+      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      const bool ok = m0 + r < M;
+      cpa::copy16(sa + r * LD + kc, x + (long long)(ok ? m0 + r : 0) * x_rs + k0 + kc, ok);
     }
-    return;
+  };
+  auto load_w = [&](const __nv_bfloat16* wl, int step) {
+    __nv_bfloat16* sb = ring + (step % STAGES) * Ring<BN>::stage + BM * LD;
+    const int k0 = k_begin + step * BK;
+#pragma unroll
+    for (int c = tid; c < BN * BK / 8; c += THREADS) {
+      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      cpa::copy16(sb + r * LD + kc, wl + (long long)(n0 + r) * K + k0 + kc, true);
+    }
+  };
+
+  const int li = *li_ptr;  // one word, the same for every thread of the grid
+  // every rank must have started before another writes to its shared
+  // memory: arrive now, wait before the first write
+  if (n_ranks > 1) cluster.barrier_arrive();
+  // the x tiles do not depend on the layer: their copies fly while its
+  // index arrives
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s)
+    if (s < steps) load_x(s);
+  if (li < 0 || li >= n_layers) {  // no layer to read: rank 0 writes the tile as NaN
+    cpa::wait<0>();
+    if (n_ranks > 1) cluster.barrier_wait();
+    if (rank == 0)
+      for (int e = tid; e < BM * BN; e += THREADS) {
+        const int r = e / BN;
+        if (m0 + r < M) out[(long long)(m0 + r) * N + n0 + e % BN] = __float2bfloat16(NAN);
+      }
+    return;  // every rank leaves here: no cluster barrier waits on it
   }
   const __nv_bfloat16* wl = w + (long long)li * N * K;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) load_w(wl, s);
+    cpa::commit();
+  }
 
   float acc[NT][4];
 #pragma unroll
@@ -97,71 +171,136 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // every global load of the tile first (16-byte vectors), then the stores
-    uint4 va[A_LOADS], vb[B_LOADS];
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      va[i] = ld128(x + (long long)(m0 + r) * x_rs + k0 + kc, m0 + r < M);
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      vb[i] = ld128(wl + (long long)(n0 + r) * K + k0 + kc, true);
-    }
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(sa + r * LD + kc) = va[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(sb + r * LD + kc) = vb[i];
-    }
+  for (int step = 0; step < steps; ++step) {
+    cpa::wait<STAGES - 2>();
+    // step's stage has landed for every thread, and step - 1's stage, read
+    // by every warp before this barrier, takes step + STAGES - 1
     __syncthreads();
+    if (step + STAGES - 1 < steps) {
+      load_x(step + STAGES - 1);
+      load_w(wl, step + STAGES - 1);
+    }
+    cpa::commit();
+    const __nv_bfloat16* sa = ring + (step % STAGES) * Ring<BN>::stage;
+    const __nv_bfloat16* sb = sa + BM * LD;
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
-      const __nv_bfloat16* ar = sa + (warp * 16 + g) * LD + kk + t * 2;
+      const __nv_bfloat16* ar = sa + (wr * 16 + g) * LD + kk + t * 2;
       const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD), ld32(ar + 8), ld32(ar + 8 * LD + 8)};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* br = sb + (j * 8 + g) * LD + kk + t * 2;
+        const __nv_bfloat16* br = sb + (wc + j * 8 + g) * LD + kk + t * 2;
         const uint32_t b[2] = {ld32(br), ld32(br + 8)};
         mma_bf16(acc[j], a, b);
       }
     }
-    __syncthreads();
   }
 
+  if (n_ranks == 1) {  // the whole K: write the tile
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + j * 8 + t * 2;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = wr * 16 + g + hh * 8;
+        if (m0 + r < M)
+          store2(out + (long long)(m0 + r) * N + n0 + wc + j * 8 + t * 2, acc[j][2 * hh],
+                 acc[j][2 * hh + 1]);
+      }
+    return;
+  }
+
+  // rank o owns elements [o * share, (o + 1) * share) of the tile (row-major
+  // BM x BN); every rank writes its partial sums of them into slot `rank`
+  // of the owner's shared memory, one cluster barrier, then each owner sums
+  // its slots in rank order (no atomics: deterministic) and writes them
+  const int share = ((BM * BN + n_ranks - 1) / n_ranks + 3) / 4 * 4;
+  float* slots = reinterpret_cast<float*>(smem + Ring<BN>::ring);
+  cluster.barrier_wait();  // every rank has started
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = warp * 16 + g + hh * 8;
-      if (m0 + r >= M) continue;
-      __nv_bfloat162 pair;
-      pair.x = __float2bfloat16(acc[j][2 * hh]);
-      pair.y = __float2bfloat16(acc[j][2 * hh + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(out + (long long)(m0 + r) * N + n) = pair;
+      const int e = (wr * 16 + g + hh * 8) * BN + wc + j * 8 + t * 2;
+      const int owner = e / share;
+      *reinterpret_cast<float2*>(cluster.map_shared_rank(slots, owner) + rank * share + e -
+                                 owner * share) = make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+    }
+  cluster.sync();  // every rank's partial sums are in their owners' slots
+  const int mine = min(share, BM * BN - rank * share);
+  for (int i = tid * 4; i < mine; i += THREADS * 4) {
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < MAX_CLUSTER; ++k)
+      if (k < n_ranks) {
+        const float4 v = *reinterpret_cast<const float4*>(slots + k * share + i);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+    const int e = rank * share + i, r = e / BN;
+    if (m0 + r < M) {
+      __nv_bfloat16* dst = out + (long long)(m0 + r) * N + n0 + e % BN;
+      store2(dst, sum.x, sum.y);
+      store2(dst + 2, sum.z, sum.w);
     }
   }
+}
+
+template <int BN>
+int launch(const void* x, long long x_rs, const void* w, const void* li, int n_layers, void* out,
+           int M, int N, int K, int n_split, cudaStream_t stream) {
+  constexpr size_t smem = Ring<BN>::bytes;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(indexed_linear_kernel<BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(N / BN * n_split, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = n_split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, indexed_linear_kernel<BN>,
+                                     static_cast<const __nv_bfloat16*>(x), x_rs,
+                                     static_cast<const __nv_bfloat16*>(w),
+                                     static_cast<const int*>(li), n_layers,
+                                     static_cast<__nv_bfloat16*>(out), M, N, K);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: bf16 (M, K) with row stride x_rs (elements, a multiple of 8; 16-byte
 // aligned); w: bf16 (n_layers, N, K) contiguous; li: int32 on the device;
-// out: bf16 (M, N) contiguous.  K and N multiples of 128.
-// Returns cudaGetLastError() after the launch (0 on success).
+// out: bf16 (M, N) contiguous.  K and N multiples of 128; block_n (the
+// column tile) 16, 32 or 64; k_split (the cluster size) 1..8, dividing
+// K / 64.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int indexed_linear_bf16(const void* x, long long x_rs, const void* w, const void* li,
-                                   int n_layers, void* out, int M, int N, int K, void* stream) {
-  if (K % 128 || N % 128 || M <= 0 || n_layers <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid(N / BN, (M + BM - 1) / BM);
-  indexed_linear_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), x_rs, static_cast<const __nv_bfloat16*>(w),
-      static_cast<const int*>(li), n_layers, static_cast<__nv_bfloat16*>(out), M, N, K);
-  return (int)cudaGetLastError();
+                                   int n_layers, void* out, int M, int N, int K, int block_n,
+                                   int k_split, void* stream) {
+  if (K % 128 || N % 128 || M <= 0 || n_layers <= 0 || k_split < 1 || k_split > MAX_CLUSTER ||
+      (K / BK) % k_split)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (block_n) {
+    case 16:
+      return launch<16>(x, x_rs, w, li, n_layers, out, M, N, K, k_split, s);
+    case 32:
+      return launch<32>(x, x_rs, w, li, n_layers, out, M, N, K, k_split, s);
+    case 64:
+      return launch<64>(x, x_rs, w, li, n_layers, out, M, N, K, k_split, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

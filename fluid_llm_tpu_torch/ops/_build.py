@@ -12,11 +12,14 @@ nothing outside this package is compiled.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -38,12 +41,12 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _P],
     "grid_slot_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grid_slot_attention_bwd": [_P] * 10 + [_I] * 8 + [_P],
-    "slab_decode_attention": [_P] * 6 + [_I] * 6 + [_LL, _I, ctypes.c_float, _P],
+    "slab_decode_attention": [_P] * 9 + [_I] * 6 + [_LL, _I, ctypes.c_float, _I, _I, _P],
     "quant_matmul_w8a8": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
     "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 3 + [_P],
     "segment_sum_f32": [_P] * 4 + [_I] * 3 + [_P],
     "segment_gather_f32": [_P] * 3 + [_LL] + [_I] * 3 + [_P],
-    "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _P],
+    "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "short_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _P],
 }
 
@@ -122,6 +125,16 @@ def load() -> ctypes.CDLL:
         lib.cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+# streaming multiprocessors of an H100 SXM: the launch plans' default wave
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device``: the wave the launch plans fill."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

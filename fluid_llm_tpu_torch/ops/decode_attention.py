@@ -14,17 +14,24 @@ rounded to bf16 for the PV product, f32 sums.  Forward only.
 Bound and design, in short (the source's header has the detail): one
 layer's K/V at the flagship shape (11 slots x 64 rows x 768, bs 1) is
 ~2.2 MB and the step is ~12 x 60 x 704 x 64 x 4 ~= 130 MFLOP, so the
-kernel is latency bound.  It runs one block per (64-query tile, head,
-batch), reads layer ``li`` through strides from the stacked buffer (no
-per-layer slice, no copy), walks the 64-key tiles with an online softmax
-and skips a tile whose keys no query of the block may see (unwritten ring
-slots, and every ring slot in the prefill).  At bs 1 that is 12 blocks on
-132 SMs; splitting the keys across blocks is the next step.
+kernel is latency bound: what counts is how many SMs work at once.  It
+splits the keys across blocks (split-KV decoding): grid (key split, head,
+64-query tile x batch), each split a contiguous run of 64-key tiles
+(:func:`split_plan`: 11 splits x 12 heads = 132 blocks at the flagship
+shape), read in place from layer ``li`` of the stacked buffer, with an
+online softmax that skips tiles no query of the block may see (unwritten
+ring slots, every ring slot in the prefill) and prefetches the next
+visible tile.  The splits' f32 partials are combined in the same launch,
+in split order (deterministic), by the block that takes the last ticket
+of a counter the kernel resets itself.  What bounds it now is each
+block's chain of round trips: q and K/V in, the partials out, the ticket,
+the combine's reads from L2.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,6 +40,37 @@ from fluid_llm_tpu_torch.ops.exact_attention import HEAD_DIMS, row_stride
 
 INT32_MAX = torch.iinfo(torch.int32).max
 KEY_TILE = 64  # the kernel's key tile: the key-position row is padded to it
+QUERY_TILE = 64  # the kernel's query tile
+MAX_SPLITS = 32  # the kernel's combine keeps every split's row statistics in one score tile
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(n_keys: int, n_heads: int, q_tiles: int, bs: int,
+               sms: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(n_splits, split_keys)``: the keys' 64-key tiles cut into
+    ``n_splits`` contiguous runs of ``split_keys`` keys (the last may be
+    shorter, none is empty).  Takes the fewest splits whose grid
+    (splits x heads x query tiles x batch) fills a wave of ``sms`` blocks,
+    or as many splits as there are tiles (at most ``MAX_SPLITS``)."""
+    n_tiles = -(-n_keys // KEY_TILE)
+    base = n_heads * q_tiles * bs
+    per_min = -(-n_tiles // MAX_SPLITS)  # tiles a split must take at least
+    per = next((p for p in range(n_tiles, per_min - 1, -1) if -(-n_tiles // p) * base >= sms),
+               per_min)
+    return -(-n_tiles // per), per * KEY_TILE
+
+
+_tickets: dict[torch.device, torch.Tensor] = {}
+
+
+def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
+    """The combine's counters on ``device``, at least ``n``: zeroed once
+    here, and every launch leaves them zero.  Launches on one device share
+    them, so they must not run concurrently on two streams."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return t
 
 
 def pad_key_pos(kp_row: torch.Tensor) -> torch.Tensor:
@@ -112,13 +150,25 @@ def slab_decode(q, k_cache, v_cache, key_pos, q0, li: int, head_dim: int) -> tor
     if q0.dtype != torch.int32 or q0.numel() < 1:
         raise ValueError("slab_decode: q0 must be an int32 tensor")
     q_rs = row_stride(q, "q", bs, P, D)
+    H, q_tiles = D // head_dim, -(-P // QUERY_TILE)
+    n_splits, split_keys = split_plan(n_keys, H, q_tiles, bs, _build.sm_count(q.device))
     out = torch.empty((bs, P, D), dtype=q.dtype, device=q.device)
+    part_o = part_ml = tickets = None
+    if n_splits > 1:  # the splits' f32 partials: O (64 x hd), then m and l rows
+        groups = bs * q_tiles * H
+        part = torch.empty(groups * n_splits * QUERY_TILE * (head_dim + 2),
+                           dtype=torch.float32, device=q.device)
+        part_o, part_ml = part.split([groups * n_splits * QUERY_TILE * head_dim,
+                                      groups * n_splits * QUERY_TILE * 2])
+        tickets = _tickets_for(q.device, groups)
     lib = _build.load()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(q.device):
         err = lib.slab_decode_attention(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), key_pos.data_ptr(),
-            q0.data_ptr(), out.data_ptr(), bs, P, D // head_dim, head_dim, n_keys, li,
-            q_rs, D, ctypes.c_float(head_dim ** -0.5), torch.cuda.current_stream().cuda_stream,
+            q0.data_ptr(), out.data_ptr(), ptr(part_o), ptr(part_ml), ptr(tickets), bs, P, H,
+            head_dim, n_keys, li, q_rs, D, ctypes.c_float(head_dim ** -0.5), n_splits,
+            split_keys, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "slab_decode_attention")
     slab_decode.launches += 1

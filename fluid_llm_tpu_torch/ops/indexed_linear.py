@@ -15,7 +15,13 @@ matmul.  In PyTorch ``w[li]`` with a host index is a view, not a copy, so
 the kernel's one structural advantage here is that the index stays on the
 device: the host never reads it (a CUDA-graphed step could keep its layer
 counter there).  At the streaming step's 60 rows the call is bound by the
-weight bytes and, at these sizes, by its launch (the source's header).
+weight bytes in principle, and in practice by each block's chain of copy
+issue, products and cluster barrier: the kernel keeps a 4-stage ring of
+cp.async copies on as many SMs as it can and splits K
+across the blocks of a thread-block cluster, reduced in rank order through
+distributed shared memory (deterministic); :func:`plan` picks the column
+tile and the K split per shape so that the grid holds as many blocks as
+the card has SMs, and no more (the source's header has the detail).
 
 Forward only, as the TPU kernel by design (``indexed_linear.py:18-22``): on
 CUDA the wrapper raises under autograd.  The bias is added outside the
@@ -24,12 +30,38 @@ kernel, in the activation dtype, as ``indexed_linear.py:126-130``.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from fluid_llm_tpu_torch.ops import _build
 
 TILE = 128  # K and N must be multiples of it (the TPU kernel's lane rule)
+ROW_TILE = 64  # rows of the kernel's block tile
+K_STEP = 64  # depth of the kernel's K step: a K split takes whole steps
+COLUMN_TILES = (64, 32, 16)  # the kernel's column tiles, widest first
+MAX_K_SPLIT = 8  # blocks of a cluster, the portable limit
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(block_n, k_split)`` for ``x (M, K) @ w (N, K)^T``: a column tile
+    and a K split (a cluster of that many blocks, each a contiguous run of
+    whole 64-deep K steps).  Takes the plan whose grid of ``ceil(M / 64) x
+    N / block_n x k_split`` blocks is the largest that does not pass
+    ``sms``, the wider column tile on a tie (fewer re-reads of x): at the
+    streaming step a block's time is mostly its copies' issue, so an SM
+    that runs two blocks finishes last (on the H100, 144 and 192 blocks
+    took longer than 96 and 108).  Where every plan passes ``sms`` (many
+    rows), the widest tile without a split.  K and N multiples of 128."""
+    m_tiles, steps = -(-M // ROW_TILE), K // K_STEP
+    fits = [(m_tiles * N // block_n * k_split, block_n, k_split)
+            for block_n in COLUMN_TILES for k_split in range(1, MAX_K_SPLIT + 1)
+            if steps % k_split == 0 and m_tiles * N // block_n * k_split <= sms]
+    if not fits:
+        return COLUMN_TILES[0], 1
+    return max(fits)[1:]
 
 
 def _pick(t: torch.Tensor, li: torch.Tensor) -> torch.Tensor:
@@ -82,11 +114,12 @@ def indexed_linear(x, w, b, li) -> torch.Tensor:
     if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
         x2 = x2.contiguous()  # the kernel reads rows in 16-byte vectors
     M = x2.shape[0]
+    block_n, k_split = plan(M, K, N, _build.sm_count(x.device))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.load().indexed_linear_bf16(
             x2.data_ptr(), x2.stride(0), w.data_ptr(), li.data_ptr(), n_layers, out.data_ptr(),
-            M, N, K, torch.cuda.current_stream().cuda_stream,
+            M, N, K, block_n, k_split, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "indexed_linear_bf16")
     indexed_linear.launches += 1

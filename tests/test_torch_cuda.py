@@ -25,7 +25,11 @@ first and the last layer of 12 (an off-by-one-layer offset would read
 another layer's weights: relative error ~1.4); the short-attention kernel
 at the training step's and the rollout's shapes, valid rows only (the
 forced-diagonal rows are checked finite), and a short stacked streaming
-rollout through the kernels against the twins.
+rollout through the kernels against the twins.  The slab decode's key
+splits (1, 2, 11 and 33 slots, bs 1, 2 and 4, wholly masked splits, rows
+that see no key) and the indexed linear's K splits (K 128 to 11 008, M 1
+to 661, strided x) are held to the same bound, and both must repeat bit for
+bit, the decode also when replayed from a CUDA graph.
 """
 
 import pytest
@@ -283,6 +287,72 @@ def test_slab_decode_kernel_raises_under_autograd(dev):
         da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, 1, 64)
     with pytest.raises(ValueError):
         da.slab_decode(q.detach().float(), cache["k"], cache["v"], key_pos, q0, 1, 64)
+
+
+def _slab_call(q, cache, key_pos, q0, hd):
+    return da.slab_decode(q, cache["k"], cache["v"], key_pos, q0, 1, hd)
+
+
+@pytest.mark.parametrize("slots,bs,state", [
+    (1, 1, "prefill"), (2, 1, "wrapped"), (2, 4, "first"), (11, 1, "wrapped"),
+    (11, 1, "first"), (11, 1, "prefill"), (11, 2, "wrapped"), (11, 4, "wrapped"),
+    (33, 1, "wrapped"), (33, 2, "prefill"), (33, 4, "first"),
+])
+def test_slab_decode_splits_match_twin(dev, slots, bs, state):
+    """The key splits at 1, 2, 11 and 33 slots of 64 keys, bs 1, 2 and 4:
+    one split (1 slot), one tile a split (11 slots, bs 1: 132 blocks),
+    several tiles a split with the next tile prefetched (33 slots; bs 2 and
+    4), splits every key of which is masked (first decode, prefill)."""
+    q, cache, key_pos, q0 = _slab_case(dev, state, bs=bs, R=slots - 1)
+    n_splits, split_keys = da.split_plan(slots * 64, 12, 1, bs)
+    assert (n_splits == 1) == (slots == 1)
+    if slots == 33 or (slots == 11 and bs > 1):
+        assert split_keys > 64  # a run of several tiles: the prefetch path
+    before = da.slab_decode.launches
+    out = _slab_call(q, cache, key_pos, q0, 64)
+    torch.cuda.synchronize()
+    assert da.slab_decode.launches == before + 1
+    assert bool(torch.isfinite(out).all())
+    ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, 1, 64)
+    assert _rel(out, ref) <= REL_TOL
+
+
+@pytest.mark.parametrize("slots", [1, 11])
+def test_slab_decode_row_that_sees_no_key_is_zero(dev, slots):
+    """Keys at positions q0 + 10 .. q0 + 59: query rows 0..9 see none and
+    are written as zeros (one split, and the combine of 11); the other rows
+    agree with the twin."""
+    q, cache, key_pos, q0 = _slab_case(dev, "prefill" if slots == 1 else "wrapped", R=slots - 1)
+    n = slots * 64
+    key_pos = (int(q0) + 10 + torch.arange(n, dtype=torch.int32) % 50)[None].to(dev)
+    out = _slab_call(q, cache, key_pos, q0, 64)
+    ref = da.slab_decode_ref(q, cache["k"], cache["v"], key_pos, q0, 1, 64)
+    torch.cuda.synchronize()
+    assert bool((out[:, :10] == 0).all())
+    assert _rel(out[:, 10:], ref[:, 10:]) <= REL_TOL
+
+
+@pytest.mark.parametrize("slots,bs", [(11, 1), (33, 4)])
+def test_slab_decode_repeats_bit_for_bit_also_in_a_graph(dev, slots, bs):
+    """Two calls give equal bits (the combine sums the splits in split
+    order); two calls captured in one CUDA graph and replayed twice give
+    the same bits again (the combine's counters reset themselves)."""
+    q, cache, key_pos, q0 = _slab_case(dev, "wrapped", bs=bs, R=slots - 1)
+    first, second = _slab_call(q, cache, key_pos, q0, 64), _slab_call(q, cache, key_pos, q0, 64)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        _slab_call(q, cache, key_pos, q0, 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        a = _slab_call(q, cache, key_pos, q0, 64)
+        b = _slab_call(q, cache, key_pos, q0, 64)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(a, first) and torch.equal(b, first)
+    assert torch.equal(first, second)
 
 
 def test_streaming_rollout_kernels_match_twins(dev):
@@ -626,6 +696,56 @@ def test_indexed_linear_bias_leading_axes_and_raises(dev):
     with pytest.raises(ValueError):
         il.indexed_linear(x.float(), w.float(), None, index[0])
     assert bool(torch.isnan(il.indexed_linear(x, w, None, index[3])).all())
+
+
+# (M, K, N, n_layers, li): one K step (K 128), several row tiles (M 64, 65,
+# 661), M 1, and the huggyllama/llama-7b preset's MLP widths (d 4096, d_ff
+# 11008) over a 2-layer stack: 64 K steps a block, and k-split clusters
+@pytest.mark.parametrize("M,K,N,n_layers,li", [
+    (1, 128, 256, 3, 2), (60, 128, 128, 2, 1), (61, 128, 384, 2, 0), (64, 768, 768, 12, 11),
+    (65, 768, 2304, 12, 11), (661, 768, 768, 2, 1), (661, 2048, 768, 2, 1),
+    (60, 4096, 11008, 2, 1), (61, 11008, 4096, 2, 1), (1, 4096, 11008, 2, 0),
+])
+def test_indexed_linear_plans_match_twin(dev, M, K, N, n_layers, li):
+    g = torch.Generator().manual_seed(M + K + N)
+    w = (torch.randn(n_layers, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    index = torch.arange(n_layers, dtype=torch.int32, device=dev)[li]
+    before = il.indexed_linear.launches
+    out = il.indexed_linear(x, w, None, index)
+    torch.cuda.synchronize()
+    assert il.indexed_linear.launches == before + 1
+    assert _rel(out, il.indexed_linear_ref(x, w, None, index)) <= REL_TOL
+    assert _rel(out, x.float() @ w[li].float().T) <= REL_TOL
+
+
+@pytest.mark.parametrize("M,K,N", INDEXED_SHAPES)
+def test_indexed_linear_strided_x_and_repeat(dev, M, K, N):
+    """x a column slice of a wider tensor (read in place, any row stride a
+    multiple of 8); two calls give equal bits (the K split's partial tiles
+    are summed in rank order, no atomics)."""
+    g = torch.Generator().manual_seed(K + N)
+    w = (torch.randn(12, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
+    wide = torch.randn(M, K + 136, generator=g).to(dev, torch.bfloat16)
+    x = wide[:, 8:8 + K]
+    index = torch.arange(12, dtype=torch.int32, device=dev)[5]
+    out = il.indexed_linear(x, w, None, index)
+    again = il.indexed_linear(x, w, None, index)
+    torch.cuda.synchronize()
+    assert _rel(out, il.indexed_linear_ref(x.contiguous(), w, None, index)) <= REL_TOL
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("li", [12, -1])
+def test_indexed_linear_out_of_range_is_nan_with_a_k_split(dev, li):
+    """An index outside the stack writes NaN also where a cluster splits K
+    (every rank leaves before the cluster's barriers)."""
+    assert il.plan(60, 2048, 768)[1] > 1
+    w = torch.zeros(12, 768, 2048, dtype=torch.bfloat16, device=dev)
+    x = torch.ones(60, 2048, dtype=torch.bfloat16, device=dev)
+    out = il.indexed_linear(x, w, None, torch.tensor(li, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(out).all())
 
 
 @pytest.mark.parametrize("bs,L,H,hd,n_invalid", [
