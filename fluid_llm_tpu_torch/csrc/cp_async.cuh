@@ -16,7 +16,7 @@ __device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
                : "memory");
 }
 
-// Close the group of copies issued since the last commit (an empty group is
+// Close the group of copies started since the last commit (an empty group is
 // fine: the waits below count groups).
 __device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 

@@ -21,7 +21,7 @@
 // streaming step (M 60) a layer's (768, 2304) qkv weight is 3.5 MB read
 // for 2 x 60 operations a weight, 60 operations a byte, far below the 295
 // a byte where the tensor cores would bound it: bytes bound (>= 1.1 us).
-// In practice each block is bound by a chain: the issue of its 16-byte
+// In practice each block is bound by a chain: issuing its 16-byte
 // copies, the products of each 64-deep step, and the cluster barrier,
 // which waits for the rank that started last.
 //
@@ -38,7 +38,7 @@
 // - Copies in flight: a ring of STAGES = 4 stages of 64-deep K steps (the
 //   x tile and the weight tile), filled with cp.async; step k + 3's bytes
 //   arrive while step k's products run.  At the decode shapes a block's
-//   whole K run fits in the ring, so every copy is issued at once.
+//   whole K run fits in the ring, so every copy starts at once.
 // - Split K across the blocks of a thread-block cluster (up to 8, the
 //   portable size): cluster rank r sums K run r.  Each rank owns a share
 //   of the output tile; every rank writes its f32 partial sums of a share
@@ -47,7 +47,7 @@
 //   sums its slots in rank order (no atomics: deterministic) and writes.
 // - ops/indexed_linear.plan picks (BN, C) per shape: the most blocks that
 //   do not pass the SM count, the wider column tile on a tie (fewer
-//   re-reads of x).  A block's time here is mostly the issue of its
+//   re-reads of x).  A block's time here is mostly spent issuing its
 //   16-byte copies, so an SM running two blocks finishes last: on the
 //   H100, grids of 144 or 192 blocks took longer than 96 or 108.  At the
 //   streaming step: qkv (64, 3) 108 blocks, o (32, 4) 96, gate/up (64, 4)

@@ -15,8 +15,8 @@ matmul.  In PyTorch ``w[li]`` with a host index is a view, not a copy, so
 the kernel's one structural advantage here is that the index stays on the
 device: the host never reads it (a CUDA-graphed step could keep its layer
 counter there).  At the streaming step's 60 rows the call is bound by the
-weight bytes in principle, and in practice by each block's chain of copy
-issue, products and cluster barrier: the kernel keeps a 4-stage ring of
+weight bytes in principle, and in practice by each block's chain of
+issuing copies, products and cluster barrier: the kernel keeps a 4-stage ring of
 cp.async copies on as many SMs as it can and splits K
 across the blocks of a thread-block cluster, reduced in rank order through
 distributed shared memory (deterministic); :func:`plan` picks the column
@@ -51,7 +51,7 @@ def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
     whole 64-deep K steps).  Takes the plan whose grid of ``ceil(M / 64) x
     N / block_n x k_split`` blocks is the largest that does not pass
     ``sms``, the wider column tile on a tie (fewer re-reads of x): at the
-    streaming step a block's time is mostly its copies' issue, so an SM
+    streaming step a block's time is mostly spent issuing its copies, so an SM
     that runs two blocks finishes last (on the H100, 144 and 192 blocks
     took longer than 96 and 108).  Where every plan passes ``sms`` (many
     rows), the widest tile without a split.  K and N multiples of 128."""
