@@ -32,7 +32,11 @@ Phases, each printing one line per result; any failure exits nonzero:
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
                the slab decode, the indexed linear and the segment kernels
                also repeated bit for bit, the first two with their launch
-               geometry (key splits; column tiles and K split);
+               geometry (key splits; column tiles and K split); then every
+               launch plan of the indexed linear (``indexed_linear.plans``:
+               column tile and K split) at the stacked streaming step's
+               four shapes (M 60), each against the twin and timed beside
+               ``F.linear``: the table ``indexed_linear.plan`` is read from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -590,6 +594,49 @@ def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
                 **bound(nbytes(x, wl, out), 2 * M * N * K, "bf16"),
             ))
     return rows
+
+
+def phase_linear_plans(dev, failures: list) -> list[dict]:
+    """Every plan of the indexed linear (column tile, K split) at the
+    stacked streaming step's four (M 60) shapes, layer 5 of 12: agreement
+    with the twin (each plan sums K in its own order) and device time, the
+    plan ``indexed_linear.plan`` takes marked, beside ``F.linear``."""
+    import torch.nn.functional as F
+
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import indexed_linear as il
+
+    g = torch.Generator().manual_seed(7)
+    index = torch.arange(12, dtype=torch.int32, device=dev)[5]
+    sms = _build.sm_count(dev)
+    res = []
+    for M, K, N in INDEXED_CASES[:4]:
+        w = (torch.randn(12, N, K, generator=g) * 0.02).to(dev, torch.bfloat16)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        ref = il.indexed_linear_ref(x, w, None, index)
+        chosen = il.plan(M, K, N, sms)
+        timed = []
+        for blocks, block_n, k_split in il.plans(M, K, N):
+            if blocks > 2 * sms:
+                continue
+            with mock.patch.object(il, "plan", lambda *a, p=(block_n, k_split): p):
+                out = il.indexed_linear(x, w, None, index)
+                ms = device_ms(lambda: il.indexed_linear(x, w, None, index))
+            torch.cuda.synchronize()
+            rel = rel_err(out, ref)
+            timed.append(dict(block_n=block_n, k_split=k_split, blocks=blocks, ms=ms, rel=rel,
+                              chosen=(block_n, k_split) == chosen))
+            if not rel <= REL_TOL:
+                failures.append(f"indexed_linear plan ({block_n}, {k_split}) at M {M} K {K} "
+                                f"N {N}: rel {rel}")
+        library = device_ms(lambda: F.linear(x, w[5]))
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] indexed_linear M {M} K {K} N {N}: F.linear {library:.4f} ms; "
+              + "; ".join(f"({r['block_n']}, {r['k_split']}) {r['blocks']} blocks "
+                          f"{r['ms']:.4f}{' (plan)' if r['chosen'] else ''}" for r in timed)
+              + f"; max rel {max(r['rel'] for r in timed):.1e}")
+        res.append(dict(M=M, K=K, N=N, library_ms=library, plans=timed))
+    return res
 
 
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:
@@ -1565,6 +1612,7 @@ def main(argv=None) -> int:
     device = phase("device", phase_device)
     build_s = phase("build", phase_build)
     rows = phase("kernels", phase_kernels, dev, failures) or []
+    plans = phase("linear plans", phase_linear_plans, dev, failures)
     slice_res = phase("slice", phase_rollout, dev, args.seed, failures, streaming=False)
     trained = phase("train", phase_train, dev, args.seed, failures)
     train_res = train_agree = None
@@ -1602,7 +1650,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows,
+            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows, linear_plans=plans,
                            slice=slice_res, train=train_res,
                            train_agreement=train_agree, entry_points=entry_res,
                            streaming=stream_res, flagship_entry_points=flagship_res,

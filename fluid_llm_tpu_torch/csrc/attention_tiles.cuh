@@ -154,35 +154,48 @@ __device__ __forceinline__ void fwd_scores(const FwdSmem<HD>& sh, const QFrag<HD
   __syncwarp();
 }
 
-// The online softmax one row at a time: each lane takes 2 of the tile's 64
-// keys per row.
+// The online softmax with the warp's 16 rows at once: lanes 2r and 2r + 1
+// take row r's keys 0..31 and 32..63, one shuffle joins them (a row at a
+// time would cost 16 x 2 chains of 5 dependent shuffles a tile).  Each lane
+// walks its 32 columns from its own offset, so the 32 lanes read 32
+// distinct banks.
 template <int HD, class Allowed>
 __device__ __forceinline__ void fwd_softmax(const FwdSmem<HD>& sh, float scale, Allowed is_allowed) {
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* s_w = sh.s + warp * 16 * SLD;
-  __nv_bfloat16* p_w = sh.p + warp * 16 * PLD;
-  for (int r = 0; r < 16; ++r) {
-    const int row = warp * 16 + r;
-    const float s0 = s_w[r * SLD + lane] * scale;
-    const float s1 = s_w[r * SLD + lane + 32] * scale;
-    const bool a0 = is_allowed(row, lane);
-    const bool a1 = is_allowed(row, lane + 32);
-    const float tile_max = warp_max(fmaxf(a0 ? s0 : -INFINITY, a1 ? s1 : -INFINITY));
-    const float m_old = sh.m[row];
-    const float m_new = fmaxf(m_old, tile_max);
-    const float p0 = a0 ? __expf(s0 - m_new) : 0.f;
-    const float p1 = a1 ? __expf(s1 - m_new) : 0.f;
-    const float psum = warp_sum(p0 + p1);
-    p_w[r * PLD + lane] = __float2bfloat16(p0);
-    p_w[r * PLD + lane + 32] = __float2bfloat16(p1);
-    __syncwarp();
-    if (lane == 0) {
-      const float alpha = (m_old == -INFINITY) ? 0.f : __expf(m_old - m_new);
-      sh.m[row] = m_new;
-      sh.l[row] = sh.l[row] * alpha + psum;
-      sh.alpha[row] = alpha;
-    }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r = lane >> 1, half = lane & 1, row = warp * 16 + r;
+  const int rot = r + 16 * half;
+  const float* srow = sh.s + row * SLD;
+  __nv_bfloat16* prow = sh.p + row * PLD;
+  // the lane's 32 scores and their mask in registers, every load first
+  float sc[32];
+  unsigned ok = 0u;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = ((c + rot) & 31) + 32 * half;
+    sc[c] = srow[col] * scale;
+    ok |= is_allowed(row, col) ? 1u << c : 0u;
+  }
+  float mx = -INFINITY;
+#pragma unroll
+  for (int c = 0; c < 32; ++c)
+    if (ok >> c & 1u) mx = fmaxf(mx, sc[c]);
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  const float m_old = sh.m[row];
+  const float m_new = fmaxf(m_old, mx);
+  float psum = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const float p = (ok >> c & 1u) ? __expf(sc[c] - m_new) : 0.f;
+    psum += p;
+    prow[((c + rot) & 31) + 32 * half] = __float2bfloat16(p);
+  }
+  psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+  __syncwarp();  // both lanes of the row have read m_old
+  if (half == 0) {
+    const float alpha = (m_old == -INFINITY) ? 0.f : __expf(m_old - m_new);
+    sh.m[row] = m_new;
+    sh.l[row] = sh.l[row] * alpha + psum;
+    sh.alpha[row] = alpha;
   }
   __syncwarp();
 }

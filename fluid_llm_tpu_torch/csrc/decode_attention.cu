@@ -36,8 +36,8 @@
 //   the run length so the grid fills a wave, no split empty): at the
 //   flagship shape one tile a split, 11 x 12 = 132 blocks.
 // - A split walks its tiles with the online softmax of the exact-window
-//   kernel (attention_tiles.cuh: WMMA bf16 Q.K^T and P.V, f32 statistics;
-//   the softmax here two lanes a row, all 16 rows of a warp at once),
+//   kernel (attention_tiles.cuh: WMMA bf16 Q.K^T and P.V, f32 statistics,
+//   the softmax two lanes a row, all 16 rows of a warp at once),
 //   first asking, with one __syncthreads_or, whether any query of the block
 //   may see any key of the tile: a tile no query may see (an unwritten ring
 //   slot, every ring slot during the prefill) is never loaded, and a split
@@ -68,9 +68,33 @@
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
-#include "cp_async.cuh"
 
 using namespace attn;
+
+// Asynchronous 16-byte copies from global to shared memory (cp.async).
+namespace cpa {
+
+// Copy 16 bytes from src to the shared dst; with ok false, write 16 zero
+// bytes and read nothing (src must still be a valid address to form).
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+// Close the group of copies started since the last commit (an empty group is
+// fine: the waits below count groups).
+__device__ __forceinline__ void commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// Wait until at most N of this thread's newest groups are still in flight;
+// the caller then synchronises the block before reading the copies.
+template <int N>
+__device__ __forceinline__ void wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace cpa
 
 namespace {
 
@@ -117,53 +141,6 @@ __device__ __forceinline__ int next_visible(int k0, int k_end, const int* __rest
     if (__syncthreads_or(kp <= qmax)) return k0;  // a barrier too: skp is visible after it
   }
   return k_end;
-}
-
-// fwd_softmax's arithmetic with the warp's 16 rows at once: lanes 2r and
-// 2r + 1 take row r's keys 0..31 and 32..63, one shuffle joins them.  The
-// row-at-a-time version spends 16 x 2 chains of 5 dependent shuffles a tile,
-// the longest step of a one-tile split.  Each lane walks its 32 columns
-// from its own offset, so the 32 lanes read 32 distinct banks.
-template <int HD, class Allowed>
-__device__ __forceinline__ void decode_softmax(const FwdSmem<HD>& sh, float scale,
-                                               Allowed is_allowed) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r = lane >> 1, half = lane & 1, row = warp * 16 + r;
-  const int rot = r + 16 * half;
-  const float* srow = sh.s + row * SLD;
-  __nv_bfloat16* prow = sh.p + row * PLD;
-  // the lane's 32 scores and their mask in registers, every load first
-  float sc[32];
-  unsigned ok = 0u;
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    const int col = ((c + rot) & 31) + 32 * half;
-    sc[c] = srow[col] * scale;
-    ok |= is_allowed(row, col) ? 1u << c : 0u;
-  }
-  float mx = -INFINITY;
-#pragma unroll
-  for (int c = 0; c < 32; ++c)
-    if (ok >> c & 1u) mx = fmaxf(mx, sc[c]);
-  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-  const float m_old = sh.m[row];
-  const float m_new = fmaxf(m_old, mx);
-  float psum = 0.f;
-#pragma unroll
-  for (int c = 0; c < 32; ++c) {
-    const float p = (ok >> c & 1u) ? __expf(sc[c] - m_new) : 0.f;
-    psum += p;
-    prow[((c + rot) & 31) + 32 * half] = __float2bfloat16(p);
-  }
-  psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-  __syncwarp();  // both lanes of the row have read m_old
-  if (half == 0) {
-    const float alpha = (m_old == -INFINITY) ? 0.f : __expf(m_old - m_new);
-    sh.m[row] = m_new;
-    sh.l[row] = sh.l[row] * alpha + psum;
-    sh.alpha[row] = alpha;
-  }
-  __syncwarp();
 }
 
 template <int HD>
@@ -232,7 +209,7 @@ slab_decode_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __r
       __syncthreads();
       const int* skp = now.extra;
       fwd_scores<HD>(now, qf);
-      decode_softmax<HD>(now, scale, [&](int row, int col) { return skp[col] <= q0 + row; });
+      fwd_softmax<HD>(now, scale, [&](int row, int col) { return skp[col] <= q0 + row; });
       fwd_pv<HD>(now);
       __syncthreads();  // buffer nb is overwritten next
       cur = nxt;

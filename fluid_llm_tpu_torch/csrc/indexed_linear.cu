@@ -21,79 +21,196 @@
 // streaming step (M 60) a layer's (768, 2304) qkv weight is 3.5 MB read
 // for 2 x 60 operations a weight, 60 operations a byte, far below the 295
 // a byte where the tensor cores would bound it: bytes bound (>= 1.1 us).
-// In practice each block is bound by a chain: issuing its 16-byte
-// copies, the products of each 64-deep step, and the cluster barrier,
-// which waits for the rank that started last.
+// A block's time is a chain: the read of the layer index, the first weight
+// bytes' trip from HBM, its x and weight bytes into the SM (every column
+// tile reads x's whole K run: 96 of the 144 KB of a qkv block), the last
+// step's products; a K split adds the reduction across the cluster.
 //
-// Design:
-// - A block computes a 64-row x BN output tile (BN 64, 32 or 16), 8 warps
-//   of 16 rows x BN / 2 columns (two warps a sub-core, so one's shared
-//   loads overlap the other's products), with mma.sync m16n8k16 bf16 (f32
-//   sums) on tiles staged in shared memory, rows padded by 16 bytes so the
-//   fragment loads hit 32 distinct banks; rows past M load as zeros
-//   (cp.async zero-fill) and are not stored.  mma.sync and not wgmma: at
-//   M 60 the tensor cores are under 1 % busy, the time is the copies', and
-//   a wgmma tile would need the swizzled shared layouts of its descriptors
-//   for no gain here.
-// - Copies in flight: a ring of STAGES = 4 stages of 64-deep K steps (the
-//   x tile and the weight tile), filled with cp.async; step k + 3's bytes
-//   arrive while step k's products run.  At the decode shapes a block's
-//   whole K run fits in the ring, so every copy starts at once.
-// - Split K across the blocks of a thread-block cluster (up to 8, the
-//   portable size): cluster rank r sums K run r.  Each rank owns a share
-//   of the output tile; every rank writes its f32 partial sums of a share
-//   into a slot of the owner's shared memory (distributed shared memory
-//   stores, no round trip), then after one cluster barrier each owner
-//   sums its slots in rank order (no atomics: deterministic) and writes.
-// - ops/indexed_linear.plan picks (BN, C) per shape: the most blocks that
-//   do not pass the SM count, the wider column tile on a tie (fewer
-//   re-reads of x).  A block's time here is mostly spent issuing its
-//   16-byte copies, so an SM running two blocks finishes last: on the
-//   H100, grids of 144 or 192 blocks took longer than 96 or 108.  At the
-//   streaming step: qkv (64, 3) 108 blocks, o (32, 4) 96, gate/up (64, 4)
-//   128, down (64, 8) 96; one 16-column tile per block gave 48-144.
-// The layer offset li*N*K is a 64-bit product: it passes 2^31 for a
-// stacked LLaMA-7B weight.
+// Design (Hopper: TMA, mbarriers, wgmma, a thread-block cluster):
+// - A block is one warpgroup (128 threads) and computes a 64-row x BN
+//   output tile (BN 64, 32 or 16) with wgmma m64nBNk16 (bf16 in, f32
+//   sums in registers), A (the x tile) and B (the weight tile) both read
+//   from shared memory through descriptors; rows past M are zero-filled by
+//   the copy and not stored.
+// - Copies: thread 0 issues one TMA tensor copy a tile (x: 64 rows x 64 K
+//   from a 2-D map over (M, K) with x's row stride; w: BN rows x 64 K of
+//   layer li from a 3-D map over (n_layers, N, K), the layer a coordinate,
+//   so the 64-bit layer offset is the copy engine's), both 128-byte
+//   swizzled, the layout wgmma's descriptors read without bank conflicts.
+//   The ring holds as many 64-deep K steps as shared memory takes (16 at
+//   BN 16 and 32, 13 at BN 64), one mbarrier a stage counting the bytes
+//   in: at the decode shapes a block's whole K run fits in the ring, so
+//   every copy is asked for at once (a stage refilled only after its
+//   products would pay a memory round trip each time) and no thread
+//   spends instructions on addresses; the products of step k run while
+//   step k + 1 lands.
+// - Split K across the blocks of a cluster (up to 8, the portable size):
+//   cluster rank r sums K run r.  Each rank owns a share of the output
+//   tile; every rank writes its f32 partial sums of a share into a slot of
+//   the owner's shared memory (distributed shared memory stores), then
+//   after one cluster barrier each owner sums its slots in rank order (no
+//   atomics: deterministic) and writes.  No two ranks of a cluster read
+//   the same x bytes (their K runs differ), so there is nothing to
+//   multicast.
+// - ops/indexed_linear.plan picks (BN, cluster size) per shape, read from
+//   the plans chip_smoke.py times at the streaming step's shapes: no K
+//   split where a block's whole K run fits its ring, the narrowest tile
+//   whose grid fits one wave (the cluster's reduction costs more than the
+//   x bytes it saves: at qkv 0.0046 ms in 72 blocks unsplit, 0.0056 in 108
+//   blocks of three ranks, H100 SXM); else the largest grid within a wave.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
-
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 64;       // rows of a block tile: 4 row groups of 16
-constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 column halves
-constexpr int BK = 64;       // K step: 4 x k16
-constexpr int LD = BK + 8;   // bf16 per shared row (36 words: conflict-free fragments)
-constexpr int STAGES = 4;    // K steps in flight
+constexpr int BM = 64;        // rows of a block tile: wgmma's M
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int BK = 64;        // K step: 64 bf16 = one 128-byte swizzled row, 4 x k16
+constexpr int MAX_STAGES = 16;
 constexpr int MAX_CLUSTER = 8;
+constexpr int TILE_ALIGN = 1024;  // a 128-byte swizzle repeats every 8 rows of 128 bytes
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have (H100)
 
+// A ring of as many K steps as fit (at most MAX_STAGES), then the rank's
+// share of the tile from every rank (at most BM x BN f32, plus the rounding
+// of the shares to float4s), then one mbarrier a stage; the base is
+// aligned up to 1024 bytes at run time.
 template <int BN>
-struct Ring {
-  static constexpr int stage = (BM + BN) * LD;  // bf16: the x tile, then the weight tile
-  static constexpr size_t ring = sizeof(__nv_bfloat16) * STAGES * stage;
-  // after the ring, the rank's share of the tile from every rank: at most
-  // BM x BN f32, plus the rounding of the shares to float4s
-  static constexpr size_t bytes = ring + sizeof(float) * (BM * BN + 4 * MAX_CLUSTER);
+struct Smem {
+  static constexpr int x_bytes = BM * BK * 2;
+  static constexpr int w_bytes = BN * BK * 2;
+  static constexpr int stage = x_bytes + w_bytes;  // a multiple of 1024: tiles stay aligned
+  static constexpr int slot_bytes = 4 * (BM * BN + 4 * MAX_CLUSTER);
+  static constexpr int fit = (SMEM_MAX - TILE_ALIGN - slot_bytes - 8 * MAX_STAGES) / stage;
+  static constexpr int stages = fit < MAX_STAGES ? fit : MAX_STAGES;
+  static constexpr int slots = stages * stage;
+  static constexpr int bars = slots + slot_bytes;
+  static constexpr int bytes = bars + 8 * stages + TILE_ALIGN;
 };
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                       int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
+// swizzle (rows of 64 bf16, 8-row groups 1024 bytes apart); a k16 step
+// further along K starts 32 bytes later
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d (64 x BN f32, in the warpgroup's accumulator layout) += A (64 x 16) B^T
+// (BN x 16), both K-major in shared memory
+template <int BN>
+__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
@@ -102,12 +219,17 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
 
 template <int BN>
 __global__ void __launch_bounds__(THREADS)
-indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
-                      const __nv_bfloat16* __restrict__ w, const int* __restrict__ li_ptr,
+indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
+                      const __grid_constant__ CUtensorMap w_map, const int* __restrict__ li_ptr,
                       int n_layers, __nv_bfloat16* __restrict__ out, int M, int N, int K) {
-  constexpr int NT = BN / 16;  // n8 tiles of each warp: half the tile's columns
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* const ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  using S = Smem<BN>;
+  constexpr int STAGES = S::stages;
+  constexpr int R = BN / 2;  // accumulators a thread: 64 x BN over 128 threads
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem =
+      smem_raw + ((TILE_ALIGN - smem_addr(smem_raw) % TILE_ALIGN) % TILE_ALIGN);
+  const uint32_t ring = smem_addr(smem);  // the ring starts the aligned block
+  const uint32_t bars = ring + S::bars;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
 
@@ -115,96 +237,76 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
   const int m0 = blockIdx.y * BM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int wr = warp & 3;               // the warp's 16 rows
-  const int wc = (warp >> 2) * (BN / 2);  // and its first column
   const int steps = K / BK / n_ranks;  // this rank's K run, from k_begin
   const int k_begin = rank * steps * BK;
-  auto load_x = [&](int step) {
-    __nv_bfloat16* sa = ring + (step % STAGES) * Ring<BN>::stage;
-    const int k0 = k_begin + step * BK;
-#pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const bool ok = m0 + r < M;
-      cpa::copy16(sa + r * LD + kc, x + (long long)(ok ? m0 + r : 0) * x_rs + k0 + kc, ok);
-    }
-  };
-  auto load_w = [&](const __nv_bfloat16* wl, int step) {
-    __nv_bfloat16* sb = ring + (step % STAGES) * Ring<BN>::stage + BM * LD;
-    const int k0 = k_begin + step * BK;
-#pragma unroll
-    for (int c = tid; c < BN * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      cpa::copy16(sb + r * LD + kc, wl + (long long)(n0 + r) * K + k0 + kc, true);
-    }
-  };
 
+  if (tid == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
+                 : "memory");
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&w_map))
+                 : "memory");
+  }
   const int li = *li_ptr;  // one word, the same for every thread of the grid
-  // every rank must have started before another writes to its shared
-  // memory: arrive now, wait before the first write
-  if (n_ranks > 1) cluster.barrier_arrive();
-  // the x tiles do not depend on the layer: their copies fly while its
-  // index arrives
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s)
-    if (s < steps) load_x(s);
   if (li < 0 || li >= n_layers) {  // no layer to read: rank 0 writes the tile as NaN
-    cpa::wait<0>();
-    if (n_ranks > 1) cluster.barrier_wait();
     if (rank == 0)
       for (int e = tid; e < BM * BN; e += THREADS) {
         const int r = e / BN;
         if (m0 + r < M) out[(long long)(m0 + r) * N + n0 + e % BN] = __float2bfloat16(NAN);
       }
-    return;  // every rank leaves here: no cluster barrier waits on it
-  }
-  const __nv_bfloat16* wl = w + (long long)li * N * K;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < steps) load_w(wl, s);
-    cpa::commit();
+    return;  // every rank leaves here, before any copy or cluster barrier
   }
 
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  // step's x and weight tiles into its stage, counted on the stage's barrier
+  const CUtensorMap *xm = &x_map, *wm = &w_map;
+  auto issue = [=](int step) {
+    const int s = step % STAGES, k0 = k_begin + step * BK;
+    const uint32_t bar = bars + 8 * s, xs = ring + s * S::stage;
+    mbar_expect(bar, S::stage);
+    tma_2d(xs, xm, bar, k0, m0);
+    tma_3d(xs + S::x_bytes, wm, bar, k0, n0, li);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int step = 0; step < STAGES && step < steps; ++step) issue(step);
+  }
+  __syncthreads();  // the barriers are initialised for every thread
+  // every rank must have started before another writes to its shared
+  // memory: arrive now, wait before the first write
+  if (n_ranks > 1) cluster.barrier_arrive();
 
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
   for (int step = 0; step < steps; ++step) {
-    cpa::wait<STAGES - 2>();
-    // step's stage has landed for every thread, and step - 1's stage, read
-    // by every warp before this barrier, takes step + STAGES - 1
-    __syncthreads();
-    if (step + STAGES - 1 < steps) {
-      load_x(step + STAGES - 1);
-      load_w(wl, step + STAGES - 1);
-    }
-    cpa::commit();
-    const __nv_bfloat16* sa = ring + (step % STAGES) * Ring<BN>::stage;
-    const __nv_bfloat16* sb = sa + BM * LD;
+    const int s = step % STAGES;
+    mbar_wait(bars + 8 * s, (step / STAGES) & 1);
+    const uint32_t xs = ring + s * S::stage;
+    const uint64_t da = sw128_desc(xs), db = sw128_desc(xs + S::x_bytes);
+    pin(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const __nv_bfloat16* ar = sa + (wr * 16 + g) * LD + kk + t * 2;
-      const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD), ld32(ar + 8), ld32(ar + 8 * LD + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* br = sb + (wc + j * 8 + g) * LD + kk + t * 2;
-        const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-        mma_bf16(acc[j], a, b);
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
+    wgmma_commit();
+    if (step + STAGES < steps) {  // stage s takes step + STAGES once its products are done
+      wgmma_wait_all();
+      __syncthreads();
+      if (tid == 0) issue(step + STAGES);
     }
   }
+  wgmma_wait_all();
+  pin(acc);
 
+  // acc[4j + 2h + e] is row 16 warp + g + 8h, column 8j + 2t + e of the tile
   if (n_ranks == 1) {  // the whole K: write the tile
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
-        const int r = wr * 16 + g + hh * 8;
+        const int r = warp * 16 + g + hh * 8;
         if (m0 + r < M)
-          store2(out + (long long)(m0 + r) * N + n0 + wc + j * 8 + t * 2, acc[j][2 * hh],
-                 acc[j][2 * hh + 1]);
+          store2(out + (long long)(m0 + r) * N + n0 + j * 8 + t * 2, acc[4 * j + 2 * hh],
+                 acc[4 * j + 2 * hh + 1]);
       }
     return;
   }
@@ -214,16 +316,17 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
   // of the owner's shared memory, one cluster barrier, then each owner sums
   // its slots in rank order (no atomics: deterministic) and writes them
   const int share = ((BM * BN + n_ranks - 1) / n_ranks + 3) / 4 * 4;
-  float* slots = reinterpret_cast<float*>(smem + Ring<BN>::ring);
+  float* slots = reinterpret_cast<float*>(smem + S::slots);
   cluster.barrier_wait();  // every rank has started
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int e = (wr * 16 + g + hh * 8) * BN + wc + j * 8 + t * 2;
+      const int e = (warp * 16 + g + hh * 8) * BN + j * 8 + t * 2;
       const int owner = e / share;
       *reinterpret_cast<float2*>(cluster.map_shared_rank(slots, owner) + rank * share + e -
-                                 owner * share) = make_float2(acc[j][2 * hh], acc[j][2 * hh + 1]);
+                                 owner * share) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
   cluster.sync();  // every rank's partial sums are in their owners' slots
   const int mine = min(share, BM * BN - rank * share);
@@ -247,17 +350,58 @@ indexed_linear_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
   }
 }
 
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
+// query (no link against libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tiled bf16 map with 128-byte swizzle; rows past the tensor read as zeros.
+bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
+            const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled fn = encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int BN>
 int launch(const void* x, long long x_rs, const void* w, const void* li, int n_layers, void* out,
            int M, int N, int K, int n_split, cudaStream_t stream) {
-  constexpr size_t smem = Ring<BN>::bytes;
+  constexpr int smem = Smem<BN>::bytes;
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(indexed_linear_kernel<BN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
+  CUtensorMap x_map, w_map;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)x_rs * 2};
+  const cuuint32_t x_box[2] = {BK, BM};
+  const cuuint64_t w_dims[3] = {(cuuint64_t)K, (cuuint64_t)N, (cuuint64_t)n_layers};
+  const cuuint64_t w_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)K * N * 2};
+  const cuuint32_t w_box[3] = {BK, BN, 1};
+  if (!encode(&x_map, x, 2, x_dims, x_strides, x_box) ||
+      !encode(&w_map, w, 3, w_dims, w_strides, w_box))
+    return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / BN * n_split, (M + BM - 1) / BM);
   cfg.blockDim = dim3(THREADS);
@@ -269,10 +413,8 @@ int launch(const void* x, long long x_rs, const void* w, const void* li, int n_l
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, indexed_linear_kernel<BN>,
-                                     static_cast<const __nv_bfloat16*>(x), x_rs,
-                                     static_cast<const __nv_bfloat16*>(w),
+  cfg.numAttrs = n_split > 1 ? 1 : 0;  // a grid without a cluster attribute: clusters of 1
+  cudaError_t e = cudaLaunchKernelEx(&cfg, indexed_linear_kernel<BN>, x_map, w_map,
                                      static_cast<const int*>(li), n_layers,
                                      static_cast<__nv_bfloat16*>(out), M, N, K);
   if (e != cudaSuccess) return (int)e;
@@ -290,7 +432,7 @@ extern "C" int indexed_linear_bf16(const void* x, long long x_rs, const void* w,
                                    int n_layers, void* out, int M, int N, int K, int block_n,
                                    int k_split, void* stream) {
   if (K % 128 || N % 128 || M <= 0 || n_layers <= 0 || k_split < 1 || k_split > MAX_CLUSTER ||
-      (K / BK) % k_split)
+      (K / BK) % k_split || x_rs % 8 || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (block_n) {

@@ -60,17 +60,19 @@ def split_plan(n_keys: int, n_heads: int, q_tiles: int, bs: int,
     return -(-n_tiles // per), per * KEY_TILE
 
 
-_tickets: dict[torch.device, torch.Tensor] = {}
+_tickets: dict[torch.device, list[torch.Tensor]] = {}
 
 
 def _tickets_for(device: torch.device, n: int) -> torch.Tensor:
     """The combine's counters on ``device``, at least ``n``: zeroed once
     here, and every launch leaves them zero.  Launches on one device share
-    them, so they must not run concurrently on two streams."""
-    t = _tickets.get(device)
-    if t is None or t.numel() < n:
-        t = _tickets[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-    return t
+    them, so they must not run concurrently on two streams.  A larger set
+    takes over from a smaller one, which stays allocated: a CUDA graph
+    captured earlier still points at it."""
+    held = _tickets.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        held.append(torch.zeros(max(n, 1024), dtype=torch.int32, device=device))
+    return held[-1]
 
 
 def pad_key_pos(kp_row: torch.Tensor) -> torch.Tensor:

@@ -15,13 +15,13 @@ matmul.  In PyTorch ``w[li]`` with a host index is a view, not a copy, so
 the kernel's one structural advantage here is that the index stays on the
 device: the host never reads it (a CUDA-graphed step could keep its layer
 counter there).  At the streaming step's 60 rows the call is bound by the
-weight bytes in principle, and in practice by each block's chain of
-issuing copies, products and cluster barrier: the kernel keeps a 4-stage ring of
-cp.async copies on as many SMs as it can and splits K
-across the blocks of a thread-block cluster, reduced in rank order through
-distributed shared memory (deterministic); :func:`plan` picks the column
-tile and the K split per shape so that the grid holds as many blocks as
-the card has SMs, and no more (the source's header has the detail).
+weight bytes and by each block's chain (the layer index, the weight's
+first trip from HBM, the products, the reduction): the kernel is one
+warpgroup a block running ``wgmma`` on tiles that TMA copies into a ring
+of shared-memory stages on mbarriers, and splits K across the blocks of a
+thread-block cluster, reduced in rank order through distributed shared
+memory (deterministic); :func:`plan` picks the column tile and the K split
+per shape (the source's header has the detail).
 
 Forward only, as the TPU kernel by design (``indexed_linear.py:18-22``): on
 CUDA the wrapper raises under autograd.  The bias is added outside the
@@ -40,28 +40,48 @@ from fluid_llm_tpu_torch.ops import _build
 TILE = 128  # K and N must be multiples of it (the TPU kernel's lane rule)
 ROW_TILE = 64  # rows of the kernel's block tile
 K_STEP = 64  # depth of the kernel's K step: a K split takes whole steps
-COLUMN_TILES = (64, 32, 16)  # the kernel's column tiles, widest first
+COLUMN_TILES = (64, 32, 16)  # the kernel's column tiles (wgmma's N), widest first
 MAX_K_SPLIT = 8  # blocks of a cluster, the portable limit
+SMEM_BYTES = 232448  # dynamic shared memory a block may have (H100)
+
+
+def ring_steps(block_n: int) -> int:
+    """K steps the kernel's ring holds at a column tile: as many 64-deep
+    x and weight tiles as fit beside the split's f32 slots (``Smem`` in
+    ``csrc/indexed_linear.cu``, the same sum), at most 16."""
+    slots = 4 * (ROW_TILE * block_n + 4 * MAX_K_SPLIT)
+    stage = (ROW_TILE + block_n) * K_STEP * 2
+    return min(16, (SMEM_BYTES - 1024 - slots - 8 * 16) // stage)
+
+
+def plans(M: int, K: int, N: int) -> list[tuple[int, int, int]]:
+    """Every ``(blocks, block_n, k_split)`` the kernel takes for ``x (M, K) @
+    w (N, K)^T``: a column tile dividing N and a K split (a cluster of that
+    many blocks, each a contiguous run of whole 64-deep K steps), with its
+    grid of ``ceil(M / 64) x N / block_n x k_split`` blocks."""
+    m_tiles, steps = -(-M // ROW_TILE), K // K_STEP
+    return [(m_tiles * N // block_n * k_split, block_n, k_split)
+            for block_n in COLUMN_TILES if N % block_n == 0
+            for k_split in range(1, MAX_K_SPLIT + 1) if steps % k_split == 0]
 
 
 @functools.lru_cache(maxsize=None)
 def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
-    """``(block_n, k_split)`` for ``x (M, K) @ w (N, K)^T``: a column tile
-    and a K split (a cluster of that many blocks, each a contiguous run of
-    whole 64-deep K steps).  Takes the plan whose grid of ``ceil(M / 64) x
-    N / block_n x k_split`` blocks is the largest that does not pass
-    ``sms``, the wider column tile on a tie (fewer re-reads of x): at the
-    streaming step a block's time is mostly spent issuing its copies, so an SM
-    that runs two blocks finishes last (on the H100, 144 and 192 blocks
-    took longer than 96 and 108).  Where every plan passes ``sms`` (many
-    rows), the widest tile without a split.  K and N multiples of 128."""
-    m_tiles, steps = -(-M // ROW_TILE), K // K_STEP
-    fits = [(m_tiles * N // block_n * k_split, block_n, k_split)
-            for block_n in COLUMN_TILES for k_split in range(1, MAX_K_SPLIT + 1)
-            if steps % k_split == 0 and m_tiles * N // block_n * k_split <= sms]
-    if not fits:
-        return COLUMN_TILES[0], 1
-    return max(fits)[1:]
+    """``(block_n, k_split)`` for ``x (M, K) @ w (N, K)^T``, of :func:`plans`
+    whose grid does not pass ``sms`` (a block takes most of an SM's shared
+    memory, so a second wave runs after the first).  Without a K split
+    where a block's whole K run fits its ring: the narrowest column tile,
+    the most blocks (the split's reduction through the cluster costs more
+    than the x bytes it saves).  Else the largest grid, the wider tile on a
+    tie (fewer re-reads of x).  Where every plan passes ``sms`` (many rows),
+    the widest tile without a split.  ``chip_smoke.py`` times every plan at
+    the streaming step's shapes.  K and N multiples of 128."""
+    steps = K // K_STEP
+    fits = [p for p in plans(M, K, N) if p[0] <= sms]
+    whole = [p for p in fits if p[2] == 1 and steps <= ring_steps(p[1])]
+    if whole or fits:
+        return max(whole or fits)[1:]
+    return COLUMN_TILES[0], 1
 
 
 def _pick(t: torch.Tensor, li: torch.Tensor) -> torch.Tensor:

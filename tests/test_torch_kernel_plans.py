@@ -5,8 +5,8 @@ split_plan``, ``ops/indexed_linear.plan``), so they are held here, on the
 CPU: every key tile lies in exactly one split and no split is empty; the K
 split covers K in whole 64-deep steps with a cluster the kernel accepts;
 the streaming step's decode fills a wave of the H100's 132 SMs and its
-linears run at most one block an SM; every shape ``supported`` accepts
-gets a plan.  The kernels themselves run only on the card
+linears run at most one block an SM, unsplit where the K run fits the
+kernel's ring; every shape ``supported`` accepts gets a plan.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -73,20 +73,22 @@ STREAMING_LINEARS = [(M, K, N) for M in (60, 61)
 
 @pytest.mark.parametrize("M,K,N", STREAMING_LINEARS)
 def test_indexed_plan_runs_at_most_one_block_an_sm_at_the_streaming_linears(M, K, N):
-    """At most 132 blocks (no SM runs two, which then finishes last), and
-    at least 96: the split brings N 768's 12 or 24 column tiles to most of
-    the card."""
+    """At most 132 blocks (a block takes most of an SM's shared memory, so
+    an SM given two runs them one after the other), and at least 48: the
+    16-column tile spreads N 768 over 48 SMs without a split."""
     block_n, k_split = il.plan(M, K, N)
-    assert 96 <= -(-M // il.ROW_TILE) * N // block_n * k_split <= 132
+    assert 48 <= -(-M // il.ROW_TILE) * N // block_n * k_split <= 132
 
 
 def test_indexed_plan_at_the_streaming_linears():
-    """The largest grid within 132 blocks, the wider column tile on a tie:
-    qkv 36 tiles x 3, o 24 x 4 (16 x 6 would be 288), gate/up 32 x 4 (over
-    32 x 2 tiles of 32 columns), down 12 x 8."""
-    assert il.plan(60, 768, 2304) == (64, 3)
-    assert il.plan(60, 768, 768) == (32, 4)
-    assert il.plan(60, 768, 2048) == (64, 4)
+    """K 768 fits the ring (12 steps): no split, the narrowest tile within
+    132 blocks: qkv 72 tiles of 32 columns (16 would give 144), o 48 and
+    gate/up 128 tiles of 16.  K 2048 (32 steps) does not: the largest grid,
+    the wider tile on a tie: down 12 tiles x 8 (over 24 x 4 and 48 x 2)."""
+    assert [il.ring_steps(b) for b in il.COLUMN_TILES] == [13, 16, 16]
+    assert il.plan(60, 768, 2304) == (32, 1)
+    assert il.plan(60, 768, 768) == (16, 1)
+    assert il.plan(60, 768, 2048) == (16, 1)
     assert il.plan(60, 2048, 768) == (64, 8)
 
 
@@ -118,5 +120,6 @@ def test_indexed_plan_covers_k_exactly_for_every_supported_shape(M, K, N):
 
 
 def test_indexed_plan_takes_the_most_blocks_below_a_wave():
-    """A shape too small for a wave gets the plan with the most blocks."""
-    assert il.plan(1, 128, 128) == (16, 2)  # 8 column tiles x 2 steps
+    """A shape too small for a wave gets the plan with the most blocks
+    among those without a split (its 2 K steps fit any ring)."""
+    assert il.plan(1, 128, 128) == (16, 1)  # 8 column tiles
