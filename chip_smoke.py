@@ -30,13 +30,18 @@ Phases, each printing one line per result; any failure exits nonzero:
                beside ``bound_ms``: the larger of the
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
-               the slab decode, the indexed linear and the segment kernels
-               also repeated bit for bit, the first two with their launch
-               geometry (key splits; column tiles and K split); then every
-               launch plan of the indexed linear (``indexed_linear.plans``:
-               column tile and K split) at the stacked streaming step's
-               four shapes (M 60), each against the twin and timed beside
-               ``F.linear``: the table ``indexed_linear.plan`` is read from;
+               the slab decode, the indexed linear, w8a16, short attention
+               and the segment kernels also repeated bit for bit, the
+               first four with their launch geometry; then ("[plans]"
+               lines) every launch plan of the indexed linear (column tile,
+               K split) at the stacked streaming step's four shapes (M 60),
+               of w8a16 (token tile, warpgroups, K split, x cast) at its six
+               main-path shapes
+               and of short attention (64 or 128 query rows a block) at its
+               two, each against the twin and timed beside the library
+               call: the tables ``indexed_linear.plan``,
+               ``quant_matmul.plan`` and ``short_attention.plan`` are read
+               from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -99,7 +104,8 @@ Phases, each printing one line per result; any failure exits nonzero:
                checkpoint (DoRA unmerged there): one 25-step request; w8a16
                launches 72 a step (6 linears x 12 layers), exact attention
                11 a step, w8a8 0; finite; 10 steps kernels vs twins on the
-               same int8 weights (step 1 <= REL_TOL);
+               same int8 weights (step 1 <= REL_TOL); the device time a
+               step and idle share of a profiled 10-step rollout;
 13. graph baselines -- ``baselines_cli.main`` at the EAGLE geometry
                (synthetic 84x42 mesh: 3 529 node rows and 20 480 edge rows a
                graph, batch 4, 15 blocks at width 128): MeshGraphNet for 2
@@ -503,6 +509,17 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         b = (torch.randn(N, generator=g) * 0.1).to(dev) if has_bias else None
         out = qmm.int8_matmul(x, q, scale, b, mode)
         ref = qmm.int8_matmul_ref(x, q, scale, b, mode)
+        extra = {}
+        if mode == "w8a16":  # the launch plan, and a repeat bit for bit
+            tile, wg, k_split, x_cast = qmm.plan(M, K, N, _build.sm_count(x.device))
+            w_tiles = -(-N // (qmm.W16_ROWS * wg))
+            extra = dict(
+                deterministic=bool(torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)),
+                twin_deterministic=bool(torch.equal(qmm.int8_matmul_ref(x, q, scale, b, mode),
+                                                    ref)),
+                geometry=f"{w_tiles} weight-row tiles of {qmm.W16_ROWS * wg} x {-(-M // tile)} "
+                         f"token tiles of {tile} x K split {k_split} = "
+                         f"{w_tiles * -(-M // tile) * k_split} blocks, x shared by {x_cast}")
         if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
             xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
             library = lambda: torch._int_mm(xq, qt)  # noqa: E731
@@ -516,7 +533,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             shape=f"M {M} K {K} N {N} {'bias' if has_bias else 'no bias'}", main_path=main,
             rel=rel_err(out, ref), max_abs_err=(out.float() - ref.float()).abs().max().item(),
             finite=bool(torch.isfinite(out).all()),
-            exact=bool(torch.equal(out, ref)) if mode == "w8a8" else None,
+            exact=bool(torch.equal(out, ref)) if mode == "w8a8" else None, **extra,
             ms=device_ms(lambda: qmm.int8_matmul(x, q, scale, b, mode)),
             plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, b, mode)),
             library_ms=device_ms(library),
@@ -596,7 +613,7 @@ def _indexed_linear_rows(dev, g: torch.Generator) -> list[dict]:
     return rows
 
 
-def phase_linear_plans(dev, failures: list) -> list[dict]:
+def _indexed_linear_plans(dev, failures: list) -> list[dict]:
     """Every plan of the indexed linear (column tile, K split) at the
     stacked streaming step's four (M 60) shapes, layer 5 of 12: agreement
     with the twin (each plan sums K in its own order) and device time, the
@@ -639,6 +656,106 @@ def phase_linear_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+# (M, K, N) of the w8a16 kernel's main path (OPT-125m's exact rollout, with
+# bias): q/k/v/o, fc1, fc2 at 661 rows and the sliced last block's 60
+W8A16_SHAPES = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
+                (60, 768, 768), (60, 768, 3072), (60, 3072, 768)]
+
+
+def _w8a16_plans(dev, failures: list) -> list[dict]:
+    """Every plan of the w8a16 kernel (token tile, warpgroups, K split, x
+    shared across a cluster; up to four blocks an SM) at its main path's six shapes, with bias: agreement with the twin and device time,
+    ``quant_matmul.plan``'s choice marked, beside bf16 ``F.linear`` on the
+    dequantised weight."""
+    import torch.nn.functional as F
+
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import quant
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+    g = torch.Generator().manual_seed(8)
+    sms = _build.sm_count(dev)
+    res = []
+    for M, K, N in W8A16_SHAPES:
+        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+        q, scale = qp["q"].to(dev), qp["scale"].to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        b = (torch.randn(N, generator=g) * 0.1).to(dev)
+        ref = qmm.int8_matmul_ref(x, q, scale, b, "w8a16")
+        chosen = qmm.plan(M, K, N, sms)
+        timed = []
+        for blocks, *p in qmm.plans(M, K, N):
+            if blocks > 4 * sms:
+                continue
+            with mock.patch.object(qmm, "plan", lambda *a, p=tuple(p): p):
+                out = qmm.qmm_w8a16(x, q, scale, b)
+                ms = device_ms(lambda: qmm.qmm_w8a16(x, q, scale, b))
+            torch.cuda.synchronize()
+            rel = rel_err(out, ref)
+            timed.append(dict(plan=tuple(p), blocks=blocks, ms=ms, rel=rel,
+                              chosen=tuple(p) == chosen))
+            if not rel <= REL_TOL:
+                failures.append(f"w8a16 plan {tuple(p)} at M {M} K {K} N {N}: rel {rel}")
+        w, b16 = quant.dequantize_weight(q, scale, torch.bfloat16), b.to(torch.bfloat16)
+        library = device_ms(lambda: F.linear(x, w, b16))
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] quant_matmul_w8a16 M {M} K {K} N {N}: F.linear {library:.4f} ms; "
+              + "; ".join(f"{r['plan']} {r['blocks']} blocks "
+                          f"{r['ms']:.4f}{' (plan)' if r['chosen'] else ''}" for r in timed)
+              + f"; max rel {max(r['rel'] for r in timed):.1e}")
+        res.append(dict(M=M, K=K, N=N, library_ms=library, plans=timed))
+    return res
+
+
+def _short_attention_plans(dev, failures: list) -> list[dict]:
+    """Both plans of the short-attention kernel (64 or 128 query rows a
+    block) at the training step's and the rollout's shapes: agreement with
+    the twin over valid rows and device time, ``short_attention.plan``'s
+    choice marked."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(9)
+    H, hd = 12, 64
+    D = H * hd
+    res = []
+    for bs, L, valid in [(TRAIN_BS, TRAIN_TOKENS, None), (1, ROLLOUT_TOKENS, rollout_valid(3))]:
+        q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16)
+                   for _ in range(3))
+        valid = (torch.ones(bs, L, dtype=torch.int32) if valid is None else valid).to(dev)
+        keep = valid[0].bool()
+        ref = sa.short_attention_ref(q, k, v, valid, H, hd)
+        chosen = sa.plan(bs, L, H, hd, _build.sm_count(dev))
+        timed = []
+        for q_rows in sa.QUERY_ROWS:
+            with mock.patch.object(sa, "plan", lambda *a, p=q_rows: p):
+                out = sa.short_attention_fwd(q, k, v, valid, H, hd)
+                ms = device_ms(lambda: sa.short_attention_fwd(q, k, v, valid, H, hd))
+            torch.cuda.synchronize()
+            rel = rel_err(out[:, keep], ref[:, keep])
+            blocks = H * bs * len(sa.query_tiles(L, q_rows))
+            timed.append(dict(q_rows=q_rows, blocks=blocks, ms=ms, rel=rel,
+                              chosen=q_rows == chosen))
+            if not rel <= REL_TOL:
+                failures.append(f"short attention plan {q_rows} at ({bs}, {L}): rel {rel}")
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] short_attention ({bs}, {L}, {D}) H{H}: "
+              + "; ".join(f"{r['q_rows']} query rows a block, {r['blocks']} blocks "
+                          f"{r['ms']:.4f}{' (plan)' if r['chosen'] else ''}" for r in timed)
+              + f"; max rel {max(r['rel'] for r in timed):.1e}")
+        res.append(dict(bs=bs, L=L, plans=timed))
+    return res
+
+
+def phase_plans(dev, failures: list) -> dict:
+    """Every launch plan of the kernels that choose one per shape, timed at
+    their main path's shapes: the tables ``indexed_linear.plan``,
+    ``quant_matmul.plan`` and ``short_attention.plan`` are read from."""
+    return dict(indexed_linear=_indexed_linear_plans(dev, failures),
+                quant_matmul_w8a16=_w8a16_plans(dev, failures),
+                short_attention=_short_attention_plans(dev, failures))
+
+
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:
     """(1, 661) int32 validity of the exact rollout's window with
     ``n_valid_frames`` frames filled: BOS and the see-init frame, then the
@@ -655,6 +772,7 @@ def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
     column slices of one fused projection; the error over valid query rows
     (the forced-diagonal rows are checked finite).  The library call is
     ``scaled_dot_product_attention`` with the same mask."""
+    from fluid_llm_tpu_torch.ops import _build
     from fluid_llm_tpu_torch.ops import short_attention as sa
 
     rows, H, hd = [], 12, 64
@@ -670,8 +788,11 @@ def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
             valid = rollout_valid(3).to(dev)
         out = sa.short_attention_fwd(q, k, v, valid, H, hd)
         ref = sa.short_attention_ref(q, k, v, valid, H, hd)
+        again = sa.short_attention_fwd(q, k, v, valid, H, hd)
+        twin_again = sa.short_attention_ref(q, k, v, valid, H, hd)
         allowed = _allowed_causal(valid)
         keep = valid[0].bool()
+        q_rows = sa.plan(bs, L, H, hd, _build.sm_count(q.device))
         torch.cuda.synchronize()
         rows.append(dict(
             kernel="short_attention",
@@ -679,6 +800,10 @@ def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
             main_path=True, rel=rel_err(out[:, keep], ref[:, keep]),
             max_abs_err=(out[:, keep].float() - ref[:, keep].float()).abs().max().item(),
             finite=bool(torch.isfinite(out).all()),
+            deterministic=bool(torch.equal(again, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)),
+            geometry=f"{H} heads x {bs} batch x {len(sa.query_tiles(L, q_rows))} query tiles of "
+                     f"{q_rows} rows = {H * bs * len(sa.query_tiles(L, q_rows))} blocks",
             ms=device_ms(lambda: sa.short_attention_fwd(q, k, v, valid, H, hd)),
             plain_ms=device_ms(lambda: sa.short_attention_ref(q, k, v, valid, H, hd)),
             library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
@@ -1402,6 +1527,17 @@ def phase_serve_exact(dev, failures: list, runs: str) -> dict:
         diffs[kernels] = generate(model, *batch, 10)[1]
     model.kernels = True
     errs = [rel_err(diffs[True][:, i], diffs[False][:, i]) for i in range(10)]
+    # device time a step of the w8a16 rollout against its unprofiled wall time
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate(model, *batch, 10)
+    torch.cuda.synchronize()
+    wall10 = (time.perf_counter() - t0) * 1e3
+    busy_ms, n_ops, idle, top = device_profile(lambda: generate(model, *batch, 10), 1, wall10,
+                                               "serve exact 10 steps")
+    print(f"[serve exact] device time a step {busy_ms / 10:.3f} ms in {n_ops / 10:.0f} device "
+          f"ops (profiler); wall {wall10 / 10:.3f} ms a step; idle share "
+          f"{'not measured' if idle is None else f'{idle:.3f}'}")
     ok = (launches == want and not eng.streaming and pred.shape == (n_steps, 3, *grid.shape[-2:])
           and bool(np.isfinite(pred).all()) and errs[0] <= REL_TOL)
     print(f"[serve exact] load_engine(quant=int8, w8a16, streaming off) of {runs}: "
@@ -1413,7 +1549,9 @@ def phase_serve_exact(dev, failures: list, runs: str) -> dict:
     if not ok:
         failures.append(f"serve exact: launches {launches} (want {want}), shape {pred.shape}, "
                         f"agreement step 1 {errs[0]}")
-    return dict(load_s=load_s, request_s=wall, launches=launches, agreement_rel_err=errs)
+    return dict(load_s=load_s, request_s=wall, launches=launches, agreement_rel_err=errs,
+                profile=dict(steps=10, wall_ms=wall10, device_busy_ms=busy_ms, device_ops=n_ops,
+                             idle_share=idle, top_device_ms=top))
 
 
 # per rollout step of a window: (gathers, sums) forward, and what the
@@ -1612,7 +1750,7 @@ def main(argv=None) -> int:
     device = phase("device", phase_device)
     build_s = phase("build", phase_build)
     rows = phase("kernels", phase_kernels, dev, failures) or []
-    plans = phase("linear plans", phase_linear_plans, dev, failures)
+    plans = phase("plans", phase_plans, dev, failures)
     slice_res = phase("slice", phase_rollout, dev, args.seed, failures, streaming=False)
     trained = phase("train", phase_train, dev, args.seed, failures)
     train_res = train_agree = None
@@ -1650,7 +1788,7 @@ def main(argv=None) -> int:
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows, linear_plans=plans,
+            json.dump(dict(device=device, build_s=build_s, kernel_checks=rows, plans=plans,
                            slice=slice_res, train=train_res,
                            train_agreement=train_agree, entry_points=entry_res,
                            streaming=stream_res, flagship_entry_points=flagship_res,

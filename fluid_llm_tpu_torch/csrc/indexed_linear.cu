@@ -26,7 +26,8 @@
 // tile reads x's whole K run: 96 of the 144 KB of a qkv block), the last
 // step's products; a K split adds the reduction across the cluster.
 //
-// Design (Hopper: TMA, mbarriers, wgmma, a thread-block cluster):
+// Design (Hopper: TMA, mbarriers, wgmma, a thread-block cluster; the
+// helpers for each, and the split's reduction, are hopper.cuh's):
 // - A block is one warpgroup (128 threads) and computes a 64-row x BN
 //   output tile (BN 64, 32 or 16) with wgmma m64nBNk16 (bf16 in, f32
 //   sums in registers), A (the x tile) and B (the weight tile) both read
@@ -66,7 +67,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace cg = cooperative_groups;
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
@@ -75,8 +78,6 @@ constexpr int THREADS = 128;  // one warpgroup
 constexpr int BK = 64;        // K step: 64 bf16 = one 128-byte swizzled row, 4 x k16
 constexpr int MAX_STAGES = 16;
 constexpr int MAX_CLUSTER = 8;
-constexpr int TILE_ALIGN = 1024;  // a 128-byte swizzle repeats every 8 rows of 128 bytes
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may have (H100)
 
 // A ring of as many K steps as fit (at most MAX_STAGES), then the rank's
 // share of the tile from every rank (at most BM x BN f32, plus the rounding
@@ -95,124 +96,6 @@ struct Smem {
   static constexpr int bytes = bars + 8 * stages + TILE_ALIGN;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma's shared-memory descriptor of a K-major tile in the 128-byte
-// swizzle (rows of 64 bf16, 8-row groups 1024 bytes apart); a k16 step
-// further along K starts 32 bytes later
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
-         (uint64_t)1 << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// d (64 x BN f32, in the warpgroup's accumulator layout) += A (64 x 16) B^T
-// (BN x 16), both K-major in shared memory
-template <int BN>
-__device__ __forceinline__ void wgmma(float (&d)[BN / 2], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[16], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-      "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-      "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-// keeps the compiler from moving reads or writes of the accumulators across
-// the asynchronous products
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 __device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
 }
@@ -226,8 +109,7 @@ indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
   constexpr int STAGES = S::stages;
   constexpr int R = BN / 2;  // accumulators a thread: 64 x BN over 128 threads
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  unsigned char* const smem =
-      smem_raw + ((TILE_ALIGN - smem_addr(smem_raw) % TILE_ALIGN) % TILE_ALIGN);
+  unsigned char* const smem = aligned_smem(smem_raw);
   const uint32_t ring = smem_addr(smem);  // the ring starts the aligned block
   const uint32_t bars = ring + S::bars;
   cg::cluster_group cluster = cg::this_cluster();
@@ -241,10 +123,8 @@ indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
   const int k_begin = rank * steps * BK;
 
   if (tid == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&x_map))
-                 : "memory");
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&w_map))
-                 : "memory");
+    prefetch_map(&x_map);
+    prefetch_map(&w_map);
   }
   const int li = *li_ptr;  // one word, the same for every thread of the grid
   if (li < 0 || li >= n_layers) {  // no layer to read: rank 0 writes the tile as NaN
@@ -267,7 +147,7 @@ indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
   };
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
     for (int step = 0; step < STAGES && step < steps; ++step) issue(step);
   }
   __syncthreads();  // the barriers are initialised for every thread
@@ -286,15 +166,15 @@ indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
     pin(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma<BN>(acc, da + 2 * kk, db + 2 * kk);
+    for (int kk = 0; kk < BK / 16; ++kk) Wgmma<BN>::ss(acc, da + 2 * kk, db + 2 * kk);
     wgmma_commit();
     if (step + STAGES < steps) {  // stage s takes step + STAGES once its products are done
-      wgmma_wait_all();
+      wgmma_wait<0>();
       __syncthreads();
       if (tid == 0) issue(step + STAGES);
     }
   }
-  wgmma_wait_all();
+  wgmma_wait<0>();
   pin(acc);
 
   // acc[4j + 2h + e] is row 16 warp + g + 8h, column 8j + 2t + e of the tile
@@ -311,74 +191,18 @@ indexed_linear_kernel(const __grid_constant__ CUtensorMap x_map,
     return;
   }
 
-  // rank o owns elements [o * share, (o + 1) * share) of the tile (row-major
-  // BM x BN); every rank writes its partial sums of them into slot `rank`
-  // of the owner's shared memory, one cluster barrier, then each owner sums
-  // its slots in rank order (no atomics: deterministic) and writes them
-  const int share = ((BM * BN + n_ranks - 1) / n_ranks + 3) / 4 * 4;
+  // K split: ranks sum their partial tiles in rank order through the
+  // owners' shared memory (hopper::cluster_reduce), each owner writes its share
+  cluster.barrier_wait();  // every rank has started: its slots may be written
   float* slots = reinterpret_cast<float*>(smem + S::slots);
-  cluster.barrier_wait();  // every rank has started
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int e = (warp * 16 + g + hh * 8) * BN + j * 8 + t * 2;
-      const int owner = e / share;
-      *reinterpret_cast<float2*>(cluster.map_shared_rank(slots, owner) + rank * share + e -
-                                 owner * share) =
-          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
-    }
-  cluster.sync();  // every rank's partial sums are in their owners' slots
-  const int mine = min(share, BM * BN - rank * share);
-  for (int i = tid * 4; i < mine; i += THREADS * 4) {
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int k = 0; k < MAX_CLUSTER; ++k)
-      if (k < n_ranks) {
-        const float4 v = *reinterpret_cast<const float4*>(slots + k * share + i);
-        sum.x += v.x;
-        sum.y += v.y;
-        sum.z += v.z;
-        sum.w += v.w;
-      }
-    const int e = rank * share + i, r = e / BN;
+  cluster_reduce<BM, BN, MAX_CLUSTER>(acc, true, 0, slots, [&](int e, float4 sum) {
+    const int r = e / BN;
     if (m0 + r < M) {
       __nv_bfloat16* dst = out + (long long)(m0 + r) * N + n0 + e % BN;
       store2(dst, sum.x, sum.y);
       store2(dst + 2, sum.z, sum.w);
     }
-  }
-}
-
-// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
-// query (no link against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A tiled bf16 map with 128-byte swizzle; rows past the tensor read as zeros.
-bool encode(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encoder();
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  });
 }
 
 template <int BN>
@@ -399,8 +223,8 @@ int launch(const void* x, long long x_rs, const void* w, const void* li, int n_l
   const cuuint64_t w_dims[3] = {(cuuint64_t)K, (cuuint64_t)N, (cuuint64_t)n_layers};
   const cuuint64_t w_strides[2] = {(cuuint64_t)K * 2, (cuuint64_t)K * N * 2};
   const cuuint32_t w_box[3] = {BK, BN, 1};
-  if (!encode(&x_map, x, 2, x_dims, x_strides, x_box) ||
-      !encode(&w_map, w, 3, w_dims, w_strides, w_box))
+  if (!encode_bf16(&x_map, x, 2, x_dims, x_strides, x_box) ||
+      !encode_bf16(&w_map, w, 3, w_dims, w_strides, w_box))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(N / BN * n_split, (M + BM - 1) / BM);

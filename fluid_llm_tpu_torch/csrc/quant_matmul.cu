@@ -19,52 +19,81 @@
 //   then, where there is a bias, out = bf16(y + bf16(bias[n])), as the
 //   JAX _linear adds it after the cast.
 //
-// What bounds it on an H100 (3.35 TB/s, 1,979 int8 TOP/s, 989 bf16
-// TFLOP/s): at the streaming step (M 60) a 768 x 768 linear is 0.59 MB of
-// int8 weights (>= 0.18 us of HBM) for 2 x 60 operations a byte, far below
-// the 295 a byte where the tensor cores would bound it; the call is too
-// small to reach either, so its launch and the latency of its K loop bound
-// it.  At the exact rollout (M 661) a step's linears are 112 G operations:
-// tensor-core bound (>= 57 us in int8, >= 113 us in bf16 products).
+// w8a8.  What bounds it on an H100 (3.35 TB/s, 1,979 int8 TOP/s): at the
+// streaming step (M 60) a 768 x 768 linear is 0.59 MB of int8 weights
+// (>= 0.18 us of HBM) for 2 x 60 operations a byte, far below the 295 a
+// byte where the tensor cores would bound it; the call is too small to
+// reach either, so its launch and the latency of its K loop bound it.
+// Design: a block computes a BM 64 x BN output tile with mma.sync m16n8k32
+// s8 on tiles staged in shared memory, rows padded by 16 bytes so the
+// fragment loads hit 32 distinct banks.  BN is 16 where one row tile
+// covers M (the decode: N 768 gives 48 blocks for 132 SMs, where 64 would
+// give 12) and 64 where 64 still gives at least one block per SM (the
+// 661-row rollout: a quarter of the activation tile's re-reads and of its
+// quantisation; on an H100 there 64 took 0.3-0.4x the time of 16).  It
+// first takes each row's absmax over all K (the activations are a few
+// hundred KB and sit in L2), then quantises the activation tile on its way
+// into shared memory and applies both scales in the epilogue: one launch
+// per linear, where the TPU path took three (quantise, kernel, rescale) on
+// a step that is already launch bound.  A tile is 256 bytes deep, all its
+// 16-byte loads are issued before any is used, and the absmax pass keeps a
+// warp's rows' loads in flight together.  Every block quantises the whole
+// activation tile of its rows, so blocks have 16 warps: all quantise, the
+// first 4 multiply.
 //
-// Design: a block computes a BM 64 x BN output tile, 4 warps of 16 rows
-// each, with mma.sync (m16n8k32 s8 for w8a8, m16n8k16 bf16 for w8a16) on
-// tiles staged in shared memory, rows padded by 16 bytes so the fragment
-// loads hit 32 distinct banks.  BN is 16 where one row tile covers M (the
-// decode: N 768 gives 48 blocks for 132 SMs, where 64 would give 12) and
-// 64 where 64 still gives at least one block per SM (the 661-row rollout:
-// a quarter of the activation tile's re-reads and, in w8a8, of its
-// quantisation; on an H100 there 64 took 0.3-0.4x the time of 16 in w8a8, and
-// in w8a16 0.6x at N 3072 and 1.07x at N 768).  w8a8 first takes each row's
-// absmax over all K (the activations are a few hundred KB and sit in L2),
-// then quantises the activation tile on its way into shared memory and
-// applies both scales in the epilogue: one launch per linear, where the
-// TPU path took three (quantise, kernel, rescale) on a step that is already
-// launch bound.  w8a16 converts the int8 weight tile to bf16 on its way
-// into shared memory.  At these sizes a call is a chain of dependent
-// memory latencies, so the chain is kept short: a tile is 256 bytes deep
-// (w8a8: K 256; w8a16: K 128), all its 16-byte loads are issued before any
-// is used, and the absmax pass keeps a warp's rows' loads in flight
-// together.  Every w8a8 block quantises the whole activation tile of its
-// rows, so w8a8 blocks have 16 warps: all quantise, the first 4 multiply.
-// No wgmma, TMA or multi-stage pipeline yet.
+// w8a16.  What bounds it on an H100 (989 bf16 TFLOP/s, 3.35 TB/s): at the
+// exact rollout (M 661) a step's linears are 112 G operations, so the
+// tensor cores bound it (>= 3.2 us at (661, 3072, 768)); at the sliced last
+// block's 60 rows the weight bytes do (0.59 MB of int8 at 768 x 768, >=
+// 0.18 us), and a 60-row call is really a chain of memory latencies over
+// its K loop.  The tensor cores take two bf16 operands and wgmma reads
+// only its A operand from registers, so the int8 weight, which has to be
+// converted, takes the A position: the kernel computes out^T (N, M) =
+// W (N, K) x^T, the weight's rows the product's M (64 rows a consumer
+// warpgroup, one or two warpgroups a block sharing one x tile) and the
+// tokens its N tile (BT 64, 128 or 224: 661 rows are 3 tiles of 224).
+// - Copies: one warp issues TMA tensor copies into a ring of 64-deep K
+//   steps, with a full and an empty mbarrier a stage: the weight tile as
+//   int8 (64 bytes a row, 64-byte swizzle: half the bytes of a bf16 copy)
+//   and the x tile as bf16 (BT x 64, 128-byte swizzle, through a 2-D map
+//   with x's row stride, so column slices are read in place; rows past M
+//   read as zeros).  The ring holds up to 8 steps within ~110 KB for one
+//   warpgroup (two blocks share an SM) or ~200 KB for two; copies of the
+//   next steps are in flight while a step's products run.
+// - Conversion: a consumer warpgroup reads each row's 16-byte k16 chunk
+//   (the swizzle puts a warp's 8 rows on distinct banks), picks its
+//   fragment's bytes (k 2t, 2t + 1, 2t + 8, 2t + 9) with one byte permute,
+//   and turns each int8 into bf16 by placing its biased byte in the
+//   mantissa of 2^23 and subtracting 2^23 + 128 (exact for every int8; no
+//   float conversion per element).  The fragment goes to wgmma m64nBTk16
+//   with A from registers and B (x) through a shared-memory descriptor.
+//   Two fragment sets in turns: step k + 1's fragment is converted and its
+//   products queued behind step k's before step k's are waited for.
+// - Epilogue: times the row's scale (read while the copies run), rounded
+//   to bf16, plus bf16(bias), staged through shared memory and written
+//   transposed into out (M, N) as whole rows of the block's columns.
+// - Split K across a thread-block cluster (up to 8 blocks), summed in rank
+//   order through distributed shared memory (hopper::cluster_reduce, shared
+//   with the indexed linear; deterministic, no atomics).
+//   ops/quant_matmul.plan picks (BT, warpgroups, K split) per shape, read
+//   from the plans chip_smoke.py times at the main path's six shapes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
+using namespace hopper;
+
 namespace {
 
-constexpr int BM = 64;        // rows of a block tile: 4 mma warps x 16
-constexpr int THREADS = 128;  // w8a16
+constexpr int BM = 64;        // w8a8: rows of a block tile, 4 mma warps x 16
 constexpr int THREADS8 = 512;  // w8a8: 16 warps quantise, the first 4 multiply
 constexpr int SMS = 132;      // H100 SXM
 constexpr int BK8 = 256;      // w8a8 K step: 8 x k32
 constexpr int LD8 = BK8 + 16;   // bytes per shared row (68 words: conflict-free)
-constexpr int BK16 = 128;     // w8a16 K step: 8 x k16
-constexpr int LD16 = BK16 + 8;  // bf16 per shared row (68 words)
 constexpr int A_LOADS8 = BM * BK8 / 8 / THREADS8;   // 16-byte loads per thread
-constexpr int A_LOADS16 = BM * BK16 / 8 / THREADS;
 
 __device__ __forceinline__ uint32_t ld32(const void* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -76,15 +105,6 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
@@ -270,87 +290,310 @@ qmm_w8a8_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
   }
 }
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS)
-qmm_w8a16_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
-                 const int8_t* __restrict__ q, const float* __restrict__ scale,
-                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N,
-                 int K) {
-  constexpr int NT = BN / 8;
-  constexpr int B_LOADS = (BN * BK16 / 16 + THREADS - 1) / THREADS;
-  __shared__ __align__(16) __nv_bfloat16 sa[BM * LD16];
-  __shared__ __align__(16) __nv_bfloat16 sb[BN * LD16];
+// ---- w8a16 on wgmma: out^T = W x^T, the int8 weight converted in registers
 
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
+constexpr int W_BK = 64;  // K step: 64 int8 of W, 64 bf16 of x
+constexpr int W_MAX_CLUSTER = 8;
+constexpr int W_MAX_STAGES = 8;
+
+// A block of WG consumer warpgroups (64 weight rows each, one x tile
+// between them) and one warp that issues the copies.
+template <int BT, int WG>
+struct W16Smem {
+  static constexpr int rows = 64 * WG;              // weight rows: output columns
+  static constexpr int consumers = 128 * WG;
+  static constexpr int threads = consumers + 32;
+  static constexpr int w_bytes = rows * W_BK;       // int8, 64-byte rows
+  static constexpr int stage = w_bytes + BT * W_BK * 2;  // a multiple of 1024: tiles stay aligned
+  // one warpgroup's block takes half an SM's shared memory (two share an
+  // SM), two warpgroups' most of it (their registers allow one a SM)
+  static constexpr int budget = WG == 1 ? 110 * 1024 : 200 * 1024;
+  static constexpr int max_stages = budget / stage < W_MAX_STAGES ? budget / stage : W_MAX_STAGES;
+  static constexpr int old = rows + 4;  // bf16 row stride of the staged output (conflict-free)
+  static constexpr int out_bytes = 2 * BT * old;
+  static constexpr int slot_bytes = 4 * (rows * BT + 4 * W_MAX_CLUSTER);
+  // the ring, which the staged output or the split's slots reuse, then a
+  // full and an empty mbarrier a stage, then the alignment's slack
+  __host__ __device__ static int ring_bytes(int stages, bool split) {
+    const int ring = stages * stage, after = split ? slot_bytes : out_bytes;
+    return after > ring ? after : ring;
+  }
+  __host__ __device__ static int bytes(int stages, bool split) {
+    return ring_bytes(stages, split) + 16 * stages + TILE_ALIGN;
+  }
+};
+
+// four int8 (the bytes of w) to four bf16, exactly: each byte, biased by
+// 128 to [1, 255], becomes the low mantissa bits of 2^23 (an f32 2^23 + u),
+// 2^23 + 128 is subtracted, and the f32 result, a whole number of at most 8
+// bits, is its bf16 truncation.  lo holds bytes 0, 1; hi bytes 2, 3.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+// y = bf16(acc * scale), then + bf16(bias) where there is one (b is that
+// bf16 as f32): the twin's epilogue, element by element
+__device__ __forceinline__ __nv_bfloat16 w16_out(float acc, float s, float b, bool has_bias) {
+  const __nv_bfloat16 y = __float2bfloat16(__fmul_rn(acc, s));
+  return has_bias ? __float2bfloat16(__bfloat162float(y) + b) : y;
+}
+
+template <int BT, int WG>
+__global__ void __launch_bounds__(W16Smem<BT, WG>::threads)
+qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap x_map, const float* __restrict__ scale,
+                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N,
+                 int K, int stages, int k_split) {
+  using S = W16Smem<BT, WG>;
+  constexpr int R = BT / 2;  // accumulators a thread: 64 x BT over a warpgroup's 128 threads
+  constexpr int PRODUCER = S::consumers / 32;  // the copies' warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  // a cluster either splits K (k_split ranks, each a K run of one tile)
+  // or shares the x tile (n_cast ranks along the weight tiles, each
+  // copying a slice of x into every rank's shared memory)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
+  const bool split = k_split > 1;
+  const int n_cast = split ? 1 : n_ranks;
+  const uint32_t full = ring + S::ring_bytes(stages, split), empty = full + 8 * stages;
+
+  const int n0 = blockIdx.x / k_split * S::rows;  // weight rows: output columns
+  const int m0 = blockIdx.y * BT;                 // tokens: output rows
+  const int steps = K / W_BK / k_split;           // this rank's K run, from k_begin
+  const int k_begin = split ? rank * steps * W_BK : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const int r0 = warp * 16 + g;  // a consumer's weight rows r0 and r0 + 8 of the tile
+  const bool has_bias = bias != nullptr;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK16) {
-    // every global load of the tile first, then the stores: the weight
-    // converted to bf16 (16 int8 in, 16 bf16 out; exact, |q| <= 127)
-    uint4 va[A_LOADS16], vb[B_LOADS];
-#pragma unroll
-    for (int i = 0; i < A_LOADS16; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK16 / 8), kc = (c % (BK16 / 8)) * 8;
-      va[i] = ld128(x + (long long)(m0 + r) * x_rs + k0 + kc, m0 + r < M && k0 + kc < K);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      // each consumer warp's lane 0, of every block sharing the stage's x
+      mbar_init(empty + 8 * s, S::consumers / 32 * n_cast);
     }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK16 / 16), kc = (c % (BK16 / 16)) * 16;
-      if (c < BN * BK16 / 16)
-        vb[i] = ld128(q + (long long)(n0 + r) * K + k0 + kc, k0 + kc < K);
-    }
-#pragma unroll
-    for (int i = 0; i < A_LOADS16; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK16 / 8), kc = (c % (BK16 / 8)) * 8;
-      *reinterpret_cast<uint4*>(sa + r * LD16 + kc) = va[i];
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS, r = c / (BK16 / 16), kc = (c % (BK16 / 16)) * 16;
-      if (c < BN * BK16 / 16) {
-        const int8_t* b8 = reinterpret_cast<const int8_t*>(&vb[i]);
-        __align__(16) __nv_bfloat16 w[16];
-#pragma unroll
-        for (int j = 0; j < 16; ++j) w[j] = __float2bfloat16(static_cast<float>(b8[j]));
-        uint4* dst = reinterpret_cast<uint4*>(sb + r * LD16 + kc);
-        dst[0] = reinterpret_cast<const uint4*>(w)[0];
-        dst[1] = reinterpret_cast<const uint4*>(w)[1];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      const __nv_bfloat16* ar = sa + (warp * 16 + g) * LD16 + kk + t * 2;
-      const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD16), ld32(ar + 8), ld32(ar + 8 * LD16 + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* br = sb + (j * 8 + g) * LD16 + kk + t * 2;
-        const uint32_t b[2] = {ld32(br), ld32(br + 8)};
-        mma_bf16(acc[j], a, b);
-      }
-    }
-    __syncthreads();
+    mbar_init_fence();
   }
-
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + j * 8 + t * 2;
-    const float s0 = scale[n], s1 = scale[n + 1];
+  // the epilogue's scale and bias of this thread's rows, read while the
+  // copies run (a row past N reads nothing)
+  float sc[2] = {0.f, 0.f}, bs[2] = {0.f, 0.f};
+  if (warp < PRODUCER && !split)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int r = warp * 16 + g + hh * 8;
-      if (m0 + r >= M) continue;
-      store_pair(out + (long long)(m0 + r) * N + n, bias, n, __fmul_rn(acc[j][2 * hh], s0),
-                 __fmul_rn(acc[j][2 * hh + 1], s1));
+      const int n = n0 + r0 + 8 * hh;
+      if (n < N) {
+        sc[hh] = scale[n];
+        if (has_bias) bs[hh] = __bfloat162float(__float2bfloat16(bias[n]));
+      }
     }
+  // every block's barriers are initialised before any block copies into
+  // or arrives on another's
+  if (n_cast > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+
+  float acc[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) acc[i] = 0.f;
+  if (warp == PRODUCER) {
+    if (lane == 0) {
+      prefetch_map(&w_map);
+      prefetch_map(&x_map);
+      for (int step = 0; step < steps; ++step) {
+        const int s = step % stages, round = step / stages;
+        if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+        const uint32_t dst = ring + s * S::stage, bar = full + 8 * s;
+        mbar_expect(bar, S::stage);  // this block's weight tile and the whole x tile
+        tma_2d(dst, &w_map, bar, k_begin + step * W_BK, n0);
+        if (n_cast > 1)  // this rank's slice of x, into every rank's stage
+          tma_2d_multicast(dst + S::w_bytes + rank * (BT / n_cast) * W_BK * 2, &x_map, bar,
+                           step * W_BK, m0 + rank * (BT / n_cast), (1u << n_cast) - 1);
+        else
+          tma_2d(dst + S::w_bytes, &x_map, bar, k_begin + step * W_BK, m0);
+      }
+    }
+  } else {  // the products: warpgroup warp / 4 takes weight rows 64 (warp / 4) ..
+    // the 64-byte swizzle moves 16-byte chunk c of row r to c ^ (r >> 1 & 3)
+    const int sw = (r0 >> 1) & 3;
+    const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
+    // step's A fragments: rows r0, r0 + 8; k 2t, 2t + 1, 2t + 8, 2t + 9 of
+    // each k16 chunk, in bf16
+    auto convert = [&](int step, uint32_t(&f)[4][4]) {
+      const int s = step % stages;
+      mbar_wait(full + 8 * s, (step / stages) & 1);
+      const unsigned char* wt = smem + s * S::stage;
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk) {
+        const uint4 c0 = *reinterpret_cast<const uint4*>(wt + r0 * W_BK + ((kk ^ sw) << 4));
+        const uint4 c1 = *reinterpret_cast<const uint4*>(wt + (r0 + 8) * W_BK + ((kk ^ sw) << 4));
+        const uint32_t w0 = __byte_perm(t & 2 ? c0.y : c0.x, t & 2 ? c0.w : c0.z, sel);
+        const uint32_t w1 = __byte_perm(t & 2 ? c1.y : c1.x, t & 2 ? c1.w : c1.z, sel);
+        int8x4_to_bf16(w0, f[kk][0], f[kk][2]);
+        int8x4_to_bf16(w1, f[kk][1], f[kk][3]);
+      }
+    };
+    auto multiply = [&](int step, uint32_t(&f)[4][4]) {
+      const uint64_t db = sw128_desc(ring + (step % stages) * S::stage + S::w_bytes);
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk) pin(f[kk]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk)
+        Wgmma<BT>::template rs<0>(acc, f[kk], db + 2 * kk);
+      wgmma_commit();
+    };
+    // the products done: the fragments' registers and the stage are free
+    auto retire = [&](int step, uint32_t(&f)[4][4]) {
+      wgmma_wait<0>();
+      pin(acc);
+#pragma unroll
+      for (int kk = 0; kk < W_BK / 16; ++kk) pin(f[kk]);
+      __syncwarp();
+      if (lane == 0) {
+        if (n_cast > 1)  // every block that copies x into this stage waits for it
+          for (int r = 0; r < n_cast; ++r) mbar_arrive_cluster(empty + 8 * (step % stages), r);
+        else
+          mbar_arrive(empty + 8 * (step % stages));
+      }
+    };
+    // two fragment sets in turns: step + 1's fragment is converted while
+    // step's products run
+    uint32_t fa[4][4], fb[4][4];
+    convert(0, fa);
+    for (int step = 0; step < steps; step += 2) {
+      multiply(step, fa);
+      if (step + 1 < steps) convert(step + 1, fb);
+      retire(step, fa);
+      if (step + 1 < steps) {
+        multiply(step + 1, fb);
+        if (step + 2 < steps) convert(step + 2, fa);
+        retire(step + 1, fb);
+      }
+    }
+  }
+
+  if (!split) {
+    if (warp == PRODUCER) {
+      // no block leaves while another may still arrive on its barriers
+      if (n_cast > 1) cluster.sync();
+      return;
+    }
+    // the tile through shared memory (the ring is free once every consumer
+    // warp's products are done), transposed: BT token rows of S::rows columns
+    asm volatile("bar.sync 1, %0;\n" ::"n"(S::consumers) : "memory");
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          st[(j * 8 + t * 2 + e) * S::old + r0 + 8 * hh] =
+              w16_out(acc[4 * j + 2 * hh + e], sc[hh], bs[hh], has_bias);
+    asm volatile("bar.sync 1, %0;\n" ::"n"(S::consumers) : "memory");
+    // 8-byte pieces of the token rows; N % 16 == 0, so a piece is whole
+    const int cols = min(S::rows, N - n0);
+    for (int i = tid; i < BT * (S::rows / 4); i += S::consumers) {
+      const int c = i / (S::rows / 4), r = (i % (S::rows / 4)) * 4;
+      if (m0 + c < M && r < cols)
+        *reinterpret_cast<uint2*>(out + (long long)(m0 + c) * N + n0 + r) =
+            *reinterpret_cast<const uint2*>(st + c * S::old + r);
+    }
+    if (n_cast > 1) cluster.sync();
+    return;
+  }
+
+  // K split: every rank has used its ring before any rank's slots (which
+  // reuse the ring) are written; then the ranks' partial tiles are summed
+  // in rank order and each owner writes its share
+  cluster.sync();
+  cluster_reduce<S::rows, BT, W_MAX_CLUSTER>(
+      acc, warp < PRODUCER, (warp / 4) * 64, reinterpret_cast<float*>(smem),
+      [&](int e, float4 sum) {
+        const int r = e / BT, c = e % BT, n = n0 + r;
+        if (n >= N) return;
+        const float s = scale[n];
+        const float b = has_bias ? __bfloat162float(__float2bfloat16(bias[n])) : 0.f;
+        const float v[4] = {sum.x, sum.y, sum.z, sum.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (m0 + c + i < M) out[(long long)(m0 + c + i) * N + n] = w16_out(v[i], s, b, has_bias);
+      });
+}
+
+template <int BT, int WG>
+int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
+                 const void* bias, void* out, int M, int N, int K, int k_split, int n_cast,
+                 cudaStream_t stream) {
+  using S = W16Smem<BT, WG>;
+  const int w_tiles = (N + S::rows - 1) / S::rows;
+  if (BT % (8 * n_cast) || w_tiles % n_cast || (k_split > 1 && n_cast > 1))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;
+  if (!attr_set) {  // the most any call of this tile takes
+    const int most = S::bytes(S::max_stages, true);
+    cudaError_t e = cudaFuncSetAttribute(qmm_w8a16_kernel<BT, WG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int steps = K / W_BK / k_split;
+  const int stages = steps < S::max_stages ? steps : S::max_stages;
+  CUtensorMap w_map, x_map;
+  const cuuint64_t w_dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t w_strides[1] = {(cuuint64_t)K};
+  const cuuint32_t w_box[2] = {W_BK, S::rows};
+  const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t x_strides[1] = {(cuuint64_t)x_rs * 2};
+  const cuuint32_t x_box[2] = {W_BK, (cuuint32_t)(BT / n_cast)};  // a rank's slice
+  if (!encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 2, w_dims, w_strides, w_box,
+              CU_TENSOR_MAP_SWIZZLE_64B) ||
+      !encode_bf16(&x_map, x, 2, x_dims, x_strides, x_box))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(w_tiles * k_split, (M + BT - 1) / BT);
+  cfg.blockDim = dim3(S::threads);
+  cfg.dynamicSmemBytes = S::bytes(stages, k_split > 1);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = k_split * n_cast;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  // a grid without a cluster attribute: clusters of 1
+  cfg.numAttrs = k_split * n_cast > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_w8a16_kernel<BT, WG>, w_map, x_map,
+                                     static_cast<const float*>(scale),
+                                     static_cast<const float*>(bias),
+                                     static_cast<__nv_bfloat16*>(out), M, N, K, stages, k_split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <int WG>
+int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void* q,
+                      const void* scale, const void* bias, void* out, int M, int N, int K,
+                      int k_split, int n_cast, cudaStream_t s) {
+  switch (token_tile) {
+    case 64:
+      return launch_w8a16<64, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+    case 128:
+      return launch_w8a16<128, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+    case 224:
+      return launch_w8a16<224, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -387,11 +630,26 @@ extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, c
   return launch(qmm_w8a8_kernel<16>, 16, THREADS8, x, x_rs, q, scale, bias, out, M, N, K, s);
 }
 
+// The same arguments for w8a16, and its launch plan: token_tile (the
+// product's N tile, tokens) 64, 128 or 224; warpgroups 1 or 2 (64 or 128
+// weight rows a block); k_split (the cluster size) 1..8, dividing K / 64;
+// or, unsplit, x_cast (1, 2 or 4) blocks of consecutive weight tiles that
+// share each x tile, a slice copied by each; q 16-byte aligned.
 extern "C" int quant_matmul_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
-                                  const void* bias, void* out, int M, int N, int K, void* stream) {
-  if (K % 128 || N % 16 || M <= 0) return (int)cudaErrorInvalidValue;
+                                  const void* bias, void* out, int M, int N, int K,
+                                  int token_tile, int warpgroups, int k_split, int x_cast,
+                                  void* stream) {
+  if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > W_MAX_CLUSTER ||
+      (x_cast != 1 && x_cast != 2 && x_cast != 4) ||
+      (K / W_BK) % k_split || x_rs % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(M, N))
-    return launch(qmm_w8a16_kernel<64>, 64, THREADS, x, x_rs, q, scale, bias, out, M, N, K, s);
-  return launch(qmm_w8a16_kernel<16>, 16, THREADS, x, x_rs, q, scale, bias, out, M, N, K, s);
+  if (warpgroups == 1)
+    return launch_w8a16_tile<1>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split,
+                                x_cast, s);
+  if (warpgroups == 2)
+    return launch_w8a16_tile<2>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split,
+                                x_cast, s);
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,18 +24,27 @@ activation quantisation first) is its plain twin on the CPU and in the
 tests.  The wrappers are forward only (serving): on CUDA they raise under
 autograd.
 
-Bound and design, in short (the source's header has the detail): at the
-streaming step's 60 rows the call is bound by the weight bytes (2 x 60
-operations a byte, far below the card's 295) and, at these sizes, by its
-launch; at the exact rollout's 661 rows by the tensor cores.  One launch
-per linear quantises the activation tile on its way into shared memory and
-applies both scales in the epilogue; the output tile is 16 columns wide at
-decode (48 blocks for N = 768) and 64 wide where 64 makes at least one
-block per SM (the 661-row rollout, where it re-reads and re-quantises
-the activation tile a quarter as often).
+Bound and design, in short (the source's header has the detail).  w8a8:
+at the streaming step's 60 rows the call is bound by the weight bytes (2 x
+60 operations a byte, far below the card's 295) and, at these sizes, by
+its launch; one launch per linear quantises the activation tile on its way
+into shared memory and applies both scales in the epilogue.  w8a16: at the
+exact rollout's 661 rows the tensor cores bound it, at 60 rows the weight
+bytes and the chain of its K loop.  The kernel computes the transposed
+product ``out^T = q x^T`` so that the int8 weight is ``wgmma``'s register
+operand: TMA copies the weight as int8 and x as bf16 into a ring of
+shared-memory stages on mbarriers, the consumer warpgroup converts its
+weight fragment to bf16 in registers (a byte permute and one f32 subtract
+per element, exact) and multiplies it with the x tile read from shared
+memory; the next step's copies are in flight meanwhile.  :func:`plan`
+picks the token tile and a K split across a thread-block cluster (reduced
+in rank order, deterministic) per shape, read from the plans
+``chip_smoke.py`` times at the main path's six shapes.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -45,6 +54,12 @@ from fluid_llm_tpu_torch.ops.quant import QMM_MODES, dequantize_weight
 
 K_TILE = 128  # the kernels' K step: K must be a multiple of it
 N_TILE = 16  # the narrowest output tile: N must be a multiple of it
+W16_ROWS = 64  # w8a16: weight rows (output columns) of a block, wgmma's M
+W16_K_STEP = 64  # w8a16: depth of a K step; a K split takes whole steps
+W16_TOKEN_TILES = (64, 128, 224)  # w8a16: token tiles (wgmma's N), narrowest first
+W16_WARPGROUPS = (1, 2)  # w8a16: consumer warpgroups a block, 64 weight rows each
+W16_X_CASTS = (1, 2, 4)  # w8a16: blocks of a cluster that share an x tile
+MAX_K_SPLIT = 8  # blocks of a cluster, the portable limit
 
 
 def supported(k: int, n: int) -> bool:
@@ -53,6 +68,62 @@ def supported(k: int, n: int) -> bool:
     ``fluid/llama-125m`` qualifies; ``models.common.linear`` sends others
     through the dequantised weight."""
     return k > 0 and n > 0 and k % K_TILE == 0 and n % N_TILE == 0
+
+
+def plans(M: int, K: int, N: int) -> list[tuple[int, int, int, int, int]]:
+    """Every ``(blocks, token_tile, warpgroups, k_split, x_cast)`` the w8a16
+    kernel takes for ``x (M, K) @ q (N, K)^T``: a token tile; one or two
+    consumer warpgroups (64 or 128 weight rows a block, sharing the x
+    tile); either a K split (a cluster of that many blocks, each a
+    contiguous run of whole 64-deep K steps) or, unsplit, a cluster of
+    ``x_cast`` blocks of consecutive weight tiles that share each x tile
+    (each copies a slice of it into every block's shared memory).  The
+    grid has ``ceil(N / rows) x k_split x ceil(M / token_tile)`` blocks."""
+    steps = K // W16_K_STEP
+    out = []
+    for tile in W16_TOKEN_TILES:
+        for wg in W16_WARPGROUPS:
+            w_tiles = -(-N // (W16_ROWS * wg))
+            for k_split in range(1, MAX_K_SPLIT + 1):
+                if steps % k_split:
+                    continue
+                for x_cast in (W16_X_CASTS if k_split == 1 else (1,)):
+                    if w_tiles % x_cast == 0 and tile % (8 * x_cast) == 0:
+                        out.append((w_tiles * k_split * -(-M // tile), tile, wg, k_split, x_cast))
+    return out
+
+
+# The fastest plan at each of the main path's six shapes (OPT-125m's exact
+# rollout, with bias) in the plan sweeps of chip_smoke.py (its "[plans]"
+# lines, NVIDIA H100 80GB HBM3): three sweeps agreed on each but (60, 768,
+# 768), where (64, 1, 4, 1) came within 4 %.
+SWEPT_PLANS = {
+    (661, 768, 768): (64, 1, 1, 1), (661, 768, 3072): (224, 2, 1, 1),
+    (661, 3072, 768): (64, 1, 2, 1), (60, 768, 768): (64, 1, 6, 1),
+    (60, 768, 3072): (64, 1, 1, 1), (60, 3072, 768): (64, 1, 8, 1),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int, int, int]:
+    """``(token_tile, warpgroups, k_split, x_cast)`` of :func:`plans` for
+    the w8a16 kernel: the sweep's fastest at the main path's six shapes
+    (:data:`SWEPT_PLANS`).  Elsewhere, as the sweeps ran: one warpgroup, no
+    x cast; no K split where an unsplit grid within ``sms`` blocks fills a
+    third of them (the largest such grid), else the largest grid within
+    ``sms`` (a K split pays only where the unsplit grid leaves most SMs
+    idle); where every unsplit grid passes ``sms``, the fewest blocks.  K
+    a multiple of 128."""
+    if (M, K, N) in SWEPT_PLANS and sms == _build.H100_SMS:
+        return SWEPT_PLANS[M, K, N]
+    every = [p for p in plans(M, K, N) if p[2] == 1 and p[4] == 1]
+    unsplit = [p for p in every if p[3] == 1]
+    fits = [p for p in unsplit if p[0] <= sms]
+    if not fits or max(fits)[0] * 3 < sms:
+        fits = [p for p in every if p[0] <= sms]
+    if fits:
+        return max(fits, key=lambda p: (p[0], -p[1]))[1:]
+    return min(unsplit, key=lambda p: (p[0], -p[1]))[1:]
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,11 +200,13 @@ def _launch(mode: str, x, q, scale, bias) -> torch.Tensor:
     if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
         x2 = x2.contiguous()  # the kernel reads rows in 16-byte vectors
     M = x2.shape[0]
+    # w8a16's launch plan (token tile, K split); w8a8 picks its own tile
+    extra = plan(M, K, N, _build.sm_count(x.device)) if mode == "w8a16" else ()
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = getattr(_build.load(), name)(
             x2.data_ptr(), x2.stride(0), q.data_ptr(), scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, out.data_ptr(), M, N, K,
+            bias.data_ptr() if bias is not None else None, out.data_ptr(), M, N, K, *extra,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, name)

@@ -29,8 +29,15 @@ rollout through the kernels against the twins.  The slab decode's key
 splits (1, 2, 11 and 33 slots, bs 1, 2 and 4, wholly masked splits, rows
 that see no key) and the indexed linear's K splits (K 128 to 11 008, M 1
 to 661, strided x) are held to the same bound, and both must repeat bit for
-bit, the decode also when replayed from a CUDA graph.
+bit, the decode also when replayed from a CUDA graph.  So are w8a16 under
+every launch plan (token tile, warpgroups, K split, x cast; M 1 to 661, K 768 to 3072, a
+partial tile of weight rows, x a slice of a fused projection, repeats and
+graph replay) and short attention under both plans (64 or 128 query rows
+a block; L 1 to 1536, hd 64 and 128, rows that see only their forced
+diagonal, repeats).
 """
+
+from unittest import mock
 
 import pytest
 import torch
@@ -391,12 +398,18 @@ def _qmm_case(dev, M, K, N, bias: bool, seed: int = 0):
     (661, 768, 768, True), (661, 768, 3072, True), (661, 3072, 768, True),
     (61, 768, 2048, False), (5, 768, 3072, True),
     (60, 768, 3072, True), (60, 3072, 768, True),
+    (1, 768, 768, True), (1, 3072, 768, False), (64, 2048, 768, False), (64, 768, 3072, True),
+    (65, 3072, 768, True), (65, 768, 2048, False), (61, 3072, 768, True),
+    (661, 2048, 768, False), (60, 768, 80, True),
 ])
 def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     """The streaming step's (60 rows; 61 in the prefill), the exact
-    rollout's (661; 60 in its sliced last block, with OPT's biases) and a
-    ragged 5 rows: one launch, finite, within REL_TOL of the twin; w8a8
-    equal to it."""
+    rollout's (661; 60 in its sliced last block, with OPT's biases), M 1,
+    64, 65 and a ragged 5 rows, K 768 to 3072, N 80 (a partial tile of
+    weight rows in w8a16): one launch, finite, within REL_TOL of the twin;
+    w8a8 equal to it.  w8a16 also under every launch plan
+    (``quant_matmul.plans``: token tile, K split), and repeated bit for bit,
+    also when replayed from a CUDA graph."""
     x, q, scale, b = _qmm_case(dev, M, K, N, bias)
     fn = qmm.qmm_w8a8 if mode == "w8a8" else qmm.qmm_w8a16
     before = fn.launches
@@ -409,6 +422,18 @@ def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     assert _rel(out, ref) <= REL_TOL
     if mode == "w8a8":
         assert torch.equal(out, ref)
+        return
+    assert torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = qmm.int8_matmul(x, q, scale, b, mode)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(replayed, out)
+    for _, *p in qmm.plans(M, K, N):
+        with mock.patch.object(qmm, "plan", lambda *a, p=tuple(p): p):
+            got = qmm.int8_matmul(x, q, scale, b, mode)
+        assert _rel(got, ref) <= REL_TOL, p
 
 
 def test_quant_matmul_w8a8_rounds_ties_like_its_twin(dev):
@@ -424,16 +449,21 @@ def test_quant_matmul_w8a8_rounds_ties_like_its_twin(dev):
                        qmm.int8_matmul_ref(x, q, scale, mode="w8a8"))
 
 
-def test_quant_matmul_leading_axes_and_row_stride(dev):
-    """(bs, L, K) input and a column slice of a wider tensor (row stride
-    != K): both give the contiguous 2-D result."""
-    x, q, scale, _ = _qmm_case(dev, 60, 768, 768, False)
+@pytest.mark.parametrize("M", [60, 661])
+def test_quant_matmul_leading_axes_and_row_stride(dev, M):
+    """(bs, L, K) input, a column slice of a wider tensor (row stride !=
+    K) and the middle third of a fused (M, 3K) projection: each gives the
+    contiguous 2-D result."""
+    x, q, scale, _ = _qmm_case(dev, M, 768, 768, False)
     wide = torch.cat([x, x], dim=1)[:, :768]
+    fused = torch.cat([x.flip(0), x, x.flip(1)], dim=1)[:, 768:1536]
     for mode in qmm.QMM_MODES:
         flat = qmm.int8_matmul(x, q, scale, mode=mode)
-        assert torch.equal(qmm.int8_matmul(x.reshape(2, 30, 768), q, scale, mode=mode),
-                           flat.reshape(2, 30, 768))
+        lead = (2, M // 2) if M % 2 == 0 else (1, M)
+        assert torch.equal(qmm.int8_matmul(x.reshape(*lead, 768), q, scale, mode=mode),
+                           flat.reshape(*lead, 768))
         assert torch.equal(qmm.int8_matmul(wide, q, scale, mode=mode), flat)
+        assert torch.equal(qmm.int8_matmul(fused, q, scale, mode=mode), flat)
 
 
 def test_quant_matmul_raises(dev):
@@ -725,23 +755,35 @@ def test_indexed_linear_out_of_range_is_nan_with_a_k_split(dev, li):
 
 @pytest.mark.parametrize("bs,L,H,hd,n_invalid", [
     (8, 601, 12, 64, 0), (1, 661, 12, 64, 181), (2, 1536, 2, 128, 37), (1, 5, 1, 64, 2),
-    (2, 130, 4, 64, 40),
+    (2, 130, 4, 64, 40), (1, 1, 2, 64, 0), (2, 16, 2, 128, 16), (1, 63, 3, 64, 5),
+    (1, 64, 2, 128, 0), (2, 65, 2, 64, 64), (1, 129, 4, 128, 3), (1, 661, 2, 128, 420),
+    (1, 1536, 1, 64, 1536), (1, 601, 2, 128, 0),
 ])
 def test_short_attention_kernel_matches_twin(dev, bs, L, H, hd, n_invalid):
+    """L 1 to 1536, hd 64 and 128, q/k/v column slices of one fused
+    projection; the first n_invalid keys invalid, so those query rows see
+    only their forced diagonal (every row, where n_invalid == L).  Under
+    both plans (64 and 128 query rows a block): one launch, finite, within
+    REL_TOL of the twin on the valid and the invalid rows; a repeat equal
+    bit for bit."""
     D = H * hd
     g = torch.Generator().manual_seed(L + hd)
     qkv = (torch.randn(bs, L, 3 * D, generator=g) * 0.5).to(dev, torch.bfloat16)
     q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
     valid = (torch.arange(L)[None] >= n_invalid).expand(bs, L).int().contiguous().to(dev)
-    before = sa.short_attention_fwd.launches
-    out = sa.short_attention_fwd(q, k, v, valid, H, hd)
-    torch.cuda.synchronize()
-    assert sa.short_attention_fwd.launches == before + 1
-    assert bool(torch.isfinite(out).all())
     rows = valid[0].bool()
     ref = sa.short_attention_ref(q, k, v, valid, H, hd)
-    assert _rel(out[:, rows], ref[:, rows]) <= REL_TOL
-    assert _rel(out[:, ~rows], ref[:, ~rows]) <= REL_TOL if n_invalid else True
+    for q_rows in sa.QUERY_ROWS:
+        with mock.patch.object(sa, "plan", lambda *a, p=q_rows: p):
+            before = sa.short_attention_fwd.launches
+            out = sa.short_attention_fwd(q, k, v, valid, H, hd)
+            torch.cuda.synchronize()
+            assert sa.short_attention_fwd.launches == before + 1
+            assert bool(torch.isfinite(out).all())
+            for part in (rows, ~rows):
+                if part.any():
+                    assert _rel(out[:, part], ref[:, part]) <= REL_TOL, q_rows
+            assert torch.equal(sa.short_attention_fwd(q, k, v, valid, H, hd), out)
 
 
 def test_short_attention_function_and_refusals(dev):

@@ -1,8 +1,8 @@
-"""The launch plans of the split-KV slab decode and the split-K indexed linear.
+"""The launch plans of the slab decode, the indexed linear, w8a16 and short attention.
 
-Both are plain Python functions of the shapes (``ops/decode_attention.
-split_plan``, ``ops/indexed_linear.plan``), so they are held here, on the
-CPU: every key tile lies in exactly one split and no split is empty; the K
+All are plain Python functions of the shapes (``ops/decode_attention.
+split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
+``ops/short_attention.plan``), so they are held here, on the CPU: every key tile lies in exactly one split and no split is empty; the K
 split covers K in whole 64-deep steps with a cluster the kernel accepts;
 the streaming step's decode fills a wave of the H100's 132 SMs and its
 linears run at most one block an SM, unsplit where the K run fits the
@@ -15,6 +15,8 @@ import torch
 
 from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import indexed_linear as il
+from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+from fluid_llm_tpu_torch.ops import short_attention as sa
 
 torch.set_num_threads(2)
 
@@ -123,3 +125,87 @@ def test_indexed_plan_takes_the_most_blocks_below_a_wave():
     """A shape too small for a wave gets the plan with the most blocks
     among those without a split (its 2 K steps fit any ring)."""
     assert il.plan(1, 128, 128) == (16, 1)  # 8 column tiles
+
+
+# -- w8a16 (ops/quant_matmul.plan) and short attention (ops/short_attention.plan)
+
+# (M, K, N) of the w8a16 kernel's main path: OPT-125m's q/k/v/o, fc1 and fc2
+# at the exact rollout's 661 rows and the sliced last block's 60
+W8A16_MAIN = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
+              (60, 768, 768), (60, 768, 3072), (60, 3072, 768)]
+
+
+@pytest.mark.parametrize("M", [1, 60, 61, 64, 65, 661])
+@pytest.mark.parametrize("K,N", [(128, 16), (768, 768), (768, 3072), (3072, 768), (2048, 768),
+                                 (384, 80), (11008, 4096)])
+def test_w8a16_plan_covers_k_exactly_for_every_supported_shape(M, K, N):
+    """Every (K, N) ``supported`` takes gets a plan the kernel takes: a
+    token tile and warpgroup count of the kernel's and a K split that is a cluster of 1..8
+    blocks, each a run of whole 64-deep steps that together cover K."""
+    assert qmm.supported(K, N)
+    tile, wg, k_split, x_cast = qmm.plan(M, K, N)
+    assert tile in qmm.W16_TOKEN_TILES and wg in qmm.W16_WARPGROUPS
+    assert 1 <= k_split <= qmm.MAX_K_SPLIT
+    steps = K // qmm.W16_K_STEP
+    assert steps % k_split == 0
+    runs = [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
+    assert sorted(s for run in runs for s in run) == list(range(steps))
+    w_tiles = -(-N // (qmm.W16_ROWS * wg))
+    assert (w_tiles * k_split * -(-M // tile), tile, wg, k_split, x_cast) in qmm.plans(M, K, N)
+    # x shared only by whole clusters of weight tiles, in slices of whole
+    # 8-row swizzle groups, and never beside a K split
+    assert x_cast in qmm.W16_X_CASTS and w_tiles % x_cast == 0 and tile % (8 * x_cast) == 0
+    assert x_cast == 1 or k_split == 1
+
+
+@pytest.mark.parametrize("M,K,N", W8A16_MAIN)
+def test_w8a16_plan_at_the_main_path_is_the_sweeps(M, K, N):
+    """The main path's six shapes take the sweep's fastest plan, one the
+    kernel takes; the 60-row shapes spread over more blocks than the
+    first port's 48 (K split or not), and no grid passes two waves of the
+    H100's 132 SMs."""
+    p = qmm.plan(M, K, N)
+    assert p == qmm.SWEPT_PLANS[M, K, N]
+    blocks = [b for b, *rest in qmm.plans(M, K, N) if tuple(rest) == p]
+    assert len(blocks) == 1 and blocks[0] <= 2 * 132
+    if M == 60:
+        assert blocks[0] >= 48
+
+
+def test_w8a16_plan_elsewhere_follows_the_sweeps_rule():
+    """Off the swept shapes (or on another card): one warpgroup, no x
+    cast; unsplit where an unsplit grid within the SM count fills a third
+    of it, else the largest grid with a K split; the fewest blocks where
+    every unsplit grid passes the SM count.  The rule gives the sweep's
+    choice at four of the six swept shapes."""
+    assert qmm.plan(60, 768, 2048) == (64, 1, 4, 1)  # 32 unsplit blocks: too few of 132
+    assert qmm.plan(60, 768, 2048, 90) == (64, 1, 1, 1)  # but a third of 90
+    assert qmm.plan(661, 768, 768, 114) == (128, 1, 1, 1)  # 72 blocks within 114
+    assert qmm.plan(661, 2048, 8192) == (224, 1, 1, 1)  # 384 blocks: every grid past 132
+    agree = [qmm.plan(M, K, N, 131) == qmm.SWEPT_PLANS[M, K, N] for M, K, N in W8A16_MAIN]
+    assert sum(agree) >= 3
+
+
+@pytest.mark.parametrize("L", [1, 16, 63, 64, 65, 129, 601, 661, 1536])
+@pytest.mark.parametrize("q_rows", sa.QUERY_ROWS)
+def test_short_query_tiles_cover_every_row_once_longest_first(L, q_rows):
+    """The blocks of one (batch, head) cover query rows 0..L-1 once, in
+    whole tiles of the block's rows but the last, the tile with the most
+    keys to walk first."""
+    tiles = sa.query_tiles(L, q_rows)
+    assert sorted(i for t in tiles for i in t) == list(range(L))
+    assert all(len(t) == q_rows for t in tiles[1:])
+    assert [t.start for t in tiles] == sorted((t.start for t in tiles), reverse=True)
+
+
+@pytest.mark.parametrize("bs,L,H,hd", [(8, 601, 12, 64), (1, 661, 12, 64), (1, 1, 1, 64),
+                                       (2, 1536, 2, 128), (4, 300, 16, 128)])
+def test_short_plan_is_a_kernel_template(bs, L, H, hd):
+    """The plan is one of the kernel's two block heights for every shape
+    ``supported`` accepts; two warpgroups only where that grid still fills
+    the card."""
+    assert sa.supported(L, hd)
+    q_rows = sa.plan(bs, L, H, hd)
+    assert q_rows in sa.QUERY_ROWS
+    if q_rows == 128:
+        assert bs * H * len(sa.query_tiles(L, 128)) >= 132
