@@ -51,32 +51,40 @@
 // converted, takes the A position: the kernel computes out^T (N, M) =
 // W (N, K) x^T, the weight's rows the product's M (64 rows a consumer
 // warpgroup, one or two warpgroups a block sharing one x tile) and the
-// tokens its N tile (BT 64, 128 or 224: 661 rows are 3 tiles of 224).
-// - Copies: one warp issues TMA tensor copies into a ring of 64-deep K
+// tokens its N tile (BT 64, 128, 176 or 224: 661 rows are 4 tiles of 176).
+// - Copies: one warp issues TMA tensor copies into a ring of 128-deep K
 //   steps, with a full and an empty mbarrier a stage: the weight tile as
-//   int8 (64 bytes a row, 64-byte swizzle: half the bytes of a bf16 copy)
-//   and the x tile as bf16 (BT x 64, 128-byte swizzle, through a 2-D map
-//   with x's row stride, so column slices are read in place; rows past M
-//   read as zeros).  The ring holds up to 8 steps within ~110 KB for one
-//   warpgroup (two blocks share an SM) or ~200 KB for two; copies of the
-//   next steps are in flight while a step's products run.
+//   int8 (128-byte rows: half the bytes of a bf16 copy) and the x tile as
+//   bf16 (two BT x 64 boxes, through a 2-D map with x's row stride, so
+//   column slices are read in place; rows past M read as zeros), all in
+//   the 128-byte swizzle.  The ring takes as many steps as fit ~110 KB
+//   where two stages do (two blocks share an SM), else ~200 KB, at most 8;
+//   copies of the next steps are in flight while a step's products run.
+//   A plan may instead share each x tile across a cluster of 2 or 4
+//   blocks of neighbouring weight tiles (each copies a slice into every
+//   block, TMA multicast, and the stage is refilled when every block has
+//   used it); the sweeps found it slower at every main-path shape.
 // - Conversion: a consumer warpgroup reads each row's 16-byte k16 chunk
 //   (the swizzle puts a warp's 8 rows on distinct banks), picks its
 //   fragment's bytes (k 2t, 2t + 1, 2t + 8, 2t + 9) with one byte permute,
 //   and turns each int8 into bf16 by placing its biased byte in the
 //   mantissa of 2^23 and subtracting 2^23 + 128 (exact for every int8; no
 //   float conversion per element).  The fragment goes to wgmma m64nBTk16
-//   with A from registers and B (x) through a shared-memory descriptor.
-//   Two fragment sets in turns: step k + 1's fragment is converted and its
-//   products queued behind step k's before step k's are waited for.
+//   with A from registers and B (x) through a shared-memory descriptor;
+//   step k + 1's fragment is converted while step k's products run.
 // - Epilogue: times the row's scale (read while the copies run), rounded
 //   to bf16, plus bf16(bias), staged through shared memory and written
 //   transposed into out (M, N) as whole rows of the block's columns.
 // - Split K across a thread-block cluster (up to 8 blocks), summed in rank
 //   order through distributed shared memory (hopper::cluster_reduce, shared
 //   with the indexed linear; deterministic, no atomics).
-//   ops/quant_matmul.plan picks (BT, warpgroups, K split) per shape, read
-//   from the plans chip_smoke.py times at the main path's six shapes.
+//   ops/quant_matmul.plan picks (BT, warpgroups, K split, x cast) per
+//   shape, read from the plans chip_smoke.py times at the main path's six
+//   shapes.  What holds it back there (PERF.md, PR 8): the sweeps' times
+//   follow the number of 128-deep steps and blocks, not the products (a
+//   copy without them ran as long at 64 rows a block) nor the L2 bytes (x
+//   multicast did not help): each step's copy, barrier and conversion
+//   chain, and each block's start and epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,7 +300,8 @@ qmm_w8a8_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
 
 // ---- w8a16 on wgmma: out^T = W x^T, the int8 weight converted in registers
 
-constexpr int W_BK = 64;  // K step: 64 int8 of W, 64 bf16 of x
+constexpr int W_BK = 128;       // K step: 128 int8 of W (a 128-byte row), 128 bf16 of x
+constexpr int W_KK = W_BK / 16;  // k16 products a step
 constexpr int W_MAX_CLUSTER = 8;
 constexpr int W_MAX_STAGES = 8;
 
@@ -303,11 +312,12 @@ struct W16Smem {
   static constexpr int rows = 64 * WG;              // weight rows: output columns
   static constexpr int consumers = 128 * WG;
   static constexpr int threads = consumers + 32;
-  static constexpr int w_bytes = rows * W_BK;       // int8, 64-byte rows
-  static constexpr int stage = w_bytes + BT * W_BK * 2;  // a multiple of 1024: tiles stay aligned
-  // one warpgroup's block takes half an SM's shared memory (two share an
-  // SM), two warpgroups' most of it (their registers allow one a SM)
-  static constexpr int budget = WG == 1 ? 110 * 1024 : 200 * 1024;
+  static constexpr int w_bytes = rows * W_BK;       // int8, 128-byte rows
+  static constexpr int x_box = BT * 128;            // 64 bf16 columns of the x tile
+  static constexpr int stage = w_bytes + 2 * x_box;  // a multiple of 1024: tiles stay aligned
+  // a block takes half an SM's shared memory (two share an SM) where two
+  // stages fit in it, else most of it
+  static constexpr int budget = 2 * stage <= 110 * 1024 ? 110 * 1024 : 200 * 1024;
   static constexpr int max_stages = budget / stage < W_MAX_STAGES ? budget / stage : W_MAX_STAGES;
   static constexpr int old = rows + 4;  // bf16 row stride of the staged output (conflict-free)
   static constexpr int out_bytes = 2 * BT * old;
@@ -414,25 +424,29 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
         const uint32_t dst = ring + s * S::stage, bar = full + 8 * s;
         mbar_expect(bar, S::stage);  // this block's weight tile and the whole x tile
         tma_2d(dst, &w_map, bar, k_begin + step * W_BK, n0);
-        if (n_cast > 1)  // this rank's slice of x, into every rank's stage
-          tma_2d_multicast(dst + S::w_bytes + rank * (BT / n_cast) * W_BK * 2, &x_map, bar,
-                           step * W_BK, m0 + rank * (BT / n_cast), (1u << n_cast) - 1);
-        else
-          tma_2d(dst + S::w_bytes, &x_map, bar, k_begin + step * W_BK, m0);
+        for (int h = 0; h < 2; ++h) {  // the x tile's two 64-column boxes
+          const uint32_t xd = dst + S::w_bytes + h * S::x_box;
+          const int k = k_begin + step * W_BK + 64 * h;
+          if (n_cast > 1)  // this rank's slice of x, into every rank's stage
+            tma_2d_multicast(xd + rank * (BT / n_cast) * 128, &x_map, bar, k,
+                             m0 + rank * (BT / n_cast), (1u << n_cast) - 1);
+          else
+            tma_2d(xd, &x_map, bar, k, m0);
+        }
       }
     }
   } else {  // the products: warpgroup warp / 4 takes weight rows 64 (warp / 4) ..
-    // the 64-byte swizzle moves 16-byte chunk c of row r to c ^ (r >> 1 & 3)
-    const int sw = (r0 >> 1) & 3;
+    // the 128-byte swizzle moves 16-byte chunk c of row r to c ^ (r & 7)
+    const int sw = r0 & 7;
     const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
     // step's A fragments: rows r0, r0 + 8; k 2t, 2t + 1, 2t + 8, 2t + 9 of
     // each k16 chunk, in bf16
-    auto convert = [&](int step, uint32_t(&f)[4][4]) {
+    auto convert = [&](int step, uint32_t(&f)[W_KK][4]) {
       const int s = step % stages;
       mbar_wait(full + 8 * s, (step / stages) & 1);
       const unsigned char* wt = smem + s * S::stage;
 #pragma unroll
-      for (int kk = 0; kk < W_BK / 16; ++kk) {
+      for (int kk = 0; kk < W_KK; ++kk) {
         const uint4 c0 = *reinterpret_cast<const uint4*>(wt + r0 * W_BK + ((kk ^ sw) << 4));
         const uint4 c1 = *reinterpret_cast<const uint4*>(wt + (r0 + 8) * W_BK + ((kk ^ sw) << 4));
         const uint32_t w0 = __byte_perm(t & 2 ? c0.y : c0.x, t & 2 ? c0.w : c0.z, sel);
@@ -441,23 +455,23 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
         int8x4_to_bf16(w1, f[kk][1], f[kk][3]);
       }
     };
-    auto multiply = [&](int step, uint32_t(&f)[4][4]) {
-      const uint64_t db = sw128_desc(ring + (step % stages) * S::stage + S::w_bytes);
+    auto multiply = [&](int step, uint32_t(&f)[W_KK][4]) {
+      const uint32_t xs = ring + (step % stages) * S::stage + S::w_bytes;
       pin(acc);
 #pragma unroll
-      for (int kk = 0; kk < W_BK / 16; ++kk) pin(f[kk]);
+      for (int kk = 0; kk < W_KK; ++kk) pin(f[kk]);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < W_BK / 16; ++kk)
-        Wgmma<BT>::template rs<0>(acc, f[kk], db + 2 * kk);
+      for (int kk = 0; kk < W_KK; ++kk)
+        Wgmma<BT>::template rs<0>(acc, f[kk], sw128_desc(xs + (kk / 4) * S::x_box) + 2 * (kk % 4));
       wgmma_commit();
     };
     // the products done: the fragments' registers and the stage are free
-    auto retire = [&](int step, uint32_t(&f)[4][4]) {
+    auto retire = [&](int step, uint32_t(&f)[W_KK][4]) {
       wgmma_wait<0>();
       pin(acc);
 #pragma unroll
-      for (int kk = 0; kk < W_BK / 16; ++kk) pin(f[kk]);
+      for (int kk = 0; kk < W_KK; ++kk) pin(f[kk]);
       __syncwarp();
       if (lane == 0) {
         if (n_cast > 1)  // every block that copies x into this stage waits for it
@@ -468,7 +482,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
     };
     // two fragment sets in turns: step + 1's fragment is converted while
     // step's products run
-    uint32_t fa[4][4], fb[4][4];
+    uint32_t fa[W_KK][4], fb[W_KK][4];
     convert(0, fa);
     for (int step = 0; step < steps; step += 2) {
       multiply(step, fa);
@@ -555,9 +569,9 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
   const cuuint32_t w_box[2] = {W_BK, S::rows};
   const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t x_strides[1] = {(cuuint64_t)x_rs * 2};
-  const cuuint32_t x_box[2] = {W_BK, (cuuint32_t)(BT / n_cast)};  // a rank's slice
+  const cuuint32_t x_box[2] = {64, (cuuint32_t)(BT / n_cast)};  // a rank's slice of a box
   if (!encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 2, w_dims, w_strides, w_box,
-              CU_TENSOR_MAP_SWIZZLE_64B) ||
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16(&x_map, x, 2, x_dims, x_strides, x_box))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
@@ -590,6 +604,8 @@ int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void*
       return launch_w8a16<64, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
     case 128:
       return launch_w8a16<128, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+    case 176:
+      return launch_w8a16<176, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
     case 224:
       return launch_w8a16<224, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
     default:
@@ -631,8 +647,8 @@ extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, c
 }
 
 // The same arguments for w8a16, and its launch plan: token_tile (the
-// product's N tile, tokens) 64, 128 or 224; warpgroups 1 or 2 (64 or 128
-// weight rows a block); k_split (the cluster size) 1..8, dividing K / 64;
+// product's N tile, tokens) 64, 128, 176 or 224; warpgroups 1 or 2 (64 or 128
+// weight rows a block); k_split (the cluster size) 1..8, dividing K / 128;
 // or, unsplit, x_cast (1, 2 or 4) blocks of consecutive weight tiles that
 // share each x tile, a slice copied by each; q 16-byte aligned.
 extern "C" int quant_matmul_w8a16(const void* x, long long x_rs, const void* q, const void* scale,

@@ -177,12 +177,13 @@ def test_w8a16_plan_elsewhere_follows_the_sweeps_rule():
     cast; unsplit where an unsplit grid within the SM count fills a third
     of it, else the largest grid with a K split; the fewest blocks where
     every unsplit grid passes the SM count.  The rule gives the sweep's
-    choice at four of the six swept shapes."""
-    assert qmm.plan(60, 768, 2048) == (64, 1, 4, 1)  # 32 unsplit blocks: too few of 132
+    choice at four of the six swept shapes (with one SM more, so that the
+    table of swept plans is not read)."""
+    assert qmm.plan(60, 768, 2048) == (64, 1, 3, 1)  # 32 unsplit blocks: too few of 132
     assert qmm.plan(60, 768, 2048, 90) == (64, 1, 1, 1)  # but a third of 90
     assert qmm.plan(661, 768, 768, 114) == (128, 1, 1, 1)  # 72 blocks within 114
     assert qmm.plan(661, 2048, 8192) == (224, 1, 1, 1)  # 384 blocks: every grid past 132
-    agree = [qmm.plan(M, K, N, 131) == qmm.SWEPT_PLANS[M, K, N] for M, K, N in W8A16_MAIN]
+    agree = [qmm.plan(M, K, N, 133) == qmm.SWEPT_PLANS[M, K, N] for M, K, N in W8A16_MAIN]
     assert sum(agree) >= 3
 
 
