@@ -74,27 +74,6 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       : "memory");
 }
 
-// the same copy written into the shared memory of every block of the
-// cluster named in mask (at the same offset, counted on each one's bar)
-__device__ __forceinline__ void tma_2d_multicast(uint32_t dst, const CUtensorMap* map,
-                                                 uint32_t bar, int c0, int c1, uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "h"(mask)
-      : "memory");
-}
-
-// an arrival on the mbarrier at offset bar of cluster block `rank`
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, int rank) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(rank)
-      : "memory");
-}
-
 __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                        int c1, int c2) {
   asm volatile(
@@ -150,7 +129,8 @@ __device__ __forceinline__ void pin(uint32_t (&d)[R]) {
 // 8j + 2t + e, for lane 4g + t).  ss: A and B from shared memory, both
 // K-major.  rs<TB>: A from registers (a[0..3]: rows g and g + 8, columns
 // 2t, 2t + 1 and 2t + 8, 2t + 9, as mma.sync's A fragment), B from shared
-// memory, K-major (TB 0) or MN-major (TB 1).
+// memory, K-major (TB 0) or MN-major (TB 1).  Only the widths and forms a
+// kernel here uses are written out.
 template <int N>
 struct Wgmma;
 
@@ -165,17 +145,6 @@ struct Wgmma<16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7])
         : "l"(a), "l"(b), "r"(1));
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
@@ -192,19 +161,6 @@ struct Wgmma<32> {
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "l"(a), "l"(b), "r"(1));
-  }
-  template <int TB>
-  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };
 
@@ -249,32 +205,6 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(1));
-  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -306,39 +236,6 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<176> {
-  static __device__ __forceinline__ void ss(float (&d)[88], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
-        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
-        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
-        "%80, %81, %82, %83, %84, %85, %86, %87}, "
-        "%88, %89, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
-        : "l"(a), "l"(b), "r"(1));
-  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[88], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -377,46 +274,6 @@ struct Wgmma<176> {
 
 template <>
 struct Wgmma<224> {
-  static __device__ __forceinline__ void ss(float (&d)[112], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
-        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
-        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
-        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
-        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
-        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
-        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
-        "%56, %57, %58, %59, %60, %61, %62, %63,\n"
-        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
-        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
-        "%80, %81, %82, %83, %84, %85, %86, %87,\n"
-        "%88, %89, %90, %91, %92, %93, %94, %95,\n"
-        "%96, %97, %98, %99, %100, %101, %102, %103,\n"
-        "%104, %105, %106, %107, %108, %109, %110, %111}, "
-        "%112, %113, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-          "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-          "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
-        : "l"(a), "l"(b), "r"(1));
-  }
   template <int TB>
   static __device__ __forceinline__ void rs(float (&d)[112], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(

@@ -60,10 +60,6 @@
 //   the 128-byte swizzle.  The ring takes as many steps as fit ~110 KB
 //   where two stages do (two blocks share an SM), else ~200 KB, at most 8;
 //   copies of the next steps are in flight while a step's products run.
-//   A plan may instead share each x tile across a cluster of 2 or 4
-//   blocks of neighbouring weight tiles (each copies a slice into every
-//   block, TMA multicast, and the stage is refilled when every block has
-//   used it); the sweeps found it slower at every main-path shape.
 // - Conversion: a consumer warpgroup reads each row's 16-byte k16 chunk
 //   (the swizzle puts a warp's 8 rows on distinct banks), picks its
 //   fragment's bytes (k 2t, 2t + 1, 2t + 8, 2t + 9) with one byte permute,
@@ -78,13 +74,15 @@
 // - Split K across a thread-block cluster (up to 8 blocks), summed in rank
 //   order through distributed shared memory (hopper::cluster_reduce, shared
 //   with the indexed linear; deterministic, no atomics).
-//   ops/quant_matmul.plan picks (BT, warpgroups, K split, x cast) per
-//   shape, read from the plans chip_smoke.py times at the main path's six
-//   shapes.  What holds it back there (PERF.md, PR 8): the sweeps' times
-//   follow the number of 128-deep steps and blocks, not the products (a
-//   copy without them ran as long at 64 rows a block) nor the L2 bytes (x
-//   multicast did not help): each step's copy, barrier and conversion
-//   chain, and each block's start and epilogue.
+//   ops/quant_matmul.plan picks (BT, warpgroups, K split) per shape, read
+//   from the plans chip_smoke.py times at the main path's six shapes.
+//   What holds it back there (PERF.md, PR 8): the sweeps' times follow
+//   the number of K steps and of blocks more than the products or the L2
+//   bytes (128-deep steps ran 19-21 % faster than 64-deep ones at 661
+//   rows; x multicast across a cluster, tried and taken out, did not pay;
+//   two warpgroups sharing x paid at (661, 768, 3072) only): each step's
+//   copy, barrier and conversion chain, and each block's start and
+//   epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -359,26 +357,23 @@ __global__ void __launch_bounds__(W16Smem<BT, WG>::threads)
 qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
                  const __grid_constant__ CUtensorMap x_map, const float* __restrict__ scale,
                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N,
-                 int K, int stages, int k_split) {
+                 int K, int stages) {
   using S = W16Smem<BT, WG>;
   constexpr int R = BT / 2;  // accumulators a thread: 64 x BT over a warpgroup's 128 threads
   constexpr int PRODUCER = S::consumers / 32;  // the copies' warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* const smem = aligned_smem(smem_raw);
   const uint32_t ring = smem_addr(smem);
-  // a cluster either splits K (k_split ranks, each a K run of one tile)
-  // or shares the x tile (n_cast ranks along the weight tiles, each
-  // copying a slice of x into every rank's shared memory)
+  // a cluster splits K: rank r sums K run r of the tile
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
-  const bool split = k_split > 1;
-  const int n_cast = split ? 1 : n_ranks;
+  const bool split = n_ranks > 1;
   const uint32_t full = ring + S::ring_bytes(stages, split), empty = full + 8 * stages;
 
-  const int n0 = blockIdx.x / k_split * S::rows;  // weight rows: output columns
+  const int n0 = blockIdx.x / n_ranks * S::rows;  // weight rows: output columns
   const int m0 = blockIdx.y * BT;                 // tokens: output rows
-  const int steps = K / W_BK / k_split;           // this rank's K run, from k_begin
-  const int k_begin = split ? rank * steps * W_BK : 0;
+  const int steps = K / W_BK / n_ranks;           // this rank's K run, from k_begin
+  const int k_begin = rank * steps * W_BK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int r0 = warp * 16 + g;  // a consumer's weight rows r0 and r0 + 8 of the tile
@@ -387,8 +382,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
       mbar_init(full + 8 * s, 1);
-      // each consumer warp's lane 0, of every block sharing the stage's x
-      mbar_init(empty + 8 * s, S::consumers / 32 * n_cast);
+      mbar_init(empty + 8 * s, S::consumers / 32);  // each consumer warp's lane 0
     }
     mbar_init_fence();
   }
@@ -404,12 +398,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
         if (has_bias) bs[hh] = __bfloat162float(__float2bfloat16(bias[n]));
       }
     }
-  // every block's barriers are initialised before any block copies into
-  // or arrives on another's
-  if (n_cast > 1)
-    cluster.sync();
-  else
-    __syncthreads();
+  __syncthreads();
 
   float acc[R];
 #pragma unroll
@@ -422,17 +411,11 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
         const int s = step % stages, round = step / stages;
         if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
         const uint32_t dst = ring + s * S::stage, bar = full + 8 * s;
-        mbar_expect(bar, S::stage);  // this block's weight tile and the whole x tile
+        mbar_expect(bar, S::stage);
         tma_2d(dst, &w_map, bar, k_begin + step * W_BK, n0);
-        for (int h = 0; h < 2; ++h) {  // the x tile's two 64-column boxes
-          const uint32_t xd = dst + S::w_bytes + h * S::x_box;
-          const int k = k_begin + step * W_BK + 64 * h;
-          if (n_cast > 1)  // this rank's slice of x, into every rank's stage
-            tma_2d_multicast(xd + rank * (BT / n_cast) * 128, &x_map, bar, k,
-                             m0 + rank * (BT / n_cast), (1u << n_cast) - 1);
-          else
-            tma_2d(xd, &x_map, bar, k, m0);
-        }
+        for (int h = 0; h < 2; ++h)  // the x tile's two 64-column boxes
+          tma_2d(dst + S::w_bytes + h * S::x_box, &x_map, bar, k_begin + step * W_BK + 64 * h,
+                 m0);
       }
     }
   } else {  // the products: warpgroup warp / 4 takes weight rows 64 (warp / 4) ..
@@ -473,12 +456,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
 #pragma unroll
       for (int kk = 0; kk < W_KK; ++kk) pin(f[kk]);
       __syncwarp();
-      if (lane == 0) {
-        if (n_cast > 1)  // every block that copies x into this stage waits for it
-          for (int r = 0; r < n_cast; ++r) mbar_arrive_cluster(empty + 8 * (step % stages), r);
-        else
-          mbar_arrive(empty + 8 * (step % stages));
-      }
+      if (lane == 0) mbar_arrive(empty + 8 * (step % stages));
     };
     // two fragment sets in turns: step + 1's fragment is converted while
     // step's products run
@@ -497,11 +475,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
   }
 
   if (!split) {
-    if (warp == PRODUCER) {
-      // no block leaves while another may still arrive on its barriers
-      if (n_cast > 1) cluster.sync();
-      return;
-    }
+    if (warp == PRODUCER) return;
     // the tile through shared memory (the ring is free once every consumer
     // warp's products are done), transposed: BT token rows of S::rows columns
     asm volatile("bar.sync 1, %0;\n" ::"n"(S::consumers) : "memory");
@@ -523,7 +497,6 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
         *reinterpret_cast<uint2*>(out + (long long)(m0 + c) * N + n0 + r) =
             *reinterpret_cast<const uint2*>(st + c * S::old + r);
     }
-    if (n_cast > 1) cluster.sync();
     return;
   }
 
@@ -547,12 +520,10 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
 
 template <int BT, int WG>
 int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
-                 const void* bias, void* out, int M, int N, int K, int k_split, int n_cast,
+                 const void* bias, void* out, int M, int N, int K, int k_split,
                  cudaStream_t stream) {
   using S = W16Smem<BT, WG>;
   const int w_tiles = (N + S::rows - 1) / S::rows;
-  if (BT % (8 * n_cast) || w_tiles % n_cast || (k_split > 1 && n_cast > 1))
-    return (int)cudaErrorInvalidValue;
   static bool attr_set = false;
   if (!attr_set) {  // the most any call of this tile takes
     const int most = S::bytes(S::max_stages, true);
@@ -569,7 +540,7 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
   const cuuint32_t w_box[2] = {W_BK, S::rows};
   const cuuint64_t x_dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t x_strides[1] = {(cuuint64_t)x_rs * 2};
-  const cuuint32_t x_box[2] = {64, (cuuint32_t)(BT / n_cast)};  // a rank's slice of a box
+  const cuuint32_t x_box[2] = {64, BT};
   if (!encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 2, w_dims, w_strides, w_box,
               CU_TENSOR_MAP_SWIZZLE_128B) ||
       !encode_bf16(&x_map, x, 2, x_dims, x_strides, x_box))
@@ -581,16 +552,15 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
   cfg.stream = stream;
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = k_split * n_cast;
+  cluster.val.clusterDim.x = k_split;
   cluster.val.clusterDim.y = 1;
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
-  // a grid without a cluster attribute: clusters of 1
-  cfg.numAttrs = k_split * n_cast > 1 ? 1 : 0;
+  cfg.numAttrs = k_split > 1 ? 1 : 0;  // a grid without a cluster attribute: clusters of 1
   cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_w8a16_kernel<BT, WG>, w_map, x_map,
                                      static_cast<const float*>(scale),
                                      static_cast<const float*>(bias),
-                                     static_cast<__nv_bfloat16*>(out), M, N, K, stages, k_split);
+                                     static_cast<__nv_bfloat16*>(out), M, N, K, stages);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -598,16 +568,16 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
 template <int WG>
 int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void* q,
                       const void* scale, const void* bias, void* out, int M, int N, int K,
-                      int k_split, int n_cast, cudaStream_t s) {
+                      int k_split, cudaStream_t s) {
   switch (token_tile) {
     case 64:
-      return launch_w8a16<64, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+      return launch_w8a16<64, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 128:
-      return launch_w8a16<128, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+      return launch_w8a16<128, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 176:
-      return launch_w8a16<176, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+      return launch_w8a16<176, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 224:
-      return launch_w8a16<224, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, n_cast, s);
+      return launch_w8a16<224, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -647,25 +617,20 @@ extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, c
 }
 
 // The same arguments for w8a16, and its launch plan: token_tile (the
-// product's N tile, tokens) 64, 128, 176 or 224; warpgroups 1 or 2 (64 or 128
-// weight rows a block); k_split (the cluster size) 1..8, dividing K / 128;
-// or, unsplit, x_cast (1, 2 or 4) blocks of consecutive weight tiles that
-// share each x tile, a slice copied by each; q 16-byte aligned.
+// product's N tile, tokens) 64, 128, 176 or 224; warpgroups 1 or 2 (64 or
+// 128 weight rows a block); k_split (the cluster size) 1..8, dividing
+// K / 128.  q 16-byte aligned.
 extern "C" int quant_matmul_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
                                   const void* bias, void* out, int M, int N, int K,
-                                  int token_tile, int warpgroups, int k_split, int x_cast,
-                                  void* stream) {
+                                  int token_tile, int warpgroups, int k_split, void* stream) {
   if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > W_MAX_CLUSTER ||
-      (x_cast != 1 && x_cast != 2 && x_cast != 4) ||
       (K / W_BK) % k_split || x_rs % 8 ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (warpgroups == 1)
-    return launch_w8a16_tile<1>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split,
-                                x_cast, s);
+    return launch_w8a16_tile<1>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
   if (warpgroups == 2)
-    return launch_w8a16_tile<2>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split,
-                                x_cast, s);
+    return launch_w8a16_tile<2>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -140,7 +140,8 @@ short_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   // the products: warpgroup wg takes query rows q0 + 64 wg ..
-  for (int j = tid; j < n_kt * KT; j += CONSUMERS) sval[j] = j < L ? valid[(long long)b * L + j] : 0;
+  for (int j = tid; j < n_kt * KT; j += CONSUMERS)
+    sval[j] = j < L ? valid[(long long)b * L + j] : 0;
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
   const int wg = warp / 4, g = lane >> 2, t = lane & 3;
   const int wg_q0 = q0 + QT * wg;

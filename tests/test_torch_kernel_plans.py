@@ -2,12 +2,15 @@
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
-``ops/short_attention.plan``), so they are held here, on the CPU: every key tile lies in exactly one split and no split is empty; the K
-split covers K in whole 64-deep steps with a cluster the kernel accepts;
-the streaming step's decode fills a wave of the H100's 132 SMs and its
-linears run at most one block an SM, unsplit where the K run fits the
-kernel's ring; every shape ``supported`` accepts gets a plan.  The kernels themselves run only on the card
-(``tests/test_torch_cuda.py``).
+``ops/short_attention.plan``), so they are held here, on the CPU: every
+key tile lies in exactly one split and no split is empty; a K split
+covers K in whole steps (64 deep in the indexed linear, 128 in w8a16)
+with a cluster the kernel accepts; the streaming step's decode fills a
+wave of the H100's 132 SMs and its linears run at most one block an SM,
+unsplit where the K run fits the kernel's ring; w8a16 takes the sweep's
+plans on its main path; short attention's query tiles cover every row
+once; every shape ``supported`` accepts gets a plan.  The kernels
+themselves run only on the card (``tests/test_torch_cuda.py``).
 """
 
 import pytest
@@ -140,10 +143,11 @@ W8A16_MAIN = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
                                  (384, 80), (11008, 4096)])
 def test_w8a16_plan_covers_k_exactly_for_every_supported_shape(M, K, N):
     """Every (K, N) ``supported`` takes gets a plan the kernel takes: a
-    token tile and warpgroup count of the kernel's and a K split that is a cluster of 1..8
-    blocks, each a run of whole 64-deep steps that together cover K."""
+    token tile and warpgroup count of the kernel's and a K split that is
+    a cluster of 1..8 blocks, each a run of whole 128-deep steps that
+    together cover K."""
     assert qmm.supported(K, N)
-    tile, wg, k_split, x_cast = qmm.plan(M, K, N)
+    tile, wg, k_split = qmm.plan(M, K, N)
     assert tile in qmm.W16_TOKEN_TILES and wg in qmm.W16_WARPGROUPS
     assert 1 <= k_split <= qmm.MAX_K_SPLIT
     steps = K // qmm.W16_K_STEP
@@ -151,11 +155,7 @@ def test_w8a16_plan_covers_k_exactly_for_every_supported_shape(M, K, N):
     runs = [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
     assert sorted(s for run in runs for s in run) == list(range(steps))
     w_tiles = -(-N // (qmm.W16_ROWS * wg))
-    assert (w_tiles * k_split * -(-M // tile), tile, wg, k_split, x_cast) in qmm.plans(M, K, N)
-    # x shared only by whole clusters of weight tiles, in slices of whole
-    # 8-row swizzle groups, and never beside a K split
-    assert x_cast in qmm.W16_X_CASTS and w_tiles % x_cast == 0 and tile % (8 * x_cast) == 0
-    assert x_cast == 1 or k_split == 1
+    assert (w_tiles * k_split * -(-M // tile), tile, wg, k_split) in qmm.plans(M, K, N)
 
 
 @pytest.mark.parametrize("M,K,N", W8A16_MAIN)
@@ -173,16 +173,16 @@ def test_w8a16_plan_at_the_main_path_is_the_sweeps(M, K, N):
 
 
 def test_w8a16_plan_elsewhere_follows_the_sweeps_rule():
-    """Off the swept shapes (or on another card): one warpgroup, no x
-    cast; unsplit where an unsplit grid within the SM count fills a third
+    """Off the swept shapes (or on another card): one warpgroup;
+    unsplit where an unsplit grid within the SM count fills a third
     of it, else the largest grid with a K split; the fewest blocks where
     every unsplit grid passes the SM count.  The rule gives the sweep's
     choice at four of the six swept shapes (with one SM more, so that the
     table of swept plans is not read)."""
-    assert qmm.plan(60, 768, 2048) == (64, 1, 3, 1)  # 32 unsplit blocks: too few of 132
-    assert qmm.plan(60, 768, 2048, 90) == (64, 1, 1, 1)  # but a third of 90
-    assert qmm.plan(661, 768, 768, 114) == (128, 1, 1, 1)  # 72 blocks within 114
-    assert qmm.plan(661, 2048, 8192) == (224, 1, 1, 1)  # 384 blocks: every grid past 132
+    assert qmm.plan(60, 768, 2048) == (64, 1, 3)  # 32 unsplit blocks: too few of 132
+    assert qmm.plan(60, 768, 2048, 90) == (64, 1, 1)  # but a third of 90
+    assert qmm.plan(661, 768, 768, 114) == (128, 1, 1)  # 72 blocks within 114
+    assert qmm.plan(661, 2048, 8192) == (224, 1, 1)  # 384 blocks: every grid past 132
     agree = [qmm.plan(M, K, N, 133) == qmm.SWEPT_PLANS[M, K, N] for M, K, N in W8A16_MAIN]
     assert sum(agree) >= 3
 
