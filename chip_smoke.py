@@ -35,7 +35,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                first four with their launch geometry; then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
-               of w8a16 (token tile, warpgroups, K split) at its six
+               of w8a16 (token tile, K split) at its six
                main-path shapes
                and of short attention (64 or 128 query rows a block) at its
                two, each against the twin and timed beside the library
@@ -511,13 +511,13 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         ref = qmm.int8_matmul_ref(x, q, scale, b, mode)
         extra = {}
         if mode == "w8a16":  # the launch plan, and a repeat bit for bit
-            tile, wg, k_split = qmm.plan(M, K, N, _build.sm_count(x.device))
-            w_tiles = -(-N // (qmm.W16_ROWS * wg))
+            tile, k_split = qmm.plan(M, K, N, _build.sm_count(x.device))
+            w_tiles = -(-N // qmm.W16_ROWS)
             extra = dict(
                 deterministic=bool(torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)),
                 twin_deterministic=bool(torch.equal(qmm.int8_matmul_ref(x, q, scale, b, mode),
                                                     ref)),
-                geometry=f"{w_tiles} weight-row tiles of {qmm.W16_ROWS * wg} x {-(-M // tile)} "
+                geometry=f"{w_tiles} weight-row tiles of {qmm.W16_ROWS} x {-(-M // tile)} "
                          f"token tiles of {tile} x K split {k_split} = "
                          f"{w_tiles * -(-M // tile) * k_split} blocks")
         if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
@@ -663,7 +663,7 @@ W8A16_SHAPES = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
 
 
 def _w8a16_plans(dev, failures: list) -> list[dict]:
-    """Every plan of the w8a16 kernel (token tile, warpgroups, K split; up
+    """Every plan of the w8a16 kernel (token tile, K split; up
     to four blocks an SM) at its main path's six shapes, with bias: agreement with the twin and device time,
     ``quant_matmul.plan``'s choice marked, beside bf16 ``F.linear`` on the
     dequantised weight."""

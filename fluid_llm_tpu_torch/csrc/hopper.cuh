@@ -235,12 +235,12 @@ struct Wgmma<128> {
 };
 
 template <>
-struct Wgmma<176> {
+struct Wgmma<136> {
   template <int TB>
-  static __device__ __forceinline__ void rs(float (&d)[88], const uint32_t (&a)[4], uint64_t b) {
+  static __device__ __forceinline__ void rs(float (&d)[68], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %93, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n176k16.f32.bf16.bf16 {"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %73, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n136k16.f32.bf16.bf16 {"
         "%0, %1, %2, %3, %4, %5, %6, %7,\n"
         "%8, %9, %10, %11, %12, %13, %14, %15,\n"
         "%16, %17, %18, %19, %20, %21, %22, %23,\n"
@@ -249,10 +249,8 @@ struct Wgmma<176> {
         "%40, %41, %42, %43, %44, %45, %46, %47,\n"
         "%48, %49, %50, %51, %52, %53, %54, %55,\n"
         "%56, %57, %58, %59, %60, %61, %62, %63,\n"
-        "%64, %65, %66, %67, %68, %69, %70, %71,\n"
-        "%72, %73, %74, %75, %76, %77, %78, %79,\n"
-        "%80, %81, %82, %83, %84, %85, %86, %87}, "
-        "{%88, %89, %90, %91}, %92, p, 1, 1, %94;\n}\n"
+        "%64, %65, %66, %67}, "
+        "{%68, %69, %70, %71}, %72, p, 1, 1, %74;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -264,10 +262,7 @@ struct Wgmma<176> {
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
           "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-          "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-          "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+          "+f"(d[66]), "+f"(d[67])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
   }
 };

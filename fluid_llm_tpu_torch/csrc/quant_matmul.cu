@@ -49,9 +49,8 @@
 // its K loop.  The tensor cores take two bf16 operands and wgmma reads
 // only its A operand from registers, so the int8 weight, which has to be
 // converted, takes the A position: the kernel computes out^T (N, M) =
-// W (N, K) x^T, the weight's rows the product's M (64 rows a consumer
-// warpgroup, one or two warpgroups a block sharing one x tile) and the
-// tokens its N tile (BT 64, 128, 176 or 224: 661 rows are 4 tiles of 176).
+// W (N, K) x^T, the weight's rows the product's 64-row M tile and the
+// tokens its N tile (BT 64, 128, 136 or 224: 661 rows are 5 tiles of 136).
 // - Copies: one warp issues TMA tensor copies into a ring of 128-deep K
 //   steps, with a full and an empty mbarrier a stage: the weight tile as
 //   int8 (128-byte rows: half the bytes of a bf16 copy) and the x tile as
@@ -60,7 +59,7 @@
 //   the 128-byte swizzle.  The ring takes as many steps as fit ~110 KB
 //   where two stages do (two blocks share an SM), else ~200 KB, at most 8;
 //   copies of the next steps are in flight while a step's products run.
-// - Conversion: a consumer warpgroup reads each row's 16-byte k16 chunk
+// - Conversion: the consumer warpgroup reads each row's 16-byte k16 chunk
 //   (the swizzle puts a warp's 8 rows on distinct banks), picks its
 //   fragment's bytes (k 2t, 2t + 1, 2t + 8, 2t + 9) with one byte permute,
 //   and turns each int8 into bf16 by placing its biased byte in the
@@ -74,15 +73,16 @@
 // - Split K across a thread-block cluster (up to 8 blocks), summed in rank
 //   order through distributed shared memory (hopper::cluster_reduce, shared
 //   with the indexed linear; deterministic, no atomics).
-//   ops/quant_matmul.plan picks (BT, warpgroups, K split) per shape, read
-//   from the plans chip_smoke.py times at the main path's six shapes.
+//   ops/quant_matmul.plan picks (BT, K split) per shape, read from the
+//   plans chip_smoke.py times at the main path's six shapes.
 //   What holds it back there (PERF.md, PR 8): the sweeps' times follow
-//   the number of K steps and of blocks more than the products or the L2
-//   bytes (128-deep steps ran 19-21 % faster than 64-deep ones at 661
-//   rows; x multicast across a cluster, tried and taken out, did not pay;
-//   two warpgroups sharing x paid at (661, 768, 3072) only): each step's
-//   copy, barrier and conversion chain, and each block's start and
-//   epilogue.
+//   the number of K steps and of blocks, and a grid that fills two
+//   blocks an SM, more than the products or the L2 bytes (128-deep steps
+//   ran 14-23 % faster than 64-deep ones at 661 rows; 661 rows in 5 tiles
+//   of 136, 240 blocks, beat 4 of 176; x multicast across a cluster and a
+//   second warpgroup sharing x, both tried and taken out, did not pay):
+//   each step's copy, barrier and conversion chain, and each block's
+//   start and epilogue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -303,12 +303,12 @@ constexpr int W_KK = W_BK / 16;  // k16 products a step
 constexpr int W_MAX_CLUSTER = 8;
 constexpr int W_MAX_STAGES = 8;
 
-// A block of WG consumer warpgroups (64 weight rows each, one x tile
-// between them) and one warp that issues the copies.
-template <int BT, int WG>
+// A block of one consumer warpgroup (64 weight rows) and one warp that
+// issues the copies.
+template <int BT>
 struct W16Smem {
-  static constexpr int rows = 64 * WG;              // weight rows: output columns
-  static constexpr int consumers = 128 * WG;
+  static constexpr int rows = 64;                   // weight rows: output columns
+  static constexpr int consumers = 128;
   static constexpr int threads = consumers + 32;
   static constexpr int w_bytes = rows * W_BK;       // int8, 128-byte rows
   static constexpr int x_box = BT * 128;            // 64 bf16 columns of the x tile
@@ -352,14 +352,14 @@ __device__ __forceinline__ __nv_bfloat16 w16_out(float acc, float s, float b, bo
   return has_bias ? __float2bfloat16(__bfloat162float(y) + b) : y;
 }
 
-template <int BT, int WG>
-__global__ void __launch_bounds__(W16Smem<BT, WG>::threads)
+template <int BT>
+__global__ void __launch_bounds__(W16Smem<BT>::threads)
 qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
                  const __grid_constant__ CUtensorMap x_map, const float* __restrict__ scale,
                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N,
                  int K, int stages) {
-  using S = W16Smem<BT, WG>;
-  constexpr int R = BT / 2;  // accumulators a thread: 64 x BT over a warpgroup's 128 threads
+  using S = W16Smem<BT>;
+  constexpr int R = BT / 2;  // accumulators a thread: 64 x BT over the warpgroup's 128 threads
   constexpr int PRODUCER = S::consumers / 32;  // the copies' warp
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* const smem = aligned_smem(smem_raw);
@@ -418,7 +418,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
                  m0);
       }
     }
-  } else {  // the products: warpgroup warp / 4 takes weight rows 64 (warp / 4) ..
+  } else {  // the products
     // the 128-byte swizzle moves 16-byte chunk c of row r to c ^ (r & 7)
     const int sw = r0 & 7;
     const uint32_t sel = (t & 1) ? 0x7632u : 0x5410u;
@@ -505,7 +505,7 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
   // in rank order and each owner writes its share
   cluster.sync();
   cluster_reduce<S::rows, BT, W_MAX_CLUSTER>(
-      acc, warp < PRODUCER, (warp / 4) * 64, reinterpret_cast<float*>(smem),
+      acc, warp < PRODUCER, 0, reinterpret_cast<float*>(smem),
       [&](int e, float4 sum) {
         const int r = e / BT, c = e % BT, n = n0 + r;
         if (n >= N) return;
@@ -518,16 +518,16 @@ qmm_w8a16_kernel(const __grid_constant__ CUtensorMap w_map,
       });
 }
 
-template <int BT, int WG>
+template <int BT>
 int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
                  const void* bias, void* out, int M, int N, int K, int k_split,
                  cudaStream_t stream) {
-  using S = W16Smem<BT, WG>;
+  using S = W16Smem<BT>;
   const int w_tiles = (N + S::rows - 1) / S::rows;
   static bool attr_set = false;
   if (!attr_set) {  // the most any call of this tile takes
     const int most = S::bytes(S::max_stages, true);
-    cudaError_t e = cudaFuncSetAttribute(qmm_w8a16_kernel<BT, WG>,
+    cudaError_t e = cudaFuncSetAttribute(qmm_w8a16_kernel<BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
@@ -557,7 +557,7 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = k_split > 1 ? 1 : 0;  // a grid without a cluster attribute: clusters of 1
-  cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_w8a16_kernel<BT, WG>, w_map, x_map,
+  cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_w8a16_kernel<BT>, w_map, x_map,
                                      static_cast<const float*>(scale),
                                      static_cast<const float*>(bias),
                                      static_cast<__nv_bfloat16*>(out), M, N, K, stages);
@@ -565,19 +565,18 @@ int launch_w8a16(const void* x, long long x_rs, const void* q, const void* scale
   return (int)cudaGetLastError();
 }
 
-template <int WG>
 int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void* q,
                       const void* scale, const void* bias, void* out, int M, int N, int K,
                       int k_split, cudaStream_t s) {
   switch (token_tile) {
     case 64:
-      return launch_w8a16<64, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a16<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 128:
-      return launch_w8a16<128, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
-    case 176:
-      return launch_w8a16<176, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a16<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+    case 136:
+      return launch_w8a16<136>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 224:
-      return launch_w8a16<224, WG>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a16<224>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -617,20 +616,15 @@ extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, c
 }
 
 // The same arguments for w8a16, and its launch plan: token_tile (the
-// product's N tile, tokens) 64, 128, 176 or 224; warpgroups 1 or 2 (64 or
-// 128 weight rows a block); k_split (the cluster size) 1..8, dividing
-// K / 128.  q 16-byte aligned.
+// product's N tile, tokens) 64, 128, 136 or 224; k_split (the cluster
+// size) 1..8, dividing K / 128.  q 16-byte aligned.
 extern "C" int quant_matmul_w8a16(const void* x, long long x_rs, const void* q, const void* scale,
                                   const void* bias, void* out, int M, int N, int K,
-                                  int token_tile, int warpgroups, int k_split, void* stream) {
+                                  int token_tile, int k_split, void* stream) {
   if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > W_MAX_CLUSTER ||
       (K / W_BK) % k_split || x_rs % 8 ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(q) % 16)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (warpgroups == 1)
-    return launch_w8a16_tile<1>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
-  if (warpgroups == 2)
-    return launch_w8a16_tile<2>(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_w8a16_tile(token_tile, x, x_rs, q, scale, bias, out, M, N, K, k_split,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -56,8 +56,7 @@ K_TILE = 128  # the kernels' K step: K must be a multiple of it
 N_TILE = 16  # the narrowest output tile: N must be a multiple of it
 W16_ROWS = 64  # w8a16: weight rows (output columns) of a block, wgmma's M
 W16_K_STEP = 128  # w8a16: depth of a K step; a K split takes whole steps
-W16_TOKEN_TILES = (64, 128, 176, 224)  # w8a16: token tiles (wgmma's N), narrowest first
-W16_WARPGROUPS = (1, 2)  # w8a16: consumer warpgroups a block, 64 weight rows each
+W16_TOKEN_TILES = (64, 128, 136, 224)  # w8a16: token tiles (wgmma's N), narrowest first
 MAX_K_SPLIT = 8  # blocks of a cluster, the portable limit
 
 
@@ -69,44 +68,41 @@ def supported(k: int, n: int) -> bool:
     return k > 0 and n > 0 and k % K_TILE == 0 and n % N_TILE == 0
 
 
-def plans(M: int, K: int, N: int) -> list[tuple[int, int, int, int]]:
-    """Every ``(blocks, token_tile, warpgroups, k_split)`` the w8a16 kernel
-    takes for ``x (M, K) @ q (N, K)^T``: a token tile; one or two consumer
-    warpgroups (64 or 128 weight rows a block, sharing the x tile); a K
-    split (a cluster of that many blocks, each a contiguous run of whole
-    128-deep K steps).  The grid has ``ceil(N / rows) x k_split x
-    ceil(M / token_tile)`` blocks."""
+def plans(M: int, K: int, N: int) -> list[tuple[int, int, int]]:
+    """Every ``(blocks, token_tile, k_split)`` the w8a16 kernel takes for
+    ``x (M, K) @ q (N, K)^T``: a token tile and a K split (a cluster of
+    that many blocks, each a contiguous run of whole 128-deep K steps),
+    with its grid of ``ceil(N / 64) x k_split x ceil(M / token_tile)``
+    blocks."""
     steps = K // W16_K_STEP
-    return [(-(-N // (W16_ROWS * wg)) * k_split * -(-M // tile), tile, wg, k_split)
-            for tile in W16_TOKEN_TILES for wg in W16_WARPGROUPS
+    return [(-(-N // W16_ROWS) * k_split * -(-M // tile), tile, k_split)
+            for tile in W16_TOKEN_TILES
             for k_split in range(1, MAX_K_SPLIT + 1) if steps % k_split == 0]
 
 
 # The fastest plan at each of the main path's six shapes (OPT-125m's exact
 # rollout, with bias) in the plan sweeps of chip_smoke.py (its "[plans]"
-# lines, NVIDIA H100 80GB HBM3): two sweeps of the kernel as it stands
-# agreed on each; at (60, 768, 768) (64, 1, 1) came within 3 %.
+# lines, NVIDIA H100 80GB HBM3); at (60, 768, 768) (64, 1) comes within
+# 3 %.  (661, 768, 3072) takes 5 token tiles of 136: 240 blocks, two an SM.
 SWEPT_PLANS = {
-    (661, 768, 768): (64, 1, 1), (661, 768, 3072): (176, 2, 1),
-    (661, 3072, 768): (64, 1, 1), (60, 768, 768): (64, 1, 6),
-    (60, 768, 3072): (64, 1, 1), (60, 3072, 768): (64, 1, 8),
+    (661, 768, 768): (64, 1), (661, 768, 3072): (136, 1), (661, 3072, 768): (64, 1),
+    (60, 768, 768): (64, 6), (60, 768, 3072): (64, 1), (60, 3072, 768): (64, 8),
 }
 
 
 @functools.lru_cache(maxsize=None)
-def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int, int]:
-    """``(token_tile, warpgroups, k_split)`` of :func:`plans` for the w8a16
-    kernel: the sweep's fastest at the main path's six shapes
-    (:data:`SWEPT_PLANS`).  Elsewhere, as the sweeps ran: one warpgroup; no
-    K split where an unsplit grid within ``sms`` blocks fills a third of
-    them (the largest such grid), else the largest grid within ``sms`` (a K
-    split pays only where the unsplit grid leaves most SMs idle); where
-    every unsplit grid passes ``sms``, the fewest blocks.  K a multiple of
-    128."""
+def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(token_tile, k_split)`` of :func:`plans` for the w8a16 kernel: the
+    sweep's fastest at the main path's six shapes (:data:`SWEPT_PLANS`).
+    Elsewhere, as the sweeps ran: no K split where an unsplit grid within
+    ``sms`` blocks fills a third of them (the largest such grid), else the
+    largest grid within ``sms`` (a K split pays only where the unsplit
+    grid leaves most SMs idle); where every unsplit grid passes ``sms``,
+    the fewest blocks.  K a multiple of 128."""
     if (M, K, N) in SWEPT_PLANS and sms == _build.H100_SMS:
         return SWEPT_PLANS[M, K, N]
-    every = [p for p in plans(M, K, N) if p[2] == 1]
-    unsplit = [p for p in every if p[3] == 1]
+    every = plans(M, K, N)
+    unsplit = [p for p in every if p[2] == 1]
     fits = [p for p in unsplit if p[0] <= sms]
     if not fits or max(fits)[0] * 3 < sms:
         fits = [p for p in every if p[0] <= sms]

@@ -30,7 +30,7 @@ splits (1, 2, 11 and 33 slots, bs 1, 2 and 4, wholly masked splits, rows
 that see no key) and the indexed linear's K splits (K 128 to 11 008, M 1
 to 661, strided x) are held to the same bound, and both must repeat bit for
 bit, the decode also when replayed from a CUDA graph.  So are w8a16 under
-every launch plan (token tile, warpgroups, K split; M 1 to 661, K 768 to 3072, a
+every launch plan (token tile, K split; M 1 to 661, K 768 to 3072, a
 partial tile of weight rows, x a slice of a fused projection, repeats and
 graph replay) and short attention under both plans (64 or 128 query rows
 a block; L 1 to 1536, hd 64 and 128, rows that see only their forced

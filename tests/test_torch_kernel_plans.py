@@ -142,20 +142,18 @@ W8A16_MAIN = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
 @pytest.mark.parametrize("K,N", [(128, 16), (768, 768), (768, 3072), (3072, 768), (2048, 768),
                                  (384, 80), (11008, 4096)])
 def test_w8a16_plan_covers_k_exactly_for_every_supported_shape(M, K, N):
-    """Every (K, N) ``supported`` takes gets a plan the kernel takes: a
-    token tile and warpgroup count of the kernel's and a K split that is
-    a cluster of 1..8 blocks, each a run of whole 128-deep steps that
-    together cover K."""
+    """Every (K, N) ``supported`` takes gets a plan the kernel takes: one
+    of its token tiles and a K split that is a cluster of 1..8 blocks,
+    each a run of whole 128-deep steps that together cover K."""
     assert qmm.supported(K, N)
-    tile, wg, k_split = qmm.plan(M, K, N)
-    assert tile in qmm.W16_TOKEN_TILES and wg in qmm.W16_WARPGROUPS
+    tile, k_split = qmm.plan(M, K, N)
+    assert tile in qmm.W16_TOKEN_TILES
     assert 1 <= k_split <= qmm.MAX_K_SPLIT
     steps = K // qmm.W16_K_STEP
     assert steps % k_split == 0
     runs = [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
     assert sorted(s for run in runs for s in run) == list(range(steps))
-    w_tiles = -(-N // (qmm.W16_ROWS * wg))
-    assert (w_tiles * k_split * -(-M // tile), tile, wg, k_split) in qmm.plans(M, K, N)
+    assert (-(-N // qmm.W16_ROWS) * k_split * -(-M // tile), tile, k_split) in qmm.plans(M, K, N)
 
 
 @pytest.mark.parametrize("M,K,N", W8A16_MAIN)
@@ -173,18 +171,18 @@ def test_w8a16_plan_at_the_main_path_is_the_sweeps(M, K, N):
 
 
 def test_w8a16_plan_elsewhere_follows_the_sweeps_rule():
-    """Off the swept shapes (or on another card): one warpgroup;
-    unsplit where an unsplit grid within the SM count fills a third
-    of it, else the largest grid with a K split; the fewest blocks where
+    """Off the swept shapes (or on another card): unsplit where an
+    unsplit grid within the SM count fills a third of it, else the
+    largest grid with a K split; the fewest blocks where
     every unsplit grid passes the SM count.  The rule gives the sweep's
-    choice at four of the six swept shapes (with one SM more, so that the
+    choice at five of the six swept shapes (with one SM more, so that the
     table of swept plans is not read)."""
-    assert qmm.plan(60, 768, 2048) == (64, 1, 3)  # 32 unsplit blocks: too few of 132
-    assert qmm.plan(60, 768, 2048, 90) == (64, 1, 1)  # but a third of 90
-    assert qmm.plan(661, 768, 768, 114) == (128, 1, 1)  # 72 blocks within 114
-    assert qmm.plan(661, 2048, 8192) == (224, 1, 1)  # 384 blocks: every grid past 132
+    assert qmm.plan(60, 768, 2048) == (64, 3)  # 32 unsplit blocks: too few of 132
+    assert qmm.plan(60, 768, 2048, 90) == (64, 1)  # but a third of 90
+    assert qmm.plan(661, 768, 768, 114) == (128, 1)  # 72 blocks within 114
+    assert qmm.plan(661, 2048, 8192) == (224, 1)  # 384 blocks: every grid past 132
     agree = [qmm.plan(M, K, N, 133) == qmm.SWEPT_PLANS[M, K, N] for M, K, N in W8A16_MAIN]
-    assert sum(agree) >= 3
+    assert sum(agree) >= 5
 
 
 @pytest.mark.parametrize("L", [1, 16, 63, 64, 65, 129, 601, 661, 1536])
