@@ -35,8 +35,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                first four with their launch geometry; then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
-               of w8a16 (token tile, K split) at its six
-               main-path shapes
+               of w8a16 (token tile, K split) at its six main-path shapes
                and of short attention (64 or 128 query rows a block) at its
                two, each against the twin and timed beside the library
                call: the tables ``indexed_linear.plan``,
@@ -663,10 +662,10 @@ W8A16_SHAPES = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
 
 
 def _w8a16_plans(dev, failures: list) -> list[dict]:
-    """Every plan of the w8a16 kernel (token tile, K split; up
-    to four blocks an SM) at its main path's six shapes, with bias: agreement with the twin and device time,
-    ``quant_matmul.plan``'s choice marked, beside bf16 ``F.linear`` on the
-    dequantised weight."""
+    """Every plan of the w8a16 kernel (token tile, K split; up to four
+    blocks an SM) at its main path's six shapes, with bias: agreement with
+    the twin and device time, ``quant_matmul.plan``'s choice marked,
+    beside bf16 ``F.linear`` on the dequantised weight."""
     import torch.nn.functional as F
 
     from fluid_llm_tpu_torch.ops import _build
