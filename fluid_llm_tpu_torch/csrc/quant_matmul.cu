@@ -75,7 +75,7 @@
 //   with the indexed linear; deterministic, no atomics).
 //   ops/quant_matmul.plan picks (BT, K split) per shape, read from the
 //   plans chip_smoke.py times at the main path's six shapes.
-//   What holds it back there (PERF.md, PR 8): the sweeps' times follow
+//   What holds it back there (PERF.md): the sweeps' times follow
 //   the number of K steps and of blocks, and a grid that fills two
 //   blocks an SM, more than the products or the L2 bytes (128-deep steps
 //   ran 14-23 % faster than 64-deep ones at 661 rows; 661 rows in 5 tiles
