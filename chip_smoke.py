@@ -24,23 +24,28 @@ Phases, each printing one line per result; any failure exits nonzero:
                L2 error (bound REL_TOL) and device time per call, kernel,
                plain and the PyTorch library call that computes the same
                function (``library_ms``: ``scaled_dot_product_attention``
-               with the same mask, its backward; ``torch._int_mm`` on the
+               with the same mask; its backward as device time, captured in
+               a CUDA graph, with the backend that served it, beside dq +
+               dk/dv; ``torch._int_mm`` on the
                quantised activations; bf16 ``F.linear`` on the weight
                already dequantised, or on the host-indexed view ``w[li]``),
                beside ``bound_ms``: the larger of the
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
-               the slab decode, the indexed linear, w8a16, short attention
-               and the segment kernels also repeated bit for bit, the
-               first four with their launch geometry; then ("[plans]"
+               the slab decode, the indexed linear, w8a16, short attention,
+               the flash dq and dk/dv and the segment kernels also repeated
+               bit for bit, all but the last with their launch geometry;
+               then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
-               of w8a16 (token tile, K split) at its six main-path shapes
-               and of short attention (64 or 128 query rows a block) at its
-               two, each against the twin and timed beside the library
-               call: the tables ``indexed_linear.plan``,
-               ``quant_matmul.plan`` and ``short_attention.plan`` are read
-               from;
+               of w8a16 (token tile, K split) at its six main-path shapes,
+               of short attention (64 or 128 query rows a block) at its
+               two and of the flash dq and dk/dv (64 or 128 rows a block,
+               ring of 2-4) at the training step's, each against the twin
+               and timed (w8a16 and the indexed linear beside the library
+               call): the tables ``indexed_linear.plan``,
+               ``quant_matmul.plan``, ``short_attention.plan`` and
+               ``flash_attention.plan`` are read from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -186,19 +191,20 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def device_ms(fn, inner: int = 10, n: int = 25) -> float:
+def device_ms(fn, inner: int = 10, n: int = 25, stream=None) -> float:
     """Device time of one call: ``inner`` calls captured in a CUDA graph,
     replayed ``n`` times between CUDA events; the median over ``inner``.
     The graph removes the host's launch gaps, which would otherwise be
-    counted for kernels shorter than their launch overhead."""
-    side = torch.cuda.Stream()
+    counted for kernels shorter than their launch overhead.  The warm-up
+    and the capture run on ``stream`` (a new side stream by default)."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture stream
+    with torch.cuda.stream(side):  # warm-up off the default stream
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(inner):
             fn()
     graph.replay()
@@ -215,8 +221,8 @@ def device_ms(fn, inner: int = 10, n: int = 25) -> float:
 
 def event_ms(fn, n: int = 10) -> float:
     """Device time of one call between CUDA events, averaged over ``n``
-    calls after a warm-up; for calls a CUDA graph cannot capture (autograd's
-    backward), launch gaps included."""
+    calls after a warm-up; for calls a CUDA graph cannot capture (a host
+    synchronisation inside), launch gaps included."""
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -226,6 +232,37 @@ def event_ms(fn, n: int = 10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def sdpa_backward_ms(q, k, v, mask, dout, n_heads: int) -> tuple[float, str]:
+    """Device time of the library's backward beside dq and dk/dv: autograd
+    through one ``scaled_dot_product_attention`` call (the same mask),
+    timed by :func:`device_ms`.  Autograd runs a backward on its forward's
+    stream, so the forward, the warm-up and the capture share one side
+    stream.  Returns the time and the SDPA backend that served it
+    (``torch._fused_sdp_choice``) with the backward's largest device
+    kernels (profiler, one call)."""
+    from torch.nn.attention import SDPBackend
+
+    heads = lambda t: t.unflatten(-1, (n_heads, -1)).transpose(1, 2)  # noqa: E731
+    choice = torch._fused_sdp_choice(heads(q), heads(k), heads(v), attn_mask=mask)
+    backend = next((b.name for b in SDPBackend.__members__.values() if int(b) == choice),
+                   str(choice))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out, grad = sdpa(*leaves, mask, n_heads), heads(dout)
+    step = lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)  # noqa: E731
+    ms = device_ms(step, stream=side)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        with torch.cuda.stream(side):
+            step()
+        side.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    return ms, f"{backend}: {', '.join(_short(e.key) for e in kernels[:3])}"
 
 
 # H100 SXM (NVIDIA data sheet, dense rates): HBM bytes/s and peak operations/s by type
@@ -416,19 +453,16 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         ref_out, ref_lse = fa.flash_forward_ref(q, k, v, valid, H, hd)
         dq, dk, dv = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
         rq, rk, rv = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
+        again = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+        twin_again = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
         torch.cuda.synchronize()
-        delta = (dout.float() * out.float()).reshape(bs, L, H, hd).sum(-1)
+        delta = fa.row_delta(out, dout, H, hd)
         shape = f"({bs},{L},{D}) H{H} hd{hd} invalid{n_invalid}"
         plain_bwd = device_ms(lambda: fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd))
         allowed = _allowed_causal(valid)[:, None]
         pairs = allowed.sum().item()
-        # the library's backward: autograd through one SDPA call
-        lq, lk, lv = (t.detach().clone().requires_grad_() for t in (q, k, v))
-        lib_out = sdpa(lq, lk, lv, allowed, H)
-        lib_dout = dout.unflatten(-1, (H, hd)).transpose(1, 2)
-        lib_bwd = event_ms(lambda: torch.autograd.grad(lib_out, (lq, lk, lv), lib_dout,
-                                                       retain_graph=True))
-        del lib_out
+        lib_bwd, backend = sdpa_backward_ms(q, k, v, allowed, dout, H)
+        bplan = fa.plan(bs, L, H, hd, _build.sm_count(q.device))
         rows.append(dict(
             kernel="flash_attention_fwd", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(out, ref_out), max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
@@ -441,8 +475,12 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         rows.append(dict(
             kernel="flash_attention_dq", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(dq, rq), max_abs_err=(dq.float() - rq.float()).abs().max().item(),
+            deterministic=bool(torch.equal(again[0], dq)),
+            twin_deterministic=bool(torch.equal(twin_again[0], rq)),
+            geometry=f"{H} heads x {bs} batch x {len(fa.query_tiles(L, bplan.dq.rows))} query "
+                     f"tiles of {bplan.dq.rows} rows, a ring of {bplan.dq.stages}",
             ms=device_ms(lambda: fa.flash_dq(q, k, v, dout, lse, delta, valid, H, hd)),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
+            plain_ms=plain_bwd, library_ms=lib_bwd, library_backend=backend,
             **bound(nbytes(q, k, v, dout, lse, delta, valid, dq), 6 * D * pairs, "bf16"),
         ))
         rows.append(dict(
@@ -450,10 +488,20 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             rel=max(rel_err(dk, rk), rel_err(dv, rv)),
             max_abs_err=max((dk.float() - rk.float()).abs().max().item(),
                             (dv.float() - rv.float()).abs().max().item()),
+            deterministic=bool(torch.equal(again[1], dk) and torch.equal(again[2], dv)),
+            twin_deterministic=bool(torch.equal(twin_again[1], rk)
+                                    and torch.equal(twin_again[2], rv)),
+            geometry=f"{H} heads x {bs} batch x {len(fa.key_tiles(L, bplan.dkv.rows))} key "
+                     f"tiles of {bplan.dkv.rows} rows, a ring of {bplan.dkv.stages}",
             ms=device_ms(lambda: fa.flash_dkv(q, k, v, dout, lse, delta, valid, H, hd)),
-            plain_ms=plain_bwd, library_ms=lib_bwd,
+            plain_ms=plain_bwd, library_ms=lib_bwd, library_backend=backend,
             **bound(nbytes(q, k, v, dout, lse, delta, valid, dk, dv), 8 * D * pairs, "bf16"),
         ))
+        pair_ms = rows[-2]["ms"] + rows[-1]["ms"]
+        print(f"[kernels] flash backward {shape}: dq {rows[-2]['ms']:.4f} + dk/dv "
+              f"{rows[-1]['ms']:.4f} = {pair_ms:.4f} ms against one SDPA backward {lib_bwd:.4f} "
+              f"ms ({backend}; device time) and the plain backward {plain_bwd:.4f} ms: "
+              f"{pair_ms / lib_bwd:.2f}x the library")
     for Bf, H, C in [(TRAIN_BS * 10, 1, 48), (TRAIN_BS * 10, 1, 3)]:
         xl, xr, gout = (torch.randn(Bf, 240, 64, H * C, generator=g).to(dev, torch.bfloat16)
                         for _ in range(3))
@@ -556,7 +604,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
               f"{'ok' if ok else 'FAIL'}; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) (device time per "
               "call, median of 25 graph replays of 10 calls; the plain and library times of dq "
-              "and dk/dv are the whole backward's, the library's between events)")
+              "and dk/dv are the whole backward's)")
         if not ok:
             failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']} "
                             f"exact {r.get('exact')} deterministic {r.get('deterministic')}")
@@ -746,13 +794,62 @@ def _short_attention_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+def _flash_backward_plans(dev, failures: list) -> list[dict]:
+    """Every plan of the two flash backward kernels (rows a block: one or
+    two consumer warpgroups; ring depth) at the training step's (8, 601,
+    768) H12 hd64, every token valid: agreement with the twin and device
+    time, ``flash_attention.plan``'s choice marked."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(10)
+    bs, L, H, hd = TRAIN_BS, TRAIN_TOKENS, 12, 64
+    D = H * hd
+    q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16)
+               for _ in range(3))
+    dout = torch.randn(bs, L, D, generator=g).to(dev, torch.bfloat16)
+    valid = torch.ones(bs, L, dtype=torch.int32, device=dev)
+    out, lse = fa.flash_forward(q, k, v, valid, H, hd)
+    delta = fa.row_delta(out, dout, H, hd)
+    refs = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
+    chosen = fa.plan(bs, L, H, hd, _build.sm_count(dev))
+    res = []
+    for kernel, fn, tiles in (("dq", fa.flash_dq, fa.query_tiles),
+                              ("dkv", fa.flash_dkv, fa.key_tiles)):
+        timed = []
+        for p in fa.plans(kernel, hd):
+            both = chosen._replace(**{kernel: p})
+            with mock.patch.object(fa, "plan", lambda *a, both=both: both):
+                got = fn(q, k, v, dout, lse, delta, valid, H, hd)
+                ms = device_ms(lambda: fn(q, k, v, dout, lse, delta, valid, H, hd))
+            torch.cuda.synchronize()
+            got = (got,) if kernel == "dq" else got
+            want = refs[:1] if kernel == "dq" else refs[1:]
+            rel = max(rel_err(a, b) for a, b in zip(got, want))
+            blocks = H * bs * len(tiles(L, p.rows))
+            timed.append(dict(rows=p.rows, stages=p.stages, blocks=blocks, ms=ms, rel=rel,
+                              chosen=p == getattr(chosen, kernel)))
+            if not rel <= REL_TOL:
+                failures.append(f"flash {kernel} plan {tuple(p)} at ({bs}, {L}): rel {rel}")
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] flash_attention_{kernel} ({bs}, {L}, {D}) H{H} hd{hd}: "
+              + "; ".join(f"{r['rows']} rows a block, ring of {r['stages']}, {r['blocks']} "
+                          f"blocks {r['ms']:.4f}{' (plan)' if r['chosen'] else ''}"
+                          for r in timed)
+              + f"; max rel {max(r['rel'] for r in timed):.1e}")
+        res.append(dict(kernel=kernel, bs=bs, L=L, plans=timed))
+    return res
+
+
 def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
-    ``quant_matmul.plan`` and ``short_attention.plan`` are read from."""
+    ``quant_matmul.plan``, ``short_attention.plan`` and
+    ``flash_attention.plan`` are read from."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
-                short_attention=_short_attention_plans(dev, failures))
+                short_attention=_short_attention_plans(dev, failures),
+                flash_backward=_flash_backward_plans(dev, failures))
 
 
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:

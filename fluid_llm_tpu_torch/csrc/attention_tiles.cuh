@@ -1,7 +1,7 @@
 // Tile geometry and helpers shared by the attention kernels
 // (exact_attention.cu: forward, with or without the row logsumexp;
-// flash_attention.cu: the dq and dk/dv backward kernels;
-// decode_attention.cu: new queries against the streaming slab cache).
+// decode_attention.cu: new queries against the streaming slab cache;
+// short_attention.cu takes its mask rule).
 //
 // q/k/v/dO are (bs, L, H*hd) bf16 with a row stride per tensor: element
 // (b, t, h, d) sits at (b*L + t)*row_stride + h*hd + d.  A block works on

@@ -1,9 +1,10 @@
 // Backward of the causal, key-valid attention: dq, and dk/dv, flash-2 style.
 //
 // Replaces the TPU kernels fluid_llm_tpu/ops/flash_attention.py:_dq_kernel
-// and :_dkv_kernel (Pallas, grid (batch*heads, q-blocks, k-blocks) with the
-// sum carried in VMEM scratch across the sequential k/q grid axis).  The
-// forward that writes lse is flash_attention_fwd in exact_attention.cu.
+// and :_dkv_kernel, both launched by _flash_backward (Pallas, grid
+// (batch*heads, q-blocks, k-blocks) with the sum carried in VMEM scratch
+// across the sequential k/q grid axis).  The forward that writes lse is
+// flash_attention_fwd in exact_attention.cu.
 //
 // Math (s_ij = scale * q_i.k_j; allowed = causal AND key-valid, diagonal
 // always on; lse_i and delta_i = dO_i.O_i per query row):
@@ -13,388 +14,622 @@
 //   dq_i  = scale * sum_j ds_ij k_j     (keys up to the diagonal)
 //   dk_j  = scale * sum_i ds_ij q_i     (queries from the diagonal down)
 //   dv_j  =         sum_i p_ij dO_i
-// Invalid keys still get dk/dv from their own row: the forced diagonal.
+// p and ds are rounded to bf16 once each, as tensor-core operands; every
+// sum is f32.  Invalid keys still get dk/dv from their own row: the forced
+// diagonal.
 //
 // Layout: q/k/v/dO are (bs, L, H*hd) bf16 read in place through row strides
-// (as in the forward); dq/dk/dv are written the same way; lse is f32
-// (bs, H, L) and delta f32 (bs, L, H).  Rows and keys at or past L are
-// zero-filled on load, masked out of p, and never written.
+// (training hands q, k and v over as column slices of the projections);
+// dq/dk/dv are written the same way; lse and delta are f32 (bs, H, L), so a
+// tile's statistics are one contiguous run.  Rows and keys at or past L are
+// masked out of p and never written.
 //
-// What bounds it on an H100: at the training geometry (bs 8, L 601, H 12,
-// hd 64) one layer's backward is ~4 x 2 x 8 x 12 x 601^2 / 2 x 64 ~= 8.9
-// GFLOP over ~37 MB, i.e. tensor-core bound in principle, but at WMMA
-// (mma.sync) rates and 960 blocks of 4 warps it is latency bound in
-// practice.  Design: the TPU kernels' sequential grid axis becomes a loop
-// inside the block.  dq: one block per (64-query tile, head, batch) walks
-// the key tiles up to the diagonal; dk/dv: one block per (64-key tile,
-// head, batch) walks the query tiles from the diagonal down.  Each warp
-// owns 16 rows of its block's tile: the dk/dv kernel computes S^T = K Q^T
-// and dP^T = V dO^T so that a warp's rows are its own keys, and neither
-// kernel needs more than warp synchronisation between its products.  All
-// products run on the tensor cores in bf16 with f32 accumulators; p and ds
-// are rounded to bf16 once, as their A operands.  Accumulators stay in
-// registers (WMMA fragments) across the loop; nothing is atomic.
-// wgmma/TMA and software pipelining are later work.
+// What bounds it on an H100: dq is three products per (query tile, key
+// tile) pair, dk/dv four.  At the training geometry (bs 8, L 601, H 12,
+// hd 64) that is ~6.7 and ~8.9 GFLOP (7 and 9 us at 989 TFLOP/s) over ~37
+// and ~45 MB (11 and 13 us at 3.35 TB/s): bytes bound on paper.  In
+// practice each 64-row tile step is a chain (copy, two products, the
+// elementwise p/ds, one or two more products), so the time is the issue of
+// that chain over ~5 300 tile steps a kernel and how well the blocks of
+// one SM overlap their chains.
+//
+// Design (Hopper: TMA, mbarriers, wgmma; csrc/hopper.cuh):
+// - Two kernels, one per TPU kernel, no atomics: dq, dk and dv are each
+//   written once by one block, so every call repeats bit for bit.
+// - dk/dv: a block takes 64 keys of one (batch, head) per consumer
+//   warpgroup (1 or 2: ops/flash_attention.plan).  Its K and V tiles come
+//   once by TMA; a producer warp streams Q and dO 64-row tiles from the
+//   causal frontier down, with the tile's lse and delta, through a ring of
+//   2-4 stages on full/empty mbarriers.  Each step is four wgmma products
+//   and no score touches shared memory:
+//     S^T = K Q^T (A: K, B: Q, both K-major from shared memory) -> P^T in
+//     registers (mask, exp2, bf16); dV += P^T dO (A: P^T from registers,
+//     B: dO MN-major); dP^T = V dO^T (K-major) -> dS^T = P^T (dP^T - delta)
+//     in registers; dK += dS^T Q (A: registers, B: Q MN-major).
+//   The accumulator layout of a m64n64 product is the A fragment of the
+//   next, so P and dS go from one product to the next without a store.
+// - dq: a block takes 64 query rows per consumer warpgroup; Q, dO, lse and
+//   delta come once; K and V 64-key tiles (with the keys' validity as a
+//   bit mask) stream up to the diagonal through the same kind of ring.
+//   S = Q K^T and dP = dO V^T run together; dS in registers; dQ += dS K
+//   (B: K MN-major).
+// - Blocks of the longest causal walks start first (the last query tiles
+//   for dq, the first key tiles for dk/dv), so the short walks fill the
+//   tail.  The epilogue stages the bf16 result through the warpgroup's own
+//   (no longer read) operand tiles and writes 16-byte rows.
+// - Every product of a tile step is issued and waited for inside the step,
+//   with no branch while one is in flight: ptxas serialises every wgmma of
+//   a kernel (warning C7518) where an in-flight product meets a branch, a
+//   short-circuit mask or a loop edge.  The warpgroups of the SM's blocks
+//   (two a SM at 64 rows) overlap each other's chains instead.
+// - Head dim 32 reads 64-column boxes (the next head's columns, or zeros
+//   past the last head) and contracts over its own 32 only; the extra
+//   output columns are never written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
+#include <stdint.h>
 
-#include "attention_tiles.cuh"
+#include "hopper.cuh"
 
-using namespace nvcuda;
-using namespace attn;
+using namespace hopper;
 
 namespace {
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int T = 64;             // rows of a tile: queries or keys
+constexpr int BOX = 64 * 64 * 2;  // one 64-row x 64-column bf16 box: 8 KB
+constexpr int MAX_STAGES = 4;
+constexpr float LOG2E = 1.4426950408889634f;
 
-// Shared memory of both kernels: two row tiles of the block's own side (a,
-// b: Q and dO for dq; K and V for dk/dv), two tiles walked in the loop (c,
-// d), two f32 product tiles, two bf16 operand tiles, per-row statistics and
-// key validity, and an f32 staging tile for the result.
+// 64-column boxes of a row tile (head dim 32 takes one, half of it read)
 template <int HD>
-struct Layout {
-  static constexpr int QLD = qld<HD>();
-  static constexpr int OLD = HD + 4;
-  static constexpr size_t tile = round128(sizeof(__nv_bfloat16) * 64 * QLD);
-  static constexpr size_t a = 0;
-  static constexpr size_t b = a + tile;
-  static constexpr size_t c = b + tile;
-  static constexpr size_t d = c + tile;
-  static constexpr size_t s = d + tile;
-  static constexpr size_t dp = s + round128(sizeof(float) * 64 * SLD);
-  static constexpr size_t p = dp + round128(sizeof(float) * 64 * SLD);
-  static constexpr size_t ds = p + round128(sizeof(__nv_bfloat16) * 64 * PLD);
-  static constexpr size_t lse = ds + round128(sizeof(__nv_bfloat16) * 64 * PLD);
-  static constexpr size_t delta = lse + round128(sizeof(float) * 64);
-  static constexpr size_t kvalid = delta + round128(sizeof(float) * 64);
-  static constexpr size_t out = kvalid + round128(sizeof(int) * 64);
-  static constexpr size_t bytes = out + round128(sizeof(float) * 64 * OLD);
+__host__ __device__ constexpr int n_boxes() {
+  return HD <= 64 ? 1 : HD / 64;
+}
+
+// Shared memory from a 1024-byte aligned base: the block's resident tiles
+// (two of them, WG 64-row tiles each), the ring (two streamed tiles a
+// stage), `stat_bytes` a stage of per-row data, then the mbarriers (the
+// resident tiles', and a full and an empty one a stage).
+template <int HD, int WG, int STAT_BYTES>
+struct Smem {
+  static constexpr int tile = n_boxes<HD>() * BOX;
+  static constexpr int a = 0;  // Q (dq) or K (dk/dv)
+  static constexpr int b = a + WG * tile;  // dO (dq) or V (dk/dv)
+  static constexpr int ring = b + WG * tile;
+  static constexpr int stage = 2 * tile;  // K, V (dq) or Q, dO (dk/dv)
+  static __host__ __device__ int stats(int stages) { return ring + stages * stage; }
+  static __host__ __device__ int bars(int stages) { return stats(stages) + stages * STAT_BYTES; }
+  static __host__ __device__ int bytes(int stages) {
+    return bars(stages) + 8 * (1 + 2 * MAX_STAGES) + TILE_ALIGN;
+  }
 };
 
-// dst (16 x 64 f32, row stride SLD) = rows(A) . rows(B)^T over HD, where A
-// is held as HD/16 fragments and B is a (64, HD) bf16 tile in shared memory.
+// the consumer warpgroup's named barrier (0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[c] (64 x 64, m64n64 layout, c = 64-column box) += A (64 x 64 bf16
+// fragments in registers) . the MN-major tile at `tile` (64 rows along K)
+template <int NB>
+__device__ __forceinline__ void product_rs(float (&acc)[NB][32], uint32_t (&a)[4][4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) pin(acc[c]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pin(a[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      Wgmma<64>::rs<1>(acc[c], a[kk], sw128_mn_desc(tile + c * BOX + kk * 2048));
+  wgmma_commit();
+}
+
+// d (64 x 64) = A B^T over HD, A and B both K-major 64-row tiles; issued
+// and committed as one group, not waited for
 template <int HD>
-__device__ __forceinline__ void rows_dot_tile(float* dst, const FragA* af,
-                                              const __nv_bfloat16* tile) {
-  constexpr int QLD = qld<HD>();
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
 #pragma unroll
-  for (int n = 0; n < 64 / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  pin(d);
+  wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, tile + n * 16 * QLD + kk * 16, QLD);
-      wmma::mma_sync(acc, af[kk], bf, acc);
+  for (int kk = 0; kk < HD / 16; ++kk)
+    Wgmma<64>::ss(d, sw128_desc(a + (kk / 4) * BOX) + 2 * (kk % 4),
+                  sw128_desc(b + (kk / 4) * BOX) + 2 * (kk % 4));
+  wgmma_commit();
+}
+
+// the calling thread is done with the ring stage `item` has (every consumer
+// thread arrives: no branch while a product may be in flight)
+__device__ __forceinline__ void release(uint32_t empty, int item, int stages) {
+  mbar_arrive(empty + 8 * (item % stages));
+}
+
+// Write the warpgroup's 64 x HD f32 accumulator, times `mul`, as bf16 rows
+// row0.. of dst (row stride rs, rows at or past `rows` skipped), staged in
+// the 128-byte swizzle through `stage` (the warpgroup's own tile, which no
+// product reads any more).
+template <int HD>
+__device__ __forceinline__ void store_tile(float (&acc)[n_boxes<HD>()][32], float mul,
+                                           unsigned char* stage, int wg, __nv_bfloat16* dst,
+                                           long long rs, int row0, int rows) {
+  constexpr int NB = n_boxes<HD>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // acc[c][4j + 2hh + e] is row 16 warp + g + 8hh, column 64c + 8j + 2t + e
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = warp * 16 + g + 8 * hh;
+        *reinterpret_cast<uint32_t*>(stage + c * BOX + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[c][4 * j + 2 * hh] * mul, acc[c][4 * j + 2 * hh + 1] * mul);
+      }
+  wg_sync(wg);
+  for (int idx = threadIdx.x & 127; idx < 64 * NB * 8; idx += 128) {
+    const int r = idx / (NB * 8), c = idx / 8 % NB, cc = idx % 8;
+    if (64 * c + 8 * cc >= HD || row0 + r >= rows) continue;
+    *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + 64 * c + 8 * cc) =
+        *reinterpret_cast<const uint4*>(stage + c * BOX + r * 128 + ((cc ^ (r & 7)) << 4));
+  }
+}
+
+// ---------------------------------------------------------------- dk/dv
+
+// a stage's statistics: lse * log2(e) and delta of its 64 query rows
+template <int HD, int WG>
+using DkvSmem = Smem<HD, WG, 2 * T * 4>;
+
+template <int HD, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, (HD <= 64 && WG == 1) ? 2 : 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const int* __restrict__ valid,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int L,
+                 int stages, long long dk_rs, long long dv_rs, float scale) {
+  using S = DkvSmem<HD, WG>;
+  constexpr int NB = n_boxes<HD>();
+  constexpr int CONSUMERS = WG * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t kv_bar = base + S::bars(stages), full = kv_bar + 8,
+                 empty = full + 8 * MAX_STAGES;
+  float* const stats = reinterpret_cast<float*>(smem + S::stats(stages));
+
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int k0 = blockIdx.z * T * WG;  // the first key tiles walk the most queries: first
+  const int qt0 = k0 / T;              // the first query tile that sees a key of the block
+  const int n_items = (L + T - 1) / T - qt0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long bh = (long long)b * H + h;
+
+  if (tid == 0) {
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 32);               // the copy warp's lanes, lane 0 with the bytes
+      mbar_init(empty + 8 * s, CONSUMERS);  // every consumer thread
     }
-    wmma::store_matrix_sync(dst + n * 16, acc, SLD, wmma::mem_row_major);
+    mbar_init_fence();
   }
-}
+  __syncthreads();
 
-// acc (16 x HD, HD/16 fragments) += op (16 x 64 bf16, row stride PLD) . tile
-// (64 x HD bf16 in shared memory).
-template <int HD>
-__device__ __forceinline__ void accumulate(FragC* acc, const __nv_bfloat16* op,
-                                           const __nv_bfloat16* tile) {
-  constexpr int QLD = qld<HD>();
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA af;
-    wmma::load_matrix_sync(af, op + kk * 16, PLD);
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-      FragBRow bf;
-      wmma::load_matrix_sync(bf, tile + kk * 16 * QLD + n * 16, QLD);
-      wmma::mma_sync(acc[n], af, bf, acc[n]);
+  if (warp == CONSUMERS / 32) {  // the copies
+    const int row0 = b * L, col0 = h * HD;
+    if (lane == 0) {
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      prefetch_map(&do_map);
+      mbar_expect(kv_bar, 2 * WG * S::tile);
+      for (int w = 0; w < WG; ++w)
+        for (int c = 0; c < NB; ++c) {
+          tma_2d(base + S::a + (w * NB + c) * BOX, &k_map, kv_bar, col0 + 64 * c, row0 + k0 + T * w);
+          tma_2d(base + S::b + (w * NB + c) * BOX, &v_map, kv_bar, col0 + 64 * c, row0 + k0 + T * w);
+        }
     }
-  }
-}
-
-// Write a block's 64 x HD f32 fragments, times `mul`, as bf16 rows t0.. of
-// dst (row stride rs), skipping rows at or past L.
-template <int HD>
-__device__ __forceinline__ void store_rows(const FragC* acc, float* stage, float mul,
-                                           __nv_bfloat16* dst, long long rs, int t0, int L) {
-  constexpr int OLD = HD + 4;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n)
-    wmma::store_matrix_sync(stage + warp * 16 * OLD + n * 16, acc[n], OLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < 64 * HD; e += THREADS) {
-    const int r = e / HD;
-    const int t = t0 + r;
-    if (t < L) dst[(long long)t * rs + e % HD] = __float2bfloat16(stage[r * OLD + e % HD] * mul);
-  }
-  __syncthreads();
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ valid, __nv_bfloat16* __restrict__ dq, int L,
-                long long q_rs, long long k_rs, long long v_rs, long long do_rs,
-                long long dq_rs, float scale) {
-  using Lay = Layout<HD>;
-  constexpr int QLD = Lay::QLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + Lay::a);
-  __nv_bfloat16* sdo = reinterpret_cast<__nv_bfloat16*>(smem + Lay::b);
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::c);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + Lay::d);
-  float* ss = reinterpret_cast<float*>(smem + Lay::s);
-  float* sdp = reinterpret_cast<float*>(smem + Lay::dp);
-  __nv_bfloat16* sds = reinterpret_cast<__nv_bfloat16*>(smem + Lay::ds);
-  float* slse = reinterpret_cast<float*>(smem + Lay::lse);
-  float* sdelta = reinterpret_cast<float*>(smem + Lay::delta);
-  int* skv = reinterpret_cast<int*>(smem + Lay::kvalid);
-  float* sout = reinterpret_cast<float*>(smem + Lay::out);
-
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int q0 = qt * BQ;
-  const long long row0 = (long long)b * L;
-
-  load_tile<HD>(sq, q + row0 * q_rs + h * HD, q_rs, q0, L);
-  load_tile<HD>(sdo, dout + row0 * do_rs + h * HD, do_rs, q0, L);
-  if (tid < BQ) {
-    const int i = q0 + tid;
-    slse[tid] = i < L ? lse[((long long)b * H + h) * L + i] : 0.f;
-    sdelta[tid] = i < L ? delta[(row0 + i) * H + h] : 0.f;
-  }
-  __syncthreads();
-
-  FragA qf[HD / 16], dof[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sq + warp * 16 * QLD + kk * 16, QLD);
-    wmma::load_matrix_sync(dof[kk], sdo + warp * 16 * QLD + kk * 16, QLD);
-  }
-  FragC acc[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  float* s_w = ss + warp * 16 * SLD;
-  float* dp_w = sdp + warp * 16 * SLD;
-  __nv_bfloat16* ds_w = sds + warp * 16 * PLD;
-
-  for (int kt = 0; kt <= qt; ++kt) {  // key tiles up to the diagonal
-    const int k0 = kt * BK;
-    load_tile<HD>(sk, k + row0 * k_rs + h * HD, k_rs, k0, L);
-    load_tile<HD>(sv, v + row0 * v_rs + h * HD, v_rs, k0, L);
-    if (tid < BK) skv[tid] = (k0 + tid < L) ? valid[row0 + k0 + tid] : 0;
-    __syncthreads();
-
-    rows_dot_tile<HD>(s_w, qf, sk);    // S  = Q K^T    (this warp's 16 rows)
-    rows_dot_tile<HD>(dp_w, dof, sv);  // dP = dO V^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int row = warp * 16 + r;
-      const int i = q0 + row;
-#pragma unroll
-      for (int part = 0; part < 2; ++part) {
-        const int c = lane + 32 * part;
-        const bool ok = i < L && allowed(i, k0 + c, skv[c]);
-        const float p = ok ? __expf(s_w[r * SLD + c] * scale - slse[row]) : 0.f;
-        ds_w[r * PLD + c] = __float2bfloat16(p * (dp_w[r * SLD + c] - sdelta[row]));
+    for (int item = 0; item < n_items; ++item) {
+      const int s = item % stages, round = item / stages, q0 = (qt0 + item) * T;
+      if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+      float* st = stats + s * 2 * T;
+      for (int e = lane; e < T; e += 32) {
+        const int i = q0 + e;
+        st[e] = i < L ? lse[bh * L + i] * LOG2E : 0.f;
+        st[T + e] = i < L ? delta[bh * L + i] : 0.f;
+      }
+      __syncwarp();
+      const uint32_t bar = full + 8 * s;
+      if (lane == 0) {
+        const uint32_t dst = base + S::ring + s * S::stage;
+        mbar_expect(bar, S::stage);
+        for (int c = 0; c < NB; ++c) {
+          tma_2d(dst + c * BOX, &q_map, bar, col0 + 64 * c, row0 + q0);
+          tma_2d(dst + S::tile + c * BOX, &do_map, bar, col0 + 64 * c, row0 + q0);
+        }
+      } else {
+        mbar_arrive(bar);
       }
     }
-    __syncwarp();
-    accumulate<HD>(acc, ds_w, sk);  // dQ += dS K
-    __syncthreads();  // K/V tiles are overwritten next
-  }
-  store_rows<HD>(acc, sout, scale, dq + row0 * dq_rs + h * HD, dq_rs, q0, L);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ valid, __nv_bfloat16* __restrict__ dk,
-                 __nv_bfloat16* __restrict__ dv, int L, long long q_rs, long long k_rs,
-                 long long v_rs, long long do_rs, long long dk_rs, long long dv_rs,
-                 float scale) {
-  using Lay = Layout<HD>;
-  constexpr int QLD = Lay::QLD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem + Lay::a);
-  __nv_bfloat16* sv = reinterpret_cast<__nv_bfloat16*>(smem + Lay::b);
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + Lay::c);
-  __nv_bfloat16* sdo = reinterpret_cast<__nv_bfloat16*>(smem + Lay::d);
-  float* ss = reinterpret_cast<float*>(smem + Lay::s);
-  float* sdp = reinterpret_cast<float*>(smem + Lay::dp);
-  __nv_bfloat16* sp = reinterpret_cast<__nv_bfloat16*>(smem + Lay::p);
-  __nv_bfloat16* sds = reinterpret_cast<__nv_bfloat16*>(smem + Lay::ds);
-  float* slse = reinterpret_cast<float*>(smem + Lay::lse);
-  float* sdelta = reinterpret_cast<float*>(smem + Lay::delta);
-  int* skv = reinterpret_cast<int*>(smem + Lay::kvalid);
-  float* sout = reinterpret_cast<float*>(smem + Lay::out);
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, H = gridDim.y;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int k0 = kt * BK;
-  const int nq = (L + BQ - 1) / BQ;
-  const long long row0 = (long long)b * L;
-
-  load_tile<HD>(sk, k + row0 * k_rs + h * HD, k_rs, k0, L);
-  load_tile<HD>(sv, v + row0 * v_rs + h * HD, v_rs, k0, L);
-  if (tid < BK) skv[tid] = (k0 + tid < L) ? valid[row0 + k0 + tid] : 0;
-  __syncthreads();
-
-  FragA kf[HD / 16], vf[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    wmma::load_matrix_sync(kf[kk], sk + warp * 16 * QLD + kk * 16, QLD);
-    wmma::load_matrix_sync(vf[kk], sv + warp * 16 * QLD + kk * 16, QLD);
-  }
-  FragC dk_acc[HD / 16], dv_acc[HD / 16];
-#pragma unroll
-  for (int n = 0; n < HD / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
+    return;
   }
 
-  float* s_w = ss + warp * 16 * SLD;    // S^T: this warp's 16 keys x 64 queries
-  float* dp_w = sdp + warp * 16 * SLD;  // dP^T
-  __nv_bfloat16* p_w = sp + warp * 16 * PLD;
-  __nv_bfloat16* ds_w = sds + warp * 16 * PLD;
-
-  for (int qt = kt; qt < nq; ++qt) {  // query tiles from the diagonal down
-    const int q0 = qt * BQ;
-    load_tile<HD>(sq, q + row0 * q_rs + h * HD, q_rs, q0, L);
-    load_tile<HD>(sdo, dout + row0 * do_rs + h * HD, do_rs, q0, L);
-    if (tid < BQ) {
-      const int i = q0 + tid;
-      slse[tid] = i < L ? lse[((long long)b * H + h) * L + i] : 0.f;
-      sdelta[tid] = i < L ? delta[(row0 + i) * H + h] : 0.f;
-    }
-    __syncthreads();
-
-    rows_dot_tile<HD>(s_w, kf, sq);    // S^T  = K Q^T
-    rows_dot_tile<HD>(dp_w, vf, sdo);  // dP^T = V dO^T
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const int j = k0 + warp * 16 + r;
-      const int kv = skv[warp * 16 + r];
+  // the products: warpgroup wg takes keys k0 + 64 wg ..; S^T, P^T, dP^T and
+  // dS^T have the keys as rows and the stage's queries as columns
+  const int wg = WG == 1 ? 0 : warp / 4, g = lane >> 2, t = lane & 3;
+  const int wk0 = k0 + T * wg;
+  const int j0 = wk0 + (warp % 4) * 16 + g;  // this thread's keys j0 and j0 + 8
+  int kvalid[2];
 #pragma unroll
-      for (int part = 0; part < 2; ++part) {
-        const int c = lane + 32 * part;
-        const int i = q0 + c;
-        const bool ok = i < L && allowed(i, j, kv);
-        const float p = ok ? __expf(s_w[r * SLD + c] * scale - slse[c]) : 0.f;
-        p_w[r * PLD + c] = __float2bfloat16(p);
-        ds_w[r * PLD + c] = __float2bfloat16(p * (dp_w[r * SLD + c] - sdelta[c]));
+  for (int hh = 0; hh < 2; ++hh)
+    kvalid[hh] = j0 + 8 * hh < L ? valid[(long long)b * L + j0 + 8 * hh] : 0;
+  const float scale2 = scale * LOG2E;  // exp(x) = exp2(x log2 e)
+  const uint32_t k_tile = base + S::a + wg * S::tile, v_tile = base + S::b + wg * S::tile;
+  float dk_acc[NB][32], dv_acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
+  mbar_wait(kv_bar, 0);
+
+  for (int item = 0; item < n_items; ++item) {
+    const int s = item % stages, q0 = (qt0 + item) * T;
+    mbar_wait(full + 8 * s, (item / stages) & 1);
+    if (wk0 < L && q0 + T > wk0) {  // a query of the tile sees a key of this warpgroup
+      const uint32_t q_tile = base + S::ring + s * S::stage, do_tile = q_tile + S::tile;
+      const float* st = stats + s * 2 * T;
+      float sc[32], dp[32];
+      product_ss<HD>(sc, k_tile, q_tile);   // S^T = K Q^T
+      product_ss<HD>(dp, v_tile, do_tile);  // dP^T = V dO^T
+      wgmma_wait<1>();
+      pin(sc);
+      // sc[4jj + 2hh + e] is key j0 + 8hh, query q0 + 8jj + 2t + e
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * jj + 2 * t);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * jj + 2 * hh + e, qi = q0 + 8 * jj + 2 * t + e, kj = j0 + 8 * hh;
+            // bitwise, so that no branch runs while dP^T is in flight
+            const bool ok = (qi < L) & (kj <= qi) & ((kvalid[hh] != 0) | (kj == qi));
+            sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -(e ? l2.y : l2.x))) : 0.f;
+          }
+      }
+      // P^T's A fragments, k16 step kk (queries 16kk ..): accumulators 8kk .. 8kk + 7
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+      product_rs<NB>(dv_acc, pa, do_tile);  // dV += P^T dO
+      wgmma_wait<1>();                      // dP^T has landed (dV may still run)
+      pin(dp);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float2 d0 = *reinterpret_cast<const float2*>(st + T + 16 * kk + 2 * t);
+        const float2 d1 = *reinterpret_cast<const float2*>(st + T + 16 * kk + 8 + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float2 d = r < 2 ? d0 : d1;
+          da[kk][r] = pack_bf16(sc[i] * (dp[i] - d.x), sc[i + 1] * (dp[i + 1] - d.y));
+        }
+      }
+      product_rs<NB>(dk_acc, da, q_tile);  // dK += dS^T Q
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        pin(dk_acc[c]);
+        pin(dv_acc[c]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pin(pa[kk]);
+        pin(da[kk]);
       }
     }
-    __syncwarp();
-    accumulate<HD>(dv_acc, p_w, sdo);  // dV += P^T dO
-    accumulate<HD>(dk_acc, ds_w, sq);  // dK += dS^T Q
-    __syncthreads();  // Q/dO tiles are overwritten next
+    release(empty, item, stages);
   }
-  store_rows<HD>(dk_acc, sout, scale, dk + row0 * dk_rs + h * HD, dk_rs, k0, L);
-  store_rows<HD>(dv_acc, sout, 1.f, dv + row0 * dv_rs + h * HD, dv_rs, k0, L);
+
+  if (wk0 >= L) return;
+  const long long row0 = (long long)b * L;
+  store_tile<HD>(dk_acc, scale, smem + S::a + wg * S::tile, wg, dk + row0 * dk_rs + h * HD,
+                 dk_rs, wk0, L);
+  store_tile<HD>(dv_acc, 1.f, smem + S::b + wg * S::tile, wg, dv + row0 * dv_rs + h * HD, dv_rs,
+                 wk0, L);
+}
+
+// ------------------------------------------------------------------- dq
+
+// a stage's key validity: 64 bits
+template <int HD, int WG>
+using DqSmem = Smem<HD, WG, 8>;
+
+template <int HD, int WG>
+__global__ void __launch_bounds__(WG * 128 + 32, (HD <= 64 && WG == 1) ? 2 : 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                const float* __restrict__ delta, const int* __restrict__ valid,
+                __nv_bfloat16* __restrict__ dq, int L, int stages, long long dq_rs,
+                float scale) {
+  using S = DqSmem<HD, WG>;
+  constexpr int NB = n_boxes<HD>();
+  constexpr int CONSUMERS = WG * 128;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  const uint32_t base = smem_addr(smem);
+  const uint32_t q_bar = base + S::bars(stages), full = q_bar + 8, empty = full + 8 * MAX_STAGES;
+  uint32_t* const masks = reinterpret_cast<uint32_t*>(smem + S::stats(stages));
+
+  const int h = blockIdx.x, b = blockIdx.y, H = gridDim.x;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T * WG;  // the last queries walk the most keys: first
+  const int n_kt = (min(q0 + T * WG, L) - 1) / T + 1;    // key tiles up to the block's last query
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 32);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS / 32) {  // the copies
+    const int row0 = b * L, col0 = h * HD;
+    if (lane == 0) {
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
+      prefetch_map(&do_map);
+      mbar_expect(q_bar, 2 * WG * S::tile);
+      for (int w = 0; w < WG; ++w)
+        for (int c = 0; c < NB; ++c) {
+          tma_2d(base + S::a + (w * NB + c) * BOX, &q_map, q_bar, col0 + 64 * c, row0 + q0 + T * w);
+          tma_2d(base + S::b + (w * NB + c) * BOX, &do_map, q_bar, col0 + 64 * c, row0 + q0 + T * w);
+        }
+    }
+    for (int kt = 0; kt < n_kt; ++kt) {
+      const int s = kt % stages, round = kt / stages, k0 = kt * T;
+      if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+      const int j = k0 + lane;
+      const uint32_t lo = __ballot_sync(0xffffffffu, j < L && valid[row0 + j] != 0);
+      const uint32_t hi = __ballot_sync(0xffffffffu, j + 32 < L && valid[row0 + j + 32] != 0);
+      const uint32_t bar = full + 8 * s;
+      if (lane == 0) {
+        masks[2 * s] = lo;
+        masks[2 * s + 1] = hi;
+        const uint32_t dst = base + S::ring + s * S::stage;
+        mbar_expect(bar, S::stage);
+        for (int c = 0; c < NB; ++c) {
+          tma_2d(dst + c * BOX, &k_map, bar, col0 + 64 * c, row0 + k0);
+          tma_2d(dst + S::tile + c * BOX, &v_map, bar, col0 + 64 * c, row0 + k0);
+        }
+      } else {
+        mbar_arrive(bar);
+      }
+    }
+    return;
+  }
+
+  // the products: warpgroup wg takes query rows q0 + 64 wg ..
+  const int wg = WG == 1 ? 0 : warp / 4, g = lane >> 2, t = lane & 3;
+  const int wq0 = q0 + T * wg;
+  const int wg_kt = wq0 < L ? min(wq0 + T - 1, L - 1) / T : -1;  // its last key tile
+  const int i0 = wq0 + (warp % 4) * 16 + g;  // this thread's rows i0 and i0 + 8
+  const long long bh = (long long)b * H + h;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int i = i0 + 8 * hh;
+    lse2[hh] = i < L ? lse[bh * L + i] * LOG2E : 0.f;
+    dl[hh] = i < L ? delta[bh * L + i] : 0.f;
+  }
+  const float scale2 = scale * LOG2E;
+  const uint32_t q_tile = base + S::a + wg * S::tile, do_tile = base + S::b + wg * S::tile;
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
+  mbar_wait(q_bar, 0);
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % stages, k0 = kt * T;
+    mbar_wait(full + 8 * s, (kt / stages) & 1);
+    if (kt <= wg_kt) {
+      const uint32_t k_tile = base + S::ring + s * S::stage, v_tile = k_tile + S::tile;
+      float sc[32], dp[32];
+      product_ss<HD>(sc, q_tile, k_tile);   // S = Q K^T
+      product_ss<HD>(dp, do_tile, v_tile);  // dP = dO V^T
+      const uint32_t lo = masks[2 * s], hi = masks[2 * s + 1];
+      wgmma_wait<1>();
+      pin(sc);
+      // sc[4jj + 2hh + e] is row i0 + 8hh, key k0 + 8jj + 2t + e
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * t + (i & 1);
+        const bool bit = (((i >> 2) < 4 ? lo : hi) >> (c & 31)) & 1u;
+        const int row = i0 + 8 * hh, col = k0 + c;
+        // bitwise, so that no branch runs while dP is in flight; rows past L
+        // are computed, never written, and touch no other row
+        const bool ok = (row < L) & (col <= row) & (bit | (col == row));
+        sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -lse2[hh])) : 0.f;
+      }
+      wgmma_wait<0>();
+      pin(dp);
+      // dS's A fragments, k16 step kk (keys 16kk ..): accumulators 8kk .. 8kk + 7
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          const float d = dl[r & 1];
+          da[kk][r] = pack_bf16(sc[i] * (dp[i] - d), sc[i + 1] * (dp[i + 1] - d));
+        }
+      product_rs<NB>(acc, da, k_tile);  // dQ += dS K
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < NB; ++c) pin(acc[c]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) pin(da[kk]);
+    }
+    release(empty, kt, stages);
+  }
+
+  if (wq0 >= L) return;
+  store_tile<HD>(acc, scale, smem + S::a + wg * S::tile, wg,
+                 dq + (long long)b * L * dq_rs + h * HD, dq_rs, wq0, L);
+}
+
+// ----------------------------------------------------------------- launch
+
+// q, k, v, dO as (bs * L rows, H * hd columns) with each tensor's row
+// stride; 64 x 64 boxes in the 128-byte swizzle
+bool encode_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
+                 const long long (&strides)[4], int bs, int L, int n_heads, int head_dim) {
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)n_heads * head_dim, (cuuint64_t)bs * L};
+    const cuuint64_t rs[1] = {(cuuint64_t)strides[i] * 2};
+    const cuuint32_t box[2] = {64, 64};
+    if (!encode_bf16(&maps[i], ptrs[i], 2, dims, rs, box)) return false;
+  }
+  return true;
 }
 
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes, bool& done) {
+int prepare(Kernel kernel, int max_bytes, bool& done) {
   if (done) return 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)bytes);
+  if (max_bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, max_bytes);
   if (e != cudaSuccess) return (int)e;
   done = true;
   return 0;
 }
 
-template <int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, const void* valid, void* dq, int bs, int L, int n_heads,
-              long long q_rs, long long k_rs, long long v_rs, long long do_rs, long long dq_rs,
-              float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<HD>::bytes;
+template <int HD, int WG>
+int launch_dq(const CUtensorMap (&maps)[4], const void* lse, const void* delta, const void* valid,
+              void* dq, int bs, int L, int n_heads, long long dq_rs, float scale, int stages,
+              cudaStream_t stream) {
+  using S = DqSmem<HD, WG>;
   static bool attr_set = false;
-  if (int e = set_smem(flash_dq_kernel<HD>, smem, attr_set)) return e;
-  dim3 grid((L + BQ - 1) / BQ, n_heads, bs);
-  flash_dq_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(valid), static_cast<__nv_bfloat16*>(dq), L, q_rs, k_rs, v_rs,
-      do_rs, dq_rs, scale);
+  if (int e = prepare(flash_dq_kernel<HD, WG>, S::bytes(MAX_STAGES), attr_set)) return e;
+  dim3 grid(n_heads, bs, (L + T * WG - 1) / (T * WG));
+  flash_dq_kernel<HD, WG><<<grid, WG * 128 + 32, S::bytes(stages), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(valid),
+      static_cast<__nv_bfloat16*>(dq), L, stages, dq_rs, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, const void* valid, void* dk, void* dv, int bs, int L,
-               int n_heads, long long q_rs, long long k_rs, long long v_rs, long long do_rs,
-               long long dk_rs, long long dv_rs, float scale, cudaStream_t stream) {
-  constexpr size_t smem = Layout<HD>::bytes;
+template <int HD, int WG>
+int launch_dkv(const CUtensorMap (&maps)[4], const void* lse, const void* delta,
+               const void* valid, void* dk, void* dv, int bs, int L, int n_heads,
+               long long dk_rs, long long dv_rs, float scale, int stages, cudaStream_t stream) {
+  using S = DkvSmem<HD, WG>;
   static bool attr_set = false;
-  if (int e = set_smem(flash_dkv_kernel<HD>, smem, attr_set)) return e;
-  dim3 grid((L + BK - 1) / BK, n_heads, bs);
-  flash_dkv_kernel<HD><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(valid), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), L, q_rs, k_rs, v_rs, do_rs, dk_rs, dv_rs, scale);
+  if (int e = prepare(flash_dkv_kernel<HD, WG>, S::bytes(MAX_STAGES), attr_set)) return e;
+  dim3 grid(n_heads, bs, (L + T * WG - 1) / (T * WG));
+  flash_dkv_kernel<HD, WG><<<grid, WG * 128 + 32, S::bytes(stages), stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(valid),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), L, stages, dk_rs, dv_rs,
+      scale);
   return (int)cudaGetLastError();
+}
+
+bool shape_ok(int bs, int L, int n_heads, int stages) {
+  return bs >= 1 && L >= 1 && n_heads >= 1 && stages >= 2 && stages <= MAX_STAGES;
 }
 
 }  // namespace
 
 // q/k/v/dout/dq: bf16 (bs, L, n_heads*head_dim) with row strides *_rs
-// (elements, multiples of 8; pointers 16-byte aligned); lse: f32 (bs,
-// n_heads, L); delta: f32 (bs, L, n_heads); valid: int32 (bs, L).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// (elements, multiples of 8; pointers 16-byte aligned); lse and delta: f32
+// (bs, n_heads, L); valid: int32 (bs, L).  rows: query rows a block (64 or
+// 128; 64 only at head_dim 32); stages: ring depth 2..4
+// (ops/flash_attention.plan).  Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, const void* valid,
                                   void* dq, int bs, int L, int n_heads, int head_dim,
                                   long long q_rs, long long k_rs, long long v_rs,
-                                  long long do_rs, long long dq_rs, float scale, void* stream) {
+                                  long long do_rs, long long dq_rs, float scale, int rows,
+                                  int stages, void* stream) {
+  if (!shape_ok(bs, L, n_heads, stages)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* const ptrs[4] = {q, k, v, dout};
+  const long long strides[4] = {q_rs, k_rs, v_rs, do_rs};
+  if (!encode_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch_dq<32>(q, k, v, dout, lse, delta, valid, dq, bs, L, n_heads, q_rs, k_rs, v_rs,
-                           do_rs, dq_rs, scale, s);
-    case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, valid, dq, bs, L, n_heads, q_rs, k_rs, v_rs,
-                           do_rs, dq_rs, scale, s);
-    case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, valid, dq, bs, L, n_heads, q_rs, k_rs,
-                            v_rs, do_rs, dq_rs, scale, s);
+  switch (head_dim * 1000 + rows) {
+    case 32064:
+      return launch_dq<32, 1>(maps, lse, delta, valid, dq, bs, L, n_heads, dq_rs, scale, stages, s);
+    case 64064:
+      return launch_dq<64, 1>(maps, lse, delta, valid, dq, bs, L, n_heads, dq_rs, scale, stages, s);
+    case 64128:
+      return launch_dq<64, 2>(maps, lse, delta, valid, dq, bs, L, n_heads, dq_rs, scale, stages, s);
+    case 128064:
+      return launch_dq<128, 1>(maps, lse, delta, valid, dq, bs, L, n_heads, dq_rs, scale, stages,
+                               s);
+    case 128128:
+      return launch_dq<128, 2>(maps, lse, delta, valid, dq, bs, L, n_heads, dq_rs, scale, stages,
+                               s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// As flash_attention_dq, writing dk and dv (bf16, row strides dk_rs, dv_rs).
+// As flash_attention_dq, writing dk and dv (bf16, row strides dk_rs,
+// dv_rs); rows: keys a block (64 or 128; 64 only at head_dim 32 and 128).
 extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, const void* dout,
                                    const void* lse, const void* delta, const void* valid,
                                    void* dk, void* dv, int bs, int L, int n_heads, int head_dim,
                                    long long q_rs, long long k_rs, long long v_rs,
                                    long long do_rs, long long dk_rs, long long dv_rs,
-                                   float scale, void* stream) {
+                                   float scale, int rows, int stages, void* stream) {
+  if (!shape_ok(bs, L, n_heads, stages)) return (int)cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  const void* const ptrs[4] = {q, k, v, dout};
+  const long long strides[4] = {q_rs, k_rs, v_rs, do_rs};
+  if (!encode_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 32:
-      return launch_dkv<32>(q, k, v, dout, lse, delta, valid, dk, dv, bs, L, n_heads, q_rs, k_rs,
-                            v_rs, do_rs, dk_rs, dv_rs, scale, s);
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, valid, dk, dv, bs, L, n_heads, q_rs, k_rs,
-                            v_rs, do_rs, dk_rs, dv_rs, scale, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, valid, dk, dv, bs, L, n_heads, q_rs,
-                             k_rs, v_rs, do_rs, dk_rs, dv_rs, scale, s);
+  switch (head_dim * 1000 + rows) {
+    case 32064:
+      return launch_dkv<32, 1>(maps, lse, delta, valid, dk, dv, bs, L, n_heads, dk_rs, dv_rs,
+                               scale, stages, s);
+    case 64064:
+      return launch_dkv<64, 1>(maps, lse, delta, valid, dk, dv, bs, L, n_heads, dk_rs, dv_rs,
+                               scale, stages, s);
+    case 64128:
+      return launch_dkv<64, 2>(maps, lse, delta, valid, dk, dv, bs, L, n_heads, dk_rs, dv_rs,
+                               scale, stages, s);
+    case 128064:
+      return launch_dkv<128, 1>(maps, lse, delta, valid, dk, dv, bs, L, n_heads, dk_rs, dv_rs,
+                                scale, stages, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

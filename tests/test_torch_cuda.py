@@ -34,7 +34,11 @@ every launch plan (token tile, K split; M 1 to 661, K 768 to 3072, a
 partial tile of weight rows, x a slice of a fused projection, repeats and
 graph replay) and short attention under both plans (64 or 128 query rows
 a block; L 1 to 1536, hd 64 and 128, rows that see only their forced
-diagonal, repeats).
+diagonal, repeats), and the flash dq and dk/dv under every plan (rows a
+block, ring depth; L 1 to 1536, hd 32 to 128, diagonal-only rows, q/k/v
+slices of one fused projection), repeating bit for bit, also in a graph.
+A gradient that is zero in exact arithmetic (dq and dk of rows that see
+only their diagonal) is held to rounding noise, 1e-4 of |dout|, instead.
 """
 
 from unittest import mock
@@ -107,19 +111,45 @@ def test_slot_attention_kernel_matches_twin(dev, dtype, Bf, X, Y, H, C):
     assert _rel(out, gf.slot_attention_ref(xl, xr, att, H, C)) <= tol
 
 
-@pytest.mark.parametrize("bs,L,H,hd,n_invalid", [
-    (8, 601, 12, 64, 0), (8, 601, 12, 64, 181), (2, 70, 2, 32, 13), (1, 300, 4, 128, 37),
-    (1, 5, 1, 64, 2),
-])
-def test_flash_kernels_match_twins(dev, bs, L, H, hd, n_invalid):
-    """Forward (out, lse) and backward (dq, dk, dv from the kernel's saved
-    state) at the training shape and odd ones: tails past a 64-row tile,
-    invalid front tokens, every head width."""
+def _flash_case(dev, bs, L, H, hd, n_invalid, fused):
+    """q, k, v (column slices of one fused projection where ``fused``), dout
+    and the validity with the first ``n_invalid`` keys invalid."""
     D = H * hd
     g = torch.Generator().manual_seed(L + hd)
-    q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16) for _ in range(3))
+    if fused:
+        qkv = (torch.randn(bs, L, 3 * D, generator=g) * 0.5).to(dev, torch.bfloat16)
+        q, k, v = qkv[..., :D], qkv[..., D:2 * D], qkv[..., 2 * D:]
+    else:
+        q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16)
+                   for _ in range(3))
     dout = torch.randn(bs, L, D, generator=g).to(dev, torch.bfloat16)
     valid = (torch.arange(L)[None] >= n_invalid).expand(bs, L).int().contiguous().to(dev)
+    return q, k, v, dout, valid
+
+
+def _backward_plans(hd):
+    """Pairs of dq and dk/dv plans covering every plan of each kernel."""
+    dq, dkv = fa.plans("dq", hd), fa.plans("dkv", hd)
+    return [fa.BackwardPlan(dq[i % len(dq)], dkv[i % len(dkv)])
+            for i in range(max(len(dq), len(dkv)))]
+
+
+@pytest.mark.parametrize("bs,L,H,hd,n_invalid,fused", [
+    (8, 601, 12, 64, 0, False), (8, 601, 12, 64, 181, False), (2, 70, 2, 32, 13, False),
+    (1, 300, 4, 128, 37, False), (1, 5, 1, 64, 2, False),
+    (1, 1, 2, 64, 0, True), (2, 63, 2, 32, 5, True), (1, 64, 2, 128, 0, False),
+    (2, 65, 3, 64, 1, True), (1, 128, 2, 64, 0, True), (2, 129, 2, 128, 3, True),
+    (1, 130, 3, 64, 64, True), (1, 601, 2, 128, 420, True), (1, 601, 4, 32, 0, True),
+    (1, 1536, 2, 64, 37, True), (1, 1536, 1, 128, 0, False),
+])
+def test_flash_kernels_match_twins(dev, bs, L, H, hd, n_invalid, fused):
+    """Forward (out, lse) and backward (dq, dk, dv from the kernel's saved
+    state) at the training shape and odd ones: L 1 to 1536 (tails past a
+    64-row tile), every head width, invalid front tokens (whose query rows
+    see only their forced diagonal; every row but one of a tile at 64),
+    q/k/v column slices of one fused projection; the backward under every
+    plan of each kernel (rows a block, ring depth)."""
+    q, k, v, dout, valid = _flash_case(dev, bs, L, H, hd, n_invalid, fused)
     before = (fa.flash_forward.launches, fa.flash_dq.launches, fa.flash_dkv.launches)
     out, lse = fa.flash_forward(q, k, v, valid, H, hd)
     grads = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
@@ -129,8 +159,54 @@ def test_flash_kernels_match_twins(dev, bs, L, H, hd, n_invalid):
     ref_out, ref_lse = fa.flash_forward_ref(q, k, v, valid, H, hd)
     assert _rel(out, ref_out) <= REL_TOL
     assert (lse - ref_lse).abs().max().item() <= 1e-4
-    for got, want in zip(grads, fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)):
-        assert _rel(got, want) <= REL_TOL
+    want = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
+    for got, w in zip(grads, want):
+        assert bool(torch.isfinite(got).all())
+        _assert_grad_close(got, w, dout)
+    for bplan in _backward_plans(hd):
+        with mock.patch.object(fa, "plan", lambda *a, p=bplan: p):
+            got = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+            torch.cuda.synchronize()
+        for name, a, w in zip("qkv", got, want):
+            _assert_grad_close(a, w, dout, (name, bplan))
+
+
+def _assert_grad_close(got, want, dout, note=None):
+    """Within REL_TOL of the twin; a gradient that is zero in exact
+    arithmetic (dq and dk where every row sees only its forced diagonal:
+    ds_ii = dp_ii - delta_i = 0 there) holds both sides to rounding noise,
+    1e-4 of |dout|, where a relative error means nothing."""
+    scale = 1e-4 * dout.float().norm()
+    if want.float().norm() <= scale:
+        assert got.float().norm() <= scale, note
+    else:
+        assert _rel(got, want) <= REL_TOL, note
+
+
+@pytest.mark.parametrize("bs,L,H,hd", [(8, 601, 12, 64), (2, 129, 2, 128), (1, 70, 3, 32)])
+def test_flash_backward_repeats_bit_for_bit_also_in_a_graph(dev, bs, L, H, hd):
+    """dq, dk and dv equal bit for bit on a second call and when replayed
+    from a CUDA graph (no atomics; every element written by one block)."""
+    q, k, v, dout, valid = _flash_case(dev, bs, L, H, hd, 5, True)
+    out, lse = fa.flash_forward(q, k, v, valid, H, hd)
+    first = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+    again = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(first, replayed):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

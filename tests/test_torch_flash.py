@@ -95,4 +95,4 @@ def test_flash_kernels_reject_unsupported_devices():
         fa.flash_forward(q, q, q, valid, 1, 64)
     lse = torch.zeros(1, 1, 4, device="meta")
     with pytest.raises(ValueError):
-        fa.flash_dq(q, q, q, q, lse, lse.reshape(1, 4, 1), valid, 1, 64)
+        fa.flash_dq(q, q, q, q, lse, lse, valid, 1, 64)
