@@ -57,11 +57,13 @@
 //   for dq, the first key tiles for dk/dv), so the short walks fill the
 //   tail.  The epilogue stages the bf16 result through the warpgroup's own
 //   (no longer read) operand tiles and writes 16-byte rows.
-// - Every product of a tile step is issued and waited for inside the step,
-//   with no branch while one is in flight: ptxas serialises every wgmma of
-//   a kernel (warning C7518) where an in-flight product meets a branch, a
-//   short-circuit mask or a loop edge.  The warpgroups of the SM's blocks
-//   (two a SM at 64 rows) overlap each other's chains instead.
+// - Every product of a tile step is issued and waited for inside the step:
+//   issuing the next tile's S and dP under this tile's last products puts
+//   an in-flight product across the loop edge, and ptxas then serialises
+//   every wgmma of the kernel (warning C7518), which cost more than the
+//   overlap won.  The warpgroups of the SM's blocks (at least two an SM at
+//   64 rows) overlap each other's chains instead.  The mask is bitwise
+//   logic: a short-circuit one branches per element.
 // - Head dim 32 reads 64-column boxes (the next head's columns, or zeros
 //   past the last head) and contracts over its own 32 only; the extra
 //   output columns are never written.
@@ -81,15 +83,6 @@ constexpr int T = 64;             // rows of a tile: queries or keys
 constexpr int BOX = 64 * 64 * 2;  // one 64-row x 64-column bf16 box: 8 KB
 constexpr int MAX_STAGES = 4;
 constexpr float LOG2E = 1.4426950408889634f;
-// Measurement switches (fluid_llm_tpu_torch/tools/flash_variants.py builds
-// each): bit 1, the mask in short-circuit logic with a branch for tiles
-// wholly inside the causal triangle; bit 2, the next tile's S and dP
-// issued under this tile's last products.  0 is the shipped kernel.
-#ifndef FLASH_VARIANT
-#define FLASH_VARIANT 0
-#endif
-constexpr bool SHORT_CIRCUIT_MASK = FLASH_VARIANT & 1;
-constexpr bool PIPE = FLASH_VARIANT & 2;
 
 // 64-column boxes of a row tile (head dim 32 takes one, half of it read)
 template <int HD>
@@ -294,80 +287,6 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 32; ++i) dk_acc[c][i] = dv_acc[c][i] = 0.f;
   mbar_wait(kv_bar, 0);
 
-  if constexpr (PIPE) {
-    const int first = wk0 < L ? wg : n_items;  // the query tiles that see a key of this warpgroup
-    for (int item = 0; item < first; ++item) {
-      mbar_wait(full + 8 * (item % stages), (item / stages) & 1);
-      release(empty, item, stages);
-    }
-    float sc[32], dp[32];
-    uint32_t pa[4][4], da[4][4];
-    if (first < n_items) {
-      const uint32_t q_tile = base + S::ring + first % stages * S::stage;
-      mbar_wait(full + 8 * (first % stages), (first / stages) & 1);
-      product_ss<HD>(sc, k_tile, q_tile);
-      product_ss<HD>(dp, v_tile, q_tile + S::tile);
-    }
-    for (int item = first; item < n_items; ++item) {
-      const int s = item % stages, q0 = (qt0 + item) * T;
-      const uint32_t q_tile = base + S::ring + s * S::stage, do_tile = q_tile + S::tile;
-      const float* st = stats + s * 2 * T;
-      wgmma_wait<1>();
-      pin(sc);
-      if (item > first) release(empty, item - 1, stages);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * jj + 2 * t);
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int i = 4 * jj + 2 * hh + e, qi = q0 + 8 * jj + 2 * t + e, kj = j0 + 8 * hh;
-            const bool ok = (qi < L) & (kj <= qi) & ((kvalid[hh] != 0) | (kj == qi));
-            sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -(e ? l2.y : l2.x))) : 0.f;
-          }
-      }
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
-      wgmma_wait<0>();
-      pin(dp);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float2 d0 = *reinterpret_cast<const float2*>(st + T + 16 * kk + 2 * t);
-        const float2 d1 = *reinterpret_cast<const float2*>(st + T + 16 * kk + 8 + 2 * t);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 8 * kk + 2 * r;
-          const float2 d = r < 2 ? d0 : d1;
-          da[kk][r] = pack_bf16(sc[i] * (dp[i] - d.x), sc[i + 1] * (dp[i + 1] - d.y));
-        }
-      }
-      const bool more = item + 1 < n_items;
-      if (more) mbar_wait(full + 8 * ((item + 1) % stages), ((item + 1) / stages) & 1);
-      product_rs<NB>(dv_acc, pa, do_tile);
-      product_rs<NB>(dk_acc, da, q_tile);
-      if (more) {
-        const uint32_t next = base + S::ring + (item + 1) % stages * S::stage;
-        product_ss<HD>(sc, k_tile, next);
-        product_ss<HD>(dp, v_tile, next + S::tile);
-      }
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      pin(dk_acc[c]);
-      pin(dv_acc[c]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pin(pa[kk]);
-      pin(da[kk]);
-    }
-    if (first < n_items) release(empty, n_items - 1, stages);
-  } else {
   for (int item = 0; item < n_items; ++item) {
     const int s = item % stages, q0 = (qt0 + item) * T;
     mbar_wait(full + 8 * s, (item / stages) & 1);
@@ -388,14 +307,8 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int i = 4 * jj + 2 * hh + e, qi = q0 + 8 * jj + 2 * t + e, kj = j0 + 8 * hh;
-            // bitwise, so that no branch runs while dP^T is in flight
-            bool ok;
-            if constexpr (SHORT_CIRCUIT_MASK)
-              ok = q0 >= wk0 + T && q0 + T <= L
-                       ? kvalid[hh] != 0
-                       : qi < L && kj <= qi && (kvalid[hh] != 0 || kj == qi);
-            else
-              ok = (qi < L) & (kj <= qi) & ((kvalid[hh] != 0) | (kj == qi));
+            // bitwise: no branch per element
+            const bool ok = (qi < L) & (kj <= qi) & ((kvalid[hh] != 0) | (kj == qi));
             sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -(e ? l2.y : l2.x))) : 0.f;
           }
       }
@@ -434,7 +347,6 @@ flash_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
     release(empty, item, stages);
-  }
   }
 
   if (wk0 >= L) return;
@@ -543,60 +455,6 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.f;
   mbar_wait(q_bar, 0);
 
-  if constexpr (PIPE) {
-    const int n_act = wg_kt + 1;  // key tiles 0 .. wg_kt; the later ones only pass
-    float sc[32], dp[32];
-    uint32_t da[4][4];
-    if (n_act > 0) {
-      mbar_wait(full, 0);
-      product_ss<HD>(sc, q_tile, base + S::ring);
-      product_ss<HD>(dp, do_tile, base + S::ring + S::tile);
-    }
-    for (int kt = 0; kt < n_act; ++kt) {
-      const int s = kt % stages, k0 = kt * T;
-      const uint32_t k_tile = base + S::ring + s * S::stage;
-      const uint32_t lo = masks[2 * s], hi = masks[2 * s + 1];
-      wgmma_wait<1>();
-      pin(sc);
-      if (kt > 0) release(empty, kt - 1, stages);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int hh = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * t + (i & 1);
-        const bool bit = (((i >> 2) < 4 ? lo : hi) >> (c & 31)) & 1u;
-        const int row = i0 + 8 * hh, col = k0 + c;
-        const bool ok = (row < L) & (col <= row) & (bit | (col == row));
-        sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -lse2[hh])) : 0.f;
-      }
-      wgmma_wait<0>();
-      pin(dp);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = 8 * kk + 2 * r;
-          const float d = dl[r & 1];
-          da[kk][r] = pack_bf16(sc[i] * (dp[i] - d), sc[i + 1] * (dp[i + 1] - d));
-        }
-      const bool more = kt + 1 < n_act;
-      if (more) mbar_wait(full + 8 * ((kt + 1) % stages), ((kt + 1) / stages) & 1);
-      product_rs<NB>(acc, da, k_tile);
-      if (more) {
-        const uint32_t next = base + S::ring + (kt + 1) % stages * S::stage;
-        product_ss<HD>(sc, q_tile, next);
-        product_ss<HD>(dp, do_tile, next + S::tile);
-      }
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int c = 0; c < NB; ++c) pin(acc[c]);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) pin(da[kk]);
-    if (n_act > 0) release(empty, n_act - 1, stages);
-    for (int kt = max(n_act, 0); kt < n_kt; ++kt) {
-      mbar_wait(full + 8 * (kt % stages), (kt / stages) & 1);
-      release(empty, kt, stages);
-    }
-  } else {
   for (int kt = 0; kt < n_kt; ++kt) {
     const int s = kt % stages, k0 = kt * T;
     mbar_wait(full + 8 * s, (kt / stages) & 1);
@@ -614,13 +472,9 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
         const int hh = (i >> 1) & 1, c = 8 * (i >> 2) + 2 * t + (i & 1);
         const bool bit = (((i >> 2) < 4 ? lo : hi) >> (c & 31)) & 1u;
         const int row = i0 + 8 * hh, col = k0 + c;
-        // bitwise, so that no branch runs while dP is in flight; rows past L
-        // are computed, never written, and touch no other row
-        bool ok;
-        if constexpr (SHORT_CIRCUIT_MASK)
-          ok = k0 + T <= wq0 ? bit : row < L && col <= row && (bit || col == row);
-        else
-          ok = (row < L) & (col <= row) & (bit | (col == row));
+        // bitwise: no branch per element; rows past L are computed, never
+        // written, and touch no other row
+        const bool ok = (row < L) & (col <= row) & (bit | (col == row));
         sc[i] = ok ? exp2f(fmaf(sc[i], scale2, -lse2[hh])) : 0.f;
       }
       wgmma_wait<0>();
@@ -643,7 +497,6 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int kk = 0; kk < 4; ++kk) pin(da[kk]);
     }
     release(empty, kt, stages);
-  }
   }
 
   if (wq0 >= L) return;
