@@ -38,14 +38,12 @@ Phases, each printing one line per result; any failure exits nonzero:
                then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
-               of w8a16 (token tile, K split) at its six main-path shapes,
-               of short attention (64 or 128 query rows a block) at its
-               two and of the flash dq and dk/dv (64 or 128 rows a block,
-               ring of 2-4) at the training step's, each against the twin
-               and timed (w8a16 and the indexed linear beside the library
-               call): the tables ``indexed_linear.plan``,
-               ``quant_matmul.plan``, ``short_attention.plan`` and
-               ``flash_attention.plan`` are read from;
+               of w8a16 (token tile, K split) at its six main-path shapes
+               and of short attention (64 or 128 query rows a block) at its
+               two, each against the twin and timed (w8a16 and the indexed
+               linear beside the library call): the tables
+               ``indexed_linear.plan``, ``quant_matmul.plan`` and
+               ``short_attention.plan`` are read from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -462,7 +460,6 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         allowed = _allowed_causal(valid)[:, None]
         pairs = allowed.sum().item()
         lib_bwd, backend = sdpa_backward_ms(q, k, v, allowed, dout, H)
-        bplan = fa.plan(bs, L, H, hd, _build.sm_count(q.device))
         rows.append(dict(
             kernel="flash_attention_fwd", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(out, ref_out), max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
@@ -477,8 +474,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             rel=rel_err(dq, rq), max_abs_err=(dq.float() - rq.float()).abs().max().item(),
             deterministic=bool(torch.equal(again[0], dq)),
             twin_deterministic=bool(torch.equal(twin_again[0], rq)),
-            geometry=f"{H} heads x {bs} batch x {len(fa.query_tiles(L, bplan.dq.rows))} query "
-                     f"tiles of {bplan.dq.rows} rows, a ring of {bplan.dq.stages}",
+            geometry=f"{H} heads x {bs} batch x {len(fa.query_tiles(L))} query tiles of "
+                     f"{fa.TILE} rows",
             ms=device_ms(lambda: fa.flash_dq(q, k, v, dout, lse, delta, valid, H, hd)),
             plain_ms=plain_bwd, library_ms=lib_bwd, library_backend=backend,
             **bound(nbytes(q, k, v, dout, lse, delta, valid, dq), 6 * D * pairs, "bf16"),
@@ -491,8 +488,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             deterministic=bool(torch.equal(again[1], dk) and torch.equal(again[2], dv)),
             twin_deterministic=bool(torch.equal(twin_again[1], rk)
                                     and torch.equal(twin_again[2], rv)),
-            geometry=f"{H} heads x {bs} batch x {len(fa.key_tiles(L, bplan.dkv.rows))} key "
-                     f"tiles of {bplan.dkv.rows} rows, a ring of {bplan.dkv.stages}",
+            geometry=f"{H} heads x {bs} batch x {len(fa.key_tiles(L))} key tiles of "
+                     f"{fa.TILE} rows",
             ms=device_ms(lambda: fa.flash_dkv(q, k, v, dout, lse, delta, valid, H, hd)),
             plain_ms=plain_bwd, library_ms=lib_bwd, library_backend=backend,
             **bound(nbytes(q, k, v, dout, lse, delta, valid, dk, dv), 8 * D * pairs, "bf16"),
@@ -794,62 +791,13 @@ def _short_attention_plans(dev, failures: list) -> list[dict]:
     return res
 
 
-def _flash_backward_plans(dev, failures: list) -> list[dict]:
-    """Every plan of the two flash backward kernels (rows a block: one or
-    two consumer warpgroups; ring depth) at the training step's (8, 601,
-    768) H12 hd64, every token valid: agreement with the twin and device
-    time, ``flash_attention.plan``'s choice marked."""
-    from fluid_llm_tpu_torch.ops import _build
-    from fluid_llm_tpu_torch.ops import flash_attention as fa
-
-    g = torch.Generator().manual_seed(10)
-    bs, L, H, hd = TRAIN_BS, TRAIN_TOKENS, 12, 64
-    D = H * hd
-    q, k, v = ((torch.randn(bs, L, D, generator=g) * 0.5).to(dev, torch.bfloat16)
-               for _ in range(3))
-    dout = torch.randn(bs, L, D, generator=g).to(dev, torch.bfloat16)
-    valid = torch.ones(bs, L, dtype=torch.int32, device=dev)
-    out, lse = fa.flash_forward(q, k, v, valid, H, hd)
-    delta = fa.row_delta(out, dout, H, hd)
-    refs = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
-    chosen = fa.plan(bs, L, H, hd, _build.sm_count(dev))
-    res = []
-    for kernel, fn, tiles in (("dq", fa.flash_dq, fa.query_tiles),
-                              ("dkv", fa.flash_dkv, fa.key_tiles)):
-        timed = []
-        for p in fa.plans(kernel, hd):
-            both = chosen._replace(**{kernel: p})
-            with mock.patch.object(fa, "plan", lambda *a, both=both: both):
-                got = fn(q, k, v, dout, lse, delta, valid, H, hd)
-                ms = device_ms(lambda: fn(q, k, v, dout, lse, delta, valid, H, hd))
-            torch.cuda.synchronize()
-            got = (got,) if kernel == "dq" else got
-            want = refs[:1] if kernel == "dq" else refs[1:]
-            rel = max(rel_err(a, b) for a, b in zip(got, want))
-            blocks = H * bs * len(tiles(L, p.rows))
-            timed.append(dict(rows=p.rows, stages=p.stages, blocks=blocks, ms=ms, rel=rel,
-                              chosen=p == getattr(chosen, kernel)))
-            if not rel <= REL_TOL:
-                failures.append(f"flash {kernel} plan {tuple(p)} at ({bs}, {L}): rel {rel}")
-        timed.sort(key=lambda r: r["ms"])
-        print(f"[plans] flash_attention_{kernel} ({bs}, {L}, {D}) H{H} hd{hd}: "
-              + "; ".join(f"{r['rows']} rows a block, ring of {r['stages']}, {r['blocks']} "
-                          f"blocks {r['ms']:.4f}{' (plan)' if r['chosen'] else ''}"
-                          for r in timed)
-              + f"; max rel {max(r['rel'] for r in timed):.1e}")
-        res.append(dict(kernel=kernel, bs=bs, L=L, plans=timed))
-    return res
-
-
 def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
-    ``quant_matmul.plan``, ``short_attention.plan`` and
-    ``flash_attention.plan`` are read from."""
+    ``quant_matmul.plan`` and ``short_attention.plan`` are read from."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
-                short_attention=_short_attention_plans(dev, failures),
-                flash_backward=_flash_backward_plans(dev, failures))
+                short_attention=_short_attention_plans(dev, failures))
 
 
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:

@@ -37,8 +37,8 @@ SIGNATURES = {
     "exact_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                             ctypes.c_float, _P],
     "flash_attention_fwd": [_P] * 6 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _P],
-    "flash_attention_dq": [_P] * 8 + [_I] * 4 + [_LL] * 5 + [ctypes.c_float, _I, _I, _P],
-    "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _I, _I, _P],
+    "flash_attention_dq": [_P] * 8 + [_I] * 4 + [_LL] * 5 + [ctypes.c_float, _P],
+    "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _P],
     "grid_slot_attention_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "grid_slot_attention_bwd": [_P] * 10 + [_I] * 8 + [_P],
     "slab_decode_attention": [_P] * 9 + [_I] * 6 + [_LL, _I, ctypes.c_float, _I, _I, _P],

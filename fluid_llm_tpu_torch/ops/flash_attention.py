@@ -24,12 +24,10 @@ The backward kernels, in short (the source's header has the detail): on
 paper the bytes bound them (at the training step's (8, 601, 768) ~11 and
 ~13 us against ~7 and ~9 us of tensor-core work); in practice the chain of
 each 64-row tile step.  A producer warp streams 64-row tiles by TMA into
-a ring of shared-memory stages on mbarriers (Q and dO for dk/dv, K and V
-for dq) while one or two consumer warpgroups keep their own side resident
-and run ``wgmma``: the scores, P and dS stay in registers, each product's
-accumulator becoming the next one's A operand.  :func:`plan` picks the
-rows a block (one or two warpgroups) and the ring depth per kernel, read
-from the ``[plans]`` sweep of ``chip_smoke.py``; the blocks of the longest
+a two-stage ring of shared memory on mbarriers (Q and dO for dk/dv, K and
+V for dq) while one consumer warpgroup keeps its block's 64 rows resident
+and runs ``wgmma``: the scores, P and dS stay in registers, each product's
+accumulator becoming the next one's A operand.  The blocks of the longest
 causal walks start first (:func:`query_tiles`, :func:`key_tiles`).  No
 atomics: dq, dk and dv repeat bit for bit.
 
@@ -42,8 +40,6 @@ raise.
 from __future__ import annotations
 
 import ctypes
-import functools
-from typing import NamedTuple
 
 import torch
 
@@ -107,76 +103,32 @@ def row_delta(out: torch.Tensor, dout: torch.Tensor, n_heads: int, head_dim: int
     """``delta = rowsum(dO * O)`` per head, f32 ``(bs, H, L)`` contiguous:
     the backward kernels' layout (that of ``lse``)."""
     bs, L, _ = out.shape
-    prod = dout.float().mul_(out)  # in f32: out is widened inside the multiply
+    prod = dout.float() * out  # in f32: out is widened inside the multiply
     return prod.reshape(bs, L, n_heads, head_dim).sum(-1).transpose(1, 2).contiguous()
 
 
-TILE = 64  # rows of a tile the kernels stream: queries (dk/dv) or keys (dq)
-STAGES = (2, 3, 4)  # ring depths the kernels take
-# rows a block (64 a consumer warpgroup) each kernel is built for, by head dim
-BLOCK_ROWS = {
-    "dq": {32: (64,), 64: (64, 128), 128: (64, 128)},
-    "dkv": {32: (64,), 64: (64, 128), 128: (64,)},
-}
+TILE = 64  # rows of a block and of each tile it streams: queries or keys
 
 
-class Plan(NamedTuple):
-    rows: int  # query rows (dq) or keys (dk/dv) a block: 64 or 128
-    stages: int  # depth of the ring of streamed tiles
-
-
-class BackwardPlan(NamedTuple):
-    dq: Plan
-    dkv: Plan
-
-
-def plans(kernel: str, head_dim: int) -> list[Plan]:
-    """Every plan the ``kernel`` ("dq" or "dkv") is built for at ``head_dim``."""
-    return [Plan(rows, stages) for rows in BLOCK_ROWS[kernel][head_dim] for stages in STAGES]
-
-
-def query_tiles(L: int, rows: int) -> list[range]:
+def query_tiles(L: int) -> list[range]:
     """The query rows of each dq block of one (batch, head), in launch
     order: the last tiles, which walk the most keys, first."""
-    n = -(-L // rows)
-    return [range(t * rows, min(L, (t + 1) * rows)) for t in reversed(range(n))]
+    n = -(-L // TILE)
+    return [range(t * TILE, min(L, (t + 1) * TILE)) for t in reversed(range(n))]
 
 
-def key_tiles(L: int, rows: int) -> list[range]:
+def key_tiles(L: int) -> list[range]:
     """The keys of each dk/dv block of one (batch, head), in launch order:
     the first tiles, which walk the most queries, first."""
-    return [range(t * rows, min(L, (t + 1) * rows)) for t in range(-(-L // rows))]
+    return [range(t * TILE, min(L, (t + 1) * TILE)) for t in range(-(-L // TILE))]
 
 
 def walk(kernel: str, L: int, tile: range) -> int:
-    """64-row tiles a block streams: the key tiles up to the block's last
-    query (dq), or the query tiles from the block's first key on (dk/dv)."""
+    """Tiles a block streams: the key tiles up to the block's last query
+    (dq), or the query tiles from the block's first key on (dk/dv)."""
     if kernel == "dq":
         return (tile.stop - 1) // TILE + 1
     return -(-L // TILE) - tile.start // TILE
-
-
-# The fastest plan of each kernel at the training step (8, 601, 12 heads of
-# 64) in the plan sweep of chip_smoke.py (its "[plans]" lines, NVIDIA H100
-# 80GB HBM3): 64 rows a block, 960 blocks, two an SM; the ring depths of
-# each kernel came within 3-5 % of each other (dq 2 and 3 tied).
-SWEPT_PLANS = {
-    (8, 601, 12, 64): BackwardPlan(Plan(64, 2), Plan(64, 4)),
-}
-DEFAULT_PLAN = Plan(64, 2)
-
-
-@functools.lru_cache(maxsize=None)
-def plan(bs: int, L: int, n_heads: int, head_dim: int,
-         sms: int = _build.H100_SMS) -> BackwardPlan:
-    """The launch plan of each backward kernel: the sweep's fastest at the
-    training step (:data:`SWEPT_PLANS`).  Elsewhere, or on a card with
-    another SM count, what the sweep found there: 64 rows a block (one
-    consumer warpgroup; two sharing each streamed tile lost by 3-30 %) and
-    a ring of 2 stages."""
-    if (bs, L, n_heads, head_dim) in SWEPT_PLANS and sms == _build.H100_SMS:
-        return SWEPT_PLANS[bs, L, n_heads, head_dim]
-    return BackwardPlan(DEFAULT_PLAN, DEFAULT_PLAN)
 
 
 def _check(name: str, q, tensors, valid, n_heads: int, head_dim: int) -> list[int]:
@@ -232,14 +184,13 @@ def flash_dq(q, k, v, dout, lse, delta, valid, n_heads: int, head_dim: int) -> t
     bs, L, D = q.shape
     _stat(lse, "lse", (bs, n_heads, L), q.device)
     _stat(delta, "delta", (bs, n_heads, L), q.device)
-    p = plan(bs, L, n_heads, head_dim, _build.sm_count(q.device)).dq
     dq = torch.empty((bs, L, D), dtype=q.dtype, device=q.device)
     lib = _build.load()
     with torch.cuda.device(q.device):
         err = lib.flash_attention_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), valid.data_ptr(), dq.data_ptr(), bs, L, n_heads, head_dim,
-            *strides, D, ctypes.c_float(head_dim ** -0.5), p.rows, p.stages,
+            *strides, D, ctypes.c_float(head_dim ** -0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention_dq")
@@ -254,7 +205,6 @@ def flash_dkv(q, k, v, dout, lse, delta, valid, n_heads: int, head_dim: int):
     bs, L, D = q.shape
     _stat(lse, "lse", (bs, n_heads, L), q.device)
     _stat(delta, "delta", (bs, n_heads, L), q.device)
-    p = plan(bs, L, n_heads, head_dim, _build.sm_count(q.device)).dkv
     dk = torch.empty((bs, L, D), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     lib = _build.load()
@@ -262,7 +212,7 @@ def flash_dkv(q, k, v, dout, lse, delta, valid, n_heads: int, head_dim: int):
         err = lib.flash_attention_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), valid.data_ptr(), dk.data_ptr(), dv.data_ptr(), bs, L, n_heads,
-            head_dim, *strides, D, D, ctypes.c_float(head_dim ** -0.5), p.rows, p.stages,
+            head_dim, *strides, D, D, ctypes.c_float(head_dim ** -0.5),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention_dkv")

@@ -2,8 +2,8 @@
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
-``ops/short_attention.plan``, ``ops/flash_attention.plan``), so they are
-held here, on the CPU: every
+``ops/short_attention.plan``, ``ops/flash_attention.query_tiles`` and
+``key_tiles``), so they are held here, on the CPU: every
 key tile lies in exactly one split and no split is empty; a K split
 covers K in whole steps (64 deep in the indexed linear, 128 in w8a16)
 with a cluster the kernel accepts; the streaming step's decode fills a
@@ -12,10 +12,13 @@ unsplit where the K run fits the kernel's ring; w8a16 takes the sweep's
 plans on its main path; short attention's query tiles cover every row
 once; the flash backward's dq blocks cover every query row and its dk/dv
 blocks every key once, each streaming exactly the 64-row tiles the causal
-mask needs, longest walk first, and the training step takes the sweep's
-plan; every shape ``supported`` accepts gets a plan.  The kernels
-themselves run only on the card (``tests/test_torch_cuda.py``).
+mask needs, longest walk first; every shape ``supported`` accepts gets a
+plan.  The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -215,24 +218,23 @@ def test_short_plan_is_a_kernel_template(bs, L, H, hd):
         assert bs * H * len(sa.query_tiles(L, 128)) >= 132
 
 
-# -- the flash backward (ops/flash_attention.plan, query_tiles, key_tiles)
+# -- the flash backward (ops/flash_attention.query_tiles, key_tiles, walk)
 
 FLASH_LENGTHS = [1, 5, 63, 64, 65, 128, 129, 601, 661, 1536]
 
 
 @pytest.mark.parametrize("L", FLASH_LENGTHS)
-@pytest.mark.parametrize("rows", [64, 128])
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-def test_flash_tiles_cover_every_row_once_and_walk_what_the_mask_needs(kernel, rows, L):
+def test_flash_tiles_cover_every_row_once_and_walk_what_the_mask_needs(kernel, L):
     """The blocks of one (batch, head) cover the query rows (dq) or the keys
-    (dk/dv) 0..L-1 once, in whole tiles of the block's rows but the last;
-    each streams exactly the 64-row tiles holding a (query, key) pair the
-    causal mask allows for one of its rows: keys up to its last query (dq),
-    queries from its first key on (dk/dv)."""
-    tiles = fa.query_tiles(L, rows) if kernel == "dq" else fa.key_tiles(L, rows)
+    (dk/dv) 0..L-1 once, in whole 64-row tiles but the last; each streams
+    exactly the 64-row tiles holding a (query, key) pair the causal mask
+    allows for one of its rows: keys up to its last query (dq), queries
+    from its first key on (dk/dv)."""
+    tiles = fa.query_tiles(L) if kernel == "dq" else fa.key_tiles(L)
     assert sorted(i for t in tiles for i in t) == list(range(L))
-    assert sum(len(t) != rows for t in tiles) <= 1 and len(tiles[0 if kernel == "dkv" else -1]) \
-        == min(rows, L)
+    assert sum(len(t) != fa.TILE for t in tiles) <= 1 and len(tiles[0 if kernel == "dkv" else -1]) \
+        == min(fa.TILE, L)
     causal = torch.ones(L, L, dtype=torch.bool).tril()  # [query, key]
     for t in tiles:
         seen = causal[t.start:t.stop].any(0) if kernel == "dq" else causal[:, t.start:t.stop].any(1)
@@ -242,51 +244,19 @@ def test_flash_tiles_cover_every_row_once_and_walk_what_the_mask_needs(kernel, r
 
 
 @pytest.mark.parametrize("L", FLASH_LENGTHS)
-@pytest.mark.parametrize("rows", [64, 128])
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-def test_flash_block_order_puts_the_longest_walk_first(kernel, rows, L):
+def test_flash_block_order_puts_the_longest_walk_first(kernel, L):
     """Blocks start in launch order longest walk first, so that the short
     walks fill the tail: the last query tiles for dq, the first key tiles
     for dk/dv."""
-    tiles = fa.query_tiles(L, rows) if kernel == "dq" else fa.key_tiles(L, rows)
+    tiles = fa.query_tiles(L) if kernel == "dq" else fa.key_tiles(L)
     walks = [fa.walk(kernel, L, t) for t in tiles]
     assert walks == sorted(walks, reverse=True)
     assert walks[0] == -(-L // fa.TILE)  # the longest block streams every tile
 
 
-@pytest.mark.parametrize("bs,L,H,hd", [
-    (8, 601, 12, 64), (8, 601, 12, 128), (1, 1, 1, 64), (1, 5, 1, 32), (2, 70, 2, 32),
-    (1, 300, 4, 128), (1, 661, 12, 64), (2, 1536, 2, 128), (4, 300, 16, 32), (64, 1536, 16, 64),
-])
-def test_flash_plan_is_a_kernel_template(bs, L, H, hd):
-    """Every shape ``supported`` accepts gets, for each kernel, a plan it is
-    built for (rows a block at that head dim, a ring of 2-4 stages): the
-    sweep's at the training step, else 64 rows and a ring of 2."""
-    assert fa.supported(hd, torch.bfloat16)
-    chosen = fa.plan(bs, L, H, hd)
-    for kernel in ("dq", "dkv"):
-        p = getattr(chosen, kernel)
-        assert p in fa.plans(kernel, hd)
-        if (bs, L, H, hd) not in fa.SWEPT_PLANS:
-            assert p == fa.Plan(64, 2)
-
-
-def test_flash_plans_are_what_the_kernels_are_built_for():
-    """64 or 128 rows a block at head dims 64 (both kernels) and 128 (dq):
-    one or two consumer warpgroups; 64 at head dim 32, and for dk/dv at 128
-    (its two accumulators of 64 x 128 fill a thread's registers); every
-    ring depth of 2, 3 and 4 with each."""
-    assert fa.plans("dq", 64) == [fa.Plan(r, s) for r in (64, 128) for s in (2, 3, 4)]
-    assert fa.plans("dkv", 64) == fa.plans("dq", 64) == fa.plans("dq", 128)
-    assert fa.plans("dkv", 128) == fa.plans("dq", 32) == fa.plans("dkv", 32) == \
-        [fa.Plan(64, s) for s in (2, 3, 4)]
-
-
-def test_flash_plan_at_the_main_path_is_the_sweeps():
-    """The training step (8, 601, 12 heads of 64) takes the sweep's fastest
-    plan of each kernel, one the kernels are built for; on a card with
-    another SM count the default."""
-    swept = fa.SWEPT_PLANS[8, 601, 12, 64]
-    assert fa.plan(8, 601, 12, 64) == swept
-    assert swept.dq in fa.plans("dq", 64) and swept.dkv in fa.plans("dkv", 64)
-    assert fa.plan(8, 601, 12, 64, 114) == fa.BackwardPlan(fa.DEFAULT_PLAN, fa.DEFAULT_PLAN)
+def test_flash_tile_is_the_kernels():
+    """The tiles above are the kernels' own: ``TILE`` is the rows of a
+    block and of each streamed tile in ``csrc/flash_attention.cu``."""
+    src = (Path(fa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
+    assert re.search(r"^constexpr int T = (\d+);", src, re.M).group(1) == str(fa.TILE)
