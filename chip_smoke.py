@@ -590,7 +590,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         ok = (r["rel"] <= r.get("rel_tol", REL_TOL) and r.get("finite", True)
               and r.get("exact") is not False and r.get("deterministic") is not False)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        notes = "" if r.get("exact") is None else f", equal to the twin {r['exact']}"
+        notes = "" if r.get("exact") is None else \
+            f", equal to {r.get('exact_to', 'the twin')} {r['exact']}"
         if r.get("deterministic") is not None:
             notes += (f", repeat bit-equal {r['deterministic']} (twin "
                       f"{r['twin_deterministic']})")
@@ -903,6 +904,7 @@ def _segment_rows(dev, g: torch.Generator) -> list[dict]:
         index = so.SegmentIndex(edges[..., col], n)
         index.csr()
         ids = index.ids.long()
+        walk = None
         if kernel == "segment_sum":
             x = torch.randn(B * E, F, generator=g).to(dev)
             zeros = torch.zeros(index.n_rows, F, device=dev)
@@ -917,12 +919,15 @@ def _segment_rows(dev, g: torch.Generator) -> list[dict]:
         out, ref = fn(), twin()
         again, twin_again = fn(), twin()
         torch.cuda.synchronize()
+        if kernel == "segment_sum":  # the kernel's order of additions, on the CPU
+            walk = so.csr_walk(x.cpu(), so.SegmentIndex(edges[..., col].cpu(), n))
         rows.append(dict(
             kernel=kernel, shape=f"{'edges' if kernel == 'segment_sum' else 'nodes'} "
             f"{tuple(x.shape)} by edges[..., {col}] -> {tuple(out.shape)}", main_path=main,
             rel=rel_err(out, ref), rel_tol=SEGMENT_REL_TOL,
             max_abs_err=(out - ref).abs().max().item(),
-            exact=bool(torch.equal(out, ref)) if kernel == "segment_gather" else None,
+            exact=bool(torch.equal(out, ref) if walk is None else torch.equal(out.cpu(), walk)),
+            exact_to="the twin" if walk is None else "the CPU CSR walk",
             deterministic=bool(torch.equal(again, out)),
             twin_deterministic=bool(torch.equal(twin_again, ref)),
             ms=device_ms(fn), plain_ms=device_ms(twin), library_ms=device_ms(library),

@@ -1,7 +1,8 @@
-// Tile geometry and helpers shared by the attention kernels
-// (exact_attention.cu: forward, with or without the row logsumexp;
-// decode_attention.cu: new queries against the streaming slab cache;
-// short_attention.cu takes its mask rule).
+// Tile geometry and helpers of the WMMA (mma.sync) online-softmax forward,
+// which decode_attention.cu runs (new queries against the streaming slab
+// cache); short_attention.cu takes only its mask rule, `allowed`.  The
+// exact-window and flash forward (exact_attention.cu) run on TMA and wgmma
+// instead (hopper.cuh).
 //
 // q/k/v/dO are (bs, L, H*hd) bf16 with a row stride per tensor: element
 // (b, t, h, d) sits at (b*L + t)*row_stride + h*hd + d.  A block works on
@@ -60,7 +61,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Shared memory of the online-softmax forward (exact and decode kernels):
+// Shared memory of the online-softmax forward (the decode kernel):
 // the q, k and v tiles, the f32 score tile, the bf16 probability tile, the
 // f32 accumulator, and per query row its running max m, sum l and the
 // rescale alpha of the last tile; then `extra` bytes for the caller's

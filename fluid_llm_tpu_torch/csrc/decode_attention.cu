@@ -35,8 +35,8 @@
 //   contiguous run of 64-key tiles (ops/decode_attention.split_plan picks
 //   the run length so the grid fills a wave, no split empty): at the
 //   flagship shape one tile a split, 11 x 12 = 132 blocks.
-// - A split walks its tiles with the online softmax of the exact-window
-//   kernel (attention_tiles.cuh: WMMA bf16 Q.K^T and P.V, f32 statistics,
+// - A split walks its tiles with the online softmax of attention_tiles.cuh
+//   (WMMA bf16 Q.K^T and P.V, f32 statistics,
 //   the softmax two lanes a row, all 16 rows of a warp at once),
 //   first asking, with one __syncthreads_or, whether any query of the block
 //   may see any key of the tile: a tile no query may see (an unwritten ring

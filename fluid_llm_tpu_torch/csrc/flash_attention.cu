@@ -80,19 +80,13 @@
 #include "hopper.cuh"
 
 using namespace hopper;
+using namespace hopper::tile64;
 
 namespace {
 
-constexpr int T = 64;             // rows of a tile: queries or keys
-constexpr int BOX = 64 * 64 * 2;  // one 64-row x 64-column bf16 box: 8 KB
-constexpr int STAGES = 2;         // depth of the ring of streamed tiles
+constexpr int T = 64;      // rows of a tile: queries or keys
+constexpr int STAGES = 2;  // depth of the ring of streamed tiles
 constexpr float LOG2E = 1.4426950408889634f;
-
-// 64-column boxes of a row tile (head dim 32 takes one, half of it read)
-template <int HD>
-__host__ __device__ constexpr int n_boxes() {
-  return HD <= 64 ? 1 : HD / 64;
-}
 
 // Shared memory from a 1024-byte aligned base: the block's two resident
 // 64-row tiles, the ring (two streamed tiles a stage), `STAT_BYTES` a stage
@@ -110,82 +104,10 @@ struct Smem {
   static constexpr int bytes = bars + 8 * (1 + 2 * STAGES) + TILE_ALIGN;
 };
 
-// the consumer warpgroup's named barrier (0 is __syncthreads)
-__device__ __forceinline__ void wg_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// acc[c] (64 x 64, m64n64 layout, c = 64-column box) += A (64 x 64 bf16
-// fragments in registers) . the MN-major tile at `tile` (64 rows along K)
-template <int NB>
-__device__ __forceinline__ void product_rs(float (&acc)[NB][32], uint32_t (&a)[4][4],
-                                           uint32_t tile) {
-#pragma unroll
-  for (int c = 0; c < NB; ++c) pin(acc[c]);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) pin(a[kk]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int c = 0; c < NB; ++c)
-      Wgmma<64>::rs<1>(acc[c], a[kk], sw128_mn_desc(tile + c * BOX + kk * 2048));
-  wgmma_commit();
-}
-
-// d (64 x 64) = A B^T over HD, A and B both K-major 64-row tiles; issued
-// and committed as one group, not waited for
-template <int HD>
-__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) d[i] = 0.f;
-  pin(d);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    Wgmma<64>::ss(d, sw128_desc(a + (kk / 4) * BOX) + 2 * (kk % 4),
-                  sw128_desc(b + (kk / 4) * BOX) + 2 * (kk % 4));
-  wgmma_commit();
-}
-
 // the calling thread is done with the ring stage `item` has (every consumer
 // thread arrives: no branch while a product may be in flight)
 __device__ __forceinline__ void release(uint32_t empty, int item) {
   mbar_arrive(empty + 8 * (item % STAGES));
-}
-
-// Write the warpgroup's 64 x HD f32 accumulator, times `mul`, as bf16 rows
-// row0.. of dst (row stride rs, rows at or past `rows` skipped), staged in
-// the 128-byte swizzle through `stage` (the warpgroup's own tile, which no
-// product reads any more).
-template <int HD>
-__device__ __forceinline__ void store_tile(float (&acc)[n_boxes<HD>()][32], float mul,
-                                           unsigned char* stage, __nv_bfloat16* dst, long long rs,
-                                           int row0, int rows) {
-  constexpr int NB = n_boxes<HD>();
-  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-  const int g = lane >> 2, t = lane & 3;
-  // acc[c][4j + 2hh + e] is row 16 warp + g + 8hh, column 64c + 8j + 2t + e
-#pragma unroll
-  for (int c = 0; c < NB; ++c)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = warp * 16 + g + 8 * hh;
-        *reinterpret_cast<uint32_t*>(stage + c * BOX + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
-            pack_bf16(acc[c][4 * j + 2 * hh] * mul, acc[c][4 * j + 2 * hh + 1] * mul);
-      }
-  wg_sync();
-  for (int idx = threadIdx.x; idx < 64 * NB * 8; idx += 128) {
-    const int r = idx / (NB * 8), c = idx / 8 % NB, cc = idx % 8;
-    if (64 * c + 8 * cc >= HD || row0 + r >= rows) continue;
-    *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + 64 * c + 8 * cc) =
-        *reinterpret_cast<const uint4*>(stage + c * BOX + r * 128 + ((cc ^ (r & 7)) << 4));
-  }
 }
 
 // ---------------------------------------------------------------- dk/dv
@@ -490,36 +412,13 @@ flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ----------------------------------------------------------------- launch
 
-// q, k, v, dO as (bs * L rows, H * hd columns) with each tensor's row
-// stride; 64 x 64 boxes in the 128-byte swizzle
-bool encode_maps(CUtensorMap (&maps)[4], const void* const (&ptrs)[4],
-                 const long long (&strides)[4], int bs, int L, int n_heads, int head_dim) {
-  for (int i = 0; i < 4; ++i) {
-    const cuuint64_t dims[2] = {(cuuint64_t)n_heads * head_dim, (cuuint64_t)bs * L};
-    const cuuint64_t rs[1] = {(cuuint64_t)strides[i] * 2};
-    const cuuint32_t box[2] = {64, 64};
-    if (!encode_bf16(&maps[i], ptrs[i], 2, dims, rs, box)) return false;
-  }
-  return true;
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, int bytes, bool& done) {
-  if (done) return 0;
-  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  done = true;
-  return 0;
-}
-
 template <int HD>
 int launch_dq(const CUtensorMap (&maps)[4], const void* lse, const void* delta, const void* valid,
               void* dq, int bs, int L, int n_heads, long long dq_rs, float scale,
               cudaStream_t stream) {
   using S = DqSmem<HD>;
   static bool attr_set = false;
-  if (int e = prepare(flash_dq_kernel<HD>, S::bytes, attr_set)) return e;
+  if (int e = allow_smem(flash_dq_kernel<HD>, S::bytes, attr_set)) return e;
   dim3 grid(n_heads, bs, (L + T - 1) / T);
   flash_dq_kernel<HD><<<grid, 128 + 32, S::bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
@@ -534,7 +433,7 @@ int launch_dkv(const CUtensorMap (&maps)[4], const void* lse, const void* delta,
                long long dk_rs, long long dv_rs, float scale, cudaStream_t stream) {
   using S = DkvSmem<HD>;
   static bool attr_set = false;
-  if (int e = prepare(flash_dkv_kernel<HD>, S::bytes, attr_set)) return e;
+  if (int e = allow_smem(flash_dkv_kernel<HD>, S::bytes, attr_set)) return e;
   dim3 grid(n_heads, bs, (L + T - 1) / T);
   flash_dkv_kernel<HD><<<grid, 128 + 32, S::bytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
@@ -560,7 +459,7 @@ extern "C" int flash_attention_dq(const void* q, const void* k, const void* v, c
   CUtensorMap maps[4];
   const void* const ptrs[4] = {q, k, v, dout};
   const long long strides[4] = {q_rs, k_rs, v_rs, do_rs};
-  if (!encode_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
+  if (!encode_row_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
@@ -586,7 +485,7 @@ extern "C" int flash_attention_dkv(const void* q, const void* k, const void* v, 
   CUtensorMap maps[4];
   const void* const ptrs[4] = {q, k, v, dout};
   const long long strides[4] = {q_rs, k_rs, v_rs, do_rs};
-  if (!encode_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
+  if (!encode_row_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {

@@ -1,8 +1,9 @@
 // The Hopper pieces the TMA-and-wgmma kernels share (indexed_linear.cu,
-// quant_matmul.cu's w8a16, short_attention.cu): shared-memory addresses,
-// mbarriers, TMA tensor copies and the tensor maps they read, wgmma
-// descriptors and products, and the split-K reduction across the blocks of
-// a thread-block cluster.  Every kernel that includes it is built for
+// quant_matmul.cu's w8a16, short_attention.cu, flash_attention.cu,
+// exact_attention.cu): shared-memory addresses, mbarriers, TMA tensor
+// copies and the tensor maps they read, wgmma descriptors and products,
+// the 64-row attention tiles' products and epilogue, and the split-K
+// reduction across the blocks of a thread-block cluster.  Every kernel that includes it is built for
 // sm_90a (wgmma exists only there).
 #pragma once
 
@@ -358,6 +359,94 @@ __device__ __forceinline__ void cluster_reduce(const float (&acc)[BN / 2], bool 
   }
 }
 
+// Tiles of 64 rows of a (rows, H * hd) bf16 tensor, as the attention
+// kernels read them (flash_attention.cu, exact_attention.cu): 64-column
+// boxes in the 128-byte swizzle, one consumer warpgroup whose m64n64
+// accumulators feed the next product's A fragments.
+namespace tile64 {
+
+constexpr int BOX = 64 * 64 * 2;  // one 64-row x 64-column bf16 box: 8 KB
+
+// 64-column boxes of a row tile (head dim 32 takes one, half of it read)
+template <int HD>
+__host__ __device__ constexpr int n_boxes() {
+  return HD <= 64 ? 1 : HD / 64;
+}
+
+// the consumer warpgroup's named barrier (0 is __syncthreads)
+__device__ __forceinline__ void wg_sync() { asm volatile("bar.sync 1, 128;\n" ::: "memory"); }
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc[c] (64 x 64, m64n64 layout, c = 64-column box) += A (64 x 64 bf16
+// fragments in registers) . the MN-major tile at `tile` (64 rows along K)
+template <int NB>
+__device__ __forceinline__ void product_rs(float (&acc)[NB][32], uint32_t (&a)[4][4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int c = 0; c < NB; ++c) pin(acc[c]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) pin(a[kk]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      Wgmma<64>::rs<1>(acc[c], a[kk], sw128_mn_desc(tile + c * BOX + kk * 2048));
+  wgmma_commit();
+}
+
+// d (64 x 64) = A B^T over HD, A and B both K-major 64-row tiles; issued
+// and committed as one group, not waited for
+template <int HD>
+__device__ __forceinline__ void product_ss(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  pin(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    Wgmma<64>::ss(d, sw128_desc(a + (kk / 4) * BOX) + 2 * (kk % 4),
+                  sw128_desc(b + (kk / 4) * BOX) + 2 * (kk % 4));
+  wgmma_commit();
+}
+
+// Write the warpgroup's 64 x HD f32 accumulator, times `mul`, as bf16 rows
+// row0.. of dst (row stride rs, rows at or past `rows` skipped), staged in
+// the 128-byte swizzle through `stage` (a tile of the block whose rows
+// 16 w .. 16 w + 15 no product of warp w reads any more).
+template <int HD>
+__device__ __forceinline__ void store_tile(float (&acc)[n_boxes<HD>()][32], float mul,
+                                           unsigned char* stage, __nv_bfloat16* dst, long long rs,
+                                           int row0, int rows) {
+  constexpr int NB = n_boxes<HD>();
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  // acc[c][4j + 2hh + e] is row 16 warp + g + 8hh, column 64c + 8j + 2t + e
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = warp * 16 + g + 8 * hh;
+        *reinterpret_cast<uint32_t*>(stage + c * BOX + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[c][4 * j + 2 * hh] * mul, acc[c][4 * j + 2 * hh + 1] * mul);
+      }
+  wg_sync();
+  for (int idx = threadIdx.x; idx < 64 * NB * 8; idx += 128) {
+    const int r = idx / (NB * 8), c = idx / 8 % NB, cc = idx % 8;
+    if (64 * c + 8 * cc >= HD || row0 + r >= rows) continue;
+    *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * rs + 64 * c + 8 * cc) =
+        *reinterpret_cast<const uint4*>(stage + c * BOX + r * 128 + ((cc ^ (r & 7)) << 4));
+  }
+}
+
+}  // namespace tile64
+
 // libcuda's cuTensorMapEncodeTiled, found through the runtime's entry-point
 // query (no link against libcuda)
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -397,6 +486,31 @@ inline bool encode_bf16(CUtensorMap* map, const void* base, int rank, const cuui
                         const cuuint64_t* strides, const cuuint32_t* box) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
                 CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// N tensors as (bs * L rows, H * hd columns) with each tensor's row stride
+// (elements), 64 x 64 boxes in the 128-byte swizzle
+template <int N>
+bool encode_row_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N],
+                     const long long (&strides)[N], int bs, int L, int n_heads, int head_dim) {
+  for (int i = 0; i < N; ++i) {
+    const cuuint64_t dims[2] = {(cuuint64_t)n_heads * head_dim, (cuuint64_t)bs * L};
+    const cuuint64_t rs[1] = {(cuuint64_t)strides[i] * 2};
+    const cuuint32_t box[2] = {64, 64};
+    if (!encode_bf16(&maps[i], ptrs[i], 2, dims, rs, box)) return false;
+  }
+  return true;
+}
+
+// Once per kernel instance: allows it `bytes` of dynamic shared memory
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return 0;
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  done = true;
+  return 0;
 }
 
 }  // namespace hopper

@@ -6,15 +6,21 @@ kernel ``fluid_llm_tpu/ops/exact_attention.py:_kernel``.
 
 Bound and design, in short (the source's header has the detail): at the
 rollout geometry one layer is ~0.67 GFLOP over ~3 MB, too little to fill the
-card, so the kernel is latency bound.  It runs one block per (64-query tile,
-head, batch) -- 132 blocks at L 661, H 12 -- walks the 64-key tiles only up
-to the diagonal with an online softmax in f32, and reads q/k/v in place in
-the packed ``(bs, L, H*hd)`` layout through row strides, so the column
-slices of a fused qkv projection need no copy and no transpose.
+card, so the time is the chain of 64-key tile steps a block walks.  A block
+takes 64 query rows of one (batch, head) -- 132 blocks at L 661, H 12 --
+the last query tiles, which walk the most keys, first (:func:`query_tiles`,
+:func:`walk`).  A producer warp streams the 64-key K and V tiles up to the
+diagonal by TMA through a ring of two stages; one consumer warpgroup runs
+``S = Q K^T`` and ``O += P V`` on ``wgmma`` with the online softmax (row max
+and sum in f32) in registers: the unnormalised p is rounded to bf16 as the
+second product's operand and the output divided by the row sum once.  q/k/v
+are read in place in the packed ``(bs, L, H*hd)`` layout through row
+strides, so the column slices of a fused qkv projection need no copy and no
+transpose.  No atomics: every call repeats bit for bit.
 
 Forward only: the rollout and inference run it without gradients; the
 training forward goes through ``ops/flash_attention.py``, whose forward is
-this kernel's tile loop writing the row logsumexp as well.
+this kernel writing the row logsumexp as well.
 
 The mask reproduces ``backbone.make_masks`` exactly:
 ``allowed[i, j] = (j <= i and valid[j]) or j == i`` (the forced diagonal
@@ -30,6 +36,19 @@ import torch
 from fluid_llm_tpu_torch.ops import _build
 
 HEAD_DIMS = (32, 64, 128)
+TILE = 64  # query rows of a block, and keys of each tile it streams
+
+
+def query_tiles(L: int) -> list[range]:
+    """The query rows of each block of one (batch, head), in launch order:
+    the last tiles, which walk the most keys, first."""
+    n = -(-L // TILE)
+    return [range(t * TILE, min(L, (t + 1) * TILE)) for t in reversed(range(n))]
+
+
+def walk(tile: range) -> int:
+    """Key tiles a block streams: those up to its last query row."""
+    return (tile.stop - 1) // TILE + 1
 
 
 def causal_attention_ref(q, k, v, valid, n_heads: int, head_dim: int) -> torch.Tensor:

@@ -6,7 +6,8 @@ kernels:
 
 - forward with the per-row logsumexp, ``flash_attention_fwd`` in
   ``csrc/exact_attention.cu`` (replaces ``_fwd_kernel`` :55): the
-  exact-window forward's tile loop, which also writes ``lse``;
+  exact-window forward's kernel (TMA ring, ``wgmma``, the online softmax
+  in registers), which also writes ``lse``;
 - ``dq`` and ``dk/dv``, ``csrc/flash_attention.cu`` (replace ``_dq_kernel``
   :190 and ``_dkv_kernel`` :230, both launched by ``_flash_backward``
   :275), flash-2 style, from ``lse`` and ``delta = rowsum(dO * O)``;
@@ -44,7 +45,7 @@ import ctypes
 import torch
 
 from fluid_llm_tpu_torch.ops import _build
-from fluid_llm_tpu_torch.ops.exact_attention import HEAD_DIMS, row_stride
+from fluid_llm_tpu_torch.ops.exact_attention import HEAD_DIMS, TILE, query_tiles, row_stride
 
 
 def _allowed(valid: torch.Tensor, L: int) -> torch.Tensor:
@@ -107,14 +108,9 @@ def row_delta(out: torch.Tensor, dout: torch.Tensor, n_heads: int, head_dim: int
     return prod.reshape(bs, L, n_heads, head_dim).sum(-1).transpose(1, 2).contiguous()
 
 
-TILE = 64  # rows of a block and of each tile it streams: queries or keys
-
-
-def query_tiles(L: int) -> list[range]:
-    """The query rows of each dq block of one (batch, head), in launch
-    order: the last tiles, which walk the most keys, first."""
-    n = -(-L // TILE)
-    return [range(t * TILE, min(L, (t + 1) * TILE)) for t in reversed(range(n))]
+# TILE (rows of a block and of each tile it streams: queries or keys) and
+# query_tiles (the dq blocks' query rows, longest walk first) are the
+# forward's (ops/exact_attention.py).
 
 
 def key_tiles(L: int) -> list[range]:

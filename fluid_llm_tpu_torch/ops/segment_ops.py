@@ -36,9 +36,20 @@ not).  The TPU kernels' window machinery (``windowed``, ``window``,
 scatter and is not carried over: the CUDA kernels take any ids.
 
 Bound and design, in short (the source's header has the detail): both are
-bytes bound (~50 MB a call at the MeshGraphNet step, one add per element);
-the sum runs F/VEC threads per node row over that row's edges in ascending
-order and writes the row once, the gather F/VEC threads per edge row.
+bytes bound at MeshGraphNet's F 128 (~50 MB a call, one add per element);
+at GAT's F 1 only latency is left, and the longest chain of dependent loads
+(each graph's 132-edge ghost row) sets the time.  Each output element of
+the sum is one thread's f32 sum of its row's edges, added in ascending edge
+order from 0 -- the order :func:`csr_walk` spells out and the CPU twin's
+``index_add_`` follows, so the kernel equals both bit for bit.  What
+differs with F is how the loads are issued (:func:`sum_walk`): below
+:data:`WIDE` columns a warp stages the contiguous stretch of perm its rows
+own, and the values, in shared memory, chunk after chunk
+(:func:`narrow_chunks`); from :data:`WIDE` on a row's threads walk its run
+in rounds of :data:`ROUND` edges, every value load of a round in flight
+before the first add and the next round's rows prefetched, the rows with
+more than one round first (:meth:`SegmentIndex.long_first`).  The gather
+runs F/VEC threads per edge row.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ class SegmentIndex:
         off = torch.arange(b, device=idx.device)[:, None] * self.num_nodes
         self.ids = torch.where(ok, idx2 + off, -1).to(torch.int32).reshape(-1)
         self._csr: tuple[torch.Tensor, torch.Tensor] | None = None
+        self._order: torch.Tensor | None = None
 
     @property
     def device(self) -> torch.device:
@@ -89,6 +101,63 @@ class SegmentIndex:
             row_ptr = torch.searchsorted(sorted_key, bounds, out_int32=True)
             self._csr = (perm.to(torch.int32), row_ptr)
         return self._csr
+
+    def long_first(self) -> torch.Tensor:
+        """int32 ``(n_rows,)``: the rows whose run is longer than one of the
+        wide sum's rounds (:data:`ROUND` edges), then the others, each in
+        row order -- the order in which the wide sum starts them.  A stable
+        partition of the CSR's run lengths, built once (no sort, no host
+        synchronisation)."""
+        if self._order is None:
+            row_ptr = self.csr()[1]
+            long = (row_ptr[1:] - row_ptr[:-1]) > ROUND
+            n_long = long.sum()
+            pos = torch.where(long, long.cumsum(0) - 1, n_long + (~long).cumsum(0) - 1)
+            rows = torch.arange(self.n_rows, dtype=torch.int32, device=row_ptr.device)
+            self._order = torch.empty_like(rows).scatter_(0, pos, rows)
+        return self._order
+
+
+WIDE = 32  # F from which the sum kernel walks a row in rounds
+ROUND = 8  # edges of a wide row's round
+CHUNK_EDGES, CHUNK_FLOATS = 512, 1024  # a narrow warp's staged edges and their values
+
+
+def narrow_chunks(row_ptr: list[int], F: int, warp: int) -> list[range]:
+    """The chunks of perm positions that narrow warp ``warp`` (F < WIDE:
+    slots (row, column) ``32 warp`` .. ``32 warp + 31`` in row-major order)
+    stages one after another: the stretch its rows own, in steps of at most
+    ``CHUNK_EDGES`` edges and ``CHUNK_FLOATS`` values."""
+    n_rows, t0 = len(row_ptr) - 1, 32 * warp
+    first, last = t0 // F, min((t0 + 31) // F, n_rows - 1)
+    per = min(CHUNK_EDGES, CHUNK_FLOATS // F)
+    s0, s1 = row_ptr[first], row_ptr[last + 1]
+    return [range(cs, min(cs + per, s1)) for cs in range(s0, s1, per)]
+
+
+def sum_walk(row_ptr: list[int], F: int, r: int, c: int) -> list[range]:
+    """The perm positions the sum kernel adds into element (r, c), in
+    order, one range for each set of loads in flight together: the row's
+    part of each chunk its narrow warp stages, or its rounds of ROUND edges."""
+    a, b = row_ptr[r], row_ptr[r + 1]
+    if F >= WIDE:
+        return [range(j, min(j + ROUND, b)) for j in range(a, b, ROUND)]
+    chunks = narrow_chunks(row_ptr, F, (r * F + c) // 32)
+    runs = (range(max(a, k.start), min(b, k.stop)) for k in chunks)
+    return [run for run in runs if len(run)]
+
+
+def csr_walk(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The sum kernel's additions on any device: round k adds each row's
+    k-th edge (ascending) to its f32 sum, from 0, so every row is summed
+    in the kernel's order.  values (M, F) -> (n_rows, F)."""
+    perm, row_ptr = index.csr()
+    start, degree = row_ptr[:-1].long(), (row_ptr[1:] - row_ptr[:-1]).long()
+    out = values2.new_zeros(index.n_rows, values2.shape[1])
+    for k in range(int(degree.max()) if index.n_rows else 0):
+        rows = (degree > k).nonzero().flatten()
+        out[rows] = out[rows] + values2[perm[start[rows] + k].long()]
+    return out
 
 
 def segment_sum_ref(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
@@ -125,11 +194,12 @@ def segment_sum(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
     """The sum kernel on CUDA tensors: values f32 (M, F) -> (n_rows, F)."""
     values2 = _check("segment_sum", values2, index, index.ids.shape[0])
     perm, row_ptr = index.csr()
+    order = index.long_first()
     out = torch.empty(index.n_rows, values2.shape[1], dtype=torch.float32, device=values2.device)
     with torch.cuda.device(values2.device):
         err = _build.load().segment_sum_f32(
-            values2.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(), out.data_ptr(),
-            index.n_rows, values2.shape[1], _vectorized(values2, out),
+            values2.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(), order.data_ptr(),
+            out.data_ptr(), index.n_rows, values2.shape[1], _vectorized(values2, out),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "segment_sum_f32")

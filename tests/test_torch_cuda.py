@@ -36,7 +36,10 @@ graph replay) and short attention under both plans (64 or 128 query rows
 a block; L 1 to 1536, hd 64 and 128, rows that see only their forced
 diagonal, repeats), and the flash dq and dk/dv (L 1 to 1536, hd 32 to
 128, diagonal-only rows, q/k/v slices of one fused projection), repeating
-bit for bit, also in a graph.
+bit for bit, also in a graph; exact attention and the flash forward too
+(their out and lse).  The segment sum equals a CPU walk of its CSR (each
+row's edges ascending, added in f32 from 0) bit for bit at F 1, 2, 32 and
+128, dropped ids and the 132-edge ghost row included, also from a graph.
 A gradient that is zero in exact arithmetic (dq and dk of rows that see
 only their diagonal) is held to rounding noise, 1e-4 of |dout|, instead.
 """
@@ -191,6 +194,43 @@ def test_flash_backward_repeats_bit_for_bit_also_in_a_graph(dev, bs, L, H, hd):
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
+        for a, b in zip(first, replayed):
+            assert torch.equal(a, b)
+
+
+def _graph_replays(fn, n: int = 2):
+    """``fn``'s outputs from a CUDA graph that captured one call, replayed
+    ``n`` times: a generator of the same output tensors after each replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    for _ in range(n):
+        graph.replay()
+        torch.cuda.synchronize()
+        yield replayed
+
+
+@pytest.mark.parametrize("bs,L,H,hd", [(1, 661, 12, 64), (8, 601, 12, 64), (2, 129, 2, 128),
+                                       (1, 70, 3, 32)])
+def test_exact_and_flash_forward_repeat_bit_for_bit_also_in_a_graph(dev, bs, L, H, hd):
+    """The exact kernel's output and the flash forward's (out, lse) equal bit
+    for bit on a second call and when replayed from a CUDA graph (no
+    atomics; every element written once by one block)."""
+    q, k, v, _, valid = _flash_case(dev, bs, L, H, hd, 5, True)
+
+    def calls():
+        return (xa.causal_attention(q, k, v, valid, H, hd),) + fa.flash_forward(q, k, v, valid, H, hd)
+
+    first, again = calls(), calls()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for replayed in _graph_replays(calls):
         for a, b in zip(first, replayed):
             assert torch.equal(a, b)
 
@@ -670,6 +710,35 @@ def test_segment_kernels_drop_out_of_range_ids(dev, F):
     kept = torch.where(dropped[:, None], 0.0, vals)
     want_row = kept.reshape(B, E, F)[1][ids[1].to(dev) == 0].sum(0)
     torch.testing.assert_close(so.segment_sum(vals, index)[N], want_row, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("F", [1, 2, 32, 128])
+def test_segment_sum_is_the_csr_walk_bit_for_bit(dev, eagle_edges, F):
+    """The sum kernel equals a CPU walk of the same CSR (each row's edges in
+    ascending order, added one by one in f32 from 0) bit for bit, and so
+    the CPU twin: on the EAGLE receivers with dropped ids (the ghost slot's
+    neighbours beyond it, negative) and the ghost row, whose 132 edges are
+    17 of the wide kernel's rounds and part of a narrow warp's chunk;
+    again bit for bit when replayed from a CUDA graph."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    B, E = eagle_edges.shape[:2]
+    N = 3529
+    ids = eagle_edges[..., 1].clone()
+    ids[0, 100:110] = N + 5
+    ids[2, 7] = -1
+    index_cpu, index = so.SegmentIndex(ids, N), so.SegmentIndex(ids.to(dev), N)
+    row_ptr = index_cpu.csr()[1]
+    assert int((row_ptr[1:] - row_ptr[:-1]).max()) > 16 * so.ROUND
+    vals = torch.randn(B * E, F, generator=torch.Generator().manual_seed(F))
+    want = so.csr_walk(vals, index_cpu)
+    assert torch.equal(want, so.segment_sum_ref(vals, index_cpu))
+    x = vals.to(dev)
+    got = so.segment_sum(x, index)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for replayed in _graph_replays(lambda: so.segment_sum(x, index)):
+        assert torch.equal(replayed.cpu(), want)
 
 
 def test_segment_functions_gradients_match_twins(dev, eagle_edges):

@@ -1,4 +1,4 @@
-"""The launch plans of the slab decode, the indexed linear, w8a16, short attention and the flash backward.
+"""The launch plans of the slab decode, the indexed linear, w8a16, short attention, the flash backward, exact attention and the segment sum.
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
@@ -12,8 +12,13 @@ unsplit where the K run fits the kernel's ring; w8a16 takes the sweep's
 plans on its main path; short attention's query tiles cover every row
 once; the flash backward's dq blocks cover every query row and its dk/dv
 blocks every key once, each streaming exactly the 64-row tiles the causal
-mask needs, longest walk first; every shape ``supported`` accepts gets a
-plan.  The kernels themselves run only on the card
+mask needs, longest walk first, and so do the blocks of exact attention
+(``ops/exact_attention.query_tiles``, ``walk``); the segment sum
+(``ops/segment_ops.sum_walk``, ``narrow_chunks``) adds every kept edge
+once, in ascending order within each row, walks a long run chunk after
+chunk or round after round, and starts the long rows first
+(``SegmentIndex.long_first``); every shape
+``supported`` accepts gets a plan.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -24,9 +29,11 @@ import pytest
 import torch
 
 from fluid_llm_tpu_torch.ops import decode_attention as da
+from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import indexed_linear as il
 from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+from fluid_llm_tpu_torch.ops import segment_ops as so
 from fluid_llm_tpu_torch.ops import short_attention as sa
 
 torch.set_num_threads(2)
@@ -260,3 +267,118 @@ def test_flash_tile_is_the_kernels():
     block and of each streamed tile in ``csrc/flash_attention.cu``."""
     src = (Path(fa.__file__).parents[1] / "csrc" / "flash_attention.cu").read_text()
     assert re.search(r"^constexpr int T = (\d+);", src, re.M).group(1) == str(fa.TILE)
+
+
+# -- exact attention and the flash forward (ops/exact_attention.query_tiles, walk)
+
+
+@pytest.mark.parametrize("L", FLASH_LENGTHS)
+def test_exact_tiles_cover_every_row_once_longest_walk_first(L):
+    """The blocks of one (batch, head) cover the query rows 0..L-1 once, in
+    launch order longest walk first; each streams the key tiles from 0 up
+    to the one holding its last row: exactly those with a key the causal
+    mask allows one of its rows."""
+    tiles = xa.query_tiles(L)
+    assert sorted(i for t in tiles for i in t) == list(range(L))
+    causal = torch.ones(L, L, dtype=torch.bool).tril()  # [query, key]
+    walks = []
+    for t in tiles:
+        seen = causal[t.start:t.stop].any(0)
+        assert {int(i) // xa.TILE for i in seen.nonzero().flatten()} == set(range(xa.walk(t)))
+        walks.append(xa.walk(t))
+    assert walks == sorted(walks, reverse=True) and walks[0] == -(-L // xa.TILE)
+    assert fa.query_tiles(L) == tiles  # the dq kernel's blocks are the forward's
+
+
+def test_exact_tile_is_the_kernels():
+    """``TILE`` is the rows of a block and of each streamed key tile in
+    ``csrc/exact_attention.cu``."""
+    src = (Path(xa.__file__).parents[1] / "csrc" / "exact_attention.cu").read_text()
+    assert re.search(r"^constexpr int T = (\d+);", src, re.M).group(1) == str(xa.TILE)
+
+
+# -- the segment sum (ops/segment_ops.narrow_chunks, sum_walk)
+
+
+def _segment_index_with_a_long_row():
+    """Sorted ids of 3 graphs of 257 nodes with dropped ids (the ghost slot
+    N, beyond it, negative), row 40 of graph 1 named by 132 edges more, as
+    the EAGLE collate's ghost row is, and row 200 of graph 2 by 700 more:
+    longer than a narrow warp's chunk."""
+    g = torch.Generator().manual_seed(3)
+    B, E, N = 3, 2000, 257
+    ids = torch.sort(torch.randint(0, N, (B, E), generator=g), dim=1).values
+    ids[1, 300:432] = 40
+    ids[2, 1000:1700] = 200
+    ids[:, -40:] = N
+    ids[0, 3:9] = N + 11
+    ids[2, 100] = -5
+    return so.SegmentIndex(ids, N), (N + 40, 2 * N + 200)
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 31, 32, 33, 128])
+def test_segment_walk_adds_every_kept_edge_once_in_ascending_order(F):
+    """Each output element (r, c) adds exactly its row's edges, ascending,
+    each once; the dropped ids in no row.  Narrow warps (F < WIDE) stage
+    their rows' stretch of perm in chunks that cover it once, in order, at
+    most CHUNK_EDGES edges and CHUNK_FLOATS values each (the 700-edge row
+    takes two chunks at F 1); wide rows walk rounds of ROUND edges (the
+    132-edge row takes 17)."""
+    index, (long_row, longer_row) = _segment_index_with_a_long_row()
+    perm, row_ptr = index.csr()
+    rp = row_ptr.tolist()
+    taken = set()
+    for r in range(index.n_rows):
+        for c in range(F):
+            walk = so.sum_walk(rp, F, r, c)
+            assert [j for run in walk for j in run] == list(range(rp[r], rp[r + 1]))
+            taken.update(int(perm[j]) for run in walk for j in run)
+    assert sorted(taken) == (index.ids >= 0).nonzero().flatten().tolist()
+    for r in range(index.n_rows):  # the CSR: each row's edges ascending, all its own
+        run = perm[rp[r]:rp[r + 1]].tolist()
+        assert run == sorted(run) and all(int(index.ids[e]) == r for e in run)
+    if F < so.WIDE:
+        for warp in range(-(-index.n_rows * F // 32)):
+            chunks = so.narrow_chunks(rp, F, warp)
+            first, last = 32 * warp // F, min((32 * warp + 31) // F, index.n_rows - 1)
+            assert [j for k in chunks for j in k] == list(range(rp[first], rp[last + 1]))
+            assert all(len(k) <= min(so.CHUNK_EDGES, so.CHUNK_FLOATS // F) for k in chunks)
+        assert len(so.sum_walk(rp, F, longer_row, 0)) >= 2
+    else:
+        walk = so.sum_walk(rp, F, long_row, 0)
+        assert all(len(run) <= so.ROUND for run in walk)
+        assert len(walk) == -(-(rp[long_row + 1] - rp[long_row]) // so.ROUND) >= 17
+
+
+def test_segment_long_rows_start_first():
+    """``long_first`` is a permutation of the rows: those with more than
+    ROUND edges (the long row among them), then the others, each part in
+    row order."""
+    index, (long_row, longer_row) = _segment_index_with_a_long_row()
+    row_ptr = index.csr()[1]
+    degree = (row_ptr[1:] - row_ptr[:-1]).tolist()
+    order = index.long_first()
+    assert order.dtype == torch.int32
+    long = [r for r in range(index.n_rows) if degree[r] > so.ROUND]
+    assert long_row in long and longer_row in long
+    assert order.tolist() == long + [r for r in range(index.n_rows) if degree[r] <= so.ROUND]
+    assert index.long_first() is order  # built once
+
+
+def test_segment_plan_is_the_kernels():
+    """``WIDE``, ``ROUND``, ``CHUNK_EDGES`` and ``CHUNK_FLOATS`` are the sum
+    kernels' own (``csrc/segment_ops.cu``)."""
+    src = (Path(so.__file__).parents[1] / "csrc" / "segment_ops.cu").read_text()
+    for name in ("WIDE", "ROUND", "CHUNK_EDGES", "CHUNK_FLOATS"):
+        got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1)
+        assert got == str(getattr(so, name)), name
+
+
+@pytest.mark.parametrize("F", [1, 2, 32, 128])
+def test_csr_walk_is_the_twin_bit_for_bit_with_a_long_row(F):
+    """``csr_walk`` (the kernel's order of additions, one round per edge
+    rank) equals the CPU twin bit for bit, the long row included: the
+    card tests and chip_smoke hold the kernel to it."""
+    index, _ = _segment_index_with_a_long_row()
+    vals = torch.randn(index.ids.shape[0], F, generator=torch.Generator().manual_seed(F))
+    assert torch.equal(so.csr_walk(vals, index), so.segment_sum_ref(vals, index))

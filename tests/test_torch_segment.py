@@ -140,6 +140,20 @@ def test_csr_walk_is_the_twin_bit_for_bit(kind):
     assert torch.equal(walked, so.segment_sum_ref(vals, index))
 
 
+@pytest.mark.parametrize("feat", FEATS, ids=str)
+@pytest.mark.parametrize("kind", KINDS)
+def test_csr_walk_function_is_the_twin_bit_for_bit(kind, feat):
+    """``segment_ops.csr_walk``, the kernel's order vectorised over rows,
+    equals the twin bit for bit on the CPU, a row of 20 edges (three of the
+    kernel's batches) included."""
+    rng = np.random.default_rng(11)
+    ids = make_ids(kind, rng)
+    ids[..., 40:60] = 3
+    vals = torch.from_numpy(_values(rng, tuple(ids.shape), feat)).reshape(ids.size, -1)
+    index = so.SegmentIndex(torch.from_numpy(ids), N)
+    assert torch.equal(so.csr_walk(vals, index), so.segment_sum_ref(vals, index))
+
+
 def test_index_flattens_with_per_element_offsets():
     """An id outside its own element's [0, N) is -1, never the next
     element's row (``segment_sum_pallas.py:270-282``)."""
