@@ -32,9 +32,12 @@ Phases, each printing one line per result; any failure exits nonzero:
                beside ``bound_ms``: the larger of the
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
-               the slab decode, the indexed linear, w8a16, short attention,
-               the flash dq and dk/dv and the segment kernels also repeated
-               bit for bit, all but the last with their launch geometry;
+               exact attention, the flash forward (its lse within
+               LSE_TOL), the slab decode, the indexed linear, w8a16, short
+               attention, the flash dq and dk/dv and the segment kernels
+               also repeated bit for bit, all but the last with their launch
+               geometry, and the segment sum equal bit for bit to a CPU walk
+               of its CSR (each row's edges ascending, added in f32 from 0);
                then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
@@ -179,6 +182,10 @@ REL_TOL = 1e-2
 # tensor-core operands), so per-layer differences of a few 1e-3 compound
 # through the backward over 12 layers and the decoder.
 GRAD_TOL = 5e-2
+# Absolute bound on the flash forward's row logsumexp against the twin's
+# (f32 statistics on both sides; the kernel's exp2-domain max and log of the
+# sum differ from torch.logsumexp by rounding only; observed ~1e-6).
+LSE_TOL = 1e-4
 STEPS = 251
 ROLLOUT_TOKENS = 11 * 60 + 1  # 10-frame window + see-init frame, 60 patches each, + BOS
 TRAIN_BS = 8
@@ -412,12 +419,18 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         valid = (torch.arange(L)[None] >= n_invalid).int().to(dev)
         out = xa.causal_attention(q, k, v, valid, H, hd)
         ref = xa.causal_attention_ref(q, k, v, valid, H, hd)
+        again = xa.causal_attention(q, k, v, valid, H, hd)
+        twin_again = xa.causal_attention_ref(q, k, v, valid, H, hd)
         allowed = _allowed_causal(valid)
         torch.cuda.synchronize()
         rows.append(dict(
             kernel="exact_attention", shape=f"(1,{L},{D}) H{H} hd{hd} invalid{n_invalid}",
             main_path=(L == ROLLOUT_TOKENS), rel=rel_err(out, ref),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            deterministic=bool(torch.equal(again, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)),
+            geometry=f"{H} heads x 1 batch x {len(xa.query_tiles(L))} query tiles of "
+                     f"{xa.TILE} rows",
             ms=device_ms(lambda: xa.causal_attention(q, k, v, valid, H, hd)),
             plain_ms=device_ms(lambda: xa.causal_attention_ref(q, k, v, valid, H, hd)),
             library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
@@ -449,6 +462,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         valid = (torch.arange(L)[None] >= n_invalid).expand(bs, L).int().contiguous().to(dev)
         out, lse = fa.flash_forward(q, k, v, valid, H, hd)
         ref_out, ref_lse = fa.flash_forward_ref(q, k, v, valid, H, hd)
+        fwd_again, twin_fwd_again = (fa.flash_forward(q, k, v, valid, H, hd),
+                                     fa.flash_forward_ref(q, k, v, valid, H, hd))
         dq, dk, dv = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
         rq, rk, rv = fa.flash_backward_ref(q, k, v, valid, out, lse, dout, H, hd)
         again = fa.flash_backward(q, k, v, valid, out, lse, dout, H, hd)
@@ -464,6 +479,11 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             kernel="flash_attention_fwd", shape=shape, main_path=(n_invalid == 0),
             rel=rel_err(out, ref_out), max_abs_err=(out.float() - ref_out.float()).abs().max().item(),
             lse_max_abs_err=(lse - ref_lse).abs().max().item(),
+            deterministic=bool(torch.equal(fwd_again[0], out) and torch.equal(fwd_again[1], lse)),
+            twin_deterministic=bool(torch.equal(twin_fwd_again[0], ref_out)
+                                    and torch.equal(twin_fwd_again[1], ref_lse)),
+            geometry=f"{H} heads x {bs} batch x {len(fa.query_tiles(L))} query tiles of "
+                     f"{fa.TILE} rows",
             ms=device_ms(lambda: fa.flash_forward(q, k, v, valid, H, hd)),
             plain_ms=device_ms(lambda: fa.flash_forward_ref(q, k, v, valid, H, hd)),
             library_ms=device_ms(lambda: sdpa(q, k, v, allowed, H)),
@@ -588,6 +608,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
     rows += _segment_rows(dev, g)
     for r in rows:
         ok = (r["rel"] <= r.get("rel_tol", REL_TOL) and r.get("finite", True)
+              and r.get("lse_max_abs_err", 0.0) <= LSE_TOL
               and r.get("exact") is not False and r.get("deterministic") is not False)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         notes = "" if r.get("exact") is None else \
@@ -595,6 +616,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         if r.get("deterministic") is not None:
             notes += (f", repeat bit-equal {r['deterministic']} (twin "
                       f"{r['twin_deterministic']})")
+        if r.get("lse_max_abs_err") is not None:
+            notes += f", lse max_abs {r['lse_max_abs_err']:.3e} (bound {LSE_TOL})"
         if r.get("geometry"):
             notes += f", launch: {r['geometry']}"
         print(f"[kernels] {r['kernel']} {r['shape']}: rel {r['rel']:.3e} "
@@ -605,7 +628,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
               "and dk/dv are the whole backward's)")
         if not ok:
             failures.append(f"kernel {r['kernel']} {r['shape']} rel {r['rel']} "
-                            f"exact {r.get('exact')} deterministic {r.get('deterministic')}")
+                            f"lse {r.get('lse_max_abs_err')} exact {r.get('exact')} "
+                            f"deterministic {r.get('deterministic')}")
     return rows
 
 

@@ -55,10 +55,13 @@
 //   bf16 straight into the A fragment of O += P V, a wgmma with V as an
 //   MN-major B.  No score, probability or accumulator touches shared
 //   memory.  The quad's partial row sums are joined once, at the end.
-// - The step's products are issued and waited for inside the step (an
-//   in-flight product across the loop edge makes ptxas serialise every
+// - The step's two products are issued and waited for one after the other
+//   (an in-flight product across the loop edge makes ptxas serialise every
 //   wgmma of the kernel, warning C7518); the SM's blocks overlap each
-//   other's chains.
+//   other's chains.  Issuing the next tile's Q K^T before this tile's P V
+//   and running its softmax under P V, within the step, measured 0-25 %
+//   slower on an H100 80GB HBM3 (700 W) at every shape tried, the rollout's
+//   one block an SM included.
 // - Blocks of the last query tiles, which walk the most keys, start first.
 //   The epilogue divides by l, stages the bf16 rows through the block's Q
 //   tile (no longer read) and writes 16-byte rows, none at or past L.
@@ -156,7 +159,7 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sc)[3
     for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 }
 
-template <int HD, bool OVERLAP>
+template <int HD>
 __global__ void __launch_bounds__(128 + 32, HD <= 64 ? 3 : 2)
 exact_attention_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -235,60 +238,24 @@ exact_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   uint32_t pa[4][4];
   mbar_wait(q_bar, 0);
 
-  if (!OVERLAP) {
-    for (int kt = 0; kt < n_kt; ++kt) {
-      const int s = kt % STAGES;
-      mbar_wait(full + 8 * s, (kt / STAGES) & 1);
-      const uint32_t k_tile = base + S::ring + s * S::stage;
-      product_ss<HD>(sc, q_tile, k_tile);  // S = Q K^T
-      const uint32_t lo = masks[2 * s], hi = masks[2 * s + 1];
-      wgmma_wait<0>();
-      pin(sc);
-      softmax_tile(sc, m, l, alpha, i0, kt * T, t, lo, hi, scale2);
-      rescale<NB>(o, alpha);
-      pack_p(pa, sc);
-      product_rs<NB>(o, pa, k_tile + S::tile);  // O += P V
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < NB; ++c) pin(o[c]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
-      mbar_arrive(empty + 8 * s);
-    }
-  } else {
-    // tile 0's scores and p first; then each step issues the next tile's
-    // S under this tile's P V and takes the next softmax while P V runs
-    mbar_wait(full, 0);
-    product_ss<HD>(sc, q_tile, base + S::ring);
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full + 8 * s, (kt / STAGES) & 1);
+    const uint32_t k_tile = base + S::ring + s * S::stage;
+    product_ss<HD>(sc, q_tile, k_tile);  // S = Q K^T
+    const uint32_t lo = masks[2 * s], hi = masks[2 * s + 1];
     wgmma_wait<0>();
     pin(sc);
-    softmax_tile(sc, m, l, alpha, i0, 0, t, masks[0], masks[1], scale2);
+    softmax_tile(sc, m, l, alpha, i0, kt * T, t, lo, hi, scale2);
+    rescale<NB>(o, alpha);
     pack_p(pa, sc);
-    for (int kt = 0; kt + 1 < n_kt; ++kt) {
-      const int s = kt % STAGES, s1 = (kt + 1) % STAGES;
-      mbar_wait(full + 8 * s1, ((kt + 1) / STAGES) & 1);
-      const uint32_t k_next = base + S::ring + s1 * S::stage;
-      product_ss<HD>(sc, q_tile, k_next);                          // S' = Q K'^T
-      product_rs<NB>(o, pa, base + S::ring + s * S::stage + S::tile);  // O += P V
-      const uint32_t lo = masks[2 * s1], hi = masks[2 * s1 + 1];
-      wgmma_wait<1>();  // S' has landed (P V may still run)
-      pin(sc);
-      softmax_tile(sc, m, l, alpha, i0, (kt + 1) * T, t, lo, hi, scale2);
-      wgmma_wait<0>();
-#pragma unroll
-      for (int c = 0; c < NB; ++c) pin(o[c]);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
-      mbar_arrive(empty + 8 * s);
-      rescale<NB>(o, alpha);
-      pack_p(pa, sc);
-    }
-    const int s = (n_kt - 1) % STAGES;
-    product_rs<NB>(o, pa, base + S::ring + s * S::stage + S::tile);
+    product_rs<NB>(o, pa, k_tile + S::tile);  // O += P V
     wgmma_wait<0>();
 #pragma unroll
     for (int c = 0; c < NB; ++c) pin(o[c]);
-    mbar_arrive(empty + 8 * s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) pin(pa[kk]);
+    mbar_arrive(empty + 8 * s);  // every consumer thread: the stage may be refilled
   }
 
   // every row has its diagonal, so l > 0
@@ -309,14 +276,14 @@ exact_attention_kernel(const __grid_constant__ CUtensorMap q_map,
   store_tile<HD>(o, 1.f, smem + S::q, out + (long long)b * L * o_rs + h * HD, o_rs, q0, L);
 }
 
-template <int HD, bool OVERLAP>
+template <int HD>
 int launch(const CUtensorMap (&maps)[3], const void* valid, void* out, void* lse, int bs, int L,
            int n_heads, long long o_rs, float scale, cudaStream_t stream) {
   using S = ExactSmem<HD>;
   static bool attr_set = false;
-  if (int e = allow_smem(exact_attention_kernel<HD, OVERLAP>, S::bytes, attr_set)) return e;
+  if (int e = allow_smem(exact_attention_kernel<HD>, S::bytes, attr_set)) return e;
   dim3 grid(n_heads, bs, (L + T - 1) / T);
-  exact_attention_kernel<HD, OVERLAP><<<grid, 128 + 32, S::bytes, stream>>>(
+  exact_attention_kernel<HD><<<grid, 128 + 32, S::bytes, stream>>>(
       maps[0], maps[1], maps[2], static_cast<const int*>(valid),
       static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), L, o_rs, scale);
   return (int)cudaGetLastError();
@@ -324,7 +291,7 @@ int launch(const CUtensorMap (&maps)[3], const void* valid, void* out, void* lse
 
 int dispatch(const void* q, const void* k, const void* v, const void* valid, void* out, void* lse,
              int bs, int L, int n_heads, int head_dim, long long q_rs, long long k_rs,
-             long long v_rs, long long o_rs, float scale, int overlap, void* stream) {
+             long long v_rs, long long o_rs, float scale, void* stream) {
   if (bs < 1 || L < 1 || n_heads < 1) return (int)cudaErrorInvalidValue;
   CUtensorMap maps[3];
   const void* const ptrs[3] = {q, k, v};
@@ -332,26 +299,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* valid, voi
   if (!encode_row_maps(maps, ptrs, strides, bs, L, n_heads, head_dim))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int key = head_dim * 2 + (overlap ? 1 : 0);
-  switch (key) {
+  switch (head_dim) {
+    case 32:
+      return launch<32>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
     case 64:
-      return launch<32, false>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
-    case 65:
-      return launch<32, true>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
+      return launch<64>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
     case 128:
-      return launch<64, false>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
-    case 129:
-      return launch<64, true>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
-    case 256:
-      return launch<128, false>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
-    case 257:
-      return launch<128, true>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
+      return launch<128>(maps, valid, out, lse, bs, L, n_heads, o_rs, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
-
-constexpr int SHIPPED_OVERLAP = 0;
 
 }  // namespace
 
@@ -364,7 +322,7 @@ extern "C" int exact_attention_fwd(const void* q, const void* k, const void* v, 
                                    long long q_rs, long long k_rs, long long v_rs,
                                    long long o_rs, float scale, void* stream) {
   return dispatch(q, k, v, valid, out, nullptr, bs, L, n_heads, head_dim, q_rs, k_rs, v_rs, o_rs,
-                  scale, SHIPPED_OVERLAP, stream);
+                  scale, stream);
 }
 
 // As exact_attention_fwd, and also writes lse: f32 (bs, n_heads, L), each
@@ -374,16 +332,5 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
                                    int head_dim, long long q_rs, long long k_rs, long long v_rs,
                                    long long o_rs, float scale, void* stream) {
   return dispatch(q, k, v, valid, out, lse, bs, L, n_heads, head_dim, q_rs, k_rs, v_rs, o_rs,
-                  scale, SHIPPED_OVERLAP, stream);
-}
-
-// Measurement only: exact_attention_fwd / flash_attention_fwd (lse may be
-// null) with the step structure chosen by `overlap`.
-extern "C" int exact_attention_variant(const void* q, const void* k, const void* v,
-                                       const void* valid, void* out, void* lse, int bs, int L,
-                                       int n_heads, int head_dim, long long q_rs, long long k_rs,
-                                       long long v_rs, long long o_rs, float scale, int overlap,
-                                       void* stream) {
-  return dispatch(q, k, v, valid, out, lse, bs, L, n_heads, head_dim, q_rs, k_rs, v_rs, o_rs,
-                  scale, overlap, stream);
+                  scale, stream);
 }

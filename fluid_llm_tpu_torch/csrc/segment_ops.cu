@@ -143,12 +143,11 @@ segment_sum_narrow_kernel(const float* __restrict__ values, const int* __restric
 }
 
 // F >= WIDE: thread t takes VEC columns of row order[t / (F / VEC)].
-template <int VEC, int RD = ROUND, bool PF = true, bool ORD = true>
+template <int VEC>
 __global__ void __launch_bounds__(WIDE_THREADS)
 segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict__ perm,
                         const int* __restrict__ row_ptr, const int* __restrict__ order,
                         float* __restrict__ out, int n_rows, int F) {
-  constexpr int ROUND = RD;
   using V = Vec<VEC>;
   using T = typename V::T;
   const int lanes = F / VEC;
@@ -156,7 +155,7 @@ segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict_
   const long long slot = t / lanes;
   if (slot >= n_rows) return;
   const int c = (int)(t - slot * lanes);
-  const long long row = ORD ? order[slot] : slot;
+  const long long row = order[slot];
   const int start = row_ptr[row], end = row_ptr[row + 1];
   int e[ROUND];
 #pragma unroll
@@ -173,7 +172,7 @@ segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict_
                           : V::zero();
 #pragma unroll
     for (int u = 0; u < ROUND; ++u)  // the next round's value rows on their way to L2
-      if (PF && j0 + ROUND + u < end)
+      if (j0 + ROUND + u < end)
         asm volatile("prefetch.global.L2 [%0];" ::"l"(values + (long long)nxt[u] * F + c * VEC));
 #pragma unroll
     for (int u = 0; u < ROUND; ++u)
@@ -238,49 +237,6 @@ extern "C" int segment_sum_f32(const void* values, const void* perm, const void*
     segment_sum_wide_kernel<1><<<n_blocks(n_rows, F, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
         v, p, rp, ord, o, n_rows, F);
   }
-  return (int)cudaGetLastError();
-}
-
-namespace {
-template <int VEC, int RD, bool PF, bool ORD>
-void launch_wide(const float* v, const int* p, const int* rp, const int* ord, float* o,
-                 int n_rows, int F, cudaStream_t s) {
-  segment_sum_wide_kernel<VEC, RD, PF, ORD>
-      <<<n_blocks(n_rows, F / VEC, WIDE_THREADS), WIDE_THREADS, 0, s>>>(v, p, rp, ord, o, n_rows,
-                                                                        F);
-}
-template <int RD, bool PF, bool ORD>
-void launch_wide(const float* v, const int* p, const int* rp, const int* ord, float* o,
-                 int n_rows, int F, int vectorized, cudaStream_t s) {
-  if (vectorized)
-    launch_wide<4, RD, PF, ORD>(v, p, rp, ord, o, n_rows, F, s);
-  else
-    launch_wide<1, RD, PF, ORD>(v, p, rp, ord, o, n_rows, F, s);
-}
-}  // namespace
-
-// Measurement only: the sum with the wide walk's pieces taken out or
-// changed -- 1: rounds of 8, no prefetch, row order; 2: and the prefetch;
-// 3: no prefetch, long rows first; 4: rounds of 16 (prefetch, long rows
-// first); 5: the narrow walk at F 1 with F not fixed at compile time.
-extern "C" int segment_sum_variant(const void* values, const void* perm, const void* row_ptr,
-                                   const void* order, void* out, int n_rows, int F,
-                                   int vectorized, int variant, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(values);
-  const int* p = static_cast<const int*>(perm);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* ord = static_cast<const int*>(order);
-  float* o = static_cast<float*>(out);
-  if (variant == 1 && F >= WIDE) launch_wide<8, false, false>(v, p, rp, ord, o, n_rows, F, vectorized, s);
-  else if (variant == 2 && F >= WIDE) launch_wide<8, true, false>(v, p, rp, ord, o, n_rows, F, vectorized, s);
-  else if (variant == 3 && F >= WIDE) launch_wide<8, false, true>(v, p, rp, ord, o, n_rows, F, vectorized, s);
-  else if (variant == 4 && F >= WIDE) launch_wide<16, true, true>(v, p, rp, ord, o, n_rows, F, vectorized, s);
-  else if (variant == 5 && F == 1)
-    segment_sum_narrow_kernel<0><<<n_blocks(n_rows, 1, NARROW_THREADS), NARROW_THREADS, 0, s>>>(
-        v, p, rp, o, n_rows, F);
-  else
-    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
