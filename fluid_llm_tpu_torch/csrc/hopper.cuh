@@ -3,8 +3,8 @@
 // exact_attention.cu): shared-memory addresses, mbarriers, TMA tensor
 // copies and the tensor maps they read, wgmma descriptors and products,
 // the 64-row attention tiles' products and epilogue, and the split-K
-// reduction across the blocks of a thread-block cluster.  Every kernel that includes it is built for
-// sm_90a (wgmma exists only there).
+// reduction across the blocks of a thread-block cluster.  Every kernel
+// that includes it is built for sm_90a (wgmma exists only there).
 #pragma once
 
 #include <cooperative_groups.h>

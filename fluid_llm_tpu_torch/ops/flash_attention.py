@@ -45,7 +45,8 @@ import ctypes
 import torch
 
 from fluid_llm_tpu_torch.ops import _build
-from fluid_llm_tpu_torch.ops.exact_attention import HEAD_DIMS, TILE, query_tiles, row_stride
+from fluid_llm_tpu_torch.ops import exact_attention as xa
+from fluid_llm_tpu_torch.ops.exact_attention import HEAD_DIMS, TILE, row_stride
 
 
 def _allowed(valid: torch.Tensor, L: int) -> torch.Tensor:
@@ -108,9 +109,7 @@ def row_delta(out: torch.Tensor, dout: torch.Tensor, n_heads: int, head_dim: int
     return prod.reshape(bs, L, n_heads, head_dim).sum(-1).transpose(1, 2).contiguous()
 
 
-# TILE (rows of a block and of each tile it streams: queries or keys) and
-# query_tiles (the dq blocks' query rows, longest walk first) are the
-# forward's (ops/exact_attention.py).
+query_tiles = xa.query_tiles  # the dq blocks are the forward's: longest walk first
 
 
 def key_tiles(L: int) -> list[range]:
@@ -123,7 +122,7 @@ def walk(kernel: str, L: int, tile: range) -> int:
     """Tiles a block streams: the key tiles up to the block's last query
     (dq), or the query tiles from the block's first key on (dk/dv)."""
     if kernel == "dq":
-        return (tile.stop - 1) // TILE + 1
+        return xa.walk(tile)
     return -(-L // TILE) - tile.start // TILE
 
 

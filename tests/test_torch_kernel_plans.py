@@ -1,4 +1,7 @@
-"""The launch plans of the slab decode, the indexed linear, w8a16, short attention, the flash backward, exact attention and the segment sum.
+"""The launch plans of the port's kernels, plain Python, on the CPU.
+
+The slab decode, the indexed linear, w8a16, short attention, the flash
+backward, exact attention and the segment sum.
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
