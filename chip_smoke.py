@@ -10,7 +10,7 @@ Phases, each printing one line per result; any failure exits nonzero:
 3. kernels  -- each kernel against its plain PyTorch twin in bf16, at the
                rollout's shapes (exact attention, slot attention), the
                training step's (flash forward, dq, dk/dv at (8, 601, 768);
-               slot-attention backward at 80 frames), the streaming
+               slot attention and its backward at 80 frames), the streaming
                step's (slab decode attention over 11 slots of 64 rows,
                H 12: a wrapped ring, the first decode with 9 slots
                unwritten, the 61-token prefill) and the serving linears'
@@ -33,20 +33,23 @@ Phases, each printing one line per result; any failure exits nonzero:
                bytes moved over 3.35 TB/s and the operations over the peak
                of their type (989 bf16, 1,979 int8, 67 f32 T/s; H100 SXM);
                exact attention, the flash forward (its lse within
-               LSE_TOL), the slab decode, the indexed linear, w8a16, short
-               attention, the flash dq and dk/dv and the segment kernels
-               also repeated bit for bit, all but the last with their launch
-               geometry, and the segment sum equal bit for bit to a CPU walk
-               of its CSR (each row's edges ascending, added in f32 from 0);
-               then ("[plans]"
+               LSE_TOL), the slab decode, the indexed linear, w8a8, w8a16,
+               short attention, the flash dq and dk/dv, the slot-attention
+               backward and the segment kernels also repeated bit for bit,
+               all but the last with their launch geometry, and the segment
+               sum equal bit for bit to a CPU walk of its CSR (each row's
+               edges ascending, added in f32 from 0); then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
-               of w8a16 (token tile, K split) at its six main-path shapes
-               and of short attention (64 or 128 query rows a block) at its
-               two, each against the twin and timed (w8a16 and the indexed
-               linear beside the library call): the tables
-               ``indexed_linear.plan``, ``quant_matmul.plan`` and
-               ``short_attention.plan`` are read from;
+               of w8a16 (token tile, K split) at its six main-path shapes,
+               of w8a8 (column tile, K split) at its nine above (each equal
+               to the twin, beside ``_int_mm`` and w8a16) and of short
+               attention (64 or 128 query rows a block) at its two, each
+               against the twin and timed (w8a16 and the indexed linear
+               beside the library call): the tables
+               ``indexed_linear.plan``, ``quant_matmul.plan``,
+               ``quant_matmul.w8a8_plan`` and ``short_attention.plan`` are
+               read from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -88,9 +91,10 @@ Phases, each printing one line per result; any failure exits nonzero:
                steps from its checkpoint, then the exact ``inference.main``
                from the same checkpoint (LLaMA through the exact-window
                kernel), launches of each shown and checked;
-11. serve   -- ``tools.serve.load_engine(quant="int8")`` on phase 10's
-               checkpoint (adapters merged, every backbone linear int8,
-               w8a8, streaming auto-selected), ``serve`` on 127.0.0.1 in a
+11. serve   -- ``tools.serve.load_engine(quant="int8", qmm_mode="w8a8")``
+               on phase 10's checkpoint (adapters merged, every backbone
+               linear int8; w8a8 is the opt-in, w8a16 the default as in the
+               JAX package; streaming auto-selected), ``serve`` on 127.0.0.1 in a
                thread, ``warmup``; three 251-step ``POST /v1/rollout`` and
                one of 50 steps from 3 context frames, ``GET /v1/stats``.
                Launches over one 251-step request must read 7x12x252
@@ -436,7 +440,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
             **bound(nbytes(q, k, v, valid, out), 4 * D * allowed.sum().item(), "bf16"),
         ))
-    for Bf, H, C in [(1, 1, 48), (1, 1, 3), (4, 2, 24)]:
+    # the rollout's frame, and the training step's 80 (8 samples x 10 frames)
+    for Bf, H, C in [(1, 1, 48), (1, 1, 3), (4, 2, 24), (TRAIN_BS * 10, 1, 48)]:
         xl, xr = (torch.randn(Bf, 240, 64, H * C, generator=g).to(dev, torch.bfloat16)
                   for _ in range(2))
         att = torch.randn(H, C, generator=g).to(dev, torch.bfloat16)
@@ -445,7 +450,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         torch.cuda.synchronize()
         rows.append(dict(
             kernel="grid_slot_attention", shape=f"({Bf},240,64,{H * C}) H{H} C{C}",
-            main_path=(Bf == 1), rel=rel_err(out, ref),
+            main_path=(C == 48 and H == 1), rel=rel_err(out, ref),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
             ms=device_ms(lambda: gf.fused_slot_attention(xl, xr, att, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_ref(xl, xr, att, H, C)),
@@ -525,11 +530,21 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         att = torch.randn(H, C, generator=g).to(dev, torch.bfloat16)
         got = gf.slot_attention_bwd(xl, xr, att, gout, H, C)
         want = gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)
+        again = gf.slot_attention_bwd(xl, xr, att, gout, H, C)
+        twin_again = gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)
         torch.cuda.synchronize()
+        ytile, stages, group = gf.bwd_plan(64, H, C, xl.element_size())
+        n_blocks = gf.bwd_blocks(Bf, 240, 64, ytile)
         rows.append(dict(
             kernel="grid_slot_attention_bwd", shape=f"({Bf},240,64,{H * C}) H{H} C{C}",
             main_path=(C == 48), rel=max(rel_err(a, b) for a, b in zip(got, want)),
             max_abs_err=max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want)),
+            deterministic=all(torch.equal(a, b) for a, b in zip(again, got)),
+            twin_deterministic=all(torch.equal(a, b) for a, b in zip(twin_again, want)),
+            geometry=f"{n_blocks} blocks ({Bf} frames x {len(gf.strips(240))} strips of "
+                     f"{gf.STRIP} rows x {-(-64 // ytile)} column tiles of {ytile}), a ring of "
+                     f"{stages} row units, {group} threads a (pixel, head); then datt: "
+                     f"{H * C} blocks of {gf.DATT_THREADS} threads (2 launches a call)",
             ms=device_ms(lambda: gf.slot_attention_bwd(xl, xr, att, gout, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)),
             library_ms=None,  # twice the forward's work per (pixel, channel)
@@ -573,17 +588,22 @@ def phase_kernels(dev, failures: list) -> list[dict]:
         b = (torch.randn(N, generator=g) * 0.1).to(dev) if has_bias else None
         out = qmm.int8_matmul(x, q, scale, b, mode)
         ref = qmm.int8_matmul_ref(x, q, scale, b, mode)
-        extra = {}
-        if mode == "w8a16":  # the launch plan, and a repeat bit for bit
+        # the launch plan, and a repeat bit for bit
+        extra = dict(
+            deterministic=bool(torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)),
+            twin_deterministic=bool(torch.equal(qmm.int8_matmul_ref(x, q, scale, b, mode), ref)))
+        if mode == "w8a16":
             tile, k_split = qmm.plan(M, K, N, _build.sm_count(x.device))
             w_tiles = -(-N // qmm.W16_ROWS)
-            extra = dict(
-                deterministic=bool(torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)),
-                twin_deterministic=bool(torch.equal(qmm.int8_matmul_ref(x, q, scale, b, mode),
-                                                    ref)),
-                geometry=f"{w_tiles} weight-row tiles of {qmm.W16_ROWS} x {-(-M // tile)} "
-                         f"token tiles of {tile} x K split {k_split} = "
-                         f"{w_tiles * -(-M // tile) * k_split} blocks")
+            extra["geometry"] = (f"{w_tiles} weight-row tiles of {qmm.W16_ROWS} x "
+                                 f"{-(-M // tile)} token tiles of {tile} x K split {k_split} = "
+                                 f"{w_tiles * -(-M // tile) * k_split} blocks")
+        else:
+            n_tile, k_split = qmm.w8a8_plan(M, K, N, _build.sm_count(x.device))
+            extra["geometry"] = (f"{-(-N // n_tile)} column tiles of {n_tile} x "
+                                 f"{-(-M // qmm.W8_ROWS)} token tiles of {qmm.W8_ROWS} x K split "
+                                 f"{k_split} = {-(-N // n_tile) * -(-M // qmm.W8_ROWS) * k_split} "
+                                 "blocks")
         if mode == "w8a8":  # the yardstick: the int32 product of the quantised operands
             xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
             library = lambda: torch._int_mm(xq, qt)  # noqa: E731
@@ -776,6 +796,61 @@ def _w8a16_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+# (M, K, N, bias) of phase 3's w8a8 rows: the flagship's bias-free linears
+# at 60 and 61 rows, OPT-125m's biased ones at 661
+W8A8_SHAPES = [(M, K, N, M == 661) for M, K, N in
+               [(60, 768, 768), (60, 768, 2048), (60, 2048, 768), (61, 768, 768),
+                (61, 768, 2048), (61, 2048, 768), (661, 768, 768), (661, 768, 3072),
+                (661, 3072, 768)]]
+
+
+def _w8a8_plans(dev, failures: list) -> list[dict]:
+    """Every plan of the w8a8 kernel (column tile, K split; up to four blocks
+    an SM) at phase 3's nine shapes: equal to the twin bit for bit (the
+    int32 sums and the row maxima are exact in any order) and device time,
+    ``quant_matmul.w8a8_plan``'s choice marked, beside ``torch._int_mm``
+    on the quantised operands and w8a16's plan at the same shape."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import quant
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+    g = torch.Generator().manual_seed(10)
+    sms = _build.sm_count(dev)
+    res = []
+    for M, K, N, has_bias in W8A8_SHAPES:
+        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+        q, scale = qp["q"].to(dev), qp["scale"].to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        b = (torch.randn(N, generator=g) * 0.1).to(dev) if has_bias else None
+        ref = qmm.int8_matmul_ref(x, q, scale, b, "w8a8")
+        chosen = qmm.w8a8_plan(M, K, N, sms)
+        timed = []
+        for blocks, *p in qmm.w8a8_plans(M, K, N):
+            if blocks > 4 * sms:
+                continue
+            with mock.patch.object(qmm, "w8a8_plan", lambda *a, p=tuple(p): p):
+                out = qmm.qmm_w8a8(x, q, scale, b)
+                ms = device_ms(lambda: qmm.qmm_w8a8(x, q, scale, b))
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(out, ref))
+            timed.append(dict(plan=tuple(p), blocks=blocks, ms=ms, exact=exact,
+                              chosen=tuple(p) == chosen))
+            if not exact:
+                failures.append(f"w8a8 plan {tuple(p)} at M {M} K {K} N {N}: not equal to "
+                                "the twin")
+        xq, qt = qmm.quantize_act(x)[0], q.t().contiguous()
+        library = device_ms(lambda: torch._int_mm(xq, qt))
+        w8a16 = device_ms(lambda: qmm.qmm_w8a16(x, q, scale, b))
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] quant_matmul_w8a8 M {M} K {K} N {N}: _int_mm {library:.4f} ms, w8a16 "
+              f"{w8a16:.4f} ms; " + "; ".join(f"{r['plan']} {r['blocks']} blocks "
+                                           f"{r['ms']:.4f}{' (plan)' if r['chosen'] else ''}"
+                                           for r in timed)
+              + f"; all equal to the twin {all(r['exact'] for r in timed)}")
+        res.append(dict(M=M, K=K, N=N, library_ms=library, w8a16_ms=w8a16, plans=timed))
+    return res
+
+
 def _short_attention_plans(dev, failures: list) -> list[dict]:
     """Both plans of the short-attention kernel (64 or 128 query rows a
     block) at the training step's and the rollout's shapes: agreement with
@@ -819,9 +894,11 @@ def _short_attention_plans(dev, failures: list) -> list[dict]:
 def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
-    ``quant_matmul.plan`` and ``short_attention.plan`` are read from."""
+    ``quant_matmul.plan``, ``quant_matmul.w8a8_plan`` and
+    ``short_attention.plan`` are read from."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
+                quant_matmul_w8a8=_w8a8_plans(dev, failures),
                 short_attention=_short_attention_plans(dev, failures))
 
 

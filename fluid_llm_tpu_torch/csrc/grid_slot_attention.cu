@@ -35,21 +35,44 @@
 // With bs 1 the grid is only 15,360 threads, so latency, not bandwidth,
 // sets the time; splitting C across a thread group is later work.
 //
-// The backward is four launches, all gathers (no atomics, deterministic):
-//   1. stats: per (pixel, head) alpha_s and dlogit_s (f32 scratch,
-//      (Bf, X, Y, H, 5), zero for masked slots), and dxr;
-//   2. dxl: per (pixel q, head), gather from the <= 5 pixels p whose slot
-//      s reads q (p = q - shift_s), using their alpha_s and dlogit_s;
-//   3. datt partials: each block sums dlogit_s e_s over its range of
-//      pixels for every channel, lanes reduced in a fixed order;
-//   4. datt: the block partials summed in block order.
-// At the training shapes (80 frames of 240 x 64, C 48) the floor is the
-// reads of xl, xr and g and the writes of dxl, dxr: ~8 passes over a
-// (Bf, X, Y, F) tensor, ~25 MB each in bf16.
+// The backward reads xl, xr and g and writes dxl and dxr: five passes over
+// a (Bf, X, Y, F) tensor, 118 MB each in bf16 at the training shape (80
+// frames of 240 x 64, F 48), 590 MB in all, >= 0.176 ms at 3.35 TB/s; its
+// ~70 f32 operations per element (>= 0.06 ms at 67 TFLOP/s) stay below that.
+// Design: two launches, no atomics, no scratch of alpha/dlogit in HBM.
+// 1. One block owns a strip of STRIP x-rows of one frame (and a tile of
+//    columns, the whole row where it fits) and walks it row by row.  A
+//    row's Y*F values are one contiguous run, so a producer warp copies
+//    "units" -- unit j holds xl row x0 - 2 + j and xr and g row x0 - 3 + j
+//    (xl rows x0 - 2 .. x1 + 1, xr and g rows x0 - 1 .. x1) -- with TMA bulk
+//    copies (plain copies by its lanes where F*size is not a multiple of 16
+//    bytes) into a ring of units on full/empty mbarriers.  A step reads
+//    units j - 2 .. j only, so a ring of 5 keeps two units in flight.  At
+//    step j, with unit j in shared memory, the 256 consumer threads
+//    a. compute alpha and dlogit of row i = x0 - 3 + j (every 5-slot
+//       softmax reads xl rows i - 1 .. i + 1 and xr, g of row i) into a
+//       three-row ring in shared memory, and, for the strip's own rows,
+//       write that row's dxr and add dlogit_s * e_s into each thread's
+//       datt partial (registers);
+//    b. write dxl of row i - 1, gathered from the stats of its +-x rows and
+//       its +-y neighbours (rows i - 2 .. i of the ring) and xr, g of those
+//       pixels.
+//    Only the halo stat rows x0 - 1 and x1 (and the halo columns of a
+//    column tile) are computed twice, by the two blocks that share them.
+//    A pixel's C channels are split across `group` threads (chunks of 4
+//    channels, interleaved), its dot products summed by xor shuffles
+//    (the same bits in every thread of the group).
+// 2. datt: each block sums its threads' partials in pixel-slot order into
+//    one row of `partial`; a second launch sums those rows, each thread a
+//    stride of blocks in order, then a fixed tree: the same bits every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
+
+using namespace hopper;
 
 namespace {
 
@@ -188,230 +211,405 @@ int launch(const void* xl, const void* xr, const void* att, void* out, int Bf, i
 
 
 // ---------------------------------------------------------------------------
-// backward
+// backward: one walk down a strip of rows, then datt's reduction
 // ---------------------------------------------------------------------------
 
+constexpr int STRIP = 30;         // x-rows a block owns
+constexpr int BWD_THREADS = 256;  // consumers; one more warp issues the copies
+constexpr int STAT_RING = 3;      // rows of alpha/dlogit kept: i - 2 .. i at a step
+constexpr int LIVE_UNITS = 3;     // units a step reads: j - 2 .. j
+constexpr int DATT_THREADS = 256;
+constexpr int SLOTS = 5;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_f32(__nv_bfloat16& d, float v) { d = __float2bfloat16(v); }
+
+// VEC consecutive channels to / from f32: bf16 8 bytes, f32 16 bytes, or one
 template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-grid_slot_bwd_stats_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
-                           const float* __restrict__ att, const T* __restrict__ g,
-                           float* __restrict__ alpha, float* __restrict__ dlogit,
-                           T* __restrict__ dxr, int Bf, int X, int Y, int H, int C) {
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long total = (long long)Bf * X * Y * H;
-  if (idx >= total) return;
-  const int h = (int)(idx % H);
-  const long long pix = idx / H;  // (b * X + x) * Y + y
-  const int y = (int)(pix % Y);
-  const int x = (int)((pix / Y) % X);
-  const long long F = (long long)H * C;
-  const long long off = pix * F + (long long)h * C;
+__device__ __forceinline__ void ld(const T* p, float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = to_f32(p[0]);
+  } else if constexpr (sizeof(T) == 2) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  }
+}
 
-  const long long nb[5] = {0, -(long long)Y * F, (long long)Y * F, -F, F};
-  const bool ok[5] = {true, x > 0, x < X - 1, y > 0, y < Y - 1};
-  const T* xlp = xl + off;
-  const T* xrp = xr + off;
-  const T* gp = g + off;
-  const float* a = att + (long long)h * C;
+template <typename T, int VEC>
+__device__ __forceinline__ void st(T* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    from_f32(p[0], v[0]);
+  } else if constexpr (sizeof(T) == 2) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 raw;
+    raw.x = *reinterpret_cast<const uint32_t*>(&a);
+    raw.y = *reinterpret_cast<const uint32_t*>(&b);
+    *reinterpret_cast<uint2*>(p) = raw;
+  } else {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+}
 
-  float logit[5], gv[5];
-  float m = -INFINITY;
+// The backward's shared memory: the ring of `stages` units (3 row buffers
+// of ytile + 4 pixels each: xl, xr, g), which datt's per-thread partials
+// reuse at the end; the alpha/dlogit ring (3 rows of ytile + 2 pixels x H
+// x 10 f32); att (f32); a full and an empty mbarrier a unit; 128 bytes of
+// alignment slack.  ops/grid_gnn_fused.bwd_smem computes the same.
+struct BwdSmem {
+  int buf, unit, ring, stats, att, bytes;
+  __host__ __device__ BwdSmem(int ytile, int stages, int H, int C, int group, int elem) {
+    const int F = H * C;
+    buf = ((ytile + 4) * F * elem + 15) / 16 * 16;
+    unit = 3 * buf;
+    const int red = BWD_THREADS / (H * group) * F * 4;
+    ring = stages * unit > red ? stages * unit : red;
+    stats = STAT_RING * (ytile + 2) * H * 2 * SLOTS * 4;
+    att = (F * 4 + 15) / 16 * 16;
+    bytes = ring + stats + att + 16 * stages + 128;
+  }
+};
+
+template <typename T, int VEC, int NC>
+__global__ void __launch_bounds__(BWD_THREADS + 32, 2)
+grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
+                     const float* __restrict__ att, const T* __restrict__ g, T* __restrict__ dxl,
+                     T* __restrict__ dxr, float* __restrict__ partial, int X, int Y, int H, int C,
+                     int ytile, int stages, int group, int bulk, int strip, int skip) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = smem_raw + (128 - smem_addr(smem_raw) % 128) % 128;
+  const BwdSmem L(ytile, stages, H, C, group, (int)sizeof(T));
+  const int F = H * C, ch = C / VEC, HG = H * group, PT = BWD_THREADS / HG;
+  const int n_strips = (X + strip - 1) / strip, n_yt = (Y + ytile - 1) / ytile;
+  const int ty = blockIdx.x % n_yt;
+  const long long frame = (long long)(blockIdx.x / n_yt / n_strips) * X;  // row (b, 0)
+  const int x0 = blockIdx.x / n_yt % n_strips * strip, x1 = min(x0 + strip, X);
+  const int y0 = ty * ytile, y1 = min(y0 + ytile, Y);
+  const int n_units = x1 - x0 + 4;  // rows x0 - 2 .. x1 + 1
+  unsigned char* const ring = smem;
+  float* const stats = reinterpret_cast<float*>(smem + L.ring);
+  float* const att_s = reinterpret_cast<float*>(smem + L.ring + L.stats);
+  const uint32_t full = smem_addr(smem) + L.ring + L.stats + L.att, empty = full + 8 * stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, bulk ? 1 : 32);  // the copies' lane 0, or every lane
+      mbar_init(empty + 8 * s, 1);             // consumer 0, after a step's last barrier
+    }
+    mbar_init_fence();
+  }
+  for (int f = tid; f < F; f += blockDim.x) att_s[f] = att[f];
+  __syncthreads();
+
+  // row buffers of unit j (xl row x0 - 2 + j; xr, g row x0 - 3 + j): pixel y
+  // at (y - y0 + 2) * F
+  auto row_buf = [&](int j, int which) {
+    return reinterpret_cast<T*>(ring + (j % stages) * L.unit + which * L.buf);
+  };
+
+  if (warp == BWD_THREADS / 32) {  // the copies
+    if (bulk && lane != 0) return;
+    const int ll = max(y0 - 2, 0), lh = min(y1 + 2, Y), rl = max(y0 - 1, 0), rh = min(y1 + 1, Y);
+    for (int j = 0; j < n_units; ++j) {
+      const int s = j % stages, round = j / stages, r = x0 - 2 + j;
+      if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+      const bool has_l = r >= 0 && r < X, has_rg = r - 1 >= 0 && r - 1 < X && j >= 2;
+      const long long row = (frame + r) * Y;  // pixel (b, r, 0)
+      const int nl = has_l ? (lh - ll) * F : 0, nr = has_rg ? (rh - rl) * F : 0;
+      T* const dl = row_buf(j, 0) + (ll - y0 + 2) * F;
+      T* const dr = row_buf(j, 1) + (rl - y0 + 2) * F;
+      T* const dg = row_buf(j, 2) + (rl - y0 + 2) * F;
+      if (bulk) {
+        const int bytes = (nl + 2 * nr) * (int)sizeof(T);
+        if (bytes == 0) {
+          mbar_arrive(full + 8 * s);
+          continue;
+        }
+        mbar_expect(full + 8 * s, bytes);
+        if (nl) bulk_copy(smem_addr(dl), xl + (row + ll) * F, nl * (int)sizeof(T), full + 8 * s);
+        if (nr) {  // row r - 1
+          bulk_copy(smem_addr(dr), xr + (row - Y + rl) * F, nr * (int)sizeof(T), full + 8 * s);
+          bulk_copy(smem_addr(dg), g + (row - Y + rl) * F, nr * (int)sizeof(T), full + 8 * s);
+        }
+      } else {
+        for (int e = lane; e < nl; e += 32) dl[e] = xl[(row + ll) * F + e];
+        for (int e = lane; e < nr; e += 32) {
+          dr[e] = xr[(row - Y + rl) * F + e];
+          dg[e] = g[(row - Y + rl) * F + e];
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumer tid: pixel slot ps of a pass, head h, channel chunks sub + group k
+  const int ps = tid / HG, h = tid / group % H, sub = tid % group;
+  const bool active = tid < PT * HG;
+  const int ncw = ytile + 2;  // stat columns y0 - 1 .. y1
+  float dacc[NC][VEC];
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    float acc = 0.f, accg = 0.f;
-    if (ok[s]) {
-      const T* vp = xlp + nb[s];
-      for (int c = 0; c < C; c += VEC) {
-        float r[VEC], vv[VEC], gg[VEC];
-        load_vec<VEC>(xrp + c, r);
-        load_vec<VEC>(vp + c, vv);
-        load_vec<VEC>(gp + c, gg);
+  for (int k = 0; k < NC; ++k)
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float u = r[i] + vv[i];
-          acc += (u > 0.f ? u : NEG_SLOPE * u) * a[c + i];
-          accg += gg[i] * vv[i];
+    for (int e = 0; e < VEC; ++e) dacc[k][e] = 0.f;
+  // alpha_s at [s], dlogit_s at [SLOTS + s] of stat row i, column y
+  auto stat = [&](int i, int y) {
+    return stats + (((i - x0 + 1) % STAT_RING) * ncw + (y - y0 + 1)) * H * 2 * SLOTS +
+           h * 2 * SLOTS;
+  };
+
+  for (int j = 0; j < n_units; ++j) {
+    mbar_wait(full + 8 * (j % stages), (j / stages) & 1);
+    const int i = x0 - 3 + j;  // the stat row of this step
+    if (j >= 2 && i >= 0 && i < X) {
+      const bool own_row = i >= x0 && i < x1;
+      const T* const L0 = row_buf(j - 1, 0);
+      const T* const Ln[3] = {row_buf(j - 2, 0), L0, row_buf(j, 0)};  // xl rows i - 1 .. i + 1
+      const T* const R0 = row_buf(j, 1);  // xr and g of row i
+      const T* const G0 = row_buf(j, 2);
+      const int sy0 = max(y0 - 1, 0), sy1 = min(y1 + 1, Y);
+      for (int base = sy0; base < sy1; base += PT) {
+        const int y = base + ps, yi = y - y0 + 2;
+        const bool ok = active && y < sy1;
+        // slot s of pixel (i, y) reads xl at (i, y) + shift_s
+        const T* const nb[SLOTS] = {L0 + yi * F, Ln[0] + yi * F, Ln[2] + yi * F,
+                                    L0 + (yi - 1) * F, L0 + (yi + 1) * F};
+        const bool vs[SLOTS] = {true, i > 0, i < X - 1, y > 0, y < Y - 1};
+        float lg[SLOTS], gv[SLOTS];
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) lg[q] = gv[q] = 0.f;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int c = sub + group * k;
+          if (!ok || c >= ch || (skip & 4)) continue;
+          const int off = h * C + c * VEC;
+          float r[VEC], gg[VEC];
+          ld<T, VEC>(R0 + yi * F + off, r);
+          ld<T, VEC>(G0 + yi * F + off, gg);
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {
+            if (!vs[q]) continue;
+            float v[VEC];
+            ld<T, VEC>(nb[q] + off, v);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              const float u = r[e] + v[e];
+              lg[q] += fmaxf(u, NEG_SLOPE * u) * att_s[off + e];  // leaky_relu(u, 0.2)
+              gv[q] += gg[e] * v[e];
+            }
+          }
+        }
+        for (int o = 1; o < group; o <<= 1)
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {
+            lg[q] += __shfl_xor_sync(0xffffffffu, lg[q], o);
+            gv[q] += __shfl_xor_sync(0xffffffffu, gv[q], o);
+          }
+        if (!ok) continue;
+        float m = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q)
+          if (vs[q]) m = fmaxf(m, lg[q]);
+        float w[SLOTS], denom = 0.f;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) {
+          w[q] = vs[q] ? __expf(lg[q] - m) : 0.f;
+          denom += w[q];
+        }
+        float gbar = 0.f;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) {
+          w[q] /= denom;  // alpha_s, 0 for masked slots
+          gbar += w[q] * gv[q];
+        }
+        float dl[SLOTS], dl_neg[SLOTS];  // dlogit_s, and times lrelu' where u <= 0
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) {
+          dl[q] = w[q] * (gv[q] - gbar);
+          dl_neg[q] = NEG_SLOPE * dl[q];
+        }
+        if (sub == 0) {
+          float* const sp = stat(i, y);
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {
+            sp[q] = w[q];
+            sp[SLOTS + q] = dl[q];
+          }
+        }
+        if (!own_row || y < y0 || y >= y1 || (skip & 2)) continue;
+        // dxr of an own pixel, and its share of datt
+        T* const out = dxr + ((frame + i) * Y + y) * F;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int c = sub + group * k;
+          if (c >= ch) continue;
+          const int off = h * C + c * VEC;
+          float r[VEC], o[VEC];
+          ld<T, VEC>(R0 + yi * F + off, r);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] = 0.f;
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {
+            if (!vs[q]) continue;
+            float v[VEC];
+            ld<T, VEC>(nb[q] + off, v);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {  // d = dlogit_s lrelu'(u): dxr += d, datt += d u
+              const float u = r[e] + v[e], d = u > 0.f ? dl[q] : dl_neg[q];
+              o[e] += d;
+              dacc[k][e] += d * u;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] *= att_s[off + e];
+          st<T, VEC>(out + off, o);
         }
       }
-      m = fmaxf(m, acc);
     }
-    logit[s] = acc;
-    gv[s] = accg;
-  }
-  float w[5];
-  float denom = 0.f;
+    asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");  // row i's stats written
+    if (j >= 4 && !(skip & 1)) {  // dxl of row q = i - 1, an own row
+      const int q = i - 1;
+      // source slot s: the pixel p = (q, y) - shift_s whose slot s reads
+      // (q, y): its unit and stat row (s 0, 3, 4: row q; 1: q + 1; 2: q - 1)
+      const T* const Rs[3] = {row_buf(j - 2, 1), row_buf(j - 1, 1), row_buf(j, 1)};
+      const T* const Gs[3] = {row_buf(j - 2, 2), row_buf(j - 1, 2), row_buf(j, 2)};
+      const T* const Lq = row_buf(j - 2, 0);
+      for (int base = y0; base < y1; base += PT) {
+        const int y = base + ps, yi = y - y0 + 2;
+        if (!active || y >= y1) continue;
+        const int drow[SLOTS] = {1, 2, 0, 1, 1};  // index into Rs/Gs: rows q - 1, q, q + 1
+        const int dcol[SLOTS] = {0, 0, 0, 1, -1};
+        const bool vs[SLOTS] = {true, q + 1 < X, q > 0, y + 1 < Y, y > 0};
+        float A[SLOTS], D[SLOTS], D_neg[SLOTS];
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    w[s] = ok[s] ? __expf(logit[s] - m) : 0.f;
-    denom += w[s];
-  }
-  float gbar = 0.f;
+        for (int s = 0; s < SLOTS; ++s) {
+          A[s] = D[s] = 0.f;
+          if (vs[s]) {
+            const float* sp = stat(q - 1 + drow[s], y + dcol[s]);
+            A[s] = sp[s];
+            D[s] = sp[SLOTS + s];
+          }
+          D_neg[s] = NEG_SLOPE * D[s];
+        }
+        T* const out = dxl + ((frame + q) * Y + y) * F;
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    w[s] /= denom;  // alpha_s, 0 for masked slots
-    gbar += w[s] * gv[s];
-  }
-  float dl[5];
-  float* ap = alpha + idx * 5;
-  float* dp = dlogit + idx * 5;
+        for (int k = 0; k < NC; ++k) {
+          const int c = sub + group * k;
+          if (c >= ch) continue;
+          const int off = h * C + c * VEC;
+          float l[VEC], o[VEC], dd[VEC];  // o = sum A g, dd = sum dlogit lrelu'(u)
+          ld<T, VEC>(Lq + yi * F + off, l);
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    dl[s] = w[s] * (gv[s] - gbar);
-    ap[s] = w[s];
-    dp[s] = dl[s];
-  }
-
-  for (int c = 0; c < C; c += VEC) {
-    float r[VEC], o[VEC];
-    load_vec<VEC>(xrp + c, r);
+          for (int e = 0; e < VEC; ++e) o[e] = dd[e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = 0.f;
+          for (int s = 0; s < SLOTS; ++s) {
+            if (!vs[s]) continue;
+            const int pi = (yi + dcol[s]) * F + off;
+            float rr[VEC], gg[VEC];
+            ld<T, VEC>(Rs[drow[s]] + pi, rr);
+            ld<T, VEC>(Gs[drow[s]] + pi, gg);
 #pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      if (!ok[s]) continue;
-      float vv[VEC];
-      load_vec<VEC>(xlp + nb[s] + c, vv);
+            for (int e = 0; e < VEC; ++e) {
+              o[e] += A[s] * gg[e];
+              dd[e] += rr[e] + l[e] > 0.f ? D[s] : D_neg[s];
+            }
+          }
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) o[i] += dl[s] * (r[i] + vv[i] > 0.f ? 1.f : NEG_SLOPE);
-    }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] *= a[c + i];
-    store_vec<VEC>(dxr + off + c, o);
-  }
-}
-
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-grid_slot_bwd_dxl_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
-                         const float* __restrict__ att, const T* __restrict__ g,
-                         const float* __restrict__ alpha, const float* __restrict__ dlogit,
-                         T* __restrict__ dxl, int Bf, int X, int Y, int H, int C) {
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long total = (long long)Bf * X * Y * H;
-  if (idx >= total) return;
-  const int h = (int)(idx % H);
-  const long long q = idx / H;  // this thread's pixel: the neighbour being read
-  const int y = (int)(q % Y);
-  const int x = (int)((q / Y) % X);
-  const long long F = (long long)H * C;
-  const long long off = q * F + (long long)h * C;
-
-  // slot s of pixel p reads q = p + shift_s, so q receives from p = q - shift_s
-  const long long src[5] = {0, Y, -(long long)Y, 1, -1};  // p - q, in pixels
-  const bool ok[5] = {true, x < X - 1, x > 0, y < Y - 1, y > 0};
-  float A[5], D[5];
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const long long st = ((q + src[s]) * H + h) * 5 + s;
-    A[s] = ok[s] ? alpha[st] : 0.f;
-    D[s] = ok[s] ? dlogit[st] : 0.f;
-  }
-  const float* a = att + (long long)h * C;
-
-  for (int c = 0; c < C; c += VEC) {
-    float l[VEC], o[VEC];
-    load_vec<VEC>(xl + off + c, l);
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      if (!ok[s]) continue;
-      const long long poff = off + src[s] * F;
-      float r[VEC], gg[VEC];
-      load_vec<VEC>(xr + poff + c, r);
-      load_vec<VEC>(g + poff + c, gg);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i)
-        o[i] += A[s] * gg[i] + D[s] * a[c + i] * (r[i] + l[i] > 0.f ? 1.f : NEG_SLOPE);
-    }
-    store_vec<VEC>(dxl + off + c, o);
-  }
-}
-
-// One block per range of `pix_per_block` pixels; thread t sums channel
-// f = t % F over the pixels lane, lane + lanes, ... of its range (lane =
-// t / F, lanes = THREADS / F), then the first F threads add the lanes up
-// in lane order.  Needs F <= THREADS.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-grid_slot_bwd_datt_partial_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
-                                  const float* __restrict__ dlogit, float* __restrict__ partial,
-                                  long long n_pix, int X, int Y, int H, int C,
-                                  int pix_per_block) {
-  __shared__ float red[THREADS];
-  const int F = H * C;
-  const int lanes = THREADS / F;
-  const int t = threadIdx.x;
-  const int f = t % F;
-  const int lane = t / F;
-  const int h = f / C;
-  float acc = 0.f;
-  if (lane < lanes) {
-    const long long p0 = (long long)blockIdx.x * pix_per_block;
-    const long long p1 = min(n_pix, p0 + pix_per_block);
-    const long long nb[5] = {0, -(long long)Y, Y, -1, 1};
-    for (long long pix = p0 + lane; pix < p1; pix += lanes) {
-      const int y = (int)(pix % Y);
-      const int x = (int)((pix / Y) % X);
-      const bool ok[5] = {true, x > 0, x < X - 1, y > 0, y < Y - 1};
-      float r;
-      load_vec<1>(xr + pix * F + f, &r);
-      const float* dl = dlogit + (pix * H + h) * 5;
-#pragma unroll
-      for (int s = 0; s < 5; ++s) {
-        if (!ok[s]) continue;
-        float v;
-        load_vec<1>(xl + (pix + nb[s]) * F + f, &v);
-        const float u = r + v;
-        acc += dl[s] * (u > 0.f ? u : NEG_SLOPE * u);
+          for (int e = 0; e < VEC; ++e) o[e] += dd[e] * att_s[off + e];
+          st<T, VEC>(out + off, o);
+        }
       }
     }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");  // the step's reads done
+    if (j >= 2 && tid == 0) mbar_arrive(empty + 8 * ((j - 2) % stages));
   }
-  red[t] = acc;
-  __syncthreads();
-  if (t < F) {
+
+  // datt: the threads' partials (the ring is free) summed in pixel-slot order
+  float* const red = reinterpret_cast<float*>(ring);
+  if (active)
+#pragma unroll
+    for (int k = 0; k < NC; ++k) {
+      const int c = sub + group * k;
+      if (c >= ch) continue;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) red[ps * F + h * C + c * VEC + e] = dacc[k][e];
+    }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");
+  for (int f = tid; f < F; f += BWD_THREADS) {
     float sum = 0.f;
-    for (int l = 0; l < lanes; ++l) sum += red[l * F + t];
-    partial[(long long)blockIdx.x * F + t] = sum;
+    for (int p = 0; p < PT; ++p) sum += red[p * F + f];
+    partial[(long long)blockIdx.x * F + f] = sum;
   }
 }
 
-__global__ void grid_slot_bwd_datt_reduce_kernel(const float* __restrict__ partial,
-                                                 float* __restrict__ datt, int n_blocks, int F) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= F) return;
+// datt[f] = the blocks' partials: thread t sums blocks t, t + 256, ... in
+// order, then a fixed tree over the threads
+__global__ void __launch_bounds__(DATT_THREADS)
+grid_slot_bwd_datt_kernel(const float* __restrict__ partial, float* __restrict__ datt,
+                          int n_blocks, int F) {
+  __shared__ float red[DATT_THREADS];
+  const int f = blockIdx.x, t = threadIdx.x;
   float sum = 0.f;
-  for (int b = 0; b < n_blocks; ++b) sum += partial[(long long)b * F + f];
-  datt[f] = sum;
+  for (int b = t; b < n_blocks; b += DATT_THREADS) sum += partial[(long long)b * F + f];
+  red[t] = sum;
+  __syncthreads();
+  for (int w = DATT_THREADS / 2; w > 0; w >>= 1) {
+    if (t < w) red[t] += red[t + w];
+    __syncthreads();
+  }
+  if (t == 0) datt[f] = red[0];
+}
+
+template <typename T, int VEC, int NC>
+int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, void* dxl,
+               void* dxr, void* datt, void* partial, int Bf, int X, int Y, int H, int C,
+               int ytile, int stages, int group, int strip, int skip, cudaStream_t stream) {
+  const int F = H * C;
+  const BwdSmem L(ytile, stages, H, C, group, (int)sizeof(T));
+  static bool attr_set = false;
+  if (int e = allow_smem(grid_slot_bwd_kernel<T, VEC, NC>, SMEM_MAX, attr_set)) return e;
+  if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  // TMA bulk copies where every row run starts and ends on 16 bytes
+  const bool bulk = F * sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(xl) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(xr) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const long long n_blocks =
+      (long long)Bf * ((X + strip - 1) / strip) * ((Y + ytile - 1) / ytile);
+  if (n_blocks > 0) {
+    grid_slot_bwd_kernel<T, VEC, NC><<<(unsigned)n_blocks, BWD_THREADS + 32, L.bytes, stream>>>(
+        static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const float*>(att),
+        static_cast<const T*>(g), static_cast<T*>(dxl), static_cast<T*>(dxr),
+        static_cast<float*>(partial), X, Y, H, C, ytile, stages, group, bulk ? 1 : 0, strip,
+        skip);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  grid_slot_bwd_datt_kernel<<<F, DATT_THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(datt), (int)n_blocks, F);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int VEC>
-int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, void* dxl,
-               void* dxr, void* datt, void* alpha, void* dlogit, void* partial, int Bf, int X,
-               int Y, int H, int C, int pix_per_block, cudaStream_t stream) {
-  const long long total = (long long)Bf * X * Y * H;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  const T* xl_ = static_cast<const T*>(xl);
-  const T* xr_ = static_cast<const T*>(xr);
-  const T* g_ = static_cast<const T*>(g);
-  const float* att_ = static_cast<const float*>(att);
-  float* alpha_ = static_cast<float*>(alpha);
-  float* dlogit_ = static_cast<float*>(dlogit);
-  grid_slot_bwd_stats_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
-      xl_, xr_, att_, g_, alpha_, dlogit_, static_cast<T*>(dxr), Bf, X, Y, H, C);
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
-  grid_slot_bwd_dxl_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
-      xl_, xr_, att_, g_, alpha_, dlogit_, static_cast<T*>(dxl), Bf, X, Y, H, C);
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
-  const long long n_pix = (long long)Bf * X * Y;
-  const int n_blocks = (int)((n_pix + pix_per_block - 1) / pix_per_block);
-  grid_slot_bwd_datt_partial_kernel<T><<<n_blocks, THREADS, 0, stream>>>(
-      xl_, xr_, dlogit_, static_cast<float*>(partial), n_pix, X, Y, H, C, pix_per_block);
-  if (cudaError_t e = cudaGetLastError()) return (int)e;
-  const int F = H * C;
-  grid_slot_bwd_datt_reduce_kernel<<<(F + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
-      static_cast<const float*>(partial), static_cast<float*>(datt), n_blocks, F);
-  return (int)cudaGetLastError();
+int launch_bwd_nc(int nc, const void* xl, const void* xr, const void* att, const void* g,
+                  void* dxl, void* dxr, void* datt, void* partial, int Bf, int X, int Y, int H,
+                  int C, int ytile, int stages, int group, int strip, int skip,
+                  cudaStream_t s) {
+  if (nc <= 3)
+    return launch_bwd<T, VEC, 3>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
+                                 stages, group, strip, skip, s);
+  if (nc <= 4)
+    return launch_bwd<T, VEC, 4>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
+                                 stages, group, strip, skip, s);
+  if (nc <= 8)
+    return launch_bwd<T, VEC, 8>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
+                                 stages, group, strip, skip, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -435,27 +633,48 @@ extern "C" int grid_slot_attention_fwd(const void* xl, const void* xr, const voi
 
 // Backward of grid_slot_attention_fwd.  xl/xr/g/dxl/dxr: (Bf, X, Y, H*C)
 // contiguous, bf16 (is_bf16 = 1) or f32 (0); att: f32 (H, C); datt: f32
-// (H, C), summed over frames.  Scratch, f32: alpha and dlogit (Bf, X, Y, H,
-// 5); partial (ceil(Bf*X*Y / pix_per_block), H*C).  Needs H*C <= 256.
-// vectorized as for the forward.  Four launches; returns the first
-// cudaGetLastError() that is not 0 (0 on success).
+// (H, C), summed over frames; partial: f32 (blocks, H*C), blocks = Bf *
+// ceil(X / 16) * ceil(Y / ytile).  The plan (ops/grid_gnn_fused.bwd_plan):
+// ytile columns a block, a ring of `stages` (> 3) row units, `group`
+// threads a (pixel, head) (a power of two <= 32).  Needs H*C <= 256.  Two
+// launches; returns the first cudaGetLastError() that is not 0 (0 on
+// success).
+extern "C" int grid_slot_attention_bwd_variant(const void* xl, const void* xr, const void* att,
+                                               const void* g, void* dxl, void* dxr, void* datt,
+                                               void* partial, int Bf, int X, int Y, int H, int C,
+                                               int ytile, int stages, int group, int is_bf16,
+                                               int strip, int skip, void* stream);
+
 extern "C" int grid_slot_attention_bwd(const void* xl, const void* xr, const void* att,
                                        const void* g, void* dxl, void* dxr, void* datt,
-                                       void* alpha, void* dlogit, void* partial, int Bf, int X,
-                                       int Y, int H, int C, int pix_per_block, int is_bf16,
-                                       int vectorized, void* stream) {
+                                       void* partial, int Bf, int X, int Y, int H, int C,
+                                       int ytile, int stages, int group, int is_bf16,
+                                       void* stream) {
+  return grid_slot_attention_bwd_variant(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C,
+                                         ytile, stages, group, is_bf16, STRIP, 0, stream);
+}
+
+// The backward with a strip of `strip` rows a block and passes left out
+// (skip: 1 dxl, 2 dxr and datt, 4 the logits' dot products; their outputs
+// are then wrong), for the sweep of tools/slot_variants.py.
+extern "C" int grid_slot_attention_bwd_variant(const void* xl, const void* xr, const void* att,
+                                               const void* g, void* dxl, void* dxr, void* datt,
+                                               void* partial, int Bf, int X, int Y, int H, int C,
+                                               int ytile, int stages, int group, int is_bf16,
+                                               int strip, int skip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H * C > THREADS || pix_per_block <= 0) return (int)cudaErrorInvalidValue;
-  if (Bf * (long long)X * Y * H == 0) return 0;
-  if (is_bf16) {
-    return vectorized
-               ? launch_bwd<__nv_bfloat16, 8>(xl, xr, att, g, dxl, dxr, datt, alpha, dlogit,
-                                              partial, Bf, X, Y, H, C, pix_per_block, s)
-               : launch_bwd<__nv_bfloat16, 1>(xl, xr, att, g, dxl, dxr, datt, alpha, dlogit,
-                                              partial, Bf, X, Y, H, C, pix_per_block, s);
-  }
-  return vectorized ? launch_bwd<float, 4>(xl, xr, att, g, dxl, dxr, datt, alpha, dlogit,
-                                           partial, Bf, X, Y, H, C, pix_per_block, s)
-                    : launch_bwd<float, 1>(xl, xr, att, g, dxl, dxr, datt, alpha, dlogit,
-                                           partial, Bf, X, Y, H, C, pix_per_block, s);
+  if (H <= 0 || C <= 0 || H * C > 256 || ytile <= 0 || stages <= LIVE_UNITS || strip <= 0 ||
+      group <= 0 ||
+      group > 32 || (group & (group - 1)) || BWD_THREADS / (H * group) < 1)
+    return (int)cudaErrorInvalidValue;
+  const int vec = C % 4 == 0 ? 4 : 1, nc = (C / vec + group - 1) / group;
+  if (is_bf16)
+    return vec == 4 ? launch_bwd_nc<__nv_bfloat16, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
+                                                      Bf, X, Y, H, C, ytile, stages, group, strip, skip, s)
+                    : launch_bwd_nc<__nv_bfloat16, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
+                                                      Bf, X, Y, H, C, ytile, stages, group, strip, skip, s);
+  return vec == 4 ? launch_bwd_nc<float, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
+                                            H, C, ytile, stages, group, strip, skip, s)
+                  : launch_bwd_nc<float, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
+                                            H, C, ytile, stages, group, strip, skip, s);
 }

@@ -1,9 +1,10 @@
 // The Hopper pieces the TMA-and-wgmma kernels share (indexed_linear.cu,
-// quant_matmul.cu's w8a16, short_attention.cu, flash_attention.cu,
-// exact_attention.cu): shared-memory addresses, mbarriers, TMA tensor
-// copies and the tensor maps they read, wgmma descriptors and products,
-// the 64-row attention tiles' products and epilogue, and the split-K
-// reduction across the blocks of a thread-block cluster.  Every kernel
+// quant_matmul.cu, short_attention.cu, flash_attention.cu,
+// exact_attention.cu, grid_slot_attention.cu's backward): shared-memory
+// addresses, mbarriers, TMA tensor and bulk copies and the tensor maps they
+// read, wgmma descriptors and products, the 64-row attention tiles'
+// products and epilogue, and the split-K reduction across the blocks of a
+// thread-block cluster.  Every kernel
 // that includes it is built for sm_90a (wgmma exists only there).
 #pragma once
 
@@ -75,6 +76,21 @@ __device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uin
       : "memory");
 }
 
+// one TMA bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned) into shared memory at dst, counted on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// makes this thread's ordinary writes to shared memory visible to the
+// async proxy (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void tma_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
                                        int c1, int c2) {
   asm volatile(
@@ -121,6 +137,11 @@ __device__ __forceinline__ void pin(float (&d)[R]) {
 }
 template <int R>
 __device__ __forceinline__ void pin(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+template <int R>
+__device__ __forceinline__ void pin(int (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
@@ -313,18 +334,34 @@ struct Wgmma<224> {
   }
 };
 
+// Two- and four-wide vectors of a partial sum's type (f32 or exact int32)
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using x2 = float2;
+  using x4 = float4;
+};
+template <>
+struct Vec<int> {
+  using x2 = int2;
+  using x4 = int4;
+};
+
 // Split K across the blocks of a cluster: rank r holds partial sums of the
-// whole BM x BN tile.  Rank o owns elements [o * share, (o + 1) * share) of
+// whole BM x BN tile, of type T (float, or int for w8a8's exact sums).  Rank o owns elements [o * share, (o + 1) * share) of
 // the tile (row-major); every rank writes its partial sums of them into
 // slot `rank` of the owner's `slots` (distributed shared memory), one
 // cluster barrier, then each owner sums its slots in rank order (no
 // atomics: deterministic) and hands each 4 consecutive elements of a row
-// to emit(element, float4).  The caller makes sure that no rank still
+// to emit(element, Vec<T>::x4).  The caller makes sure that no rank still
 // reads the shared memory that `slots` names when the writes begin.  A
 // thread with has_acc holds acc, the warpgroup's 64 x BN rows from row0.
-template <int BM, int BN, int MAX_CLUSTER, typename Emit>
-__device__ __forceinline__ void cluster_reduce(const float (&acc)[BN / 2], bool has_acc, int row0,
-                                               float* slots, Emit emit) {
+template <int BM, int BN, int MAX_CLUSTER, typename T, typename Emit>
+__device__ __forceinline__ void cluster_reduce(const T (&acc)[BN / 2], bool has_acc, int row0,
+                                               T* slots, Emit emit) {
+  using V2 = typename Vec<T>::x2;
+  using V4 = typename Vec<T>::x4;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
   const int share = ((BM * BN + n_ranks - 1) / n_ranks + 3) / 4 * 4;
@@ -337,19 +374,18 @@ __device__ __forceinline__ void cluster_reduce(const float (&acc)[BN / 2], bool 
       for (int hh = 0; hh < 2; ++hh) {
         const int e = (row0 + warp * 16 + g + hh * 8) * BN + j * 8 + t * 2;
         const int owner = e / share;
-        *reinterpret_cast<float2*>(cluster.map_shared_rank(slots, owner) + rank * share + e -
-                                   owner * share) =
-            make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+        *reinterpret_cast<V2*>(cluster.map_shared_rank(slots, owner) + rank * share + e -
+                               owner * share) = V2{acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]};
       }
   }
   cluster.sync();  // every rank's partial sums are in their owners' slots
   const int mine = min(share, BM * BN - rank * share);
   for (int i = threadIdx.x * 4; i < mine; i += blockDim.x * 4) {
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+    V4 sum = V4{0, 0, 0, 0};
 #pragma unroll
     for (int k = 0; k < MAX_CLUSTER; ++k)
       if (k < n_ranks) {
-        const float4 v = *reinterpret_cast<const float4*>(slots + k * share + i);
+        const V4 v = *reinterpret_cast<const V4*>(slots + k * share + i);
         sum.x += v.x;
         sum.y += v.y;
         sum.z += v.z;

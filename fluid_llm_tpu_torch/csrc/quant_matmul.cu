@@ -23,23 +23,36 @@
 // streaming step (M 60) a 768 x 768 linear is 0.59 MB of int8 weights
 // (>= 0.18 us of HBM) for 2 x 60 operations a byte, far below the 295 a
 // byte where the tensor cores would bound it; the call is too small to
-// reach either, so its launch and the latency of its K loop bound it.
-// Design: a block computes a BM 64 x BN output tile with mma.sync m16n8k32
-// s8 on tiles staged in shared memory, rows padded by 16 bytes so the
-// fragment loads hit 32 distinct banks.  BN is 16 where one row tile
-// covers M (the decode: N 768 gives 48 blocks for 132 SMs, where 64 would
-// give 12) and 64 where 64 still gives at least one block per SM (the
-// 661-row rollout: a quarter of the activation tile's re-reads and of its
-// quantisation; on an H100 there 64 took 0.3-0.4x the time of 16).  It
-// first takes each row's absmax over all K (the activations are a few
-// hundred KB and sit in L2), then quantises the activation tile on its way
-// into shared memory and applies both scales in the epilogue: one launch
-// per linear, where the TPU path took three (quantise, kernel, rescale) on
-// a step that is already launch bound.  A tile is 256 bytes deep, all its
-// 16-byte loads are issued before any is used, and the absmax pass keeps a
-// warp's rows' loads in flight together.  Every block quantises the whole
-// activation tile of its rows, so blocks have 16 warps: all quantise, the
-// first 4 multiply.
+// reach either, so its launch, the chain of its absmax, quantisation and
+// K loop, and the number of blocks that stream the weight bound it.
+// Design: out (M, N) = x q^T with x's 64-row token tile as wgmma's M and
+// a BN-row tile of q (BN 32, 64, 128 or 256) as its N, both int8 and
+// K-major in shared memory (the only layout wgmma takes for 8-bit
+// operands): two consumer warpgroups each take half the columns, wgmma
+// m64n(BN/2)k32 s32.s8.s8, exact int32 sums in registers.
+// - Copies: one warp issues TMA tensor copies of q's (BN, 128) tiles,
+//   untouched, in the 128-byte swizzle, into a ring of up to 8 stages on
+//   full and empty mbarriers; the first stages are in flight while the
+//   consumer warpgroups quantise x.
+// - x: both warpgroups take each row's absmax over the block's K run
+//   (16-byte loads; x is a few hundred KB and sits in L2; bf16 maxima, two
+//   at a time, exact), then quantise the run once (from the same registers
+//   where the run is one batch of loads, at most four K steps; else read
+//   again), each 16 bf16 to 16 int8 written in the 128-byte swizzle, so the
+//   int8 tile reads as a TMA copy would have written it; fence.proxy.async
+//   before the first product makes those writes visible to wgmma.  A run
+//   deeper than the tile's 16 steps (128 KB) goes in segments, each
+//   quantised and then multiplied.
+// - Split K across a thread-block cluster (up to 8 blocks, each a run of
+//   whole 128-deep K steps) where the column tiles alone leave most SMs
+//   idle: each rank writes its partial row maxima into every rank's shared
+//   memory (a maximum is exact in any order; a cluster barrier armed at
+//   the start says every rank has started), and their int32
+//   partial tiles summed in rank order (hopper::cluster_reduce; exact).
+// - Epilogue: bf16((float(acc) * sx[m]) * scale[n]), then + bf16(bias), the
+//   twin's order, as 4-byte pairs.
+//   ops/quant_matmul.w8a8_plan picks (BN, K split) per shape, read from the
+//   plans chip_smoke.py times at phase 3's nine shapes.
 //
 // w8a16.  What bounds it on an H100 (989 bf16 TFLOP/s, 3.35 TB/s): at the
 // exact rollout (M 661) a step's linears are 112 G operations, so the
@@ -94,66 +107,127 @@ using namespace hopper;
 
 namespace {
 
-constexpr int BM = 64;        // w8a8: rows of a block tile, 4 mma warps x 16
-constexpr int THREADS8 = 512;  // w8a8: 16 warps quantise, the first 4 multiply
-constexpr int SMS = 132;      // H100 SXM
-constexpr int BK8 = 256;      // w8a8 K step: 8 x k32
-constexpr int LD8 = BK8 + 16;   // bytes per shared row (68 words: conflict-free)
-constexpr int A_LOADS8 = BM * BK8 / 8 / THREADS8;   // 16-byte loads per thread
+// ---- w8a8 on wgmma: x quantised into shared memory, int8 x int8 -> int32
 
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int Q8_ROWS = 64;          // token rows of a block: wgmma's M
+constexpr int Q8_BK = 128;           // K step: 128 int8 of x and of q (a 128-byte row)
+constexpr int Q8_WG = 2;             // consumer warpgroups: quantise x, multiply half the columns each
+constexpr int Q8_CONSUMERS = 128 * Q8_WG;
+constexpr int Q8_THREADS = Q8_CONSUMERS + 32;  // + the warp that issues the copies
+constexpr int Q8_MAX_CLUSTER = 8;
+constexpr int Q8_MAX_STAGES = 8;
+constexpr int Q8_BATCH = 8;          // 16-column chunks a thread loads before using any
+constexpr int Q8_TILE_STEPS = 16;    // K steps the int8 x tile holds at most
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// The shared memory of a block of BN columns whose x tile holds `run` K
+// steps: the int8 x tile (run steps of 64 x 128, each 1024-aligned), the
+// ring of q tiles, the split's slots, a full and an empty mbarrier a
+// stage, the ranks' row maxima, the rows' maxima, scales and reciprocals,
+// the alignment's slack.
+template <int BN>
+struct Q8Smem {
+  static constexpr int x_step = Q8_ROWS * Q8_BK;
+  static constexpr int q_stage = BN * Q8_BK;  // a multiple of 1024: tiles stay aligned
+  static constexpr int slot_bytes = 4 * (Q8_ROWS * BN + 4 * Q8_MAX_CLUSTER);
+  __host__ __device__ static int ring(int run) { return run * x_step; }
+  __host__ __device__ static int bars(int run, int stages, bool split) {
+    return ring(run) + stages * q_stage + (split ? slot_bytes : 0);
+  }
+  __host__ __device__ static int rows(int run, int stages, bool split) {
+    return bars(run, stages, split) + 16 * stages;
+  }
+  __host__ __device__ static int bytes(int run, int stages, bool split) {
+    return rows(run, stages, split) + 4 * Q8_ROWS * (Q8_MAX_CLUSTER + 3) + TILE_ALIGN;
+  }
+};
+
+template <int N>
+struct WgmmaS8;
+
+template <>
+struct WgmmaS8<16> {
+  static __device__ __forceinline__ void ss(int (&d)[8], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<32> {
+  static __device__ __forceinline__ void ss(int (&d)[16], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<64> {
+  static __device__ __forceinline__ void ss(int (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct WgmmaS8<128> {
+  static __device__ __forceinline__ void ss(int (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,\n"
+        "%8, %9, %10, %11, %12, %13, %14, %15,\n"
+        "%16, %17, %18, %19, %20, %21, %22, %23,\n"
+        "%24, %25, %26, %27, %28, %29, %30, %31,\n"
+        "%32, %33, %34, %35, %36, %37, %38, %39,\n"
+        "%40, %41, %42, %43, %44, %45, %46, %47,\n"
+        "%48, %49, %50, %51, %52, %53, %54, %55,\n"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+          "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+          "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+          "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+          "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+          "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+          "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+          "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+          "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 
 // 16 bytes at p if ok, else zeros (rows past M, K past its end contract to 0)
 __device__ __forceinline__ uint4 ld128(const void* p, bool ok) {
   return ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0u, 0u, 0u, 0u);
-}
-
-// round(q) half to even, clipped to [-127, 127], as the low byte of an
-// int: adding 1.5 * 2^23 rounds q to an integer in the low mantissa bits
-// (|q| < 2^22), one add in place of rint and a float-to-int conversion
-__device__ __forceinline__ uint32_t int8_byte(float q) {
-  const int r = __float_as_int(__fadd_rn(q, 12582912.f)) - 0x4B400000;
-  return static_cast<uint32_t>(max(-127, min(127, r))) & 0xffu;
-}
-
-// 8 bf16 (16 bytes) quantised with the row's scale s: round(v / s) with
-// the quotient of the IEEE division, packed into 8 bytes.  ``exact``
-// divides; otherwise v * inv (inv = 1/s rounded) stands in for the
-// quotient: within 2e-5 of it for |v / s| <= 127, so it rounds to the same
-// integer unless it lies within 1e-4 of a half, which sets ``tie``.  The
-// fast form has no branch, so the unrolled tile load keeps its
-// instruction-level parallelism; the caller redoes a chunk with ``exact``
-// only where ``tie`` was set.
-__device__ __forceinline__ uint2 quant8(const uint4& v, float s, float inv, bool exact,
-                                        bool& tie) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    float y0, y1;
-    if (exact) {
-      y0 = __fdiv_rn(f.x, s);
-      y1 = __fdiv_rn(f.y, s);
-    } else {
-      y0 = __fmul_rn(f.x, inv);
-      y1 = __fmul_rn(f.y, inv);
-      tie |= (fabsf(y0 - floorf(y0) - 0.5f) < 1e-4f) | (fabsf(y1 - floorf(y1) - 0.5f) < 1e-4f);
-    }
-    w[j / 2] |= (int8_byte(y0) << (16 * (j % 2))) | (int8_byte(y1) << (16 * (j % 2) + 8));
-  }
-  return make_uint2(w[0], w[1]);
 }
 
 // The epilogue of one (row, column pair): y in f32 -> bf16, plus the bias.
@@ -170,130 +244,292 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* out, const float* bias
   *reinterpret_cast<__nv_bfloat162*>(out) = pair;
 }
 
-template <int BN>
-__global__ void __launch_bounds__(THREADS8)
-qmm_w8a8_kernel(const __nv_bfloat16* __restrict__ x, long long x_rs,
-                const int8_t* __restrict__ q, const float* __restrict__ scale,
-                const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int M, int N,
-                int K) {
-  constexpr int NT = BN / 8;  // n8 tiles of each mma warp
-  constexpr int B_LOADS = (BN * BK8 / 16 + THREADS8 - 1) / THREADS8;
-  constexpr int ROWS = BM / (THREADS8 / 32);  // absmax rows of each warp
-  __shared__ __align__(16) int8_t sa[BM * LD8];
-  __shared__ __align__(16) int8_t sb[BN * LD8];
-  __shared__ float ssx[BM], sinv[BM];  // each row's scale and its reciprocal
-
-  const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.y * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // each row's activation scale: absmax over all of K, a warp's rows'
-  // loads in flight together
-  {
-    float amax[ROWS];
+// this rank's K run of x rows m0.. as (row, 16-column chunk) items, item i =
+// tid + Q8_CONSUMERS * (u + Q8_BATCH * round): loads of a batch in flight together
+__device__ __forceinline__ void load_chunks(const __nv_bfloat16* x, long long x_rs, int m0, int M,
+                                            int k_begin, int chunks, int i0, uint4 (&v)[Q8_BATCH][2]) {
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i) amax[i] = 0.f;
-    const int r0 = m0 + warp * ROWS;
-    for (int k = lane * 8; k < K; k += 32 * 8) {
-      uint4 v[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) v[i] = ld128(x + (long long)(r0 + i) * x_rs + k, r0 + i < M);
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(h[j]);
-          amax[i] = fmaxf(amax[i], fmaxf(fabsf(f.x), fabsf(f.y)));
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float a = amax[i];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
-      if (lane == 0) {
-        const float sx = a > 0.f ? __fdiv_rn(a, 127.f) : 1.f;
-        ssx[warp * ROWS + i] = sx;
-        sinv[warp * ROWS + i] = __frcp_rn(sx);
-      }
-    }
+  for (int u = 0; u < Q8_BATCH; ++u) {
+    const int i = i0 + threadIdx.x + Q8_CONSUMERS * u, r = i / chunks, c = i % chunks;
+    const bool ok = r < Q8_ROWS && m0 + r < M;
+    const __nv_bfloat16* p = x + (long long)(m0 + r) * x_rs + k_begin + 16 * c;
+    v[u][0] = ld128(p, ok);
+    v[u][1] = ld128(p + 8, ok);
   }
+}
+
+// max |x| of 16 bf16, exact: bf16 maxima of the magnitudes, two at a time
+__device__ __forceinline__ float absmax16(const uint4 (&v)[2]) {
+  const uint32_t w[8] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w};
+  __nv_bfloat162 m = __habs2(*reinterpret_cast<const __nv_bfloat162*>(&w[0]));
+#pragma unroll
+  for (int i = 1; i < 8; ++i) m = __hmax2(m, __habs2(*reinterpret_cast<const __nv_bfloat162*>(&w[i])));
+  return fmaxf(__bfloat162float(m.x), __bfloat162float(m.y));
+}
+
+// 16 bf16 quantised with the row's scale s: rint(v / s), half to even, as
+// 16 int8.  The quotient of the IEEE division when ``exact``; otherwise
+// v * inv (inv = 1/s rounded), within 2e-5 of it for |v / s| <= 127, so it
+// rounds to the same integer unless it lies within 1e-4 of a half, which
+// sets ``tie`` (the caller redoes the chunk dividing).  Adding 1.5 * 2^23
+// rounds to an integer in the low mantissa bits; |v / s| <= 127 (s is the
+// row's absmax / 127), so no clipping is needed.
+__device__ __forceinline__ uint4 quant16(const uint4 (&v)[2], float s, float inv, bool exact,
+                                         bool& tie) {
+  const uint32_t w[8] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w};
+  uint32_t out[4];
+  float off = 0.f;  // the largest |y - rint(y)|
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    int r[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[2 * q + e]));
+      const float y[2] = {exact ? __fdiv_rn(f.x, s) : __fmul_rn(f.x, inv),
+                          exact ? __fdiv_rn(f.y, s) : __fmul_rn(f.y, inv)};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float t = __fadd_rn(y[h], 12582912.f);
+        r[2 * e + h] = __float_as_int(t) - 0x4B400000;
+        off = fmaxf(off, fabsf(__fsub_rn(y[h], __fsub_rn(t, 12582912.f))));
+      }
+    }
+    out[q] = __byte_perm(__byte_perm(r[0], r[1], 0x0040), __byte_perm(r[2], r[3], 0x0040), 0x5410);
+  }
+  tie |= off > 0.4999f;
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(Q8_THREADS)
+qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* __restrict__ x,
+                long long x_rs, const float* __restrict__ scale, const float* __restrict__ bias,
+                __nv_bfloat16* __restrict__ out, int M, int N, int K, int run, int stages) {
+  using S = Q8Smem<BN>;
+  constexpr int PRODUCER = Q8_CONSUMERS / 32;  // the copies' warp
+  constexpr int HALF = BN / 2;                 // columns of each consumer warpgroup
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = aligned_smem(smem_raw);
+  // a cluster splits K: rank r multiplies K steps [r T / n, (r + 1) T / n)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), n_ranks = (int)cluster.num_blocks();
+  const bool split = n_ranks > 1;
+  if (split) cluster.barrier_arrive();  // waited for before the first remote write
+  const int total = K / Q8_BK, s_begin = rank * total / n_ranks;
+  const int steps = (rank + 1) * total / n_ranks - s_begin, k_begin = s_begin * Q8_BK;
+  const uint32_t xs = smem_addr(smem), ring = xs + S::ring(run);
+  int* const slots = reinterpret_cast<int*>(smem + S::ring(run) + stages * S::q_stage);
+  const uint32_t full = xs + S::bars(run, stages, split), empty = full + 8 * stages;
+  float* const maxima = reinterpret_cast<float*>(smem + S::rows(run, stages, split));
+  float* const row_max = maxima + Q8_MAX_CLUSTER * Q8_ROWS;  // this rank's, as ints
+  float* const sx = row_max + Q8_ROWS;  // each row's scale, then its reciprocal
+  float* const inv = sx + Q8_ROWS;
+
+  const int n0 = blockIdx.x / n_ranks * BN;  // weight rows: output columns
+  const int m0 = blockIdx.y * Q8_ROWS;       // tokens: output rows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp / 4;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Q8_CONSUMERS / 32);  // each consumer warp's lane 0
+    }
+    mbar_init_fence();
+  }
+  if (tid < Q8_ROWS) row_max[tid] = 0.f;
   __syncthreads();
 
-  int acc[NT][4];
+  int acc[HALF / 2];
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-
-  for (int k0 = 0; k0 < K; k0 += BK8) {
-    // every global load of the tile first (16-byte vectors), then the
-    // stores: the activation quantised (8 bf16 in, 8 int8 out)
-    uint4 va[A_LOADS8], vb[B_LOADS];
-#pragma unroll
-    for (int i = 0; i < A_LOADS8; ++i) {
-      const int c = tid + i * THREADS8, r = c / (BK8 / 8), kc = (c % (BK8 / 8)) * 8;
-      va[i] = ld128(x + (long long)(m0 + r) * x_rs + k0 + kc, m0 + r < M && k0 + kc < K);
+  for (int i = 0; i < HALF / 2; ++i) acc[i] = 0;
+  if (warp == PRODUCER) {
+    auto issue = [&](int step) {
+      const int s = step % stages, round = step / stages;
+      if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+      mbar_expect(full + 8 * s, S::q_stage);
+      tma_2d(ring + s * S::q_stage, &q_map, full + 8 * s, k_begin + step * Q8_BK, n0);
+    };
+    // the stages that need no wait go before the ranks' exchange of maxima
+    const int first = steps < stages ? steps : stages;
+    if (lane == 0) {
+      prefetch_map(&q_map);
+      for (int step = 0; step < first; ++step) issue(step);
     }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS8, r = c / (BK8 / 16), kc = (c % (BK8 / 16)) * 16;
-      if (c < BN * BK8 / 16)
-        vb[i] = ld128(q + (long long)(n0 + r) * K + k0 + kc, k0 + kc < K);
+    if (split) {
+      cluster.barrier_wait();
+      cluster.sync();
     }
-    bool tie = false;
+    if (lane == 0)
+      for (int step = first; step < steps; ++step) issue(step);
+  } else {
+    int chunks = steps * (Q8_BK / 16);  // 16-column chunks of a row's K run
+    int items = Q8_ROWS * chunks;
+    // the run in one batch of loads (at most 4 K steps): the quantisation
+    // reads these registers
+    const bool held = items <= Q8_CONSUMERS * Q8_BATCH;
+    uint4 v[Q8_BATCH][2];
+    // 1. each row's absmax over this rank's K run: a row's chunks sit on 8
+    //    (or more) neighbouring lanes, reduced by shuffles, then an integer
+    //    maximum (|x| as an int orders like the float; exact in any order)
+    for (int i0 = 0; i0 < items; i0 += Q8_CONSUMERS * Q8_BATCH) {
+      load_chunks(x, x_rs, m0, M, k_begin, chunks, i0, v);
 #pragma unroll
-    for (int i = 0; i < A_LOADS8; ++i) {
-      const int c = tid + i * THREADS8, r = c / (BK8 / 8), kc = (c % (BK8 / 8)) * 8;
-      *reinterpret_cast<uint2*>(sa + r * LD8 + kc) = quant8(va[i], ssx[r], sinv[r], false, tie);
-    }
-    if (tie) {  // rare: this thread's chunks again, dividing
-      for (int i = 0; i < A_LOADS8; ++i) {
-        const int c = tid + i * THREADS8, r = c / (BK8 / 8), kc = (c % (BK8 / 8)) * 8;
-        *reinterpret_cast<uint2*>(sa + r * LD8 + kc) = quant8(va[i], ssx[r], sinv[r], true, tie);
+      for (int u = 0; u < Q8_BATCH; ++u) {
+        const int i = i0 + tid + Q8_CONSUMERS * u;
+        float a = absmax16(v[u]);  // 0 past the run
+#pragma unroll
+        for (int o = 1; o < 8; o <<= 1) a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+        if (i < items && lane % 8 == 0)
+          atomicMax(reinterpret_cast<int*>(row_max) + i / chunks, __float_as_int(a));
       }
     }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int c = tid + i * THREADS8, r = c / (BK8 / 16), kc = (c % (BK8 / 16)) * 16;
-      if (c < BN * BK8 / 16) *reinterpret_cast<uint4*>(sb + r * LD8 + kc) = vb[i];
+    asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
+    if (split) {  // every rank's maxima to every rank, then the maximum over ranks
+      cluster.barrier_wait();  // every rank has started
+      if (tid < Q8_ROWS)
+        for (int k = 0; k < n_ranks; ++k)
+          cluster.map_shared_rank(maxima, k)[rank * Q8_ROWS + tid] = row_max[tid];
+      cluster.sync();
     }
-    __syncthreads();
-    if (warp < BM / 16) {
+    if (tid < Q8_ROWS) {
+      float a = row_max[tid];
 #pragma unroll
-      for (int kk = 0; kk < BK8; kk += 32) {
-        const int8_t* ar = sa + (warp * 16 + g) * LD8 + kk + t * 4;
-        const uint32_t a[4] = {ld32(ar), ld32(ar + 8 * LD8), ld32(ar + 16),
-                               ld32(ar + 8 * LD8 + 16)};
+      for (int k = 0; k < Q8_MAX_CLUSTER; ++k)
+        if (split && k < n_ranks) a = fmaxf(a, maxima[k * Q8_ROWS + tid]);
+      const float s = a > 0.f ? __fdiv_rn(a, 127.f) : 1.f;
+      sx[tid] = s;
+      inv[tid] = __frcp_rn(s);
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
+    // 2. the K run in segments of at most `run` steps (the tile), each
+    //    quantised once into the int8 tile in the 128-byte swizzle (chunk c
+    //    of row r at step c / 8, 16-byte column (c % 8) ^ (r % 8)), 3. then
+    //    multiplied, each step's products retired before the next (none in
+    //    flight across the loop edge)
+    for (int seg0 = 0; seg0 < steps; seg0 += run) {
+      const int seg = steps - seg0 < run ? steps - seg0 : run;
+      const int k0 = k_begin + seg0 * Q8_BK;
+      chunks = seg * (Q8_BK / 16);
+      items = Q8_ROWS * chunks;
+      if (seg0 > 0) asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
+      for (int i0 = 0; i0 < items; i0 += Q8_CONSUMERS * Q8_BATCH) {
+        if (!held) load_chunks(x, x_rs, m0, M, k0, chunks, i0, v);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const int8_t* br = sb + (j * 8 + g) * LD8 + kk + t * 4;
-          const uint32_t b[2] = {ld32(br), ld32(br + 16)};
-          mma_s8(acc[j], a, b);
+        for (int u = 0; u < Q8_BATCH; ++u) {
+          const int i = i0 + tid + Q8_CONSUMERS * u, r = i / chunks, c = i % chunks;
+          if (i >= items) continue;
+          bool tie = false;
+          uint4 qv = quant16(v[u], sx[r], inv[r], false, tie);
+          if (tie) qv = quant16(v[u], sx[r], inv[r], true, tie);  // rare: dividing
+          *reinterpret_cast<uint4*>(smem + (c / 8) * S::x_step + r * Q8_BK +
+                                    (((c % 8) ^ (r & 7)) << 4)) = qv;
         }
       }
+      fence_proxy_async();
+      asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
+      for (int step = seg0; step < seg0 + seg; ++step) {
+        const int s = step % stages;
+        mbar_wait(full + 8 * s, (step / stages) & 1);
+        // this warpgroup's columns: q rows wg * HALF.. of the stage
+        const uint32_t xa = xs + (step - seg0) * S::x_step;
+        const uint32_t qb = ring + s * S::q_stage + wg * HALF * Q8_BK;
+        pin(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < Q8_BK / 32; ++kk)
+          WgmmaS8<HALF>::ss(acc, sw128_desc(xa) + 2 * kk, sw128_desc(qb) + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      }
     }
-    __syncthreads();
   }
-  if (warp >= BM / 16) return;
 
+  if (!split) {
+    if (warp == PRODUCER) return;
+    // acc[4j + 2hh + e] is row 16 (warp % 4) + g + 8hh, column wg HALF + 8j + 2t + e
+    const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    const int n = n0 + j * 8 + t * 2;
-    const float s0 = scale[n], s1 = scale[n + 1];
+    for (int j = 0; j < HALF / 8; ++j) {
+      const int n = n0 + wg * HALF + j * 8 + t * 2;
+      if (n >= N) continue;
+      const float s0 = scale[n], s1 = scale[n + 1];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int r = warp * 16 + g + hh * 8;
-      if (m0 + r >= M) continue;
-      const float sx = ssx[r];
-      const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[j][2 * hh]), sx), s0);
-      const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[j][2 * hh + 1]), sx), s1);
-      store_pair(out + (long long)(m0 + r) * N + n, bias, n, y0, y1);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = (warp % 4) * 16 + g + hh * 8;
+        if (m0 + r >= M) continue;
+        const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hh]), sx[r]), s0);
+        const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * hh + 1]), sx[r]), s1);
+        store_pair(out + (long long)(m0 + r) * N + n, bias, n, y0, y1);
+      }
     }
+    return;
   }
+  // K split: the slots have a region of their own and every rank has
+  // started, so the ranks' partial tiles go straight to their owners and
+  // are summed there in rank order.  The two warpgroups' column halves are
+  // rows 0..63 and 64..127 of a (128, HALF) tile.
+  cluster_reduce<2 * Q8_ROWS, HALF, Q8_MAX_CLUSTER>(
+      acc, warp < PRODUCER, wg * Q8_ROWS, slots, [&](int e, int4 sum) {
+        const int vr = e / HALF, r = vr % Q8_ROWS, n = n0 + vr / Q8_ROWS * HALF + e % HALF;
+        if (m0 + r >= M || n >= N) return;
+        const int v[4] = {sum.x, sum.y, sum.z, sum.w};
+        float y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          y[i] = __fmul_rn(__fmul_rn(__int2float_rn(v[i]), sx[r]), scale[n + i]);
+        __nv_bfloat16* o = out + (long long)(m0 + r) * N + n;
+        store_pair(o, bias, n, y[0], y[1]);
+        store_pair(o + 2, bias, n + 2, y[2], y[3]);
+      });
+}
+
+template <int BN>
+int launch_w8a8(const void* x, long long x_rs, const void* q, const void* scale, const void* bias,
+                void* out, int M, int N, int K, int k_split, cudaStream_t stream) {
+  using S = Q8Smem<BN>;
+  static bool attr_set = false;  // the most any call may take
+  if (int e = allow_smem(qmm_w8a8_kernel<BN>, SMEM_MAX, attr_set)) return e;
+  const int total = K / Q8_BK, steps = (total + k_split - 1) / k_split;  // the longest run
+  const bool split = k_split > 1;
+  // the x tile's steps: the run, at most Q8_TILE_STEPS, fewer where two
+  // stages of q (or the run's one) would not fit beside it
+  const int want = steps < 2 ? steps : 2;
+  int run = steps < Q8_TILE_STEPS ? steps : Q8_TILE_STEPS;
+  while (run > 1 && S::bytes(run, want, split) > SMEM_MAX) --run;
+  // as many stages as fit, up to the longest run and Q8_MAX_STAGES
+  int stages = (SMEM_MAX - S::bytes(run, 0, split)) / S::q_stage;
+  stages = stages < steps ? stages : steps;
+  stages = stages < Q8_MAX_STAGES ? stages : Q8_MAX_STAGES;
+  if (stages < 1) return (int)cudaErrorInvalidValue;
+  CUtensorMap q_map;
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)N};
+  const cuuint64_t strides[1] = {(cuuint64_t)K};
+  const cuuint32_t box[2] = {Q8_BK, BN};
+  if (!encode(&q_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, 2, dims, strides, box,
+              CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN * k_split, (M + Q8_ROWS - 1) / Q8_ROWS);
+  cfg.blockDim = dim3(Q8_THREADS);
+  cfg.dynamicSmemBytes = S::bytes(run, stages, split);
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = k_split;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = split ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, qmm_w8a8_kernel<BN>, q_map,
+                                     static_cast<const __nv_bfloat16*>(x), x_rs,
+                                     static_cast<const float*>(scale),
+                                     static_cast<const float*>(bias),
+                                     static_cast<__nv_bfloat16*>(out), M, N, K, run, stages);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 // ---- w8a16 on wgmma: out^T = W x^T, the int8 weight converted in registers
@@ -582,37 +818,34 @@ int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void*
   }
 }
 
-// BN 64 where that still gives one block per SM, else 16 (see the header)
-bool wide(int M, int N) {
-  const int m_tiles = (M + BM - 1) / BM;
-  return N % 64 == 0 && m_tiles * (N / 64) >= SMS;
-}
-
-template <typename Kernel>
-int launch(Kernel kernel, int bn, int threads, const void* x, long long x_rs, const void* q,
-           const void* scale, const void* bias, void* out, int M, int N, int K,
-           cudaStream_t stream) {
-  dim3 grid(N / bn, (M + BM - 1) / BM);
-  kernel<<<grid, threads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), x_rs, static_cast<const int8_t*>(q),
-      static_cast<const float*>(scale), static_cast<const float*>(bias),
-      static_cast<__nv_bfloat16*>(out), M, N, K);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // x: bf16 (M, K) with row stride x_rs (elements, a multiple of 8; 16-byte
-// aligned); q: int8 (N, K) contiguous; scale: f32 (N,); bias: f32 (N,) or
-// null; out: bf16 (M, N) contiguous.  K a multiple of 128, N of 16.
+// aligned); q: int8 (N, K) contiguous, 16-byte aligned; scale: f32 (N,);
+// bias: f32 (N,) or null; out: bf16 (M, N) contiguous.  K a multiple of
+// 128, N of 16.  The launch plan: n_tile (q rows, output columns, a block)
+// 32, 64, 128 or 256; k_split (the cluster size) 1..8, at most K / 128.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, const void* scale,
-                                 const void* bias, void* out, int M, int N, int K, void* stream) {
-  if (K % 128 || N % 16 || M <= 0) return (int)cudaErrorInvalidValue;
+                                 const void* bias, void* out, int M, int N, int K, int n_tile,
+                                 int k_split, void* stream) {
+  if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > Q8_MAX_CLUSTER ||
+      k_split > K / Q8_BK || x_rs % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(q) % 16)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide(M, N))
-    return launch(qmm_w8a8_kernel<64>, 64, THREADS8, x, x_rs, q, scale, bias, out, M, N, K, s);
-  return launch(qmm_w8a8_kernel<16>, 16, THREADS8, x, x_rs, q, scale, bias, out, M, N, K, s);
+  switch (n_tile) {
+    case 32:
+      return launch_w8a8<32>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+    case 64:
+      return launch_w8a8<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+    case 128:
+      return launch_w8a8<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+    case 256:
+      return launch_w8a8<256>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The same arguments for w8a16, and its launch plan: token_tile (the

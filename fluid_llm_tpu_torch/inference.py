@@ -98,7 +98,7 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device,
 
 
 def load_checkpoint_model(load_path: str, step: int, device: torch.device,
-                          quant: str | None = None, qmm_mode: str = "w8a8") -> FluidLLM:
+                          quant: str | None = None, qmm_mode: str = "w8a16") -> FluidLLM:
     """The model of run folder ``load_path`` at ``step_<step>``, prepared
     for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``);
     ``quant``/``qmm_mode``: quantized backbone storage (serving,

@@ -111,7 +111,7 @@ class FluidLLM(nn.Module):
             self.lora.reset_parameters(self.backbone, generator)
 
     @torch.no_grad()
-    def prepare_inference_params(self, quant: Optional[str] = None, qmm_mode: str = "w8a8",
+    def prepare_inference_params(self, quant: Optional[str] = None, qmm_mode: str = "w8a16",
                                  stack_layers: bool = False) -> None:
         """Inference-time transform, in place (``fluid_llm.py:114-135``): the
         layer list back if it is stacked (``backbone.unstack_layers``); fold

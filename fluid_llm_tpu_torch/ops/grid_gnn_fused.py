@@ -30,10 +30,20 @@ Backward (``grid_gnn_pallas.py:17-21``; g = dL/dout):
     dxl[q]  += a_s g + dlogit_s att * lrelu'(u_s)   for every (p, s) reading q
     datt     = sum over frames, pixels and slots of dlogit_s leaky_relu(u_s)
 
-On the card it is four launches, all gathers: per-pixel alpha/dlogit
-(f32 scratch) and dxr; dxl gathered from the <= 5 pixels that read each
-pixel; datt as per-block f32 partials summed in a fixed order.  No atomics,
-so the result is the same from run to run.
+On the card it is two launches (the source's header has the detail).
+One block walks a strip of :data:`STRIP` x-rows of one frame row by row: a
+producer warp copies each row's contiguous ``Y * F`` run of xl, xr and g
+(TMA bulk copies; unit j holds xl row ``x0 - 2 + j`` and xr, g row
+``x0 - 3 + j``) into a ring of row units, and for each row the consumers
+compute alpha and dlogit into a three-row ring in shared memory, write that
+row's dxr, add its share of datt into registers, and write dxl of the row
+behind it, gathered from the stats of its +-x rows and +-y neighbours.  No
+alpha/dlogit scratch reaches device memory; only the halo stat rows at a
+strip's ends are computed twice.  datt is each block's partial, summed by a
+second launch in a fixed order.  No atomics, so the result is the same from
+run to run.  :func:`bwd_plan` picks the column tile (the whole row where
+the ring fits), the ring's depth and the threads a (pixel, head);
+``tests/test_torch_kernel_plans.py`` walks the same plan on the CPU.
 """
 
 from __future__ import annotations
@@ -180,14 +190,72 @@ def slot_attention_bwd_ref(xl, xr, att, g, heads: int, cdim: int):
     return dxl.to(xl.dtype), dxr.reshape(*lead, heads * cdim).to(xr.dtype), datt
 
 
-_DATT_PIXELS_PER_BLOCK = 2048  # pixels per block of the datt partial sums
+# The backward kernel's plan (csrc/grid_slot_attention.cu; the constants are
+# the source's, tests/test_torch_kernel_plans.py reads them from it)
+STRIP = 30  # x-rows a block owns
+BWD_THREADS = 256  # consumer threads of a block (one more warp issues the copies)
+STAT_RING = 3  # rows of alpha/dlogit a block keeps
+LIVE_UNITS = 3  # row units a step reads; the ring holds more than this many
+DATT_THREADS = 256  # threads of datt's reducing launch, one block a channel
+SMEM_MAX = 232448  # dynamic shared memory a block may have (H100)
+SMEM_SHARED = 115712  # a block's share where two blocks share an SM
+
+
+def bwd_group(cdim: int) -> tuple[int, int, int]:
+    """``(vec, group, chunks)``: channels a load (4 where C allows it, else
+    1), threads a (pixel, head) (a power of two, at most 32, so that each
+    takes at most 4 chunks where it can) and the chunks each takes (a chunk
+    is ``vec`` channels; thread ``sub`` takes chunks ``sub + group k``)."""
+    vec = 4 if cdim % 4 == 0 else 1
+    n = cdim // vec
+    group = 1
+    while group < 32 and -(-n // group) > 4:
+        group *= 2
+    return vec, group, -(-n // group)
+
+
+def bwd_smem(ytile: int, stages: int, heads: int, cdim: int, elem: int) -> int:
+    """Shared memory of a backward block (``BwdSmem`` in the source): the
+    ring of ``stages`` units of three row buffers (``ytile + 4`` pixels of
+    xl, xr, g) or the datt partials that reuse it, the alpha/dlogit ring,
+    att in f32, the mbarriers, 128 bytes of alignment slack."""
+    F = heads * cdim
+    buf = -(-(ytile + 4) * F * elem // 16) * 16
+    red = BWD_THREADS // (heads * bwd_group(cdim)[1]) * F * 4
+    ring = max(stages * 3 * buf, red)
+    stats = STAT_RING * (ytile + 2) * heads * 10 * 4
+    return ring + stats + -(-F * 4 // 16) * 16 + 16 * stages + 128
+
+
+def bwd_plan(Y: int, heads: int, cdim: int, elem: int) -> tuple[int, int, int]:
+    """``(ytile, stages, group)`` of the backward kernel: the whole row as
+    the column tile with a ring of 6 or 5 units, in half an SM's shared
+    memory where that fits (two blocks an SM), else in all of it; else the
+    widest column tile whose ring of 5 units fits."""
+    group = bwd_group(cdim)[1]
+    for budget in (SMEM_SHARED, SMEM_MAX):
+        for stages in (6, 5):
+            if bwd_smem(Y, stages, heads, cdim, elem) <= budget:
+                return Y, stages, group
+    ytile = max(t for t in range(1, Y + 1) if bwd_smem(t, 5, heads, cdim, elem) <= SMEM_MAX)
+    return ytile, 5, group
+
+
+def strips(X: int) -> list[tuple[int, int]]:
+    """The x-rows ``[x0, x1)`` of each strip of a frame, in block order."""
+    return [(x0, min(x0 + STRIP, X)) for x0 in range(0, X, STRIP)]
+
+
+def bwd_blocks(Bf: int, X: int, Y: int, ytile: int) -> int:
+    """Blocks of the backward's first launch: frames x strips x column tiles."""
+    return Bf * len(strips(X)) * -(-Y // ytile)
 
 
 def slot_attention_bwd(xl, xr, att, g, heads: int, cdim: int):
     """(dxl, dxr, datt f32 (heads, cdim)) for ``g = dL/dout``.
 
-    CUDA tensors launch the backward kernels (or raise); CPU tensors take
-    :func:`slot_attention_bwd_ref`.  Shapes and dtypes as
+    CUDA tensors launch the backward kernels (two launches) or raise; CPU
+    tensors take :func:`slot_attention_bwd_ref`.  Shapes and dtypes as
     :func:`fused_slot_attention`; needs heads*cdim <= 256 on the card.
     """
     if xl.device.type == "cpu":
@@ -200,17 +268,14 @@ def slot_attention_bwd(xl, xr, att, g, heads: int, cdim: int):
     att32 = att.float().contiguous()
     dxl, dxr = torch.empty_like(xl), torch.empty_like(xr)
     datt = torch.empty(heads, cdim, dtype=torch.float32, device=xl.device)
-    alpha = torch.empty(Bf, X, Y, heads, 5, dtype=torch.float32, device=xl.device)
-    dlogit = torch.empty_like(alpha)
-    n_blocks = -(-Bf * X * Y // _DATT_PIXELS_PER_BLOCK)
-    partial = torch.empty(n_blocks, F, dtype=torch.float32, device=xl.device)
+    ytile, stages, group = bwd_plan(Y, heads, cdim, xl.element_size())
+    partial = torch.empty(bwd_blocks(Bf, X, Y, ytile), F, dtype=torch.float32, device=xl.device)
     lib = _build.load()
     with torch.cuda.device(xl.device):
         err = lib.grid_slot_attention_bwd(
             xl.data_ptr(), xr.data_ptr(), att32.data_ptr(), g.data_ptr(), dxl.data_ptr(),
-            dxr.data_ptr(), datt.data_ptr(), alpha.data_ptr(), dlogit.data_ptr(),
-            partial.data_ptr(), Bf, X, Y, heads, cdim, _DATT_PIXELS_PER_BLOCK,
-            int(xl.dtype == torch.bfloat16), int(_vectorized(cdim, xl, xr, g, dxl, dxr, att32)),
+            dxr.data_ptr(), datt.data_ptr(), partial.data_ptr(), Bf, X, Y, heads, cdim,
+            ytile, stages, group, int(xl.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "grid_slot_attention_bwd")

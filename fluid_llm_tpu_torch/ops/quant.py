@@ -5,7 +5,9 @@ Counterpart of ``fluid_llm_tpu/ops/quant.py``.  Two storage modes:
 - ``int8``: per-output-channel symmetric absmax, 1 byte a weight.
   :class:`QuantLinear` keeps ``q`` int8 ``(out, in)`` (the ``nn.Linear``
   orientation; the JAX leaf is its transpose), ``scale`` f32 ``(out,)``,
-  the optional bias in f32 and its matmul mode (``w8a8`` or ``w8a16``,
+  the optional bias in f32 and its matmul mode (``w8a16``, the default:
+  bf16 activations, the JAX package's default dequantised path; or
+  ``w8a8``, opt-in: activations quantised to int8 a row;
   ``ops/quant_matmul.py``).
 - ``nf4``: QLoRA 4-bit NormalFloat, two codes a byte, absmax per 64
   weights, the absmax vector double-quantized to int8 per 256-chunk with a
@@ -114,7 +116,7 @@ class QuantLinear(nn.Module):
     """An ``nn.Linear`` stored as int8 (buffers, not parameters: frozen).
     ``models.common.linear`` applies it through ``ops/quant_matmul``."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool, mode: str = "w8a8",
+    def __init__(self, in_features: int, out_features: int, bias: bool, mode: str = "w8a16",
                  device=None):
         super().__init__()
         if mode not in QMM_MODES:
@@ -127,7 +129,7 @@ class QuantLinear(nn.Module):
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, lin: nn.Linear, mode: str = "w8a8") -> "QuantLinear":
+    def from_linear(cls, lin: nn.Linear, mode: str = "w8a16") -> "QuantLinear":
         qp = quantize_weight(lin.weight)
         out = cls(lin.in_features, lin.out_features, lin.bias is not None, mode,
                   device=lin.weight.device)
@@ -188,7 +190,7 @@ def _backbone_linears(backbone: nn.Module):
 
 
 @torch.no_grad()
-def quantize_backbone(backbone: nn.Module, mode: str = "nf4", qmm_mode: str = "w8a8") -> None:
+def quantize_backbone(backbone: nn.Module, mode: str = "nf4", qmm_mode: str = "w8a16") -> None:
     """Store every linear of the backbone quantized, in place (``quant.py:121-155``):
     ``mode`` "int8" (:class:`QuantLinear` applied in ``qmm_mode``) or "nf4"
     (:class:`NF4Linear`; a shape nf4 cannot pack falls back to int8, as in

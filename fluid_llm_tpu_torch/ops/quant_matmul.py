@@ -27,8 +27,14 @@ autograd.
 Bound and design, in short (the source's header has the detail).  w8a8:
 at the streaming step's 60 rows the call is bound by the weight bytes (2 x
 60 operations a byte, far below the card's 295) and, at these sizes, by
-its launch; one launch per linear quantises the activation tile on its way
-into shared memory and applies both scales in the epilogue.  w8a16: at the
+its launch and its chain of absmax, quantisation and K loop.  One launch
+per linear: TMA streams the int8 weight tiles into a ring while the
+consumer warpgroup takes each row's absmax over its K run and quantises x
+once into an int8 tile in shared memory; ``wgmma`` multiplies the two int8
+tiles into exact int32 sums, and the epilogue applies both scales.
+:func:`w8a8_plan` picks the column tile and a K split across a
+thread-block cluster (the ranks exchange their row maxima and sum their
+int32 tiles in rank order, both exact) per shape.  w8a16: at the
 exact rollout's 661 rows the tensor cores bound it, at 60 rows the weight
 bytes and the chain of its K loop.  The kernel computes the transposed
 product ``out^T = q x^T`` so that the int8 weight is ``wgmma``'s register
@@ -58,6 +64,9 @@ W16_ROWS = 64  # w8a16: weight rows (output columns) of a block, wgmma's M
 W16_K_STEP = 128  # w8a16: depth of a K step; a K split takes whole steps
 W16_TOKEN_TILES = (64, 128, 136, 224)  # w8a16: token tiles (wgmma's N), narrowest first
 MAX_K_SPLIT = 8  # blocks of a cluster, the portable limit
+W8_ROWS = 64  # w8a8: token rows of a block, wgmma's M
+W8_K_STEP = 128  # w8a8: depth of a K step; a K split takes runs of whole steps
+W8_COL_TILES = (32, 64, 128, 256)  # w8a8: weight rows (output columns) of a block, wgmma's N
 
 
 def supported(k: int, n: int) -> bool:
@@ -109,6 +118,53 @@ def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
     if fits:
         return max(fits, key=lambda p: (p[0], -p[1]))[1:]
     return min(unsplit, key=lambda p: (p[0], -p[1]))[1:]
+
+
+def w8a8_runs(K: int, k_split: int) -> list[range]:
+    """The K steps each rank of a w8a8 K split multiplies: rank r takes
+    steps ``[r T / k_split, (r + 1) T / k_split)`` of ``T = K / 128``."""
+    steps = K // W8_K_STEP
+    return [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
+
+
+def w8a8_plans(M: int, K: int, N: int) -> list[tuple[int, int, int]]:
+    """Every ``(blocks, n_tile, k_split)`` the w8a8 kernel takes for ``x (M,
+    K) @ q (N, K)^T``: a column tile and a K split (a cluster of that many
+    blocks, each a run of at least one whole 128-deep step, :func:`w8a8_runs`),
+    with its grid of ``ceil(N / n_tile) x k_split x ceil(M / 64)`` blocks."""
+    steps = K // W8_K_STEP
+    return [(-(-N // tile) * k_split * -(-M // W8_ROWS), tile, k_split)
+            for tile in W8_COL_TILES for k_split in range(1, min(MAX_K_SPLIT, steps) + 1)]
+
+
+# The fastest w8a8 plan at chip_smoke.py phase 3's nine shapes (the
+# flagship's 60- and 61-row streaming linears, OPT-125m's 661-row ones) in
+# its plan sweep ("[plans] quant_matmul_w8a8" lines, NVIDIA H100 80GB HBM3)
+W8A8_SWEPT_PLANS = {
+    (60, 768, 768): (64, 6), (60, 768, 2048): (64, 3), (60, 2048, 768): (64, 8),
+    (61, 768, 768): (64, 6), (61, 768, 2048): (128, 6), (61, 2048, 768): (64, 8),
+    (661, 768, 768): (256, 3), (661, 768, 3072): (256, 1), (661, 3072, 768): (256, 3),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def w8a8_plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(n_tile, k_split)`` of :func:`w8a8_plans`: the sweep's fastest at
+    the swept shapes (:data:`W8A8_SWEPT_PLANS`).  Elsewhere the rule of
+    :func:`plan`: no K split where an unsplit grid within ``sms`` blocks
+    fills a third of them (the largest such grid), else the largest grid
+    within ``sms``; where every unsplit grid passes ``sms``, the fewest
+    blocks.  K a multiple of 128."""
+    if (M, K, N) in W8A8_SWEPT_PLANS and sms == _build.H100_SMS:
+        return W8A8_SWEPT_PLANS[M, K, N]
+    every = w8a8_plans(M, K, N)
+    unsplit = [p for p in every if p[2] == 1]
+    fits = [p for p in unsplit if p[0] <= sms]
+    if not fits or max(fits)[0] * 3 < sms:
+        fits = [p for p in every if p[0] <= sms]
+    if fits:
+        return max(fits, key=lambda p: (p[0], -p[1]))[1:]
+    return min(every, key=lambda p: (p[0], -p[1]))[1:]
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -185,8 +241,8 @@ def _launch(mode: str, x, q, scale, bias) -> torch.Tensor:
     if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
         x2 = x2.contiguous()  # the kernel reads rows in 16-byte vectors
     M = x2.shape[0]
-    # w8a16's launch plan (token tile, K split); w8a8 picks its own tile
-    extra = plan(M, K, N, _build.sm_count(x.device)) if mode == "w8a16" else ()
+    # the launch plan: w8a16's (token tile, K split), w8a8's (column tile, K split)
+    extra = (plan if mode == "w8a16" else w8a8_plan)(M, K, N, _build.sm_count(x.device))
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = getattr(_build.load(), name)(

@@ -34,7 +34,7 @@ The airfoil switches (y flip, patch trim, masked normalisation) are not
 ported: the dataset factory refuses those datasets.
 
     python -m fluid_llm_tpu_torch.tools.serve --checkpoint_dir model_checkpoints \\
-        --load_no -1 --port 8474 --buckets 50,251 --quant int8 --qmm_mode w8a8
+        --load_no -1 --port 8474 --buckets 50,251 --quant int8 [--qmm_mode w8a8]
 """
 
 from __future__ import annotations
@@ -340,14 +340,17 @@ class RolloutEngine:
 def load_engine(checkpoint_dir: str, load_no: int = -1, step: int | None = None,
                 buckets=(50, 251), streaming: str = "auto", max_batch: int = 1,
                 batch_window_ms: float = 10.0, quant: str | None = None,
-                qmm_mode: str = "w8a8", device: str | torch.device = "cuda") -> RolloutEngine:
+                qmm_mode: str = "w8a16", device: str | torch.device = "cuda") -> RolloutEngine:
     """Restore a run's checkpoint (``train/checkpoint.py``) into a serving
     engine on ``device``.
 
     ``quant`` ("int8" | "nf4") stores the backbone's linears quantized
     after the adapters are merged (``FluidLLM.prepare_inference_params``);
-    int8 linears run the ``qmm_mode`` kernel ("w8a8" | "w8a16", the JAX
-    package's ``FLUID_QMM_MODE``).  ``streaming`` "auto" serves rope
+    int8 linears run the ``qmm_mode`` kernel: "w8a16" (the default: bf16
+    activations, as the JAX package's default ``FLUID_QMM=auto`` path,
+    ``x @ dequant(q)``) or "w8a8" (opt-in: activations quantised to int8 a
+    row, the JAX kernel's ``FLUID_QMM_MODE=w8a8`` under
+    ``FLUID_QMM=pallas``).  ``streaming`` "auto" serves rope
     backbones with ``rope_abs`` embeddings and absolute time through the
     KV-cache rollout, others through the exact one; "on" / "off" force it.
     """
@@ -451,8 +454,9 @@ def main(argv=None):
                         help="how long to wait for co-batchable requests")
     parser.add_argument("--quant", default=None, choices=["int8", "nf4"],
                         help="store backbone weights quantized (adapters are merged first)")
-    parser.add_argument("--qmm_mode", default="w8a8", choices=["w8a8", "w8a16"],
-                        help="int8 matmul kernel: int8 activations (w8a8) or bf16 (w8a16)")
+    parser.add_argument("--qmm_mode", default="w8a16", choices=["w8a8", "w8a16"],
+                        help="int8 matmul kernel: bf16 activations (w8a16, the default, as "
+                             "the reference's) or int8 ones (w8a8, opt-in)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--no_warmup", action="store_true")
     args = parser.parse_args(argv)

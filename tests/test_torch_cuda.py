@@ -19,7 +19,12 @@ states (first decode, wrapped ring, prefill), and a short streaming
 rollout through the kernels against the same rollout through the twins.
 The int8 matmul kernels are held to the same bound at the serving shapes;
 w8a8's int32 sum must equal its twin's exactly, and with it the output
-(the same f32 scale products and roundings).  The indexed linear is held
+(the same f32 scale products and roundings), under every launch plan
+(column tile, K split), at phase 3's nine shapes with and without bias,
+on a second call and from a CUDA graph.  The slot-attention backward
+(strips of 30 rows, X and Y down to 1, F up to 256, unaligned inputs)
+repeats bit for bit, also from a graph, and allocates no scratch beyond
+its outputs and datt's partials.  The indexed linear is held
 to the same bound at the stacked streaming step's five shapes, at the
 first and the last layer of 12 (an off-by-one-layer offset would read
 another layer's weights: relative error ~1.4); the short-attention kernel
@@ -230,15 +235,30 @@ def test_exact_and_flash_forward_repeat_bit_for_bit_also_in_a_graph(dev, bs, L, 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("Bf,X,Y,H,C", [
     (80, 240, 64, 1, 48), (80, 240, 64, 1, 3), (4, 240, 64, 2, 24), (2, 8, 8, 2, 4),
+    (3, 37, 5, 2, 24), (2, 1, 6, 1, 48), (2, 2, 3, 1, 48), (1, 33, 1, 1, 4),
+    (1, 20, 64, 1, 256), (1, 9, 64, 16, 16), (2, 5, 7, 1, 5),
 ])
 def test_slot_attention_bwd_kernel_matches_twin(dev, dtype, Bf, X, Y, H, C):
-    """dxl, dxr, datt at the training decoder's shapes (80 frames); the
-    result is the same bit for bit on a second call (no atomics)."""
+    """dxl, dxr, datt at the training decoder's shapes (80 frames), strips
+    cut short (X 37, 33, 1, 2: not a multiple of the 30 rows a block owns,
+    or fewer), Y 1, F 256 (column tiles in f32) and chunks of one channel (C
+    3, 5): within the bound of the twin, the same bit for bit on a second
+    call and when replayed from a CUDA graph (no atomics); no alpha/dlogit
+    scratch: the call allocates its outputs and one row of datt partials a
+    block."""
     g = torch.Generator().manual_seed(X + C)
     xl, xr, dout = (torch.randn(Bf, X, Y, H * C, generator=g).to(dev, dtype) for _ in range(3))
     att = torch.randn(H, C, generator=g).to(dev, dtype)
     before = gf.slot_attention_bwd.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     got = gf.slot_attention_bwd(xl, xr, att, dout, H, C)
+    torch.cuda.synchronize()
+    ytile = gf.bwd_plan(Y, H, C, xl.element_size())[0]
+    partial = gf.bwd_blocks(Bf, X, Y, ytile) * H * C * 4
+    # the allocator rounds each large block up to 2 MiB: three allocations here
+    assert torch.cuda.max_memory_allocated() - held <= 2 * xl.nbytes + partial + 3 * 2**21
     again = gf.slot_attention_bwd(xl, xr, att, dout, H, C)
     torch.cuda.synchronize()
     assert gf.slot_attention_bwd.launches == before + 2
@@ -246,6 +266,32 @@ def test_slot_attention_bwd_kernel_matches_twin(dev, dtype, Bf, X, Y, H, C):
     for a, b, w in zip(got, again, gf.slot_attention_bwd_ref(xl, xr, att, dout, H, C)):
         assert torch.equal(a, b)
         assert _rel(a, w) <= tol
+    for replayed in _graph_replays(lambda: gf.slot_attention_bwd(xl, xr, att, dout, H, C)):
+        for a, b in zip(got, replayed):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_slot_attention_bwd_unaligned_inputs_take_plain_copies(dev, dtype):
+    """Inputs that do not start on 16 bytes (contiguous views at an offset
+    of one element) are copied by the producer warp's lanes instead of TMA
+    bulk copies: the same result bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    shape = (4, 40, 64, 48)
+    xl, xr, dout = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(3))
+    att = torch.randn(1, 48, generator=g).to(dev, dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        view = buf[1:].view(shape)
+        view.copy_(t)
+        return view
+
+    want = gf.slot_attention_bwd(xl, xr, att, dout, 1, 48)
+    got = gf.slot_attention_bwd(shifted(xl), shifted(xr), att, shifted(dout), 1, 48)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_exact_kernels_raise_under_autograd(dev):
@@ -494,7 +540,7 @@ def _qmm_case(dev, M, K, N, bias: bool, seed: int = 0):
     (60, 768, 3072, True), (60, 3072, 768, True),
     (1, 768, 768, True), (1, 3072, 768, False), (64, 2048, 768, False), (64, 768, 3072, True),
     (65, 3072, 768, True), (65, 768, 2048, False), (61, 3072, 768, True),
-    (661, 2048, 768, False), (60, 768, 80, True),
+    (661, 2048, 768, False), (60, 768, 80, True), (60, 11008, 4096, False),
 ])
 def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     """The streaming step's (60 rows; 61 in the prefill), the exact
@@ -516,7 +562,6 @@ def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     assert _rel(out, ref) <= REL_TOL
     if mode == "w8a8":
         assert torch.equal(out, ref)
-        return
     assert torch.equal(qmm.int8_matmul(x, q, scale, b, mode), out)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -524,10 +569,34 @@ def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(replayed, out)
+    if mode == "w8a8":
+        for _, *p in qmm.w8a8_plans(M, K, N):
+            with mock.patch.object(qmm, "w8a8_plan", lambda *a, p=tuple(p): p):
+                assert torch.equal(qmm.int8_matmul(x, q, scale, b, mode), ref), p
+        return
     for _, *p in qmm.plans(M, K, N):
         with mock.patch.object(qmm, "plan", lambda *a, p=tuple(p): p):
             got = qmm.int8_matmul(x, q, scale, b, mode)
         assert _rel(got, ref) <= REL_TOL, p
+
+
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("M,K,N", [(M, K, N) for M in (60, 61)
+                                   for K, N in ((768, 768), (768, 2048), (2048, 768))]
+                         + [(661, 768, 768), (661, 768, 3072), (661, 3072, 768)])
+def test_quant_matmul_w8a8_is_its_twin_bit_for_bit_at_phase_3_shapes(dev, M, K, N, bias):
+    """At chip_smoke phase 3's nine w8a8 shapes, with and without bias: the
+    kernel's output equals the twin's bit for bit (exact int32 sums, the
+    same row maxima, division, roundings and scale products), on a second
+    call and from a CUDA graph too."""
+    x, q, scale, b = _qmm_case(dev, M, K, N, bias, seed=1)
+    ref = qmm.int8_matmul_ref(x, q, scale, b, "w8a8")
+    out = qmm.qmm_w8a8(x, q, scale, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(qmm.qmm_w8a8(x, q, scale, b), out)
+    for replayed in _graph_replays(lambda: qmm.qmm_w8a8(x, q, scale, b)):
+        assert torch.equal(replayed, out)
 
 
 def test_quant_matmul_w8a8_rounds_ties_like_its_twin(dev):

@@ -28,12 +28,14 @@ chunk or round after round, and starts the long rows first
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
+from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
 from fluid_llm_tpu_torch.ops import indexed_linear as il
 from fluid_llm_tpu_torch.ops import quant_matmul as qmm
 from fluid_llm_tpu_torch.ops import segment_ops as so
@@ -385,3 +387,257 @@ def test_csr_walk_is_the_twin_bit_for_bit_with_a_long_row(F):
     index, _ = _segment_index_with_a_long_row()
     vals = torch.randn(index.ids.shape[0], F, generator=torch.Generator().manual_seed(F))
     assert torch.equal(so.csr_walk(vals, index), so.segment_sum_ref(vals, index))
+
+
+# -- w8a8 (ops/quant_matmul.w8a8_plan, w8a8_plans, w8a8_runs)
+
+# (M, K, N) of chip_smoke.py phase 3's w8a8 rows: the flagship's streaming
+# linears at 60 rows (61 in the prefill), OPT-125m's at the exact rollout's 661
+W8A8_SHAPES = [(M, K, N) for M in (60, 61) for K, N in ((768, 768), (768, 2048), (2048, 768))] + [
+    (661, 768, 768), (661, 768, 3072), (661, 3072, 768)]
+
+
+@pytest.mark.parametrize("M", [1, 60, 61, 64, 65, 661])
+@pytest.mark.parametrize("K,N", [(128, 16), (768, 768), (768, 2048), (2048, 768), (768, 3072),
+                                 (3072, 768), (384, 80), (11008, 4096), (28672, 8192)])
+def test_w8a8_plan_covers_k_and_n_exactly_for_every_supported_shape(M, K, N):
+    """Every (K, N) ``supported`` takes gets a plan the kernel takes: one of
+    its column tiles, whose tiles cover N (the last one partial where N is
+    not a multiple: rows past N read as zeros and are not written), and a
+    K split that is a cluster of 1..8 blocks, each a non-empty run of whole
+    128-deep steps, the runs covering K once in rank order."""
+    assert qmm.supported(K, N)
+    n_tile, k_split = qmm.w8a8_plan(M, K, N)
+    assert n_tile in qmm.W8_COL_TILES and 1 <= k_split <= qmm.MAX_K_SPLIT
+    tiles = [range(t * n_tile, min(N, (t + 1) * n_tile)) for t in range(-(-N // n_tile))]
+    assert [n for t in tiles for n in t] == list(range(N))
+    runs = qmm.w8a8_runs(K, k_split)
+    assert all(len(r) >= 1 for r in runs)
+    assert [s for r in runs for s in r] == list(range(K // qmm.W8_K_STEP))
+    blocks = -(-N // n_tile) * k_split * -(-M // qmm.W8_ROWS)
+    assert (blocks, n_tile, k_split) in qmm.w8a8_plans(M, K, N)
+
+
+@pytest.mark.parametrize("M,K,N", W8A8_SHAPES)
+def test_w8a8_plan_at_phase_3_shapes(M, K, N):
+    """At the nine shapes chip_smoke times, the plan is the sweep's where it
+    has run (``W8A8_SWEPT_PLANS``), and the 60/61-row grids spread the
+    weight over more blocks than the first port's 48."""
+    p = qmm.w8a8_plan(M, K, N)
+    if (M, K, N) in qmm.W8A8_SWEPT_PLANS:
+        assert p == qmm.W8A8_SWEPT_PLANS[M, K, N]
+    blocks = [b for b, *rest in qmm.w8a8_plans(M, K, N) if tuple(rest) == p]
+    assert len(blocks) == 1
+    if M < 64:
+        assert blocks[0] >= 48
+
+
+def test_w8a8_plan_is_the_kernels():
+    """The column tiles, the token tile, the K step and the cluster limit
+    are the w8a8 kernel's own (``csrc/quant_matmul.cu``)."""
+    src = (Path(qmm.__file__).parents[1] / "csrc" / "quant_matmul.cu").read_text()
+    entry = src[src.index('extern "C" int quant_matmul_w8a8'):]
+    entry = entry[:entry.index("\n}\n")]
+    assert tuple(int(t) for t in re.findall(r"case (\d+):", entry)) == qmm.W8_COL_TILES
+    for name, value in (("Q8_ROWS", qmm.W8_ROWS), ("Q8_BK", qmm.W8_K_STEP),
+                        ("Q8_MAX_CLUSTER", qmm.MAX_K_SPLIT)):
+        assert re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1) == str(value)
+
+
+# -- the slot-attention backward (ops/grid_gnn_fused.bwd_plan, strips)
+
+
+def _lrelu(u):
+    return np.where(u > 0, u, np.float32(gf.NEG_SLOPE) * u)
+
+
+def _slot_bwd_walk(xl, xr, att, g, H, C, plan):
+    """The backward kernel's plan walked in numpy f32: for each block (frame,
+    strip of STRIP rows, column tile) a ring of ``stages`` row units (unit j:
+    xl row x0 - 2 + j, xr and g row x0 - 3 + j) filled in order by a
+    producer that runs as far ahead as the released units let it (unit j
+    may replace unit j - stages once step j - stages + LIVE_UNITS - 1 is
+    done), a STAT_RING-row ring of alpha/dlogit, dxr of each own row at its
+    stat step and dxl of the row behind it, datt partials per pixel slot of
+    the block's threads summed in slot order, then the blocks' partials in
+    the reducing launch's order.  Row buffers start as NaN, so a read of an
+    element no copy brought in shows in the result.  Returns (dxl, dxr,
+    datt, stat rows computed per (frame, row))."""
+    Bf, X, Y, F = xl.shape
+    ytile, stages, group = plan
+    PT = gf.BWD_THREADS // (H * group)
+    att = att.astype(np.float32)
+    dxl = np.full(xl.shape, np.nan, np.float32)
+    dxr = np.full(xl.shape, np.nan, np.float32)
+    written = np.zeros((2, Bf, X, Y), int)
+    stat_rows = np.zeros((Bf, X), int)
+    partial = []
+    for b in range(Bf):
+        for x0, x1 in gf.strips(X):
+            for y0 in range(0, Y, ytile):
+                y1 = min(y0 + ytile, Y)
+                n_units = x1 - x0 + 4
+                ring = [None] * stages
+                stats = [None] * gf.STAT_RING
+                acc = np.zeros((PT, H, C), np.float32)
+                loaded, released = 0, -1
+
+                def load(j):
+                    assert ring[j % stages] is None or ring[j % stages][0] <= released
+                    r = x0 - 2 + j
+                    bufs = np.full((3, ytile + 4, H, C), np.nan, np.float32)
+                    if 0 <= r < X:
+                        ll, lh = max(y0 - 2, 0), min(y1 + 2, Y)
+                        bufs[0, ll - y0 + 2:lh - y0 + 2] = xl[b, r, ll:lh].reshape(-1, H, C)
+                    if 0 <= r - 1 < X and j >= 2:
+                        rl, rh = max(y0 - 1, 0), min(y1 + 1, Y)
+                        bufs[1, rl - y0 + 2:rh - y0 + 2] = xr[b, r - 1, rl:rh].reshape(-1, H, C)
+                        bufs[2, rl - y0 + 2:rh - y0 + 2] = g[b, r - 1, rl:rh].reshape(-1, H, C)
+                    ring[j % stages] = (j, bufs)
+
+                def unit(j):
+                    assert ring[j % stages][0] == j  # the ring still holds it
+                    return ring[j % stages][1]
+
+                def stat(row):
+                    assert stats[(row - x0 + 1) % gf.STAT_RING][0] == row
+                    return stats[(row - x0 + 1) % gf.STAT_RING][1:]
+
+                for j in range(n_units):
+                    while loaded < min(n_units, j + stages - gf.LIVE_UNITS + 1):
+                        load(loaded)
+                        loaded += 1
+                    i = x0 - 3 + j
+                    if j >= 2 and 0 <= i < X:
+                        stat_rows[b, i] += 1
+                        ys = np.arange(max(y0 - 1, 0), min(y1 + 1, Y))
+                        bi = ys - y0 + 2
+                        lm, l0, lp = unit(j - 2)[0], unit(j - 1)[0], unit(j)[0]
+                        r0, g0 = unit(j)[1][bi], unit(j)[2][bi]
+                        vals = [l0[bi], lm[bi], lp[bi], l0[bi - 1], l0[(bi + 1) % (ytile + 4)]]
+                        valid = [np.ones(len(ys), bool), np.full(len(ys), i > 0),
+                                 np.full(len(ys), i < X - 1), ys > 0, ys < Y - 1]
+                        lg = np.stack([np.where(v[:, None], (_lrelu(r0 + s) * att).sum(-1), 0)
+                                       for s, v in zip(vals, valid)])  # (5, ny, H)
+                        gv = np.stack([np.where(v[:, None], (g0 * s).sum(-1), 0)
+                                       for s, v in zip(vals, valid)])
+                        vmask = np.stack(valid)[:, :, None]
+                        m = np.where(vmask, lg, -np.inf).max(0)
+                        w = np.where(vmask, np.exp(lg - m), 0).astype(np.float32)
+                        alpha = w / w.sum(0)
+                        dl = alpha * (gv - (alpha * gv).sum(0))
+                        stats[(i - x0 + 1) % gf.STAT_RING] = (i, ys[0], alpha, dl)
+                        if x0 <= i < x1:
+                            own = (ys >= y0) & (ys < y1)
+                            o = np.zeros((own.sum(), H, C), np.float32)
+                            dat = np.zeros_like(o)
+                            for s, (v, ok) in enumerate(zip(vals, valid)):
+                                u = (r0 + v)[own]
+                                o += np.where(ok[own, None, None],
+                                              dl[s][own][..., None] * np.where(u > 0, 1, gf.NEG_SLOPE), 0)
+                                dat += np.where(ok[own, None, None], dl[s][own][..., None] * _lrelu(u), 0)
+                            dxr[b, i, y0:y1] = (o * att).reshape(-1, F)
+                            written[1, b, i, y0:y1] += 1
+                            for y, d in zip(ys[own], dat):
+                                acc[(y - ys[0]) % PT] += d
+                    if j >= 4:
+                        q = i - 1
+                        ys = np.arange(y0, y1)
+                        bi = ys - y0 + 2
+                        rows = {r: unit(j - 1 + r - q) for r in (q - 1, q, q + 1)}  # xr, g
+                        l = unit(j - 2)[0][bi]
+                        o = np.zeros((len(ys), H, C), np.float32)
+                        for s, (dx, dy) in enumerate(gf.SHIFTS):
+                            p = q - dx  # the source pixel (p, y - dy) whose slot s reads (q, y)
+                            ok = (0 <= p < X) & (ys - dy >= 0) & (ys - dy < Y)
+                            if not ok.any():
+                                continue
+                            s0, alpha, dl = stat(p)
+                            col = np.clip(ys - dy - s0, 0, len(alpha[s]) - 1)
+                            a_s, d_s = alpha[s][col][..., None], dl[s][col][..., None]
+                            rr, gg = rows[p][1][bi - dy], rows[p][2][bi - dy]
+                            term = a_s * gg + d_s * att * np.where(rr + l > 0, 1, gf.NEG_SLOPE)
+                            o += np.where(ok[:, None, None], term, 0)
+                        dxl[b, q, y0:y1] = o.reshape(-1, F)
+                        written[0, b, q, y0:y1] += 1
+                    if j >= gf.LIVE_UNITS - 1:
+                        released = j - gf.LIVE_UNITS + 1
+                red = np.zeros((H, C), np.float32)
+                for p in range(PT):  # the block's partial, pixel slots in order
+                    red += acc[p]
+                partial.append(red.reshape(F))
+    # the reducing launch: thread t sums blocks t, t + 256, ... in order, then a tree
+    partial = np.stack(partial)
+    sums = np.zeros((gf.DATT_THREADS, F), np.float32)
+    for t in range(min(gf.DATT_THREADS, len(partial))):
+        for row in partial[t::gf.DATT_THREADS]:
+            sums[t] += row
+    w = gf.DATT_THREADS // 2
+    while w:
+        sums[:w] += sums[w:2 * w]
+        w //= 2
+    assert (written == 1).all()  # every dxl and dxr element written once
+    return dxl, dxr, sums[0].reshape(H, C), stat_rows
+
+
+@pytest.mark.parametrize("Bf,X,Y,H,C,plan", [
+    (2, 5, 6, 1, 3, None),  # X < STRIP
+    (2, 37, 5, 2, 24, None),  # X not a multiple of STRIP; H 2, C 24
+    (1, 1, 4, 1, 8, None),  # X = 1
+    (2, 2, 3, 1, 48, None),  # X = 2
+    (1, 33, 1, 1, 4, None),  # Y = 1; a strip of 3 rows after the first
+    (1, 20, 7, 1, 48, (3, 4, 4)),  # column tiles of 3 and the shortest ring
+    (1, 33, 6, 2, 5, (4, 5, 2)),  # C 5: chunks of one channel, two threads a head
+])
+def test_slot_bwd_strip_walk_is_the_twin(Bf, X, Y, H, C, plan):
+    """The strip walk of the backward kernel (R = STRIP rows a block, the
+    halo stat rows x0 - 1 and x1, the three-row ring of alpha/dlogit, the
+    unit ring, datt summed in block order) equals ``slot_attention_bwd_ref``
+    within f32 rounding, and only the halo stat rows at each strip's ends
+    are computed twice."""
+    rng = np.random.default_rng(X * 100 + Y)
+    xl, xr, g = (rng.normal(size=(Bf, X, Y, H * C)).astype(np.float32) for _ in range(3))
+    att = rng.normal(size=(H, C)).astype(np.float32)
+    plan = plan or gf.bwd_plan(Y, H, C, 2)
+    assert plan[1] > gf.LIVE_UNITS and plan[2] == gf.bwd_group(C)[1]
+    got = _slot_bwd_walk(xl, xr, att, g, H, C, plan)
+    want = gf.slot_attention_bwd_ref(*(torch.from_numpy(a) for a in (xl, xr, att, g)), H, C)
+    for a, w in zip(got[:3], want):
+        w = w.numpy()
+        assert np.abs(a - w).max() <= 1e-5 * max(1.0, np.abs(w).max()), np.abs(a - w).max()
+    boundary = {x for x0, x1 in gf.strips(X) for x in (x0 - 1, x1) if 0 <= x < X}
+    twice = {x for x in boundary for x0, x1 in gf.strips(X) if x0 <= x < x1}
+    per_col_tile = -(-Y // plan[0])
+    expect = np.array([2 if x in twice else 1 for x in range(X)]) * per_col_tile
+    assert (got[3] == expect).all()
+
+
+def test_slot_bwd_plan_fits_and_takes_whole_rows_at_the_training_shape():
+    """At the training decoder's shape (Y 64, H 1, C 48) the bf16 plan takes
+    whole rows with a ring of 5 units in half an SM's shared memory (two
+    blocks an SM) and 4 threads a pixel; f32 whole rows too, in one SM's;
+    the widest shape the wrapper takes (F 256 in f32) tiles its columns."""
+    assert gf.bwd_plan(64, 1, 48, 2) == (64, 5, 4)
+    assert gf.bwd_smem(64, 5, 1, 48, 2) <= gf.SMEM_SHARED
+    assert gf.bwd_plan(64, 1, 48, 4)[:2] == (64, 5)
+    ytile, stages, _ = gf.bwd_plan(64, 1, 256, 4)
+    assert ytile < 64 and gf.bwd_smem(ytile, stages, 1, 256, 4) <= gf.SMEM_MAX
+    assert gf.bwd_blocks(80, 240, 64, 64) == 80 * 8
+    for H, C in ((1, 48), (1, 3), (2, 24), (2, 4), (1, 255), (16, 16), (256, 1)):
+        vec, group, chunks = gf.bwd_group(C)
+        assert group & (group - 1) == 0 and group <= 32 and chunks <= 8
+        assert -(-(C // vec) // group) == chunks and H * group <= gf.BWD_THREADS
+
+
+def test_slot_bwd_plan_is_the_kernels():
+    """``STRIP``, ``BWD_THREADS``, ``STAT_RING``, ``LIVE_UNITS`` and
+    ``DATT_THREADS`` are the backward kernel's own
+    (``csrc/grid_slot_attention.cu``), and ``SMEM_MAX`` the one
+    ``csrc/hopper.cuh`` allows a block."""
+    csrc = Path(gf.__file__).parents[1] / "csrc"
+    src = (csrc / "grid_slot_attention.cu").read_text()
+    for name in ("STRIP", "BWD_THREADS", "STAT_RING", "LIVE_UNITS", "DATT_THREADS"):
+        got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1)
+        assert got == str(getattr(gf, name)), name
+    hop = (csrc / "hopper.cuh").read_text()
+    assert re.search(r"constexpr int SMEM_MAX = (\d+);", hop).group(1) == str(gf.SMEM_MAX)

@@ -406,3 +406,68 @@ def test_kernels_flag_selects_the_twin_on_cpu(served):
         outs.append(generate(model, tb[0][:, :1], tb[3], tb[4], 2)[1])
     model.kernels = True
     assert torch.equal(outs[0], outs[1])
+
+
+# -- the default int8 path: w8a16, as the JAX package's default ----------------
+
+
+def _modes(model):
+    return {m.mode for m in model.modules() if isinstance(m, quant.QuantLinear)}
+
+
+def test_defaults_build_w8a16_quant_linears(tmp_path):
+    """``QuantLinear``, ``quantize_backbone``, ``prepare_inference_params``
+    and ``serve.load_engine`` (through ``inference.load_checkpoint_model``)
+    store int8 weights applied in w8a16 unless a caller asks for w8a8: the
+    JAX package's default (``FLUID_QMM`` unset, ``auto``) multiplies bf16
+    activations by the dequantised weight and quantises no activation."""
+    from fluid_llm_tpu_torch.tools import serve as srv
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    assert quant.QuantLinear(128, 16, False).mode == "w8a16"
+    assert quant.QuantLinear.from_linear(torch.nn.Linear(128, 16)).mode == "w8a16"
+    cfg = Config(**{**COMMON, **MODELS["llama"], "llm_layers": 1})
+    tds = SyntheticCylinderDataset(n_trajectories=2, resolution=64, seq_len=SEQ_LEN,
+                                   mode="valid", absolute_time=True)
+    model = FluidLLM.build(cfg, tds.ds_props())
+    model.init_weights(torch.Generator().manual_seed(0))
+    run = ckpt.make_save_folder(str(tmp_path / "runs"))
+    ckpt.save_checkpoint(run, 1, model, torch.optim.SGD(model.parameters(), lr=0.0), 0, cfg)
+    eng = srv.load_engine(str(tmp_path / "runs"), buckets=(3,), quant="int8", device="cpu")
+    assert _modes(eng.model) == {"w8a16"}
+    opted = srv.load_engine(str(tmp_path / "runs"), buckets=(3,), quant="int8",
+                            qmm_mode="w8a8", device="cpu")
+    assert _modes(opted.model) == {"w8a8"}
+    bare = FluidLLM.build(cfg, tds.ds_props())
+    quant.quantize_backbone(bare.backbone, "int8")
+    assert _modes(bare) == {"w8a16"}
+
+
+@pytest.mark.parametrize("kind", ["llama", "opt"])
+def test_default_quantized_forward_matches_jax_default(kind, monkeypatch):
+    """``prepare_inference_params("int8")`` at its default mode, holding the
+    JAX package's int8 weights, against the JAX forward on its default path
+    (``FLUID_QMM`` and ``FLUID_QMM_MODE`` unset): equal within W8A16_TOL;
+    so is each prepared MLP linear against ``backbone._linear`` on the
+    same activations (at this size the model's output moves by only ~4e-6
+    when the activations are quantised, one linear's by ~5e-3)."""
+    jmodel, params, jds, model, tds = _model_pair(kind)
+    jserved = _jax_serving_params(jmodel, params)
+    model.prepare_inference_params("int8")
+    assert _modes(model) == {"w8a16"}
+    model.load_state_dict(from_jax_params(_np(jserved)))
+    monkeypatch.delenv("FLUID_QMM", raising=False)
+    monkeypatch.delenv("FLUID_QMM_MODE", raising=False)
+    states, _, _, _, pos = next(jmake_batches(jds, 2, shuffle=False))
+    want = jmodel.forward(jserved, states, pos)
+    tb = next(make_batches(tds, 2, shuffle=False))
+    with torch.no_grad():
+        got = model.eval()(tb[0], tb[4])
+    np.testing.assert_allclose(_f32(got), np.asarray(want), **W8A16_TOL)
+    h = np.random.default_rng(7).normal(size=(2, 5, 128)).astype(np.float32)
+    for name, d_in in (("fc1" if kind == "opt" else "gate", 128), ("fc2" if kind == "opt" else "down", 256)):
+        x = np.resize(h, (2, 5, d_in))
+        want = jbb._linear(jnp.asarray(x), jserved["backbone"]["layers"][0]["mlp"][name])
+        with torch.no_grad():
+            got = linear(torch.from_numpy(x), model.backbone.layers[0].mlp[name])
+        np.testing.assert_allclose(_f32(got), np.asarray(want), err_msg=name, **W8A16_TOL)
