@@ -281,15 +281,15 @@ __global__ void __launch_bounds__(BWD_THREADS + 32, 2)
 grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                      const float* __restrict__ att, const T* __restrict__ g, T* __restrict__ dxl,
                      T* __restrict__ dxr, float* __restrict__ partial, int X, int Y, int H, int C,
-                     int ytile, int stages, int group, int bulk, int strip, int skip) {
+                     int ytile, int stages, int group, int bulk) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* const smem = smem_raw + (128 - smem_addr(smem_raw) % 128) % 128;
   const BwdSmem L(ytile, stages, H, C, group, (int)sizeof(T));
   const int F = H * C, ch = C / VEC, HG = H * group, PT = BWD_THREADS / HG;
-  const int n_strips = (X + strip - 1) / strip, n_yt = (Y + ytile - 1) / ytile;
+  const int n_strips = (X + STRIP - 1) / STRIP, n_yt = (Y + ytile - 1) / ytile;
   const int ty = blockIdx.x % n_yt;
   const long long frame = (long long)(blockIdx.x / n_yt / n_strips) * X;  // row (b, 0)
-  const int x0 = blockIdx.x / n_yt % n_strips * strip, x1 = min(x0 + strip, X);
+  const int x0 = blockIdx.x / n_yt % n_strips * STRIP, x1 = min(x0 + STRIP, X);
   const int y0 = ty * ytile, y1 = min(y0 + ytile, Y);
   const int n_units = x1 - x0 + 4;  // rows x0 - 2 .. x1 + 1
   unsigned char* const ring = smem;
@@ -388,7 +388,7 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
           const int c = sub + group * k;
-          if (!ok || c >= ch || (skip & 4)) continue;
+          if (!ok || c >= ch) continue;
           const int off = h * C + c * VEC;
           float r[VEC], gg[VEC];
           ld<T, VEC>(R0 + yi * F + off, r);
@@ -443,7 +443,7 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
             sp[SLOTS + q] = dl[q];
           }
         }
-        if (!own_row || y < y0 || y >= y1 || (skip & 2)) continue;
+        if (!own_row || y < y0 || y >= y1) continue;
         // dxr of an own pixel, and its share of datt
         T* const out = dxr + ((frame + i) * Y + y) * F;
 #pragma unroll
@@ -474,7 +474,7 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");  // row i's stats written
-    if (j >= 4 && !(skip & 1)) {  // dxl of row q = i - 1, an own row
+    if (j >= 4) {  // dxl of row q = i - 1, an own row
       const int q = i - 1;
       // source slot s: the pixel p = (q, y) - shift_s whose slot s reads
       // (q, y): its unit and stat row (s 0, 3, 4: row q; 1: q + 1; 2: q - 1)
@@ -570,7 +570,7 @@ grid_slot_bwd_datt_kernel(const float* __restrict__ partial, float* __restrict__
 template <typename T, int VEC, int NC>
 int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, void* dxl,
                void* dxr, void* datt, void* partial, int Bf, int X, int Y, int H, int C,
-               int ytile, int stages, int group, int strip, int skip, cudaStream_t stream) {
+               int ytile, int stages, int group, cudaStream_t stream) {
   const int F = H * C;
   const BwdSmem L(ytile, stages, H, C, group, (int)sizeof(T));
   static bool attr_set = false;
@@ -581,13 +581,12 @@ int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, v
                     reinterpret_cast<uintptr_t>(xr) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
   const long long n_blocks =
-      (long long)Bf * ((X + strip - 1) / strip) * ((Y + ytile - 1) / ytile);
+      (long long)Bf * ((X + STRIP - 1) / STRIP) * ((Y + ytile - 1) / ytile);
   if (n_blocks > 0) {
     grid_slot_bwd_kernel<T, VEC, NC><<<(unsigned)n_blocks, BWD_THREADS + 32, L.bytes, stream>>>(
         static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const float*>(att),
         static_cast<const T*>(g), static_cast<T*>(dxl), static_cast<T*>(dxr),
-        static_cast<float*>(partial), X, Y, H, C, ytile, stages, group, bulk ? 1 : 0, strip,
-        skip);
+        static_cast<float*>(partial), X, Y, H, C, ytile, stages, group, bulk ? 1 : 0);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
   grid_slot_bwd_datt_kernel<<<F, DATT_THREADS, 0, stream>>>(
@@ -598,17 +597,16 @@ int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, v
 template <typename T, int VEC>
 int launch_bwd_nc(int nc, const void* xl, const void* xr, const void* att, const void* g,
                   void* dxl, void* dxr, void* datt, void* partial, int Bf, int X, int Y, int H,
-                  int C, int ytile, int stages, int group, int strip, int skip,
-                  cudaStream_t s) {
+                  int C, int ytile, int stages, int group, cudaStream_t s) {
   if (nc <= 3)
     return launch_bwd<T, VEC, 3>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, strip, skip, s);
+                                 stages, group, s);
   if (nc <= 4)
     return launch_bwd<T, VEC, 4>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, strip, skip, s);
+                                 stages, group, s);
   if (nc <= 8)
     return launch_bwd<T, VEC, 8>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, strip, skip, s);
+                                 stages, group, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -639,42 +637,23 @@ extern "C" int grid_slot_attention_fwd(const void* xl, const void* xr, const voi
 // threads a (pixel, head) (a power of two <= 32).  Needs H*C <= 256.  Two
 // launches; returns the first cudaGetLastError() that is not 0 (0 on
 // success).
-extern "C" int grid_slot_attention_bwd_variant(const void* xl, const void* xr, const void* att,
-                                               const void* g, void* dxl, void* dxr, void* datt,
-                                               void* partial, int Bf, int X, int Y, int H, int C,
-                                               int ytile, int stages, int group, int is_bf16,
-                                               int strip, int skip, void* stream);
-
 extern "C" int grid_slot_attention_bwd(const void* xl, const void* xr, const void* att,
                                        const void* g, void* dxl, void* dxr, void* datt,
                                        void* partial, int Bf, int X, int Y, int H, int C,
                                        int ytile, int stages, int group, int is_bf16,
                                        void* stream) {
-  return grid_slot_attention_bwd_variant(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C,
-                                         ytile, stages, group, is_bf16, STRIP, 0, stream);
-}
-
-// The backward with a strip of `strip` rows a block and passes left out
-// (skip: 1 dxl, 2 dxr and datt, 4 the logits' dot products; their outputs
-// are then wrong), for the sweep of tools/slot_variants.py.
-extern "C" int grid_slot_attention_bwd_variant(const void* xl, const void* xr, const void* att,
-                                               const void* g, void* dxl, void* dxr, void* datt,
-                                               void* partial, int Bf, int X, int Y, int H, int C,
-                                               int ytile, int stages, int group, int is_bf16,
-                                               int strip, int skip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= 0 || C <= 0 || H * C > 256 || ytile <= 0 || stages <= LIVE_UNITS || strip <= 0 ||
-      group <= 0 ||
+  if (H <= 0 || C <= 0 || H * C > 256 || ytile <= 0 || stages <= LIVE_UNITS || group <= 0 ||
       group > 32 || (group & (group - 1)) || BWD_THREADS / (H * group) < 1)
     return (int)cudaErrorInvalidValue;
   const int vec = C % 4 == 0 ? 4 : 1, nc = (C / vec + group - 1) / group;
   if (is_bf16)
     return vec == 4 ? launch_bwd_nc<__nv_bfloat16, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
-                                                      Bf, X, Y, H, C, ytile, stages, group, strip, skip, s)
+                                                      Bf, X, Y, H, C, ytile, stages, group, s)
                     : launch_bwd_nc<__nv_bfloat16, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
-                                                      Bf, X, Y, H, C, ytile, stages, group, strip, skip, s);
+                                                      Bf, X, Y, H, C, ytile, stages, group, s);
   return vec == 4 ? launch_bwd_nc<float, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
-                                            H, C, ytile, stages, group, strip, skip, s)
+                                            H, C, ytile, stages, group, s)
                   : launch_bwd_nc<float, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
-                                            H, C, ytile, stages, group, strip, skip, s);
+                                            H, C, ytile, stages, group, s);
 }

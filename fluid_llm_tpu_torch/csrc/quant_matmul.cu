@@ -304,7 +304,8 @@ template <int BN>
 __global__ void __launch_bounds__(Q8_THREADS)
 qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* __restrict__ x,
                 long long x_rs, const float* __restrict__ scale, const float* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int M, int N, int K, int run, int stages) {
+                __nv_bfloat16* __restrict__ out, int M, int N, int K, int run, int stages,
+                int skip) {
   using S = Q8Smem<BN>;
   constexpr int PRODUCER = Q8_CONSUMERS / 32;  // the copies' warp
   constexpr int HALF = BN / 2;                 // columns of each consumer warpgroup
@@ -371,7 +372,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
     // 1. each row's absmax over this rank's K run: a row's chunks sit on 8
     //    (or more) neighbouring lanes, reduced by shuffles, then an integer
     //    maximum (|x| as an int orders like the float; exact in any order)
-    for (int i0 = 0; i0 < items; i0 += Q8_CONSUMERS * Q8_BATCH) {
+    for (int i0 = 0; i0 < items && !(skip & 4); i0 += Q8_CONSUMERS * Q8_BATCH) {
       load_chunks(x, x_rs, m0, M, k_begin, chunks, i0, v);
 #pragma unroll
       for (int u = 0; u < Q8_BATCH; ++u) {
@@ -386,7 +387,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
     asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
     if (split) {  // every rank's maxima to every rank, then the maximum over ranks
       cluster.barrier_wait();  // every rank has started
-      if (tid < Q8_ROWS)
+      if (tid < Q8_ROWS && !(skip & 1))
         for (int k = 0; k < n_ranks; ++k)
           cluster.map_shared_rank(maxima, k)[rank * Q8_ROWS + tid] = row_max[tid];
       cluster.sync();
@@ -417,7 +418,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
 #pragma unroll
         for (int u = 0; u < Q8_BATCH; ++u) {
           const int i = i0 + tid + Q8_CONSUMERS * u, r = i / chunks, c = i % chunks;
-          if (i >= items) continue;
+          if (i >= items || (skip & 2)) continue;
           bool tie = false;
           uint4 qv = quant16(v[u], sx[r], inv[r], false, tie);
           if (tie) qv = quant16(v[u], sx[r], inv[r], true, tie);  // rare: dividing
@@ -433,14 +434,16 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
         // this warpgroup's columns: q rows wg * HALF.. of the stage
         const uint32_t xa = xs + (step - seg0) * S::x_step;
         const uint32_t qb = ring + s * S::q_stage + wg * HALF * Q8_BK;
-        pin(acc);
-        wgmma_fence();
+        if (!(skip & 8)) {
+          pin(acc);
+          wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < Q8_BK / 32; ++kk)
-          WgmmaS8<HALF>::ss(acc, sw128_desc(xa) + 2 * kk, sw128_desc(qb) + 2 * kk);
-        wgmma_commit();
-        wgmma_wait<0>();
-        pin(acc);
+          for (int kk = 0; kk < Q8_BK / 32; ++kk)
+            WgmmaS8<HALF>::ss(acc, sw128_desc(xa) + 2 * kk, sw128_desc(qb) + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          pin(acc);
+        }
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -467,6 +470,10 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
     }
     return;
   }
+  if (skip & 16) {
+    cluster.sync();
+    return;
+  }
   // K split: the slots have a region of their own and every rank has
   // started, so the ranks' partial tiles go straight to their owners and
   // are summed there in rank order.  The two warpgroups' column halves are
@@ -488,7 +495,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
 
 template <int BN>
 int launch_w8a8(const void* x, long long x_rs, const void* q, const void* scale, const void* bias,
-                void* out, int M, int N, int K, int k_split, cudaStream_t stream) {
+                void* out, int M, int N, int K, int k_split, int skip, cudaStream_t stream) {
   using S = Q8Smem<BN>;
   static bool attr_set = false;  // the most any call may take
   if (int e = allow_smem(qmm_w8a8_kernel<BN>, SMEM_MAX, attr_set)) return e;
@@ -527,7 +534,8 @@ int launch_w8a8(const void* x, long long x_rs, const void* q, const void* scale,
                                      static_cast<const __nv_bfloat16*>(x), x_rs,
                                      static_cast<const float*>(scale),
                                      static_cast<const float*>(bias),
-                                     static_cast<__nv_bfloat16*>(out), M, N, K, run, stages);
+                                     static_cast<__nv_bfloat16*>(out), M, N, K, run, stages,
+                                     skip);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -826,9 +834,25 @@ int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void*
 // 128, N of 16.  The launch plan: n_tile (q rows, output columns, a block)
 // 32, 64, 128 or 256; k_split (the cluster size) 1..8, at most K / 128.
 // Returns cudaGetLastError() after the launch (0 on success).
+extern "C" int quant_matmul_w8a8_variant(const void* x, long long x_rs, const void* q,
+                                         const void* scale, const void* bias, void* out, int M,
+                                         int N, int K, int n_tile, int k_split, int skip,
+                                         void* stream);
+
 extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, const void* scale,
                                  const void* bias, void* out, int M, int N, int K, int n_tile,
                                  int k_split, void* stream) {
+  return quant_matmul_w8a8_variant(x, x_rs, q, scale, bias, out, M, N, K, n_tile, k_split, 0,
+                                   stream);
+}
+
+// w8a8 with parts left out (skip: 1 the exchange of row maxima, 2 the
+// quantisation, 4 the absmax loads, 8 the products, 16 the split's
+// reduction; the output is then wrong), for tools/w8a8_variants.py
+extern "C" int quant_matmul_w8a8_variant(const void* x, long long x_rs, const void* q,
+                                         const void* scale, const void* bias, void* out, int M,
+                                         int N, int K, int n_tile, int k_split, int skip,
+                                         void* stream) {
   if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > Q8_MAX_CLUSTER ||
       k_split > K / Q8_BK || x_rs % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(q) % 16)
@@ -836,13 +860,13 @@ extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, c
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_tile) {
     case 32:
-      return launch_w8a8<32>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a8<32>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
     case 64:
-      return launch_w8a8<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a8<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
     case 128:
-      return launch_w8a8<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a8<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
     case 256:
-      return launch_w8a8<256>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
+      return launch_w8a8<256>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -436,8 +436,7 @@ def test_w8a8_plan_is_the_kernels():
     """The column tiles, the token tile, the K step and the cluster limit
     are the w8a8 kernel's own (``csrc/quant_matmul.cu``)."""
     src = (Path(qmm.__file__).parents[1] / "csrc" / "quant_matmul.cu").read_text()
-    entry = src[src.index('extern "C" int quant_matmul_w8a8'):]
-    entry = entry[:entry.index("\n}\n")]
+    entry = src[src.index('extern "C" int quant_matmul_w8a8'):src.index('extern "C" int quant_matmul_w8a16')]
     assert tuple(int(t) for t in re.findall(r"case (\d+):", entry)) == qmm.W8_COL_TILES
     for name, value in (("Q8_ROWS", qmm.W8_ROWS), ("Q8_BK", qmm.W8_K_STEP),
                         ("Q8_MAX_CLUSTER", qmm.MAX_K_SPLIT)):
