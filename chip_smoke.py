@@ -543,7 +543,8 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             twin_deterministic=all(torch.equal(a, b) for a, b in zip(twin_again, want)),
             geometry=f"{n_blocks} blocks ({Bf} frames x {len(gf.strips(240))} strips of "
                      f"{gf.STRIP} rows x {-(-64 // ytile)} column tiles of {ytile}), a ring of "
-                     f"{stages} row units, {group} threads a (pixel, head); then datt: "
+                     f"{stages} row units, {gf.bwd_threads(ytile, H, C)} threads ({group} a "
+                     "(pixel, head)); then datt: "
                      f"{H * C} blocks of {gf.DATT_THREADS} threads (2 launches a call)",
             ms=device_ms(lambda: gf.slot_attention_bwd(xl, xr, att, gout, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_bwd_ref(xl, xr, att, gout, H, C)),

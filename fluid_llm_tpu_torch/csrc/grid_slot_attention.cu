@@ -45,10 +45,11 @@
 //    row's Y*F values are one contiguous run, so a producer warp copies
 //    "units" -- unit j holds xl row x0 - 2 + j and xr and g row x0 - 3 + j
 //    (xl rows x0 - 2 .. x1 + 1, xr and g rows x0 - 1 .. x1) -- with TMA bulk
-//    copies (plain copies by its lanes where F*size is not a multiple of 16
-//    bytes) into a ring of units on full/empty mbarriers.  A step reads
+//    copies (plain copies by its lanes where a run does not start and end on
+//    16 bytes) into a ring of units on full/empty mbarriers.  A step reads
 //    units j - 2 .. j only, so a ring of 5 keeps two units in flight.  At
-//    step j, with unit j in shared memory, the 256 consumer threads
+//    step j, with unit j in shared memory, the consumer threads (256, or
+//    fewer where a row has less work)
 //    a. compute alpha and dlogit of row i = x0 - 3 + j (every 5-slot
 //       softmax reads xl rows i - 1 .. i + 1 and xr, g of row i) into a
 //       three-row ring in shared memory, and, for the strip's own rows,
@@ -215,7 +216,7 @@ int launch(const void* xl, const void* xr, const void* att, void* out, int Bf, i
 // ---------------------------------------------------------------------------
 
 constexpr int STRIP = 30;         // x-rows a block owns
-constexpr int BWD_THREADS = 256;  // consumers; one more warp issues the copies
+constexpr int BWD_THREADS = 256;  // consumers at most; one more warp issues the copies
 constexpr int STAT_RING = 3;      // rows of alpha/dlogit kept: i - 2 .. i at a step
 constexpr int LIVE_UNITS = 3;     // units a step reads: j - 2 .. j
 constexpr int DATT_THREADS = 256;
@@ -258,21 +259,25 @@ __device__ __forceinline__ void st(T* p, const float (&v)[VEC]) {
 }
 
 // The backward's shared memory: the ring of `stages` units (3 row buffers
-// of ytile + 4 pixels each: xl, xr, g), which datt's per-thread partials
+// of ytile + 4 pixels each: xl, xr, g; pixel y0 - 2 of a buffer at `pad`
+// bytes, which puts pixel y0 on 16 bytes), which datt's per-thread partials
 // reuse at the end; the alpha/dlogit ring (3 rows of ytile + 2 pixels x H
-// x 10 f32); att (f32); a full and an empty mbarrier a unit; 128 bytes of
-// alignment slack.  ops/grid_gnn_fused.bwd_smem computes the same.
+// x 10 f32); att (f32); a pixel of zeros, which masked slots read in place
+// of a neighbour off the grid; a full and an empty mbarrier a unit; 128
+// bytes of alignment slack.  ops/grid_gnn_fused.bwd_smem computes the same.
 struct BwdSmem {
-  int buf, unit, ring, stats, att, bytes;
+  int pad, buf, unit, ring, stats, att, zero, bytes;
   __host__ __device__ BwdSmem(int ytile, int stages, int H, int C, int group, int elem) {
     const int F = H * C;
-    buf = ((ytile + 4) * F * elem + 15) / 16 * 16;
+    pad = (16 - 2 * F * elem % 16) % 16;
+    buf = (pad + (ytile + 4) * F * elem + 15) / 16 * 16;
     unit = 3 * buf;
     const int red = BWD_THREADS / (H * group) * F * 4;
     ring = stages * unit > red ? stages * unit : red;
-    stats = STAT_RING * (ytile + 2) * H * 2 * SLOTS * 4;
+    stats = (STAT_RING * (ytile + 2) * H * 2 * SLOTS * 4 + 15) / 16 * 16;
     att = (F * 4 + 15) / 16 * 16;
-    bytes = ring + stats + att + 16 * stages + 128;
+    zero = (F * elem + 15) / 16 * 16;
+    bytes = ring + stats + att + zero + 16 * stages + 128;
   }
 };
 
@@ -281,11 +286,11 @@ __global__ void __launch_bounds__(BWD_THREADS + 32, 2)
 grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                      const float* __restrict__ att, const T* __restrict__ g, T* __restrict__ dxl,
                      T* __restrict__ dxr, float* __restrict__ partial, int X, int Y, int H, int C,
-                     int ytile, int stages, int group, int bulk) {
+                     int ytile, int stages, int group, int nt, int bulk) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* const smem = smem_raw + (128 - smem_addr(smem_raw) % 128) % 128;
   const BwdSmem L(ytile, stages, H, C, group, (int)sizeof(T));
-  const int F = H * C, ch = C / VEC, HG = H * group, PT = BWD_THREADS / HG;
+  const int F = H * C, ch = C / VEC, HG = H * group, PT = nt / HG;
   const int n_strips = (X + STRIP - 1) / STRIP, n_yt = (Y + ytile - 1) / ytile;
   const int ty = blockIdx.x % n_yt;
   const long long frame = (long long)(blockIdx.x / n_yt / n_strips) * X;  // row (b, 0)
@@ -295,7 +300,9 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
   unsigned char* const ring = smem;
   float* const stats = reinterpret_cast<float*>(smem + L.ring);
   float* const att_s = reinterpret_cast<float*>(smem + L.ring + L.stats);
-  const uint32_t full = smem_addr(smem) + L.ring + L.stats + L.att, empty = full + 8 * stages;
+  T* const zero = reinterpret_cast<T*>(smem + L.ring + L.stats + L.att);
+  const uint32_t full = smem_addr(smem) + L.ring + L.stats + L.att + L.zero;
+  const uint32_t empty = full + 8 * stages;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   if (tid == 0) {
@@ -305,16 +312,19 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
     }
     mbar_init_fence();
   }
-  for (int f = tid; f < F; f += blockDim.x) att_s[f] = att[f];
+  for (int f = tid; f < F; f += blockDim.x) {
+    att_s[f] = att[f];
+    from_f32(zero[f], 0.f);
+  }
   __syncthreads();
 
   // row buffers of unit j (xl row x0 - 2 + j; xr, g row x0 - 3 + j): pixel y
   // at (y - y0 + 2) * F
   auto row_buf = [&](int j, int which) {
-    return reinterpret_cast<T*>(ring + (j % stages) * L.unit + which * L.buf);
+    return reinterpret_cast<T*>(ring + (j % stages) * L.unit + which * L.buf + L.pad);
   };
 
-  if (warp == BWD_THREADS / 32) {  // the copies
+  if (warp == nt / 32) {  // the copies
     if (bulk && lane != 0) return;
     const int ll = max(y0 - 2, 0), lh = min(y1 + 2, Y), rl = max(y0 - 1, 0), rh = min(y1 + 1, Y);
     for (int j = 0; j < n_units; ++j) {
@@ -378,10 +388,13 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
       for (int base = sy0; base < sy1; base += PT) {
         const int y = base + ps, yi = y - y0 + 2;
         const bool ok = active && y < sy1;
-        // slot s of pixel (i, y) reads xl at (i, y) + shift_s
-        const T* const nb[SLOTS] = {L0 + yi * F, Ln[0] + yi * F, Ln[2] + yi * F,
-                                    L0 + (yi - 1) * F, L0 + (yi + 1) * F};
+        // slot s of pixel (i, y) reads xl at (i, y) + shift_s; a slot off
+        // the grid reads the zero pixel (its logit is masked, its gv is 0)
         const bool vs[SLOTS] = {true, i > 0, i < X - 1, y > 0, y < Y - 1};
+        const T* const nb[SLOTS] = {L0 + yi * F, vs[1] ? Ln[0] + yi * F : zero,
+                                    vs[2] ? Ln[2] + yi * F : zero,
+                                    vs[3] ? L0 + (yi - 1) * F : zero,
+                                    vs[4] ? L0 + (yi + 1) * F : zero};
         float lg[SLOTS], gv[SLOTS];
 #pragma unroll
         for (int q = 0; q < SLOTS; ++q) lg[q] = gv[q] = 0.f;
@@ -390,21 +403,20 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           const int c = sub + group * k;
           if (!ok || c >= ch) continue;
           const int off = h * C + c * VEC;
-          float r[VEC], gg[VEC];
+          float r[VEC], gg[VEC], a[VEC], v[SLOTS][VEC];
           ld<T, VEC>(R0 + yi * F + off, r);
           ld<T, VEC>(G0 + yi * F + off, gg);
+          ld<float, VEC>(att_s + off, a);
 #pragma unroll
-          for (int q = 0; q < SLOTS; ++q) {
-            if (!vs[q]) continue;
-            float v[VEC];
-            ld<T, VEC>(nb[q] + off, v);
+          for (int q = 0; q < SLOTS; ++q) ld<T, VEC>(nb[q] + off, v[q]);
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q)
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {
-              const float u = r[e] + v[e];
-              lg[q] += fmaxf(u, NEG_SLOPE * u) * att_s[off + e];  // leaky_relu(u, 0.2)
-              gv[q] += gg[e] * v[e];
+              const float u = r[e] + v[q][e];
+              lg[q] += fmaxf(u, NEG_SLOPE * u) * a[e];  // leaky_relu(u, 0.2)
+              gv[q] += gg[e] * v[q][e];
             }
-          }
         }
         for (int o = 1; o < group; o <<= 1)
 #pragma unroll
@@ -423,10 +435,11 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           w[q] = vs[q] ? __expf(lg[q] - m) : 0.f;
           denom += w[q];
         }
+        const float inv = __frcp_rn(denom);
         float gbar = 0.f;
 #pragma unroll
         for (int q = 0; q < SLOTS; ++q) {
-          w[q] /= denom;  // alpha_s, 0 for masked slots
+          w[q] *= inv;  // alpha_s, 0 for masked slots
           gbar += w[q] * gv[q];
         }
         float dl[SLOTS], dl_neg[SLOTS];  // dlogit_s, and times lrelu' where u <= 0
@@ -451,29 +464,28 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           const int c = sub + group * k;
           if (c >= ch) continue;
           const int off = h * C + c * VEC;
-          float r[VEC], o[VEC];
+          float r[VEC], o[VEC], a[VEC], v[SLOTS][VEC];
           ld<T, VEC>(R0 + yi * F + off, r);
+          ld<float, VEC>(att_s + off, a);
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) ld<T, VEC>(nb[q] + off, v[q]);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] = 0.f;
 #pragma unroll
-          for (int q = 0; q < SLOTS; ++q) {
-            if (!vs[q]) continue;
-            float v[VEC];
-            ld<T, VEC>(nb[q] + off, v);
+          for (int q = 0; q < SLOTS; ++q)  // masked slots: dlogit 0
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {  // d = dlogit_s lrelu'(u): dxr += d, datt += d u
-              const float u = r[e] + v[e], d = u > 0.f ? dl[q] : dl_neg[q];
+              const float u = r[e] + v[q][e], d = u > 0.f ? dl[q] : dl_neg[q];
               o[e] += d;
               dacc[k][e] += d * u;
             }
-          }
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) o[e] *= att_s[off + e];
+          for (int e = 0; e < VEC; ++e) o[e] *= a[e];
           st<T, VEC>(out + off, o);
         }
       }
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");  // row i's stats written
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");  // row i's stats written
     if (j >= 4) {  // dxl of row q = i - 1, an own row
       const int q = i - 1;
       // source slot s: the pixel p = (q, y) - shift_s whose slot s reads
@@ -488,13 +500,18 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
         const int dcol[SLOTS] = {0, 0, 0, 1, -1};
         const bool vs[SLOTS] = {true, q + 1 < X, q > 0, y + 1 < Y, y > 0};
         float A[SLOTS], D[SLOTS], D_neg[SLOTS];
+        const T* rp[SLOTS];  // xr and g of source s (the zero pixel off the grid)
+        const T* gp[SLOTS];
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
           A[s] = D[s] = 0.f;
+          rp[s] = gp[s] = zero;
           if (vs[s]) {
             const float* sp = stat(q - 1 + drow[s], y + dcol[s]);
             A[s] = sp[s];
             D[s] = sp[SLOTS + s];
+            rp[s] = Rs[drow[s]] + (yi + dcol[s]) * F;
+            gp[s] = Gs[drow[s]] + (yi + dcol[s]) * F;
           }
           D_neg[s] = NEG_SLOPE * D[s];
         }
@@ -504,30 +521,31 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           const int c = sub + group * k;
           if (c >= ch) continue;
           const int off = h * C + c * VEC;
-          float l[VEC], o[VEC], dd[VEC];  // o = sum A g, dd = sum dlogit lrelu'(u)
+          // o = sum A g, dd = sum dlogit lrelu'(u)
+          float l[VEC], o[VEC], dd[VEC], a[VEC], rr[SLOTS][VEC], gg[SLOTS][VEC];
           ld<T, VEC>(Lq + yi * F + off, l);
+          ld<float, VEC>(att_s + off, a);
+#pragma unroll
+          for (int s = 0; s < SLOTS; ++s) {
+            ld<T, VEC>(rp[s] + off, rr[s]);
+            ld<T, VEC>(gp[s] + off, gg[s]);
+          }
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] = dd[e] = 0.f;
 #pragma unroll
-          for (int s = 0; s < SLOTS; ++s) {
-            if (!vs[s]) continue;
-            const int pi = (yi + dcol[s]) * F + off;
-            float rr[VEC], gg[VEC];
-            ld<T, VEC>(Rs[drow[s]] + pi, rr);
-            ld<T, VEC>(Gs[drow[s]] + pi, gg);
+          for (int s = 0; s < SLOTS; ++s)
 #pragma unroll
             for (int e = 0; e < VEC; ++e) {
-              o[e] += A[s] * gg[e];
-              dd[e] += rr[e] + l[e] > 0.f ? D[s] : D_neg[s];
+              o[e] += A[s] * gg[s][e];
+              dd[e] += rr[s][e] + l[e] > 0.f ? D[s] : D_neg[s];
             }
-          }
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) o[e] += dd[e] * att_s[off + e];
+          for (int e = 0; e < VEC; ++e) o[e] += dd[e] * a[e];
           st<T, VEC>(out + off, o);
         }
       }
     }
-    asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");  // the step's reads done
+    asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");  // the step's reads done
     if (j >= 2 && tid == 0) mbar_arrive(empty + 8 * ((j - 2) % stages));
   }
 
@@ -541,8 +559,8 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) red[ps * F + h * C + c * VEC + e] = dacc[k][e];
     }
-  asm volatile("bar.sync 1, %0;\n" ::"n"(BWD_THREADS) : "memory");
-  for (int f = tid; f < F; f += BWD_THREADS) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(nt) : "memory");
+  for (int f = tid; f < F; f += nt) {
     float sum = 0.f;
     for (int p = 0; p < PT; ++p) sum += red[p * F + f];
     partial[(long long)blockIdx.x * F + f] = sum;
@@ -576,17 +594,23 @@ int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, v
   static bool attr_set = false;
   if (int e = allow_smem(grid_slot_bwd_kernel<T, VEC, NC>, SMEM_MAX, attr_set)) return e;
   if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  // TMA bulk copies where every row run starts and ends on 16 bytes
-  const bool bulk = F * sizeof(T) % 16 == 0 && reinterpret_cast<uintptr_t>(xl) % 16 == 0 &&
+  // TMA bulk copies where every row run starts and ends on 16 bytes: whole
+  // rows of Y * F elements, or column tiles of F-element pixels
+  const bool bulk = (ytile >= Y ? (long long)Y * F * sizeof(T) % 16 == 0
+                                : F * sizeof(T) % 16 == 0) &&
+                    reinterpret_cast<uintptr_t>(xl) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(xr) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  // consumers: enough for a row's pixels x heads x group, in whole warps
+  const int want = ((ytile + 2) * H * group + 31) / 32 * 32;
+  const int nt = want < BWD_THREADS ? want : BWD_THREADS;
   const long long n_blocks =
       (long long)Bf * ((X + STRIP - 1) / STRIP) * ((Y + ytile - 1) / ytile);
   if (n_blocks > 0) {
-    grid_slot_bwd_kernel<T, VEC, NC><<<(unsigned)n_blocks, BWD_THREADS + 32, L.bytes, stream>>>(
+    grid_slot_bwd_kernel<T, VEC, NC><<<(unsigned)n_blocks, nt + 32, L.bytes, stream>>>(
         static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const float*>(att),
         static_cast<const T*>(g), static_cast<T*>(dxl), static_cast<T*>(dxr),
-        static_cast<float*>(partial), X, Y, H, C, ytile, stages, group, bulk ? 1 : 0);
+        static_cast<float*>(partial), X, Y, H, C, ytile, stages, group, nt, bulk ? 1 : 0);
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
   grid_slot_bwd_datt_kernel<<<F, DATT_THREADS, 0, stream>>>(

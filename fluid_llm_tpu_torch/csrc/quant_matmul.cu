@@ -45,9 +45,10 @@
 //   quantised and then multiplied.
 // - Split K across a thread-block cluster (up to 8 blocks, each a run of
 //   whole 128-deep K steps) where the column tiles alone leave most SMs
-//   idle: each rank writes its partial row maxima into every rank's shared
-//   memory (a maximum is exact in any order; a cluster barrier armed at
-//   the start says every rank has started), and their int32
+//   idle: each rank stores its partial row maxima into every rank's shared
+//   memory with st.async, counted on that rank's mbarrier, which is all a
+//   rank waits for (a maximum is exact in any order; a cluster barrier
+//   armed at the start says every rank has started), and their int32
 //   partial tiles summed in rank order (hopper::cluster_reduce; exact).
 // - Epilogue: bf16((float(acc) * sx[m]) * scale[n]), then + bf16(bias), the
 //   twin's order, as 4-byte pairs.
@@ -122,8 +123,8 @@ constexpr int Q8_TILE_STEPS = 16;    // K steps the int8 x tile holds at most
 // The shared memory of a block of BN columns whose x tile holds `run` K
 // steps: the int8 x tile (run steps of 64 x 128, each 1024-aligned), the
 // ring of q tiles, the split's slots, a full and an empty mbarrier a
-// stage, the ranks' row maxima, the rows' maxima, scales and reciprocals,
-// the alignment's slack.
+// stage and the maxima's mbarrier, the ranks' row maxima, the rows'
+// maxima, scales and reciprocals, the alignment's slack.
 template <int BN>
 struct Q8Smem {
   static constexpr int x_step = Q8_ROWS * Q8_BK;
@@ -134,7 +135,7 @@ struct Q8Smem {
     return ring(run) + stages * q_stage + (split ? slot_bytes : 0);
   }
   __host__ __device__ static int rows(int run, int stages, bool split) {
-    return bars(run, stages, split) + 16 * stages;
+    return bars(run, stages, split) + 16 * stages + 8;
   }
   __host__ __device__ static int bytes(int run, int stages, bool split) {
     return rows(run, stages, split) + 4 * Q8_ROWS * (Q8_MAX_CLUSTER + 3) + TILE_ALIGN;
@@ -258,6 +259,21 @@ __device__ __forceinline__ void load_chunks(const __nv_bfloat16* x, long long x_
   }
 }
 
+// rank's shared::cluster address of the local shared-memory address addr
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+// an asynchronous store of v at addr (shared::cluster), counted as 4 bytes
+// on the mbarrier bar of the same block
+__device__ __forceinline__ void st_async(uint32_t addr, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::
+                   "r"(addr), "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
 // max |x| of 16 bf16, exact: bf16 maxima of the magnitudes, two at a time
 __device__ __forceinline__ float absmax16(const uint4 (&v)[2]) {
   const uint32_t w[8] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w};
@@ -304,8 +320,7 @@ template <int BN>
 __global__ void __launch_bounds__(Q8_THREADS)
 qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* __restrict__ x,
                 long long x_rs, const float* __restrict__ scale, const float* __restrict__ bias,
-                __nv_bfloat16* __restrict__ out, int M, int N, int K, int run, int stages,
-                int skip) {
+                __nv_bfloat16* __restrict__ out, int M, int N, int K, int run, int stages) {
   using S = Q8Smem<BN>;
   constexpr int PRODUCER = Q8_CONSUMERS / 32;  // the copies' warp
   constexpr int HALF = BN / 2;                 // columns of each consumer warpgroup
@@ -321,6 +336,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
   const uint32_t xs = smem_addr(smem), ring = xs + S::ring(run);
   int* const slots = reinterpret_cast<int*>(smem + S::ring(run) + stages * S::q_stage);
   const uint32_t full = xs + S::bars(run, stages, split), empty = full + 8 * stages;
+  const uint32_t max_bar = empty + 8 * stages;  // the ranks' maxima have arrived
   float* const maxima = reinterpret_cast<float*>(smem + S::rows(run, stages, split));
   float* const row_max = maxima + Q8_MAX_CLUSTER * Q8_ROWS;  // this rank's, as ints
   float* const sx = row_max + Q8_ROWS;  // each row's scale, then its reciprocal
@@ -335,6 +351,8 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, Q8_CONSUMERS / 32);  // each consumer warp's lane 0
     }
+    mbar_init(max_bar, 1);
+    if (split) mbar_expect(max_bar, n_ranks * Q8_ROWS * 4);  // every rank's 64 maxima
     mbar_init_fence();
   }
   if (tid < Q8_ROWS) row_max[tid] = 0.f;
@@ -356,10 +374,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
       prefetch_map(&q_map);
       for (int step = 0; step < first; ++step) issue(step);
     }
-    if (split) {
-      cluster.barrier_wait();
-      cluster.sync();
-    }
+    if (split) cluster.barrier_wait();
     if (lane == 0)
       for (int step = first; step < steps; ++step) issue(step);
   } else {
@@ -372,7 +387,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
     // 1. each row's absmax over this rank's K run: a row's chunks sit on 8
     //    (or more) neighbouring lanes, reduced by shuffles, then an integer
     //    maximum (|x| as an int orders like the float; exact in any order)
-    for (int i0 = 0; i0 < items && !(skip & 4); i0 += Q8_CONSUMERS * Q8_BATCH) {
+    for (int i0 = 0; i0 < items; i0 += Q8_CONSUMERS * Q8_BATCH) {
       load_chunks(x, x_rs, m0, M, k_begin, chunks, i0, v);
 #pragma unroll
       for (int u = 0; u < Q8_BATCH; ++u) {
@@ -385,14 +400,15 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
       }
     }
     asm volatile("bar.sync 1, %0;\n" ::"n"(Q8_CONSUMERS) : "memory");
-    if (split) {  // every rank's maxima to every rank, then the maximum over ranks
-      cluster.barrier_wait();  // every rank has started
-      if (tid < Q8_ROWS && !(skip & 1))
+    if (split) {  // every rank's maxima to every rank (no cluster-wide barrier)
+      cluster.barrier_wait();  // every rank has started: its max_bar is set up
+      if (tid < Q8_ROWS)
         for (int k = 0; k < n_ranks; ++k)
-          cluster.map_shared_rank(maxima, k)[rank * Q8_ROWS + tid] = row_max[tid];
-      cluster.sync();
+          st_async(map_rank(smem_addr(maxima + rank * Q8_ROWS + tid), k), row_max[tid],
+                   map_rank(max_bar, k));
     }
     if (tid < Q8_ROWS) {
+      if (split) mbar_wait(max_bar, 0);  // the n_ranks x 64 maxima are here
       float a = row_max[tid];
 #pragma unroll
       for (int k = 0; k < Q8_MAX_CLUSTER; ++k)
@@ -418,7 +434,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
 #pragma unroll
         for (int u = 0; u < Q8_BATCH; ++u) {
           const int i = i0 + tid + Q8_CONSUMERS * u, r = i / chunks, c = i % chunks;
-          if (i >= items || (skip & 2)) continue;
+          if (i >= items) continue;
           bool tie = false;
           uint4 qv = quant16(v[u], sx[r], inv[r], false, tie);
           if (tie) qv = quant16(v[u], sx[r], inv[r], true, tie);  // rare: dividing
@@ -434,16 +450,14 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
         // this warpgroup's columns: q rows wg * HALF.. of the stage
         const uint32_t xa = xs + (step - seg0) * S::x_step;
         const uint32_t qb = ring + s * S::q_stage + wg * HALF * Q8_BK;
-        if (!(skip & 8)) {
-          pin(acc);
-          wgmma_fence();
+        pin(acc);
+        wgmma_fence();
 #pragma unroll
-          for (int kk = 0; kk < Q8_BK / 32; ++kk)
-            WgmmaS8<HALF>::ss(acc, sw128_desc(xa) + 2 * kk, sw128_desc(qb) + 2 * kk);
-          wgmma_commit();
-          wgmma_wait<0>();
-          pin(acc);
-        }
+        for (int kk = 0; kk < Q8_BK / 32; ++kk)
+          WgmmaS8<HALF>::ss(acc, sw128_desc(xa) + 2 * kk, sw128_desc(qb) + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        pin(acc);
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + 8 * s);
       }
@@ -470,10 +484,6 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
     }
     return;
   }
-  if (skip & 16) {
-    cluster.sync();
-    return;
-  }
   // K split: the slots have a region of their own and every rank has
   // started, so the ranks' partial tiles go straight to their owners and
   // are summed there in rank order.  The two warpgroups' column halves are
@@ -495,7 +505,7 @@ qmm_w8a8_kernel(const __grid_constant__ CUtensorMap q_map, const __nv_bfloat16* 
 
 template <int BN>
 int launch_w8a8(const void* x, long long x_rs, const void* q, const void* scale, const void* bias,
-                void* out, int M, int N, int K, int k_split, int skip, cudaStream_t stream) {
+                void* out, int M, int N, int K, int k_split, cudaStream_t stream) {
   using S = Q8Smem<BN>;
   static bool attr_set = false;  // the most any call may take
   if (int e = allow_smem(qmm_w8a8_kernel<BN>, SMEM_MAX, attr_set)) return e;
@@ -534,8 +544,7 @@ int launch_w8a8(const void* x, long long x_rs, const void* q, const void* scale,
                                      static_cast<const __nv_bfloat16*>(x), x_rs,
                                      static_cast<const float*>(scale),
                                      static_cast<const float*>(bias),
-                                     static_cast<__nv_bfloat16*>(out), M, N, K, run, stages,
-                                     skip);
+                                     static_cast<__nv_bfloat16*>(out), M, N, K, run, stages);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -834,25 +843,9 @@ int launch_w8a16_tile(int token_tile, const void* x, long long x_rs, const void*
 // 128, N of 16.  The launch plan: n_tile (q rows, output columns, a block)
 // 32, 64, 128 or 256; k_split (the cluster size) 1..8, at most K / 128.
 // Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int quant_matmul_w8a8_variant(const void* x, long long x_rs, const void* q,
-                                         const void* scale, const void* bias, void* out, int M,
-                                         int N, int K, int n_tile, int k_split, int skip,
-                                         void* stream);
-
 extern "C" int quant_matmul_w8a8(const void* x, long long x_rs, const void* q, const void* scale,
                                  const void* bias, void* out, int M, int N, int K, int n_tile,
                                  int k_split, void* stream) {
-  return quant_matmul_w8a8_variant(x, x_rs, q, scale, bias, out, M, N, K, n_tile, k_split, 0,
-                                   stream);
-}
-
-// w8a8 with parts left out (skip: 1 the exchange of row maxima, 2 the
-// quantisation, 4 the absmax loads, 8 the products, 16 the split's
-// reduction; the output is then wrong), for tools/w8a8_variants.py
-extern "C" int quant_matmul_w8a8_variant(const void* x, long long x_rs, const void* q,
-                                         const void* scale, const void* bias, void* out, int M,
-                                         int N, int K, int n_tile, int k_split, int skip,
-                                         void* stream) {
   if (K % 128 || N % 16 || M <= 0 || k_split < 1 || k_split > Q8_MAX_CLUSTER ||
       k_split > K / Q8_BK || x_rs % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(q) % 16)
@@ -860,13 +853,13 @@ extern "C" int quant_matmul_w8a8_variant(const void* x, long long x_rs, const vo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_tile) {
     case 32:
-      return launch_w8a8<32>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
+      return launch_w8a8<32>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 64:
-      return launch_w8a8<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
+      return launch_w8a8<64>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 128:
-      return launch_w8a8<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
+      return launch_w8a8<128>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     case 256:
-      return launch_w8a8<256>(x, x_rs, q, scale, bias, out, M, N, K, k_split, skip, s);
+      return launch_w8a8<256>(x, x_rs, q, scale, bias, out, M, N, K, k_split, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -44,7 +44,6 @@ SIGNATURES = {
     "slab_decode_attention": [_P] * 9 + [_I] * 6 + [_LL, _I, ctypes.c_float, _I, _I, _P],
     "quant_matmul_w8a8": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
-    "quant_matmul_w8a8_variant": [_P, _LL] + [_P] * 4 + [_I] * 6 + [_P],
     "segment_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
     "segment_gather_f32": [_P] * 3 + [_LL] + [_I] * 3 + [_P],
     "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],

@@ -193,7 +193,7 @@ def slot_attention_bwd_ref(xl, xr, att, g, heads: int, cdim: int):
 # The backward kernel's plan (csrc/grid_slot_attention.cu; the constants are
 # the source's, tests/test_torch_kernel_plans.py reads them from it)
 STRIP = 30  # x-rows a block owns
-BWD_THREADS = 256  # consumer threads of a block (one more warp issues the copies)
+BWD_THREADS = 256  # consumer threads of a block at most (one more warp issues the copies)
 STAT_RING = 3  # rows of alpha/dlogit a block keeps
 LIVE_UNITS = 3  # row units a step reads; the ring holds more than this many
 DATT_THREADS = 256  # threads of datt's reducing launch, one block a channel
@@ -214,17 +214,26 @@ def bwd_group(cdim: int) -> tuple[int, int, int]:
     return vec, group, -(-n // group)
 
 
+def bwd_threads(ytile: int, heads: int, cdim: int) -> int:
+    """Consumer threads of a backward block: a row's stat pixels x heads x
+    ``group``, in whole warps, at most :data:`BWD_THREADS`."""
+    return min(BWD_THREADS, -(-(ytile + 2) * heads * bwd_group(cdim)[1] // 32) * 32)
+
+
 def bwd_smem(ytile: int, stages: int, heads: int, cdim: int, elem: int) -> int:
     """Shared memory of a backward block (``BwdSmem`` in the source): the
     ring of ``stages`` units of three row buffers (``ytile + 4`` pixels of
-    xl, xr, g) or the datt partials that reuse it, the alpha/dlogit ring,
-    att in f32, the mbarriers, 128 bytes of alignment slack."""
+    xl, xr, g after a pad that puts the tile's first pixel on 16 bytes) or
+    the datt partials that reuse it, the alpha/dlogit ring, att in f32, a
+    pixel of zeros (what a slot off the grid reads), the mbarriers, 128
+    bytes of alignment slack."""
     F = heads * cdim
-    buf = -(-(ytile + 4) * F * elem // 16) * 16
+    pad = (16 - 2 * F * elem % 16) % 16
+    buf = -(-(pad + (ytile + 4) * F * elem) // 16) * 16
     red = BWD_THREADS // (heads * bwd_group(cdim)[1]) * F * 4
     ring = max(stages * 3 * buf, red)
-    stats = STAT_RING * (ytile + 2) * heads * 10 * 4
-    return ring + stats + -(-F * 4 // 16) * 16 + 16 * stages + 128
+    stats = -(-STAT_RING * (ytile + 2) * heads * 10 * 4 // 16) * 16
+    return ring + stats + -(-F * 4 // 16) * 16 + -(-F * elem // 16) * 16 + 16 * stages + 128
 
 
 def bwd_plan(Y: int, heads: int, cdim: int, elem: int) -> tuple[int, int, int]:

@@ -141,7 +141,7 @@ def w8a8_plans(M: int, K: int, N: int) -> list[tuple[int, int, int]]:
 # flagship's 60- and 61-row streaming linears, OPT-125m's 661-row ones) in
 # its plan sweep ("[plans] quant_matmul_w8a8" lines, NVIDIA H100 80GB HBM3)
 W8A8_SWEPT_PLANS = {
-    (60, 768, 768): (64, 6), (60, 768, 2048): (64, 3), (60, 2048, 768): (64, 8),
+    (60, 768, 768): (64, 6), (60, 768, 2048): (128, 6), (60, 2048, 768): (64, 8),
     (61, 768, 768): (64, 6), (61, 768, 2048): (128, 6), (61, 2048, 768): (64, 8),
     (661, 768, 768): (256, 3), (661, 768, 3072): (256, 1), (661, 3072, 768): (256, 3),
 }

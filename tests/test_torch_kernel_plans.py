@@ -464,7 +464,7 @@ def _slot_bwd_walk(xl, xr, att, g, H, C, plan):
     datt, stat rows computed per (frame, row))."""
     Bf, X, Y, F = xl.shape
     ytile, stages, group = plan
-    PT = gf.BWD_THREADS // (H * group)
+    PT = gf.bwd_threads(ytile, H, C) // (H * group)  # pixels a pass: the threads' pixel slots
     att = att.astype(np.float32)
     dxl = np.full(xl.shape, np.nan, np.float32)
     dxr = np.full(xl.shape, np.nan, np.float32)
@@ -622,10 +622,15 @@ def test_slot_bwd_plan_fits_and_takes_whole_rows_at_the_training_shape():
     ytile, stages, _ = gf.bwd_plan(64, 1, 256, 4)
     assert ytile < 64 and gf.bwd_smem(ytile, stages, 1, 256, 4) <= gf.SMEM_MAX
     assert gf.bwd_blocks(80, 240, 64, 64) == 80 * 8
-    for H, C in ((1, 48), (1, 3), (2, 24), (2, 4), (1, 255), (16, 16), (256, 1)):
+    for H, C in ((1, 48), (1, 3), (2, 24), (2, 4), (1, 255), (16, 16), (256, 1), (1, 5)):
         vec, group, chunks = gf.bwd_group(C)
         assert group & (group - 1) == 0 and group <= 32 and chunks <= 8
         assert -(-(C // vec) // group) == chunks and H * group <= gf.BWD_THREADS
+        for Y, elem in ((3, 2), (64, 2), (7, 4), (64, 4)):
+            ytile, stages, _ = gf.bwd_plan(Y, H, C, elem)
+            # every region on 16 bytes: the rings, att's and the zero pixel's 16-byte loads
+            assert gf.bwd_smem(ytile, stages, H, C, elem) % 16 == 0
+            assert 32 <= gf.bwd_threads(ytile, H, C) <= gf.BWD_THREADS
 
 
 def test_slot_bwd_plan_is_the_kernels():
