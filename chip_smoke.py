@@ -797,12 +797,9 @@ def _w8a16_plans(dev, failures: list) -> list[dict]:
     return res
 
 
-# (M, K, N, bias) of phase 3's w8a8 rows: the flagship's bias-free linears
-# at 60 and 61 rows, OPT-125m's biased ones at 661
-W8A8_SHAPES = [(M, K, N, M == 661) for M, K, N in
-               [(60, 768, 768), (60, 768, 2048), (60, 2048, 768), (61, 768, 768),
-                (61, 768, 2048), (61, 2048, 768), (661, 768, 768), (661, 768, 3072),
-                (661, 3072, 768)]]
+# (M, K, N, bias) of phase 3's w8a8 rows (QMM_CASES): the flagship's
+# bias-free linears at 60 and 61 rows, OPT-125m's biased ones at 661
+W8A8_SHAPES = [case[1:5] for case in QMM_CASES if case[0] == "w8a8"]
 
 
 def _w8a8_plans(dev, failures: list) -> list[dict]:

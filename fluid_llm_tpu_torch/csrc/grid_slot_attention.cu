@@ -62,10 +62,16 @@
 //    column tile) are computed twice, by the two blocks that share them.
 //    A pixel's C channels are split across `group` threads (chunks of 4
 //    channels, interleaved), its dot products summed by xor shuffles
-//    (the same bits in every thread of the group).
+//    (the same bits in every thread of the group).  A slot off the grid
+//    reads a pixel of zeros, so the channel loops have no branch.
 // 2. datt: each block sums its threads' partials in pixel-slot order into
 //    one row of `partial`; a second launch sums those rows, each thread a
 //    stride of blocks in order, then a fixed tree: the same bits every run.
+// What holds it back (PERF.md): issue, not bytes.  The three channel loops
+// (logits, dxr and datt, dxl) take ~110 instructions an element at two
+// blocks an SM (96 registers, ~106 KB of shared memory each), and their
+// time adds to the copies' rather than hiding them: leaving out each loop
+// saved 0.12-0.16 ms of the 0.55, the copies alone took 0.15.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +86,8 @@ namespace {
 constexpr float NEG_SLOPE = 0.2f;
 constexpr int THREADS = 256;
 
+// VEC consecutive channels to / from f32: 8 or 4 bf16 (16 or 8 bytes), 4
+// f32 (16 bytes), or one
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   if constexpr (VEC == 4) {
@@ -101,6 +109,14 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
       out[2 * i] = f.x;
       out[2 * i + 1] = f.y;
     }
+  } else if constexpr (VEC == 4) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    out[0] = a.x;
+    out[1] = a.y;
+    out[2] = b.x;
+    out[3] = b.y;
   } else {
     out[0] = __bfloat162float(p[0]);
   }
@@ -123,6 +139,12 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
     *reinterpret_cast<uint4*>(p) = raw;
+  } else if constexpr (VEC == 4) {
+    uint2 raw;
+    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
+    h2[0] = __floats2bfloat162_rn(in[0], in[1]);
+    h2[1] = __floats2bfloat162_rn(in[2], in[3]);
+    *reinterpret_cast<uint2*>(p) = raw;
   } else {
     p[0] = __float2bfloat16(in[0]);
   }
@@ -222,42 +244,6 @@ constexpr int LIVE_UNITS = 3;     // units a step reads: j - 2 .. j
 constexpr int DATT_THREADS = 256;
 constexpr int SLOTS = 5;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void from_f32(float& d, float v) { d = v; }
-__device__ __forceinline__ void from_f32(__nv_bfloat16& d, float v) { d = __float2bfloat16(v); }
-
-// VEC consecutive channels to / from f32: bf16 8 bytes, f32 16 bytes, or one
-template <typename T, int VEC>
-__device__ __forceinline__ void ld(const T* p, float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = to_f32(p[0]);
-  } else if constexpr (sizeof(T) == 2) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  } else {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-  }
-}
-
-template <typename T, int VEC>
-__device__ __forceinline__ void st(T* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    from_f32(p[0], v[0]);
-  } else if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]), b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 raw;
-    raw.x = *reinterpret_cast<const uint32_t*>(&a);
-    raw.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = raw;
-  } else {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
 // The backward's shared memory: the ring of `stages` units (3 row buffers
 // of ytile + 4 pixels each: xl, xr, g; pixel y0 - 2 of a buffer at `pad`
 // bytes, which puts pixel y0 on 16 bytes), which datt's per-thread partials
@@ -313,8 +299,9 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
     mbar_init_fence();
   }
   for (int f = tid; f < F; f += blockDim.x) {
+    const float z = 0.f;
     att_s[f] = att[f];
-    from_f32(zero[f], 0.f);
+    store_vec<1>(zero + f, &z);
   }
   __syncthreads();
 
@@ -404,11 +391,11 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           if (!ok || c >= ch) continue;
           const int off = h * C + c * VEC;
           float r[VEC], gg[VEC], a[VEC], v[SLOTS][VEC];
-          ld<T, VEC>(R0 + yi * F + off, r);
-          ld<T, VEC>(G0 + yi * F + off, gg);
-          ld<float, VEC>(att_s + off, a);
+          load_vec<VEC>(R0 + yi * F + off, r);
+          load_vec<VEC>(G0 + yi * F + off, gg);
+          load_vec<VEC>(att_s + off, a);
 #pragma unroll
-          for (int q = 0; q < SLOTS; ++q) ld<T, VEC>(nb[q] + off, v[q]);
+          for (int q = 0; q < SLOTS; ++q) load_vec<VEC>(nb[q] + off, v[q]);
 #pragma unroll
           for (int q = 0; q < SLOTS; ++q)
 #pragma unroll
@@ -465,10 +452,10 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           if (c >= ch) continue;
           const int off = h * C + c * VEC;
           float r[VEC], o[VEC], a[VEC], v[SLOTS][VEC];
-          ld<T, VEC>(R0 + yi * F + off, r);
-          ld<float, VEC>(att_s + off, a);
+          load_vec<VEC>(R0 + yi * F + off, r);
+          load_vec<VEC>(att_s + off, a);
 #pragma unroll
-          for (int q = 0; q < SLOTS; ++q) ld<T, VEC>(nb[q] + off, v[q]);
+          for (int q = 0; q < SLOTS; ++q) load_vec<VEC>(nb[q] + off, v[q]);
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] = 0.f;
 #pragma unroll
@@ -481,7 +468,7 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
             }
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] *= a[e];
-          st<T, VEC>(out + off, o);
+          store_vec<VEC>(out + off, o);
         }
       }
     }
@@ -523,12 +510,12 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
           const int off = h * C + c * VEC;
           // o = sum A g, dd = sum dlogit lrelu'(u)
           float l[VEC], o[VEC], dd[VEC], a[VEC], rr[SLOTS][VEC], gg[SLOTS][VEC];
-          ld<T, VEC>(Lq + yi * F + off, l);
-          ld<float, VEC>(att_s + off, a);
+          load_vec<VEC>(Lq + yi * F + off, l);
+          load_vec<VEC>(att_s + off, a);
 #pragma unroll
           for (int s = 0; s < SLOTS; ++s) {
-            ld<T, VEC>(rp[s] + off, rr[s]);
-            ld<T, VEC>(gp[s] + off, gg[s]);
+            load_vec<VEC>(rp[s] + off, rr[s]);
+            load_vec<VEC>(gp[s] + off, gg[s]);
           }
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] = dd[e] = 0.f;
@@ -541,7 +528,7 @@ grid_slot_bwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
             }
 #pragma unroll
           for (int e = 0; e < VEC; ++e) o[e] += dd[e] * a[e];
-          st<T, VEC>(out + off, o);
+          store_vec<VEC>(out + off, o);
         }
       }
     }

@@ -54,6 +54,11 @@
 //   twin's order, as 4-byte pairs.
 //   ops/quant_matmul.w8a8_plan picks (BN, K split) per shape, read from the
 //   plans chip_smoke.py times at phase 3's nine shapes.
+//   What holds it back at 60 rows (PERF.md): its chain of x loads, row
+//   maxima, their exchange and the quantisation before the first product,
+//   which w8a16 does not have (a sweep with each part left out: the
+//   quantisation ~1.4 us, the exchange's waits ~1 us; launch, copies and
+//   barriers alone ~5.4 us, where w8a16 takes ~6.5 in all).
 //
 // w8a16.  What bounds it on an H100 (989 bf16 TFLOP/s, 3.35 TB/s): at the
 // exact rollout (M 661) a step's linears are 112 G operations, so the

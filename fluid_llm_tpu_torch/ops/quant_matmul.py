@@ -99,18 +99,13 @@ SWEPT_PLANS = {
 }
 
 
-@functools.lru_cache(maxsize=None)
-def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
-    """``(token_tile, k_split)`` of :func:`plans` for the w8a16 kernel: the
-    sweep's fastest at the main path's six shapes (:data:`SWEPT_PLANS`).
-    Elsewhere, as the sweeps ran: no K split where an unsplit grid within
+def _grid_rule(every: list[tuple[int, int, int]], sms: int) -> tuple[int, int]:
+    """``(tile, k_split)`` of the ``(blocks, tile, k_split)`` plans
+    ``every``, as the sweeps ran: no K split where an unsplit grid within
     ``sms`` blocks fills a third of them (the largest such grid), else the
     largest grid within ``sms`` (a K split pays only where the unsplit
     grid leaves most SMs idle); where every unsplit grid passes ``sms``,
-    the fewest blocks.  K a multiple of 128."""
-    if (M, K, N) in SWEPT_PLANS and sms == _build.H100_SMS:
-        return SWEPT_PLANS[M, K, N]
-    every = plans(M, K, N)
+    the fewest blocks."""
     unsplit = [p for p in every if p[2] == 1]
     fits = [p for p in unsplit if p[0] <= sms]
     if not fits or max(fits)[0] * 3 < sms:
@@ -120,18 +115,22 @@ def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
     return min(unsplit, key=lambda p: (p[0], -p[1]))[1:]
 
 
-def w8a8_runs(K: int, k_split: int) -> list[range]:
-    """The K steps each rank of a w8a8 K split multiplies: rank r takes
-    steps ``[r T / k_split, (r + 1) T / k_split)`` of ``T = K / 128``."""
-    steps = K // W8_K_STEP
-    return [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
+    """``(token_tile, k_split)`` of :func:`plans` for the w8a16 kernel: the
+    sweep's fastest at the main path's six shapes (:data:`SWEPT_PLANS`),
+    elsewhere :func:`_grid_rule`.  K a multiple of 128."""
+    if (M, K, N) in SWEPT_PLANS and sms == _build.H100_SMS:
+        return SWEPT_PLANS[M, K, N]
+    return _grid_rule(plans(M, K, N), sms)
 
 
 def w8a8_plans(M: int, K: int, N: int) -> list[tuple[int, int, int]]:
     """Every ``(blocks, n_tile, k_split)`` the w8a8 kernel takes for ``x (M,
     K) @ q (N, K)^T``: a column tile and a K split (a cluster of that many
-    blocks, each a run of at least one whole 128-deep step, :func:`w8a8_runs`),
-    with its grid of ``ceil(N / n_tile) x k_split x ceil(M / 64)`` blocks."""
+    blocks; rank r multiplies 128-deep steps ``[r T / k_split, (r + 1) T /
+    k_split)`` of ``T = K / 128``, at least one), with its grid of
+    ``ceil(N / n_tile) x k_split x ceil(M / 64)`` blocks."""
     steps = K // W8_K_STEP
     return [(-(-N // tile) * k_split * -(-M // W8_ROWS), tile, k_split)
             for tile in W8_COL_TILES for k_split in range(1, min(MAX_K_SPLIT, steps) + 1)]
@@ -150,21 +149,11 @@ W8A8_SWEPT_PLANS = {
 @functools.lru_cache(maxsize=None)
 def w8a8_plan(M: int, K: int, N: int, sms: int = _build.H100_SMS) -> tuple[int, int]:
     """``(n_tile, k_split)`` of :func:`w8a8_plans`: the sweep's fastest at
-    the swept shapes (:data:`W8A8_SWEPT_PLANS`).  Elsewhere the rule of
-    :func:`plan`: no K split where an unsplit grid within ``sms`` blocks
-    fills a third of them (the largest such grid), else the largest grid
-    within ``sms``; where every unsplit grid passes ``sms``, the fewest
-    blocks.  K a multiple of 128."""
+    the swept shapes (:data:`W8A8_SWEPT_PLANS`), elsewhere
+    :func:`_grid_rule`.  K a multiple of 128."""
     if (M, K, N) in W8A8_SWEPT_PLANS and sms == _build.H100_SMS:
         return W8A8_SWEPT_PLANS[M, K, N]
-    every = w8a8_plans(M, K, N)
-    unsplit = [p for p in every if p[2] == 1]
-    fits = [p for p in unsplit if p[0] <= sms]
-    if not fits or max(fits)[0] * 3 < sms:
-        fits = [p for p in every if p[0] <= sms]
-    if fits:
-        return max(fits, key=lambda p: (p[0], -p[1]))[1:]
-    return min(every, key=lambda p: (p[0], -p[1]))[1:]
+    return _grid_rule(w8a8_plans(M, K, N), sms)
 
 
 def quantize_act(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

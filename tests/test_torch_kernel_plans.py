@@ -411,9 +411,10 @@ def test_w8a8_plan_covers_k_and_n_exactly_for_every_supported_shape(M, K, N):
     assert n_tile in qmm.W8_COL_TILES and 1 <= k_split <= qmm.MAX_K_SPLIT
     tiles = [range(t * n_tile, min(N, (t + 1) * n_tile)) for t in range(-(-N // n_tile))]
     assert [n for t in tiles for n in t] == list(range(N))
-    runs = qmm.w8a8_runs(K, k_split)
+    steps = K // qmm.W8_K_STEP  # rank r: steps [r T / n, (r + 1) T / n), as the kernel splits
+    runs = [range(r * steps // k_split, (r + 1) * steps // k_split) for r in range(k_split)]
     assert all(len(r) >= 1 for r in runs)
-    assert [s for r in runs for s in r] == list(range(K // qmm.W8_K_STEP))
+    assert [s for r in runs for s in r] == list(range(steps))
     blocks = -(-N // n_tile) * k_split * -(-M // qmm.W8_ROWS)
     assert (blocks, n_tile, k_split) in qmm.w8a8_plans(M, K, N)
 
