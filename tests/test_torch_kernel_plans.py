@@ -1,7 +1,8 @@
 """The launch plans of the port's kernels, plain Python, on the CPU.
 
-The slab decode, the indexed linear, w8a16, short attention, the flash
-backward, exact attention and the segment sum.
+The slab decode, the indexed linear, w8a16, w8a8, short attention, the
+flash backward, exact attention, the segment sum and the slot-attention
+backward.
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
@@ -20,8 +21,10 @@ mask needs, longest walk first, and so do the blocks of exact attention
 (``ops/segment_ops.sum_walk``, ``narrow_chunks``) adds every kept edge
 once, in ascending order within each row, walks a long run chunk after
 chunk or round after round, and starts the long rows first
-(``SegmentIndex.long_first``); every shape
-``supported`` accepts gets a plan.  The kernels themselves run only on the card
+(``SegmentIndex.long_first``); the slot-attention backward's strip walk
+(``ops/grid_gnn_fused.bwd_plan``, ``strips``), walked in numpy, equals its
+twin; every shape ``supported`` accepts gets a plan, w8a8's covering N and
+K exactly.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -389,7 +392,7 @@ def test_csr_walk_is_the_twin_bit_for_bit_with_a_long_row(F):
     assert torch.equal(so.csr_walk(vals, index), so.segment_sum_ref(vals, index))
 
 
-# -- w8a8 (ops/quant_matmul.w8a8_plan, w8a8_plans, w8a8_runs)
+# -- w8a8 (ops/quant_matmul.w8a8_plan, w8a8_plans)
 
 # (M, K, N) of chip_smoke.py phase 3's w8a8 rows: the flagship's streaming
 # linears at 60 rows (61 in the prefill), OPT-125m's at the exact rollout's 661
