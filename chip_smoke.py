@@ -228,6 +228,22 @@ def device_ms(fn, inner: int = 10, n: int = 25, stream=None) -> float:
     return statistics.median(times)
 
 
+def graph_replay(fn) -> torch.Tensor:
+    """``fn``'s output from a CUDA graph that captured one call, replayed
+    once (the capture runs on a side stream after one warm-up call)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
 def event_ms(fn, n: int = 10) -> float:
     """Device time of one call between CUDA events, averaged over ``n``
     calls after a warm-up; for calls a CUDA graph cannot capture (a host
@@ -440,18 +456,33 @@ def phase_kernels(dev, failures: list) -> list[dict]:
             library_ms=device_ms(lambda: sdpa(q, k, v, allowed[:, None], H)),
             **bound(nbytes(q, k, v, valid, out), 4 * D * allowed.sum().item(), "bf16"),
         ))
-    # the rollout's frame, and the training step's 80 (8 samples x 10 frames)
-    for Bf, H, C in [(1, 1, 48), (1, 1, 3), (4, 2, 24), (TRAIN_BS * 10, 1, 48)]:
+    # the rollout's frame, and the training step's 80 (8 samples x 10 frames),
+    # each at the hidden convs' C 48 and the out conv's C 3
+    for Bf, H, C in [(1, 1, 48), (1, 1, 3), (4, 2, 24), (TRAIN_BS * 10, 1, 48),
+                     (TRAIN_BS * 10, 1, 3)]:
         xl, xr = (torch.randn(Bf, 240, 64, H * C, generator=g).to(dev, torch.bfloat16)
                   for _ in range(2))
         att = torch.randn(H, C, generator=g).to(dev, torch.bfloat16)
         out = gf.fused_slot_attention(xl, xr, att, H, C)
         ref = gf.slot_attention_ref(xl, xr, att, H, C)
+        again = gf.fused_slot_attention(xl, xr, att, H, C)
+        twin_again = gf.slot_attention_ref(xl, xr, att, H, C)
+        replayed = graph_replay(lambda: gf.fused_slot_attention(xl, xr, att, H, C))
         torch.cuda.synchronize()
+        strip, ytile, stages, group, unit_rows = gf.fwd_plan(Bf, 240, 64, H, C,
+                                                             xl.element_size(),
+                                                             _build.sm_count(dev))
         rows.append(dict(
             kernel="grid_slot_attention", shape=f"({Bf},240,64,{H * C}) H{H} C{C}",
-            main_path=(C == 48 and H == 1), rel=rel_err(out, ref),
+            main_path=(H == 1), rel=rel_err(out, ref),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            deterministic=bool(torch.equal(again, out) and torch.equal(replayed, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)),
+            geometry=f"{gf.fwd_blocks(Bf, 240, 64, strip, ytile)} blocks ({Bf} frames x "
+                     f"{len(gf.strips(240, strip))} strips of {strip} rows x "
+                     f"{-(-64 // ytile)} column tiles of {ytile}), a ring of {stages} units "
+                     f"of {unit_rows} rows, {gf.fwd_threads(ytile, H, group, unit_rows)} "
+                     f"threads ({group} a (pixel, head))",
             ms=device_ms(lambda: gf.fused_slot_attention(xl, xr, att, H, C)),
             plain_ms=device_ms(lambda: gf.slot_attention_ref(xl, xr, att, H, C)),
             # per (pixel, channel): 5 slots of add, leaky relu, logit, weight
@@ -889,15 +920,124 @@ def _short_attention_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+# (frames, C) of the slot forward's main path: the rollout's one frame and
+# the training step's 80, at the hidden convs' C 48 and the out conv's C 3
+SLOT_FWD_SHAPES = [(1, 48), (TRAIN_BS * 10, 48), (1, 3), (TRAIN_BS * 10, 3)]
+
+
+def _slot_fwd_plans(dev, failures: list) -> list[dict]:
+    """The slot forward's plans at its main path's four shapes, bf16:
+    agreement with the twin and device time, ``grid_gnn_fused.fwd_plan``'s
+    choice marked.  At 80 frames: whole rows, the strip, the rows a unit
+    (written at a time) and the ring's depth; at one frame also column tiles
+    of 32 and 16 pixels and groups of 2 and 4 times ``channel_group``'s (more
+    threads a pixel, fewer chunks each)."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+
+    g = torch.Generator().manual_seed(11)
+    res = []
+    for Bf, C in SLOT_FWD_SHAPES:
+        xl, xr = (torch.randn(Bf, 240, 64, C, generator=g).to(dev, torch.bfloat16)
+                  for _ in range(2))
+        att = torch.randn(1, C, generator=g).to(dev, torch.bfloat16)
+        ref = gf.slot_attention_ref(xl, xr, att, 1, C)
+        chosen = gf.fwd_plan(Bf, 240, 64, 1, C, 2, _build.sm_count(dev))
+        rule = gf.channel_group(C)[1]
+        timed = []
+        for strip in (1, 2, 4) if Bf == 1 else (8, 15, 30):
+            for ytile in (64, 32, 16) if Bf == 1 else (64,):
+                for group in sorted({rule, min(32, 2 * rule), min(32, 4 * rule)}
+                                    if Bf == 1 else {rule}):
+                    most = gf.FWD_THREADS // gf.fwd_threads(ytile, 1, group)
+                    units = {1} if ytile < 64 else {1, min(2, most, strip), min(4, most, strip)}
+                    for unit_rows in sorted(units):
+                        for stages in (4, 6, 12):
+                            if gf.fwd_smem(ytile, stages, 1, C, 2, unit_rows) > gf.SMEM_SHARED:
+                                continue
+                            plan = (strip, ytile, stages, group, unit_rows)
+                            with mock.patch.object(gf, "fwd_plan", lambda *a, p=plan: p):
+                                out = gf.fused_slot_attention(xl, xr, att, 1, C)
+                                ms = device_ms(lambda: gf.fused_slot_attention(xl, xr, att, 1, C))
+                            torch.cuda.synchronize()
+                            rel = rel_err(out, ref)
+                            timed.append(dict(plan=plan, ms=ms, rel=rel, chosen=plan == chosen,
+                                              blocks=gf.fwd_blocks(Bf, 240, 64, strip, ytile)))
+                            if not rel <= REL_TOL:
+                                failures.append(f"slot forward plan {plan} at ({Bf}, 240, 64, "
+                                                f"{C}): rel {rel}")
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] grid_slot_attention ({Bf},240,64,{C}), (strip, ytile, ring, group, "
+              "rows a unit): "
+              + "; ".join(f"{r['plan']} {r['blocks']} blocks {r['ms']:.4f}"
+                          f"{' (plan)' if r['chosen'] else ''}" for r in timed[:12])
+              + f"; {len(timed)} plans, slowest {timed[-1]['ms']:.4f}; "
+              f"max rel {max(r['rel'] for r in timed):.1e}")
+        res.append(dict(Bf=Bf, C=C, plans=timed))
+    return res
+
+
+def _gather_plans(dev, failures: list) -> list[dict]:
+    """The segment gather's plans (loads a lane in flight, warps a block,
+    one tile a warp or a grid of up to a wave that walks them) at its main
+    path's shapes (MeshGraphNet's F 128 and F 2) and GAT's F 1, on the EAGLE
+    senders: each equal to the twin bit for bit, and timed,
+    ``segment_ops.gather_plan``'s choice marked."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(12)
+    edges = eagle_edges(dev)
+    n = int(edges.max()) + 1
+    index = so.SegmentIndex(edges[..., 0], n)
+    M, sms = index.ids.shape[0], _build.sm_count(dev)
+    res = []
+    for F in (128, 2, 1):
+        x = torch.randn(index.n_rows, F, generator=g).to(dev)
+        ref = so.gather_ref(x, index)
+        vec = so.gather_vec(F, x, ref)
+        chosen = so.gather_plan(M, F, vec)
+        timed = []
+        for depth in so.GATHER_DEPTHS:
+            for warps in (4, 8, 16):
+                full = -(-so.gather_tiles(M, F // vec, depth) // warps)
+                # one tile a warp, or a quarter, half or whole wave of resident
+                # warps (64 an SM) walking the tiles
+                for blocks in sorted({full} | {min(full, sms * (64 // warps) * q // 4)
+                                              for q in (1, 2, 4)}):
+                    plan = (depth, warps, blocks)
+                    with mock.patch.object(so, "gather_plan", lambda *a, p=plan: p):
+                        out = so.segment_gather(x, index)
+                        ms = device_ms(lambda: so.segment_gather(x, index))
+                    torch.cuda.synchronize()
+                    exact = bool(torch.equal(out, ref))
+                    timed.append(dict(depth=depth, warps=warps, blocks=blocks, ms=ms,
+                                      exact=exact, chosen=plan == chosen))
+                    if not exact:
+                        failures.append(f"segment gather plan {plan} at F {F}: not the twin")
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] segment_gather ({n * edges.shape[0]}, {F}) -> ({M}, {F}), "
+              f"{4 * vec}-byte vectors: "
+              + "; ".join(f"depth {r['depth']} {r['warps']} warps {r['blocks']} blocks "
+                          f"{r['ms']:.4f}{' (plan)' if r['chosen'] else ''}" for r in timed[:12])
+              + f"; {len(timed)} plans, slowest {timed[-1]['ms']:.4f}; all bit for bit "
+              f"{all(r['exact'] for r in timed)}")
+        res.append(dict(F=F, plans=timed))
+    return res
+
+
 def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
-    ``quant_matmul.plan``, ``quant_matmul.w8a8_plan`` and
-    ``short_attention.plan`` are read from."""
+    ``quant_matmul.plan``, ``quant_matmul.w8a8_plan``,
+    ``short_attention.plan``, ``grid_gnn_fused.fwd_plan`` and
+    ``segment_ops.gather_plan`` are read from."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
                 quant_matmul_w8a8=_w8a8_plans(dev, failures),
-                short_attention=_short_attention_plans(dev, failures))
+                short_attention=_short_attention_plans(dev, failures),
+                slot_attention_fwd=_slot_fwd_plans(dev, failures),
+                segment_gather=_gather_plans(dev, failures))
 
 
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:
@@ -1015,6 +1155,10 @@ def _segment_rows(dev, g: torch.Generator) -> list[dict]:
             fn, twin = (lambda: so.segment_gather(x, index)), (lambda: so.gather_ref(x, index))
             library = lambda: torch.index_select(x, 0, ids)  # noqa: E731
             n_out, ops = B * E * F, 0
+            vec = so.gather_vec(F, x, x)
+            depth, warps, blocks = so.gather_plan(B * E, F, vec)
+            geometry = (f"{blocks} blocks of {warps} warps, {depth} loads a lane in flight, "
+                        f"{4 * vec}-byte vectors")
         out, ref = fn(), twin()
         again, twin_again = fn(), twin()
         torch.cuda.synchronize()
@@ -1030,6 +1174,7 @@ def _segment_rows(dev, g: torch.Generator) -> list[dict]:
             deterministic=bool(torch.equal(again, out)),
             twin_deterministic=bool(torch.equal(twin_again, ref)),
             ms=device_ms(fn), plain_ms=device_ms(twin), library_ms=device_ms(library),
+            geometry=None if kernel == "segment_sum" else geometry,
             **bound(nbytes(x, index.ids) + 4 * n_out, ops, "f32"),
         ))
     return rows

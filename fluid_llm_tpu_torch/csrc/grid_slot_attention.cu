@@ -24,16 +24,38 @@
 // Layout: the public channels-last (Bf, X, Y, H*C), X the axis of -x/+x,
 // exactly as ops/grid_gnn.py passes it.  No channels-first transpose.
 //
-// What bounds it on an H100: it is pure elementwise/stencil work, ~12 flops
-// per loaded element, so memory bound -- one read of xl and xr and one
-// write of out is the floor (~4.4 MB per conv at the rollout's
-// (1, 240, 64, 48) bf16).  Design: one thread per (frame, pixel, head),
-// heads then Y fastest, so a warp walks neighbouring pixels of one row and
-// its loads of xl/xr cover contiguous memory; the 4 neighbour reads and
-// the second pass over the slots hit L1.  Channels are read 16 bytes at a
-// time when C allows it.  No intermediate ever reaches device memory.
-// With bs 1 the grid is only 15,360 threads, so latency, not bandwidth,
-// sets the time; splitting C across a thread group is later work.
+// The forward reads xl and xr once and writes out once: 354 MB at the
+// training step's (80, 240, 64, 48) bf16, >= 0.106 ms at 3.35 TB/s, and
+// 4.4 MB (1.3 us) at the rollout's one frame.  Its ~35 f32 operations an
+// element of xl (5 slots of add, leaky relu, logit and weight) stay below
+// that, so bytes bound it.  A head has one output column (a weighted sum of
+// five C-vectors), so there is no product for wgmma: the tensor cores have
+// no work here.
+// Design: the backward's strip walk with one ring.  One block owns a strip
+// of `strip` x-rows of one frame (and a tile of columns, the whole row
+// where it fits) and walks it row by row.  A producer warp copies units --
+// unit j holds xl row x0 - 1 + j and xr row x0 - 2 + j (xl rows x0 - 1 ..
+// x1, xr rows x0 .. x1 - 1) -- by TMA bulk copies (plain copies by its lanes
+// where a run does not start and end on 16 bytes) into a ring of `stages`
+// units on full/empty mbarriers.  Step j writes out row i = x0 - 2 + j from
+// units j - 2 .. j (xl rows i - 1 .. i + 1, xr row i), so every xl row
+// comes from device memory once a strip, plus two halo rows; each consumer
+// warp releases unit j - 2 when its step is done.  A pixel's C channels are
+// split across `group` threads in interleaved chunks of 4 (the backward's
+// rule, ops/grid_gnn_fused.channel_group); the five logits are summed by
+// xor shuffles, so every thread of the group holds the same bits; a logit
+// is 0.6 sum a u + 0.4 sum a |u| (= sum leaky_relu(u) a, 3 operations an
+// element and slot in place of 4).  A slot
+// off the grid reads a pixel of zeros, so the channel loops have no
+// branch; it is masked out of the softmax.  A thread keeps the five
+// neighbours' chunks as loaded (bf16 pairs) from the logits to sum_s a_s
+// v_s (att comes from shared memory a chunk at a time); a warp's store of one chunk
+// round writes whole 32-byte sectors, its rounds together one contiguous
+// run of pixels.  The plan (ops/grid_gnn_fused.fwd_plan) is computed on
+// the host: strips short enough that the rollout's one frame fills the
+// card, 30 rows at 80 frames.  No atomics and no scratch: the same bits
+// every run.
+// What holds it back: see PERF.md (PR 12).
 //
 // The backward reads xl, xr and g and writes dxl and dxr: five passes over
 // a (Bf, X, Y, F) tensor, 118 MB each in bf16 at the training shape (80
@@ -77,6 +99,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 using namespace hopper;
@@ -84,10 +108,14 @@ using namespace hopper;
 namespace {
 
 constexpr float NEG_SLOPE = 0.2f;
-constexpr int THREADS = 256;
+// leaky_relu(u, NEG_SLOPE) = LIN u + ABS |u|: the forward's logits as two
+// sums of a product each, sum a u and sum a |u|
+constexpr float LIN = (1.f + NEG_SLOPE) / 2, ABS = (1.f - NEG_SLOPE) / 2;
+constexpr int SLOTS = 5;
+constexpr int LIVE_UNITS = 3;  // row units a step reads: j - 2 .. j (both directions)
 
-// VEC consecutive channels to / from f32: 8 or 4 bf16 (16 or 8 bytes), 4
-// f32 (16 bytes), or one
+// VEC consecutive channels to / from f32: 4 bf16 (8 bytes), 4 f32 (16
+// bytes), or one
 template <int VEC>
 __device__ __forceinline__ void load_vec(const float* p, float* out) {
   if constexpr (VEC == 4) {
@@ -98,29 +126,34 @@ __device__ __forceinline__ void load_vec(const float* p, float* out) {
   }
 }
 
+// a bf16 is the top half of its f32: one shift or one mask a channel
 template <int VEC>
 __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* out) {
-  if constexpr (VEC == 8) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  } else if constexpr (VEC == 4) {
+  if constexpr (VEC == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = a.x;
-    out[1] = a.y;
-    out[2] = b.x;
-    out[3] = b.y;
+    out[0] = __uint_as_float(raw.x << 16);
+    out[1] = __uint_as_float(raw.x & 0xffff0000u);
+    out[2] = __uint_as_float(raw.y << 16);
+    out[3] = __uint_as_float(raw.y & 0xffff0000u);
   } else {
     out[0] = __bfloat162float(p[0]);
   }
 }
+
+// VEC channels of T as loaded, unconverted: what a thread keeps in
+// registers between two uses (half the registers of f32 for bf16)
+template <typename T, int VEC>
+struct Raw {
+  using type = T;
+};
+template <>
+struct Raw<float, 4> {
+  using type = float4;
+};
+template <>
+struct Raw<__nv_bfloat16, 4> {
+  using type = uint2;
+};
 
 template <int VEC>
 __device__ __forceinline__ void store_vec(float* p, const float* in) {
@@ -133,13 +166,7 @@ __device__ __forceinline__ void store_vec(float* p, const float* in) {
 
 template <int VEC>
 __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
-  if constexpr (VEC == 8) {
-    uint4 raw;
-    __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h2[i] = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  } else if constexpr (VEC == 4) {
+  if constexpr (VEC == 4) {
     uint2 raw;
     __nv_bfloat162* h2 = reinterpret_cast<__nv_bfloat162*>(&raw);
     h2[0] = __floats2bfloat162_rn(in[0], in[1]);
@@ -150,88 +177,308 @@ __device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float* in) {
   }
 }
 
-// VEC: channels per load, 16 bytes (8 bf16 / 4 f32) when C and the pointers
-// allow it, else 1.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(THREADS)
-grid_slot_attention_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
-                           const float* __restrict__ att, T* __restrict__ out, int Bf, int X,
-                           int Y, int H, int C) {
-  const long long idx = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long total = (long long)Bf * X * Y * H;
-  if (idx >= total) return;
-  const int h = (int)(idx % H);
-  const long long pix = idx / H;  // (b * X + x) * Y + y
-  const int y = (int)(pix % Y);
-  const int x = (int)((pix / Y) % X);
-  const long long F = (long long)H * C;
-  const long long off = pix * F + (long long)h * C;
+// TMA bulk copies where every row run starts and ends on 16 bytes (whole
+// rows of Y * F elements, or column tiles of F-element pixels) and every
+// input starts on 16 bytes; else the producer's lanes copy
+template <typename T>
+bool bulk_runs(int Y, int F, int ytile, const void* a, const void* b, const void* c) {
+  const bool runs = ytile >= Y ? (long long)Y * F * sizeof(T) % 16 == 0 : F * sizeof(T) % 16 == 0;
+  return runs && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(b) % 16 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+}
 
-  const long long nb[5] = {0, -(long long)Y * F, (long long)Y * F, -F, F};
-  const bool ok[5] = {true, x > 0, x < X - 1, y > 0, y < Y - 1};
-  const T* xlp = xl + off;
-  const T* xrp = xr + off;
-  const float* a = att + (long long)h * C;
+// fn(T{}, VEC, NC) as integral constants: the element type, the channels a
+// load (4 where C allows it, else 1) and the chunks a thread takes at most
+// (3, 4 or 8; ops/grid_gnn_fused.channel_group)
+template <class Fn>
+int dispatch(int is_bf16, int C, int group, Fn&& fn) {
+  const int vec = C % 4 == 0 ? 4 : 1, nc = (C / vec + group - 1) / group;
+  auto with_nc = [&](auto t, auto v) -> int {
+    if (nc <= 3) return fn(t, v, std::integral_constant<int, 3>{});
+    if (nc <= 4) return fn(t, v, std::integral_constant<int, 4>{});
+    if (nc <= 8) return fn(t, v, std::integral_constant<int, 8>{});
+    return (int)cudaErrorInvalidValue;
+  };
+  auto with_vec = [&](auto t) -> int {
+    return vec == 4 ? with_nc(t, std::integral_constant<int, 4>{})
+                    : with_nc(t, std::integral_constant<int, 1>{});
+  };
+  return is_bf16 ? with_vec(__nv_bfloat16{}) : with_vec(float{});
+}
 
-  float logit[5];
-  float m = -INFINITY;
+// a plan either direction refuses: H*C past 256, a ring no longer than the
+// units a step reads, a group that is not a power of two <= 32 or a
+// (pixel, head) wider than a block's consumers
+bool bad_plan(int H, int C, int ytile, int stages, int group, int threads) {
+  return H <= 0 || C <= 0 || H * C > 256 || ytile <= 0 || stages <= LIVE_UNITS || group <= 0 ||
+         group > 32 || (group & (group - 1)) || threads / (H * group) < 1;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one walk down a strip of rows
+// ---------------------------------------------------------------------------
+
+constexpr int FWD_THREADS = 256;  // consumers at most; one more warp issues the copies
+
+// The forward's shared memory: the ring of `stages` units (2 buffers, xl
+// and xr, of `rows` x-rows each; a unit of one row keeps ytile + 2 pixels a
+// row, pixel y0 - 1 first at `pad` bytes, which puts pixel y0 on 16 bytes;
+// a unit of several keeps whole rows back to back), att (f32), a pixel of
+// zeros (what a slot off the grid reads), a full and an empty mbarrier a
+// unit, 128 bytes of alignment slack.  ops/grid_gnn_fused.fwd_smem
+// computes the same.
+struct FwdSmem {
+  int pad, row, first, buf, unit, ring, att, zero, bytes;  // row, first: elements
+  __host__ __device__ FwdSmem(int ytile, int stages, int rows, int F, int elem) {
+    pad = rows == 1 ? (16 - F * elem % 16) % 16 : 0;
+    row = (rows == 1 ? ytile + 2 : ytile) * F;  // from one row of a buffer to the next
+    first = rows == 1 ? F : 0;                 // pixel y0 of a row
+    buf = (pad + rows * row * elem + 15) / 16 * 16;
+    unit = 2 * buf;
+    ring = stages * unit;
+    att = (F * 4 + 15) / 16 * 16;
+    zero = (F * elem + 15) / 16 * 16;
+    bytes = ring + att + zero + 16 * stages + 128;
+  }
+};
+
+// Consumer threads of one row: its pixels x heads x group, in whole warps,
+// at most FWD_THREADS
+__host__ __device__ inline int row_threads(int ytile, int H, int group) {
+  const int want = (ytile * H * group + 31) / 32 * 32;
+  return want < FWD_THREADS ? want : FWD_THREADS;
+}
+
+// a forward plan the kernel refuses: one bad_plan refuses, a strip or a
+// unit's row count below 1, rows whose threads together pass FWD_THREADS,
+// or units of several rows that are not whole rows
+bool bad_fwd_plan(int H, int C, int Y, int strip, int ytile, int stages, int group, int rows) {
+  return bad_plan(H, C, ytile, stages, group, FWD_THREADS) || strip <= 0 || rows <= 0 ||
+         rows * row_threads(ytile, H, group) > FWD_THREADS || (rows > 1 && ytile < Y);
+}
+
+// PART (measurement variants, 0 in the shipped kernel): 1 consumers do no
+// work; 2 no output loop (one value a (pixel, head) stored); 4 no logits
+template <typename T, int VEC, int NC, int PART = 0>
+__global__ void __launch_bounds__(FWD_THREADS + 32, 2)
+grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
+                     const float* __restrict__ att, T* __restrict__ out, int X, int Y, int H,
+                     int C, int strip, int ytile, int stages, int group, int rows, int bulk) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* const smem = smem_raw + (128 - smem_addr(smem_raw) % 128) % 128;
+  const int F = H * C;
+  const FwdSmem L(ytile, stages, rows, F, (int)sizeof(T));
+  const int wt = row_threads(ytile, H, group), nt = rows * wt;
+  const int ch = C / VEC, HG = H * group, PT = wt / HG;
+  const int n_strips = (X + strip - 1) / strip, n_yt = (Y + ytile - 1) / ytile;
+  const long long frame = (long long)(blockIdx.x / n_yt / n_strips) * X;  // row (b, 0)
+  const int x0 = blockIdx.x / n_yt % n_strips * strip, x1 = min(x0 + strip, X);
+  const int y0 = blockIdx.x % n_yt * ytile, y1 = min(y0 + ytile, Y);
+  const int n_units = (x1 - x0 + 1 + rows) / rows;  // xl rows x0 - 1 .. x1, `rows` a unit
+  float* const att_s = reinterpret_cast<float*>(smem + L.ring);
+  T* const zero = reinterpret_cast<T*>(smem + L.ring + L.att);
+  const uint32_t full = smem_addr(smem) + L.ring + L.att + L.zero;
+  const uint32_t empty = full + 8 * stages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, bulk ? 1 : 32);  // the copies' lane 0, or every lane
+      mbar_init(empty + 8 * s, nt / 32);       // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  for (int f = tid; f < F; f += blockDim.x) {
+    const float z = 0.f;
+    att_s[f] = att[f];
+    store_vec<1>(zero + f, &z);
+  }
+  __syncthreads();
+
+  // row k of buffer `which` (0 xl, 1 xr) of the unit in ring slot s, at
+  // its pixel y0.  Unit u holds xl rows x0 - 1 + u rows + k and xr rows
+  // x0 - 2 + u rows + k.  Slots and fill parities are stepped, not divided
+  // out, in both roles.
+  auto row_at = [&](int s, int which, int k) {
+    return reinterpret_cast<T*>(smem + s * L.unit + which * L.buf + L.pad) + k * L.row + L.first;
+  };
+
+  if (warp == nt / 32) {  // the copies
+    if (bulk && lane != 0) return;
+    const int ll = max(y0 - 1, 0), lh = min(y1 + 1, Y);
+    for (int u = 0, s = 0, round = 0; u < n_units; ++u) {
+      if (round > 0) mbar_wait(empty + 8 * s, (round - 1) & 1);
+      // the unit's rows k of xl in [0, X) and up to x1, of xr in [x0, x1):
+      // one run each (whole rows back to back where a unit holds several)
+      const int r0 = x0 - 1 + u * rows;
+      const int kl0 = max(0, -r0), kl1 = min(rows, min(X, x1 + 1) - r0);
+      const int kr0 = max(0, x0 + 1 - r0), kr1 = min(rows, x1 + 1 - r0);
+      const int nl = kl1 > kl0 ? (kl1 - kl0 - 1) * L.row + (lh - ll) * F : 0;
+      const int nr = kr1 > kr0 ? (kr1 - kr0 - 1) * L.row + (y1 - y0) * F : 0;
+      T* const dl = row_at(s, 0, kl0) + (ll - y0) * F;
+      T* const dr = row_at(s, 1, kr0);
+      const T* const sl = xl + ((frame + r0 + kl0) * Y + ll) * F;
+      const T* const sr = xr + ((frame + r0 - 1 + kr0) * Y + y0) * F;
+      if (!bulk) {
+        for (int e = lane; e < nl; e += 32) dl[e] = sl[e];
+        for (int e = lane; e < nr; e += 32) dr[e] = sr[e];
+        mbar_arrive(full + 8 * s);
+      } else if (nl + nr == 0) {
+        mbar_arrive(full + 8 * s);
+      } else {
+        mbar_expect(full + 8 * s, (nl + nr) * (int)sizeof(T));
+        if (nl) bulk_copy(smem_addr(dl), sl, nl * (int)sizeof(T), full + 8 * s);
+        if (nr) bulk_copy(smem_addr(dr), sr, nr * (int)sizeof(T), full + 8 * s);
+      }
+      if (++s == stages) {
+        s = 0;
+        ++round;
+      }
+    }
+    return;
+  }
+
+  // consumer tid: row w of each unit, pixel slot ps of a pass, head h,
+  // channel chunks sub + group k
+  const int w = tid / wt, t = tid % wt;
+  const int ps = t / HG, h = t / group % H, sub = t % group;
+  const bool active = t < PT * HG;
+  // step J writes out row x0 + J rows + w from xl rows i - 1, i, i + 1 (and
+  // xr row i, beside xl row i + 1): row row_of[d] of unit J + unit_of[d],
+  // d = 0, 1, 2 -- the same for every step of this thread.  Then every
+  // consumer warp releases unit J, which no later step reads (where the
+  // ring fills its slot again).  Unit J lies in slot js with fill parity jp.
+  int unit_of[LIVE_UNITS], row_of[LIVE_UNITS];
 #pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    float acc = 0.f;
-    if (ok[s]) {
-      const T* vp = xlp + nb[s];
-      for (int c = 0; c < C; c += VEC) {
-        float r[VEC], vv[VEC];
-        load_vec<VEC>(xrp + c, r);
-        load_vec<VEC>(vp + c, vv);
+  for (int d = 0; d < LIVE_UNITS; ++d) {
+    unit_of[d] = 0;
+    for (row_of[d] = w + d; row_of[d] >= rows; row_of[d] -= rows) ++unit_of[d];
+  }
+  for (int J = 0, js = 0, jp = 0; J < n_units; ++J) {
+    if (J * rows + w < x1 - x0) {
+      int sl[LIVE_UNITS];
 #pragma unroll
-        for (int i = 0; i < VEC; ++i) {
-          const float u = r[i] + vv[i];
-          acc += (u > 0.f ? u : NEG_SLOPE * u) * a[c + i];
+      for (int d = 0; d < LIVE_UNITS; ++d) {
+        int s = js + unit_of[d], par = jp;
+        for (; s >= stages; s -= stages) par ^= 1;
+        sl[d] = s;
+        mbar_wait(full + 8 * s, par);
+      }
+      if constexpr ((PART & 1) != 0) goto release;
+      const int i = x0 + J * rows + w;  // the out row of this step
+      const T* const Lm = row_at(sl[0], 0, row_of[0]);  // xl rows i - 1, i, i + 1
+      const T* const L0 = row_at(sl[1], 0, row_of[1]);
+      const T* const Lp = row_at(sl[2], 0, row_of[2]);
+      const T* const R0 = row_at(sl[2], 1, row_of[2]);  // xr row i
+      T* const orow = out + (frame + i) * Y * F;
+      for (int base = y0; base < y1; base += PT) {
+        const int y = base + ps, yi = y - y0;
+        const bool ok = active && y < y1;
+        // slot s of pixel (i, y) reads xl at (i, y) + shift_s; a slot off
+        // the grid, and every slot of an idle thread, reads the zero pixel
+        const bool vs[SLOTS] = {true, i > 0, i < X - 1, y > 0, y < Y - 1};
+        const T* const nb[SLOTS] = {ok ? L0 + yi * F : zero, ok && vs[1] ? Lm + yi * F : zero,
+                                    ok && vs[2] ? Lp + yi * F : zero,
+                                    ok && vs[3] ? L0 + (yi - 1) * F : zero,
+                                    ok && vs[4] ? L0 + (yi + 1) * F : zero};
+        const T* const rp = ok ? R0 + yi * F : zero;
+        using R = typename Raw<T, VEC>::type;
+        R raw[NC][SLOTS];  // the neighbours' chunks, kept for sum_s a_s v_s
+        float lg[SLOTS], lq[SLOTS];
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) lg[q] = lq[q] = 0.f;
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int c = sub + group * k;
+          if (c >= ch) continue;
+          const int off = h * C + c * VEC;
+          float r[VEC], a[VEC];
+          load_vec<VEC>(rp + off, r);
+          load_vec<VEC>(att_s + off, a);
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {
+            raw[k][q] = *reinterpret_cast<const R*>(nb[q] + off);
+            float v[VEC];
+            load_vec<VEC>(reinterpret_cast<const T*>(&raw[k][q]), v);
+            if constexpr ((PART & 4) == 0) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {  // leaky_relu(u) = LIN u + ABS |u|
+                const float u = r[e] + v[e];
+                lg[q] = fmaf(u, a[e], lg[q]);
+                lq[q] = fmaf(fabsf(u), a[e], lq[q]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) lg[q] = LIN * lg[q] + ABS * lq[q];
+        for (int o = 1; o < group; o <<= 1)
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) lg[q] += __shfl_xor_sync(0xffffffffu, lg[q], o);
+        if (!ok) continue;
+        float m = -INFINITY;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q)
+          if (vs[q]) m = fmaxf(m, lg[q]);
+        float wq[SLOTS], denom = 0.f;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) {
+          wq[q] = vs[q] ? __expf(lg[q] - m) : 0.f;
+          denom += wq[q];
+        }
+        const float inv = 1.f / denom;
+#pragma unroll
+        for (int q = 0; q < SLOTS; ++q) wq[q] *= inv;  // alpha_s, 0 for masked slots
+        T* const op = orow + (long long)y * F;
+        if constexpr ((PART & 2) != 0) {
+          if (sub == 0) store_vec<1>(op + h * C, &wq[0]);
+          continue;
+        }
+#pragma unroll
+        for (int k = 0; k < NC; ++k) {
+          const int c = sub + group * k;
+          if (c >= ch) continue;
+          float o[VEC];
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) o[e] = 0.f;
+#pragma unroll
+          for (int q = 0; q < SLOTS; ++q) {  // masked slots: alpha 0 and v 0
+            float v[VEC];
+            load_vec<VEC>(reinterpret_cast<const T*>(&raw[k][q]), v);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) o[e] += wq[q] * v[e];
+          }
+          store_vec<VEC>(op + h * C + c * VEC, o);
         }
       }
-      m = fmaxf(m, acc);
     }
-    logit[s] = acc;
-  }
-  float w[5];
-  float denom = 0.f;
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    w[s] = ok[s] ? __expf(logit[s] - m) : 0.f;
-    denom += w[s];
-  }
-  const float inv = 1.f / denom;
-
-  for (int c = 0; c < C; c += VEC) {
-    float o[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-      if (!ok[s]) continue;
-      float vv[VEC];
-      load_vec<VEC>(xlp + nb[s] + c, vv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) o[i] += w[s] * vv[i];
+  release:
+    __syncwarp();
+    if (lane == 0 && J + stages < n_units) mbar_arrive(empty + 8 * js);
+    if (++js == stages) {
+      js = 0;
+      jp ^= 1;
     }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) o[i] *= inv;
-    store_vec<VEC>(out + off + c, o);
   }
 }
 
-template <typename T, int VEC>
-int launch(const void* xl, const void* xr, const void* att, void* out, int Bf, int X, int Y,
-           int H, int C, cudaStream_t stream) {
-  const long long total = (long long)Bf * X * Y * H;
-  const unsigned blocks = (unsigned)((total + THREADS - 1) / THREADS);
-  grid_slot_attention_kernel<T, VEC><<<blocks, THREADS, 0, stream>>>(
+template <typename T, int VEC, int NC, int PART = 0>
+int launch_fwd(const void* xl, const void* xr, const void* att, void* out, int Bf, int X, int Y,
+               int H, int C, int strip, int ytile, int stages, int group, int rows,
+               cudaStream_t stream) {
+  const FwdSmem L(ytile, stages, rows, H * C, (int)sizeof(T));
+  static bool attr_set = false;
+  if (int e = allow_smem(grid_slot_fwd_kernel<T, VEC, NC, PART>, SMEM_MAX, attr_set)) return e;
+  if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const bool bulk = bulk_runs<T>(Y, H * C, ytile, xl, xr, xr);
+  const int nt = rows * row_threads(ytile, H, group);
+  const long long n_blocks =
+      (long long)Bf * ((X + strip - 1) / strip) * ((Y + ytile - 1) / ytile);
+  grid_slot_fwd_kernel<T, VEC, NC, PART><<<(unsigned)n_blocks, nt + 32, L.bytes, stream>>>(
       static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const float*>(att),
-      static_cast<T*>(out), Bf, X, Y, H, C);
+      static_cast<T*>(out), X, Y, H, C, strip, ytile, stages, group, rows, bulk ? 1 : 0);
   return (int)cudaGetLastError();
 }
-
 
 // ---------------------------------------------------------------------------
 // backward: one walk down a strip of rows, then datt's reduction
@@ -240,9 +487,7 @@ int launch(const void* xl, const void* xr, const void* att, void* out, int Bf, i
 constexpr int STRIP = 30;         // x-rows a block owns
 constexpr int BWD_THREADS = 256;  // consumers at most; one more warp issues the copies
 constexpr int STAT_RING = 3;      // rows of alpha/dlogit kept: i - 2 .. i at a step
-constexpr int LIVE_UNITS = 3;     // units a step reads: j - 2 .. j
 constexpr int DATT_THREADS = 256;
-constexpr int SLOTS = 5;
 
 // The backward's shared memory: the ring of `stages` units (3 row buffers
 // of ytile + 4 pixels each: xl, xr, g; pixel y0 - 2 of a buffer at `pad`
@@ -581,13 +826,7 @@ int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, v
   static bool attr_set = false;
   if (int e = allow_smem(grid_slot_bwd_kernel<T, VEC, NC>, SMEM_MAX, attr_set)) return e;
   if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  // TMA bulk copies where every row run starts and ends on 16 bytes: whole
-  // rows of Y * F elements, or column tiles of F-element pixels
-  const bool bulk = (ytile >= Y ? (long long)Y * F * sizeof(T) % 16 == 0
-                                : F * sizeof(T) % 16 == 0) &&
-                    reinterpret_cast<uintptr_t>(xl) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(xr) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(g) % 16 == 0;
+  const bool bulk = bulk_runs<T>(Y, F, ytile, xl, xr, g);
   // consumers: enough for a row's pixels x heads x group, in whole warps
   const int want = ((ytile + 2) * H * group + 31) / 32 * 32;
   const int nt = want < BWD_THREADS ? want : BWD_THREADS;
@@ -605,45 +844,59 @@ int launch_bwd(const void* xl, const void* xr, const void* att, const void* g, v
   return (int)cudaGetLastError();
 }
 
-template <typename T, int VEC>
-int launch_bwd_nc(int nc, const void* xl, const void* xr, const void* att, const void* g,
-                  void* dxl, void* dxr, void* datt, void* partial, int Bf, int X, int Y, int H,
-                  int C, int ytile, int stages, int group, cudaStream_t s) {
-  if (nc <= 3)
-    return launch_bwd<T, VEC, 3>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, s);
-  if (nc <= 4)
-    return launch_bwd<T, VEC, 4>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, s);
-  if (nc <= 8)
-    return launch_bwd<T, VEC, 8>(xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile,
-                                 stages, group, s);
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// xl/xr/out: (Bf, X, Y, H*C) contiguous, bf16 (is_bf16 = 1) or f32 (0);
-// att: f32 (H, C).  vectorized = 1 when C is a multiple of 16 bytes' worth
-// of elements and every pointer is 16-byte aligned.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// xl/xr/out: (Bf, X, Y, H*C) contiguous, bf16 (is_bf16 = 1) or f32 (0),
+// out on 16 bytes; att: f32 (H, C).  The plan (ops/grid_gnn_fused.fwd_plan):
+// strips of `strip` x-rows, ytile columns a block, a ring of `stages` (> 3)
+// units of `rows` x-rows (several only where ytile >= Y), written `rows` at
+// a time, `group` threads a (pixel, head) (a power of two <= 32).  Needs
+// H*C <= 256.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int grid_slot_attention_fwd(const void* xl, const void* xr, const void* att, void* out,
-                                       int Bf, int X, int Y, int H, int C, int is_bf16,
-                                       int vectorized, void* stream) {
+                                       int Bf, int X, int Y, int H, int C, int strip, int ytile,
+                                       int stages, int group, int rows, int is_bf16,
+                                       void* stream) {
+  if (bad_fwd_plan(H, C, Y, strip, ytile, stages, group, rows)) return (int)cudaErrorInvalidValue;
+  if (Bf * (long long)X * Y == 0) return 0;
+  return dispatch(is_bf16, C, group, [&](auto t, auto vec, auto nc) {
+    return launch_fwd<decltype(t), decltype(vec)::value, decltype(nc)::value>(
+        xl, xr, att, out, Bf, X, Y, H, C, strip, ytile, stages, group, rows,
+        static_cast<cudaStream_t>(stream));
+  });
+}
+
+// grid_slot_attention_fwd in bf16 with a measurement variant (PART of the
+// kernel: 1, 2, 4 or 6), at three chunks a thread or fewer; time only
+extern "C" int grid_slot_attention_fwd_variant(const void* xl, const void* xr, const void* att,
+                                               void* out, int Bf, int X, int Y, int H, int C,
+                                               int strip, int ytile, int stages, int group,
+                                               int rows, int part, void* stream) {
+  const int vec = C % 4 == 0 ? 4 : 1;
+  if (bad_fwd_plan(H, C, Y, strip, ytile, stages, group, rows) ||
+      (C / vec + group - 1) / group > 3)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Bf * (long long)X * Y * H == 0) return 0;
-  if (is_bf16) {
-    return vectorized ? launch<__nv_bfloat16, 8>(xl, xr, att, out, Bf, X, Y, H, C, s)
-                      : launch<__nv_bfloat16, 1>(xl, xr, att, out, Bf, X, Y, H, C, s);
-  }
-  return vectorized ? launch<float, 4>(xl, xr, att, out, Bf, X, Y, H, C, s)
-                    : launch<float, 1>(xl, xr, att, out, Bf, X, Y, H, C, s);
+  auto run = [&](auto v) -> int {
+    constexpr int V = decltype(v)::value;
+    using B = __nv_bfloat16;
+#define FWD_PART(P) \
+  launch_fwd<B, V, 3, P>(xl, xr, att, out, Bf, X, Y, H, C, strip, ytile, stages, group, rows, s)
+    switch (part) {
+      case 1: return FWD_PART(1);
+      case 2: return FWD_PART(2);
+      case 4: return FWD_PART(4);
+      case 6: return FWD_PART(6);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef FWD_PART
+  };
+  return vec == 4 ? run(std::integral_constant<int, 4>{}) : run(std::integral_constant<int, 1>{});
 }
 
 // Backward of grid_slot_attention_fwd.  xl/xr/g/dxl/dxr: (Bf, X, Y, H*C)
 // contiguous, bf16 (is_bf16 = 1) or f32 (0); att: f32 (H, C); datt: f32
 // (H, C), summed over frames; partial: f32 (blocks, H*C), blocks = Bf *
-// ceil(X / 16) * ceil(Y / ytile).  The plan (ops/grid_gnn_fused.bwd_plan):
+// ceil(X / STRIP) * ceil(Y / ytile).  The plan (ops/grid_gnn_fused.bwd_plan):
 // ytile columns a block, a ring of `stages` (> 3) row units, `group`
 // threads a (pixel, head) (a power of two <= 32).  Needs H*C <= 256.  Two
 // launches; returns the first cudaGetLastError() that is not 0 (0 on
@@ -653,18 +906,10 @@ extern "C" int grid_slot_attention_bwd(const void* xl, const void* xr, const voi
                                        void* partial, int Bf, int X, int Y, int H, int C,
                                        int ytile, int stages, int group, int is_bf16,
                                        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H <= 0 || C <= 0 || H * C > 256 || ytile <= 0 || stages <= LIVE_UNITS || group <= 0 ||
-      group > 32 || (group & (group - 1)) || BWD_THREADS / (H * group) < 1)
-    return (int)cudaErrorInvalidValue;
-  const int vec = C % 4 == 0 ? 4 : 1, nc = (C / vec + group - 1) / group;
-  if (is_bf16)
-    return vec == 4 ? launch_bwd_nc<__nv_bfloat16, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
-                                                      Bf, X, Y, H, C, ytile, stages, group, s)
-                    : launch_bwd_nc<__nv_bfloat16, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial,
-                                                      Bf, X, Y, H, C, ytile, stages, group, s);
-  return vec == 4 ? launch_bwd_nc<float, 4>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
-                                            H, C, ytile, stages, group, s)
-                  : launch_bwd_nc<float, 1>(nc, xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y,
-                                            H, C, ytile, stages, group, s);
+  if (bad_plan(H, C, ytile, stages, group, BWD_THREADS)) return (int)cudaErrorInvalidValue;
+  return dispatch(is_bf16, C, group, [&](auto t, auto vec, auto nc) {
+    return launch_bwd<decltype(t), decltype(vec)::value, decltype(nc)::value>(
+        xl, xr, att, g, dxl, dxr, datt, partial, Bf, X, Y, H, C, ytile, stages, group,
+        static_cast<cudaStream_t>(stream));
+  });
 }

@@ -20,10 +20,12 @@
 // node rows and 20 480 edge rows, F 128) each call moves ~50 MB -- 42 MB
 // of edge rows read or written once, 7 MB of node rows -- for one add per
 // edge element, so bytes bound (~15 us at 3.35 TB/s).  At GAT's attention
-// weights (F 1) a call moves 0.4 MB: only latency is left.  In both the
-// time is set by the longest chain of dependent loads: each graph's ghost
-// node row sums 132 padding edges (most rows 6), and the walk one edge at
-// a time made its run a chain of two dependent loads an edge.
+// weights (F 1) and MGN's positions (F 2) a call moves under 1 MB: only
+// latency is left.  The sum's time is set by the longest chain of
+// dependent loads: each graph's ghost node row sums 132 padding edges
+// (most rows 6), and the walk one edge at a time made its run a chain of
+// two dependent loads an edge.  The gather's chain is an edge's id, then
+// its row: a thread that loads one row has one load in flight.
 // Design:
 // - the sum is deterministic and needs no atomics and no zero fill: the
 //   wrapper sorts the ids once per id tensor (a stable sort, so each node's
@@ -49,17 +51,29 @@
 //   `order`: those rows, then the rest in row order), so the ghost rows'
 //   17 rounds overlap the short rows instead of trailing them.
 // - the value rows are read once: streaming loads (evict first).
-// - the gather is a row copy: F / VEC threads per edge row, one id load
-//   each (a broadcast within the row's threads), zero rows for id -1.
-// VEC is 4 (16-byte loads and stores) where F % 4 == 0 and every pointer is
-// 16-byte aligned, else 1 (F is 2 for mesh positions, 1 for the GAT
-// attention weights).
+// - the gather is a row copy, zero rows for ids out of range, in VEC-wide
+//   vectors: 4 (16 bytes) where F % 4 == 0 and both pointers are 16-byte
+//   aligned, 2 (8 bytes) where F % 2 == 0 and they are 8-byte aligned, else
+//   1; nv = F / VEC vectors a row.  A warp's tile is 32 consecutive edges
+//   whose ids one coalesced streaming load brings in.  Where a row is one
+//   vector (F 1; F 2 in 8 bytes: MGN's positions, GAT's weights) a lane
+//   owns whole rows: `depth` tiles' ids, then their rows, all in flight
+//   before the first store, one warp instruction moving 32 rows.  Wider rows
+//   (F 128: one 512-byte row a warp instruction) hand the ids round by
+//   __shfl_sync; lane l takes the tile's vector slots l + 32 t (edge s / nv,
+//   column s % nv, so a warp's store writes 32 consecutive vectors) and
+//   issues `depth` row loads before their stores: the id-then-row chain is
+//   paid once a tile, not once a row.  The node table (7 MB) stays in L2:
+//   cached loads; the output is stored with the default policy, since the
+//   next GEMM reads it.  Warps walk the tiles grid-stride
+//   (ops/segment_ops.gather_plan: the depth, the warps a block and the
+//   blocks).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;        // gather
+constexpr int GATHER_DEPTH = 16;    // a gathering lane's loads in flight at most
 constexpr int WIDE_THREADS = 128;   // sum over wide rows
 constexpr int NARROW_THREADS = 64;  // sum over narrow rows: two warps a block
 constexpr int WIDE = 32;            // F from which a row takes the wide walk
@@ -75,6 +89,11 @@ struct Vec<1> {
   using T = float;
   __device__ static T zero() { return 0.f; }
   __device__ static T add(T a, T b) { return a + b; }
+};
+template <>
+struct Vec<2> {
+  using T = float2;
+  __device__ static T zero() { return make_float2(0.f, 0.f); }
 };
 template <>
 struct Vec<4> {
@@ -183,24 +202,100 @@ segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict_
   reinterpret_cast<T*>(out + row * F)[c] = acc;
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS)
-segment_gather_kernel(const float* __restrict__ nodes, const int* __restrict__ ids,
-                      float* __restrict__ out, long long M, int n_rows, int F) {
+// PART (measurement variants, 0 in the shipped kernel): 1 no row loads
+// (zeros stored, the ids kept); 2 no id loads (edge e reads row e % n_rows)
+template <int VEC, int DEPTH, int PART = 0>
+__global__ void segment_gather_kernel(const float* __restrict__ nodes, const int* __restrict__ ids,
+                                      float* __restrict__ out, long long M, int n_rows, int nv) {
   using V = Vec<VEC>;
-  const int lanes = F / VEC;
-  const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const long long e = t / lanes;
-  if (e >= M) return;
-  const int c = (int)(t - e * lanes);
-  const int id = ids[e];
-  typename V::T v = V::zero();
-  if (id >= 0 && id < n_rows)
-    v = reinterpret_cast<const typename V::T*>(nodes + (long long)id * F)[c];
-  reinterpret_cast<typename V::T*>(out + e * F)[c] = v;
+  using T = typename V::T;
+  const T* const rows = reinterpret_cast<const T*>(nodes);
+  T* const dst = reinterpret_cast<T*>(out);
+  const int lane = threadIdx.x & 31;
+  const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
+  long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (nv == 1) {  // lane l: edges e0 + l + 32 u, u < DEPTH
+    for (; tile * 32 * DEPTH < M; tile += warps) {
+      const long long e0 = tile * 32 * DEPTH + lane;
+      int id[DEPTH];
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+        id[u] = e0 + 32 * u < M ? ((PART & 2) ? (int)((e0 + 32 * u) % n_rows)
+                                               : __ldcs(ids + e0 + 32 * u))
+                                : -1;
+      T x[DEPTH];
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+        x[u] = !(PART & 1) && (unsigned)id[u] < (unsigned)n_rows ? __ldg(rows + id[u])
+                                                                 : V::zero();
+      if constexpr ((PART & 1) != 0) {
+        bool any = false;
+#pragma unroll
+        for (int u = 0; u < DEPTH; ++u) any |= id[u] == -7;
+        if (any) continue;  // keeps the id loads
+      }
+#pragma unroll
+      for (int u = 0; u < DEPTH; ++u)
+        if (e0 + 32 * u < M) dst[e0 + 32 * u] = x[u];
+    }
+    return;
+  }
+  // slot s = lane + 32 t of a tile: edge s / nv, column s % nv; s + 32 is
+  // q32 edges and r32 columns further on
+  const int q32 = 32 / nv, r32 = 32 % nv, u0 = lane / nv, c0 = lane % nv;
+  for (; tile * 32 < M; tile += warps) {
+    const long long e0 = tile * 32;
+    const int n_e = (int)min(32LL, M - e0), n_slots = n_e * nv;
+    const int my_id = lane < n_e ? ((PART & 2) ? (int)((e0 + lane) % n_rows)
+                                               : __ldcs(ids + e0 + lane))
+                                 : -1;
+    if constexpr ((PART & 1) != 0)
+      if (__any_sync(0xffffffffu, my_id == -7)) continue;  // keeps the id loads
+    T* const o = dst + e0 * nv;
+    int u = u0, c = c0;
+    for (int t0 = 0; t0 < nv; t0 += DEPTH) {
+      T x[DEPTH];
+#pragma unroll
+      for (int k = 0; k < DEPTH; ++k) {
+        const int id = __shfl_sync(0xffffffffu, my_id, u & 31);
+        x[k] = !(PART & 1) && lane + 32 * (t0 + k) < n_slots && (unsigned)id < (unsigned)n_rows
+                   ? __ldg(rows + (long long)id * nv + c)
+                   : V::zero();
+        u += q32;
+        c += r32;
+        if (c >= nv) {
+          c -= nv;
+          ++u;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < DEPTH; ++k) {
+        const int s = lane + 32 * (t0 + k);
+        if (s < n_slots) o[s] = x[k];
+      }
+    }
+  }
 }
 
-unsigned n_blocks(long long rows, int lanes, int threads = THREADS) {
+template <int VEC, int DEPTH>
+int run_gather(const float* n, const int* i, float* o, long long M, int n_rows, int F,
+                  int warps, int blocks, cudaStream_t s) {
+  segment_gather_kernel<VEC, DEPTH><<<blocks, 32 * warps, 0, s>>>(n, i, o, M, n_rows, F / VEC);
+  return (int)cudaGetLastError();
+}
+
+template <int VEC>
+int launch_gather(const float* n, const int* i, float* o, long long M, int n_rows, int F,
+                  int depth, int warps, int blocks, cudaStream_t s) {
+  if (depth == 2) return run_gather<VEC, 2>(n, i, o, M, n_rows, F, warps, blocks, s);
+  if (depth == 4) return run_gather<VEC, 4>(n, i, o, M, n_rows, F, warps, blocks, s);
+  if (depth == 8) return run_gather<VEC, 8>(n, i, o, M, n_rows, F, warps, blocks, s);
+  if (depth == GATHER_DEPTH)
+    return run_gather<VEC, GATHER_DEPTH>(n, i, o, M, n_rows, F, warps, blocks, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+unsigned n_blocks(long long rows, int lanes, int threads) {
   return (unsigned)((rows * lanes + threads - 1) / threads);
 }
 
@@ -240,20 +335,44 @@ extern "C" int segment_sum_f32(const void* values, const void* perm, const void*
   return (int)cudaGetLastError();
 }
 
+// segment_gather_f32 with a measurement variant (PART of the kernel: 1 or
+// 2), 8 warps a block, one tile a warp; time only
+extern "C" int segment_gather_f32_variant(const void* nodes, const void* ids, void* out,
+                                          long long M, int n_rows, int F, int vec, int depth,
+                                          int part, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* n = static_cast<const float*>(nodes);
+  const int* i = static_cast<const int*>(ids);
+  float* o = static_cast<float*>(out);
+  const int nv = F / vec;
+  const long long tiles = (M + (nv == 1 ? 32LL * depth : 32LL) - 1) / (nv == 1 ? 32LL * depth : 32LL);
+  const int blocks = (int)((tiles + 7) / 8);
+  if (vec == 4 && depth == 8 && part == 1) segment_gather_kernel<4, 8, 1><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
+  else if (vec == 4 && depth == 8 && part == 2) segment_gather_kernel<4, 8, 2><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
+  else if (vec == 2 && depth == 4 && part == 1) segment_gather_kernel<2, 4, 1><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
+  else if (vec == 2 && depth == 4 && part == 2) segment_gather_kernel<2, 4, 2><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 // nodes: (n_rows, F) f32 contiguous; ids: int32 (M,), -1 or outside
-// [0, n_rows) for a zero row; out: (M, F) f32.  vectorized as above.
-// Returns cudaGetLastError() after the launch (0 on success).
+// [0, n_rows) for a zero row; out: (M, F) f32.  vec: 4 or 2 where F is a
+// multiple and nodes and out lie on 16 or 8 bytes, else 1.  The plan
+// (ops/segment_ops.gather_plan): `depth` loads a lane keeps in flight (2,
+// 4, 8 or GATHER_DEPTH), `warps` a block (1 to 32), `blocks`.  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int segment_gather_f32(const void* nodes, const void* ids, void* out, long long M,
-                                  int n_rows, int F, int vectorized, void* stream) {
-  if (F <= 0 || (vectorized && F % 4)) return (int)cudaErrorInvalidValue;
+                                  int n_rows, int F, int vec, int depth, int warps, int blocks,
+                                  void* stream) {
+  if (F <= 0 || (vec != 1 && vec != 2 && vec != 4) || F % vec || warps < 1 || warps > 32 ||
+      blocks < 1)
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* n = static_cast<const float*>(nodes);
   const int* i = static_cast<const int*>(ids);
   float* o = static_cast<float*>(out);
-  if (vectorized)
-    segment_gather_kernel<4><<<n_blocks(M, F / 4), THREADS, 0, s>>>(n, i, o, M, n_rows, F);
-  else
-    segment_gather_kernel<1><<<n_blocks(M, F), THREADS, 0, s>>>(n, i, o, M, n_rows, F);
-  return (int)cudaGetLastError();
+  if (vec == 4) return launch_gather<4>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
+  if (vec == 2) return launch_gather<2>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
+  return launch_gather<1>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
 }

@@ -17,11 +17,20 @@ v_s = x_l[n_s(p)]):
 Bound and design, in short (the source's header has the detail): the
 operation is memory bound -- one read of x_l and x_r and one write of the
 output is the floor -- and the plain formulation makes ~25 passes over
-(frames, X, Y, F) tensors.  The kernel runs one thread per (frame, pixel,
-head) in the public channels-last layout, keeps logits, softmax and
-accumulator in registers and writes once.  The TPU kernel's channels-first
-transpose, 128-lane padding and F-chunk loops have no purpose on the card
-and are not carried over.
+(frames, X, Y, F) tensors.  The kernel walks a strip of x-rows of one frame
+in the public channels-last layout: a producer warp bulk-copies each row's
+contiguous ``Y * F`` run of x_l and x_r into a ring of row units (unit j
+holds x_l row ``x0 - 1 + j`` and x_r row ``x0 - 2 + j``), and step j writes
+output row ``x0 - 2 + j`` from units j - 2 .. j, so every x_l row is read
+once a strip plus two halo rows.  A pixel's channels are split across a
+thread group (:func:`channel_group`, the backward's rule too), the logits
+summed by xor shuffles; logits, softmax and accumulator stay in registers
+and the output is written once.  :func:`fwd_plan` picks the strip (short
+enough that the rollout's one frame fills the card), the column tile, the
+ring's depth and the group; ``tests/test_torch_kernel_plans.py`` walks the
+same plan on the CPU.  The TPU kernel's channels-first transpose, 128-lane
+padding and F-chunk loops have no purpose on the card and are not carried
+over.
 
 Backward (``grid_gnn_pallas.py:17-21``; g = dL/dout):
 
@@ -101,7 +110,8 @@ def fused_slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
     CUDA tensors launch the kernel (or raise); CPU tensors take
     :func:`slot_attention_ref`.  bf16 or f32; ``att`` in the same dtype.
     On CUDA it raises when autograd would need a backward (grad enabled and
-    an input that requires grad): that goes through :func:`slot_attention`.
+    an input that requires grad): that goes through :func:`slot_attention`;
+    it needs heads*cdim <= 256 there.
     """
     if xl.device.type == "cpu":
         return slot_attention_ref(xl, xr, att, heads, cdim)
@@ -111,25 +121,18 @@ def fused_slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
                            "ops.grid_gnn_fused.slot_attention")
     Bf, X, Y, _ = xl.shape
     att32 = att.float().contiguous()
-    out = torch.empty_like(xl)
+    out = torch.empty_like(xl)  # new storage: on 16 bytes
+    plan = fwd_plan(Bf, X, Y, heads, cdim, xl.element_size(), _build.sm_count(xl.device))
     lib = _build.load()
     with torch.cuda.device(xl.device):
         err = lib.grid_slot_attention_fwd(
             xl.data_ptr(), xr.data_ptr(), att32.data_ptr(), out.data_ptr(),
-            Bf, X, Y, heads, cdim, int(xl.dtype == torch.bfloat16),
-            int(_vectorized(cdim, xl, xr, out, att32)),
+            Bf, X, Y, heads, cdim, *plan, int(xl.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "grid_slot_attention_fwd")
     fused_slot_attention.launches += 1
     return out
-
-
-def _vectorized(cdim: int, *tensors) -> bool:
-    """16-byte channel loads: C a multiple of 16 bytes' worth, every pointer
-    16-byte aligned."""
-    return cdim % (16 // tensors[0].element_size()) == 0 and \
-        all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_cuda(name: str, xl, xr, att, heads: int, cdim: int) -> None:
@@ -141,6 +144,8 @@ def _check_cuda(name: str, xl, xr, att, heads: int, cdim: int) -> None:
         )
     if att.shape != (heads, cdim):
         raise ValueError(f"{name}: att {tuple(att.shape)}, expected {(heads, cdim)}")
+    if heads * cdim > 256:
+        raise ValueError(f"{name}: heads*cdim {heads * cdim} > 256")
     if xl.dtype not in (torch.bfloat16, torch.float32) or xr.dtype != xl.dtype or att.dtype != xl.dtype:
         raise ValueError(f"{name}: bf16 or f32, got {xl.dtype}/{xr.dtype}/{att.dtype}")
     if not (xr.device == att.device == xl.device):
@@ -190,10 +195,11 @@ def slot_attention_bwd_ref(xl, xr, att, g, heads: int, cdim: int):
     return dxl.to(xl.dtype), dxr.reshape(*lead, heads * cdim).to(xr.dtype), datt
 
 
-# The backward kernel's plan (csrc/grid_slot_attention.cu; the constants are
-# the source's, tests/test_torch_kernel_plans.py reads them from it)
-STRIP = 30  # x-rows a block owns
-BWD_THREADS = 256  # consumer threads of a block at most (one more warp issues the copies)
+# The kernels' plans (csrc/grid_slot_attention.cu; the constants are the
+# source's, tests/test_torch_kernel_plans.py reads them from it)
+STRIP = 30  # x-rows a backward block owns; the longest forward strip
+BWD_THREADS = 256  # consumers of a backward block at most (one more warp issues the copies)
+FWD_THREADS = 256  # the same for a forward block
 STAT_RING = 3  # rows of alpha/dlogit a block keeps
 LIVE_UNITS = 3  # row units a step reads; the ring holds more than this many
 DATT_THREADS = 256  # threads of datt's reducing launch, one block a channel
@@ -201,11 +207,12 @@ SMEM_MAX = 232448  # dynamic shared memory a block may have (H100)
 SMEM_SHARED = 115712  # a block's share where two blocks share an SM
 
 
-def bwd_group(cdim: int) -> tuple[int, int, int]:
-    """``(vec, group, chunks)``: channels a load (4 where C allows it, else
-    1), threads a (pixel, head) (a power of two, at most 32, so that each
-    takes at most 4 chunks where it can) and the chunks each takes (a chunk
-    is ``vec`` channels; thread ``sub`` takes chunks ``sub + group k``)."""
+def channel_group(cdim: int) -> tuple[int, int, int]:
+    """``(vec, group, chunks)`` of both kernels: channels a load (4 where C
+    allows it, else 1), threads a (pixel, head) (a power of two, at most 32,
+    so that each takes at most 4 chunks where it can) and the chunks each
+    takes (a chunk is ``vec`` channels; thread ``sub`` takes chunks ``sub +
+    group k``)."""
     vec = 4 if cdim % 4 == 0 else 1
     n = cdim // vec
     group = 1
@@ -214,10 +221,61 @@ def bwd_group(cdim: int) -> tuple[int, int, int]:
     return vec, group, -(-n // group)
 
 
+def fwd_threads(ytile: int, heads: int, group: int, rows: int = 1) -> int:
+    """Consumer threads of a forward block: ``rows`` rows at a time, each a
+    row's pixels x heads x ``group`` in whole warps, at most
+    :data:`FWD_THREADS` (``row_threads`` in the source)."""
+    return rows * min(FWD_THREADS, -(-ytile * heads * group // 32) * 32)
+
+
+def fwd_smem(ytile: int, stages: int, heads: int, cdim: int, elem: int, rows: int = 1) -> int:
+    """Shared memory of a forward block (``FwdSmem`` in the source): the ring
+    of ``stages`` units of two buffers of ``rows`` rows (xl, xr; a unit of
+    one row keeps ``ytile + 2`` pixels a row after a pad that puts the
+    tile's first pixel on 16 bytes, a unit of several whole rows back to
+    back), att in f32, a pixel of zeros, the mbarriers, 128 bytes of
+    alignment slack."""
+    F = heads * cdim
+    pad = (16 - F * elem % 16) % 16 if rows == 1 else 0
+    row = (ytile + 2 if rows == 1 else ytile) * F
+    buf = -(-(pad + rows * row * elem) // 16) * 16
+    return stages * 2 * buf + -(-F * 4 // 16) * 16 + -(-F * elem // 16) * 16 + 16 * stages + 128
+
+
+def fwd_plan(Bf: int, X: int, Y: int, heads: int, cdim: int, elem: int,
+             sms: int = _build.H100_SMS) -> tuple[int, int, int, int, int]:
+    """``(strip, ytile, stages, group, rows)`` of the forward kernel: the
+    whole row as the column tile where a ring of 4 one-row units fits a
+    block, else the widest tile whose ring does; the longest strip, up to
+    :data:`STRIP` rows, that still gives two blocks to each of ``sms`` SMs
+    (one row a block where even that falls short); over whole rows, units
+    of as many rows as :data:`FWD_THREADS` consumers write at a time (at
+    most the strip's), so that narrow rows travel in fewer, longer copies;
+    then the deepest ring of 6, 5 or 4 units in half an SM's shared memory
+    (two blocks an SM), else in all of it."""
+    X, Y = max(X, 1), max(Y, 1)
+    group = channel_group(cdim)[1]
+    ytile = Y if fwd_smem(Y, 4, heads, cdim, elem) <= SMEM_MAX else max(
+        t for t in range(1, Y + 1) if fwd_smem(t, 4, heads, cdim, elem) <= SMEM_MAX)
+    strip = max(1, min(STRIP, Bf * X * -(-Y // ytile) // (2 * sms)))
+    rows = max(1, min(strip, FWD_THREADS // fwd_threads(ytile, heads, group))) \
+        if ytile == Y else 1
+    stages = next((st for budget in (SMEM_SHARED, SMEM_MAX) for st in (6, 5, 4)
+                   if fwd_smem(ytile, st, heads, cdim, elem, rows) <= budget), None)
+    if stages is None:  # units of one row: the ring of 4 fits by the tile's choice
+        rows, stages = 1, 4
+    return strip, ytile, stages, group, rows
+
+
+def fwd_blocks(Bf: int, X: int, Y: int, strip: int, ytile: int) -> int:
+    """Blocks of the forward: frames x strips x column tiles."""
+    return Bf * len(strips(X, strip)) * -(-Y // ytile)
+
+
 def bwd_threads(ytile: int, heads: int, cdim: int) -> int:
     """Consumer threads of a backward block: a row's stat pixels x heads x
     ``group``, in whole warps, at most :data:`BWD_THREADS`."""
-    return min(BWD_THREADS, -(-(ytile + 2) * heads * bwd_group(cdim)[1] // 32) * 32)
+    return min(BWD_THREADS, -(-(ytile + 2) * heads * channel_group(cdim)[1] // 32) * 32)
 
 
 def bwd_smem(ytile: int, stages: int, heads: int, cdim: int, elem: int) -> int:
@@ -230,7 +288,7 @@ def bwd_smem(ytile: int, stages: int, heads: int, cdim: int, elem: int) -> int:
     F = heads * cdim
     pad = (16 - 2 * F * elem % 16) % 16
     buf = -(-(pad + (ytile + 4) * F * elem) // 16) * 16
-    red = BWD_THREADS // (heads * bwd_group(cdim)[1]) * F * 4
+    red = BWD_THREADS // (heads * channel_group(cdim)[1]) * F * 4
     ring = max(stages * 3 * buf, red)
     stats = -(-STAT_RING * (ytile + 2) * heads * 10 * 4 // 16) * 16
     return ring + stats + -(-F * 4 // 16) * 16 + -(-F * elem // 16) * 16 + 16 * stages + 128
@@ -241,7 +299,7 @@ def bwd_plan(Y: int, heads: int, cdim: int, elem: int) -> tuple[int, int, int]:
     the column tile with a ring of 6 or 5 units, in half an SM's shared
     memory where that fits (two blocks an SM), else in all of it; else the
     widest column tile whose ring of 5 units fits."""
-    group = bwd_group(cdim)[1]
+    group = channel_group(cdim)[1]
     for budget in (SMEM_SHARED, SMEM_MAX):
         for stages in (6, 5):
             if bwd_smem(Y, stages, heads, cdim, elem) <= budget:
@@ -250,9 +308,9 @@ def bwd_plan(Y: int, heads: int, cdim: int, elem: int) -> tuple[int, int, int]:
     return ytile, 5, group
 
 
-def strips(X: int) -> list[tuple[int, int]]:
+def strips(X: int, strip: int = STRIP) -> list[tuple[int, int]]:
     """The x-rows ``[x0, x1)`` of each strip of a frame, in block order."""
-    return [(x0, min(x0 + STRIP, X)) for x0 in range(0, X, STRIP)]
+    return [(x0, min(x0 + strip, X)) for x0 in range(0, X, strip)]
 
 
 def bwd_blocks(Bf: int, X: int, Y: int, ytile: int) -> int:
@@ -270,8 +328,6 @@ def slot_attention_bwd(xl, xr, att, g, heads: int, cdim: int):
     if xl.device.type == "cpu":
         return slot_attention_bwd_ref(xl, xr, att, g, heads, cdim)
     _check_cuda("slot_attention_bwd", xl, xr, att, heads, cdim)
-    if heads * cdim > 256:
-        raise ValueError(f"slot_attention_bwd: heads*cdim {heads * cdim} > 256")
     g = g.to(xl.dtype).contiguous()
     Bf, X, Y, F = xl.shape
     att32 = att.float().contiguous()

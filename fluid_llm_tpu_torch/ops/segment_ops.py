@@ -49,7 +49,11 @@ own, and the values, in shared memory, chunk after chunk
 in rounds of :data:`ROUND` edges, every value load of a round in flight
 before the first add and the next round's rows prefetched, the rows with
 more than one round first (:meth:`SegmentIndex.long_first`).  The gather
-runs F/VEC threads per edge row.
+keeps its ids and rows in flight: a warp's tile of 32 edges takes its ids
+in one coalesced load, and each lane issues :func:`gather_plan`'s
+``depth`` row loads before its first store -- whole rows a lane where a
+row is one 4-, 8- or 16-byte vector (F 1, 2 and 4), 16-byte vectors of
+the tile's rows handed round by shuffles where it is wider (F 128).
 """
 
 from __future__ import annotations
@@ -119,6 +123,8 @@ class SegmentIndex:
 
 
 WIDE = 32  # F from which the sum kernel walks a row in rounds
+GATHER_DEPTH = 16  # a gathering lane's loads in flight at most
+GATHER_DEPTHS = (2, 4, 8, GATHER_DEPTH)  # the depths the gather kernel is built for
 ROUND = 8  # edges of a wide row's round
 CHUNK_EDGES, CHUNK_FLOATS = 512, 1024  # a narrow warp's staged edges and their values
 
@@ -207,16 +213,41 @@ def segment_sum(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
     return out
 
 
+def gather_vec(F: int, *tensors) -> int:
+    """Floats a load of the gather moves: 4 (16 bytes) where F allows it and
+    every pointer lies on 16 bytes, 2 (8 bytes) likewise, else 1."""
+    return next(v for v in (4, 2, 1)
+                if F % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors))
+
+
+def gather_tiles(M: int, nv: int, depth: int) -> int:
+    """Warp tiles of the gather: ``32 * depth`` edges each where a row is one
+    vector (``nv`` 1: a lane owns ``depth`` rows), else 32 edges."""
+    return -(-M // (32 * depth if nv == 1 else 32))
+
+
+def gather_plan(M: int, F: int, vec: int) -> tuple[int, int, int]:
+    """``(depth, warps, blocks)`` of the gather kernel: the loads a lane keeps
+    in flight (``depth`` of :data:`GATHER_DEPTHS`: 4 rows a lane where a row
+    is one vector, else up to 8 of its vectors), 8 warps a block, one tile
+    a warp."""
+    nv = F // vec
+    depth = 4 if nv == 1 else next(d for d in GATHER_DEPTHS if d >= min(nv, 8))
+    warps = 8
+    return depth, warps, max(1, -(-gather_tiles(M, nv, depth) // warps))
+
+
 def segment_gather(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
     """The gather kernel on CUDA tensors: nodes f32 (n_rows, F) -> (M, F)."""
     nodes2 = _check("segment_gather", nodes2, index, index.n_rows)
-    M = index.ids.shape[0]
-    out = torch.empty(M, nodes2.shape[1], dtype=torch.float32, device=nodes2.device)
+    M, F = index.ids.shape[0], nodes2.shape[1]
+    out = torch.empty(M, F, dtype=torch.float32, device=nodes2.device)
+    vec = gather_vec(F, nodes2, out)
+    depth, warps, blocks = gather_plan(M, F, vec)
     with torch.cuda.device(nodes2.device):
         err = _build.load().segment_gather_f32(
-            nodes2.data_ptr(), index.ids.data_ptr(), out.data_ptr(), M, index.n_rows,
-            nodes2.shape[1], _vectorized(nodes2, out),
-            torch.cuda.current_stream().cuda_stream,
+            nodes2.data_ptr(), index.ids.data_ptr(), out.data_ptr(), M, index.n_rows, F, vec,
+            depth, warps, blocks, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "segment_gather_f32")
     segment_gather.launches += 1

@@ -5,15 +5,19 @@
 Run it as a script (not with ``-m``), so that ``chip_smoke`` and
 ``fluid_llm_tpu_torch`` are imported from DIR, a ``git archive`` of the
 commit to measure, and its kernels are built from DIR's sources.  On one
-CUDA card it runs ``phase_kernels`` and ``phase_train`` with the default
-attention and with ``attn_impl="short"``, and writes each kernel row's
-device time and each training cell's device time a step, its largest
-device items and idle share (profiler) and its median step ms, with sha256 digests of the outputs of the kernels a
+CUDA card it runs ``phase_kernels``, ``phase_rollout`` (the exact 251-step
+rollout), ``phase_train`` with the default attention and with
+``attn_impl="short"``, and ``phase_graph_baselines`` (MeshGraphNet and
+GAT), and writes each kernel row's device time and each cell's device time
+a step (profiler; train cells also their largest device items, idle share
+and median step ms), with sha256 digests of the outputs of the kernels a
 comparison expects unchanged: exact attention, the flash forward, dq and
 dk/dv (from the twin's lse), the slab decode in its three cache states,
-slot attention's forward (1 and 80 frames), short attention, the indexed
-linear, w8a16 and w8a8 (both held bit for bit to their twins), the
-segment sum and gather.  Run the trees in turns (parent, change, change,
+short attention, the indexed linear, w8a16 and w8a8 (both held bit for
+bit to their twins), the segment sum and gather; and the slot forward
+held to its twin (relative L2 error, largest difference, repeat bit for
+bit) and timed at its main path's four shapes, since a redesign may sum its logits
+in another order.  Run the trees in turns (parent, change, change,
 parent) within one call.
 """
 
@@ -24,6 +28,7 @@ import hashlib
 import json
 import os
 import sys
+import tempfile
 
 SEED = 1234
 
@@ -34,7 +39,6 @@ def digests(cs, dev) -> dict:
     from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
-    from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
     from fluid_llm_tpu_torch.ops import indexed_linear as il
     from fluid_llm_tpu_torch.ops import quant
     from fluid_llm_tpu_torch.ops import quant_matmul as qmm
@@ -65,12 +69,6 @@ def digests(cs, dev) -> dict:
         delta = fa.row_delta(out, dout, H, hd)
         res[f"flash_dq ({bs},{L})"] = sha(fa.flash_dq(q, k, v, dout, lse, delta, valid, H, hd))
         res[f"flash_dkv ({bs},{L})"] = sha(*fa.flash_dkv(q, k, v, dout, lse, delta, valid, H, hd))
-    for Bf in (1, cs.TRAIN_BS * 10):
-        xl, xr = (torch.randn(Bf, 240, 64, 48, generator=g).to(dev, torch.bfloat16)
-                  for _ in range(2))
-        att = torch.randn(1, 48, generator=g).to(dev, torch.bfloat16)
-        res[f"grid_slot_attention ({Bf},240,64,48)"] = sha(gf.fused_slot_attention(xl, xr, att,
-                                                                                   1, 48))
     w = (torch.randn(12, 2304, 768, generator=g) * 0.02).to(dev, torch.bfloat16)
     x = torch.randn(60, 768, generator=g).to(dev, torch.bfloat16)
     index = torch.arange(12, dtype=torch.int32, device=dev)[5]
@@ -90,6 +88,29 @@ def digests(cs, dev) -> dict:
         res[f"segment_gather col {col} F {F}"] = sha(so.segment_gather(nodes, index))
         rows = torch.randn(edges.numel() // 2, F, generator=g).to(dev)
         res[f"segment_sum col {col} F {F}"] = sha(so.segment_sum(rows, index))
+    return res
+
+
+def held_to_twin(cs, dev) -> dict:
+    """The slot forward against its twin at its main path's four shapes:
+    relative L2 error, largest difference, a second call bit for bit, and
+    its device time."""
+    import torch
+
+    from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
+
+    g = torch.Generator().manual_seed(0)
+    res = {}
+    for Bf, C in ((1, 48), (cs.TRAIN_BS * 10, 48), (1, 3), (cs.TRAIN_BS * 10, 3)):
+        xl, xr = (torch.randn(Bf, 240, 64, C, generator=g).to(dev, torch.bfloat16)
+                  for _ in range(2))
+        att = torch.randn(1, C, generator=g).to(dev, torch.bfloat16)
+        out = gf.fused_slot_attention(xl, xr, att, 1, C)
+        ref = gf.slot_attention_ref(xl, xr, att, 1, C)
+        res[f"grid_slot_attention ({Bf},240,64,{C})"] = dict(
+            rel=cs.rel_err(out, ref), max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            repeat=bool(torch.equal(out, gf.fused_slot_attention(xl, xr, att, 1, C))),
+            ms=cs.device_ms(lambda: gf.fused_slot_attention(xl, xr, att, 1, C)))
     return res
 
 
@@ -114,13 +135,22 @@ def main() -> None:
             "bound_ms", "deterministic", "geometry")
     res = {"root": root, "kernels": [{k: r.get(k) for k in keys}
                                      for r in cs.phase_kernels(dev, failures)]}
+    roll = cs.phase_rollout(dev, SEED, failures, streaming=False)["profile"]
+    res["rollout"] = dict(device_busy_ms_a_step=roll["device_busy_ms"] / roll["steps"],
+                          **roll)
     for cell, impl in (("train", "auto"), ("short_train", "short")):
         trainer, batch, train = cs.phase_train(dev, SEED, failures, attn_impl=impl)
         del trainer, batch
         res[cell] = {k: train[k] for k in ("device_busy_ms", "device_ops_per_step", "idle_share",
                                            "median_step_ms", "plain_median_step_ms",
                                            "top_device_ms")}
+    with tempfile.TemporaryDirectory() as tmp:
+        graph = cs.phase_graph_baselines(dev, SEED, failures, tmp)
+    res["graph_mgn"] = {k: graph[k] for k in ("device_busy_ms", "device_ops_per_step",
+                                              "idle_share", "median_step_ms", "top_device_ms",
+                                              "step_launches")}
     res["digests"] = digests(cs, dev)
+    res["held_to_twin"] = held_to_twin(cs, dev)
     res["failures"] = failures
     with open(args.out, "w") as f:
         json.dump(res, f, indent=1, default=str)

@@ -119,6 +119,72 @@ def test_slot_attention_kernel_matches_twin(dev, dtype, Bf, X, Y, H, C):
     assert _rel(out, gf.slot_attention_ref(xl, xr, att, H, C)) <= tol
 
 
+# the forward's plan at its edge cases: (strip, ytile, stages, group, rows
+# a unit), None for the wrapper's own plan
+SLOT_FWD_CASES = [
+    (80, 240, 64, 1, 48, None), (1, 240, 64, 1, 48, None), (80, 240, 64, 1, 3, None),
+    (1, 240, 64, 1, 3, None),
+    (2, 5, 6, 1, 3, (8, 6, 4, 1, 4)),  # X < strip; C 3; units of 4 rows, the last short
+    (2, 37, 5, 2, 24, (30, 5, 5, 2, 1)),  # X not a multiple of the strip; H 2
+    (1, 1, 4, 1, 8, (30, 4, 4, 1, 1)), (1, 1, 4, 1, 8, (30, 4, 4, 1, 2)),  # X 1
+    (1, 33, 1, 1, 4, (4, 1, 6, 1, 3)),  # Y 1; units of 3 rows
+    (1, 20, 7, 1, 48, (3, 3, 4, 4, 1)),  # column tiles of 3, the shortest ring
+    (1, 33, 6, 2, 5, (7, 6, 5, 2, 2)),  # C 5: chunks of one channel; units of 2 rows
+    (2, 20, 8, 1, 3, (9, 8, 4, 1, 5)),  # units of 5 rows, strips of 9
+    (80, 240, 64, 1, 3, (8, 64, 6, 1, 2)), (80, 240, 64, 1, 48, (15, 64, 4, 4, 1)),
+    (1, 20, 64, 1, 256, None), (1, 9, 64, 16, 16, None), (2, 9, 64, 1, 255, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Bf,X,Y,H,C,plan", SLOT_FWD_CASES)
+def test_slot_attention_fwd_plans_repeat_bit_for_bit_also_in_a_graph(dev, dtype, Bf, X, Y, H, C,
+                                                                     plan):
+    """The forward's strip walk at the main path's shapes and at the plan's
+    edge cases (strips cut short, X 1, Y 1, column tiles, units of several
+    rows, C 3 and 5, H 2 and 16, F 255 and 256): within the bound of the
+    twin, the same bits on a second call and when replayed from a CUDA graph
+    (no atomics)."""
+    g = torch.Generator().manual_seed(X + C)
+    xl, xr = (torch.randn(Bf, X, Y, H * C, generator=g).to(dev, dtype) for _ in range(2))
+    att = torch.randn(H, C, generator=g).to(dev, dtype)
+    fixed = plan or gf.fwd_plan(Bf, X, Y, H, C, xl.element_size())
+    with mock.patch.object(gf, "fwd_plan", lambda *a: fixed):
+        before = gf.fused_slot_attention.launches
+        out = gf.fused_slot_attention(xl, xr, att, H, C)
+        again = gf.fused_slot_attention(xl, xr, att, H, C)
+        torch.cuda.synchronize()
+        assert gf.fused_slot_attention.launches == before + 2
+        assert torch.equal(out, again)
+        tol = REL_TOL if dtype == torch.bfloat16 else 1e-5
+        assert _rel(out, gf.slot_attention_ref(xl, xr, att, H, C)) <= tol
+        for replayed in _graph_replays(lambda: gf.fused_slot_attention(xl, xr, att, H, C)):
+            assert torch.equal(replayed, out)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("C", [48, 3])
+def test_slot_attention_fwd_unaligned_inputs_take_plain_copies(dev, dtype, C):
+    """Inputs that do not start on 16 bytes (contiguous views at an offset
+    of one element) are copied by the producer warp's lanes instead of TMA
+    bulk copies: the same result bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    shape = (4, 40, 64, C)
+    xl, xr = (torch.randn(shape, generator=g).to(dev, dtype) for _ in range(2))
+    att = torch.randn(1, C, generator=g).to(dev, dtype)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=dev)
+        view = buf[1:].view(shape)
+        view.copy_(t)
+        return view
+
+    want = gf.fused_slot_attention(xl, xr, att, 1, C)
+    got = gf.fused_slot_attention(shifted(xl), shifted(xr), att, 1, C)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _flash_case(dev, bs, L, H, hd, n_invalid, fused):
     """q, k, v (column slices of one fused projection where ``fused``), dout
     and the validity with the first ``n_invalid`` keys invalid."""
@@ -800,6 +866,41 @@ def test_segment_sum_is_the_csr_walk_bit_for_bit(dev, eagle_edges, F):
     assert torch.equal(got.cpu(), want)
     for replayed in _graph_replays(lambda: so.segment_sum(x, index)):
         assert torch.equal(replayed.cpu(), want)
+
+
+@pytest.mark.parametrize("F", [1, 2, 3, 128, 132])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_segment_gather_every_plan_is_the_twin_bit_for_bit(dev, F, offset):
+    """The gather under its plan and under every depth, a grid that walks
+    several tiles a warp and one of single-warp blocks, at F 1, 2, 3, 128 and
+    132, with ids out of range and node rows that start off 16 bytes
+    (``offset`` floats into a buffer: 4-byte vectors then): equal to
+    ``gather_ref`` bit for bit, also when replayed from a CUDA graph."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(F + offset)
+    B, E, N = 3, 1000, 257
+    ids = torch.randint(0, N, (B, E), generator=g)
+    ids[:, -40:] = N
+    ids[0, 3:9] = N + 11
+    ids[2, 100] = -5
+    index = so.SegmentIndex(ids.to(dev), N)
+    buf = torch.randn(B * N * F + offset, generator=g).to(dev)
+    nodes = buf[offset:].view(B * N, F)
+    want = so.gather_ref(nodes, index)
+    M = index.ids.shape[0]
+    vec = so.gather_vec(F, nodes, want)
+    assert (vec == 1) == (offset == 1 or F % 2 == 1)
+    chosen = so.gather_plan(M, F, vec)
+    plans = [chosen, (2, 1, 3), (chosen[0], chosen[1], max(1, chosen[2] // 4))]
+    plans += [(d, 8, -(-so.gather_tiles(M, F // vec, d) // 8)) for d in so.GATHER_DEPTHS]
+    for plan in plans:
+        with mock.patch.object(so, "gather_plan", lambda *a, p=plan: p):
+            got = so.segment_gather(nodes, index)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), plan
+    for replayed in _graph_replays(lambda: so.segment_gather(nodes, index)):
+        assert torch.equal(replayed, want)
 
 
 def test_segment_functions_gradients_match_twins(dev, eagle_edges):

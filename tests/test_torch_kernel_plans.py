@@ -602,7 +602,7 @@ def test_slot_bwd_strip_walk_is_the_twin(Bf, X, Y, H, C, plan):
     xl, xr, g = (rng.normal(size=(Bf, X, Y, H * C)).astype(np.float32) for _ in range(3))
     att = rng.normal(size=(H, C)).astype(np.float32)
     plan = plan or gf.bwd_plan(Y, H, C, 2)
-    assert plan[1] > gf.LIVE_UNITS and plan[2] == gf.bwd_group(C)[1]
+    assert plan[1] > gf.LIVE_UNITS and plan[2] == gf.channel_group(C)[1]
     got = _slot_bwd_walk(xl, xr, att, g, H, C, plan)
     want = gf.slot_attention_bwd_ref(*(torch.from_numpy(a) for a in (xl, xr, att, g)), H, C)
     for a, w in zip(got[:3], want):
@@ -627,7 +627,7 @@ def test_slot_bwd_plan_fits_and_takes_whole_rows_at_the_training_shape():
     assert ytile < 64 and gf.bwd_smem(ytile, stages, 1, 256, 4) <= gf.SMEM_MAX
     assert gf.bwd_blocks(80, 240, 64, 64) == 80 * 8
     for H, C in ((1, 48), (1, 3), (2, 24), (2, 4), (1, 255), (16, 16), (256, 1), (1, 5)):
-        vec, group, chunks = gf.bwd_group(C)
+        vec, group, chunks = gf.channel_group(C)
         assert group & (group - 1) == 0 and group <= 32 and chunks <= 8
         assert -(-(C // vec) // group) == chunks and H * group <= gf.BWD_THREADS
         for Y, elem in ((3, 2), (64, 2), (7, 4), (64, 4)):
@@ -649,3 +649,224 @@ def test_slot_bwd_plan_is_the_kernels():
         assert got == str(getattr(gf, name)), name
     hop = (csrc / "hopper.cuh").read_text()
     assert re.search(r"constexpr int SMEM_MAX = (\d+);", hop).group(1) == str(gf.SMEM_MAX)
+
+
+# -- the slot-attention forward (ops/grid_gnn_fused.fwd_plan, strips)
+
+
+def _slot_fwd_walk(xl, xr, att, H, C, plan):
+    """The forward kernel's plan walked in numpy f32: for each block (frame,
+    strip of ``strip`` rows, column tile) a ring of ``stages`` units of
+    ``rows`` rows (unit u, row k: xl row x0 - 1 + u rows + k, xr row x0 - 2
+    + u rows + k) filled in order by a producer that runs as far ahead as
+    the released units let it, and steps of ``rows`` rows: step J writes out
+    rows x0 + J rows + w (w < rows) from the units holding xl rows i - 1, i,
+    i + 1 and xr row i, then releases unit J.  Each thread of a pixel's
+    group sums the logits of its chunks (chunk c to thread c % group), an
+    xor tree sums the group's partials, a slot off the grid reads the zero
+    pixel and is masked out of the softmax.  Row buffers start as NaN, so a
+    read of an element no copy brought in shows in the result.  Returns
+    (out, writes per output pixel)."""
+    Bf, X, Y, F = xl.shape
+    strip, ytile, stages, group, rows = plan
+    vec = gf.channel_group(C)[0]
+    ch = C // vec
+    att = att.astype(np.float32)
+    zero = np.zeros((H, C), np.float32)
+    out = np.full(xl.shape, np.nan, np.float32)
+    written = np.zeros((Bf, X, Y), int)
+    for b in range(Bf):
+        for x0, x1 in gf.strips(X, strip):
+            for y0 in range(0, Y, ytile):
+                y1 = min(y0 + ytile, Y)
+                n_units = (x1 - x0 + 1 + rows) // rows
+                ring = [None] * stages
+                loaded, released = 0, -1
+
+                def load(u):
+                    assert ring[u % stages] is None or ring[u % stages][0] <= released
+                    bufs = np.full((2, rows, ytile + 2, H, C), np.nan, np.float32)
+                    for k in range(rows):
+                        r = x0 - 1 + u * rows + k
+                        if 0 <= r < X and r <= x1:
+                            ll, lh = max(y0 - 1, 0), min(y1 + 1, Y)
+                            bufs[0, k, ll - y0 + 1:lh - y0 + 1] = xl[b, r, ll:lh].reshape(-1, H, C)
+                        if x0 <= r - 1 < x1:
+                            bufs[1, k, 1:y1 - y0 + 1] = xr[b, r - 1, y0:y1].reshape(-1, H, C)
+                    ring[u % stages] = (u, bufs)
+
+                def unit(u):
+                    assert ring[u % stages][0] == u  # the ring still holds it
+                    return ring[u % stages][1]
+
+                for J in range(n_units):
+                    while loaded < min(n_units, released + 1 + stages):
+                        load(loaded)
+                        loaded += 1
+                    for w in range(rows):
+                        if J * rows + w >= x1 - x0:
+                            continue
+                        i = x0 + J * rows + w
+                        ys = np.arange(y0, y1)
+                        yi = ys - y0 + 1
+                        held = [unit(J + (w + d) // rows)[:, (w + d) % rows] for d in range(3)]
+                        lm, l0, lp, r0 = held[0][0], held[1][0], held[2][0], held[2][1]
+                        valid = [np.ones(len(ys), bool), np.full(len(ys), i > 0),
+                                 np.full(len(ys), i < X - 1), ys > 0, ys < Y - 1]
+                        srcs = [l0[yi], lm[yi], lp[yi], l0[yi - 1], l0[yi + 1]]
+                        v = np.stack([np.where(ok[:, None, None], src, zero)
+                                      for src, ok in zip(srcs, valid)])  # (5, ny, H, C)
+                        e = _lrelu(r0[yi][None] + v) * att
+                        chunk = e.reshape(*e.shape[:-1], ch, vec).sum(-1)
+                        owner = np.arange(ch) % group
+                        lg = np.stack([chunk[..., owner == s].sum(-1) for s in range(group)], -1)
+                        o = 1
+                        while o < group:  # the xor shuffles
+                            lg = lg + lg[..., np.arange(group) ^ o]
+                            o *= 2
+                        assert (lg == lg[..., :1]).all()  # the same bits in every thread
+                        lg = lg[..., 0]
+                        mask = np.stack(valid)[:, :, None]
+                        m = np.where(mask, lg, -np.inf).max(0)
+                        ew = np.where(mask, np.exp(lg - m), 0).astype(np.float32)
+                        res = (ew[..., None] * v).sum(0) * (1 / ew.sum(0))[..., None]
+                        out[b, i, y0:y1] = res.reshape(-1, F)
+                        written[b, i, y0:y1] += 1
+                    released = J
+    return out, written
+
+
+@pytest.mark.parametrize("Bf,X,Y,H,C,plan", [
+    (2, 5, 6, 1, 3, (8, 6, 4, 1, 4)),  # X < strip; C 3; units of 4 rows, the last short
+    (2, 37, 5, 2, 24, (30, 5, 5, 2, 1)),  # X not a multiple of the strip; H 2, C 24
+    (1, 1, 4, 1, 8, (30, 4, 4, 1, 1)),  # X = 1
+    (1, 1, 4, 1, 8, (30, 4, 4, 1, 2)),  # X = 1 in units of 2 rows
+    (1, 33, 1, 1, 4, (4, 1, 6, 1, 3)),  # Y = 1; strips of 4, the last of one row; units of 3
+    (1, 20, 7, 1, 48, (3, 3, 4, 4, 1)),  # column tiles of 3 and the shortest ring
+    (1, 33, 6, 2, 5, (7, 6, 5, 2, 2)),  # C 5: chunks of one channel, two threads a head
+    (3, 10, 8, 1, 48, (2, 8, 6, 4, 1)),  # strips of 2 rows
+    (2, 20, 8, 1, 3, (9, 8, 4, 1, 5)),  # units of 5 rows, strips of 9 (two units and a half)
+    (1, 9, 4, 1, 48, None), (2, 40, 64, 1, 3, None),  # the plans the wrapper takes
+])
+def test_slot_fwd_strip_walk_is_the_twin(Bf, X, Y, H, C, plan):
+    """The strip walk of the forward kernel (strips of rows, halo rows x0 - 1
+    and x1, the unit ring, units of several rows written at a time, a
+    pixel's channels split across its group, the zero pixel) equals
+    ``slot_attention_ref`` within f32 rounding, every output pixel written
+    once."""
+    rng = np.random.default_rng(X * 100 + Y + C)
+    xl, xr = (rng.normal(size=(Bf, X, Y, H * C)).astype(np.float32) for _ in range(2))
+    att = rng.normal(size=(H, C)).astype(np.float32)
+    plan = plan or gf.fwd_plan(Bf, X, Y, H, C, 4, sms=1)
+    strip, ytile, stages, group, rows = plan
+    assert stages > gf.LIVE_UNITS and group == gf.channel_group(C)[1]
+    assert gf.fwd_threads(ytile, H, group, rows) <= gf.FWD_THREADS and (rows == 1 or ytile >= Y)
+    got, written = _slot_fwd_walk(xl, xr, att, H, C, plan)
+    want = gf.slot_attention_ref(*(torch.from_numpy(a) for a in (xl, xr, att)), H, C).numpy()
+    assert (written == 1).all()
+    assert np.abs(got - want).max() <= 1e-5 * max(1.0, np.abs(want).max()), np.abs(got - want).max()
+
+
+def test_slot_fwd_plan_fills_the_card_and_fits():
+    """At the rollout's one frame (1, 240, 64) the plan gives at least 120
+    blocks, at C 48 and C 3; at the training step's 80 frames 30-row strips
+    of whole rows (640 blocks), in units of one row at C 48 (a row takes
+    all 256 consumers) and of four at C 3.  For every (H, C) with H*C <= 256
+    the wrapper takes, in bf16 and f32, the plan fits a block's shared
+    memory, its rows fit the consumers, a thread takes at most 8 chunks (the
+    kernel's widest template) and every region starts on 16 bytes."""
+    for C in (48, 3):
+        plan = gf.fwd_plan(1, 240, 64, 1, C, 2)
+        assert gf.fwd_blocks(1, 240, 64, plan[0], plan[1]) >= 120
+        strip, ytile, stages, _, rows = gf.fwd_plan(80, 240, 64, 1, C, 2)
+        assert (strip, ytile, rows) == (gf.STRIP, 64, 1 if C == 48 else 4)
+        assert gf.fwd_blocks(80, 240, 64, strip, ytile) == 640
+        assert gf.fwd_smem(64, stages, 1, C, 2, rows) <= gf.SMEM_SHARED
+    for H in range(1, 257):
+        for C in range(1, 256 // H + 1):
+            vec, group, chunks = gf.channel_group(C)
+            assert chunks <= 8 and H * group <= gf.FWD_THREADS
+            for Bf, Y, elem in ((200, 1, 2), (2, 64, 2), (200, 3, 4), (2, 64, 4)):
+                strip, ytile, stages, g, rows = gf.fwd_plan(Bf, 7, Y, H, C, elem)
+                assert g == group and 1 <= strip <= gf.STRIP and 1 <= rows <= strip
+                assert stages > gf.LIVE_UNITS and 1 <= ytile <= Y and (rows == 1 or ytile == Y)
+                smem = gf.fwd_smem(ytile, stages, H, C, elem, rows)
+                assert smem <= gf.SMEM_MAX and smem % 16 == 0
+                assert 32 <= gf.fwd_threads(ytile, H, g, rows) <= gf.FWD_THREADS
+
+
+def test_slot_fwd_plan_is_the_kernels():
+    """``FWD_THREADS`` and ``LIVE_UNITS`` are the forward kernel's own
+    (``csrc/grid_slot_attention.cu``), and the kernel takes the chunk
+    counts ``channel_group`` gives (templates of 3, 4 and 8)."""
+    src = (Path(gf.__file__).parents[1] / "csrc" / "grid_slot_attention.cu").read_text()
+    for name in ("FWD_THREADS", "LIVE_UNITS"):
+        got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1)
+        assert got == str(getattr(gf, name)), name
+    assert re.findall(r"std::integral_constant<int, (\d+)>\{\}\);", src)[:3] == ["3", "4", "8"]
+
+
+# -- the segment gather (ops/segment_ops.gather_plan)
+
+
+def _gather_walk(M, F, vec, plan):
+    """The gather kernel's warps walked in Python: for each warp, its tiles
+    (grid-stride), each lane's vector slots in the order the kernel issues
+    them (the column and edge advanced by 32 slots at a time, as the kernel
+    does, held against the division), the id taken from the lane that
+    loaded it.  Returns the times each (edge, vector) was written."""
+    depth, warps, blocks = plan
+    nv = F // vec
+    hits = np.zeros((M, nv), int)
+    n_warps = blocks * warps
+    for w0 in range(n_warps):
+        for tile in range(w0, so.gather_tiles(M, nv, depth), n_warps):
+            if nv == 1:
+                for lane in range(32):
+                    for u in range(depth):
+                        e = tile * 32 * depth + lane + 32 * u
+                        if e < M:
+                            hits[e, 0] += 1
+                continue
+            e0 = tile * 32
+            n_e = min(32, M - e0)
+            for lane in range(32):
+                u, c = lane // nv, lane % nv
+                for t0 in range(0, nv, depth):
+                    for k in range(depth):
+                        s = lane + 32 * (t0 + k)
+                        if s < n_e * nv:
+                            assert (u, c) == divmod(s, nv) and u < n_e  # the id's lane loaded it
+                            hits[e0 + u, c] += 1
+                        u, c = u + 32 // nv, c + 32 % nv
+                        if c >= nv:
+                            u, c = u + 1, c - nv
+    return hits
+
+
+@pytest.mark.parametrize("M,F,vec", [
+    (1000, 128, 4), (1000, 132, 4), (1000, 3, 1), (1000, 2, 2), (1000, 1, 1), (33, 2, 1),
+    (5, 128, 4), (70, 32, 4), (129, 4, 4), (300, 12, 2),
+])
+def test_gather_plan_walk_writes_every_edge_once(M, F, vec):
+    """``gather_plan``'s grid, and grids that walk several tiles a warp,
+    write every vector of every edge row exactly once."""
+    for plan in (so.gather_plan(M, F, vec), (2, 1, 3), (so.GATHER_DEPTH, 2, 1)):
+        assert (_gather_walk(M, F, vec, plan) == 1).all(), plan
+
+
+def test_gather_plan_at_the_graph_shapes_and_is_the_kernels():
+    """At MeshGraphNet's gathers (81 920 edge rows; F 128 in 16-byte
+    vectors, F 2 in 8-byte ones) and GAT's (F 1) the plan takes one tile a
+    warp; ``GATHER_DEPTH`` and the depths dispatched are the kernel's own
+    (``csrc/segment_ops.cu``)."""
+    for F, vec in ((128, 4), (2, 2), (1, 1)):
+        depth, warps, blocks = so.gather_plan(81920, F, vec)
+        assert depth in so.GATHER_DEPTHS and 1 <= warps <= 32
+        assert blocks == -(-so.gather_tiles(81920, F // vec, depth) // warps)
+    src = (Path(so.__file__).parents[1] / "csrc" / "segment_ops.cu").read_text()
+    got = re.search(r"^constexpr int GATHER_DEPTH = (\d+);", src, re.M).group(1)
+    assert got == str(so.GATHER_DEPTH)
+    dispatched = re.findall(r"if \(depth == (\w+)\)", src)
+    assert [so.GATHER_DEPTH if d == "GATHER_DEPTH" else int(d) for d in dispatched] == \
+        list(so.GATHER_DEPTHS)
