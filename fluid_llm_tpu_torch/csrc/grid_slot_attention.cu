@@ -257,9 +257,7 @@ bool bad_fwd_plan(int H, int C, int Y, int strip, int ytile, int stages, int gro
          rows * row_threads(ytile, H, group) > FWD_THREADS || (rows > 1 && ytile < Y);
 }
 
-// PART (measurement variants, 0 in the shipped kernel): 1 consumers do no
-// work; 2 no output loop (one value a (pixel, head) stored); 4 no logits
-template <typename T, int VEC, int NC, int PART = 0>
+template <typename T, int VEC, int NC>
 __global__ void __launch_bounds__(FWD_THREADS + 32, 2)
 grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
                      const float* __restrict__ att, T* __restrict__ out, int X, int Y, int H,
@@ -364,7 +362,6 @@ grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
         sl[d] = s;
         mbar_wait(full + 8 * s, par);
       }
-      if constexpr ((PART & 1) != 0) goto release;
       const int i = x0 + J * rows + w;  // the out row of this step
       const T* const Lm = row_at(sl[0], 0, row_of[0]);  // xl rows i - 1, i, i + 1
       const T* const L0 = row_at(sl[1], 0, row_of[1]);
@@ -400,13 +397,11 @@ grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
             raw[k][q] = *reinterpret_cast<const R*>(nb[q] + off);
             float v[VEC];
             load_vec<VEC>(reinterpret_cast<const T*>(&raw[k][q]), v);
-            if constexpr ((PART & 4) == 0) {
 #pragma unroll
-              for (int e = 0; e < VEC; ++e) {  // leaky_relu(u) = LIN u + ABS |u|
-                const float u = r[e] + v[e];
-                lg[q] = fmaf(u, a[e], lg[q]);
-                lq[q] = fmaf(fabsf(u), a[e], lq[q]);
-              }
+            for (int e = 0; e < VEC; ++e) {  // leaky_relu(u) = LIN u + ABS |u|
+              const float u = r[e] + v[e];
+              lg[q] = fmaf(u, a[e], lg[q]);
+              lq[q] = fmaf(fabsf(u), a[e], lq[q]);
             }
           }
         }
@@ -430,10 +425,6 @@ grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
 #pragma unroll
         for (int q = 0; q < SLOTS; ++q) wq[q] *= inv;  // alpha_s, 0 for masked slots
         T* const op = orow + (long long)y * F;
-        if constexpr ((PART & 2) != 0) {
-          if (sub == 0) store_vec<1>(op + h * C, &wq[0]);
-          continue;
-        }
 #pragma unroll
         for (int k = 0; k < NC; ++k) {
           const int c = sub + group * k;
@@ -452,7 +443,6 @@ grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
         }
       }
     }
-  release:
     __syncwarp();
     if (lane == 0 && J + stages < n_units) mbar_arrive(empty + 8 * js);
     if (++js == stages) {
@@ -462,19 +452,19 @@ grid_slot_fwd_kernel(const T* __restrict__ xl, const T* __restrict__ xr,
   }
 }
 
-template <typename T, int VEC, int NC, int PART = 0>
+template <typename T, int VEC, int NC>
 int launch_fwd(const void* xl, const void* xr, const void* att, void* out, int Bf, int X, int Y,
                int H, int C, int strip, int ytile, int stages, int group, int rows,
                cudaStream_t stream) {
   const FwdSmem L(ytile, stages, rows, H * C, (int)sizeof(T));
   static bool attr_set = false;
-  if (int e = allow_smem(grid_slot_fwd_kernel<T, VEC, NC, PART>, SMEM_MAX, attr_set)) return e;
+  if (int e = allow_smem(grid_slot_fwd_kernel<T, VEC, NC>, SMEM_MAX, attr_set)) return e;
   if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const bool bulk = bulk_runs<T>(Y, H * C, ytile, xl, xr, xr);
   const int nt = rows * row_threads(ytile, H, group);
   const long long n_blocks =
       (long long)Bf * ((X + strip - 1) / strip) * ((Y + ytile - 1) / ytile);
-  grid_slot_fwd_kernel<T, VEC, NC, PART><<<(unsigned)n_blocks, nt + 32, L.bytes, stream>>>(
+  grid_slot_fwd_kernel<T, VEC, NC><<<(unsigned)n_blocks, nt + 32, L.bytes, stream>>>(
       static_cast<const T*>(xl), static_cast<const T*>(xr), static_cast<const float*>(att),
       static_cast<T*>(out), X, Y, H, C, strip, ytile, stages, group, rows, bulk ? 1 : 0);
   return (int)cudaGetLastError();
@@ -863,34 +853,6 @@ extern "C" int grid_slot_attention_fwd(const void* xl, const void* xr, const voi
         xl, xr, att, out, Bf, X, Y, H, C, strip, ytile, stages, group, rows,
         static_cast<cudaStream_t>(stream));
   });
-}
-
-// grid_slot_attention_fwd in bf16 with a measurement variant (PART of the
-// kernel: 1, 2, 4 or 6), at three chunks a thread or fewer; time only
-extern "C" int grid_slot_attention_fwd_variant(const void* xl, const void* xr, const void* att,
-                                               void* out, int Bf, int X, int Y, int H, int C,
-                                               int strip, int ytile, int stages, int group,
-                                               int rows, int part, void* stream) {
-  const int vec = C % 4 == 0 ? 4 : 1;
-  if (bad_fwd_plan(H, C, Y, strip, ytile, stages, group, rows) ||
-      (C / vec + group - 1) / group > 3)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto v) -> int {
-    constexpr int V = decltype(v)::value;
-    using B = __nv_bfloat16;
-#define FWD_PART(P) \
-  launch_fwd<B, V, 3, P>(xl, xr, att, out, Bf, X, Y, H, C, strip, ytile, stages, group, rows, s)
-    switch (part) {
-      case 1: return FWD_PART(1);
-      case 2: return FWD_PART(2);
-      case 4: return FWD_PART(4);
-      case 6: return FWD_PART(6);
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef FWD_PART
-  };
-  return vec == 4 ? run(std::integral_constant<int, 4>{}) : run(std::integral_constant<int, 1>{});
 }
 
 // Backward of grid_slot_attention_fwd.  xl/xr/g/dxl/dxr: (Bf, X, Y, H*C)

@@ -202,9 +202,7 @@ segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict_
   reinterpret_cast<T*>(out + row * F)[c] = acc;
 }
 
-// PART (measurement variants, 0 in the shipped kernel): 1 no row loads
-// (zeros stored, the ids kept); 2 no id loads (edge e reads row e % n_rows)
-template <int VEC, int DEPTH, int PART = 0>
+template <int VEC, int DEPTH>
 __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int* __restrict__ ids,
                                       float* __restrict__ out, long long M, int n_rows, int nv) {
   using V = Vec<VEC>;
@@ -219,21 +217,11 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
       const long long e0 = tile * 32 * DEPTH + lane;
       int id[DEPTH];
 #pragma unroll
-      for (int u = 0; u < DEPTH; ++u)
-        id[u] = e0 + 32 * u < M ? ((PART & 2) ? (int)((e0 + 32 * u) % n_rows)
-                                               : __ldcs(ids + e0 + 32 * u))
-                                : -1;
+      for (int u = 0; u < DEPTH; ++u) id[u] = e0 + 32 * u < M ? __ldcs(ids + e0 + 32 * u) : -1;
       T x[DEPTH];
 #pragma unroll
       for (int u = 0; u < DEPTH; ++u)
-        x[u] = !(PART & 1) && (unsigned)id[u] < (unsigned)n_rows ? __ldg(rows + id[u])
-                                                                 : V::zero();
-      if constexpr ((PART & 1) != 0) {
-        bool any = false;
-#pragma unroll
-        for (int u = 0; u < DEPTH; ++u) any |= id[u] == -7;
-        if (any) continue;  // keeps the id loads
-      }
+        x[u] = (unsigned)id[u] < (unsigned)n_rows ? __ldg(rows + id[u]) : V::zero();
 #pragma unroll
       for (int u = 0; u < DEPTH; ++u)
         if (e0 + 32 * u < M) dst[e0 + 32 * u] = x[u];
@@ -246,11 +234,7 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
   for (; tile * 32 < M; tile += warps) {
     const long long e0 = tile * 32;
     const int n_e = (int)min(32LL, M - e0), n_slots = n_e * nv;
-    const int my_id = lane < n_e ? ((PART & 2) ? (int)((e0 + lane) % n_rows)
-                                               : __ldcs(ids + e0 + lane))
-                                 : -1;
-    if constexpr ((PART & 1) != 0)
-      if (__any_sync(0xffffffffu, my_id == -7)) continue;  // keeps the id loads
+    const int my_id = lane < n_e ? __ldcs(ids + e0 + lane) : -1;
     T* const o = dst + e0 * nv;
     int u = u0, c = c0;
     for (int t0 = 0; t0 < nv; t0 += DEPTH) {
@@ -258,7 +242,7 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
 #pragma unroll
       for (int k = 0; k < DEPTH; ++k) {
         const int id = __shfl_sync(0xffffffffu, my_id, u & 31);
-        x[k] = !(PART & 1) && lane + 32 * (t0 + k) < n_slots && (unsigned)id < (unsigned)n_rows
+        x[k] = lane + 32 * (t0 + k) < n_slots && (unsigned)id < (unsigned)n_rows
                    ? __ldg(rows + (long long)id * nv + c)
                    : V::zero();
         u += q32;
@@ -332,26 +316,6 @@ extern "C" int segment_sum_f32(const void* values, const void* perm, const void*
     segment_sum_wide_kernel<1><<<n_blocks(n_rows, F, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
         v, p, rp, ord, o, n_rows, F);
   }
-  return (int)cudaGetLastError();
-}
-
-// segment_gather_f32 with a measurement variant (PART of the kernel: 1 or
-// 2), 8 warps a block, one tile a warp; time only
-extern "C" int segment_gather_f32_variant(const void* nodes, const void* ids, void* out,
-                                          long long M, int n_rows, int F, int vec, int depth,
-                                          int part, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* n = static_cast<const float*>(nodes);
-  const int* i = static_cast<const int*>(ids);
-  float* o = static_cast<float*>(out);
-  const int nv = F / vec;
-  const long long tiles = (M + (nv == 1 ? 32LL * depth : 32LL) - 1) / (nv == 1 ? 32LL * depth : 32LL);
-  const int blocks = (int)((tiles + 7) / 8);
-  if (vec == 4 && depth == 8 && part == 1) segment_gather_kernel<4, 8, 1><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
-  else if (vec == 4 && depth == 8 && part == 2) segment_gather_kernel<4, 8, 2><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
-  else if (vec == 2 && depth == 4 && part == 1) segment_gather_kernel<2, 4, 1><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
-  else if (vec == 2 && depth == 4 && part == 2) segment_gather_kernel<2, 4, 2><<<blocks, 256, 0, s>>>(n, i, o, M, n_rows, nv);
-  else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

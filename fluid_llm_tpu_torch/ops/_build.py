@@ -41,13 +41,11 @@ SIGNATURES = {
     "flash_attention_dkv": [_P] * 9 + [_I] * 4 + [_LL] * 6 + [ctypes.c_float, _P],
     "grid_slot_attention_fwd": [_P] * 4 + [_I] * 11 + [_P],
     "grid_slot_attention_bwd": [_P] * 8 + [_I] * 9 + [_P],
-    "grid_slot_attention_fwd_variant": [_P] * 4 + [_I] * 11 + [_P],
     "slab_decode_attention": [_P] * 9 + [_I] * 6 + [_LL, _I, ctypes.c_float, _I, _I, _P],
     "quant_matmul_w8a8": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     "segment_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
     "segment_gather_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
-    "segment_gather_f32_variant": [_P] * 3 + [_LL] + [_I] * 5 + [_P],
     "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "short_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _I, _P],
 }
