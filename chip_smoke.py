@@ -8,9 +8,10 @@ Phases, each printing one line per result; any failure exits nonzero:
                name and power limit, nvcc's and torch's versions;
 2. build    -- compiles the CUDA kernels from ``fluid_llm_tpu_torch/csrc``;
 3. kernels  -- each kernel against its plain PyTorch twin in bf16, at the
-               rollout's shapes (exact attention, slot attention), the
-               training step's (flash forward, dq, dk/dv at (8, 601, 768);
-               slot attention and its backward at 80 frames), the streaming
+               rollout's shapes (exact attention, slot attention at the
+               hidden convs' C 48 and the out conv's C 3), the training
+               step's (flash forward, dq, dk/dv at (8, 601, 768); slot
+               attention at C 48 and C 3 and its backward at 80 frames), the streaming
                step's (slab decode attention over 11 slots of 64 rows,
                H 12: a wrapped ring, the first decode with 9 slots
                unwritten, the 61-token prefill) and the serving linears'
@@ -35,21 +36,26 @@ Phases, each printing one line per result; any failure exits nonzero:
                exact attention, the flash forward (its lse within
                LSE_TOL), the slab decode, the indexed linear, w8a8, w8a16,
                short attention, the flash dq and dk/dv, the slot-attention
-               backward and the segment kernels also repeated bit for bit,
-               all but the last with their launch geometry, and the segment
+               forward (also from a CUDA-graph replay) and backward and the
+               segment kernels also repeated bit for bit, all but the sum
+               with their launch geometry, and the segment
                sum equal bit for bit to a CPU walk of its CSR (each row's
                edges ascending, added in f32 from 0); then ("[plans]"
                lines) every launch plan of the indexed linear (column tile,
                K split) at the stacked streaming step's four shapes (M 60),
                of w8a16 (token tile, K split) at its six main-path shapes,
                of w8a8 (column tile, K split) at its nine above (each equal
-               to the twin, beside ``_int_mm`` and w8a16) and of short
-               attention (64 or 128 query rows a block) at its two, each
-               against the twin and timed (w8a16 and the indexed linear
-               beside the library call): the tables
-               ``indexed_linear.plan``, ``quant_matmul.plan``,
-               ``quant_matmul.w8a8_plan`` and ``short_attention.plan`` are
-               read from;
+               to the twin, beside ``_int_mm`` and w8a16), of short
+               attention (64 or 128 query rows a block) at its two, of the
+               slot forward (strip, column tile, ring, group, rows a unit)
+               at its four ((1 or 80, 240, 64, 48 or 3)) and of the segment
+               gather (loads a lane in flight, warps a block, grid) at F
+               128, 2 and 1 (bit for bit), each against the twin and timed
+               (w8a16 and the indexed linear beside the library call): the
+               tables ``indexed_linear.plan``, ``quant_matmul.plan``,
+               ``quant_matmul.w8a8_plan``, ``short_attention.plan``,
+               ``grid_gnn_fused.fwd_plan`` and ``segment_ops.gather_plan``
+               are read from;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -999,7 +1005,7 @@ def _gather_plans(dev, failures: list) -> list[dict]:
         chosen = so.gather_plan(M, F, vec)
         timed = []
         for depth in so.GATHER_DEPTHS:
-            for warps in (4, 8, 16):
+            for warps in (2, 4, 8, 16):
                 full = -(-so.gather_tiles(M, F // vec, depth) // warps)
                 # one tile a warp, or a quarter, half or whole wave of resident
                 # warps (64 an SM) walking the tiles

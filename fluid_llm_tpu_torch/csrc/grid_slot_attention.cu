@@ -33,29 +33,44 @@
 // no work here.
 // Design: the backward's strip walk with one ring.  One block owns a strip
 // of `strip` x-rows of one frame (and a tile of columns, the whole row
-// where it fits) and walks it row by row.  A producer warp copies units --
-// unit j holds xl row x0 - 1 + j and xr row x0 - 2 + j (xl rows x0 - 1 ..
-// x1, xr rows x0 .. x1 - 1) -- by TMA bulk copies (plain copies by its lanes
-// where a run does not start and end on 16 bytes) into a ring of `stages`
-// units on full/empty mbarriers.  Step j writes out row i = x0 - 2 + j from
-// units j - 2 .. j (xl rows i - 1 .. i + 1, xr row i), so every xl row
-// comes from device memory once a strip, plus two halo rows; each consumer
-// warp releases unit j - 2 when its step is done.  A pixel's C channels are
-// split across `group` threads in interleaved chunks of 4 (the backward's
-// rule, ops/grid_gnn_fused.channel_group); the five logits are summed by
-// xor shuffles, so every thread of the group holds the same bits; a logit
-// is 0.6 sum a u + 0.4 sum a |u| (= sum leaky_relu(u) a, 3 operations an
-// element and slot in place of 4).  A slot
-// off the grid reads a pixel of zeros, so the channel loops have no
-// branch; it is masked out of the softmax.  A thread keeps the five
-// neighbours' chunks as loaded (bf16 pairs) from the logits to sum_s a_s
-// v_s (att comes from shared memory a chunk at a time); a warp's store of one chunk
-// round writes whole 32-byte sectors, its rounds together one contiguous
-// run of pixels.  The plan (ops/grid_gnn_fused.fwd_plan) is computed on
-// the host: strips short enough that the rollout's one frame fills the
-// card, 30 rows at 80 frames.  No atomics and no scratch: the same bits
+// where it fits) and walks it.  A producer warp copies units of `rows`
+// x-rows -- unit u holds xl rows x0 - 1 + u rows .. and xr rows one behind
+// them (xl rows x0 - 1 .. x1, xr rows x0 .. x1 - 1 in all) -- by TMA bulk
+// copies, one a buffer (plain copies by its lanes where a run does not
+// start and end on 16 bytes), into a ring of `stages` units on full/empty
+// mbarriers.  Step J writes the unit's `rows` out rows at once, row i from
+// xl rows i - 1 .. i + 1 and xr row i, which lie in units J .. J + 2; every
+// xl row comes from device memory once a strip, plus two halo rows, and
+// each consumer warp releases unit J when the step is done.  A unit of
+// several rows (whole rows only) serves narrow rows: at C 3 a row is 384
+// bytes, and copies that small cost the TMA unit more than their bytes.  A
+// pixel's C channels are split across `group` threads in interleaved chunks
+// of 4 (the backward's rule, ops/grid_gnn_fused.channel_group); the five
+// logits are summed by xor shuffles, so every thread of the group holds the
+// same bits; a logit is 0.6 sum a u + 0.4 sum a |u| (= sum leaky_relu(u) a,
+// 3 operations an element and slot in place of 4).  A slot off the grid
+// reads a pixel of zeros, so the channel loops have no branch; it is masked
+// out of the softmax.  A thread keeps the five neighbours' chunks as loaded
+// (bf16 pairs, unpacked by one shift or mask a channel) from the logits to
+// sum_s a_s v_s; att comes from shared memory a chunk at a time, which
+// keeps the C 48 instance at 96 registers without a spill (two blocks an
+// SM).  A warp's store of one chunk round writes whole 32-byte sectors, its
+// rounds together one contiguous run of pixels.  The plan
+// (ops/grid_gnn_fused.fwd_plan) is computed on the host: strips short
+// enough that the rollout's one frame fills the card (one row a block, 240
+// blocks), 30 rows at 80 frames.  No atomics and no scratch: the same bits
 // every run.
-// What holds it back: see PERF.md (PR 12).
+// What holds it back (an H100 SXM at 700 W, the kernel with parts left out;
+// PERF.md): at 80 frames C 48 (0.163 ms, 65 % of the bound) issue beside
+// the copies: the copies alone take 0.083 ms (2.8 TB/s of reads), the
+// per-pixel set-up, softmax and stores 0.04 more, each channel loop ~0.03;
+// a row step is ~700 instructions a thread (3 chunks), and the 96-register
+// cap of two blocks an SM leaves 16 consumer warps to hide the shared-memory
+// and shuffle latencies.  At one frame (0.0073 ms) a block's single step
+// is a chain: the launch, barriers and one copy round trip alone take
+// 0.0041, and wider groups or narrower tiles did not shorten the rest.  At
+// C 3 a pixel has 3 channels, so the per-pixel set-up and softmax, not the
+// loops or the copies (0.009 ms), set the time.
 //
 // The backward reads xl, xr and g and writes dxl and dxr: five passes over
 // a (Bf, X, Y, F) tensor, 118 MB each in bf16 at the training shape (80

@@ -54,20 +54,27 @@
 // - the gather is a row copy, zero rows for ids out of range, in VEC-wide
 //   vectors: 4 (16 bytes) where F % 4 == 0 and both pointers are 16-byte
 //   aligned, 2 (8 bytes) where F % 2 == 0 and they are 8-byte aligned, else
-//   1; nv = F / VEC vectors a row.  A warp's tile is 32 consecutive edges
-//   whose ids one coalesced streaming load brings in.  Where a row is one
-//   vector (F 1; F 2 in 8 bytes: MGN's positions, GAT's weights) a lane
-//   owns whole rows: `depth` tiles' ids, then their rows, all in flight
-//   before the first store, one warp instruction moving 32 rows.  Wider rows
-//   (F 128: one 512-byte row a warp instruction) hand the ids round by
-//   __shfl_sync; lane l takes the tile's vector slots l + 32 t (edge s / nv,
-//   column s % nv, so a warp's store writes 32 consecutive vectors) and
-//   issues `depth` row loads before their stores: the id-then-row chain is
-//   paid once a tile, not once a row.  The node table (7 MB) stays in L2:
-//   cached loads; the output is stored with the default policy, since the
-//   next GEMM reads it.  Warps walk the tiles grid-stride
-//   (ops/segment_ops.gather_plan: the depth, the warps a block and the
-//   blocks).
+//   1; nv = F / VEC vectors a row.  Ids come in with coalesced streaming
+//   loads.  Where a row is one vector (GAT's weights, F 1; MGN's positions,
+//   F 2 in 8 bytes) a lane owns whole rows: a warp's tile is 32 * `depth`
+//   edges, lane l's are l + 32 u, and their ids, then their rows, are all in
+//   flight before the first store -- one warp instruction moves 32 rows.
+//   Wider rows (F 128: one 512-byte row a warp instruction) take tiles of 32
+//   edges, one id a lane, handed round by __shfl_sync; lane l takes the
+//   tile's vector slots l + 32 t (edge s / nv, column s % nv, so a warp's
+//   store writes 32 consecutive vectors) and issues `depth` row loads before
+//   their stores: the id-then-row chain is paid once a tile, not once a
+//   row.  The node table (7 MB) stays in L2: cached loads; the output is
+//   stored with the default policy, since the next GEMM reads it.  Warps
+//   walk the tiles grid-stride (ops/segment_ops.gather_plan: the depth, the
+//   warps a block and the blocks: one tile a warp, the sweep's choice).
+//   What holds it back (an H100 SXM at 700 W, the kernel with parts left
+//   out; PERF.md): at F 128 the writes.  Ids and 42 MB of zero rows alone
+//   take 0.0154 ms, Tensor.fill_ of the same output 0.0149, the gather
+//   0.0204 against a bound of 0.0148: the row loads add ~5 us beside the
+//   writes at every depth from 2 to 16 (within 0.002 ms).  At F 2 the
+//   launch: fill_ of the 0.66 MB output takes 0.0018-0.0020 ms, the gather
+//   0.0022-0.0024 (at F 1 0.0023-0.0025).
 
 #include <cuda_runtime.h>
 
@@ -271,6 +278,7 @@ int run_gather(const float* n, const int* i, float* o, long long M, int n_rows, 
 template <int VEC>
 int launch_gather(const float* n, const int* i, float* o, long long M, int n_rows, int F,
                   int depth, int warps, int blocks, cudaStream_t s) {
+  if (depth == 1) return run_gather<VEC, 1>(n, i, o, M, n_rows, F, warps, blocks, s);
   if (depth == 2) return run_gather<VEC, 2>(n, i, o, M, n_rows, F, warps, blocks, s);
   if (depth == 4) return run_gather<VEC, 4>(n, i, o, M, n_rows, F, warps, blocks, s);
   if (depth == 8) return run_gather<VEC, 8>(n, i, o, M, n_rows, F, warps, blocks, s);
@@ -322,8 +330,8 @@ extern "C" int segment_sum_f32(const void* values, const void* perm, const void*
 // nodes: (n_rows, F) f32 contiguous; ids: int32 (M,), -1 or outside
 // [0, n_rows) for a zero row; out: (M, F) f32.  vec: 4 or 2 where F is a
 // multiple and nodes and out lie on 16 or 8 bytes, else 1.  The plan
-// (ops/segment_ops.gather_plan): `depth` loads a lane keeps in flight (2,
-// 4, 8 or GATHER_DEPTH), `warps` a block (1 to 32), `blocks`.  Returns
+// (ops/segment_ops.gather_plan): `depth` loads a lane keeps in flight (1,
+// 2, 4, 8 or GATHER_DEPTH), `warps` a block (1 to 32), `blocks`.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int segment_gather_f32(const void* nodes, const void* ids, void* out, long long M,
                                   int n_rows, int F, int vec, int depth, int warps, int blocks,

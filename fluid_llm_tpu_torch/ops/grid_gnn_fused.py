@@ -18,19 +18,20 @@ Bound and design, in short (the source's header has the detail): the
 operation is memory bound -- one read of x_l and x_r and one write of the
 output is the floor -- and the plain formulation makes ~25 passes over
 (frames, X, Y, F) tensors.  The kernel walks a strip of x-rows of one frame
-in the public channels-last layout: a producer warp bulk-copies each row's
-contiguous ``Y * F`` run of x_l and x_r into a ring of row units (unit j
-holds x_l row ``x0 - 1 + j`` and x_r row ``x0 - 2 + j``), and step j writes
-output row ``x0 - 2 + j`` from units j - 2 .. j, so every x_l row is read
-once a strip plus two halo rows.  A pixel's channels are split across a
-thread group (:func:`channel_group`, the backward's rule too), the logits
-summed by xor shuffles; logits, softmax and accumulator stay in registers
-and the output is written once.  :func:`fwd_plan` picks the strip (short
-enough that the rollout's one frame fills the card), the column tile, the
-ring's depth and the group; ``tests/test_torch_kernel_plans.py`` walks the
-same plan on the CPU.  The TPU kernel's channels-first transpose, 128-lane
-padding and F-chunk loops have no purpose on the card and are not carried
-over.
+in the public channels-last layout: a producer warp bulk-copies units of
+one or more rows of x_l and x_r (x_r one row behind) into a ring, and each
+step writes a unit's rows from the units holding x_l rows ``i - 1 .. i +
+1``, so every x_l row is read once a strip plus two halo rows.  A pixel's
+channels are split across a thread group (:func:`channel_group`, the
+backward's rule too), the logits (``0.6 sum a u + 0.4 sum a |u|``) summed
+by xor shuffles; logits, softmax and accumulator stay in registers and the
+output is written once.  :func:`fwd_plan` picks the strip (short enough
+that the rollout's one frame fills the card), the column tile, the ring's
+depth, the group and the rows a unit (several where rows are narrow, so
+that they travel in fewer copies); ``tests/test_torch_kernel_plans.py``
+walks the same plan on the CPU.  The TPU kernel's channels-first
+transpose, 128-lane padding and F-chunk loops have no purpose on the card
+and are not carried over.
 
 Backward (``grid_gnn_pallas.py:17-21``; g = dL/dout):
 

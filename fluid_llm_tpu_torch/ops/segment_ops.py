@@ -49,11 +49,11 @@ own, and the values, in shared memory, chunk after chunk
 in rounds of :data:`ROUND` edges, every value load of a round in flight
 before the first add and the next round's rows prefetched, the rows with
 more than one round first (:meth:`SegmentIndex.long_first`).  The gather
-keeps its ids and rows in flight: a warp's tile of 32 edges takes its ids
-in one coalesced load, and each lane issues :func:`gather_plan`'s
-``depth`` row loads before its first store -- whole rows a lane where a
-row is one 4-, 8- or 16-byte vector (F 1, 2 and 4), 16-byte vectors of
-the tile's rows handed round by shuffles where it is wider (F 128).
+keeps its ids and rows in flight: a warp takes its tile's ids in
+coalesced loads, and each lane issues :func:`gather_plan`'s ``depth`` row
+loads before its first store -- whole rows a lane where a row is one 4-,
+8- or 16-byte vector (F 1, 2 and 4), 16-byte pieces of a 32-edge tile's
+rows, the ids handed round by shuffles, where it is wider (F 128).
 """
 
 from __future__ import annotations
@@ -124,7 +124,7 @@ class SegmentIndex:
 
 WIDE = 32  # F from which the sum kernel walks a row in rounds
 GATHER_DEPTH = 16  # a gathering lane's loads in flight at most
-GATHER_DEPTHS = (2, 4, 8, GATHER_DEPTH)  # the depths the gather kernel is built for
+GATHER_DEPTHS = (1, 2, 4, 8, GATHER_DEPTH)  # the depths the gather kernel is built for
 ROUND = 8  # edges of a wide row's round
 CHUNK_EDGES, CHUNK_FLOATS = 512, 1024  # a narrow warp's staged edges and their values
 
@@ -227,13 +227,13 @@ def gather_tiles(M: int, nv: int, depth: int) -> int:
 
 
 def gather_plan(M: int, F: int, vec: int) -> tuple[int, int, int]:
-    """``(depth, warps, blocks)`` of the gather kernel: the loads a lane keeps
-    in flight (``depth`` of :data:`GATHER_DEPTHS`: 4 rows a lane where a row
-    is one vector, else up to 8 of its vectors), 8 warps a block, one tile
-    a warp."""
+    """``(depth, warps, blocks)`` of the gather kernel, one tile a warp: where
+    a row is one vector (F 1 and 2), 2 rows a lane in blocks of 8 warps;
+    else up to 8 of a lane's vectors in flight (``depth`` of
+    :data:`GATHER_DEPTHS`) in blocks of 2 warps -- the sweep's leaders at
+    MeshGraphNet's and GAT's shapes (``chip_smoke.py``'s ``[plans]``)."""
     nv = F // vec
-    depth = 4 if nv == 1 else next(d for d in GATHER_DEPTHS if d >= min(nv, 8))
-    warps = 8
+    depth, warps = (2, 8) if nv == 1 else (next(d for d in GATHER_DEPTHS if d >= min(nv, 8)), 2)
     return depth, warps, max(1, -(-gather_tiles(M, nv, depth) // warps))
 
 

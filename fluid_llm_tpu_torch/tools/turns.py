@@ -13,8 +13,9 @@ a step (profiler; train cells also their largest device items, idle share
 and median step ms), with sha256 digests of the outputs of the kernels a
 comparison expects unchanged: exact attention, the flash forward, dq and
 dk/dv (from the twin's lse), the slab decode in its three cache states,
-short attention, the indexed linear, w8a16 and w8a8 (both held bit for
-bit to their twins), the segment sum and gather; and the slot forward
+the slot backward at C 48 and C 3, short attention, the indexed linear,
+w8a16 and w8a8 (both held bit for bit to their twins), the segment sum
+and gather; and the slot forward
 held to its twin (relative L2 error, largest difference, repeat bit for
 bit) and timed at its main path's four shapes, since a redesign may sum its logits
 in another order.  Run the trees in turns (parent, change, change,
@@ -39,6 +40,7 @@ def digests(cs, dev) -> dict:
     from fluid_llm_tpu_torch.ops import decode_attention as da
     from fluid_llm_tpu_torch.ops import exact_attention as xa
     from fluid_llm_tpu_torch.ops import flash_attention as fa
+    from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
     from fluid_llm_tpu_torch.ops import indexed_linear as il
     from fluid_llm_tpu_torch.ops import quant
     from fluid_llm_tpu_torch.ops import quant_matmul as qmm
@@ -69,6 +71,12 @@ def digests(cs, dev) -> dict:
         delta = fa.row_delta(out, dout, H, hd)
         res[f"flash_dq ({bs},{L})"] = sha(fa.flash_dq(q, k, v, dout, lse, delta, valid, H, hd))
         res[f"flash_dkv ({bs},{L})"] = sha(*fa.flash_dkv(q, k, v, dout, lse, delta, valid, H, hd))
+    for C in (48, 3):
+        xl, xr, go = (torch.randn(cs.TRAIN_BS * 10, 240, 64, C, generator=g).to(dev, torch.bfloat16)
+                      for _ in range(3))
+        att = torch.randn(1, C, generator=g).to(dev, torch.bfloat16)
+        res[f"grid_slot_attention_bwd (80,240,64,{C})"] = sha(*gf.slot_attention_bwd(xl, xr, att,
+                                                                                     go, 1, C))
     w = (torch.randn(12, 2304, 768, generator=g) * 0.02).to(dev, torch.bfloat16)
     x = torch.randn(60, 768, generator=g).to(dev, torch.bfloat16)
     index = torch.arange(12, dtype=torch.int32, device=dev)[5]

@@ -24,7 +24,9 @@ w8a8's int32 sum must equal its twin's exactly, and with it the output
 on a second call and from a CUDA graph.  The slot-attention backward
 (strips of 30 rows, X and Y down to 1, F up to 256, unaligned inputs)
 repeats bit for bit, also from a graph, and allocates no scratch beyond
-its outputs and datt's partials.  The indexed linear is held
+its outputs and datt's partials; so does the forward at its plan's edge
+cases (strips cut short, X and Y 1, column tiles, units of several rows,
+C 3 and 5, F 255 and 256, unaligned inputs through plain copies).  The indexed linear is held
 to the same bound at the stacked streaming step's five shapes, at the
 first and the last layer of 12 (an off-by-one-layer offset would read
 another layer's weights: relative error ~1.4); the short-attention kernel
@@ -44,7 +46,9 @@ diagonal, repeats), and the flash dq and dk/dv (L 1 to 1536, hd 32 to
 bit for bit, also in a graph; exact attention and the flash forward too
 (their out and lse).  The segment sum equals a CPU walk of its CSR (each
 row's edges ascending, added in f32 from 0) bit for bit at F 1, 2, 32 and
-128, dropped ids and the 132-edge ghost row included, also from a graph.
+128, dropped ids and the 132-edge ghost row included, also from a graph;
+the gather equals its twin bit for bit under every plan at F 1, 2, 3, 128
+and 132, ids out of range and rows off 16 bytes included.
 A gradient that is zero in exact arithmetic (dq and dk of rows that see
 only their diagonal) is held to rounding noise, 1e-4 of |dout|, instead.
 """

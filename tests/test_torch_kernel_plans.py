@@ -1,8 +1,8 @@
 """The launch plans of the port's kernels, plain Python, on the CPU.
 
 The slab decode, the indexed linear, w8a16, w8a8, short attention, the
-flash backward, exact attention, the segment sum and the slot-attention
-backward.
+flash backward, exact attention, the segment sum and gather and the
+slot-attention forward and backward.
 
 All are plain Python functions of the shapes (``ops/decode_attention.
 split_plan``, ``ops/indexed_linear.plan``, ``ops/quant_matmul.plan``,
@@ -21,10 +21,14 @@ mask needs, longest walk first, and so do the blocks of exact attention
 (``ops/segment_ops.sum_walk``, ``narrow_chunks``) adds every kept edge
 once, in ascending order within each row, walks a long run chunk after
 chunk or round after round, and starts the long rows first
-(``SegmentIndex.long_first``); the slot-attention backward's strip walk
-(``ops/grid_gnn_fused.bwd_plan``, ``strips``), walked in numpy, equals its
-twin; every shape ``supported`` accepts gets a plan, w8a8's covering N and
-K exactly.  The kernels themselves run only on the card
+(``SegmentIndex.long_first``); the gather's warps
+(``ops/segment_ops.gather_plan``, ``gather_tiles``) write every vector of
+every edge row once; the slot-attention backward's and forward's strip
+walks (``ops/grid_gnn_fused.bwd_plan``, ``fwd_plan``, ``strips``), walked
+in numpy, equal their twins, and the forward's plan fills the card at the
+rollout's one frame and fits every width the wrapper takes; the kernels'
+constants are read from their sources; every shape ``supported`` accepts
+gets a plan, w8a8's covering N and K exactly.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
 
