@@ -11,10 +11,10 @@ Phases, each printing one line per result; any failure exits nonzero:
                rollout's shapes (exact attention, slot attention at the
                hidden convs' C 48 and the out conv's C 3), the training
                step's (flash forward, dq, dk/dv at (8, 601, 768); slot
-               attention at C 48 and C 3 and its backward at 80 frames), the streaming
-               step's (slab decode attention over 11 slots of 64 rows,
-               H 12: a wrapped ring, the first decode with 9 slots
-               unwritten, the 61-token prefill) and the serving linears'
+               attention at C 48 and C 3 and its backward at 80 frames),
+               the streaming step's (slab decode attention over 11 slots
+               of 64 rows, H 12: a wrapped ring, the first decode with 9
+               slots unwritten, the 61-token prefill) and the serving linears'
                (int8 matmul w8a8 at the flagship's 60 and 61 rows and
                OPT's 661, w8a16 at OPT's 661 and 60 with its biases and at
                the flagship's 60), the stacked streaming step's (indexed

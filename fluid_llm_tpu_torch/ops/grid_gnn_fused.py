@@ -261,10 +261,8 @@ def fwd_plan(Bf: int, X: int, Y: int, heads: int, cdim: int, elem: int,
     strip = max(1, min(STRIP, Bf * X * -(-Y // ytile) // (2 * sms)))
     rows = max(1, min(strip, FWD_THREADS // fwd_threads(ytile, heads, group))) \
         if ytile == Y else 1
-    stages = next((st for budget in (SMEM_SHARED, SMEM_MAX) for st in (6, 5, 4)
-                   if fwd_smem(ytile, st, heads, cdim, elem, rows) <= budget), None)
-    if stages is None:  # units of one row: the ring of 4 fits by the tile's choice
-        rows, stages = 1, 4
+    stages = next(st for budget in (SMEM_SHARED, SMEM_MAX) for st in (6, 5, 4)
+                  if fwd_smem(ytile, st, heads, cdim, elem, rows) <= budget)
     return strip, ytile, stages, group, rows
 
 

@@ -15,11 +15,10 @@ comparison expects unchanged: exact attention, the flash forward, dq and
 dk/dv (from the twin's lse), the slab decode in its three cache states,
 the slot backward at C 48 and C 3, short attention, the indexed linear,
 w8a16 and w8a8 (both held bit for bit to their twins), the segment sum
-and gather; and the slot forward
-held to its twin (relative L2 error, largest difference, repeat bit for
-bit) and timed at its main path's four shapes, since a redesign may sum its logits
-in another order.  Run the trees in turns (parent, change, change,
-parent) within one call.
+and gather; and the slot forward held to its twin (relative L2 error,
+largest difference, repeat bit for bit) and timed at its main path's four
+shapes, since a redesign may sum its logits in another order.  Run the
+trees in turns (parent, change, change, parent) within one call.
 """
 
 from __future__ import annotations
