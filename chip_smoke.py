@@ -151,9 +151,38 @@ Phases, each printing one line per result; any failure exits nonzero:
                layout: 11x251 short-attention launches, 0 exact, 0 indexed
                linear (the stacked forward reads weight slices); step 1
                against the twins and the unrolled layout, the layouts timed
-               in turns as in phase 14.
+               in turns as in phase 14;
+17. published data -- ``configs/training1.yaml`` as published on DeepMind
+               MeshGraphNets-format pickles written into a temporary folder
+               (cylinder: 8 train, 2 valid, 1 test trajectories of 1 900
+               nodes x 600 steps; airfoil: 2 train, 1 valid of 5 000 nodes
+               reaching beyond the crop box): training batches from
+               ``num_workers`` 6 threads equal to serial ones bit for bit;
+               ``main`` for 1 epoch (load_dir, num_epochs and the checkpoint
+               folder changed only): launches of one train step (12 flash
+               forward, dq, dk/dv; 3 and 3 slot) and a 25-step validation
+               rollout (11 exact, 3 slot a step); ``inference.main
+               --checkpoint_dir`` 251 steps (11x251, 3x251), finite N-RMSE;
+               the airfoil (13x7 patches after the trim): one autoreg step
+               and a 10-step rollout, kernels vs twins (step 1 <= REL_TOL);
+18. notf train -- that config with ``tf_mode: notf`` on those pickles, one
+               batch of 8, ``parallel.remat`` off and on (``phase_notf``'s
+               docstring has the launch counts: 99 flash forward, dq and
+               dk/dv, 27 slot forward and backward a step; 198 and 54
+               forwards with remat); losses finite and falling, every
+               trainable group with gradient, step ms, peak memory, idle
+               share; one step remat on vs off (REMAT_TOL) and kernels vs
+               twins (REL_TOL, NOTF_GRAD_TOL);
+19. switches -- on ``synthetic:8`` at full width, a few steps each, the loss
+               falling: MLPGNN attention dropout 0.1 (0 slot launches in
+               the training forward, 3 a step in the validation rollout),
+               the CNN encoder and decoder, adafactor, and
+               ``grad_accum_steps: 2`` (parameters unchanged after the first
+               micro-batch, changed after the second).  Each of 17-19
+               prints its seconds.
 
-Phases 8 to 13 share one temporary folder, removed at the end.  Phases 14
+Phases 8 to 13 share one temporary folder, removed at the end, and phases
+17 and 18 another.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
@@ -2021,6 +2050,353 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     return res
 
 
+# Phases 17-19.  The pickles: the DeepMind MeshGraphNets layout at the size
+# of its cylinder meshes (~1 900 nodes) and 600 steps; the airfoil's mesh
+# (~5 000 nodes) reaches beyond the crop box on every side.
+CYL_NODES, AIRFOIL_NODES, PICKLE_STEPS = (76, 25), (100, 50), 600
+# Relative L2 bound on the whole trainable gradient of one notf step,
+# kernels vs twins (both with remat): each of the 9 rollout steps differs by
+# bf16 rounding of a few 1e-3 (REL_TOL holds step 1 of a rollout) and feeds
+# the next step's input, and the backward runs through all 9 again, so the
+# one-step GRAD_TOL is doubled.
+NOTF_GRAD_TOL = 1e-1
+# Relative L2 bound, remat on vs off, on the loss and the trainable gradient:
+# the same operations recomputed; what differs is only where atomics sum in
+# another order (the position tables' gather backward), ~1e-7 relative.
+REMAT_TOL = 1e-5
+
+
+def write_mgn_pickles(folder: str, n: int, seed: int, nodes: tuple[int, int],
+                      airfoil: bool = False) -> None:
+    """``n`` trajectories ``save_<i>.pkl`` in the MGN layout (``mesh_pos`` f32
+    (N, 2), ``cells`` int32 (F, 3), ``velocity`` (T, N, 2), ``pressure`` (T, N,
+    1), ``density``) from the port's mesh generator and analytic flow; the
+    airfoil's in its physical units, its mesh stretched to x in (-0.8, 3.2),
+    y in (-1, 1.05)."""
+    import pickle
+
+    import numpy as np
+
+    from fluid_llm_tpu_torch.data.synthetic import analytic_flow, make_cylinder_mesh
+
+    os.makedirs(folder, exist_ok=True)
+    for i in range(n):
+        pos, faces = make_cylinder_mesh(seed + i, *nodes)
+        if airfoil:
+            pos = pos * np.array([2.5, 5.0]) + np.array([-0.8, -1.0])
+        states = analytic_flow(pos, PICKLE_STEPS, seed + i)
+        if airfoil:
+            states = (states * np.array([50.0, 50.0, 6000.0], np.float32)[None, :, None]
+                      + np.array([170.0, 0.0, 9.9e4], np.float32)[None, :, None])
+        data = {"mesh_pos": pos.astype(np.float32), "cells": faces.astype(np.int32),
+                "velocity": np.ascontiguousarray(states[:, :2].transpose(0, 2, 1)),
+                "pressure": np.ascontiguousarray(states[:, 2:].transpose(0, 2, 1)),
+                "density": np.ones((PICKLE_STEPS, len(pos), 1), np.float32)}
+        with open(os.path.join(folder, f"save_{i}.pkl"), "wb") as f:
+            pickle.dump(data, f)
+
+
+def _want(launches: dict, **counts) -> dict:
+    want = dict.fromkeys(launches, 0)
+    want.update(counts)
+    return want
+
+
+def phase_published_data(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``configs/training1.yaml`` as published on MGN-format pickles: ``main``
+    for 1 epoch (``num_workers: 6``: the threaded prefetch) with its
+    validation, ``inference.main --checkpoint_dir`` (251 steps), the
+    launches of each; threaded batches against serial ones; then the
+    airfoil: one autoreg step and a 10-step rollout, kernels vs twins."""
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch import main as train_main
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.rollout.generate import generate
+
+    t0 = time.perf_counter()
+    cyl = os.path.join(tmp, "cylinder_dataset")
+    for split, n, s0 in (("train", TRAIN_BS, 100), ("valid", 2, 200), ("test", 1, 200)):
+        write_mgn_pickles(os.path.join(cyl, split), n, s0, CYL_NODES)
+    air = os.path.join(tmp, "airfoil_dataset")
+    for split, n, s0 in (("train", 2, 300), ("valid", 1, 400)):
+        write_mgn_pickles(os.path.join(air, split), n, s0, AIRFOIL_NODES, airfoil=True)
+    res = {"write_s": time.perf_counter() - t0}
+    cfg = Config.from_yaml(CONFIG)
+    runs = os.path.join(tmp, "runs")
+    cfg_path = os.path.join(tmp, "training1_pickles.yaml")
+    cfg.replace(load_dir=cyl, num_epochs=1, checkpoint_save_path=runs).to_yaml(cfg_path)
+    n_layers, convs = 12, cfg.decoder_params.gnn_layers
+
+    # the threaded prefetch's batches against the serial ones, bit for bit
+    ds_cfg = cfg.replace(load_dir=cyl, seq_len=cfg.autoreg_seq_len)
+    batches = {w: list(make_batches(get_dataset(ds_cfg, "train"), 2, shuffle=True, seed=0,
+                                    num_workers=w)) for w in (0, cfg.num_workers)}
+    same = len(batches[0]) == len(batches[cfg.num_workers]) == TRAIN_BS // 2 and all(
+        torch.equal(a, b) for b0, bw in zip(batches[0], batches[cfg.num_workers])
+        for a, b in zip(b0, bw))
+    res["prefetch_equal"] = same
+    print(f"[published data] {TRAIN_BS} train, 2 valid, 1 test cylinder pickles of "
+          f"{CYL_NODES[0] * CYL_NODES[1]} nodes x {PICKLE_STEPS} steps, 2 + 1 airfoil ones of "
+          f"{AIRFOIL_NODES[0] * AIRFOIL_NODES[1]} nodes, written in {res['write_s']:.1f} s; "
+          f"training batches from {cfg.num_workers} threads equal to serial ones bit for bit: "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("published data: threaded batches differ from serial ones")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    jl = os.path.join(tmp, "metrics.jsonl")
+    train_main.main(["--config_path", cfg_path, "--device", str(dev), "--metrics_jsonl", jl])
+    res["main_s"], res["main_launches"] = time.perf_counter() - t0, read_launches()
+    with open(jl) as f:
+        log = json.loads(f.readline())
+    val_steps = cfg.val_seq_len - 1  # one validation batch of 2, rolled out from its first state
+    want_main = _want(res["main_launches"], flash_attention_fwd=n_layers,
+                      flash_attention_dq=n_layers, flash_attention_dkv=n_layers,
+                      grid_slot_attention=convs + convs * val_steps,
+                      grid_slot_attention_bwd=convs,
+                      exact_attention=(n_layers - 1) * val_steps)
+    reset_launches()
+    t0 = time.perf_counter()
+    mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev)])
+    res["inference_s"], res["inference_launches"] = time.perf_counter() - t0, read_launches()
+    want_inf = _want(res["inference_launches"], exact_attention=(n_layers - 1) * STEPS,
+                     grid_slot_attention=convs * STEPS)
+    res.update(train_loss=log["train/Autoreg/loss"], val_n_rmse=log.get("val/Gen/N_RMSE"),
+               inference_mean_n_rmse=mean)
+    ok = (res["main_launches"] == want_main and res["inference_launches"] == want_inf
+          and math.isfinite(res["train_loss"]) and math.isfinite(res["val_n_rmse"] or math.nan)
+          and math.isfinite(mean))
+    print(f"[published data] main, 1 epoch of training1.yaml on {cyl}: {res['main_s']:.1f} s, "
+          f"train loss {res['train_loss']:.5f}, val N-RMSE {res['val_n_rmse']}, launches "
+          f"{res['main_launches']} (want {want_main}: one train step, a {val_steps}-step "
+          f"validation rollout); inference --checkpoint_dir, {STEPS} steps in "
+          f"{res['inference_s']:.1f} s: mean N-RMSE {mean:.5f}, launches "
+          f"{res['inference_launches']} (want {want_inf}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"published data cylinder: {res}")
+
+    # the airfoil: crop, flip, trimmed patches, masked normalisation
+    acfg = cfg.replace(load_dir=air, seed=seed)
+    train_ds = get_dataset(acfg.replace(seq_len=acfg.autoreg_seq_len), mode="train")
+    trainer = build_model_and_trainer(acfg, train_ds.ds_props(), dev)
+    model = trainer.model
+    batch = next(make_batches(train_ds, 2, shuffle=False, device=dev))
+    reset_launches()
+    loss = trainer.train_step(batch)["loss"].item()
+    step_launches = read_launches()
+    valid_ds = get_dataset(acfg.replace(seq_len=12), mode="valid")
+    states, _, _, bc_mask, pos = next(make_batches(valid_ds, 1, shuffle=False, device=dev))
+    diffs = {}
+    reset_launches()
+    for kernels in (True, False):
+        model.kernels = kernels
+        diffs[kernels] = generate(model, states[:, :1], bc_mask, pos, 10)[1]
+    roll_launches = read_launches()
+    model.kernels = True
+    errs = [rel_err(diffs[True][:, i], diffs[False][:, i]) for i in range(10)]
+    props = train_ds.ds_props()
+    want_step = _want(step_launches, flash_attention_fwd=n_layers, flash_attention_dq=n_layers,
+                      flash_attention_dkv=n_layers, grid_slot_attention=convs,
+                      grid_slot_attention_bwd=convs)
+    want_roll = _want(roll_launches, exact_attention=(n_layers - 1) * 10,
+                      grid_slot_attention=convs * 10)
+    ok = (math.isfinite(loss) and errs[0] <= REL_TOL and step_launches == want_step
+          and roll_launches == want_roll and bool(torch.isfinite(diffs[True]).all())
+          and bool(torch.all(states[bc_mask] == 0)))
+    res["airfoil"] = dict(patches=(props.Nx_patch, props.Ny_patch), loss=loss, rel_err=errs,
+                          step_launches=step_launches, rollout_launches=roll_launches)
+    print(f"[published data] airfoil: {props.Nx_patch}x{props.Ny_patch} patches after the "
+          f"trim ({props.Nx_patch * props.Ny_patch * 10 + 1} training tokens), masked pixels "
+          f"exactly 0; one autoreg step loss {loss:.5f}, launches {step_launches}; a 10-step "
+          f"rollout, diffs rel err per step kernels vs twins "
+          f"{', '.join(f'{e:.3e}' for e in errs)}, launches {roll_launches} (want {want_roll}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"published data airfoil: {res['airfoil']}")
+    return res
+
+
+def _notf_trainer(dev, seed: int, cyl: str, remat: bool):
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+
+    base = Config.from_yaml(CONFIG)
+    cfg = base.replace(load_dir=cyl, seed=seed,
+                       teacher_forcing={**base.teacher_forcing.__dict__, "tf_mode": "notf"},
+                       parallel={**base.parallel.__dict__, "remat": remat})
+    ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    trainer = build_model_and_trainer(cfg, ds.ds_props(), dev)
+    return trainer, next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+
+
+def phase_notf(dev, seed: int, failures: list, tmp: str, n_steps: int = 3) -> dict:
+    """``training1.yaml`` with ``tf_mode: notf`` on phase 17's cylinder
+    pickles: ``Trainer.train_step(batch, "notf")`` on one batch of 8, with
+    ``parallel.remat`` off and on.  A step rolls out 9 steps from the first
+    state, differentiated end to end.  Launches a step: 11 x 9 = 99 flash
+    forwards (the sliced last block is plain), 99 dq and 99 dk/dv, 3 x 9 =
+    27 slot forwards and 27 slot backwards; with remat each step's forward
+    runs again in the backward: 198 flash and 54 slot forwards; exact
+    attention 0.  Then one step's loss and gradient remat on vs off
+    (REMAT_TOL) and kernels vs twins (both with remat: the twins' f32
+    attention probabilities of 9 steps would not fit otherwise; REL_TOL,
+    NOTF_GRAD_TOL)."""
+    cyl = os.path.join(tmp, "cylinder_dataset")
+    n_layers, convs, rsteps = 12, 3, 9
+    res, grads = {}, {}
+    for remat in (False, True):
+        trainer, batch = _notf_trainer(dev, seed, cyl, remat)
+        model = trainer.model
+        tag = f"notf remat={remat}"
+        model.zero_grad(set_to_none=True)
+        trainer.generator.manual_seed(seed)
+        loss, _ = trainer.mode_loss(batch, "notf")
+        loss.backward()
+        grads[remat] = (loss.detach().float(), torch.cat([
+            p.grad.float().flatten() for p in model.parameters() if p.requires_grad]))
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms = [], []
+        for _ in range(n_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(batch, "notf")["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        fwd = 2 if remat else 1
+        per_step = _want(launches, flash_attention_fwd=fwd * (n_layers - 1) * rsteps,
+                         flash_attention_dq=(n_layers - 1) * rsteps,
+                         flash_attention_dkv=(n_layers - 1) * rsteps,
+                         grid_slot_attention=fwd * convs * rsteps,
+                         grid_slot_attention_bwd=convs * rsteps)
+        want = {k: v * n_steps for k, v in per_step.items()}
+        params = dict(model.named_parameters())
+        no_grad = [n for n in TRAINABLE_PROBES
+                   if params[n].grad is None or not bool(params[n].grad.abs().sum() > 0)]
+        med = statistics.median(step_ms)
+        ok = (launches == want and all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0] and not no_grad)
+        print(f"[{tag}] {n_steps} notf steps on one batch of {TRAIN_BS} ({rsteps} rollout steps "
+              f"each): loss {', '.join(f'{x:.5f}' for x in losses)}; step ms median {med:.1f} "
+              f"(runs {', '.join(f'{x:.1f}' for x in step_ms)}); peak device memory "
+              f"{peak_mib:.1f} MiB; launches {launches} (want per step {per_step}); gradient on "
+              f"{', '.join(TRAINABLE_PROBES)}: {'ok' if not no_grad else no_grad} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{tag}: launches {launches} (want {want}), losses {losses}, "
+                            f"no gradient {no_grad}")
+        busy_ms, n_ops, idle, top = device_profile(
+            lambda: trainer.train_step(batch, "notf")["loss"].item(), 1, med, tag)
+        res[f"remat_{remat}"] = dict(losses=losses, step_ms=step_ms, median_step_ms=med,
+                                     peak_mem_mib=peak_mib, launches_per_step=per_step,
+                                     device_busy_ms=busy_ms, device_ops=n_ops, idle_share=idle,
+                                     top_device_ms=top)
+        if remat:
+            agree = {}
+            for kernels in (True, False):
+                model.kernels = kernels
+                model.zero_grad(set_to_none=True)
+                loss, _ = trainer.mode_loss(batch, "notf")
+                loss.backward()
+                agree[kernels] = (loss.item(), torch.cat([
+                    p.grad.float().flatten() for p in model.parameters() if p.requires_grad]))
+            model.kernels = True
+            loss_rel = abs(agree[True][0] - agree[False][0]) / abs(agree[False][0])
+            grad_rel = rel_err(agree[True][1], agree[False][1])
+            ok = loss_rel <= REL_TOL and grad_rel <= NOTF_GRAD_TOL
+            res["kernels_vs_twins"] = dict(loss_kernels=agree[True][0], loss_twins=agree[False][0],
+                                           loss_rel=loss_rel, grad_rel=grad_rel)
+            print(f"[notf agreement] loss {agree[True][0]:.6f} (kernels) vs {agree[False][0]:.6f} "
+                  f"(twins): rel {loss_rel:.3e} (bound {REL_TOL}); trainable gradient rel L2 "
+                  f"{grad_rel:.3e} (bound {NOTF_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"notf kernels vs twins: loss rel {loss_rel}, grad rel {grad_rel}")
+        del trainer, model, batch
+    loss_rel = abs((grads[True][0] - grads[False][0]).item()) / abs(grads[False][0].item())
+    grad_rel = rel_err(grads[True][1], grads[False][1])
+    exact = bool(torch.equal(grads[True][0], grads[False][0])) and \
+        bool(torch.equal(grads[True][1], grads[False][1]))
+    ok = loss_rel <= REMAT_TOL and grad_rel <= REMAT_TOL
+    res["remat_vs_none"] = dict(loss_rel=loss_rel, grad_rel=grad_rel, bit_for_bit=exact)
+    print(f"[notf remat] one step from the same weights, remat on vs off: loss rel {loss_rel:.3e}, "
+          f"gradient rel L2 {grad_rel:.3e} (bound {REMAT_TOL}; bit for bit: {exact}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"notf remat vs none: loss rel {loss_rel}, grad rel {grad_rel}")
+    return res
+
+
+def phase_switches(dev, seed: int, failures: list, n_steps: int = 3) -> dict:
+    """``training1.yaml`` on ``synthetic:8`` at full width, each switch a few
+    autoreg steps on one batch, finite with the loss falling: MLPGNN
+    attention dropout 0.1 (no slot-kernel launch in the training forward, 3
+    a step in the validation rollout), the CNN encoder and decoder (768 =
+    3·16·16), adafactor, and ``grad_accum_steps: 2`` (parameters unchanged
+    after the first micro-batch, changed after the second)."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+
+    base = Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed)
+    switches = {
+        "decoder dropout 0.1": base.replace(decoder_params={**base.decoder_params.__dict__,
+                                                            "dropout": 0.1}),
+        "CNN encoder + decoder": base.replace(
+            encoder_params={**base.encoder_params.__dict__, "type": "CNN"},
+            decoder_params={**base.decoder_params.__dict__, "type": "CNN"}),
+        "adafactor": base.replace(optimizer="adafactor"),
+        "grad_accum_steps 2": base.replace(grad_accum_steps=2),
+    }
+    res = {}
+    for name, cfg in switches.items():
+        ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+        trainer = build_model_and_trainer(cfg, ds.ds_props(), dev)
+        batch = next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+        probe = next(p for n, p in trainer.model.named_parameters()
+                     if n.startswith("input_emb") and p.requires_grad)
+        moved, losses = [], []
+        reset_launches()
+        steps = 2 * n_steps if cfg.grad_accum_steps > 1 else n_steps
+        for _ in range(steps):
+            before = probe.detach().clone()
+            losses.append(trainer.train_step(batch)["loss"].item())
+            moved.append(not torch.equal(before, probe.detach()))
+        launches = read_launches()
+        slot = 0 if cfg.decoder_params.type == "CNN" or cfg.decoder_params.dropout > 0 else 3
+        want = _want(launches, flash_attention_fwd=12 * steps, flash_attention_dq=12 * steps,
+                     flash_attention_dkv=12 * steps, grid_slot_attention=slot * steps,
+                     grid_slot_attention_bwd=slot * steps)
+        # under accumulation the loss falls from one update to the next
+        seen = losses[::2] if cfg.grad_accum_steps > 1 else losses
+        ok = (launches == want and all(math.isfinite(x) for x in losses) and seen[-1] < seen[0]
+              and moved == ([False, True] * n_steps if cfg.grad_accum_steps > 1
+                            else [True] * n_steps))
+        out = dict(losses=losses, params_moved=moved, launches=launches)
+        if cfg.decoder_params.dropout > 0:
+            val = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
+            reset_launches()
+            trainer.val_step(next(make_batches(val, TRAIN_BS, shuffle=False, device=dev)))
+            out["val_launches"] = read_launches()
+            vwant = _want(out["val_launches"], exact_attention=11 * 9, grid_slot_attention=3 * 9)
+            ok = ok and out["val_launches"] == vwant
+        res[name] = out
+        print(f"[switches] {name}: losses {', '.join(f'{x:.5f}' for x in losses)}, parameters "
+              f"moved {moved}, launches {launches} (want {want})"
+              + (f"; validation rollout launches {out['val_launches']}"
+                 if "val_launches" in out else "") + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"switch {name}: {out}")
+        del trainer, batch
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -2083,6 +2459,20 @@ def main(argv=None) -> int:
     short_res = phase("short rollout", phase_rollout, dev, args.seed, failures, streaming=False,
                       stacked=True, attn_impl="short", tag="short rollout",
                       turns=(True, False, True))
+    seconds = {}
+    with tempfile.TemporaryDirectory() as tmp:  # phases 17-18: the pickles
+        for key, name, fn, extra in (("published", "published data", phase_published_data, ()),
+                                     ("notf", "notf train", phase_notf, ())):
+            t0 = time.perf_counter()
+            seconds[key] = (phase(name, fn, dev, args.seed, failures, tmp, *extra),
+                            time.perf_counter() - t0)
+            print(f"[{name}] phase seconds {seconds[key][1]:.1f}")
+    t0 = time.perf_counter()
+    seconds["switches"] = (phase("switches", phase_switches, dev, args.seed, failures),
+                           time.perf_counter() - t0)
+    print(f"[switches] phase seconds {seconds['switches'][1]:.1f}")
+    published_res, notf_res, switch_res = (seconds[k][0] for k in ("published", "notf",
+                                                                  "switches"))
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -2094,7 +2484,10 @@ def main(argv=None) -> int:
                            serve=serve_res, serve_exact=serve_exact_res,
                            graph_baselines=graph_res, stacked_streaming=stacked_res,
                            short_train=short_train, short_train_agreement=short_agree,
-                           short_rollout=short_res, failures=failures),
+                           short_rollout=short_res, published_data=published_res,
+                           notf=notf_res, switches=switch_res,
+                           phase_seconds={k: v[1] for k, v in seconds.items()},
+                           failures=failures),
                       f, indent=1, default=str)
     if failures:
         for failure in failures:

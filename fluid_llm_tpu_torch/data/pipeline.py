@@ -8,12 +8,16 @@ Each sample is
 
 with patch tensors ``(seq_len-1, N_patch, 3, px, py)`` and position ids
 ``(seq_len-1, N_patch, 3)``, as CPU tensors; batches move to the model's
-device in :func:`make_batches`.  Only the cylinder protocol is ported; the
-airfoil switches (flip, trim, masked normalisation) come with that dataset.
+device in :func:`make_batches`.  The airfoil protocol's switches (y flip,
+outer patch ring trimmed, masked normalisation; ``data/airfoil.py``) are
+class attributes of the dataset, read by :func:`window_to_patches` and the
+patch-count probe.
 """
 
 from __future__ import annotations
 
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence
 
@@ -41,21 +45,34 @@ def window_to_patches(
     patch: tuple[int, int],
     pad_x: tuple[int, int],
     pad_y: tuple[int, int],
+    flip_y: bool = False,
+    trim: bool = False,
+    masked_norm: bool = False,
 ):
     """(seq, 3, H, W) grid window -> reference sample tuple (without ids).
 
     grid_mask: (H, W) bool (True outside mesh).  Padding pixels get mask=1
     and state=0 (``simple_dataloader.py:137-152``); normalisation uses fixed
     per-dataset stats (``:193-216``), applied on the grid before the diffs.
+
+    The airfoil protocol's options (``src/dataloader/airfoil_ds.py``):
+    ``flip_y`` mirrors the y axis (``:80``); ``trim`` drops the outer ring of
+    patches (``:133``); ``masked_norm`` normalises inside-mesh pixels only
+    (``:216-244``), so masked and padded pixels stay exactly 0.
     """
     seq = grid_states.shape[0]
     px, py = patch
     states = torch.nn.functional.pad(grid_states, (*pad_y, *pad_x))
     mask = torch.nn.functional.pad(grid_mask, (*pad_y, *pad_x), value=True)
+    if flip_y:
+        states, mask = states.flip(-1), mask.flip(-1)
+    if trim:
+        states, mask = states[:, :, px:-px, py:-py], mask[px:-px, py:-py]
     H, W = states.shape[-2:]
     nx, ny = H // px, W // py
 
-    states = (states - means[None, :, None, None]) / stds[None, :, None, None]
+    normed = (states - means[None, :, None, None]) / stds[None, :, None, None]
+    states = torch.where(mask[None, None], states, normed) if masked_norm else normed
 
     # patchify: (seq, 3, H, W) -> (seq, N_patch, 3, px, py)
     s = states.reshape(seq, 3, nx, px, ny, py).permute(0, 2, 4, 1, 3, 5)
@@ -105,6 +122,11 @@ class PatchDataset:
     ``simple_dataloader.py:67-69``), resample + patchify and position ids.
     """
 
+    # the airfoil protocol's switches (see ``window_to_patches``)
+    flip_y: bool = False
+    trim_patches: bool = False
+    masked_norm: bool = False
+
     def __init__(
         self,
         resolution: int,
@@ -132,6 +154,7 @@ class PatchDataset:
         self.stds = torch.tensor(stds if normalize else (1.0,) * 3, dtype=torch.float32)
         self._rng = np.random.default_rng(seed)
         self._geom: Optional[tuple] = None  # (pad_x, pad_y, Nx, Ny), probed lazily
+        self._cache_lock = threading.Lock()  # trajectory caches, shared by make_batches' threads
 
     def num_trajectories(self) -> int:
         raise NotImplementedError
@@ -146,6 +169,8 @@ class PatchDataset:
             pad_x, pad_y = pad_amounts(h, w, self.patch_size)
             nx = num_patches(h + sum(pad_x), self.patch_size[0], self.patch_size[0])
             ny = num_patches(w + sum(pad_y), self.patch_size[1], self.patch_size[1])
+            if self.trim_patches:  # the outer ring dropped (``airfoil_ds.py:54``)
+                nx, ny = nx - 2, ny - 2
             self._geom = (pad_x, pad_y, nx, ny)
         return self._geom
 
@@ -172,13 +197,16 @@ class PatchDataset:
     def __len__(self) -> int:
         return self.num_trajectories()
 
+    def draw_step(self) -> int:
+        """The first trajectory step of the next window: a draw from the
+        dataset's generator in training, 100 for val/test."""
+        if self.mode in ("valid", "test"):
+            return 100
+        return int(self._rng.integers(0, self.max_step_num + 1))
+
     def sample(self, idx: int, step_num: Optional[int] = None):
         if step_num is None:
-            step_num = (
-                100
-                if self.mode in ("valid", "test")
-                else int(self._rng.integers(0, self.max_step_num + 1))
-            )
+            step_num = self.draw_step()
         src = self.get_trajectory(idx)
         pad_x, pad_y, nx, ny = self._probe()
         steps = np.arange(
@@ -192,6 +220,7 @@ class PatchDataset:
         input_states, next_state, diffs, bc_mask = window_to_patches(
             grid, mask, self.means, self.stds,
             patch=self.patch_size, pad_x=pad_x, pad_y=pad_y,
+            flip_y=self.flip_y, trim=self.trim_patches, masked_norm=self.masked_norm,
         )
         pos = position_ids(
             self.seq_len - 1, nx, ny,
@@ -212,16 +241,44 @@ def make_batches(
     seed: int = 0,
     drop_last: bool = False,
     device: torch.device | str = "cpu",
+    num_workers: int = 0,
+    prefetch: int = 2,
 ) -> Iterator[tuple]:
-    """Serial host batcher: stacks ``dataset[i]`` samples and moves each batch
-    to ``device``.  ``dataset`` needs ``len`` and integer indexing.  (The JAX
-    package's threaded prefetch comes with training.)"""
+    """Stacks ``dataset`` samples into batches and moves each to ``device``.
+
+    ``dataset`` needs ``len`` and integer indexing.  ``num_workers > 0``:
+    worker threads build the samples (resample and patchify release the
+    GIL) and ``prefetch`` batches are staged ahead of the consumer, as the
+    reference's ``DataLoader(num_workers=6, prefetch_factor=2)``
+    (``src/utils_model.py:34-39``).  A :class:`PatchDataset`'s window starts
+    are drawn on the calling thread, batch by batch in order
+    (``draw_step``), so threaded batches equal serial ones bit for bit.
+    """
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(seed).shuffle(order)
-    for i in range(0, len(order), batch_size):
-        chunk = order[i:i + batch_size]
-        if drop_last and len(chunk) < batch_size:
-            continue
-        samples = [dataset[int(j)] for j in chunk]
-        yield tuple(torch.stack([s[k] for s in samples]).to(device) for k in range(5))
+    chunks = [order[i:i + batch_size] for i in range(0, len(order), batch_size)
+              if not (drop_last and len(order[i:i + batch_size]) < batch_size)]
+    draw = getattr(dataset, "draw_step", None)
+
+    def plan(chunk):
+        """Each sample's (index, window start), drawn here, in order."""
+        return [(int(j), draw() if draw is not None else None) for j in chunk]
+
+    def build(items):
+        samples = [dataset[j] if step is None else dataset.sample(j, step) for j, step in items]
+        return tuple(torch.stack([s[k] for s in samples]) for k in range(5))
+
+    if num_workers <= 0:
+        for chunk in chunks:
+            yield tuple(t.to(device) for t in build(plan(chunk)))
+        return
+    with ThreadPoolExecutor(max_workers=num_workers) as pool:
+        pending = [pool.submit(build, plan(c)) for c in chunks[:max(1, prefetch)]]
+        rest = iter(chunks[max(1, prefetch):])
+        while pending:
+            batch = pending.pop(0).result()
+            chunk = next(rest, None)
+            if chunk is not None:
+                pending.append(pool.submit(build, plan(chunk)))
+            yield tuple(t.to(device) for t in batch)

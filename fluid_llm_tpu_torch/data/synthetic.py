@@ -172,14 +172,15 @@ class SyntheticCylinderDataset(PatchDataset):
         return self.n_trajectories
 
     def get_trajectory(self, idx: int) -> TrajectorySource:
-        if idx not in self._cache:
-            pos, faces = make_cylinder_mesh(self.base_seed + idx, *self.mesh_nodes)
-            interp = get_mesh_interpolation(pos, faces, self.resolution)
-            states = analytic_flow(pos, self.max_steps, self.base_seed + idx)
-            self._cache[idx] = TrajectorySource(
-                vert_idx=interp.vert_idx,
-                weights=interp.weights,
-                mask=interp.mask,
-                node_states=states,
-            )
-        return self._cache[idx]
+        with self._cache_lock:
+            if idx not in self._cache:
+                pos, faces = make_cylinder_mesh(self.base_seed + idx, *self.mesh_nodes)
+                interp = get_mesh_interpolation(pos, faces, self.resolution)
+                states = analytic_flow(pos, self.max_steps, self.base_seed + idx)
+                self._cache[idx] = TrajectorySource(
+                    vert_idx=interp.vert_idx,
+                    weights=interp.weights,
+                    mask=interp.mask,
+                    node_states=states,
+                )
+            return self._cache[idx]

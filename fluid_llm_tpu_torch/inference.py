@@ -11,6 +11,10 @@ absolute time, as ``configs/flagship_llama.yaml``).  ``FLUID_SCAN_LAYERS=1``
 in the environment serves either from the stacked-layer layout
 (``FluidLLM.prepare_inference_params``).
 
+``--plot_dir`` saves predicted frames of the first trajectory at rollout
+steps 0, 20, ..., 100 (``inference.py:85-100``; needs matplotlib, which
+only figures need).
+
 With ``--checkpoint_dir`` the model comes from a run folder written by
 ``main``/``continue_train`` (torch checkpoints, ``train/checkpoint.py``):
 its ``config.yaml`` and ``step_N`` (latest by default), as the JAX entry
@@ -41,6 +45,7 @@ from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import patch_to_img
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
 from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
+from fluid_llm_tpu_torch.tools.plotting import save_rollout_plots
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
 from fluid_llm_tpu_torch.utils import get_device, set_seed
@@ -56,16 +61,18 @@ def test_generate(
     pred_steps: int = 251,
     ctx_states: int = 1,
     streaming: bool = False,
+    plot_dir: str | None = None,
 ) -> tuple[np.ndarray, float]:
     """``src/inference.py:82-147``; returns (per-step N-RMSE, mean).
 
     Batches go to the device of the model's parameters.  ``streaming``
-    serves through the KV-cache rollout (``rollout/streaming.py``).
+    serves through the KV-cache rollout (``rollout/streaming.py``);
+    ``plot_dir``: figures of the first trajectory's rollout.
     """
     device = next(model.parameters()).device
     roll = gen_seq_streaming if streaming else gen_seq
     end_state = pred_steps + ctx_states - 1
-    n_rmses = []
+    n_rmses, first = [], None
     for i, batch in enumerate(make_batches(dataset, batch_size, shuffle=False, device=device)):
         states, _, _, bc_mask, _ = batch
         pred_states, _ = roll(model, batch, pred_steps, start_state=ctx_states)
@@ -73,12 +80,16 @@ def test_generate(
         true_states = patch_to_img(states, model.ds_props)[:, :end_state]
         mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()[:, :end_state]
         n_rmses.append(calc_n_rmse(pred_states, true_states, mask_img).cpu().numpy())
+        if plot_dir and first is None:
+            first = (pred_states[0].cpu().numpy(), true_states[0].cpu().numpy())
         logger.info("trajectory batch %d done", i)
 
     n_rmses = np.concatenate(n_rmses, axis=0)
     per_step = n_rmses.mean(axis=0)[ctx_states - 1:]
     mean = float(per_step.mean())
     logger.info("Standard N_RMSE: %s, Mean: %.4g", np.array2string(per_step, precision=4), mean)
+    if first is not None:
+        save_rollout_plots(*first, plot_dir)
     return per_step, mean
 
 
@@ -122,13 +133,15 @@ def main(argv=None):
     parser.add_argument("--step", type=int, default=None, help="checkpoint step (default: latest)")
     parser.add_argument("--config_path", default="configs/training1.yaml")
     parser.add_argument("--load_dir", default=None,
-                        help="override the config's dataset (only synthetic[:<n>] is ported)")
+                        help="override the config's dataset (a pickle folder or synthetic[:<n>])")
     parser.add_argument("--seed", type=int, default=1234, help="weight-init seed")
     parser.add_argument("--seq_len", type=int, default=253)
     parser.add_argument("--pred_steps", type=int, default=251)
     parser.add_argument("--batch_size", type=int, default=1)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--csv", default=None, help="write per-step N-RMSE CSV")
+    parser.add_argument("--plot_dir", default=None,
+                        help="save rollout frames of the first trajectory (needs matplotlib)")
     parser.add_argument("--streaming", action="store_true",
                         help="serve via the KV-cache streaming rollout (rope backbones only)")
     args = parser.parse_args(argv)
@@ -152,7 +165,7 @@ def main(argv=None):
     test_ds = get_dataset(cfg.replace(seq_len=args.seq_len), mode="test")
     per_step, mean = test_generate(
         model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps,
-        streaming=args.streaming,
+        streaming=args.streaming, plot_dir=args.plot_dir,
     )
     if args.csv:
         if os.path.dirname(args.csv):

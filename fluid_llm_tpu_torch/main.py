@@ -5,7 +5,9 @@
 
 The backbone starts from random weights drawn from ``cfg.seed`` (pretrained
 HF weights would need a download); the adapters, encoder, decoder and BOS
-train on top.  Metrics go to the log and, optionally, a JSONL file.  The
+train on top, on the data the config's ``load_dir`` names (the MGN cylinder
+or airfoil pickles, or synthetic trajectories: ``data.get_dataset``).
+Metrics go to the log and, optionally, a JSONL file.  The
 multi-process flags (``--distributed`` ...) are not ported and raise.
 """
 

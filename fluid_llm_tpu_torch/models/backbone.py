@@ -36,8 +36,12 @@ of ``ops/quant_matmul.py`` on the card, in the mode it was stored with.
 Training (``backbone.py:769-948``): LoRA/DoRA adapters are applied unmerged
 (``models/lora.lora_linear``) on their target projections, and dropout
 draws from a ``torch.Generator`` at the HF placement: the embedding stream,
-after the attention out-projection and after the MLP.  ``pack_qkv_params``
-and ``cast_matmul_params`` are inference-only.
+after the attention out-projection and after the MLP.  With ``remat``
+(``parallel.remat``, ``backbone.py:902``) each full block under autograd
+is rematerialised (``torch.utils.checkpoint``): its activations are
+recomputed in the backward, with the same dropout masks (the generator's
+state is replayed).  ``pack_qkv_params`` and ``cast_matmul_params`` are
+inference-only.
 
 Streaming (``backbone.py:1032-1402``, rope backbones): ``apply_streaming``
 runs new tokens through every block once against the slab KV cache of
@@ -62,6 +66,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fluid_llm_tpu_torch.models.common import dropout, linear
 from fluid_llm_tpu_torch.models.lora import lora_linear
@@ -102,6 +107,8 @@ class BackboneConfig:
     flash_attention: bool = False
     # "auto" (the choice above) or "short" (``ops/short_attention.py``)
     attn_impl: str = "auto"
+    # rematerialise each full block under autograd (``parallel.remat``)
+    remat: bool = False
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -349,6 +356,30 @@ class _LayerOps:
         return x
 
 
+def rematerialised(fn, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``fn(x)`` under ``torch.utils.checkpoint``: only ``x`` is kept, the
+    rest recomputed in the backward.  Dropout drawn from ``generator`` draws
+    the same masks again: the recompute starts from the generator's state
+    of the first call and leaves it as it found it."""
+    if generator is None:
+        return checkpoint(fn, x, use_reentrant=False)
+    first = generator.get_state()
+    calls = []
+
+    def run(x):
+        if not calls:
+            calls.append(1)
+            return fn(x)
+        now = generator.get_state()
+        generator.set_state(first)
+        try:
+            return fn(x)
+        finally:
+            generator.set_state(now)
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
 class Block(_LayerOps, nn.Module):
     """One transformer block; ``attn``/``mlp`` are ModuleDicts so the keys
     follow the JAX pytree."""
@@ -552,6 +583,7 @@ class Backbone(nn.Module):
         kernels: bool = True,
         lora=None,
         generator: Optional[torch.Generator] = None,
+        remat: Optional[bool] = None,
     ) -> torch.Tensor:
         """(bs, L, d) -> (bs, L, d), or (bs, length, d) with ``decode_slice``.
 
@@ -565,6 +597,8 @@ class Backbone(nn.Module):
         lora: optional ``models.lora.Lora`` applied unmerged.
         generator: training mode: dropout (embedding stream, residual
         branches, adapter inputs) draws from it; None means no dropout.
+        remat: rematerialise each full block under autograd (None: the
+        config's ``remat``).
         """
         cfg = self.cfg
         bs, L = inputs_embeds.shape[:2]
@@ -599,8 +633,11 @@ class Backbone(nn.Module):
         adapters = lora.layers if lora is not None else [None] * cfg.n_layers
         lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
+        remat = (cfg.remat if remat is None else remat) and torch.is_grad_enabled()
         for layer, ad in zip(layers[:n_full], adapters):
-            x = layer(x, cfg, valid_i32, attend, ad, lora_cfg, generator, rope, kernels)
+            block = lambda x, layer=layer, ad=ad: layer(x, cfg, valid_i32, attend, ad, lora_cfg,
+                                                        generator, rope, kernels)
+            x = rematerialised(block, x, generator) if remat else block(x)
         if decode_slice is not None:
             x = self._final_block_sliced(x, layers[-1], allowed, rope, decode_slice, adapters[-1],
                                          lora_cfg, kernels)

@@ -1,9 +1,10 @@
-"""Shared building blocks: the MLP stack, the linear and dropout helpers.
+"""Shared building blocks: the MLP and CNN stacks, the linear and dropout helpers.
 
-Counterpart of ``fluid_llm_tpu/models/common.py`` (``mlp_init``/``mlp_apply``;
-the CNN stacks come with the CNN encoder/decoder).  Mirrors
-``src/models/layers/MLP.py``: configurable activation, optional zero-init of
-the last layer, activation between (not after) layers.
+Counterpart of ``fluid_llm_tpu/models/common.py`` (``mlp_init``/``mlp_apply``,
+``cnn_init``/``cnn_apply``, ``cnn1d_init``/``cnn1d_apply``).  Mirrors
+``src/models/layers/MLP.py`` and ``CNN.py``: configurable activation,
+optional zero-init of the last layer, activation between (not after)
+layers; the convolutions have kernel 3 and zero padding 1.
 """
 
 from __future__ import annotations
@@ -96,6 +97,45 @@ class MLP(nn.ModuleList):
         fn = ACTS[self.act]
         for i, lin in enumerate(self):
             x = linear(x, lin)
+            if i < len(self) - 1:
+                x = fn(x)
+        return x
+
+
+class CNN(nn.ModuleList):
+    """``src/models/layers/CNN.py:4-57``: a list of ``Conv2d`` (``conv_dim``
+    2, 3x3) or ``Conv1d`` (``conv_dim`` 1, kernel 3), zero padding 1, on
+    channels-first inputs (the JAX ``cnn_apply``/``cnn1d_apply`` in NHWC /
+    NWC).  Keys ``<name>.<i>.weight`` like the JAX list of ``{w, b}``."""
+
+    def __init__(self, in_dim: int, out_dim: int, hid_dim: int, num_layers: int, act: str,
+                 conv_dim: int = 2, zero_last: bool = False):
+        dims = [in_dim] + [hid_dim] * (num_layers - 1) + [out_dim] if num_layers > 1 \
+            else [in_dim, out_dim]
+        conv = nn.Conv2d if conv_dim == 2 else nn.Conv1d
+        super().__init__(conv(a, b, 3, padding=1) for a, b in zip(dims[:-1], dims[1:]))
+        if act not in ACTS:
+            raise ValueError(f"unknown activation {act!r}")
+        self.act = act
+        self.zero_last = zero_last and num_layers > 1
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """torch's conv default: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for w and b."""
+        for i, conv in enumerate(self):
+            if self.zero_last and i == len(self) - 1:
+                conv.weight.zero_()
+                conv.bias.zero_()
+                continue
+            bound = 1.0 / math.sqrt(conv.weight[0].numel())
+            conv.weight.uniform_(-bound, bound, generator=generator)
+            conv.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = ACTS[self.act]
+        for i, conv in enumerate(self):
+            op = F.conv2d if isinstance(conv, nn.Conv2d) else F.conv1d
+            x = op(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), padding=1)
             if i < len(self) - 1:
                 x = fn(x)
         return x

@@ -1,10 +1,10 @@
-"""Input embedding stack: MLP patch encoder + 3-axis positions.
+"""Input embedding stack: MLP or CNN patch encoder + 3-axis positions.
 
-Counterpart of ``fluid_llm_tpu/models/embeddings.py`` (``patch_encoder``,
-``pos_embed`` :48-66, the additive sin/cos ladders ``rotary3d_apply`` and
-``rotary3d_abs_apply`` :72-136, ``input_embeddings``); the CNN encoder
-comes later.  In training, ``input_emb_layer_dropout`` acts on the result,
-drawn from a ``torch.Generator`` (``embeddings.py:185-189``).
+Counterpart of ``fluid_llm_tpu/models/embeddings.py`` (``patch_encoder``
+:28-45, ``pos_embed`` :48-66, the additive sin/cos ladders
+``rotary3d_apply`` and ``rotary3d_abs_apply`` :72-136,
+``input_embeddings``).  In training, ``input_emb_layer_dropout`` acts on
+the result, drawn from a ``torch.Generator`` (``embeddings.py:185-189``).
 """
 
 from __future__ import annotations
@@ -16,21 +16,34 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu_torch.config import EncoderConfig, PosEmbeddingConfig
-from fluid_llm_tpu_torch.models.common import MLP, dropout
+from fluid_llm_tpu_torch.models.common import CNN, MLP, dropout
 
 
 class PatchEncoder(nn.Module):
-    """``patch_encoder.py:6-30``, MLP type: flat patch -> llm_dim."""
+    """``patch_encoder.py:6-30``: ``MLP`` (flat patch -> llm_dim) or ``CNN``
+    (3x3 convs over each patch's 3 channels, then the mean over its pixels,
+    ``patch_encoder.py:17-19``)."""
 
     def __init__(self, patch_in_dim: int, llm_dim: int, cfg: EncoderConfig):
         super().__init__()
-        if cfg.type != "MLP":
-            raise ValueError(f"patch encoder {cfg.type!r}: only MLP is ported")
-        self.mlp = MLP(patch_in_dim, llm_dim, cfg.hidden_dim, cfg.num_layers, cfg.activation)
+        self.mlp = self.cnn = None
+        if cfg.type == "MLP":
+            self.mlp = MLP(patch_in_dim, llm_dim, cfg.hidden_dim, cfg.num_layers, cfg.activation)
+        elif cfg.type == "CNN":
+            self.cnn = CNN(3, llm_dim, cfg.hidden_dim, cfg.num_layers, cfg.activation)
+        else:
+            raise ValueError(f"Unknown patch embedding type: {cfg.type}")
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        (self.mlp if self.mlp is not None else self.cnn).reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(bs, seq, N_patch, C, px, py) -> (bs, seq, N_patch, llm_dim)."""
-        return self.mlp(x.flatten(3))
+        if self.mlp is not None:
+            return self.mlp(x.flatten(3))
+        bs, seq, n = x.shape[:3]
+        out = self.cnn(x.reshape(bs * seq * n, *x.shape[3:]))
+        return out.mean(dim=(-2, -1)).reshape(bs, seq, n, -1)
 
 
 class PosEmbed(nn.Module):
@@ -124,7 +137,7 @@ class InputEmbeddings(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        self.patch.mlp.reset_parameters(generator)
+        self.patch.reset_parameters(generator)
         if self.pos is not None:
             self.pos.reset_parameters(generator)
         if self.ln is not None:

@@ -16,10 +16,12 @@ them train follows ``trainable_mask`` (``fluid_llm.py:170-182``): under
 LoRA or ``freeze_llm`` the backbone is frozen (``requires_grad=False``, so
 the optimizer holds no state for it); adapters, encoder, decoder and BOS
 train.  The ported surface: ``forward`` (every frame decoded; in training
-with dropout drawn from a ``torch.Generator``), ``forward_see_init`` and
+with dropout drawn from a ``torch.Generator``: embeddings, backbone,
+adapters and the MLPGNN decoder's attention), ``forward_see_init`` and
 ``predict_diffs`` (the training forwards), the rollout's
-``predict_frame_diff`` (non-CNN, non-MoE branch), all with unmerged
-adapters, ``prepare_inference_params`` (unstack -> merge adapters ->
+``predict_frame_diff`` (non-MoE; the CNN decoder decodes the whole window),
+all with unmerged adapters and, with ``parallel.remat``, rematerialised
+backbone blocks, ``prepare_inference_params`` (unstack -> merge adapters ->
 quantize, for serving -> pack qkv -> cast -> stack, with
 ``FLUID_SCAN_LAYERS=1``), and the streaming rollout's ``embed_frames`` and
 ``decode_frame_tokens``.
@@ -83,7 +85,7 @@ class FluidLLM(nn.Module):
                                       "backbone, fluid_llm_tpu/main.py:103-110) is not ported")
         dtype = torch.bfloat16 if cfg.half_precision else torch.float32
         bcfg = bb.preset(cfg.llm_backbone, cfg.llm_layers).replace(
-            dtype=dtype, flash_attention=cfg.flash_attention)
+            dtype=dtype, flash_attention=cfg.flash_attention, remat=cfg.parallel.remat)
         if backbone_overrides:
             bcfg = bcfg.replace(**backbone_overrides)
         return cls(cfg, ds_props, bcfg, kernels=kernels)
@@ -185,7 +187,7 @@ class FluidLLM(nn.Module):
         out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen)
         if self.bos is not None:
             out = out[:, 1:]
-        preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, train)
+        preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, gen)
         return preds.permute(0, 1, 4, 2, 3).float() * self.cfg.diff_scale_factor
 
     def forward_see_init(self, states: torch.Tensor, position_ids: torch.Tensor,
@@ -213,6 +215,7 @@ class FluidLLM(nn.Module):
         frame_valid: torch.Tensor,
         frame_idx: int,
         init_frame: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
+        remat: Optional[bool] = None,
     ) -> torch.Tensor:
         """Rollout hot path: full-window backbone, single-frame decode.
 
@@ -221,8 +224,13 @@ class FluidLLM(nn.Module):
         decoding only ``frame_idx`` is exact.  ``init_frame``: optional
         (state, position_ids) used as the see-init duplicated frame instead
         of ``states[:, 0]`` (the right-aligned rollout window's first valid
-        frame).  Returns the diff image of window frame ``frame_idx``:
-        (bs, 3, X, Y), f32.
+        frame).  ``remat``: the backbone's (None: the config's).  Returns
+        the diff image of window frame ``frame_idx``: (bs, 3, X, Y), f32.
+
+        The CNN decoder's Conv1d spans the whole window's token stream, so
+        it decodes every frame of a full-window backbone and keeps
+        ``frame_idx``'s (``fluid_llm.py:465-499``), with the tokens of
+        invalid frames zeroed first.
         """
         bs, seq_len, n_patch = states.shape[:3]
         out_idx = frame_idx
@@ -235,7 +243,15 @@ class FluidLLM(nn.Module):
             frame_valid = torch.cat([ones, frame_valid], dim=1)
             out_idx = frame_idx + 1  # drop the duplicated frame's prediction
         h, token_valid = self._embed(states, position_ids, frame_valid)
+        if self.cfg.decoder_params.type == "CNN":
+            out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, remat=remat)
+            if self.bos is not None:
+                out = out[:, 1:]
+            valid_tok = frame_valid.repeat_interleave(n_patch, dim=1)[..., None]
+            out = torch.where(valid_tok, out, torch.zeros((), dtype=out.dtype, device=out.device))
+            preds = self.decoder(out.reshape(bs, -1, n_patch, out.shape[-1]), self.kernels)
+            return preds[:, out_idx].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
         tok_start = out_idx * n_patch + (1 if self.bos is not None else 0)
         out = self.backbone(h, token_valid, decode_slice=(tok_start, n_patch),
-                            kernels=self.kernels, lora=self.lora)
+                            kernels=self.kernels, lora=self.lora, remat=remat)
         return self.decode_frame_tokens(out)

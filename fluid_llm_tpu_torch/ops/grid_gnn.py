@@ -14,8 +14,11 @@ The slot attention runs in the hand-written kernels
 (``ops/grid_gnn_fused.py``, forward and backward through its
 ``SlotAttention`` Function) on every CUDA call; ``lin_l``/``lin_r``, the
 bias and the softplus between convs stay outside it, as in the JAX package.
-The attention-dropout path (``grid_gnn.py:122-139``, explicit alphas) is not
-ported: the decoder raises for dropout > 0 in training.
+Attention dropout in training (``grid_gnn.py:121-139``) needs the alphas
+themselves: it takes :func:`slot_attention_dropout` (plain PyTorch, a
+masked softmax over the 5 slots, a keep mask drawn from the caller's
+``torch.Generator``), never the kernel, as the JAX package leaves its fused
+path then (``grid_gnn.py:103``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,21 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu_torch.models.common import linear
-from fluid_llm_tpu_torch.ops.grid_gnn_fused import slot_attention, slot_attention_ref
+from fluid_llm_tpu_torch.ops.grid_gnn_fused import (
+    SHIFTS, slot_attention, slot_attention_ref, slot_logits)
+
+
+def slot_attention_dropout(xl, xr, att, heads: int, cdim: int, keep: torch.Tensor,
+                           rate: float) -> torch.Tensor:
+    """Slot attention with dropout on the attention weights: softmax over
+    the 5 slots, alpha kept where ``keep`` (bool, (..., X, Y, S, H)) and
+    scaled by ``1 / (1 - rate)`` (``grid_gnn.py:136-139``).  -> like xl."""
+    logits, values = slot_logits(xl, xr, att, heads, cdim)
+    alpha = torch.softmax(logits, dim=-2).to(xl.dtype)
+    alpha = torch.where(keep, alpha / (1.0 - rate), torch.zeros((), dtype=alpha.dtype,
+                                                                 device=alpha.device))
+    out = torch.einsum("...shc,...sh->...hc", values, alpha)
+    return out.reshape(*xl.shape[:-1], heads * cdim)
 
 
 class GATv2Conv(nn.Module):
@@ -55,15 +72,23 @@ class GATv2Conv(nn.Module):
         if self.bias is not None:
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        """x: (..., X, Y, in_dim) -> (..., X, Y, heads*out_dim)."""
+    def forward(self, x: torch.Tensor, kernels: bool = True, dropout: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: (..., X, Y, in_dim) -> (..., X, Y, heads*out_dim).  ``dropout``
+        > 0 with a ``generator``: attention dropout, its keep mask drawn
+        from the generator."""
         xl = linear(x, self.lin_l)  # source transform
         xr = linear(x, self.lin_r)  # target transform
         lead = x.shape[:-1]
-        frames = (-1,) + xl.shape[-3:]
-        attend = slot_attention if kernels else slot_attention_ref
-        out = attend(xl.reshape(frames), xr.reshape(frames), self.att.to(x.dtype),
-                     self.heads, self.out_dim)
+        att = self.att.to(x.dtype)
+        if dropout > 0.0 and generator is not None:
+            shape = (*lead, len(SHIFTS), self.heads)
+            keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - dropout
+            out = slot_attention_dropout(xl, xr, att, self.heads, self.out_dim, keep, dropout)
+        else:
+            frames = (-1,) + xl.shape[-3:]
+            attend = slot_attention if kernels else slot_attention_ref
+            out = attend(xl.reshape(frames), xr.reshape(frames), att, self.heads, self.out_dim)
         out = out.reshape(*lead, self.heads * self.out_dim)
         if self.bias is not None:
             out = out + self.bias.to(x.dtype)
@@ -91,8 +116,10 @@ class GridGATStack(nn.Module):
         for conv in [*self.convs, self.out]:
             conv.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, kernels: bool = True) -> torch.Tensor:
-        """x: (..., X, Y, in_dim) -> (..., X, Y, out_dim)."""
+    def forward(self, x: torch.Tensor, kernels: bool = True, dropout: float = 0.0,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x: (..., X, Y, in_dim) -> (..., X, Y, out_dim); attention dropout
+        in every conv as :meth:`GATv2Conv.forward`."""
         for conv in self.convs:
-            x = F.softplus(conv(x, kernels))
-        return self.out(x, kernels)
+            x = F.softplus(conv(x, kernels, dropout, generator))
+        return self.out(x, kernels, dropout, generator)

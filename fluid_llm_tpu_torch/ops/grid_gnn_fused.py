@@ -80,12 +80,10 @@ def _slot_mask(X: int, Y: int, dx: int, dy: int, device) -> torch.Tensor:
     return m
 
 
-def slot_attention_ref(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
-    """Plain PyTorch twin: a port of ``_xla_slot_attention``
-    (``fluid_llm_tpu/ops/grid_gnn_pallas.py:287-307``).
-
-    xl/xr: (..., X, Y, heads*cdim); att: (heads, cdim) -> like xl.
-    """
+def slot_logits(xl, xr, att, heads: int, cdim: int):
+    """The five slots made explicit (``grid_gnn.py:124-135``): logits
+    (..., X, Y, S, H) f32, off-grid slots at -inf, and values
+    (..., X, Y, S, H, C).  xl/xr: (..., X, Y, heads*cdim); att: (heads, cdim)."""
     lead = xl.shape[:-1]
     xr_h = xr.reshape(*lead, heads, cdim)
     X, Y = xl.shape[-3], xl.shape[-2]
@@ -97,12 +95,20 @@ def slot_attention_ref(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
         values.append(vh)
         masks.append(_slot_mask(X, Y, dx, dy, xl.device))
     logits = torch.stack(logits, dim=-2).float()  # (..., X, Y, S, H)
-    values = torch.stack(values, dim=-3)  # (..., X, Y, S, H, C)
     mask = torch.stack(masks, dim=-1)[..., :, None]  # (X, Y, S, 1)
-    logits = torch.where(mask, logits, -torch.inf)
+    return torch.where(mask, logits, -torch.inf), torch.stack(values, dim=-3)
+
+
+def slot_attention_ref(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:
+    """Plain PyTorch twin: a port of ``_xla_slot_attention``
+    (``fluid_llm_tpu/ops/grid_gnn_pallas.py:287-307``).
+
+    xl/xr: (..., X, Y, heads*cdim); att: (heads, cdim) -> like xl.
+    """
+    logits, values = slot_logits(xl, xr, att, heads, cdim)
     alpha = torch.softmax(logits, dim=-2).to(xl.dtype)
     out = torch.einsum("...shc,...sh->...hc", values, alpha)
-    return out.reshape(*lead, heads * cdim)
+    return out.reshape(*xl.shape[:-1], heads * cdim)
 
 
 def fused_slot_attention(xl, xr, att, heads: int, cdim: int) -> torch.Tensor:

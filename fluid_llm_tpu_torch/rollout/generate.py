@@ -21,30 +21,51 @@ most ``max_ctx_len`` states, re-encoding the whole window every step
 No KV cache, like the reference: the re-zeroed time ids change every
 token's embedding as the window slides (``rollout/streaming.py`` serves
 absolute-time rope models from a cache).
+
+The rollout runs in inference mode unless ``grad`` is set: the ``notf``
+training mode differentiates through it (``generate.py:36-60``), each step's
+forward then rematerialised in the backward with ``remat``
+(``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of the
+scan step).  Either way it draws no dropout, as the JAX rollout takes no
+rng.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
 
 
-@torch.inference_mode()
 def generate(
     model: FluidLLM,
     init_states: torch.Tensor,
     bc_mask: torch.Tensor,
     position_ids: torch.Tensor,
     n_steps: int,
+    *,
+    grad: bool = False,
+    remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """init_states: (bs, init_len, N_patch, 3, px, py); bc_mask:
     (bs, seq, N_patch, 3, px, py) bool; position_ids: (bs, seq, N_patch, 3).
+    ``grad``: keep the autograd graph (otherwise inference mode); ``remat``:
+    recompute each step's forward in the backward, keeping only its input.
 
     Returns (all_states, all_diffs) as patch tensors of
     (bs, init_len + n_steps, ...) and (bs, n_steps, ...).
     """
+    if not grad:
+        if remat:
+            raise ValueError("remat rematerialises a differentiated rollout: pass grad=True")
+        with torch.inference_mode():
+            return _generate(model, init_states, bc_mask, position_ids, n_steps, False)
+    return _generate(model, init_states, bc_mask, position_ids, n_steps, remat)
+
+
+def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bool):
     bs, init_len, n_patch = init_states.shape[:3]
     W = model.max_ctx_len
     dev = init_states.device
@@ -70,13 +91,20 @@ def generate(
             t_ids = (slot - start).clamp_min(0).expand(bs, W)
             dpos = dup_pos
         wpos = torch.cat([spatial, t_ids[:, :, None, None].expand(bs, W, n_patch, 1)], dim=-1)
-        last_img = model.predict_frame_diff(
-            buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos)
-        )
-        diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
-        step_idx = min(init_len + i - 1, bc_mask.shape[1] - 1)
-        diffs = torch.where(bc_mask[:, step_idx], 0.0, diffs)
-        next_state = buffer[:, W - 1] + diffs
+        step_mask = bc_mask[:, min(init_len + i - 1, bc_mask.shape[1] - 1)]
+
+        def step(buffer, wpos=wpos, frame_valid=frame_valid, dpos=dpos, start=start,
+                 step_mask=step_mask):
+            last_img = model.predict_frame_diff(
+                buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos),
+                remat=False if remat else None,  # a rematerialised step keeps its blocks whole
+            )
+            diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
+            diffs = torch.where(step_mask, 0.0, diffs)
+            return buffer[:, W - 1] + diffs, diffs
+
+        next_state, diffs = checkpoint(step, buffer, use_reentrant=False) if remat \
+            else step(buffer)
         buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
         next_states.append(next_state)
         all_diffs.append(diffs)
@@ -85,10 +113,12 @@ def generate(
 
 
 def gen_seq(
-    model: FluidLLM, batch: tuple, pred_steps: int, start_state: int = 1
+    model: FluidLLM, batch: tuple, pred_steps: int, start_state: int = 1, *,
+    grad: bool = False, remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``model.py:218-233``: generate from the first ``start_state`` states
-    and return (states, diffs) as images."""
+    and return (states, diffs) as images; ``grad``/``remat`` as
+    :func:`generate`."""
     states, _, _, bc_mask, position_ids = batch
     seq_len = states.shape[1]
     if pred_steps + start_state - 1 > seq_len:
@@ -97,6 +127,7 @@ def gen_seq(
             f"must be less than total sequence length {seq_len}!"
         )
     all_states, all_diffs = generate(
-        model, states[:, :start_state], bc_mask, position_ids, pred_steps
+        model, states[:, :start_state], bc_mask, position_ids, pred_steps, grad=grad,
+        remat=remat,
     )
     return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)

@@ -23,15 +23,17 @@ Request contract (``POST /v1/rollout``, JSON), as the JAX daemon's:
 
 Response: ``{"states": b64 f32, "shape": [pred, 3, H, W], "latency_s",
 "steps_per_s"}`` -- predictions denormalized to physical units on the
-client's grid (the patch padding cropped).  The rollout runs to the
+client's grid (the patch padding cropped; a ``flip_y`` dataset's frames
+flipped back; a ``trim_patches`` one's served on the model grid, as its
+geometry changed).  The rollout runs to the
 bucket's length and the first ``pred_steps`` come back, so a request's
 output equals the JAX engine's.  ``GET /v1/info`` publishes the geometry,
 ``GET /healthz`` is the liveness probe, ``GET /v1/stats`` reports request
 and error counters, per-program call counts and latency percentiles (last
 1024 requests).  Device work is serialized with a lock (one card).
 
-The airfoil switches (y flip, patch trim, masked normalisation) are not
-ported: the dataset factory refuses those datasets.
+The dataset's airfoil switches (y flip, patch trim, masked normalisation)
+apply to requests as to training windows, and ``/v1/info`` publishes them.
 
     python -m fluid_llm_tpu_torch.tools.serve --checkpoint_dir model_checkpoints \\
         --load_no -1 --port 8474 --buckets 50,251 --quant int8 [--qmm_mode w8a8]
@@ -151,7 +153,8 @@ class RolloutEngine:
         small = np.concatenate([grid_states, grid_states[-1:]], axis=0).astype(np.float32)
         input_states, _, _, bc_mask = window_to_patches(
             torch.from_numpy(small), torch.from_numpy(np.asarray(grid_mask, bool)), ds.means,
-            ds.stds, patch=ds.patch_size, pad_x=self.pad_x, pad_y=self.pad_y)
+            ds.stds, patch=ds.patch_size, pad_x=self.pad_x, pad_y=self.pad_y, flip_y=ds.flip_y,
+            trim=ds.trim_patches, masked_norm=ds.masked_norm)
         pos = position_ids(1, self.nx, self.ny,
                            t_base=start_step if ds.absolute_time else 0,
                            t_step=ds.seq_interval if ds.absolute_time else 1)
@@ -280,11 +283,16 @@ class RolloutEngine:
                         fut.set_exception(e)
 
     def _to_client_grid(self, pred: np.ndarray) -> np.ndarray:
-        """Crop the patch padding and denormalize to physical units."""
+        """Undo the model grid's transforms (y flip; the pad crop, unless
+        trimmed: trim changes the geometry, so the model grid is served) and
+        denormalize to physical units."""
         ds = self.dataset
-        (x0, x1), (y0, y1) = self.pad_x, self.pad_y
-        H, W = pred.shape[-2:]
-        pred = pred[..., x0:H - x1, y0:W - y1]
+        if ds.flip_y:
+            pred = pred[..., ::-1]
+        if not ds.trim_patches:
+            (x0, x1), (y0, y1) = self.pad_x, self.pad_y
+            H, W = pred.shape[-2:]
+            pred = pred[..., x0:H - x1, y0:W - y1]
         means, stds = ds.means.numpy(), ds.stds.numpy()
         return pred * stds[None, :, None, None] + means[None, :, None, None]
 
@@ -332,8 +340,8 @@ class RolloutEngine:
             "absolute_time_ids": ds.absolute_time,
             "means": [float(m) for m in ds.means],
             "stds": [float(s) for s in ds.stds],
-            "trim_patches": False,
-            "flip_y": False,
+            "trim_patches": ds.trim_patches,
+            "flip_y": ds.flip_y,
         }
 
 

@@ -11,8 +11,11 @@ checkpoints on resume and inference.  Here:
 - a checkpoint ``step_N/`` (a folder, as Orbax's) holding ``state.pt``:
   ``{"trainable", "frozen", "optimizer", "epoch"}`` written with
   ``torch.save`` -- the model's parameters split by ``requires_grad`` (the
-  JAX package's trainable/frozen partition), the optimizer's state dict and
-  the epoch; plus ``step_N.epoch`` beside it, as the JAX package writes.
+  JAX package's trainable/frozen partition), the optimizer's state dict
+  (with adafactor its factored moments and step; with
+  ``grad_accum_steps > 1`` also the micro-step and the running mean of the
+  gradients, ``optim.MultiSteps``, so a resume continues mid-accumulation)
+  and the epoch; plus ``step_N.epoch`` beside it, as the JAX package writes.
 
 Restoring reads tensors only (``weights_only=True``).
 """
@@ -63,8 +66,8 @@ def latest_step(save_path: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def save_checkpoint(save_path: str, step: int, model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer, epoch: int, cfg: Config) -> str:
+def save_checkpoint(save_path: str, step: int, model: torch.nn.Module, optimizer, epoch: int,
+                    cfg: Config) -> str:
     path = os.path.abspath(os.path.join(save_path, f"step_{step}"))
     os.makedirs(path, exist_ok=True)
     params = dict(model.named_parameters())
@@ -85,7 +88,7 @@ def save_checkpoint(save_path: str, step: int, model: torch.nn.Module,
 
 
 def restore_checkpoint(save_path: str, step: int, model: torch.nn.Module,
-                       optimizer: Optional[torch.optim.Optimizer] = None) -> int:
+                       optimizer=None) -> int:
     """Load ``step_N`` into ``model`` (every tensor of its state dict, on
     its device) and, if given, ``optimizer``; returns the saved epoch."""
     device = next(model.parameters()).device

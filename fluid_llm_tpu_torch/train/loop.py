@@ -10,9 +10,11 @@ Counterpart of ``fluid_llm_tpu/train/loop.py:36-192`` (``src/main.py:43-172``):
   after the final epoch if the cadence missed it;
 - metrics aggregated as ``process_metrics`` (``src/utils.py:163``).
 
-``cfg.profile_dir`` captures a ``torch.profiler`` trace of the first epoch
-(Chrome trace format).  ``cfg.val_plot_dir`` (matplotlib figures) is not
-ported and raises.
+Training batches are built by ``cfg.num_workers`` threads
+(``data.pipeline.make_batches``).  ``cfg.profile_dir`` captures a
+``torch.profiler`` trace of the first epoch (Chrome trace format);
+``cfg.val_plot_dir`` saves target-vs-prediction figures of the first
+validation batch at each validation (``loop.py:51-80``; matplotlib needed).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data.pipeline import PatchDataset, make_batches
+from fluid_llm_tpu_torch.tools.plotting import save_val_plots
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.optim import set_learning_rate, steplr
 from fluid_llm_tpu_torch.train.trainer import Trainer
@@ -74,8 +77,6 @@ def train_run(
 ) -> int:
     """Train ``cfg.num_epochs`` epochs from ``start_ep``; returns the next
     epoch index."""
-    if cfg.val_plot_dir:
-        raise NotImplementedError("val_plot_dir (matplotlib figures) is not ported")
     device = next(trainer.model.parameters()).device
     lr_schedule = steplr(cfg.learning_rate, cfg.schedule_epoch, cfg.schedule_gamma)
     st = time.time()
@@ -89,7 +90,7 @@ def train_run(
         train_metrics = []
         with _profiler(cfg.profile_dir, device) if profiling else nullcontext():
             for batch in make_batches(train_ds, cfg.batch_size, shuffle=True, seed=epoch,
-                                      device=device):
+                                      device=device, num_workers=cfg.num_workers):
                 # metrics stay on the device; one transfer at the epoch's end
                 train_metrics.append(trainer.train_step(batch, mode))
             train_metrics = _to_host(train_metrics)
@@ -98,10 +99,16 @@ def train_run(
         train_log["lr"] = lr_schedule(epoch)
 
         if epoch_idx % 3 == 0:
-            val_metrics = [trainer.val_step(batch) for batch in
-                           make_batches(valid_ds, cfg.batch_size, shuffle=False, device=device)]
+            val_metrics, first_val = [], None
+            for batch in make_batches(valid_ds, cfg.batch_size, shuffle=False, device=device):
+                first_val = batch if first_val is None else first_val
+                val_metrics.append(trainer.val_step(batch))
             val_log, val_loss, val_nrmse = process_metrics(_to_host(val_metrics), "Gen", "val")
             train_log.update(val_log)
+            if cfg.val_plot_dir and first_val is not None:
+                pred, true = trainer.val_rollout(first_val)
+                save_val_plots(pred[0].cpu().numpy(), true[0].cpu().numpy(), cfg.val_plot_dir,
+                               epoch)
         else:
             val_loss, val_nrmse = 0.0, 0.0
 

@@ -7,12 +7,17 @@ Counterpart of ``fluid_llm_tpu/train/trainer.py:93-242`` (``src/trainer.py``):
 - ``gen`` (``run_gen_train_step``): a no-grad rollout makes guide states,
   the model is trained on single-step corrections from them (the JAX
   package's correction of the reference's off-by-one guide kept);
+- ``notf`` (``run_notf_train_step``): the loss through the whole rollout
+  from the first state, differentiated end to end (``trainer.py:158-168``;
+  the JAX package's correction of the reference's one-step-short rollout
+  kept): every step's window attention through the flash Function, its
+  decoder through ``SlotAttention``; each step rematerialised with
+  ``parallel.remat``.  The rollout draws no dropout, as the JAX one;
 - ``val_step`` (``run_val_step``): a no-grad rollout over the validation
   sequence, losses and N-RMSE.
 
-``notf`` differentiates through the exact rollout, whose attention kernel
-has no backward yet; it raises.  Dropout and noise draw from one
-``torch.Generator`` on the model's device, seeded from ``cfg.seed``.
+Dropout and noise draw from one ``torch.Generator`` on the model's device,
+seeded from ``cfg.seed``.
 """
 
 from __future__ import annotations
@@ -58,8 +63,9 @@ class Trainer:
                                                 position_ids, train=True, generator=gen)
             pred_state = guide_img + pred_diffs
         elif mode == "notf":
-            raise NotImplementedError("notf training differentiates through the exact rollout, "
-                                      "whose attention kernel has no backward yet")
+            rollout, _ = gen_seq(model, batch, states.shape[1], grad=True,
+                                 remat=cfg.parallel.remat)
+            pred_state = rollout[:, 1:]
         else:
             raise ValueError(mode)
 
@@ -82,6 +88,13 @@ class Trainer:
         loss.backward()
         self.opt.step()
         return {k: v.detach() for k, v in metrics.items()}
+
+    def val_rollout(self, batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
+        """Predicted and target image sequences of ``val_step``'s rollout
+        (``trainer.py:233-242``; the figures of ``cfg.val_plot_dir``)."""
+        states = batch[0]
+        pred_states, _ = gen_seq(self.model, batch, states.shape[1])
+        return pred_states[:, :-1], patch_to_img(states, self.model.ds_props)
 
     @torch.no_grad()
     def val_step(self, batch: tuple) -> dict:

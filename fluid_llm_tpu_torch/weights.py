@@ -10,6 +10,9 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
   (``backbone.stack_layers``: ``backbone.layers`` a dict whose leaves lead
   with ``n_layers``) keeps that axis (``…layers.attn.qkv.w`` (n, in, out)
   -> ``…layers.attn.qkv.weight`` (n, out, in)), for a stacked port backbone;
+- a convolution's ``w`` under a ``cnn`` list (the CNN patch encoder's
+  HWIO ``(kh, kw, in, out)``, the CNN decoder's WIO ``(k, in, out)``) ->
+  ``weight`` in torch's ``(out, in, kh, kw)`` / ``(out, in, k)``;
 - ``b`` -> ``bias``; a norm's ``scale`` -> ``weight``;
 - a quantized linear's ``w`` is a dict (``ops/quant.py``): its leaves land
   on the module itself (``ops/quant.QuantLinear``, ``NF4Linear``), the
@@ -61,6 +64,9 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
                 prefix = prefix[:-1]  # the quantized weight's leaves
                 if name == "q":
                     t = t.transpose(-1, -2).contiguous()
+            elif name == "w" and "cnn" in prefix:  # (*spatial, in, out) -> (out, in, *spatial)
+                n = t.dim()
+                name, t = "weight", t.permute(n - 1, n - 2, *range(n - 2)).contiguous()
             elif name == "w":
                 name, t = "weight", t.transpose(-1, -2).contiguous()
             elif name == "b":

@@ -445,6 +445,53 @@ def test_train_steps_on_card(dev, mode):
     assert ran[5] == (6 if mode == "gen" else 0)
 
 
+@pytest.mark.parametrize("remat", [False, True])
+def test_notf_step_on_card(dev, remat):
+    """A ``notf`` step of a small bf16 model (2 layers, hd 64, MLPGNN with 2
+    convs, batch 2, a 4-step rollout differentiated end to end): per rollout
+    step the full layer's flash forward (twice with ``parallel.remat``: the
+    step is recomputed in the backward), dq and dk/dv once, the slot forward
+    at each conv (twice with remat) and its backward once; the exact kernel
+    never.  Loss through the kernels within REL_TOL of the twins', the
+    trainable gradient within 5e-2 relative L2 (four chained bf16 steps)."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import make_batches
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(llm_backbone="gpt2", llm_layers=2, half_precision=True, batch_size=2,
+                 autoreg_seq_len=5, resolution=64, flash_attention=True,
+                 lora_config={"r": 4, "lora_alpha": 16, "use_dora": True},
+                 decoder_params={"type": "MLPGNN", "gnn_dim": 8, "gnn_hid_dim": 16,
+                                 "gnn_layers": 2, "mlp_hid_dim": 32},
+                 encoder_params={"type": "MLP", "num_layers": 2, "hidden_dim": 32},
+                 parallel={"remat": remat})
+    ds = SyntheticCylinderDataset(n_trajectories=2, resolution=64, seq_len=5, mode="valid")
+    model = FluidLLM.build(cfg, ds.ds_props(), d_model=128, n_heads=2, d_ff=256)
+    model.init_weights(torch.Generator().manual_seed(0))
+    trainer = Trainer(model.to(dev))
+    batch = next(make_batches(ds, 2, shuffle=False, device=dev))
+    counters = (fa.flash_forward, fa.flash_dq, fa.flash_dkv, gf.fused_slot_attention,
+                gf.slot_attention_bwd, xa.causal_attention)
+    res = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        before = [fn.launches for fn in counters]
+        loss, _ = trainer.mode_loss(batch, "notf")
+        loss.backward()
+        torch.cuda.synchronize()
+        ran = [fn.launches - b for fn, b in zip(counters, before)]
+        res[kernels] = (loss.item(), torch.cat([p.grad.float().flatten() for p in
+                                                model.parameters() if p.requires_grad]))
+        fwd = 2 if remat else 1
+        assert ran == ([fwd * 4, 4, 4, fwd * 2 * 4, 2 * 4, 0] if kernels else [0] * 6), ran
+    model.kernels = True
+    assert abs(res[True][0] - res[False][0]) <= REL_TOL * abs(res[False][0])
+    assert torch.isfinite(res[True][1]).all() and _rel(res[True][1], res[False][1]) <= 5e-2
+
+
 def _slab_case(dev, state: str, H: int = 12, hd: int = 64, bs: int = 1, R: int = 10,
                n_sink: int = 61, frame: int = 60):
     """A random bf16 slab cache of 3 layers in one streaming state, its

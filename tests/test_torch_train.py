@@ -173,22 +173,13 @@ def test_optimizer_matches_optax(rng, name):
 
 
 def test_unported_options_raise():
+    """What the port still refuses (adafactor, accumulation, notf and
+    ``val_plot_dir`` are ported: ``tests/test_torch_surface.py``)."""
     props = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN).ds_props()
-    model = FluidLLM.build(Config(**NO_DROPOUT), props, **TINY)
-    for kw in ({"optimizer": "adafactor"}, {"grad_accum_steps": 2}):
-        with pytest.raises(NotImplementedError):
-            build_optimizer(Config(**kw), model.parameters())
     with pytest.raises(NotImplementedError):
         FluidLLM.build(Config(**NO_DROPOUT, frozen_bf16=True), props, **TINY)
     with pytest.raises(NotImplementedError):
-        train_run(Config(**NO_DROPOUT, val_plot_dir="plots"), None, None, None)
-    with pytest.raises(NotImplementedError):
         tmain.main(["--distributed"])
-    model.init_weights(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        Trainer(model).mode_loss(next(make_batches(
-            SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN), 1,
-            shuffle=False)), "notf")
 
 
 @pytest.fixture(scope="module")
