@@ -4,7 +4,7 @@ Counterpart of ``fluid_llm_tpu/data/cylinder.py`` (``MGNDataset``,
 ``src/dataloader/simple_dataloader.py:23-229``): each ``.pkl`` holds
 ``{'cells', 'mesh_pos', 'velocity', 'pressure', ...}`` (the format of
 ``max/ds_download/MGN_unload.py:84-99``).  The interpolation constants are
-built once per trajectory and cached (at most ``max_cache`` trajectories);
+built once per trajectory and cached (at most ``MAX_CACHE`` trajectories);
 normalisation uses the exact cylinder constants
 (``simple_dataloader.py:205-210``).
 """
@@ -22,6 +22,7 @@ from fluid_llm_tpu_torch.data.pipeline import PatchDataset, TrajectorySource
 # parity-critical constants (``simple_dataloader.py:205-210``)
 CYLINDER_MEANS = (0.823, 0.0005865, 0.04763)
 CYLINDER_STDS = (0.275, 0.275, 0.275)
+MAX_CACHE = 8  # trajectories whose interpolation is kept
 
 
 def load_pickle_states(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
@@ -45,7 +46,6 @@ class MGNDataset(PatchDataset):
         seq_interval: int = 1,
         mode: str = "train",
         normalize: bool = True,
-        max_cache: int = 8,
         seed: int = 1234,
         absolute_time: bool = False,
     ):
@@ -66,8 +66,6 @@ class MGNDataset(PatchDataset):
         self.save_files = self.list_files(load_dir)
         if not self.save_files:
             raise FileNotFoundError(f"No .pkl trajectories in {load_dir}")
-        self.max_cache = max_cache
-        self._cache: dict[int, TrajectorySource] = {}
 
     @staticmethod
     def list_files(load_dir: str) -> list[str]:
@@ -83,16 +81,14 @@ class MGNDataset(PatchDataset):
         return pos, faces, np.concatenate([vel, press], axis=-1).transpose(0, 2, 1)
 
     def get_trajectory(self, idx: int) -> TrajectorySource:
-        with self._cache_lock:
-            if idx not in self._cache:
-                if len(self._cache) >= self.max_cache:
-                    self._cache.pop(next(iter(self._cache)))
-                pos, faces, states = self.mesh_and_states(idx)
-                interp = get_mesh_interpolation(pos, faces, self.resolution)
-                self._cache[idx] = TrajectorySource(
-                    vert_idx=interp.vert_idx,
-                    weights=interp.weights,
-                    mask=interp.mask,
-                    node_states=np.ascontiguousarray(states),
-                )
-            return self._cache[idx]
+        return self.cached_trajectory(idx, self._build, MAX_CACHE)
+
+    def _build(self, idx: int) -> TrajectorySource:
+        pos, faces, states = self.mesh_and_states(idx)
+        interp = get_mesh_interpolation(pos, faces, self.resolution)
+        return TrajectorySource(
+            vert_idx=interp.vert_idx,
+            weights=interp.weights,
+            mask=interp.mask,
+            node_states=np.ascontiguousarray(states),
+        )

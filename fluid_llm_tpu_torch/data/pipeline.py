@@ -17,9 +17,9 @@ patch-count probe.
 from __future__ import annotations
 
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Iterator, Optional, Sequence
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -27,6 +27,10 @@ import torch
 from fluid_llm_tpu_torch.core.interp import resample_to_grid
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.ops.patching import num_patches
+
+# batches staged ahead of the consumer by the threaded ``make_batches``: the
+# reference's ``prefetch_factor`` (``src/utils_model.py:34-39``)
+PREFETCH = 2
 
 
 def pad_amounts(h: int, w: int, patch: tuple[int, int]) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -154,13 +158,38 @@ class PatchDataset:
         self.stds = torch.tensor(stds if normalize else (1.0,) * 3, dtype=torch.float32)
         self._rng = np.random.default_rng(seed)
         self._geom: Optional[tuple] = None  # (pad_x, pad_y, Nx, Ny), probed lazily
-        self._cache_lock = threading.Lock()  # trajectory caches, shared by make_batches' threads
+        self._cache: dict[int, Future] = {}  # trajectory idx -> its TrajectorySource
+        self._cache_lock = threading.Lock()  # guards ``_cache``; held for no build
 
     def num_trajectories(self) -> int:
         raise NotImplementedError
 
     def get_trajectory(self, idx: int) -> TrajectorySource:
         raise NotImplementedError
+
+    def cached_trajectory(self, idx: int, build: Callable[[int], TrajectorySource],
+                          limit: Optional[int] = None) -> TrajectorySource:
+        """``build(idx)``, once per trajectory while it stays cached; at most
+        ``limit`` trajectories are kept (None: all), the oldest evicted
+        first.  The lock covers only the lookup, the eviction and the insert:
+        ``make_batches``' threads build different trajectories side by side,
+        and a thread asking for one in construction waits for that build."""
+        with self._cache_lock:
+            fut = self._cache.get(idx)
+            owner = fut is None
+            if owner:
+                if limit is not None and len(self._cache) >= limit:
+                    self._cache.pop(next(iter(self._cache)))
+                fut = self._cache[idx] = Future()
+        if owner:
+            try:
+                fut.set_result(build(idx))
+            except BaseException as e:
+                with self._cache_lock:
+                    if self._cache.get(idx) is fut:
+                        del self._cache[idx]
+                fut.set_exception(e)
+        return fut.result()
 
     def _probe(self):
         if self._geom is None:
@@ -242,16 +271,15 @@ def make_batches(
     drop_last: bool = False,
     device: torch.device | str = "cpu",
     num_workers: int = 0,
-    prefetch: int = 2,
 ) -> Iterator[tuple]:
     """Stacks ``dataset`` samples into batches and moves each to ``device``.
 
     ``dataset`` needs ``len`` and integer indexing.  ``num_workers > 0``:
-    worker threads build the samples (resample and patchify release the
-    GIL) and ``prefetch`` batches are staged ahead of the consumer, as the
-    reference's ``DataLoader(num_workers=6, prefetch_factor=2)``
-    (``src/utils_model.py:34-39``).  A :class:`PatchDataset`'s window starts
-    are drawn on the calling thread, batch by batch in order
+    worker threads build the batches, ``PREFETCH`` of them in flight ahead of
+    the consumer, as the JAX package's (the reference's
+    ``DataLoader(num_workers=6, prefetch_factor=2)``,
+    ``src/utils_model.py:34-39``, runs processes).  A :class:`PatchDataset`'s
+    window starts are drawn on the calling thread, batch by batch in order
     (``draw_step``), so threaded batches equal serial ones bit for bit.
     """
     order = np.arange(len(dataset))
@@ -274,8 +302,8 @@ def make_batches(
             yield tuple(t.to(device) for t in build(plan(chunk)))
         return
     with ThreadPoolExecutor(max_workers=num_workers) as pool:
-        pending = [pool.submit(build, plan(c)) for c in chunks[:max(1, prefetch)]]
-        rest = iter(chunks[max(1, prefetch):])
+        pending = [pool.submit(build, plan(c)) for c in chunks[:PREFETCH]]
+        rest = iter(chunks[PREFETCH:])
         while pending:
             batch = pending.pop(0).result()
             chunk = next(rest, None)

@@ -166,21 +166,20 @@ class SyntheticCylinderDataset(PatchDataset):
         self.max_steps = max_steps
         # distinct trajectories per split (train/valid/test don't overlap)
         self.base_seed = seed + {"train": 0, "valid": 10_000, "test": 20_000}[mode]
-        self._cache: dict[int, TrajectorySource] = {}
 
     def num_trajectories(self) -> int:
         return self.n_trajectories
 
     def get_trajectory(self, idx: int) -> TrajectorySource:
-        with self._cache_lock:
-            if idx not in self._cache:
-                pos, faces = make_cylinder_mesh(self.base_seed + idx, *self.mesh_nodes)
-                interp = get_mesh_interpolation(pos, faces, self.resolution)
-                states = analytic_flow(pos, self.max_steps, self.base_seed + idx)
-                self._cache[idx] = TrajectorySource(
-                    vert_idx=interp.vert_idx,
-                    weights=interp.weights,
-                    mask=interp.mask,
-                    node_states=states,
-                )
-            return self._cache[idx]
+        return self.cached_trajectory(idx, self._build)
+
+    def _build(self, idx: int) -> TrajectorySource:
+        pos, faces = make_cylinder_mesh(self.base_seed + idx, *self.mesh_nodes)
+        interp = get_mesh_interpolation(pos, faces, self.resolution)
+        states = analytic_flow(pos, self.max_steps, self.base_seed + idx)
+        return TrajectorySource(
+            vert_idx=interp.vert_idx,
+            weights=interp.weights,
+            mask=interp.mask,
+            node_states=states,
+        )

@@ -36,14 +36,23 @@ def steplr(base_lr: float, step_size: int, gamma: float):
     return schedule
 
 
-def factored_dims(shape: torch.Size, min_dim: int) -> Optional[tuple[int, int]]:
+# optax ``adafactor``'s defaults
+DECAY_RATE = 0.8  # second-moment decay 1 - (t+1)^-0.8
+EPS = 1e-30  # added to g^2
+MIN_DIM_SIZE_TO_FACTOR = 128
+CLIPPING_THRESHOLD = 1.0  # block RMS of the update
+MIN_SCALE = 1e-3  # floor of the parameter's block RMS
+
+
+def factored_dims(shape: torch.Size) -> Optional[tuple[int, int]]:
     """The two largest axes (second largest, largest) when the second is at
-    least ``min_dim`` long, else None (optax ``_factored_dims``: numpy's
-    argsort order, so ties go to the earlier axis first)."""
+    least ``MIN_DIM_SIZE_TO_FACTOR`` long, else None (optax
+    ``_factored_dims``: numpy's argsort order, so ties go to the earlier
+    axis first)."""
     if len(shape) < 2:
         return None
     order = sorted(range(len(shape)), key=lambda i: (shape[i], i))
-    if shape[order[-2]] < min_dim:
+    if shape[order[-2]] < MIN_DIM_SIZE_TO_FACTOR:
         return None
     return order[-2], order[-1]
 
@@ -61,14 +70,8 @@ class Adafactor(torch.optim.Optimizer):
       after the learning rate, as optax chains it.
     """
 
-    def __init__(self, params, lr: float, weight_decay_rate: Optional[float] = None,
-                 decay_rate: float = 0.8, eps: float = 1e-30, min_dim_size_to_factor: int = 128,
-                 clipping_threshold: float = 1.0, min_scale: float = 1e-3):
-        super().__init__(params, dict(lr=lr, weight_decay_rate=weight_decay_rate,
-                                      decay_rate=decay_rate, eps=eps,
-                                      min_dim_size_to_factor=min_dim_size_to_factor,
-                                      clipping_threshold=clipping_threshold,
-                                      min_scale=min_scale))
+    def __init__(self, params, lr: float, weight_decay_rate: Optional[float] = None):
+        super().__init__(params, dict(lr=lr, weight_decay_rate=weight_decay_rate))
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -77,7 +80,7 @@ class Adafactor(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g, state = p.grad, self.state[p]
-                dims = factored_dims(p.shape, group["min_dim_size_to_factor"])
+                dims = factored_dims(p.shape)
                 if not state:
                     state["step"] = torch.zeros((), dtype=torch.int64)
                     if dims is None:
@@ -86,9 +89,9 @@ class Adafactor(torch.optim.Optimizer):
                         state["v_row"] = torch.zeros_like(p.sum(dim=dims[1]))
                         state["v_col"] = torch.zeros_like(p.sum(dim=dims[0]))
                 t = float(state["step"]) + 1.0
-                decay = 1.0 - torch.tensor(t, dtype=torch.float32) ** -group["decay_rate"]
+                decay = 1.0 - torch.tensor(t, dtype=torch.float32) ** -DECAY_RATE
                 decay = decay.to(p.device)
-                g2 = g * g + group["eps"]
+                g2 = g * g + EPS
                 if dims is None:
                     v = decay * state["v"] + (1.0 - decay) * g2
                     state["v"] = v
@@ -102,10 +105,9 @@ class Adafactor(torch.optim.Optimizer):
                     row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
                     u = g * row_factor.unsqueeze(d0) * v_col.unsqueeze(d1) ** -0.5
                 state["step"] += 1
-                u = u / torch.clamp(u.square().mean().sqrt() / group["clipping_threshold"],
-                                    min=1.0)
+                u = u / torch.clamp(u.square().mean().sqrt() / CLIPPING_THRESHOLD, min=1.0)
                 u = u * group["lr"]
-                u = u * torch.clamp(p.square().mean().sqrt(), min=group["min_scale"])
+                u = u * torch.clamp(p.square().mean().sqrt(), min=MIN_SCALE)
                 if group["weight_decay_rate"] is not None:
                     u = u + group["weight_decay_rate"] * p
                 p.sub_(u)

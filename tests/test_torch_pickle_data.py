@@ -34,7 +34,9 @@ from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.core.interp import resample_to_grid
 from fluid_llm_tpu_torch.data import get_dataset, make_batches
 from fluid_llm_tpu_torch.data.airfoil import AirfoilDataset, crop_mesh, natural_key
+from fluid_llm_tpu_torch.data import cylinder
 from fluid_llm_tpu_torch.data.cylinder import MGNDataset
+from fluid_llm_tpu_torch.data.pipeline import PatchDataset
 from fluid_llm_tpu_torch.data.synthetic import analytic_flow, make_cylinder_mesh
 from fluid_llm_tpu_torch.tools import serve as srv
 
@@ -172,7 +174,7 @@ def test_threaded_batches_equal_serial(pickles):
     runs = {}
     for workers in (0, 3):
         runs[workers] = list(make_batches(MGNDataset(folder, **kw), 2, shuffle=True, seed=4,
-                                          num_workers=workers, prefetch=2))
+                                          num_workers=workers))
     assert len(runs[0]) == len(runs[3]) == 3
     for b0, b3 in zip(runs[0], runs[3]):
         for a, b in zip(b0, b3):
@@ -181,6 +183,89 @@ def test_threaded_batches_equal_serial(pickles):
     for b0, jb in zip(runs[0], jbatches):
         for a, b in zip(b0, jb):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-6)
+
+
+def test_threaded_batches_equal_serial_when_the_cache_evicts(pickles, monkeypatch):
+    """With a cache of 2 trajectories for 5, most samples rebuild theirs
+    (evicted meanwhile, or in construction on another thread); batches from
+    4 threads still equal the serial ones bit for bit."""
+    monkeypatch.setattr(cylinder, "MAX_CACHE", 2)
+    folder = str(pickles / "cylinder_dataset" / "train")
+    kw = dict(resolution=64, seq_len=4, mode="train")
+    serial, threaded = (list(make_batches(MGNDataset(folder, **kw), 1, shuffle=True, seed=9,
+                                          num_workers=w)) for w in (0, 4))
+    assert len(serial) == len(threaded) == 5
+    for b0, b4 in zip(serial, threaded):
+        for a, b in zip(b0, b4):
+            assert torch.equal(a, b)
+
+
+class _Stub(PatchDataset):
+    """A dataset whose trajectories are built by ``build``."""
+
+    def __init__(self, build, limit=None):
+        super().__init__(resolution=8, patch_size=(4, 4), seq_len=2)
+        self.build, self.limit, self.built = build, limit, []
+
+    def get_trajectory(self, idx):
+        return self.cached_trajectory(idx, self._count, self.limit)
+
+    def _count(self, idx):
+        self.built.append(idx)
+        return self.build(idx)
+
+
+def test_trajectory_cache_builds_side_by_side_and_once():
+    """The cache's lock is not held while a trajectory is built: two threads
+    building two trajectories meet inside their builds (a barrier of 2 that
+    would time out if one waited for the other); a trajectory asked for by
+    four threads at once is built once and all get the same object; a
+    build that raises is not cached; at most ``limit`` are kept, the oldest
+    evicted first."""
+    from concurrent.futures import ThreadPoolExecutor
+    import threading
+
+    barrier = threading.Barrier(2, timeout=10)
+
+    def meet(idx):
+        barrier.wait()
+        return ("traj", idx)
+
+    ds = _Stub(meet)
+    with ThreadPoolExecutor(2) as pool:
+        assert list(pool.map(ds.get_trajectory, [0, 1])) == [("traj", 0), ("traj", 1)]
+
+    gate = threading.Event()
+
+    def slow(idx):
+        gate.wait(10)
+        return object()
+
+    ds = _Stub(slow)
+    with ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(ds.get_trajectory, 3) for _ in range(4)]
+        gate.set()
+        got = [f.result() for f in futures]
+    assert ds.built == [3] and all(g is got[0] for g in got)
+
+    calls = []
+
+    def flaky(idx):
+        calls.append(idx)
+        if len(calls) == 1:
+            raise OSError("unreadable")
+        return ("traj", idx)
+
+    ds = _Stub(flaky)
+    with pytest.raises(OSError):
+        ds.get_trajectory(5)
+    assert ds.get_trajectory(5) == ("traj", 5) and calls == [5, 5]
+
+    ds = _Stub(lambda idx: ("traj", idx), limit=3)
+    for idx in (0, 1, 2, 3, 2, 0):
+        ds.get_trajectory(idx)
+    assert ds.built == [0, 1, 2, 3, 0]  # 0 evicted by 3, 2 still kept, 1 evicted by 0
+    assert sorted(ds._cache) == [0, 2, 3]
 
 
 def test_serial_valid_batches_match_jax(pickles, numpy_locator):
