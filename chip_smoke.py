@@ -58,7 +58,13 @@ Phases, each printing one line per result; any failure exits nonzero:
                tables ``indexed_linear.plan``, ``quant_matmul.plan``,
                ``quant_matmul.w8a8_plan``, ``short_attention.plan``,
                ``grid_gnn_fused.fwd_plan`` and ``segment_ops.gather_plan``
-               are read from;
+               are read from.  The segment kernels also run at GraphViT's
+               shapes (by the unsorted member ids of one collated batch at
+               the EAGLE geometry: gathers at F 2, 64, 128 and 512, sums at
+               F 32, 128 and 512) and in bf16 (MeshGraphNet's F 128 by the
+               senders, GraphViT's F 512 by member: the sum equal bit for
+               bit to the CSR walk in f32 rounded once, the gather to its
+               twin);
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -185,11 +191,30 @@ Phases, each printing one line per result; any failure exits nonzero:
                the training forward, 3 a step in the validation rollout),
                the CNN encoder and decoder, adafactor, and
                ``grad_accum_steps: 2`` (parameters unchanged after the first
-               micro-batch, changed after the second).  Each of 17-19
-               prints its seconds.
+               micro-batch, changed after the second);
+20. graph baselines II -- at phase 13's geometry (synthetic 84x42 mesh,
+               batch 4, 4 trajectories a split): GraphViT as published
+               (w_size 512, clusters of 10, 4 heads) through
+               ``baselines_cli.main`` for 2 epochs of one step, validation,
+               the 51-step eval of 4 test trajectories, then ``--epoch 0``
+               from its checkpoint (the same N-RMSE); segment launches equal
+               to the count from the code (``graph_launches_per_step``); on
+               one batch step ms through the kernels and the twins in turns,
+               the device profile, one step kernels vs twins (f32,
+               GRAPH_LOSS_TOL, GRAPH_GRAD_TOL).  ``--dtype bf16`` for
+               MeshGraphNet and GraphViT, 1 epoch each (bf16 launches
+               counted and nonzero), one step of each kernels vs twins
+               (BF16_GRAPH_LOSS_TOL, BF16_GRAPH_GRAD_TOL), MeshGraphNet's
+               step ms in bf16 and f32 in turns with the bf16 losses
+               falling, and the device profile of each; DilResNet
+               through ``baselines_cli`` on synthetic cylinder grids at
+               238x238 (1 epoch, the 101-step eval, finite N-RMSE, its
+               step ms); GATNet one forward and backward
+               at the EAGLE edges, kernels vs twins.  Each of 17-20 prints
+               its seconds.
 
-Phases 8 to 13 share one temporary folder, removed at the end, and phases
-17 and 18 another.  Phases 14
+Phases 8 to 13 share one temporary folder, removed at the end, phases
+17 and 18 another, and phase 20 a third.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
@@ -197,7 +222,8 @@ the run then exits 1 without a result.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 ``nvidia-smi`` name and power limit; before that one JSON line of kernel
-results.
+results: the thirteen kernels, and the segment sum and gather in bf16 with
+their launches from phase 20's two ``--dtype bf16`` runs.
 """
 
 from __future__ import annotations
@@ -1153,6 +1179,9 @@ def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
 EAGLE_MESH, EAGLE_BS, EAGLE_BLOCKS = "84x42", 4, 15
 # f32 sums in another order than the twin's atomics (observed: a few 1e-8)
 SEGMENT_REL_TOL = 1e-6
+# bf16: the same f32 sums rounded once, so an element may round the other
+# way from the twin's (2^-8 relative at most, on one element in 2^16)
+BF16_SEGMENT_REL_TOL = 1e-4
 # (kernel, edge column, F, on MeshGraphNet's path): MGN sums edge rows into
 # the senders (forward) and into the receivers (backward of the receivers
 # gather) at F 128 and gathers node rows (F 128) and positions (F 2); GAT
@@ -1180,54 +1209,118 @@ def eagle_edges(dev) -> torch.Tensor:
     return torch.from_numpy(batch["edges"][:, 0]).to(dev)
 
 
+# (kernel, F, on the main path) by GraphViT's member ids: positions (F 2),
+# node features (F 128) and the encoding (F 64) gathered by member, the
+# tokens' gradient (F w_size 512) gathered back; the relative encoding (F
+# 32) and the tokens (F 512) summed into members, the node features'
+# gradient (F 128) summed back.  bf16 (``--dtype bf16``): MeshGraphNet's F
+# 128 by its senders, GraphViT's F 512 by member.
+GRAPHVIT_SEGMENT_CASES = [
+    ("segment_gather", 2, True), ("segment_gather", 64, True), ("segment_gather", 128, True),
+    ("segment_gather", 512, True), ("segment_sum", 32, True), ("segment_sum", 128, True),
+    ("segment_sum", 512, True),
+]
+BF16_SEGMENT_CASES = [("segment_sum_bf16", "edges", 128), ("segment_gather_bf16", "edges", 128),
+                      ("segment_sum_bf16", "members", 512),
+                      ("segment_gather_bf16", "members", 512)]
+
+
+def graphvit_members(dev):
+    """The member index of one collated GraphViT batch at the EAGLE geometry
+    (synthetic 84x42 mesh, batch 4, clusters of 10: 384 cluster slots of 10
+    a graph after the collate's padding), RCM-relabeled as ``baselines_cli``
+    does in f32: unsorted ids, ghost slots dropped."""
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.reorder import reorder_sample
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+    from fluid_llm_tpu_torch.models.baselines.graphvit import member_index
+
+    ds = SyntheticGraphDataset(n_trajectories=EAGLE_BS, mode="train", window_length=2,
+                               mesh_nodes=tuple(int(v) for v in EAGLE_MESH.split("x")),
+                               n_cluster=10)
+    samples = [reorder_sample(ds[i], "rcm") for i in range(EAGLE_BS)]
+    b = collate_graphs(samples, max(s.mesh_pos.shape[1] for s in samples),
+                       max(s.edges.shape[0] for s in samples),
+                       max(s.cluster.shape[1] for s in samples), ghost_type_value=2)
+    return member_index(torch.from_numpy(b["cluster"][:, 0]).to(dev),
+                        torch.from_numpy(b["cluster_mask"][:, 0]).to(dev), b["mesh_pos"].shape[2])
+
+
+def _segment_row(kernel: str, x: torch.Tensor, index, main: bool, by: str) -> dict:
+    """One segment kernel against its twins on ``x`` (edge rows for a sum,
+    node rows for a gather): relative and largest error against the plain
+    twin, bit equality with the CSR walk (a sum: f32 sums in the kernel's
+    order, bf16 rounded once) or the twin (a gather), a repeat, and device
+    times beside the bound (bytes once over 3.35 TB/s; the sum's adds in
+    f32) and the library call
+    (``index_add`` into one extra row for dropped ids, ``index_select`` of
+    the ids clamped at 0)."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    fn = getattr(so, kernel)
+    ids = index.ids.long()
+    rows = torch.where(ids >= 0, ids, index.n_rows)
+    geometry = None
+    if kernel.startswith("segment_sum"):
+        twin = so.segment_sum_ref
+        zeros = torch.zeros(index.n_rows + 1, x.shape[1], dtype=x.dtype, device=x.device)
+        library = lambda: torch.index_add(zeros, 0, rows, x)  # noqa: E731
+        n_out, ops = index.n_rows * x.shape[1], x.numel()
+    else:
+        twin = so.gather_ref
+        clamped = ids.clamp(min=0)
+        library = lambda: torch.index_select(x, 0, clamped)  # noqa: E731
+        n_out, ops = ids.shape[0] * x.shape[1], 0
+        vec = so.gather_vec(x.shape[1], x, x)
+        depth, warps, blocks = so.gather_plan(ids.shape[0], x.shape[1], vec)
+        geometry = (f"{blocks} blocks of {warps} warps, {depth} loads a lane in flight, "
+                    f"{x.element_size() * vec}-byte vectors")
+    out, ref = fn(x, index), twin(x, index)
+    again, twin_again = fn(x, index), twin(x, index)
+    torch.cuda.synchronize()
+    if geometry is not None:
+        exact, exact_to = bool(torch.equal(out, ref)), "the twin"
+    else:  # IEEE f32 adds, one at a time: the same bits on any device
+        exact, exact_to = bool(torch.equal(out, so.csr_walk(x, index))), "the CSR walk"
+    return dict(
+        kernel=kernel, shape=f"{'edges' if geometry is None else 'nodes'} {tuple(x.shape)} "
+        f"{x.dtype} by {by} -> {tuple(out.shape)}", main_path=main,
+        rel=rel_err(out.float(), ref.float()), rel_tol=SEGMENT_REL_TOL if x.dtype == torch.float32
+        else BF16_SEGMENT_REL_TOL,
+        max_abs_err=(out.float() - ref.float()).abs().max().item(),
+        exact=exact, exact_to=exact_to, deterministic=bool(torch.equal(again, out)),
+        twin_deterministic=bool(torch.equal(twin_again, ref)),
+        ms=device_ms(lambda: fn(x, index)), plain_ms=device_ms(lambda: twin(x, index)),
+        library_ms=device_ms(library), geometry=geometry,
+        **bound(nbytes(x, index.ids) + x.element_size() * n_out, ops, "f32"),
+    )
+
+
 def _segment_rows(dev, g: torch.Generator) -> list[dict]:
     """The segment sum and row gather against their twins at MeshGraphNet's
-    and GAT's shapes; the library calls are ``index_add`` and
-    ``index_select`` on the same ids (all in range here)."""
+    and GAT's shapes (edge ids), GraphViT's (member ids) and in bf16."""
     from fluid_llm_tpu_torch.ops import segment_ops as so
 
     edges = eagle_edges(dev)
-    B, E = edges.shape[:2]
     n = int(edges.max()) + 1  # the ghost slot is the last node row
+    by_edges = [so.SegmentIndex(edges[..., col], n) for col in (0, 1)]
+    members = graphvit_members(dev)
     rows = []
     for kernel, col, F, main in SEGMENT_CASES:
-        index = so.SegmentIndex(edges[..., col], n)
-        index.csr()
-        ids = index.ids.long()
-        walk = None
-        if kernel == "segment_sum":
-            x = torch.randn(B * E, F, generator=g).to(dev)
-            zeros = torch.zeros(index.n_rows, F, device=dev)
-            fn, twin = (lambda: so.segment_sum(x, index)), (lambda: so.segment_sum_ref(x, index))
-            library = lambda: torch.index_add(zeros, 0, ids, x)  # noqa: E731
-            n_out, ops = index.n_rows * F, x.numel()
-        else:
-            x = torch.randn(B * n, F, generator=g).to(dev)
-            fn, twin = (lambda: so.segment_gather(x, index)), (lambda: so.gather_ref(x, index))
-            library = lambda: torch.index_select(x, 0, ids)  # noqa: E731
-            n_out, ops = B * E * F, 0
-            vec = so.gather_vec(F, x, x)
-            depth, warps, blocks = so.gather_plan(B * E, F, vec)
-            geometry = (f"{blocks} blocks of {warps} warps, {depth} loads a lane in flight, "
-                        f"{4 * vec}-byte vectors")
-        out, ref = fn(), twin()
-        again, twin_again = fn(), twin()
-        torch.cuda.synchronize()
-        if kernel == "segment_sum":  # the kernel's order of additions, on the CPU
-            walk = so.csr_walk(x.cpu(), so.SegmentIndex(edges[..., col].cpu(), n))
-        rows.append(dict(
-            kernel=kernel, shape=f"{'edges' if kernel == 'segment_sum' else 'nodes'} "
-            f"{tuple(x.shape)} by edges[..., {col}] -> {tuple(out.shape)}", main_path=main,
-            rel=rel_err(out, ref), rel_tol=SEGMENT_REL_TOL,
-            max_abs_err=(out - ref).abs().max().item(),
-            exact=bool(torch.equal(out, ref) if walk is None else torch.equal(out.cpu(), walk)),
-            exact_to="the twin" if walk is None else "the CPU CSR walk",
-            deterministic=bool(torch.equal(again, out)),
-            twin_deterministic=bool(torch.equal(twin_again, ref)),
-            ms=device_ms(fn), plain_ms=device_ms(twin), library_ms=device_ms(library),
-            geometry=None if kernel == "segment_sum" else geometry,
-            **bound(nbytes(x, index.ids) + 4 * n_out, ops, "f32"),
-        ))
+        index = by_edges[col]
+        rows_in = index.ids.shape[0] if kernel == "segment_sum" else index.n_rows
+        x = torch.randn(rows_in, F, generator=g).to(dev)
+        rows.append(_segment_row(kernel, x, index, main, f"edges[..., {col}]"))
+    for kernel, F, main in GRAPHVIT_SEGMENT_CASES:
+        rows_in = members.ids.shape[0] if kernel == "segment_sum" else members.n_rows
+        x = torch.randn(rows_in, F, generator=g).to(dev)
+        rows.append(_segment_row(kernel, x, members, main, "cluster members"))
+    for kernel, by, F in BF16_SEGMENT_CASES:
+        index = by_edges[0] if by == "edges" else members
+        rows_in = index.ids.shape[0] if kernel == "segment_sum_bf16" else index.n_rows
+        x = torch.randn(rows_in, F, generator=g).to(dev, torch.bfloat16)
+        rows.append(_segment_row(kernel, x, index, True,
+                                 "edges[..., 0]" if by == "edges" else "cluster members"))
     return rows
 
 
@@ -1251,6 +1344,7 @@ def _counters():
             "flash_attention_dkv": fa.flash_dkv, "slab_decode_attention": da.slab_decode,
             "quant_matmul_w8a8": qmm.qmm_w8a8, "quant_matmul_w8a16": qmm.qmm_w8a16,
             "segment_sum": so.segment_sum, "segment_gather": so.segment_gather,
+            "segment_sum_bf16": so.segment_sum_bf16, "segment_gather_bf16": so.segment_gather_bf16,
             "indexed_linear": il.indexed_linear, "short_attention": sa.short_attention_fwd}
 
 
@@ -1898,14 +1992,44 @@ def phase_serve_exact(dev, failures: list, runs: str) -> dict:
                              idle_share=idle, top_device_ms=top))
 
 
-# per rollout step of a window: (gathers, sums) forward, and what the
-# backward adds (each gather of the blocks' node rows is summed back, each
-# sum gathered back; the mesh-position gathers take no gradient)
-def graph_launches_per_step(model: str, n_processor: int, n_heads: int):
-    P, HP = n_processor, n_heads * n_processor
-    if model == "mgn":  # 2 position gathers; senders, receivers, one sum a block
-        return (2 + 2 * P, P), (P, 2 * P)
-    return (2 + 2 * HP, 2 * HP), (2 * HP, 2 * HP)  # GAT: per head of each block
+def graph_launches_per_step(model: str, n_processor: int = 15, n_heads: int = 4,
+                            dtype: str = "f32", nb_gn: int = 4) -> dict:
+    """Segment launches of one rollout step of a window: kernel -> (forward,
+    what the backward adds).  MeshGraphNet gathers positions at both edge
+    ends, then in each block senders and receivers and sums once; GAT does
+    both gathers and two sums (the weighted rows and the weights) per head
+    of each block.  GraphViT gathers positions at both edge ends and by
+    cluster member and sums the relative encoding into members (f32 under
+    every dtype); its nb_gn encoder blocks and the retrieve block gather
+    twice and sum once each, the pooling gathers node features and the
+    encoding by member, and the tokens are summed into members.  The
+    backward sums each gather of node features and gathers back each sum of
+    edge features or tokens; the positions and the encoding take no
+    gradient.  Under ``--dtype bf16`` all but the position and encoding
+    calls run the bf16 kernels."""
+    P, HP, blocks = n_processor, n_heads * n_processor, nb_gn + 1
+    if model == "mgn":
+        pos, fwd, bwd = (2, 0), (2 * P, P), (P, 2 * P)
+    elif model == "gat":
+        pos, fwd, bwd = (2, 0), (2 * HP, 2 * HP), (2 * HP, 2 * HP)
+    else:
+        pos, fwd, bwd = (3, 1), (2 * blocks + 2, blocks + 1), (blocks + 1, 2 * blocks + 1)
+    net = "_bf16" if dtype == "bf16" else ""
+    out = {"segment_gather": [pos[0], 0], "segment_sum": [pos[1], 0]}
+    for kernel, f, b in (("segment_gather", fwd[0], bwd[0]), ("segment_sum", fwd[1], bwd[1])):
+        counts = out.setdefault(kernel + net, [0, 0])
+        counts[0] += f
+        counts[1] += b
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def want_launches(launches: dict, per_step: dict, train_steps: int, fwd_steps: int) -> dict:
+    """Every kernel 0 but the segment kernels: ``train_steps`` rollout steps
+    forward and backward, ``fwd_steps`` forward only."""
+    want = dict.fromkeys(launches, 0)
+    for k, (f, b) in per_step.items():
+        want[k] = train_steps * (f + b) + fwd_steps * f
+    return want
 
 
 # One f32 MeshGraphNet step, kernels vs twins: the loss within 1e-5; the
@@ -1913,12 +2037,120 @@ def graph_launches_per_step(model: str, n_processor: int, n_heads: int):
 # another order each run, which moves the forward's last bits and with
 # them ReLUs whose pre-activation lies within rounding of 0: two runs of
 # the twins themselves differed by up to 1.7e-4 (H100), the kernels and
-# the twins by 2.5e-5 - 8.8e-5.  The kernels repeat bit for bit.
+# the twins by 2.5e-5 - 8.8e-5.  The kernels repeat bit for bit.  GraphViT
+# is held to the same bounds.
 GRAPH_LOSS_TOL, GRAPH_GRAD_TOL = 1e-5, 1e-3
+# Under --dtype bf16 the twins' last-bit moves are rounded to bf16 where
+# they cross a rounding boundary (2^-8 relative at that element), and
+# carried through the window from there.
+BF16_GRAPH_LOSS_TOL, BF16_GRAPH_GRAD_TOL = 1e-2, 5e-2
 
 
 def _nonzero(launches: dict) -> dict:
     return {k: v for k, v in launches.items() if v}
+
+
+def run_graph_cli(argv: list, tag: str, failures: list) -> dict:
+    """``baselines_cli.main(argv)`` with the launch counters read around it:
+    the segment launches must equal the count from the code (graph models),
+    every other kernel 0; the checkpoint and a CSV row a step written; the
+    N-RMSE and losses finite."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+
+    args = cli.parse_args(argv)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    if args.model == "dilresnet":
+        per_step, want = {}, dict.fromkeys(launches, 0)
+    else:
+        per_step = graph_launches_per_step(args.model, args.n_processor, args.n_heads,
+                                           args.dtype)
+        val = math.ceil(args.n_traj / args.batch_size) * args.epoch * (args.horizon_val - 1)
+        want = want_launches(launches, per_step, out["train_steps"] * (args.horizon_train - 1),
+                             val + out["n_test"] * (args.horizon_eval - 1))
+    with open(out["csv"]) as f:
+        csv_rows = f.read().splitlines()
+    n_rmse = out["n_rmse"]
+    losses = out.get("val_loss", []) + out["train_loss"]
+    ok = (launches == want and os.path.exists(out["checkpoint"])
+          and len(csv_rows) == args.horizon_eval + 1 and n_rmse.shape == (args.horizon_eval,)
+          and bool(torch.isfinite(torch.from_numpy(n_rmse)).all())
+          and all(math.isfinite(x) for x in losses))
+    eval_rate = out["eval_steps"] / out["eval_s"]
+    print(f"[{tag}] baselines_cli {' '.join(argv[:argv.index('--device')])} in {wall:.1f} s: "
+          f"{out['train_steps']} train steps (loss {out['train_loss']}; epochs "
+          f"{', '.join(f'{x:.2f}' for x in out['epoch_s'])} s), val loss "
+          f"{out.get('val_loss')}; eval of {out['n_test']} trajectories x "
+          f"{args.horizon_eval - 1} steps at {eval_rate:.1f} steps/s, N-RMSE mean "
+          f"{float(n_rmse.mean()):.5f}{', probes ' + str(out['probes']) if 'probes' in out else ''}"
+          f", CSV {len(csv_rows) - 1} rows; peak device memory {peak_mib:.1f} MiB; launches "
+          f"{_nonzero(launches)} (want {_nonzero(want)}, every other kernel 0: per rollout step "
+          f"(forward, backward) {per_step}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{tag} {argv[:4]}: launches {launches} (want {want}), summary {out}")
+    return dict(wall_s=wall, peak_mem_mib=peak_mib, launches=launches, want=want,
+                eval_steps_per_s=eval_rate, mean_n_rmse=float(n_rmse.mean()),
+                n_rmse=[float(x) for x in n_rmse],
+                **{k: v for k, v in out.items() if k != "n_rmse"})
+
+
+def one_batch(args, dev):
+    """The model of ``args`` (seed 1, as the CLI draws it), its normalizer
+    state and the first training batch of its dataset on ``dev``."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+    from fluid_llm_tpu_torch.data.eagle_mesh import iterate_graph_batches
+
+    model, norm = cli.build_model(args, dev)
+    ds = cli.build_dataset(args, "train", args.horizon_train)
+    batch = cli.to_device(next(iterate_graph_batches(
+        ds, args.batch_size, shuffle=False, ghost_type_value=cli.ghost_type(args),
+        reorder=cli.order_mode(args))), dev)
+    return model, norm, batch
+
+
+def step_turns(steps: dict, per_turn: int = 2) -> dict:
+    """Each ``steps[key]()`` (one synchronised train step) timed in turns
+    a, b, b, a: key -> wall ms of each step."""
+    keys = list(steps)
+    ms = {k: [] for k in keys}
+    for key in keys + keys[::-1]:
+        for _ in range(per_turn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[key]()
+            ms[key].append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def kernels_vs_twins(args, model, norm, batch, seed: int) -> dict:
+    """One window's loss and gradient through the kernels and the twins,
+    from the same weights and noise, twice each (kernels, twins, kernels,
+    twins): the relative differences, the kernels' repeat and the twins'
+    own spread."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    noise = torch.Generator(device=batch["state"].device)
+    runs = []
+    for kernels in (True, False, True, False):
+        model.load_state_dict(state)
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        noise.manual_seed(seed)
+        _, oh, tgt, _ = cli.apply_model(args, model, norm, batch, train=True, generator=noise)
+        loss = cli.graph_loss(args, oh, tgt, batch["mask"])
+        loss.backward()
+        runs.append((loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()])))
+    model.kernels = True
+    (lk, gk), (lt, gt), (lk2, gk2), (_, gt2) = runs
+    return dict(loss_kernels=lk, loss_twins=lt, loss_rel=abs(lk - lt) / abs(lt),
+                grad_rel=rel_err(gk, gt), twin_repeat_grad_rel=rel_err(gt2, gt),
+                step_repeat_bit_equal=lk == lk2 and bool(torch.equal(gk, gk2)))
 
 
 def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
@@ -1932,63 +2164,18 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     step's loss and gradient kernels vs twins; the segment sum kernel
     repeated bit for bit on the batch's receivers."""
     from fluid_llm_tpu_torch import baselines_cli as cli
-    from fluid_llm_tpu_torch.data.eagle_mesh import iterate_graph_batches
-    from fluid_llm_tpu_torch.models.baselines.mgn import mgn_loss
     from fluid_llm_tpu_torch.ops import segment_ops as so
 
     common = ["--dataset_path", "synthetic", "--mesh_nodes", EAGLE_MESH,
               "--batch_size", str(EAGLE_BS), "--n_processor", str(EAGLE_BLOCKS),
               "--n_traj", "4", "--device", str(dev), "--save_dir", os.path.join(tmp, "baselines")]
-    res = {}
-    for name, epochs in (("mgn", 2), ("gat", 1)):
-        argv = ["--model", name, "--epoch", str(epochs)] + common
-        args = cli.parse_args(argv)
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = cli.main(argv)
-        wall = time.perf_counter() - t0
-        launches = read_launches()
-        peak_mib = torch.cuda.max_memory_allocated() / 2**20
-        fwd, bwd = graph_launches_per_step(name, args.n_processor, args.n_heads)
-        train = out["train_steps"] * (args.horizon_train - 1)
-        val = math.ceil(args.n_traj / args.batch_size) * args.epoch * (args.horizon_val - 1)
-        evals = out["n_test"] * (args.horizon_eval - 1)
-        want = dict.fromkeys(launches, 0)
-        want.update(segment_gather=train * (fwd[0] + bwd[0]) + (val + evals) * fwd[0],
-                    segment_sum=train * (fwd[1] + bwd[1]) + (val + evals) * fwd[1])
-        with open(out["csv"]) as f:
-            csv_rows = f.read().splitlines()
-        n_rmse = out["n_rmse"]
-        ok = (launches == want and os.path.exists(out["checkpoint"])
-              and len(csv_rows) == args.horizon_eval + 1 and n_rmse.shape == (args.horizon_eval,)
-              and bool(torch.isfinite(torch.from_numpy(n_rmse)).all())
-              and all(math.isfinite(x) for x in out["val_loss"] + out["train_loss"]))
-        eval_rate = out["eval_steps"] / out["eval_s"]
-        print(f"[graph baselines] baselines_cli --model {name} --mesh_nodes {EAGLE_MESH} "
-              f"--batch_size {EAGLE_BS} --n_processor {EAGLE_BLOCKS} --epoch {epochs} in "
-              f"{wall:.1f} s: "
-              f"{out['train_steps']} train steps (loss {out['train_loss']}; epochs "
-              f"{', '.join(f'{x:.2f}' for x in out['epoch_s'])} s), val loss {out['val_loss']}; "
-              f"eval of {out['n_test']} trajectories x {args.horizon_eval - 1} steps at "
-              f"{eval_rate:.1f} steps/s, N-RMSE mean {float(n_rmse.mean()):.5f}, CSV "
-              f"{len(csv_rows) - 1} rows; peak device memory {peak_mib:.1f} MiB; launches "
-              f"{_nonzero(launches)} (want {_nonzero(want)}, every other kernel 0: per "
-              f"rollout step forward {fwd}, backward {bwd} (gathers, sums)) "
-              f"{'ok' if ok else 'FAIL'}")
-        if not ok:
-            failures.append(f"graph baselines {name}: launches {launches} (want {want}), "
-                            f"summary {out}")
-        res[name] = dict(wall_s=wall, peak_mem_mib=peak_mib, launches=launches,
-                         eval_steps_per_s=eval_rate, mean_n_rmse=float(n_rmse.mean()),
-                         **{k: v for k, v in out.items() if k != "n_rmse"})
+    res = {name: run_graph_cli(["--model", name, "--epoch", str(epochs)] + common,
+                               "graph baselines", failures)
+           for name, epochs in (("mgn", 2), ("gat", 1))}
 
     # one MeshGraphNet batch: a step's launches, step ms, profile, agreement
     args = cli.parse_args(["--model", "mgn"] + common)
-    model, norm = cli.build_model(args, dev)
-    ds = cli.build_dataset(args, "train", args.horizon_train)
-    batch = cli.to_device(next(iterate_graph_batches(ds, args.batch_size, shuffle=False,
-                                                     reorder=cli.ORDER)), dev)
+    model, norm, batch = one_batch(args, dev)
     opt = cli.make_optimizer(model, args.lr)
     noise = torch.Generator(device=dev).manual_seed(seed)
 
@@ -1998,18 +2185,16 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     reset_launches()
     step()
     step_launches = read_launches()
-    fwd, bwd = graph_launches_per_step("mgn", args.n_processor, args.n_heads)
-    n_steps = args.horizon_train - 1
-    want = dict.fromkeys(step_launches, 0)
-    want.update(segment_gather=n_steps * (fwd[0] + bwd[0]), segment_sum=n_steps * (fwd[1] + bwd[1]))
-    step_ms = {True: [], False: []}
-    for kernels in (True, False, False, True):
-        model.kernels = kernels
-        for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+    want = want_launches(step_launches, graph_launches_per_step("mgn", args.n_processor),
+                         args.horizon_train - 1, 0)
+
+    def with_kernels(kernels):
+        def run():
+            model.kernels = kernels
             step()
-            step_ms[kernels].append((time.perf_counter() - t0) * 1e3)
+        return run
+
+    step_ms = step_turns({True: with_kernels(True), False: with_kernels(False)})
     model.kernels = True
     med_k, med_t = (statistics.median(step_ms[k]) for k in (True, False))
     print(f"[graph baselines] MeshGraphNet train step (batch {tuple(batch['state'].shape)}, "
@@ -2022,48 +2207,281 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     busy_ms, n_ops, idle, top = device_profile(step, 2, med_k, "graph baselines train step",
                                                track=("segment_",))
 
-    state = {k: v.clone() for k, v in model.state_dict().items()}
-    runs = []
-    for kernels in (True, False, True, False):
-        model.load_state_dict(state)
-        model.kernels = kernels
-        model.zero_grad(set_to_none=True)
-        noise.manual_seed(seed)
-        _, oh, tgt, _ = cli.apply_model(args, model, norm, batch, train=True, generator=noise)
-        loss = mgn_loss(oh, tgt, batch["mask"], w_pressure=args.w_pressure)
-        loss.backward()
-        runs.append((loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()])))
-    model.kernels = True
-    (lk, gk), (lt, gt), (lk2, gk2), (_, gt2) = runs
-    loss_rel, grad_rel = abs(lk - lt) / abs(lt), rel_err(gk, gt)
-    step_repeat = lk == lk2 and bool(torch.equal(gk, gk2))
-    twin_repeat_rel = rel_err(gt2, gt)  # the twins' atomics add in another order each run
+    agree = kernels_vs_twins(args, model, norm, batch, seed)
     n = batch["mesh_pos"].shape[2]
     receivers = batch["edges"][:, 0, :, 1]
     index = so.SegmentIndex(receivers, n)
     values = torch.randn(index.ids.shape[0], 128, device=dev, generator=noise)
     sum_repeat = bool(torch.equal(so.segment_sum(values, index), so.segment_sum(values, index)))
     index_ms = event_ms(lambda: so.SegmentIndex(receivers, n).csr())
-    ok = loss_rel <= GRAPH_LOSS_TOL and grad_rel <= GRAPH_GRAD_TOL and sum_repeat
-    print(f"[graph baselines agreement] one step, kernels vs twins: loss {lk:.7f} vs {lt:.7f} "
-          f"(rel {loss_rel:.3e}, bound {GRAPH_LOSS_TOL}), gradient rel L2 {grad_rel:.3e} "
-          f"(bound {GRAPH_GRAD_TOL}; the "
-          f"twins against themselves {twin_repeat_rel:.3e}); the "
-          f"kernels' step repeated bit for bit: {step_repeat}; segment sum on the receivers "
-          f"(F 128) repeated bit for bit: {sum_repeat}; one segment index (flatten, stable "
-          f"sort, search) {index_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+    ok = (agree["loss_rel"] <= GRAPH_LOSS_TOL and agree["grad_rel"] <= GRAPH_GRAD_TOL
+          and sum_repeat)
+    print(f"[graph baselines agreement] one step, kernels vs twins: loss "
+          f"{agree['loss_kernels']:.7f} vs {agree['loss_twins']:.7f} (rel "
+          f"{agree['loss_rel']:.3e}, bound {GRAPH_LOSS_TOL}), gradient rel L2 "
+          f"{agree['grad_rel']:.3e} (bound {GRAPH_GRAD_TOL}; the twins against themselves "
+          f"{agree['twin_repeat_grad_rel']:.3e}); the kernels' step repeated bit for bit: "
+          f"{agree['step_repeat_bit_equal']}; segment sum on the receivers (F 128) repeated bit "
+          f"for bit: {sum_repeat}; one segment index (flatten, stable sort, search) "
+          f"{index_ms:.4f} ms {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append(f"graph baselines agreement: loss rel {loss_rel}, gradient rel "
-                        f"{grad_rel}, step repeat {step_repeat}, segment sum repeat "
-                        f"{sum_repeat}")
+        failures.append(f"graph baselines agreement: {agree}, segment sum repeat {sum_repeat}")
     res.update(launches=res["mgn"]["launches"], step_launches=step_launches,
                step_ms=step_ms[True], plain_step_ms=step_ms[False], median_step_ms=med_k,
                plain_median_step_ms=med_t, device_busy_ms=busy_ms, device_ops_per_step=n_ops,
-               idle_share=idle, top_device_ms=top, loss_rel=loss_rel, grad_rel=grad_rel,
-               twin_repeat_grad_rel=twin_repeat_rel,
-               step_repeat_bit_equal=step_repeat, sum_repeat_bit_equal=sum_repeat,
-               index_ms=index_ms)
+               idle_share=idle, top_device_ms=top, sum_repeat_bit_equal=sum_repeat,
+               index_ms=index_ms, **agree)
     return res
+
+
+def phase_graph_baselines_2(dev, seed: int, failures: list, tmp: str) -> dict:
+    """Phase 20 at the geometry of phase 13 (synthetic 84x42 mesh, batch 4,
+    4 trajectories a split): GraphViT as published (w_size 512, clusters of
+    10, 4 heads, 4 GNN and 4 attention blocks) through ``baselines_cli``
+    for 2 epochs of one step, validation and the 51-step eval of 4 test
+    trajectories, then ``--epoch 0`` from its checkpoint (the same N-RMSE
+    bit for bit); on one GraphViT batch a train step's launches, step ms
+    through the kernels and the twins in turns, the device profile and one
+    step's loss and gradient kernels vs twins (GRAPH_LOSS_TOL,
+    GRAPH_GRAD_TOL).  ``--dtype bf16`` for MeshGraphNet and GraphViT, 1
+    epoch each (launch counts of the f32 and bf16 kernels); on one batch of
+    each, one step kernels vs twins in bf16 (BF16_GRAPH_LOSS_TOL,
+    BF16_GRAPH_GRAD_TOL), and MeshGraphNet's step ms in bf16 and f32 in
+    turns with the bf16 losses falling.  DilResNet through ``baselines_cli``
+    on synthetic cylinder grids at resolution 238 (1 epoch, the 101-step
+    eval, its train step ms); GATNet one forward and backward at the EAGLE
+    edges, kernels vs twins.  Each part prints its seconds."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+
+    common = ["--dataset_path", "synthetic", "--mesh_nodes", EAGLE_MESH,
+              "--batch_size", str(EAGLE_BS), "--n_traj", "4", "--device", str(dev),
+              "--save_dir", os.path.join(tmp, "baselines2")]
+    res, seconds = {}, {}
+    t0 = time.perf_counter()
+    res["graphvit"] = run_graph_cli(["--model", "graphvit", "--epoch", "2"] + common,
+                                    "graph baselines II", failures)
+    again = run_graph_cli(["--model", "graphvit", "--epoch", "0"] + common,
+                          "graph baselines II", failures)
+    if again["n_rmse"] != res["graphvit"]["n_rmse"]:
+        failures.append("graph baselines II: GraphViT --epoch 0 from the checkpoint gave "
+                        "another N-RMSE")
+    res["graphvit_reload_equal"] = again["n_rmse"] == res["graphvit"]["n_rmse"]
+    seconds["graphvit_cli"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    args = cli.parse_args(["--model", "graphvit"] + common)
+    model, norm, batch = one_batch(args, dev)
+    opt = cli.make_optimizer(model, args.lr)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+
+    def step():
+        return cli.train_step(args, model, norm, opt, batch, args.lr, noise)[1].item()
+
+    reset_launches()
+    step()
+    step_launches = read_launches()
+    want = want_launches(step_launches, graph_launches_per_step("graphvit"),
+                         args.horizon_train - 1, 0)
+
+    def with_kernels(kernels):
+        def run():
+            model.kernels = kernels
+            step()
+        return run
+
+    step_ms = step_turns({True: with_kernels(True), False: with_kernels(False)})
+    model.kernels = True
+    med_k, med_t = (statistics.median(step_ms[k]) for k in (True, False))
+    print(f"[graph baselines II] GraphViT train step (batch {tuple(batch['state'].shape)}, "
+          f"edges {tuple(batch['edges'].shape)}, clusters {tuple(batch['cluster'].shape)}): "
+          f"launches {_nonzero(step_launches)} (want {_nonzero(want)}, every other kernel 0); "
+          f"step ms through the kernels median {med_k:.2f} (runs "
+          f"{', '.join(f'{x:.2f}' for x in step_ms[True])}), through the twins median "
+          f"{med_t:.2f} (runs {', '.join(f'{x:.2f}' for x in step_ms[False])})")
+    if step_launches != want:
+        failures.append(f"graph baselines II GraphViT step launches {step_launches} != {want}")
+    busy_ms, n_ops, idle, top = device_profile(step, 2, med_k, "graph baselines II GraphViT "
+                                               "train step", track=("segment_",))
+    agree = kernels_vs_twins(args, model, norm, batch, seed)
+    ok = agree["loss_rel"] <= GRAPH_LOSS_TOL and agree["grad_rel"] <= GRAPH_GRAD_TOL
+    print(f"[graph baselines II agreement] GraphViT one step, kernels vs twins (f32): "
+          f"{_agreement(agree, GRAPH_LOSS_TOL, GRAPH_GRAD_TOL)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"graph baselines II GraphViT agreement: {agree}")
+    res["graphvit_step"] = dict(
+        launches=step_launches, step_ms=step_ms[True], plain_step_ms=step_ms[False],
+        median_step_ms=med_k, plain_median_step_ms=med_t, device_busy_ms=busy_ms,
+        device_ops_per_step=n_ops, idle_share=idle, top_device_ms=top, **agree)
+    del model, opt, batch
+    seconds["graphvit_step"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    bf16_launches = {}
+    for name in ("mgn", "graphvit"):
+        run = run_graph_cli(["--model", name, "--dtype", "bf16", "--epoch", "1"] + common,
+                            "graph baselines II bf16", failures)
+        res[f"{name}_bf16"] = run
+        for k, v in run["launches"].items():
+            bf16_launches[k] = bf16_launches.get(k, 0) + v
+        if not (run["launches"]["segment_sum_bf16"] and run["launches"]["segment_gather_bf16"]):
+            failures.append(f"graph baselines II bf16 {name}: no bf16 launches")
+    res["bf16_launches"] = bf16_launches
+    seconds["bf16_cli"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for name in ("mgn", "graphvit"):
+        args = cli.parse_args(["--model", name, "--dtype", "bf16"] + common)
+        model, norm, batch = one_batch(args, dev)
+        agree = kernels_vs_twins(args, model, norm, batch, seed)
+        ok = agree["loss_rel"] <= BF16_GRAPH_LOSS_TOL and agree["grad_rel"] <= BF16_GRAPH_GRAD_TOL
+        print(f"[graph baselines II agreement] {name} --dtype bf16 one step, kernels vs twins: "
+              f"{_agreement(agree, BF16_GRAPH_LOSS_TOL, BF16_GRAPH_GRAD_TOL)} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"graph baselines II {name} bf16 agreement: {agree}")
+        res[f"{name}_bf16_agreement"] = agree
+        if name == "mgn":
+            res["mgn_bf16_vs_f32"] = _bf16_vs_f32(args, model, norm, batch, dev, seed, failures)
+        del model, batch
+    seconds["bf16_step"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res["dilresnet"] = run_graph_cli(
+        ["--model", "dilresnet", "--epoch", "1", "--n_traj", "4", "--batch_size", "4",
+         "--resolution", "238", "--device", str(dev), "--save_dir",
+         os.path.join(tmp, "baselines2")], "graph baselines II", failures)
+    res["dilresnet_step"] = _dilresnet_step(dev, seed)
+    seconds["dilresnet"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    res["gatnet"] = _gatnet_agreement(dev, seed, failures)
+    seconds["gatnet"] = time.perf_counter() - t0
+    print(f"[graph baselines II] seconds {', '.join(f'{k} {v:.1f}' for k, v in seconds.items())}")
+    res["seconds"] = seconds
+    return res
+
+
+def _agreement(agree: dict, loss_tol: float, grad_tol: float) -> str:
+    return (f"loss {agree['loss_kernels']:.7f} vs {agree['loss_twins']:.7f} (rel "
+            f"{agree['loss_rel']:.3e}, bound {loss_tol}), gradient rel L2 {agree['grad_rel']:.3e} "
+            f"(bound {grad_tol}; the twins against themselves "
+            f"{agree['twin_repeat_grad_rel']:.3e}); the kernels' step repeated bit for bit: "
+            f"{agree['step_repeat_bit_equal']}")
+
+
+def _bf16_vs_f32(args, model, norm, batch, dev, seed: int, failures: list) -> dict:
+    """MeshGraphNet's train step under ``--dtype bf16`` and f32 in turns on
+    one batch (the same model and Adam state carried on), whether the bf16
+    steps' losses fall, and the device profile of each."""
+    import argparse
+
+    from fluid_llm_tpu_torch import baselines_cli as cli
+
+    f32 = argparse.Namespace(**dict(vars(args), dtype="f32"))
+    opt = cli.make_optimizer(model, args.lr)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    losses = {"bf16": [], "f32": []}
+
+    def step(a):
+        def run():
+            loss = cli.train_step(a, model, norm, opt, batch, a.lr, noise)[1]
+            losses[a.dtype].append(loss.item())
+        return run
+
+    ms = step_turns({"bf16": step(args), "f32": step(f32)})
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    bf16 = losses["bf16"]
+    falling = all(math.isfinite(x) for x in bf16) and bf16[-1] < bf16[0]
+    print(f"[graph baselines II] MeshGraphNet train step ms in turns: bf16 median "
+          f"{med['bf16']:.2f} "
+          f"(runs {', '.join(f'{x:.2f}' for x in ms['bf16'])}), f32 median {med['f32']:.2f} (runs "
+          f"{', '.join(f'{x:.2f}' for x in ms['f32'])}); bf16 losses {losses['bf16']} falling: "
+          f"{falling} {'ok' if falling else 'FAIL'}")
+    if not falling:
+        failures.append(f"graph baselines II: MeshGraphNet bf16 losses {losses['bf16']}")
+    profiles = {a.dtype: device_profile(step(a), 2, med[a.dtype], f"graph baselines II "
+                                        f"MeshGraphNet {a.dtype} train step", track=("segment_",))
+                for a in (args, f32)}
+    return dict(step_ms=ms, median_step_ms=med, losses=losses, falling=falling,
+                device_busy_ms={k: v[0] for k, v in profiles.items()},
+                device_ops_per_step={k: v[1] for k, v in profiles.items()},
+                idle_share={k: v[2] for k, v in profiles.items()},
+                top_device_ms={k: v[3] for k, v in profiles.items()})
+
+
+def _dilresnet_step(dev, seed: int) -> dict:
+    """DilResNet's train step (batch 4 of 5-frame windows at 238x238) ms,
+    median of 4 after one warm-up."""
+    from fluid_llm_tpu_torch import baselines_cli as cli
+    from fluid_llm_tpu_torch.data.grid_images import iterate_image_batches
+    from fluid_llm_tpu_torch.models.baselines.dilresnet import dilresnet_loss
+
+    args = cli.parse_args(["--model", "dilresnet", "--resolution", "238", "--device", str(dev)])
+    model, _ = cli.build_model(args, dev)
+    opt = cli.make_optimizer(model, args.lr)
+    state, mask = next(iterate_image_batches(cli.build_dataset(args, "train", args.horizon_train),
+                                             4, shuffle=False))
+    state, mask = torch.from_numpy(state).to(dev), torch.from_numpy(mask).to(dev)
+    noise = torch.Generator(device=dev).manual_seed(seed)
+    ms = []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        _, delta, target = model(state, mask, apply_noise=True, noise_std=args.noise_std,
+                                 generator=noise)
+        dilresnet_loss(delta, target).backward()
+        opt.step()
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"[graph baselines II] DilResNet train step (state {tuple(state.shape)}, 28 dilated "
+          f"convs at width 48 a rollout step, cuDNN, TF32 off): median "
+          f"{statistics.median(ms):.2f} ms (runs {', '.join(f'{x:.2f}' for x in ms)})")
+    return dict(step_ms=ms, median_step_ms=statistics.median(ms))
+
+
+def _gatnet_agreement(dev, seed: int, failures: list) -> dict:
+    """GATNet (3 edge-featured GAT layers, 2 heads at width 32, a 1-head
+    output of 4) on the EAGLE edges (4 graphs of 3 529 nodes and 20 480
+    edges) with seeded inputs: one forward and backward through the kernels
+    and the twins, the launches of the kernels' (4 gathers and 4 sums a
+    layer: x at both edge ends, the softmax's two sums, and their
+    backwards), loss within GRAPH_LOSS_TOL and gradient within
+    GRAPH_GRAD_TOL."""
+    from fluid_llm_tpu_torch.models.baselines.gatnet import GATNet
+
+    edges = eagle_edges(dev)
+    B, E = edges.shape[:2]
+    n = int(edges.max()) + 1
+    g = torch.Generator().manual_seed(seed)
+    vert = torch.randn(B, n, 13, generator=g).to(dev)
+    edge_in = torch.randn(B, E, 3, generator=g).to(dev)
+    model = GATNet(13, 3, 4, generator=torch.Generator().manual_seed(1)).to(dev)
+    runs = []
+    for kernels in (True, False, False):
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        reset_launches()
+        loss = (model(vert, edge_in, edges) ** 2).mean()
+        loss.backward()
+        runs.append((loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]),
+                     read_launches()))
+    model.kernels = True
+    (lk, gk, launches), (lt, gt, twin_launches), (_, gt2, _) = runs
+    want = want_launches(launches, {"segment_gather": (6, 6), "segment_sum": (6, 6)}, 1, 0)
+    loss_rel, grad_rel = abs(lk - lt) / abs(lt), rel_err(gk, gt)
+    ok = (loss_rel <= GRAPH_LOSS_TOL and grad_rel <= GRAPH_GRAD_TOL and launches == want
+          and not any(twin_launches.values()))
+    print(f"[graph baselines II agreement] GATNet forward and backward at the EAGLE edges, "
+          f"kernels vs twins: loss {lk:.7f} vs {lt:.7f} (rel {loss_rel:.3e}, bound "
+          f"{GRAPH_LOSS_TOL}), gradient rel L2 {grad_rel:.3e} (bound {GRAPH_GRAD_TOL}; the twins "
+          f"against themselves {rel_err(gt2, gt):.3e}); launches {_nonzero(launches)} (want "
+          f"{_nonzero(want)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"graph baselines II GATNet: loss rel {loss_rel}, grad rel {grad_rel}, "
+                        f"launches {launches}")
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel, launches=launches)
 
 
 # Phases 17-19.  The pickles: the DeepMind MeshGraphNets layout at the size
@@ -2600,8 +3018,13 @@ def main(argv=None) -> int:
     seconds["switches"] = (phase("switches", phase_switches, dev, args.seed, failures),
                            time.perf_counter() - t0)
     print(f"[switches] phase seconds {seconds['switches'][1]:.1f}")
-    published_res, notf_res, switch_res = (seconds[k][0] for k in ("published", "notf",
-                                                                  "switches"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:  # phase 20: checkpoints, read again
+        seconds["graph2"] = (phase("graph baselines II", phase_graph_baselines_2, dev, args.seed,
+                                   failures, tmp), time.perf_counter() - t0)
+    print(f"[graph baselines II] phase seconds {seconds['graph2'][1]:.1f}")
+    published_res, notf_res, switch_res, graph2_res = (
+        seconds[k][0] for k in ("published", "notf", "switches", "graph2"))
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -2614,7 +3037,7 @@ def main(argv=None) -> int:
                            graph_baselines=graph_res, stacked_streaming=stacked_res,
                            short_train=short_train, short_train_agreement=short_agree,
                            short_rollout=short_res, published_data=published_res,
-                           notf=notf_res, switches=switch_res,
+                           notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
                            phase_seconds={k: v[1] for k, v in seconds.items()},
                            failures=failures),
                       f, indent=1, default=str)
@@ -2648,6 +3071,12 @@ def main(argv=None) -> int:
                         "fluid_llm_tpu/ops/segment_sum_pallas.py:123", graph_res),
         "segment_gather": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
                            "fluid_llm_tpu/ops/segment_sum_pallas.py:142", graph_res),
+        "segment_sum_bf16": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
+                             "fluid_llm_tpu/ops/segment_sum_pallas.py:123",
+                             {"launches": graph2_res["bf16_launches"]}),
+        "segment_gather_bf16": ("fluid_llm_tpu_torch/csrc/segment_ops.cu",
+                                "fluid_llm_tpu/ops/segment_sum_pallas.py:142",
+                                {"launches": graph2_res["bf16_launches"]}),
         "indexed_linear": ("fluid_llm_tpu_torch/csrc/indexed_linear.cu",
                            "fluid_llm_tpu/ops/indexed_linear.py:35", stacked_res),
         "short_attention": ("fluid_llm_tpu_torch/csrc/short_attention.cu",

@@ -1,4 +1,4 @@
-// Segment sum and row gather for mesh-graph message passing, f32.
+// Segment sum and row gather for mesh-graph message passing, f32 and bf16.
 //
 // Replaces the TPU kernels fluid_llm_tpu/ops/segment_sum_pallas.py:
 // _scatter_kernel (reached through _scatter_call: edge rows summed into
@@ -7,6 +7,14 @@
 // VMEM-resident window of node rows, with the f32 values split into three
 // bf16 limbs; that design answers the TPU's serialized scatter and is not
 // carried over.  Here they are what they compute: a sum and a copy.
+//
+// Element types: f32, and bf16 as the TPU kernels also take
+// (segment_sum_pallas.py:79-82, one MXU pass with f32 accumulation; :204, a
+// bf16 gather stays bf16).  One source templated on the element type: the
+// bf16 sum adds each element's edges in f32, in the same order as the f32
+// kernel, and rounds once (to nearest even) at the store; the bf16 gather
+// copies bytes.  A thread's vector is 16 bytes where the rows allow: 4 f32
+// or 8 bf16 elements.
 //
 // Semantics (ops/segment_ops.segment_sum_ref and gather_ref, exactly):
 //   segment_sum:    out[r] = sum of values[e] over the edges e with id r, in
@@ -76,6 +84,7 @@
 //   launch: fill_ of the 0.66 MB output takes 0.0018-0.0020 ms, the gather
 //   0.0022-0.0024 (at F 1 0.0023-0.0025).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -86,38 +95,72 @@ constexpr int NARROW_THREADS = 64;  // sum over narrow rows: two warps a block
 constexpr int WIDE = 32;            // F from which a row takes the wide walk
 constexpr int ROUND = 8;            // a wide row's edges a round
 constexpr int CHUNK_EDGES = 512;    // a narrow warp's staged edges ...
-constexpr int CHUNK_FLOATS = 1024;  // ... and their values
+constexpr int CHUNK_FLOATS = 1024;  // ... and their values (as f32)
 constexpr int LOADS = 16;           // a narrow lane's staging loads in flight together
 
-template <int VEC>
-struct Vec;
+// The element types: their bits in memory, and the exact widening to f32
+// and the one rounding back.
+struct F32 {
+  using Bits = float;
+  __device__ static float to_f(float b) { return b; }
+  __device__ static float from_f(float x) { return x; }
+};
+struct BF16 {
+  using Bits = unsigned short;
+  __device__ static float to_f(unsigned short b) { return __uint_as_float((unsigned)b << 16); }
+  __device__ static unsigned short from_f(float x) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+};
+
+// The register type of a load or store of BYTES bytes.
+template <int BYTES>
+struct Raw;
 template <>
-struct Vec<1> {
-  using T = float;
-  __device__ static T zero() { return 0.f; }
-  __device__ static T add(T a, T b) { return a + b; }
+struct Raw<2> {
+  using T = unsigned short;
 };
 template <>
-struct Vec<2> {
-  using T = float2;
-  __device__ static T zero() { return make_float2(0.f, 0.f); }
+struct Raw<4> {
+  using T = unsigned int;
 };
 template <>
-struct Vec<4> {
-  using T = float4;
-  __device__ static T zero() { return make_float4(0.f, 0.f, 0.f, 0.f); }
-  __device__ static T add(T a, T b) {
-    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+struct Raw<8> {
+  using T = uint2;
+};
+template <>
+struct Raw<16> {
+  using T = uint4;
+};
+
+// VEC consecutive elements of one row, moved as one load or store.
+template <class E, int VEC>
+struct alignas(VEC * sizeof(typename E::Bits)) Pack {
+  using Bits = typename E::Bits;
+  using R = typename Raw<VEC * sizeof(Bits)>::T;
+  Bits e[VEC];
+  __device__ static Pack load_cs(const Bits* p) {  // read once: evict first
+    Pack v;
+    *reinterpret_cast<R*>(&v) = __ldcs(reinterpret_cast<const R*>(p));
+    return v;
+  }
+  __device__ static Pack zero() {
+    Pack v;
+    *reinterpret_cast<R*>(&v) = R{};
+    return v;
+  }
+  __device__ void store(Bits* p) const {
+    *reinterpret_cast<R*>(p) = *reinterpret_cast<const R*>(this);
   }
 };
 
 // F < WIDE: thread t is slot (row t / F, column t % F); a warp's rows are
 // the stretch [first, last] of consecutive rows.  FT > 0 fixes F at FT.
-template <int FT>
+template <class E, int FT>
 __global__ void __launch_bounds__(NARROW_THREADS)
-segment_sum_narrow_kernel(const float* __restrict__ values, const int* __restrict__ perm,
-                          const int* __restrict__ row_ptr, float* __restrict__ out, int n_rows,
-                          int F_) {
+segment_sum_narrow_kernel(const typename E::Bits* __restrict__ values, const int* __restrict__ perm,
+                          const int* __restrict__ row_ptr, typename E::Bits* __restrict__ out,
+                          int n_rows, int F_) {
   const int F = FT > 0 ? FT : F_;
   __shared__ int s_perm[NARROW_THREADS / 32][CHUNK_EDGES];
   __shared__ float s_val[NARROW_THREADS / 32][CHUNK_FLOATS];
@@ -149,12 +192,12 @@ segment_sum_narrow_kernel(const float* __restrict__ values, const int* __restric
         if (k0 + 32 * u + lane < n) sp[k0 + 32 * u + lane] = x[u];
     }
     __syncwarp();
-    for (int k0 = 0; k0 < nf; k0 += 32 * LOADS) {  // their values
+    for (int k0 = 0; k0 < nf; k0 += 32 * LOADS) {  // their values, widened to f32
       float x[LOADS];
 #pragma unroll
       for (int u = 0; u < LOADS; ++u) {
         const int k = k0 + 32 * u + lane;
-        x[u] = k < nf ? __ldcs(values + (long long)sp[k / F] * F + k % F) : 0.f;
+        x[u] = k < nf ? E::to_f(__ldcs(values + (long long)sp[k / F] * F + k % F)) : 0.f;
       }
 #pragma unroll
       for (int u = 0; u < LOADS; ++u)
@@ -165,17 +208,16 @@ segment_sum_narrow_kernel(const float* __restrict__ values, const int* __restric
     for (int j = max(a, cs); j < j1; ++j) acc += sv[(j - cs) * F + c];
     __syncwarp();  // the next chunk overwrites the buffers
   }
-  if (mine) out[row * F + c] = acc;
+  if (mine) out[row * F + c] = E::from_f(acc);
 }
 
 // F >= WIDE: thread t takes VEC columns of row order[t / (F / VEC)].
-template <int VEC>
+template <class E, int VEC>
 __global__ void __launch_bounds__(WIDE_THREADS)
-segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict__ perm,
+segment_sum_wide_kernel(const typename E::Bits* __restrict__ values, const int* __restrict__ perm,
                         const int* __restrict__ row_ptr, const int* __restrict__ order,
-                        float* __restrict__ out, int n_rows, int F) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
+                        typename E::Bits* __restrict__ out, int n_rows, int F) {
+  using P = Pack<E, VEC>;
   const int lanes = F / VEC;
   const long long t = (long long)blockIdx.x * WIDE_THREADS + threadIdx.x;
   const long long slot = t / lanes;
@@ -186,36 +228,43 @@ segment_sum_wide_kernel(const float* __restrict__ values, const int* __restrict_
   int e[ROUND];
 #pragma unroll
   for (int u = 0; u < ROUND; ++u) e[u] = start + u < end ? perm[start + u] : 0;
-  T acc = V::zero();
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) acc[k] = 0.f;
   for (int j0 = start; j0 < end; j0 += ROUND) {
     int nxt[ROUND];  // the next round's edges
 #pragma unroll
     for (int u = 0; u < ROUND; ++u) nxt[u] = j0 + ROUND + u < end ? perm[j0 + ROUND + u] : 0;
-    T x[ROUND];
+    P x[ROUND];
 #pragma unroll
     for (int u = 0; u < ROUND; ++u)
-      x[u] = j0 + u < end ? __ldcs(reinterpret_cast<const T*>(values + (long long)e[u] * F) + c)
-                          : V::zero();
+      x[u] = j0 + u < end ? P::load_cs(values + (long long)e[u] * F + c * VEC) : P::zero();
 #pragma unroll
     for (int u = 0; u < ROUND; ++u)  // the next round's value rows on their way to L2
       if (j0 + ROUND + u < end)
         asm volatile("prefetch.global.L2 [%0];" ::"l"(values + (long long)nxt[u] * F + c * VEC));
 #pragma unroll
     for (int u = 0; u < ROUND; ++u)
-      if (j0 + u < end) acc = V::add(acc, x[u]);
+      if (j0 + u < end) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] += E::to_f(x[u].e[k]);
+      }
 #pragma unroll
     for (int u = 0; u < ROUND; ++u) e[u] = nxt[u];
   }
-  reinterpret_cast<T*>(out + row * F)[c] = acc;
+  P o;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) o.e[k] = E::from_f(acc[k]);
+  o.store(out + row * F + c * VEC);
 }
 
-template <int VEC, int DEPTH>
-__global__ void segment_gather_kernel(const float* __restrict__ nodes, const int* __restrict__ ids,
-                                      float* __restrict__ out, long long M, int n_rows, int nv) {
-  using V = Vec<VEC>;
-  using T = typename V::T;
-  const T* const rows = reinterpret_cast<const T*>(nodes);
-  T* const dst = reinterpret_cast<T*>(out);
+// A copy of rows of nv vectors of BYTES bytes (any element type).
+template <int BYTES, int DEPTH>
+__global__ void segment_gather_kernel(const void* __restrict__ nodes, const int* __restrict__ ids,
+                                      void* __restrict__ out, long long M, int n_rows, int nv) {
+  using T = typename Raw<BYTES>::T;
+  const T* const rows = static_cast<const T*>(nodes);
+  T* const dst = static_cast<T*>(out);
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (blockDim.x >> 5);
   long long tile = (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
@@ -228,7 +277,7 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
       T x[DEPTH];
 #pragma unroll
       for (int u = 0; u < DEPTH; ++u)
-        x[u] = (unsigned)id[u] < (unsigned)n_rows ? __ldg(rows + id[u]) : V::zero();
+        x[u] = (unsigned)id[u] < (unsigned)n_rows ? __ldg(rows + id[u]) : T{};
 #pragma unroll
       for (int u = 0; u < DEPTH; ++u)
         if (e0 + 32 * u < M) dst[e0 + 32 * u] = x[u];
@@ -251,7 +300,7 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
         const int id = __shfl_sync(0xffffffffu, my_id, u & 31);
         x[k] = lane + 32 * (t0 + k) < n_slots && (unsigned)id < (unsigned)n_rows
                    ? __ldg(rows + (long long)id * nv + c)
-                   : V::zero();
+                   : T{};
         u += q32;
         c += r32;
         if (c >= nv) {
@@ -268,22 +317,22 @@ __global__ void segment_gather_kernel(const float* __restrict__ nodes, const int
   }
 }
 
-template <int VEC, int DEPTH>
-int run_gather(const float* n, const int* i, float* o, long long M, int n_rows, int F,
-                  int warps, int blocks, cudaStream_t s) {
-  segment_gather_kernel<VEC, DEPTH><<<blocks, 32 * warps, 0, s>>>(n, i, o, M, n_rows, F / VEC);
+template <int BYTES, int DEPTH>
+int run_gather(const void* n, const int* i, void* o, long long M, int n_rows, int nv, int warps,
+               int blocks, cudaStream_t s) {
+  segment_gather_kernel<BYTES, DEPTH><<<blocks, 32 * warps, 0, s>>>(n, i, o, M, n_rows, nv);
   return (int)cudaGetLastError();
 }
 
-template <int VEC>
-int launch_gather(const float* n, const int* i, float* o, long long M, int n_rows, int F,
+template <int BYTES>
+int launch_gather(const void* n, const int* i, void* o, long long M, int n_rows, int nv,
                   int depth, int warps, int blocks, cudaStream_t s) {
-  if (depth == 1) return run_gather<VEC, 1>(n, i, o, M, n_rows, F, warps, blocks, s);
-  if (depth == 2) return run_gather<VEC, 2>(n, i, o, M, n_rows, F, warps, blocks, s);
-  if (depth == 4) return run_gather<VEC, 4>(n, i, o, M, n_rows, F, warps, blocks, s);
-  if (depth == 8) return run_gather<VEC, 8>(n, i, o, M, n_rows, F, warps, blocks, s);
+  if (depth == 1) return run_gather<BYTES, 1>(n, i, o, M, n_rows, nv, warps, blocks, s);
+  if (depth == 2) return run_gather<BYTES, 2>(n, i, o, M, n_rows, nv, warps, blocks, s);
+  if (depth == 4) return run_gather<BYTES, 4>(n, i, o, M, n_rows, nv, warps, blocks, s);
+  if (depth == 8) return run_gather<BYTES, 8>(n, i, o, M, n_rows, nv, warps, blocks, s);
   if (depth == GATHER_DEPTH)
-    return run_gather<VEC, GATHER_DEPTH>(n, i, o, M, n_rows, F, warps, blocks, s);
+    return run_gather<BYTES, GATHER_DEPTH>(n, i, o, M, n_rows, nv, warps, blocks, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -291,60 +340,92 @@ unsigned n_blocks(long long rows, int lanes, int threads) {
   return (unsigned)((rows * lanes + threads - 1) / threads);
 }
 
-}  // namespace
-
-// values: (M, F) f32 contiguous; perm: int32, the edge rows ordered by node
-// (stable); row_ptr: int32 (n_rows + 1), node r's edges are
-// perm[row_ptr[r] : row_ptr[r + 1]]; order: int32 (n_rows), a permutation
-// of the rows, those with more than ROUND edges first (read where F >=
-// WIDE); out: (n_rows, F) f32, every row written.  vectorized: F % 4 == 0
-// and values/out 16-byte aligned.  Returns cudaGetLastError() after the
-// launch (0 on success).
-extern "C" int segment_sum_f32(const void* values, const void* perm, const void* row_ptr,
-                               const void* order, void* out, int n_rows, int F, int vectorized,
-                               void* stream) {
-  if (F <= 0 || (vectorized && F % 4)) return (int)cudaErrorInvalidValue;
+// VEC16: the elements of a 16-byte vector (4 f32, 8 bf16).
+template <class E, int VEC16>
+int sum(const void* values, const void* perm, const void* row_ptr, const void* order, void* out,
+        int n_rows, int F, int vectorized, void* stream) {
+  if (F <= 0 || (vectorized && F % VEC16)) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
+  using Bits = typename E::Bits;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* v = static_cast<const float*>(values);
+  const Bits* v = static_cast<const Bits*>(values);
   const int* p = static_cast<const int*>(perm);
   const int* rp = static_cast<const int*>(row_ptr);
   const int* ord = static_cast<const int*>(order);
-  float* o = static_cast<float*>(out);
+  Bits* o = static_cast<Bits*>(out);
   if (F < WIDE) {
     const unsigned blocks = n_blocks(n_rows, F, NARROW_THREADS);
     if (F == 1)
-      segment_sum_narrow_kernel<1><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
+      segment_sum_narrow_kernel<E, 1><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
     else
-      segment_sum_narrow_kernel<0><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
+      segment_sum_narrow_kernel<E, 0><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
   } else if (vectorized) {
-    segment_sum_wide_kernel<4><<<n_blocks(n_rows, F / 4, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
-        v, p, rp, ord, o, n_rows, F);
+    segment_sum_wide_kernel<E, VEC16>
+        <<<n_blocks(n_rows, F / VEC16, WIDE_THREADS), WIDE_THREADS, 0, s>>>(v, p, rp, ord, o,
+                                                                           n_rows, F);
   } else {
-    segment_sum_wide_kernel<1><<<n_blocks(n_rows, F, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
+    segment_sum_wide_kernel<E, 1><<<n_blocks(n_rows, F, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
         v, p, rp, ord, o, n_rows, F);
   }
   return (int)cudaGetLastError();
 }
 
-// nodes: (n_rows, F) f32 contiguous; ids: int32 (M,), -1 or outside
-// [0, n_rows) for a zero row; out: (M, F) f32.  vec: 4 or 2 where F is a
-// multiple and nodes and out lie on 16 or 8 bytes, else 1.  The plan
+// size: bytes an element; vec: elements a vector (its bytes 16, 8, 4 or 2).
+int gather(const void* nodes, const void* ids, void* out, long long M, int n_rows, int F,
+           int size, int vec, int depth, int warps, int blocks, void* stream) {
+  const int bytes = size * vec;
+  if (F <= 0 || vec < 1 || F % vec || (bytes != 16 && bytes != 8 && bytes != 4 && bytes != 2) ||
+      warps < 1 || warps > 32 || blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  if (M == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* i = static_cast<const int*>(ids);
+  const int nv = F / vec;
+  if (bytes == 16) return launch_gather<16>(nodes, i, out, M, n_rows, nv, depth, warps, blocks, s);
+  if (bytes == 8) return launch_gather<8>(nodes, i, out, M, n_rows, nv, depth, warps, blocks, s);
+  if (bytes == 4) return launch_gather<4>(nodes, i, out, M, n_rows, nv, depth, warps, blocks, s);
+  return launch_gather<2>(nodes, i, out, M, n_rows, nv, depth, warps, blocks, s);
+}
+
+}  // namespace
+
+// values: (M, F) contiguous; perm: int32, the edge rows ordered by node
+// (stable); row_ptr: int32 (n_rows + 1), node r's edges are
+// perm[row_ptr[r] : row_ptr[r + 1]]; order: int32 (n_rows), a permutation
+// of the rows, those with more than ROUND edges first (read where F >=
+// WIDE); out: (n_rows, F) of the values' type, every row written.
+// vectorized: rows of whole 16-byte vectors (F % 4 == 0 in f32, F % 8 == 0
+// in bf16) and values/out 16-byte aligned.  Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int segment_sum_f32(const void* values, const void* perm, const void* row_ptr,
+                               const void* order, void* out, int n_rows, int F, int vectorized,
+                               void* stream) {
+  return sum<F32, 4>(values, perm, row_ptr, order, out, n_rows, F, vectorized, stream);
+}
+
+// As segment_sum_f32 for bf16 values and output: each element an f32 sum
+// in the same order, rounded once to bf16 (nearest even).
+extern "C" int segment_sum_bf16(const void* values, const void* perm, const void* row_ptr,
+                                const void* order, void* out, int n_rows, int F, int vectorized,
+                                void* stream) {
+  return sum<BF16, 8>(values, perm, row_ptr, order, out, n_rows, F, vectorized, stream);
+}
+
+// nodes: (n_rows, F) contiguous; ids: int32 (M,), -1 or outside
+// [0, n_rows) for a zero row; out: (M, F) of the nodes' type.  vec:
+// elements a load, 4 or 2 f32 (8, 4 or 2 bf16) where F is a multiple and
+// nodes and out lie on that many bytes, else 1.  The plan
 // (ops/segment_ops.gather_plan): `depth` loads a lane keeps in flight (1,
 // 2, 4, 8 or GATHER_DEPTH), `warps` a block (1 to 32), `blocks`.  Returns
 // cudaGetLastError() after the launch (0 on success).
 extern "C" int segment_gather_f32(const void* nodes, const void* ids, void* out, long long M,
                                   int n_rows, int F, int vec, int depth, int warps, int blocks,
                                   void* stream) {
-  if (F <= 0 || (vec != 1 && vec != 2 && vec != 4) || F % vec || warps < 1 || warps > 32 ||
-      blocks < 1)
-    return (int)cudaErrorInvalidValue;
-  if (M == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* n = static_cast<const float*>(nodes);
-  const int* i = static_cast<const int*>(ids);
-  float* o = static_cast<float*>(out);
-  if (vec == 4) return launch_gather<4>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
-  if (vec == 2) return launch_gather<2>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
-  return launch_gather<1>(n, i, o, M, n_rows, F, depth, warps, blocks, s);
+  return gather(nodes, ids, out, M, n_rows, F, 4, vec, depth, warps, blocks, stream);
+}
+
+extern "C" int segment_gather_bf16(const void* nodes, const void* ids, void* out, long long M,
+                                   int n_rows, int F, int vec, int depth, int warps, int blocks,
+                                   void* stream) {
+  return gather(nodes, ids, out, M, n_rows, F, 2, vec, depth, warps, blocks, stream);
 }

@@ -18,6 +18,7 @@ from fluid_llm_tpu_torch.core.triangulation import get_mesh_interpolation
 from fluid_llm_tpu_torch.data.eagle_mesh import (
     NODE_INPUT, NODE_NORMAL, NODE_OUTPUT, NODE_WALL, GraphSample, faces_to_edges, one_hot9)
 from fluid_llm_tpu_torch.data.pipeline import PatchDataset, TrajectorySource
+from fluid_llm_tpu_torch.tools.clusterize import constrained_kmeans
 
 
 def make_cylinder_mesh(seed: int, nx: int = 40, ny: int = 16):
@@ -67,8 +68,10 @@ class SyntheticGraphDataset:
     sample structure (state = [Vx, Vy, P, P], one-hot node types,
     bidirectional edges) on the generated meshes and analytic flow of
     :class:`SyntheticCylinderDataset`.  Everything but the window start is
-    computed once per trajectory and cached.  Cluster tables (``n_cluster >
-    0``, GraphViT's) come with GraphViT."""
+    computed once per trajectory and cached, with GraphViT's cluster table
+    where ``n_cluster > 0``: ``constrained_kmeans(pos, n_cluster, seed=
+    base_seed + item)`` (``tools/clusterize``), the same at every step of a
+    window."""
 
     def __init__(
         self,
@@ -80,9 +83,6 @@ class SyntheticGraphDataset:
         n_cluster: int = 0,
         seed: int = 1234,
     ):
-        if n_cluster > 0:
-            raise NotImplementedError("SyntheticGraphDataset(n_cluster > 0): cluster tables come "
-                                      "with GraphViT (ROADMAP Queue 1 item 11)")
         self.n_trajectories = n_trajectories
         self.mode = mode
         self.window_length = window_length
@@ -97,7 +97,8 @@ class SyntheticGraphDataset:
         return self.n_trajectories
 
     def _trajectory(self, item: int):
-        """Mesh, the full analytic trajectory, edges and one-hot types."""
+        """Mesh, the full analytic trajectory, edges, one-hot types and the
+        cluster table (None without clusters)."""
         if item not in self._traj_cache:
             pos, faces = make_cylinder_mesh(self.base_seed + item, *self.mesh_nodes)
             states = np.ascontiguousarray(
@@ -106,12 +107,15 @@ class SyntheticGraphDataset:
             node_type[pos[:, 0] <= pos[:, 0].min()] = NODE_INPUT
             node_type[pos[:, 0] >= pos[:, 0].max()] = NODE_OUTPUT
             node_type[(pos[:, 1] <= pos[:, 1].min()) | (pos[:, 1] >= pos[:, 1].max())] = NODE_WALL
+            cl = (constrained_kmeans(pos, self.n_cluster, seed=self.base_seed + item)
+                  if self.n_cluster > 0 else None)
             self._traj_cache[item] = (pos.astype(np.float32), faces, states,
-                                      faces_to_edges(faces.astype(np.int64)), one_hot9(node_type))
+                                      faces_to_edges(faces.astype(np.int64)), one_hot9(node_type),
+                                      cl)
         return self._traj_cache[item]
 
     def __getitem__(self, item: int) -> GraphSample:
-        pos, faces, states, edges, nt9 = self._trajectory(item)
+        pos, faces, states, edges, nt9, cl = self._trajectory(item)
         T = self.window_length
         t0 = 100 if self.mode != "train" else int(
             self._rng.integers(0, self.max_steps - T + 1)
@@ -125,6 +129,7 @@ class SyntheticGraphDataset:
             edges=edges,
             state=state,
             node_type=np.repeat(nt9[None], T, axis=0),
+            cluster=np.repeat(cl[None], T, axis=0) if cl is not None else None,
             faces=faces,
         )
 

@@ -134,6 +134,8 @@ class MGN(nn.Module):
                     for k, s in (("nodes", n_nodes), ("edges", n_edges), ("output", norm_out))}
         return torch.stack(states, dim=1), torch.stack(outputs, dim=1), target, new_norm
 
+    forward = apply  # for torch.func.functional_call (baselines_cli --dtype bf16)
+
 
 def mgn_loss(output_hat, target, mask, w_pressure: float = 0.1) -> torch.Tensor:
     """``eagle/train_mgn.py:64-72``: masked MSE on normalised diffs with

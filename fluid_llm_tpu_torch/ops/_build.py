@@ -46,6 +46,8 @@ SIGNATURES = {
     "quant_matmul_w8a16": [_P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     "segment_sum_f32": [_P] * 5 + [_I] * 3 + [_P],
     "segment_gather_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
+    "segment_sum_bf16": [_P] * 5 + [_I] * 3 + [_P],
+    "segment_gather_bf16": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
     "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "short_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _I, _P],
 }

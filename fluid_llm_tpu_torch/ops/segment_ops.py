@@ -25,12 +25,17 @@ one by the same ids, as the JAX package's ``custom_vjp`` pair
 (``segment_ops.py:107-155``): d(segment sum)/dvalues is a gather, d(gather)/
 dnodes a segment sum.  No double backward, as there.
 
-CUDA tensors launch the kernels (:func:`segment_sum`, :func:`segment_gather`)
-or raise; CPU tensors, and ``kernels=False``, take the plain twins
-:func:`segment_sum_ref` (``index_add_`` into zeros) and :func:`gather_ref`
-(``index_select`` and a mask).  The kernels take f32 values and int32 ids;
-the sum is deterministic (no atomics; the twin's ``index_add_`` on CUDA is
-not).  The TPU kernels' window machinery (``windowed``, ``window``,
+CUDA tensors launch the kernels (:func:`segment_sum`, :func:`segment_gather`
+in f32; :func:`segment_sum_bf16`, :func:`segment_gather_bf16` in bf16) or
+raise, also for any other dtype; CPU tensors, and ``kernels=False``, take the
+plain twins :func:`segment_sum_ref` (``index_add_`` into zeros) and
+:func:`gather_ref` (``index_select`` and a mask).  The kernels take int32
+ids; the sum is deterministic (no atomics; the twin's ``index_add_`` on CUDA
+is not).  bf16 values are summed in f32 and rounded once to bf16, as the TPU
+kernel's one MXU pass with f32 accumulation (``segment_sum_pallas.py:
+79-82``), and the twins do the same on the values upcast to f32; a bf16
+gather stays bf16 (``:204``).  The gradient keeps the forward's dtype.
+The TPU kernels' window machinery (``windowed``, ``window``,
 ``WINDOW_CHOICES``, ``_chunk_row0``, ``host_kernel_ok``, ``min_window``, the
 ``lax.cond`` predicate, the bf16 value limbs) answers the TPU's serialized
 scatter and is not carried over: the CUDA kernels take any ids.
@@ -153,25 +158,34 @@ def sum_walk(row_ptr: list[int], F: int, r: int, c: int) -> list[range]:
     return [run for run in runs if len(run)]
 
 
+def _sum_dtype(values2: torch.Tensor) -> torch.dtype:
+    """f32 for bf16 (and f32) values; f64 stays f64 (the CPU tests)."""
+    return torch.promote_types(values2.dtype, torch.float32)
+
+
 def csr_walk(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
     """The sum kernel's additions on any device: round k adds each row's
     k-th edge (ascending) to its f32 sum, from 0, so every row is summed
-    in the kernel's order.  values (M, F) -> (n_rows, F)."""
+    in the kernel's order; bf16 values are widened to f32 and the sums
+    rounded once.  values (M, F) -> (n_rows, F)."""
     perm, row_ptr = index.csr()
     start, degree = row_ptr[:-1].long(), (row_ptr[1:] - row_ptr[:-1]).long()
-    out = values2.new_zeros(index.n_rows, values2.shape[1])
+    wide = values2.to(_sum_dtype(values2))
+    out = wide.new_zeros(index.n_rows, values2.shape[1])
     for k in range(int(degree.max()) if index.n_rows else 0):
         rows = (degree > k).nonzero().flatten()
-        out[rows] = out[rows] + values2[perm[start[rows] + k].long()]
-    return out
+        out[rows] = out[rows] + wide[perm[start[rows] + k].long()]
+    return out.to(values2.dtype)
 
 
 def segment_sum_ref(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
-    """Plain twin of the sum kernel: values (M, F) -> (n_rows, F); dropped
-    ids land in an extra row that is cut off."""
+    """Plain twin of the sum kernel: values (M, F) -> (n_rows, F), bf16
+    summed in f32 and cast once; dropped ids land in an extra row that is
+    cut off."""
     rows = torch.where(index.ids >= 0, index.ids, index.n_rows).long()
-    out = values2.new_zeros(index.n_rows + 1, values2.shape[1])
-    return out.index_add_(0, rows, values2)[:index.n_rows]
+    wide = values2.to(_sum_dtype(values2))
+    out = wide.new_zeros(index.n_rows + 1, values2.shape[1])
+    return out.index_add_(0, rows, wide)[:index.n_rows].to(values2.dtype)
 
 
 def gather_ref(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
@@ -181,43 +195,62 @@ def gather_ref(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
     return torch.where((index.ids >= 0)[:, None], rows, 0.0)
 
 
-def _check(name: str, x: torch.Tensor, index: SegmentIndex, rows: int) -> torch.Tensor:
+def _check(name: str, x: torch.Tensor, index: SegmentIndex, rows: int,
+           dtype: torch.dtype) -> torch.Tensor:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got {x.device}")
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] != rows:
-        raise ValueError(f"{name}: f32 ({rows}, F) expected, got {x.dtype} {tuple(x.shape)}")
+    if x.dtype != dtype or x.dim() != 2 or x.shape[0] != rows:
+        raise ValueError(f"{name}: {dtype} ({rows}, F) expected, got {x.dtype} {tuple(x.shape)}")
     if index.device != x.device:
         raise ValueError(f"{name}: ids on {index.device}, values on {x.device}")
     return x.contiguous()
 
 
 def _vectorized(*tensors) -> int:
-    """16-byte rows: F a multiple of 4 and every pointer 16-byte aligned."""
-    return int(all(t.shape[1] % 4 == 0 and t.data_ptr() % 16 == 0 for t in tensors))
+    """Rows of whole 16-byte vectors (F a multiple of 4 in f32, of 8 in
+    bf16) and every pointer 16-byte aligned."""
+    return int(all(t.shape[1] * t.element_size() % 16 == 0 and t.data_ptr() % 16 == 0
+                   for t in tensors))
 
 
-def segment_sum(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
-    """The sum kernel on CUDA tensors: values f32 (M, F) -> (n_rows, F)."""
-    values2 = _check("segment_sum", values2, index, index.ids.shape[0])
+def _launch_sum(entry: str, values2: torch.Tensor, index: SegmentIndex,
+                dtype: torch.dtype) -> torch.Tensor:
+    values2 = _check(entry, values2, index, index.ids.shape[0], dtype)
     perm, row_ptr = index.csr()
     order = index.long_first()
-    out = torch.empty(index.n_rows, values2.shape[1], dtype=torch.float32, device=values2.device)
+    out = torch.empty(index.n_rows, values2.shape[1], dtype=dtype, device=values2.device)
     with torch.cuda.device(values2.device):
-        err = _build.load().segment_sum_f32(
+        err = getattr(_build.load(), entry)(
             values2.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(), order.data_ptr(),
             out.data_ptr(), index.n_rows, values2.shape[1], _vectorized(values2, out),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "segment_sum_f32")
+    _build.check(err, entry)
+    return out
+
+
+def segment_sum(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The sum kernel on CUDA tensors: values f32 (M, F) -> (n_rows, F)."""
+    out = _launch_sum("segment_sum_f32", values2, index, torch.float32)
     segment_sum.launches += 1
     return out
 
 
+def segment_sum_bf16(values2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The sum kernel on CUDA tensors: values bf16 (M, F) -> (n_rows, F),
+    each element summed in f32 and rounded once."""
+    out = _launch_sum("segment_sum_bf16", values2, index, torch.bfloat16)
+    segment_sum_bf16.launches += 1
+    return out
+
+
 def gather_vec(F: int, *tensors) -> int:
-    """Floats a load of the gather moves: 4 (16 bytes) where F allows it and
-    every pointer lies on 16 bytes, 2 (8 bytes) likewise, else 1."""
-    return next(v for v in (4, 2, 1)
-                if F % v == 0 and all(t.data_ptr() % (4 * v) == 0 for t in tensors))
+    """Elements a load of the gather moves: a 16-byte vector (4 f32, 8
+    bf16) where F allows it and every pointer lies on 16 bytes, else 8
+    bytes likewise, then 4, else one element."""
+    size = tensors[0].element_size()
+    return next(v for v in (16 // size, 8 // size, 4 // size, 1)
+                if v >= 1 and F % v == 0 and all(t.data_ptr() % (size * v) == 0 for t in tensors))
 
 
 def gather_tiles(M: int, nv: int, depth: int) -> int:
@@ -237,41 +270,60 @@ def gather_plan(M: int, F: int, vec: int) -> tuple[int, int, int]:
     return depth, warps, max(1, -(-gather_tiles(M, nv, depth) // warps))
 
 
-def segment_gather(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
-    """The gather kernel on CUDA tensors: nodes f32 (n_rows, F) -> (M, F)."""
-    nodes2 = _check("segment_gather", nodes2, index, index.n_rows)
+def _launch_gather(entry: str, nodes2: torch.Tensor, index: SegmentIndex,
+                   dtype: torch.dtype) -> torch.Tensor:
+    nodes2 = _check(entry, nodes2, index, index.n_rows, dtype)
     M, F = index.ids.shape[0], nodes2.shape[1]
-    out = torch.empty(M, F, dtype=torch.float32, device=nodes2.device)
+    out = torch.empty(M, F, dtype=dtype, device=nodes2.device)
     vec = gather_vec(F, nodes2, out)
     depth, warps, blocks = gather_plan(M, F, vec)
     with torch.cuda.device(nodes2.device):
-        err = _build.load().segment_gather_f32(
+        err = getattr(_build.load(), entry)(
             nodes2.data_ptr(), index.ids.data_ptr(), out.data_ptr(), M, index.n_rows, F, vec,
             depth, warps, blocks, torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "segment_gather_f32")
+    _build.check(err, entry)
+    return out
+
+
+def segment_gather(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The gather kernel on CUDA tensors: nodes f32 (n_rows, F) -> (M, F)."""
+    out = _launch_gather("segment_gather_f32", nodes2, index, torch.float32)
     segment_gather.launches += 1
+    return out
+
+
+def segment_gather_bf16(nodes2: torch.Tensor, index: SegmentIndex) -> torch.Tensor:
+    """The gather kernel on CUDA tensors: nodes bf16 (n_rows, F) -> (M, F)."""
+    out = _launch_gather("segment_gather_bf16", nodes2, index, torch.bfloat16)
+    segment_gather_bf16.launches += 1
     return out
 
 
 segment_sum.launches = 0  # kernel launches in this process
 segment_gather.launches = 0
+segment_sum_bf16.launches = 0
+segment_gather_bf16.launches = 0
+SUM_KERNELS = {torch.float32: segment_sum, torch.bfloat16: segment_sum_bf16}
+GATHER_KERNELS = {torch.float32: segment_gather, torch.bfloat16: segment_gather_bf16}
 
 
-def _route(x: torch.Tensor, kernels: bool, kernel, twin):
+def _route(x: torch.Tensor, kernels: bool, table: dict, twin):
     if x.device.type == "cpu" or not kernels:
         return twin
     if x.device.type != "cuda":
         raise ValueError(f"segment ops: unsupported device {x.device}")
-    return kernel
+    if x.dtype not in table:
+        raise ValueError(f"segment ops: no kernel for {x.dtype} (f32 and bf16 only)")
+    return table[x.dtype]
 
 
 def _sum2d(values2, index, kernels: bool):
-    return _route(values2, kernels, segment_sum, segment_sum_ref)(values2, index)
+    return _route(values2, kernels, SUM_KERNELS, segment_sum_ref)(values2, index)
 
 
 def _gather2d(nodes2, index, kernels: bool):
-    return _route(nodes2, kernels, segment_gather, gather_ref)(nodes2, index)
+    return _route(nodes2, kernels, GATHER_KERNELS, gather_ref)(nodes2, index)
 
 
 class SegmentSum(torch.autograd.Function):

@@ -11,21 +11,25 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
   with ``n_layers``) keeps that axis (``…layers.attn.qkv.w`` (n, in, out)
   -> ``…layers.attn.qkv.weight`` (n, out, in)), for a stacked port backbone;
 - a convolution's ``w`` under a ``cnn`` list (the CNN patch encoder's
-  HWIO ``(kh, kw, in, out)``, the CNN decoder's WIO ``(k, in, out)``) ->
-  ``weight`` in torch's ``(out, in, kh, kw)`` / ``(out, in, k)``;
+  HWIO ``(kh, kw, in, out)``, the CNN decoder's WIO ``(k, in, out)``), and
+  any other 4-D ``w`` (DilResNet's HWIO kernels) -> ``weight`` in torch's
+  ``(out, in, kh, kw)`` / ``(out, in, k)``;
 - ``b`` -> ``bias``; a norm's ``scale`` -> ``weight``;
 - a quantized linear's ``w`` is a dict (``ops/quant.py``): its leaves land
   on the module itself (``ops/quant.QuantLinear``, ``NF4Linear``), the
   int8 ``q`` transposed to (out, in), ``scale`` and the nf4 leaves as
   they are (``…attn.q.w.q`` -> ``…attn.q.q``);
 - every other leaf (position tables, ``att``, LoRA ``A``/``B``/``m``,
-  ``bos``) keeps its name and layout;
+  ``bos``; GraphViT's GRU ``w_ih``/``w_hh``/``b_ih``/``b_hh`` and attention
+  ``in_w``/``in_b``, GATNet's ``lin``, ``lin_edge`` and ``att_*``, which the
+  port's modules keep in the JAX layout) keeps its name and layout;
 - a ``None`` leaf (an MLP without LayerNorm, ``"ln": None``) has no
   parameter.
 
-The same bridge takes the graph baselines' ``mgn_init`` / ``gat_init``
-trees (``models/baselines``); ``from_jax_norm`` takes their normalizer
-trees.
+The same bridge takes the baselines' ``mgn_init``, ``gat_init``,
+``graphvit_init``, ``gatnet_init`` and ``dilresnet_init`` trees
+(``models/baselines``); ``from_jax_norm`` takes the normalizer trees of
+MeshGraphNet and GAT.
 
 Loading the reference's ``.pt`` checkpoints (``tools/reference_ckpt.py``)
 comes later.
@@ -64,7 +68,8 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
                 prefix = prefix[:-1]  # the quantized weight's leaves
                 if name == "q":
                     t = t.transpose(-1, -2).contiguous()
-            elif name == "w" and "cnn" in prefix:  # (*spatial, in, out) -> (out, in, *spatial)
+            elif name == "w" and ("cnn" in prefix or t.dim() == 4):
+                # a convolution: (*spatial, in, out) -> (out, in, *spatial)
                 n = t.dim()
                 name, t = "weight", t.permute(n - 1, n - 2, *range(n - 2)).contiguous()
             elif name == "w":

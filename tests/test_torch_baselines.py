@@ -30,7 +30,6 @@ entry whose sign differs moves a parameter by 2 lr.
 
 import argparse
 import functools
-import os
 
 import jax
 import jax.numpy as jnp
@@ -133,11 +132,6 @@ def test_iterate_graph_batches_matches_jax():
     for t, j in zip(tb, jb):
         for k in ARRAYS:
             np.testing.assert_array_equal(t[k], j[k], err_msg=k)
-
-
-def test_synthetic_graph_dataset_refuses_clusters():
-    with pytest.raises(NotImplementedError, match="GraphViT"):
-        SyntheticGraphDataset(n_cluster=4)
 
 
 # -- normalizer ------------------------------------------------------------------
@@ -325,11 +319,3 @@ def test_cli_epoch_then_reload(tmp_path):
     assert again["train_steps"] == 0
     np.testing.assert_array_equal(again["n_rmse"], first["n_rmse"])
     assert np.isfinite(first["n_rmse"]).all() and first["eval_steps"] == 2 * 5
-
-
-@pytest.mark.parametrize("flags", [["--model", "graphvit"], ["--model", "dilresnet"],
-                                   ["--model", "mgn", "--dtype", "bf16"]], ids=" ".join)
-def test_cli_raises_for_what_is_not_ported(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        baselines_cli.main(flags + ["--device", "cpu", "--save_dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)

@@ -48,7 +48,11 @@ bit for bit, also in a graph; exact attention and the flash forward too
 row's edges ascending, added in f32 from 0) bit for bit at F 1, 2, 32 and
 128, dropped ids and the 132-edge ghost row included, also from a graph;
 the gather equals its twin bit for bit under every plan at F 1, 2, 3, 128
-and 132, ids out of range and rows off 16 bytes included.
+and 132, ids out of range and rows off 16 bytes included.  Both hold at
+GraphViT's unsorted member ids (F 2, 32, 64, 512), and in bf16 (F 1, 32,
+128, 512; the sum against the walk on the values in f32, rounded once);
+a GraphViT train step in f32 and bf16 agrees with its twins and launches
+what the code counts.
 A gradient that is zero in exact arithmetic (dq and dk of rows that see
 only their diagonal) is held to rounding noise, 1e-4 of |dout|, instead.
 """
@@ -1017,6 +1021,162 @@ def test_mgn_step_launches_and_agreement_on_card(dev):
     # within rounding of 0: the gradient bound is chip_smoke's GRAPH_GRAD_TOL
     assert abs(res[True][0] - res[False][0]) <= 1e-5 * abs(res[False][0])
     assert _rel(res[True][1], res[False][1]) <= 1e-3
+
+
+# -- the segment kernels in bf16 and at GraphViT's cluster ids -----------------
+
+def graphvit_launches(nb_gn: int):
+    """(gathers, sums) of one GraphViT rollout step, forward and backward.
+    Forward: positions (F 2) at both edge ends and by member; 2 gathers and
+    1 sum in each of the nb_gn encoder blocks and the retrieve block; the
+    node features (F 128) and the encoding (F 64) by member; the relative
+    encoding (F 32) and the tokens (F w_size) summed into members.
+    Backward: each gather of the blocks' and the members' node features is
+    summed back, each sum of edge features and of the tokens gathered back;
+    the position gathers and the encoding's sum take no gradient."""
+    blocks = nb_gn + 1
+    return (3 + 2 * blocks + 2, 1 + blocks + 1), (blocks + 1, 2 * blocks + 1)
+
+
+@pytest.fixture(scope="module")
+def graphvit_batch():
+    """One collated GraphViT batch at the EAGLE geometry (synthetic mesh
+    84x42, batch 4, clusters of 10), RCM-relabeled as ``baselines_cli``
+    does in f32: the member ids unsorted."""
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.reorder import reorder_sample
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+
+    ds = SyntheticGraphDataset(n_trajectories=4, mode="train", window_length=2,
+                               mesh_nodes=(84, 42), n_cluster=10)
+    samples = [reorder_sample(ds[i], "rcm") for i in range(4)]
+    return collate_graphs(samples, max(s.mesh_pos.shape[1] for s in samples),
+                          max(s.edges.shape[0] for s in samples),
+                          max(s.cluster.shape[1] for s in samples), ghost_type_value=2)
+
+
+@pytest.mark.parametrize("F", [2, 32, 64, 512])
+def test_segment_kernels_at_graphvit_cluster_ids(dev, graphvit_batch, F):
+    """The f32 sum equal to the walk of its CSR and the gather to its twin,
+    bit for bit, by GraphViT's member ids (ghost slots dropped)."""
+    from fluid_llm_tpu_torch.models.baselines.graphvit import member_index
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    b = graphvit_batch
+    N = b["mesh_pos"].shape[2]
+    index = member_index(torch.from_numpy(b["cluster"][:, 0]),
+                         torch.from_numpy(b["cluster_mask"][:, 0]), N)
+    ids = index.ids.view(4, -1)
+    assert bool((ids[:, 1:] < ids[:, :-1]).any()) and bool((ids < 0).any())
+    g = torch.Generator().manual_seed(F)
+    vals = torch.randn(index.ids.shape[0], F, generator=g)
+    nodes = torch.randn(index.n_rows, F, generator=g)
+    index_dev = member_index(torch.from_numpy(b["cluster"][:, 0]).to(dev),
+                             torch.from_numpy(b["cluster_mask"][:, 0]).to(dev), N)
+    got = so.segment_sum(vals.to(dev), index_dev)
+    gathered = so.segment_gather(nodes.to(dev), index_dev)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), so.csr_walk(vals, index))
+    assert torch.equal(gathered.cpu(), so.gather_ref(nodes, index))
+
+
+@pytest.mark.parametrize("F", [1, 32, 128, 512])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bf16_segment_kernels_are_their_twins_bit_for_bit(dev, F, offset):
+    """bf16 values by unsorted ids with dropped ones (== N, beyond, < 0):
+    the sum equal to ``csr_walk`` (f32 sums in the kernel's order, one
+    rounding) bit for bit, within one rounding of ``segment_sum_ref`` (f32
+    atomics on the card, then one rounding), and repeated bit for bit; the
+    gather equal to ``gather_ref`` bit for bit, node rows off 16 bytes too
+    (``offset`` elements into a buffer); the launches counted by the bf16
+    wrappers alone."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(F + offset)
+    B, E, N = 3, 4000, 700
+    ids = torch.randint(0, N, (B, E), generator=g)
+    ids[:, -40:] = N
+    ids[0, 3:9] = N + 11
+    ids[2, 100] = -5
+    ids[1, 500:640] = 7  # a row of 140 edges: 18 rounds of the wide walk
+    index = so.SegmentIndex(ids.to(dev), N)
+    vals = torch.randn(B * E, F, generator=g).to(torch.bfloat16)
+    buf = torch.randn(B * N * F + offset, generator=g).to(torch.bfloat16).to(dev)
+    nodes = buf[offset:].view(B * N, F)
+    before = {k: getattr(so, k).launches for k in
+              ("segment_sum", "segment_gather", "segment_sum_bf16", "segment_gather_bf16")}
+    got = so.segment_sum_bf16(vals.to(dev), index)
+    gathered = so.segment_gather_bf16(nodes, index)
+    torch.cuda.synchronize()
+    after = {k: getattr(so, k).launches - v for k, v in before.items()}
+    assert after == {"segment_sum": 0, "segment_gather": 0, "segment_sum_bf16": 1,
+                     "segment_gather_bf16": 1}
+    assert got.dtype == gathered.dtype == torch.bfloat16
+    assert torch.equal(got, so.csr_walk(vals.to(dev), index))
+    assert torch.equal(got.cpu(), so.csr_walk(vals, so.SegmentIndex(ids, N)))
+    twin = so.segment_sum_ref(vals.to(dev), index).float()
+    assert bool(((got.float() - twin).abs() <= 2 ** -7 * twin.abs()).all())
+    assert torch.equal(so.segment_sum_bf16(vals.to(dev), index), got)
+    assert torch.equal(gathered, so.gather_ref(nodes, index))
+    with pytest.raises(ValueError):
+        so.segment_sum(vals.to(dev), index)  # the f32 wrapper refuses bf16
+    with pytest.raises(ValueError):
+        so.segment_sum_nodes(vals.to(dev, torch.float16).view(B, E, F), index, N)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_graphvit_step_launches_and_agreement_on_card(dev, dtype):
+    """A GraphViT (w_size 512, 3 GNN blocks as published less one, 2
+    attention blocks) train-mode loss and gradient through the kernels
+    against the twins on a small mesh, as ``baselines_cli --dtype`` runs
+    it, and the launches of one window of 2 steps (``graphvit_launches`` a
+    step; under bf16 the position gathers and the encoding's sum stay
+    f32)."""
+    import argparse
+
+    from fluid_llm_tpu_torch import baselines_cli as cli
+    from fluid_llm_tpu_torch.data.eagle_mesh import collate_graphs
+    from fluid_llm_tpu_torch.data.reorder import reorder_sample
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticGraphDataset
+    from fluid_llm_tpu_torch.models.baselines.graphvit import GraphViT
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    args = argparse.Namespace(model="graphvit", dtype=dtype, noise_std=0.0, alpha=0.1)
+    ds = SyntheticGraphDataset(n_trajectories=2, mode="valid", window_length=3, n_cluster=10)
+    samples = [reorder_sample(ds[i], cli.order_mode(args)) for i in range(2)]
+    b = collate_graphs(samples, max(s.mesh_pos.shape[1] for s in samples),
+                       max(s.edges.shape[0] for s in samples),
+                       max(s.cluster.shape[1] for s in samples), ghost_type_value=2)
+    batch = cli.to_device(b, dev)
+    model = GraphViT(4, 512, n_attention=2, nb_gn=3, generator=torch.Generator().manual_seed(0))
+    model.to(dev)
+    names = ("segment_gather", "segment_sum", "segment_gather_bf16", "segment_sum_bf16")
+    res = {}
+    for kernels in (True, False):
+        model.kernels = kernels
+        model.zero_grad(set_to_none=True)
+        before = {k: getattr(so, k).launches for k in names}
+        _, oh, tgt, _ = cli.apply_model(args, model, {}, batch, train=True)
+        loss = cli.graph_loss(args, oh, tgt, batch["mask"])
+        loss.backward()
+        ran = {k: getattr(so, k).launches - before[k] for k in names}
+        fwd, bwd = graphvit_launches(3)
+        if not kernels:
+            want = dict.fromkeys(names, 0)
+        elif dtype == "f32":
+            want = dict(segment_gather=2 * (fwd[0] + bwd[0]), segment_sum=2 * (fwd[1] + bwd[1]),
+                        segment_gather_bf16=0, segment_sum_bf16=0)
+        else:  # f32: the 3 position gathers and the encoding's sum a step
+            want = dict(segment_gather=2 * 3, segment_sum=2 * 1,
+                        segment_gather_bf16=2 * (fwd[0] - 3 + bwd[0]),
+                        segment_sum_bf16=2 * (fwd[1] - 1 + bwd[1]))
+        assert ran == want
+        res[kernels] = (loss.item(), torch.cat([p.grad.flatten() for p in model.parameters()]))
+    # f32: the twins' atomics move the last bits (chip_smoke's GRAPH_*_TOL);
+    # bf16: those moves are rounded to bf16 (8 bits) where they land
+    loss_tol, grad_tol = (1e-5, 1e-3) if dtype == "f32" else (1e-2, 5e-2)
+    assert abs(res[True][0] - res[False][0]) <= loss_tol * abs(res[False][0])
+    assert _rel(res[True][1], res[False][1]) <= grad_tol
 
 
 # -- the indexed linear and short attention ------------------------------------
