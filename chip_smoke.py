@@ -210,11 +210,34 @@ Phases, each printing one line per result; any failure exits nonzero:
                through ``baselines_cli`` on synthetic cylinder grids at
                238x238 (1 epoch, the 101-step eval, finite N-RMSE, its
                step ms); GATNet one forward and backward
-               at the EAGLE edges, kernels vs twins.  Each of 17-20 prints
-               its seconds.
+               at the EAGLE edges, kernels vs twins.  Each of 17-21 prints
+               its seconds;
+21. MoE and quantized backbones -- ``configs/moe_cylinder.yaml`` as
+               published (OPT-125m width, 6 layers, 4 experts top-2, cf
+               1.25, bf16): the 251-step exact rollout through
+               ``test_generate`` (the MoE final block runs whole: exact
+               attention 6x251, slot 3x251), 50-step rates kernels and
+               twins, 10 steps kernels vs twins (step 1 <= MOE_REL_TOL,
+               the share of valid tokens routed to another expert set at
+               step 1 <= MOE_FLIP_TOL); 4 autoreg steps through ``Trainer``
+               (6 flash fwd/dq/dk-dv, 3 slot fwd/bwd a step; loss falling,
+               ``moe_aux`` finite and positive, router and bank gradients),
+               one expert_choice step (aux 0), ``main`` 1 epoch and
+               ``inference --checkpoint_dir`` 25 steps; the flagship with a
+               MoE MLP (4 experts top-2 cf 1.25) streamed 251 steps
+               (slab decode 12x252) and ``apply_streaming`` over 5 frames
+               against the banded dense forward; ``tools.serve --quant
+               int8`` on the MoE checkpoint (25-step request: w8a16 4x6 a
+               step, exact 6 a step; int8 vs dense < 0.05);
+               ``training1.yaml`` trained over an nf4 (``llm_4bit_loading``),
+               an int8 (w8a16 under autograd, 48 a step) and a bf16
+               (``frozen_bf16``) frozen backbone: adapters move, frozen
+               storage bit-identical, the nf4 checkpoint restored bit for
+               bit; the flagship as int8 streamed 25 steps stacked and
+               unrolled, equal bit for bit (w8a16 7x12x26, indexed 0).
 
 Phases 8 to 13 share one temporary folder, removed at the end, phases
-17 and 18 another, and phase 20 a third.  Phases 14
+17 and 18 another, phase 20 a third and phase 21 a fourth.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
@@ -2944,6 +2967,499 @@ def phase_switches(dev, seed: int, failures: list, n_steps: int = 3) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# phase 21: MoE backbones and training over quantized frozen backbones
+# --------------------------------------------------------------------------
+
+MOE = os.path.join(os.path.dirname(CONFIG), "moe_cylinder.yaml")
+MOE_OVERRIDE = {"experts": 4, "top_k": 2, "capacity_factor": 1.25}  # the flagship's MoE cell
+# Bounds on a MoE path, kernels vs twins (bf16).  Where every token keeps
+# its experts the dense bound REL_TOL holds.  A token whose top-k router
+# scores are tied within the kernels' rounding (~2e-3 of logits ~0.5 wide)
+# may take another expert set on one side: MOE_FLIP_TOL bounds the share
+# of valid token-layers that do.  A flipped token's MLP output differs by
+# about its own size, so over a frame's rows the flipped tokens add about
+# sqrt(share) x |MLP out| / |residual| to the relative L2 error (through
+# later layers and attention too): at the 2 % bound and an MLP output of
+# ~1/3 of the residual stream (an assumption, not measured), ~0.05.
+MOE_FLIP_TOL = 0.02
+MOE_REL_TOL = 5e-2
+
+
+class RouteLog:
+    """Records ``moe_dispatch``'s expert choices (``Routing.chosen``, valid
+    tokens only) while it is patched in, one entry a MoE layer call."""
+
+    def __init__(self):
+        from fluid_llm_tpu_torch.models import backbone as bb
+
+        self.bb, self.calls = bb, []
+
+    def __enter__(self):
+        real = self.bb.moe_dispatch
+
+        def record(probs, cfg, valid=None, capacity_tokens=None):
+            r = real(probs, cfg, valid, capacity_tokens)
+            ok = torch.ones(probs.shape[:2], dtype=torch.bool, device=probs.device) \
+                if valid is None else valid.bool()
+            self.calls.append((r.chosen > 0, ok))
+            return r
+
+        self._patch = mock.patch.object(self.bb, "moe_dispatch", record)
+        self._patch.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.__exit__(*exc)
+
+
+def flip_share(a: list, b: list) -> tuple[float, int]:
+    """Share of valid routed tokens whose expert set differs between two
+    logs of the same calls, and the count of such tokens."""
+    differ = total = 0
+    for (ca, va), (cb, vb) in zip(a, b, strict=True):
+        valid = va & vb
+        differ += int(((ca != cb).any(-1) & valid).sum())
+        total += int(valid.sum())
+    return differ / max(total, 1), differ
+
+
+def phase_moe_rollout(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``configs/moe_cylinder.yaml`` as published (OPT-125m width, 6 layers,
+    4 experts top-2, cf 1.25, bf16) with seeded random weights: the 251-step
+    exact rollout through ``inference.test_generate`` (the final block runs
+    whole, so exact attention launches every layer of every step), steps/s
+    through the kernels and the twins, a 10-step agreement with the share
+    of tokens routed differently."""
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.rollout.generate import gen_seq, generate
+
+    cfg = Config.from_yaml(MOE).replace(load_dir="synthetic:1")
+    t0 = time.perf_counter()
+    model = inference.build_seeded_model(cfg, seed, dev)
+    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    batch = next(make_batches(test_ds, 1, shuffle=False, device=dev))
+    setup_s = time.perf_counter() - t0
+    bcfg = model.backbone_cfg
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=1, pred_steps=STEPS)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    want = _want(launches, exact_attention=bcfg.n_layers * STEPS,
+                 grid_slot_attention=cfg.decoder_params.gnn_layers * STEPS)
+    finite = per_step.shape == (STEPS,) and bool(torch.isfinite(torch.from_numpy(per_step)).all())
+    rates, n_rate = {}, min(50, STEPS)
+    for kernels in (True, False):
+        model.kernels = kernels
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        states, _ = gen_seq(model, batch, n_rate)
+        torch.cuda.synchronize()
+        rates[kernels] = n_rate / (time.perf_counter() - t1)
+        finite = finite and bool(torch.isfinite(states).all())
+    states, _, _, bc_mask, position_ids = batch
+    out, logs = {}, {}
+    n_agree = min(10, STEPS)
+    for kernels in (True, False):
+        model.kernels = kernels
+        with RouteLog() as log:
+            out[kernels] = generate(model, states[:, :1], bc_mask, position_ids, n_agree)[1]
+        logs[kernels] = log.calls
+    model.kernels = True
+    errs = [rel_err(out[True][:, i], out[False][:, i]) for i in range(n_agree)]
+    n = bcfg.n_layers
+    flips1, n_flips1 = flip_share(logs[True][:n], logs[False][:n])
+    flips, _ = flip_share(logs[True], logs[False])
+    ok = (launches == want and finite and len(logs[True]) == n_agree * n
+          and errs[0] <= MOE_REL_TOL and flips1 <= MOE_FLIP_TOL)
+    n_prof = min(10, STEPS)
+    busy_ms, n_ops, idle, top = device_profile(
+        lambda: generate(model, states[:, :1], bc_mask, position_ids, n_prof), 1,
+        n_prof * 1e3 / rates[True], f"moe rollout {n_prof} steps")
+    print(f"[moe rollout] {cfg.llm_backbone}: {n} layers, d {bcfg.d_model}, {bcfg.moe_experts} "
+          f"experts top-{bcfg.moe_top_k} ({bcfg.moe_router}), cf {bcfg.moe_capacity_factor}, "
+          f"{bcfg.dtype}; set-up {setup_s:.1f} s; test_generate {STEPS} steps in {wall:.3f} s: "
+          f"mean N-RMSE {mean:.5f}, peak device memory {peak_mib:.1f} MiB; launches {launches} "
+          f"(want {want}); {n_rate}-step rollouts {rates[True]:.2f} steps/s through the kernels, "
+          f"{rates[False]:.2f} through the twins")
+    print(f"[moe rollout agreement] diffs rel err per step, kernels vs twins: "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 bound MOE_REL_TOL {MOE_REL_TOL}); "
+          f"valid tokens routed to another expert set: step 1 {flips1:.4%} ({n_flips1} "
+          f"token-layers; bound MOE_FLIP_TOL {MOE_FLIP_TOL:.0%}), over {n_agree} steps {flips:.4%} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"moe rollout: launches {launches} (want {want}), finite {finite}, "
+                        f"step 1 rel {errs[0]}, flips {flips1}")
+    return dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean, peak_mem_mib=peak_mib,
+                launches=launches, steps_per_s=rates[True], plain_steps_per_s=rates[False],
+                agreement_rel_err=errs, flip_share_step1=flips1, flip_share_steps=flips,
+                profile=dict(steps=n_prof, device_busy_ms=busy_ms, device_ops=n_ops,
+                             idle_share=idle, top_device_ms=top))
+
+
+def _train_steps(trainer, batch, n: int, kernels: bool = True) -> tuple[list, list, list]:
+    """``n`` autoreg steps: losses, ``moe_aux`` (None for a dense model) and
+    step ms."""
+    trainer.model.kernels = kernels
+    losses, aux, ms = [], [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        aux.append(m["moe_aux"].item() if "moe_aux" in m else None)
+    trainer.model.kernels = True
+    return losses, aux, ms
+
+
+def _train_launches(bcfg, convs: int, steps: int, **extra) -> dict:
+    per_step = dict(flash_attention_fwd=bcfg.n_layers, flash_attention_dq=bcfg.n_layers,
+                    flash_attention_dkv=bcfg.n_layers, grid_slot_attention=convs,
+                    grid_slot_attention_bwd=convs, **extra)
+    return _want(read_launches(), **{k: v * steps for k, v in per_step.items()})
+
+
+def phase_moe_train(dev, seed: int, failures: list, tmp: str) -> dict:
+    """The MoE config through ``Trainer`` (4 autoreg steps on one batch of
+    8 through the kernels, 2 through the twins; launches, loss and aux),
+    one expert_choice step, then ``main`` for 1 epoch and ``inference.main
+    --checkpoint_dir`` from its checkpoint (25 steps)."""
+    import dataclasses
+
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch import main as train_main
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+
+    cfg = Config.from_yaml(MOE).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed)
+    train_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    batch = next(make_batches(train_ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+    res, convs = {}, cfg.decoder_params.gnn_layers
+    for router, n_k, n_t in (("topk", 4, 2), ("expert_choice", 1, 0)):
+        c = cfg.replace(moe=dataclasses.replace(cfg.moe, router=router))
+        trainer = build_model_and_trainer(c, train_ds.ds_props(), dev)
+        mlp = trainer.model.backbone.layers[0].mlp
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, aux, ms = _train_steps(trainer, batch, n_k)
+        want = _train_launches(trainer.model.backbone_cfg, convs, n_k)
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        plain_ms = _train_steps(trainer, batch, n_t, kernels=False)[2] if n_t else []
+        prof = device_profile(lambda: trainer.train_step(batch)["loss"].item(), 2,
+                              statistics.median(ms[1:]), f"moe train {router}") if n_t else None
+        grads = all(p.grad is not None and bool(p.grad.abs().sum() > 0)
+                    for p in (mlp.router.weight, mlp.experts["fc1"].weight))
+        ok = (launches == want and all(math.isfinite(x) for x in losses + aux) and grads
+              and (losses[-1] < losses[0] if n_k > 1 else True)
+              and ((min(aux) > 0) if router == "topk" else aux == [0.0] * n_k))
+        print(f"[moe train] {router}: {n_k} autoreg steps on one batch of {TRAIN_BS} "
+              f"({TRAIN_TOKENS} tokens): loss {', '.join(f'{x:.5f}' for x in losses)}, moe_aux "
+              f"{', '.join(f'{x:.5f}' for x in aux)}; step ms through the kernels "
+              f"{', '.join(f'{x:.1f}' for x in ms)}, through the twins "
+              f"{', '.join(f'{x:.1f}' for x in plain_ms) or '-'}; peak device memory "
+              f"{peak_mib:.1f} MiB; router and expert gradients {grads}; launches {launches} "
+              f"(want {want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"moe train {router}: losses {losses}, aux {aux}, launches "
+                            f"{launches} (want {want}), grads {grads}")
+        res[router] = dict(losses=losses, moe_aux=aux, step_ms=ms, plain_step_ms=plain_ms,
+                           peak_mem_mib=peak_mib, launches=launches, profile=prof)
+        n_layers = trainer.model.backbone_cfg.n_layers
+        del trainer, mlp
+
+    runs = os.path.join(tmp, "moe_runs")
+    cfg_path = os.path.join(tmp, "moe.yaml")
+    cfg.replace(num_epochs=1, checkpoint_save_path=runs).to_yaml(cfg_path)
+    t0 = time.perf_counter()
+    train_main.main(["--config_path", cfg_path, "--device", str(dev)])
+    res["main_s"] = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    mean = inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir",
+                           "synthetic:1", "--seq_len", "27", "--pred_steps", "25"])
+    res.update(inference_s=time.perf_counter() - t0, inference_n_rmse=mean,
+               inference_launches=read_launches(), runs=runs)
+    want = _want(res["inference_launches"], exact_attention=n_layers * 25,
+                 grid_slot_attention=convs * 25)
+    ok = math.isfinite(mean) and res["inference_launches"] == want
+    print(f"[moe train] main 1 epoch of moe_cylinder.yaml on synthetic:{TRAIN_BS} in "
+          f"{res['main_s']:.1f} s; inference --checkpoint_dir, 25 steps in "
+          f"{res['inference_s']:.1f} s: N-RMSE {mean:.5f}, launches "
+          f"{res['inference_launches']} (want {want}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"moe main/inference: N-RMSE {mean}, launches "
+                        f"{res['inference_launches']} (want {want})")
+    return res
+
+
+def phase_moe_streaming(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``configs/flagship_llama.yaml`` with a MoE MLP (4 experts, top-2, cf
+    1.25: ``fluid/llama-125m`` gate/up/down banks) through
+    ``test_generate(streaming=True)``, 251 steps; then
+    ``test_moe_streaming_equals_banded_dense`` on the card: the backbone
+    stepped frame by frame through ``apply_streaming`` (5 frames, a ring of
+    3) against one dense forward of the same tokens under the banded mask,
+    at ample capacity (cf 8: streaming sizes C per decode chunk, the dense
+    forward per stream, ``backbone.py:1297-1308``)."""
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.config import Config, MoEConfig
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.models import backbone as bb
+
+    cfg = Config.from_yaml(FLAGSHIP).replace(load_dir="synthetic:1",
+                                             moe=MoEConfig(**MOE_OVERRIDE))
+    model = inference.build_seeded_model(cfg, seed, dev)
+    bcfg = model.backbone_cfg
+    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    reset_launches()
+    t0 = time.perf_counter()
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=1, pred_steps=STEPS,
+                                             streaming=True)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    want = _want(launches, slab_decode_attention=bcfg.n_layers * (STEPS + 1),
+                 grid_slot_attention=cfg.decoder_params.gnn_layers * STEPS)
+    finite = bool(torch.isfinite(torch.from_numpy(per_step)).all())
+
+    # the banded oracle, on the model's own token stream
+    states, _, _, _, pos_ids = next(make_batches(test_ds, 1, shuffle=False, device=dev))
+    T, R, n_patch = min(5, states.shape[1]), 3, states.shape[2]
+    spatial = pos_ids[:, :1, :, :2]
+    frame = lambda f, t: model.embed_frames(states[:, f:f + 1], torch.cat(
+        [spatial, torch.full_like(spatial[..., :1], t)], dim=-1))
+    with torch.no_grad():
+        x = torch.cat([model.bos.to(bcfg.dtype).expand(1, 1, -1), frame(0, 0)]
+                      + [frame(f, f) for f in range(T)], dim=1)
+    frame_of = torch.tensor([-1] * (1 + n_patch) + [f for f in range(T) for _ in range(n_patch)],
+                            device=dev)
+    pos = torch.arange(x.shape[1], device=dev)
+    qf, kf = frame_of[:, None], frame_of[None, :]
+    allowed = (pos[:, None] >= pos[None, :]) & ((kf == -1) | (kf > qf - R))
+    backbone, n_sink = model.backbone, 1 + n_patch
+    backbone.cfg = bcfg.replace(moe_capacity_factor=8.0)
+    try:
+        with torch.no_grad(), RouteLog() as dense_log:
+            dense = backbone(x, positions=pos[None], allowed=allowed[None, None])
+        cache = bb.init_streaming_cache(backbone.cfg, 1, n_sink, R, n_patch, device=dev)
+        reset_launches()
+        with torch.no_grad(), RouteLog() as stream_log:
+            bb.apply_streaming(backbone, x[:, :n_sink], pos[:n_sink], cache, 0, prefill=True)
+            ys = [bb.apply_streaming(backbone, x[:, lo:lo + n_patch], pos[lo:lo + n_patch], cache,
+                                     f % R)[0]
+                  for f, lo in enumerate(range(n_sink, x.shape[1], n_patch))]
+        oracle_launches = read_launches()
+    finally:
+        backbone.cfg = bcfg
+    errs = [rel_err(y, dense[:, n_sink + f * n_patch:n_sink + (f + 1) * n_patch])
+            for f, y in enumerate(ys)]
+    n = bcfg.n_layers
+    # streaming routes the prefill and each frame per layer; the dense pass each layer once
+    chunks = [stream_log.calls[i * n:(i + 1) * n] for i in range(T + 1)]
+    stream_by_layer = [(torch.cat([c[li][0] for c in chunks], 1),
+                        torch.cat([c[li][1] for c in chunks], 1)) for li in range(n)]
+    flips, n_flips = flip_share(stream_by_layer, dense_log.calls)
+    ok = (launches == want and finite and oracle_launches["slab_decode_attention"] == n * (T + 1)
+          and max(errs) <= MOE_REL_TOL and flips <= MOE_FLIP_TOL)
+    print(f"[moe streaming] flagship_llama.yaml with moe {MOE_OVERRIDE}: {n} layers "
+          f"({bcfg.family}, gate/up/down banks), {bcfg.dtype}; test_generate(streaming=True) "
+          f"{STEPS} steps in {wall:.3f} s: mean N-RMSE {mean:.5f}, launches {launches} (want "
+          f"{want}); apply_streaming over {T} frames (ring {R}) against the banded dense forward "
+          f"(cf 8): rel err per frame {', '.join(f'{e:.3e}' for e in errs)} (bound MOE_REL_TOL "
+          f"{MOE_REL_TOL}), tokens routed to another expert set {flips:.4%} ({n_flips}; bound "
+          f"{MOE_FLIP_TOL:.0%}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"moe streaming: launches {launches} (want {want}), finite {finite}, "
+                        f"oracle {oracle_launches}, rel {errs}, flips {flips}")
+    return dict(test_generate_s=wall, mean_n_rmse=mean, launches=launches,
+                banded_rel_err=errs, banded_flip_share=flips)
+
+
+def phase_moe_serve(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``tools.serve`` with ``--quant int8`` (w8a16, the default; the expert
+    banks int8 and dequantised at use, the router float) on the MoE
+    checkpoint of ``phase_moe_train``, over HTTP on 127.0.0.1: one 25-step
+    request and its launches (attention linears through w8a16, exact
+    attention every layer), then int8 against the dense engine over 3
+    steps, the bound of phase 11."""
+    import threading
+
+    import numpy as np
+
+    from fluid_llm_tpu_torch.tools import serve as srv
+
+    runs = os.path.join(tmp, "moe_runs")
+    eng = srv.load_engine(runs, buckets=(3, 25), quant="int8", device=str(dev))
+    bcfg = eng.model.backbone_cfg
+    httpd = srv.serve(eng, "127.0.0.1", 0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    try:
+        grid, mask = _client_frames(eng.dataset, 1)
+        eng.warmup()
+        reset_launches()
+        pred, _, wall = _post(f"http://127.0.0.1:{httpd.server_address[1]}", grid, mask, 25)
+        launches = read_launches()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join()
+    convs = eng.cfg.decoder_params.gnn_layers
+    want = _want(launches, exact_attention=bcfg.n_layers * 25,
+                 quant_matmul_w8a16=4 * bcfg.n_layers * 25, grid_slot_attention=convs * 25)
+    dense = srv.load_engine(runs, buckets=(3, 25), device=str(dev))
+    quant_pred, dense_pred = eng.predict(grid, mask, 3), dense.predict(grid, mask, 3)
+    q_vs_d = float(np.abs(quant_pred - dense_pred).mean() / (np.abs(dense_pred).mean() + 1e-6))
+    banks = eng.model.backbone.layers[0].mlp.experts["fc1"]
+    ok = (launches == want and not eng.streaming and bool(np.isfinite(pred).all())
+          and pred.shape == (25, 3, *grid.shape[-2:]) and q_vs_d < 0.05
+          and banks.q.dtype == torch.int8 and banks.q.dim() == 3)
+    print(f"[moe serve] load_engine(quant=int8) of the MoE checkpoint: exact rollout, expert "
+          f"banks {tuple(banks.q.shape)} int8; one 25-step request over HTTP in {wall:.3f} s; "
+          f"launches {launches} (want {want}); int8 vs dense engines, 3 steps: mean |diff| / "
+          f"mean |dense| {q_vs_d:.4e} (bound 0.05) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"moe serve: launches {launches} (want {want}), int8 vs dense {q_vs_d}")
+    return dict(request_s=wall, launches=launches, int8_vs_dense=q_vs_d)
+
+
+def _frozen_tensors(model) -> dict:
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    return {n: t.detach().clone() for n, t in model.state_dict().items() if n not in trainable}
+
+
+def phase_quant_train(dev, seed: int, failures: list, tmp: str) -> dict:
+    """``training1.yaml`` (OPT-125m, DoRA r16 on q/v) trained over a frozen
+    backbone stored three ways, each through ``build_model_and_trainer``:
+    ``llm_4bit_loading: true`` (nf4; 3 steps: adapters move, the frozen
+    storage stays bit-identical, a checkpoint restores it bit for bit into
+    a zeroed template); int8 (``quantize_backbone``; the k, o, fc1 and fc2
+    linears through ``Int8Matmul``, the w8a16 kernel, under autograd); and
+    ``frozen_bf16: true``."""
+    import copy
+
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.ops.quant import NF4Linear, quantize_backbone
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    cfg = Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed)
+    train_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    batch = next(make_batches(train_ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+    convs, res = cfg.decoder_params.gnn_layers, {}
+    for kind, n_steps in (("nf4", 3), ("int8", 2), ("frozen_bf16", 2)):
+        t0 = time.perf_counter()
+        c = cfg.replace(llm_4bit_loading=kind == "nf4", frozen_bf16=kind == "frozen_bf16")
+        trainer = build_model_and_trainer(c, train_ds.ds_props(), dev)
+        model = trainer.model
+        if kind == "int8":
+            quantize_backbone(model.backbone, "int8")
+        setup_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        frozen = _frozen_tensors(model)
+        adapters = {n: p.detach().clone() for n, p in model.named_parameters()
+                    if n.startswith("lora.")}
+        reset_launches()
+        losses, _, ms = _train_steps(trainer, batch, n_steps)
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        extra = dict(quant_matmul_w8a16=4 * model.backbone_cfg.n_layers) if kind == "int8" else {}
+        want = _train_launches(model.backbone_cfg, convs, n_steps, **extra)
+        params = dict(model.named_parameters())
+        moved = all(not torch.equal(params[n], t) for n, t in adapters.items()
+                    if n.endswith((".B", ".m")))
+        still = all(torch.equal(t, frozen[n]) and t.dtype == frozen[n].dtype
+                    for n, t in _frozen_tensors(model).items())
+        dtypes = sorted({str(t.dtype).replace("torch.", "") for t in frozen.values()})
+        ok = (launches == want and all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0] and moved and still)
+        detail = ""
+        if kind == "nf4":
+            ok = ok and isinstance(model.backbone.layers[11].mlp["fc2"], NF4Linear)
+            ckpt.save_checkpoint(tmp, 1, model, trainer.opt, 1, c)
+            template = copy.deepcopy(model)
+            with torch.no_grad():
+                for t in template.state_dict().values():
+                    t.zero_()
+            ckpt.restore_checkpoint(tmp, 1, template)
+            restored = all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(
+                model.state_dict().values(), template.state_dict().values()))
+            ok = ok and restored
+            detail = f"; checkpoint restored bit for bit into a zeroed template {restored}"
+            del template
+        elif kind == "frozen_bf16":
+            ok = ok and all(p.dtype == torch.bfloat16 for p in model.backbone.parameters())
+        print(f"[quant train] {kind}: set-up {setup_s:.1f} s; {n_steps} autoreg steps on one "
+              f"batch of {TRAIN_BS}: loss {', '.join(f'{x:.5f}' for x in losses)}, step ms "
+              f"{', '.join(f'{x:.1f}' for x in ms)}, peak device memory {peak_mib:.1f} MiB; "
+              f"adapters moved {moved}; frozen storage "
+              f"({', '.join(dtypes)}) bit-identical {still}{detail}; launches {launches} (want "
+              f"{want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"quant train {kind}: losses {losses}, moved {moved}, still {still}, "
+                            f"launches {launches} (want {want})")
+        prof = device_profile(lambda: trainer.train_step(batch)["loss"].item(), 1,
+                              statistics.median(ms[1:]), f"quant train {kind}")
+        res[kind] = dict(setup_s=setup_s, losses=losses, step_ms=ms, peak_mem_mib=peak_mib,
+                         launches=launches, profile=prof)
+        del trainer, model
+    return res
+
+
+def phase_stacked_int8(dev, seed: int, failures: list, tmp: str) -> dict:
+    """The flagship as int8 (w8a16) streams 25 steps from the layer list
+    and from the stacked layout of the same weights: equal bit for bit,
+    w8a16 launches 7 a layer of every step and of the prefill in both, the
+    indexed linear none (it is float-only, as in JAX)."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.models import backbone as bb
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
+    from fluid_llm_tpu_torch.utils import set_seed
+
+    cfg = Config.from_yaml(FLAGSHIP).replace(load_dir="synthetic:1")
+    test_ds = get_dataset(cfg.replace(seq_len=27), mode="test")
+    model = FluidLLM.build(cfg, test_ds.ds_props())
+    model.init_weights(set_seed(seed))
+    model.to(dev).prepare_inference_params("int8")
+    batch = next(make_batches(test_ds, 1, shuffle=False, device=dev))
+    n = model.backbone_cfg.n_layers
+    out, launches, walls = {}, {}, {}
+    for stacked in (False, True):
+        if stacked:
+            bb.stack_layers(model.backbone)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[stacked] = gen_seq_streaming(model, batch, 25)[0]
+        torch.cuda.synchronize()
+        walls[stacked] = time.perf_counter() - t0
+        launches[stacked] = read_launches()
+    want = _want(launches[False], quant_matmul_w8a16=7 * n * 26, slab_decode_attention=n * 26,
+                 grid_slot_attention=cfg.decoder_params.gnn_layers * 25)
+    equal = torch.equal(out[True], out[False])
+    ok = (equal and isinstance(model.backbone.layers, bb.StackedLayers)
+          and launches[True] == want and launches[False] == want)
+    print(f"[stacked int8] flagship_llama.yaml as int8 (w8a16), 25 streaming steps: unrolled "
+          f"{walls[False]:.3f} s, stacked {walls[True]:.3f} s; states equal bit for bit {equal}; "
+          f"launches unrolled {launches[False]}, stacked {launches[True]} (want {want}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"stacked int8: equal {equal}, launches {launches} (want {want})")
+    return dict(equal=equal, launches=launches[True], unrolled_s=walls[False],
+                stacked_s=walls[True])
+
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -3025,6 +3541,18 @@ def main(argv=None) -> int:
     print(f"[graph baselines II] phase seconds {seconds['graph2'][1]:.1f}")
     published_res, notf_res, switch_res, graph2_res = (
         seconds[k][0] for k in ("published", "notf", "switches", "graph2"))
+    t0 = time.perf_counter()
+    moe_res = {}
+    with tempfile.TemporaryDirectory() as tmp:  # phase 21: the MoE checkpoint, served again
+        for key, name, fn in (("rollout", "moe rollout", phase_moe_rollout),
+                              ("train", "moe train", phase_moe_train),
+                              ("streaming", "moe streaming", phase_moe_streaming),
+                              ("serve", "moe serve", phase_moe_serve),
+                              ("quant_train", "quant train", phase_quant_train),
+                              ("stacked_int8", "stacked int8", phase_stacked_int8)):
+            moe_res[key] = phase(name, fn, dev, args.seed, failures, tmp)
+    seconds["moe"] = (moe_res, time.perf_counter() - t0)
+    print(f"[moe and quantized backbones] phase seconds {seconds['moe'][1]:.1f}")
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -3038,6 +3566,7 @@ def main(argv=None) -> int:
                            short_train=short_train, short_train_agreement=short_agree,
                            short_rollout=short_res, published_data=published_res,
                            notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
+                           moe_and_quantized=moe_res,
                            phase_seconds={k: v[1] for k, v in seconds.items()},
                            failures=failures),
                       f, indent=1, default=str)

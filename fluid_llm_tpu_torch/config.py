@@ -4,8 +4,10 @@ Counterpart of ``fluid_llm_tpu/config.py``: the same dataclasses, fields,
 defaults and checks, so one YAML file parses to the same values in both
 packages (``tests/test_torch_config.py`` holds them equal).  The port keeps
 its own copy so that it, and ``chip_smoke.py``, import nothing of the JAX
-package.  Keys for features the port has not ported yet (mesh layout, MoE,
-...) are accepted here and rejected where the model or trainer is built.
+package.  Keys for features the port has not ported yet (the mesh layout:
+``parallel.pipe_axis > 1``, the other axes parsed only) are accepted here
+and rejected where the model is built.  :func:`check_moe` holds the MoE
+keys to the JAX package's guards (``models/fluid_llm.py:52-77``).
 """
 
 from __future__ import annotations
@@ -123,6 +125,28 @@ class MoEConfig:
     capacity_factor: float = 1.25
     aux_weight: float = 0.01
     router: str = "topk"  # "topk" | "expert_choice"
+
+
+def check_moe(moe: MoEConfig, parallel: ParallelConfig) -> None:
+    """The JAX ``FluidLLM.build``'s MoE guards (``fluid_llm.py:52-77``),
+    raised where the model is built; a no-op for a dense model."""
+    if moe.experts <= 0:
+        return
+    if parallel.pipe_axis > 1:
+        raise ValueError("MoE backbones use per-layer expert banks, which the stacked pipeline "
+                         "layout does not support: set parallel.pipe_axis to 1 (shard experts "
+                         "via parallel.expert_axis instead)")
+    if moe.router not in ("topk", "expert_choice"):
+        raise ValueError(f"moe.router={moe.router!r}: use 'topk' (Switch/GShard) or "
+                         "'expert_choice'")
+    if not 1 <= moe.top_k <= moe.experts:
+        raise ValueError(f"moe.top_k={moe.top_k} must be in [1, moe.experts={moe.experts}]: "
+                         "the top-k selection loop would re-pick expert 0 with its un-zeroed "
+                         "probability once every expert is taken")
+    if parallel.expert_axis > 1 and moe.experts % parallel.expert_axis != 0:
+        raise ValueError(f"moe.experts={moe.experts} must divide evenly over "
+                         f"parallel.expert_axis={parallel.expert_axis} (the stacked (E, ...) "
+                         "expert weights shard their leading axis over the expert mesh axis)")
 
 
 @dataclass

@@ -6,7 +6,9 @@
 
 The run is selected by folder index (latest by default), its saved YAML is
 reread, model and optimizer state restored, and training re-enters the
-epoch loop at the saved epoch.
+epoch loop at the saved epoch.  The template is ``main``'s, so a run over
+a quantized (``llm_4bit_loading``) or bf16 (``frozen_bf16``) frozen
+backbone restores that storage bit for bit.
 """
 
 from __future__ import annotations

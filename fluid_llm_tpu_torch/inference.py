@@ -7,7 +7,9 @@ N-RMSE.
 
 With ``--streaming`` the rollout is the KV-cache streaming one
 (``rollout/streaming.py``; rope backbones with ``rope_abs`` embeddings and
-absolute time, as ``configs/flagship_llama.yaml``).  ``FLUID_SCAN_LAYERS=1``
+absolute time, as ``configs/flagship_llama.yaml``).  A MoE backbone rolls
+out either way: exact with its final block whole, streaming with each
+decode chunk routed alone.  ``FLUID_SCAN_LAYERS=1``
 in the environment serves either from the stacked-layer layout
 (``FluidLLM.prepare_inference_params``).
 
@@ -103,6 +105,7 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device,
     probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
     model = FluidLLM.build(cfg, probe_ds.ds_props(), **backbone_overrides)
     model.init_weights(set_seed(seed))
+    model.quantize_frozen()
     model.to(device)
     model.prepare_inference_params()
     return model.eval()
@@ -113,10 +116,15 @@ def load_checkpoint_model(load_path: str, step: int, device: torch.device,
     """The model of run folder ``load_path`` at ``step_<step>``, prepared
     for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``);
     ``quant``/``qmm_mode``: quantized backbone storage (serving,
-    ``FluidLLM.prepare_inference_params``)."""
+    ``FluidLLM.prepare_inference_params``; a MoE backbone's expert banks
+    too).  A run trained over an nf4 frozen backbone restores into an nf4
+    template (``FluidLLM.quantize_frozen``); its adapters merge into the
+    dequantised weights."""
     cfg = ckpt.load_config(load_path)
     probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
-    model = FluidLLM.build(cfg, probe_ds.ds_props()).to(device)
+    model = FluidLLM.build(cfg, probe_ds.ds_props())
+    model.quantize_frozen()
+    model.to(device)
     ckpt.restore_checkpoint(load_path, step, model)
     model.prepare_inference_params(quant, qmm_mode)
     return model.eval()

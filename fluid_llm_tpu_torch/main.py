@@ -6,9 +6,13 @@
 The backbone starts from random weights drawn from ``cfg.seed`` (pretrained
 HF weights would need a download); the adapters, encoder, decoder and BOS
 train on top, on the data the config's ``load_dir`` names (the MGN cylinder
-or airfoil pickles, or synthetic trajectories: ``data.get_dataset``).
-Metrics go to the log and, optionally, a JSONL file.  The
-multi-process flags (``--distributed`` ...) are not ported and raise.
+or airfoil pickles, or synthetic trajectories: ``data.get_dataset``).  Every
+backbone the configs name builds: dense or MoE (``moe.experts``, its
+balance loss in the loss), frozen under LoRA/DoRA or ``freeze_llm`` as
+packed nf4 with ``llm_4bit_loading`` (``fluid_llm_tpu/main.py:101-110``)
+and in bf16 with ``frozen_bf16``; pipeline parallelism raises.  Metrics go
+to the log and, optionally, a JSONL file.  The multi-process flags
+(``--distributed`` ...) are not ported and raise.
 """
 
 from __future__ import annotations
@@ -33,11 +37,16 @@ logger = logging.getLogger("fluid_llm_tpu_torch.main")
 
 def build_model_and_trainer(cfg: Config, ds_props, device: torch.device,
                             **backbone_overrides) -> Trainer:
-    """Model with weights drawn from ``cfg.seed`` on ``device``, and its
-    trainer (optimizer over the trainable parameters).  ``backbone_overrides``
-    go to ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""
+    """Model with weights drawn from ``cfg.seed`` on ``device`` (the frozen
+    backbone quantized to nf4 after the draw with ``llm_4bit_loading``,
+    ``FluidLLM.quantize_frozen``), and its trainer (optimizer over the
+    trainable parameters; ``frozen_bf16`` cast there).  Also the template
+    ``continue_train`` restores into.  ``backbone_overrides`` go to
+    ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""
     model = FluidLLM.build(cfg, ds_props, **backbone_overrides)
     model.init_weights(set_seed(cfg.seed))
+    if model.quantize_frozen():
+        logger.info("Quantized backbone weights to packed nf4 storage")
     model.to(device)
     return Trainer(model)
 

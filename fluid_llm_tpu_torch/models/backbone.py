@@ -52,30 +52,45 @@ replaces the layer list by one :class:`StackedLayers` whose parameters
 carry a leading ``n_layers`` axis, under the JAX leaf names.  ``forward``
 then reads layer ``li``'s weights as the slices ``w[li]`` (the JAX
 ``_block_stacked`` with ``kernel_ok=False``); ``apply_streaming`` runs every
-linear through the indexed-linear kernel (``ops/indexed_linear.py``) with
-the layer index on the device, as the JAX stacked scan does.  MoE, ring
-attention and tensor parallelism come later.
+float linear through the indexed-linear kernel (``ops/indexed_linear.py``)
+with the layer index on the device, as the JAX stacked scan does.  Layers
+quantized the same way stack too: their int8 or nf4 storage gains the
+leading axis, and layer ``li`` reads its slice through
+``models.common.linear`` (int8: the int8-matmul kernel on the slice; nf4
+dequantised), JAX ``_stacked_linear``'s quantized branch (:650-651).
+
+Mixture of experts (``moe_experts > 0``, ``backbone.py:188-211,443-574``):
+every block's MLP is a :class:`MoEMLP`, a float router and expert banks
+with a leading ``E`` axis, run in the dense-dispatch formulation
+(:func:`moe_route`, :func:`moe_mlp`): routing in f32, capacity ``C`` per
+expert, invalid tokens never routed, the Switch balance loss as each
+block's ``aux`` (``forward``'s ``moe_aux`` collects them).  There is no
+kernel in it: the dispatch, the expert FFNs and the combine are einsums,
+as in the JAX package.  A MoE final block runs whole (``decode_slice``
+refuses it: capacity couples the tokens of a layer), and MoE layers stay
+unrolled.  Ring attention and tensor parallelism come later.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fluid_llm_tpu_torch.models.common import dropout, linear
+from fluid_llm_tpu_torch.models.common import dropout, linear, linear_weight
 from fluid_llm_tpu_torch.models.lora import lora_linear
 from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import indexed_linear as il
 from fluid_llm_tpu_torch.ops import short_attention as sa
-from fluid_llm_tpu_torch.ops.quant import NF4Linear, QuantLinear
+from fluid_llm_tpu_torch.ops.quant import is_quantized, quantized_layer, stack_quantized
 
 
 ATTN_IMPLS = ("auto", "short")
@@ -109,6 +124,11 @@ class BackboneConfig:
     attn_impl: str = "auto"
     # rematerialise each full block under autograd (``parallel.remat``)
     remat: bool = False
+    # mixture of experts (``backbone.py:66-79``): 0 is the dense MLP
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_router: str = "topk"  # "topk" (Switch/GShard) | "expert_choice"
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -211,10 +231,11 @@ def _norm(x: torch.Tensor, ln, cfg: BackboneConfig) -> torch.Tensor:
     holds the norm's ``weight`` (and a LayerNorm's ``bias``): an
     ``nn.LayerNorm``/``nn.RMSNorm``, or one layer of a :class:`StackedNorm`."""
     shape = x.shape[-1:]
+    w = ln.weight.float()  # bf16 under ``frozen_bf16``, computed in f32 as in JAX
     if cfg.norm == "rmsnorm":
-        out = F.rms_norm(x.float(), shape, ln.weight, cfg.ln_eps)
+        out = F.rms_norm(x.float(), shape, w, cfg.ln_eps)
     else:
-        out = F.layer_norm(x.float(), shape, ln.weight, ln.bias, cfg.ln_eps)
+        out = F.layer_norm(x.float(), shape, w, ln.bias.float(), cfg.ln_eps)
     return out.to(x.dtype)
 
 
@@ -282,6 +303,182 @@ def _attention(q, k, v, allowed, dtype) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+def _masked_attend(allowed: torch.Tensor, dtype: torch.dtype):
+    """An attention of the packed layout under an explicit mask ``allowed``
+    (broadcastable to (bs, H, L, L)): plain PyTorch, as the JAX
+    ``allowed_override`` forces its XLA path."""
+    def attend(q, k, v, valid_i32, n_heads: int, head_dim: int) -> torch.Tensor:
+        bs, L, D = q.shape
+        shape = (bs, L, n_heads, head_dim)
+        out = _attention(q.reshape(shape), k.reshape(shape), v.reshape(shape), allowed, dtype)
+        return out.reshape(bs, L, D)
+    return attend
+
+
+# --------------------------------------------------------------------------
+# mixture of experts (``backbone.py:188-211, 443-574``)
+# --------------------------------------------------------------------------
+
+
+class ExpertBank(nn.Module):
+    """The linears of every expert at one place of a MoE MLP: ``weight``
+    ``(E, out, in)`` (the ``nn.Linear`` orientation; the JAX leaf ``w`` is
+    ``(E, in, out)``), ``bias`` ``(E, out)`` or None."""
+
+    def __init__(self, n_experts: int, in_features: int, out_features: int, bias: bool = True,
+                 device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        kw = dict(device=device, dtype=dtype)
+        self.weight = nn.Parameter(torch.empty(n_experts, out_features, in_features, **kw))
+        self.register_parameter(
+            "bias", nn.Parameter(torch.empty(n_experts, out_features, **kw)) if bias else None)
+
+
+class MoEMLP(nn.Module):
+    """One MoE MLP (``_moe_init``): ``router`` a bias-free ``(d -> E)``
+    linear, kept f32 (routing computes in f32), and ``experts`` the banks:
+    ``fc1``/``fc2`` with biases (OPT, GPT-2) or LLaMA's ``gate``/``up``/
+    ``down``.  A bank may be stored int8 (``ops/quant.QuantLinear`` with a
+    leading ``E`` axis)."""
+
+    def __init__(self, cfg: "BackboneConfig"):
+        super().__init__()
+        E, d, ff = cfg.moe_experts, cfg.d_model, cfg.d_ff
+        self.router = nn.Linear(d, E, bias=False)
+        if cfg.family == "llama":
+            banks = {"gate": ExpertBank(E, d, ff, bias=False), "up": ExpertBank(E, d, ff, bias=False),
+                     "down": ExpertBank(E, ff, d, bias=False)}
+        else:
+            banks = {"fc1": ExpertBank(E, d, ff), "fc2": ExpertBank(E, ff, d)}
+        self.experts = nn.ModuleDict(banks)
+
+
+class Routing(NamedTuple):
+    """:func:`moe_route`'s result: ``dispatch`` and ``combine`` (bs, L, E,
+    C) f32, the balance loss ``aux`` (a scalar), and ``chosen`` (bs, L, E),
+    1 where a token chose (topk) or was chosen by (expert_choice) an
+    expert, before capacity."""
+
+    dispatch: torch.Tensor
+    combine: torch.Tensor
+    aux: torch.Tensor
+    chosen: torch.Tensor
+
+
+def moe_capacity(cfg: "BackboneConfig", L: int, capacity_tokens: Optional[int] = None) -> int:
+    """Slots per expert: ``ceil(cf * top_k * (capacity_tokens or L) / E)``,
+    at least 1, and for expert_choice at most ``L``."""
+    C = max(1, math.ceil(cfg.moe_capacity_factor * cfg.moe_top_k * (capacity_tokens or L)
+                         / cfg.moe_experts))
+    return min(C, L) if cfg.moe_router == "expert_choice" else C
+
+
+def moe_route(logits: torch.Tensor, cfg: "BackboneConfig", valid: Optional[torch.Tensor] = None,
+              capacity_tokens: Optional[int] = None) -> Routing:
+    """The routing of ``_moe_mlp`` from f32 router logits (bs, L, E): their
+    softmax in f32, then :func:`moe_dispatch`."""
+    return moe_dispatch(torch.softmax(logits.float(), dim=-1), cfg, valid, capacity_tokens)
+
+
+def moe_dispatch(probs: torch.Tensor, cfg: "BackboneConfig", valid: Optional[torch.Tensor] = None,
+                 capacity_tokens: Optional[int] = None) -> Routing:
+    """Dispatch and combine from the router's f32 probabilities (bs, L, E).
+
+    Probabilities are zeroed on invalid tokens (``valid`` (bs, L) bool),
+    which so take no slot, displace no token and stay out of the balance
+    statistics.  topk: ``top_k`` passes of argmax (the first
+    maximum, as ``jnp.argmax``), each slot placed at the token's cumsum
+    position in its expert plus the slots earlier choices took, kept below
+    ``C``; the gate is the raw probability at top-1 and renormalised by
+    ``max(sum p, 1e-9)`` above; aux is Switch's ``E * sum_e frac_e *
+    pbar_e`` over valid tokens.  Every choice's slots are added into one
+    (bs, L, E, C) tensor pair by one ``scatter_add``, built once a layer,
+    equal to the JAX sum of one-hots (a slot is taken by one choice; where
+    extreme logits make argmax pick a taken expert twice, two terms add in
+    either order to the same value).
+    expert_choice: each expert takes its top-C tokens by a stable
+    descending sort (ties in token order, as ``lax.top_k``; ``torch.topk``
+    promises no order for ties on CUDA); aux is 0.  In practice only
+    zero-probability (invalid) tokens tie, once an expert's C exceeds the
+    valid tokens; their gate is 0, so the output cannot depend on which
+    of them fills the slot."""
+    bs, L, E = probs.shape
+    C = moe_capacity(cfg, L, capacity_tokens)
+    valid_f = None
+    if valid is not None:
+        valid_f = valid.float()[..., None]  # (bs, L, 1)
+        probs = probs * valid_f
+    if cfg.moe_router == "expert_choice":
+        order = torch.sort(probs.transpose(1, 2), dim=-1, descending=True, stable=True)
+        gates, idx = order.values[..., :C], order.indices[..., :C]  # (bs, E, C)
+        dispatch = F.one_hot(idx, L).float().permute(0, 3, 1, 2)  # (bs, L, E, C)
+        combine = dispatch * gates[:, None]
+        return Routing(dispatch, combine, probs.new_zeros(()), dispatch.sum(-1))
+
+    sel_oh, sel_p = [], []
+    remaining = probs
+    for _ in range(cfg.moe_top_k):
+        oh = F.one_hot(remaining.argmax(-1), E).float()  # (bs, L, E)
+        if valid_f is not None:
+            oh = oh * valid_f
+        sel_oh.append(oh)
+        sel_p.append((probs * oh).sum(-1))
+        remaining = remaining * (1.0 - oh)
+    denom = torch.clamp(sum(sel_p), min=1e-9) if cfg.moe_top_k > 1 else 1.0
+    slots, keeps, gates = [], [], []
+    prev = probs.new_zeros(bs, 1, E)  # slots taken by earlier choices
+    for oh, p in zip(sel_oh, sel_p):
+        pos = oh.cumsum(1) - oh + prev
+        prev = prev + oh.sum(1, keepdim=True)
+        keep = oh * (pos < C)
+        slots.append(pos.clamp(max=C - 1).long())
+        keeps.append(keep)
+        gates.append(keep * (p / denom)[..., None])
+    # every choice's slots added at once: (bs, L, E, top_k) into (bs, L, E, C)
+    slot = torch.stack(slots, -1)
+    dispatch = probs.new_zeros(bs, L, E, C).scatter_add(-1, slot, torch.stack(keeps, -1))
+    combine = probs.new_zeros(bs, L, E, C).scatter_add(-1, slot, torch.stack(gates, -1))
+    if valid_f is None:
+        frac, pbar = sel_oh[0].mean(1), probs.mean(1)
+    else:
+        n_valid = valid_f.sum(1).clamp(min=1.0)  # (bs, 1)
+        frac, pbar = sel_oh[0].sum(1) / n_valid, probs.sum(1) / n_valid
+    aux = (E * (frac * pbar).sum(-1)).mean()
+    return Routing(dispatch, combine, aux, sum(sel_oh))
+
+
+def moe_mlp(h: torch.Tensor, mlp: MoEMLP, cfg: "BackboneConfig",
+            valid: Optional[torch.Tensor] = None,
+            capacity_tokens: Optional[int] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_mlp``: (bs, L, d) -> ((bs, L, d) in h's dtype, aux).
+
+    The router's logits in f32 (:func:`moe_route`); dispatch and combine
+    cast to the activation dtype before their einsums; the expert FFNs as
+    batched einsums over the ``(E, out, in)`` banks (an int8 bank
+    dequantised, ``scale[..., None]``).  A dropped token (past its expert's
+    capacity) gets no MLP contribution: the residual carries it.
+    ``capacity_tokens``: the token count ``C`` is sized by, where padding
+    must not inflate it."""
+    dt = h.dtype
+    logits = F.linear(h.float(), mlp.router.weight.float())
+    r = moe_route(logits, cfg, valid, capacity_tokens)
+    xin = torch.einsum("bld,blec->ebcd", h, r.dispatch.to(dt))
+    ex = mlp.experts
+
+    def ffn(x, name):
+        y = torch.einsum("ebci,eoi->ebco", x, linear_weight(ex[name], dt))
+        b = ex[name].bias
+        return y if b is None else y + b.to(dt)[:, None, None, :]
+
+    if "gate" in ex:
+        out = ffn(F.silu(ffn(xin, "gate")) * ffn(xin, "up"), "down")
+    else:
+        out = ffn(_act(ffn(xin, "fc1"), cfg.act), "fc2")
+    out = torch.einsum("ebcd,blec->bld", out, r.combine.to(out.dtype))
+    return out.to(dt), r.aux
+
+
 class _LayerOps:
     """The computations of one transformer block, over the parameters its
     subclass holds: ``ln1``/``ln2`` and the ``attn``/``mlp`` maps of
@@ -335,10 +532,13 @@ class _LayerOps:
         return lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2")
 
     def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
-                generator=None, rope=None, kernels: bool = True) -> torch.Tensor:
-        """``generator``: training (adapter and residual dropout draw from
-        it); None runs without dropout.  ``rope``: the (cos, sin) tables of
-        a rotary backbone."""
+                generator=None, rope=None, kernels: bool = True,
+                moe_capacity_tokens: Optional[int] = None):
+        """``(x, aux)``: the block's output and, for a MoE block, its balance
+        loss (None for a dense one; an output, not a side effect, so that a
+        rematerialised block recomputes it).  ``generator``: training
+        (adapter and residual dropout draw from it); None runs without
+        dropout.  ``rope``: the (cos, sin) tables of a rotary backbone."""
         lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator,
                                                kernels)
         drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
@@ -350,10 +550,15 @@ class _LayerOps:
         if not cfg.pre_ln:
             x = _norm(x, self.ln1, cfg)
         h = _norm(x, self.ln2, cfg) if cfg.pre_ln else x
-        x = x + drop(self.mlp_out(h, cfg, lin))
+        aux = None
+        if isinstance(self.mlp, MoEMLP):
+            h, aux = moe_mlp(h, self.mlp, cfg, valid_i32.bool(), moe_capacity_tokens)
+        else:
+            h = self.mlp_out(h, cfg, lin)
+        x = x + drop(h)
         if not cfg.pre_ln:
             x = _norm(x, self.ln2, cfg)
-        return x
+        return x, aux
 
 
 def rematerialised(fn, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -392,7 +597,9 @@ class Block(_LayerOps, nn.Module):
         self.attn = nn.ModuleDict({"q": nn.Linear(d, d, bias=bias), "k": nn.Linear(d, kv, bias=bias),
                                    "v": nn.Linear(d, kv, bias=bias), "o": nn.Linear(d, d, bias=bias)})
         self.ln2 = _make_norm(cfg, d)
-        if cfg.family == "llama":
+        if cfg.moe_experts > 0:
+            self.mlp = MoEMLP(cfg)
+        elif cfg.family == "llama":
             self.mlp = nn.ModuleDict({"gate": nn.Linear(d, ff, bias=False),
                                       "up": nn.Linear(d, ff, bias=False),
                                       "down": nn.Linear(ff, d, bias=False)})
@@ -408,6 +615,18 @@ class Block(_LayerOps, nn.Module):
 
 def _param(t: torch.Tensor, like: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=like.requires_grad)
+
+
+def _stack_place(mods: list[nn.Module]) -> nn.Module:
+    """The linears of one place in every layer, stacked: float ones into a
+    :class:`StackedLinear`, quantized ones (all stored alike) into their
+    own class with a leading ``n_layers`` axis (``ops/quant.stack_quantized``)."""
+    return stack_quantized(mods) if is_quantized(mods[0]) else StackedLinear(mods)
+
+
+def _unstack_place(stacked: nn.Module, li: int) -> nn.Module:
+    return quantized_layer(stacked, li, clone=True) if is_quantized(stacked) \
+        else stacked.unstack(li)
 
 
 class _Stacked(nn.Module):
@@ -481,10 +700,10 @@ class StackedLayers(nn.Module):
     def __init__(self, layers: list[Block]):
         super().__init__()
         self.ln1 = StackedNorm([m.ln1 for m in layers])
-        self.attn = nn.ModuleDict({n: StackedLinear([m.attn[n] for m in layers])
+        self.attn = nn.ModuleDict({n: _stack_place([m.attn[n] for m in layers])
                                    for n in layers[0].attn})
         self.ln2 = StackedNorm([m.ln2 for m in layers])
-        self.mlp = nn.ModuleDict({n: StackedLinear([m.mlp[n] for m in layers])
+        self.mlp = nn.ModuleDict({n: _stack_place([m.mlp[n] for m in layers])
                                   for n in layers[0].mlp})
         self.register_buffer("index", torch.arange(len(layers), dtype=torch.int32,
                                                    device=self.ln1.weight.device),
@@ -510,8 +729,8 @@ class StackedLayers(nn.Module):
             with torch.device("meta"):
                 block = Block(cfg)
             block.ln1, block.ln2 = self.ln1.unstack(li, cfg), self.ln2.unstack(li, cfg)
-            block.attn = nn.ModuleDict({n: m.unstack(li) for n, m in self.attn.items()})
-            block.mlp = nn.ModuleDict({n: m.unstack(li) for n, m in self.mlp.items()})
+            block.attn = nn.ModuleDict({n: _unstack_place(m, li) for n, m in self.attn.items()})
+            block.mlp = nn.ModuleDict({n: _unstack_place(m, li) for n, m in self.mlp.items()})
             blocks.append(block)
         return blocks
 
@@ -524,16 +743,23 @@ class LayerView(_LayerOps):
     forward).  ``index`` a device int32 scalar: every linear goes through
     ``ops/indexed_linear.indexed_linear`` (its twin when ``kernels`` is
     False) at that index, as the JAX stacked streaming scan's
-    ``_stacked_linear``.  Norms read their slice either way."""
+    ``_stacked_linear``.  Norms read their slice either way, and so do
+    quantized linears (views ``[li]`` of the stacked storage, through
+    ``models.common.linear``: int8 the int8-matmul kernel, nf4 dequantised,
+    JAX ``_stacked_linear``'s quantized branch)."""
 
     def __init__(self, stacked: StackedLayers, li: int, index: Optional[torch.Tensor] = None):
         self.index = index
         self.ln1, self.ln2 = _Slice(stacked.ln1, li), _Slice(stacked.ln2, li)
-        self.attn = {n: _Slice(m, li) for n, m in stacked.attn.items()}
-        self.mlp = {n: _Slice(m, li) for n, m in stacked.mlp.items()}
+        self.attn = {n: self._place(m, li) for n, m in stacked.attn.items()}
+        self.mlp = {n: self._place(m, li) for n, m in stacked.mlp.items()}
+
+    @staticmethod
+    def _place(m: nn.Module, li: int):
+        return quantized_layer(m, li) if is_quantized(m) else _Slice(m, li)
 
     def apply_linear(self, h, lin, kernels: bool = True, cols: Optional[slice] = None):
-        if self.index is None:
+        if self.index is None or is_quantized(lin):
             return linear(h, lin, kernels, cols)
         if cols is not None:
             raise ValueError("indexed stacked linears compute every output column")
@@ -563,9 +789,10 @@ class Backbone(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX init: N(0, 0.02) weights and positions, zero biases, unit norms."""
+        """The JAX init: N(0, 0.02) weights (the MoE router and expert banks
+        too) and positions, zero biases, unit norms."""
         for mod in self.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, (nn.Linear, ExpertBank)):
                 mod.weight.normal_(0.0, 0.02, generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
@@ -584,6 +811,10 @@ class Backbone(nn.Module):
         lora=None,
         generator: Optional[torch.Generator] = None,
         remat: Optional[bool] = None,
+        moe_aux: Optional[list] = None,
+        moe_capacity_tokens: Optional[int] = None,
+        positions: Optional[torch.Tensor] = None,
+        allowed: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """(bs, L, d) -> (bs, L, d), or (bs, length, d) with ``decode_slice``.
 
@@ -599,13 +830,21 @@ class Backbone(nn.Module):
         branches, adapter inputs) draws from it; None means no dropout.
         remat: rematerialise each full block under autograd (None: the
         config's ``remat``).
+        moe_aux: a list that each MoE block appends its balance loss to.
+        moe_capacity_tokens: the token count expert capacity is sized by
+        (None: L).
+        positions, allowed: replace the cumsum positions (bs, L) and the
+        causal mask (broadcastable to (bs, H, L, L)), as the JAX
+        ``positions_override``/``allowed_override`` (the streaming oracle's
+        banded mask); a mask sends attention through plain PyTorch.
         """
         cfg = self.cfg
         bs, L = inputs_embeds.shape[:2]
         x = inputs_embeds.to(cfg.dtype)
         if valid is None:
             valid = torch.ones(bs, L, dtype=torch.bool, device=x.device)
-        positions, allowed = make_masks(valid)
+        mask_positions, mask = make_masks(valid)
+        positions = mask_positions if positions is None else positions
         if self.project_in is not None:
             x = linear(x, self.project_in, kernels)
         if self.pos_embed is not None:
@@ -614,7 +853,9 @@ class Backbone(nn.Module):
         if generator is not None:
             x = dropout(x, cfg.dropout, generator)
 
-        attend = self._attend(L, kernels, x.device)
+        attend = self._attend(L, kernels, x.device) if allowed is None \
+            else _masked_attend(allowed, cfg.dtype)
+        allowed = mask if allowed is None else allowed
         if isinstance(self.layers, StackedLayers):
             # the stacked layout is made for inference, adapters merged
             # (``backbone.py:907-915``)
@@ -636,8 +877,11 @@ class Backbone(nn.Module):
         remat = (cfg.remat if remat is None else remat) and torch.is_grad_enabled()
         for layer, ad in zip(layers[:n_full], adapters):
             block = lambda x, layer=layer, ad=ad: layer(x, cfg, valid_i32, attend, ad, lora_cfg,
-                                                        generator, rope, kernels)
-            x = rematerialised(block, x, generator) if remat else block(x)
+                                                        generator, rope, kernels,
+                                                        moe_capacity_tokens)
+            x, aux = rematerialised(block, x, generator) if remat else block(x)
+            if aux is not None and moe_aux is not None:
+                moe_aux.append(aux)
         if decode_slice is not None:
             x = self._final_block_sliced(x, layers[-1], allowed, rope, decode_slice, adapters[-1],
                                          lora_cfg, kernels)
@@ -676,7 +920,12 @@ class Backbone(nn.Module):
         unmerged if given.  Rope rotates the q slice at its own positions
         and k over the whole window.  Attention is plain PyTorch, no
         dropout; weights are read only through ``layer.apply_linear`` (int8
-        ones through their kernel)."""
+        ones through their kernel).  A MoE block raises: its expert
+        capacity couples the tokens of the layer, so a slice would route
+        differently (``backbone.py:1013-1020``); it runs whole."""
+        if isinstance(layer.mlp, MoEMLP):
+            raise NotImplementedError("decode_slice is not exact for MoE blocks (capacity couples "
+                                      "tokens within a layer): run the final block whole")
         cfg = self.cfg
         lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg,
                                                 kernels=kernels)
@@ -720,20 +969,20 @@ def stack_layers(backbone: Backbone) -> None:
     """The layer list becomes one :class:`StackedLayers`, in place
     (``backbone.py:308-336``).  Exact: layer ``li`` reads the same weights.
 
-    A no-op on a stacked backbone and on layers that differ in structure
-    (names, types, shapes or dtypes of their parameters: e.g. qkv packed in
-    some only), which keep the list, as JAX's treedef check.  Quantized
-    linears raise: stacking them is not ported."""
+    A no-op on a stacked backbone, on MoE layers (their banks already lead
+    with ``E``; JAX :324-328) and on layers that differ in structure (names,
+    types, int8 matmul modes, shapes or dtypes of their parameters and
+    buffers: e.g. qkv packed in some only, or quantized differently), which
+    keep the list, as JAX's treedef check.  Layers quantized alike stack
+    their storage."""
     layers = backbone.layers
-    if isinstance(layers, StackedLayers):
+    if isinstance(layers, StackedLayers) or any(isinstance(m.mlp, MoEMLP) for m in layers):
         return
-    if any(isinstance(m, (QuantLinear, NF4Linear)) for m in layers.modules()):
-        raise NotImplementedError("stack_layers: stacking quantized linears is not ported; "
-                                  "serve a quantized backbone with the layer list")
 
     def structure(layer: Block):
-        return ([(n, type(m)) for n, m in layer.named_modules()],
-                [(n, p.shape, p.dtype, p.device) for n, p in layer.named_parameters()])
+        return ([(n, type(m), getattr(m, "mode", None)) for n, m in layer.named_modules()],
+                [(n, p.shape, p.dtype, p.device) for n, p in layer.named_parameters()],
+                [(n, b.shape, b.dtype, b.device) for n, b in layer.named_buffers()])
 
     if any(structure(m) != structure(layers[0]) for m in layers[1:]):
         return
@@ -742,8 +991,9 @@ def stack_layers(backbone: Backbone) -> None:
 
 @torch.no_grad()
 def unstack_layers(backbone: Backbone) -> None:
-    """Inverse of :func:`stack_layers`, in place: the ``nn.Linear`` list
-    back, bit for bit (``backbone.py:339-352``).  A no-op on a list."""
+    """Inverse of :func:`stack_layers`, in place: the list of ``nn.Linear``
+    (or quantized) layers back, bit for bit (``backbone.py:339-352``).  A
+    no-op on a list."""
     if isinstance(backbone.layers, StackedLayers):
         backbone.layers = nn.ModuleList(backbone.layers.unstack(backbone.cfg))
 
@@ -782,11 +1032,15 @@ def cast_matmul_params(backbone: Backbone, dtype: torch.dtype) -> None:
     dtype anyway.  Norms and the position table stay f32 (computed in f32 /
     cast at use, as in the JAX package).  Quantized linears are left as they
     are (``Module.to`` would cast their f32 scales; ``backbone.py:284``).
+    MoE expert banks are cast; the router stays f32 (routing computes in
+    f32; ``backbone.py:282``).
     """
-    lins = [lin for layer in backbone.layers for group in (layer.attn, layer.mlp)
-            for lin in group.values()] + [backbone.project_in, backbone.project_out]
+    lins = [backbone.project_in, backbone.project_out]
+    for layer in backbone.layers:
+        mlp = layer.mlp.experts if isinstance(layer.mlp, MoEMLP) else layer.mlp
+        lins += list(layer.attn.values()) + list(mlp.values())
     for lin in lins:
-        if isinstance(lin, nn.Linear):
+        if isinstance(lin, (nn.Linear, ExpertBank)):
             lin.to(dtype)
 
 
@@ -897,6 +1151,11 @@ def apply_streaming(
     takes the shape and ``kernels`` is set (its plain twin on CPU tensors),
     otherwise :func:`_attention_slabs`; prefill goes through the same
     kernel.  Inference only: merged adapters, no dropout.
+
+    A MoE block routes the new tokens alone (``backbone.py:1297-1308``):
+    routing reads a token's own hidden state, so it composes with the
+    cache, but capacity is per decode chunk (``C`` from ``Ln``) and
+    expert_choice picks among the chunk's tokens; aux is unused.
     """
     cfg = backbone.cfg
     if cfg.pos != "rope":
@@ -974,7 +1233,10 @@ def apply_streaming(
         if not cfg.pre_ln:
             x = _norm(x, layer.ln1, cfg)
         h2 = _norm(x, layer.ln2, cfg) if cfg.pre_ln else x
-        x = x + layer.mlp_out(h2, cfg, lin)
+        if isinstance(layer.mlp, MoEMLP):
+            x = x + moe_mlp(h2, layer.mlp, cfg)[0]
+        else:
+            x = x + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
             x = _norm(x, layer.ln2, cfg)
     return backbone._out(x, kernels), cache

@@ -30,6 +30,15 @@ ACTS = {
 }
 
 
+def linear_weight(lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """The ``(out, in)`` weight of a linear in ``dtype``: an ``nn.Linear``'s
+    cast, a ``QuantLinear``'s or ``NF4Linear``'s dequantised
+    (``backbone.materialize_w``)."""
+    if isinstance(lin, (QuantLinear, NF4Linear)):
+        return lin.dequantize(dtype)
+    return lin.weight.to(dtype)
+
+
 def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
            cols: Optional[slice] = None) -> torch.Tensor:
     """``x @ w + b`` in the activation dtype (``backbone._linear`` with
@@ -42,7 +51,8 @@ def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
     ``quant_matmul.int8_matmul`` in its mode (the kernel on CUDA tensors,
     the twin on CPU ones; ``kernels=False`` selects the twin explicitly);
     one they do not take, and an ``NF4Linear``, are dequantised and go
-    through ``F.linear``, as ``use_kernel`` and ``materialize_w`` rule."""
+    through ``F.linear``, as ``use_kernel`` and ``materialize_w`` rule.
+    Under autograd the int8 product is ``quant_matmul.Int8Matmul``'s."""
     quantized = isinstance(lin, (QuantLinear, NF4Linear))
     if cols is not None:
         if quantized:
@@ -52,7 +62,7 @@ def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
     if isinstance(lin, QuantLinear) and qmm.supported(lin.in_features, lin.out_features):
         mm = qmm.int8_matmul if kernels else qmm.int8_matmul_ref
         return mm(x, lin.q, lin.scale, lin.bias, lin.mode)
-    w = lin.dequantize(x.dtype) if quantized else lin.weight.to(x.dtype)
+    w = linear_weight(lin, x.dtype)
     b = lin.bias
     return F.linear(x, w, b.to(x.dtype) if b is not None else None)
 

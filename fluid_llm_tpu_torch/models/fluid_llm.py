@@ -19,12 +19,14 @@ train.  The ported surface: ``forward`` (every frame decoded; in training
 with dropout drawn from a ``torch.Generator``: embeddings, backbone,
 adapters and the MLPGNN decoder's attention), ``forward_see_init`` and
 ``predict_diffs`` (the training forwards), the rollout's
-``predict_frame_diff`` (non-MoE; the CNN decoder decodes the whole window),
-all with unmerged adapters and, with ``parallel.remat``, rematerialised
-backbone blocks, ``prepare_inference_params`` (unstack -> merge adapters ->
-quantize, for serving -> pack qkv -> cast -> stack, with
-``FLUID_SCAN_LAYERS=1``), and the streaming rollout's ``embed_frames`` and
-``decode_frame_tokens``.
+``predict_frame_diff`` (the CNN decoder decodes the whole window; a MoE
+backbone runs its final block whole), all with unmerged adapters and, with
+``parallel.remat``, rematerialised backbone blocks; each takes ``moe_aux``,
+a list the MoE blocks append their balance losses to.  Also
+``prepare_inference_params`` (unstack -> merge adapters -> quantize, for
+serving -> pack qkv -> cast -> stack, with ``FLUID_SCAN_LAYERS=1``),
+``quantize_frozen`` (``llm_4bit_loading``: the frozen backbone as nf4),
+and the streaming rollout's ``embed_frames`` and ``decode_frame_tokens``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from fluid_llm_tpu_torch.config import Config
+from fluid_llm_tpu_torch.config import Config, check_moe
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.models import backbone as bb
 from fluid_llm_tpu_torch.models.decoders import PatchDecoder
@@ -72,20 +74,21 @@ class FluidLLM(nn.Module):
     @classmethod
     def build(cls, cfg: Config, ds_props: DSProps, *, kernels: bool = True,
               **backbone_overrides) -> "FluidLLM":
-        """Model from the YAML config; ``half_precision`` picks a bf16 backbone.
+        """Model from the YAML config; ``half_precision`` picks a bf16 backbone,
+        ``moe.experts > 0`` routed MLPs (the JAX guards, ``config.check_moe``).
         ``backbone_overrides`` replace fields of the backbone config (e.g.
-        ``attn_impl="short"``, as the JAX package's ``FLUID_BENCH_ATTN``)."""
-        if cfg.moe.experts > 0 or cfg.parallel.pipe_axis > 1:
-            raise ValueError("MoE and pipeline-parallel backbones are not ported yet")
-        if cfg.frozen_bf16:
-            raise NotImplementedError("frozen_bf16 (bf16 storage of the frozen backbone) "
-                                      "is not ported")
-        if cfg.llm_4bit_loading and (cfg.use_lora or cfg.freeze_llm):
-            raise NotImplementedError("llm_4bit_loading (training over a packed-nf4 frozen "
-                                      "backbone, fluid_llm_tpu/main.py:103-110) is not ported")
+        ``attn_impl="short"``, as the JAX package's ``FLUID_BENCH_ATTN``).
+        Pipeline parallelism is not ported and raises."""
+        check_moe(cfg.moe, cfg.parallel)
+        if cfg.parallel.pipe_axis > 1:
+            raise ValueError("pipeline-parallel backbones (parallel.pipe_axis > 1) are not "
+                             "ported yet")
         dtype = torch.bfloat16 if cfg.half_precision else torch.float32
+        moe = dict(moe_experts=cfg.moe.experts, moe_top_k=cfg.moe.top_k,
+                   moe_capacity_factor=cfg.moe.capacity_factor,
+                   moe_router=cfg.moe.router) if cfg.moe.experts > 0 else {}
         bcfg = bb.preset(cfg.llm_backbone, cfg.llm_layers).replace(
-            dtype=dtype, flash_attention=cfg.flash_attention, remat=cfg.parallel.remat)
+            dtype=dtype, flash_attention=cfg.flash_attention, remat=cfg.parallel.remat, **moe)
         if backbone_overrides:
             bcfg = bcfg.replace(**backbone_overrides)
         return cls(cfg, ds_props, bcfg, kernels=kernels)
@@ -111,6 +114,21 @@ class FluidLLM(nn.Module):
             self.bos.normal_(0.0, 0.02, generator=generator)
         if self.lora is not None:
             self.lora.reset_parameters(self.backbone, generator)
+
+    @torch.no_grad()
+    def quantize_frozen(self) -> bool:
+        """With ``llm_4bit_loading`` and a frozen backbone (adapters or
+        ``freeze_llm``), store the backbone as packed nf4 in place
+        (``ops/quant.quantize_backbone``; expert banks and shapes nf4 cannot
+        pack as int8), as ``fluid_llm_tpu/main.py:101-110`` does after the
+        weights are drawn: DoRA's ``m`` comes from the float weight.  Also
+        the template a checkpoint of such a run restores into.  Returns
+        whether it quantized."""
+        cfg = self.cfg
+        if not (cfg.llm_4bit_loading and (cfg.use_lora or cfg.freeze_llm)):
+            return False
+        quantize_backbone(self.backbone, "nf4")
+        return True
 
     @torch.no_grad()
     def prepare_inference_params(self, quant: Optional[str] = None, qmm_mode: str = "w8a16",
@@ -168,13 +186,15 @@ class FluidLLM(nn.Module):
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor, *,
                 frame_valid: Optional[torch.Tensor] = None, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                moe_aux: Optional[list] = None) -> torch.Tensor:
         """``model.py:128-152``: every frame decoded.
 
         x: (bs, seq, N_patch, 3, px, py); position_ids: (bs, seq, N_patch, 3);
         frame_valid: optional (bs, seq) bool.  ``train``: dropout (input
         embeddings, backbone stream and residuals, adapter inputs) drawn from
-        ``generator``, which it then needs.  Returns diffs as images
+        ``generator``, which it then needs.  ``moe_aux``: a list the MoE
+        blocks append their balance losses to.  Returns diffs as images
         (bs, seq, 3, tot_px, tot_py), f32.
         """
         if train and generator is None:
@@ -184,7 +204,8 @@ class FluidLLM(nn.Module):
         if frame_valid is None:
             frame_valid = torch.ones(bs, seq_len, dtype=torch.bool, device=x.device)
         h, token_valid = self._embed(x, position_ids, frame_valid, gen)
-        out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen)
+        out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen,
+                            moe_aux=moe_aux)
         if self.bos is not None:
             out = out[:, 1:]
         preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, gen)
@@ -216,6 +237,7 @@ class FluidLLM(nn.Module):
         frame_idx: int,
         init_frame: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
         remat: Optional[bool] = None,
+        moe_aux: Optional[list] = None,
     ) -> torch.Tensor:
         """Rollout hot path: full-window backbone, single-frame decode.
 
@@ -224,13 +246,17 @@ class FluidLLM(nn.Module):
         decoding only ``frame_idx`` is exact.  ``init_frame``: optional
         (state, position_ids) used as the see-init duplicated frame instead
         of ``states[:, 0]`` (the right-aligned rollout window's first valid
-        frame).  ``remat``: the backbone's (None: the config's).  Returns
-        the diff image of window frame ``frame_idx``: (bs, 3, X, Y), f32.
+        frame).  ``remat``: the backbone's (None: the config's).
+        ``moe_aux``: as :meth:`forward`'s.  Returns the diff image of window
+        frame ``frame_idx``: (bs, 3, X, Y), f32.
 
         The CNN decoder's Conv1d spans the whole window's token stream, so
         it decodes every frame of a full-window backbone and keeps
         ``frame_idx``'s (``fluid_llm.py:465-499``), with the tokens of
-        invalid frames zeroed first.
+        invalid frames zeroed first.  A MoE backbone runs its final block
+        over the whole window too, then keeps the frame's tokens: expert
+        capacity couples the tokens of a layer, so the slice would route
+        differently (``fluid_llm.py:542-551``).
         """
         bs, seq_len, n_patch = states.shape[:3]
         out_idx = frame_idx
@@ -243,8 +269,10 @@ class FluidLLM(nn.Module):
             frame_valid = torch.cat([ones, frame_valid], dim=1)
             out_idx = frame_idx + 1  # drop the duplicated frame's prediction
         h, token_valid = self._embed(states, position_ids, frame_valid)
+        run = lambda **kw: self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora,
+                                         remat=remat, moe_aux=moe_aux, **kw)
         if self.cfg.decoder_params.type == "CNN":
-            out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, remat=remat)
+            out = run()
             if self.bos is not None:
                 out = out[:, 1:]
             valid_tok = frame_valid.repeat_interleave(n_patch, dim=1)[..., None]
@@ -252,6 +280,8 @@ class FluidLLM(nn.Module):
             preds = self.decoder(out.reshape(bs, -1, n_patch, out.shape[-1]), self.kernels)
             return preds[:, out_idx].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
         tok_start = out_idx * n_patch + (1 if self.bos is not None else 0)
-        out = self.backbone(h, token_valid, decode_slice=(tok_start, n_patch),
-                            kernels=self.kernels, lora=self.lora, remat=remat)
+        if self.backbone_cfg.moe_experts > 0:
+            out = run()[:, tok_start:tok_start + n_patch]
+        else:
+            out = run(decode_slice=(tok_start, n_patch))
         return self.decode_frame_tokens(out)

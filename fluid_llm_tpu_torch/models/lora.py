@@ -11,7 +11,11 @@ backbone's layers, with the JAX layout (``A`` (in, r), ``B`` (r, out), ``m``
 
 ``lora_linear`` is the unmerged forward (training, and the validation
 rollout of a model in training); serving folds the adapters in with
-``merge_lora``.
+``merge_lora``.  The base may be stored quantized (``llm_4bit_loading``:
+nf4, ``fluid_llm_tpu/main.py:101-110``; or int8): it is dequantised at use
+(``materialize_w``), and DoRA's ``m``, drawn before quantisation, comes
+from the float weight.  On a MoE backbone only the attention projections
+take adapters (``lora.py:58-66``).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu_torch.config import LoraConfig
-from fluid_llm_tpu_torch.models.common import dropout
+from fluid_llm_tpu_torch.models.common import dropout, linear_weight
+from fluid_llm_tpu_torch.ops.quant import is_quantized
 
 # peft target-module names -> backbone (group, name)
 _NAME_MAP = {
@@ -63,6 +68,11 @@ class Lora(nn.Module):
         for layer in backbone.layers:
             groups: dict[str, nn.ModuleDict] = {}
             for group, name in target_paths(cfg):
+                if group == "mlp" and hasattr(layer.mlp, "router"):
+                    raise ValueError(
+                        f"LoRA target {name!r} addresses the dense MLP, but this is a MoE "
+                        "backbone (moe.experts > 0): adapt attention projections only, or "
+                        "train the expert bank directly")
                 lin = getattr(layer, group)[name]
                 groups.setdefault(group, nn.ModuleDict())[name] = LoraAdapter(
                     lin.in_features, lin.out_features, cfg.r, cfg.use_dora
@@ -72,7 +82,9 @@ class Lora(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, backbone: nn.Module, generator: torch.Generator) -> None:
-        """peft's init: A ~ U(+-1/sqrt(in)), B = 0, m = ||W||_col."""
+        """peft's init: A ~ U(+-1/sqrt(in)), B = 0, m = ||W||_col (of the
+        weight as stored: call before quantising the backbone, as the JAX
+        package draws its adapters before ``main.py:103`` quantises)."""
         for layer, adapters in zip(backbone.layers, self.layers):
             for group, entries in adapters.items():
                 for name, ad in entries.items():
@@ -80,16 +92,18 @@ class Lora(nn.Module):
                     ad.A.uniform_(-bound, bound, generator=generator)
                     ad.B.zero_()
                     if ad.m is not None:
-                        ad.m.copy_(getattr(layer, group)[name].weight.norm(dim=1))
+                        ad.m.copy_(linear_weight(getattr(layer, group)[name],
+                                                 torch.float32).norm(dim=1))
 
 
-def lora_linear(x: torch.Tensor, lin: nn.Linear, ad: LoraAdapter, cfg: LoraConfig,
+def lora_linear(x: torch.Tensor, lin: nn.Module, ad: LoraAdapter, cfg: LoraConfig,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """``lin`` applied to ``x`` with its adapter unmerged
     (``fluid_llm_tpu/models/lora.py:82-138``).
 
     Masters (base weight, ``A``/``B``/``m``) are cast to the activation dtype
-    at use.  With ``generator`` (training) the adapter branch's input goes
+    at use; a quantized base (``QuantLinear``, ``NF4Linear``) is
+    dequantised to it, and DoRA's norm reads it dequantised in f32.  With ``generator`` (training) the adapter branch's input goes
     through ``lora_dropout``, as peft places it.  DoRA's column norm of
     ``W + s*A@B`` is taken in closed form, without materialising the
     update, and detached (the reference's weight-norm detach):
@@ -98,10 +112,11 @@ def lora_linear(x: torch.Tensor, lin: nn.Linear, ad: LoraAdapter, cfg: LoraConfi
     dtype = x.dtype
     scaling = cfg.lora_alpha / cfg.r
     x_drop = dropout(x, cfg.lora_dropout, generator) if generator is not None else x
-    y = F.linear(x, lin.weight.to(dtype)) + (x_drop @ ad.A.to(dtype)) @ ad.B.to(dtype) * scaling
+    y = F.linear(x, linear_weight(lin, dtype)) \
+        + (x_drop @ ad.A.to(dtype)) @ ad.B.to(dtype) * scaling
     if ad.m is not None:
         with torch.no_grad():
-            w32 = lin.weight.float()  # (out, in): the JAX w transposed
+            w32 = linear_weight(lin, torch.float32)  # (out, in): the JAX w transposed
             a32, b32 = ad.A.float(), ad.B.float()
             wn2 = (w32 * w32).sum(1)
             cross = ((w32 @ a32) * b32.T).sum(1)
@@ -118,14 +133,24 @@ def merge_lora(backbone: nn.Module, lora: Lora) -> None:
     """Fold the adapters into the backbone's weights, in place.
 
     ``nn.Linear`` stores (out, in), so the JAX column norm over the input
-    axis is a row norm here.
+    axis is a row norm here.  A quantized base becomes a float ``nn.Linear``
+    of its dequantised weight plus the update (serving may quantize it
+    again, ``FluidLLM.prepare_inference_params``).
     """
     scaling = lora.cfg.lora_alpha / lora.cfg.r
     for layer, adapters in zip(backbone.layers, lora.layers):
         for group, entries in adapters.items():
             for name, ad in entries.items():
                 lin = getattr(layer, group)[name]
-                w_eff = lin.weight.float() + (ad.A.float() @ ad.B.float() * scaling).T
+                w_eff = linear_weight(lin, torch.float32) \
+                    + (ad.A.float() @ ad.B.float() * scaling).T
                 if ad.m is not None:
                     w_eff = w_eff * (ad.m.float() / w_eff.norm(dim=1))[:, None]
+                if is_quantized(lin):
+                    dense = nn.Linear(lin.in_features, lin.out_features,
+                                      bias=lin.bias is not None, device=w_eff.device)
+                    if lin.bias is not None:
+                        dense.bias.copy_(lin.bias)
+                    dense.requires_grad_(False)
+                    getattr(layer, group)[name] = lin = dense
                 lin.weight.copy_(w_eff)

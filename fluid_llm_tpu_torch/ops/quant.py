@@ -8,7 +8,11 @@ Counterpart of ``fluid_llm_tpu/ops/quant.py``.  Two storage modes:
   the optional bias in f32 and its matmul mode (``w8a16``, the default:
   bf16 activations, the JAX package's default dequantised path; or
   ``w8a8``, opt-in: activations quantised to int8 a row;
-  ``ops/quant_matmul.py``).
+  ``ops/quant_matmul.py``).  A MoE expert bank (``models/backbone.py``
+  ``ExpertBank``, ``(E, out, in)``) is a :class:`QuantLinear` with a
+  leading ``E`` axis: ``q`` ``(E, out, in)``, ``scale`` ``(E, out)``, a
+  scale per expert and output column (``quant.py:140-156``); it is
+  dequantised at use, never through the matmul kernel.
 - ``nf4``: QLoRA 4-bit NormalFloat, two codes a byte, absmax per 64
   weights, the absmax vector double-quantized to int8 per 256-chunk with a
   global mean offset.  :class:`NF4Linear` keeps the JAX leaves as they are
@@ -20,8 +24,12 @@ and ``scale`` equal the JAX package's bit for bit (``torch.round`` rounds
 half to even like ``jnp.round``).  The divisor 127 is a tensor on the
 weight's device: PyTorch's CUDA division by a Python scalar multiplies by
 its reciprocal, which would round differently.  The nf4 packer is a copy of
-the numpy original (argmin tie order, double-quantized absmax).  MoE expert
-banks are not ported.
+the numpy original (argmin tie order, double-quantized absmax).
+
+:func:`quantize_backbone` stores every linear (nf4 where it packs, else
+int8) and every expert bank (int8 in both modes, as the JAX walk does);
+the MoE router stays float.  :func:`dequantize_backbone` undoes it and
+:func:`quantization_error` is the JAX diagnostic over the 2-D linears.
 """
 
 from __future__ import annotations
@@ -49,20 +57,19 @@ QMM_MODES = ("w8a8", "w8a16")
 
 
 def quantize_weight(w: torch.Tensor) -> dict[str, torch.Tensor]:
-    """(out, in) float -> {'q': int8 (out, in), 'scale': f32 (out,)}:
-    symmetric absmax per output channel (``quant.py:44-51``)."""
-    if w.dim() != 2:
-        raise NotImplementedError(f"quantize_weight: weight of shape {tuple(w.shape)}; stacked "
-                                  "MoE expert banks are not ported (MoE is not ported)")
-    absmax = w.abs().amax(dim=1)
+    """(..., out, in) float -> {'q': int8 (..., out, in), 'scale': f32
+    (..., out)}: symmetric absmax per output channel (``quant.py:44-51``);
+    leading axes (a MoE bank's ``E``) quantize independently."""
+    absmax = w.abs().amax(dim=-1)
     scale = torch.where(absmax > 0, absmax / absmax.new_full((), 127.0), 1.0)
-    q = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    q = torch.round(w / scale[..., None]).clamp(-127, 127).to(torch.int8)
     return {"q": q, "scale": scale.float()}
 
 
 def dequantize_weight(q: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """int8 (out, in) and f32 (out,) -> the (out, in) weight in ``dtype``."""
-    return (q.float() * scale[:, None]).to(dtype)
+    """int8 (..., out, in) and f32 (..., out) -> the (..., out, in) weight in
+    ``dtype``."""
+    return (q.float() * scale[..., None]).to(dtype)
 
 
 def quantize_weight_nf4(w: torch.Tensor) -> dict[str, torch.Tensor]:
@@ -114,25 +121,32 @@ def dequantize_weight_nf4(codes, absmax_q, absmax_scale, absmax_offset,
 
 class QuantLinear(nn.Module):
     """An ``nn.Linear`` stored as int8 (buffers, not parameters: frozen).
-    ``models.common.linear`` applies it through ``ops/quant_matmul``."""
+    ``models.common.linear`` applies it through ``ops/quant_matmul``.
+    ``lead``: leading axes of a stack of linears (a MoE bank's ``(E,)``, the
+    stacked layout's ``(n_layers,)``), which ``q``, ``scale`` and the bias
+    carry; such a stack is dequantised (or sliced) by its user."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool, mode: str = "w8a16",
-                 device=None):
+                 device=None, lead: tuple[int, ...] = ()):
         super().__init__()
         if mode not in QMM_MODES:
             raise ValueError(f"matmul mode {mode!r}; one of {QMM_MODES}")
         self.in_features, self.out_features, self.mode = in_features, out_features, mode
-        self.register_buffer("q", torch.zeros(out_features, in_features, dtype=torch.int8,
-                                              device=device))
-        self.register_buffer("scale", torch.ones(out_features, device=device))
-        self.register_buffer("bias", torch.zeros(out_features, device=device) if bias else None)
+        lead = tuple(lead)
+        self.register_buffer("q", torch.zeros(*lead, out_features, in_features,
+                                              dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.ones(*lead, out_features, device=device))
+        self.register_buffer("bias", torch.zeros(*lead, out_features, device=device)
+                             if bias else None)
 
     @classmethod
     @torch.no_grad()
-    def from_linear(cls, lin: nn.Linear, mode: str = "w8a16") -> "QuantLinear":
+    def from_linear(cls, lin: nn.Module, mode: str = "w8a16") -> "QuantLinear":
+        """An ``nn.Linear``, or a MoE ``ExpertBank`` (its ``(E, out, in)``
+        weight quantized per expert), stored as int8."""
         qp = quantize_weight(lin.weight)
         out = cls(lin.in_features, lin.out_features, lin.bias is not None, mode,
-                  device=lin.weight.device)
+                  device=lin.weight.device, lead=lin.weight.shape[:-2])
         out.q.copy_(qp["q"])
         out.scale.copy_(qp["scale"])
         if lin.bias is not None:
@@ -140,24 +154,30 @@ class QuantLinear(nn.Module):
         return out
 
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        """The (..., out, in) weight in ``dtype``."""
         return dequantize_weight(self.q, self.scale, dtype)
 
 
 class NF4Linear(nn.Module):
-    """An ``nn.Linear`` stored as nf4, dequantized on use."""
+    """An ``nn.Linear`` stored as nf4, dequantized on use.  ``lead``: the
+    stacked layout's leading ``(n_layers,)`` axis on every buffer, as
+    :class:`QuantLinear`'s."""
 
-    def __init__(self, in_features: int, out_features: int, bias: bool, device=None):
+    def __init__(self, in_features: int, out_features: int, bias: bool, device=None,
+                 lead: tuple[int, ...] = ()):
         super().__init__()
         self.in_features, self.out_features = in_features, out_features
         n_blocks = in_features * out_features // NF4_BLOCK
         n_chunks = -(-n_blocks // NF4_CHUNK)
-        self.register_buffer("codes", torch.zeros(in_features, out_features // 2,
+        lead = tuple(lead)
+        self.register_buffer("codes", torch.zeros(*lead, in_features, out_features // 2,
                                                   dtype=torch.uint8, device=device))
-        self.register_buffer("absmax_q", torch.zeros(n_chunks * NF4_CHUNK, dtype=torch.int8,
-                                                     device=device))
-        self.register_buffer("absmax_scale", torch.ones(n_chunks, device=device))
-        self.register_buffer("absmax_offset", torch.zeros((), device=device))
-        self.register_buffer("bias", torch.zeros(out_features, device=device) if bias else None)
+        self.register_buffer("absmax_q", torch.zeros(*lead, n_chunks * NF4_CHUNK,
+                                                     dtype=torch.int8, device=device))
+        self.register_buffer("absmax_scale", torch.ones(*lead, n_chunks, device=device))
+        self.register_buffer("absmax_offset", torch.zeros(lead, device=device))
+        self.register_buffer("bias", torch.zeros(*lead, out_features, device=device)
+                             if bias else None)
 
     @classmethod
     @torch.no_grad()
@@ -176,12 +196,54 @@ class NF4Linear(nn.Module):
                                      self.absmax_offset, dtype).T
 
 
+def is_quantized(mod: nn.Module) -> bool:
+    return isinstance(mod, (QuantLinear, NF4Linear))
+
+
+def _like(mod: nn.Module, lead: tuple[int, ...]) -> nn.Module:
+    """An empty module of ``mod``'s class and settings on the meta device,
+    with leading axes ``lead``: its buffers are assigned after."""
+    with torch.device("meta"):
+        if isinstance(mod, QuantLinear):
+            return QuantLinear(mod.in_features, mod.out_features, mod.bias is not None,
+                               mod.mode, lead=lead)
+        return NF4Linear(mod.in_features, mod.out_features, mod.bias is not None, lead=lead)
+
+
+def stack_quantized(mods: list[nn.Module]) -> nn.Module:
+    """Quantized linears of one place in every layer, stored alike, as one
+    module of their class whose buffers lead with ``n_layers`` (the JAX
+    stacked tree's quantized leaves, ``backbone.py:308-337``)."""
+    out = _like(mods[0], (len(mods),))
+    for name, _ in mods[0].named_buffers():
+        setattr(out, name, torch.stack([getattr(m, name) for m in mods]))
+    return out
+
+
+def quantized_layer(stacked: nn.Module, li: int, clone: bool = False) -> nn.Module:
+    """Layer ``li`` of :func:`stack_quantized`'s result: views ``[li]`` of
+    its buffers (copies with ``clone``), a quantized linear of that layer."""
+    out = _like(stacked, ())
+    for name, buf in stacked.named_buffers():
+        setattr(out, name, buf[li].clone() if clone else buf[li])
+    return out
+
+
+def _is_bank(mod: nn.Module) -> bool:
+    """A float MoE expert bank (``models/backbone.ExpertBank``): an
+    ``(E, out, in)`` weight."""
+    return not isinstance(mod, (QuantLinear, NF4Linear)) and getattr(mod, "weight", None) \
+        is not None and mod.weight.dim() == 3
+
+
 def _backbone_linears(backbone: nn.Module):
     """(parent, name) of every linear ``quantize_backbone`` stores: each
-    layer's attention and MLP projections, ``project_in``/``project_out``
-    (``getattr``/``setattr`` reach both kinds of parent)."""
+    layer's attention and MLP projections (a MoE layer's expert banks; its
+    router stays float), ``project_in``/``project_out`` (``getattr``/
+    ``setattr`` reach both kinds of parent)."""
     for layer in backbone.layers:
-        for group in (layer.attn, layer.mlp):
+        mlp = layer.mlp.experts if hasattr(layer.mlp, "experts") else layer.mlp
+        for group in (layer.attn, mlp):
             for name in list(group.keys()):
                 yield group, name
     for name in ("project_in", "project_out"):
@@ -194,13 +256,17 @@ def quantize_backbone(backbone: nn.Module, mode: str = "nf4", qmm_mode: str = "w
     """Store every linear of the backbone quantized, in place (``quant.py:121-155``):
     ``mode`` "int8" (:class:`QuantLinear` applied in ``qmm_mode``) or "nf4"
     (:class:`NF4Linear`; a shape nf4 cannot pack falls back to int8, as in
-    the JAX package).  Norms, biases and position tables stay float."""
+    the JAX package).  MoE expert banks are int8 in both modes, a scale per
+    expert and output column (nf4's flat blocks do not stack).  Norms,
+    biases, position tables and the MoE router stay float."""
     if mode not in ("nf4", "int8"):
         raise ValueError(mode)
     for container, key in _backbone_linears(backbone):
         lin = getattr(container, key)
+        if _is_bank(lin):
+            setattr(container, key, QuantLinear.from_linear(lin, qmm_mode))
         if not isinstance(lin, nn.Linear):
-            continue  # stored quantized already
+            continue  # stored quantized already, or a bank stored above
         packable = lin.out_features % 2 == 0 \
             and (lin.in_features * lin.out_features) % NF4_BLOCK == 0
         if mode == "nf4" and packable:
@@ -211,15 +277,22 @@ def quantize_backbone(backbone: nn.Module, mode: str = "nf4", qmm_mode: str = "w
 
 @torch.no_grad()
 def dequantize_backbone(backbone: nn.Module, dtype=torch.bfloat16) -> None:
-    """Inverse of :func:`quantize_backbone`, in place: every quantized linear
-    becomes an ``nn.Linear`` holding its dequantized weight in ``dtype``."""
+    """Inverse of :func:`quantize_backbone`, in place (``quant.py:159-173``):
+    every quantized linear becomes an ``nn.Linear`` (a quantized expert bank
+    an ``ExpertBank``) holding its dequantized weight in ``dtype``."""
+    from fluid_llm_tpu_torch.models.backbone import ExpertBank
+
     for container, key in _backbone_linears(backbone):
         mod = getattr(container, key)
-        if not isinstance(mod, (QuantLinear, NF4Linear)):
+        if not is_quantized(mod):
             continue
         w = mod.dequantize(dtype)
-        lin = nn.Linear(mod.in_features, mod.out_features, bias=mod.bias is not None,
-                        device=w.device, dtype=dtype)
+        if w.dim() == 3:
+            lin = ExpertBank(w.shape[0], mod.in_features, mod.out_features,
+                             bias=mod.bias is not None, device=w.device, dtype=dtype)
+        else:
+            lin = nn.Linear(mod.in_features, mod.out_features, bias=mod.bias is not None,
+                            device=w.device, dtype=dtype)
         lin.weight.copy_(w)
         if mod.bias is not None:
             lin.bias.copy_(mod.bias)
@@ -228,8 +301,9 @@ def dequantize_backbone(backbone: nn.Module, dtype=torch.bfloat16) -> None:
 
 @torch.no_grad()
 def quantization_error(backbone: nn.Module) -> float:
-    """Max relative int8 reconstruction error over the backbone's float
-    linears (diagnostics, ``quant.py:176-194``)."""
+    """Max relative int8 reconstruction error over the backbone's float 2-D
+    linears (diagnostics, ``quant.py:176-194``; expert banks and the router
+    are not counted, as in the JAX walk)."""
     errs = []
     for container, key in _backbone_linears(backbone):
         lin = getattr(container, key)

@@ -21,8 +21,12 @@ fused dequant matmul, so the plain route writes a bf16 copy of every weight
 on every call.  Here the kernel is how int8 storage runs on the card;
 :func:`int8_matmul_ref` (dequantise, then ``F.linear``; for w8a8 the
 activation quantisation first) is its plain twin on the CPU and in the
-tests.  The wrappers are forward only (serving): on CUDA they raise under
-autograd.
+tests.  Under autograd :func:`int8_matmul` goes through
+:class:`Int8Matmul`, whose forward is the same kernel (or twin) and whose
+backward is the JAX ``custom_vjp``'s (``quant_matmul.py:208-245``): the
+int8 weight is frozen storage, so training over it (a LoRA step over an
+int8 backbone) differentiates the activations and, where asked, the
+scales.
 
 Bound and design, in short (the source's header has the detail).  w8a8:
 at the streaming step's 60 rows the call is bound by the weight bytes (2 x
@@ -190,13 +194,7 @@ def int8_matmul_ref(x, q, scale, bias=None, mode: str = "w8a8") -> torch.Tensor:
     return y.reshape(*lead, q.shape[0])
 
 
-def int8_matmul(x, q, scale, bias=None, mode: str = "w8a8") -> torch.Tensor:
-    """``x (..., K) @ dequant(q (N, K), scale (N,)) + bias -> (..., N)``.
-
-    CUDA tensors launch the ``mode`` kernel (:func:`qmm_w8a8` or
-    :func:`qmm_w8a16`) or raise; CPU tensors take :func:`int8_matmul_ref`."""
-    if mode not in QMM_MODES:
-        raise ValueError(f"int8_matmul: mode {mode!r}; one of {QMM_MODES}")
+def _forward(x, q, scale, bias, mode: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return int8_matmul_ref(x, q, scale, bias, mode)
     if x.device.type != "cuda":
@@ -204,11 +202,54 @@ def int8_matmul(x, q, scale, bias=None, mode: str = "w8a8") -> torch.Tensor:
     return (qmm_w8a8 if mode == "w8a8" else qmm_w8a16)(x, q, scale, bias)
 
 
-def _launch(mode: str, x, q, scale, bias) -> torch.Tensor:
-    name = f"quant_matmul_{mode}"
+class Int8Matmul(torch.autograd.Function):
+    """:func:`int8_matmul` under autograd (the JAX ``custom_vjp``,
+    ``quant_matmul.py:208-245``).  Forward: the ``mode`` kernel on CUDA
+    tensors, the twin on CPU ones.  Backward: ``dx = g @ (q * s)`` with the
+    weight dequantised in ``g``'s dtype (w8a8's activation quantisation is
+    straight-through); ``dscale[n] = sum_m g[m, n] (x @ q^T)[m, n]`` in f32,
+    the true gradient of ``y = (x @ q^T) * s``; ``dbias`` the sum of ``g``.
+    ``q`` is int8 storage and gets none."""
+
+    @staticmethod
+    def forward(ctx, x, q, scale, bias, mode: str):
+        # x only for dscale: a frozen scale keeps no activation alive
+        ctx.save_for_backward(x if ctx.needs_input_grad[2] else None, q, scale)
+        ctx.has_bias = bias is not None
+        return _forward(x, q, scale, bias, mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q, scale = ctx.saved_tensors
+        dx = dscale = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = g @ dequantize_weight(q, scale.float(), g.dtype)
+        lead = tuple(range(g.dim() - 1))
+        if ctx.needs_input_grad[2]:
+            xq = x.float() @ q.float().T
+            dscale = (g.float() * xq).sum(lead).to(scale.dtype)
+        if ctx.has_bias and ctx.needs_input_grad[3]:
+            dbias = g.sum(lead)
+        return dx, None, dscale, dbias, None
+
+
+def int8_matmul(x, q, scale, bias=None, mode: str = "w8a8") -> torch.Tensor:
+    """``x (..., K) @ dequant(q (N, K), scale (N,)) + bias -> (..., N)``.
+
+    CUDA tensors launch the ``mode`` kernel (:func:`qmm_w8a8` or
+    :func:`qmm_w8a16`) or raise; CPU tensors take :func:`int8_matmul_ref`.
+    Where a gradient is wanted (of ``x``, ``scale`` or ``bias``), through
+    :class:`Int8Matmul`."""
+    if mode not in QMM_MODES:
+        raise ValueError(f"int8_matmul: mode {mode!r}; one of {QMM_MODES}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (x, scale, bias)):
-        raise RuntimeError(f"{name}: the int8 matmul kernel is forward only")
+        return Int8Matmul.apply(x, q, scale, bias, mode)
+    return _forward(x, q, scale, bias, mode)
+
+
+def _launch(mode: str, x, q, scale, bias) -> torch.Tensor:
+    name = f"quant_matmul_{mode}"
     if x.dtype != torch.bfloat16:
         raise ValueError(f"{name}: bf16 activations only, got {x.dtype}")
     if q.dtype != torch.int8 or q.dim() != 2 or not q.is_contiguous():

@@ -27,7 +27,10 @@ training mode differentiates through it (``generate.py:36-60``), each step's
 forward then rematerialised in the backward with ``remat``
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of the
 scan step).  Either way it draws no dropout, as the JAX rollout takes no
-rng.
+rng.  With ``collect_moe_aux`` (``notf`` over a MoE backbone, whose
+gradient-bearing forward is the rollout) it also returns the rollout's
+balance loss: the mean over steps of each step's mean over blocks
+(``generate.py:150-160``).
 """
 
 from __future__ import annotations
@@ -48,24 +51,28 @@ def generate(
     *,
     grad: bool = False,
     remat: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    collect_moe_aux: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """init_states: (bs, init_len, N_patch, 3, px, py); bc_mask:
     (bs, seq, N_patch, 3, px, py) bool; position_ids: (bs, seq, N_patch, 3).
     ``grad``: keep the autograd graph (otherwise inference mode); ``remat``:
     recompute each step's forward in the backward, keeping only its input.
 
     Returns (all_states, all_diffs) as patch tensors of
-    (bs, init_len + n_steps, ...) and (bs, n_steps, ...).
+    (bs, init_len + n_steps, ...) and (bs, n_steps, ...), and with
+    ``collect_moe_aux`` the rollout's MoE balance loss (a scalar).
     """
     if not grad:
         if remat:
             raise ValueError("remat rematerialises a differentiated rollout: pass grad=True")
         with torch.inference_mode():
-            return _generate(model, init_states, bc_mask, position_ids, n_steps, False)
-    return _generate(model, init_states, bc_mask, position_ids, n_steps, remat)
+            return _generate(model, init_states, bc_mask, position_ids, n_steps, False,
+                             collect_moe_aux)
+    return _generate(model, init_states, bc_mask, position_ids, n_steps, remat, collect_moe_aux)
 
 
-def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bool):
+def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bool,
+              collect_moe_aux: bool = False):
     bs, init_len, n_patch = init_states.shape[:3]
     W = model.max_ctx_len
     dev = init_states.device
@@ -78,7 +85,7 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
     abs_t, ival = model.cfg.absolute_time_ids, model.cfg.seq_interval
     t0 = position_ids[:, 0, 0, 2]  # the window's base step
 
-    next_states, all_diffs = [], []
+    next_states, all_diffs, aux_steps = [], [], []
     for i in range(n_steps):
         start = W - min(init_len + i, W)  # first valid slot
         frame_valid = (slot >= start).expand(bs, W)
@@ -95,30 +102,35 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
 
         def step(buffer, wpos=wpos, frame_valid=frame_valid, dpos=dpos, start=start,
                  step_mask=step_mask):
+            aux = [] if collect_moe_aux else None
             last_img = model.predict_frame_diff(
                 buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos),
                 remat=False if remat else None,  # a rematerialised step keeps its blocks whole
+                moe_aux=aux,
             )
             diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
             diffs = torch.where(step_mask, 0.0, diffs)
-            return buffer[:, W - 1] + diffs, diffs
+            aux_step = sum(aux) / len(aux) if aux else diffs.new_zeros(())
+            return buffer[:, W - 1] + diffs, diffs, aux_step
 
-        next_state, diffs = checkpoint(step, buffer, use_reentrant=False) if remat \
+        next_state, diffs, aux_step = checkpoint(step, buffer, use_reentrant=False) if remat \
             else step(buffer)
         buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
         next_states.append(next_state)
         all_diffs.append(diffs)
+        aux_steps.append(aux_step)
     all_states = torch.cat([init_states, torch.stack(next_states, dim=1)], dim=1)
-    return all_states, torch.stack(all_diffs, dim=1)
+    out = (all_states, torch.stack(all_diffs, dim=1))
+    return out + (torch.stack(aux_steps).mean(),) if collect_moe_aux else out
 
 
 def gen_seq(
     model: FluidLLM, batch: tuple, pred_steps: int, start_state: int = 1, *,
-    grad: bool = False, remat: bool = False,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    grad: bool = False, remat: bool = False, collect_moe_aux: bool = False,
+) -> tuple[torch.Tensor, ...]:
     """``model.py:218-233``: generate from the first ``start_state`` states
-    and return (states, diffs) as images; ``grad``/``remat`` as
-    :func:`generate`."""
+    and return (states, diffs) as images; ``grad``/``remat``/
+    ``collect_moe_aux`` (then also the balance loss) as :func:`generate`."""
     states, _, _, bc_mask, position_ids = batch
     seq_len = states.shape[1]
     if pred_steps + start_state - 1 > seq_len:
@@ -126,8 +138,9 @@ def gen_seq(
             f"Prediction steps ({pred_steps}) + start state ({start_state}) "
             f"must be less than total sequence length {seq_len}!"
         )
-    all_states, all_diffs = generate(
+    out = generate(
         model, states[:, :start_state], bc_mask, position_ids, pred_steps, grad=grad,
-        remat=remat,
+        remat=remat, collect_moe_aux=collect_moe_aux,
     )
-    return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)
+    imgs = (patch_to_img(out[0], model.ds_props), patch_to_img(out[1], model.ds_props))
+    return imgs + out[2:]

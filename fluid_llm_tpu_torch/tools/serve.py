@@ -2,7 +2,9 @@
 
 Counterpart of ``fluid_llm_tpu/tools/serve.py``.  One process owns the
 card; the checkpoint is restored once (optionally with the backbone stored
-as int8 or nf4, ``--quant``); each request is one rollout of the
+as int8 or nf4, ``--quant``: a MoE backbone's expert banks int8 either way,
+its router float; a run trained over an nf4 frozen backbone restores into
+nf4 storage and merges its adapters); each request is one rollout of the
 pred-steps bucket it falls in.  PyTorch runs eagerly, so there is nothing
 to compile: a (bucket, ctx) pair is a "program" only for the statistics.
 

@@ -16,6 +16,11 @@ checkpoints on resume and inference.  Here:
   ``grad_accum_steps > 1`` also the micro-step and the running mean of the
   gradients, ``optim.MultiSteps``, so a resume continues mid-accumulation)
   and the epoch; plus ``step_N.epoch`` beside it, as the JAX package writes.
+  The frozen part holds every buffer too: the nf4 codes (uint8) and
+  absmax chain, int8 ``q``/``scale`` (MoE expert banks included) and bf16
+  parameters under ``frozen_bf16``, each in its dtype, so a template of the
+  same structure (``main.build_model_and_trainer``) restores them bit for
+  bit.
 
 Restoring reads tensors only (``weights_only=True``).
 """

@@ -18,6 +18,13 @@ Counterpart of ``fluid_llm_tpu/train/trainer.py:93-242`` (``src/trainer.py``):
 
 Dropout and noise draw from one ``torch.Generator`` on the model's device,
 seeded from ``cfg.seed``.
+
+A MoE backbone adds ``moe.aux_weight`` times the mean of its blocks'
+balance losses to the loss and logs it as ``moe_aux`` (``trainer.py:
+129-192``): ``autoreg`` and ``gen`` from their gradient-bearing forward
+(``gen``'s guide rollout collects none), ``notf`` from its rollout.  With
+``frozen_bf16`` the frozen backbone is stored in bf16
+(:func:`cast_frozen_bf16`).
 """
 
 from __future__ import annotations
@@ -34,10 +41,31 @@ from fluid_llm_tpu_torch.train.metrics import calc_n_rmse, normalise_states
 from fluid_llm_tpu_torch.train.optim import build_optimizer
 
 
+@torch.no_grad()
+def cast_frozen_bf16(model: FluidLLM) -> None:
+    """Store the frozen backbone's f32 parameters in bf16, in place
+    (``cfg.frozen_bf16``, ``trainer.py:44-60``; the reference loads its
+    backbone in bf16 and trains f32 adapters over it).  Trainable
+    parameters and every module outside the backbone keep their dtype.
+    Quantized storage (``QuantLinear``, ``NF4Linear``: the int8/uint8 bytes,
+    their f32 scale chains and f32 bias) is buffers, not parameters, so it
+    is skipped whole: its scales carry the dynamic range.  The JAX walk
+    recognises int8 storage by its ``q`` leaf and so casts an nf4 absmax
+    chain and a quantized linear's bias; the port keeps both f32, as that
+    function's docstring intends (the int8 kernel also takes its bias in
+    f32).  A storage change only: every forward casts weights to the
+    activation dtype at use."""
+    for p in model.backbone.parameters():
+        if not p.requires_grad and p.dtype == torch.float32:
+            p.data = p.data.to(torch.bfloat16)
+
+
 class Trainer:
     def __init__(self, model: FluidLLM, generator: Optional[torch.Generator] = None):
         self.model = model
         self.cfg = model.cfg
+        if self.cfg.frozen_bf16:
+            cast_frozen_bf16(model)
         self.opt = build_optimizer(self.cfg, (p for p in model.parameters() if p.requires_grad))
         device = next(model.parameters()).device
         self.generator = generator if generator is not None else \
@@ -47,6 +75,7 @@ class Trainer:
         """Loss and metrics of one batch (``trainer.py:121-199``)."""
         cfg, model, gen = self.cfg, self.model, self.generator
         states, next_state, diffs, bc_mask, position_ids = batch
+        moe_aux = [] if model.backbone_cfg.moe_experts > 0 else None
         if mode == "autoreg":
             input_states = states
             if cfg.noise is not None:
@@ -54,18 +83,22 @@ class Trainer:
                 noise = torch.randn(states.shape, generator=gen, device=states.device,
                                     dtype=states.dtype)
                 input_states = states + noise * (~bc_mask).to(states.dtype) * std * cfg.noise
-            pred_diff = model.predict_diffs(input_states, position_ids, train=True, generator=gen)
+            pred_diff = model.predict_diffs(input_states, position_ids, train=True, generator=gen,
+                                            moe_aux=moe_aux)
             pred_state = patch_to_img(input_states, model.ds_props) + pred_diff
         elif mode == "gen":
             guide_img, _ = gen_seq(model, batch, states.shape[1] - 1)
             guide_img = guide_img.clone()  # out of inference mode, into autograd
             pred_diffs = model.forward_see_init(img_to_patch(guide_img, model.ds_props),
-                                                position_ids, train=True, generator=gen)
+                                                position_ids, train=True, generator=gen,
+                                                moe_aux=moe_aux)
             pred_state = guide_img + pred_diffs
         elif mode == "notf":
-            rollout, _ = gen_seq(model, batch, states.shape[1], grad=True,
-                                 remat=cfg.parallel.remat)
-            pred_state = rollout[:, 1:]
+            out = gen_seq(model, batch, states.shape[1], grad=True, remat=cfg.parallel.remat,
+                          collect_moe_aux=moe_aux is not None)
+            pred_state = out[0][:, 1:]
+            if moe_aux is not None:
+                moe_aux.append(out[2])
         else:
             raise ValueError(mode)
 
@@ -77,6 +110,10 @@ class Trainer:
                                              cfg.channel_independent)
         loss, metrics = combined_loss(preds, target, mask_img, cfg.loss_function,
                                       cfg.loss_weighting, cfg.pressure_weight)
+        if moe_aux:
+            aux = sum(moe_aux) / len(moe_aux)
+            loss = loss + cfg.moe.aux_weight * aux
+            metrics["moe_aux"] = aux
         metrics["loss"] = loss
         metrics["N_RMSE"] = calc_n_rmse(pred_state.detach(), next_img, mask_img)
         return loss, metrics

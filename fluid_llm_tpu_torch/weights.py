@@ -18,7 +18,13 @@ returns this package's ``FluidLLM.state_dict()``.  Path names are kept
 - a quantized linear's ``w`` is a dict (``ops/quant.py``): its leaves land
   on the module itself (``ops/quant.QuantLinear``, ``NF4Linear``), the
   int8 ``q`` transposed to (out, in), ``scale`` and the nf4 leaves as
-  they are (``…attn.q.w.q`` -> ``…attn.q.q``);
+  they are (``…attn.q.w.q`` -> ``…attn.q.q``); a stacked tree's keep their
+  leading ``n_layers`` axis, for a stacked quantized port backbone;
+- a MoE MLP (``mlp.router``, ``mlp.experts.<name>``): the router's ``w``
+  (d, E) as any linear's, an expert bank's ``w`` (E, in, out) -> ``weight``
+  (E, out, in) (``models/backbone.ExpertBank``), its ``b`` (E, out) ->
+  ``bias``; an int8 bank's ``q`` (E, in, out) -> (E, out, in), ``scale``
+  (E, out) as it is;
 - every other leaf (position tables, ``att``, LoRA ``A``/``B``/``m``,
   ``bos``; GraphViT's GRU ``w_ih``/``w_hh``/``b_ih``/``b_hh`` and attention
   ``in_w``/``in_b``, GATNet's ``lin``, ``lin_edge`` and ``att_*``, which the

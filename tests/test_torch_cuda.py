@@ -755,16 +755,23 @@ def test_quant_matmul_leading_axes_and_row_stride(dev, M):
 
 
 def test_quant_matmul_raises(dev):
-    """Forward only: raises under autograd; a shape ``supported`` refuses,
-    f32 activations and bf16 scales raise in the wrapper, nothing falls
-    back."""
+    """Under autograd the kernel runs as ``Int8Matmul``'s forward (launched
+    and counted, the same output bit for bit) and dx is ``g @ (q s)`` in
+    bf16; a shape ``supported`` refuses, f32 activations and bf16 scales
+    raise in the wrapper, nothing falls back."""
     x, q, scale, _ = _qmm_case(dev, 60, 768, 768, False)
     xg = x.detach().requires_grad_()
+    g = torch.randn(60, 768, generator=torch.Generator(device=dev).manual_seed(0),
+                    device=dev).bfloat16()
     for mode in ("w8a8", "w8a16"):
-        with pytest.raises(RuntimeError, match="forward only"):
-            qmm.int8_matmul(xg, q, scale, mode=mode)
+        counter = qmm.qmm_w8a8 if mode == "w8a8" else qmm.qmm_w8a16
+        before = counter.launches
+        out = qmm.int8_matmul(xg, q, scale, mode=mode)
+        assert counter.launches == before + 1
         with torch.no_grad():
-            qmm.int8_matmul(xg, q, scale, mode=mode)
+            assert torch.equal(qmm.int8_matmul(xg, q, scale, mode=mode), out)
+        (dx,) = torch.autograd.grad(out, xg, g)
+        assert torch.equal(dx, g @ quant.dequantize_weight(q, scale, torch.bfloat16))
         with pytest.raises(ValueError, match="not supported"):
             qmm.int8_matmul(x[:, :100], q[:, :100].contiguous(), scale, mode=mode)
         with pytest.raises(ValueError, match="bf16"):
@@ -826,6 +833,77 @@ def test_quantized_streaming_rollout_kernels_match_twins(dev):
         assert ran == ((7 * 2 * 7, 0) if kernels else (0, 0))
     assert bool(torch.isfinite(out[True]).all())
     assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
+
+
+def test_moe_rollout_kernels_match_twins(dev):
+    """A small bf16 MoE model (OPT layout, 2 layers, 4 experts, top-2, cf
+    1.25) rolls out 4 steps through the kernels and the twins: its final
+    block runs whole, so exact attention launches 2 a step (every layer),
+    and int8 storage adds 4 w8a16 launches a layer (the banks are
+    dequantised); step 1 within REL_TOL."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import make_batches
+    from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.rollout.generate import generate
+
+    cfg = Config(llm_layers=2, half_precision=True, use_lora=False, autoreg_seq_len=5,
+                 resolution=64, moe={"experts": 4, "top_k": 2, "capacity_factor": 1.25},
+                 decoder_params={"type": "MLPGNN", "gnn_dim": 8, "gnn_hid_dim": 16,
+                                 "gnn_layers": 2, "mlp_hid_dim": 32},
+                 encoder_params={"type": "MLP", "num_layers": 2, "hidden_dim": 32})
+    ds = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=5, mode="valid")
+    states, _, _, bc_mask, pos = next(make_batches(ds, 1, shuffle=False, device=dev))
+    for quant_mode in (None, "int8"):
+        model = FluidLLM.build(cfg, ds.ds_props(), d_model=128, n_heads=2, d_ff=256)
+        model.init_weights(torch.Generator().manual_seed(0))
+        model.to(dev).prepare_inference_params(quant_mode)
+        out = {}
+        for kernels in (True, False):
+            model.kernels = kernels
+            before = (xa.causal_attention.launches, qmm.qmm_w8a16.launches)
+            out[kernels] = generate(model, states[:, :1], bc_mask, pos, 4)[1]
+            torch.cuda.synchronize()
+            ran = (xa.causal_attention.launches - before[0], qmm.qmm_w8a16.launches - before[1])
+            want = (2 * 4, 4 * 2 * 4 if quant_mode else 0) if kernels else (0, 0)
+            assert ran == want, (quant_mode, ran, want)
+        assert bool(torch.isfinite(out[True]).all())
+        assert _rel(out[True][:, 0], out[False][:, 0]) <= REL_TOL
+
+
+def test_stacked_int8_streaming_equals_unrolled(dev):
+    """The stacked layout of int8 layers streams bit for bit as the
+    unrolled one on the card: each layer's int8 linears launch the w8a16
+    kernel on its slice of the stacked storage (the same bytes), the
+    indexed linear never."""
+    cfg = bb.BackboneConfig(family="llama", n_layers=3, d_model=256, n_heads=4, d_ff=512,
+                            act="silu", norm="rmsnorm", pos="rope", max_pos=4096,
+                            dropout=0.0, dtype=torch.bfloat16)
+    model = bb.Backbone(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    model.to(dev)
+    quant.quantize_backbone(model, "int8")
+    frame, n_sink = 60, 61
+    x = torch.randn(1, n_sink + 3 * frame, 256, generator=torch.Generator().manual_seed(1))
+    x = x.to(dev, torch.bfloat16)
+    outs = {}
+    for stacked in (False, True):
+        if stacked:
+            bb.stack_layers(model)
+        cache = bb.init_streaming_cache(cfg, 1, n_sink, 2, frame, device=dev)
+        positions = torch.arange(x.shape[1], device=dev)
+        before = (qmm.qmm_w8a16.launches, il.indexed_linear.launches)
+        with torch.no_grad():
+            bb.apply_streaming(model, x[:, :n_sink], positions[:n_sink], cache, 0, prefill=True)
+            ys = [bb.apply_streaming(model, x[:, lo:lo + frame], positions[lo:lo + frame],
+                                     cache, f % 2)[0]
+                  for f, lo in enumerate(range(n_sink, x.shape[1], frame))]
+        torch.cuda.synchronize()
+        assert (qmm.qmm_w8a16.launches - before[0], il.indexed_linear.launches - before[1]) \
+            == (7 * 3 * 4, 0)
+        outs[stacked] = torch.cat(ys, 1)
+    assert isinstance(model.layers, bb.StackedLayers)
+    assert torch.equal(outs[True], outs[False])
 
 
 # -- segment sum and row gather (graph baselines) --------------------------------

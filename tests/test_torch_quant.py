@@ -105,9 +105,21 @@ def test_quantize_weight_bit_identical_to_jax(rng, shape):
         want, jnp.float32)).T, atol=1e-6, rtol=0)
 
 
-def test_quantize_weight_refuses_expert_banks():
-    with pytest.raises(NotImplementedError, match="MoE is not ported"):
-        quant.quantize_weight(torch.zeros(2, 8, 8))
+def test_quantize_weight_refuses_expert_banks(rng):
+    """MoE expert banks are ported: a 3-D ``(E, in, out)`` JAX bank and its
+    ``(E, out, in)`` transpose here quantize per expert and output column,
+    bit for bit (``quant.py:44-51``; zero columns take scale 1)."""
+    w = (rng.normal(size=(3, 64, 32)) * 0.05).astype(np.float32)
+    w[1, :, 5] = 0.0
+    want = jquant.quantize_weight(jnp.asarray(w))
+    got = quant.quantize_weight(torch.from_numpy(np.swapaxes(w, 1, 2).copy()))
+    assert got["q"].shape == (3, 32, 64) and got["scale"].shape == (3, 32)
+    np.testing.assert_array_equal(got["q"].numpy(), np.swapaxes(np.asarray(want["q"]), 1, 2))
+    np.testing.assert_array_equal(got["scale"].numpy(), np.asarray(want["scale"]))
+    assert got["scale"][1, 5] == 1.0
+    np.testing.assert_array_equal(
+        quant.dequantize_weight(got["q"], got["scale"], torch.float32).numpy(),
+        np.swapaxes(np.asarray(jquant.dequantize_weight(want, jnp.float32)), 1, 2))
 
 
 @pytest.mark.parametrize("shape", [(64, 128), (256, 96), (48, 32)])

@@ -13,8 +13,9 @@
   back to its XLA path, the same function), every layer's attention
   through ``ShortAttention``; the stacked exact rollout against JAX's
   stacked one;
-- ``FluidLLM.build`` refusing ``llm_4bit_loading`` with adapters or a
-  frozen backbone.
+- ``llm_4bit_loading`` with adapters or a frozen backbone: the model
+  builds and ``main.build_model_and_trainer`` stores its backbone as nf4
+  (``tests/test_torch_quant_train.py`` holds that training to JAX's).
 
 Tolerances (f32): atol 2e-5 on attention outputs and 2e-4 on its gradient
 (``tests/test_short_attention.py``); 1e-5 relative on the loss and 1e-4 of
@@ -226,12 +227,23 @@ def test_kernels_off_takes_the_short_twin(pair, monkeypatch):
 @pytest.mark.parametrize("adapters", [dict(use_lora=True), dict(use_lora=False, freeze_llm=True)])
 def test_build_refuses_4bit_loading(adapters):
     """``llm_4bit_loading`` with adapters or a frozen backbone trains over
-    packed nf4 in the JAX package (``main.py:103-110``); the port refuses it
-    where the model is built instead of training a dense backbone."""
+    packed nf4 in the JAX package (``main.py:103-110``), and now in the
+    port: the model builds, and ``build_model_and_trainer`` stores every
+    backbone linear as nf4 after drawing the weights, frozen (buffers: no
+    optimizer state) beside the float trainable parameters."""
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.ops.quant import NF4Linear
+
     cfg = _training1(llm_4bit_loading=True, **adapters)
     props = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN).ds_props()
-    with pytest.raises(NotImplementedError, match="llm_4bit_loading"):
-        FluidLLM.build(cfg, props, **TINY)
+    FluidLLM.build(cfg, props, **TINY)
+    trainer = build_model_and_trainer(cfg, props, torch.device("cpu"), **TINY)
+    layers = trainer.model.backbone.layers
+    assert all(isinstance(m, NF4Linear) for layer in layers
+               for g in (layer.attn, layer.mlp) for m in g.values())
+    assert not any(p.requires_grad for p in trainer.model.backbone.parameters())
+    opt = {id(p) for g in trainer.opt.param_groups for p in g["params"]}
+    assert opt == {id(p) for p in trainer.model.parameters() if p.requires_grad}
 
 
 @pytest.mark.parametrize("changes", [dict(llm_4bit_loading=False),

@@ -5,8 +5,9 @@
   pattern), at the streaming step's 60 and 61 rows, the first and the last
   layer, with and without a bias;
 - ``stack_layers``/``unstack_layers``: the round trip bit for bit, the
-  no-op on layers that differ, the refusal of quantized linears, and the
-  weight bridge from JAX's stacked tree;
+  no-op on layers that differ, layers quantized alike stacked (their
+  storage with the leading axis), and the weight bridge from JAX's stacked
+  tree;
 - the stacked ``forward`` (dense and ``decode_slice``) against JAX
   ``apply`` on the stacked tree; the stacked ``apply_streaming`` through
   the prefill, decode and ring eviction against JAX's stacked scan; the
@@ -165,6 +166,9 @@ def test_stack_unstack_round_trip_bit_for_bit(family, packed):
 
 
 def test_stack_leaves_layers_that_differ_and_refuses_quantized():
+    """Layers that differ keep the list; layers quantized alike (int8 here)
+    stack now, as JAX's ``stack_layers`` does: their storage gains the
+    leading axis, and the round trip is bit for bit."""
     _, _, model = _bb_pair("opt")
     bb.pack_qkv_params(model)
     model.layers[1] = bb.Block(model.cfg)  # q/k/v unpacked in one layer only
@@ -172,8 +176,15 @@ def test_stack_leaves_layers_that_differ_and_refuses_quantized():
     assert isinstance(model.layers, torch.nn.ModuleList)
     _, _, model = _bb_pair("llama")
     quantize_backbone(model, "int8", "w8a16")
-    with pytest.raises(NotImplementedError, match="quantized"):
-        bb.stack_layers(model)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    bb.stack_layers(model)
+    assert isinstance(model.layers, bb.StackedLayers)
+    assert model.layers.mlp["down"].q.shape == (3, 128, 256)
+    assert model.layers.mlp["down"].mode == "w8a16"
+    bb.unstack_layers(model)
+    after = model.state_dict()
+    assert after.keys() == before.keys()
+    assert all(torch.equal(after[k], before[k]) for k in before)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

@@ -173,11 +173,15 @@ def test_optimizer_matches_optax(rng, name):
 
 
 def test_unported_options_raise():
-    """What the port still refuses (adafactor, accumulation, notf and
-    ``val_plot_dir`` are ported: ``tests/test_torch_surface.py``)."""
+    """What the port still refuses: pipeline parallelism and the
+    multi-process flags (adafactor, accumulation, notf and ``val_plot_dir``
+    are ported: ``tests/test_torch_surface.py``; ``frozen_bf16``, MoE and
+    ``llm_4bit_loading``: ``tests/test_torch_quant_train.py``,
+    ``tests/test_torch_moe.py``)."""
     props = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN).ds_props()
-    with pytest.raises(NotImplementedError):
-        FluidLLM.build(Config(**NO_DROPOUT, frozen_bf16=True), props, **TINY)
+    FluidLLM.build(Config(**NO_DROPOUT, frozen_bf16=True), props, **TINY)
+    with pytest.raises(ValueError, match="pipe_axis"):
+        FluidLLM.build(Config(**NO_DROPOUT, parallel={"pipe_axis": 2}), props, **TINY)
     with pytest.raises(NotImplementedError):
         tmain.main(["--distributed"])
 
