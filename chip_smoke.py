@@ -217,20 +217,27 @@ Phases, each printing one line per result; any failure exits nonzero:
                1.25, bf16): the 251-step exact rollout through
                ``test_generate`` (the MoE final block runs whole: exact
                attention 6x251, slot 3x251), 50-step rates kernels and
-               twins, 10 steps kernels vs twins (step 1 <= MOE_REL_TOL,
-               the share of valid tokens routed to another expert set at
-               step 1 <= MOE_FLIP_TOL); 4 autoreg steps through ``Trainer``
+               twins, 10 steps kernels vs twins each routing itself (step
+               1 <= moe_bound: REL_TOL where no token flipped, wider by the
+               flipped shares and the MoE output's share of the residual
+               measured in the run), twins routed from the kernels' router
+               probabilities (step 1 <= REL_TOL), the share of valid
+               tokens routed to another expert set at step 1 <=
+               MOE_FLIP_TOL; 4 autoreg steps through ``Trainer``
                (6 flash fwd/dq/dk-dv, 3 slot fwd/bwd a step; loss falling,
                ``moe_aux`` finite and positive, router and bank gradients),
                one expert_choice step (aux 0), ``main`` 1 epoch and
                ``inference --checkpoint_dir`` 25 steps; the flagship with a
                MoE MLP (4 experts top-2 cf 1.25) streamed 251 steps
                (slab decode 12x252) and ``apply_streaming`` over 5 frames
-               against the banded dense forward; ``tools.serve --quant
+               against the banded dense forward (routing itself: moe_bound;
+               from the dense forward's probabilities: REL_TOL); ``tools.serve --quant
                int8`` on the MoE checkpoint (25-step request: w8a16 4x6 a
                step, exact 6 a step; int8 vs dense < 0.05);
                ``training1.yaml`` trained over an nf4 (``llm_4bit_loading``),
-               an int8 (w8a16 under autograd, 48 a step) and a bf16
+               an int8 (w8a16 under autograd, 48 a step; w8a16 vs its
+               twin on the step's 4808-row inputs and one step kernels vs
+               twins, loss REL_TOL, gradient GRAD_TOL) and a bf16
                (``frozen_bf16``) frozen backbone: adapters move, frozen
                storage bit-identical, the nf4 checkpoint restored bit for
                bit; the flagship as int8 streamed 25 steps stacked and
@@ -877,15 +884,20 @@ def _indexed_linear_plans(dev, failures: list) -> list[dict]:
     return res
 
 
-# (M, K, N) of the w8a16 kernel's main path (OPT-125m's exact rollout, with
-# bias): q/k/v/o, fc1, fc2 at 661 rows and the sliced last block's 60
+# (M, K, N) of the w8a16 kernel's paths, with bias: OPT-125m's exact
+# rollout (q/k/v/o, fc1, fc2 at 661 rows and the sliced last block's 60)
+# and training1.yaml's train step over an int8 frozen backbone (k/o, fc1,
+# fc2 at 8 x 601 rows, phase 21; plan's grid rule, not swept)
 W8A16_SHAPES = [(661, 768, 768), (661, 768, 3072), (661, 3072, 768),
-                (60, 768, 768), (60, 768, 3072), (60, 3072, 768)]
+                (60, 768, 768), (60, 768, 3072), (60, 3072, 768),
+                (TRAIN_BS * TRAIN_TOKENS, 768, 768), (TRAIN_BS * TRAIN_TOKENS, 768, 3072),
+                (TRAIN_BS * TRAIN_TOKENS, 3072, 768)]
 
 
 def _w8a16_plans(dev, failures: list) -> list[dict]:
-    """Every plan of the w8a16 kernel (token tile, K split; up to four
-    blocks an SM) at its main path's six shapes, with bias: agreement with
+    """Every plan of the w8a16 kernel (token tile, K split; every unsplit
+    grid, split ones up to four blocks an SM) at its paths' nine shapes,
+    with bias: agreement with
     the twin and device time, ``quant_matmul.plan``'s choice marked,
     beside bf16 ``F.linear`` on the dequantised weight."""
     import torch.nn.functional as F
@@ -906,7 +918,7 @@ def _w8a16_plans(dev, failures: list) -> list[dict]:
         chosen = qmm.plan(M, K, N, sms)
         timed = []
         for blocks, *p in qmm.plans(M, K, N):
-            if blocks > 4 * sms:
+            if blocks > 4 * sms and p[1] > 1:
                 continue
             with mock.patch.object(qmm, "plan", lambda *a, p=tuple(p): p):
                 out = qmm.qmm_w8a16(x, q, scale, b)
@@ -2973,55 +2985,113 @@ def phase_switches(dev, seed: int, failures: list, n_steps: int = 3) -> dict:
 
 MOE = os.path.join(os.path.dirname(CONFIG), "moe_cylinder.yaml")
 MOE_OVERRIDE = {"experts": 4, "top_k": 2, "capacity_factor": 1.25}  # the flagship's MoE cell
-# Bounds on a MoE path, kernels vs twins (bf16).  Where every token keeps
-# its experts the dense bound REL_TOL holds.  A token whose top-k router
-# scores are tied within the kernels' rounding (~2e-3 of logits ~0.5 wide)
-# may take another expert set on one side: MOE_FLIP_TOL bounds the share
-# of valid token-layers that do.  A flipped token's MLP output differs by
-# about its own size, so over a frame's rows the flipped tokens add about
-# sqrt(share) x |MLP out| / |residual| to the relative L2 error (through
-# later layers and attention too): at the 2 % bound and an MLP output of
-# ~1/3 of the residual stream (an assumption, not measured), ~0.05.
+# Bounds on a MoE path, kernels vs twins (bf16).  Routing is
+# discontinuous: a token whose top-k router scores are tied within the
+# kernels' rounding (~2e-3 of probabilities ~0.5 wide) may take another
+# expert set on one side.  MOE_FLIP_TOL bounds the share of valid
+# token-layers that do.  Each comparison runs twice:
+# - replayed: the twins route from the kernels' own router probabilities
+#   (RouteLog(replay=)), so both sides take the same experts with the same
+#   gates and only the kernels' rounding differs: the dense bound REL_TOL;
+# - free: each side routes itself, bounded by moe_bound.  With no token
+#   flipped that is REL_TOL.  A flipped token's MoE output changes by about
+#   sqrt(2) x its own size (two gated experts' outputs, uncorrelated), so
+#   layer l, where a share s_l of the tokens flipped, adds about
+#   sqrt(2 s_l) x rho_l relative L2 error to the residual stream, where
+#   rho_l = |MoE out| / |block out| over valid rows, measured in the same
+#   run on the reference side.  Flips of different layers fall on different
+#   tokens, so their errors add in quadrature; later layers carry an error
+#   along at about its relative size (pre-LN residual stream).
 MOE_FLIP_TOL = 0.02
-MOE_REL_TOL = 5e-2
+
+
+def moe_bound(shares: list, rho: list) -> float:
+    """The free comparison's relative L2 bound: REL_TOL, plus
+    ``sqrt(sum_l 2 s_l rho_l^2)`` for the shares ``s_l`` of tokens flipped
+    at layer ``l`` (see MOE_FLIP_TOL)."""
+    return REL_TOL + math.sqrt(sum(2 * s * r * r for s, r in zip(shares, rho, strict=True)))
+
+
+def _valid_norm(t: torch.Tensor, valid) -> torch.Tensor:
+    """Frobenius norm of ``t``'s (bs, L, d) rows where ``valid`` (bs, L)."""
+    return (t.float() if valid is None else t.float()[valid.bool()]).norm()
 
 
 class RouteLog:
-    """Records ``moe_dispatch``'s expert choices (``Routing.chosen``, valid
-    tokens only) while it is patched in, one entry a MoE layer call."""
+    """While entered, records every MoE layer call: the router's
+    probabilities (``probs``), each token's expert set from them with the
+    valid tokens (``calls``: the ``top_k`` argmax passes of
+    ``moe_dispatch``, or the tokens an expert took) and the MoE output's
+    norm over valid rows; with ``backbone``, each block's output norm over
+    valid rows too (forward hooks: the rollout and the dense forward call
+    blocks, ``apply_streaming`` does not).  ``replay``: probabilities, one
+    a call in order, that routing reads in place of the run's own."""
 
-    def __init__(self):
+    def __init__(self, backbone=None, replay=None):
         from fluid_llm_tpu_torch.models import backbone as bb
 
-        self.bb, self.calls = bb, []
+        self.bb, self.backbone, self.replay = bb, backbone, replay
+        self.probs, self.calls, self.mlp_norms, self.block_norms = [], [], [], []
 
     def __enter__(self):
-        real = self.bb.moe_dispatch
+        import torch.nn.functional as F
 
-        def record(probs, cfg, valid=None, capacity_tokens=None):
-            r = real(probs, cfg, valid, capacity_tokens)
+        bb = self.bb
+        real_dispatch, real_mlp = bb.moe_dispatch, bb.moe_mlp
+
+        def dispatch(probs, cfg, valid=None, capacity_tokens=None):
             ok = torch.ones(probs.shape[:2], dtype=torch.bool, device=probs.device) \
                 if valid is None else valid.bool()
-            self.calls.append((r.chosen > 0, ok))
-            return r
+            if cfg.moe_router == "expert_choice":
+                chosen = real_dispatch(probs, cfg, valid, capacity_tokens).dispatch.sum(-1) > 0
+            else:
+                chosen, rest = torch.zeros_like(probs, dtype=torch.bool), probs
+                for _ in range(cfg.moe_top_k):
+                    oh = F.one_hot(rest.argmax(-1), probs.shape[-1]).bool()
+                    chosen, rest = chosen | oh, rest.masked_fill(oh, -1.0)
+            use = probs if self.replay is None else self.replay[len(self.probs)]
+            self.probs.append(probs)
+            self.calls.append((chosen, ok))
+            return real_dispatch(use, cfg, valid, capacity_tokens)
 
-        self._patch = mock.patch.object(self.bb, "moe_dispatch", record)
-        self._patch.__enter__()
+        def mlp(h, m, cfg, valid=None, capacity_tokens=None):
+            out, aux = real_mlp(h, m, cfg, valid, capacity_tokens)
+            self.mlp_norms.append(_valid_norm(out, valid))
+            return out, aux
+
+        self._patches = [mock.patch.object(bb, "moe_dispatch", dispatch),
+                         mock.patch.object(bb, "moe_mlp", mlp)]
+        for patch in self._patches:
+            patch.__enter__()
+        self._hooks = [] if self.backbone is None else [
+            layer.register_forward_hook(
+                lambda mod, args, out: self.block_norms.append(_valid_norm(out[0], args[2])))
+            for layer in self.backbone.layers]
         return self
 
     def __exit__(self, *exc):
-        self._patch.__exit__(*exc)
+        for hook in self._hooks:
+            hook.remove()
+        for patch in reversed(self._patches):
+            patch.__exit__(*exc)
+
+    def rho(self) -> list[float]:
+        """|MoE out| / |block out| over valid rows, a call each."""
+        return [(m / b).item() for m, b in zip(self.mlp_norms, self.block_norms, strict=True)]
 
 
-def flip_share(a: list, b: list) -> tuple[float, int]:
-    """Share of valid routed tokens whose expert set differs between two
-    logs of the same calls, and the count of such tokens."""
-    differ = total = 0
+def flip_counts(a: list, b: list) -> list[tuple[int, int]]:
+    """For each call of two logs of the same calls: the valid tokens whose
+    expert set differs, and the valid tokens."""
+    counts = []
     for (ca, va), (cb, vb) in zip(a, b, strict=True):
         valid = va & vb
-        differ += int(((ca != cb).any(-1) & valid).sum())
-        total += int(valid.sum())
-    return differ / max(total, 1), differ
+        counts.append((int(((ca != cb).any(-1) & valid).sum()), int(valid.sum())))
+    return counts
+
+
+def flip_share(counts: list) -> float:
+    return sum(d for d, _ in counts) / max(sum(t for _, t in counts), 1)
 
 
 def phase_moe_rollout(dev, seed: int, failures: list, tmp: str) -> dict:
@@ -3065,18 +3135,26 @@ def phase_moe_rollout(dev, seed: int, failures: list, tmp: str) -> dict:
     states, _, _, bc_mask, position_ids = batch
     out, logs = {}, {}
     n_agree = min(10, STEPS)
+    agree = lambda: generate(model, states[:, :1], bc_mask, position_ids, n_agree)[1]
     for kernels in (True, False):
         model.kernels = kernels
-        with RouteLog() as log:
-            out[kernels] = generate(model, states[:, :1], bc_mask, position_ids, n_agree)[1]
-        logs[kernels] = log.calls
+        with RouteLog(model.backbone) as log:
+            out[kernels] = agree()
+        logs[kernels] = log
+    model.kernels = False
+    with RouteLog(replay=logs[True].probs):
+        replayed = agree()
     model.kernels = True
     errs = [rel_err(out[True][:, i], out[False][:, i]) for i in range(n_agree)]
+    replay_errs = [rel_err(out[True][:, i], replayed[:, i]) for i in range(n_agree)]
     n = bcfg.n_layers
-    flips1, n_flips1 = flip_share(logs[True][:n], logs[False][:n])
-    flips, _ = flip_share(logs[True], logs[False])
-    ok = (launches == want and finite and len(logs[True]) == n_agree * n
-          and errs[0] <= MOE_REL_TOL and flips1 <= MOE_FLIP_TOL)
+    counts1 = flip_counts(logs[True].calls[:n], logs[False].calls[:n])
+    flips1, n_flips1 = flip_share(counts1), sum(d for d, _ in counts1)
+    flips = flip_share(flip_counts(logs[True].calls, logs[False].calls))
+    rho1 = logs[False].rho()[:n]
+    bound1 = moe_bound([d / max(t, 1) for d, t in counts1], rho1)
+    ok = (launches == want and finite and len(logs[True].calls) == n_agree * n
+          and errs[0] <= bound1 and replay_errs[0] <= REL_TOL and flips1 <= MOE_FLIP_TOL)
     n_prof = min(10, STEPS)
     busy_ms, n_ops, idle, top = device_profile(
         lambda: generate(model, states[:, :1], bc_mask, position_ids, n_prof), 1,
@@ -3087,17 +3165,22 @@ def phase_moe_rollout(dev, seed: int, failures: list, tmp: str) -> dict:
           f"mean N-RMSE {mean:.5f}, peak device memory {peak_mib:.1f} MiB; launches {launches} "
           f"(want {want}); {n_rate}-step rollouts {rates[True]:.2f} steps/s through the kernels, "
           f"{rates[False]:.2f} through the twins")
-    print(f"[moe rollout agreement] diffs rel err per step, kernels vs twins: "
-          f"{', '.join(f'{e:.3e}' for e in errs)} (step 1 bound MOE_REL_TOL {MOE_REL_TOL}); "
-          f"valid tokens routed to another expert set: step 1 {flips1:.4%} ({n_flips1} "
-          f"token-layers; bound MOE_FLIP_TOL {MOE_FLIP_TOL:.0%}), over {n_agree} steps {flips:.4%} "
+    print(f"[moe rollout agreement] diffs rel err per step, kernels vs twins routing "
+          f"themselves: {', '.join(f'{e:.3e}' for e in errs)} (step 1 bound moe_bound "
+          f"{bound1:.3e}: |MoE out| / |block out| per layer {', '.join(f'{r:.3f}' for r in rho1)}); "
+          f"twins routed from the kernels' probabilities: "
+          f"{', '.join(f'{e:.3e}' for e in replay_errs)} (step 1 bound REL_TOL {REL_TOL}); valid "
+          f"tokens routed to another expert set: step 1 {flips1:.4%} ({n_flips1} token-layers; "
+          f"bound MOE_FLIP_TOL {MOE_FLIP_TOL:.0%}), over {n_agree} steps {flips:.4%} "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"moe rollout: launches {launches} (want {want}), finite {finite}, "
-                        f"step 1 rel {errs[0]}, flips {flips1}")
+                        f"step 1 rel {errs[0]} (bound {bound1}), replayed {replay_errs[0]}, "
+                        f"flips {flips1}")
     return dict(setup_s=setup_s, test_generate_s=wall, mean_n_rmse=mean, peak_mem_mib=peak_mib,
                 launches=launches, steps_per_s=rates[True], plain_steps_per_s=rates[False],
-                agreement_rel_err=errs, flip_share_step1=flips1, flip_share_steps=flips,
+                agreement_rel_err=errs, agreement_bound=bound1, rho_step1=rho1,
+                replayed_rel_err=replay_errs, flip_share_step1=flips1, flip_share_steps=flips,
                 profile=dict(steps=n_prof, device_busy_ms=busy_ms, device_ops=n_ops,
                              idle_share=idle, top_device_ms=top))
 
@@ -3208,7 +3291,9 @@ def phase_moe_streaming(dev, seed: int, failures: list, tmp: str) -> dict:
     stepped frame by frame through ``apply_streaming`` (5 frames, a ring of
     3) against one dense forward of the same tokens under the banded mask,
     at ample capacity (cf 8: streaming sizes C per decode chunk, the dense
-    forward per stream, ``backbone.py:1297-1308``)."""
+    forward per stream, ``backbone.py:1297-1308``): routing itself, and
+    routed from the dense forward's probabilities through the kernels and
+    through the twins (kernels vs twins on the same routing)."""
     from fluid_llm_tpu_torch import inference
     from fluid_llm_tpu_torch.config import Config, MoEConfig
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
@@ -3245,41 +3330,64 @@ def phase_moe_streaming(dev, seed: int, failures: list, tmp: str) -> dict:
     allowed = (pos[:, None] >= pos[None, :]) & ((kf == -1) | (kf > qf - R))
     backbone, n_sink = model.backbone, 1 + n_patch
     backbone.cfg = bcfg.replace(moe_capacity_factor=8.0)
-    try:
-        with torch.no_grad(), RouteLog() as dense_log:
-            dense = backbone(x, positions=pos[None], allowed=allowed[None, None])
+    n = bcfg.n_layers
+    # streaming routes the prefill and then each frame, every layer
+    spans = [(0, n_sink)] + [(lo, lo + n_patch) for lo in range(n_sink, x.shape[1], n_patch)]
+
+    def stream(replay=None, kernels=True):
         cache = bb.init_streaming_cache(backbone.cfg, 1, n_sink, R, n_patch, device=dev)
+        with torch.no_grad(), RouteLog(replay=replay) as log:
+            bb.apply_streaming(backbone, x[:, :n_sink], pos[:n_sink], cache, 0, prefill=True,
+                               kernels=kernels)
+            ys = [bb.apply_streaming(backbone, x[:, lo:hi], pos[lo:hi], cache, f % R,
+                                     kernels=kernels)[0]
+                  for f, (lo, hi) in enumerate(spans[1:])]
+        return ys, log
+
+    try:
+        with torch.no_grad(), RouteLog(backbone) as dense_log:
+            dense = backbone(x, positions=pos[None], allowed=allowed[None, None])
         reset_launches()
-        with torch.no_grad(), RouteLog() as stream_log:
-            bb.apply_streaming(backbone, x[:, :n_sink], pos[:n_sink], cache, 0, prefill=True)
-            ys = [bb.apply_streaming(backbone, x[:, lo:lo + n_patch], pos[lo:lo + n_patch], cache,
-                                     f % R)[0]
-                  for f, lo in enumerate(range(n_sink, x.shape[1], n_patch))]
+        ys, stream_log = stream()
         oracle_launches = read_launches()
+        # the dense forward's probabilities, cut to each streamed chunk
+        replay = [dense_log.probs[li][:, lo:hi] for lo, hi in spans for li in range(n)]
+        ys_replay, ys_twin = stream(replay)[0], stream(replay, kernels=False)[0]
     finally:
         backbone.cfg = bcfg
-    errs = [rel_err(y, dense[:, n_sink + f * n_patch:n_sink + (f + 1) * n_patch])
-            for f, y in enumerate(ys)]
-    n = bcfg.n_layers
-    # streaming routes the prefill and each frame per layer; the dense pass each layer once
-    chunks = [stream_log.calls[i * n:(i + 1) * n] for i in range(T + 1)]
+    to_dense = lambda ys: [rel_err(y, dense[:, lo:hi]) for y, (lo, hi) in zip(ys, spans[1:])]
+    errs, replay_errs, twin_errs = to_dense(ys), to_dense(ys_replay), to_dense(ys_twin)
+    kt_errs = [rel_err(a, b) for a, b in zip(ys_replay, ys_twin)]
+    chunks = [stream_log.calls[i * n:(i + 1) * n] for i in range(len(spans))]
     stream_by_layer = [(torch.cat([c[li][0] for c in chunks], 1),
                         torch.cat([c[li][1] for c in chunks], 1)) for li in range(n)]
-    flips, n_flips = flip_share(stream_by_layer, dense_log.calls)
+    counts = flip_counts(stream_by_layer, dense_log.calls)
+    flips, n_flips = flip_share(counts), sum(d for d, _ in counts)
+    rho = dense_log.rho()
+    bound = moe_bound([d / max(t, 1) for d, t in counts], rho)
     ok = (launches == want and finite and oracle_launches["slab_decode_attention"] == n * (T + 1)
-          and max(errs) <= MOE_REL_TOL and flips <= MOE_FLIP_TOL)
+          and max(errs) <= bound and max(replay_errs) <= REL_TOL and max(kt_errs) <= REL_TOL
+          and flips <= MOE_FLIP_TOL)
     print(f"[moe streaming] flagship_llama.yaml with moe {MOE_OVERRIDE}: {n} layers "
           f"({bcfg.family}, gate/up/down banks), {bcfg.dtype}; test_generate(streaming=True) "
           f"{STEPS} steps in {wall:.3f} s: mean N-RMSE {mean:.5f}, launches {launches} (want "
           f"{want}); apply_streaming over {T} frames (ring {R}) against the banded dense forward "
-          f"(cf 8): rel err per frame {', '.join(f'{e:.3e}' for e in errs)} (bound MOE_REL_TOL "
-          f"{MOE_REL_TOL}), tokens routed to another expert set {flips:.4%} ({n_flips}; bound "
+          f"(cf 8): rel err per frame routing itself {', '.join(f'{e:.3e}' for e in errs)} "
+          f"(bound moe_bound {bound:.3e}: |MoE out| / |block out| per layer "
+          f"{', '.join(f'{r:.3f}' for r in rho)}), routed from the dense forward's probabilities "
+          f"{', '.join(f'{e:.3e}' for e in replay_errs)} (bound REL_TOL {REL_TOL}; streamed "
+          f"through the twins {', '.join(f'{e:.3e}' for e in twin_errs)}); streamed kernels vs "
+          f"twins, both routed so: {', '.join(f'{e:.3e}' for e in kt_errs)} (bound REL_TOL "
+          f"{REL_TOL}); tokens routed to another expert set {flips:.4%} ({n_flips}; bound "
           f"{MOE_FLIP_TOL:.0%}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"moe streaming: launches {launches} (want {want}), finite {finite}, "
-                        f"oracle {oracle_launches}, rel {errs}, flips {flips}")
+                        f"oracle {oracle_launches}, rel {errs} (bound {bound}), replayed "
+                        f"{replay_errs}, kernels vs twins {kt_errs}, flips {flips}")
     return dict(test_generate_s=wall, mean_n_rmse=mean, launches=launches,
-                banded_rel_err=errs, banded_flip_share=flips)
+                banded_rel_err=errs, banded_bound=bound, banded_rho=rho,
+                banded_replayed_rel_err=replay_errs, banded_twin_rel_err=twin_errs,
+                streamed_kernels_vs_twins=kt_errs, banded_flip_share=flips)
 
 
 def phase_moe_serve(dev, seed: int, failures: list, tmp: str) -> dict:
@@ -3335,6 +3443,44 @@ def _frozen_tensors(model) -> dict:
     return {n: t.detach().clone() for n, t in model.state_dict().items() if n not in trainable}
 
 
+def _w8a16_train_inputs(trainer, batch, failures: list) -> list[dict]:
+    """w8a16 against its twin on the card inputs of one int8-frozen train
+    step's forward (each distinct (M, K, N) once: k/o, fc1, fc2 at 8 x 601
+    rows, bias included), within REL_TOL, with the launch plan and the
+    device times of the kernel and the twin."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+    seen, real = {}, qmm._forward
+
+    def record(x, q, scale, bias, mode):
+        seen.setdefault((x.numel() // x.shape[-1], q.shape[1], q.shape[0]),
+                        (x.detach().clone(), q, scale, bias))
+        return real(x, q, scale, bias, mode)
+
+    with torch.no_grad(), mock.patch.object(qmm, "_forward", record):
+        trainer.mode_loss(batch, "autoreg")
+    res, sms = [], _build.sm_count(batch[0].device)
+    for (M, K, N), (x, q, scale, b) in sorted(seen.items()):
+        out, ref = qmm.qmm_w8a16(x, q, scale, b), qmm.int8_matmul_ref(x, q, scale, b, "w8a16")
+        rel = rel_err(out, ref)
+        r = dict(M=M, K=K, N=N, plan=qmm.plan(M, K, N, sms),
+                 swept=(M, K, N) in qmm.SWEPT_PLANS, rel=rel,
+                 ms=device_ms(lambda: qmm.qmm_w8a16(x, q, scale, b)),
+                 plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, b, "w8a16")))
+        ok = rel <= REL_TOL
+        print(f"[quant train int8] w8a16 on the train step's inputs M {M} K {K} N {N}, plan "
+              f"{r['plan']}{' (swept)' if r['swept'] else ' (grid rule)'}: rel {rel:.3e} "
+              f"(bound REL_TOL {REL_TOL}); {r['ms']:.4f} ms, twin {r['plain_ms']:.4f} ms "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"w8a16 at the int8 train step's M {M} K {K} N {N}: rel {rel}")
+        res.append(r)
+    if len(res) != 3:
+        failures.append(f"w8a16 at the int8 train step: shapes {sorted(seen)} (want 3)")
+    return res
+
+
 def phase_quant_train(dev, seed: int, failures: list, tmp: str) -> dict:
     """``training1.yaml`` (OPT-125m, DoRA r16 on q/v) trained over a frozen
     backbone stored three ways, each through ``build_model_and_trainer``:
@@ -3381,7 +3527,7 @@ def phase_quant_train(dev, seed: int, failures: list, tmp: str) -> dict:
         dtypes = sorted({str(t.dtype).replace("torch.", "") for t in frozen.values()})
         ok = (launches == want and all(math.isfinite(x) for x in losses)
               and losses[-1] < losses[0] and moved and still)
-        detail = ""
+        detail, extra_res = "", {}
         if kind == "nf4":
             ok = ok and isinstance(model.backbone.layers[11].mlp["fc2"], NF4Linear)
             ckpt.save_checkpoint(tmp, 1, model, trainer.opt, 1, c)
@@ -3395,6 +3541,11 @@ def phase_quant_train(dev, seed: int, failures: list, tmp: str) -> dict:
             ok = ok and restored
             detail = f"; checkpoint restored bit for bit into a zeroed template {restored}"
             del template
+        elif kind == "int8":
+            extra_res = dict(
+                w8a16_at_train_inputs=_w8a16_train_inputs(trainer, batch, failures),
+                agreement=phase_train_agreement(trainer, batch, seed, failures,
+                                                "quant train int8 agreement"))
         elif kind == "frozen_bf16":
             ok = ok and all(p.dtype == torch.bfloat16 for p in model.backbone.parameters())
         print(f"[quant train] {kind}: set-up {setup_s:.1f} s; {n_steps} autoreg steps on one "
@@ -3409,7 +3560,7 @@ def phase_quant_train(dev, seed: int, failures: list, tmp: str) -> dict:
         prof = device_profile(lambda: trainer.train_step(batch)["loss"].item(), 1,
                               statistics.median(ms[1:]), f"quant train {kind}")
         res[kind] = dict(setup_s=setup_s, losses=losses, step_ms=ms, peak_mem_mib=peak_mib,
-                         launches=launches, profile=prof)
+                         launches=launches, profile=prof, **extra_res)
         del trainer, model
     return res
 

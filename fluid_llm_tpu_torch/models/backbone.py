@@ -356,14 +356,11 @@ class MoEMLP(nn.Module):
 
 class Routing(NamedTuple):
     """:func:`moe_route`'s result: ``dispatch`` and ``combine`` (bs, L, E,
-    C) f32, the balance loss ``aux`` (a scalar), and ``chosen`` (bs, L, E),
-    1 where a token chose (topk) or was chosen by (expert_choice) an
-    expert, before capacity."""
+    C) f32 and the balance loss ``aux`` (a scalar)."""
 
     dispatch: torch.Tensor
     combine: torch.Tensor
     aux: torch.Tensor
-    chosen: torch.Tensor
 
 
 def moe_capacity(cfg: "BackboneConfig", L: int, capacity_tokens: Optional[int] = None) -> int:
@@ -414,7 +411,7 @@ def moe_dispatch(probs: torch.Tensor, cfg: "BackboneConfig", valid: Optional[tor
         gates, idx = order.values[..., :C], order.indices[..., :C]  # (bs, E, C)
         dispatch = F.one_hot(idx, L).float().permute(0, 3, 1, 2)  # (bs, L, E, C)
         combine = dispatch * gates[:, None]
-        return Routing(dispatch, combine, probs.new_zeros(()), dispatch.sum(-1))
+        return Routing(dispatch, combine, probs.new_zeros(()))
 
     sel_oh, sel_p = [], []
     remaining = probs
@@ -445,7 +442,7 @@ def moe_dispatch(probs: torch.Tensor, cfg: "BackboneConfig", valid: Optional[tor
         n_valid = valid_f.sum(1).clamp(min=1.0)  # (bs, 1)
         frac, pbar = sel_oh[0].sum(1) / n_valid, probs.sum(1) / n_valid
     aux = (E * (frac * pbar).sum(-1)).mean()
-    return Routing(dispatch, combine, aux, sum(sel_oh))
+    return Routing(dispatch, combine, aux)
 
 
 def moe_mlp(h: torch.Tensor, mlp: MoEMLP, cfg: "BackboneConfig",
@@ -532,8 +529,7 @@ class _LayerOps:
         return lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2")
 
     def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
-                generator=None, rope=None, kernels: bool = True,
-                moe_capacity_tokens: Optional[int] = None):
+                generator=None, rope=None, kernels: bool = True):
         """``(x, aux)``: the block's output and, for a MoE block, its balance
         loss (None for a dense one; an output, not a side effect, so that a
         rematerialised block recomputes it).  ``generator``: training
@@ -552,7 +548,7 @@ class _LayerOps:
         h = _norm(x, self.ln2, cfg) if cfg.pre_ln else x
         aux = None
         if isinstance(self.mlp, MoEMLP):
-            h, aux = moe_mlp(h, self.mlp, cfg, valid_i32.bool(), moe_capacity_tokens)
+            h, aux = moe_mlp(h, self.mlp, cfg, valid_i32.bool())
         else:
             h = self.mlp_out(h, cfg, lin)
         x = x + drop(h)
@@ -812,7 +808,6 @@ class Backbone(nn.Module):
         generator: Optional[torch.Generator] = None,
         remat: Optional[bool] = None,
         moe_aux: Optional[list] = None,
-        moe_capacity_tokens: Optional[int] = None,
         positions: Optional[torch.Tensor] = None,
         allowed: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
@@ -831,8 +826,6 @@ class Backbone(nn.Module):
         remat: rematerialise each full block under autograd (None: the
         config's ``remat``).
         moe_aux: a list that each MoE block appends its balance loss to.
-        moe_capacity_tokens: the token count expert capacity is sized by
-        (None: L).
         positions, allowed: replace the cumsum positions (bs, L) and the
         causal mask (broadcastable to (bs, H, L, L)), as the JAX
         ``positions_override``/``allowed_override`` (the streaming oracle's
@@ -877,8 +870,7 @@ class Backbone(nn.Module):
         remat = (cfg.remat if remat is None else remat) and torch.is_grad_enabled()
         for layer, ad in zip(layers[:n_full], adapters):
             block = lambda x, layer=layer, ad=ad: layer(x, cfg, valid_i32, attend, ad, lora_cfg,
-                                                        generator, rope, kernels,
-                                                        moe_capacity_tokens)
+                                                        generator, rope, kernels)
             x, aux = rematerialised(block, x, generator) if remat else block(x)
             if aux is not None and moe_aux is not None:
                 moe_aux.append(aux)

@@ -27,13 +27,15 @@ training mode differentiates through it (``generate.py:36-60``), each step's
 forward then rematerialised in the backward with ``remat``
 (``torch.utils.checkpoint``, the JAX package's ``jax.checkpoint`` of the
 scan step).  Either way it draws no dropout, as the JAX rollout takes no
-rng.  With ``collect_moe_aux`` (``notf`` over a MoE backbone, whose
-gradient-bearing forward is the rollout) it also returns the rollout's
-balance loss: the mean over steps of each step's mean over blocks
+rng.  Given a ``moe_aux`` list (``notf`` over a MoE backbone, whose
+gradient-bearing forward is the rollout) it appends the rollout's balance
+loss: the mean over steps of each step's mean over blocks
 (``generate.py:150-160``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -51,28 +53,28 @@ def generate(
     *,
     grad: bool = False,
     remat: bool = False,
-    collect_moe_aux: bool = False,
-) -> tuple[torch.Tensor, ...]:
+    moe_aux: Optional[list] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """init_states: (bs, init_len, N_patch, 3, px, py); bc_mask:
     (bs, seq, N_patch, 3, px, py) bool; position_ids: (bs, seq, N_patch, 3).
     ``grad``: keep the autograd graph (otherwise inference mode); ``remat``:
     recompute each step's forward in the backward, keeping only its input.
+    ``moe_aux``: a list the rollout's MoE balance loss (a scalar) is
+    appended to.
 
     Returns (all_states, all_diffs) as patch tensors of
-    (bs, init_len + n_steps, ...) and (bs, n_steps, ...), and with
-    ``collect_moe_aux`` the rollout's MoE balance loss (a scalar).
+    (bs, init_len + n_steps, ...) and (bs, n_steps, ...).
     """
     if not grad:
         if remat:
             raise ValueError("remat rematerialises a differentiated rollout: pass grad=True")
         with torch.inference_mode():
-            return _generate(model, init_states, bc_mask, position_ids, n_steps, False,
-                             collect_moe_aux)
-    return _generate(model, init_states, bc_mask, position_ids, n_steps, remat, collect_moe_aux)
+            return _generate(model, init_states, bc_mask, position_ids, n_steps, False, moe_aux)
+    return _generate(model, init_states, bc_mask, position_ids, n_steps, remat, moe_aux)
 
 
 def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bool,
-              collect_moe_aux: bool = False):
+              moe_aux: Optional[list] = None):
     bs, init_len, n_patch = init_states.shape[:3]
     W = model.max_ctx_len
     dev = init_states.device
@@ -102,7 +104,7 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
 
         def step(buffer, wpos=wpos, frame_valid=frame_valid, dpos=dpos, start=start,
                  step_mask=step_mask):
-            aux = [] if collect_moe_aux else None
+            aux = [] if moe_aux is not None else None
             last_img = model.predict_frame_diff(
                 buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos),
                 remat=False if remat else None,  # a rematerialised step keeps its blocks whole
@@ -110,7 +112,7 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
             )
             diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
             diffs = torch.where(step_mask, 0.0, diffs)
-            aux_step = sum(aux) / len(aux) if aux else diffs.new_zeros(())
+            aux_step = sum(aux) / len(aux) if aux else None
             return buffer[:, W - 1] + diffs, diffs, aux_step
 
         next_state, diffs, aux_step = checkpoint(step, buffer, use_reentrant=False) if remat \
@@ -118,19 +120,21 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
         buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
         next_states.append(next_state)
         all_diffs.append(diffs)
-        aux_steps.append(aux_step)
+        if aux_step is not None:
+            aux_steps.append(aux_step)
+    if aux_steps:
+        moe_aux.append(torch.stack(aux_steps).mean())
     all_states = torch.cat([init_states, torch.stack(next_states, dim=1)], dim=1)
-    out = (all_states, torch.stack(all_diffs, dim=1))
-    return out + (torch.stack(aux_steps).mean(),) if collect_moe_aux else out
+    return all_states, torch.stack(all_diffs, dim=1)
 
 
 def gen_seq(
     model: FluidLLM, batch: tuple, pred_steps: int, start_state: int = 1, *,
-    grad: bool = False, remat: bool = False, collect_moe_aux: bool = False,
-) -> tuple[torch.Tensor, ...]:
+    grad: bool = False, remat: bool = False, moe_aux: Optional[list] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
     """``model.py:218-233``: generate from the first ``start_state`` states
-    and return (states, diffs) as images; ``grad``/``remat``/
-    ``collect_moe_aux`` (then also the balance loss) as :func:`generate`."""
+    and return (states, diffs) as images; ``grad``/``remat``/``moe_aux`` as
+    :func:`generate`."""
     states, _, _, bc_mask, position_ids = batch
     seq_len = states.shape[1]
     if pred_steps + start_state - 1 > seq_len:
@@ -138,9 +142,8 @@ def gen_seq(
             f"Prediction steps ({pred_steps}) + start state ({start_state}) "
             f"must be less than total sequence length {seq_len}!"
         )
-    out = generate(
+    all_states, all_diffs = generate(
         model, states[:, :start_state], bc_mask, position_ids, pred_steps, grad=grad,
-        remat=remat, collect_moe_aux=collect_moe_aux,
+        remat=remat, moe_aux=moe_aux,
     )
-    imgs = (patch_to_img(out[0], model.ds_props), patch_to_img(out[1], model.ds_props))
-    return imgs + out[2:]
+    return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)

@@ -94,11 +94,8 @@ class Trainer:
                                                 moe_aux=moe_aux)
             pred_state = guide_img + pred_diffs
         elif mode == "notf":
-            out = gen_seq(model, batch, states.shape[1], grad=True, remat=cfg.parallel.remat,
-                          collect_moe_aux=moe_aux is not None)
-            pred_state = out[0][:, 1:]
-            if moe_aux is not None:
-                moe_aux.append(out[2])
+            pred_state = gen_seq(model, batch, states.shape[1], grad=True,
+                                 remat=cfg.parallel.remat, moe_aux=moe_aux)[0][:, 1:]
         else:
             raise ValueError(mode)
 

@@ -666,10 +666,12 @@ def _qmm_case(dev, M, K, N, bias: bool, seed: int = 0):
     (1, 768, 768, True), (1, 3072, 768, False), (64, 2048, 768, False), (64, 768, 3072, True),
     (65, 3072, 768, True), (65, 768, 2048, False), (61, 3072, 768, True),
     (661, 2048, 768, False), (60, 768, 80, True), (60, 11008, 4096, False),
+    (4808, 768, 768, True), (4808, 768, 3072, True), (4808, 3072, 768, True),
 ])
 def test_quant_matmul_kernels_match_twins(dev, mode, M, K, N, bias):
     """The streaming step's (60 rows; 61 in the prefill), the exact
-    rollout's (661; 60 in its sliced last block, with OPT's biases), M 1,
+    rollout's (661; 60 in its sliced last block, with OPT's biases), the
+    train step's over an int8 frozen backbone (8 x 601 rows), M 1,
     64, 65 and a ragged 5 rows, K 768 to 3072, N 80 (a partial tile of
     weight rows in w8a16): one launch, finite, within REL_TOL of the twin;
     w8a8 equal to it.  w8a16 also under every launch plan
