@@ -210,7 +210,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                through ``baselines_cli`` on synthetic cylinder grids at
                238x238 (1 epoch, the 101-step eval, finite N-RMSE, its
                step ms); GATNet one forward and backward
-               at the EAGLE edges, kernels vs twins.  Each of 17-21 prints
+               at the EAGLE edges, kernels vs twins.  Each of 17-22 prints
                its seconds;
 21. MoE and quantized backbones -- ``configs/moe_cylinder.yaml`` as
                published (OPT-125m width, 6 layers, 4 experts top-2, cf
@@ -241,10 +241,32 @@ Phases, each printing one line per result; any failure exits nonzero:
                (``frozen_bf16``) frozen backbone: adapters move, frozen
                storage bit-identical, the nf4 checkpoint restored bit for
                bit; the flagship as int8 streamed 25 steps stacked and
-               unrolled, equal bit for bit (w8a16 7x12x26, indexed 0).
+               unrolled, equal bit for bit (w8a16 7x12x26, indexed 0);
+22. weights in and out -- OPT-125m at full width and depth (12 layers,
+               768, vocabulary 50 272, 2 050 position rows) written as an HF
+               hub snapshot (``model.safetensors`` under HF's key names,
+               drawn from the seed) into a temporary ``HF_HUB_CACHE``: the
+               read and conversion seconds (``models/hf_import.py``), the
+               read tensors equal to the written ones bit for bit; ``main``
+               1 epoch of ``training1.yaml`` on ``synthetic:1`` imports it
+               (the log says so; the checkpoint's frozen base equal to the
+               written tensors bit for bit; BOS before the first step equal
+               to ``embed_tokens[2]``; 12 flash fwd/dq/dk-dv, 3 slot bwd,
+               3 + 3x25 slot fwd and 11x25 exact: one step and the
+               validation); its model exported to a reference ``.pt``
+               (``tools/reference_ckpt.export_state_dict``) and imported by
+               ``python -m fluid_llm_tpu_torch.tools.reference_ckpt`` into a
+               new run folder (its seconds); ``inference --checkpoint_dir``
+               251 steps from both folders: per-step N-RMSE equal bit for
+               bit, 11x251 exact and 3x251 slot launches each;
+               ``tools.parity_harness --synthetic`` on the card (finite,
+               reference null) and ``tools.postln_probe`` for OPT-125m on
+               the CPU (finite R²); the phase's seconds.
 
 Phases 8 to 13 share one temporary folder, removed at the end, phases
-17 and 18 another, phase 20 a third and phase 21 a fourth.  Phases 14
+17 and 18 another, phase 20 a third, phase 21 a fourth and phase 22 a
+fifth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so
+``main`` there trains the seeded draw whatever the host has cached.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
@@ -260,6 +282,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import logging
 import math
 import os
 import re
@@ -3611,6 +3634,276 @@ def phase_stacked_int8(dev, seed: int, failures: list, tmp: str) -> dict:
 
 
 
+HF_OPT = "facebook/opt-125m"
+
+
+def hf_opt_tensors(seed: int) -> dict:
+    """OPT-125m's decoder as ``OPTForCausalLM`` stores it (HF's key names,
+    f32: 12 layers at d 768, ffn 3072, vocabulary 50 272, 2 050 position
+    rows with OPT's two offset rows), drawn from a seeded generator."""
+    g = torch.Generator().manual_seed(seed)
+    d, ff = 768, 3072
+
+    def normal(*shape, mean=0.0):
+        return torch.randn(*shape, generator=g) * 0.02 + mean
+
+    t = {"model.decoder.embed_tokens.weight": normal(50272, d),
+         "model.decoder.embed_positions.weight": normal(2048 + 2, d)}
+    for i in range(12):
+        L = f"model.decoder.layers.{i}."
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            t[f"{L}self_attn.{name}.weight"], t[f"{L}self_attn.{name}.bias"] = normal(d, d), normal(d)
+        for name, (n_out, n_in) in (("fc1", (ff, d)), ("fc2", (d, ff))):
+            t[f"{L}{name}.weight"], t[f"{L}{name}.bias"] = normal(n_out, n_in), normal(n_out)
+        for name in ("self_attn_layer_norm", "final_layer_norm"):
+            t[f"{L}{name}.weight"], t[f"{L}{name}.bias"] = normal(d, mean=1.0), normal(d)
+    t["model.decoder.final_layer_norm.weight"] = normal(d, mean=1.0)
+    t["model.decoder.final_layer_norm.bias"] = normal(d)
+    return t
+
+
+def port_backbone_name(hf_key: str):
+    """The port's ``FluidLLM`` parameter an OPT key lands on (written out
+    here, apart from ``models/hf_import.py``), or None for the token table
+    the backbone does not carry."""
+    k = hf_key[len("model.decoder."):]
+    if k == "embed_tokens.weight":
+        return None
+    if k == "embed_positions.weight":
+        return "backbone.pos_embed"
+    if k.startswith("final_layer_norm."):
+        return "backbone.final_norm." + k.rsplit(".", 1)[1]
+    m = re.fullmatch(r"layers\.(\d+)\.(.+)\.(weight|bias)", k)
+    place = {"self_attn.q_proj": "attn.q", "self_attn.k_proj": "attn.k",
+             "self_attn.v_proj": "attn.v", "self_attn.out_proj": "attn.o",
+             "self_attn_layer_norm": "ln1", "final_layer_norm": "ln2",
+             "fc1": "mlp.fc1", "fc2": "mlp.fc2"}[m.group(2)]
+    return f"backbone.layers.{m.group(1)}.{place}.{m.group(3)}"
+
+
+def write_snapshot(cache: str, name: str, tensors: dict) -> str:
+    """An HF hub cache entry for ``name``: ``refs/main`` and a snapshot
+    holding ``config.json`` and ``model.safetensors`` (an 8-byte
+    little-endian header length, the JSON header, the raw f32 bytes)."""
+    repo = os.path.join(cache, "models--" + name.replace("/", "--"))
+    folder = os.path.join(repo, "snapshots", "0" * 40)
+    os.makedirs(folder)
+    os.makedirs(os.path.join(repo, "refs"))
+    with open(os.path.join(repo, "refs", "main"), "w") as f:
+        f.write("0" * 40)
+    with open(os.path.join(folder, "config.json"), "w") as f:
+        json.dump({"model_type": "opt", "architectures": ["OPTForCausalLM"],
+                   "hidden_size": 768, "num_hidden_layers": 12, "num_attention_heads": 12,
+                   "ffn_dim": 3072, "max_position_embeddings": 2048, "vocab_size": 50272,
+                   "word_embed_proj_dim": 768, "do_layer_norm_before": True,
+                   "activation_function": "relu", "torch_dtype": "float32"}, f)
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": "F32", "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(os.path.join(folder, "model.safetensors"), "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for t in tensors.values():
+            f.write(t.contiguous().numpy().data)
+    return folder
+
+
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _rollout_csv(runs: str, dev, csv_path: str) -> tuple[list, dict, float]:
+    """``inference.main --checkpoint_dir`` for 251 steps: per-step N-RMSE
+    (from its CSV), launches, seconds."""
+    from fluid_llm_tpu_torch import inference
+
+    reset_launches()
+    t0 = time.perf_counter()
+    inference.main(["--checkpoint_dir", runs, "--device", str(dev), "--load_dir", "synthetic:1",
+                    "--csv", csv_path])
+    secs, launches = time.perf_counter() - t0, read_launches()
+    with open(csv_path) as f:
+        per_step = [float(line.split(",")[1]) for line in f.read().splitlines()[1:]]
+    return per_step, launches, secs
+
+
+def phase_weights(dev, seed: int, failures: list, tmp: str) -> dict:
+    """Weights in and out at OPT-125m's full width and depth: a synthetic HF
+    cache (``HF_HUB_CACHE``) holding OPT-125m; ``main`` for 1 epoch of
+    ``training1.yaml`` on ``synthetic:1`` imports it (the frozen base in
+    the checkpoint equal to the written tensors bit for bit, BOS before the
+    first step equal to ``embed_tokens[2]``, the flash and slot launches of
+    one step and a 25-step validation); its model exported to a reference
+    ``.pt`` (``tools/reference_ckpt.export_state_dict``), imported by
+    ``python -m fluid_llm_tpu_torch.tools.reference_ckpt`` into a new run
+    folder; ``inference --checkpoint_dir`` 251 steps from both folders,
+    per-step N-RMSE equal bit for bit (11x251 exact, 3x251 slot each);
+    ``parity_harness --synthetic`` on the card; ``postln_probe`` for
+    OPT-125m on the CPU."""
+    from fluid_llm_tpu_torch import main as train_main
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.data import get_dataset
+    from fluid_llm_tpu_torch.models import backbone as bb
+    from fluid_llm_tpu_torch.models import hf_import
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.tools import parity_harness, postln_probe, reference_ckpt
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    res = {}
+    t0 = time.perf_counter()
+    written = hf_opt_tensors(seed)
+    res["draw_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    folder = write_snapshot(os.path.join(tmp, "hub"), HF_OPT, written)
+    res["write_s"] = time.perf_counter() - t0
+    res["snapshot_bytes"] = os.path.getsize(os.path.join(folder, "model.safetensors"))
+    old_cache = os.environ.get("HF_HUB_CACHE")
+    os.environ["HF_HUB_CACHE"] = os.path.join(tmp, "hub")
+    handler = _Records()
+    loggers = [logging.getLogger(n) for n in ("fluid_llm_tpu_torch.main",
+                                              "fluid_llm_tpu_torch.hf_import")]
+    levels = [lg.level for lg in loggers]
+    for lg in loggers:
+        lg.addHandler(handler)
+        lg.setLevel(logging.INFO)
+    try:
+        # the import's two halves at OPT-125m: reading the files, converting
+        t0 = time.perf_counter()
+        sd, source = hf_import.read_snapshot(hf_import.snapshot_dir(HF_OPT))
+        res["read_s"] = time.perf_counter() - t0
+        reader_equal = (sorted(sd) == sorted(k[len("model."):] for k in written)
+                        and all(torch.equal(sd[k[len("model."):]], t) for k, t in written.items()))
+        t0 = time.perf_counter()
+        hf_import.backbone_state_dict(sd, bb.preset(HF_OPT))
+        res["convert_s"] = time.perf_counter() - t0
+        del sd
+        print(f"[weights] OPT-125m snapshot ({res['snapshot_bytes'] / 2**20:.1f} MiB f32 "
+              f"safetensors) drawn in {res['draw_s']:.2f} s, written in {res['write_s']:.2f} s; "
+              f"read from {source} in {res['read_s']:.2f} s, the written tensors bit for bit "
+              f"{reader_equal}; converted to the port's state dict in {res['convert_s']:.2f} s")
+
+        # main: import, train one step, validate, checkpoint
+        runs = os.path.join(tmp, "runs")
+        cfg_path = os.path.join(tmp, "training1.yaml")
+        Config.from_yaml(CONFIG).replace(load_dir="synthetic:1", seed=seed, num_epochs=1,
+                                         checkpoint_save_path=runs).to_yaml(cfg_path)
+        real_build, seen = train_main.build_model_and_trainer, {}
+
+        def build(*a, **kw):
+            trainer = real_build(*a, **kw)
+            seen["bos"] = trainer.model.bos.detach().cpu().clone()
+            return trainer
+
+        reset_launches()
+        t0 = time.perf_counter()
+        with mock.patch.object(train_main, "build_model_and_trainer", build):
+            train_main.main(["--config_path", cfg_path, "--device", str(dev)])
+        res["main_s"], res["main_launches"] = time.perf_counter() - t0, read_launches()
+        loaded = f"Loaded pretrained backbone {HF_OPT}" in handler.lines
+        val_steps, n_layers, convs = 25, 12, 3
+        want_main = _want(res["main_launches"], flash_attention_fwd=n_layers,
+                          flash_attention_dq=n_layers, flash_attention_dkv=n_layers,
+                          grid_slot_attention=convs + convs * val_steps,
+                          grid_slot_attention_bwd=convs,
+                          exact_attention=(n_layers - 1) * val_steps)
+        run = ckpt.get_save_folder(runs, -1)
+        frozen = torch.load(os.path.join(run, "step_0", ckpt.STATE_FILE), map_location="cpu",
+                            weights_only=True)["frozen"]
+        pairs = [(port_backbone_name(k), t) for k, t in written.items()]
+        base_equal = all(torch.equal(frozen[n], t) for n, t in pairs if n is not None)
+        n_base = sum(n is not None for n, _ in pairs)
+        bos_equal = torch.equal(seen["bos"], written["model.decoder.embed_tokens.weight"][2])
+        step_ok = (reader_equal and loaded and base_equal and bos_equal
+                   and res["main_launches"] == want_main
+                   and n_base == len([k for k in frozen if k.startswith("backbone.")]))
+        print(f"[weights] main, 1 epoch of training1.yaml on synthetic:1 in {res['main_s']:.1f} "
+              f"s: log says loaded {loaded}; the checkpoint's {n_base} frozen base tensors equal "
+              f"the written ones bit for bit {base_equal}; BOS before the first step equal to "
+              f"embed_tokens[2] {bos_equal}; launches {_nonzero(res['main_launches'])} (want "
+              f"{_nonzero(want_main)}, 0 elsewhere: one step, a {val_steps}-step validation) "
+              f"{'ok' if step_ok else 'FAIL'}")
+
+        # out through the reference format and back in through the CLI
+        cfg_run = ckpt.load_config(run)
+        t0 = time.perf_counter()
+        probe = get_dataset(cfg_run.replace(seq_len=cfg_run.autoreg_seq_len), mode="valid")
+        model = FluidLLM.build(cfg_run, probe.ds_props())
+        ckpt.restore_checkpoint(run, 0, model)
+        ref_pt = os.path.join(tmp, "reference_step_0.pt")
+        torch.save({"params": cfg_run.to_dict(),
+                    "state_dict": reference_ckpt.export_state_dict(model)}, ref_pt)
+        res["export_s"] = time.perf_counter() - t0
+        del model
+        imported = os.path.join(tmp, "imported")
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "fluid_llm_tpu_torch.tools.reference_ckpt",
+                              ref_pt, "--save_dir", os.path.join(imported, "000")],
+                             cwd=os.path.dirname(os.path.dirname(CONFIG)), capture_output=True,
+                             text=True, timeout=600)
+        res["import_cli_s"] = time.perf_counter() - t0
+        if cli.returncode != 0:
+            raise RuntimeError(f"reference_ckpt CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+        rolls = {name: _rollout_csv(r, dev, os.path.join(tmp, f"{name}.csv"))
+                 for name, r in (("original", runs), ("imported", imported))}
+        want_inf = _want(rolls["original"][1], exact_attention=(n_layers - 1) * STEPS,
+                         grid_slot_attention=convs * STEPS)
+        same = rolls["original"][0] == rolls["imported"][0]
+        roll_ok = (same and len(rolls["original"][0]) == STEPS
+                   and all(math.isfinite(x) for x in rolls["original"][0])
+                   and all(r[1] == want_inf for r in rolls.values()))
+        res.update(n_rmse_mean=statistics.fmean(rolls["original"][0]),
+                   rollout_launches={k: r[1] for k, r in rolls.items()},
+                   rollout_s={k: r[2] for k, r in rolls.items()}, n_rmse_equal=same)
+        print(f"[weights] exported to a reference .pt in {res['export_s']:.1f} s; "
+              f"reference_ckpt CLI imported it in {res['import_cli_s']:.1f} s "
+              f"({cli.stdout.strip()}); inference --checkpoint_dir {STEPS} steps: original "
+              f"{rolls['original'][2]:.1f} s, imported {rolls['imported'][2]:.1f} s, mean N-RMSE "
+              f"{res['n_rmse_mean']:.6f}, per-step N-RMSE equal bit for bit {same}; launches "
+              f"{_nonzero(rolls['original'][1])} / {_nonzero(rolls['imported'][1])} (want "
+              f"{_nonzero(want_inf)}, 0 elsewhere) {'ok' if roll_ok else 'FAIL'}")
+
+        # the parity harness on the card, the probe on the CPU
+        reset_launches()
+        t0 = time.perf_counter()
+        record = parity_harness.main(["--synthetic", "--device", str(dev),
+                                      "--out", os.path.join(tmp, "parity.json")])
+        res["harness_s"], res["harness_launches"] = time.perf_counter() - t0, read_launches()
+        t0 = time.perf_counter()
+        r2 = postln_probe.readout_r2(HF_OPT)
+        res["probe_s"] = time.perf_counter() - t0
+        tools_ok = (math.isfinite(record["ours"]["n_rmse_mean"]) and record["reference"] is None
+                    and math.isfinite(r2))
+        res.update(harness_n_rmse_mean=record["ours"]["n_rmse_mean"], probe_r2=r2)
+        print(f"[weights] parity_harness --synthetic on {dev}: {res['harness_s']:.1f} s, ours "
+              f"mean N-RMSE {record['ours']['n_rmse_mean']:.5f}, reference "
+              f"{record['reference']}, launches {_nonzero(res['harness_launches'])}; "
+              f"postln_probe {HF_OPT} on the CPU: R^2 {r2:+.4f} in {res['probe_s']:.1f} s "
+              f"{'ok' if tools_ok else 'FAIL'}")
+    finally:
+        for lg, level in zip(loggers, levels):
+            lg.removeHandler(handler)
+            lg.setLevel(level)
+        if old_cache is None:
+            os.environ.pop("HF_HUB_CACHE", None)
+        else:
+            os.environ["HF_HUB_CACHE"] = old_cache
+    res["phase_s"] = time.perf_counter() - t_phase
+    if not (step_ok and roll_ok and tools_ok):
+        failures.append(f"weights in and out: import and train {step_ok}, round trip "
+                        f"{roll_ok}, harness and probe {tools_ok}")
+    return res
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
@@ -3624,6 +3917,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     failures: list[str] = []
+    # the phases before 22 train and serve the seeded draw: no backbone the
+    # host has cached is imported (phase 22 points ``main`` at its own cache)
+    no_cache = tempfile.TemporaryDirectory()
+    os.environ["HF_HUB_CACHE"] = no_cache.name
 
     def phase(name: str, fn, *a, **kw):
         """``fn``'s result, or None after recording its exception as a
@@ -3704,6 +4001,11 @@ def main(argv=None) -> int:
             moe_res[key] = phase(name, fn, dev, args.seed, failures, tmp)
     seconds["moe"] = (moe_res, time.perf_counter() - t0)
     print(f"[moe and quantized backbones] phase seconds {seconds['moe'][1]:.1f}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:  # phase 22: the HF cache, runs, a reference .pt
+        weights_res = phase("weights in and out", phase_weights, dev, args.seed, failures, tmp)
+    seconds["weights"] = (weights_res, time.perf_counter() - t0)
+    print(f"[weights in and out] phase seconds {seconds['weights'][1]:.1f}")
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -3717,7 +4019,7 @@ def main(argv=None) -> int:
                            short_train=short_train, short_train_agreement=short_agree,
                            short_rollout=short_res, published_data=published_res,
                            notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
-                           moe_and_quantized=moe_res,
+                           moe_and_quantized=moe_res, weights=weights_res,
                            phase_seconds={k: v[1] for k, v in seconds.items()},
                            failures=failures),
                       f, indent=1, default=str)

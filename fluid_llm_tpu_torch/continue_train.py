@@ -6,9 +6,12 @@
 
 The run is selected by folder index (latest by default), its saved YAML is
 reread, model and optimizer state restored, and training re-enters the
-epoch loop at the saved epoch.  The template is ``main``'s, so a run over
-a quantized (``llm_4bit_loading``) or bf16 (``frozen_bf16``) frozen
-backbone restores that storage bit for bit.
+epoch loop at the saved epoch.  The template is ``main``'s without the
+pretrained import (``build_model_and_trainer(pretrained=False)``, as the
+JAX package restores into ``init_state_and_mesh``'s random state): every
+weight comes from the checkpoint.  A run over a quantized
+(``llm_4bit_loading``) or bf16 (``frozen_bf16``) frozen backbone restores
+that storage bit for bit.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def main(argv=None) -> int:
 
     train_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
     valid_ds = get_dataset(cfg.replace(seq_len=cfg.val_seq_len), mode="valid")
-    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), get_device(args.device))
+    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), get_device(args.device),
+                                      pretrained=False)
     epoch = ckpt.restore_checkpoint(load_path, step, trainer.model, trainer.opt)
     log_fn = jsonl_sink(args.metrics_jsonl) if args.metrics_jsonl else None
     return train_run(cfg, trainer, train_ds, valid_ds, save_path=load_path, start_ep=epoch,

@@ -98,7 +98,11 @@ def test_generate(
 def build_seeded_model(cfg: Config, seed: int, device: torch.device,
                        **backbone_overrides) -> FluidLLM:
     """The model for ``cfg`` with random weights from ``seed``, prepared for
-    inference on ``device`` (stacked with ``FLUID_SCAN_LAYERS=1``).
+    inference on ``device`` (stacked with ``FLUID_SCAN_LAYERS=1``).  No
+    pretrained import: a seeded model is a test of the path, not of
+    weights, and the JAX inference entry never imports either
+    (``fluid_llm_tpu/inference.py:137-151``); trained weights come from
+    ``--checkpoint_dir``.
     Geometry comes from the train-time dataset config
     (``inference.py:173-174``); ``backbone_overrides`` go to
     ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""

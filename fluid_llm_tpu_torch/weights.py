@@ -37,8 +37,9 @@ The same bridge takes the baselines' ``mgn_init``, ``gat_init``,
 (``models/baselines``); ``from_jax_norm`` takes the normalizer trees of
 MeshGraphNet and GAT.
 
-Loading the reference's ``.pt`` checkpoints (``tools/reference_ckpt.py``)
-comes later.
+``to_jax_params(state_dict)`` is the inverse for the dense list layout
+(no quantized storage): the reference-checkpoint export
+(``tools/reference_ckpt.py``) reads the JAX names through it.
 """
 
 from __future__ import annotations
@@ -88,6 +89,65 @@ def from_jax_params(tree) -> dict[str, torch.Tensor]:
 
     walk(tree, [])
     return out
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:  # numpy has no bf16; widening to f32 is exact
+        t = t.float()
+    return t.numpy().copy()
+
+
+def _nest(flat: dict[tuple[str, ...], np.ndarray]):
+    """Dotted paths -> nested dicts; a dict whose keys are all indices
+    becomes the list it was."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and all(k.isdigit() for k in out):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def to_jax_params(state_dict: dict[str, torch.Tensor]) -> dict:
+    """Torch ``state_dict`` -> the JAX pytree (numpy leaves), the inverse of
+    :func:`from_jax_params` for the dense list layout: ``weight`` -> ``w``
+    transposed back (a convolution's permuted back to ``(*spatial, in,
+    out)``), a 1-D ``weight`` (a norm's) -> ``scale``, a linear's ``bias``
+    -> ``b`` (a norm's, or a bias with no weight beside it, keeps its
+    name), every other leaf as it is, indexed keys back into lists.  bf16
+    tensors come back as f32.  Quantized storage raises: its leaves have
+    no dense JAX counterpart here."""
+    flat: dict[tuple[str, ...], np.ndarray] = {}
+    for key, t in state_dict.items():
+        *prefix, name = key.split(".")
+        if name in QUANT_LEAVES:
+            raise ValueError(f"{key}: quantized storage has no dense JAX leaf")
+        arr = _array(t)
+        if name == "weight":
+            n = arr.ndim
+            if n == 1:
+                name = "scale"
+            elif "cnn" in prefix or n == 4:
+                name, arr = "w", np.ascontiguousarray(arr.transpose(*range(2, n), 1, 0))
+            else:
+                name, arr = "w", np.ascontiguousarray(np.swapaxes(arr, -1, -2))
+        elif name == "bias":
+            weight = state_dict.get(".".join(prefix + ["weight"]))
+            if weight is not None and weight.dim() >= 2:
+                name = "b"
+        flat[tuple(prefix + [name])] = arr
+    return _nest(flat)
 
 
 def from_jax_norm(tree) -> dict[str, dict[str, torch.Tensor]]:

@@ -194,11 +194,12 @@ def test_nf4_dora_train_step_matches_jax(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b), n
 
 
-def test_nf4_main_continue_train_inference(tmp_path):
+def test_nf4_main_continue_train_inference(tmp_path, monkeypatch):
     """The entry points over an nf4 frozen backbone: ``main`` quantizes
     after the draw, ``continue_train`` restores the nf4 storage into its
     own nf4 template, ``inference`` merges the adapters into the
-    dequantised weights and rolls out."""
+    dequantised weights and rolls out.  An empty HF cache: the draw stays."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     runs = tmp_path / "runs"
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(dict(

@@ -225,7 +225,7 @@ def test_kernels_off_takes_the_short_twin(pair, monkeypatch):
 
 
 @pytest.mark.parametrize("adapters", [dict(use_lora=True), dict(use_lora=False, freeze_llm=True)])
-def test_build_refuses_4bit_loading(adapters):
+def test_build_refuses_4bit_loading(adapters, tmp_path, monkeypatch):
     """``llm_4bit_loading`` with adapters or a frozen backbone trains over
     packed nf4 in the JAX package (``main.py:103-110``), and now in the
     port: the model builds, and ``build_model_and_trainer`` stores every
@@ -234,6 +234,7 @@ def test_build_refuses_4bit_loading(adapters):
     from fluid_llm_tpu_torch.main import build_model_and_trainer
     from fluid_llm_tpu_torch.ops.quant import NF4Linear
 
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path))  # an empty cache: the draw stays
     cfg = _training1(llm_4bit_loading=True, **adapters)
     props = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN).ds_props()
     FluidLLM.build(cfg, props, **TINY)

@@ -316,10 +316,12 @@ def test_checkpoint_roundtrip(tmp_path):
     assert (saved.llm_backbone, saved.autoreg_seq_len) == (cfg.llm_backbone, cfg.autoreg_seq_len)
 
 
-def test_main_continue_train_inference_end_to_end(tmp_path):
+def test_main_continue_train_inference_end_to_end(tmp_path, monkeypatch):
     """The entry points on the CPU: ``main`` for 2 epochs (checkpoints each
     epoch, a profiler trace of the first), ``continue_train`` for 1 more
-    from the latest, then ``inference.main`` from that run folder."""
+    from the latest, then ``inference.main`` from that run folder.  An
+    empty HF cache: the seeded draw trains."""
+    monkeypatch.setenv("HF_HUB_CACHE", str(tmp_path / "hub"))
     runs = tmp_path / "runs"
     cfg_path = tmp_path / "cfg.yaml"
     cfg_path.write_text(yaml.safe_dump(dict(
