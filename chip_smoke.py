@@ -261,11 +261,34 @@ Phases, each printing one line per result; any failure exits nonzero:
                bit, 11x251 exact and 3x251 slot launches each;
                ``tools.parity_harness --synthetic`` on the card (finite,
                reference null) and ``tools.postln_probe`` for OPT-125m on
-               the CPU (finite R²); the phase's seconds.
+               the CPU (finite R²); the phase's seconds;
+23. parallel axes -- (a) ``python -m fluid_llm_tpu_torch.main --distributed
+               --coordinator_address 127.0.0.1:<free port> --num_processes 1
+               --process_id 0`` (one rank over nccl) on a copy of
+               ``training1.yaml`` with 2 epochs, against the same run
+               without ``--distributed``: logged losses, N-RMSE and launch
+               counts equal bit for bit; (b) four ranks sharing the card
+               over gloo (CUDA compute, collectives staged through host
+               memory: nccl refuses two ranks on one device), each this
+               script again (``--parallel-rank``), at the full width: one
+               step on data 2 x model 2, fsdp 2 x model 2, pipe 2 (full
+               fine-tuning), ring attention over model 2 and DoRA over an
+               int8 frozen backbone on data 2 x model 2, each against the
+               one-process step (loss REL_TOL, gradient GRAD_TOL),
+               launches per rank (flash 12 a step at H 6, 24 a pipeline
+               stage, 0 under the ring; slot 3 and 3; w8a16 48 at N/2 or
+               K/2), the ranks' weights the parent's draw, a checkpoint written
+               on the mesh and restored on it and in one process, and the
+               251-step rollout of 2 trajectories on data 2 x model 2
+               (exact attention 11x251 a rank at H 6) against one process
+               (step 1 REL_TOL); the ranks' times labelled as from ranks
+               sharing one card, not performance numbers; its seconds.
 
-Phases 8 to 13 share one temporary folder, removed at the end, phases
-17 and 18 another, phase 20 a third, phase 21 a fourth and phase 22 a
-fifth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so
+Phases 18 and 20 run 2 notf steps a remat setting and one timed step a
+turn (their launch counts, agreement checks and kernels-vs-twins steps
+as before).  Phases 8 to 13 share one temporary folder, removed at the
+end, phases 17 and 18 another, phase 20 a third, phase 21 a fourth,
+phase 22 a fifth and phase 23 a sixth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so
 ``main`` there trains the seeded draw whatever the host has cached.  Phases 14
 to 16 roll out three turns each (kernels, twins, kernels).  An
 exception inside a phase is recorded as a failure of that phase and the
@@ -2347,7 +2370,7 @@ def phase_graph_baselines_2(dev, seed: int, failures: list, tmp: str) -> dict:
             step()
         return run
 
-    step_ms = step_turns({True: with_kernels(True), False: with_kernels(False)})
+    step_ms = step_turns({True: with_kernels(True), False: with_kernels(False)}, per_turn=1)
     model.kernels = True
     med_k, med_t = (statistics.median(step_ms[k]) for k in (True, False))
     print(f"[graph baselines II] GraphViT train step (batch {tuple(batch['state'].shape)}, "
@@ -2446,7 +2469,7 @@ def _bf16_vs_f32(args, model, norm, batch, dev, seed: int, failures: list) -> di
             losses[a.dtype].append(loss.item())
         return run
 
-    ms = step_turns({"bf16": step(args), "f32": step(f32)})
+    ms = step_turns({"bf16": step(args), "f32": step(f32)}, per_turn=1)
     med = {k: statistics.median(v) for k, v in ms.items()}
     bf16 = losses["bf16"]
     falling = all(math.isfinite(x) for x in bf16) and bf16[-1] < bf16[0]
@@ -3904,15 +3927,434 @@ def phase_weights(dev, seed: int, failures: list, tmp: str) -> dict:
     return res
 
 
+PARALLEL_RANKS = 4
+# phase 23 (b)'s meshes of the four ranks: (name, parallel keys, config
+# replacements, backbone overrides, the one-process reference step)
+PARALLEL_CASES = (
+    ("data 2 x model 2", {"model_axis": 2}, {}, {}, "dora"),
+    ("fsdp 2 x model 2", {"model_axis": 2, "fsdp_axis": 2}, {}, {}, "dora"),
+    ("pipe 2", {"pipe_axis": 2}, {"use_lora": False}, {"dropout": 0.0}, "full"),
+    ("ring over model 2", {"model_axis": 2, "seq_sharded_acts": True, "ring_attention": True},
+     {}, {}, "dora"),
+    ("int8 frozen, data 2 x model 2", {"model_axis": 2}, {}, {}, "int8"),
+)
+# the one-process references: (config replacements, backbone overrides,
+# frozen backbone storage)
+PARALLEL_REFS = {"dora": ({}, {}, None), "full": ({"use_lora": False}, {"dropout": 0.0}, None),
+                 "int8": ({}, {}, "int8")}
+PARALLEL_LABEL = "ranks sharing one card, host-staged collectives; not performance numbers"
+# the entry-point driver of phase 23 (a): in one process, for each argument
+# list of the JSON argv[1], ``python -m fluid_llm_tpu_torch.main`` (runpy, as
+# the module's __main__), then its launch counters printed
+ENTRY_DRIVER = (
+    "import json, runpy, sys\n"
+    "from chip_smoke import read_launches, reset_launches\n"
+    "for argv in json.loads(sys.argv[1]):\n"
+    "    reset_launches()\n"
+    "    sys.argv = ['fluid_llm_tpu_torch.main'] + argv\n"
+    "    runpy.run_module('fluid_llm_tpu_torch.main', run_name='__main__')\n"
+    "    print('LAUNCHES ' + json.dumps(read_launches()), flush=True)\n")
+
+
+def _parallel_cfg(seed: int, par: dict | None = None, **repl):
+    from fluid_llm_tpu_torch.config import Config, ParallelConfig
+
+    cfg = Config.from_yaml(CONFIG).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, **repl)
+    return cfg.replace(parallel=ParallelConfig(**(par or {})))
+
+
+def _one_step(trainer, batch, seed: int) -> float:
+    """One step's loss and its trainable gradients (summed over the mesh's
+    ranks), no optimizer step: ``phase_train_agreement``'s step."""
+    from fluid_llm_tpu_torch.parallel.mesh import sync_grads
+
+    trainer.model.zero_grad(set_to_none=True)
+    trainer.generator.manual_seed(seed)
+    with trainer.on_mesh(batch):
+        loss, _ = trainer.mode_loss(batch, "autoreg")
+        loss.backward()
+    sync_grads(trainer.model)
+    return loss.item()
+
+
+def _grad_distance(model, ref: dict) -> tuple[float, float]:
+    """This rank's share of ``||g - ref||^2`` and ``||ref||^2`` over the
+    trainable gradients: each chunk counted on one rank only (the ranks
+    along the axes that do not cut it, and, for a stage's blocks, the
+    pipe axis, at index 0)."""
+    from fluid_llm_tpu_torch.parallel.mesh import _owner, local_tensor
+
+    mesh = model.mesh
+    d2 = r2 = 0.0
+    for name, p in model.named_parameters():
+        if p.grad is None:
+            continue
+        mod, leaf = _owner(model, name)
+        cut = {a for _, a, _ in getattr(mod, "shards", {}).get(leaf, ())}
+        if mesh.size("pipe") > 1 and name.startswith("backbone.layers."):
+            cut.add("pipe")
+        if any(mesh.coords[a] != 0 for a in mesh.axis_names if a not in cut):
+            continue
+        r = local_tensor(mod, leaf, ref[name].to(p.device))
+        d2 += float(((p.grad.float() - r) ** 2).sum())
+        r2 += float((r * r).sum())
+    return d2, r2
+
+
+def _rank_trainer(cfg, props, dev, over: dict, state: dict, quant=None):
+    """``main.build_model_and_trainer``'s model and trainer on this rank,
+    its weights the seeded draw the parent wrote (``state``; with ``quant``
+    the backbone stored so first) rather than drawn again: built whole,
+    moved, cut to this rank's part of the mesh."""
+    from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+    from fluid_llm_tpu_torch.ops.quant import quantize_backbone
+    from fluid_llm_tpu_torch.parallel.mesh import make_mesh, shard_model
+    from fluid_llm_tpu_torch.train.trainer import Trainer
+
+    model = FluidLLM.build(cfg, props, **over)
+    if quant is not None:
+        quantize_backbone(model.backbone, quant)
+    model.load_state_dict(state)
+    model.to(dev)
+    shard_model(model, make_mesh(cfg.parallel))
+    return Trainer(model)
+
+
+def parallel_rank(rank: int, folder: str) -> None:
+    """One rank of phase 23 (b): the four ranks share the card over gloo
+    (collectives staged through host memory); each case of PARALLEL_CASES
+    builds the seeded model whole, keeps this rank's part and takes one
+    step on its rows of the batch; then the 251-step rollout on data 2 x
+    model 2.  Rank 0 writes ``result.pt``."""
+    import torch.distributed as dist
+
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.parallel import comm, launch
+    from fluid_llm_tpu_torch.parallel.mesh import full_state_dict, shard_batch
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    spec = torch.load(os.path.join(folder, "spec.pt"), weights_only=False)
+    seed = spec["seed"]
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":  # over gloo every rank on the one card, over nccl a card a rank
+        dev = torch.device("cuda", rank % torch.cuda.device_count()
+                           if spec["backend"] == "nccl" else dev.index or 0)
+        torch.cuda.set_device(dev)
+    logging.getLogger("fluid_llm_tpu_torch").setLevel(logging.WARNING)
+    launch.start(spec["backend"], f"file://{folder}/init", PARALLEL_RANKS, rank, dev)
+    world = comm.Group(list(range(PARALLEL_RANKS)), rank, None, spec["backend"])
+    out = {}
+    states = {key: torch.load(os.path.join(folder, f"state_{key}.pt"), weights_only=True)
+              for key in PARALLEL_REFS}
+    for name, par, repl, over, ref_key in PARALLEL_CASES:
+        t0 = time.perf_counter()
+        cfg = _parallel_cfg(seed, par, **repl)
+        ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+        trainer = _rank_trainer(cfg, ds.ds_props(), dev, over, states[ref_key],
+                                PARALLEL_REFS[ref_key][2])
+        setup_s = time.perf_counter() - t0
+        model = trainer.model
+        batch = shard_batch(next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev)),
+                            model.mesh)
+        ref = torch.load(os.path.join(folder, f"ref_{ref_key}.pt"), weights_only=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss = _one_step(trainer, batch, seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _nonzero(read_launches())
+        sums = comm.all_reduce(torch.tensor(_grad_distance(model, ref["grads"]),
+                                            dtype=torch.float64, device=dev), world).tolist()
+        per_rank = [None] * PARALLEL_RANKS
+        dist.all_gather_object(per_rank, dict(launches=launches, seconds=secs, setup_s=setup_s,
+                                              rows=tuple(batch[0].shape)))
+        res = dict(loss=loss, ref_loss=ref["loss"], grad_rel=math.sqrt(sums[0] / sums[1]),
+                   per_rank=per_rank, mesh=model.mesh.shape,
+                   heads=model.backbone.parallel.cfg.n_heads)
+        if name == "data 2 x model 2":  # the checkpoint: written here, read back
+            trainer.opt.step()
+            runs = os.path.join(folder, "runs")
+            ckpt.save_checkpoint(runs, 0, model, trainer.opt, 0, cfg)
+            res["trainable"] = {n: t.cpu() for n, t in full_state_dict(model).items()
+                                if n in model.trainable_names}
+            again = _rank_trainer(cfg, ds.ds_props(), dev, over, states[ref_key])
+            ckpt.restore_checkpoint(runs, 0, again.model, again.opt)
+            mine, back = model.state_dict(), again.model.state_dict()
+            differ = [None] * PARALLEL_RANKS
+            dist.all_gather_object(differ, [n for n in mine if not torch.equal(mine[n], back[n])])
+            res["restored_differ"] = differ
+            res["restored_on_mesh"] = not any(differ)
+            del again
+        out[name] = res
+        del trainer, model
+        torch.cuda.empty_cache()
+    cfg = _parallel_cfg(seed, {"model_axis": 2}).replace(load_dir="synthetic:2")
+    model = inference.build_seeded_model(cfg, seed, dev)
+    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=2, pred_steps=STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per_rank = [None] * PARALLEL_RANKS
+    dist.all_gather_object(per_rank, dict(launches=_nonzero(read_launches()), seconds=secs))
+    out["rollout"] = dict(per_step=[float(x) for x in per_step], mean=mean, per_rank=per_rank,
+                          mesh=model.mesh.shape, heads=model.backbone.parallel.cfg.n_heads)
+    out["backend"] = spec["backend"]
+    if rank == 0:
+        torch.save(out, os.path.join(folder, "result.pt"))
+    launch.finish()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _entry_runs(argvs: list, tmp: str) -> tuple[list, float]:
+    """``python -m fluid_llm_tpu_torch.main argv`` for each of ``argvs``, one
+    after the other in a process of its own (ENTRY_DRIVER): each run's
+    logged metrics and launch counts, and the process's seconds."""
+    jls = [os.path.join(tmp, f"entry{i}.jsonl") for i in range(len(argvs))]
+    argvs = [a + ["--metrics_jsonl", jl] for a, jl in zip(argvs, jls)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", ENTRY_DRIVER, json.dumps(argvs)], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise RuntimeError(f"main exited {proc.returncode}: {proc.stderr[-3000:]}")
+    counts = [json.loads(x[len("LAUNCHES "):]) for x in proc.stdout.splitlines()
+              if x.startswith("LAUNCHES ")]
+    runs = []
+    for jl, launches in zip(jls, counts):
+        with open(jl) as f:
+            runs.append(([json.loads(x) for x in f], launches))
+    return runs, secs
+
+
+def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
+    """Phase 23, the parallel axes.  (a) ``main --distributed`` with the
+    three flags on one rank over nccl, against the same run without
+    ``--distributed``: the logged losses and N-RMSE and the launch counts
+    equal bit for bit.  (b) Four ranks sharing the card over gloo, CUDA
+    compute and host-staged collectives (nccl refuses two ranks on one
+    device), at the full width of ``training1.yaml``: one step each on
+    data 2 x model 2, fsdp 2 x model 2, pipe 2 (full fine-tuning,
+    backbone dropout 0, 4 microbatches) and ring attention over model 2
+    (601 tokens padded to 602), and DoRA over an int8 frozen backbone on
+    data 2 x model 2 (w8a16 at (384, 768), (768, 384), (1536, 768),
+    (768, 1536): 48 a step), each against the one-process step with
+    the kernels (loss within REL_TOL, the trainable gradient's relative L2
+    within GRAD_TOL: ``phase_train_agreement``'s bounds, as here bf16
+    activations through 12 layers round at other places: each row-parallel
+    linear's two bf16 partial outputs summed, in f32); launches per rank
+    (flash 12 a step at H 6 under model 2, 24 a stage under pipe 2: 6
+    blocks x 4 microbatches, 0 under the ring, whose hops are plain
+    einsums); a checkpoint written on data 2 x model 2, restored onto that
+    mesh (bit for bit) and in one process (equal to the mesh's gathered
+    parameters, the frozen base the seeded draw); the 251-step rollout of 2
+    trajectories on data 2 x model 2 (exact attention 11 x 251 a rank at H
+    6), per-step N-RMSE against one process's (step 1 within REL_TOL).
+    The ranks' times share one card and stage their collectives through
+    the host: they are not performance numbers."""
+    res = {}
+    t_phase = time.perf_counter()
+    os.makedirs(tmp, exist_ok=True)
+    # (a) one rank over nccl through the entry point
+    cfg_path = os.path.join(tmp, "entry.yaml")
+    _parallel_cfg(seed).replace(num_epochs=2, save_on=False).to_yaml(cfg_path)
+    base = ["--config_path", cfg_path, "--device", "cuda"]
+    (plain, dist_run), secs = _entry_runs(
+        [base, base + ["--distributed", "--coordinator_address", f"127.0.0.1:{_free_port()}",
+                       "--num_processes", "1", "--process_id", "0"]], tmp)
+    ok_a = plain[0] == dist_run[0] and plain[1] == dist_run[1] and \
+        dist_run[1]["flash_attention_fwd"] > 0
+    res["entry"] = dict(plain=plain[0], distributed=dist_run[0], launches=_nonzero(plain[1]),
+                        launches_distributed=_nonzero(dist_run[1]), seconds=secs)
+    print(f"[parallel] (a) main, 2 epochs of training1.yaml on synthetic:{TRAIN_BS}, without "
+          f"--distributed then with --distributed --num_processes 1 over nccl, in one process "
+          f"of {secs:.1f} s; train loss {[m['train/Autoreg/loss'] for m in plain[0]]} / "
+          f"{[m['train/Autoreg/loss'] for m in dist_run[0]]}; logs equal bit for bit "
+          f"{plain[0] == dist_run[0]}, launches equal {plain[1] == dist_run[1]} "
+          f"({_nonzero(dist_run[1])}) {'ok' if ok_a else 'FAIL'}")
+    if not ok_a:
+        failures.append(f"parallel (a): logs or launches differ: {res['entry']}")
+
+    # (b) the one-process references, then four ranks on the card
+    folder = os.path.join(tmp, "ranks")
+    refs = parallel_references(dev, seed, folder)
+    backend = "gloo"
+    torch.save({"seed": seed, "backend": backend, "device": str(dev)},
+               os.path.join(folder, "spec.pt"))
+    t0 = time.perf_counter()
+    got = spawn_ranks([sys.executable, os.path.abspath(__file__)], folder)
+    ranks_s = time.perf_counter() - t0
+    ok_b = check_parallel(dev, seed, folder, got, refs, res, failures)
+    res.update(ranks_s=ranks_s, backend=backend, phase_s=time.perf_counter() - t_phase)
+    print(f"[parallel] (b) four ranks over {backend} in {ranks_s:.1f} s, start-up included "
+          f"({PARALLEL_LABEL}) {'ok' if ok_b else 'FAIL'}")
+    return res
+
+
+def parallel_references(dev, seed: int, folder: str) -> dict:
+    """Phase 23 (b)'s one-process references: one step of each
+    PARALLEL_REFS configuration (loss and gradients, written for the
+    ranks), the frozen tensors of the DoRA model, and the 251-step rollout
+    of 2 trajectories (per-step N-RMSE)."""
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.ops.quant import quantize_backbone
+
+    os.makedirs(folder, exist_ok=True)
+    out = {}
+    for key, (repl, over, quant) in PARALLEL_REFS.items():
+        cfg = _parallel_cfg(seed, **repl)
+        ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+        trainer = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False, **over)
+        if quant is not None:
+            quantize_backbone(trainer.model.backbone, quant)
+        torch.save({k: v.cpu() for k, v in trainer.model.state_dict().items()},
+                   os.path.join(folder, f"state_{key}.pt"))  # the ranks' weights
+        batch = next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+        reset_launches()
+        loss = _one_step(trainer, batch, seed)
+        out[f"{key}_launches"] = _nonzero(read_launches())
+        grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        torch.save({"loss": loss, "grads": grads}, os.path.join(folder, f"ref_{key}.pt"))
+        if key == "dora":
+            trainable = {n for n, p in trainer.model.named_parameters() if p.requires_grad}
+            out["frozen"] = {n: t.cpu() for n, t in trainer.model.state_dict().items()
+                             if n not in trainable}
+        del trainer, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    cfg = _parallel_cfg(seed).replace(load_dir="synthetic:2")
+    model = inference.build_seeded_model(cfg, seed, dev)
+    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    steps, out["roll_mean"] = inference.test_generate(model, test_ds, batch_size=2,
+                                                      pred_steps=STEPS)
+    out["roll_steps"] = [float(x) for x in steps]
+    return out
+
+
+def spawn_ranks(cmd: list, folder: str, timeout: float = 600) -> dict:
+    """``cmd --parallel-rank r --parallel-dir folder`` for every rank;
+    rank 0's ``result.pt``."""
+    procs = [subprocess.Popen(cmd + ["--parallel-rank", str(r), "--parallel-dir", folder],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(PARALLEL_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    if bad:
+        raise RuntimeError(f"parallel ranks exited {bad}: {logs[bad[0][0]][-3000:]}")
+    return torch.load(os.path.join(folder, "result.pt"), weights_only=False)
+
+
+def check_parallel(dev, seed: int, folder: str, got: dict, refs: dict, res: dict,
+                   failures: list) -> bool:
+    """Phase 23 (b)'s checks of the ranks' results ``got`` against the
+    one-process ``refs``, recorded in ``res``, printed."""
+    from fluid_llm_tpu_torch.data import get_dataset
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    frozen, ref_steps, ref_mean = refs["frozen"], refs["roll_steps"], refs["roll_mean"]
+    label = PARALLEL_LABEL if got["backend"] == "gloo" else "ranks over nccl, a card each"
+    ok_b = True
+    for name, par, repl, over, ref_key in PARALLEL_CASES:
+        r = got[name]
+        loss_rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        want = {}
+        m = r["mesh"].get("model", 1)
+        if "pipe" in r["mesh"]:
+            n = (12 // r["mesh"]["pipe"]) * 4  # its stage's blocks, every microbatch
+            want = dict(flash_attention_fwd=n, flash_attention_dq=n, flash_attention_dkv=n)
+        elif not par.get("ring_attention"):
+            want = dict(flash_attention_fwd=12, flash_attention_dq=12, flash_attention_dkv=12)
+        want.update(grid_slot_attention=3, grid_slot_attention_bwd=3)
+        if ref_key == "int8":  # k, o, fc1, fc2 through Int8Matmul at N/2 or K/2
+            want.update(quant_matmul_w8a16=4 * 12)
+        counts_ok = all(pr["launches"] == want for pr in r["per_rank"])
+        heads_ok = r["heads"] == 12 // (m if not par.get("ring_attention") else 1)
+        ok = loss_rel <= REL_TOL and r["grad_rel"] <= GRAD_TOL and counts_ok and heads_ok
+        ok_b &= ok
+        res[name] = dict(loss=r["loss"], ref_loss=r["ref_loss"], loss_rel=loss_rel,
+                         grad_rel=r["grad_rel"], mesh=r["mesh"], heads=r["heads"],
+                         per_rank=r["per_rank"], want_launches=want)
+        print(f"[parallel] (b) {name} {r['mesh']}, {r['heads']} heads a rank: loss "
+              f"{r['loss']:.6f} vs one process {r['ref_loss']:.6f} (rel {loss_rel:.3e}, bound "
+              f"{REL_TOL}); trainable gradient rel L2 {r['grad_rel']:.3e} (bound {GRAD_TOL}); "
+              f"launches per rank {[pr['launches'] for pr in r['per_rank']]} (want {want}); rows "
+              f"{r['per_rank'][0]['rows'][:1]}; set-up s "
+              f"{[round(pr['setup_s'], 2) for pr in r['per_rank']]}, step s "
+              f"{[round(pr['seconds'], 3) for pr in r['per_rank']]} ({label}) "
+              f"{'ok' if ok else 'FAIL'}")
+    # the checkpoint of data 2 x model 2 in one process
+    name = "data 2 x model 2"
+    cfg = _parallel_cfg(seed, PARALLEL_CASES[0][1])
+    ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    one = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False)
+    ckpt.restore_checkpoint(os.path.join(folder, "runs"), 0, one.model, one.opt)
+    state = one.model.state_dict()
+    ck_ok = all(torch.equal(state[n].cpu(), t) for n, t in got[name]["trainable"].items()) and \
+        all(torch.equal(state[n].cpu(), t) for n, t in frozen.items()) and \
+        got[name]["restored_on_mesh"]
+    del one
+    print(f"[parallel] (b) checkpoint written on {name}: restored onto the mesh bit for bit "
+          f"{got[name]['restored_on_mesh']}; in one process, trainable equal to the mesh's "
+          f"and the frozen base to the seeded draw: {'ok' if ck_ok else 'FAIL'}")
+    # the rollout
+    roll = got["rollout"]
+    # entry 0 is the context state itself (N-RMSE 0 on both); steps 1..251
+    rel = [abs(a - b) / abs(b) for a, b in zip(roll["per_step"][1:], ref_steps[1:])]
+    want_roll = dict(exact_attention=11 * STEPS, grid_slot_attention=3 * STEPS)
+    roll_ok = rel[0] <= REL_TOL and all(pr["launches"] == want_roll for pr in roll["per_rank"]) \
+        and all(math.isfinite(x) for x in roll["per_step"]) and roll["heads"] == 6
+    res["rollout"] = dict(per_step=roll["per_step"], ref_per_step=[float(x) for x in ref_steps],
+                          rel=rel, mean=roll["mean"], ref_mean=ref_mean, mesh=roll["mesh"],
+                          per_rank=roll["per_rank"])
+    print(f"[parallel] (b) rollout on {roll['mesh']}, 2 trajectories x {STEPS} steps, "
+          f"{roll['heads']} heads a rank: mean N-RMSE {roll['mean']:.5f} vs one process "
+          f"{ref_mean:.5f}; per-step rel difference step 1 {rel[0]:.3e} (bound {REL_TOL}), "
+          f"steps 1-10 max {max(rel[:10]):.3e}, all {max(rel):.3e}; launches per rank "
+          f"{[pr['launches'] for pr in roll['per_rank']]} (want {want_roll}); rollout s "
+          f"{[round(pr['seconds'], 2) for pr in roll['per_rank']]} ({label}) "
+          f"{'ok' if roll_ok else 'FAIL'}")
+    if not (ok_b and ck_ok and roll_ok):
+        failures.append(f"parallel (b): steps {ok_b}, checkpoint {ck_ok}, rollout {roll_ok}")
+    return ok_b and ck_ok and roll_ok
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=1234)
     parser.add_argument("--out", default=None,
                         help="also write every measurement of the run to this JSON file")
+    parser.add_argument("--parallel-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--parallel-dir", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing runs on the CPU", file=sys.stderr)
         return 1
+    if args.parallel_rank is not None:  # one rank of phase 23 (b), started by the phase
+        parallel_rank(args.parallel_rank, args.parallel_dir)
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3973,7 +4415,7 @@ def main(argv=None) -> int:
     seconds = {}
     with tempfile.TemporaryDirectory() as tmp:  # phases 17-18: the pickles
         for key, name, fn, extra in (("published", "published data", phase_published_data, ()),
-                                     ("notf", "notf train", phase_notf, ())):
+                                     ("notf", "notf train", phase_notf, (2,))):
             t0 = time.perf_counter()
             seconds[key] = (phase(name, fn, dev, args.seed, failures, tmp, *extra),
                             time.perf_counter() - t0)
@@ -4006,6 +4448,11 @@ def main(argv=None) -> int:
         weights_res = phase("weights in and out", phase_weights, dev, args.seed, failures, tmp)
     seconds["weights"] = (weights_res, time.perf_counter() - t0)
     print(f"[weights in and out] phase seconds {seconds['weights'][1]:.1f}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:  # phase 23: YAML, references, ranks' files
+        parallel_res = phase("parallel axes", phase_parallel, dev, args.seed, failures, tmp)
+    seconds["parallel"] = (parallel_res, time.perf_counter() - t0)
+    print(f"[parallel axes] phase seconds {seconds['parallel'][1]:.1f}")
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -4020,6 +4467,7 @@ def main(argv=None) -> int:
                            short_rollout=short_res, published_data=published_res,
                            notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
                            moe_and_quantized=moe_res, weights=weights_res,
+                           parallel=parallel_res,
                            phase_seconds={k: v[1] for k, v in seconds.items()},
                            failures=failures),
                       f, indent=1, default=str)

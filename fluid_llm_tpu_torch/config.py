@@ -4,9 +4,9 @@ Counterpart of ``fluid_llm_tpu/config.py``: the same dataclasses, fields,
 defaults and checks, so one YAML file parses to the same values in both
 packages (``tests/test_torch_config.py`` holds them equal).  The port keeps
 its own copy so that it, and ``chip_smoke.py``, import nothing of the JAX
-package.  Keys for features the port has not ported yet (the mesh layout:
-``parallel.pipe_axis > 1``, the other axes parsed only) are accepted here
-and rejected where the model is built.  :func:`check_moe` holds the MoE
+package.  The ``parallel`` keys lay out the rank mesh of a multi-process
+run (``parallel/mesh.py``; ``expert_axis > 1`` is refused there).
+:func:`check_moe` holds the MoE
 keys to the JAX package's guards (``models/fluid_llm.py:52-77``).
 """
 
@@ -101,9 +101,10 @@ class TeacherForcingConfig:
 
 @dataclass
 class ParallelConfig:
-    """Device-mesh layout of the JAX package (data, tensor, FSDP, pipeline,
-    sequence, ring, expert axes).  Parsed for YAML parity; the port runs on
-    one device."""
+    """The rank mesh of a multi-process run (``main --distributed``;
+    ``parallel/mesh.py``): data, FSDP and tensor (model) axes, pipeline
+    stages, sequence-sharded activations and ring attention over the model
+    axis; ``remat`` also on one process.  The expert axis is not ported."""
 
     data_axis: int = -1
     model_axis: int = 1

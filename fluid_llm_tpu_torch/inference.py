@@ -28,6 +28,12 @@ point restores its Orbax ones.  Without it, the model is built from
         --load_dir synthetic:1
     python -m fluid_llm_tpu_torch.inference --config_path configs/flagship_llama.yaml \\
         --load_dir synthetic:1 --streaming
+
+With ``--distributed`` (``parallel/launch.py``) the model is cut to this
+rank's part of its config's mesh and the checkpoint restored onto it
+(``fluid_llm_tpu/inference.py:145-160``); trajectories split over the
+batch axes and the heads over the model axis, and rank 0 reports the
+N-RMSE of every trajectory.  The streaming rollout runs on one rank.
 """
 
 from __future__ import annotations
@@ -40,17 +46,20 @@ import sys
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data import get_dataset, make_batches
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import patch_to_img
+from fluid_llm_tpu_torch.parallel import comm, launch
+from fluid_llm_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_model
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
 from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
 from fluid_llm_tpu_torch.tools.plotting import save_rollout_plots
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
-from fluid_llm_tpu_torch.utils import get_device, set_seed
+from fluid_llm_tpu_torch.utils import set_seed
 
 logger = logging.getLogger("fluid_llm_tpu_torch.inference")
 
@@ -72,16 +81,21 @@ def test_generate(
     ``plot_dir``: figures of the first trajectory's rollout.
     """
     device = next(model.parameters()).device
+    mesh = getattr(model, "mesh", None)
     roll = gen_seq_streaming if streaming else gen_seq
     end_state = pred_steps + ctx_states - 1
     n_rmses, first = [], None
     for i, batch in enumerate(make_batches(dataset, batch_size, shuffle=False, device=device)):
+        batch = shard_batch(batch, mesh)
         states, _, _, bc_mask, _ = batch
         pred_states, _ = roll(model, batch, pred_steps, start_state=ctx_states)
         pred_states = pred_states[:, :-1]  # last state has no diff
         true_states = patch_to_img(states, model.ds_props)[:, :end_state]
         mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()[:, :end_state]
-        n_rmses.append(calc_n_rmse(pred_states, true_states, mask_img).cpu().numpy())
+        n_rmse = calc_n_rmse(pred_states, true_states, mask_img)
+        with comm.batch_axes(None if mesh is None else mesh.batch):
+            n_rmse = comm.batch_rows(n_rmse)  # every trajectory's, on every rank
+        n_rmses.append(n_rmse.cpu().numpy())
         if plot_dir and first is None:
             first = (pred_states[0].cpu().numpy(), true_states[0].cpu().numpy())
         logger.info("trajectory batch %d done", i)
@@ -90,7 +104,7 @@ def test_generate(
     per_step = n_rmses.mean(axis=0)[ctx_states - 1:]
     mean = float(per_step.mean())
     logger.info("Standard N_RMSE: %s, Mean: %.4g", np.array2string(per_step, precision=4), mean)
-    if first is not None:
+    if first is not None and launch.is_lead():
         save_rollout_plots(*first, plot_dir)
     return per_step, mean
 
@@ -111,6 +125,8 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device,
     model.init_weights(set_seed(seed))
     model.quantize_frozen()
     model.to(device)
+    if dist.is_initialized():
+        shard_model(model, make_mesh(cfg.parallel))
     model.prepare_inference_params()
     return model.eval()
 
@@ -129,6 +145,8 @@ def load_checkpoint_model(load_path: str, step: int, device: torch.device,
     model = FluidLLM.build(cfg, probe_ds.ds_props())
     model.quantize_frozen()
     model.to(device)
+    if dist.is_initialized():  # restored onto this rank's part of the run's mesh
+        shard_model(model, make_mesh(cfg.parallel))
     ckpt.restore_checkpoint(load_path, step, model)
     model.prepare_inference_params(quant, qmm_mode)
     return model.eval()
@@ -156,10 +174,17 @@ def main(argv=None):
                         help="save rollout frames of the first trajectory (needs matplotlib)")
     parser.add_argument("--streaming", action="store_true",
                         help="serve via the KV-cache streaming rollout (rope backbones only)")
+    launch.add_arguments(parser)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
+    device = launch.init(args, parser)
+    try:
+        return _rollout(args, device)
+    finally:
+        launch.finish()
 
-    device = get_device(args.device)
+
+def _rollout(args, device) -> float:
     if args.checkpoint_dir is not None:
         set_seed()
         load_path = ckpt.get_save_folder(args.checkpoint_dir, args.load_no)
@@ -179,7 +204,7 @@ def main(argv=None):
         model, test_ds, batch_size=args.batch_size, pred_steps=args.pred_steps,
         streaming=args.streaming, plot_dir=args.plot_dir,
     )
-    if args.csv:
+    if args.csv and launch.is_lead():
         if os.path.dirname(args.csv):
             os.makedirs(os.path.dirname(args.csv), exist_ok=True)
         with open(args.csv, "w", newline="") as f:

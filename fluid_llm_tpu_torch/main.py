@@ -14,9 +14,18 @@ decoder and BOS train on top, on the data the config's ``load_dir`` names
 MoE (``moe.experts``, its balance loss in the loss), frozen under
 LoRA/DoRA or ``freeze_llm`` as packed nf4 with ``llm_4bit_loading``
 (``fluid_llm_tpu/main.py:101-110``, after the import) and in bf16 with
-``frozen_bf16``; pipeline parallelism raises.  Metrics go to the log and,
-optionally, a JSONL file.  The multi-process flags (``--distributed`` ...)
-are not ported and raise.
+``frozen_bf16``.  Metrics go to the log and, optionally, a JSONL file.
+
+``--distributed`` (with ``--coordinator_address``, ``--num_processes`` and
+``--process_id``, or under torchrun) runs one process a device over the
+mesh of the config's ``parallel`` keys: data, fsdp and tensor (model)
+axes, pipeline stages, sequence-sharded activations and ring attention
+(``parallel/launch.py``, ``parallel/mesh.py``; ``fluid_llm_tpu/main.py:
+136-170``).  Every rank draws the same weights and keeps its part; rank 0
+logs and writes the checkpoints::
+
+    torchrun --nproc_per_node 4 -m fluid_llm_tpu_torch.main --distributed \\
+        --config_path configs/training1.yaml
 """
 
 from __future__ import annotations
@@ -27,15 +36,18 @@ import logging
 import sys
 
 import torch
+import torch.distributed as dist
 
 from fluid_llm_tpu_torch.config import Config
 from fluid_llm_tpu_torch.data import get_dataset
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.models.hf_import import bos_embedding, load_pretrained
+from fluid_llm_tpu_torch.parallel import launch
+from fluid_llm_tpu_torch.parallel.mesh import make_mesh, shard_model
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train.loop import train_run
 from fluid_llm_tpu_torch.train.trainer import Trainer
-from fluid_llm_tpu_torch.utils import count_params, get_device, set_seed
+from fluid_llm_tpu_torch.utils import count_params, set_seed
 
 logger = logging.getLogger("fluid_llm_tpu_torch.main")
 
@@ -89,7 +101,9 @@ def build_model_and_trainer(cfg: Config, ds_props, device: torch.device, *,
     ``llm_4bit_loading`` (``FluidLLM.quantize_frozen``); moved.
     ``pretrained=False`` is the template ``continue_train`` restores into,
     which reads no backbone only to overwrite it.  ``backbone_overrides``
-    go to ``FluidLLM.build`` (e.g. ``attn_impl="short"``)."""
+    go to ``FluidLLM.build`` (e.g. ``attn_impl="short"``).  Under a process
+    group (``--distributed``) the model is then cut to this rank's part of
+    the config's mesh (``parallel.mesh.shard_model``)."""
     model = FluidLLM.build(cfg, ds_props, **backbone_overrides)
     model.init_weights(set_seed(cfg.seed))
     if pretrained:
@@ -97,6 +111,9 @@ def build_model_and_trainer(cfg: Config, ds_props, device: torch.device, *,
     if model.quantize_frozen():
         logger.info("Quantized backbone weights to packed nf4 storage")
     model.to(device)
+    if dist.is_initialized():
+        shard_model(model, make_mesh(cfg.parallel))
+        logger.info("Rank mesh %s", model.mesh.shape)
     return Trainer(model)
 
 
@@ -114,22 +131,22 @@ def main(argv=None) -> int:
     parser.add_argument("--save_folder", default=None)
     parser.add_argument("--metrics_jsonl", default=None)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--distributed", action="store_true",
-                        help="multi-process training (not ported)")
-    parser.add_argument("--coordinator_address", default=None)
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    launch.add_arguments(parser)
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
-    if args.distributed or any(a is not None for a in
-                               (args.coordinator_address, args.num_processes, args.process_id)):
-        raise NotImplementedError("multi-process training is not ported")
+    device = launch.init(args, parser)
+    try:
+        return _train(args, device)
+    finally:
+        launch.finish()
 
+
+def _train(args, device: torch.device) -> int:
     cfg = Config.from_yaml(args.config_path)
     logger.info("Parameters for training: %s", cfg.to_dict())
     train_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
     valid_ds = get_dataset(cfg.replace(seq_len=cfg.val_seq_len), mode="valid")
-    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), get_device(args.device))
+    trainer = build_model_and_trainer(cfg, train_ds.ds_props(), device)
     params = list(trainer.model.parameters())
     logger.info("The model has %d trainable parameters (%d frozen)",
                 count_params(p for p in params if p.requires_grad),
@@ -137,8 +154,11 @@ def main(argv=None) -> int:
 
     save_path = ""
     if cfg.save_on:
-        save_path = ckpt.make_save_folder(cfg.checkpoint_save_path, args.save_folder)
-        cfg.to_yaml(f"{save_path}/config.yaml")
+        lead = launch.is_lead()
+        save_path = launch.share(
+            ckpt.make_save_folder(cfg.checkpoint_save_path, args.save_folder) if lead else None)
+        if lead:
+            cfg.to_yaml(f"{save_path}/config.yaml")
         logger.info("Saving checkpoints to: %s", save_path)
     log_fn = jsonl_sink(args.metrics_jsonl) if args.metrics_jsonl else None
     return train_run(cfg, trainer, train_ds, valid_ds, save_path, log_fn=log_fn)

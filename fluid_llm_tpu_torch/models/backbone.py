@@ -68,13 +68,21 @@ block's ``aux`` (``forward``'s ``moe_aux`` collects them).  There is no
 kernel in it: the dispatch, the expert FFNs and the combine are einsums,
 as in the JAX package.  A MoE final block runs whole (``decode_slice``
 refuses it: capacity couples the tokens of a layer), and MoE layers stay
-unrolled.  Ring attention and tensor parallelism come later.
+unrolled.
+
+On a rank mesh (``parallel/mesh.shard_model`` sets ``Backbone.parallel``)
+a block runs its share of the heads between the Megatron pairs of
+``parallel/tensor.py`` (tensor parallelism), its tokens' chunk
+(``seq_shard``: sequence parallelism, or ring attention,
+``parallel/ring_attention.py``), or the backbone runs as a pipeline stage
+(``parallel/pipeline.py``).  The streaming decode runs on one rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from contextlib import ExitStack, nullcontext
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -83,7 +91,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fluid_llm_tpu_torch.models.common import dropout, linear, linear_weight
+from fluid_llm_tpu_torch.models.common import draw_shards, dropout, linear, linear_weight
 from fluid_llm_tpu_torch.models.lora import lora_linear
 from fluid_llm_tpu_torch.ops import decode_attention as da
 from fluid_llm_tpu_torch.ops import exact_attention as xa
@@ -91,6 +99,8 @@ from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import indexed_linear as il
 from fluid_llm_tpu_torch.ops import short_attention as sa
 from fluid_llm_tpu_torch.ops.quant import is_quantized, quantized_layer, stack_quantized
+from fluid_llm_tpu_torch.parallel import comm
+from fluid_llm_tpu_torch.parallel import tensor as pt
 
 
 ATTN_IMPLS = ("auto", "short")
@@ -441,7 +451,7 @@ def moe_dispatch(probs: torch.Tensor, cfg: "BackboneConfig", valid: Optional[tor
     else:
         n_valid = valid_f.sum(1).clamp(min=1.0)  # (bs, 1)
         frac, pbar = sel_oh[0].sum(1) / n_valid, probs.sum(1) / n_valid
-    aux = (E * (frac * pbar).sum(-1)).mean()
+    aux = comm.batch_mean(E * (frac * pbar).sum(-1))  # over the global batch on a mesh
     return Routing(dispatch, combine, aux)
 
 
@@ -529,12 +539,14 @@ class _LayerOps:
         return lin(_act(lin(h, "mlp", "fc1"), cfg.act), "mlp", "fc2")
 
     def forward(self, x, cfg: BackboneConfig, valid_i32, attend, adapters=None, lora_cfg=None,
-                generator=None, rope=None, kernels: bool = True):
+                generator=None, rope=None, kernels: bool = True, moe=None):
         """``(x, aux)``: the block's output and, for a MoE block, its balance
         loss (None for a dense one; an output, not a side effect, so that a
         rematerialised block recomputes it).  ``generator``: training
         (adapter and residual dropout draw from it); None runs without
-        dropout.  ``rope``: the (cos, sin) tables of a rotary backbone."""
+        dropout.  ``rope``: the (cos, sin) tables of a rotary backbone.
+        ``moe``: ``(h, mlp) -> (out, aux)`` for a MoE MLP (None:
+        :func:`moe_mlp` over ``valid_i32``'s tokens)."""
         lin = lambda h, group, name: self.proj(h, group, name, adapters, lora_cfg, generator,
                                                kernels)
         drop = (lambda h: dropout(h, cfg.dropout, generator)) if generator is not None \
@@ -548,7 +560,8 @@ class _LayerOps:
         h = _norm(x, self.ln2, cfg) if cfg.pre_ln else x
         aux = None
         if isinstance(self.mlp, MoEMLP):
-            h, aux = moe_mlp(h, self.mlp, cfg, valid_i32.bool())
+            h, aux = moe(h, self.mlp) if moe is not None \
+                else moe_mlp(h, self.mlp, cfg, valid_i32.bool())
         else:
             h = self.mlp_out(h, cfg, lin)
         x = x + drop(h)
@@ -766,9 +779,26 @@ class LayerView(_LayerOps):
         return self.forward(*args, **kwargs)
 
 
+@dataclass
+class BackboneParallel:
+    """How this rank runs the backbone on a mesh (``parallel.mesh.shard_model``):
+    ``cfg`` the blocks' heads and widths here (tensor parallelism: the
+    model axis's share of the heads); ``seq`` the model axis when
+    ``FluidLLM.forward`` chunks the tokens over it (``seq_sharded_acts``),
+    ``ring`` whether attention then runs the ring over it (the backbone is
+    whole on each rank) rather than Megatron sequence parallelism;
+    ``pipe``: this rank's pipeline stage (``parallel.pipeline.Stages``)."""
+
+    cfg: BackboneConfig
+    seq: Optional[comm.Group] = None
+    ring: bool = False
+    pipe: Optional[object] = None
+
+
 class Backbone(nn.Module):
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
+        self.parallel: Optional[BackboneParallel] = None
         if cfg.family not in ("opt", "gpt2", "llama"):
             raise ValueError(f"backbone family {cfg.family!r}: only opt/gpt2/llama are ported")
         self.cfg = cfg
@@ -810,6 +840,8 @@ class Backbone(nn.Module):
         moe_aux: Optional[list] = None,
         positions: Optional[torch.Tensor] = None,
         allowed: Optional[torch.Tensor] = None,
+        capacity_tokens: Optional[int] = None,
+        seq_shard: bool = False,
     ) -> torch.Tensor:
         """(bs, L, d) -> (bs, L, d), or (bs, length, d) with ``decode_slice``.
 
@@ -830,23 +862,44 @@ class Backbone(nn.Module):
         causal mask (broadcastable to (bs, H, L, L)), as the JAX
         ``positions_override``/``allowed_override`` (the streaming oracle's
         banded mask); a mask sends attention through plain PyTorch.
+        capacity_tokens: the token count MoE capacity is sized by (None:
+        the sequence's; ``backbone.py:443-574``).
+        seq_shard: on a mesh whose backbone chunks tokens over the model
+        axis (``BackboneParallel.seq``), run the blocks on this rank's
+        chunk (``FluidLLM.forward``'s ``seq_sharded_acts``): the tokens
+        padded with invalid ones to a multiple of the axis (JAX
+        ``fluid_llm.py:290-305``; MoE capacity stays sized by the real
+        count), joined again and trimmed after the last block.
+        On a pipeline mesh (``BackboneParallel.pipe``) the blocks run as
+        this rank's stage of the GPipe schedule (``parallel/pipeline.py``).
         """
         cfg = self.cfg
+        par = self.parallel
+        lcfg = par.cfg if par is not None else cfg
         bs, L = inputs_embeds.shape[:2]
         x = inputs_embeds.to(cfg.dtype)
         if valid is None:
             valid = torch.ones(bs, L, dtype=torch.bool, device=x.device)
+        split = seq_shard and par is not None and not comm.trivial(par.seq)
+        if split:
+            if positions is not None or allowed is not None or decode_slice is not None:
+                raise ValueError("token-chunked blocks take no positions, allowed or decode_slice")
+            pad = (-L) % par.seq.size
+            valid = torch.cat([valid, valid.new_zeros(bs, pad)], 1)
+            capacity_tokens = capacity_tokens or L
         mask_positions, mask = make_masks(valid)
         positions = mask_positions if positions is None else positions
         if self.project_in is not None:
             x = linear(x, self.project_in, kernels)
         if self.pos_embed is not None:
-            x = x + self.pos_embed[positions + cfg.pos_offset].to(cfg.dtype)
+            x = x + pt.full(self, "pos_embed")[positions[:, :L] + cfg.pos_offset].to(cfg.dtype)
         rope = rope_tables(positions, cfg) if cfg.pos == "rope" else None
         if generator is not None:
             x = dropout(x, cfg.dropout, generator)
+        if par is not None and par.pipe is not None:
+            return self._pipelined(x, valid, decode_slice, kernels, lora, generator, remat)
 
-        attend = self._attend(L, kernels, x.device) if allowed is None \
+        attend = self._attend(valid.shape[1], kernels, x.device) if allowed is None \
             else _masked_attend(allowed, cfg.dtype)
         allowed = mask if allowed is None else allowed
         if isinstance(self.layers, StackedLayers):
@@ -868,15 +921,76 @@ class Backbone(nn.Module):
         lora_cfg = lora.cfg if lora is not None else None
         n_full = cfg.n_layers - (1 if decode_slice is not None else 0)
         remat = (cfg.remat if remat is None else remat) and torch.is_grad_enabled()
+        moe = None if capacity_tokens is None else \
+            (lambda h, mlp: moe_mlp(h, mlp, lcfg, valid_i32.bool(), capacity_tokens))
+        context = nullcontext
+        if split:
+            x, valid_i32, rope, attend, moe, context = self._chunk_tokens(
+                x, valid_i32, rope, attend, moe, L, lcfg, capacity_tokens)
         for layer, ad in zip(layers[:n_full], adapters):
-            block = lambda x, layer=layer, ad=ad: layer(x, cfg, valid_i32, attend, ad, lora_cfg,
-                                                        generator, rope, kernels)
+            def block(x, layer=layer, ad=ad):
+                with context():  # entered again where remat recomputes the block
+                    return layer(x, lcfg, valid_i32, attend, ad, lora_cfg, generator, rope,
+                                 kernels, moe)
             x, aux = rematerialised(block, x, generator) if remat else block(x)
             if aux is not None and moe_aux is not None:
                 moe_aux.append(aux)
+        if split:
+            x = comm.gather_split(x, par.seq, 1)[:, :L]
         if decode_slice is not None:
             x = self._final_block_sliced(x, layers[-1], allowed, rope, decode_slice, adapters[-1],
                                          lora_cfg, kernels)
+        return self._out(x, kernels)
+
+    def _chunk_tokens(self, x, valid_i32, rope, attend, moe, L: int, lcfg, capacity_tokens):
+        """The blocks' inputs cut to this rank's chunk of the (padded) tokens
+        over ``parallel.seq``, and the context their computation runs in.
+        Megatron sequence parallelism: attention keeps its full-token form
+        (the column-parallel linears gather the tokens,
+        ``comm.tokens_sharded``).  Ring: attention is ``parallel/
+        ring_attention.py``'s over the chunks, rope tables cut alike, and a
+        MoE MLP routes the whole sequence (``ring_attention.moe_mlp``)."""
+        from fluid_llm_tpu_torch.parallel import ring_attention as ring
+
+        g = self.parallel.seq
+        Lp = valid_i32.shape[1]
+        x = comm.split_gather(torch.cat([x, x.new_zeros(x.shape[0], Lp - L, x.shape[2])], 1),
+                              g, 1)
+        n = Lp // g.size
+        tokens = (g.index * n, (g.index + 1) * n, L, Lp)
+        if self.parallel.ring:
+            valid_full = valid_i32.bool()
+            valid_i32 = comm.chunk(valid_i32, g, 1).contiguous()
+            rope = None if rope is None else tuple(comm.chunk(t, g, 1) for t in rope)
+            attend = ring.ring_attend(g, lcfg.dtype)
+            moe = lambda h, mlp: ring.moe_mlp(h, mlp, lcfg, valid_full, capacity_tokens, g)
+
+            def context():
+                return draw_shards(tokens=tokens)
+        else:
+            def context():
+                stack = ExitStack()
+                stack.enter_context(comm.tokens_sharded(g))
+                stack.enter_context(draw_shards(tokens=tokens))
+                return stack
+        return x, valid_i32, rope, attend, moe, context
+
+    def _pipelined(self, x, valid, decode_slice, kernels, lora, generator, remat):
+        """The blocks as this rank's pipeline stage (JAX ``fluid_llm.py:
+        254-270``'s guards; ``decode_slice``: the whole final block, then the
+        slice), then the replicated post-stage work."""
+        if lora is not None:
+            raise ValueError("pipeline parallelism uses the stacked layer layout, which cannot "
+                             "apply per-layer LoRA trees: train full-FT (use_lora: false) or "
+                             "merge adapters first")
+        if generator is not None and self.cfg.dropout > 0.0:
+            raise ValueError("the pipelined backbone is dropout-free (stacked scan layout): "
+                             "set the backbone dropout to 0")
+        remat = (self.cfg.remat if remat is None else remat) and torch.is_grad_enabled()
+        x = self.parallel.pipe.apply(self, x, valid, kernels, remat)
+        if decode_slice is not None:
+            start, n = decode_slice
+            x = x[:, start:start + n]
         return self._out(x, kernels)
 
     def _attend(self, L: int, kernels: bool, device: torch.device):
@@ -918,12 +1032,12 @@ class Backbone(nn.Module):
         if isinstance(layer.mlp, MoEMLP):
             raise NotImplementedError("decode_slice is not exact for MoE blocks (capacity couples "
                                       "tokens within a layer): run the final block whole")
-        cfg = self.cfg
+        cfg = self.parallel.cfg if self.parallel is not None else self.cfg
         lin = lambda h, group, name: layer.proj(h, group, name, adapters, lora_cfg,
                                                 kernels=kernels)
         start, ln = decode_slice
-        bs, L, d = x.shape
-        H, hd = cfg.n_heads, cfg.head_dim
+        bs, L = x.shape[:2]
+        d, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim  # this rank's heads on a mesh
 
         h = _norm(x, layer.ln1, cfg) if cfg.pre_ln else x
         x_s = x[:, start:start + ln]
@@ -970,6 +1084,9 @@ def stack_layers(backbone: Backbone) -> None:
     layers = backbone.layers
     if isinstance(layers, StackedLayers) or any(isinstance(m.mlp, MoEMLP) for m in layers):
         return
+    if backbone.parallel is not None and backbone.parallel.cfg != backbone.cfg:
+        raise NotImplementedError("the stacked layout of a tensor-parallel backbone is not "
+                                  "ported: serve it unstacked")
 
     def structure(layer: Block):
         return ([(n, type(m), getattr(m, "mode", None)) for n, m in layer.named_modules()],
@@ -1011,6 +1128,12 @@ def pack_qkv_params(backbone: Backbone) -> None:
         qkv.weight.copy_(torch.cat([p.weight for p in parts], dim=0))
         if bias:
             qkv.bias.copy_(torch.cat([p.bias for p in parts]))
+        if pt.tp_of(parts[0]) is not None:  # this rank's heads of q, k and v
+            qkv.tp = parts[0].tp
+        fsdp = {n: tuple(mk for mk in marks if mk[1] == "fsdp")
+                for n, marks in getattr(parts[0], "shards", {}).items()}
+        if any(fsdp.values()):  # the input features' chunk, gathered on use
+            qkv.shards = fsdp
         for n in ("q", "k", "v"):
             del attn[n]
         attn["qkv"] = qkv
@@ -1150,6 +1273,10 @@ def apply_streaming(
     expert_choice picks among the chunk's tokens; aux is unused.
     """
     cfg = backbone.cfg
+    par = backbone.parallel
+    if par is not None and (par.cfg != cfg or par.pipe is not None):
+        raise NotImplementedError("streaming decode on a tensor- or pipeline-parallel mesh "
+                                  "(sharded serving) is not ported: serve on one rank")
     if cfg.pos != "rope":
         raise ValueError("streaming decode requires rotary positions (llama family); "
                          f"backbone family {cfg.family!r} uses {cfg.pos!r} positions")

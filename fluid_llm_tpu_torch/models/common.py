@@ -10,6 +10,7 @@ layers; the convolutions have kernel 3 and zero padding 1.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -17,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fluid_llm_tpu_torch.ops import quant_matmul as qmm
-from fluid_llm_tpu_torch.ops.quant import NF4Linear, QuantLinear
+from fluid_llm_tpu_torch.ops.quant import NF4Linear, QuantLinear, dequantize_weight
+from fluid_llm_tpu_torch.parallel import tensor as pt
 
 ACTS = {
     "relu": F.relu,
@@ -33,10 +35,17 @@ ACTS = {
 def linear_weight(lin: nn.Module, dtype: torch.dtype) -> torch.Tensor:
     """The ``(out, in)`` weight of a linear in ``dtype``: an ``nn.Linear``'s
     cast, a ``QuantLinear``'s or ``NF4Linear``'s dequantised
-    (``backbone.materialize_w``)."""
-    if isinstance(lin, (QuantLinear, NF4Linear)):
-        return lin.dequantize(dtype)
-    return lin.weight.to(dtype)
+    (``backbone.materialize_w``).  On a mesh: its fsdp chunks gathered and,
+    in a tensor-parallel block, this rank's features
+    (``parallel/tensor.py``)."""
+    if isinstance(lin, QuantLinear):
+        w = dequantize_weight(pt.full(lin, "q"), pt.full(lin, "scale"), dtype)
+    elif isinstance(lin, NF4Linear):
+        w = lin.dequantize(dtype)
+    else:
+        w = pt.full(lin, "weight").to(dtype)
+    tp = pt.tp_of(lin)
+    return w if tp is None else tp.cut(w)
 
 
 def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
@@ -52,28 +61,104 @@ def linear(x: torch.Tensor, lin: nn.Module, kernels: bool = True,
     the twin on CPU ones; ``kernels=False`` selects the twin explicitly);
     one they do not take, and an ``NF4Linear``, are dequantised and go
     through ``F.linear``, as ``use_kernel`` and ``materialize_w`` rule.
-    Under autograd the int8 product is ``quant_matmul.Int8Matmul``'s."""
+    Under autograd the int8 product is ``quant_matmul.Int8Matmul``'s.
+    A linear of a tensor-parallel block runs on this rank's features between
+    its Megatron pair (``parallel/tensor.py``; a row-parallel bias added
+    once, after the reduction)."""
     quantized = isinstance(lin, (QuantLinear, NF4Linear))
+    x = pt.enter(lin, x)
+    late = pt.row_bias(lin)
+    b = lin.bias
     if cols is not None:
         if quantized:
             raise ValueError(f"linear: cols= takes an nn.Linear, not {type(lin).__name__}")
-        b = lin.bias[cols] if lin.bias is not None else None
-        return F.linear(x, lin.weight[cols].to(x.dtype), b.to(x.dtype) if b is not None else None)
+        b = b[cols] if b is not None else None
+        w = pt.full(lin, "weight")
+        return F.linear(x, w[cols].to(x.dtype), b.to(x.dtype) if b is not None else None)
     if isinstance(lin, QuantLinear) and qmm.supported(lin.in_features, lin.out_features):
         mm = qmm.int8_matmul if kernels else qmm.int8_matmul_ref
-        return mm(x, lin.q, lin.scale, lin.bias, lin.mode)
-    w = linear_weight(lin, x.dtype)
-    b = lin.bias
-    return F.linear(x, w, b.to(x.dtype) if b is not None else None)
+        y = mm(x, pt.full(lin, "q"), pt.full(lin, "scale"), None if late else b, lin.mode)
+    else:
+        w = linear_weight(lin, x.dtype)
+        y = F.linear(x, w, b.to(x.dtype) if b is not None and not late else None)
+    if late:
+        y = pt.leave(lin, y)
+        if b is not None:
+            y = y + b.to(y.dtype)
+    return y
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+# The one-process layout of the random draws (``draw_shards``): this rank's
+# rows of the global batch, and its tokens of the sequence.
+_ROWS: list = []
+_TOKENS: list = []
+
+
+@contextmanager
+def draw_shards(rows: Optional[tuple[int, int, int]] = None,
+                tokens: Optional[tuple[int, int, int, int]] = None):
+    """Within the block, :func:`draw` draws what one process would and keeps
+    this rank's part.  ``rows``: ``(start, stop, total)`` of the global
+    batch rows held here (dim 0 of a drawn tensor, or a flattening that
+    leads with the batch); ``tokens``: ``(start, stop, length, padded)``,
+    this rank's chunk of a sequence of ``length`` tokens padded to
+    ``padded`` (dim 1 of a drawn tensor that is that chunk, or the whole
+    padded sequence; padded tokens draw nothing)."""
+    if rows is not None:
+        _ROWS.append(rows)
+    if tokens is not None:
+        _TOKENS.append(tokens)
+    try:
+        yield
+    finally:
+        if rows is not None:
+            _ROWS.pop()
+        if tokens is not None:
+            _TOKENS.pop()
+
+
+def draw(fn, shape, generator: torch.Generator, device,
+         features: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
+    """``fn(shape, generator=, device=)`` (``torch.rand``/``torch.randn``);
+    under :func:`draw_shards` the one-process draw of the global shape,
+    cut to this rank's part.  ``features``: ``(start, stop, total)`` of the
+    last dim held here (the input of a row-parallel adapter)."""
+    shape = tuple(shape)
+    if not (_ROWS or _TOKENS or features):
+        return fn(shape, generator=generator, device=device)
+    full, index, pad = list(shape), [slice(None)] * len(shape), 0
+    if _ROWS:
+        start, stop, total = _ROWS[-1]
+        k, rest = divmod(shape[0], stop - start)
+        if rest:
+            raise ValueError(f"draw of {shape}: dim 0 is not {stop - start} batch rows")
+        full[0], index[0] = total * k, slice(start * k, stop * k)
+    if _TOKENS and len(shape) > 1:
+        start, stop, length, padded = _TOKENS[-1]
+        if shape[1] == stop - start and stop - start != padded:  # this rank's chunk
+            full[1], index[1] = length, slice(min(start, length), min(stop, length))
+            pad = shape[1] - (min(stop, length) - min(start, length))
+        elif shape[1] == padded and padded != length:  # the whole padded sequence
+            full[1], pad = length, padded - length
+    if features is not None:
+        start, stop, total = features
+        full[-1], index[-1] = total, slice(start, stop)
+    t = fn(tuple(full), generator=generator, device=device)[tuple(index)]
+    if pad:
+        t = torch.cat([t, t.new_zeros((t.shape[0], pad, *t.shape[2:]))], 1)
+    return t
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator,
+            features: Optional[tuple[int, int, int]] = None) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (on x's
     device): keep with probability ``1 - rate``, scale kept values by
-    ``1 / (1 - rate)`` (the JAX package's ``bernoulli`` + ``where``)."""
+    ``1 / (1 - rate)`` (the JAX package's ``bernoulli`` + ``where``).  The
+    mask is :func:`draw`'s: on a mesh, one process's mask cut to this
+    rank's part."""
     if rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    keep = draw(torch.rand, x.shape, generator, x.device, features) < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 

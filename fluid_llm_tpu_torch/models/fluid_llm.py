@@ -27,6 +27,12 @@ a list the MoE blocks append their balance losses to.  Also
 serving -> pack qkv -> cast -> stack, with ``FLUID_SCAN_LAYERS=1``),
 ``quantize_frozen`` (``llm_4bit_loading``: the frozen backbone as nf4),
 and the streaming rollout's ``embed_frames`` and ``decode_frame_tokens``.
+
+On a rank mesh (``parallel/mesh.shard_model``) the backbone runs its
+share; ``forward`` with ``parallel.seq_sharded_acts`` runs its blocks on
+this rank's chunk of the tokens (sequence parallelism, or ring attention
+with ``parallel.ring_attention``: ``fluid_llm.py:271-305``), the rollout's
+``predict_frame_diff`` on whole tokens, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -78,11 +84,13 @@ class FluidLLM(nn.Module):
         ``moe.experts > 0`` routed MLPs (the JAX guards, ``config.check_moe``).
         ``backbone_overrides`` replace fields of the backbone config (e.g.
         ``attn_impl="short"``, as the JAX package's ``FLUID_BENCH_ATTN``).
-        Pipeline parallelism is not ported and raises."""
+        With ``parallel.pipe_axis > 1`` (``parallel/pipeline.py``) the
+        backbone trains full-FT: adapters raise, as the JAX ``init`` does
+        (``fluid_llm.py:160-165``)."""
         check_moe(cfg.moe, cfg.parallel)
-        if cfg.parallel.pipe_axis > 1:
-            raise ValueError("pipeline-parallel backbones (parallel.pipe_axis > 1) are not "
-                             "ported yet")
+        if cfg.parallel.pipe_axis > 1 and cfg.use_lora and not cfg.freeze_llm:
+            raise ValueError("pipeline parallelism requires full-FT (use_lora: false) -- "
+                             "per-layer LoRA trees don't apply to the stacked layout")
         dtype = torch.bfloat16 if cfg.half_precision else torch.float32
         moe = dict(moe_experts=cfg.moe.experts, moe_top_k=cfg.moe.top_k,
                    moe_capacity_factor=cfg.moe.capacity_factor,
@@ -144,6 +152,9 @@ class FluidLLM(nn.Module):
         ``stack_layers`` or ``FLUID_SCAN_LAYERS=1`` in the environment, the
         stacked layout (``backbone.stack_layers``).  The order of
         ``tools/serve.py:442-457``; exact without ``quant``."""
+        if quant is not None and getattr(self, "mesh", None) is not None and self.mesh.world > 1:
+            raise NotImplementedError("quantized serving on a rank mesh (sharded serving) is not "
+                                      "ported: serve on one rank")
         bb.unstack_layers(self.backbone)
         if self.lora is not None:
             merge_lora(self.backbone, self.lora)
@@ -199,13 +210,17 @@ class FluidLLM(nn.Module):
         """
         if train and generator is None:
             raise ValueError("training forward needs a generator for its dropout")
+        par = self.cfg.parallel
+        if par.ring_attention and not (par.seq_sharded_acts and par.model_axis > 1):
+            raise ValueError("parallel.ring_attention needs tokens sharded over the model axis "
+                             "-- set seq_sharded_acts: true and model_axis > 1")
         gen = generator if train else None
         bs, seq_len, n_patch = x.shape[:3]
         if frame_valid is None:
             frame_valid = torch.ones(bs, seq_len, dtype=torch.bool, device=x.device)
         h, token_valid = self._embed(x, position_ids, frame_valid, gen)
         out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen,
-                            moe_aux=moe_aux)
+                            moe_aux=moe_aux, seq_shard=par.seq_sharded_acts)
         if self.bos is not None:
             out = out[:, 1:]
         preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, gen)

@@ -9,6 +9,12 @@ backbone's layers, with the JAX layout (``A`` (in, r), ``B`` (r, out), ``m``
     LoRA:  W_eff = W + (alpha/r) * A @ B
     DoRA:  W_eff = m * (W + dW) / ||W + dW||_col
 
+On a tensor-parallel block (``parallel/tensor.py``) an adapter follows
+its linear's split: on a column-parallel one ``A`` is whole and ``B`` and
+DoRA's ``m`` hold this rank's output rows; on a row-parallel one ``A``
+holds this rank's input rows, and DoRA's column norm sums the ranks'
+squares.
+
 ``lora_linear`` is the unmerged forward (training, and the validation
 rollout of a model in training); serving folds the adapters in with
 ``merge_lora``.  The base may be stored quantized (``llm_4bit_loading``:
@@ -30,6 +36,8 @@ from torch import nn
 from fluid_llm_tpu_torch.config import LoraConfig
 from fluid_llm_tpu_torch.models.common import dropout, linear_weight
 from fluid_llm_tpu_torch.ops.quant import is_quantized
+from fluid_llm_tpu_torch.parallel import comm
+from fluid_llm_tpu_torch.parallel import tensor as pt
 
 # peft target-module names -> backbone (group, name)
 _NAME_MAP = {
@@ -111,7 +119,14 @@ def lora_linear(x: torch.Tensor, lin: nn.Module, ad: LoraAdapter, cfg: LoraConfi
     """
     dtype = x.dtype
     scaling = cfg.lora_alpha / cfg.r
-    x_drop = dropout(x, cfg.lora_dropout, generator) if generator is not None else x
+    x = pt.enter(lin, x)
+    tp = pt.tp_of(lin)
+    row = tp is not None and tp.kind == "row"
+    feats = None
+    if row:  # this rank's input features: A holds their rows
+        n = ad.A.shape[0]
+        feats = (tp.group.index * n, (tp.group.index + 1) * n, n * tp.group.size)
+    x_drop = dropout(x, cfg.lora_dropout, generator, feats) if generator is not None else x
     y = F.linear(x, linear_weight(lin, dtype)) \
         + (x_drop @ ad.A.to(dtype)) @ ad.B.to(dtype) * scaling
     if ad.m is not None:
@@ -121,8 +136,13 @@ def lora_linear(x: torch.Tensor, lin: nn.Module, ad: LoraAdapter, cfg: LoraConfi
             wn2 = (w32 * w32).sum(1)
             cross = ((w32 @ a32) * b32.T).sum(1)
             ab2 = torch.einsum("rs,rj,sj->j", a32.T @ a32, b32, b32)
-            norm = torch.sqrt(wn2 + 2.0 * scaling * cross + scaling ** 2 * ab2)
+            if row:  # each rank holds some input columns: sum their squares
+                norm = torch.sqrt(comm.all_reduce(wn2 + 2.0 * scaling * cross
+                                                  + scaling ** 2 * ab2, tp.group))
+            else:
+                norm = torch.sqrt(wn2 + 2.0 * scaling * cross + scaling ** 2 * ab2)
         y = y * (ad.m / norm).to(dtype)
+    y = pt.leave(lin, y)
     if lin.bias is not None:
         y = y + lin.bias.to(dtype)
     return y
@@ -145,12 +165,22 @@ def merge_lora(backbone: nn.Module, lora: Lora) -> None:
                 w_eff = linear_weight(lin, torch.float32) \
                     + (ad.A.float() @ ad.B.float() * scaling).T
                 if ad.m is not None:
-                    w_eff = w_eff * (ad.m.float() / w_eff.norm(dim=1))[:, None]
+                    tp = pt.tp_of(lin)
+                    if tp is not None and tp.kind == "row":  # input columns cut
+                        norm = torch.sqrt(comm.all_reduce((w_eff * w_eff).sum(1), tp.group))
+                    else:
+                        norm = w_eff.norm(dim=1)
+                    w_eff = w_eff * (ad.m.float() / norm)[:, None]
                 if is_quantized(lin):
-                    dense = nn.Linear(lin.in_features, lin.out_features,
+                    dense = nn.Linear(w_eff.shape[1], w_eff.shape[0],
                                       bias=lin.bias is not None, device=w_eff.device)
                     if lin.bias is not None:
                         dense.bias.copy_(lin.bias)
                     dense.requires_grad_(False)
+                    if pt.tp_of(lin) is not None:  # w_eff holds this rank's features
+                        dense.tp = pt.TP(lin.tp.kind, lin.tp.group)
                     getattr(layer, group)[name] = lin = dense
+                for d, axis, g in getattr(lin, "shards", {}).get("weight", ()):
+                    if axis == "fsdp":  # stored as this rank's fsdp chunk
+                        w_eff = comm.chunk(w_eff, g, d)
                 lin.weight.copy_(w_eff)

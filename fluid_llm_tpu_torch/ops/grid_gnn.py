@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fluid_llm_tpu_torch.models.common import linear
+from fluid_llm_tpu_torch.models.common import draw, linear
 from fluid_llm_tpu_torch.ops.grid_gnn_fused import (
     SHIFTS, slot_attention, slot_attention_ref, slot_logits)
 
@@ -83,7 +83,7 @@ class GATv2Conv(nn.Module):
         att = self.att.to(x.dtype)
         if dropout > 0.0 and generator is not None:
             shape = (*lead, len(SHIFTS), self.heads)
-            keep = torch.rand(shape, generator=generator, device=x.device) < 1.0 - dropout
+            keep = draw(torch.rand, shape, generator, x.device) < 1.0 - dropout
             out = slot_attention_dropout(xl, xr, att, self.heads, self.out_dim, keep, dropout)
         else:
             frames = (-1,) + xl.shape[-3:]

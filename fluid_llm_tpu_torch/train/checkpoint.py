@@ -23,6 +23,14 @@ checkpoints on resume and inference.  Here:
   bit.
 
 Restoring reads tensors only (``weights_only=True``).
+
+On a rank mesh (``model.mesh``, ``parallel/mesh.py``) every rank takes part
+in gathering the whole tensors and the optimizer state (in the one-process
+order of the trainable parameters), and rank 0 writes the same files as
+one process; a restore cuts the whole tensors to what this rank of any
+mesh holds.  So a run trained on a mesh resumes in one process, and a
+one-process run resumes on a mesh (the JAX package's Orbax restore onto
+the template's shardings, ``fluid_llm_tpu/train/checkpoint.py:7-8``).
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed
 
 from fluid_llm_tpu_torch.config import Config
 
@@ -74,34 +83,62 @@ def latest_step(save_path: str) -> Optional[int]:
 def save_checkpoint(save_path: str, step: int, model: torch.nn.Module, optimizer, epoch: int,
                     cfg: Config) -> str:
     path = os.path.abspath(os.path.join(save_path, f"step_{step}"))
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None:
+        from fluid_llm_tpu_torch.parallel.mesh import full_optimizer_state, full_state_dict
+
+        state = full_state_dict(model)
+        opt_state = full_optimizer_state(optimizer, model)
+        if mesh.rank != 0:
+            torch.distributed.barrier()  # until rank 0 has written
+            return path
+        trainable = set(model.trainable_names)
+        payload = {
+            "trainable": {n: state[n] for n in model.trainable_names},
+            "frozen": {n: t for n, t in state.items() if n not in trainable},
+            "optimizer": opt_state,
+            "epoch": epoch,
+        }
+    else:
+        params = dict(model.named_parameters())
+        payload = {
+            "trainable": {n: p.detach() for n, p in params.items() if p.requires_grad},
+            "frozen": {n: t for n, t in model.state_dict().items()
+                       if n not in params or not params[n].requires_grad},
+            "optimizer": optimizer.state_dict(),
+            "epoch": epoch,
+        }
     os.makedirs(path, exist_ok=True)
-    params = dict(model.named_parameters())
-    payload = {
-        "trainable": {n: p.detach() for n, p in params.items() if p.requires_grad},
-        "frozen": {n: t for n, t in model.state_dict().items()
-                   if n not in params or not params[n].requires_grad},
-        "optimizer": optimizer.state_dict(),
-        "epoch": epoch,
-    }
     tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
     cfg.to_yaml(os.path.join(save_path, "config.yaml"))
     with open(os.path.join(save_path, f"step_{step}.epoch"), "w") as f:
         f.write(str(epoch))
+    if mesh is not None:
+        torch.distributed.barrier()
     return path
 
 
 def restore_checkpoint(save_path: str, step: int, model: torch.nn.Module,
                        optimizer=None) -> int:
     """Load ``step_N`` into ``model`` (every tensor of its state dict, on
-    its device) and, if given, ``optimizer``; returns the saved epoch."""
+    its device; on a mesh, this rank's chunks) and, if given,
+    ``optimizer``; returns the saved epoch."""
     device = next(model.parameters()).device
     payload = torch.load(os.path.join(save_path, f"step_{step}", STATE_FILE),
                          map_location=device, weights_only=True)
-    model.load_state_dict({**payload["trainable"], **payload["frozen"]})
-    if optimizer is not None:
-        optimizer.load_state_dict(payload["optimizer"])
+    state = {**payload["trainable"], **payload["frozen"]}
+    if getattr(model, "mesh", None) is None:
+        model.load_state_dict(state)
+        if optimizer is not None:
+            optimizer.load_state_dict(payload["optimizer"])
+    else:
+        from fluid_llm_tpu_torch.parallel.mesh import load_optimizer_state, local_state_dict
+
+        model.load_state_dict(local_state_dict(model, state))
+        if optimizer is not None:
+            load_optimizer_state(optimizer, model, payload["optimizer"])
     return int(payload["epoch"])
 
 

@@ -4,6 +4,12 @@ Counterpart of ``fluid_llm_tpu/train/losses.py`` (``src/losses.py``).  Mask
 convention as the reference: ``mask == True`` marks boundary/exterior
 pixels that are *excluded* from the loss (``src/losses.py:24-27``); the
 reference's ``masked_select`` becomes masked sums, same values.
+
+On a rank mesh each rank holds some rows of the batch: every sum and mean
+here is over the global batch (``comm.batch_sum``/``batch_mean``, the
+numerator and the count of a masked mean reduced apart, so that ranks whose
+masks keep different counts still give the one-process mean); outside a
+step on a mesh they are the plain sums and means.
 """
 
 from __future__ import annotations
@@ -12,11 +18,13 @@ from typing import Callable, Sequence
 
 import torch
 
+from fluid_llm_tpu_torch.parallel.comm import batch_mean, batch_sum
+
 
 def _sel_mean(values: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """Mean of ``values`` over elements where ``sel`` is True."""
     sel = sel.to(values.dtype)
-    return (values * sel).sum() / sel.sum().clamp_min(1.0)
+    return batch_sum((values * sel).sum()) / batch_sum(sel.sum()).clamp_min(1.0)
 
 
 def mape_loss(preds, target, mask, eps: float = 1e-5):
@@ -30,7 +38,7 @@ def smape_loss(preds, target, mask, eps: float = 1e-5):
     included), as the reference does."""
     sel = (~mask).to(preds.dtype)
     scale = target.abs() + preds.abs() + eps
-    return 2.0 * ((target - preds).abs() / scale * sel).mean()
+    return 2.0 * batch_mean((target - preds).abs() / scale * sel)
 
 
 def mse_loss(preds, target, mask):
@@ -42,7 +50,7 @@ def rmse_loss(preds, target, mask):
     """``src/losses.py:100-121``: masked pixels zeroed, divided by the
     *total* element count before the sqrt, as the reference does."""
     sel = (~mask).to(preds.dtype)
-    return (((target - preds) * sel) ** 2).mean().sqrt()
+    return batch_mean(((target - preds) * sel) ** 2).sqrt()
 
 
 def mae_loss(preds, target, mask):

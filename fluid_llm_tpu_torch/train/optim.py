@@ -16,15 +16,24 @@ frozen backbone under LoRA has no moments, as the JAX package's partition.
 
 The learning rate is set per epoch from ``steplr``, indexed by the global
 epoch (``loop.py:107-110``).
+
+On a rank mesh a parameter may be this rank's chunk of a tensor
+(``parallel/mesh.shard_model``: ``p.mesh_dims``, ``p.full_shape``); the
+elementwise optimizers then keep their state chunked alike, and
+Adafactor's per-tensor statistics (its factored row and column means, the
+update's block RMS and the parameter's RMS) sum their chunks' parts over
+the ranks, so the numbers are one process's.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Iterable, Optional
 
 import torch
 
 from fluid_llm_tpu_torch.config import Config
+from fluid_llm_tpu_torch.parallel import comm
 
 
 def steplr(base_lr: float, step_size: int, gamma: float):
@@ -57,6 +66,26 @@ def factored_dims(shape: torch.Size) -> Optional[tuple[int, int]]:
     return order[-2], order[-1]
 
 
+def _mean(t: torch.Tensor, dim: int, p) -> torch.Tensor:
+    """``t.mean(dim)`` over the whole tensor of which ``p`` holds a chunk
+    (``t`` cut like ``p`` along ``dim``)."""
+    g = getattr(p, "mesh_dims", {}).get(dim)
+    if g is None:
+        return t.mean(dim=dim)
+    return comm.all_reduce(t.sum(dim=dim), g) / p.full_shape[dim]
+
+
+def _mean_all(t: torch.Tensor, p) -> torch.Tensor:
+    """``t.mean()`` over the whole tensor of which ``p`` holds a chunk."""
+    dims = getattr(p, "mesh_dims", {})
+    if not dims:
+        return t.mean()
+    total = t.sum()
+    for g in dims.values():
+        total = comm.all_reduce(total, g)
+    return total / math.prod(p.full_shape)
+
+
 class Adafactor(torch.optim.Optimizer):
     """optax ``adafactor`` (``optax/_src/alias.py``) with its defaults, per
     parameter tensor:
@@ -80,7 +109,7 @@ class Adafactor(torch.optim.Optimizer):
                 if p.grad is None:
                     continue
                 g, state = p.grad, self.state[p]
-                dims = factored_dims(p.shape)
+                dims = factored_dims(torch.Size(getattr(p, "full_shape", p.shape)))
                 if not state:
                     state["step"] = torch.zeros((), dtype=torch.int64)
                     if dims is None:
@@ -98,16 +127,21 @@ class Adafactor(torch.optim.Optimizer):
                     u = g * v ** -0.5
                 else:
                     d1, d0 = dims
-                    v_row = decay * state["v_row"] + (1.0 - decay) * g2.mean(dim=d0)
-                    v_col = decay * state["v_col"] + (1.0 - decay) * g2.mean(dim=d1)
+                    v_row = decay * state["v_row"] + (1.0 - decay) * _mean(g2, d0, p)
+                    v_col = decay * state["v_col"] + (1.0 - decay) * _mean(g2, d1, p)
                     state["v_row"], state["v_col"] = v_row, v_col
                     reduced_d1 = d1 - 1 if d1 > d0 else d1
-                    row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                    g1 = getattr(p, "mesh_dims", {}).get(d1)  # v_row's reduced_d1 is p's d1
+                    row_mean = v_row.mean(dim=reduced_d1, keepdim=True) if g1 is None else \
+                        comm.all_reduce(v_row.sum(dim=reduced_d1, keepdim=True), g1) \
+                        / p.full_shape[d1]
+                    row_factor = (v_row / row_mean) ** -0.5
                     u = g * row_factor.unsqueeze(d0) * v_col.unsqueeze(d1) ** -0.5
                 state["step"] += 1
-                u = u / torch.clamp(u.square().mean().sqrt() / CLIPPING_THRESHOLD, min=1.0)
+                u = u / torch.clamp(_mean_all(u.square(), p).sqrt() / CLIPPING_THRESHOLD,
+                                    min=1.0)
                 u = u * group["lr"]
-                u = u * torch.clamp(p.square().mean().sqrt(), min=MIN_SCALE)
+                u = u * torch.clamp(_mean_all(p.square(), p).sqrt(), min=MIN_SCALE)
                 if group["weight_decay_rate"] is not None:
                     u = u + group["weight_decay_rate"] * p
                 p.sub_(u)

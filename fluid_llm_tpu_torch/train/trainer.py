@@ -25,15 +25,27 @@ balance losses to the loss and logs it as ``moe_aux`` (``trainer.py:
 (``gen``'s guide rollout collects none), ``notf`` from its rollout.  With
 ``frozen_bf16`` the frozen backbone is stored in bf16
 (:func:`cast_frozen_bf16`).
+
+On a rank mesh (``model.mesh``, ``parallel/mesh.shard_model``) a step
+takes this rank's rows of the global batch; its losses reduce over the
+global batch (``comm.batch_axes``), its dropout and noise are one
+process's draws cut to those rows (``models.common.draw_shards``), and
+the gradients are summed over the ranks that hold parts of them before the
+optimizer steps (``parallel.mesh.sync_grads``).  The metrics come back
+global on every rank (N-RMSE's rows gathered).
 """
 
 from __future__ import annotations
 
+from contextlib import ExitStack, nullcontext
 from typing import Optional
 
 import torch
 
+from fluid_llm_tpu_torch.models.common import draw, draw_shards
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
+from fluid_llm_tpu_torch.parallel import comm
+from fluid_llm_tpu_torch.parallel.mesh import sync_grads
 from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
 from fluid_llm_tpu_torch.train.losses import combined_loss
@@ -80,8 +92,7 @@ class Trainer:
             input_states = states
             if cfg.noise is not None:
                 std = diffs.std(dim=(-1, -2, -3, -4, -5), keepdim=True)
-                noise = torch.randn(states.shape, generator=gen, device=states.device,
-                                    dtype=states.dtype)
+                noise = draw(torch.randn, states.shape, gen, states.device).to(states.dtype)
                 input_states = states + noise * (~bc_mask).to(states.dtype) * std * cfg.noise
             pred_diff = model.predict_diffs(input_states, position_ids, train=True, generator=gen,
                                             moe_aux=moe_aux)
@@ -115,13 +126,34 @@ class Trainer:
         metrics["N_RMSE"] = calc_n_rmse(pred_state.detach(), next_img, mask_img)
         return loss, metrics
 
+    def on_mesh(self, batch: tuple):
+        """The context of a step over ``batch``, this rank's rows of the
+        global batch: the loss's reductions over the batch axes and the
+        draws of one process (nothing off a mesh, or with one batch rank)."""
+        mesh = getattr(self.model, "mesh", None)
+        if mesh is None or mesh.batch.size == 1:
+            return nullcontext()
+        stack = ExitStack()
+        stack.enter_context(comm.batch_axes(mesh.batch))
+        stack.enter_context(draw_shards(rows=mesh.rows(batch[0].shape[0] * mesh.batch.size)))
+        return stack
+
+    def _global(self, metrics: dict) -> dict:
+        """Detached metrics, N-RMSE's rows joined over the batch axes."""
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["N_RMSE"] = comm.batch_rows(out["N_RMSE"])
+        return out
+
     def train_step(self, batch: tuple, mode: str = "autoreg") -> dict:
         """One optimizer step; returns the metrics, detached, on the device."""
         self.opt.zero_grad(set_to_none=True)
-        loss, metrics = self.mode_loss(batch, mode)
-        loss.backward()
+        with self.on_mesh(batch):
+            loss, metrics = self.mode_loss(batch, mode)
+            loss.backward()
+            metrics = self._global(metrics)
+        sync_grads(self.model)
         self.opt.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     def val_rollout(self, batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """Predicted and target image sequences of ``val_step``'s rollout
@@ -140,8 +172,9 @@ class Trainer:
         pred_states = pred_states[:, :-1]
         states_img = patch_to_img(states, model.ds_props)
         mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()
-        loss, metrics = combined_loss(pred_states, states_img, mask_img, cfg.loss_function,
-                                      cfg.loss_weighting, cfg.pressure_weight)
-        metrics["loss"] = loss
-        metrics["N_RMSE"] = calc_n_rmse(pred_states, states_img, mask_img)
-        return metrics
+        with self.on_mesh(batch):
+            loss, metrics = combined_loss(pred_states, states_img, mask_img, cfg.loss_function,
+                                          cfg.loss_weighting, cfg.pressure_weight)
+            metrics["loss"] = loss
+            metrics["N_RMSE"] = calc_n_rmse(pred_states, states_img, mask_img)
+            return self._global(metrics)

@@ -31,6 +31,7 @@ import torch
 import yaml
 
 from fluid_llm_tpu.config import Config
+from fluid_llm_tpu_torch.config import ParallelConfig
 from fluid_llm_tpu.data.pipeline import make_batches as jmake_batches
 from fluid_llm_tpu.data.synthetic import SyntheticCylinderDataset as JSynthetic
 from fluid_llm_tpu.models.fluid_llm import FluidLLM as JFluidLLM
@@ -49,6 +50,7 @@ from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.models.lora import LoraAdapter, lora_linear
 from fluid_llm_tpu_torch.ops import exact_attention as xa
+from fluid_llm_tpu_torch.parallel.mesh import make_mesh
 from fluid_llm_tpu_torch.train import checkpoint as ckpt
 from fluid_llm_tpu_torch.train import losses, metrics
 from fluid_llm_tpu_torch.train.optim import build_optimizer, set_learning_rate
@@ -173,17 +175,24 @@ def test_optimizer_matches_optax(rng, name):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: pipeline parallelism and the
-    multi-process flags (adafactor, accumulation, notf and ``val_plot_dir``
-    are ported: ``tests/test_torch_surface.py``; ``frozen_bf16``, MoE and
-    ``llm_4bit_loading``: ``tests/test_torch_quant_train.py``,
-    ``tests/test_torch_moe.py``)."""
+    """What the port still refuses: the expert axis (``parallel.expert_axis
+    > 1``) and the multi-process flags without ``--distributed``; pipeline
+    parallelism over adapters raises the JAX package's guard (the parallel
+    axes are ported: ``tests/test_torch_parallel.py``,
+    ``test_torch_pipeline.py``, ``test_torch_ring.py``; adafactor,
+    accumulation, notf and ``val_plot_dir``: ``tests/test_torch_surface.py``;
+    ``frozen_bf16``, MoE and ``llm_4bit_loading``:
+    ``tests/test_torch_quant_train.py``, ``tests/test_torch_moe.py``)."""
     props = SyntheticCylinderDataset(n_trajectories=1, resolution=64, seq_len=SEQ_LEN).ds_props()
     FluidLLM.build(Config(**NO_DROPOUT, frozen_bf16=True), props, **TINY)
-    with pytest.raises(ValueError, match="pipe_axis"):
+    with pytest.raises(ValueError, match="full-FT"):
         FluidLLM.build(Config(**NO_DROPOUT, parallel={"pipe_axis": 2}), props, **TINY)
-    with pytest.raises(NotImplementedError):
-        tmain.main(["--distributed"])
+    FluidLLM.build(Config(**dict(NO_DROPOUT, use_lora=False), parallel={"pipe_axis": 2}), props,
+                   **TINY)
+    with pytest.raises(NotImplementedError, match="expert_axis"):
+        make_mesh(ParallelConfig(expert_axis=2))
+    with pytest.raises(SystemExit):
+        tmain.main(["--process_id", "0"])
 
 
 @pytest.fixture(scope="module")
