@@ -72,7 +72,8 @@ Phases, each printing one line per result; any failure exits nonzero:
                counters must read 11x251 (exact attention, layers 0..10)
                and 3x251 (slot attention, 3 GATv2 convs); outputs finite;
                prints mean N-RMSE, wall time, peak device memory and
-               rollout steps/s through the kernels and the twins in turns;
+               rollout steps/s through the kernels and the twins in turns
+               (each over a RATE_STEPS-step rollout);
 5. agreement -- a 10-step rollout through the kernels against the same
                rollout through the plain twins (selected explicitly):
                relative error of the diffs per step, step 1 <= REL_TOL;
@@ -110,7 +111,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                on phase 10's checkpoint (adapters merged, every backbone
                linear int8; w8a8 is the opt-in, w8a16 the default as in the
                JAX package; streaming auto-selected), ``serve`` on 127.0.0.1 in a
-               thread, ``warmup``; three 251-step ``POST /v1/rollout`` and
+               thread, ``warmup``; one 251-step ``POST /v1/rollout`` and
                one of 50 steps from 3 context frames, ``GET /v1/stats``.
                Launches over one 251-step request must read 7x12x252
                (w8a8: q, k, v, o, gate, up, down of every layer of every
@@ -120,8 +121,8 @@ Phases, each printing one line per result; any failure exits nonzero:
                <= REL_TOL); int8 vs dense engines of the checkpoint over 3
                steps (mean |diff| / mean |dense| < 0.05); prints latency,
                steps/s, p50, peak memory, the backbone's weight bytes dense
-               vs int8, and for 50-step requests of the int8 and the dense
-               engine in turns the wall time, device time, device ops and
+               vs int8, and for a 50-step request of the int8 and of the
+               dense engine the wall time, device time, device ops and
                idle share of each;
 12. serve exact -- ``load_engine(quant="int8", qmm_mode="w8a16",
                streaming="off")`` on phase 8's ``training1.yaml``
@@ -135,7 +136,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                graph, batch 4, 15 blocks at width 128): MeshGraphNet for 2
                epochs of one step, validation, the 101-step eval of 4 test
                trajectories (N-RMSE, CSV, checkpoint), then GAT (4 heads) for
-               1 epoch.  The segment gather and sum launches of each run
+               1 epoch and a 26-step eval.  The segment gather and sum launches of each run
                must equal the count from the code (MeshGraphNet: 188 and 180
                a train step, 3 200 and 1 500 a 101-step trajectory); on one
                batch, a step's launches, step ms through the kernels and the
@@ -210,8 +211,7 @@ Phases, each printing one line per result; any failure exits nonzero:
                through ``baselines_cli`` on synthetic cylinder grids at
                238x238 (1 epoch, the 101-step eval, finite N-RMSE, its
                step ms); GATNet one forward and backward
-               at the EAGLE edges, kernels vs twins.  Each of 17-22 prints
-               its seconds;
+               at the EAGLE edges, kernels vs twins;
 21. MoE and quantized backbones -- ``configs/moe_cylinder.yaml`` as
                published (OPT-125m width, 6 layers, 4 experts top-2, cf
                1.25, bf16): the 251-step exact rollout through
@@ -261,11 +261,11 @@ Phases, each printing one line per result; any failure exits nonzero:
                bit, 11x251 exact and 3x251 slot launches each;
                ``tools.parity_harness --synthetic`` on the card (finite,
                reference null) and ``tools.postln_probe`` for OPT-125m on
-               the CPU (finite R²); the phase's seconds;
+               the CPU (finite R²);
 23. parallel axes -- (a) ``python -m fluid_llm_tpu_torch.main --distributed
                --coordinator_address 127.0.0.1:<free port> --num_processes 1
                --process_id 0`` (one rank over nccl) on a copy of
-               ``training1.yaml`` with 2 epochs, against the same run
+               ``training1.yaml`` with 1 epoch, against the same run
                without ``--distributed``: logged losses, N-RMSE and launch
                counts equal bit for bit; (b) four ranks sharing the card
                over gloo (CUDA compute, collectives staged through host
@@ -279,18 +279,62 @@ Phases, each printing one line per result; any failure exits nonzero:
                stage, 0 under the ring; slot 3 and 3; w8a16 48 at N/2 or
                K/2), the ranks' weights the parent's draw, a checkpoint written
                on the mesh and restored on it and in one process, and the
-               251-step rollout of 2 trajectories on data 2 x model 2
-               (exact attention 11x251 a rank at H 6) against one process
+               25-step rollout of 2 trajectories on data 2 x model 2
+               (exact attention 11x25 a rank at H 6) against one process
                (step 1 REL_TOL); the ranks' times labelled as from ranks
-               sharing one card, not performance numbers; its seconds.
+               sharing one card, not performance numbers;
+24. expert axis and sharded serving -- inside phase 23's four ranks (their
+               start-up paid once), against one-process references the
+               parent writes first: (a) ``configs/moe_cylinder.yaml`` as
+               published (OPT-125m width, 6 layers, 4 experts top-2, cf
+               1.25, bf16, full fine-tuning) with its parallel keys set, one
+               step on expert 4, data 2 x expert 2, model 2 x expert 2 and
+               fsdp 2 x expert 2 (loss REL_TOL, gradient GRAD_TOL, moe_aux
+               REL_TOL; flash 6 a step a rank, at H 6 under model 2; slot 3
+               and 3; each rank's banks holding E/expert experts and its
+               model and fsdp chunks), one expert_choice step on expert 2
+               (aux 0), a checkpoint written on expert 4 and restored in one
+               process (every tensor's SHA-1 equal), the 25-step MoE rollout
+               of 4 trajectories on data 2 x expert 2 (exact attention 6x25,
+               slot 3x25 a rank; step 1 REL_TOL); (b)
+               ``configs/flagship_llama.yaml`` streamed 25 steps on data 2 x
+               model 2 (6 heads a rank; slab decode 12x26, slot 3x25; step 1
+               REL_TOL) and the slab decode at H 6 held to its twin on one
+               call's inputs of each rank; (c) ``tools.serve`` over the four
+               ranks with ``--quant int8`` (w8a16) on a flagship checkpoint
+               written with model 2 (data 2 x model 2): rank 0 serves over
+               HTTP, the others follow; ``/v1/info`` reports the mesh; a
+               25-step request within REL_TOL of the one-process int8
+               engine's reply, a second that fails on rank 1 before the
+               rollout's first collective (its streaming cache out of
+               memory) answered 500, a third equal to the first; w8a16
+               7x12x26, slab decode 12x26, slot 3x25 in each rank's
+               rollout; each rank's int8 storage equal bit for bit to
+               its cut of the one-process quantization; w8a16 at the eight
+               rank-local shapes (60 and 61 rows: 768->384, 384->768,
+               768->1024, 1024->768) with the grid rule's plan against the
+               twin (REL_TOL) and timed.  Every time of these ranks is of
+               ranks sharing one card, not a performance number.
 
-Phases 18 and 20 run 2 notf steps a remat setting and one timed step a
-turn (their launch counts, agreement checks and kernels-vs-twins steps
-as before).  Phases 8 to 13 share one temporary folder, removed at the
-end, phases 17 and 18 another, phase 20 a third, phase 21 a fourth,
-phase 22 a fifth and phase 23 a sixth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so
-``main`` there trains the seeded draw whatever the host has cached.  Phases 14
-to 16 roll out three turns each (kernels, twins, kernels).  An
+Depth cut to keep the run inside its time (every check and path kept):
+phases 18 and 20 run 2 notf steps a remat setting and one timed step a
+turn; phases 4, 9, 14 and 16 time one RATE_STEPS-step (101) rollout
+through the kernels and one through the twins where they timed 251-step
+ones (phases 4 and 9 three, then two; 14 and 16 two), and phases 14 and
+16 each layout once over RATE_STEPS where they timed 251 steps twice;
+phase 13's GAT evaluates 4 x 25 steps where it evaluated 4 x 100;
+``device_ms`` replays its graph 15 times where it replayed it 25; phase
+23 (a)'s process runs while (b)'s references are computed;
+phase 11 posts one 251-step request (three, then two) and times one
+50-step request of each engine (three, then two); phase 23 (a) trains 1
+epoch where it trained 2, and (b)'s rollout runs 25 steps where it ran
+251.  Every phase
+prints its seconds ("[name] phase seconds"), the run all of them at the
+end; ``--out`` writes them as ``phase_seconds``.  Phases 8 to 13 share
+one temporary folder, removed at the end, phases 17 and 18 another, phase
+20 a third, phase 21 a fourth, phase 22 a fifth and phases 23 and 24 a
+sixth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so ``main``
+there trains the seeded draw whatever the host has cached.  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
 the run then exits 1 without a result.
@@ -335,6 +379,7 @@ GRAD_TOL = 5e-2
 # sum differ from torch.logsumexp by rounding only; observed ~1e-6).
 LSE_TOL = 1e-4
 STEPS = 251
+RATE_STEPS = 101  # the timed rollouts' length (the per-step cost is flat by then)
 ROLLOUT_TOKENS = 11 * 60 + 1  # 10-frame window + see-init frame, 60 patches each, + BOS
 TRAIN_BS = 8
 TRAIN_TOKENS = 10 * 60 + 1  # 9 input frames + the see-init duplicate, 60 patches each, + BOS
@@ -344,7 +389,7 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def device_ms(fn, inner: int = 10, n: int = 25, stream=None) -> float:
+def device_ms(fn, inner: int = 10, n: int = 15, stream=None) -> float:
     """Device time of one call: ``inner`` calls captured in a CUDA graph,
     replayed ``n`` times between CUDA events; the median over ``inner``.
     The graph removes the host's launch gaps, which would otherwise be
@@ -1258,6 +1303,7 @@ def _short_attention_rows(dev, g: torch.Generator) -> list[dict]:
 # synthetic 84x42 mesh has 3 528 nodes and 20 348 directed edges, collated
 # to 3 529 and 20 480; batch 4
 EAGLE_MESH, EAGLE_BS, EAGLE_BLOCKS = "84x42", 4, 15
+EAGLE_GAT_EVAL = 26  # GAT's eval horizon in phase 13 (the CLI's default is 101)
 # f32 sums in another order than the twin's atomics (observed: a few 1e-8)
 SEGMENT_REL_TOL = 1e-6
 # bf16: the same f32 sums rounded once, so an element may round the other
@@ -1440,7 +1486,7 @@ def read_launches() -> dict:
 
 def phase_rollout(dev, seed: int, failures: list, *, streaming: bool, stacked: bool = False,
                   attn_impl: str = "auto", tag: str = "",
-                  turns: tuple = (True, False, False, True, True, False)) -> dict:
+                  turns: tuple = (True, False, False, True)) -> dict:
     """A 251-step rollout of one configuration with seeded random weights on
     ``synthetic:1`` at seq_len 253: the main path through the entry point
     (launch counts), steps/s through the kernels and the twins in ``turns``,
@@ -1506,14 +1552,14 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool, stacked: b
 
     # steady-state rate on a prepared batch, kernels and plain twins in turns
     rates = {True: [], False: []}
-    want_shape = (1, STEPS + 1, 3, *model.ds_props.out_tot_size)
+    want_shape = (1, RATE_STEPS + 1, 3, *model.ds_props.out_tot_size)
     for kernels in turns:
         model.kernels = kernels
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        states, _ = roll(model, batch, STEPS)
+        states, _ = roll(model, batch, RATE_STEPS)
         torch.cuda.synchronize()
-        rates[kernels].append(STEPS / (time.perf_counter() - t0))
+        rates[kernels].append(RATE_STEPS / (time.perf_counter() - t0))
         if tuple(states.shape) != want_shape or not bool(torch.isfinite(states).all()):
             failures.append(f"{tag} states {tuple(states.shape)} (want {want_shape}) or not "
                             f"finite (kernels {kernels})")
@@ -1552,12 +1598,12 @@ def phase_rollout(dev, seed: int, failures: list, *, streaming: bool, stacked: b
             failures.append(f"{tag} stacked vs unrolled step 1 rel {layout_errs[0]}")
         # the layouts' wall time in turns, kernels on: the stacked views' host cost
         rates_by = {"stacked": [], "unrolled": []}
-        for name in ("stacked", "unrolled", "unrolled", "stacked"):
+        for name in ("stacked", "unrolled"):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            roll(model if name == "stacked" else unrolled, batch, STEPS)
+            roll(model if name == "stacked" else unrolled, batch, RATE_STEPS)
             torch.cuda.synchronize()
-            rates_by[name].append(STEPS / (time.perf_counter() - t0))
+            rates_by[name].append(RATE_STEPS / (time.perf_counter() - t0))
         med = {k: statistics.median(v) for k, v in rates_by.items()}
         print(f"[{tag} layouts] {roll.__name__} in turns: stacked {med['stacked']:.2f} steps/s "
               f"(runs {', '.join(f'{r:.2f}' for r in rates_by['stacked'])}); unrolled "
@@ -1859,8 +1905,9 @@ def _client_frames(ds, n: int):
     return grid.numpy(), np.asarray(src.mask, np.uint8)
 
 
-def _post(base: str, states, mask, pred_steps: int):
-    """One ``POST /v1/rollout``: (prediction, response, wall seconds)."""
+def _post_status(base: str, states, mask, pred_steps: int):
+    """One ``POST /v1/rollout``: (HTTP status, reply)."""
+    import urllib.error
     import urllib.request
 
     from fluid_llm_tpu_torch.tools import serve as srv
@@ -1869,10 +1916,23 @@ def _post(base: str, states, mask, pred_steps: int):
                        "mask": srv._b64(mask), "pred_steps": pred_steps}).encode()
     req = urllib.request.Request(f"{base}/v1/rollout", data=body,
                                  headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+def _post(base: str, states, mask, pred_steps: int):
+    """One ``POST /v1/rollout`` that must succeed: (prediction, response,
+    wall seconds)."""
+    from fluid_llm_tpu_torch.tools import serve as srv
+
     t0 = time.perf_counter()
-    with urllib.request.urlopen(req, timeout=600) as r:
-        out = json.load(r)
+    code, out = _post_status(base, states, mask, pred_steps)
     wall = time.perf_counter() - t0
+    if code != 200:
+        raise RuntimeError(f"POST /v1/rollout answered {code}: {out}")
     return srv._unb64(out["states"], out["shape"], "float32"), out, wall
 
 
@@ -1919,8 +1979,6 @@ def phase_serve(dev, failures: list, runs: str) -> dict:
         launches = read_launches()
         res["peak_mem_mib"] = torch.cuda.max_memory_allocated() / 2**20
         lat = [wall]
-        for _ in range(2):
-            lat.append(_post(base, grid[:1], mask, STEPS)[2])
         pred3, _, wall3 = _post(base, grid, mask, 50)
         with urllib.request.urlopen(f"{base}/v1/stats", timeout=60) as r:
             stats = json.load(r)
@@ -1939,10 +1997,11 @@ def phase_serve(dev, failures: list, runs: str) -> dict:
     ok = (launches == want and pred.shape == (STEPS, 3, *grid.shape[-2:])
           and pred3.shape == (50, 3, *grid.shape[-2:]) and bool(np.isfinite(pred).all())
           and bool(np.isfinite(pred3).all()) and in_units and eng.streaming
-          and stats["requests"] == 4 and stats["errors"] == 0)
+          and stats["requests"] == len(lat) + 1 and stats["errors"] == 0)
     print(f"[serve] load_engine(quant=int8, w8a8) of {runs}: streaming {eng.streaming}, "
           f"{bcfg.n_layers} layers at d {bcfg.d_model}, loaded in {res['load_s']:.1f} s, warm-up "
-          f"(buckets 50 and {STEPS}) {res['warmup_s']:.1f} s; 3 requests of {STEPS} steps in "
+          f"(buckets 50 and {STEPS}) {res['warmup_s']:.1f} s; {len(lat)} requests of {STEPS} "
+          f"steps in "
           f"{', '.join(f'{x:.3f}' for x in lat)} s ({', '.join(f'{STEPS / x:.2f}' for x in lat)} "
           f"steps/s, over HTTP incl. the response); 50 steps from 3 context frames in "
           f"{wall3:.3f} s; /v1/stats latency {stats.get('latency_ms')}, by program "
@@ -1970,11 +2029,10 @@ def phase_serve(dev, failures: list, runs: str) -> dict:
     dense.warmup()
     engines = {"int8": eng, "dense": dense}
     walls = {k: [] for k in engines}
-    for _ in range(3):
-        for k, e in engines.items():
-            t0 = time.perf_counter()
-            e.request(grid[:1], mask, 50)
-            walls[k].append((time.perf_counter() - t0) * 1e3)
+    for k, e in engines.items():
+        t0 = time.perf_counter()
+        e.request(grid[:1], mask, 50)
+        walls[k].append((time.perf_counter() - t0) * 1e3)
     prof = {}
     for k, e in engines.items():
         wall50 = statistics.median(walls[k])
@@ -2238,7 +2296,8 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     """``baselines_cli.main`` at the EAGLE geometry (synthetic 84x42 mesh,
     batch 4, 15 blocks at width 128): MeshGraphNet for 2 epochs of one
     step on 4 trajectories, validation, the 101-step eval of 4 test
-    trajectories, checkpoint and CSV; GAT (4 heads) for 1 epoch.  The
+    trajectories, checkpoint and CSV; GAT (4 heads) for 1 epoch and a
+    26-step eval (EAGLE_GAT_EVAL).  The
     segment launches of each run must match the count from the code.  Then,
     on one MeshGraphNet batch: the launches of one train step, step ms
     through the kernels and the twins in turns, the device profile, and one
@@ -2250,9 +2309,11 @@ def phase_graph_baselines(dev, seed: int, failures: list, tmp: str) -> dict:
     common = ["--dataset_path", "synthetic", "--mesh_nodes", EAGLE_MESH,
               "--batch_size", str(EAGLE_BS), "--n_processor", str(EAGLE_BLOCKS),
               "--n_traj", "4", "--device", str(dev), "--save_dir", os.path.join(tmp, "baselines")]
-    res = {name: run_graph_cli(["--model", name, "--epoch", str(epochs)] + common,
+    # GAT's eval cut to 25 steps (EAGLE_GAT_EVAL): 21 steps/s at this geometry
+    res = {name: run_graph_cli(["--model", name, "--epoch", str(epochs)] + extra + common,
                                "graph baselines", failures)
-           for name, epochs in (("mgn", 2), ("gat", 1))}
+           for name, epochs, extra in (("mgn", 2, []),
+                                       ("gat", 1, ["--horizon_eval", str(EAGLE_GAT_EVAL)]))}
 
     # one MeshGraphNet batch: a step's launches, step ms, profile, agreement
     args = cli.parse_args(["--model", "mgn"] + common)
@@ -3943,6 +4004,23 @@ PARALLEL_CASES = (
 PARALLEL_REFS = {"dora": ({}, {}, None), "full": ({"use_lora": False}, {"dropout": 0.0}, None),
                  "int8": ({}, {}, "int8")}
 PARALLEL_LABEL = "ranks sharing one card, host-staged collectives; not performance numbers"
+# phase 23 (b)'s rollout on data 2 x model 2 (251 steps until the expert
+# axis took its time: its check reads step 1)
+PARALLEL_STEPS = 25
+# phase 24 (a): moe_cylinder.yaml's step on each mesh, against one process
+EXPERT_CASES = (
+    ("expert 4", {"expert_axis": 4}, "topk"),
+    ("data 2 x expert 2", {"expert_axis": 2}, "topk"),
+    ("model 2 x expert 2", {"model_axis": 2, "expert_axis": 2}, "topk"),
+    ("fsdp 2 x expert 2", {"fsdp_axis": 2, "expert_axis": 2}, "topk"),
+    ("expert_choice, expert 2", {"expert_axis": 2}, "expert_choice"),
+)
+# the rollouts of phase 24 and its served request
+EXPERT_STEPS = 25
+# w8a16 at the flagship's linears cut over model 2 (q, k, v; o; gate, up;
+# down), the decode step's 60 rows and the prefill's 61
+W8A16_RANK_SHAPES = [(M, K, N) for M in (60, 61)
+                     for K, N in ((768, 384), (384, 768), (768, 1024), (1024, 768))]
 # the entry-point driver of phase 23 (a): in one process, for each argument
 # list of the JSON argv[1], ``python -m fluid_llm_tpu_torch.main`` (runpy, as
 # the module's __main__), then its launch counters printed
@@ -3963,18 +4041,20 @@ def _parallel_cfg(seed: int, par: dict | None = None, **repl):
     return cfg.replace(parallel=ParallelConfig(**(par or {})))
 
 
-def _one_step(trainer, batch, seed: int) -> float:
-    """One step's loss and its trainable gradients (summed over the mesh's
-    ranks), no optimizer step: ``phase_train_agreement``'s step."""
+def _one_step(trainer, batch, seed: int) -> tuple[float, float | None]:
+    """One step's loss and balance loss (``moe_aux``, None for a dense
+    model) and its trainable gradients (summed over the mesh's ranks), no
+    optimizer step: ``phase_train_agreement``'s step."""
     from fluid_llm_tpu_torch.parallel.mesh import sync_grads
 
     trainer.model.zero_grad(set_to_none=True)
     trainer.generator.manual_seed(seed)
     with trainer.on_mesh(batch):
-        loss, _ = trainer.mode_loss(batch, "autoreg")
+        loss, metrics = trainer.mode_loss(batch, "autoreg")
         loss.backward()
     sync_grads(trainer.model)
-    return loss.item()
+    aux = metrics.get("moe_aux")
+    return loss.item(), None if aux is None else aux.item()
 
 
 def _grad_distance(model, ref: dict) -> tuple[float, float]:
@@ -4061,7 +4141,7 @@ def parallel_rank(rank: int, folder: str) -> None:
         torch.cuda.synchronize()
         reset_launches()
         t0 = time.perf_counter()
-        loss = _one_step(trainer, batch, seed)
+        loss, _ = _one_step(trainer, batch, seed)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = _nonzero(read_launches())
@@ -4092,11 +4172,12 @@ def parallel_rank(rank: int, folder: str) -> None:
         torch.cuda.empty_cache()
     cfg = _parallel_cfg(seed, {"model_axis": 2}).replace(load_dir="synthetic:2")
     model = inference.build_seeded_model(cfg, seed, dev)
-    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    test_ds = get_dataset(cfg.replace(seq_len=PARALLEL_STEPS + 2), mode="test")
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    per_step, mean = inference.test_generate(model, test_ds, batch_size=2, pred_steps=STEPS)
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=2,
+                                             pred_steps=PARALLEL_STEPS)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     per_rank = [None] * PARALLEL_RANKS
@@ -4104,6 +4185,9 @@ def parallel_rank(rank: int, folder: str) -> None:
     out["rollout"] = dict(per_step=[float(x) for x in per_step], mean=mean, per_rank=per_rank,
                           mesh=model.mesh.shape, heads=model.backbone.parallel.cfg.n_heads)
     out["backend"] = spec["backend"]
+    del model
+    torch.cuda.empty_cache()
+    out["expert"] = expert_rank(rank, folder, dev, seed, world)
     if rank == 0:
         torch.save(out, os.path.join(folder, "result.pt"))
     launch.finish()
@@ -4117,34 +4201,51 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _entry_runs(argvs: list, tmp: str) -> tuple[list, float]:
-    """``python -m fluid_llm_tpu_torch.main argv`` for each of ``argvs``, one
-    after the other in a process of its own (ENTRY_DRIVER): each run's
-    logged metrics and launch counts, and the process's seconds."""
+def _entry_runs(argvs: list, tmp: str):
+    """Start ``python -m fluid_llm_tpu_torch.main argv`` for each of
+    ``argvs``, one after the other in a process of its own (ENTRY_DRIVER),
+    and return ``collect``: ``collect()`` waits for the process and gives
+    each run's logged metrics and launch counts, and the process's seconds;
+    ``collect(kill=True)`` ends it."""
     jls = [os.path.join(tmp, f"entry{i}.jsonl") for i in range(len(argvs))]
     argvs = [a + ["--metrics_jsonl", jl] for a, jl in zip(argvs, jls)]
     root = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", ENTRY_DRIVER, json.dumps(argvs)], cwd=root,
-                          capture_output=True, text=True, timeout=300)
-    secs = time.perf_counter() - t0
-    if proc.returncode:
-        raise RuntimeError(f"main exited {proc.returncode}: {proc.stderr[-3000:]}")
-    counts = [json.loads(x[len("LAUNCHES "):]) for x in proc.stdout.splitlines()
-              if x.startswith("LAUNCHES ")]
-    runs = []
-    for jl, launches in zip(jls, counts):
-        with open(jl) as f:
-            runs.append(([json.loads(x) for x in f], launches))
-    return runs, secs
+    proc = subprocess.Popen([sys.executable, "-c", ENTRY_DRIVER, json.dumps(argvs)], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def collect(kill: bool = False) -> tuple[list, float]:
+        if kill:
+            proc.kill()
+            proc.communicate()
+            return [], time.perf_counter() - t0
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise
+        secs = time.perf_counter() - t0
+        if proc.returncode:
+            raise RuntimeError(f"main exited {proc.returncode}: {stderr[-3000:]}")
+        counts = [json.loads(x[len("LAUNCHES "):]) for x in stdout.splitlines()
+                  if x.startswith("LAUNCHES ")]
+        runs = []
+        for jl, launches in zip(jls, counts):
+            with open(jl) as f:
+                runs.append(([json.loads(x) for x in f], launches))
+        return runs, secs
+
+    return collect
 
 
 def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     """Phase 23, the parallel axes.  (a) ``main --distributed`` with the
     three flags on one rank over nccl, against the same run without
     ``--distributed``: the logged losses and N-RMSE and the launch counts
-    equal bit for bit.  (b) Four ranks sharing the card over gloo, CUDA
-    compute and host-staged collectives (nccl refuses two ranks on one
+    equal bit for bit, in a process that runs while this one computes
+    (b)'s one-process references.  (b) Four ranks sharing the card over
+    gloo, CUDA compute and host-staged collectives (nccl refuses two ranks on one
     device), at the full width of ``training1.yaml``: one step each on
     data 2 x model 2, fsdp 2 x model 2, pipe 2 (full fine-tuning,
     backbone dropout 0, 4 microbatches) and ring attention over model 2
@@ -4169,16 +4270,28 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     os.makedirs(tmp, exist_ok=True)
     # (a) one rank over nccl through the entry point
     cfg_path = os.path.join(tmp, "entry.yaml")
-    _parallel_cfg(seed).replace(num_epochs=2, save_on=False).to_yaml(cfg_path)
+    _parallel_cfg(seed).replace(num_epochs=1, save_on=False).to_yaml(cfg_path)
     base = ["--config_path", cfg_path, "--device", "cuda"]
-    (plain, dist_run), secs = _entry_runs(
+    collect = _entry_runs(
         [base, base + ["--distributed", "--coordinator_address", f"127.0.0.1:{_free_port()}",
                        "--num_processes", "1", "--process_id", "0"]], tmp)
+    # (b)'s one-process references while (a)'s process runs; then four
+    # ranks on the card, which also run phase 24 (their start-up paid once)
+    folder = os.path.join(tmp, "ranks")
+    try:
+        refs = parallel_references(dev, seed, folder)
+        t0 = time.perf_counter()
+        expert_refs = expert_references(dev, seed, folder, failures)
+        expert_s = time.perf_counter() - t0
+    except BaseException:
+        collect(kill=True)
+        raise
+    (plain, dist_run), secs = collect()
     ok_a = plain[0] == dist_run[0] and plain[1] == dist_run[1] and \
         dist_run[1]["flash_attention_fwd"] > 0
     res["entry"] = dict(plain=plain[0], distributed=dist_run[0], launches=_nonzero(plain[1]),
                         launches_distributed=_nonzero(dist_run[1]), seconds=secs)
-    print(f"[parallel] (a) main, 2 epochs of training1.yaml on synthetic:{TRAIN_BS}, without "
+    print(f"[parallel] (a) main, 1 epoch of training1.yaml on synthetic:{TRAIN_BS}, without "
           f"--distributed then with --distributed --num_processes 1 over nccl, in one process "
           f"of {secs:.1f} s; train loss {[m['train/Autoreg/loss'] for m in plain[0]]} / "
           f"{[m['train/Autoreg/loss'] for m in dist_run[0]]}; logs equal bit for bit "
@@ -4187,9 +4300,6 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     if not ok_a:
         failures.append(f"parallel (a): logs or launches differ: {res['entry']}")
 
-    # (b) the one-process references, then four ranks on the card
-    folder = os.path.join(tmp, "ranks")
-    refs = parallel_references(dev, seed, folder)
     backend = "gloo"
     torch.save({"seed": seed, "backend": backend, "device": str(dev)},
                os.path.join(folder, "spec.pt"))
@@ -4197,9 +4307,23 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     got = spawn_ranks([sys.executable, os.path.abspath(__file__)], folder)
     ranks_s = time.perf_counter() - t0
     ok_b = check_parallel(dev, seed, folder, got, refs, res, failures)
-    res.update(ranks_s=ranks_s, backend=backend, phase_s=time.perf_counter() - t_phase)
-    print(f"[parallel] (b) four ranks over {backend} in {ranks_s:.1f} s, start-up included "
-          f"({PARALLEL_LABEL}) {'ok' if ok_b else 'FAIL'}")
+    # phase 24: its references, the ranks' share, its checks
+    t0 = time.perf_counter()
+    expert = {}
+    ok_24 = check_expert(dev, seed, folder, got["expert"], expert_refs, expert, failures)
+    ranks_24 = got["expert"]["a_s"] + got["expert"]["b_s"] + got["expert"]["c_s"]
+    expert_s += ranks_24 + time.perf_counter() - t0
+    expert.update(refs_and_checks_s=expert_s - ranks_24, ranks_s=ranks_24,
+                  parts_s={k: got["expert"][k] for k in ("a_s", "b_s", "c_s")},
+                  phase_s=expert_s)
+    res.update(ranks_s=ranks_s, backend=backend, expert=expert,
+               phase_s=time.perf_counter() - t_phase - expert_s)
+    print(f"[parallel] (b) four ranks over {backend} in {ranks_s:.1f} s, start-up and phase 24's "
+          f"{ranks_24:.1f} s on rank 0 included ({PARALLEL_LABEL}) {'ok' if ok_b else 'FAIL'}")
+    print(f"[expert axis and sharded serving] phase seconds {expert_s:.1f} (rank 0: (a) "
+          f"{got['expert']['a_s']:.1f}, (b) {got['expert']['b_s']:.1f}, (c) "
+          f"{got['expert']['c_s']:.1f}; references and checks "
+          f"{expert_s - ranks_24:.1f}) {'ok' if ok_24 else 'FAIL'}")
     return res
 
 
@@ -4225,7 +4349,7 @@ def parallel_references(dev, seed: int, folder: str) -> dict:
                    os.path.join(folder, f"state_{key}.pt"))  # the ranks' weights
         batch = next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
         reset_launches()
-        loss = _one_step(trainer, batch, seed)
+        loss, _ = _one_step(trainer, batch, seed)
         out[f"{key}_launches"] = _nonzero(read_launches())
         grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()
                  if p.grad is not None}
@@ -4239,9 +4363,9 @@ def parallel_references(dev, seed: int, folder: str) -> dict:
             torch.cuda.empty_cache()
     cfg = _parallel_cfg(seed).replace(load_dir="synthetic:2")
     model = inference.build_seeded_model(cfg, seed, dev)
-    test_ds = get_dataset(cfg.replace(seq_len=STEPS + 2), mode="test")
+    test_ds = get_dataset(cfg.replace(seq_len=PARALLEL_STEPS + 2), mode="test")
     steps, out["roll_mean"] = inference.test_generate(model, test_ds, batch_size=2,
-                                                      pred_steps=STEPS)
+                                                      pred_steps=PARALLEL_STEPS)
     out["roll_steps"] = [float(x) for x in steps]
     return out
 
@@ -4323,13 +4447,13 @@ def check_parallel(dev, seed: int, folder: str, got: dict, refs: dict, res: dict
     roll = got["rollout"]
     # entry 0 is the context state itself (N-RMSE 0 on both); steps 1..251
     rel = [abs(a - b) / abs(b) for a, b in zip(roll["per_step"][1:], ref_steps[1:])]
-    want_roll = dict(exact_attention=11 * STEPS, grid_slot_attention=3 * STEPS)
+    want_roll = dict(exact_attention=11 * PARALLEL_STEPS, grid_slot_attention=3 * PARALLEL_STEPS)
     roll_ok = rel[0] <= REL_TOL and all(pr["launches"] == want_roll for pr in roll["per_rank"]) \
         and all(math.isfinite(x) for x in roll["per_step"]) and roll["heads"] == 6
     res["rollout"] = dict(per_step=roll["per_step"], ref_per_step=[float(x) for x in ref_steps],
                           rel=rel, mean=roll["mean"], ref_mean=ref_mean, mesh=roll["mesh"],
                           per_rank=roll["per_rank"])
-    print(f"[parallel] (b) rollout on {roll['mesh']}, 2 trajectories x {STEPS} steps, "
+    print(f"[parallel] (b) rollout on {roll['mesh']}, 2 trajectories x {PARALLEL_STEPS} steps, "
           f"{roll['heads']} heads a rank: mean N-RMSE {roll['mean']:.5f} vs one process "
           f"{ref_mean:.5f}; per-step rel difference step 1 {rel[0]:.3e} (bound {REL_TOL}), "
           f"steps 1-10 max {max(rel[:10]):.3e}, all {max(rel):.3e}; launches per rank "
@@ -4339,6 +4463,467 @@ def check_parallel(dev, seed: int, folder: str, got: dict, refs: dict, res: dict
     if not (ok_b and ck_ok and roll_ok):
         failures.append(f"parallel (b): steps {ok_b}, checkpoint {ck_ok}, rollout {roll_ok}")
     return ok_b and ck_ok and roll_ok
+
+
+# -- phase 24: the expert axis and sharded serving ---------------------------
+
+
+def _moe_cfg(seed: int, par: dict | None = None, router: str = "topk", **repl):
+    """``configs/moe_cylinder.yaml`` as published, its parallel keys ``par``
+    and its router ``router``."""
+    import dataclasses
+
+    from fluid_llm_tpu_torch.config import Config, ParallelConfig
+
+    cfg = Config.from_yaml(MOE).replace(load_dir=f"synthetic:{TRAIN_BS}", seed=seed, **repl)
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, router=router))
+    return cfg.replace(parallel=ParallelConfig(**(par or {})))
+
+
+def _flagship_cfg(seed: int, par: dict | None = None):
+    from fluid_llm_tpu_torch.config import Config, ParallelConfig
+
+    cfg = Config.from_yaml(FLAGSHIP).replace(load_dir="synthetic:2", seed=seed)
+    return cfg.replace(parallel=ParallelConfig(**(par or {})))
+
+
+def _digest(state: dict) -> dict:
+    """A SHA-1 of every tensor's bytes (a checkpoint compared bit for bit
+    without moving it)."""
+    import hashlib
+
+    return {n: hashlib.sha1(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                            .numpy().tobytes()).hexdigest() for n, t in state.items()}
+
+
+def _model_cut(whole: torch.Tensor, like: torch.Tensor, index: int) -> torch.Tensor:
+    """Chunk ``index`` of ``whole`` along the one dim where ``like`` (a
+    rank's tensor) is smaller: a tensor cut over the model axis."""
+    if whole.shape == like.shape:
+        return whole
+    d = next(i for i, (a, b) in enumerate(zip(like.shape, whole.shape)) if a != b)
+    return whole.narrow(d, index * like.shape[d], like.shape[d])
+
+
+def _gather(obj, n: int) -> list:
+    import torch.distributed as dist
+
+    parts = [None] * n
+    dist.all_gather_object(parts, obj)
+    return parts
+
+
+def expert_rank(rank: int, folder: str, dev, seed: int, world) -> dict:
+    """Phase 24 on one of phase 23's ranks (their start-up paid once).
+    (a) ``moe_cylinder.yaml``: one step on each mesh of EXPERT_CASES, a
+    checkpoint written on expert 4, the EXPERT_STEPS-step rollout of 4
+    trajectories on data 2 x expert 2; (b) ``flagship_llama.yaml`` streamed
+    on data 2 x model 2, one slab-decode call's inputs kept; (c)
+    ``tools.serve`` over the four ranks (data 2 x model 2, int8) on the
+    parent's flagship checkpoint: rank 0 serves over HTTP, the others
+    follow; one follower's streaming cache is out of memory once.  Every
+    time here is of ranks sharing one card."""
+    import threading
+
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.ops import decode_attention as da
+    from fluid_llm_tpu_torch.parallel import comm
+    from fluid_llm_tpu_torch.parallel.mesh import full_state_dict, shard_batch
+    from fluid_llm_tpu_torch.tools import serve as srv
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    n = PARALLEL_RANKS
+    out = {}
+    t_a = time.perf_counter()
+    for name, par, router in EXPERT_CASES:
+        t0 = time.perf_counter()
+        cfg = _moe_cfg(seed, par, router)
+        ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+        trainer = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False)
+        model = trainer.model
+        setup_s = time.perf_counter() - t0
+        batch = shard_batch(next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev)),
+                            model.mesh)
+        ref = torch.load(os.path.join(folder, f"ref_moe_{router}.pt"), weights_only=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, aux = _one_step(trainer, batch, seed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _nonzero(read_launches())
+        sums = comm.all_reduce(torch.tensor(_grad_distance(model, ref["grads"]),
+                                            dtype=torch.float64, device=dev), world).tolist()
+        banks = {k: tuple(b.weight.shape)
+                 for k, b in model.backbone.layers[0].mlp.experts.items()}
+        per_rank = _gather(dict(launches=launches, seconds=secs, setup_s=setup_s,
+                                rows=tuple(batch[0].shape), banks=banks,
+                                coords=model.mesh.coords), n)
+        res = dict(loss=loss, ref_loss=ref["loss"], aux=aux, ref_aux=ref["aux"],
+                   grad_rel=math.sqrt(sums[0] / sums[1]), per_rank=per_rank,
+                   mesh=model.mesh.shape, heads=model.backbone.parallel.cfg.n_heads)
+        if name == "expert 4":  # the checkpoint: written here, read in one process
+            trainer.opt.step()
+            ckpt.save_checkpoint(os.path.join(folder, "moe_runs"), 0, model, trainer.opt, 0, cfg)
+            res["digest"] = _digest(full_state_dict(model))
+        out[name] = res
+        del trainer, model, ref
+        torch.cuda.empty_cache()
+    cfg = _moe_cfg(seed, {"expert_axis": 2}).replace(load_dir="synthetic:4")
+    model = inference.build_seeded_model(cfg, seed, dev)
+    test_ds = get_dataset(cfg.replace(seq_len=EXPERT_STEPS + 2), mode="test")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=4,
+                                             pred_steps=EXPERT_STEPS)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["moe rollout"] = dict(per_step=[float(x) for x in per_step], mean=mean,
+                              mesh=model.mesh.shape,
+                              per_rank=_gather(dict(launches=_nonzero(read_launches()),
+                                                    seconds=secs), n))
+    del model
+    torch.cuda.empty_cache()
+    out["a_s"] = time.perf_counter() - t_a
+
+    # (b) the flagship streamed on data 2 x model 2
+    t_b = time.perf_counter()
+    model = inference.build_seeded_model(_flagship_cfg(seed, {"model_axis": 2}), seed, dev)
+    test_ds = get_dataset(model.cfg.replace(seq_len=EXPERT_STEPS + 2), mode="test")
+    real, calls, kept = da.slab_decode, [], {}
+
+    def slab_decode(*args):
+        calls.append(1)
+        if len(calls) == model.backbone_cfg.n_layers + 1:  # layer 0 of the first decode
+            kept["args"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        return real(*args)
+
+    torch.cuda.synchronize()
+    with mock.patch.object(da, "slab_decode", slab_decode):
+        # the kernel counts on the module's name: the wrapper while patched
+        reset_launches()
+        t0 = time.perf_counter()
+        per_step, mean = inference.test_generate(model, test_ds, batch_size=2,
+                                                 pred_steps=EXPERT_STEPS, streaming=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = _nonzero(read_launches())
+    # the kept call against its twin, on this rank's heads (after the count)
+    args = kept["args"]
+    got_k = real(*args)
+    want_k = da.slab_decode_ref(*args)
+    rel = rel_err(got_k, want_k)
+    ms, plain_ms = device_ms(lambda: real(*args)), device_ms(lambda: da.slab_decode_ref(*args))
+    q, ck, cv, key_pos, _, li, _ = args  # the bytes of layer li's slabs, the scores' products
+    keys = ck.shape[2] * ck.shape[3]
+    slab_bound = bound(nbytes(q, ck[li], cv[li], key_pos, got_k),
+                       4 * q.shape[0] * q.shape[1] * keys * q.shape[2], "bf16")
+    out["streaming"] = dict(
+        per_step=[float(x) for x in per_step], mean=mean, mesh=model.mesh.shape,
+        heads=model.backbone.parallel.cfg.n_heads,
+        per_rank=_gather(dict(launches=launches, seconds=secs, slab_rel=rel, slab_ms=ms,
+                              slab_plain_ms=plain_ms, slab_bound=slab_bound,
+                              q=tuple(args[0].shape), cache=tuple(args[1].shape)), n))
+    del model, kept, args
+    torch.cuda.empty_cache()
+    out["b_s"] = time.perf_counter() - t_b
+
+    # (c) the daemon over the four ranks
+    t_c = time.perf_counter()
+    t0 = time.perf_counter()
+    eng = srv.load_engine(os.path.join(folder, "flagship_runs"), buckets=(EXPERT_STEPS,),
+                          quant="int8", device=str(dev))
+    load_s = time.perf_counter() - t0
+    coords = eng.model.mesh.coords
+    whole = torch.load(os.path.join(folder, "quant_storage.pt"), weights_only=True)
+    mine = {k: t for k, t in eng.model.state_dict().items() if k.endswith((".q", ".scale"))}
+    storage_ok = mine.keys() == whole.keys() and all(
+        torch.equal(t.cpu(), _model_cut(whole[k], t, coords["model"])) for k, t in mine.items())
+    del whole
+    rollouts, host = [], eng._rollout_host
+
+    def counted(*a, **kw):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = host(*a, **kw)
+        torch.cuda.synchronize()
+        rollouts.append(dict(launches=_nonzero(read_launches()),
+                             seconds=time.perf_counter() - t0))
+        return res
+
+    eng._rollout_host = counted
+    replies = []
+    if rank == 1:  # its third streaming cache (warm-up, request, this) is out of memory
+        cache, made = eng._cache, []
+
+        def failing(*a):
+            made.append(1)
+            if len(made) == 3:
+                raise torch.cuda.OutOfMemoryError("the streaming cache did not fit on this "
+                                                  "rank's device (chip_smoke phase 24's fault)")
+            return cache(*a)
+
+        eng._cache = failing
+    if eng.lead:
+        httpd = srv.serve(eng, "127.0.0.1", 0)
+        server = threading.Thread(target=httpd.serve_forever, daemon=True)
+        server.start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            eng.warmup()
+            grid, mask = _client_frames(eng.dataset, 1)
+            import urllib.request
+
+            with urllib.request.urlopen(f"{base}/v1/info", timeout=60) as r:
+                replies.append((200, json.load(r)))
+            for _ in range(3):
+                t0 = time.perf_counter()
+                code, body = _post_status(base, grid, mask, EXPERT_STEPS)
+                replies.append((code, body, time.perf_counter() - t0))
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            server.join()
+            eng.stop()
+    else:
+        eng.follow()
+    per_rank = _gather(dict(rollouts=rollouts, storage_ok=storage_ok, n_storage=len(mine),
+                            load_s=load_s, coords=coords,
+                            heads=eng.model.backbone.parallel.cfg.n_heads), n)
+    out["serve"] = dict(replies=replies, per_rank=per_rank, mesh=eng.model.mesh.shape)
+    del eng
+    torch.cuda.empty_cache()
+    out["c_s"] = time.perf_counter() - t_c
+    return out
+
+
+def _w8a16_rank_shapes(dev, failures: list) -> list[dict]:
+    """w8a16 at the flagship's rank-local shapes under model 2
+    (W8A16_RANK_SHAPES, no bias): the plan the grid rule picks
+    (``quant_matmul.plan``) against the twin, both timed."""
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import quant
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+    g = torch.Generator().manual_seed(18)
+    sms = _build.sm_count(dev)
+    rows = []
+    for M, K, N in W8A16_RANK_SHAPES:
+        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+        q, scale = qp["q"].to(dev), qp["scale"].to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        out = qmm.qmm_w8a16(x, q, scale, None)
+        ref = qmm.int8_matmul_ref(x, q, scale, None, "w8a16")
+        rel = rel_err(out, ref)
+        ms = device_ms(lambda: qmm.qmm_w8a16(x, q, scale, None))
+        plain_ms = device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, None, "w8a16"))
+        rows.append(dict(M=M, K=K, N=N, plan=qmm.plan(M, K, N, sms), rel=rel, ms=ms,
+                         plain_ms=plain_ms, **bound(nbytes(x, q, scale, out), 2 * M * K * N,
+                                                    "bf16")))
+        if not rel <= REL_TOL:
+            failures.append(f"expert (c): w8a16 at M {M} K {K} N {N}: rel {rel}")
+    print("[expert axis] (c) w8a16 at the rank-local shapes of model 2, the grid rule's plan "
+          "(token tile, K split) vs the twin: " + "; ".join(
+              f"({r['M']}, {r['K']}, {r['N']}) plan {r['plan']} rel {r['rel']:.2e} "
+              f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']})" for r in rows))
+    return rows
+
+
+def expert_references(dev, seed: int, folder: str, failures: list) -> dict:
+    """Phase 24's one-process references, written for the ranks where they
+    read them: one MoE step of each router (loss, balance loss, gradients),
+    the EXPERT_STEPS-step MoE rollout of 4 trajectories, the flagship's
+    streamed rollout of 2, a flagship checkpoint (``config.yaml`` with model
+    2) and the one-process int8 engine on it (its reply to the request, its
+    int8 storage); w8a16 at the ranks' shapes."""
+    from fluid_llm_tpu_torch import inference
+    from fluid_llm_tpu_torch.data import get_dataset, make_batches
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.tools import serve as srv
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    out = {}
+    for router in ("topk", "expert_choice"):
+        cfg = _moe_cfg(seed, None, router)
+        ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+        trainer = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False)
+        batch = next(make_batches(ds, TRAIN_BS, shuffle=True, seed=0, device=dev))
+        reset_launches()
+        loss, aux = _one_step(trainer, batch, seed)
+        out[f"{router}_launches"] = _nonzero(read_launches())
+        grads = {n: p.grad.float().cpu() for n, p in trainer.model.named_parameters()
+                 if p.grad is not None}
+        torch.save({"loss": loss, "aux": aux, "grads": grads},
+                   os.path.join(folder, f"ref_moe_{router}.pt"))
+        del trainer, grads
+        torch.cuda.empty_cache()
+    cfg = _moe_cfg(seed, {"expert_axis": 2}).replace(load_dir="synthetic:4")
+    model = inference.build_seeded_model(cfg, seed, dev)
+    test_ds = get_dataset(cfg.replace(seq_len=EXPERT_STEPS + 2), mode="test")
+    steps, out["moe_mean"] = inference.test_generate(model, test_ds, batch_size=4,
+                                                     pred_steps=EXPERT_STEPS)
+    out["moe_steps"] = [float(x) for x in steps]
+    del model
+    model = inference.build_seeded_model(_flagship_cfg(seed), seed, dev)
+    test_ds = get_dataset(model.cfg.replace(seq_len=EXPERT_STEPS + 2), mode="test")
+    steps, out["stream_mean"] = inference.test_generate(model, test_ds, batch_size=2,
+                                                        pred_steps=EXPERT_STEPS, streaming=True)
+    out["stream_steps"] = [float(x) for x in steps]
+    del model
+    cfg = _flagship_cfg(seed, {"model_axis": 2})
+    ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    trainer = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False)
+    runs = os.path.join(folder, "flagship_runs")
+    ckpt.save_checkpoint(ckpt.make_save_folder(runs), 0, trainer.model, trainer.opt, 0, cfg)
+    del trainer
+    one = srv.load_engine(runs, buckets=(EXPERT_STEPS,), quant="int8", device=str(dev))
+    grid, mask = _client_frames(one.dataset, 1)
+    out["serve_want"] = one.predict(grid, mask, EXPERT_STEPS)
+    torch.save({k: t.cpu() for k, t in one.model.state_dict().items()
+                if k.endswith((".q", ".scale"))}, os.path.join(folder, "quant_storage.pt"))
+    del one
+    torch.cuda.empty_cache()
+    out["w8a16"] = _w8a16_rank_shapes(dev, failures)
+    return out
+
+
+def check_expert(dev, seed: int, folder: str, got: dict, refs: dict, res: dict,
+                 failures: list) -> bool:
+    """Phase 24's checks of the ranks' results against the one-process
+    ``refs``, recorded in ``res``, printed."""
+    import numpy as np
+
+    from fluid_llm_tpu_torch.data import get_dataset
+    from fluid_llm_tpu_torch.main import build_model_and_trainer
+    from fluid_llm_tpu_torch.tools import serve as srv
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    label = PARALLEL_LABEL
+    ok_all = True
+    n_layers = 6  # moe_cylinder.yaml's
+    for name, par, router in EXPERT_CASES:
+        r = got[name]
+        ep, m = r["mesh"].get("expert", 1), r["mesh"].get("model", 1)
+        loss_rel = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        aux_ok = (r["aux"] == 0.0 and r["ref_aux"] == 0.0) if router == "expert_choice" else \
+            abs(r["aux"] - r["ref_aux"]) <= REL_TOL * abs(r["ref_aux"])
+        want = dict(flash_attention_fwd=n_layers, flash_attention_dq=n_layers,
+                    flash_attention_dkv=n_layers, grid_slot_attention=3,
+                    grid_slot_attention_bwd=3)
+        counts_ok = all(pr["launches"] == want for pr in r["per_rank"])
+        # each rank's banks: its E / expert experts, its model columns or rows
+        f = r["mesh"].get("fsdp", 1)
+        banks_ok = all(pr["banks"] == {"fc1": (4 // ep, 3072 // m, 768 // f),
+                                       "fc2": (4 // ep, 768 // f, 3072 // m)}
+                       for pr in r["per_rank"])
+        ok = (loss_rel <= REL_TOL and r["grad_rel"] <= GRAD_TOL and aux_ok and counts_ok
+              and banks_ok and r["heads"] == 12 // m)
+        ok_all &= ok
+        res[name] = dict(loss=r["loss"], ref_loss=r["ref_loss"], loss_rel=loss_rel,
+                         aux=r["aux"], ref_aux=r["ref_aux"], grad_rel=r["grad_rel"],
+                         mesh=r["mesh"], heads=r["heads"], per_rank=r["per_rank"],
+                         want_launches=want)
+        print(f"[expert axis] (a) {name} {r['mesh']}, {r['heads']} heads and banks "
+              f"{r['per_rank'][0]['banks']} a rank: loss {r['loss']:.6f} vs one process "
+              f"{r['ref_loss']:.6f} (rel {loss_rel:.3e}, bound {REL_TOL}); moe_aux "
+              f"{r['aux']} vs {r['ref_aux']}; trainable gradient rel L2 {r['grad_rel']:.3e} "
+              f"(bound {GRAD_TOL}); launches per rank {[pr['launches'] for pr in r['per_rank']]} "
+              f"(want {want}); banks per rank {[pr['banks']['fc1'] for pr in r['per_rank']]}; "
+              f"set-up s {[round(pr['setup_s'], 2) for pr in r['per_rank']]}, step s "
+              f"{[round(pr['seconds'], 3) for pr in r['per_rank']]} ({label}) "
+              f"{'ok' if ok else 'FAIL'}")
+    # the checkpoint of expert 4, in one process
+    cfg = _moe_cfg(seed)
+    ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
+    one = build_model_and_trainer(cfg, ds.ds_props(), dev, pretrained=False)
+    ckpt.restore_checkpoint(os.path.join(folder, "moe_runs"), 0, one.model, one.opt)
+    ck_ok = _digest(one.model.state_dict()) == got["expert 4"]["digest"]
+    del one
+    print(f"[expert axis] (a) checkpoint written on expert 4, restored in one process: "
+          f"{len(got['expert 4']['digest'])} tensors bit for bit {'ok' if ck_ok else 'FAIL'}")
+    # the MoE rollout
+    roll = got["moe rollout"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(roll["per_step"][1:], refs["moe_steps"][1:])]
+    want_roll = dict(exact_attention=n_layers * EXPERT_STEPS, grid_slot_attention=3 * EXPERT_STEPS)
+    roll_ok = rel[0] <= REL_TOL and all(pr["launches"] == want_roll for pr in roll["per_rank"]) \
+        and all(math.isfinite(x) for x in roll["per_step"])
+    res["moe rollout"] = dict(per_step=roll["per_step"], ref_per_step=refs["moe_steps"], rel=rel,
+                              mesh=roll["mesh"], per_rank=roll["per_rank"])
+    print(f"[expert axis] (a) MoE rollout on {roll['mesh']}, 4 trajectories x {EXPERT_STEPS} "
+          f"steps: mean N-RMSE {roll['mean']:.5f} vs one process {refs['moe_mean']:.5f}; per-step "
+          f"rel difference step 1 {rel[0]:.3e} (bound {REL_TOL}), all {max(rel):.3e}; launches "
+          f"per rank {[pr['launches'] for pr in roll['per_rank']]} (want {want_roll}); rollout s "
+          f"{[round(pr['seconds'], 2) for pr in roll['per_rank']]} ({label}) "
+          f"{'ok' if roll_ok else 'FAIL'}")
+    # (b) streaming
+    st = got["streaming"]
+    rel_s = [abs(a - b) / abs(b) for a, b in zip(st["per_step"][1:], refs["stream_steps"][1:])]
+    want_s = dict(slab_decode_attention=12 * (EXPERT_STEPS + 1),
+                  grid_slot_attention=3 * EXPERT_STEPS)
+    st_ok = (rel_s[0] <= REL_TOL and st["heads"] == 6
+             and all(pr["launches"] == want_s and pr["slab_rel"] <= REL_TOL
+                     for pr in st["per_rank"]))
+    res["streaming"] = dict(per_step=st["per_step"], ref_per_step=refs["stream_steps"],
+                            rel=rel_s, mesh=st["mesh"], per_rank=st["per_rank"])
+    print(f"[expert axis] (b) flagship_llama.yaml streamed on {st['mesh']}, {st['heads']} heads "
+          f"a rank, 2 trajectories x {EXPERT_STEPS} steps: mean N-RMSE {st['mean']:.5f} vs one "
+          f"process {refs['stream_mean']:.5f}; step 1 rel {rel_s[0]:.3e} (bound {REL_TOL}), all "
+          f"{max(rel_s):.3e}; launches per rank {[pr['launches'] for pr in st['per_rank']]} "
+          f"(want {want_s}); slab decode at q {st['per_rank'][0]['q']}, cache "
+          f"{st['per_rank'][0]['cache']} vs its twin on each rank's inputs: rel "
+          f"{[f'{pr['slab_rel']:.2e}' for pr in st['per_rank']]}, "
+          f"{[round(pr['slab_ms'], 4) for pr in st['per_rank']]} ms (twin "
+          f"{[round(pr['slab_plain_ms'], 4) for pr in st['per_rank']]}, bound "
+          f"{st['per_rank'][0]['slab_bound']}); rollout s "
+          f"{[round(pr['seconds'], 2) for pr in st['per_rank']]} ({label}) "
+          f"{'ok' if st_ok else 'FAIL'}")
+    # (c) the daemon
+    sv = got["serve"]
+    info, first, failed, again = sv["replies"]
+    pred = lambda body: srv._unb64(body["states"], body["shape"], "float32")
+    served_ok = first[0] == 200 and again[0] == 200 and failed[0] == 500
+    rel_c = None
+    if served_ok:
+        want = refs["serve_want"]
+        rel_c = float(np.linalg.norm(pred(first[1]) - want) / np.linalg.norm(want))
+        served_ok = rel_c <= REL_TOL and np.array_equal(pred(again[1]), pred(first[1]))
+    lead = sv["per_rank"][0]["rollouts"]
+    want_c = dict(quant_matmul_w8a16=7 * 12 * (EXPERT_STEPS + 1),
+                  slab_decode_attention=12 * (EXPERT_STEPS + 1),
+                  grid_slot_attention=3 * EXPERT_STEPS)
+    # warm-up, the request, the next one (the failed batch ran no rollout)
+    counts_ok = all(len(pr["rollouts"]) == 3 and all(x["launches"] == want_c
+                                                     for x in pr["rollouts"])
+                    for pr in sv["per_rank"])
+    storage_ok = all(pr["storage_ok"] for pr in sv["per_rank"])
+    info_ok = info[1].get("mesh") == sv["mesh"] and info[1].get("ranks") == PARALLEL_RANKS
+    serve_ok = served_ok and counts_ok and storage_ok and info_ok
+    res["serve"] = dict(codes=[first[0], failed[0], again[0]], rel=rel_c,
+                        error=failed[1].get("error"), per_rank=sv["per_rank"],
+                        wall_s=[first[2], failed[2], again[2]], want_launches=want_c,
+                        info=info[1], w8a16=refs["w8a16"])
+    print(f"[expert axis] (c) tools.serve --quant int8 over {PARALLEL_RANKS} ranks on "
+          f"{sv['mesh']}, {sv['per_rank'][0]['heads']} heads a rank: /v1/info mesh "
+          f"{info[1].get('mesh')}; replies {first[0]}, {failed[0]} ({failed[1].get('error')}), "
+          f"{again[0]}; the {EXPERT_STEPS}-step reply vs the one-process int8 engine rel "
+          f"{rel_c} (bound {REL_TOL}), the third equal to the first "
+          f"{served_ok}; int8 storage of every rank equal to its cut of the one-process "
+          f"quantization: {storage_ok} ({sv['per_rank'][0]['n_storage']} tensors a rank); "
+          f"launches of the request's rollout per rank "
+          f"{[(pr['rollouts'][1:2] or [{}])[0].get('launches') for pr in sv['per_rank']]} "
+          f"(want {want_c}); request wall s {[round(x[2], 2) for x in (first, failed, again)]}, "
+          f"rollout s on rank 0 {[round(x['seconds'], 2) for x in lead]}, load s "
+          f"{[round(pr['load_s'], 1) for pr in sv['per_rank']]} ({label}) "
+          f"{'ok' if serve_ok else 'FAIL'}")
+    if not (ok_all and ck_ok and roll_ok and st_ok and serve_ok):
+        failures.append(f"expert axis: steps {ok_all}, checkpoint {ck_ok}, MoE rollout "
+                        f"{roll_ok}, streaming {st_ok}, serve {serve_ok}")
+    return ok_all and ck_ok and roll_ok and st_ok and serve_ok
 
 
 def main(argv=None) -> int:
@@ -4355,6 +4940,7 @@ def main(argv=None) -> int:
     if args.parallel_rank is not None:  # one rank of phase 23 (b), started by the phase
         parallel_rank(args.parallel_rank, args.parallel_dir)
         return 0
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 matmuls in full f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -4364,9 +4950,13 @@ def main(argv=None) -> int:
     no_cache = tempfile.TemporaryDirectory()
     os.environ["HF_HUB_CACHE"] = no_cache.name
 
+    seconds: dict[str, float] = {}  # every phase's, by name
+
     def phase(name: str, fn, *a, **kw):
         """``fn``'s result, or None after recording its exception as a
-        failure of the phase (the run goes on, and exits 1)."""
+        failure of the phase (the run goes on, and exits 1); its seconds
+        kept and printed."""
+        t0 = time.perf_counter()
         try:
             return fn(*a, **kw)
         except Exception as e:  # noqa: BLE001 -- each phase reports, the run goes on
@@ -4374,12 +4964,16 @@ def main(argv=None) -> int:
             failures.append(f"phase {name} raised {type(e).__name__}: {e}")
             print(f"[{name}] FAIL: raised {type(e).__name__}: {e}")
             return None
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            print(f"[{name}] phase seconds {seconds[name]:.1f}")
 
     device = phase("device", phase_device)
     build_s = phase("build", phase_build)
     rows = phase("kernels", phase_kernels, dev, failures) or []
     plans = phase("plans", phase_plans, dev, failures)
-    slice_res = phase("slice", phase_rollout, dev, args.seed, failures, streaming=False)
+    slice_res = phase("slice", phase_rollout, dev, args.seed, failures, streaming=False,
+                      turns=(True, False))
     trained = phase("train", phase_train, dev, args.seed, failures)
     train_res = train_agree = None
     if trained is not None:
@@ -4390,7 +4984,8 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:  # phases 8-13: checkpoints, served again
         opt_dir, flagship_dir = os.path.join(tmp, "training1"), os.path.join(tmp, "flagship")
         entry_res = phase("entry points", phase_entry_points, dev, args.seed, failures, opt_dir)
-        stream_res = phase("streaming", phase_rollout, dev, args.seed, failures, streaming=True)
+        stream_res = phase("streaming", phase_rollout, dev, args.seed, failures, streaming=True,
+                           turns=(True, False))
         flagship_res = phase("flagship entry points", phase_flagship_entry_points, dev,
                              args.seed, failures, flagship_dir)
         serve_res = phase("serve", phase_serve, dev, failures, os.path.join(flagship_dir, "runs"))
@@ -4400,7 +4995,7 @@ def main(argv=None) -> int:
                           tmp)
     stacked_res = phase("stacked streaming", phase_rollout, dev, args.seed, failures,
                         streaming=True, stacked=True, tag="stacked streaming",
-                        turns=(True, False, True))
+                        turns=(True, False))
     short_train = short_agree = None
     trained = phase("short train", phase_train, dev, args.seed, failures, attn_impl="short",
                     per_turn=2)
@@ -4410,27 +5005,15 @@ def main(argv=None) -> int:
                             args.seed, failures, "short train agreement")
         del trainer, train_batch, trained
     short_res = phase("short rollout", phase_rollout, dev, args.seed, failures, streaming=False,
-                      stacked=True, attn_impl="short", tag="short rollout",
-                      turns=(True, False, True))
-    seconds = {}
+                      stacked=True, attn_impl="short", tag="short rollout", turns=(True, False))
     with tempfile.TemporaryDirectory() as tmp:  # phases 17-18: the pickles
-        for key, name, fn, extra in (("published", "published data", phase_published_data, ()),
-                                     ("notf", "notf train", phase_notf, (2,))):
-            t0 = time.perf_counter()
-            seconds[key] = (phase(name, fn, dev, args.seed, failures, tmp, *extra),
-                            time.perf_counter() - t0)
-            print(f"[{name}] phase seconds {seconds[key][1]:.1f}")
-    t0 = time.perf_counter()
-    seconds["switches"] = (phase("switches", phase_switches, dev, args.seed, failures),
-                           time.perf_counter() - t0)
-    print(f"[switches] phase seconds {seconds['switches'][1]:.1f}")
-    t0 = time.perf_counter()
+        published_res = phase("published data", phase_published_data, dev, args.seed, failures,
+                              tmp)
+        notf_res = phase("notf train", phase_notf, dev, args.seed, failures, tmp, 2)
+    switch_res = phase("switches", phase_switches, dev, args.seed, failures)
     with tempfile.TemporaryDirectory() as tmp:  # phase 20: checkpoints, read again
-        seconds["graph2"] = (phase("graph baselines II", phase_graph_baselines_2, dev, args.seed,
-                                   failures, tmp), time.perf_counter() - t0)
-    print(f"[graph baselines II] phase seconds {seconds['graph2'][1]:.1f}")
-    published_res, notf_res, switch_res, graph2_res = (
-        seconds[k][0] for k in ("published", "notf", "switches", "graph2"))
+        graph2_res = phase("graph baselines II", phase_graph_baselines_2, dev, args.seed,
+                           failures, tmp)
     t0 = time.perf_counter()
     moe_res = {}
     with tempfile.TemporaryDirectory() as tmp:  # phase 21: the MoE checkpoint, served again
@@ -4441,18 +5024,18 @@ def main(argv=None) -> int:
                               ("quant_train", "quant train", phase_quant_train),
                               ("stacked_int8", "stacked int8", phase_stacked_int8)):
             moe_res[key] = phase(name, fn, dev, args.seed, failures, tmp)
-    seconds["moe"] = (moe_res, time.perf_counter() - t0)
-    print(f"[moe and quantized backbones] phase seconds {seconds['moe'][1]:.1f}")
-    t0 = time.perf_counter()
+    seconds["moe and quantized backbones"] = time.perf_counter() - t0
+    print(f"[moe and quantized backbones] phase seconds "
+          f"{seconds['moe and quantized backbones']:.1f}")
     with tempfile.TemporaryDirectory() as tmp:  # phase 22: the HF cache, runs, a reference .pt
         weights_res = phase("weights in and out", phase_weights, dev, args.seed, failures, tmp)
-    seconds["weights"] = (weights_res, time.perf_counter() - t0)
-    print(f"[weights in and out] phase seconds {seconds['weights'][1]:.1f}")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:  # phase 23: YAML, references, ranks' files
+    with tempfile.TemporaryDirectory() as tmp:  # phases 23-24: YAML, references, ranks' files
         parallel_res = phase("parallel axes", phase_parallel, dev, args.seed, failures, tmp)
-    seconds["parallel"] = (parallel_res, time.perf_counter() - t0)
-    print(f"[parallel axes] phase seconds {seconds['parallel'][1]:.1f}")
+    if parallel_res is not None:  # phase 24 ran inside phase 23's ranks: its own seconds
+        seconds["expert axis and sharded serving"] = parallel_res["expert"]["phase_s"]
+        seconds["parallel axes"] -= parallel_res["expert"]["phase_s"]
+    seconds["total"] = time.perf_counter() - t_start
+    print(f"[chip_smoke] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
@@ -4467,8 +5050,7 @@ def main(argv=None) -> int:
                            short_rollout=short_res, published_data=published_res,
                            notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
                            moe_and_quantized=moe_res, weights=weights_res,
-                           parallel=parallel_res,
-                           phase_seconds={k: v[1] for k, v in seconds.items()},
+                           parallel=parallel_res, phase_seconds=seconds,
                            failures=failures),
                       f, indent=1, default=str)
     if failures:

@@ -5,7 +5,7 @@ defaults and checks, so one YAML file parses to the same values in both
 packages (``tests/test_torch_config.py`` holds them equal).  The port keeps
 its own copy so that it, and ``chip_smoke.py``, import nothing of the JAX
 package.  The ``parallel`` keys lay out the rank mesh of a multi-process
-run (``parallel/mesh.py``; ``expert_axis > 1`` is refused there).
+run (``parallel/mesh.py``).
 :func:`check_moe` holds the MoE
 keys to the JAX package's guards (``models/fluid_llm.py:52-77``).
 """
@@ -104,7 +104,8 @@ class ParallelConfig:
     """The rank mesh of a multi-process run (``main --distributed``;
     ``parallel/mesh.py``): data, FSDP and tensor (model) axes, pipeline
     stages, sequence-sharded activations and ring attention over the model
-    axis; ``remat`` also on one process.  The expert axis is not ported."""
+    axis, and the expert axis of a MoE backbone; ``remat`` also on one
+    process."""
 
     data_axis: int = -1
     model_axis: int = 1

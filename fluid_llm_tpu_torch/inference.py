@@ -32,14 +32,17 @@ point restores its Orbax ones.  Without it, the model is built from
 With ``--distributed`` (``parallel/launch.py``) the model is cut to this
 rank's part of its config's mesh and the checkpoint restored onto it
 (``fluid_llm_tpu/inference.py:145-160``); trajectories split over the
-batch axes and the heads over the model axis, and rank 0 reports the
-N-RMSE of every trajectory.  The streaming rollout runs on one rank.
+batch axes (data, fsdp and expert) and the heads over the model axis, a
+MoE backbone's experts over the expert axis, and rank 0 reports the N-RMSE
+of every trajectory.  Both rollouts, exact and ``--streaming``, run so;
+the streaming one not over pipeline stages.
 """
 
 from __future__ import annotations
 
 import argparse
 import csv
+import datetime
 import logging
 import os
 import sys
@@ -132,21 +135,23 @@ def build_seeded_model(cfg: Config, seed: int, device: torch.device,
 
 
 def load_checkpoint_model(load_path: str, step: int, device: torch.device,
-                          quant: str | None = None, qmm_mode: str = "w8a16") -> FluidLLM:
+                          quant: str | None = None, qmm_mode: str = "w8a16",
+                          timeout: datetime.timedelta | None = None) -> FluidLLM:
     """The model of run folder ``load_path`` at ``step_<step>``, prepared
     for inference on ``device`` (``fluid_llm_tpu/inference.py:138-161``);
     ``quant``/``qmm_mode``: quantized backbone storage (serving,
     ``FluidLLM.prepare_inference_params``; a MoE backbone's expert banks
     too).  A run trained over an nf4 frozen backbone restores into an nf4
     template (``FluidLLM.quantize_frozen``); its adapters merge into the
-    dequantised weights."""
+    dequantised weights.  ``timeout``: the wait of the mesh's collectives
+    (``parallel/mesh.make_mesh``)."""
     cfg = ckpt.load_config(load_path)
     probe_ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="valid")
     model = FluidLLM.build(cfg, probe_ds.ds_props())
     model.quantize_frozen()
     model.to(device)
     if dist.is_initialized():  # restored onto this rank's part of the run's mesh
-        shard_model(model, make_mesh(cfg.parallel))
+        shard_model(model, make_mesh(cfg.parallel, timeout=timeout))
     ckpt.restore_checkpoint(load_path, step, model)
     model.prepare_inference_params(quant, qmm_mode)
     return model.eval()

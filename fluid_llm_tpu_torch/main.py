@@ -19,9 +19,9 @@ LoRA/DoRA or ``freeze_llm`` as packed nf4 with ``llm_4bit_loading``
 ``--distributed`` (with ``--coordinator_address``, ``--num_processes`` and
 ``--process_id``, or under torchrun) runs one process a device over the
 mesh of the config's ``parallel`` keys: data, fsdp and tensor (model)
-axes, pipeline stages, sequence-sharded activations and ring attention
-(``parallel/launch.py``, ``parallel/mesh.py``; ``fluid_llm_tpu/main.py:
-136-170``).  Every rank draws the same weights and keeps its part; rank 0
+axes, pipeline stages, sequence-sharded activations and ring attention,
+and a MoE backbone's expert axis (``parallel/launch.py``,
+``parallel/mesh.py``; ``fluid_llm_tpu/main.py:136-170``).  Every rank draws the same weights and keeps its part; rank 0
 logs and writes the checkpoints::
 
     torchrun --nproc_per_node 4 -m fluid_llm_tpu_torch.main --distributed \\

@@ -75,7 +75,10 @@ a block runs its share of the heads between the Megatron pairs of
 ``parallel/tensor.py`` (tensor parallelism), its tokens' chunk
 (``seq_shard``: sequence parallelism, or ring attention,
 ``parallel/ring_attention.py``), or the backbone runs as a pipeline stage
-(``parallel/pipeline.py``).  The streaming decode runs on one rank.
+(``parallel/pipeline.py``).  The streaming decode runs on a
+data/fsdp/model mesh (its heads over the model axis), not over pipeline
+stages; a MoE MLP sends its tokens to the rank of their expert over the
+expert axis (:func:`moe_mlp`).
 """
 
 from __future__ import annotations
@@ -466,15 +469,33 @@ def moe_mlp(h: torch.Tensor, mlp: MoEMLP, cfg: "BackboneConfig",
     dequantised, ``scale[..., None]``).  A dropped token (past its expert's
     capacity) gets no MLP contribution: the residual carries it.
     ``capacity_tokens``: the token count ``C`` is sized by, where padding
-    must not inflate it."""
+    must not inflate it.
+
+    On a mesh (``parallel/mesh.shard_model``): with an expert axis
+    (``mlp.ep``, its group) each rank holds ``E/ep`` experts and routes its
+    own rows (routing and capacity are per sequence, so as one process
+    would); the per-expert inputs (E, b, C, d) go to their expert's rank by
+    an all-to-all, which hands each rank (E/ep, ep*b, C, d): every rank's
+    rows for its own banks (the JAX ``shardings[0]`` constraint,
+    ``backbone.py:530-540``), and the outputs come back by the reverse one.
+    Under tensor parallelism (the banks' ``tp``) the banks hold this rank's
+    columns of fc1/gate/up and rows of fc2/down, between the Megatron pair
+    (the input through ``comm.copy_to``, the output summed by
+    ``comm.reduce_from``, fc2's bias added once, after)."""
     dt = h.dtype
     logits = F.linear(h.float(), mlp.router.weight.float())
     r = moe_route(logits, cfg, valid, capacity_tokens)
     xin = torch.einsum("bld,blec->ebcd", h, r.dispatch.to(dt))
     ex = mlp.experts
+    ep = getattr(mlp, "ep", None)
+    tp = pt.tp_of(next(iter(ex.values())))
+    g = None if tp is None else tp.group
+    xin = comm.copy_to(comm.all_to_all(xin, ep, 0, 1), g)
 
     def ffn(x, name):
         y = torch.einsum("ebci,eoi->ebco", x, linear_weight(ex[name], dt))
+        if name in ("fc2", "down"):
+            y = comm.reduce_from(y, g)
         b = ex[name].bias
         return y if b is None else y + b.to(dt)[:, None, None, :]
 
@@ -482,8 +503,22 @@ def moe_mlp(h: torch.Tensor, mlp: MoEMLP, cfg: "BackboneConfig",
         out = ffn(F.silu(ffn(xin, "gate")) * ffn(xin, "up"), "down")
     else:
         out = ffn(_act(ffn(xin, "fc1"), cfg.act), "fc2")
+    out = comm.all_to_all(out, ep, 1, 0)
     out = torch.einsum("ebcd,blec->bld", out, r.combine.to(out.dtype))
     return out.to(dt), r.aux
+
+
+def moe_whole_tokens(h, mlp: MoEMLP, cfg: "BackboneConfig", valid_full: torch.Tensor,
+                     capacity_tokens: Optional[int], g: comm.Group):
+    """A MoE MLP under Megatron sequence parallelism (``h`` this rank's chunk
+    of the tokens over ``g``, the model axis): routing and capacity couple
+    the tokens of a sequence, so every rank gathers the whole sequence,
+    runs :func:`moe_mlp` on it (its banks' columns between their Megatron
+    pair, so the sequence's gradient comes out equal on every rank and each
+    keeps its chunk) and keeps its chunk of the output; the balance loss is
+    computed alike on every rank."""
+    out, aux = moe_mlp(comm.gather_split(h, g, 1), mlp, cfg, valid_full, capacity_tokens)
+    return comm.split_gather(out, g, 1), aux
 
 
 class _LayerOps:
@@ -949,17 +984,18 @@ class Backbone(nn.Module):
         (the column-parallel linears gather the tokens,
         ``comm.tokens_sharded``).  Ring: attention is ``parallel/
         ring_attention.py``'s over the chunks, rope tables cut alike, and a
-        MoE MLP routes the whole sequence (``ring_attention.moe_mlp``)."""
+        MoE MLP routes the whole sequence (``ring_attention.moe_mlp``; under
+        Megatron sequence parallelism :func:`moe_whole_tokens`)."""
         from fluid_llm_tpu_torch.parallel import ring_attention as ring
 
         g = self.parallel.seq
         Lp = valid_i32.shape[1]
+        valid_full = valid_i32.bool()
         x = comm.split_gather(torch.cat([x, x.new_zeros(x.shape[0], Lp - L, x.shape[2])], 1),
                               g, 1)
         n = Lp // g.size
         tokens = (g.index * n, (g.index + 1) * n, L, Lp)
         if self.parallel.ring:
-            valid_full = valid_i32.bool()
             valid_i32 = comm.chunk(valid_i32, g, 1).contiguous()
             rope = None if rope is None else tuple(comm.chunk(t, g, 1) for t in rope)
             attend = ring.ring_attend(g, lcfg.dtype)
@@ -968,6 +1004,8 @@ class Backbone(nn.Module):
             def context():
                 return draw_shards(tokens=tokens)
         else:
+            moe = lambda h, mlp: moe_whole_tokens(h, mlp, lcfg, valid_full, capacity_tokens, g)
+
             def context():
                 stack = ExitStack()
                 stack.enter_context(comm.tokens_sharded(g))
@@ -1271,12 +1309,19 @@ def apply_streaming(
     routing reads a token's own hidden state, so it composes with the
     cache, but capacity is per decode chunk (``C`` from ``Ln``) and
     expert_choice picks among the chunk's tokens; aux is unused.
+
+    On a tensor-parallel mesh each rank holds its share of the heads: the
+    cache (``init_streaming_cache`` of ``backbone.parallel.cfg``) keeps its
+    ``kv_dim / model`` columns, the decode runs at its heads, and o and
+    down are followed by the sum over the model axis, as in the exact
+    path (``models.common.linear``).  Pipeline stages are refused.
     """
-    cfg = backbone.cfg
     par = backbone.parallel
-    if par is not None and (par.cfg != cfg or par.pipe is not None):
-        raise NotImplementedError("streaming decode on a tensor- or pipeline-parallel mesh "
-                                  "(sharded serving) is not ported: serve on one rank")
+    if par is not None and par.pipe is not None:
+        raise NotImplementedError("streaming decode over pipeline stages is not ported: serve "
+                                  "on a data/fsdp/model mesh (the JAX package gathers the "
+                                  "stacked layers there)")
+    cfg = backbone.cfg if par is None else par.cfg  # this rank's heads on a TP mesh
     if cfg.pos != "rope":
         raise ValueError("streaming decode requires rotary positions (llama family); "
                          f"backbone family {cfg.family!r} uses {cfg.pos!r} positions")

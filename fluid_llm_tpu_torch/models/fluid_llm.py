@@ -151,10 +151,12 @@ class FluidLLM(nn.Module):
         the activation dtype (``backbone.cast_matmul_params``); last, with
         ``stack_layers`` or ``FLUID_SCAN_LAYERS=1`` in the environment, the
         stacked layout (``backbone.stack_layers``).  The order of
-        ``tools/serve.py:442-457``; exact without ``quant``."""
-        if quant is not None and getattr(self, "mesh", None) is not None and self.mesh.world > 1:
-            raise NotImplementedError("quantized serving on a rank mesh (sharded serving) is not "
-                                      "ported: serve on one rank")
+        ``tools/serve.py:442-457``; exact without ``quant``.  On a rank mesh
+        (``parallel/mesh.shard_model``) the adapters merge into this rank's
+        part, each linear is quantized from its whole weight and cut again
+        (merge, quantize, cut, as ``fluid_llm_tpu/tools/serve.py:442-456``;
+        ``ops/quant._stored``), and the stacked layout of a tensor-parallel
+        backbone is refused, as the JAX entry points never stack on a mesh."""
         bb.unstack_layers(self.backbone)
         if self.lora is not None:
             merge_lora(self.backbone, self.lora)

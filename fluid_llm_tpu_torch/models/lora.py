@@ -178,7 +178,13 @@ def merge_lora(backbone: nn.Module, lora: Lora) -> None:
                         dense.bias.copy_(lin.bias)
                     dense.requires_grad_(False)
                     if pt.tp_of(lin) is not None:  # w_eff holds this rank's features
-                        dense.tp = pt.TP(lin.tp.kind, lin.tp.group)
+                        g = lin.tp.group
+                        dense.tp = pt.TP(lin.tp.kind, g)
+                        # its cut, for what gathers it whole (serving's quantization)
+                        dense.shards = {"weight": ((0 if lin.tp.kind == "col" else 1,
+                                                    "model", g),)}
+                        if getattr(lin, "shards", {}).get("bias"):
+                            dense.shards["bias"] = lin.shards["bias"]
                     getattr(layer, group)[name] = lin = dense
                 for d, axis, g in getattr(lin, "shards", {}).get("weight", ()):
                     if axis == "fsdp":  # stored as this rank's fsdp chunk

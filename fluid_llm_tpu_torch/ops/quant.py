@@ -34,6 +34,8 @@ the MoE router stays float.  :func:`dequantize_backbone` undoes it and
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import torch
 from torch import nn
@@ -252,27 +254,81 @@ def _backbone_linears(backbone: nn.Module):
 
 
 @torch.no_grad()
+def _stored(lin: nn.Module, nf4: bool, qmm_mode: str) -> nn.Module:
+    """``lin`` (an ``nn.Linear`` or an ``ExpertBank``) stored quantized:
+    nf4 if asked and its whole weight packs, else int8.
+
+    On a rank mesh (``parallel/mesh.shard_model``'s marks: ``lin.shards``,
+    ``lin.tp``) the weight is gathered whole and quantized whole, then cut
+    again, as the JAX package quantizes its whole weight and ``param_specs``
+    places the storage: int8 ``q`` like the weight, ``scale`` like its
+    output (and expert) dims, so a row-parallel linear's scales come from
+    the whole K, equal on the model ranks; nf4 storage stays whole on every
+    rank (its absmax blocks span rows) and is cut to this rank's features
+    at use.  The bias keeps its cut.  A cut int8 linear whose rank-local
+    shape the w8a16 kernel does not take, though it takes the whole one,
+    raises (no fallback to the dequantised product)."""
+    from fluid_llm_tpu_torch.parallel.mesh import full_tensor, local_tensor
+    from fluid_llm_tpu_torch.parallel.tensor import TP
+
+    marks = getattr(lin, "shards", {})
+    tp = getattr(lin, "tp", None)
+    cut = bool(marks.get("weight")) or tp is not None
+    w = full_tensor(lin, "weight", lin.weight) if cut else lin.weight
+    # nf4 where the whole weight packs (an expert bank never: int8)
+    nf4 = nf4 and w.dim() == 2 and w.shape[0] % 2 == 0 and w.numel() % NF4_BLOCK == 0
+    if not cut:
+        return NF4Linear.from_linear(lin) if nf4 else QuantLinear.from_linear(lin, qmm_mode)
+    # the bias is set after, still cut
+    whole = types.SimpleNamespace(weight=w, bias=None, in_features=w.shape[-1],
+                                  out_features=w.shape[-2])
+    if nf4:
+        out = NF4Linear.from_linear(whole)
+        if tp is not None:
+            out.tp = TP(tp.kind, tp.group, narrow=True)
+    else:
+        from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+        stored = QuantLinear.from_linear(whole, qmm_mode)
+        w_marks = marks.get("weight", ())
+        s_marks = tuple(mk for mk in w_marks if mk[0] < w.dim() - 1)
+        with torch.device("meta"):
+            out = QuantLinear(lin.in_features, lin.out_features, lin.bias is not None, qmm_mode)
+        out.shards = {"q": w_marks, "scale": s_marks}
+        out.q = local_tensor(out, "q", stored.q).clone()
+        out.scale = local_tensor(out, "scale", stored.scale).clone()
+        if tp is not None:
+            out.tp = TP(tp.kind, tp.group)
+        if w.dim() == 2 and qmm.supported(w.shape[1], w.shape[0]) \
+                and not qmm.supported(lin.in_features, lin.out_features):
+            raise ValueError(f"int8 linear: the w8a16 kernel takes the whole {tuple(w.shape)} "
+                             f"weight but not this rank's ({lin.out_features}, "
+                             f"{lin.in_features})")
+    if lin.bias is not None:  # this rank's bias, cut as it was
+        out.bias = lin.bias.detach().float().clone()
+        if marks.get("bias"):
+            out.shards = {**getattr(out, "shards", {}), "bias": marks["bias"]}
+    return out
+
+
+@torch.no_grad()
 def quantize_backbone(backbone: nn.Module, mode: str = "nf4", qmm_mode: str = "w8a16") -> None:
     """Store every linear of the backbone quantized, in place (``quant.py:121-155``):
     ``mode`` "int8" (:class:`QuantLinear` applied in ``qmm_mode``) or "nf4"
     (:class:`NF4Linear`; a shape nf4 cannot pack falls back to int8, as in
     the JAX package).  MoE expert banks are int8 in both modes, a scale per
     expert and output column (nf4's flat blocks do not stack).  Norms,
-    biases, position tables and the MoE router stay float."""
+    biases, position tables and the MoE router stay float.  A backbone cut
+    over a rank mesh is quantized from its whole weights (:func:`_stored`)."""
     if mode not in ("nf4", "int8"):
         raise ValueError(mode)
     for container, key in _backbone_linears(backbone):
         lin = getattr(container, key)
         if _is_bank(lin):
-            setattr(container, key, QuantLinear.from_linear(lin, qmm_mode))
+            setattr(container, key, _stored(lin, False, qmm_mode))
         if not isinstance(lin, nn.Linear):
             continue  # stored quantized already, or a bank stored above
-        packable = lin.out_features % 2 == 0 \
-            and (lin.in_features * lin.out_features) % NF4_BLOCK == 0
-        if mode == "nf4" and packable:
-            setattr(container, key, NF4Linear.from_linear(lin))
-        else:
-            setattr(container, key, QuantLinear.from_linear(lin, qmm_mode))
+        setattr(container, key, _stored(lin, mode == "nf4", qmm_mode))
 
 
 @torch.no_grad()

@@ -16,7 +16,10 @@ gradient passes through are ``torch.autograd.Function``s:
   this rank's chunk (all-gather backward), and the chunks joined again
   for a replicated consumer (this rank's chunk of the gradient back);
 - point-to-point hops (:func:`send`, :func:`recv`, :func:`exchange`) for
-  the pipeline and the ring.
+  the pipeline and the ring;
+- :func:`all_to_all` (its backward the reverse all-to-all): a MoE layer's
+  tokens sent to the rank of their expert over the expert axis, and the
+  expert outputs back.
 
 Every function returns its input untouched on a group of one rank, so a
 mesh of one rank computes exactly the one-process step.
@@ -125,6 +128,31 @@ def broadcast(t: torch.Tensor, g: Optional[Group], src: int) -> torch.Tensor:
     return h.to(t.device)
 
 
+def exchange_chunks(t: torch.Tensor, g: Optional[Group], split: int, cat: int) -> torch.Tensor:
+    """``t`` cut into ``g.size`` equal chunks along ``split``, chunk ``j``
+    sent to the group's rank ``j``; the chunks received joined along ``cat``
+    in axis order.  Every rank's ``t`` has the same shape.  The chunks move
+    as bytes, so any dtype crosses any backend unchanged: one send and one
+    receive a peer, in one batch, on every backend (gloo has no all-to-all
+    on every PyTorch; nccl's is grouped sends and receives itself), and
+    this rank's own chunk copied."""
+    if trivial(g):
+        return t
+    if t.shape[split] % g.size:
+        raise ValueError(f"all-to-all of {tuple(t.shape)}: dim {split} not divisible by "
+                         f"{g.size} ranks")
+    parts = [c.contiguous() for c in t.chunk(g.size, split)]
+    shape = parts[0].shape
+    send_ = [g._in(c).reshape(-1).view(torch.uint8) for c in parts]
+    recv_ = [torch.empty_like(s) for s in send_]
+    recv_[g.index] = send_[g.index]
+    _p2p([dist.P2POp(op, buf, g.ranks[j], group=g.pg)
+          for j in range(g.size) if j != g.index
+          for op, buf in ((dist.isend, send_[j]), (dist.irecv, recv_[j]))])
+    got = [r.view(t.dtype).view(shape) for r in recv_]
+    return torch.cat(got, cat).to(t.device)
+
+
 def _p2p(ops: list) -> None:
     for work in dist.batch_isend_irecv(ops):
         work.wait()
@@ -218,6 +246,23 @@ class _SplitGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         return all_gather(dy, ctx.g, ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g, split, cat):
+        ctx.g, ctx.split, ctx.cat = g, split, cat
+        return exchange_chunks(x, g, split, cat)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return exchange_chunks(dy, ctx.g, ctx.cat, ctx.split), None, None, None
+
+
+def all_to_all(x, g, split: int, cat: int):
+    """:func:`exchange_chunks`, its gradient sent back by the reverse
+    exchange (each chunk of the gradient to the rank it came from)."""
+    return x if trivial(g) else _AllToAll.apply(x, g, split, cat)
 
 
 def copy_to(x, g):

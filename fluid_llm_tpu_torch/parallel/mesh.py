@@ -3,8 +3,9 @@
 Counterpart of ``fluid_llm_tpu/parallel/mesh.py``.  One process drives one
 device, so where the JAX package lays devices on a ``jax.sharding.Mesh``
 the port lays ranks of ``torch.distributed`` on a grid with the same axis
-names ("data", "fsdp", "model", and "pipe" last) and makes a process group
-for each axis and for the batch axes together (:class:`Mesh`).
+names ("data", "fsdp", "model", and "pipe" or "expert" last) and makes a
+process group for each axis and for "data" with each combination of the
+other batch axes, "fsdp" and "expert" (:class:`Mesh`).
 
 The rule that runs through it: a mesh run is the one-process run.  Every
 rank builds the same seeded model and global batch and keeps its part
@@ -21,8 +22,11 @@ fc1/gate/up over "model" (their output features), the row split of o and
 fc2/down (their input features), the other dimension of every backbone
 matrix over "fsdp" (gathered on use: ``parallel/tensor.full``), int8 ``q``
 like its weight and its ``scale`` with the output dimension, the learned
-positions' rows over "fsdp"; nf4 storage, norms, the encoder, the decoder,
-BOS and LoRA replicated; a stacked layer axis over "pipe".
+positions' rows over "fsdp"; a MoE expert bank's leading ``E`` axis over
+"expert" and its other two dims like the dense linear's (int8 ``q`` and
+``scale`` alike; the JAX ``expert_spec``), the router whole; nf4 storage,
+norms, the encoder, the decoder, BOS and LoRA replicated; a stacked layer
+axis over "pipe".
 :func:`placements` is what the port places, which differs where the
 computation needs it: an adapter follows its linear's Megatron split
 (``models/lora.py``); ``project_in``/``project_out`` (OPT-350m) act
@@ -33,6 +37,7 @@ whole over it; a pipeline rank holds its stage's blocks only.
 
 from __future__ import annotations
 
+import datetime
 import math
 import os
 from typing import Any, Optional
@@ -47,7 +52,7 @@ from fluid_llm_tpu_torch.parallel import comm
 from fluid_llm_tpu_torch.parallel.tensor import TP
 
 AXES = ("data", "fsdp", "model")
-BATCH = ("data", "fsdp")
+BATCH_AXES = ("data", "fsdp", "expert")  # the batch rows split over these (those in the mesh)
 COL = ("q", "k", "v", "qkv", "fc1", "gate", "up")
 ROW = ("o", "fc2", "down")
 
@@ -124,19 +129,29 @@ def node_ranks(world: int, local_world: int) -> list[RankSlot]:
 
 class Mesh:
     """``grid``: the global ranks laid out along ``axis_names``; ``rank``
-    this process's; one :class:`comm.Group` per axis and for
-    ``BATCH`` (made by every rank, in the same order, as
-    ``torch.distributed.new_group`` needs)."""
+    this process's; ``batch_axes`` the axes the batch rows split over
+    (those of ``BATCH_AXES`` in the mesh, in that order, as the JAX
+    ``batch_sharding``); one :class:`comm.Group` per axis and for "data"
+    with each combination of the batch axes a tensor may be cut over: the
+    groups a gradient is summed over (``shard_model``'s ``grad_axes``), the
+    batch axes all together among them (made by every rank, in the same
+    order, as ``torch.distributed.new_group`` needs; ``timeout``: their
+    collectives' wait, torch's default if None)."""
 
     def __init__(self, grid: np.ndarray, axis_names: tuple[str, ...], rank: int,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, timeout: Optional[datetime.timedelta] = None):
         self.grid = np.asarray(grid, dtype=np.int64)
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, self.grid.shape))
         self.rank = rank
         self.coords = dict(zip(self.axis_names, (int(c) for c in np.argwhere(self.grid == rank)[0])))
+        self.batch_axes = tuple(a for a in BATCH_AXES if a in self.axis_names)
+        cut = self.batch_axes[1:]  # "data" leads: the others may cut a tensor
+        joint = [("data",) + tuple(a for i, a in enumerate(cut) if bits >> i & 1)
+                 for bits in range(1, 2 ** len(cut))]
+        self.timeout = timeout
         self.groups: dict[tuple[str, ...], comm.Group] = {}
-        for axes in [(a,) for a in self.axis_names] + [BATCH]:
+        for axes in [(a,) for a in self.axis_names] + joint:
             self.groups[axes] = self._make_group(axes, backend)
 
     def _make_group(self, axes: tuple[str, ...], backend: Optional[str]) -> comm.Group:
@@ -146,7 +161,8 @@ class Mesh:
         mine = None
         for row in self.grid.transpose(perm).reshape(-1, size):
             ranks = [int(r) for r in row]
-            pg = dist.new_group(ranks) if size > 1 and dist.is_initialized() else None
+            pg = dist.new_group(ranks, timeout=self.timeout) \
+                if size > 1 and dist.is_initialized() else None
             if self.rank in ranks:
                 mine = comm.Group(ranks, self.rank, pg, backend)
         return mine
@@ -159,7 +175,7 @@ class Mesh:
 
     @property
     def batch(self) -> comm.Group:
-        return self.groups[BATCH]
+        return self.groups[self.batch_axes]
 
     @property
     def world(self) -> int:
@@ -169,7 +185,8 @@ class Mesh:
         """``(start, stop, total)``: this rank's rows of a global batch."""
         n = self.batch.size
         if total % n:
-            raise ValueError(f"batch {total} not divisible by data*fsdp={n}")
+            raise ValueError(f"batch {total} not divisible by the {n} ranks of "
+                             f"{'*'.join(self.batch_axes)}")
         per = total // n
         return self.batch.index * per, (self.batch.index + 1) * per, total
 
@@ -178,13 +195,17 @@ class Mesh:
 
 
 def make_mesh(cfg: Optional[ParallelConfig] = None, world: Optional[int] = None,
-              rank: Optional[int] = None, local_world: Optional[int] = None) -> Mesh:
+              rank: Optional[int] = None, local_world: Optional[int] = None,
+              timeout: Optional[datetime.timedelta] = None) -> Mesh:
     """The mesh of ``cfg`` over the ranks of the default process group
     (``world``, ``rank``: given, for a mesh without one; ``local_world``:
-    the ranks of a node, default torchrun's ``LOCAL_WORLD_SIZE``, else all).
-    "pipe" is the last axis, so consecutive ranks are consecutive stages.
-    Across nodes only "data" may span them (:func:`multihost_device_order`),
-    and pipe stages stay within one."""
+    the ranks of a node, default torchrun's ``LOCAL_WORLD_SIZE``, else all;
+    ``timeout``: the wait of its groups' collectives, :class:`Mesh`).
+    "pipe" is the last axis, so consecutive ranks are consecutive stages;
+    so is "expert" (``fluid_llm_tpu/parallel/mesh.py:117-122``), so an
+    expert group is consecutive ranks.  Across nodes only "data" may span
+    them (:func:`multihost_device_order`); pipe stages and expert groups
+    stay within one."""
     cfg = cfg or ParallelConfig()
     if dist.is_initialized():
         world = dist.get_world_size() if world is None else world
@@ -192,28 +213,32 @@ def make_mesh(cfg: Optional[ParallelConfig] = None, world: Optional[int] = None,
         backend = dist.get_backend()
     else:
         world, rank, backend = world or 1, rank or 0, None
-    if cfg.expert_axis > 1:
-        raise NotImplementedError("parallel.expert_axis > 1 (the expert all-to-all) is not "
-                                  "ported: use expert_axis 1")
-    pipe = max(1, cfg.pipe_axis)
+    pipe, expert = max(1, cfg.pipe_axis), max(1, cfg.expert_axis)
     data, fsdp, model = mesh_shape(world, cfg)
     local_world = local_world or int(os.environ.get("LOCAL_WORLD_SIZE", world))
     if local_world < world:
         if pipe > 1:
             raise NotImplementedError("pipe stages must stay within a host (the hops ride "
                                       "NVLink); use pipe_axis=1 across hosts")
+        if expert > 1:
+            raise NotImplementedError("expert dispatch all-to-alls must stay within a host "
+                                      "(they ride NVLink); use expert_axis=1 across hosts")
         arr = multihost_device_order(node_ranks(world, local_world), data, fsdp, model)
         grid = np.vectorize(lambda d: d.id, otypes=[np.int64])(arr)
-        return Mesh(grid, AXES, rank, backend)
+        return Mesh(grid, AXES, rank, backend, timeout)
     if pipe > 1:
         return Mesh(np.arange(world).reshape(data, fsdp, model, pipe), AXES + ("pipe",), rank,
-                    backend)
-    return Mesh(np.arange(world).reshape(data, fsdp, model), AXES, rank, backend)
+                    backend, timeout)
+    if expert > 1:
+        return Mesh(np.arange(world).reshape(data, fsdp, model, expert), AXES + ("expert",),
+                    rank, backend, timeout)
+    return Mesh(np.arange(world).reshape(data, fsdp, model), AXES, rank, backend, timeout)
 
 
 def shard_batch(batch: tuple, mesh: Optional[Mesh]) -> tuple:
     """This rank's contiguous rows of every tensor of the global ``batch``
-    (rows over (data, fsdp) jointly), the JAX ``shard_batch``'s
+    (rows over the batch axes jointly: (data, fsdp), and "expert" where the
+    mesh has one), the JAX ``shard_batch``'s
     ``make_array_from_process_local_data``."""
     if mesh is None or mesh.batch.size == 1:
         return batch
@@ -246,6 +271,7 @@ def param_specs(model: nn.Module, parallel: ParallelConfig) -> dict[str, tuple]:
     whole."""
     f = "fsdp" if parallel.fsdp_axis > 1 else None
     m = "model" if parallel.model_axis > 1 else None
+    e = "expert" if parallel.expert_axis > 1 else None
     lead = "pipe" if parallel.pipe_axis > 1 else None
     specs = {}
     for name, t in model.state_dict().items():
@@ -256,6 +282,11 @@ def param_specs(model: nn.Module, parallel: ParallelConfig) -> dict[str, tuple]:
             rest = parts[2:] if stacked else parts[3:]
             if len(rest) >= 3 and rest[0] in ("attn", "mlp") and rest[1] in COL + ROW:
                 spec = _linear_spec("col" if rest[1] in COL else "row", f, m, rest[-1])
+            elif len(rest) == 4 and rest[:2] == ["mlp", "experts"] \
+                    and rest[-1] in ("weight", "q", "bias", "scale"):
+                # an expert bank (E, out, in): E over "expert", the rest as
+                # the dense linear's (an nf4 bank would stay whole, as JAX's)
+                spec = (e,) + _linear_spec("row" if rest[2] in ROW else "col", f, m, rest[-1])
             if stacked:
                 spec = (lead,) + spec
         elif parts[0] == "backbone" and parts[1] == "pos_embed":
@@ -333,11 +364,6 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
     if par.ring_attention and not (par.seq_sharded_acts and m > 1):
         raise ValueError("parallel.ring_attention needs tokens sharded over the model axis: "
                          "set seq_sharded_acts: true and model_axis > 1")
-    moe = any(isinstance(layer.mlp, MoEMLP) for layer in bb.layers)
-    if moe and (tp or mesh.size("fsdp") > 1):
-        raise NotImplementedError("MoE expert banks do not shard over the model or fsdp axes in "
-                                  "the port (the expert axis is not ported): use data "
-                                  "parallelism or ring attention with a MoE backbone")
     if tp:
         _check_heads(bcfg, m)
     model.trainable_names = [n for n, p in model.named_parameters() if p.requires_grad]
@@ -368,7 +394,12 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
         lcfg = bcfg.replace(n_heads=bcfg.n_heads // m, n_kv_heads=bcfg.kv_heads // m,
                             d_model=bcfg.d_model // m, d_ff=bcfg.d_ff // m)
         for layer in bb.layers:
+            if isinstance(layer.mlp, MoEMLP):  # a bank's Megatron pair is in moe_mlp
+                for name, bank in layer.mlp.experts.items():
+                    bank.tp = TP("col" if name in COL else "row", g)
             for group in ("attn", "mlp"):
+                if isinstance(getattr(layer, group), MoEMLP):
+                    continue
                 for name, lin in getattr(layer, group).items():
                     kind = "col" if name in COL else "row"
                     lin.tp = TP(kind, g, narrow=isinstance(lin, NF4Linear))
@@ -394,17 +425,24 @@ def shard_model(model: nn.Module, mesh: Mesh) -> nn.Module:
             if i not in own:
                 bb.layers[i] = Elsewhere()
         pipe = Stages(pg, own, par.pipe_microbatches)
+    if mesh.size("expert") > 1:  # the all-to-all of moe_mlp
+        for layer in bb.layers:
+            if isinstance(layer.mlp, MoEMLP):
+                layer.mlp.ep = mesh.group("expert")
     seq = mesh.group("model") if par.seq_sharded_acts and m > 1 else None
     bb.parallel = BackboneParallel(cfg=lcfg, seq=seq, ring=ring, pipe=pipe)
 
     model.grad_axes = {}
     for name, p in model.named_parameters():
         spec = specs.get(name, ())
-        # (axes, mean): summed over the batch axes; summed over "model" where
+        # (axes, mean): summed over the batch axes but those that cut the
+        # tensor (an fsdp chunk's gradient comes reduce-scattered over
+        # "fsdp"; an expert bank's holds every token its expert group sent
+        # it, so it is not summed over "expert"); summed over "model" where
         # each model rank holds a part, averaged where each computed it whole
         # (replicas kept equal bit for bit though a kernel sums in another
         # order on each); averaged over "pipe" outside the stages
-        axes = [(("data",) if "fsdp" in spec else BATCH, False)]
+        axes = [(tuple(a for a in mesh.batch_axes if a not in spec), False)]
         if "model" not in spec:
             axes.append((("model",), not _partial_over_model(name, par, ring, tp)))
         if pipe is not None and not name.startswith("backbone.layers."):

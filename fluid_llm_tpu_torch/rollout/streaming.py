@@ -17,7 +17,9 @@ sliding-window LLM style instead, for models built for it:
   stay in the cache.
 
 Equal to dense attention under a banded mask, not to the re-encoding
-rollout; selected with ``inference.py --streaming``.
+rollout; selected with ``inference.py --streaming``.  On a rank mesh
+(``parallel/mesh.shard_model``) each rank streams its rows of the batch
+with its share of the heads (the JAX ``test_streaming_sharded_matches_single``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,26 @@ def _check_streaming_compat(model: FluidLLM) -> None:
             "training distribution")
 
 
+def _sinks(model: FluidLLM, n_patch: int) -> int:
+    cfg = model.cfg
+    return (1 if cfg.use_bos_token else 0) + (n_patch if cfg.see_init_state else 0)
+
+
+def streaming_cache(model: FluidLLM, init_states: torch.Tensor) -> dict:
+    """The empty slab cache a rollout of ``init_states`` runs in, on their
+    device (the daemon allocates it before the rollout's first collective)."""
+    _check_streaming_compat(model)
+    bs, init_len, n_patch = init_states.shape[:3]
+    R = model.max_ctx_len  # ring capacity in frames
+    if init_len > R:
+        raise ValueError(f"streaming context ({init_len} frames) exceeds the ring capacity "
+                         f"max_ctx_len={R}; pass at most {R} context states")
+    par = model.backbone.parallel  # on a TP mesh the cache holds this rank's heads
+    return bb.init_streaming_cache(model.backbone_cfg if par is None else par.cfg, bs,
+                                   _sinks(model, n_patch), R, n_patch,
+                                   device=init_states.device)
+
+
 @torch.inference_mode()
 def generate_streaming(
     model: FluidLLM,
@@ -62,6 +84,7 @@ def generate_streaming(
     bc_mask: torch.Tensor,
     position_ids: torch.Tensor,
     n_steps: int,
+    cache: dict | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as ``rollout.generate.generate`` (patch tensors in/out).
 
@@ -69,20 +92,19 @@ def generate_streaming(
     merged, qkv fused).  A model that still carries adapters is served
     from a prepared copy, leaving it as it was: ``apply_streaming`` uses
     plain linears, so unmerged adapters would otherwise be dropped.
+    ``cache``: :func:`streaming_cache` of ``init_states``, allocated here
+    if None.
     """
-    _check_streaming_compat(model)
+    if cache is None:
+        cache = streaming_cache(model, init_states)
     if model.lora is not None:
         model = copy.deepcopy(model)
         model.prepare_inference_params()
     cfg, bcfg = model.cfg, model.backbone_cfg
     bs, init_len, n_patch = init_states.shape[:3]
     dev = init_states.device
-    R = model.max_ctx_len  # ring capacity in frames
-    if init_len > R:
-        raise ValueError(f"streaming context ({init_len} frames) exceeds the ring capacity "
-                         f"max_ctx_len={R}; pass at most {R} context states")
-    n_sink = (1 if cfg.use_bos_token else 0) + (n_patch if cfg.see_init_state else 0)
-    cache = bb.init_streaming_cache(bcfg, bs, n_sink, R, n_patch, device=dev)
+    R = model.max_ctx_len
+    n_sink = _sinks(model, n_patch)
 
     # static spatial ids; absolute time (t0 + frame * seq_interval) per frame
     spatial = position_ids[:, :1, :, :2]

@@ -39,12 +39,44 @@ apply to requests as to training windows, and ``/v1/info`` publishes them.
 
     python -m fluid_llm_tpu_torch.tools.serve --checkpoint_dir model_checkpoints \\
         --load_no -1 --port 8474 --buckets 50,251 --quant int8 [--qmm_mode w8a8]
+
+Over ranks (``--distributed``, ``parallel/launch.py``: torchrun's environment
+or the three flags), the checkpoint is restored onto this rank's part of the
+mesh of its config's ``parallel`` keys (``inference.load_checkpoint_model``;
+``--quant`` quantizes each linear whole and cuts it again), as the JAX
+daemon restores through ``init_state_and_mesh`` (``serve.py:428-457``).
+Rank 0 runs the HTTP server and the batch worker; for each rollout it
+broadcasts a header (bucket, context, the batch's shapes; or stop) and the
+batch's tensors, and every rank runs the same rollout (a request's rows are
+not split over the data axis, as the JAX engine feeds host arrays the mesh
+does not split; the model axis splits the heads).  Headers, batches and
+error flags travel over a gloo group of their own whose wait has no
+practical end (``IDLE``: a follower waits there between requests); the
+mesh's collectives wait ``--collective_timeout`` seconds.  The ranks
+all-reduce an error flag twice a rollout:
+
+- after everything that can fail before the rollout's first collective
+  (the batch placed on each rank's device, the streaming cache
+  allocated): a failure there is a 500 from rank 0, and the daemon serves
+  on;
+- after the rollout: a rank that failed inside it left the others waiting
+  in one of its collectives until ``--collective_timeout``, and a group
+  that timed out is closed, so the failure is a 500 from rank 0 and then
+  every rank exits with an error (for ``torchrun --max-restarts`` to start
+  the daemon again).  On nccl the watchdog ends the waiting ranks at that
+  timeout instead, without the 500.
+
+Shutdown broadcasts stop; ``/v1/info`` reports the mesh.
+
+    torchrun --nproc-per-node 2 -m fluid_llm_tpu_torch.tools.serve --distributed \\
+        --checkpoint_dir model_checkpoints --quant int8 [--collective_timeout 120]
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import datetime
 import json
 import logging
 import queue
@@ -57,8 +89,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from fluid_llm_tpu_torch.parallel import comm, launch
 
 logger = logging.getLogger("fluid_llm_tpu_torch.serve")
+
+IDLE = datetime.timedelta(days=365)  # a follower's wait for the next rollout
 
 
 def _b64(arr: np.ndarray) -> str:
@@ -82,11 +119,19 @@ class RolloutEngine:
     coalescing: a worker thread drains the queue for up to
     ``batch_window_ms`` after the first request and runs one batched rollout
     per (bucket, ctx) group, padded to ``max_batch`` (``serve.py:303-339``).
+    ``ranks``: every rank of a daemon over ranks (module docstring), the
+    model cut to this rank's part; rank 0 serves and leads each rollout,
+    the others :meth:`follow`.  ``down``: the error of a rollout that
+    failed on some rank (the daemon then stops: module docstring).
     """
 
+    ranks: comm.Group | None = None  # one process
+    down: Exception | None = None
+
     def __init__(self, cfg, model, dataset, buckets, streaming: bool, max_batch: int = 1,
-                 batch_window_ms: float = 10.0):
+                 batch_window_ms: float = 10.0, ranks: comm.Group | None = None):
         self.cfg = cfg
+        self.ranks = None if comm.trivial(ranks) else ranks
         self.model = model
         self.dataset = dataset
         self.streaming = streaming
@@ -106,6 +151,8 @@ class RolloutEngine:
 
         if streaming:
             from fluid_llm_tpu_torch.rollout.streaming import generate_streaming as gen
+            from fluid_llm_tpu_torch.rollout.streaming import streaming_cache
+            self._cache = streaming_cache
         else:
             from fluid_llm_tpu_torch.rollout.generate import generate as gen
         self._gen = gen
@@ -113,7 +160,7 @@ class RolloutEngine:
             self._get_rollout(b, 1)
 
         self._queue = None
-        if self.max_batch > 1:
+        if self.max_batch > 1 and self.lead:
             self._queue = queue.Queue()
             threading.Thread(target=self._batch_worker, daemon=True).start()
 
@@ -125,9 +172,9 @@ class RolloutEngine:
         if prog is None:
             from fluid_llm_tpu_torch.ops.patching import patch_to_img
 
-            def prog(batch, _b=bucket):
+            def prog(batch, _b=bucket, **kw):
                 init, bcm, pos = batch
-                st, df = self._gen(self.model, init, bcm, pos, _b)
+                st, df = self._gen(self.model, init, bcm, pos, _b, **kw)
                 props = self.model.ds_props
                 return patch_to_img(st, props), patch_to_img(df, props)
 
@@ -183,13 +230,108 @@ class RolloutEngine:
         if grid_mask.shape != self.grid_hw:
             raise ValueError(f"mask shape {grid_mask.shape} != {self.grid_hw}")
 
+    @property
+    def lead(self) -> bool:
+        """Whether this rank serves (rank 0, or the only one)."""
+        return self.ranks is None or self.ranks.index == 0
+
+    def _rollout_host(self, bucket: int, ctx: int, batch, **kw) -> np.ndarray:
+        pred_states, _ = self._get_rollout(bucket, ctx)(batch, **kw)
+        return pred_states.float().cpu().numpy()  # waits for the device
+
+    def _flag(self, failed: bool) -> int:
+        """The number of ranks that failed (every rank calls it)."""
+        t = torch.tensor([float(failed)], device=self.device)
+        return int(comm.all_reduce(t, self.ranks).item())
+
+    def _place(self, tensors: list) -> tuple:
+        """The batch as a follower received it, on its device."""
+        return tuple(t.to(self.device) for t in tensors)
+
+    def _prepare(self, batch) -> tuple[tuple, dict]:
+        """What can fail before the rollout's first collective: the batch on
+        this rank's device (a follower's) and the streaming cache allocated
+        (its shapes checked); the rollout's keyword arguments."""
+        if not self.lead:
+            batch = self._place(batch)
+        return batch, ({"cache": self._cache(self.model, batch[0])} if self.streaming else {})
+
+    def _on_ranks(self, bucket: int, ctx: int, batch) -> tuple:
+        """One rollout on every rank, in step: ``(out, error)``.  The error
+        flag is all-reduced once every rank is ready to start and again
+        after the rollout; a failure before the start skips the rollout on
+        every rank (the collectives stay matched), one inside it sets
+        ``down``."""
+        err = None
+        try:
+            batch, kw = self._prepare(batch)
+        except Exception as e:  # reported to rank 0 through the flag
+            logger.exception("rank %d: the rollout could not start", self.ranks.index)
+            err = e
+        failed = self._flag(err is not None)
+        if failed:
+            return None, err or RuntimeError(
+                f"the rollout did not start on {failed} of {self.ranks.size} ranks (batch "
+                "placement or cache allocation failed)")
+        out = None
+        try:
+            out = self._rollout_host(bucket, ctx, batch, **kw)
+        except Exception as e:
+            logger.exception("rank %d: rollout failed", self.ranks.index)
+            err = e
+        failed = self._flag(err is not None)
+        if failed:
+            self.down = RuntimeError(
+                f"the rollout failed on {failed} of {self.ranks.size} ranks; the mesh's groups "
+                "may be out of step, so every rank stops")
+            self.down.__cause__ = err
+            return None, self.down
+        return out, None
+
+    def _lead_rollout(self, bucket: int, ctx: int, batch) -> np.ndarray:
+        """Rank 0: the header and the batch to every rank, then the rollout."""
+        header = {"bucket": bucket, "ctx": ctx,
+                  "tensors": [(tuple(t.shape), t.dtype) for t in batch]}
+        dist.broadcast_object_list([header], src=self.ranks.ranks[0], group=self.ranks.pg)
+        batch = tuple(comm.broadcast(t, self.ranks, 0) for t in batch)
+        out, err = self._on_ranks(bucket, ctx, batch)
+        if err is not None:
+            raise err
+        return out
+
+    def follow(self) -> None:
+        """A rank but 0: run each rollout rank 0 leads, until it stops (or
+        raise ``down``)."""
+        host = torch.device("cpu") if self.ranks.staged else self.device
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=self.ranks.ranks[0], group=self.ranks.pg)
+            header = box[0]
+            if header.get("stop"):
+                logger.info("rank %d: stop", self.ranks.index)
+                return
+            batch = [comm.broadcast(torch.empty(shape, dtype=dtype, device=host), self.ranks, 0)
+                     for shape, dtype in header["tensors"]]
+            self._on_ranks(header["bucket"], header["ctx"], batch)
+            if self.down is not None:
+                raise self.down
+
+    def stop(self) -> None:
+        """Rank 0: the followers leave :meth:`follow` (they have left it
+        already when the daemon is ``down``)."""
+        if self.ranks is not None and self.lead and self.down is None:
+            with self._lock:
+                dist.broadcast_object_list([{"stop": True}], src=self.ranks.ranks[0],
+                                           group=self.ranks.pg)
+
     def _device_rollout(self, bucket: int, ctx: int, batch) -> np.ndarray:
         """One (possibly batched) rollout -> (bs, ctx+bucket, 3, H, W)."""
-        rollout = self._get_rollout(bucket, ctx)
         with self._lock:
+            if self.down is not None:
+                raise RuntimeError(f"the daemon is stopping: {self.down}")
             t0 = time.monotonic()
-            pred_states, _ = rollout(batch)
-            out = pred_states.float().cpu().numpy()  # waits for the device
+            out = self._rollout_host(bucket, ctx, batch) if self.ranks is None \
+                else self._lead_rollout(bucket, ctx, batch)
         dt_ms = (time.monotonic() - t0) * 1e3
         key = f"bucket={bucket} ctx={ctx} bs={out.shape[0]}"
         with self._stats_lock:
@@ -344,13 +486,16 @@ class RolloutEngine:
             "stds": [float(s) for s in ds.stds],
             "trim_patches": ds.trim_patches,
             "flip_y": ds.flip_y,
+            "mesh": getattr(getattr(self.model, "mesh", None), "shape", None),
+            "ranks": 1 if self.ranks is None else self.ranks.size,
         }
 
 
 def load_engine(checkpoint_dir: str, load_no: int = -1, step: int | None = None,
                 buckets=(50, 251), streaming: str = "auto", max_batch: int = 1,
                 batch_window_ms: float = 10.0, quant: str | None = None,
-                qmm_mode: str = "w8a16", device: str | torch.device = "cuda") -> RolloutEngine:
+                qmm_mode: str = "w8a16", device: str | torch.device = "cuda",
+                collective_timeout: float | None = None) -> RolloutEngine:
     """Restore a run's checkpoint (``train/checkpoint.py``) into a serving
     engine on ``device``.
 
@@ -363,6 +508,10 @@ def load_engine(checkpoint_dir: str, load_no: int = -1, step: int | None = None,
     ``FLUID_QMM=pallas``).  ``streaming`` "auto" serves rope
     backbones with ``rope_abs`` embeddings and absolute time through the
     KV-cache rollout, others through the exact one; "on" / "off" force it.
+    In a process group (``--distributed``) the model is this rank's part of
+    the config's mesh, whose collectives wait ``collective_timeout``
+    seconds (torch's default if None), and the engine runs its rollouts on
+    every rank (``RolloutEngine.ranks``: a gloo group that waits ``IDLE``).
     """
     from fluid_llm_tpu_torch.data import get_dataset
     from fluid_llm_tpu_torch.inference import load_checkpoint_model
@@ -373,7 +522,10 @@ def load_engine(checkpoint_dir: str, load_no: int = -1, step: int | None = None,
     load_path = ckpt.get_save_folder(checkpoint_dir, load_no)
     step = step if step is not None else ckpt.latest_step(load_path)
     logger.info("serving %s step_%s", load_path, step)
-    model = load_checkpoint_model(load_path, step, get_device(device), quant, qmm_mode)
+    timeout = None if collective_timeout is None else datetime.timedelta(
+        seconds=collective_timeout)
+    model = load_checkpoint_model(load_path, step, get_device(device), quant, qmm_mode,
+                                  timeout=timeout)
     if quant:
         logger.info("backbone weights stored as %s (int8 matmul %s)", quant, qmm_mode)
     cfg = model.cfg
@@ -386,8 +538,13 @@ def load_engine(checkpoint_dir: str, load_no: int = -1, step: int | None = None,
     # the serving dataset provides geometry and stats only; its window covers
     # the largest bucket
     serve_ds = get_dataset(cfg.replace(seq_len=max(buckets) + 1), mode="test")
+    ranks = None
+    if dist.is_initialized():
+        world = list(range(dist.get_world_size()))
+        ranks = comm.Group(world, dist.get_rank(),
+                           dist.new_group(world, backend="gloo", timeout=IDLE), "gloo")
     return RolloutEngine(cfg, model, serve_ds, buckets, use_streaming, max_batch=max_batch,
-                         batch_window_ms=batch_window_ms)
+                         batch_window_ms=batch_window_ms, ranks=ranks)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -436,6 +593,8 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # keep the daemon alive on a bad request
             logger.exception("rollout failed")
             self._send(500, {"error": f"{type(e).__name__}: {e}"})
+            if self.engine.down is not None:  # answered: now stop serving
+                threading.Thread(target=self.server.shutdown, daemon=True).start()
 
 
 def serve(engine: RolloutEngine, host: str = "127.0.0.1", port: int = 8474) -> ThreadingHTTPServer:
@@ -469,22 +628,45 @@ def main(argv=None):
                              "the reference's) or int8 ones (w8a8, opt-in)")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--no_warmup", action="store_true")
+    launch.add_arguments(parser)
+    parser.add_argument("--collective_timeout", type=float, default=120.0,
+                        help="with --distributed: seconds a rank waits in one of the mesh's "
+                             "collectives before the rollout fails (and the daemon stops)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="[%(name)s:%(levelname)s] %(message)s")
+    device = launch.init(args, parser)
+    try:
+        run(args, device)
+    finally:
+        launch.finish()
 
+
+def run(args, device: torch.device) -> None:
+    """``main`` after the process group: rank 0 warms up and serves until
+    interrupted (then stops the other ranks), the others follow it; every
+    rank raises ``RolloutEngine.down`` once a rollout failed inside."""
     buckets = [int(b) for b in args.buckets.split(",")]
     engine = load_engine(args.checkpoint_dir, args.load_no, args.step, buckets=buckets,
                          streaming=args.streaming, max_batch=args.max_batch,
                          batch_window_ms=args.batch_window_ms, quant=args.quant,
-                         qmm_mode=args.qmm_mode, device=args.device)
-    if not args.no_warmup:
-        engine.warmup()
-    httpd = serve(engine, args.host, args.port)
+                         qmm_mode=args.qmm_mode, device=device,
+                         collective_timeout=args.collective_timeout)
+    if not engine.lead:
+        engine.follow()
+        return
     try:
-        httpd.serve_forever()
-    except KeyboardInterrupt:
-        logger.info("shutting down")
-        httpd.shutdown()
+        if not args.no_warmup:
+            engine.warmup()  # on every rank: each warm rollout is led
+        httpd = serve(engine, args.host, args.port)
+        try:
+            httpd.serve_forever()
+        except KeyboardInterrupt:
+            logger.info("shutting down")
+        httpd.server_close()
+    finally:
+        engine.stop()
+    if engine.down is not None:
+        raise engine.down
 
 
 if __name__ == "__main__":

@@ -175,8 +175,9 @@ def test_optimizer_matches_optax(rng, name):
 
 
 def test_unported_options_raise():
-    """What the port still refuses: the expert axis (``parallel.expert_axis
-    > 1``) and the multi-process flags without ``--distributed``; pipeline
+    """What the port still refuses: an expert group across hosts (JAX's
+    refusal; the expert axis is ported: ``tests/test_torch_expert.py``) and
+    the multi-process flags without ``--distributed``; pipeline
     parallelism over adapters raises the JAX package's guard (the parallel
     axes are ported: ``tests/test_torch_parallel.py``,
     ``test_torch_pipeline.py``, ``test_torch_ring.py``; adafactor,
@@ -190,7 +191,7 @@ def test_unported_options_raise():
     FluidLLM.build(Config(**dict(NO_DROPOUT, use_lora=False), parallel={"pipe_axis": 2}), props,
                    **TINY)
     with pytest.raises(NotImplementedError, match="expert_axis"):
-        make_mesh(ParallelConfig(expert_axis=2))
+        make_mesh(ParallelConfig(expert_axis=2), world=8, rank=0, local_world=4)
     with pytest.raises(SystemExit):
         tmain.main(["--process_id", "0"])
 

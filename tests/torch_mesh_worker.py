@@ -106,6 +106,8 @@ def task_steps(spec: dict, rank: int) -> dict:
     from fluid_llm_tpu_torch.train import checkpoint as ckpt
     from fluid_llm_tpu_torch.train.trainer import Trainer
 
+    import torch.distributed as dist
+
     results = []
     for v in spec["variants"]:
         model = _model(spec, v["parallel"], v)
@@ -113,21 +115,163 @@ def task_steps(spec: dict, rank: int) -> dict:
         trainer = Trainer(model)
         if v.get("restore"):
             ckpt.restore_checkpoint(v["restore"], 0, model, trainer.opt)
-        losses, nrmse = [], []
+        losses, nrmse, aux = [], [], []
         for _ in range(v.get("steps", 1)):
             batch = v.get("batch", spec["batch"])
             m = trainer.train_step(shard_batch(batch, model.mesh), v.get("mode", "autoreg"))
             losses.append(m["loss"].item())
             nrmse.append(m["N_RMSE"])
-        res = dict(losses=losses, n_rmse=nrmse, grads=_grads(model),
+            if "moe_aux" in m:
+                aux.append(m["moe_aux"].item())
+        res = dict(losses=losses, n_rmse=nrmse, aux=aux, grads=_grads(model),
                    params={n: t for n, t in full_state_dict(model).items()
                            if n in model.trainable_names},
                    opt=full_optimizer_state(trainer.opt, model), mesh=model.mesh.shape)
+        banks = {n: tuple(t.shape) for n, t in model.state_dict().items() if ".experts." in n}
+        if banks:  # what each rank's expert banks hold
+            res["held"] = [None] * dist.get_world_size()
+            dist.all_gather_object(res["held"], (model.mesh.coords, banks))
         if v.get("val"):
             res["val"] = trainer.val_step(shard_batch(v.get("batch", spec["batch"]), model.mesh))
         if v.get("save"):
             ckpt.save_checkpoint(v["save"], 0, model, trainer.opt, 0, model.cfg)
         results.append(res)
+    return results
+
+
+QUANT_LEAVES = ("q", "scale", "codes", "absmax_q", "absmax_scale", "absmax_offset")
+
+
+def task_forward(spec: dict, rank: int) -> list:
+    """Each variant: the model on its mesh (``quant``: stored so before it
+    is cut; ``prepare``: then served as ``prepare_inference_params(prepare)``
+    prepares it, merge, quantize, cut), its forward over this rank's rows
+    of the batch (``stream``: that many steps of the streaming rollout
+    instead, from one state), every row gathered; the quantized storage of
+    every rank with its mesh coordinates."""
+    import torch.distributed as dist
+
+    from fluid_llm_tpu_torch.parallel import comm
+    from fluid_llm_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_model
+    from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
+
+    results = []
+    for v in spec["variants"]:
+        model = _model(spec, v["parallel"], v)
+        shard_model(model, make_mesh(model.cfg.parallel))
+        if "prepare" in v:
+            model.prepare_inference_params(v["prepare"])
+        model.eval()
+        batch = shard_batch(v.get("batch", spec["batch"]), model.mesh)
+        with torch.no_grad():
+            if v.get("stream"):
+                y = gen_seq_streaming(model, batch, v["stream"])[0]
+            else:
+                y = model.forward(batch[0], batch[4])
+        with comm.batch_axes(model.mesh.batch):
+            y = comm.batch_rows(y)
+        storage = {n: t.clone() for n, t in model.state_dict().items()
+                   if n.rsplit(".", 1)[-1] in QUANT_LEAVES}
+        held = [None] * dist.get_world_size()
+        dist.all_gather_object(held, (model.mesh.coords, storage))
+        results.append(dict(out=y, held=held, mesh=model.mesh.shape,
+                            heads=model.backbone.parallel.cfg.n_heads))
+    return results
+
+
+def _client(spec: dict, results: list) -> None:
+    """Rank 0's client of the daemon it runs: wait for ``/healthz``, read
+    ``/v1/info``, post each request of ``spec["requests"]`` (its status,
+    reply and seconds kept), then interrupt the daemon (its stop reaches
+    every rank); with ``spec["down"]``, wait instead for the daemon to stop
+    answering (the seconds that took kept)."""
+    import json
+    import signal
+    import time
+    import urllib.error
+    import urllib.request
+
+    base = f"http://127.0.0.1:{spec['port']}"
+
+    def alive() -> bool:
+        try:
+            urllib.request.urlopen(base + "/healthz", timeout=5).read()
+            return True
+        except OSError:
+            return False
+
+    try:
+        deadline = time.monotonic() + 120
+        while not alive():
+            if time.monotonic() > deadline:
+                raise TimeoutError("the daemon did not answer /healthz")
+            time.sleep(0.2)
+        results.append(("info", 200, json.loads(urllib.request.urlopen(base + "/v1/info").read())))
+        for body in spec["requests"]:
+            req = urllib.request.Request(base + "/v1/rollout", data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    results.append(("rollout", r.status, json.loads(r.read()),
+                                    time.monotonic() - t0))
+            except urllib.error.HTTPError as e:
+                results.append(("rollout", e.code, json.loads(e.read()), time.monotonic() - t0))
+        if spec.get("down"):
+            t0 = time.monotonic()
+            while alive() and time.monotonic() < t0 + 120:
+                time.sleep(0.2)
+            results.append(("gone", not alive(), time.monotonic() - t0))
+    finally:
+        if not spec.get("down"):
+            signal.raise_signal(signal.SIGINT)
+
+
+def task_serve(spec: dict, rank: int) -> list:
+    """``python -m fluid_llm_tpu_torch.tools.serve`` with ``--distributed``
+    and the three flags: rank 0 answers :func:`_client` (its results are the
+    task's); on the other ranks the ``fail_at``-th rollout fails where
+    ``spec["fail_in"]`` says: "place" (its batch does not reach the device,
+    the default) or "rollout" (an error raised inside the rollout, before
+    its first collective).  With ``spec["down"]`` every rank expects the
+    daemon's error: rank 0 adds it to its results, the others write it to
+    ``<dir>/down_<rank>.txt``."""
+    import threading
+
+    from fluid_llm_tpu_torch.tools import serve
+
+    if rank != 0:
+        calls = []
+        name = {"place": "_place", "rollout": "_rollout_host"}[spec.get("fail_in", "place")]
+        inner = getattr(serve.RolloutEngine, name)
+
+        def failing(self, *a, **kw):
+            calls.append(1)
+            if len(calls) == spec["fail_at"]:
+                raise RuntimeError(f"{name} failed on this rank (a test's fault)")
+            return inner(self, *a, **kw)
+
+        setattr(serve.RolloutEngine, name, failing)
+    results: list = []
+    client = threading.Thread(target=_client, args=(spec, results), daemon=True)
+    if rank == 0:
+        client.start()
+    argv = spec["argv"] + ["--port", str(spec["port"]), "--distributed",
+                           "--coordinator_address", f"file://{spec['dir']}/init",
+                           "--num_processes", str(spec["world"]), "--process_id", str(rank),
+                           "--device", "cpu"]
+    try:
+        serve.main(argv)
+    except RuntimeError as e:
+        if not spec.get("down") or "every rank stops" not in str(e):
+            raise
+        if rank == 0:
+            results.append(("down", str(e)))
+        else:
+            with open(os.path.join(spec["dir"], f"down_{rank}.txt"), "w") as f:
+                f.write(str(e))
+    if rank == 0:
+        client.join(150)
     return results
 
 
@@ -242,7 +386,7 @@ def main() -> None:
     torch.set_num_threads(1)
     spec = torch.load(path, weights_only=False)
     try:
-        if spec["task"] != "entry":  # an entry point starts its own
+        if spec["task"] not in ("entry", "serve"):  # an entry point starts its own
             start(spec, rank)
         result = globals()[f"task_{spec['task']}"](spec, rank)
     except BaseException:
