@@ -313,15 +313,43 @@ Phases, each printing one line per result; any failure exits nonzero:
                its cut of the one-process quantization; w8a16 at the eight
                rank-local shapes (60 and 61 rows: 768->384, 384->768,
                768->1024, 1024->768) with the grid rule's plan against the
-               twin (REL_TOL) and timed.  Every time of these ranks is of
-               ranks sharing one card, not a performance number.
+               twin (REL_TOL) and timed; (d) ``flagship_llama.yaml``
+               fine-tuned in full (pipeline stages take no adapters)
+               streamed 25 steps on pipe 2 x model 2 (each rank caches and
+               runs its stage's 6 blocks at 6 heads, the hidden state
+               handed stage to stage; slab decode 6x26, slot 3x25 a rank;
+               step 1 REL_TOL against one process).  Every time of these
+               ranks is of ranks sharing one card, not a performance number;
+25. tools and core -- the native point locator (``core/_native.py``, g++)
+               on the synthetic cylinder mesh at 238 equal to the NumPy
+               locator (and through ``FLUID_LLM_TPU_NATIVE_LOCATOR=1``), both
+               host times; ``core/cubic.resample_to_grid_cubic`` on the card
+               (min_E gradients, 2 frames x 3 channels) within CUBIC_TOL of
+               the f64 host evaluation; ``tools/rollout_profile`` attr (the
+               ms/step of attention, 6 of 12 layers and the MLPGNN decoder),
+               trace and trace_stream over TOOL_STEPS steps (device events
+               summarised per category); ``tools/train_profile`` (3 traced
+               steps, 12 flash dq a step); ``tools/flash_bench`` at L 661,
+               1536, 4096 and 8192 against the twin (output REL_TOL, lse
+               LSE_TOL, gradients REL_TOL) and timed; ``tools/watchdog``
+               over ``training1.yaml`` for 2 epochs on ``synthetic:2``
+               (batch 2, a 3-step validation) whose first child is killed
+               (SIGKILL) by a wrapper passed as ``supervise(python=...)``
+               once the first checkpoint is on disk (started in a thread
+               before phase 23, beside whose ranks it runs, and waited for
+               here): rc 0, one restart, ``continue_train`` from step_0,
+               the newest checkpoint step_1; ``tools/ds_stats`` on phase
+               17's 8 cylinder
+               pickles, its means and stds against numpy over the raw
+               fields.
 
 Depth cut to keep the run inside its time (every check and path kept):
 phases 18 and 20 run 2 notf steps a remat setting and one timed step a
-turn; phases 4, 9, 14 and 16 time one RATE_STEPS-step (101) rollout
+turn; phases 4, 9, 14 and 16 time one RATE_STEPS-step (51) rollout
 through the kernels and one through the twins where they timed 251-step
-ones (phases 4 and 9 three, then two; 14 and 16 two), and phases 14 and
-16 each layout once over RATE_STEPS where they timed 251 steps twice;
+ones (phases 4 and 9 three, then two; 14 and 16 two; then 101 steps
+each), and phases 14 and 16 each layout once over RATE_STEPS where they
+timed 251 steps twice; phase 25's watchdog run goes beside phases 23-24;
 phase 13's GAT evaluates 4 x 25 steps where it evaluated 4 x 100;
 ``device_ms`` replays its graph 15 times where it replayed it 25; phase
 23 (a)'s process runs while (b)'s references are computed;
@@ -333,7 +361,8 @@ prints its seconds ("[name] phase seconds"), the run all of them at the
 end; ``--out`` writes them as ``phase_seconds``.  Phases 8 to 13 share
 one temporary folder, removed at the end, phases 17 and 18 another, phase
 20 a third, phase 21 a fourth, phase 22 a fifth and phases 23 and 24 a
-sixth.  Every phase before 22 reads an empty ``HF_HUB_CACHE``, so ``main``
+sixth, phase 25 a seventh (phase 17's pickles kept for it).  Every phase
+before 22 reads an empty ``HF_HUB_CACHE``, so ``main``
 there trains the seeded draw whatever the host has cached.  An
 exception inside a phase is recorded as a failure of that phase and the
 run goes on; every failure is printed on stdout and stderr at the end, and
@@ -357,6 +386,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 from unittest import mock
@@ -379,7 +409,7 @@ GRAD_TOL = 5e-2
 # sum differ from torch.logsumexp by rounding only; observed ~1e-6).
 LSE_TOL = 1e-4
 STEPS = 251
-RATE_STEPS = 101  # the timed rollouts' length (the per-step cost is flat by then)
+RATE_STEPS = 51  # the timed rollouts' length (the window is full from step 10)
 ROLLOUT_TOKENS = 11 * 60 + 1  # 10-frame window + see-init frame, 60 patches each, + BOS
 TRAIN_BS = 8
 TRAIN_TOKENS = 10 * 60 + 1  # 9 input frames + the see-init duplicate, 60 patches each, + BOS
@@ -4017,6 +4047,7 @@ EXPERT_CASES = (
 )
 # the rollouts of phase 24 and its served request
 EXPERT_STEPS = 25
+PIPE_STREAM_MESH = {"pipe_axis": 2, "model_axis": 2}  # phase 24 (d)
 # w8a16 at the flagship's linears cut over model 2 (q, k, v; o; gate, up;
 # down), the decode step's 60 rows and the prefill's 61
 W8A16_RANK_SHAPES = [(M, K, N) for M in (60, 61)
@@ -4311,10 +4342,10 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     t0 = time.perf_counter()
     expert = {}
     ok_24 = check_expert(dev, seed, folder, got["expert"], expert_refs, expert, failures)
-    ranks_24 = got["expert"]["a_s"] + got["expert"]["b_s"] + got["expert"]["c_s"]
+    ranks_24 = sum(got["expert"][k] for k in ("a_s", "b_s", "c_s", "d_s"))
     expert_s += ranks_24 + time.perf_counter() - t0
     expert.update(refs_and_checks_s=expert_s - ranks_24, ranks_s=ranks_24,
-                  parts_s={k: got["expert"][k] for k in ("a_s", "b_s", "c_s")},
+                  parts_s={k: got["expert"][k] for k in ("a_s", "b_s", "c_s", "d_s")},
                   phase_s=expert_s)
     res.update(ranks_s=ranks_s, backend=backend, expert=expert,
                phase_s=time.perf_counter() - t_phase - expert_s)
@@ -4322,7 +4353,7 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
           f"{ranks_24:.1f} s on rank 0 included ({PARALLEL_LABEL}) {'ok' if ok_b else 'FAIL'}")
     print(f"[expert axis and sharded serving] phase seconds {expert_s:.1f} (rank 0: (a) "
           f"{got['expert']['a_s']:.1f}, (b) {got['expert']['b_s']:.1f}, (c) "
-          f"{got['expert']['c_s']:.1f}; references and checks "
+          f"{got['expert']['c_s']:.1f}, (d) {got['expert']['d_s']:.1f}; references and checks "
           f"{expert_s - ranks_24:.1f}) {'ok' if ok_24 else 'FAIL'}")
     return res
 
@@ -4485,6 +4516,11 @@ def _flagship_cfg(seed: int, par: dict | None = None):
 
     cfg = Config.from_yaml(FLAGSHIP).replace(load_dir="synthetic:2", seed=seed)
     return cfg.replace(parallel=ParallelConfig(**(par or {})))
+
+
+def _pipe_flagship_cfg(seed: int, par: dict | None = None):
+    """The flagship fine-tuned in full (pipeline stages take no adapters)."""
+    return _flagship_cfg(seed, par).replace(use_lora=False)
 
 
 def _digest(state: dict) -> dict:
@@ -4698,6 +4734,27 @@ def expert_rank(rank: int, folder: str, dev, seed: int, world) -> dict:
     del eng
     torch.cuda.empty_cache()
     out["c_s"] = time.perf_counter() - t_c
+
+    # (d) the flagship streamed over pipe 2 x model 2
+    t_d = time.perf_counter()
+    model = inference.build_seeded_model(_pipe_flagship_cfg(seed, PIPE_STREAM_MESH), seed, dev)
+    test_ds = get_dataset(model.cfg.replace(seq_len=EXPERT_STEPS + 2), mode="test")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    per_step, mean = inference.test_generate(model, test_ds, batch_size=2,
+                                             pred_steps=EXPERT_STEPS, streaming=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out["pipe streaming"] = dict(
+        per_step=[float(x) for x in per_step], mean=mean, mesh=model.mesh.shape,
+        heads=model.backbone.parallel.cfg.n_heads,
+        per_rank=_gather(dict(launches=_nonzero(read_launches()), seconds=secs,
+                              coords=model.mesh.coords,
+                              stage=list(model.backbone.parallel.pipe.layers)), n))
+    del model
+    torch.cuda.empty_cache()
+    out["d_s"] = time.perf_counter() - t_d
     return out
 
 
@@ -4774,6 +4831,11 @@ def expert_references(dev, seed: int, folder: str, failures: list) -> dict:
     steps, out["stream_mean"] = inference.test_generate(model, test_ds, batch_size=2,
                                                         pred_steps=EXPERT_STEPS, streaming=True)
     out["stream_steps"] = [float(x) for x in steps]
+    del model
+    model = inference.build_seeded_model(_pipe_flagship_cfg(seed), seed, dev)
+    steps, out["pipe_mean"] = inference.test_generate(model, test_ds, batch_size=2,
+                                                      pred_steps=EXPERT_STEPS, streaming=True)
+    out["pipe_steps"] = [float(x) for x in steps]
     del model
     cfg = _flagship_cfg(seed, {"model_axis": 2})
     ds = get_dataset(cfg.replace(seq_len=cfg.autoreg_seq_len), mode="train")
@@ -4920,10 +4982,284 @@ def check_expert(dev, seed: int, folder: str, got: dict, refs: dict, res: dict,
           f"rollout s on rank 0 {[round(x['seconds'], 2) for x in lead]}, load s "
           f"{[round(pr['load_s'], 1) for pr in sv['per_rank']]} ({label}) "
           f"{'ok' if serve_ok else 'FAIL'}")
-    if not (ok_all and ck_ok and roll_ok and st_ok and serve_ok):
+    # (d) streaming over pipeline stages
+    pp = got["pipe streaming"]
+    rel_d = [abs(a - b) / abs(b) for a, b in zip(pp["per_step"][1:], refs["pipe_steps"][1:])]
+    want_d = dict(slab_decode_attention=6 * (EXPERT_STEPS + 1),
+                  grid_slot_attention=3 * EXPERT_STEPS)
+    stages_ok = all(pr["stage"] == [6 * pr["coords"]["pipe"] + i for i in range(6)]
+                    for pr in pp["per_rank"])
+    pipe_ok = (rel_d[0] <= REL_TOL and pp["heads"] == 6 and stages_ok
+               and pp["mesh"] == {"data": 1, "fsdp": 1, "model": 2, "pipe": 2}
+               and all(pr["launches"] == want_d for pr in pp["per_rank"])
+               and all(math.isfinite(x) for x in pp["per_step"]))
+    res["pipe streaming"] = dict(per_step=pp["per_step"], ref_per_step=refs["pipe_steps"],
+                                 rel=rel_d, mesh=pp["mesh"], per_rank=pp["per_rank"])
+    print(f"[expert axis] (d) flagship_llama.yaml (full fine-tune) streamed on {pp['mesh']}, "
+          f"{pp['heads']} heads a rank, stages {[pr['stage'][0] for pr in pp['per_rank']]}.. "
+          f"(6 blocks each), 2 trajectories x {EXPERT_STEPS} steps: mean N-RMSE "
+          f"{pp['mean']:.5f} vs one process {refs['pipe_mean']:.5f}; step 1 rel {rel_d[0]:.3e} "
+          f"(bound {REL_TOL}), all {max(rel_d):.3e}; launches per rank "
+          f"{[pr['launches'] for pr in pp['per_rank']]} (want {want_d}); rollout s "
+          f"{[round(pr['seconds'], 2) for pr in pp['per_rank']]} ({label}) "
+          f"{'ok' if pipe_ok else 'FAIL'}")
+    if not (ok_all and ck_ok and roll_ok and st_ok and serve_ok and pipe_ok):
         failures.append(f"expert axis: steps {ok_all}, checkpoint {ck_ok}, MoE rollout "
-                        f"{roll_ok}, streaming {st_ok}, serve {serve_ok}")
-    return ok_all and ck_ok and roll_ok and st_ok and serve_ok
+                        f"{roll_ok}, streaming {st_ok}, serve {serve_ok}, pipe streaming "
+                        f"{pipe_ok}")
+    return ok_all and ck_ok and roll_ok and st_ok and serve_ok and pipe_ok
+
+
+TOOL_STEPS = 25  # BENCH_ROLLOUT_STEPS of phase 25's rollout profiles
+CUBIC_TOL = 1e-5  # f32 device gather + 9-term FMA against the f64 host evaluation, relative
+FLASH_BENCH_LENGTHS = (661, 1536, 4096, 8192)
+WATCHDOG_WAIT_S = 600  # phase 25's wait for the watchdog run begun before phase 23
+WATCHDOG_WRAPPER = """#!{python}
+# python with these arguments; on the first launch the child is killed
+# (SIGKILL) once a checkpoint of the run is on disk
+import glob, os, signal, subprocess, sys, time
+log, runs = {log!r}, {runs!r}
+first = not os.path.exists(log)
+with open(log, "a") as f:
+    f.write(" ".join(sys.argv[1:]) + "\\n")
+child = subprocess.Popen([{python!r}] + sys.argv[1:])
+while first and child.poll() is None:
+    done = glob.glob(os.path.join(runs, "*", "step_*.epoch"))
+    if done:
+        child.send_signal(signal.SIGKILL)
+        child.wait()
+        with open(log, "a") as f:
+            f.write("killed after " + os.path.basename(done[0]) + "\\n")
+        sys.exit(137)
+    time.sleep(0.01)
+sys.exit(child.wait() if not first else 3)  # 3: the first child ended unkilled
+"""
+
+
+def _host_ms(fn, n: int = 3) -> float:
+    """The least host wall time of ``n`` calls of ``fn``, ms."""
+    best = math.inf
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def start_watchdog(dev, seed: int, tmp: str) -> dict:
+    """Phase 25's watchdog run, started in a thread before phase 23 so that
+    its three processes (the supervisor's two children and their imports,
+    most of its time) run beside phases 23-24, whose ranks' times are not
+    performance numbers: ``tools/watchdog.supervise`` over
+    ``training1.yaml`` for 2 epochs on ``synthetic:2`` (batch 2, a 3-step
+    validation), its ``python`` WATCHDOG_WRAPPER, which kills the first
+    child once the first checkpoint is on disk.  Returns the job that
+    :func:`phase_tools` waits for."""
+    from fluid_llm_tpu_torch.config import Config
+    from fluid_llm_tpu_torch.tools import watchdog
+
+    wd = os.path.join(tmp, "watchdog")
+    os.makedirs(wd)
+    runs, log = os.path.join(wd, "runs"), os.path.join(wd, "launches.txt")
+    cfg_path = os.path.join(wd, "training.yaml")
+    Config.from_yaml(CONFIG).replace(
+        load_dir="synthetic:2", batch_size=2, val_seq_len=4, seed=seed, num_epochs=2,
+        save_model_each=1, num_workers=0, checkpoint_save_path=runs).to_yaml(cfg_path)
+    wrapper = os.path.join(wd, "python")
+    with open(wrapper, "w") as f:
+        f.write(WATCHDOG_WRAPPER.format(python=sys.executable, log=log, runs=runs))
+    os.chmod(wrapper, 0o755)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {"PYTHONPATH": os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")])}
+    job = dict(runs=runs, log=log, t0=time.perf_counter())
+
+    def run():
+        try:
+            job["rc"] = watchdog.supervise(cfg_path, runs, max_restarts=2, backoff_s=0,
+                                           extra_env=env, python=wrapper, device=str(dev))
+        except BaseException as e:  # noqa: BLE001 -- raised again where phase 25 waits
+            job["error"] = e
+        job["seconds"] = time.perf_counter() - job["t0"]
+
+    job["thread"] = threading.Thread(target=run, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def phase_tools(dev, seed: int, failures: list, pickles: str, tmp: str, job: dict) -> dict:
+    """Phase 25, the tools and core modules: the native locator against the
+    NumPy one, the cubic resample on the card against its f64 host
+    evaluation, ``rollout_profile`` attr / trace / trace_stream over
+    TOOL_STEPS steps, ``train_profile``, ``flash_bench`` against the twin at
+    FLASH_BENCH_LENGTHS (agreement held), the watchdog run ``job``
+    (:func:`start_watchdog`) waited for and checked, ``ds_stats`` on phase
+    17's cylinder pickles (``pickles``)."""
+    import pickle
+
+    import numpy as np
+
+    from fluid_llm_tpu_torch.core import _native, cubic
+    from fluid_llm_tpu_torch.core import triangulation as tri
+    from fluid_llm_tpu_torch.data.synthetic import analytic_flow, make_cylinder_mesh
+    from fluid_llm_tpu_torch.tools import ds_stats, flash_bench, profiling, rollout_profile
+    from fluid_llm_tpu_torch.tools import train_profile
+    from fluid_llm_tpu_torch.train import checkpoint as ckpt
+
+    res, ok = {}, {}
+    parts = {}
+    # the native locator on the synthetic cylinder mesh at 238
+    t0 = time.perf_counter()
+    pos, faces = make_cylinder_mesh(seed, 40, 16)  # SyntheticCylinderDataset's mesh
+    interp = tri.get_mesh_interpolation(pos, faces, 238)
+    gx, gy = interp.grid_x, interp.grid_y
+    t_b = time.perf_counter()
+    _native.build()
+    build_s = time.perf_counter() - t_b
+    native = _native.locate(pos, faces, gx, gy)
+    plain = tri._locate_numpy(pos, faces, gx, gy)
+    numpy_ms = _host_ms(lambda: tri._locate_numpy(pos, faces, gx, gy))
+    native_ms = _host_ms(lambda: _native.locate(pos, faces, gx, gy))
+    one_ms = _host_ms(lambda: _native.locate(pos, faces, gx, gy, n_threads=1))
+    os.environ["FLUID_LLM_TPU_NATIVE_LOCATOR"] = "1"
+    try:
+        switched = tri.get_mesh_interpolation(pos, faces, 238)
+    finally:
+        del os.environ["FLUID_LLM_TPU_NATIVE_LOCATOR"]
+    ok["locator"] = bool(np.array_equal(native, plain) and np.array_equal(
+        switched.tri_index, interp.tri_index) and np.array_equal(switched.weights, interp.weights))
+    res["locator"] = dict(grid=list(gx.shape), triangles=len(faces), nodes=len(pos),
+                          numpy_ms=numpy_ms, native_ms=native_ms, native_1thread_ms=one_ms,
+                          threads=os.cpu_count(), build_s=build_s,
+                          outside=int((native < 0).sum()))
+    print(f"[tools] native locator ({_native.compiler()} {' '.join(_native.CXXFLAGS)}, built in "
+          f"{build_s:.1f} s) on the synthetic cylinder mesh ({len(pos)} nodes, {len(faces)} "
+          f"triangles) at 238 ({gx.shape[0]} x {gx.shape[1]} pixels): equal to the NumPy locator "
+          f"{np.array_equal(native, plain)}, FLUID_LLM_TPU_NATIVE_LOCATOR=1 MeshInterp equal; "
+          f"host ms (least of 3): NumPy {numpy_ms:.2f}, native {native_ms:.3f} on "
+          f"{os.cpu_count()} threads, {one_ms:.3f} on one {'ok' if ok['locator'] else 'FAIL'}")
+    # the cubic resample on the card against the f64 host evaluation
+    states = analytic_flow(pos, 2, seed)  # (2, 3, N)
+    cm = cubic.get_cubic_mesh_interpolation(pos, faces, gx, gy)
+    grads = [cubic.estimate_gradients(pos, faces, states[t, c], "min_E")
+             for t in range(2) for c in range(3)]
+    nodal = [torch.tensor(np.stack(a).reshape(2, 3, -1), dtype=torch.float32, device=dev)
+             for a in (states.reshape(6, -1), [g[0] for g in grads], [g[1] for g in grads])]
+    tables = (cm.vert_idx, cm.wf, cm.wgx, cm.wgy, cm.mask)
+    got = cubic.resample_to_grid_cubic(*nodal, *tables).cpu().numpy()
+    want = np.stack([cubic._host_cubic_eval(cm, states[t, c].astype(np.float64), *grads[3 * t + c])
+                     for t in range(2) for c in range(3)]).reshape(got.shape)
+    cubic_err = float(np.abs(got - want).max() / np.abs(want).max())
+    gpu_tables = [torch.as_tensor(t, device=dev) for t in tables]
+    cubic_ms = device_ms(lambda: cubic.resample_to_grid_cubic(*nodal, *gpu_tables))
+    ok["cubic"] = cubic_err <= CUBIC_TOL and bool((got[..., cm.mask] == 0).all())
+    res["cubic"] = dict(rel_max_err=cubic_err, ms=cubic_ms, shape=list(got.shape))
+    print(f"[tools] cubic resample (min_E gradients) on the card, 2 frames x 3 channels "
+          f"-> {got.shape[-2]} x {got.shape[-1]}: max |err| / max |host f64| {cubic_err:.2e} "
+          f"(bound {CUBIC_TOL}), masked pixels 0; {cubic_ms:.4f} ms a call (device) "
+          f"{'ok' if ok['cubic'] else 'FAIL'}")
+    parts["native and cubic"] = time.perf_counter() - t0
+
+    # rollout attribution and traces
+    t0 = time.perf_counter()
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).strip()
+    reset_launches()
+    attr = rollout_profile.attr(dev, steps=TOOL_STEPS)
+    res["attr"] = dict(attr, launches=_nonzero(read_launches()), card=smi)
+    ok["attr"] = all(attr[k] > 0 for k in ("base", "noattn", "half_layers", "mlpdec"))
+    print(f"[tools] rollout_profile attr, {TOOL_STEPS} steps a rollout, the median of 6 timed "
+          f"rollouts a variant in turns ({smi}): base {attr['base'] * 1e3:.3f} ms/step; attention "
+          f"{attr['attention_ms']:.3f}, {attr['removed_layers']} backbone layers "
+          f"{attr['layers_ms']:.3f}, MLPGNN vs MLP decoder {attr['decoder_ms']:.3f} ms/step "
+          f"{'ok' if ok['attr'] else 'FAIL'}")
+    for name, streaming in (("trace", False), ("trace_stream", True)):
+        reset_launches()
+        summary = rollout_profile.trace(dev, streaming=streaming, steps=TOOL_STEPS)
+        launches = _nonzero(read_launches())
+        kern = "slab_decode_attention" if streaming else "exact_attention"
+        ok[name] = summary is not None and summary["_total"] > 0 and launches.get(kern, 0) > 0
+        res[name] = dict(summary=summary, launches=launches)
+        print(f"[tools] rollout_profile {name}: device busy "
+              f"{(summary or {}).get('_total', 0.0) / TOOL_STEPS:.3f} ms/step over the traced "
+              f"rollout; launches of the tool's rollouts {launches} "
+              f"{'ok' if ok[name] else 'FAIL'}")
+    parts["rollout profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trace_dir = os.path.join(tmp, "train_trace")
+    reset_launches()
+    losses = train_profile.run_trace(trace_dir, dev)
+    launches = _nonzero(read_launches())
+    summary = profiling.summarize_trace(trace_dir, divisor=train_profile.TRACED_STEPS, top=40)
+    ok["train_profile"] = summary is not None and all(math.isfinite(x) for x in losses) and \
+        launches.get("flash_attention_dq", 0) == 12 * (1 + train_profile.TRACED_STEPS)
+    res["train_profile"] = dict(summary=summary, losses=losses, launches=launches)
+    print(f"[tools] train_profile: losses {[round(x, 5) for x in losses]}, device busy "
+          f"{(summary or {}).get('_total', 0.0) / train_profile.TRACED_STEPS:.3f} ms a traced "
+          f"step; launches {launches} {'ok' if ok['train_profile'] else 'FAIL'}")
+    parts["train profile"] = time.perf_counter() - t0
+
+    # flash_bench: the kernels against the twin up to 8192 tokens
+    t0 = time.perf_counter()
+    rows = [flash_bench.bench_length(1, L, dev) for L in FLASH_BENCH_LENGTHS]
+    ok["flash_bench"] = all(r["rel_out"] <= REL_TOL and r["lse_err"] <= LSE_TOL
+                            and r["rel_grad"] <= REL_TOL for r in rows)
+    res["flash_bench"] = dict(rows=rows, card=smi)
+    print(f"[tools] flash_bench bs 1, H 12 x 64, bf16, valid L - 13, ms (CUDA events, mean of "
+          f"10 after a warm call; {smi}): " + "; ".join(
+              f"L {r['L']}: plain fwd {r['plain_fwd']:.4f}, flash fwd {r['flash_fwd']:.4f}, "
+              f"plain f+b {r['plain_fb']:.4f}, flash f+b {r['flash_fb']:.4f} (rel out "
+              f"{r['rel_out']:.2e}, lse {r['lse_err']:.1e}, rel grad {r['rel_grad']:.2e})"
+              for r in rows) + f" {'ok' if ok['flash_bench'] else 'FAIL'}")
+    parts["flash bench"] = time.perf_counter() - t0
+
+    # the watchdog over a killed first child, started before phase 23
+    t0 = time.perf_counter()
+    job["thread"].join(WATCHDOG_WAIT_S)
+    if job["thread"].is_alive():
+        raise RuntimeError(f"the watchdog run did not end within {WATCHDOG_WAIT_S} s of phase 25")
+    if "error" in job:
+        raise job["error"]
+    rc, runs = job["rc"], job["runs"]
+    with open(job["log"]) as f:
+        lines = f.read().splitlines()
+    last = ckpt.latest_step(ckpt.get_save_folder(runs, -1))
+    ok["watchdog"] = (rc == 0 and len(lines) == 3 and lines[1] == "killed after step_0.epoch"
+                      and "fluid_llm_tpu_torch.main" in lines[0]
+                      and "fluid_llm_tpu_torch.continue_train" in lines[2] and last == 1)
+    res["watchdog"] = dict(rc=rc, launches=lines, last_step=last, seconds=job["seconds"])
+    print(f"[tools] watchdog over training1.yaml (2 epochs on synthetic:2, batch 2), started "
+          f"before phase 23 and run beside phases 23-24: rc {rc}, launches {lines}, newest "
+          f"checkpoint step_{last}, {job['seconds']:.1f} s from its start "
+          f"{'ok' if ok['watchdog'] else 'FAIL'}")
+    parts["watchdog (the wait)"] = time.perf_counter() - t0
+
+    # ds_stats on phase 17's cylinder pickles, against numpy over the raw fields
+    t0 = time.perf_counter()
+    train_dir = os.path.join(pickles, "cylinder_dataset", "train")
+    stats = ds_stats.main(["--load_dir", train_dir, "--resolution", "238"])
+    fields = []
+    for name in sorted(os.listdir(train_dir)):
+        with open(os.path.join(train_dir, name), "rb") as f:
+            d = pickle.load(f)
+        fields.append(np.concatenate([d["velocity"], d["pressure"]], -1).astype(np.float64))
+    worst = 0.0  # each statistic's difference over its channel's std
+    for c in range(3):
+        vals = np.concatenate([x[..., c].ravel() for x in fields])
+        diffs = np.concatenate([np.diff(x[..., c], axis=0).ravel() for x in fields])
+        for kind, ref in (("state", vals), ("diff", diffs)):
+            for k, v in (("mean", ref.mean()), ("std", ref.std())):
+                worst = max(worst, abs(stats[c][f"{kind}_{k}"] - v) / ref.std())
+    ok["ds_stats"] = worst <= 1e-9
+    res["ds_stats"] = dict(stats=stats, rel_err=worst, trajectories=len(fields))
+    print(f"[tools] ds_stats on {len(fields)} cylinder pickles: means and stds against numpy "
+          f"over the raw fields, the largest difference {worst:.1e} of its channel's std (bound "
+          f"1e-9) {'ok' if ok['ds_stats'] else 'FAIL'}")
+    parts["ds_stats"] = time.perf_counter() - t0
+    res.update(ok=ok, parts_s=parts)
+    print(f"[tools] part seconds {json.dumps({k: round(v, 1) for k, v in parts.items()})}")
+    bad = [k for k, v in ok.items() if not v]
+    if bad:
+        failures.append(f"tools: {bad}")
+    return res
 
 
 def main(argv=None) -> int:
@@ -5006,10 +5342,10 @@ def main(argv=None) -> int:
         del trainer, train_batch, trained
     short_res = phase("short rollout", phase_rollout, dev, args.seed, failures, streaming=False,
                       stacked=True, attn_impl="short", tag="short rollout", turns=(True, False))
-    with tempfile.TemporaryDirectory() as tmp:  # phases 17-18: the pickles
-        published_res = phase("published data", phase_published_data, dev, args.seed, failures,
-                              tmp)
-        notf_res = phase("notf train", phase_notf, dev, args.seed, failures, tmp, 2)
+    pickles = tempfile.TemporaryDirectory()  # phases 17-18 and 25: the pickles
+    published_res = phase("published data", phase_published_data, dev, args.seed, failures,
+                          pickles.name)
+    notf_res = phase("notf train", phase_notf, dev, args.seed, failures, pickles.name, 2)
     switch_res = phase("switches", phase_switches, dev, args.seed, failures)
     with tempfile.TemporaryDirectory() as tmp:  # phase 20: checkpoints, read again
         graph2_res = phase("graph baselines II", phase_graph_baselines_2, dev, args.seed,
@@ -5029,11 +5365,18 @@ def main(argv=None) -> int:
           f"{seconds['moe and quantized backbones']:.1f}")
     with tempfile.TemporaryDirectory() as tmp:  # phase 22: the HF cache, runs, a reference .pt
         weights_res = phase("weights in and out", phase_weights, dev, args.seed, failures, tmp)
+    watchdog_tmp = tempfile.TemporaryDirectory()  # phase 25's watchdog run, begun here
+    job = phase("watchdog start", start_watchdog, dev, args.seed, watchdog_tmp.name)
     with tempfile.TemporaryDirectory() as tmp:  # phases 23-24: YAML, references, ranks' files
         parallel_res = phase("parallel axes", phase_parallel, dev, args.seed, failures, tmp)
     if parallel_res is not None:  # phase 24 ran inside phase 23's ranks: its own seconds
         seconds["expert axis and sharded serving"] = parallel_res["expert"]["phase_s"]
         seconds["parallel axes"] -= parallel_res["expert"]["phase_s"]
+    with tempfile.TemporaryDirectory() as tmp:  # phase 25: traces
+        tools_res = None if job is None else phase(
+            "tools and core", phase_tools, dev, args.seed, failures, pickles.name, tmp, job)
+    pickles.cleanup()
+    watchdog_tmp.cleanup()
     seconds["total"] = time.perf_counter() - t_start
     print(f"[chip_smoke] phase seconds {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
 
@@ -5050,7 +5393,7 @@ def main(argv=None) -> int:
                            short_rollout=short_res, published_data=published_res,
                            notf=notf_res, switches=switch_res, graph_baselines_2=graph2_res,
                            moe_and_quantized=moe_res, weights=weights_res,
-                           parallel=parallel_res, phase_seconds=seconds,
+                           parallel=parallel_res, tools=tools_res, phase_seconds=seconds,
                            failures=failures),
                       f, indent=1, default=str)
     if failures:

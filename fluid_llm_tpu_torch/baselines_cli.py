@@ -59,6 +59,7 @@ from fluid_llm_tpu_torch.models.baselines.gat import GAT
 from fluid_llm_tpu_torch.models.baselines.graphvit import GraphViT, graphvit_loss
 from fluid_llm_tpu_torch.models.baselines.mgn import MGN, mgn_loss
 from fluid_llm_tpu_torch.train.eagle_eval import get_nrmse
+from fluid_llm_tpu_torch.tools.profiling import summarize_trace
 from fluid_llm_tpu_torch.train.loop import _profiler
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse
 from fluid_llm_tpu_torch.utils import get_device, set_seed
@@ -419,11 +420,13 @@ def run_dilresnet(args) -> dict:
 
 
 def _stop_profile(prof, device, n_steps: int, profile_dir: str) -> None:
+    """Stop the capture (its trace written to ``profile_dir``) and print its
+    device time per category (``tools/profiling.summarize_trace``, as the
+    JAX CLI's ``summarize_xplane``; nothing on a CPU trace)."""
     _sync(device)
     prof.stop()
-    key = "self_cuda_time_total" if device.type == "cuda" else "self_cpu_time_total"
-    logger.info("profile of %d train steps (trace in %s):\n%s", n_steps, profile_dir,
-                prof.key_averages().table(sort_by=key, row_limit=15))
+    logger.info("profile of %d train steps (trace in %s)", n_steps, profile_dir)
+    summarize_trace(profile_dir, divisor=max(n_steps, 1))
 
 
 def parse_args(argv=None) -> argparse.Namespace:

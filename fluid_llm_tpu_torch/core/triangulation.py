@@ -3,9 +3,12 @@
 A copy of the numpy code in ``fluid_llm_tpu/core/triangulation.py``
 (``grid_pos`` :34-54, ``_locate_numpy`` :97-131, ``get_mesh_interpolation``
 :161-200); that module imports the jax package's utilities, so the port keeps
-its own.  One difference: point location always uses the numpy locator.  The
-JAX package prefers matplotlib's trifinder, which the card's machine may not
-have; the two can differ only for pixels exactly on a triangle edge.
+its own.  Point location (:func:`locate_triangles`) uses the numpy locator,
+or with ``FLUID_LLM_TPU_NATIVE_LOCATOR=1`` in the environment the
+multithreaded C++ one (``core/_native.py``, the JAX package's switch); an
+asked-for native locator that fails raises.  The JAX package prefers
+matplotlib's trifinder, which the card's machine may not have; the locators
+can differ only for pixels exactly on a triangle edge.
 
 Linear interpolation inside a triangle is barycentric interpolation of its
 three vertex values, so every per-step resample is
@@ -14,6 +17,7 @@ three vertex values, so every per-step resample is
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -41,6 +45,17 @@ def grid_pos(x_min: float, x_max: float, y_min: float, y_max: float, grid_res: i
     grid_x = np.broadcast_to(gx[:, None], (x_points, y_points)).astype(np.float32)
     grid_y = np.broadcast_to(gy[None, :], (x_points, y_points)).astype(np.float32)
     return np.ascontiguousarray(grid_x), np.ascontiguousarray(grid_y)
+
+
+def locate_triangles(pos: np.ndarray, faces: np.ndarray, grid_x: np.ndarray,
+                     grid_y: np.ndarray) -> np.ndarray:
+    """Per-pixel containing-triangle index; -1 outside the mesh.  The numpy
+    locator, or the native one with ``FLUID_LLM_TPU_NATIVE_LOCATOR=1``."""
+    if os.environ.get("FLUID_LLM_TPU_NATIVE_LOCATOR") == "1":
+        from fluid_llm_tpu_torch.core import _native
+
+        return _native.locate(pos, faces, grid_x, grid_y)
+    return _locate_numpy(pos, faces, grid_x, grid_y)
 
 
 def _locate_numpy(pos, faces, grid_x, grid_y, eps: float = 1e-10) -> np.ndarray:
@@ -115,7 +130,7 @@ def get_mesh_interpolation(pos: np.ndarray, faces: np.ndarray, grid_res: int = 2
     x_max, y_max = np.max(pos, axis=0)
     grid_x, grid_y = grid_pos(float(x_min), float(x_max), float(y_min), float(y_max), grid_res)
 
-    tri_index = _locate_numpy(pos, faces, grid_x, grid_y)
+    tri_index = locate_triangles(pos, faces, grid_x, grid_y)
     mask = tri_index == -1
     safe_tri = np.where(mask, 0, tri_index)
 

@@ -34,8 +34,9 @@ rank's part of its config's mesh and the checkpoint restored onto it
 (``fluid_llm_tpu/inference.py:145-160``); trajectories split over the
 batch axes (data, fsdp and expert) and the heads over the model axis, a
 MoE backbone's experts over the expert axis, and rank 0 reports the N-RMSE
-of every trajectory.  Both rollouts, exact and ``--streaming``, run so;
-the streaming one not over pipeline stages.
+of every trajectory.  Both rollouts, exact and ``--streaming``, run so,
+also over pipeline stages (``parallel.pipe_axis``: each rank runs its
+stage's blocks; streamed, against its stage's share of the cache).
 """
 
 from __future__ import annotations

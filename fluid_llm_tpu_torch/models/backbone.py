@@ -76,9 +76,10 @@ a block runs its share of the heads between the Megatron pairs of
 (``seq_shard``: sequence parallelism, or ring attention,
 ``parallel/ring_attention.py``), or the backbone runs as a pipeline stage
 (``parallel/pipeline.py``).  The streaming decode runs on a
-data/fsdp/model mesh (its heads over the model axis), not over pipeline
-stages; a MoE MLP sends its tokens to the rank of their expert over the
-expert axis (:func:`moe_mlp`).
+data/fsdp/model mesh (its heads over the model axis) and over pipeline
+stages (each stage's blocks against its own slabs, the hidden state handed
+on by one hop); a MoE MLP sends its tokens to the rank of their expert
+over the expert axis (:func:`moe_mlp`).
 """
 
 from __future__ import annotations
@@ -104,6 +105,7 @@ from fluid_llm_tpu_torch.ops import short_attention as sa
 from fluid_llm_tpu_torch.ops.quant import is_quantized, quantized_layer, stack_quantized
 from fluid_llm_tpu_torch.parallel import comm
 from fluid_llm_tpu_torch.parallel import tensor as pt
+from fluid_llm_tpu_torch.parallel.pipeline import Elsewhere
 
 
 ATTN_IMPLS = ("auto", "short")
@@ -1108,6 +1110,13 @@ class Backbone(nn.Module):
         return x_s
 
 
+def own_layers(backbone: Backbone) -> list:
+    """The blocks this rank holds: all of them, but on a pipeline stage
+    (``parallel.mesh.shard_model``) its own, not the :class:`Elsewhere`
+    places of the others'."""
+    return [m for m in backbone.layers if not isinstance(m, Elsewhere)]
+
+
 @torch.no_grad()
 def stack_layers(backbone: Backbone) -> None:
     """The layer list becomes one :class:`StackedLayers`, in place
@@ -1117,10 +1126,12 @@ def stack_layers(backbone: Backbone) -> None:
     with ``E``; JAX :324-328) and on layers that differ in structure (names,
     types, int8 matmul modes, shapes or dtypes of their parameters and
     buffers: e.g. qkv packed in some only, or quantized differently), which
-    keep the list, as JAX's treedef check.  Layers quantized alike stack
+    keep the list, as JAX's treedef check, and on a pipeline stage (its
+    list holds another stage's places).  Layers quantized alike stack
     their storage."""
     layers = backbone.layers
-    if isinstance(layers, StackedLayers) or any(isinstance(m.mlp, MoEMLP) for m in layers):
+    if isinstance(layers, StackedLayers) or any(isinstance(m, Elsewhere) for m in layers) \
+            or any(isinstance(m.mlp, MoEMLP) for m in layers):
         return
     if backbone.parallel is not None and backbone.parallel.cfg != backbone.cfg:
         raise NotImplementedError("the stacked layout of a tensor-parallel backbone is not "
@@ -1155,7 +1166,7 @@ def pack_qkv_params(backbone: Backbone) -> None:
     ``merge_lora``: adapters target the unpacked names.  Quantized q/k/v
     stay unpacked (``backbone.py:368``).
     """
-    for layer in backbone.layers:
+    for layer in own_layers(backbone):
         attn = layer.attn
         if "qkv" in attn or not all(isinstance(attn[n], nn.Linear) for n in ("q", "k", "v")):
             continue
@@ -1189,7 +1200,7 @@ def cast_matmul_params(backbone: Backbone, dtype: torch.dtype) -> None:
     f32; ``backbone.py:282``).
     """
     lins = [backbone.project_in, backbone.project_out]
-    for layer in backbone.layers:
+    for layer in own_layers(backbone):
         mlp = layer.mlp.experts if isinstance(layer.mlp, MoEMLP) else layer.mlp
         lins += list(layer.attn.values()) + list(mlp.values())
     for lin in lins:
@@ -1314,13 +1325,21 @@ def apply_streaming(
     cache (``init_streaming_cache`` of ``backbone.parallel.cfg``) keeps its
     ``kv_dim / model`` columns, the decode runs at its heads, and o and
     down are followed by the sum over the model axis, as in the exact
-    path (``models.common.linear``).  Pipeline stages are refused.
+    path (``models.common.linear``).
+
+    On a pipeline mesh (``BackboneParallel.pipe``) the cache holds this
+    stage's blocks only (``init_streaming_cache`` with ``n_layers`` its
+    share; its slabs ``cache["k"][i]`` are the stage's ``i``-th block's),
+    and every pipe rank keeps the cache's positions alike.  Stage ``s``
+    takes the hidden state from stage ``s - 1`` (one point-to-point hop,
+    ``parallel.comm``; stage 0 the embedded tokens), runs its blocks
+    against its slabs and hands the result to stage ``s + 1``; the last
+    stage's result is broadcast over the pipe group, so that every rank
+    decodes the same frame.  Prefill runs through the stages alike.  With a
+    model axis each stage runs at its rank's heads, as above.
     """
     par = backbone.parallel
-    if par is not None and par.pipe is not None:
-        raise NotImplementedError("streaming decode over pipeline stages is not ported: serve "
-                                  "on a data/fsdp/model mesh (the JAX package gathers the "
-                                  "stacked layers there)")
+    stage = par.pipe if par is not None else None
     cfg = backbone.cfg if par is None else par.cfg  # this rank's heads on a TP mesh
     if cfg.pos != "rope":
         raise ValueError("streaming decode requires rotary positions (llama family); "
@@ -1371,6 +1390,13 @@ def apply_streaming(
         # the stacked scan (``backbone.py:1324-1393``): every linear through
         # the indexed-linear kernel at a device layer index
         layers = backbone.layers.views[True]
+    elif stage is not None:
+        layers = [backbone.layers[i] for i in stage.layers]
+        if ck.shape[0] != len(layers):
+            raise ValueError(f"the streaming cache holds {ck.shape[0]} layers; this pipeline "
+                             f"stage runs {len(layers)} (init_streaming_cache of its share)")
+        if stage.group.index > 0:  # the previous stage's hidden state
+            x = comm.recv(x, stage.group, stage.group.index - 1)
     else:
         layers = backbone.layers
     for li, layer in enumerate(layers):
@@ -1403,4 +1429,10 @@ def apply_streaming(
             x = x + layer.mlp_out(h2, cfg, lin)
         if not cfg.pre_ln:
             x = _norm(x, layer.ln2, cfg)
+    if stage is not None:
+        g = stage.group
+        last = g.size - 1
+        if g.index < last:
+            comm.send(x, g, g.index + 1)
+        x = comm.broadcast(x if g.index == last else torch.empty_like(x), g, last)
     return backbone._out(x, kernels), cache

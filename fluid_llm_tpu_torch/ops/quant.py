@@ -242,8 +242,13 @@ def _backbone_linears(backbone: nn.Module):
     """(parent, name) of every linear ``quantize_backbone`` stores: each
     layer's attention and MLP projections (a MoE layer's expert banks; its
     router stays float), ``project_in``/``project_out`` (``getattr``/
-    ``setattr`` reach both kinds of parent)."""
+    ``setattr`` reach both kinds of parent); on a pipeline stage, its own
+    layers'."""
+    from fluid_llm_tpu_torch.parallel.pipeline import Elsewhere
+
     for layer in backbone.layers:
+        if isinstance(layer, Elsewhere):
+            continue
         mlp = layer.mlp.experts if hasattr(layer.mlp, "experts") else layer.mlp
         for group in (layer.attn, mlp):
             for name in list(group.keys()):

@@ -19,7 +19,9 @@ sliding-window LLM style instead, for models built for it:
 Equal to dense attention under a banded mask, not to the re-encoding
 rollout; selected with ``inference.py --streaming``.  On a rank mesh
 (``parallel/mesh.shard_model``) each rank streams its rows of the batch
-with its share of the heads (the JAX ``test_streaming_sharded_matches_single``).
+with its share of the heads (the JAX ``test_streaming_sharded_matches_single``);
+over pipeline stages each rank caches and runs its stage's blocks, the
+hidden state passed stage to stage (``backbone.apply_streaming``).
 """
 
 from __future__ import annotations
@@ -71,9 +73,11 @@ def streaming_cache(model: FluidLLM, init_states: torch.Tensor) -> dict:
     if init_len > R:
         raise ValueError(f"streaming context ({init_len} frames) exceeds the ring capacity "
                          f"max_ctx_len={R}; pass at most {R} context states")
-    par = model.backbone.parallel  # on a TP mesh the cache holds this rank's heads
-    return bb.init_streaming_cache(model.backbone_cfg if par is None else par.cfg, bs,
-                                   _sinks(model, n_patch), R, n_patch,
+    par = model.backbone.parallel  # on a TP mesh the cache holds this rank's heads,
+    cfg = model.backbone_cfg if par is None else par.cfg
+    if par is not None and par.pipe is not None:  # on a pipeline stage its blocks'
+        cfg = cfg.replace(n_layers=len(par.pipe.layers))
+    return bb.init_streaming_cache(cfg, bs, _sinks(model, n_patch), R, n_patch,
                                    device=init_states.device)
 
 

@@ -148,12 +148,14 @@ def task_forward(spec: dict, rank: int) -> list:
     prepares it, merge, quantize, cut), its forward over this rank's rows
     of the batch (``stream``: that many steps of the streaming rollout
     instead, from one state), every row gathered; the quantized storage of
-    every rank with its mesh coordinates."""
+    every rank with its mesh coordinates, and each rank's blocks and (when
+    streaming) its cache's layers."""
     import torch.distributed as dist
 
     from fluid_llm_tpu_torch.parallel import comm
     from fluid_llm_tpu_torch.parallel.mesh import make_mesh, shard_batch, shard_model
-    from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming
+    from fluid_llm_tpu_torch.models.backbone import own_layers
+    from fluid_llm_tpu_torch.rollout.streaming import gen_seq_streaming, streaming_cache
 
     results = []
     for v in spec["variants"]:
@@ -174,7 +176,11 @@ def task_forward(spec: dict, rank: int) -> list:
                    if n.rsplit(".", 1)[-1] in QUANT_LEAVES}
         held = [None] * dist.get_world_size()
         dist.all_gather_object(held, (model.mesh.coords, storage))
-        results.append(dict(out=y, held=held, mesh=model.mesh.shape,
+        blocks = [None] * dist.get_world_size()  # each rank's blocks and its cache's layers
+        cache = streaming_cache(model, batch[0][:, :1]) if v.get("stream") else None
+        dist.all_gather_object(blocks, (model.mesh.coords, len(own_layers(model.backbone)),
+                                        None if cache is None else cache["k"].shape[0]))
+        results.append(dict(out=y, held=held, mesh=model.mesh.shape, blocks=blocks,
                             heads=model.backbone.parallel.cfg.n_heads))
     return results
 
