@@ -58,10 +58,14 @@ Phases, each printing one line per result; any failure exits nonzero:
                tables ``indexed_linear.plan``, ``quant_matmul.plan``,
                ``quant_matmul.w8a8_plan``, ``short_attention.plan``,
                ``grid_gnn_fused.fwd_plan`` and ``segment_ops.gather_plan``
-               are read from.  The segment kernels also run at GraphViT's
-               shapes (by the unsorted member ids of one collated batch at
-               the EAGLE geometry: gathers at F 2, 64, 128 and 512, sums at
-               F 32, 128 and 512) and in bf16 (MeshGraphNet's F 128 by the
+               are read from; and the slab decode (the wrapped ring at H 6)
+               and w8a16 at phase 24's eight rank-local shapes, in this one
+               process, against the twin and timed beside SDPA and bf16
+               ``F.linear`` ("[plans] rank-local").  The segment kernels
+               also run at GraphViT's shapes (by the unsorted member ids of
+               one collated batch at the EAGLE geometry: gathers at F 2, 64,
+               128 and 512, sums at F 32, 128 and 512) and in bf16
+               (MeshGraphNet's F 128 by the
                senders, GraphViT's F 512 by member: the sum equal bit for
                bit to the CSR walk in f32 rounded once, the gather to its
                twin);
@@ -310,10 +314,10 @@ Phases, each printing one line per result; any failure exits nonzero:
                memory) answered 500, a third equal to the first; w8a16
                7x12x26, slab decode 12x26, slot 3x25 in each rank's
                rollout; each rank's int8 storage equal bit for bit to
-               its cut of the one-process quantization; w8a16 at the eight
-               rank-local shapes (60 and 61 rows: 768->384, 384->768,
-               768->1024, 1024->768) with the grid rule's plan against the
-               twin (REL_TOL) and timed; (d) ``flagship_llama.yaml``
+               its cut of the one-process quantization (w8a16 at the eight
+               rank-local shapes, 60 and 61 rows: 768->384, 384->768,
+               768->1024, 1024->768, is held to its twin and timed in
+               phase 3's plans); (d) ``flagship_llama.yaml``
                fine-tuned in full (pipeline stages take no adapters)
                streamed 25 steps on pipe 2 x model 2 (each rank caches and
                runs its stage's 6 blocks at 6 heads, the hidden state
@@ -325,7 +329,13 @@ Phases, each printing one line per result; any failure exits nonzero:
                locator (and through ``FLUID_LLM_TPU_NATIVE_LOCATOR=1``), both
                host times; ``core/cubic.resample_to_grid_cubic`` on the card
                (min_E gradients, 2 frames x 3 channels) within CUBIC_TOL of
-               the f64 host evaluation; ``tools/rollout_profile`` attr (the
+               the f64 host evaluation; ``core/interp.resample_sequence`` on
+               the card (10 frames x 3 channels) within RESAMPLE_TOL of the
+               f64 numpy resample, timed, and ``to_grid`` equal to one of its
+               frames bit for bit with the MeshInterp's mask;
+               ``tools/plotting.plot_field`` raising ImportError and writing
+               nothing where matplotlib is missing (writing its figure where
+               it is present); ``tools/rollout_profile`` attr (the
                ms/step of attention, 6 of 12 layers and the MLPGNN decoder),
                trace and trace_stream over TOOL_STEPS steps (device events
                summarised per category); ``tools/train_profile`` (3 traced
@@ -1259,18 +1269,79 @@ def _gather_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+def _rank_local(dev, failures: list) -> list[dict]:
+    """The slab decode and w8a16 at the rank-local shapes of phase 24's
+    flagship under model 2, in this one process: the slab decode's wrapped
+    ring (60 queries, 704 keys) at H 6 and w8a16 at W8A16_RANK_SHAPES (no
+    bias, the grid rule's plan), each against the twin (REL_TOL), timed
+    beside the library call (SDPA with the same mask; bf16 ``F.linear`` on
+    the weight dequantised beforehand) and the bound."""
+    import torch.nn.functional as F
+
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import decode_attention as da
+    from fluid_llm_tpu_torch.ops import quant
+    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
+
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).strip()
+    g = torch.Generator().manual_seed(20)
+    rows = []
+    q12, cache, key_pos, q0, li = _slab_case(dev, "wrapped", g)
+    H, D = 6, 6 * 64  # the first 6 of 12 heads: a rank's under model 2
+    q = q12[..., :D].contiguous()
+    k, v = (cache[n][..., :D].contiguous() for n in ("k", "v"))
+    P, tot = q.shape[1], k.shape[2] * k.shape[3]
+    allowed = key_pos[0, :tot][None] <= q0 + torch.arange(P, device=dev)[:, None]
+    k_l, v_l = (t[li].reshape(1, tot, D) for t in (k, v))
+    out = da.slab_decode(q, k, v, key_pos, q0, li, 64)
+    rel = rel_err(out, da.slab_decode_ref(q, k, v, key_pos, q0, li, 64))
+    rows.append(dict(
+        kernel="slab_decode_attention", shape=f"q {tuple(q.shape)}, {tot} keys, H {H}", rel=rel,
+        ms=device_ms(lambda: da.slab_decode(q, k, v, key_pos, q0, li, 64)),
+        plain_ms=device_ms(lambda: da.slab_decode_ref(q, k, v, key_pos, q0, li, 64)),
+        library_ms=device_ms(lambda: sdpa(q, k_l, v_l, allowed[None, None], H)),
+        **bound(nbytes(q, out, key_pos[0, :tot]) + 2 * allowed.any(0).sum().item() * D * 2,
+                4 * D * allowed.sum().item(), "bf16")))
+    for M, K, N in W8A16_RANK_SHAPES:
+        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
+        wq, scale = qp["q"].to(dev), qp["scale"].to(dev)
+        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+        out = qmm.qmm_w8a16(x, wq, scale, None)
+        rel = rel_err(out, qmm.int8_matmul_ref(x, wq, scale, None, "w8a16"))
+        w = quant.dequantize_weight(wq, scale, torch.bfloat16)
+        rows.append(dict(
+            kernel="quant_matmul_w8a16", rel=rel,
+            shape=f"({M}, {K}, {N}) plan {qmm.plan(M, K, N, _build.sm_count(dev))}",
+            ms=device_ms(lambda: qmm.qmm_w8a16(x, wq, scale, None)),
+            plain_ms=device_ms(lambda: qmm.int8_matmul_ref(x, wq, scale, None, "w8a16")),
+            library_ms=device_ms(lambda: F.linear(x, w)),
+            **bound(nbytes(x, wq, scale, out), 2 * M * K * N, "bf16")))
+    for r in rows:
+        r["card"] = smi
+        if not r["rel"] <= REL_TOL:
+            failures.append(f"rank-local {r['kernel']} at {r['shape']}: rel {r['rel']}")
+    print(f"[plans] rank-local shapes of model 2, one process ({smi}), ms kernel / twin / "
+          "library (bound): " + "; ".join(
+              f"{r['kernel']} {r['shape']} {r['ms']:.4f} / {r['plain_ms']:.4f} / "
+              f"{r['library_ms']:.4f} ({r['bound_ms']:.4f} by {r['bound_by']}), rel {r['rel']:.2e}"
+              for r in rows))
+    return rows
+
+
 def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
     ``quant_matmul.plan``, ``quant_matmul.w8a8_plan``,
     ``short_attention.plan``, ``grid_gnn_fused.fwd_plan`` and
-    ``segment_ops.gather_plan`` are read from."""
+    ``segment_ops.gather_plan`` are read from; then the slab decode and
+    w8a16 at phase 24's rank-local shapes beside their library calls."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
                 quant_matmul_w8a8=_w8a8_plans(dev, failures),
                 short_attention=_short_attention_plans(dev, failures),
                 slot_attention_fwd=_slot_fwd_plans(dev, failures),
-                segment_gather=_gather_plans(dev, failures))
+                segment_gather=_gather_plans(dev, failures),
+                rank_local=_rank_local(dev, failures))
 
 
 def rollout_valid(n_valid_frames: int, frame: int = 60, window: int = 10) -> torch.Tensor:
@@ -4312,7 +4383,7 @@ def phase_parallel(dev, seed: int, failures: list, tmp: str) -> dict:
     try:
         refs = parallel_references(dev, seed, folder)
         t0 = time.perf_counter()
-        expert_refs = expert_references(dev, seed, folder, failures)
+        expert_refs = expert_references(dev, seed, folder)
         expert_s = time.perf_counter() - t0
     except BaseException:
         collect(kill=True)
@@ -4758,46 +4829,13 @@ def expert_rank(rank: int, folder: str, dev, seed: int, world) -> dict:
     return out
 
 
-def _w8a16_rank_shapes(dev, failures: list) -> list[dict]:
-    """w8a16 at the flagship's rank-local shapes under model 2
-    (W8A16_RANK_SHAPES, no bias): the plan the grid rule picks
-    (``quant_matmul.plan``) against the twin, both timed."""
-    from fluid_llm_tpu_torch.ops import _build
-    from fluid_llm_tpu_torch.ops import quant
-    from fluid_llm_tpu_torch.ops import quant_matmul as qmm
-
-    g = torch.Generator().manual_seed(18)
-    sms = _build.sm_count(dev)
-    rows = []
-    for M, K, N in W8A16_RANK_SHAPES:
-        qp = quant.quantize_weight(torch.randn(N, K, generator=g) * 0.02)
-        q, scale = qp["q"].to(dev), qp["scale"].to(dev)
-        x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
-        out = qmm.qmm_w8a16(x, q, scale, None)
-        ref = qmm.int8_matmul_ref(x, q, scale, None, "w8a16")
-        rel = rel_err(out, ref)
-        ms = device_ms(lambda: qmm.qmm_w8a16(x, q, scale, None))
-        plain_ms = device_ms(lambda: qmm.int8_matmul_ref(x, q, scale, None, "w8a16"))
-        rows.append(dict(M=M, K=K, N=N, plan=qmm.plan(M, K, N, sms), rel=rel, ms=ms,
-                         plain_ms=plain_ms, **bound(nbytes(x, q, scale, out), 2 * M * K * N,
-                                                    "bf16")))
-        if not rel <= REL_TOL:
-            failures.append(f"expert (c): w8a16 at M {M} K {K} N {N}: rel {rel}")
-    print("[expert axis] (c) w8a16 at the rank-local shapes of model 2, the grid rule's plan "
-          "(token tile, K split) vs the twin: " + "; ".join(
-              f"({r['M']}, {r['K']}, {r['N']}) plan {r['plan']} rel {r['rel']:.2e} "
-              f"{r['ms']:.4f} ms (twin {r['plain_ms']:.4f}, bound {r['bound_ms']:.4f} by "
-              f"{r['bound_by']})" for r in rows))
-    return rows
-
-
-def expert_references(dev, seed: int, folder: str, failures: list) -> dict:
+def expert_references(dev, seed: int, folder: str) -> dict:
     """Phase 24's one-process references, written for the ranks where they
     read them: one MoE step of each router (loss, balance loss, gradients),
     the EXPERT_STEPS-step MoE rollout of 4 trajectories, the flagship's
     streamed rollout of 2, a flagship checkpoint (``config.yaml`` with model
     2) and the one-process int8 engine on it (its reply to the request, its
-    int8 storage); w8a16 at the ranks' shapes."""
+    int8 storage)."""
     from fluid_llm_tpu_torch import inference
     from fluid_llm_tpu_torch.data import get_dataset, make_batches
     from fluid_llm_tpu_torch.main import build_model_and_trainer
@@ -4850,7 +4888,6 @@ def expert_references(dev, seed: int, folder: str, failures: list) -> dict:
                 if k.endswith((".q", ".scale"))}, os.path.join(folder, "quant_storage.pt"))
     del one
     torch.cuda.empty_cache()
-    out["w8a16"] = _w8a16_rank_shapes(dev, failures)
     return out
 
 
@@ -4968,7 +5005,7 @@ def check_expert(dev, seed: int, folder: str, got: dict, refs: dict, res: dict,
     res["serve"] = dict(codes=[first[0], failed[0], again[0]], rel=rel_c,
                         error=failed[1].get("error"), per_rank=sv["per_rank"],
                         wall_s=[first[2], failed[2], again[2]], want_launches=want_c,
-                        info=info[1], w8a16=refs["w8a16"])
+                        info=info[1])
     print(f"[expert axis] (c) tools.serve --quant int8 over {PARALLEL_RANKS} ranks on "
           f"{sv['mesh']}, {sv['per_rank'][0]['heads']} heads a rank: /v1/info mesh "
           f"{info[1].get('mesh')}; replies {first[0]}, {failed[0]} ({failed[1].get('error')}), "
@@ -5012,6 +5049,8 @@ def check_expert(dev, seed: int, folder: str, got: dict, refs: dict, res: dict,
 
 TOOL_STEPS = 25  # BENCH_ROLLOUT_STEPS of phase 25's rollout profiles
 CUBIC_TOL = 1e-5  # f32 device gather + 9-term FMA against the f64 host evaluation, relative
+RESAMPLE_FRAMES = 10  # the window of phase 25's resample_sequence check
+RESAMPLE_TOL = 1e-6  # f32 device gather + 3-term sum against the f64 host resample, relative
 FLASH_BENCH_LENGTHS = (661, 1536, 4096, 8192)
 WATCHDOG_WAIT_S = 600  # phase 25's wait for the watchdog run begun before phase 23
 WATCHDOG_WRAPPER = """#!{python}
@@ -5086,10 +5125,70 @@ def start_watchdog(dev, seed: int, tmp: str) -> dict:
     return job
 
 
+def resample_checks(dev, seed: int, pos, faces, mi, tmp: str, smi: str) -> tuple[dict, dict]:
+    """Phase 25's whole-window resample and figure checks on the mesh ``mi``
+    (a MeshInterp of ``pos``, ``faces``): ``core/interp.resample_sequence``
+    on the card over a RESAMPLE_FRAMES-frame window of the analytic flow's 3
+    channels within RESAMPLE_TOL of the f64 numpy resample on the host
+    (masked pixels 0), timed; ``to_grid`` on one frame: its mask
+    ``mi.mask``, its data that frame bit for bit; ``tools/plotting.plot_field``
+    without matplotlib (the card's machine has none) raising ImportError and
+    writing no file, or with it writing its figure.  Returns (results, ok)."""
+    import importlib.util
+
+    import numpy as np
+
+    from fluid_llm_tpu_torch.core import interp
+    from fluid_llm_tpu_torch.data.synthetic import analytic_flow
+    from fluid_llm_tpu_torch.tools import plotting
+
+    res, ok = {}, {}
+    states = analytic_flow(pos, RESAMPLE_FRAMES, seed)  # (T, 3, N)
+    tables = [torch.as_tensor(a, device=dev) for a in (mi.vert_idx, mi.weights, mi.mask)]
+    vals = torch.as_tensor(states, device=dev)
+    got = interp.resample_sequence(vals, *tables)
+    host = np.einsum("tchwk,hwk->tchw", states.astype(np.float64)[..., mi.vert_idx],
+                     mi.weights.astype(np.float64))
+    want = np.where(mi.mask, 0.0, host)
+    got_np = got.cpu().numpy()
+    err = float(np.abs(got_np - want).max() / np.abs(want).max())
+    ms = device_ms(lambda: interp.resample_sequence(vals, *tables))
+    ok["resample_sequence"] = (got_np.shape == want.shape and got_np.dtype == np.float32
+                               and err <= RESAMPLE_TOL and bool((got_np[..., mi.mask] == 0).all()))
+    res["resample_sequence"] = dict(rel_max_err=err, ms=ms, shape=list(got_np.shape), card=smi)
+    print(f"[tools] resample_sequence on the card, {RESAMPLE_FRAMES} frames x 3 channels of "
+          f"{len(pos)} nodes -> {got_np.shape[-2]} x {got_np.shape[-1]}: max |err| / max |host "
+          f"f64| {err:.2e} (bound {RESAMPLE_TOL}), masked pixels 0; {ms:.4f} ms a call (device; "
+          f"{smi}) {'ok' if ok['resample_sequence'] else 'FAIL'}")
+    t = RESAMPLE_FRAMES // 2
+    data, mask = interp.to_grid(vals[t], mi)
+    ok["to_grid"] = bool(np.array_equal(mask, mi.mask) and data.device == vals.device
+                         and torch.equal(data, got[t]))
+    res["to_grid"] = dict(frame=t, equal=ok["to_grid"])
+    print(f"[tools] to_grid on frame {t} on the card: mask equal to the MeshInterp's, data equal "
+          f"bit for bit to that frame of resample_sequence {'ok' if ok['to_grid'] else 'FAIL'}")
+    out = os.path.join(tmp, "field.png")
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    try:
+        plotting.plot_field(got_np[t, 0], out)
+        raised = None
+    except ImportError as e:
+        raised = str(e)
+    written = os.path.exists(out)
+    ok["plot_field"] = (written and raised is None) if has_mpl else (raised is not None
+                                                                     and not written)
+    res["plot_field"] = dict(matplotlib=has_mpl, raised=raised, written=written)
+    print(f"[tools] plot_field with matplotlib {'present' if has_mpl else 'missing'}: "
+          f"{'raised ImportError (' + raised + ')' if raised else 'no ImportError'}, "
+          f"figure {'written' if written else 'not written'} "
+          f"{'ok' if ok['plot_field'] else 'FAIL'}")
+    return res, ok
+
+
 def phase_tools(dev, seed: int, failures: list, pickles: str, tmp: str, job: dict) -> dict:
     """Phase 25, the tools and core modules: the native locator against the
     NumPy one, the cubic resample on the card against its f64 host
-    evaluation, ``rollout_profile`` attr / trace / trace_stream over
+    evaluation, :func:`resample_checks`, ``rollout_profile`` attr / trace / trace_stream over
     TOOL_STEPS steps, ``train_profile``, ``flash_bench`` against the twin at
     FLASH_BENCH_LENGTHS (agreement held), the watchdog run ``job``
     (:func:`start_watchdog`) waited for and checked, ``ds_stats`` on phase
@@ -5159,9 +5258,16 @@ def phase_tools(dev, seed: int, failures: list, pickles: str, tmp: str, job: dic
           f"{'ok' if ok['cubic'] else 'FAIL'}")
     parts["native and cubic"] = time.perf_counter() - t0
 
-    # rollout attribution and traces
+    # the whole-window resample, to_grid and a figure helper
     t0 = time.perf_counter()
     smi = run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]).strip()
+    more, more_ok = resample_checks(dev, seed, pos, faces, interp, tmp, smi)
+    res.update(more)
+    ok.update(more_ok)
+    parts["resample and figures"] = time.perf_counter() - t0
+
+    # rollout attribution and traces
+    t0 = time.perf_counter()
     reset_launches()
     attr = rollout_profile.attr(dev, steps=TOOL_STEPS)
     res["attr"] = dict(attr, launches=_nonzero(read_launches()), card=smi)
