@@ -387,6 +387,7 @@ their launches from phase 20's two ``--dtype bf16`` runs.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import logging
 import math
@@ -1269,6 +1270,51 @@ def _gather_plans(dev, failures: list) -> list[dict]:
     return res
 
 
+def _sum_bf16_plans(dev, failures: list) -> list[dict]:
+    """Every launch plan of the bf16 segment sum's ring (K edge rows a
+    stage, S stages, R rows a warp, W warps a block, B blocks of one long
+    row, within shared memory)
+    at its main path's shapes: MeshGraphNet's F 128 by the EAGLE senders
+    (each row's edges consecutive) and receivers (scattered) and GraphViT's
+    F 512 by member, each equal to the CSR walk bit for bit
+    and timed, ``segment_ops.sum_plan``'s choice marked."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(13)
+    edges = eagle_edges(dev)
+    n = int(edges.max()) + 1
+    cases = [(128, so.SegmentIndex(edges[..., 0], n), "edges[..., 0]"),
+             (128, so.SegmentIndex(edges[..., 1], n), "edges[..., 1]"),
+             (512, graphvit_members(dev), "cluster members")]
+    res = []
+    for F, index, by in cases:
+        x = torch.randn(index.ids.shape[0], F, generator=g).to(dev, torch.bfloat16)
+        ref = so.csr_walk(x, index)
+        chosen = so.sum_plan(F)
+        timed = []
+        for plan in itertools.product((8, 16, 32), (2, 4), (4, 8, 16), (2, 4, 8, 16), (0, 16)):
+            if so.ring_smem(F, plan) > so.SMEM_MAX:
+                continue
+            with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
+                out = so.segment_sum_bf16(x, index)
+                ms = device_ms(lambda: so.segment_sum_bf16(x, index))
+            torch.cuda.synchronize()
+            exact = bool(torch.equal(out, ref))
+            timed.append(dict(plan=plan, ms=ms, exact=exact, chosen=plan == chosen))
+            if not exact:
+                failures.append(f"segment sum bf16 plan {plan} at F {F}: not the CSR walk")
+        timed.sort(key=lambda r: r["ms"])
+        print(f"[plans] segment_sum_bf16 ({index.ids.shape[0]}, {F}) by {by} -> "
+              f"({index.n_rows}, {F}), (K, S, R, W, B): "
+              + "; ".join(f"{r['plan']} {r['ms']:.4f}{' (plan)' if r['chosen'] else ''}"
+                          for r in timed[:12])
+              + f"; {len(timed)} plans, slowest {timed[-1]['ms']:.4f}; plan "
+              f"{next((r['ms'] for r in timed if r['chosen']), float('nan')):.4f}; all bit for "
+              f"bit {all(r['exact'] for r in timed)}")
+        res.append(dict(F=F, plans=timed))
+    return res
+
+
 def _rank_local(dev, failures: list) -> list[dict]:
     """The slab decode and w8a16 at the rank-local shapes of phase 24's
     flagship under model 2, in this one process: the slab decode's wrapped
@@ -1332,8 +1378,9 @@ def phase_plans(dev, failures: list) -> dict:
     """Every launch plan of the kernels that choose one per shape, timed at
     their main path's shapes: the tables ``indexed_linear.plan``,
     ``quant_matmul.plan``, ``quant_matmul.w8a8_plan``,
-    ``short_attention.plan``, ``grid_gnn_fused.fwd_plan`` and
-    ``segment_ops.gather_plan`` are read from; then the slab decode and
+    ``short_attention.plan``, ``grid_gnn_fused.fwd_plan``,
+    ``segment_ops.gather_plan`` and ``segment_ops.sum_plan`` are read from;
+    then the slab decode and
     w8a16 at phase 24's rank-local shapes beside their library calls."""
     return dict(indexed_linear=_indexed_linear_plans(dev, failures),
                 quant_matmul_w8a16=_w8a16_plans(dev, failures),
@@ -1341,6 +1388,7 @@ def phase_plans(dev, failures: list) -> dict:
                 short_attention=_short_attention_plans(dev, failures),
                 slot_attention_fwd=_slot_fwd_plans(dev, failures),
                 segment_gather=_gather_plans(dev, failures),
+                segment_sum_bf16=_sum_bf16_plans(dev, failures),
                 rank_local=_rank_local(dev, failures))
 
 
@@ -1489,11 +1537,18 @@ def _segment_row(kernel: str, x: torch.Tensor, index, main: bool, by: str) -> di
     ids = index.ids.long()
     rows = torch.where(ids >= 0, ids, index.n_rows)
     geometry = None
-    if kernel.startswith("segment_sum"):
+    gather = not kernel.startswith("segment_sum")
+    if not gather:
         twin = so.segment_sum_ref
         zeros = torch.zeros(index.n_rows + 1, x.shape[1], dtype=x.dtype, device=x.device)
         library = lambda: torch.index_add(zeros, 0, rows, x)  # noqa: E731
         n_out, ops = index.n_rows * x.shape[1], x.numel()
+        if kernel == "segment_sum_bf16" and x.shape[1] >= so.WIDE and x.shape[1] % 8 == 0:
+            plan = K, S, R, W, B = so.sum_plan(x.shape[1])
+            geometry = (f"ring of {S} stages of {K} edge rows a warp, {R} rows a warp, "
+                        f"{W} warps a block, {so.ring_smem(x.shape[1], plan)} bytes of shared "
+                        f"memory a block; the first {B} rows of the long-first order a block "
+                        f"each")
     else:
         twin = so.gather_ref
         clamped = ids.clamp(min=0)
@@ -1506,12 +1561,12 @@ def _segment_row(kernel: str, x: torch.Tensor, index, main: bool, by: str) -> di
     out, ref = fn(x, index), twin(x, index)
     again, twin_again = fn(x, index), twin(x, index)
     torch.cuda.synchronize()
-    if geometry is not None:
+    if gather:
         exact, exact_to = bool(torch.equal(out, ref)), "the twin"
     else:  # IEEE f32 adds, one at a time: the same bits on any device
         exact, exact_to = bool(torch.equal(out, so.csr_walk(x, index))), "the CSR walk"
     return dict(
-        kernel=kernel, shape=f"{'edges' if geometry is None else 'nodes'} {tuple(x.shape)} "
+        kernel=kernel, shape=f"{'nodes' if gather else 'edges'} {tuple(x.shape)} "
         f"{x.dtype} by {by} -> {tuple(out.shape)}", main_path=main,
         rel=rel_err(out.float(), ref.float()), rel_tol=SEGMENT_REL_TOL if x.dtype == torch.float32
         else BF16_SEGMENT_REL_TOL,

@@ -59,6 +59,27 @@
 //   `order`: those rows, then the rest in row order), so the ghost rows'
 //   17 rounds overlap the short rows instead of trailing them.
 // - the value rows are read once: streaming loads (evict first).
+// - bf16 rows of whole 16-byte vectors (F >= WIDE, F % 8 == 0) take a ring
+//   of bulk copies instead (segment_sum_ring_kernel).  In the wide walk a
+//   thread holds ROUND 16-byte loads, and a 16-byte vector is 8 bf16
+//   elements against 4 f32: a bf16 row has half the threads and half the
+//   bytes in flight of an f32 one, and the ghost rows' 17 rounds each wait
+//   a load's latency.  In the ring the lanes of a warp ask the copy engine
+//   for whole edge rows (cp.async.bulk into shared memory: 256 bytes at F
+//   128, 1 KiB at F 512), K stream positions a stage, counted on the
+//   stage's mbarrier, S stages a warp; the lanes add a stage in f32 out of
+//   shared memory and hand it back.  A warp keeps S K edge rows in flight,
+//   set by the plan (ops/segment_ops.sum_plan) and not by the element
+//   width or the registers.  Three things the card showed (PERF.md, PR 21):
+//   many 256-byte copies keep the copy engine busier than fewer long ones,
+//   so consecutive edge rows (a row's edges by senders, the ghost rows'
+//   padding edges) go as one copy; the ghost rows' chain of loads
+//   (order, row_ptr, perm, the copies) sets the end, so the first B rows of
+//   the long-first order each take a block whose W rings are one ring of
+//   all their edges; and the perm entries of the next CHUNKS * 32 stream
+//   positions are loaded ahead, not one chunk at a time.  A warp takes R
+//   rows strided over the grid; rows wider than RING_SLICE bytes are cut
+//   into slices, one task each.  The adds keep the wide walk's order.
 // - the gather is a row copy, zero rows for ids out of range, in VEC-wide
 //   vectors: 4 (16 bytes) where F % 4 == 0 and both pointers are 16-byte
 //   aligned, 2 (8 bytes) where F % 2 == 0 and they are 8-byte aligned, else
@@ -86,6 +107,11 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,6 +123,11 @@ constexpr int ROUND = 8;            // a wide row's edges a round
 constexpr int CHUNK_EDGES = 512;    // a narrow warp's staged edges ...
 constexpr int CHUNK_FLOATS = 1024;  // ... and their values (as f32)
 constexpr int LOADS = 16;           // a narrow lane's staging loads in flight together
+constexpr int RING_SLICE = 1024;    // bytes of a row one task of the bf16 ring covers at most
+constexpr int RING_WARPS = 16;      // the bf16 ring's warps a block at most
+constexpr int RING_LONG = 64;       // the bf16 ring's blocks of one long row at most
+constexpr int CHUNKS = 8;           // a ring warp's chunks of 32 copy sources fetched ahead
+constexpr unsigned FULL = 0xffffffffu;
 
 // The element types: their bits in memory, and the exact widening to f32
 // and the one rounding back.
@@ -258,6 +289,209 @@ segment_sum_wide_kernel(const typename E::Bits* __restrict__ values, const int* 
   o.store(out + row * F + c * VEC);
 }
 
+// PB bytes of a row (PB / 2 bf16 elements, two a word), as one shared-memory
+// load or global store
+template <int PB>
+struct alignas(PB) Words {
+  unsigned w[PB / 4];
+};
+
+// bf16 rows of whole 16-byte vectors, F >= WIDE: a ring of bulk copies.
+// Task t is the slice of row order[t / slices] from byte (t % slices) *
+// RING_SLICE.  Blocks 0 .. B - 1 take tasks 0 .. B - 1, the long rows
+// (`order` starts with them), one each on the block's warp 0 with the
+// block's W rings as one ring of W S stages: the whole run of a ghost row
+// in flight at once.  In the other blocks warp g of the G takes tasks B +
+// g, B + g + G, ... (at most R, one a lane's registers).  A warp's stream
+// is its tasks' edges one after another; stage st of its ring holds
+// stream positions K st .. K st + K - 1, each the edge row's slice, one
+// bulk copy for each run of consecutive edge rows, counted on the stage's
+// mbarrier (a long row's block stages 32 positions where its ring allows).
+// A stage is refilled with stage st + S as soon as the warp has added it,
+// so S K rows of the warp are in flight whatever the element width.  Lane
+// l adds pieces l, l + 32, ... (JP of PB bytes) of each slice from shared
+// memory in f32, the edges in stream order (UNROLL at a time where the
+// task has them): each element's edges ascending from 0, rounded once at
+// the store.  The copies' edge
+// rows come from perm 32 stream positions at a time, a lane's entry each,
+// fetched CHUNKS chunks ahead and handed to the copying lanes by shuffles.
+template <int PB, int JP>
+__global__ void __launch_bounds__(32 * RING_WARPS)
+segment_sum_ring_kernel(const unsigned char* __restrict__ values, const int* __restrict__ perm,
+                        const int* __restrict__ row_ptr, const int* __restrict__ order,
+                        unsigned char* __restrict__ out, int n_rows, int F, int K, int S, int R,
+                        int G, int B) {
+  constexpr int UNROLL = 4 / JP;  // edges loaded before their adds
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, W = blockDim.x >> 5;
+  const int RB = 2 * F, SB = min(RB, RING_SLICE), slices = (RB + SB - 1) / SB;
+  const uint32_t bars0 = hopper::smem_addr(smem) + W * S * K * SB;
+  long long first, stride;
+  unsigned char* ring;
+  uint32_t bars;
+  if (blockIdx.x < B) {  // a long row: the block's rings as one, in stages of 32 where they fit
+    if (w > 0) return;
+    first = blockIdx.x, stride = 0, ring = smem, bars = bars0;
+    S *= W;
+    if (S * K % 32 == 0) S = S * K / 32, K = 32;
+    R = 1;
+  } else {
+    const int g = (blockIdx.x - B) * W + w;
+    if (g >= G) return;  // the whole warp
+    first = B + g, stride = G, ring = smem + w * S * K * SB, bars = bars0 + 8 * S * w;
+  }
+
+  // lane k < R: task first + stride k (its row, its slice's first byte and
+  // bytes, its first edge and edges); the warp's tasks are lanes 0 .. nt - 1
+  const long long t = first + stride * lane;
+  const bool has = lane < R && t < (long long)n_rows * slices;
+  int row = 0, col = 0, bytes = 0, a = 0, len = 0;
+  if (has) {
+    row = order[t / slices];
+    col = (int)(t % slices) * SB;
+    bytes = min(SB, RB - col);
+    a = row_ptr[row];
+    len = row_ptr[row + 1] - a;
+  }
+  int end = len;  // the stream: task k's edges are positions off .. end - 1
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, end, d);
+    if (lane >= d) end += v;
+  }
+  const int off = end - len, T = __shfl_sync(FULL, end, 31);
+  const int nt = __popc(__ballot_sync(FULL, has));
+
+  for (int i = lane; i < S; i += 32) hopper::mbar_init(bars + 8 * i, 1);
+  hopper::mbar_init_fence();
+  __syncwarp();
+
+  // the task of stream position s < T: the last starting at or before it
+  auto task_of = [&](int s) {
+    int k = 0;
+    if (nt <= 1) return k;
+#pragma unroll
+    for (int step = 16; step; step >>= 1)
+      if (__shfl_sync(FULL, off, k + step) <= s) k += step;
+    return k;
+  };
+  // chunk c: stream position 32 c + lane's edge row (-1 past T)
+  auto fetch = [&](int c) {
+    if (32 * c >= T) return -1;
+    const int s = 32 * c + lane, k = task_of(s);
+    const int ak = __shfl_sync(FULL, a, k), ok = __shfl_sync(FULL, off, k);
+    return s < T ? perm[ak + s - ok] : -1;
+  };
+  int edge[CHUNKS], chunk = 0;  // chunks chunk .. chunk + CHUNKS - 1
+#pragma unroll
+  for (int i = 0; i < CHUNKS; ++i) edge[i] = fetch(i);
+  // stage st's copies (K divides 32: a stage lies in one chunk)
+  auto issue = [&](int st) {
+    const int p0 = st * K;
+    if (p0 >= T) return;
+    while (p0 >> 5 > chunk) {
+#pragma unroll
+      for (int i = 0; i + 1 < CHUNKS; ++i) edge[i] = edge[i + 1];
+      edge[CHUNKS - 1] = fetch(++chunk + CHUNKS - 1);
+    }
+    const int p = p0 + lane, e = __shfl_sync(FULL, edge[0], p & 31);
+    int sb = 0, nb = RB;  // the slice's first byte and bytes
+    if (slices > 1) {
+      const int k = task_of(min(p, T - 1));
+      sb = __shfl_sync(FULL, col, k), nb = __shfl_sync(FULL, bytes, k);
+    }
+    if (lane >= K || p >= T) nb = 0;
+    const uint32_t bar = bars + 8 * (st % S);
+    const int total = __reduce_add_sync(FULL, nb);
+    // whole rows of consecutive edges are consecutive slots: one copy a run
+    const int prev = __shfl_up_sync(FULL, e, 1);
+    const unsigned heads = __ballot_sync(FULL, nb && (lane == 0 || slices > 1 || prev + 1 != e));
+    const int n_copied = __popc(__ballot_sync(FULL, nb != 0));
+    const unsigned later = heads & ~((2u << lane) - 1);  // the heads past this lane
+    const int run = (later ? __ffs(later) - 1 : n_copied) - lane;
+    if (lane == 0) hopper::mbar_expect(bar, total);
+    __syncwarp();
+    if (heads >> lane & 1) {  // after the warp's reads of the stage's last use
+      hopper::fence_proxy_async();
+      hopper::bulk_copy(hopper::smem_addr(ring + ((st % S) * K + lane) * SB),
+                        values + (long long)e * RB + sb, nb * run, bar);
+    }
+  };
+
+  float acc[JP][PB / 2];
+#pragma unroll
+  for (int j = 0; j < JP; ++j)
+#pragma unroll
+    for (int i = 0; i < PB / 2; ++i) acc[j][i] = 0.f;
+  int k = 0, rem = __shfl_sync(FULL, len, 0), kb = __shfl_sync(FULL, bytes, 0);
+  // store every finished task from k on (those with no edge as zeros)
+  auto settle = [&]() {
+    while (k < nt && rem == 0) {
+      const int rk = __shfl_sync(FULL, row, k), ck = __shfl_sync(FULL, col, k);
+      unsigned char* const dst = out + (long long)rk * RB + ck;
+#pragma unroll
+      for (int j = 0; j < JP; ++j) {
+        const int p = lane + 32 * j;
+        if (p * PB < kb) {
+          Words<PB> o;
+#pragma unroll
+          for (int i = 0; i < PB / 4; ++i)
+            o.w[i] = BF16::from_f(acc[j][2 * i]) | (unsigned)BF16::from_f(acc[j][2 * i + 1]) << 16;
+          *reinterpret_cast<Words<PB>*>(dst + p * PB) = o;
+        }
+#pragma unroll
+        for (int i = 0; i < PB / 2; ++i) acc[j][i] = 0.f;
+      }
+      ++k;
+      rem = __shfl_sync(FULL, len, k & 31);
+      kb = __shfl_sync(FULL, bytes, k & 31);
+    }
+  };
+  // U edges of the stage from slot q on, all of task k: loaded, then added in order
+  auto add = [&](const unsigned char* slot, auto n_edges) {
+    constexpr int U = decltype(n_edges)::value;
+    Words<PB> v[U][JP];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < JP; ++j)
+        if ((lane + 32 * j) * PB < kb)
+          v[u][j] = *reinterpret_cast<const Words<PB>*>(slot + u * SB + (lane + 32 * j) * PB);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int j = 0; j < JP; ++j)
+        if ((lane + 32 * j) * PB < kb) {
+#pragma unroll
+          for (int i = 0; i < PB / 4; ++i) {
+            acc[j][2 * i] += __uint_as_float(v[u][j].w[i] << 16);
+            acc[j][2 * i + 1] += __uint_as_float(v[u][j].w[i] & 0xffff0000u);
+          }
+        }
+    rem -= U;
+  };
+
+  for (int st = 0; st < S; ++st) issue(st);
+  settle();
+  for (int st = 0; st * K < T; ++st) {
+    hopper::mbar_wait(bars + 8 * (st % S), (st / S) & 1);
+    const unsigned char* const stage = ring + (st % S) * K * SB;
+    const int n = min(K, T - st * K);
+    for (int q = 0; q < n;) {
+      if (rem >= UNROLL && n - q >= UNROLL) {
+        add(stage + q * SB, std::integral_constant<int, UNROLL>{});
+        q += UNROLL;
+      } else {
+        add(stage + q * SB, std::integral_constant<int, 1>{});
+        ++q;
+      }
+      settle();
+    }
+    __syncwarp();  // every lane's reads of the stage done: it may be refilled
+    issue(st + S);
+  }
+}
+
 // A copy of rows of nv vectors of BYTES bytes (any element type).
 template <int BYTES, int DEPTH>
 __global__ void segment_gather_kernel(const void* __restrict__ nodes, const int* __restrict__ ids,
@@ -340,33 +574,41 @@ unsigned n_blocks(long long rows, int lanes, int threads) {
   return (unsigned)((rows * lanes + threads - 1) / threads);
 }
 
-// VEC16: the elements of a 16-byte vector (4 f32, 8 bf16).
-template <class E, int VEC16>
-int sum(const void* values, const void* perm, const void* row_ptr, const void* order, void* out,
-        int n_rows, int F, int vectorized, void* stream) {
-  if (F <= 0 || (vectorized && F % VEC16)) return (int)cudaErrorInvalidValue;
-  if (n_rows == 0) return 0;
-  using Bits = typename E::Bits;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Bits* v = static_cast<const Bits*>(values);
-  const int* p = static_cast<const int*>(perm);
-  const int* rp = static_cast<const int*>(row_ptr);
-  const int* ord = static_cast<const int*>(order);
-  Bits* o = static_cast<Bits*>(out);
-  if (F < WIDE) {
-    const unsigned blocks = n_blocks(n_rows, F, NARROW_THREADS);
-    if (F == 1)
-      segment_sum_narrow_kernel<E, 1><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
-    else
-      segment_sum_narrow_kernel<E, 0><<<blocks, NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
-  } else if (vectorized) {
-    segment_sum_wide_kernel<E, VEC16>
-        <<<n_blocks(n_rows, F / VEC16, WIDE_THREADS), WIDE_THREADS, 0, s>>>(v, p, rp, ord, o,
-                                                                           n_rows, F);
-  } else {
+// The walks every element type shares: narrow rows (F < WIDE), and wide
+// rows one element a thread where they are not whole 16-byte vectors.
+template <class E>
+void sum_scalar(const typename E::Bits* v, const int* p, const int* rp, const int* ord,
+                typename E::Bits* o, int n_rows, int F, cudaStream_t s) {
+  if (F >= WIDE)
     segment_sum_wide_kernel<E, 1><<<n_blocks(n_rows, F, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
         v, p, rp, ord, o, n_rows, F);
+  else if (F == 1)
+    segment_sum_narrow_kernel<E, 1>
+        <<<n_blocks(n_rows, F, NARROW_THREADS), NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
+  else
+    segment_sum_narrow_kernel<E, 0>
+        <<<n_blocks(n_rows, F, NARROW_THREADS), NARROW_THREADS, 0, s>>>(v, p, rp, o, n_rows, F);
+}
+
+template <int PB, int JP>
+int run_ring(const void* v, const int* p, const int* rp, const int* ord, void* o, int n_rows,
+             int F, int K, int S, int R, int W, int B, cudaStream_t s) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(segment_sum_ring_kernel<PB, JP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         hopper::SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
   }
+  const int SB = min(2 * F, RING_SLICE);
+  const long long tasks = (long long)n_rows * ((2 * F + SB - 1) / SB);
+  const long long G = (max(tasks - B, 0LL) + R - 1) / R;  // warps past the long blocks
+  const long long smem = (long long)W * S * (K * SB + 8);
+  if (G > INT_MAX || smem > hopper::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  segment_sum_ring_kernel<PB, JP><<<(unsigned)(B + (G + W - 1) / W), 32 * W, smem, s>>>(
+      static_cast<const unsigned char*>(v), p, rp, ord, static_cast<unsigned char*>(o), n_rows,
+      F, K, S, R, (int)G, B);
   return (int)cudaGetLastError();
 }
 
@@ -400,16 +642,52 @@ int gather(const void* nodes, const void* ids, void* out, long long M, int n_row
 extern "C" int segment_sum_f32(const void* values, const void* perm, const void* row_ptr,
                                const void* order, void* out, int n_rows, int F, int vectorized,
                                void* stream) {
-  return sum<F32, 4>(values, perm, row_ptr, order, out, n_rows, F, vectorized, stream);
+  if (F <= 0 || (vectorized && F % 4)) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* v = static_cast<const float*>(values);
+  const int *p = static_cast<const int*>(perm), *rp = static_cast<const int*>(row_ptr),
+            *ord = static_cast<const int*>(order);
+  float* o = static_cast<float*>(out);
+  if (F >= WIDE && vectorized)
+    segment_sum_wide_kernel<F32, 4><<<n_blocks(n_rows, F / 4, WIDE_THREADS), WIDE_THREADS, 0, s>>>(
+        v, p, rp, ord, o, n_rows, F);
+  else
+    sum_scalar<F32>(v, p, rp, ord, o, n_rows, F, s);
+  return (int)cudaGetLastError();
 }
 
 // As segment_sum_f32 for bf16 values and output: each element an f32 sum
-// in the same order, rounded once to bf16 (nearest even).
+// in the same order, rounded once to bf16 (nearest even).  Vectorized rows
+// of F >= WIDE take the ring of bulk copies with the plan
+// (ops/segment_ops.sum_plan): K edge rows a stage (1, 2, 4, 8, 16 or 32),
+// S stages a warp, R tasks a warp (1 to 32), W warps a block (1 to
+// RING_WARPS); the plan's shared memory, W S (K min(2 F, RING_SLICE) + 8)
+// bytes, at most hopper::SMEM_MAX.  Other rows ignore the plan.
 extern "C" int segment_sum_bf16(const void* values, const void* perm, const void* row_ptr,
                                 const void* order, void* out, int n_rows, int F, int vectorized,
-                                void* stream) {
-  return sum<BF16, 8>(values, perm, row_ptr, order, out, n_rows, F, vectorized, stream);
+                                int K, int S, int R, int W, int B, void* stream) {
+  if (F <= 0 || (vectorized && F % 8)) return (int)cudaErrorInvalidValue;
+  if (n_rows == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int *p = static_cast<const int*>(perm), *rp = static_cast<const int*>(row_ptr),
+            *ord = static_cast<const int*>(order);
+  if (F >= WIDE && vectorized) {
+    if (K < 1 || K > 32 || 32 % K || S < 1 || R < 1 || R > 32 || W < 1 || W > RING_WARPS ||
+        B < 0 || B > RING_LONG)
+      return (int)cudaErrorInvalidValue;
+    const int RB = 2 * F;  // the lanes' pieces: 4, 8 or 16 bytes, two 16-byte ones past 512
+    if (RB <= 128) return run_ring<4, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
+    if (RB <= 256) return run_ring<8, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
+    if (RB <= 512) return run_ring<16, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
+    return run_ring<16, 2>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
+  }
+  using Bits = BF16::Bits;
+  sum_scalar<BF16>(static_cast<const Bits*>(values), p, rp, ord, static_cast<Bits*>(out), n_rows,
+                   F, s);
+  return (int)cudaGetLastError();
 }
+
 
 // nodes: (n_rows, F) contiguous; ids: int32 (M,), -1 or outside
 // [0, n_rows) for a zero row; out: (M, F) of the nodes' type.  vec:

@@ -53,8 +53,13 @@ own, and the values, in shared memory, chunk after chunk
 (:func:`narrow_chunks`); from :data:`WIDE` on a row's threads walk its run
 in rounds of :data:`ROUND` edges, every value load of a round in flight
 before the first add and the next round's rows prefetched, the rows with
-more than one round first (:meth:`SegmentIndex.long_first`).  The gather
-keeps its ids and rows in flight: a warp takes its tile's ids in
+more than one round first (:meth:`SegmentIndex.long_first`).  bf16 rows of
+whole 16-byte vectors from :data:`WIDE` on go through a ring of bulk
+copies instead: a warp's lanes copy whole edge rows (runs of consecutive
+ones as one copy) into shared memory, :func:`sum_plan`'s stages in flight,
+and add them from there in the same order (:func:`ring_walk`); the first
+rows of the long-first order each take a block whose rings are one.  The
+gather keeps its ids and rows in flight: a warp takes its tile's ids in
 coalesced loads, and each lane issues :func:`gather_plan`'s ``depth`` row
 loads before its first store -- whole rows a lane where a row is one 4-,
 8- or 16-byte vector (F 1, 2 and 4), 16-byte pieces of a 32-edge tile's
@@ -128,6 +133,10 @@ class SegmentIndex:
 
 
 WIDE = 32  # F from which the sum kernel walks a row in rounds
+RING_SLICE = 1024  # bytes of a row one task of the bf16 ring covers at most
+RING_WARPS = 16  # the bf16 ring's warps a block at most
+RING_LONG = 64  # the bf16 ring's blocks of one long row at most
+SMEM_MAX = 232448  # dynamic shared memory a block may have (H100; csrc/hopper.cuh)
 GATHER_DEPTH = 16  # a gathering lane's loads in flight at most
 GATHER_DEPTHS = (1, 2, 4, 8, GATHER_DEPTH)  # the depths the gather kernel is built for
 ROUND = 8  # edges of a wide row's round
@@ -149,13 +158,57 @@ def narrow_chunks(row_ptr: list[int], F: int, warp: int) -> list[range]:
 def sum_walk(row_ptr: list[int], F: int, r: int, c: int) -> list[range]:
     """The perm positions the sum kernel adds into element (r, c), in
     order, one range for each set of loads in flight together: the row's
-    part of each chunk its narrow warp stages, or its rounds of ROUND edges."""
+    part of each chunk its narrow warp stages, or its rounds of ROUND edges
+    (f32, and bf16 rows that are not whole 16-byte vectors; the others take
+    the ring, :func:`ring_walk`, in the same order)."""
     a, b = row_ptr[r], row_ptr[r + 1]
     if F >= WIDE:
         return [range(j, min(j + ROUND, b)) for j in range(a, b, ROUND)]
     chunks = narrow_chunks(row_ptr, F, (r * F + c) // 32)
     runs = (range(max(a, k.start), min(b, k.stop)) for k in chunks)
     return [run for run in runs if len(run)]
+
+
+def ring_smem(F: int, plan: tuple[int, ...]) -> int:
+    """Bytes of shared memory a block of the bf16 ring takes under ``plan``
+    ``(K, S, R, W, B)``: W warps' S stages of K slice rows and S mbarriers."""
+    K, S, _, W = plan[:4]
+    return W * S * (K * min(2 * F, RING_SLICE) + 8)
+
+
+def sum_plan(F: int) -> tuple[int, int, int, int, int]:
+    """``(K, S, R, W, B)`` of the bf16 ring (rows of F >= WIDE whole 16-byte
+    vectors): K edge rows a stage, S stages a warp, R rows a warp, W warps a
+    block, and B blocks that each take one of the first rows of
+    :meth:`SegmentIndex.long_first` whole, the block's W rings as one (its
+    W S K rows hold a ghost row's 132 edges) -- among the sweep's leaders at
+    MeshGraphNet's F 128, by senders and by receivers, and GraphViT's F 512
+    (``chip_smoke.py``'s ``[plans]``)."""
+    K, S, R, W, B = (16, 2, 8, 8, 16) if 2 * F <= 256 else (8, 2, 16, 4, 16)
+    while K > 1 and ring_smem(F, (K, S, R, W)) > SMEM_MAX:
+        K //= 2
+    return K, S, R, W, B
+
+
+def ring_walk(row_ptr: list[int], order: list[int], F: int,
+              plan: tuple[int, int, int, int, int]) -> list[list[tuple[int, int, list[int]]]]:
+    """The bf16 ring's warps walked in Python: for each warp that has work,
+    its tasks in the order it adds them, each ``(row, slice, perm
+    positions)``.  Task t is the ``t % slices``-th RING_SLICE-byte slice of
+    row ``order[t // slices]``; tasks 0 .. B - 1 each have a block of their
+    own, and warp g of the other G takes tasks B + g, B + g + G, ... (at
+    most R); a warp's stream is its tasks' edges one after another."""
+    K, S, R, W, B = plan
+    slices = -(-2 * F // min(2 * F, RING_SLICE))
+    tasks = len(order) * slices
+    G = -(-max(tasks - B, 0) // R)
+
+    def task(t):
+        row = order[t // slices]
+        return row, t % slices, list(range(row_ptr[row], row_ptr[row + 1]))
+
+    return ([[task(t)] for t in range(min(B, tasks))]
+            + [[task(t) for t in range(B + g, tasks, G)][:R] for g in range(G)])
 
 
 def _sum_dtype(values2: torch.Tensor) -> torch.dtype:
@@ -218,11 +271,13 @@ def _launch_sum(entry: str, values2: torch.Tensor, index: SegmentIndex,
     values2 = _check(entry, values2, index, index.ids.shape[0], dtype)
     perm, row_ptr = index.csr()
     order = index.long_first()
-    out = torch.empty(index.n_rows, values2.shape[1], dtype=dtype, device=values2.device)
+    F = values2.shape[1]
+    out = torch.empty(index.n_rows, F, dtype=dtype, device=values2.device)
+    plan = sum_plan(F) if dtype == torch.bfloat16 else ()
     with torch.cuda.device(values2.device):
         err = getattr(_build.load(), entry)(
             values2.data_ptr(), perm.data_ptr(), row_ptr.data_ptr(), order.data_ptr(),
-            out.data_ptr(), index.n_rows, values2.shape[1], _vectorized(values2, out),
+            out.data_ptr(), index.n_rows, F, _vectorized(values2, out), *plan,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, entry)

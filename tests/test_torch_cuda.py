@@ -1204,6 +1204,53 @@ def test_bf16_segment_kernels_are_their_twins_bit_for_bit(dev, F, offset):
         so.segment_sum_nodes(vals.to(dev, torch.float16).view(B, E, F), index, N)
 
 
+@pytest.mark.parametrize("F", [128, 512, 36, 1536])
+@pytest.mark.parametrize("sort", [False, True])
+def test_bf16_segment_sum_ring_is_the_csr_walk_bit_for_bit(dev, F, sort):
+    """The bf16 sum by unsorted ids, and sorted (each row's edges
+    consecutive, copied as runs), dropped ones too, with 30 rows of no
+    edge and a row of 140, through ``sum_plan``'s ring and rings that hold
+    fewer edge rows than it (a stage of 1 row, 2 stages), several rows a
+    warp (up to 32), no long-row blocks and RING_LONG of them, and a slice
+    of rows past RING_SLICE bytes (F 1536):
+    equal to ``csr_walk`` bit for bit, again from a CUDA-graph replay;
+    F 36 (not whole 16-byte vectors) takes the one-element walk.  A plan
+    past shared memory or the kernel's bounds raises."""
+    from fluid_llm_tpu_torch.ops import segment_ops as so
+
+    g = torch.Generator().manual_seed(F)
+    B, E, N = 3, 4000, 700
+    ids = torch.randint(0, N, (B, E), generator=g)
+    ids[ids // 10 == 2] = N  # rows 20-29 of each element: no edge
+    ids[:, -40:] = N + 3
+    ids[2, 100] = -5
+    ids[1, 500:640] = 7  # 140 edges
+    if sort:
+        ids = torch.sort(ids, dim=1).values
+    index = so.SegmentIndex(ids.to(dev), N)
+    degree = (index.csr()[1][1:] - index.csr()[1][:-1]).cpu()
+    assert int((degree == 0).sum()) >= 30 and int(degree.max()) >= 140
+    vals = torch.randn(B * E, F, generator=g).to(torch.bfloat16)
+    want = so.csr_walk(vals, so.SegmentIndex(ids, N))
+    x = vals.to(dev)
+    for plan in (so.sum_plan(F), (1, 2, 1, 1, 0), (2, 2, 32, 3, 5), (32, 1, 8, 16, 0),
+                 (4, 1, 2, 2, so.RING_LONG)):
+        if so.ring_smem(F, plan) > so.SMEM_MAX:
+            continue
+        with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
+            got = so.segment_sum_bf16(x, index)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), plan
+            for replayed in _graph_replays(lambda: so.segment_sum_bf16(x, index)):
+                assert torch.equal(replayed.cpu(), want), plan
+    if F % 8 == 0:
+        for plan in ((3, 2, 1, 1, 0), (4, 2, 33, 1, 0), (4, 2, 1, so.RING_WARPS + 1, 0),
+                     (32, 64, 4, 16, 0), (4, 2, 1, 1, so.RING_LONG + 1)):
+            with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
+                with pytest.raises(RuntimeError):
+                    so.segment_sum_bf16(x, index)
+
+
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_graphvit_step_launches_and_agreement_on_card(dev, dtype):
     """A GraphViT (w_size 512, 3 GNN blocks as published less one, 2

@@ -386,6 +386,65 @@ def test_segment_plan_is_the_kernels():
         assert got == str(getattr(so, name)), name
 
 
+@pytest.mark.parametrize("F", [32, 36, 128, 512, 1536])
+def test_bf16_ring_plan_fits_and_every_row_is_taken_once(F):
+    """``sum_plan``'s ring fits a block's shared memory and launches within
+    the kernel's bounds; its warps (``ring_walk``), and those of plans with
+    fewer rows in flight than the long row's edges, take every slice of
+    every row exactly once, each row's edges ascending; warp g starts with
+    task g of the long-first order, so that where the warps outnumber the
+    long rows the 132- and 700-edge rows each start a warp.  Rows past
+    RING_SLICE bytes (F 1536) are cut into slices."""
+    index, (long_row, longer_row) = _segment_index_with_a_long_row()
+    perm, row_ptr = index.csr()
+    rp, order = row_ptr.tolist(), index.long_first().tolist()
+    slices = -(-2 * F // min(2 * F, so.RING_SLICE))
+    n_long = sum(rp[r + 1] - rp[r] > so.ROUND for r in range(index.n_rows))
+    for plan in (so.sum_plan(F), (1, 2, 1, 1, 0), (4, 2, 3, 2, 5), (32, 1, 32, 16, 0),
+                 (2, 2, 32, 4, so.RING_LONG)):
+        K, S, R, W, B = plan
+        assert 32 % K == 0 and S >= 1 and 1 <= R <= 32 and 1 <= W <= so.RING_WARPS
+        assert 0 <= B <= so.RING_LONG
+        assert so.ring_smem(F, plan) <= so.SMEM_MAX or plan != so.sum_plan(F)
+        walk = so.ring_walk(rp, order, F, plan)
+        taken = [(row, sl) for warp in walk for row, sl, _ in warp]
+        assert sorted(taken) == [(r, sl) for r in range(index.n_rows) for sl in range(slices)]
+        assert all(len(warp) == 1 for warp in walk[:B]) and all(len(w) <= R for w in walk)
+        for warp in walk:
+            for row, _, run in warp:
+                assert run == list(range(rp[row], rp[row + 1]))
+        # warp g starts with task g of the long-first order and goes on in it
+        assert [warp[0][:2] for warp in walk] == [(order[t // slices], t % slices)
+                                                 for t in range(len(walk))]
+        pos = {r: i for i, r in enumerate(order)}
+        assert all([pos[row] for row, _, _ in warp] == sorted(pos[row] for row, _, _ in warp)
+                   for warp in walk)
+        if len(walk) >= n_long * slices:  # a warp for each long row's slice, first
+            assert {long_row, longer_row} <= {warp[0][0] for warp in walk}
+    K, S, R, W, B = so.sum_plan(F)
+    assert rp[long_row + 1] - rp[long_row] == 132 > K * S  # a warp's ring streams it through
+
+
+def test_bf16_ring_plan_at_the_graph_shapes_and_is_the_kernels():
+    """At MeshGraphNet's F 128 a long row's block holds its 132 edges in
+    flight at once, and at GraphViT's F 512 (no long rows) a warp holds its
+    rows; RING_SLICE, RING_WARPS, RING_LONG and SMEM_MAX are the kernel's
+    (``csrc/segment_ops.cu``, ``csrc/hopper.cuh``)."""
+    K, S, R, W, B = so.sum_plan(128)
+    assert W * S * K >= 132 and B >= 4  # a ghost row of each of MGN's 4 graphs
+    K, S, R, W, B = so.sum_plan(512)
+    assert S * K >= R  # GraphViT's members: one edge a row
+    for F in (128, 512):
+        assert so.ring_smem(F, so.sum_plan(F)) <= so.SMEM_MAX
+    csrc = Path(so.__file__).parents[1] / "csrc"
+    src = (csrc / "segment_ops.cu").read_text()
+    for name in ("RING_SLICE", "RING_WARPS", "RING_LONG"):
+        got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1)
+        assert got == str(getattr(so, name)), name
+    got = re.search(r"constexpr int SMEM_MAX = (\d+);", (csrc / "hopper.cuh").read_text())
+    assert got.group(1) == str(so.SMEM_MAX)
+
+
 @pytest.mark.parametrize("F", [1, 2, 32, 128])
 def test_csr_walk_is_the_twin_bit_for_bit_with_a_long_row(F):
     """``csr_walk`` (the kernel's order of additions, one round per edge

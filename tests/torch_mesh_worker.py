@@ -5,9 +5,12 @@
 ``SPEC.pt`` (``torch.save``) holds ``{"task", "world", "dir", ...}``; the
 rank joins a process group through ``file://<dir>/init`` (no ports, so
 test workers running side by side never meet), runs the task, and rank 0
-saves its result to ``<dir>/result.pt``.  :func:`spawn` starts the ranks
-and waits for them with a timeout of its own; a rank that raises or hangs
-fails the test.  This module imports no JAX: the tests hold its results
+saves its result to ``<dir>/result.pt``; then every rank meets the others
+at a barrier and destroys its process group (:func:`finish`) before it
+exits.  :func:`spawn` starts the ranks and waits for them with a timeout
+of its own; a rank that raises, aborts or hangs fails the test, with the
+first bad rank's output, every rank's exit code and whether ``result.pt``
+was saved.  This module imports no JAX: the tests hold its results
 against the JAX package in their own process.
 """
 
@@ -33,7 +36,7 @@ def spawn(task: str, world: int, tmp_dir: str, timeout: float = 300.0, **spec) -
     path = os.path.join(tmp_dir, "spec.pt")
     torch.save({"task": task, "world": world, "dir": tmp_dir, **spec}, path)
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
-               OMP_NUM_THREADS="1")
+               OMP_NUM_THREADS="1", PYTHONFAULTHANDLER="1")  # a rank that aborts shows its stacks
     procs = [subprocess.Popen([sys.executable, WORKER, path, str(r)], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for r in range(world)]
@@ -48,7 +51,10 @@ def spawn(task: str, world: int, tmp_dir: str, timeout: float = 300.0, **spec) -
     bad = [(r, p.returncode, o) for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode]
     if bad:
         r, rc, out = bad[0]
-        raise AssertionError(f"{task}: rank {r} exited {rc}:\n{out[-6000:]}")
+        done = os.path.exists(os.path.join(tmp_dir, "result.pt"))
+        raise AssertionError(f"{task}: rank {r} exited {rc} (ranks' codes "
+                             f"{[p.returncode for p in procs]}, result.pt saved: {done}):\n"
+                             f"{out[-6000:]}")
     return torch.load(os.path.join(tmp_dir, "result.pt"), weights_only=False)
 
 
@@ -387,6 +393,21 @@ def task_entry(spec: dict, rank: int):
     return mod.main(argv)
 
 
+def finish() -> None:
+    """Every rank past its last collective, then every group torn down.  A
+    gloo worker thread may still hold a finished collective's tensors when
+    its rank's ``wait`` returns; should that rank's interpreter already be
+    shutting down when the thread lets them go, freeing their Python objects
+    takes the GIL after finalisation, and the process aborts with
+    "terminate called without an active exception".  Destroying the groups
+    joins those threads while the interpreter is alive."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # an entry point has torn down its own
+        dist.barrier()
+        dist.destroy_process_group()
+
+
 def main() -> None:
     path, rank = sys.argv[1], int(sys.argv[2])
     torch.set_num_threads(1)
@@ -395,11 +416,12 @@ def main() -> None:
         if spec["task"] not in ("entry", "serve"):  # an entry point starts its own
             start(spec, rank)
         result = globals()[f"task_{spec['task']}"](spec, rank)
+        if rank == 0:
+            torch.save(result, os.path.join(spec["dir"], "result.pt"))
+        finish()
     except BaseException:
         traceback.print_exc()
         sys.exit(1)
-    if rank == 0:
-        torch.save(result, os.path.join(spec["dir"], "result.pt"))
 
 
 if __name__ == "__main__":
