@@ -51,14 +51,18 @@ Phases, each printing one line per result; any failure exits nonzero:
                to the twin, beside ``_int_mm`` and w8a16), of short
                attention (64 or 128 query rows a block) at its two, of the
                slot forward (strip, column tile, ring, group, rows a unit)
-               at its four ((1 or 80, 240, 64, 48 or 3)) and of the segment
+               at its four ((1 or 80, 240, 64, 48 or 3)), of the segment
                gather (loads a lane in flight, warps a block, grid) at F
-               128, 2 and 1 (bit for bit), each against the twin and timed
-               (w8a16 and the indexed linear beside the library call): the
-               tables ``indexed_linear.plan``, ``quant_matmul.plan``,
-               ``quant_matmul.w8a8_plan``, ``short_attention.plan``,
-               ``grid_gnn_fused.fwd_plan`` and ``segment_ops.gather_plan``
-               are read from; and the slab decode (the wrapped ring at H 6)
+               128, 2 and 1 (bit for bit) and of the bf16 segment sum's
+               ring (edge rows a stage, stages, rows a warp, warps a
+               block) at F 128 by senders and by receivers and F 512 by
+               member (bit for bit the CSR walk), each against the twin and
+               timed (w8a16 and the indexed linear beside the library
+               call): the tables ``indexed_linear.plan``,
+               ``quant_matmul.plan``, ``quant_matmul.w8a8_plan``,
+               ``short_attention.plan``, ``grid_gnn_fused.fwd_plan``,
+               ``segment_ops.gather_plan`` and ``segment_ops.sum_plan`` are
+               read from; and the slab decode (the wrapped ring at H 6)
                and w8a16 at phase 24's eight rank-local shapes, in this one
                process, against the twin and timed beside SDPA and bf16
                ``F.linear`` ("[plans] rank-local").  The segment kernels
@@ -1272,8 +1276,7 @@ def _gather_plans(dev, failures: list) -> list[dict]:
 
 def _sum_bf16_plans(dev, failures: list) -> list[dict]:
     """Every launch plan of the bf16 segment sum's ring (K edge rows a
-    stage, S stages, R rows a warp, W warps a block, B blocks of one long
-    row, within shared memory)
+    stage, S stages, R rows a warp, W warps a block, within shared memory)
     at its main path's shapes: MeshGraphNet's F 128 by the EAGLE senders
     (each row's edges consecutive) and receivers (scattered) and GraphViT's
     F 512 by member, each equal to the CSR walk bit for bit
@@ -1292,7 +1295,7 @@ def _sum_bf16_plans(dev, failures: list) -> list[dict]:
         ref = so.csr_walk(x, index)
         chosen = so.sum_plan(F)
         timed = []
-        for plan in itertools.product((8, 16, 32), (2, 4), (4, 8, 16), (2, 4, 8, 16), (0, 16)):
+        for plan in itertools.product((4, 8, 16, 32), (2, 4), (2, 4, 8, 16), (2, 4, 8, 16)):
             if so.ring_smem(F, plan) > so.SMEM_MAX:
                 continue
             with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
@@ -1305,7 +1308,7 @@ def _sum_bf16_plans(dev, failures: list) -> list[dict]:
                 failures.append(f"segment sum bf16 plan {plan} at F {F}: not the CSR walk")
         timed.sort(key=lambda r: r["ms"])
         print(f"[plans] segment_sum_bf16 ({index.ids.shape[0]}, {F}) by {by} -> "
-              f"({index.n_rows}, {F}), (K, S, R, W, B): "
+              f"({index.n_rows}, {F}), (K, S, R, W): "
               + "; ".join(f"{r['plan']} {r['ms']:.4f}{' (plan)' if r['chosen'] else ''}"
                           for r in timed[:12])
               + f"; {len(timed)} plans, slowest {timed[-1]['ms']:.4f}; plan "
@@ -1544,11 +1547,11 @@ def _segment_row(kernel: str, x: torch.Tensor, index, main: bool, by: str) -> di
         library = lambda: torch.index_add(zeros, 0, rows, x)  # noqa: E731
         n_out, ops = index.n_rows * x.shape[1], x.numel()
         if kernel == "segment_sum_bf16" and x.shape[1] >= so.WIDE and x.shape[1] % 8 == 0:
-            plan = K, S, R, W, B = so.sum_plan(x.shape[1])
+            plan = K, S, R, W = so.sum_plan(x.shape[1])
             geometry = (f"ring of {S} stages of {K} edge rows a warp, {R} rows a warp, "
                         f"{W} warps a block, {so.ring_smem(x.shape[1], plan)} bytes of shared "
-                        f"memory a block; the first {B} rows of the long-first order a block "
-                        f"each")
+                        f"memory a block; the first {so.LONG_BLOCKS} rows of the long-first "
+                        f"order a block each")
     else:
         twin = so.gather_ref
         clamped = ids.clamp(min=0)

@@ -74,12 +74,13 @@
 //   many 256-byte copies keep the copy engine busier than fewer long ones,
 //   so consecutive edge rows (a row's edges by senders, the ghost rows'
 //   padding edges) go as one copy; the ghost rows' chain of loads
-//   (order, row_ptr, perm, the copies) sets the end, so the first B rows of
-//   the long-first order each take a block whose W rings are one ring of
-//   all their edges; and the perm entries of the next CHUNKS * 32 stream
-//   positions are loaded ahead, not one chunk at a time.  A warp takes R
-//   rows strided over the grid; rows wider than RING_SLICE bytes are cut
-//   into slices, one task each.  The adds keep the wide walk's order.
+//   (order, row_ptr, perm, the copies) sets the end, so the first
+//   LONG_BLOCKS rows of the long-first order each take a block whose W
+//   rings are one ring of all their edges; and the perm entries of the
+//   next CHUNKS * 32 stream positions are loaded ahead, not one chunk at a
+//   time.  A warp takes R rows strided over the grid; rows wider than
+//   RING_SLICE bytes are cut into slices, one task each.  The adds keep
+//   the wide walk's order.
 // - the gather is a row copy, zero rows for ids out of range, in VEC-wide
 //   vectors: 4 (16 bytes) where F % 4 == 0 and both pointers are 16-byte
 //   aligned, 2 (8 bytes) where F % 2 == 0 and they are 8-byte aligned, else
@@ -125,7 +126,7 @@ constexpr int CHUNK_FLOATS = 1024;  // ... and their values (as f32)
 constexpr int LOADS = 16;           // a narrow lane's staging loads in flight together
 constexpr int RING_SLICE = 1024;    // bytes of a row one task of the bf16 ring covers at most
 constexpr int RING_WARPS = 16;      // the bf16 ring's warps a block at most
-constexpr int RING_LONG = 64;       // the bf16 ring's blocks of one long row at most
+constexpr int LONG_BLOCKS = 16;     // the bf16 ring's blocks of one long row each
 constexpr int CHUNKS = 8;           // a ring warp's chunks of 32 copy sources fetched ahead
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -298,29 +299,29 @@ struct alignas(PB) Words {
 
 // bf16 rows of whole 16-byte vectors, F >= WIDE: a ring of bulk copies.
 // Task t is the slice of row order[t / slices] from byte (t % slices) *
-// RING_SLICE.  Blocks 0 .. B - 1 take tasks 0 .. B - 1, the long rows
-// (`order` starts with them), one each on the block's warp 0 with the
-// block's W rings as one ring of W S stages: the whole run of a ghost row
-// in flight at once.  In the other blocks warp g of the G takes tasks B +
-// g, B + g + G, ... (at most R, one a lane's registers).  A warp's stream
-// is its tasks' edges one after another; stage st of its ring holds
-// stream positions K st .. K st + K - 1, each the edge row's slice, one
-// bulk copy for each run of consecutive edge rows, counted on the stage's
-// mbarrier (a long row's block stages 32 positions where its ring allows).
-// A stage is refilled with stage st + S as soon as the warp has added it,
-// so S K rows of the warp are in flight whatever the element width.  Lane
-// l adds pieces l, l + 32, ... (JP of PB bytes) of each slice from shared
-// memory in f32, the edges in stream order (UNROLL at a time where the
-// task has them): each element's edges ascending from 0, rounded once at
-// the store.  The copies' edge
-// rows come from perm 32 stream positions at a time, a lane's entry each,
-// fetched CHUNKS chunks ahead and handed to the copying lanes by shuffles.
+// RING_SLICE.  Blocks 0 .. LONG_BLOCKS - 1 take tasks 0 .. LONG_BLOCKS -
+// 1, the long rows (`order` starts with them), one each on the block's
+// warp 0 with the block's W rings as one ring of W S stages: the whole run
+// of a ghost row in flight at once.  In the other blocks warp g of the G
+// takes tasks LONG_BLOCKS + g, LONG_BLOCKS + g + G, ... (at most R, one a
+// lane's registers).  A warp's stream is its tasks' edges one after
+// another; stage st of its ring holds stream positions K st .. K st + K -
+// 1, each the edge row's slice, one bulk copy for each run of consecutive
+// edge rows, counted on the stage's mbarrier (a long row's block stages 32
+// positions where its ring allows).  A stage is refilled with stage st + S
+// as soon as the warp has added it, so S K rows of the warp are in flight
+// whatever the element width.  Lane l adds pieces l, l + 32, ... (JP of PB
+// bytes) of each slice from shared memory in f32, the edges in stream
+// order (UNROLL at a time where the task has them): each element's edges
+// ascending from 0, rounded once at the store.  The copies' edge rows come
+// from perm 32 stream positions at a time, a lane's entry each, fetched
+// CHUNKS chunks ahead and handed to the copying lanes by shuffles.
 template <int PB, int JP>
 __global__ void __launch_bounds__(32 * RING_WARPS)
 segment_sum_ring_kernel(const unsigned char* __restrict__ values, const int* __restrict__ perm,
                         const int* __restrict__ row_ptr, const int* __restrict__ order,
                         unsigned char* __restrict__ out, int n_rows, int F, int K, int S, int R,
-                        int G, int B) {
+                        int G) {
   constexpr int UNROLL = 4 / JP;  // edges loaded before their adds
   extern __shared__ __align__(16) unsigned char smem[];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31, W = blockDim.x >> 5;
@@ -329,16 +330,16 @@ segment_sum_ring_kernel(const unsigned char* __restrict__ values, const int* __r
   long long first, stride;
   unsigned char* ring;
   uint32_t bars;
-  if (blockIdx.x < B) {  // a long row: the block's rings as one, in stages of 32 where they fit
+  if (blockIdx.x < LONG_BLOCKS) {  // a long row: the block's rings as one, stages of 32 if they fit
     if (w > 0) return;
     first = blockIdx.x, stride = 0, ring = smem, bars = bars0;
     S *= W;
     if (S * K % 32 == 0) S = S * K / 32, K = 32;
     R = 1;
   } else {
-    const int g = (blockIdx.x - B) * W + w;
+    const int g = (blockIdx.x - LONG_BLOCKS) * W + w;
     if (g >= G) return;  // the whole warp
-    first = B + g, stride = G, ring = smem + w * S * K * SB, bars = bars0 + 8 * S * w;
+    first = LONG_BLOCKS + g, stride = G, ring = smem + w * S * K * SB, bars = bars0 + 8 * S * w;
   }
 
   // lane k < R: task first + stride k (its row, its slice's first byte and
@@ -592,7 +593,7 @@ void sum_scalar(const typename E::Bits* v, const int* p, const int* rp, const in
 
 template <int PB, int JP>
 int run_ring(const void* v, const int* p, const int* rp, const int* ord, void* o, int n_rows,
-             int F, int K, int S, int R, int W, int B, cudaStream_t s) {
+             int F, int K, int S, int R, int W, cudaStream_t s) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(segment_sum_ring_kernel<PB, JP>,
@@ -603,12 +604,13 @@ int run_ring(const void* v, const int* p, const int* rp, const int* ord, void* o
   }
   const int SB = min(2 * F, RING_SLICE);
   const long long tasks = (long long)n_rows * ((2 * F + SB - 1) / SB);
-  const long long G = (max(tasks - B, 0LL) + R - 1) / R;  // warps past the long blocks
+  const long long G = (max(tasks - LONG_BLOCKS, 0LL) + R - 1) / R;  // warps past the long blocks
   const long long smem = (long long)W * S * (K * SB + 8);
   if (G > INT_MAX || smem > hopper::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  segment_sum_ring_kernel<PB, JP><<<(unsigned)(B + (G + W - 1) / W), 32 * W, smem, s>>>(
+  const unsigned blocks = (unsigned)(LONG_BLOCKS + (G + W - 1) / W);
+  segment_sum_ring_kernel<PB, JP><<<blocks, 32 * W, smem, s>>>(
       static_cast<const unsigned char*>(v), p, rp, ord, static_cast<unsigned char*>(o), n_rows,
-      F, K, S, R, (int)G, B);
+      F, K, S, R, (int)G);
   return (int)cudaGetLastError();
 }
 
@@ -666,21 +668,20 @@ extern "C" int segment_sum_f32(const void* values, const void* perm, const void*
 // bytes, at most hopper::SMEM_MAX.  Other rows ignore the plan.
 extern "C" int segment_sum_bf16(const void* values, const void* perm, const void* row_ptr,
                                 const void* order, void* out, int n_rows, int F, int vectorized,
-                                int K, int S, int R, int W, int B, void* stream) {
+                                int K, int S, int R, int W, void* stream) {
   if (F <= 0 || (vectorized && F % 8)) return (int)cudaErrorInvalidValue;
   if (n_rows == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int *p = static_cast<const int*>(perm), *rp = static_cast<const int*>(row_ptr),
             *ord = static_cast<const int*>(order);
   if (F >= WIDE && vectorized) {
-    if (K < 1 || K > 32 || 32 % K || S < 1 || R < 1 || R > 32 || W < 1 || W > RING_WARPS ||
-        B < 0 || B > RING_LONG)
+    if (K < 1 || K > 32 || 32 % K || S < 1 || R < 1 || R > 32 || W < 1 || W > RING_WARPS)
       return (int)cudaErrorInvalidValue;
     const int RB = 2 * F;  // the lanes' pieces: 4, 8 or 16 bytes, two 16-byte ones past 512
-    if (RB <= 128) return run_ring<4, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
-    if (RB <= 256) return run_ring<8, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
-    if (RB <= 512) return run_ring<16, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
-    return run_ring<16, 2>(values, p, rp, ord, out, n_rows, F, K, S, R, W, B, s);
+    if (RB <= 128) return run_ring<4, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, s);
+    if (RB <= 256) return run_ring<8, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, s);
+    if (RB <= 512) return run_ring<16, 1>(values, p, rp, ord, out, n_rows, F, K, S, R, W, s);
+    return run_ring<16, 2>(values, p, rp, ord, out, n_rows, F, K, S, R, W, s);
   }
   using Bits = BF16::Bits;
   sum_scalar<BF16>(static_cast<const Bits*>(values), p, rp, ord, static_cast<Bits*>(out), n_rows,

@@ -135,7 +135,7 @@ class SegmentIndex:
 WIDE = 32  # F from which the sum kernel walks a row in rounds
 RING_SLICE = 1024  # bytes of a row one task of the bf16 ring covers at most
 RING_WARPS = 16  # the bf16 ring's warps a block at most
-RING_LONG = 64  # the bf16 ring's blocks of one long row at most
+LONG_BLOCKS = 16  # the bf16 ring's blocks of one long row each
 SMEM_MAX = 232448  # dynamic shared memory a block may have (H100; csrc/hopper.cuh)
 GATHER_DEPTH = 16  # a gathering lane's loads in flight at most
 GATHER_DEPTHS = (1, 2, 4, 8, GATHER_DEPTH)  # the depths the gather kernel is built for
@@ -169,36 +169,37 @@ def sum_walk(row_ptr: list[int], F: int, r: int, c: int) -> list[range]:
     return [run for run in runs if len(run)]
 
 
-def ring_smem(F: int, plan: tuple[int, ...]) -> int:
+def ring_smem(F: int, plan: tuple[int, int, int, int]) -> int:
     """Bytes of shared memory a block of the bf16 ring takes under ``plan``
-    ``(K, S, R, W, B)``: W warps' S stages of K slice rows and S mbarriers."""
-    K, S, _, W = plan[:4]
+    ``(K, S, R, W)``: W warps' S stages of K slice rows and S mbarriers."""
+    K, S, _, W = plan
     return W * S * (K * min(2 * F, RING_SLICE) + 8)
 
 
-def sum_plan(F: int) -> tuple[int, int, int, int, int]:
-    """``(K, S, R, W, B)`` of the bf16 ring (rows of F >= WIDE whole 16-byte
+def sum_plan(F: int) -> tuple[int, int, int, int]:
+    """``(K, S, R, W)`` of the bf16 ring (rows of F >= WIDE whole 16-byte
     vectors): K edge rows a stage, S stages a warp, R rows a warp, W warps a
-    block, and B blocks that each take one of the first rows of
-    :meth:`SegmentIndex.long_first` whole, the block's W rings as one (its
-    W S K rows hold a ghost row's 132 edges) -- among the sweep's leaders at
+    block, whose W S K rows also hold a ghost row's 132 edges in each of the
+    LONG_BLOCKS blocks of one long row -- among the sweep's leaders at
     MeshGraphNet's F 128, by senders and by receivers, and GraphViT's F 512
     (``chip_smoke.py``'s ``[plans]``)."""
-    K, S, R, W, B = (16, 2, 8, 8, 16) if 2 * F <= 256 else (8, 2, 16, 4, 16)
+    K, S, R, W = (16, 2, 8, 8) if 2 * F <= 256 else (8, 2, 16, 4)
     while K > 1 and ring_smem(F, (K, S, R, W)) > SMEM_MAX:
         K //= 2
-    return K, S, R, W, B
+    return K, S, R, W
 
 
 def ring_walk(row_ptr: list[int], order: list[int], F: int,
-              plan: tuple[int, int, int, int, int]) -> list[list[tuple[int, int, list[int]]]]:
+              plan: tuple[int, int, int, int]) -> list[list[tuple[int, int, list[int]]]]:
     """The bf16 ring's warps walked in Python: for each warp that has work,
     its tasks in the order it adds them, each ``(row, slice, perm
     positions)``.  Task t is the ``t % slices``-th RING_SLICE-byte slice of
-    row ``order[t // slices]``; tasks 0 .. B - 1 each have a block of their
-    own, and warp g of the other G takes tasks B + g, B + g + G, ... (at
-    most R); a warp's stream is its tasks' edges one after another."""
-    K, S, R, W, B = plan
+    row ``order[t // slices]``; tasks 0 .. LONG_BLOCKS - 1 each have a block
+    of their own, and warp g of the other G takes tasks LONG_BLOCKS + g,
+    LONG_BLOCKS + g + G, ... (at most R); a warp's stream is its tasks'
+    edges one after another."""
+    K, S, R, W = plan
+    B = LONG_BLOCKS
     slices = -(-2 * F // min(2 * F, RING_SLICE))
     tasks = len(order) * slices
     G = -(-max(tasks - B, 0) // R)

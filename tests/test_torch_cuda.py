@@ -1210,9 +1210,10 @@ def test_bf16_segment_sum_ring_is_the_csr_walk_bit_for_bit(dev, F, sort):
     """The bf16 sum by unsorted ids, and sorted (each row's edges
     consecutive, copied as runs), dropped ones too, with 30 rows of no
     edge and a row of 140, through ``sum_plan``'s ring and rings that hold
-    fewer edge rows than it (a stage of 1 row, 2 stages), several rows a
-    warp (up to 32), no long-row blocks and RING_LONG of them, and a slice
-    of rows past RING_SLICE bytes (F 1536):
+    fewer edge rows than it (a stage of 1 row, 2 stages, the long-row
+    blocks' ring short of the 140 edges), several rows a warp (up to 32),
+    more long rows than LONG_BLOCKS, and a slice of rows past RING_SLICE
+    bytes (F 1536):
     equal to ``csr_walk`` bit for bit, again from a CUDA-graph replay;
     F 36 (not whole 16-byte vectors) takes the one-element walk.  A plan
     past shared memory or the kernel's bounds raises."""
@@ -1233,8 +1234,7 @@ def test_bf16_segment_sum_ring_is_the_csr_walk_bit_for_bit(dev, F, sort):
     vals = torch.randn(B * E, F, generator=g).to(torch.bfloat16)
     want = so.csr_walk(vals, so.SegmentIndex(ids, N))
     x = vals.to(dev)
-    for plan in (so.sum_plan(F), (1, 2, 1, 1, 0), (2, 2, 32, 3, 5), (32, 1, 8, 16, 0),
-                 (4, 1, 2, 2, so.RING_LONG)):
+    for plan in (so.sum_plan(F), (1, 2, 1, 1), (2, 2, 32, 3), (32, 1, 8, 16), (4, 1, 2, 2)):
         if so.ring_smem(F, plan) > so.SMEM_MAX:
             continue
         with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
@@ -1244,8 +1244,7 @@ def test_bf16_segment_sum_ring_is_the_csr_walk_bit_for_bit(dev, F, sort):
             for replayed in _graph_replays(lambda: so.segment_sum_bf16(x, index)):
                 assert torch.equal(replayed.cpu(), want), plan
     if F % 8 == 0:
-        for plan in ((3, 2, 1, 1, 0), (4, 2, 33, 1, 0), (4, 2, 1, so.RING_WARPS + 1, 0),
-                     (32, 64, 4, 16, 0), (4, 2, 1, 1, so.RING_LONG + 1)):
+        for plan in ((3, 2, 1, 1), (4, 2, 33, 1), (4, 2, 1, so.RING_WARPS + 1), (32, 64, 4, 16)):
             with mock.patch.object(so, "sum_plan", lambda *a, p=plan: p):
                 with pytest.raises(RuntimeError):
                     so.segment_sum_bf16(x, index)

@@ -400,11 +400,10 @@ def test_bf16_ring_plan_fits_and_every_row_is_taken_once(F):
     rp, order = row_ptr.tolist(), index.long_first().tolist()
     slices = -(-2 * F // min(2 * F, so.RING_SLICE))
     n_long = sum(rp[r + 1] - rp[r] > so.ROUND for r in range(index.n_rows))
-    for plan in (so.sum_plan(F), (1, 2, 1, 1, 0), (4, 2, 3, 2, 5), (32, 1, 32, 16, 0),
-                 (2, 2, 32, 4, so.RING_LONG)):
-        K, S, R, W, B = plan
+    B = so.LONG_BLOCKS
+    for plan in (so.sum_plan(F), (1, 2, 1, 1), (4, 2, 3, 2), (32, 1, 32, 16)):
+        K, S, R, W = plan
         assert 32 % K == 0 and S >= 1 and 1 <= R <= 32 and 1 <= W <= so.RING_WARPS
-        assert 0 <= B <= so.RING_LONG
         assert so.ring_smem(F, plan) <= so.SMEM_MAX or plan != so.sum_plan(F)
         walk = so.ring_walk(rp, order, F, plan)
         taken = [(row, sl) for warp in walk for row, sl, _ in warp]
@@ -421,24 +420,24 @@ def test_bf16_ring_plan_fits_and_every_row_is_taken_once(F):
                    for warp in walk)
         if len(walk) >= n_long * slices:  # a warp for each long row's slice, first
             assert {long_row, longer_row} <= {warp[0][0] for warp in walk}
-    K, S, R, W, B = so.sum_plan(F)
+    K, S, R, W = so.sum_plan(F)
     assert rp[long_row + 1] - rp[long_row] == 132 > K * S  # a warp's ring streams it through
 
 
 def test_bf16_ring_plan_at_the_graph_shapes_and_is_the_kernels():
     """At MeshGraphNet's F 128 a long row's block holds its 132 edges in
     flight at once, and at GraphViT's F 512 (no long rows) a warp holds its
-    rows; RING_SLICE, RING_WARPS, RING_LONG and SMEM_MAX are the kernel's
+    rows; RING_SLICE, RING_WARPS, LONG_BLOCKS and SMEM_MAX are the kernel's
     (``csrc/segment_ops.cu``, ``csrc/hopper.cuh``)."""
-    K, S, R, W, B = so.sum_plan(128)
-    assert W * S * K >= 132 and B >= 4  # a ghost row of each of MGN's 4 graphs
-    K, S, R, W, B = so.sum_plan(512)
+    K, S, R, W = so.sum_plan(128)
+    assert W * S * K >= 132 and so.LONG_BLOCKS >= 4  # a ghost row of each of MGN's 4 graphs
+    K, S, R, W = so.sum_plan(512)
     assert S * K >= R  # GraphViT's members: one edge a row
     for F in (128, 512):
         assert so.ring_smem(F, so.sum_plan(F)) <= so.SMEM_MAX
     csrc = Path(so.__file__).parents[1] / "csrc"
     src = (csrc / "segment_ops.cu").read_text()
-    for name in ("RING_SLICE", "RING_WARPS", "RING_LONG"):
+    for name in ("RING_SLICE", "RING_WARPS", "LONG_BLOCKS"):
         got = re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1)
         assert got == str(getattr(so, name)), name
     got = re.search(r"constexpr int SMEM_MAX = (\d+);", (csrc / "hopper.cuh").read_text())
