@@ -180,10 +180,11 @@ def sum_plan(F: int) -> tuple[int, int, int, int]:
     """``(K, S, R, W)`` of the bf16 ring (rows of F >= WIDE whole 16-byte
     vectors): K edge rows a stage, S stages a warp, R rows a warp, W warps a
     block, whose W S K rows also hold a ghost row's 132 edges in each of the
-    LONG_BLOCKS blocks of one long row -- among the sweep's leaders at
-    MeshGraphNet's F 128, by senders and by receivers, and GraphViT's F 512
-    (``chip_smoke.py``'s ``[plans]``)."""
-    K, S, R, W = (16, 2, 8, 8) if 2 * F <= 256 else (8, 2, 16, 4)
+    LONG_BLOCKS blocks of one long row -- among the leaders of a sweep of
+    K 4-32, S 2-4, R 2-16 and W 2-16 at MeshGraphNet's F 128, by senders
+    and by receivers, and GraphViT's F 512 (``chip_smoke.py``'s ``[plans]``
+    check it and the plans one step from it)."""
+    K, S, R, W = (16, 2, 8, 8) if 2 * F <= 256 else (4, 2, 8, 16)
     while K > 1 and ring_smem(F, (K, S, R, W)) > SMEM_MAX:
         K //= 2
     return K, S, R, W

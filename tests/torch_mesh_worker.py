@@ -278,6 +278,7 @@ def task_serve(spec: dict, rank: int) -> list:
         if not spec.get("down") or "every rank stops" not in str(e):
             raise
         if rank == 0:
+            client.join(150)  # the client's entries first: its requests, then the daemon gone
             results.append(("down", str(e)))
         else:
             with open(os.path.join(spec["dir"], f"down_{rank}.txt"), "w") as f:
