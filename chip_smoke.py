@@ -392,7 +392,6 @@ their launches from phase 20's two ``--dtype bf16`` runs.
 from __future__ import annotations
 
 import argparse
-import itertools
 import json
 import logging
 import math

@@ -70,7 +70,7 @@
 //   stage's mbarrier, S stages a warp; the lanes add a stage in f32 out of
 //   shared memory and hand it back.  A warp keeps S K edge rows in flight,
 //   set by the plan (ops/segment_ops.sum_plan) and not by the element
-//   width or the registers.  Three things the card showed (PERF.md, PR 21):
+//   width or the registers.  Three things the card showed (PERF.md):
 //   many 256-byte copies keep the copy engine busier than fewer long ones,
 //   so consecutive edge rows (a row's edges by senders, the ghost rows'
 //   padding edges) go as one copy; the ghost rows' chain of loads
