@@ -340,9 +340,8 @@ Phases, each printing one line per result; any failure exits nonzero:
                frames bit for bit with the MeshInterp's mask;
                ``tools/plotting.plot_field`` raising ImportError and writing
                nothing where matplotlib is missing (writing its figure where
-               it is present); ``tools/rollout_profile`` attr (the
-               ms/step of attention, 6 of 12 layers and the MLPGNN decoder),
-               trace and trace_stream over TOOL_STEPS steps (device events
+               it is present); ``tools/rollout_profile`` trace and
+               trace_stream over TOOL_STEPS steps (device events
                summarised per category); ``tools/train_profile`` (3 traced
                steps, 12 flash dq a step); ``tools/flash_bench`` at L 661,
                1536, 4096 and 8192 against the twin (output REL_TOL, lse
@@ -5251,7 +5250,7 @@ def resample_checks(dev, seed: int, pos, faces, mi, tmp: str, smi: str) -> tuple
 def phase_tools(dev, seed: int, failures: list, pickles: str, tmp: str, job: dict) -> dict:
     """Phase 25, the tools and core modules: the native locator against the
     NumPy one, the cubic resample on the card against its f64 host
-    evaluation, :func:`resample_checks`, ``rollout_profile`` attr / trace / trace_stream over
+    evaluation, :func:`resample_checks`, ``rollout_profile`` trace / trace_stream over
     TOOL_STEPS steps, ``train_profile``, ``flash_bench`` against the twin at
     FLASH_BENCH_LENGTHS (agreement held), the watchdog run ``job``
     (:func:`start_watchdog`) waited for and checked, ``ds_stats`` on phase
@@ -5329,17 +5328,8 @@ def phase_tools(dev, seed: int, failures: list, pickles: str, tmp: str, job: dic
     ok.update(more_ok)
     parts["resample and figures"] = time.perf_counter() - t0
 
-    # rollout attribution and traces
+    # rollout traces
     t0 = time.perf_counter()
-    reset_launches()
-    attr = rollout_profile.attr(dev, steps=TOOL_STEPS)
-    res["attr"] = dict(attr, launches=_nonzero(read_launches()), card=smi)
-    ok["attr"] = all(attr[k] > 0 for k in ("base", "noattn", "half_layers", "mlpdec"))
-    print(f"[tools] rollout_profile attr, {TOOL_STEPS} steps a rollout, the median of 6 timed "
-          f"rollouts a variant in turns ({smi}): base {attr['base'] * 1e3:.3f} ms/step; attention "
-          f"{attr['attention_ms']:.3f}, {attr['removed_layers']} backbone layers "
-          f"{attr['layers_ms']:.3f}, MLPGNN vs MLP decoder {attr['decoder_ms']:.3f} ms/step "
-          f"{'ok' if ok['attr'] else 'FAIL'}")
     for name, streaming in (("trace", False), ("trace_stream", True)):
         reset_launches()
         summary = rollout_profile.trace(dev, streaming=streaming, steps=TOOL_STEPS)

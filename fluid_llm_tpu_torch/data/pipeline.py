@@ -17,6 +17,7 @@ patch-count probe.
 from __future__ import annotations
 
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Callable, Iterator, Optional, Sequence
@@ -27,6 +28,7 @@ import torch
 from fluid_llm_tpu_torch.core.interp import resample_to_grid
 from fluid_llm_tpu_torch.data.ds_props import DSProps
 from fluid_llm_tpu_torch.ops.patching import num_patches
+from fluid_llm_tpu_torch.tools.profiling import span
 
 # batches staged ahead of the consumer by the threaded ``make_batches``: the
 # reference's ``prefetch_factor`` (``src/utils_model.py:34-39``)
@@ -281,6 +283,13 @@ def make_batches(
     ``src/utils_model.py:34-39``, runs processes).  A :class:`PatchDataset`'s
     window starts are drawn on the calling thread, batch by batch in order
     (``draw_step``), so threaded batches equal serial ones bit for bit.
+
+    ``make_batches.stats`` counts, over the process, the ``samples`` built
+    and ``build_s``, the seconds spent building them summed over the
+    threads that built them (always on: two clock reads a batch).  Each
+    batch's building is a ``fluid.data.build`` span, which a trace shows
+    where the batch builds on the profiled thread (``num_workers`` 0):
+    ``torch.profiler`` records only the thread that started it.
     """
     order = np.arange(len(dataset))
     if shuffle:
@@ -294,8 +303,13 @@ def make_batches(
         return [(int(j), draw() if draw is not None else None) for j in chunk]
 
     def build(items):
-        samples = [dataset[j] if step is None else dataset.sample(j, step) for j, step in items]
-        return tuple(torch.stack([s[k] for s in samples]) for k in range(5))
+        with span("fluid.data.build"):
+            t0 = time.perf_counter()
+            samples = [dataset[j] if step is None else dataset.sample(j, step)
+                       for j, step in items]
+            batch = tuple(torch.stack([s[k] for s in samples]) for k in range(5))
+        _count(len(items), time.perf_counter() - t0)
+        return batch
 
     if num_workers <= 0:
         for chunk in chunks:
@@ -310,3 +324,13 @@ def make_batches(
             if chunk is not None:
                 pending.append(pool.submit(build, plan(chunk)))
             yield tuple(t.to(device) for t in batch)
+
+
+make_batches.stats = {"samples": 0, "build_s": 0.0}
+_stats_lock = threading.Lock()
+
+
+def _count(samples: int, seconds: float) -> None:
+    with _stats_lock:
+        make_batches.stats["samples"] += samples
+        make_batches.stats["build_s"] += seconds

@@ -50,6 +50,7 @@ from fluid_llm_tpu_torch.models.decoders import PatchDecoder
 from fluid_llm_tpu_torch.models.embeddings import InputEmbeddings
 from fluid_llm_tpu_torch.models.lora import Lora, merge_lora
 from fluid_llm_tpu_torch.ops.quant import quantize_backbone
+from fluid_llm_tpu_torch.tools.profiling import span
 
 
 class FluidLLM(nn.Module):
@@ -169,16 +170,26 @@ class FluidLLM(nn.Module):
             bb.stack_layers(self.backbone)
 
     def _embed(self, states, position_ids, frame_valid, generator=None):
-        """Embeddings (f32) -> backbone dtype, flattened, BOS prepended."""
-        bs, seq_len, n_patch = states.shape[:3]
-        h = self.embed_frames(states, position_ids, generator)
-        token_valid = frame_valid.repeat_interleave(n_patch, dim=1)
-        if self.bos is not None:
-            bos = self.bos.to(h.dtype).expand(bs, 1, h.shape[-1])
-            h = torch.cat([bos, h], dim=1)
-            ones = torch.ones(bs, 1, dtype=torch.bool, device=h.device)
-            token_valid = torch.cat([ones, token_valid], dim=1)
-        return h, token_valid
+        """Embeddings (f32) -> backbone dtype, flattened, BOS prepended;
+        ``frame_valid`` None: every frame valid."""
+        with span("fluid.encoder"):
+            bs, seq_len, n_patch = states.shape[:3]
+            if frame_valid is None:
+                frame_valid = torch.ones(bs, seq_len, dtype=torch.bool, device=states.device)
+            h = self._frames(states, position_ids, generator)
+            token_valid = frame_valid.repeat_interleave(n_patch, dim=1)
+            if self.bos is not None:
+                bos = self.bos.to(h.dtype).expand(bs, 1, h.shape[-1])
+                h = torch.cat([bos, h], dim=1)
+                ones = torch.ones(bs, 1, dtype=torch.bool, device=h.device)
+                token_valid = torch.cat([ones, token_valid], dim=1)
+            return h, token_valid
+
+    def _frames(self, states, position_ids, generator=None) -> torch.Tensor:
+        bs, f, n = states.shape[:3]
+        h = self.input_emb(states, position_ids, generator,
+                           spatial_scale=(self.ds_props.Nx_patch, self.ds_props.Ny_patch))
+        return h.to(self.backbone_cfg.dtype).reshape(bs, f * n, -1)
 
     def embed_frames(self, states, position_ids, generator=None) -> torch.Tensor:
         """Input embeddings of whole frames (``fluid_llm.py:363-376``):
@@ -186,16 +197,15 @@ class FluidLLM(nn.Module):
         -> (bs, f*N_patch, d) in the backbone dtype.  ``rope_abs`` reads the
         static patch-grid extent (``fluid_llm.py:227-231``).  The streaming
         rollout encodes each new frame once with it."""
-        bs, f, n = states.shape[:3]
-        h = self.input_emb(states, position_ids, generator,
-                           spatial_scale=(self.ds_props.Nx_patch, self.ds_props.Ny_patch))
-        return h.to(self.backbone_cfg.dtype).reshape(bs, f * n, -1)
+        with span("fluid.encoder"):
+            return self._frames(states, position_ids, generator)
 
     def decode_frame_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Backbone output tokens of one frame (bs, N_patch, d) -> diff
         image (bs, 3, X, Y), f32, scaled (``fluid_llm.py:378-385``)."""
-        preds = self.decoder(tokens[:, None], self.kernels)
-        return preds[:, 0].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
+        with span("fluid.decoder"):
+            preds = self.decoder(tokens[:, None], self.kernels)
+            return preds[:, 0].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor, *,
                 frame_valid: Optional[torch.Tensor] = None, train: bool = False,
@@ -218,25 +228,26 @@ class FluidLLM(nn.Module):
                              "-- set seq_sharded_acts: true and model_axis > 1")
         gen = generator if train else None
         bs, seq_len, n_patch = x.shape[:3]
-        if frame_valid is None:
-            frame_valid = torch.ones(bs, seq_len, dtype=torch.bool, device=x.device)
         h, token_valid = self._embed(x, position_ids, frame_valid, gen)
-        out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora, generator=gen,
-                            moe_aux=moe_aux, seq_shard=par.seq_sharded_acts)
-        if self.bos is not None:
-            out = out[:, 1:]
-        preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, gen)
-        return preds.permute(0, 1, 4, 2, 3).float() * self.cfg.diff_scale_factor
+        with span("fluid.backbone"):
+            out = self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora,
+                                generator=gen, moe_aux=moe_aux, seq_shard=par.seq_sharded_acts)
+        with span("fluid.decoder"):  # the tokens into frames: a copy, past the BOS
+            if self.bos is not None:
+                out = out[:, 1:]
+            preds = self.decoder(out.reshape(bs, seq_len, n_patch, -1), self.kernels, gen)
+            return preds.permute(0, 1, 4, 2, 3).float() * self.cfg.diff_scale_factor
 
     def forward_see_init(self, states: torch.Tensor, position_ids: torch.Tensor,
                          **kw) -> torch.Tensor:
         """Duplicate the first frame, run ``forward``, drop its prediction
         (``model.py:118-126``)."""
-        states = torch.cat([states[:, :1], states], dim=1)
-        position_ids = torch.cat([position_ids[:, :1], position_ids], dim=1)
-        fv = kw.get("frame_valid")
-        if fv is not None:
-            kw["frame_valid"] = torch.cat([fv[:, :1], fv], dim=1)
+        with span("fluid.encoder"):  # the duplicated frame is the encoder's input
+            states = torch.cat([states[:, :1], states], dim=1)
+            position_ids = torch.cat([position_ids[:, :1], position_ids], dim=1)
+            fv = kw.get("frame_valid")
+            if fv is not None:
+                kw["frame_valid"] = torch.cat([fv[:, :1], fv], dim=1)
         return self.forward(states, position_ids, **kw)[:, 1:]
 
     def predict_diffs(self, states: torch.Tensor, position_ids: torch.Tensor,
@@ -286,16 +297,23 @@ class FluidLLM(nn.Module):
             frame_valid = torch.cat([ones, frame_valid], dim=1)
             out_idx = frame_idx + 1  # drop the duplicated frame's prediction
         h, token_valid = self._embed(states, position_ids, frame_valid)
-        run = lambda **kw: self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora,
-                                         remat=remat, moe_aux=moe_aux, **kw)
+
+        def run(**kw):
+            with span("fluid.backbone"):
+                return self.backbone(h, token_valid, kernels=self.kernels, lora=self.lora,
+                                     remat=remat, moe_aux=moe_aux, **kw)
+
         if self.cfg.decoder_params.type == "CNN":
             out = run()
-            if self.bos is not None:
-                out = out[:, 1:]
-            valid_tok = frame_valid.repeat_interleave(n_patch, dim=1)[..., None]
-            out = torch.where(valid_tok, out, torch.zeros((), dtype=out.dtype, device=out.device))
-            preds = self.decoder(out.reshape(bs, -1, n_patch, out.shape[-1]), self.kernels)
-            return preds[:, out_idx].permute(0, 3, 1, 2).float() * self.cfg.diff_scale_factor
+            with span("fluid.decoder"):
+                if self.bos is not None:
+                    out = out[:, 1:]
+                valid_tok = frame_valid.repeat_interleave(n_patch, dim=1)[..., None]
+                out = torch.where(valid_tok, out,
+                                  torch.zeros((), dtype=out.dtype, device=out.device))
+                preds = self.decoder(out.reshape(bs, -1, n_patch, out.shape[-1]), self.kernels)
+                return preds[:, out_idx].permute(0, 3, 1, 2).float() * \
+                    self.cfg.diff_scale_factor
         tok_start = out_idx * n_patch + (1 if self.bos is not None else 0)
         if self.backbone_cfg.moe_experts > 0:
             out = run()[:, tok_start:tok_start + n_patch]

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
+from fluid_llm_tpu_torch.tools.profiling import span
 
 
 def generate(
@@ -65,6 +66,12 @@ def generate(
     Returns (all_states, all_diffs) as patch tensors of
     (bs, init_len + n_steps, ...) and (bs, n_steps, ...).
     """
+    with span("fluid.rollout"):
+        return _rollout(model, init_states, bc_mask, position_ids, n_steps, grad, remat, moe_aux)
+
+
+def _rollout(model, init_states, bc_mask, position_ids, n_steps: int, grad: bool, remat: bool,
+             moe_aux: Optional[list]):
     if not grad:
         if remat:
             raise ValueError("remat rematerialises a differentiated rollout: pass grad=True")
@@ -89,39 +96,41 @@ def _generate(model, init_states, bc_mask, position_ids, n_steps: int, remat: bo
 
     next_states, all_diffs, aux_steps = [], [], []
     for i in range(n_steps):
-        start = W - min(init_len + i, W)  # first valid slot
-        frame_valid = (slot >= start).expand(bs, W)
-        if abs_t:
-            # valid slot j holds raw step t0 + (init_len + i - W + j) * ival
-            t_ids = (t0[:, None] + (init_len + i - W + slot) * ival).clamp_min(0)
-            dup_t = t0 + max(init_len + i - W, 0) * ival
-            dpos = torch.cat([spatial[:, 0], dup_t[:, None, None].expand(bs, n_patch, 1)], dim=-1)
-        else:
-            t_ids = (slot - start).clamp_min(0).expand(bs, W)
-            dpos = dup_pos
-        wpos = torch.cat([spatial, t_ids[:, :, None, None].expand(bs, W, n_patch, 1)], dim=-1)
-        step_mask = bc_mask[:, min(init_len + i - 1, bc_mask.shape[1] - 1)]
+        with span("fluid.rollout_step"):  # its own ops: the window's glue
+            start = W - min(init_len + i, W)  # first valid slot
+            frame_valid = (slot >= start).expand(bs, W)
+            if abs_t:
+                # valid slot j holds raw step t0 + (init_len + i - W + j) * ival
+                t_ids = (t0[:, None] + (init_len + i - W + slot) * ival).clamp_min(0)
+                dup_t = t0 + max(init_len + i - W, 0) * ival
+                dpos = torch.cat([spatial[:, 0], dup_t[:, None, None].expand(bs, n_patch, 1)],
+                                 dim=-1)
+            else:
+                t_ids = (slot - start).clamp_min(0).expand(bs, W)
+                dpos = dup_pos
+            wpos = torch.cat([spatial, t_ids[:, :, None, None].expand(bs, W, n_patch, 1)], dim=-1)
+            step_mask = bc_mask[:, min(init_len + i - 1, bc_mask.shape[1] - 1)]
 
-        def step(buffer, wpos=wpos, frame_valid=frame_valid, dpos=dpos, start=start,
-                 step_mask=step_mask):
-            aux = [] if moe_aux is not None else None
-            last_img = model.predict_frame_diff(
-                buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos),
-                remat=False if remat else None,  # a rematerialised step keeps its blocks whole
-                moe_aux=aux,
-            )
-            diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
-            diffs = torch.where(step_mask, 0.0, diffs)
-            aux_step = sum(aux) / len(aux) if aux else None
-            return buffer[:, W - 1] + diffs, diffs, aux_step
+            def step(buffer, wpos=wpos, frame_valid=frame_valid, dpos=dpos, start=start,
+                     step_mask=step_mask):
+                aux = [] if moe_aux is not None else None
+                last_img = model.predict_frame_diff(
+                    buffer, wpos, frame_valid, W - 1, init_frame=(buffer[:, start], dpos),
+                    remat=False if remat else None,  # a rematerialised step keeps its blocks whole
+                    moe_aux=aux,
+                )
+                diffs = img_to_patch(last_img[:, None], model.ds_props)[:, 0]
+                diffs = torch.where(step_mask, 0.0, diffs)
+                aux_step = sum(aux) / len(aux) if aux else None
+                return buffer[:, W - 1] + diffs, diffs, aux_step
 
-        next_state, diffs, aux_step = checkpoint(step, buffer, use_reentrant=False) if remat \
-            else step(buffer)
-        buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
-        next_states.append(next_state)
-        all_diffs.append(diffs)
-        if aux_step is not None:
-            aux_steps.append(aux_step)
+            next_state, diffs, aux_step = checkpoint(step, buffer, use_reentrant=False) if remat \
+                else step(buffer)
+            buffer = torch.cat([buffer[:, 1:], next_state[:, None]], dim=1)
+            next_states.append(next_state)
+            all_diffs.append(diffs)
+            if aux_step is not None:
+                aux_steps.append(aux_step)
     if aux_steps:
         moe_aux.append(torch.stack(aux_steps).mean())
     all_states = torch.cat([init_states, torch.stack(next_states, dim=1)], dim=1)
@@ -142,8 +151,7 @@ def gen_seq(
             f"Prediction steps ({pred_steps}) + start state ({start_state}) "
             f"must be less than total sequence length {seq_len}!"
         )
-    all_states, all_diffs = generate(
-        model, states[:, :start_state], bc_mask, position_ids, pred_steps, grad=grad,
-        remat=remat, moe_aux=moe_aux,
-    )
-    return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)
+    with span("fluid.rollout"):
+        all_states, all_diffs = _rollout(model, states[:, :start_state], bc_mask, position_ids,
+                                         pred_steps, grad, remat, moe_aux)
+        return patch_to_img(all_states, model.ds_props), patch_to_img(all_diffs, model.ds_props)

@@ -33,6 +33,7 @@ import torch
 from fluid_llm_tpu_torch.models import backbone as bb
 from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
+from fluid_llm_tpu_torch.tools.profiling import span
 
 
 def _check_streaming_compat(model: FluidLLM) -> None:
@@ -135,17 +136,19 @@ def generate_streaming(
     if prefill:
         x0 = torch.cat(prefill, dim=1)
         p0 = torch.arange(x0.shape[1], dtype=torch.int32, device=dev)
-        bb.apply_streaming(model.backbone, x0, p0, cache, 0, prefill=True,
-                           frame_tokens=n_patch, kernels=model.kernels)
+        with span("fluid.backbone"):
+            bb.apply_streaming(model.backbone, x0, p0, cache, 0, prefill=True,
+                               frame_tokens=n_patch, kernels=model.kernels)
 
     # ---- decode: append one frame, read its diff -------------------------
     state = init_states[:, -1]
     next_states, all_diffs = [], []
     for i in range(n_steps):
         f = init_len - 1 + i  # the frame being appended
-        y, cache = bb.apply_streaming(model.backbone, embed_frame(state, f),
-                                      token_base(f) + frame_tok, cache, f % R,
-                                      kernels=model.kernels)
+        x = embed_frame(state, f)
+        with span("fluid.backbone"):
+            y, cache = bb.apply_streaming(model.backbone, x, token_base(f) + frame_tok, cache,
+                                          f % R, kernels=model.kernels)
         diffs = img_to_patch(model.decode_frame_tokens(y)[:, None], model.ds_props)[:, 0]
         # boundary forcing with the last available mask (``model.py:202,206``)
         diffs = torch.where(bc_mask[:, min(f, bc_mask.shape[1] - 1)], 0.0, diffs)

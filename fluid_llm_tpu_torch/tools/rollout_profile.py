@@ -1,20 +1,16 @@
-"""Exact-rollout performance attribution on the card.
+"""Exact-rollout traces on the card.
 
-Counterpart of ``fluid_llm_tpu/tools/rollout_profile.py``.  Three modes,
+Counterpart of ``fluid_llm_tpu/tools/rollout_profile.py``.  Two modes,
 each over the serving protocol's rollout (``BENCH_ROLLOUT_STEPS``, default
 251, from one state of a 10-frame window at resolution 238, bs 1, bf16,
 random weights from seed 0):
 
-    python -m fluid_llm_tpu_torch.tools.rollout_profile attr [--device cuda]
-        OPT-125m timed as built and in three stubbed variants: no
-        attention (``Backbone._attend`` returns ``v``; the final block's
-        sliced attention stays), half the layers (6 of 12) and an MLP
-        decoder, the four in turns; prints the ms/step each removes.
-
-    python -m fluid_llm_tpu_torch.tools.rollout_profile trace [--trace_dir D]
+    python -m fluid_llm_tpu_torch.tools.rollout_profile [trace] [--trace_dir D]
         One OPT-125m rollout under ``torch.profiler`` (CPU and CUDA
         activities), summarised per op and category
-        (``tools/profiling.summarize_trace``).
+        (``tools/profiling.summarize_trace``).  The trace carries the
+        port's ``fluid.*`` spans (``tools/profiling.span``), which split a
+        step by layer.
 
     python -m fluid_llm_tpu_torch.tools.rollout_profile trace_stream
         The same for the streaming rollout of the flagship LLaMA-125m
@@ -30,7 +26,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import os
-import statistics
 import sys
 import tempfile
 import time
@@ -46,7 +41,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _config(streaming: bool, resolution: int, decoder: str | None = None):
+def _config(streaming: bool, resolution: int):
     from fluid_llm_tpu_torch.config import Config
 
     kw = dict(llm_backbone="facebook/opt-125m", freeze_llm=False)
@@ -54,22 +49,18 @@ def _config(streaming: bool, resolution: int, decoder: str | None = None):
         kw = dict(llm_backbone="fluid/llama-125m", absolute_time_ids=True,
                   pos_embedding_params={"pos_embedding_type": "rope_abs",
                                         "input_emb_layer_dropout": 0.0})
-    cfg = Config(half_precision=True, use_lora=False, batch_size=1, autoreg_seq_len=SEQ_LEN,
-                 seq_len=SEQ_LEN, resolution=resolution, flash_attention=True, **kw)
-    if decoder:
-        cfg.decoder_params.type = decoder
-    return cfg
+    return Config(half_precision=True, use_lora=False, batch_size=1, autoreg_seq_len=SEQ_LEN,
+                  seq_len=SEQ_LEN, resolution=resolution, flash_attention=True, **kw)
 
 
-def build(device: torch.device, decoder: str | None = None, streaming: bool = False,
-          resolution: int = 238, **overrides):
+def build(device: torch.device, streaming: bool = False, resolution: int = 238, **overrides):
     """The prepared model (seed 0) and the first window of one synthetic
     test trajectory on ``device``; ``overrides`` replace backbone fields."""
     from fluid_llm_tpu_torch.data.pipeline import make_batches
     from fluid_llm_tpu_torch.data.synthetic import SyntheticCylinderDataset
     from fluid_llm_tpu_torch.models.fluid_llm import FluidLLM
 
-    cfg = _config(streaming, resolution, decoder)
+    cfg = _config(streaming, resolution)
     ds = SyntheticCylinderDataset(n_trajectories=1, resolution=resolution, seq_len=SEQ_LEN,
                                   mode="test", max_steps=600, absolute_time=streaming)
     model = FluidLLM.build(cfg, ds.ds_props(), **overrides)
@@ -111,71 +102,6 @@ def timed_roll(model, batch, tag: str, n_rep: int = 6, streaming: bool = False,
     return dt / steps, roll
 
 
-@contextlib.contextmanager
-def no_attention():
-    """Every full block's attention returns ``v`` (``Backbone._attend``
-    stubbed; restored on exit)."""
-    from fluid_llm_tpu_torch.models import backbone as bb
-
-    real = bb.Backbone._attend
-    bb.Backbone._attend = lambda self, L, kernels, device: (lambda q, k, v, *a, **kw: v)
-    try:
-        yield
-    finally:
-        bb.Backbone._attend = real
-
-
-def attr(device: torch.device, resolution: int = 238, n_rep: int = 6,
-         steps: int = PRED_STEPS, **overrides) -> dict:
-    """Seconds a step of the model as built and of each stubbed variant
-    (the median of ``n_rep`` timed rollouts each, after a warm one), and
-    the ms/step each part takes (the difference).  The rollouts are host
-    bound and the host drifts, so the variants are timed in turns (forward
-    order, then backward, alternately), not one after another."""
-    model, batch = build(device, resolution=resolution, **overrides)
-    n_layers = model.backbone_cfg.n_layers
-    half = n_layers // 2
-    variants = [("base", f"base ({n_layers} layers, MLPGNN dec)", model, batch, False),
-                ("noattn", "no-attention (_attend->v)",
-                 *build(device, resolution=resolution, **overrides), True),
-                ("half_layers", f"{half} layers",
-                 *build(device, resolution=resolution, **{**overrides, "n_layers": half}), False),
-                ("mlpdec", "MLP decoder",
-                 *build(device, decoder="MLP", resolution=resolution, **overrides), False)]
-    rolls = {}
-    for key, tag, m, b, stub in variants:
-        with no_attention() if stub else contextlib.nullcontext():
-            t0 = time.perf_counter()
-            st, _ = _roll(m, b, False, steps)()
-            _sync(device)
-        print(f"{tag}: first rollout {time.perf_counter() - t0:.1f}s", file=sys.stderr,
-              flush=True)
-        if not torch.isfinite(st.float()).all():
-            raise RuntimeError(f"{tag}: the rollout is not finite")
-        rolls[key] = _roll(m, b, False, steps)
-    times = {key: [] for key, *_ in variants}
-    for rep in range(n_rep):
-        for key, _, _, _, stub in variants if rep % 2 == 0 else variants[::-1]:
-            with no_attention() if stub else contextlib.nullcontext():
-                t0 = time.perf_counter()
-                rolls[key]()
-                _sync(device)
-            times[key].append((time.perf_counter() - t0) / steps)
-    res = {"per_rollout": times}
-    for key, tag, *_ in variants:
-        res[key] = statistics.median(times[key])
-        print(f"{tag}: {1 / res[key]:.1f} steps/s  ({res[key] * 1e3:.3f} ms/step; rollouts "
-              f"{min(times[key]) * 1e3:.3f}-{max(times[key]) * 1e3:.3f})", flush=True)
-    res["attention_ms"] = (res["base"] - res["noattn"]) * 1e3
-    res["layers_ms"] = (res["base"] - res["half_layers"]) * 1e3
-    res["decoder_ms"] = (res["base"] - res["mlpdec"]) * 1e3
-    res["removed_layers"] = n_layers - half
-    print(f"attention total:   {res['attention_ms']:.3f} ms/step")
-    print(f"{n_layers - half} backbone layers: {res['layers_ms']:.3f} ms/step")
-    print(f"MLPGNN-vs-MLP dec: {res['decoder_ms']:.3f} ms/step")
-    return res
-
-
 def trace(device: torch.device, streaming: bool = False, trace_dir: str | None = None,
           resolution: int = 238, steps: int = PRED_STEPS, **overrides):
     """One rollout under ``torch.profiler`` after a timed warm one; the
@@ -199,8 +125,7 @@ def trace(device: torch.device, streaming: bool = False, trace_dir: str | None =
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("mode", nargs="?", default="attr",
-                        choices=["attr", "trace", "trace_stream"])
+    parser.add_argument("mode", nargs="?", default="trace", choices=["trace", "trace_stream"])
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--trace_dir", default=None)
     args = parser.parse_args(argv)
@@ -208,8 +133,6 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("rollout_profile: CUDA is not available (pass --device cpu to run "
                          "the plain twins on the CPU)")
-    if args.mode == "attr":
-        return attr(device)
     return trace(device, streaming=args.mode == "trace_stream", trace_dir=args.trace_dir)
 
 

@@ -48,6 +48,7 @@ from fluid_llm_tpu_torch.parallel import comm
 from fluid_llm_tpu_torch.parallel.mesh import sync_grads
 from fluid_llm_tpu_torch.ops.patching import img_to_patch, patch_to_img
 from fluid_llm_tpu_torch.rollout.generate import gen_seq
+from fluid_llm_tpu_torch.tools.profiling import span
 from fluid_llm_tpu_torch.train.losses import combined_loss
 from fluid_llm_tpu_torch.train.metrics import calc_n_rmse, normalise_states
 from fluid_llm_tpu_torch.train.optim import build_optimizer
@@ -96,35 +97,38 @@ class Trainer:
                 input_states = states + noise * (~bc_mask).to(states.dtype) * std * cfg.noise
             pred_diff = model.predict_diffs(input_states, position_ids, train=True, generator=gen,
                                             moe_aux=moe_aux)
-            pred_state = patch_to_img(input_states, model.ds_props) + pred_diff
         elif mode == "gen":
             guide_img, _ = gen_seq(model, batch, states.shape[1] - 1)
             guide_img = guide_img.clone()  # out of inference mode, into autograd
-            pred_diffs = model.forward_see_init(img_to_patch(guide_img, model.ds_props),
-                                                position_ids, train=True, generator=gen,
-                                                moe_aux=moe_aux)
-            pred_state = guide_img + pred_diffs
+            pred_diff = model.forward_see_init(img_to_patch(guide_img, model.ds_props),
+                                               position_ids, train=True, generator=gen,
+                                               moe_aux=moe_aux)
         elif mode == "notf":
             pred_state = gen_seq(model, batch, states.shape[1], grad=True,
                                  remat=cfg.parallel.remat, moe_aux=moe_aux)[0][:, 1:]
         else:
             raise ValueError(mode)
 
-        next_img = patch_to_img(next_state, model.ds_props)
-        mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()
-        preds, target = pred_state, next_img
-        if cfg.loss_norm_eps is not None:
-            target, preds = normalise_states(diffs, next_img, pred_state, cfg.loss_norm_eps,
-                                             cfg.channel_independent)
-        loss, metrics = combined_loss(preds, target, mask_img, cfg.loss_function,
-                                      cfg.loss_weighting, cfg.pressure_weight)
-        if moe_aux:
-            aux = sum(moe_aux) / len(moe_aux)
-            loss = loss + cfg.moe.aux_weight * aux
-            metrics["moe_aux"] = aux
-        metrics["loss"] = loss
-        metrics["N_RMSE"] = calc_n_rmse(pred_state.detach(), next_img, mask_img)
-        return loss, metrics
+        with span("fluid.loss"):
+            if mode == "autoreg":
+                pred_state = patch_to_img(input_states, model.ds_props) + pred_diff
+            elif mode == "gen":
+                pred_state = guide_img + pred_diff
+            next_img = patch_to_img(next_state, model.ds_props)
+            mask_img = patch_to_img(bc_mask.float(), model.ds_props).bool()
+            preds, target = pred_state, next_img
+            if cfg.loss_norm_eps is not None:
+                target, preds = normalise_states(diffs, next_img, pred_state, cfg.loss_norm_eps,
+                                                 cfg.channel_independent)
+            loss, metrics = combined_loss(preds, target, mask_img, cfg.loss_function,
+                                          cfg.loss_weighting, cfg.pressure_weight)
+            if moe_aux:
+                aux = sum(moe_aux) / len(moe_aux)
+                loss = loss + cfg.moe.aux_weight * aux
+                metrics["moe_aux"] = aux
+            metrics["loss"] = loss
+            metrics["N_RMSE"] = calc_n_rmse(pred_state.detach(), next_img, mask_img)
+            return loss, metrics
 
     def on_mesh(self, batch: tuple):
         """The context of a step over ``batch``, this rank's rows of the
@@ -146,14 +150,18 @@ class Trainer:
 
     def train_step(self, batch: tuple, mode: str = "autoreg") -> dict:
         """One optimizer step; returns the metrics, detached, on the device."""
-        self.opt.zero_grad(set_to_none=True)
-        with self.on_mesh(batch):
-            loss, metrics = self.mode_loss(batch, mode)
-            loss.backward()
-            metrics = self._global(metrics)
-        sync_grads(self.model)
-        self.opt.step()
-        return metrics
+        with span("fluid.train_step"):
+            with span("fluid.optimizer"):
+                self.opt.zero_grad(set_to_none=True)
+            with self.on_mesh(batch):
+                loss, metrics = self.mode_loss(batch, mode)
+                with span("fluid.backward"):
+                    loss.backward()
+                metrics = self._global(metrics)
+            with span("fluid.optimizer"):
+                sync_grads(self.model)
+                self.opt.step()
+            return metrics
 
     def val_rollout(self, batch: tuple) -> tuple[torch.Tensor, torch.Tensor]:
         """Predicted and target image sequences of ``val_step``'s rollout

@@ -1,0 +1,18 @@
+"""backbone_device_ms.train: device ms a training step in the port's ``fluid.backbone`` span.
+
+Layer: backbone (the OPT blocks with their DoRA adapters, the final norm
+(``self.backbone(...)``)). The device events of the traced steps launched
+inside the span, and the backward's that its forward ops' autograd nodes
+launch (``lib/spans.py``), summed, over the steps traced. Moves
+``train_samples_per_s``.
+"""
+
+from portbench.lib import spans
+
+LAYER = "backbone"
+MOVES = "train_samples_per_s"
+SOURCE = "device_trace"
+
+
+def read(ctx):
+    return spans.device_ms(ctx, LAYER)

@@ -6,7 +6,7 @@
   on a real CPU trace of ``torch.profiler`` (no device events) it returns
   None, as the JAX ``summarize_xplane`` without a TPU plane; and
   ``baselines_cli --profile_dir`` on the CPU writes its trace and says so.
-- ``tools/rollout_profile`` (``attr``, ``trace``, ``trace_stream``),
+- ``tools/rollout_profile`` (``trace``, ``trace_stream``),
   ``tools/train_profile`` and ``tools/flash_bench`` run to the end on
   ``--device cpu`` at 2 layers, d 64 and resolution 64 (flash_bench at 12
   heads x 64, L 64 and 130): the plain twins on both sides, so no time
@@ -115,31 +115,6 @@ def test_baselines_cli_profile_dir(tmp_path, capsys):
                         "--profile_dir", str(trace)])
     assert (trace / "trace.json").stat().st_size > 0
     assert "no device events" in capsys.readouterr().out
-
-
-def test_rollout_profile_attr_on_cpu(monkeypatch):
-    from fluid_llm_tpu_torch.models import backbone as bb
-
-    real = bb.Backbone._attend
-    res = rollout_profile.attr(CPU, resolution=64, n_rep=1, steps=2, **TINY)
-    assert bb.Backbone._attend is real  # the stub restored
-    assert {"base", "noattn", "half_layers", "mlpdec"} <= set(res)
-    assert all(res[k] > 0 for k in ("base", "noattn", "half_layers", "mlpdec"))
-    assert res["removed_layers"] == 1
-    assert all(len(t) == 1 for t in res["per_rollout"].values())  # n_rep timed rollouts each
-    assert res["attention_ms"] == pytest.approx((res["base"] - res["noattn"]) * 1e3)
-
-
-def test_no_attention_stub_returns_v():
-    model, batch = rollout_profile.build(CPU, resolution=64, **TINY)
-    states, _, _, bc_mask, pos = batch
-    with torch.no_grad():
-        plain = rollout_profile._roll(model, batch, False, 2)()[0]
-        with rollout_profile.no_attention():
-            stubbed = rollout_profile._roll(model, batch, False, 2)()[0]
-        again = rollout_profile._roll(model, batch, False, 2)()[0]
-    assert torch.isfinite(stubbed).all() and not torch.equal(stubbed, plain)
-    assert torch.equal(again, plain)
 
 
 @pytest.mark.parametrize("streaming", [False, True], ids=["trace", "trace_stream"])
