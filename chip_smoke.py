@@ -73,7 +73,11 @@ Phases, each printing one line per result; any failure exits nonzero:
                (MeshGraphNet's F 128 by the
                senders, GraphViT's F 512 by member: the sum equal bit for
                bit to the CSR walk in f32 rounded once, the gather to its
-               twin);
+               twin); last the learned positions' add (f32) at the
+               training step's 42 240 rows of 768 and the 350m rollout's
+               21 120 of 1 024: the forward equal to its twin, the backward
+               to the walk of its order (``pos_embed.grad_walk``) bit for
+               bit, beside autograd through the twin and ``index_put_``;
 4. slice    -- ``configs/training1.yaml`` (OPT-125m at full width and depth,
                DoRA r16 merged, BOS, see-init, MLPGNN, bf16) with seeded
                random weights on ``synthetic:1`` at seq_len 253, through
@@ -899,7 +903,7 @@ def phase_kernels(dev, failures: list) -> list[dict]:
                     "int8" if mode == "w8a8" else "bf16"),
         ))
     rows += _indexed_linear_rows(dev, g) + _short_attention_rows(dev, g)
-    rows += _segment_rows(dev, g)
+    rows += _segment_rows(dev, g) + _pos_embed_rows(dev, g)
     for r in rows:
         ok = (r["rel"] <= r.get("rel_tol", REL_TOL) and r.get("finite", True)
               and r.get("lse_max_abs_err", 0.0) <= LSE_TOL
@@ -1611,6 +1615,73 @@ def _segment_rows(dev, g: torch.Generator) -> list[dict]:
         x = torch.randn(rows_in, F, generator=g).to(dev, torch.bfloat16)
         rows.append(_segment_row(kernel, x, index, True,
                                  "edges[..., 0]" if by == "edges" else "cluster members"))
+    return rows
+
+
+def _pos_embed_rows(dev, g: torch.Generator) -> list[dict]:
+    """The learned positions' add (``ops/pos_embed``) at the training step's
+    (64 windows x 11 frames x 60 patches, d 768) and the 350m rollout's (32
+    windows, d 1024) shapes, tables 15 / 4 / 11, ids laid out as the data
+    layer lays them (``data/pipeline.position_ids``): the forward equal to
+    its twin bit for bit; the backward against autograd through the twin
+    (whose backward is one ``index_put_(accumulate=True)`` a table, the
+    library call, timed with the zero fills), equal bit for bit to the
+    kernel's order (``grad_walk``) and repeated.  The twin's backward and
+    the library call are timed between CUDA events (launch gaps included;
+    they sort the ids), the kernels by graph replays.  Bound: bytes once
+    over 3.35 TB/s (forward h, ids, tables and out; backward the gradient,
+    ids and the tables' gradients), the adds in f32."""
+    from fluid_llm_tpu_torch.data.pipeline import position_ids
+    from fluid_llm_tpu_torch.ops import _build
+    from fluid_llm_tpu_torch.ops import pos_embed as pe
+
+    sizes = (15, 4, 11)
+    rows = []
+    for bs, d, backward in ((64, 768, True), (32, 1024, False)):
+        ids = position_ids(11, 15, 4).reshape(1, -1, 3).expand(bs, -1, 3).reshape(-1, 3).to(dev)
+        R = ids.shape[0]
+        h = torch.randn(R, d, generator=g).to(dev)
+        tables = [torch.randn(n, d, generator=g).to(dev) for n in sizes]
+        out, ref = pe.pos_embed_fwd(h, *tables, ids), pe.pos_embed_ref(h, *tables, ids)
+        again, twin_again = pe.pos_embed_fwd(h, *tables, ids), pe.pos_embed_ref(h, *tables, ids)
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel="pos_embed_fwd", shape=f"({R}, {d}) tables 15/4/11", main_path=True,
+            rel=rel_err(out, ref), max_abs_err=(out - ref).abs().max().item(),
+            exact=bool(torch.equal(out, ref)), deterministic=bool(torch.equal(again, out)),
+            twin_deterministic=bool(torch.equal(twin_again, ref)), geometry=f"{-(-R * d // 4 // 1024)} blocks of 256 threads, "
+            "4 16-byte vectors a thread",
+            ms=device_ms(lambda: pe.pos_embed_fwd(h, *tables, ids)),
+            plain_ms=device_ms(lambda: pe.pos_embed_ref(h, *tables, ids)), library_ms=None,
+            **bound(nbytes(h, ids, *tables, out), 3 * R * d, "f32"),
+        ))
+        if not backward:
+            continue
+        gout = torch.randn(R, d, generator=g).to(dev)
+        got = torch.cat(pe.pos_embed_grad(gout, ids, *sizes))
+        again = torch.cat(pe.pos_embed_grad(gout, ids, *sizes))
+        leaves = [t.detach().clone().requires_grad_() for t in tables]
+        twin_out = pe.pos_embed_ref(h, *leaves, ids)
+        twin_bwd = lambda: torch.autograd.grad(twin_out, leaves, gout, retain_graph=True)  # noqa: E731
+        ref = torch.cat(twin_bwd())
+        library = lambda: [torch.zeros(n, d, device=dev).index_put_(  # noqa: E731
+            (ids[:, k],), gout, accumulate=True) for k, n in enumerate(sizes)]
+        width, chunk = pe.grad_plan(R, d, sum(sizes), 4, _build.sm_count(dev))
+        walk = pe.grad_walk(gout, pe.table_rows(ids, *sizes), sum(sizes), chunk)
+        torch.cuda.synchronize()
+        rows.append(dict(
+            kernel="pos_embed_grad", shape=f"({R}, {d}) -> tables 15/4/11", main_path=True,
+            rel=rel_err(got, ref), max_abs_err=(got - ref).abs().max().item(),
+            exact=bool(torch.equal(got, walk)), exact_to="the walk of its order",
+            deterministic=bool(torch.equal(again, got)),
+            twin_deterministic=bool(torch.equal(torch.cat(twin_bwd()), ref)),
+            geometry=f"{-(-R // chunk)} chunks of {chunk} rows x {-(-d // 4 // width)} slabs of "
+            f"{width} threads, {pe.grad_smem(sum(sizes), width, 4)} bytes of shared memory a "
+            "block; then the chunks' sums",
+            ms=device_ms(lambda: pe.pos_embed_grad(gout, ids, *sizes)),
+            plain_ms=event_ms(twin_bwd), library_ms=event_ms(library),
+            **bound(nbytes(gout, ids, got), 3 * R * d, "f32"),
+        ))
     return rows
 
 

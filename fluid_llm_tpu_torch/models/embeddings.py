@@ -17,6 +17,7 @@ from torch import nn
 
 from fluid_llm_tpu_torch.config import EncoderConfig, PosEmbeddingConfig
 from fluid_llm_tpu_torch.models.common import CNN, MLP, dropout
+from fluid_llm_tpu_torch.ops.pos_embed import pos_embed_add
 
 
 class PatchEncoder(nn.Module):
@@ -65,10 +66,12 @@ class PosEmbed(nn.Module):
                 std = 1.0 / math.sqrt(table.shape[1]) if self.init_mode == "scaled" else 1.0
                 table.normal_(0.0, std, generator=generator)
 
-    def forward(self, h: torch.Tensor, position_ids: torch.Tensor) -> torch.Tensor:
-        """h: (..., llm_dim); position_ids: (..., 3) int -> h + ex + ey + et."""
-        e = self.x[position_ids[..., 0]] + self.y[position_ids[..., 1]] + self.t[position_ids[..., 2]]
-        return h + e.to(h.dtype)
+    def forward(self, h: torch.Tensor, position_ids: torch.Tensor,
+                kernels: bool = True) -> torch.Tensor:
+        """h: (..., llm_dim); position_ids: (..., 3) int -> h + ex + ey + et,
+        through ``ops/pos_embed``'s kernels on CUDA tensors with ``kernels``,
+        else its plain twin."""
+        return pos_embed_add(h, self.x, self.y, self.t, position_ids, kernels)
 
 
 def _sincos_ladder3(x: torch.Tensor, pos_scaled: torch.Tensor) -> torch.Tensor:
@@ -145,13 +148,16 @@ class InputEmbeddings(nn.Module):
 
     def forward(self, x: torch.Tensor, position_ids: torch.Tensor,
                 generator: torch.Generator | None = None,
-                spatial_scale: tuple[int, int] | None = None) -> torch.Tensor:
+                spatial_scale: tuple[int, int] | None = None,
+                kernels: bool = True) -> torch.Tensor:
         """(bs, seq, N_patch, C, px, py) -> (bs, seq, N_patch, llm_dim);
         ``generator``: training, with the layer's dropout drawn from it;
-        ``spatial_scale``: (Nx_patch, Ny_patch), which ``rope_abs`` needs."""
+        ``spatial_scale``: (Nx_patch, Ny_patch), which ``rope_abs`` needs;
+        ``kernels``: the learned positions' add through its CUDA kernels on
+        CUDA tensors (True) or its plain twin (False)."""
         h = self.patch(x)
         if self.pos_type == "pos":
-            h = self.pos(h, position_ids)
+            h = self.pos(h, position_ids, kernels)
         elif self.pos_type == "rope_abs":
             if spatial_scale is None:
                 raise ValueError("rope_abs needs the static spatial_scale (Nx, Ny)")

@@ -54,9 +54,10 @@ from fluid_llm_tpu_torch.tools.profiling import span
 
 
 class FluidLLM(nn.Module):
-    """``kernels``: route the backbone's attention and the decoder's slot
-    attention through the CUDA kernels on CUDA tensors (True), or through
-    their plain PyTorch twins (False, for comparisons on the card)."""
+    """``kernels``: route the learned positions' add, the backbone's attention
+    and the decoder's slot attention through the CUDA kernels on CUDA
+    tensors (True), or through their plain PyTorch twins (False, for
+    comparisons on the card)."""
 
     def __init__(self, cfg: Config, ds_props: DSProps, backbone_cfg: bb.BackboneConfig,
                  kernels: bool = True):
@@ -188,7 +189,8 @@ class FluidLLM(nn.Module):
     def _frames(self, states, position_ids, generator=None) -> torch.Tensor:
         bs, f, n = states.shape[:3]
         h = self.input_emb(states, position_ids, generator,
-                           spatial_scale=(self.ds_props.Nx_patch, self.ds_props.Ny_patch))
+                           spatial_scale=(self.ds_props.Nx_patch, self.ds_props.Ny_patch),
+                           kernels=self.kernels)
         return h.to(self.backbone_cfg.dtype).reshape(bs, f * n, -1)
 
     def embed_frames(self, states, position_ids, generator=None) -> torch.Tensor:

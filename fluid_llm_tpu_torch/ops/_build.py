@@ -50,6 +50,8 @@ SIGNATURES = {
     "segment_gather_bf16": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
     "indexed_linear_bf16": [_P, _LL, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "short_attention_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 4 + [ctypes.c_float, _I, _P],
+    "pos_embed_fwd": [_P] * 6 + [_LL] + [_I] * 5 + [_P],
+    "pos_embed_grad": [_P] * 6 + [_I] * 8 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -52,7 +52,13 @@ and 132, ids out of range and rows off 16 bytes included.  Both hold at
 GraphViT's unsorted member ids (F 2, 32, 64, 512), and in bf16 (F 1, 32,
 128, 512; the sum against the walk on the values in f32, rounded once);
 a GraphViT train step in f32 and bf16 agrees with its twins and launches
-what the code counts.
+what the code counts.  The learned positions' add (f32) equals its twin
+bit for bit forward, at the training step's and the 350m rollout's shapes
+and at its plan's edges (d off the slab, tables too long for a full-width
+accumulator, fewer rows than a block has in flight, inputs off 16 bytes,
+one-row tables); its backward equals the walk of its own order bit for
+bit, lies within f32 rounding of the twin's ``index_put_`` sums, and
+repeats bit for bit, also from a graph; dh is the incoming gradient.
 A gradient that is zero in exact arithmetic (dq and dk of rows that see
 only their diagonal) is held to rounding noise, 1e-4 of |dout|, instead.
 """
@@ -68,6 +74,7 @@ from fluid_llm_tpu_torch.ops import exact_attention as xa
 from fluid_llm_tpu_torch.ops import flash_attention as fa
 from fluid_llm_tpu_torch.ops import grid_gnn_fused as gf
 from fluid_llm_tpu_torch.ops import indexed_linear as il
+from fluid_llm_tpu_torch.ops import pos_embed as pe
 from fluid_llm_tpu_torch.ops import quant
 from fluid_llm_tpu_torch.ops import quant_matmul as qmm
 from fluid_llm_tpu_torch.ops import short_attention as sa
@@ -438,7 +445,7 @@ def test_train_steps_on_card(dev, mode):
     trainer = Trainer(model.to(dev))
     batch = next(make_batches(ds, 2, shuffle=False, device=dev))
     counters = (fa.flash_forward, fa.flash_dq, fa.flash_dkv, gf.fused_slot_attention,
-                gf.slot_attention_bwd, xa.causal_attention)
+                gf.slot_attention_bwd, xa.causal_attention, pe.pos_embed_fwd, pe.pos_embed_grad)
     before = [fn.launches for fn in counters]
     losses = [trainer.train_step(batch, mode)["loss"].item() for _ in range(2)]
     torch.cuda.synchronize()
@@ -447,6 +454,9 @@ def test_train_steps_on_card(dev, mode):
     assert ran[:3] == [4, 4, 4] and ran[4] == 4  # 2 layers, 2 convs, 2 steps
     # gen: 3-step guide rollouts through the exact kernel (layer 0 of 2)
     assert ran[5] == (6 if mode == "gen" else 0)
+    # the learned positions: a forward and a backward a step, and gen's
+    # guide rollouts' 3 forwards
+    assert ran[6:] == [8 if mode == "gen" else 2, 2]
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -1500,3 +1510,141 @@ def test_stacked_streaming_and_short_rollouts_kernels_match_twins(dev):
                xa.causal_attention.launches - before[1])
         assert ran == ((3, 0) if kernels else (0, 0))
     assert _rel(short[True][:, 0], short[False][:, 0]) <= REL_TOL
+
+
+POS_CASES = [  # (bs, tokens, d, table sizes, offset of the inputs in their buffers)
+    (64, 11 * 60, 768, (15, 4, 11), 0),   # the training step: 42 240 rows, see-init frame
+    (32, 11 * 60, 1024, (15, 4, 11), 0),  # the 350m rollout's window: 21 120 rows
+    (4, 301, 772, (15, 4, 11), 0),        # d not a multiple of the slab (2 slabs of 97)
+    (2, 2500, 768, (600, 300, 700), 0),   # tables too long for one 96-column accumulator
+    (1, 5, 768, (15, 4, 11), 0),          # fewer rows than a block's rows in flight
+    (3, 333, 768, (15, 4, 11), 1),        # inputs off 16 bytes: one float a load
+    (2, 50, 6, (1, 1, 1), 0),             # one-row tables, d under a vector
+]
+
+
+def _pos_inputs(dev, bs, L, d, sizes, offset, seed):
+    """h (bs, L, d) and the three tables in f32, ``offset`` floats into
+    their buffers; ids (bs, L, 3) int64, unsorted and repeated, negative
+    ones included."""
+    g = torch.Generator().manual_seed(seed)
+
+    def at_offset(*shape):
+        n = 1
+        for s in shape:
+            n *= s
+        return torch.randn(n + offset, generator=g).to(dev)[offset:].view(*shape)
+
+    h = at_offset(bs, L, d)
+    tables = [at_offset(n, d) for n in sizes]
+    ids = torch.stack([torch.randint(-n, n, (bs, L), generator=g) for n in sizes], -1).to(dev)
+    return h, tables, ids
+
+
+@pytest.mark.parametrize("bs,L,d,sizes,offset", POS_CASES)
+def test_pos_embed_kernels_match_twin(dev, bs, L, d, sizes, offset):
+    """Forward: the twin bit for bit (the same f32 adds in the same order).
+    Backward through autograd: dh the incoming gradient itself; each table's
+    gradient the kernel's order of additions (``grad_walk`` under its plan)
+    bit for bit, and within a few f32 roundings of the twin's
+    ``index_put_`` sums (rtol 1e-5 of the largest element: sums of up to
+    10 560 rows in another order)."""
+
+    h, tables, ids = _pos_inputs(dev, bs, L, d, sizes, offset, seed=L + d)
+    if offset:
+        assert pe.vector(d, h, *tables) == 1
+    gout = torch.randn(bs, L, d, generator=torch.Generator().manual_seed(7)).to(dev)
+    leaves = [a.detach().clone().requires_grad_() for a in tables]
+    hl = h.detach().requires_grad_()
+    before = (pe.pos_embed_fwd.launches, pe.pos_embed_grad.launches)
+    out = pe.pos_embed_add(hl, *leaves, ids)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert (pe.pos_embed_fwd.launches - before[0], pe.pos_embed_grad.launches - before[1]) == (1, 1)
+    twin_leaves = [a.detach().clone().requires_grad_() for a in tables]
+    twin = pe.pos_embed_ref(h, *twin_leaves, ids)
+    twin.backward(gout)
+    assert torch.equal(out, twin)
+    assert torch.equal(hl.grad, gout)
+    ids2 = ids.reshape(-1, 3)
+    _, rows = pe.grad_plan(ids2.shape[0], d, sum(sizes), pe.vector(d, gout, *tables),
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
+    walk = pe.grad_walk(gout.reshape(-1, d), pe.table_rows(ids2, *sizes), sum(sizes), rows)
+    got = torch.cat([a.grad for a in leaves])
+    assert torch.equal(got, walk)
+    want = torch.cat([a.grad for a in twin_leaves])
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("bs,L,d,sizes,offset", [POS_CASES[0], POS_CASES[3], POS_CASES[5]])
+def test_pos_embed_backward_repeats_bit_for_bit_also_in_a_graph(dev, bs, L, d, sizes, offset):
+    """The two-launch backward (no atomics, fixed order) gives the same bits
+    on a second call and from a CUDA graph; each call counts once."""
+
+    _, _, ids = _pos_inputs(dev, bs, L, d, sizes, offset, seed=3)
+    gout = _pos_inputs(dev, bs, L, d, sizes, offset, seed=4)[0].reshape(-1, d)
+    ids2 = ids.reshape(-1, 3)
+    before = pe.pos_embed_grad.launches
+    first = pe.pos_embed_grad(gout, ids2, *sizes)
+    again = pe.pos_embed_grad(gout, ids2, *sizes)
+    torch.cuda.synchronize()
+    assert pe.pos_embed_grad.launches - before == 2
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    for replayed in _graph_replays(lambda: pe.pos_embed_grad(gout, ids2, *sizes)):
+        for a, b in zip(first, replayed):
+            assert torch.equal(a, b)
+
+
+def test_pos_embed_routes_and_raises(dev):
+    """``kernels=False`` and CPU tensors take the twin (no launch); bf16 on
+    the card, mixed dtypes and ids of the wrong shape raise; int32 ids, and
+    ids on the CPU, are cast or moved once and give the same result."""
+
+    h, tables, ids = _pos_inputs(dev, 2, 60, 64, (15, 4, 11), 0, seed=9)
+    before = (pe.pos_embed_fwd.launches, pe.pos_embed_grad.launches)
+    twin = pe.pos_embed_add(h, *tables, ids, kernels=False)
+    cpu = pe.pos_embed_add(h.cpu(), *(a.cpu() for a in tables), ids.cpu())
+    assert (pe.pos_embed_fwd.launches, pe.pos_embed_grad.launches) == before
+    assert torch.equal(cpu, twin.cpu())
+    assert torch.equal(pe.pos_embed_add(h, *tables, ids.int()), twin)
+    assert torch.equal(pe.pos_embed_add(h, *tables, ids.cpu()), twin)
+    with pytest.raises(ValueError):
+        pe.pos_embed_add(h.bfloat16(), *(a.bfloat16() for a in tables), ids)
+    with pytest.raises(ValueError):
+        pe.pos_embed_add(h, tables[0].double(), *tables[1:], ids)
+    with pytest.raises(ValueError):
+        pe.pos_embed_add(h, *tables, ids[:, :30])
+
+
+def test_input_embeddings_launch_the_pos_kernels_with_kernels(dev):
+    """A training forward and backward of ``InputEmbeddings`` on the card:
+    one forward and one backward launch with ``kernels``, none without;
+    the outputs equal and the tables' gradients within f32 rounding."""
+    from fluid_llm_tpu_torch.config import EncoderConfig, PosEmbeddingConfig
+    from fluid_llm_tpu_torch.models.embeddings import InputEmbeddings
+
+    module = InputEmbeddings(3 * 16 * 16, 768, (15, 4, 11), EncoderConfig(),
+                             PosEmbeddingConfig(in_emb_ln_eps=1e-5))
+    module.reset_parameters(torch.Generator().manual_seed(1))
+    module.to(dev)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(8, 11, 60, 3, 16, 16, generator=g).to(dev)
+    pos = torch.stack([torch.arange(60) % 15, (torch.arange(60) // 15) % 4, torch.zeros(60, dtype=torch.long)], -1)
+    pos = pos.expand(8, 11, 60, 3).clone()
+    pos[..., 2] = torch.arange(11)[None, :, None]
+    pos = pos.to(dev)
+    grads, outs = {}, {}
+    for kernels in (True, False):
+        module.zero_grad(set_to_none=True)
+        before = (pe.pos_embed_fwd.launches, pe.pos_embed_grad.launches)
+        out = module(x, pos, kernels=kernels)
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        ran = (pe.pos_embed_fwd.launches - before[0], pe.pos_embed_grad.launches - before[1])
+        assert ran == ((1, 1) if kernels else (0, 0))
+        outs[kernels] = out.detach()
+        grads[kernels] = torch.cat([module.pos.x.grad, module.pos.y.grad, module.pos.t.grad])
+    assert torch.equal(outs[True], outs[False])
+    err = (grads[True] - grads[False]).abs().max().item()
+    assert err <= 1e-5 * grads[False].abs().max().item()

@@ -26,8 +26,10 @@ chunk or round after round, and starts the long rows first
 every edge row once; the slot-attention backward's and forward's strip
 walks (``ops/grid_gnn_fused.bwd_plan``, ``fwd_plan``, ``strips``), walked
 in numpy, equal their twins, and the forward's plan fills the card at the
-rollout's one frame and fits every width the wrapper takes; the kernels'
-constants are read from their sources; every shape ``supported`` accepts
+rollout's one frame and fits every width the wrapper takes; the learned
+positions' backward (``ops/pos_embed.grad_plan``) covers every row and
+column once within the kernel's bounds; the kernels' constants are read
+from their sources; every shape ``supported`` accepts
 gets a plan, w8a8's covering N and K exactly.  The kernels themselves run only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -932,3 +934,31 @@ def test_gather_plan_at_the_graph_shapes_and_is_the_kernels():
     dispatched = re.findall(r"if \(depth == (\w+)\)", src)
     assert [so.GATHER_DEPTH if d == "GATHER_DEPTH" else int(d) for d in dispatched] == \
         list(so.GATHER_DEPTHS)
+
+
+# -- the learned positions' add (ops/pos_embed.grad_plan)
+
+
+@pytest.mark.parametrize("R,d,n_tab", [(42240, 768, 30), (21120, 1024, 30), (1204, 772, 30),
+                                       (5000, 768, 1600), (5, 768, 30), (100, 6, 3),
+                                       (42240, 767, 30)])
+def test_pos_embed_grad_plan_covers_every_row_and_column_within_the_kernels_bounds(R, d, n_tab):
+    """The chunks tile the rows and the slabs the vector columns, each
+    once; a block's threads and shared memory are within the kernel's
+    bounds (``WIDTH_MAX``, ``SMEM_MAX``); ``ID_TILE`` and ``SMEM_MAX`` are the
+    kernel's own (``csrc/pos_embed.cu``); the grid fills 132 SMs where the
+    rows allow."""
+    from fluid_llm_tpu_torch.ops import pos_embed as pe
+
+    src = (Path(pe.__file__).parents[1] / "csrc" / "pos_embed.cu").read_text()
+    const = {name: int(re.search(rf"^constexpr int {name} = (\d+);", src, re.M).group(1))
+             for name in ("ID_TILE", "SMEM_MAX", "WIDTH_MAX")}
+    assert (const["ID_TILE"], const["SMEM_MAX"]) == (pe.ID_TILE, pe.SMEM_MAX)
+    for vec in (1, 4) if d % 4 == 0 else (1,):
+        width, rows = pe.grad_plan(R, d, n_tab, vec, 132)
+        nv, chunks = d // vec, -(-R // rows)
+        slabs = -(-nv // width)
+        assert 1 <= width <= min(pe.MAX_WIDTH, const["WIDTH_MAX"], nv)
+        assert pe.grad_smem(n_tab, width, vec) <= pe.SMEM_MAX
+        assert (chunks - 1) * rows < R <= chunks * rows and (slabs - 1) * width < nv <= slabs * width
+        assert chunks * slabs >= min(132, -(-R // pe.MIN_CHUNK_ROWS) * slabs)
